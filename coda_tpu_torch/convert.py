@@ -1,0 +1,50 @@
+"""Carrying CODA state between the reference package and the port.
+
+The selector state is this system's "weights": a mid-run posterior and
+its caches. :func:`state_from_numpy` turns the reference's ``CODAState``
+— taken field by field with ``np.asarray`` — into the port's
+:class:`~coda_tpu_torch.selectors.coda.CODAState` on a device, so both
+packages can continue from the same mid-run state; :func:`state_to_numpy`
+goes back. Fields of later slices (sparse posterior, surrogate fit) must
+be absent or None.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from coda_tpu_torch.selectors.coda import CODAState
+from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
+
+_DTYPES = {
+    "dirichlets": np.float32, "pi_hat_xi": np.float32, "pi_hat": np.float32,
+    "unlabeled": np.bool_, "pbest_rows": np.float32, "pbest_hyp": np.float32,
+    "pi_xi_unnorm": np.float32, "eig_scores_cached": np.float32,
+}
+_LATER_SLICES = ("sparse", "surrogate")
+
+
+def state_from_numpy(fields: dict, device: DeviceLike = None) -> CODAState:
+    """``{field: np.ndarray}`` (e.g. ``{k: np.asarray(v) for k, v in
+    jax_state._asdict().items()}``) -> the port's state on ``device``."""
+    dev = resolve_device(device)
+    for name in _LATER_SLICES:
+        if fields.get(name) is not None:
+            raise NotImplementedError(
+                f"state field {name!r} belongs to a later slice of the port")
+    missing = [f for f in CODAState._fields if fields.get(f) is None]
+    if missing:
+        raise ValueError(f"state is missing {missing}: the port carries the "
+                         "incremental tier's full state")
+    out = {}
+    for f in CODAState._fields:
+        arr = np.ascontiguousarray(np.asarray(fields[f], dtype=_DTYPES[f]))
+        out[f] = torch.from_numpy(arr.copy()).to(dev)
+    return CODAState(**out)
+
+
+def state_to_numpy(state: CODAState) -> dict:
+    """The port's state as ``{field: np.ndarray}`` on the host."""
+    return {f: getattr(state, f).detach().cpu().numpy()
+            for f in CODAState._fields}

@@ -1,0 +1,105 @@
+"""Builds the hand-written CUDA kernels under ``coda_tpu_torch/csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+with ``nvcc`` for ``sm_90a`` into ``coda_tpu_torch/_build/<name>-<hash>.so``
+(git-ignored), loaded with ``ctypes``. The hash covers the source and the
+flags, so an edited source never loads a stale library. Nothing is built
+when a module is imported: a kernel's wrapper builds its library at first
+use, and :func:`build_all` starts one ``nvcc`` per source, all together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("eig_score", "row_gather")
+
+# -fmad=false keeps a*b+c as two rounded operations, as the plain PyTorch
+# versions compute it; the kernels are bandwidth-bound, so FMA
+# contraction would buy nothing but a second rounding pattern.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` for ``name`` unless its library is built; returns
+    ``(process, tmp_path, out_path)`` or None."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           str(SRC_DIR / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> str:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)          # atomic: a reader never sees half a file
+    out.with_suffix(".log").write_text(log)
+    return log
+
+
+def build_all(names=SOURCES) -> dict:
+    """Build every library not yet built, one ``nvcc`` per source, all
+    started together. Returns ``{"seconds": wall, "logs": {name: ptxas
+    output}}`` (empty logs for libraries that were already built)."""
+    t0 = time.perf_counter()
+    jobs = {n: _start(n) for n in names}
+    logs = {}
+    try:
+        for n, job in jobs.items():
+            logs[n] = "" if job is None else _finish(n, job)
+    finally:
+        for job in jobs.values():
+            if job is not None and job[0].poll() is None:
+                job[0].kill()
+                job[0].wait()
+    return {"seconds": time.perf_counter() - t0, "logs": logs}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,99 @@
+"""Counter-based random bits that reproduce ``jax.random`` exactly.
+
+The reference engine draws its randomness from JAX's threefry2x32 in the
+*partitionable* mode (``coda_tpu/__init__.py`` turns it on): a key is two
+uint32 words, ``split`` and ``uniform`` hash ``(key, position)`` with
+threefry2x32 over a 64-bit iota. Reproducing the same bits keeps the
+tie-break draws of :func:`coda_tpu_torch.ops.masked.masked_argmax_tiebreak`
+— and therefore whole per-seed trajectories — identical to the reference.
+
+Keys are explicit ``(2,)`` int64 tensors holding uint32 values; all uint32
+arithmetic is emulated in int64 with masking (PyTorch's uint32 dtype lacks
+the shifts and xors this needs). Functions run on whichever device their
+key or ``device`` argument names; a key is tiny, so the engine derives its
+key schedule on the host and only the ``(N,)`` tie-break draw runs on the
+card.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Union
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
+    """The 20-round threefry2x32 block cipher, elementwise over the count
+    words ``x1``/``x2`` (int64 tensors of uint32 values). ``k1``/``k2`` are
+    0-d tensors or Python ints. Returns the two output words."""
+    ks = (k1, k2, (k1 ^ k2 ^ _PARITY) & _MASK)
+    x = [(x1 + ks[0]) & _MASK, (x2 + ks[1]) & _MASK]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & _MASK
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _MASK
+        x[1] = (x[1] + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x[0], x[1]
+
+
+def _iota_2x32(shape: Sequence[int], device) -> tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """A row-major 64-bit iota over ``shape`` as (hi, lo) uint32 words."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    return idx >> 32, idx & _MASK
+
+
+def PRNGKey(seed: int, device: Union[str, torch.device] = "cpu"
+            ) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` with 32-bit seeds: ``[0, seed mod
+    2**32]`` (the high word of a 32-bit seed shifted right by 32 is 0)."""
+    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
+                        device=device)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: ``(num, 2)`` keys, row ``i`` the
+    threefry hash of ``key`` at count ``i`` (the partitionable fold-like
+    split)."""
+    hi, lo = _iota_2x32((num,), key.device)
+    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape: Sequence[int],
+                device=None) -> torch.Tensor:
+    """32-bit random words of ``shape``: the xor of threefry's two output
+    words at each position (partitionable mode). ``device`` defaults to
+    the key's; a host key may fill a device tensor."""
+    device = key.device if device is None else torch.device(device)
+    hi, lo = _iota_2x32(tuple(shape), device)
+    if key.device == device:
+        k1, k2 = key[0], key[1]
+    else:
+        # a host key enters as two Python ints: copying it to the card
+        # would synchronise the stream every round
+        k1, k2 = (int(v) for v in key.tolist())
+    b1, b2 = threefry2x32(k1, k2, hi, lo)
+    return b1 ^ b2
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int],
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in float32 on [0, 1): the top 23
+    bits of each word become the mantissa of a float in [1, 2), minus 1."""
+    bits = random_bits(key, shape, device)
+    fbits = (bits >> 9) | 0x3F800000
+    # every value is < 2**31, so the int32 view is the same bit pattern
+    floats = fbits.to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(floats, 0.0)

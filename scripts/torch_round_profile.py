@@ -1,0 +1,157 @@
+#!/usr/bin/env python3
+"""Where a CODA round's time goes on the GPU (coda_tpu_torch main path).
+
+    python scripts/torch_round_profile.py [--shape H,N,C] [--rounds 5]
+        [--out profile.json]
+
+Builds the synthetic task of ``--shape`` (default the headline 1000,50000,10)
+on the card, runs CODA's init twice (cold, then warm; host clock with the
+device synchronised) and two warm-up rounds, then times ``--rounds`` rounds
+twice: on the host clock with the device synchronised (ms/round), and under
+``torch.profiler`` (device time per kernel, grouped into the port's CUDA
+kernels, matrix products, and other PyTorch kernels; only device-side
+events are summed, so an operator and the kernels it launched are not
+counted twice). Kernels on one stream do not overlap, so the device's busy
+share is the summed kernel time over the profiled wall time. Prints a
+summary and, with ``--out``, writes the full table as JSON there. Needs a
+CUDA device; prints the card's name and power limit beside the numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def _group(name: str) -> str:
+    n = name.lower()
+    if "score_kernel" in n:
+        return "kernel: eig_score/refresh (csrc/eig_score.cu)"
+    if "row_gather" in n:
+        return "kernel: row_gather (csrc/row_gather.cu)"
+    if "gemm" in n or "cutlass" in n or "xmma" in n or "matmul" in n:
+        return "matrix products (cuBLAS fp32)"
+    if "memcpy" in n or "memset" in n:
+        return "copies"
+    return "other PyTorch kernels"
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--shape", default="1000,50000,10")
+    p.add_argument("--rounds", type=int, default=5)
+    p.add_argument("--out", default=None,
+                   help="also write the full table as JSON here")
+    args = p.parse_args(argv)
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    from coda_tpu_torch import random as trandom
+    from coda_tpu_torch.data import make_synthetic_task
+    from coda_tpu_torch.engine.loop import make_step_fn
+    from coda_tpu_torch.oracle import true_losses
+    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    H, N, C = (int(x) for x in args.shape.split(","))
+    dev = torch.device("cuda")
+    task = make_synthetic_task(0, H=H, N=N, C=C, device=dev)
+    sel = make_coda(task.preds, CODAHyperparams(eig_chunk=1024), device=dev)
+    step = make_step_fn(sel, task.labels,
+                        true_losses(task.preds, task.labels))
+    k_init, _, k_scan = trandom.split(trandom.PRNGKey(0), 3)
+    keys = trandom.split(k_scan, 2 + 2 * args.rounds)
+    init_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = sel.init(k_init)
+        torch.cuda.synchronize()
+        init_ms.append((time.perf_counter() - t0) * 1e3)
+    cum = torch.zeros((), device=dev)
+    for k in keys[:2]:
+        state, cum, _ = step(state, cum, k)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for k in keys[2:2 + args.rounds]:
+        state, cum, _ = step(state, cum, k)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3 / args.rounds
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in keys[2 + args.rounds:]:
+            state, cum, _ = step(state, cum, k)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        # device-side events only: a CPU operator's "self device time" is
+        # the time of the kernels it launched, which appear as rows too
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = ev.self_device_time_total
+        if dev_us > 0:
+            rows.append({"name": ev.key, "count": ev.count,
+                         "device_ms_per_round": dev_us / 1e3 / args.rounds})
+    rows.sort(key=lambda r: -r["device_ms_per_round"])
+    groups: dict = {}
+    for r in rows:
+        g = _group(r["name"])
+        groups[g] = groups.get(g, 0.0) + r["device_ms_per_round"]
+    device_ms = sum(groups.values())
+    launches = sum(r["count"] for r in rows) / args.rounds
+    busy = device_ms * args.rounds / prof_wall_ms if prof_wall_ms else 0.0
+    summary = {
+        "card": smi, "shape_HNC": [H, N, C], "rounds": args.rounds,
+        "init_ms_cold": init_ms[0], "init_ms_warm": init_ms[1],
+        "ms_per_round": round_ms,
+        "device_launches_per_round": launches,
+        "profiled_wall_ms_per_round": prof_wall_ms / args.rounds,
+        "device_ms_per_round": device_ms, "device_busy_share": busy,
+        # the profiler slows the host; this share is against the round
+        # timed without it (the same kernels, another window)
+        "device_share_of_unprofiled_round": device_ms / round_ms,
+        "groups_ms_per_round": dict(sorted(groups.items(),
+                                           key=lambda kv: -kv[1])),
+        "top_ops": rows[:25],
+    }
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(summary, f, indent=1)
+    print(f"card: {smi}")
+    print(f"shape (H, N, C) = ({H}, {N}, {C}): init {init_ms[0]:.1f} ms "
+          f"cold, {init_ms[1]:.1f} ms warm; {round_ms:.3f} ms/round (host "
+          f"clock, synchronised); profiled device time {device_ms:.3f} "
+          f"ms/round in {launches:.0f} device events, busy share "
+          f"{busy:.3f} of the profiled wall, "
+          f"{device_ms / round_ms:.3f} of the unprofiled round")
+    for g, ms in summary["groups_ms_per_round"].items():
+        print(f"  {g}: {ms:.3f} ms/round")
+    for r in rows[:12]:
+        print(f"  {r['device_ms_per_round']:8.3f} ms  x{r['count']:<4d} "
+              f"{r['name'][:90]}")
+    if not rows:
+        print("  torch.profiler recorded no device time: not measured")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
