@@ -9,24 +9,34 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
 1. builds the CUDA kernels from ``coda_tpu_torch/csrc`` (one ``nvcc`` per
    source, all started together) and prints the build time, the compiler's
    register/spill report and the card's name and power limit;
-2. holds each kernel to its plain PyTorch version on the card at the
-   headline shape (C, N, H) = (10, 50000, 1000) and at a ragged N = 50001,
-   printing the largest error against the stated tolerance, the median
-   time of 20 launches (CUDA events, after warm-up), the plain version's
-   time, the least time the card could take (bytes or operations over the
-   card's peak rates) and, for the gather, the time of the PyTorch
-   indexing expression that computes the same sum;
+2. holds each kernel, in each flavour (fp32 or bf16 cache; exact or approx
+   entropy), to its plain PyTorch version on the card at the headline
+   shape (C, N, H) = (10, 50000, 1000) and at a ragged N = 50001, printing
+   the largest error against the stated tolerance, the median time of 20
+   launches (CUDA events, after warm-up), the plain version's time, the
+   least time the card could take (bytes or operations over the card's
+   peak rates) and, for the gather, the time of the PyTorch indexing
+   expression that computes the same sum. Kernel 6 (the fused
+   refresh-compute-score) also shows its row against the plain one;
 3. drives the main path — ``make_synthetic_task(0, H=1000, N=50000, C=10)``
-   through ``run_seeds_compiled`` with CODA, 20 rounds, one seed — with
-   every launch counter set to 0 just before and read just after, and
-   checks that kernel 1 ran once (init) and kernels 2 and 3 once a round;
+   through ``run_seeds_compiled`` with CODA, one seed — once per
+   configuration of MAIN_PATHS: the reference's default (precomputed
+   refresh, fp32 cache) and its headline-speed configuration (fused
+   refresh, bf16 cache) for 20 rounds each, every other flavour for 5.
+   Each run has every launch counter set to 0 just before and read just
+   after, and must have launched kernel 1 once (init), kernel 3 once a
+   round and kernel 2 (precomputed) or kernel 6 (fused) once a round, in
+   the run's flavour, and nothing else;
 4. runs ``data/digits_h80.npz`` for 30 rounds on the kernel path and on the
-   plain path and requires identical trajectories; runs ``data/digits.npz``
-   for 100 rounds x 3 seeds and compares it with the reference package's
-   committed record ``runs/surrogate_r17/exact`` (same key schedule; the
-   rounds before the record's first near-tie must agree).
+   plain path, precomputed and fused, and requires identical trajectories;
+   runs it for 100 rounds fused and precomputed on the kernels and requires
+   the same chosen items and best models; runs ``data/digits.npz`` for 100
+   rounds x 3 seeds and compares it with the reference package's committed
+   record ``runs/surrogate_r17/exact`` (same key schedule; the rounds before
+   the record's first near-tie must agree).
 
-It prints one JSON line with every kernel, then the card's name and power
+It prints one JSON line with every kernel flavour (its ``launches`` summed
+over the main-path runs), then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero; without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -122,88 +132,232 @@ def random_cache(gen, C, N, H, dev):
     return rows, hyp, pi / pi.sum(), pi_xi, hyp_t
 
 
-def phase_kernels(dev, peaks):
-    """Kernels 1-3 against their plain versions at the headline and a
-    ragged shape. Returns per-kernel records (times at the headline)."""
+FLAVOURS = [(dt, approx) for dt in ("float32", "bfloat16")
+            for approx in (False, True)]
+K6_RTOL, K6_ATOL = 1e-3, 2e-5        # kernel 6 scores: the reference's own
+# kernel 6's fp32 row: the CPU tests' rtol 2e-5, and their atol 2e-6 (set
+# for rows of H=10, elements about 0.1) scaled to elements about 1/H, so a
+# product run at TF32 or bf16 fails
+K6_ROW_RTOL = 2e-5
+
+
+def _check_refresh_rows(hyp_k, hyp_p, hyp0, c_idx, C):
+    """Kernel and plain cache after a refresh of row c: equal elsewhere,
+    and equal to the input outside row c."""
+    import torch
+
+    others = [i for i in range(C) if i != c_idx]
+    if not torch.equal(hyp_k[others], hyp0[others]):
+        raise AssertionError("refresh kernel touched another class row")
+    if not torch.equal(hyp_p[others], hyp0[others]):
+        raise AssertionError("plain refresh touched another class row")
+
+
+def _k12(dev, peaks, recs, N, dtype, approx, rows, hyp32, pi, pi_xi, hyp_t):
+    """Kernels 1 and 2 in one flavour against their plain versions."""
     import torch
 
     from coda_tpu_torch.ops import eig_kernels as ek
+
+    C, _, H = hyp32.shape
+    headline = N == HEADLINE[1]
+    tdt = getattr(torch, dtype)
+    size = torch.finfo(tdt).bits // 8
+    hyp = hyp32.to(tdt)
+    atol = score_atol(H)
+    tag = f"{dtype}{',approx' if approx else ''}"
+
+    # kernel 1
+    name = ek.flavour("eig_score", tdt, approx)
+    got = ek.eig_scores_cache(rows, hyp, pi, pi_xi, approx=approx)
+    want = ek.eig_scores_from_cache(rows, hyp, pi, pi_xi, chunk=1024,
+                                    approx=approx)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=SCORE_RTOL, atol=atol)
+    r = recs.setdefault(name, dict(
+        source="coda_tpu_torch/csrc/eig_score.cu",
+        replaces="coda_tpu/ops/pallas_eig.py:163", max_abs_err=0.0))
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    nbytes = size * C * N * H + 4 * (C * H + C + N * C + H + 1 + N)
+    ms = time_ms(lambda: ek.eig_scores_cache(rows, hyp, pi, pi_xi,
+                                             approx=approx))
+    plain = time_ms(lambda: ek.eig_scores_from_cache(
+        rows, hyp, pi, pi_xi, chunk=1024, approx=approx), reps=5)
+    b, by = bound(nbytes, 8.0 * C * N * H, peaks)
+    log(f"kernel {name} N={N} ({tag}): max_abs_err={err:.3e} (tol atol="
+        f"{atol:.2e} rtol={SCORE_RTOL}) ms={ms:.4f} plain_ms={plain:.4f} "
+        f"bound_ms={b:.4f} ({by})")
+    if headline:
+        r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                 library_ms=None)
+
+    # kernel 2: refresh row c in place (rounded to the storage type), score
+    name = ek.flavour("eig_refresh_score", tdt, approx)
+    c_idx = C // 2
+    c = torch.tensor(c_idx, dtype=torch.int32, device=dev)
+    hyp_k = hyp.clone()
+    got, _ = ek.eig_scores_refresh(rows, hyp_k, hyp_t, c, pi, pi_xi,
+                                   approx=approx)
+    hyp_p = hyp.clone()
+    want, _ = ek.eig_scores_refresh_plain(rows, hyp_p, hyp_t, c, pi, pi_xi,
+                                          chunk=1024, approx=approx)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=SCORE_RTOL, atol=atol)
+    if not torch.equal(hyp_k[c_idx], hyp_t.to(tdt)):
+        raise AssertionError("refresh kernel: row c != hyp_t rounded")
+    _check_refresh_rows(hyp_k, hyp_p, hyp, c_idx, C)
+    if not torch.equal(hyp_k, hyp_p):
+        raise AssertionError("refresh kernel cache != plain cache")
+    del hyp_p
+    r = recs.setdefault(name, dict(
+        source="coda_tpu_torch/csrc/eig_score.cu",
+        replaces="coda_tpu/ops/pallas_eig.py:646", max_abs_err=0.0))
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    nbytes = (size * ((C - 1) * N * H + N * H) + 4 * (
+        N * H + C * H + C + N * C + H + 1 + N + 1))
+    ms = time_ms(lambda: ek.eig_scores_refresh(rows, hyp_k, hyp_t, c, pi,
+                                               pi_xi, approx=approx))
+    plain = time_ms(lambda: ek.eig_scores_refresh_plain(
+        rows, hyp_k, hyp_t, c, pi, pi_xi, chunk=1024, approx=approx), reps=5)
+    b, by = bound(nbytes, 8.0 * C * N * H, peaks)
+    log(f"kernel {name} N={N} ({tag}): max_abs_err={err:.3e} (tol atol="
+        f"{atol:.2e} rtol={SCORE_RTOL}) cache == plain cache, other rows "
+        f"bitwise untouched ms={ms:.4f} plain_ms={plain:.4f} "
+        f"bound_ms={b:.4f} ({by})")
+    if headline:
+        r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                 library_ms=None)
+    del hyp, hyp_k
+
+
+def _bf16_boundary_count(row_k, row_p, row32_k, row32_p) -> int:
+    """bf16 rows from kernel and plain: where they differ, by one ulp and
+    only where their fp32 rows round differently. Returns that count."""
+    import torch
+
+    bk, bp = row_k.view(torch.int16), row_p.view(torch.int16)
+    differ = bk != bp
+    straddle = row32_k.to(torch.bfloat16).view(torch.int16) != \
+        row32_p.to(torch.bfloat16).view(torch.int16)
+    if (differ & ~straddle).any():
+        raise AssertionError("bf16 rows differ off a rounding boundary")
+    gap = (bk.to(torch.int32) - bp.to(torch.int32)).abs()
+    if (gap[differ] != 1).any():
+        raise AssertionError("bf16 rows differ by more than one ulp")
+    return int(differ.sum())
+
+
+def _k6(dev, peaks, recs, N, gen, rows0, hyp32, pi, pi_xi):
+    """Kernel 6 in all four flavours against its plain version."""
+    import torch
+
+    from coda_tpu_torch.ops import eig_kernels as ek
+    from coda_tpu_torch.ops.beta import dirichlet_to_beta
+    from coda_tpu_torch.ops.pbest import compute_pbest
+
+    C, _, H = hyp32.shape
+    G = 256
+    headline = N == HEADLINE[1]
+    c_idx = C // 2
+    c = torch.tensor(c_idx, dtype=torch.int32, device=dev)
+    d = torch.rand((H, C, C), generator=gen, device=dev) * 3 + 0.5
+    a, b = dirichlet_to_beta(d)
+    a_t, b_t = a[:, c_idx].contiguous(), b[:, c_idx].contiguous()
+    rows = rows0.clone()
+    rows[c_idx] = compute_pbest(a_t, b_t)
+    hard = torch.randint(0, C, (N, H), generator=gen, device=dev,
+                         dtype=torch.int32)
+    args = (a_t, b_t, hard, c, pi, pi_xi)
+    # the operations the function needs on these inputs: the base product
+    # densely, S and the diff product only where eq = hard == c is 1, and
+    # the scoring of C*N*H elements
+    nnz = int((hard == c_idx).sum())
+    nops = 2.0 * N * H * G + 3.0 * nnz * G + 8.0 * C * N * H
+    rows32 = {}
+    for dtype, approx in FLAVOURS:
+        tdt = getattr(torch, dtype)
+        size = torch.finfo(tdt).bits // 8
+        name = ek.flavour("eig_refresh_compute_score", tdt, approx)
+        hyp = hyp32.to(tdt)
+        hyp_k, hyp_p = hyp.clone(), hyp.clone()
+        got, _ = ek.eig_scores_refresh_compute(rows, hyp_k, *args,
+                                               approx=approx)
+        want, _ = ek.eig_scores_refresh_compute_plain(rows, hyp_p, *args,
+                                                      approx=approx,
+                                                      chunk=1024)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        atol = K6_ATOL + score_atol(H)
+        torch.testing.assert_close(got, want, rtol=K6_RTOL, atol=atol)
+        _check_refresh_rows(hyp_k, hyp_p, hyp, c_idx, C)
+        row_k, row_p = hyp_k[c_idx], hyp_p[c_idx]
+        if dtype == "float32":
+            rows32[approx] = (row_k.clone(), row_p.clone())
+            row_err = float((row_k - row_p).abs().max())
+            rel = float(((row_k - row_p).abs() / row_p.abs().clamp_min(
+                1e-30)).max())
+            row_atol = K6_ROW_RTOL / H
+            torch.testing.assert_close(row_k, row_p, rtol=K6_ROW_RTOL,
+                                       atol=row_atol)
+            row_note = (f"row max_abs_err={row_err:.3e} max_rel_err="
+                        f"{rel:.3e} (tol rtol={K6_ROW_RTOL} atol="
+                        f"{row_atol:.1e})")
+        else:
+            n_b = _bf16_boundary_count(row_k, row_p, *rows32[approx])
+            row_note = (f"bf16 row == plain but for {n_b} of {N * H} "
+                        "elements one ulp apart where the fp32 rows "
+                        "straddle a rounding boundary")
+        del hyp_p
+        r = recs.setdefault(name, dict(
+            source="coda_tpu_torch/csrc/eig_refresh_compute.cu",
+            replaces="coda_tpu/ops/pallas_eig.py:320", max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        nbytes = (size * ((C - 1) * N * H + N * H) + 4 * (
+            N * H + N * C + C * H + C + H + 1 + N + 1 + 3 * H * G + 2 * G
+            + 2 * H))
+        ms = time_ms(lambda: ek.eig_scores_refresh_compute(
+            rows, hyp_k, *args, approx=approx))
+        plain = time_ms(lambda: ek.eig_scores_refresh_compute_plain(
+            rows, hyp_k, *args, approx=approx, chunk=1024), reps=5)
+        b_ms, by = bound(nbytes, nops, peaks)
+        log(f"kernel {name} N={N}: max_abs_err={err:.3e} (tol atol="
+            f"{atol:.2e} rtol={K6_RTOL}) {row_note}; other rows bitwise "
+            f"untouched ms={ms:.4f} plain_ms={plain:.4f} bound_ms="
+            f"{b_ms:.4f} ({by}; eq nonzeros {nnz} of {N * H})")
+        if headline:
+            r.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                     library_ms=None)
+        del hyp, hyp_k
+    del hard
+
+
+def phase_kernels(dev, peaks):
+    """Every kernel, in every flavour, against its plain version at the
+    headline and a ragged shape. Returns per-flavour records (times at the
+    headline)."""
+    import torch
+
     from coda_tpu_torch.ops import gather_kernels as gk
 
-    recs = {
-        "eig_score": dict(source="coda_tpu_torch/csrc/eig_score.cu",
-                          replaces="coda_tpu/ops/pallas_eig.py:163"),
-        "eig_refresh_score": dict(source="coda_tpu_torch/csrc/eig_score.cu",
-                                  replaces="coda_tpu/ops/pallas_eig.py:646"),
-        "row_gather": dict(source="coda_tpu_torch/csrc/row_gather.cu",
-                           replaces="coda_tpu/ops/pallas_gather.py:66"),
-    }
-    for r in recs.values():
-        r["max_abs_err"] = 0.0
+    recs = {"row_gather": dict(source="coda_tpu_torch/csrc/row_gather.cu",
+                               replaces="coda_tpu/ops/pallas_gather.py:66",
+                               max_abs_err=0.0)}
     gen = torch.Generator(device=dev)
     C, _, H = HEADLINE
     for N in (HEADLINE[1], RAGGED_N):
         headline = N == HEADLINE[1]
         gen.manual_seed(N)
         rows, hyp, pi, pi_xi, hyp_t = random_cache(gen, C, N, H, dev)
-        atol = score_atol(H)
-
-        # kernel 1
-        got = ek.eig_scores_cache(rows, hyp, pi, pi_xi)
-        want = ek.eig_scores_from_cache(rows, hyp, pi, pi_xi, chunk=1024)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        torch.testing.assert_close(got, want, rtol=SCORE_RTOL, atol=atol)
-        r = recs["eig_score"]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        nbytes = 4 * (C * N * H + C * H + C + N * C + H + 1 + N)
-        ms = time_ms(lambda: ek.eig_scores_cache(rows, hyp, pi, pi_xi))
-        plain = time_ms(lambda: ek.eig_scores_from_cache(
-            rows, hyp, pi, pi_xi, chunk=1024), reps=5)
-        b, by = bound(nbytes, 8.0 * C * N * H, peaks)
-        log(f"kernel eig_score N={N}: max_abs_err={err:.3e} "
-            f"(tol atol={atol:.2e} rtol={SCORE_RTOL}) ms={ms:.4f} "
-            f"plain_ms={plain:.4f} bound_ms={b:.4f} ({by})")
-        if headline:
-            r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                     library_ms=None)
-
-        # kernel 2: refresh row c in place, score; other rows untouched
-        c_idx = C // 2
-        c = torch.tensor(c_idx, dtype=torch.int32, device=dev)
-        hyp_k = hyp.clone()
-        got, _ = ek.eig_scores_refresh(rows, hyp_k, hyp_t, c, pi, pi_xi)
-        hyp_p = hyp.clone()
-        want, _ = ek.eig_scores_refresh_plain(rows, hyp_p, hyp_t, c, pi,
-                                              pi_xi, chunk=1024)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        torch.testing.assert_close(got, want, rtol=SCORE_RTOL, atol=atol)
-        if not torch.equal(hyp_k[c_idx], hyp_t):
-            raise AssertionError("refresh kernel: row c != hyp_t")
-        others = [i for i in range(C) if i != c_idx]
-        if not torch.equal(hyp_k[others], hyp[others]):
-            raise AssertionError("refresh kernel touched another class row")
-        if not torch.equal(hyp_k, hyp_p):
-            raise AssertionError("refresh kernel cache != plain cache")
-        del hyp_p
-        r = recs["eig_refresh_score"]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        nbytes = 4 * ((C - 1) * N * H + N * H + N * H + C * H + C + N * C
-                      + H + 1 + N + 1)
-        ms = time_ms(lambda: ek.eig_scores_refresh(rows, hyp_k, hyp_t, c, pi,
-                                                   pi_xi))
-        plain = time_ms(lambda: ek.eig_scores_refresh_plain(
-            rows, hyp_k, hyp_t, c, pi, pi_xi, chunk=1024), reps=5)
-        b, by = bound(nbytes, 8.0 * C * N * H, peaks)
-        log(f"kernel eig_refresh_score N={N}: max_abs_err={err:.3e} "
-            f"(tol atol={atol:.2e} rtol={SCORE_RTOL}) other rows bitwise "
-            f"untouched ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f} "
-            f"({by})")
-        if headline:
-            r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                     library_ms=None)
-        del rows, hyp, hyp_k, hyp_t, pi, pi_xi
+        for dtype, approx in FLAVOURS:
+            _k12(dev, peaks, recs, N, dtype, approx, rows, hyp, pi, pi_xi,
+                 hyp_t)
+        del hyp_t
+        torch.cuda.empty_cache()
+        _k6(dev, peaks, recs, N, gen, rows, hyp, pi, pi_xi)
+        del rows, hyp, pi, pi_xi
+        torch.cuda.empty_cache()
 
         # kernel 3: (C, H, N) row gather-sum
         pbc = torch.rand((C, H, N), generator=gen, device=dev)
@@ -243,59 +397,107 @@ def reset_counts():
             d[k] = 0
 
 
-def read_counts() -> dict:
+def read_counts() -> tuple[dict, dict]:
+    """(launches by kernel, launches by flavour) since the last reset; a
+    kernel's count is the sum over its flavours."""
     from coda_tpu_torch.ops import eig_kernels as ek
     from coda_tpu_torch.ops import gather_kernels as gk
 
-    return {**ek.launch_counts, **gk.launch_counts}
+    by_flavour = {**ek.launch_counts, **gk.launch_counts}
+    by_kernel = dict.fromkeys(("eig_score", "eig_refresh_score",
+                               "eig_refresh_compute_score", "row_gather"), 0)
+    for name, n in by_flavour.items():
+        kernel = name.split("[")[0]
+        by_kernel[kernel] = by_kernel.get(kernel, 0) + n
+    return by_kernel, {k: n for k, n in by_flavour.items() if n}
+
+
+# (eig_refresh, eig_cache_dtype, eig_entropy, rounds): the two headline
+# configurations at 20 rounds, then every other flavour at 5
+MAIN_PATHS = [("precomputed", "float32", "exact", 20),
+              ("fused", "bfloat16", "exact", 20)] + [
+    (r, d, e, 5) for r in ("precomputed", "fused")
+    for d in ("float32", "bfloat16") for e in ("exact", "approx")
+    if (r, d, e) not in (("precomputed", "float32", "exact"),
+                         ("fused", "bfloat16", "exact"))]
 
 
 def phase_main_path(dev) -> dict:
-    """The headline CODA run through the user's entry points."""
+    """The headline CODA run through the user's entry points, once per
+    configuration of MAIN_PATHS, each with the launch counters set to 0
+    just before and read just after. Returns the launches by flavour,
+    summed over the runs."""
     import torch
 
     from coda_tpu_torch.data import make_synthetic_task
     from coda_tpu_torch.engine import run_seeds_compiled
+    from coda_tpu_torch.ops.eig_kernels import flavour
     from coda_tpu_torch.selectors import CODAHyperparams, make_coda
 
     C, N, H = HEADLINE
-    iters, seeds = 20, 1
+    seeds = 1
     t0 = time.perf_counter()
     task = make_synthetic_task(0, H=H, N=N, C=C, device=dev)
     log(f"main path: synthetic task ({H}, {N}, {C}) built in "
         f"{time.perf_counter() - t0:.1f} s")
-    hp = CODAHyperparams(eig_chunk=1024)
-    timings = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    res = run_seeds_compiled(lambda p: make_coda(p, hp, device=dev),
-                             task.preds, task.labels, iters=iters,
-                             seeds=seeds, device=dev, timings=timings)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {"eig_score": seeds, "eig_refresh_score": iters * seeds,
-            "row_gather": iters * seeds}
-    if counts != want:
-        raise AssertionError(f"launch counts {counts}, expected {want}")
-    regret = res.regret.cpu()
-    idx = res.chosen_idx.cpu()
-    if not (torch.isfinite(regret).all() and torch.isfinite(
-            res.select_prob.cpu()).all()):
-        raise AssertionError("non-finite regret or select_prob")
-    if not ((idx >= 0).all() and (idx < N).all()
-            and len(set(idx[0].tolist())) == iters):
-        raise AssertionError(f"chosen indices out of range or repeated: {idx}")
-    if (regret < 0).any():
-        raise AssertionError("negative regret")
-    init_ms = timings[0]["init_ms"]
-    round_ms = timings[0]["rounds_ms"] / iters
-    log(f"main path: init_ms={init_ms:.1f} ms_per_round={round_ms:.3f} "
-        f"regret@{iters}={float(regret[0, -1]):.4f} "
-        f"regret@0={float(res.regret_at_0[0]):.4f} "
-        f"peak_mem_gb={peak_gb:.2f} launches={json.dumps(counts)}")
-    return counts
+    total: dict = {}
+    for refresh, dtype, entropy, iters in MAIN_PATHS:
+        hp = CODAHyperparams(eig_chunk=1024, eig_refresh=refresh,
+                             eig_cache_dtype=dtype, eig_entropy=entropy)
+        timings = []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res = run_seeds_compiled(lambda p: make_coda(p, hp, device=dev),
+                                 task.preds, task.labels, iters=iters,
+                                 seeds=seeds, device=dev, timings=timings)
+        torch.cuda.synchronize()
+        counts, by_flavour = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        fused = refresh == "fused"
+        refresh_kernel = ("eig_refresh_compute_score" if fused
+                          else "eig_refresh_score")
+        tdt, approx = getattr(torch, dtype), entropy == "approx"
+        want = {flavour("eig_score", tdt, approx): seeds,
+                flavour(refresh_kernel, tdt, approx): iters * seeds,
+                "row_gather": iters * seeds}
+        config = f"eig_refresh={refresh} eig_cache_dtype={dtype} " \
+                 f"eig_entropy={entropy}"
+        if by_flavour != want:
+            raise AssertionError(f"{config}: launch counts {by_flavour}, "
+                                 f"expected {want}")
+        for k, v in by_flavour.items():
+            total[k] = total.get(k, 0) + v
+        regret = res.regret.cpu()
+        idx = res.chosen_idx.cpu()
+        if not (torch.isfinite(regret).all() and torch.isfinite(
+                res.select_prob.cpu()).all()):
+            raise AssertionError(f"{config}: non-finite regret or "
+                                 "select_prob")
+        if not ((idx >= 0).all() and (idx < N).all()
+                and len(set(idx[0].tolist())) == iters):
+            raise AssertionError(f"{config}: chosen indices out of range or "
+                                 f"repeated: {idx}")
+        if (regret < 0).any():
+            raise AssertionError(f"{config}: negative regret")
+        init_ms = timings[0]["init_ms"]
+        round_ms = timings[0]["rounds_ms"] / iters
+        log(f"main path {config}, {iters} rounds: init_ms={init_ms:.1f} "
+            f"ms_per_round={round_ms:.3f} "
+            f"regret@{iters}={float(regret[0, -1]):.4f} "
+            f"regret@0={float(res.regret_at_0[0]):.4f} "
+            f"peak_mem_gb={peak_gb:.2f} launches={json.dumps(counts)}")
+        del res
+    return total
+
+
+def _same_run(a, b, fields, what):
+    import torch
+
+    for f in fields:
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: {f} differs")
 
 
 def phase_parity(dev):
@@ -311,22 +513,35 @@ def phase_parity(dev):
 
     ds = Dataset.from_file(os.path.join(HERE, "data", "digits_h80.npz"),
                            device=dev)
-    runs = {}
-    for backend in ("auto", "plain"):
-        hp = CODAHyperparams(eig_chunk=1024, eig_backend=backend)
-        runs[backend] = run_seeds_compiled(
-            lambda p, hp=hp: make_coda(p, hp, device=dev), ds.preds,
-            ds.labels, iters=30, seeds=1, device=dev)
-    k, p = runs["auto"], runs["plain"]
-    for f in ("chosen_idx", "true_class", "best_model", "regret"):
-        if not torch.equal(getattr(k, f), getattr(p, f)):
-            raise AssertionError(f"digits_h80 kernel vs plain: {f} differs")
-    dprob = float((k.select_prob - p.select_prob).abs().max())
-    if dprob > 1e-5:
-        raise AssertionError(f"digits_h80 select_prob differs by {dprob}")
-    log(f"parity digits_h80 {tuple(ds.shape)}: 30 rounds kernel == plain "
-        f"(idx, class, best, regret identical; max |d select_prob|="
-        f"{dprob:.3e} <= 1e-5), regret@30={float(k.regret[0, -1]):.4f}")
+
+    def run(iters, **kw):
+        hp = CODAHyperparams(eig_chunk=1024, **kw)
+        return run_seeds_compiled(lambda p: make_coda(p, hp, device=dev),
+                                  ds.preds, ds.labels, iters=iters, seeds=1,
+                                  device=dev)
+
+    trajectory = ("chosen_idx", "true_class", "best_model", "regret")
+    for refresh, tol in (("precomputed", 1e-5), ("fused", 1e-4)):
+        k = run(30, eig_refresh=refresh)
+        p = run(30, eig_refresh=refresh, eig_backend="plain")
+        _same_run(k, p, trajectory,
+                  f"digits_h80 {refresh} kernel vs plain")
+        dprob = float((k.select_prob - p.select_prob).abs().max())
+        if dprob > tol:
+            raise AssertionError(f"digits_h80 {refresh} select_prob differs "
+                                 f"by {dprob}")
+        log(f"parity digits_h80 {tuple(ds.shape)} eig_refresh={refresh}: "
+            f"30 rounds kernel == plain (idx, class, best, regret "
+            f"identical; max |d select_prob|={dprob:.3e} <= {tol}), "
+            f"regret@30={float(k.regret[0, -1]):.4f}")
+    # the reference's long-horizon pin of the fused numerics
+    # (test_fused_compute_long_horizon_widepool_trace), on the kernels
+    f100, p100 = run(100, eig_refresh="fused"), run(100)
+    _same_run(f100, p100, ("chosen_idx", "best_model"),
+              "digits_h80 fused vs precomputed, 100 rounds")
+    log(f"parity digits_h80: 100 rounds eig_refresh=fused == precomputed on "
+        f"the kernels (chosen_idx, best_model identical), regret@100="
+        f"{float(f100.regret[0, -1]):.4f}")
 
     rec = np.load(os.path.join(HERE, "runs", "surrogate_r17", "exact",
                                "rounds.npz"))
@@ -397,7 +612,7 @@ def main() -> int:
         phase = "kernels"
         recs = phase_kernels(dev, peaks)
         phase = "main path"
-        counts = phase_main_path(dev)
+        launches = phase_main_path(dev)
         phase = "parity"
         phase_parity(dev)
     except Exception:
@@ -407,7 +622,8 @@ def main() -> int:
     kernels = []
     for kname, r in recs.items():
         kernels.append({"name": kname, "route": "cuda", "source": r["source"],
-                        "replaces": r["replaces"], "launches": counts[kname],
+                        "replaces": r["replaces"],
+                        "launches": launches.get(kname, 0),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

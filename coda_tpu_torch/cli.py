@@ -3,6 +3,8 @@ run of ``coda_tpu/cli.py``).
 
     python -m coda_tpu_torch.cli --synthetic 1000,50000,10 --method coda \\
         --iters 20 --seeds 1
+    python -m coda_tpu_torch.cli --synthetic 1000,50000,10 --method coda \\
+        --eig-refresh fused --eig-cache-dtype bfloat16 --iters 20 --seeds 1
     python -m coda_tpu_torch.cli --task digits --data-dir data --method coda \\
         --device cpu
 
@@ -40,6 +42,31 @@ def parse_args(argv=None):
                    help="Disable diagonal prior (ablation 1).")
     p.add_argument("--eig-chunk", type=int, default=1024,
                    help="N-block of the cache build and the plain scoring")
+    # the incremental tier's numerics knobs (the reference's flags)
+    p.add_argument("--eig-backend", default="auto",
+                   choices=["auto", "plain", "pallas"],
+                   help="scoring backend: auto (default) = the CUDA kernels "
+                        "on the card, the plain PyTorch versions on the CPU; "
+                        "plain = the plain versions everywhere; pallas "
+                        "(the reference's name for its kernels) = auto")
+    p.add_argument("--eig-cache-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="storage dtype of the incremental P(best) cache: "
+                        "bfloat16 halves the scoring pass's memory stream "
+                        "(opt-in numerics)")
+    p.add_argument("--eig-refresh", default="precomputed",
+                   choices=["precomputed", "fused"],
+                   help="where the row-refresh products run: precomputed = "
+                        "fp32 matrix products before the scoring pass "
+                        "(reference numerics); fused = inside the scoring "
+                        "kernel (opt-in numerics). Seeds run one after "
+                        "another, so fused takes any --seeds, where the "
+                        "reference's vmapped CLI refuses it for more than one")
+    p.add_argument("--eig-entropy", default="exact",
+                   choices=["exact", "approx"],
+                   help="log2 of the expected-entropy chain: exact, or a "
+                        "bit-extracted exponent + degree-6 mantissa "
+                        "polynomial (max |Dscore| <= 1e-4; opt-in numerics)")
     return p.parse_args(argv)
 
 
@@ -80,10 +107,16 @@ def main(argv=None):
                                   loss_fn).min())
     print("Best possible loss is", best_loss)
 
+    # seeds run one after another: each selector is one replica
     hp = CODAHyperparams(alpha=args.alpha, learning_rate=args.learning_rate,
                          multiplier=args.multiplier,
                          disable_diag_prior=args.no_diag_prior,
-                         eig_chunk=args.eig_chunk)
+                         eig_chunk=args.eig_chunk,
+                         eig_backend=("auto" if args.eig_backend == "pallas"
+                                      else args.eig_backend),
+                         eig_cache_dtype=args.eig_cache_dtype,
+                         eig_refresh=args.eig_refresh,
+                         eig_entropy=args.eig_entropy, n_parallel=1)
     t0 = time.perf_counter()
     result = run_seeds_compiled(
         lambda preds: make_coda(preds, hp, name=args.method, device=dev),

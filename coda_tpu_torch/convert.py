@@ -7,6 +7,10 @@ its caches. :func:`state_from_numpy` turns the reference's ``CODAState``
 packages can continue from the same mid-run state; :func:`state_to_numpy`
 goes back. Fields of later slices (sparse posterior, surrogate fit) must
 be absent or None.
+
+A bfloat16 cache (``eig_cache_dtype='bfloat16'``) arrives from JAX as an
+``ml_dtypes`` bfloat16 array, which ``torch.from_numpy`` refuses: its bits
+travel through an int16 view both ways, so the values are carried exactly.
 """
 
 from __future__ import annotations
@@ -39,12 +43,26 @@ def state_from_numpy(fields: dict, device: DeviceLike = None) -> CODAState:
                          "incremental tier's full state")
     out = {}
     for f in CODAState._fields:
-        arr = np.ascontiguousarray(np.asarray(fields[f], dtype=_DTYPES[f]))
+        arr = np.asarray(fields[f])
+        if f == "pbest_hyp" and arr.dtype.name == "bfloat16":
+            bits = np.ascontiguousarray(arr).view(np.int16)
+            out[f] = torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+            continue
+        arr = np.ascontiguousarray(np.asarray(arr, dtype=_DTYPES[f]))
         out[f] = torch.from_numpy(arr.copy()).to(dev)
     return CODAState(**out)
 
 
 def state_to_numpy(state: CODAState) -> dict:
-    """The port's state as ``{field: np.ndarray}`` on the host."""
-    return {f: getattr(state, f).detach().cpu().numpy()
-            for f in CODAState._fields}
+    """The port's state as ``{field: np.ndarray}`` on the host; a bfloat16
+    cache comes back as an ``ml_dtypes`` bfloat16 array, as JAX gives it."""
+    out = {}
+    for f in CODAState._fields:
+        t = getattr(state, f).detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes  # numpy's bfloat16; only a bf16 cache needs it
+
+            out[f] = t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        else:
+            out[f] = t.numpy()
+    return out

@@ -8,77 +8,41 @@
 // Both compute, for every item n,
 //   score[n] = h_before - sum_c pi_xi[n, c] * H2(p[c, n, :]),
 //   p[c, n, h] = max(mixture0[h] + pi[c] * (hyp[c, n, h] - rows[c, h]), 1e-12)
-// with H2 the base-2 entropy over h, log2 taken as logf(p) * log2(e) in
-// full precision (as the Pallas kernel does; built without fast math).
+// with H2 the base-2 entropy over h (csrc/eig_common.cuh: exact, logf(p) *
+// log2(e) in full precision, or the approx polynomial log2). The cache is
+// stored as fp32 or bf16 (eig_cache_dtype); all arithmetic is fp32.
 //
-// Bound on the card: bytes. Kernel 1 reads the (C, N, H) fp32 cache once
-// (2.0 GB at C=10, N=50,000, H=1000) and does ~8 operations per element;
-// kernel 2 reads the other C-1 rows, the new (N, H) row hyp_t and writes
-// it into the cache (2.2 GB). Both are streams at the memory rate.
+// Bound on the card: bytes. Kernel 1 reads the (C, N, H) cache once
+// (2.0 GB fp32, 1.0 GB bf16 at C=10, N=50,000, H=1000) and does ~8
+// operations per element; kernel 2 reads the other C-1 rows and the new
+// fp32 (N, H) row hyp_t and writes that row into the cache (2.2 GB fp32,
+// 1.2 GB bf16). Both are streams at the memory rate.
 //
 // Design: one warp per (c, n) row of H, which is contiguous in the
-// (C, N, H) layout, so a warp's loads are coalesced (float4 per lane when
-// H % 4 == 0). Each lane sums its strided share of p*log2(p); a shuffle
-// butterfly finishes the row. A block owns kItems items and all C of
-// their rows (kItems * C rows over kWarps warps, balanced for any C); the
-// per-row entropies meet in shared memory, and one thread per item sums
-// the class mixture in c order. Kernel 2 is the same loop with the row
-// of class c read from hyp_t and stored into cache[c, n, :] by the warp
-// that owns (c, n): no other warp touches that row, so blocks never race.
-// The small operands (rows, mixture0: C*H + H floats) stay in L1/L2.
-// mixture0 and h_before come from the wrapper, as the Pallas wrapper's
-// _mixture_stats computes them outside its kernel.
+// (C, N, H) layout, so a warp's loads are coalesced (16 bytes per lane:
+// float4 for fp32, 8 bf16 for bf16, when H and the pointers allow). Each
+// lane sums its strided share of p*log2(p); a shuffle butterfly finishes
+// the row. A block owns kItems items and all C of their rows (kItems * C
+// rows over kWarps warps, balanced for any C); the per-row entropies meet
+// in shared memory, and one thread per item sums the class mixture in c
+// order. Kernel 2 is the same loop with the row of class c read from
+// hyp_t, rounded to the storage type (round to nearest even), stored into
+// cache[c, n, :] and scored as rounded, by the warp that owns (c, n): no
+// other warp touches that row, so blocks never race. The small operands
+// (rows, mixture0: C*H + H floats) stay in L1/L2. mixture0 and h_before
+// come from the wrapper, as the Pallas wrapper's _mixture_stats computes
+// them outside its kernel, in the same entropy flavour.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "eig_common.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;   // warps per block
 constexpr int kItems = 8;   // items n per block
-constexpr float kFloor = 1e-12f;
-constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float plogp(float s, float r, float m, float pi_c) {
-  float p = fmaxf(m + pi_c * (s - r), kFloor);
-  return p * (logf(p) * kLog2e);
-}
-
-// Sum over h of p*log2(p) for one row; lanes stride over h. When dst is
-// non-null the row's source values are also stored there (the refresh).
-template <int VEC>
-__device__ float row_plogp(const float* src, const float* __restrict__ base,
-                           const float* __restrict__ mix0, float pi_c, int H,
-                           int lane, float* dst) {
-  float acc = 0.f;
-  if (VEC == 4) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    const float4* b4 = reinterpret_cast<const float4*>(base);
-    const float4* m4 = reinterpret_cast<const float4*>(mix0);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int i = lane; i < H / 4; i += 32) {
-      float4 s = s4[i], b = b4[i], m = m4[i];
-      if (dst) d4[i] = s;
-      acc += plogp(s.x, b.x, m.x, pi_c);
-      acc += plogp(s.y, b.y, m.y, pi_c);
-      acc += plogp(s.z, b.z, m.z, pi_c);
-      acc += plogp(s.w, b.w, m.w, pi_c);
-    }
-  } else {
-    for (int h = lane; h < H; h += 32) {
-      float s = src[h];
-      if (dst) dst[h] = s;
-      acc += plogp(s, base[h], mix0[h], pi_c);
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  return acc;
-}
-
-template <int VEC, bool REFRESH>
+template <typename T, int VEC, bool REFRESH, bool APPROX>
 __global__ void __launch_bounds__(kWarps * 32)
-score_kernel(const float* __restrict__ rows, const float* hyp, float* hyp_w,
+score_kernel(const float* __restrict__ rows, const T* hyp, T* hyp_w,
              const float* __restrict__ hyp_t, const int* __restrict__ c_ptr,
              const float* __restrict__ pi, const float* __restrict__ pi_xi,
              const float* __restrict__ mixture0,
@@ -92,14 +56,14 @@ score_kernel(const float* __restrict__ rows, const float* hyp, float* hyp_w,
     const int c = j / kItems, i = j % kItems, n = n0 + i;
     if (n >= N) continue;
     const size_t off = ((size_t)c * N + n) * (size_t)H;
-    const float* src = hyp + off;
-    float* dst = nullptr;
-    if (REFRESH && c == c_ref) {
-      src = hyp_t + (size_t)n * H;
-      dst = hyp_w + off;
-    }
-    float acc = row_plogp<VEC>(src, rows + (size_t)c * H, mixture0, pi[c], H,
-                               lane, dst);
+    const float* base = rows + (size_t)c * H;
+    float acc;
+    if (REFRESH && c == c_ref)
+      acc = eig::row_plogp<VEC, APPROX>(hyp_t + (size_t)n * H, base, mixture0,
+                                        pi[c], H, lane, hyp_w + off);
+    else
+      acc = eig::row_plogp<VEC, APPROX>(hyp + off, base, mixture0, pi[c], H,
+                                        lane, (T*)nullptr);
     if (lane == 0) h_after[i * C + c] = -acc;
   }
   __syncthreads();
@@ -116,42 +80,65 @@ score_kernel(const float* __restrict__ rows, const float* hyp, float* hyp_w,
   }
 }
 
-template <bool REFRESH>
-int launch(const float* rows, const float* hyp, float* hyp_w,
-           const float* hyp_t, const int* c, const float* pi,
-           const float* pi_xi, const float* mixture0, const float* h_before,
-           float* out, int C, int N, int H, int vec, cudaStream_t stream) {
+template <typename T, bool REFRESH, bool APPROX>
+int launch_t(const float* rows, const void* hyp, const float* hyp_t,
+             const int* c, const float* pi, const float* pi_xi,
+             const float* mixture0, const float* h_before, float* out, int C,
+             int N, int H, int vec, cudaStream_t stream) {
+  constexpr int kVec = sizeof(T) == 2 ? 8 : 4;
   dim3 grid((N + kItems - 1) / kItems), block(kWarps * 32);
-  size_t smem = sizeof(float) * kItems * C;
-  if (vec == 4)
-    score_kernel<4, REFRESH><<<grid, block, smem, stream>>>(
-        rows, hyp, hyp_w, hyp_t, c, pi, pi_xi, mixture0, h_before, out, C, N, H);
+  const size_t smem = sizeof(float) * kItems * C;
+  const T* h = static_cast<const T*>(hyp);
+  T* hw = const_cast<T*>(h);
+  if (vec > 1)
+    score_kernel<T, kVec, REFRESH, APPROX><<<grid, block, smem, stream>>>(
+        rows, h, hw, hyp_t, c, pi, pi_xi, mixture0, h_before, out, C, N, H);
   else
-    score_kernel<1, REFRESH><<<grid, block, smem, stream>>>(
-        rows, hyp, hyp_w, hyp_t, c, pi, pi_xi, mixture0, h_before, out, C, N, H);
+    score_kernel<T, 1, REFRESH, APPROX><<<grid, block, smem, stream>>>(
+        rows, h, hw, hyp_t, c, pi, pi_xi, mixture0, h_before, out, C, N, H);
   return (int)cudaGetLastError();
+}
+
+template <bool REFRESH>
+int launch(const float* rows, const void* hyp, const float* hyp_t,
+           const int* c, const float* pi, const float* pi_xi,
+           const float* mixture0, const float* h_before, float* out, int C,
+           int N, int H, int vec, int bf16, int approx, cudaStream_t stream) {
+#define EIG_LAUNCH(T, A)                                                   \
+  return launch_t<T, REFRESH, A>(rows, hyp, hyp_t, c, pi, pi_xi, mixture0, \
+                                 h_before, out, C, N, H, vec, stream)
+  if (bf16) {
+    if (approx) EIG_LAUNCH(__nv_bfloat16, true);
+    EIG_LAUNCH(__nv_bfloat16, false);
+  }
+  if (approx) EIG_LAUNCH(float, true);
+  EIG_LAUNCH(float, false);
+#undef EIG_LAUNCH
 }
 
 }  // namespace
 
 extern "C" {
 
-int eig_score_launch(const float* rows, const float* hyp, const float* pi,
+// hyp: (C, N, H) fp32 or, with bf16 != 0, bf16; approx != 0 selects the
+// approx entropy; vec > 1 takes 16-byte loads (H % 4 == 0 for fp32,
+// H % 8 == 0 for bf16, every row pointer 16-byte aligned).
+int eig_score_launch(const float* rows, const void* hyp, const float* pi,
                      const float* pi_xi, const float* mixture0,
                      const float* h_before, float* out, int C, int N, int H,
-                     int vec, void* stream) {
-  return launch<false>(rows, hyp, nullptr, nullptr, nullptr, pi, pi_xi,
-                       mixture0, h_before, out, C, N, H, vec,
+                     int vec, int bf16, int approx, void* stream) {
+  return launch<false>(rows, hyp, nullptr, nullptr, pi, pi_xi, mixture0,
+                       h_before, out, C, N, H, vec, bf16, approx,
                        (cudaStream_t)stream);
 }
 
-int eig_refresh_score_launch(const float* rows, float* hyp, const float* hyp_t,
+int eig_refresh_score_launch(const float* rows, void* hyp, const float* hyp_t,
                              const int* c, const float* pi, const float* pi_xi,
                              const float* mixture0, const float* h_before,
                              float* out, int C, int N, int H, int vec,
-                             void* stream) {
-  return launch<true>(rows, hyp, hyp, hyp_t, c, pi, pi_xi, mixture0, h_before,
-                      out, C, N, H, vec, (cudaStream_t)stream);
+                             int bf16, int approx, void* stream) {
+  return launch<true>(rows, hyp, hyp_t, c, pi, pi_xi, mixture0, h_before, out,
+                      C, N, H, vec, bf16, approx, (cudaStream_t)stream);
 }
 
 }  // extern "C"

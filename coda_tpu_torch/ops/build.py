@@ -1,11 +1,14 @@
 """Builds the hand-written CUDA kernels under ``coda_tpu_torch/csrc/``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-with ``nvcc`` for ``sm_90a`` into ``coda_tpu_torch/_build/<name>-<hash>.so``
-(git-ignored), loaded with ``ctypes``. The hash covers the source and the
-flags, so an edited source never loads a stale library. Nothing is built
-when a module is imported: a kernel's wrapper builds its library at first
-use, and :func:`build_all` starts one ``nvcc`` per source, all together.
+(with the shared ``csrc/*.cuh`` headers) with ``nvcc`` for ``sm_90a`` into
+``coda_tpu_torch/_build/<name>-<hash>.so`` (git-ignored), loaded with
+``ctypes``. The hash covers the source, the headers and the flags, so an
+edited source never loads a stale library. A build may add preprocessor
+``defines`` (e.g. ``K6_STAGES``, the per-stage clock of kernel 6); such a
+library is a separate file, ``<name>-<DEFINE>-<hash>.so``. Nothing is built when a module
+is imported: a kernel's wrapper builds its library at first use, and
+:func:`build_all` starts one ``nvcc`` per source, all together.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("eig_score", "row_gather")
+SOURCES = ("eig_score", "eig_refresh_compute", "row_gather")
 
 # -fmad=false keeps a*b+c as two rounded operations, as the plain PyTorch
 # versions compute it; the kernels are bandwidth-bound, so FMA
@@ -31,7 +34,7 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -45,21 +48,29 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    # the shared headers count too: an edited header rebuilds every source
+    for hdr in sorted(SRC_DIR.glob("*.cuh")):
+        src += hdr.read_bytes()
+    digest = hashlib.sha1(src + " ".join(_flags(defines)).encode())
+    tag = "".join(f"-{d}" for d in defines)
+    return BUILD_DIR / f"{name}{tag}-{digest.hexdigest()[:12]}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines: tuple[str, ...] = ()):
     """Start ``nvcc`` for ``name`` unless its library is built; returns
     ``(process, tmp_path, out_path)`` or None."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+    cmd = [nvcc_path(), *_flags(defines), "-o", str(tmp),
            str(SRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -77,12 +88,12 @@ def _finish(name: str, job) -> str:
     return log
 
 
-def build_all(names=SOURCES) -> dict:
+def build_all(names=SOURCES, defines: tuple[str, ...] = ()) -> dict:
     """Build every library not yet built, one ``nvcc`` per source, all
     started together. Returns ``{"seconds": wall, "logs": {name: ptxas
     output}}`` (empty logs for libraries that were already built)."""
     t0 = time.perf_counter()
-    jobs = {n: _start(n) for n in names}
+    jobs = {n: _start(n, defines) for n in names}
     logs = {}
     try:
         for n, job in jobs.items():
@@ -95,11 +106,12 @@ def build_all(names=SOURCES) -> dict:
     return {"seconds": time.perf_counter() - t0, "logs": logs}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _loaded.get(name)
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built with ``defines``),
+    built on first use."""
+    lib = _loaded.get((name, defines))
     if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        build_all((name,), defines)
+        lib = ctypes.CDLL(str(library_path(name, defines)))
+        _loaded[(name, defines)] = lib
     return lib

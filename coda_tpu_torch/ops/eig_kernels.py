@@ -8,14 +8,25 @@ Kernel 2, :func:`eig_scores_refresh`, replaces ``_refresh_score_kernel``:
 it writes the refreshed class row ``c`` into the cache IN PLACE while it
 scores with it — the cache tensor passed in is modified (JAX returned a
 new, donated buffer instead).
+Kernel 6, :func:`eig_scores_refresh_compute`, replaces
+``_refresh_compute_score_kernel`` (``eig_refresh='fused'``): it computes
+that row inside the scoring pass from the labelled class's O(H·G) Beta
+grid tables, so the ``(N, H)`` row never reaches device memory; it too
+writes row ``c`` in place.
 
-Both kernels live in ``csrc/eig_score.cu`` (its header states the byte
-bound and the design). A wrapper launches its kernel for a CUDA tensor
+Kernels 1 and 2 live in ``csrc/eig_score.cu``, kernel 6 in
+``csrc/eig_refresh_compute.cu`` (each header states the bound and the
+design). Each takes two flavours, as the Pallas kernels do: the cache's
+storage type (float32 or bfloat16, ``eig_cache_dtype``; all arithmetic
+fp32, a refreshed row rounded to the storage type and scored as rounded)
+and the entropy's log (exact, or the polynomial ``log2_approx`` under
+``eig_entropy='approx'``). A wrapper launches its kernel for a CUDA tensor
 and raises on anything the kernel does not take; only a CPU tensor takes
 the plain version beside it. The cache layout ``(C, N, H)`` is the
 reference's, so the tests compare like with like. ``mixture0`` and
-``h_before`` are computed here, outside the kernel, as the reference's
-``_mixture_stats`` does.
+``h_before`` are computed here, outside the kernel, in the kernel's
+entropy flavour, as the reference's ``_mixture_stats`` does; kernel 6's
+Beta tables too, as the reference's wrapper builds them.
 """
 
 from __future__ import annotations
@@ -25,35 +36,60 @@ import ctypes
 import torch
 
 from coda_tpu_torch.ops.build import load
-from coda_tpu_torch.ops.masked import entropy2
+from coda_tpu_torch.ops.masked import entropy2, log2_approx
+from coda_tpu_torch.ops.pbest import _pbest_hyp_row, refresh_tables
 
 _ENTROPY_FLOOR = 1e-12
 _LOG2E = 1.4426950408889634
 
-# launches of each kernel, counted where the wrapper launches it
-launch_counts = {"eig_score": 0, "eig_refresh_score": 0}
+# launches of each kernel flavour (see :func:`flavour`), counted where the
+# wrapper launches it; a kernel's total is the sum over its flavours
+launch_counts = {"eig_score": 0, "eig_refresh_score": 0,
+                 "eig_refresh_compute_score": 0}
 
+CACHE_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_SMEM = 48 << 10  # default dynamic shared memory a block may use
+# shared memory a block may opt in to on Hopper (H100 and H200 alike)
+_MAX_SMEM_OPTIN = 232_448
 
 
-def mixture_stats(pbest_rows: torch.Tensor, pi_hat: torch.Tensor):
+def flavour(kernel: str, dtype: torch.dtype, approx: bool) -> str:
+    """The flavour's name: ``kernel`` for the fp32 cache with the exact
+    entropy, else e.g. ``eig_score[bfloat16,approx]``."""
+    tags = ([str(dtype).removeprefix("torch.")]
+            if dtype != torch.float32 else []) + (["approx"] if approx else [])
+    return f"{kernel}[{','.join(tags)}]" if tags else kernel
+
+
+def _count(kernel: str, dtype: torch.dtype, approx: bool) -> None:
+    name = flavour(kernel, dtype, approx)
+    launch_counts[name] = launch_counts.get(name, 0) + 1
+
+
+def mixture_stats(pbest_rows: torch.Tensor, pi_hat: torch.Tensor,
+                  approx: bool = False):
     """``(mixture0 (H,), h_before 0-d)``: the class mixture of the current
-    P(best) rows and its entropy — the cheap pre-kernel scalars."""
+    P(best) rows and its entropy — the cheap pre-kernel scalars. ``approx``
+    must match the scoring pass's flavour: h_before and the per-class
+    entropies enter one subtraction, and a mixed lowering would forfeit
+    the error cancellation the scores rely on."""
     mixture0 = (pi_hat[:, None] * pbest_rows).sum(0)
-    return mixture0, entropy2(mixture0)
+    return mixture0, entropy2(mixture0, approx=approx)
 
 
 # -- plain versions --------------------------------------------------------
 
 def eig_scores_from_cache(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
                           pi_hat: torch.Tensor, pi_hat_xi: torch.Tensor,
-                          chunk: int = 256) -> torch.Tensor:
+                          chunk: int = 256,
+                          approx: bool = False) -> torch.Tensor:
     """Plain version of kernel 1: ``(N,)`` EIG scores from the cache, in
     ``(C, chunk, H)`` blocks over N (a memory valve; values do not depend
-    on ``chunk``). Same mixture delta, 1e-12 floor, ``log·log2(e)`` and
-    reduction structure (entropy over H, then classes over axis 0) as the
-    reference kernel."""
-    mixture0, h_before = mixture_stats(pbest_rows, pi_hat)
+    on ``chunk``). Same mixture delta, 1e-12 floor, ``log·log2(e)`` (or
+    ``log2_approx``) and reduction structure (entropy over H, then classes
+    over axis 0) as the reference kernel; a bf16 cache is widened to fp32
+    block by block."""
+    mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
     C, N, H = pbest_hyp.shape
     B = max(1, min(chunk, N))
     out = torch.empty(N, dtype=torch.float32, device=pbest_hyp.device)
@@ -61,23 +97,43 @@ def eig_scores_from_cache(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
         hyp_b = pbest_hyp[:, start:start + B].to(torch.float32)
         mix = mixture0 + pi_hat[:, None, None] * (hyp_b - pbest_rows[:, None])
         p = torch.clamp_min(mix, _ENTROPY_FLOOR)
-        h_after = -(p * (torch.log(p) * _LOG2E)).sum(-1)       # (C, b)
+        log2p = log2_approx(p) if approx else torch.log(p) * _LOG2E
+        h_after = -(p * log2p).sum(-1)                          # (C, b)
         out[start:start + B] = h_before - (
             pi_hat_xi[start:start + B].T * h_after).sum(0)
     return out
 
 
 def eig_scores_refresh_plain(pbest_rows, pbest_hyp, hyp_t, true_class,
-                             pi_hat, pi_hat_xi, chunk: int = 256):
+                             pi_hat, pi_hat_xi, chunk: int = 256,
+                             approx: bool = False):
     """Plain version of kernel 2: write ``hyp_t`` into class row
-    ``true_class`` of ``pbest_hyp`` (in place), then score. Returns
-    ``(scores (N,), pbest_hyp)``. ``true_class`` may be a 0-d device
-    tensor (no host synchronisation)."""
+    ``true_class`` of ``pbest_hyp`` (in place, rounded to the cache's
+    storage type), then score with the stored row. Returns ``(scores (N,),
+    pbest_hyp)``. ``true_class`` may be a 0-d device tensor (no host
+    synchronisation)."""
     c = torch.as_tensor(true_class, device=pbest_hyp.device).reshape(1)
     pbest_hyp.index_copy_(0, c.to(torch.int64),
                           hyp_t.to(pbest_hyp.dtype)[None])
     return eig_scores_from_cache(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi,
-                                 chunk), pbest_hyp
+                                 chunk, approx), pbest_hyp
+
+
+def eig_scores_refresh_compute_plain(pbest_rows, pbest_hyp, a_t, b_t,
+                                     hard_preds, true_class, pi_hat,
+                                     pi_hat_xi, update_weight: float = 1.0,
+                                     num_points: int = 256,
+                                     approx: bool = False, chunk: int = 256):
+    """Plain version of kernel 6: the refreshed row of class
+    ``true_class`` from the Beta tables of ``(a_t, b_t)`` by three fp32
+    matrix products (``eq = hard_preds == true_class``), written into
+    ``pbest_hyp`` in place at its storage type, then every item scored
+    with the stored row. Returns ``(scores (N,), pbest_hyp)``."""
+    c = torch.as_tensor(true_class, device=pbest_hyp.device).reshape(())
+    row = _pbest_hyp_row(a_t, b_t, hard_preds == c, update_weight,
+                         num_points)
+    return eig_scores_refresh_plain(pbest_rows, pbest_hyp, row, c, pi_hat,
+                                    pi_hat_xi, chunk, approx)
 
 
 # -- kernels ---------------------------------------------------------------
@@ -89,10 +145,21 @@ _I = ctypes.c_int
 def _lib():
     lib = load("eig_score")
     if not getattr(lib, "_typed", False):
-        lib.eig_score_launch.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+        lib.eig_score_launch.argtypes = [_P] * 7 + [_I] * 6 + [_P]
         lib.eig_score_launch.restype = _I
-        lib.eig_refresh_score_launch.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        lib.eig_refresh_score_launch.argtypes = [_P] * 9 + [_I] * 6 + [_P]
         lib.eig_refresh_score_launch.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _lib6(defines: tuple[str, ...] = ()):
+    lib = load("eig_refresh_compute", defines)
+    if not getattr(lib, "_typed", False):
+        lib.eig_refresh_compute_smem.argtypes = [_I] * 3
+        lib.eig_refresh_compute_smem.restype = ctypes.c_longlong
+        lib.eig_refresh_compute_launch.argtypes = [_P] * 14 + [_I] * 7 + [_P]
+        lib.eig_refresh_compute_launch.restype = _I
         lib._typed = True
     return lib
 
@@ -107,6 +174,8 @@ def _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi):
     _require(pbest_hyp.device.type == "cuda",
              f"EIG kernels take CUDA tensors; got {pbest_hyp.device}")
     _require(pbest_hyp.dim() == 3, "pbest_hyp must be (C, N, H)")
+    _require(pbest_hyp.dtype in CACHE_DTYPES,
+             f"pbest_hyp must be float32 or bfloat16 (got {pbest_hyp.dtype})")
     C, N, H = pbest_hyp.shape
     for name, t, shape in (("pbest_rows", pbest_rows, (C, H)),
                            ("pbest_hyp", pbest_hyp, (C, N, H)),
@@ -114,9 +183,8 @@ def _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi):
                            ("pi_hat_xi", pi_hat_xi, (N, C))):
         _require(t.device == pbest_hyp.device,
                  f"{name} is on {t.device}, the cache on {pbest_hyp.device}")
-        _require(t.dtype == torch.float32,
-                 f"{name} must be float32 (got {t.dtype}); the bfloat16 "
-                 "cache is a later slice")
+        _require(t is pbest_hyp or t.dtype == torch.float32,
+                 f"{name} must be float32 (got {t.dtype})")
         _require(tuple(t.shape) == shape,
                  f"{name} has shape {tuple(t.shape)}, expected {shape}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
@@ -125,10 +193,22 @@ def _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi):
     return C, N, H
 
 
-def _vec(H: int, *tensors) -> int:
-    """float4 loads when every row starts 16-byte aligned."""
-    ok = H % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
-    return 4 if ok else 1
+def _check_class(true_class, dev) -> torch.Tensor:
+    _require(isinstance(true_class, torch.Tensor)
+             and true_class.device == dev and true_class.numel() == 1
+             and not torch.is_floating_point(true_class),
+             "true_class must be a 1-element integer tensor on the cache's "
+             "device")
+    return true_class.reshape(1).to(torch.int32)
+
+
+def _vec(H: int, cache: torch.Tensor, *tensors) -> int:
+    """16-byte loads (4 fp32 or 8 bf16 values) when H is a multiple of
+    that width and every row starts 16-byte aligned."""
+    width = 16 // cache.element_size()
+    ok = H % width == 0 and all(t.data_ptr() % 16 == 0
+                                for t in (cache, *tensors))
+    return width if ok else 1
 
 
 def _stream() -> int:
@@ -142,59 +222,116 @@ def _raise_on(rc: int, what: str) -> None:
 
 def eig_scores_cache(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
                      pi_hat: torch.Tensor, pi_hat_xi: torch.Tensor,
-                     chunk: int = 256) -> torch.Tensor:
+                     chunk: int = 256, approx: bool = False) -> torch.Tensor:
     """Kernel 1 (``csrc/eig_score.cu``): ``(N,)`` EIG scores from the
-    ``(C, N, H)`` cache. CPU tensors take :func:`eig_scores_from_cache`
-    (``chunk`` is its memory valve); CUDA tensors launch the kernel."""
+    ``(C, N, H)`` cache (float32 or bfloat16). CPU tensors take
+    :func:`eig_scores_from_cache` (``chunk`` is its memory valve); CUDA
+    tensors launch the kernel."""
     if pbest_hyp.device.type == "cpu":
         return eig_scores_from_cache(pbest_rows, pbest_hyp, pi_hat,
-                                     pi_hat_xi, chunk)
+                                     pi_hat_xi, chunk, approx)
     C, N, H = _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi)
-    mixture0, h_before = mixture_stats(pbest_rows, pi_hat)
+    mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
     out = torch.empty(N, dtype=torch.float32, device=pbest_hyp.device)
     rc = _lib().eig_score_launch(
         pbest_rows.data_ptr(), pbest_hyp.data_ptr(), pi_hat.data_ptr(),
         pi_hat_xi.data_ptr(), mixture0.data_ptr(), h_before.data_ptr(),
-        out.data_ptr(), C, N, H,
-        _vec(H, pbest_rows, pbest_hyp, mixture0), _stream())
+        out.data_ptr(), C, N, H, _vec(H, pbest_hyp, pbest_rows, mixture0),
+        int(pbest_hyp.dtype == torch.bfloat16), int(approx), _stream())
     _raise_on(rc, "eig_score")
-    launch_counts["eig_score"] += 1
+    _count("eig_score", pbest_hyp.dtype, approx)
     return out
 
 
 def eig_scores_refresh(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
                        hyp_t: torch.Tensor, true_class: torch.Tensor,
                        pi_hat: torch.Tensor, pi_hat_xi: torch.Tensor,
-                       chunk: int = 256):
-    """Kernel 2 (``csrc/eig_score.cu``): write ``hyp_t`` (N, H) into class
-    row ``true_class`` of ``pbest_hyp`` IN PLACE and score every item with
-    it, in one pass over the cache. ``pbest_rows`` must already hold the
-    refreshed row; ``pbest_hyp`` holds the old one. ``true_class`` is a
-    0-d or 1-element integer tensor on the cache's device, read by the
-    kernel (no host synchronisation); out of range gives NaN scores.
+                       chunk: int = 256, approx: bool = False):
+    """Kernel 2 (``csrc/eig_score.cu``): write ``hyp_t`` (N, H) fp32 into
+    class row ``true_class`` of ``pbest_hyp`` IN PLACE, rounded to the
+    cache's storage type, and score every item with the stored row, in one
+    pass over the cache. ``pbest_rows`` must already hold the refreshed
+    row; ``pbest_hyp`` holds the old one. ``true_class`` is a 0-d or
+    1-element integer tensor on the cache's device, read by the kernel (no
+    host synchronisation); out of range gives NaN scores.
     Returns ``(scores (N,), pbest_hyp)``."""
     if pbest_hyp.device.type == "cpu":
         return eig_scores_refresh_plain(pbest_rows, pbest_hyp, hyp_t,
-                                        true_class, pi_hat, pi_hat_xi, chunk)
+                                        true_class, pi_hat, pi_hat_xi, chunk,
+                                        approx)
     C, N, H = _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi)
     _require(tuple(hyp_t.shape) == (N, H) and hyp_t.dtype == torch.float32
              and hyp_t.device == pbest_hyp.device and hyp_t.is_contiguous(),
              f"hyp_t must be a contiguous float32 ({N}, {H}) tensor on "
              f"{pbest_hyp.device}")
-    _require(isinstance(true_class, torch.Tensor)
-             and true_class.device == pbest_hyp.device
-             and true_class.numel() == 1
-             and not torch.is_floating_point(true_class),
-             "true_class must be a 1-element integer tensor on the cache's "
-             "device")
-    c = true_class.reshape(1).to(torch.int32)
-    mixture0, h_before = mixture_stats(pbest_rows, pi_hat)
+    c = _check_class(true_class, pbest_hyp.device)
+    mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
     out = torch.empty(N, dtype=torch.float32, device=pbest_hyp.device)
     rc = _lib().eig_refresh_score_launch(
         pbest_rows.data_ptr(), pbest_hyp.data_ptr(), hyp_t.data_ptr(),
         c.data_ptr(), pi_hat.data_ptr(), pi_hat_xi.data_ptr(),
         mixture0.data_ptr(), h_before.data_ptr(), out.data_ptr(), C, N, H,
-        _vec(H, pbest_rows, pbest_hyp, hyp_t, mixture0), _stream())
+        _vec(H, pbest_hyp, pbest_rows, hyp_t, mixture0),
+        int(pbest_hyp.dtype == torch.bfloat16), int(approx), _stream())
     _raise_on(rc, "eig_refresh_score")
-    launch_counts["eig_refresh_score"] += 1
+    _count("eig_refresh_score", pbest_hyp.dtype, approx)
+    return out, pbest_hyp
+
+
+def eig_scores_refresh_compute(pbest_rows: torch.Tensor,
+                               pbest_hyp: torch.Tensor, a_t: torch.Tensor,
+                               b_t: torch.Tensor, hard_preds: torch.Tensor,
+                               true_class: torch.Tensor, pi_hat: torch.Tensor,
+                               pi_hat_xi: torch.Tensor,
+                               update_weight: float = 1.0,
+                               num_points: int = 256, approx: bool = False,
+                               chunk: int = 256):
+    """Kernel 6 (``csrc/eig_refresh_compute.cu``): compute class row
+    ``true_class`` of the cache from the Beta parameters ``a_t``, ``b_t``
+    (H,) of the labelled class and ``hard_preds`` (N, H) int32, write it
+    into ``pbest_hyp`` IN PLACE at the storage type, and score every item
+    with the stored row, in one pass. ``pbest_rows`` must already hold the
+    refreshed P(best) row; ``pbest_hyp`` holds the old class row. The
+    O(H·G) tables are built here with PyTorch, as the reference's wrapper
+    builds them. CPU tensors take :func:`eig_scores_refresh_compute_plain`
+    (``chunk`` is its scoring valve). Returns ``(scores (N,), pbest_hyp)``.
+    """
+    if pbest_hyp.device.type == "cpu":
+        return eig_scores_refresh_compute_plain(
+            pbest_rows, pbest_hyp, a_t, b_t, hard_preds, true_class, pi_hat,
+            pi_hat_xi, update_weight, num_points, approx, chunk)
+    C, N, H = _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi)
+    dev = pbest_hyp.device
+    _require(tuple(hard_preds.shape) == (N, H)
+             and hard_preds.dtype == torch.int32 and hard_preds.device == dev
+             and hard_preds.is_contiguous(),
+             f"hard_preds must be a contiguous int32 ({N}, {H}) tensor on "
+             f"{dev}")
+    for name, t in (("a_t", a_t), ("b_t", b_t)):
+        _require(tuple(t.shape) == (H,) and t.dtype == torch.float32
+                 and t.device == dev, f"{name} must be a float32 ({H},) "
+                 f"tensor on {dev}")
+    _require(num_points >= 2, f"num_points={num_points} must be >= 2")
+    c = _check_class(true_class, dev)
+    lib = _lib6()
+    smem = lib.eig_refresh_compute_smem(C, H, num_points)
+    _require(smem <= _MAX_SMEM_OPTIN,
+             f"kernel 6 needs {smem} bytes of shared memory per block at "
+             f"C={C}, H={H}, num_points={num_points}; a Hopper block may opt "
+             f"in to at most {_MAX_SMEM_OPTIN}")
+    S0, dlogcdf, F_u, dF, w_trapz = refresh_tables(a_t, b_t, update_weight,
+                                                   num_points)
+    fu_t, df_t = F_u.T.contiguous(), dF.T.contiguous()     # (G, H) once
+    mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
+    out = torch.empty(N, dtype=torch.float32, device=dev)
+    rc = lib.eig_refresh_compute_launch(
+        pbest_rows.data_ptr(), pbest_hyp.data_ptr(), hard_preds.data_ptr(),
+        c.data_ptr(), S0.data_ptr(), dlogcdf.data_ptr(), fu_t.data_ptr(),
+        df_t.data_ptr(), w_trapz.data_ptr(), pi_hat.data_ptr(),
+        pi_hat_xi.data_ptr(), mixture0.data_ptr(), h_before.data_ptr(),
+        out.data_ptr(), C, N, H, num_points,
+        _vec(H, pbest_hyp, pbest_rows, mixture0),
+        int(pbest_hyp.dtype == torch.bfloat16), int(approx), _stream())
+    _raise_on(rc, "eig_refresh_compute_score")
+    _count("eig_refresh_compute_score", pbest_hyp.dtype, approx)
     return out, pbest_hyp

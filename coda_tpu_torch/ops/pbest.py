@@ -93,3 +93,74 @@ def pbest_row_mixture(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
     b = beta_cc.transpose(-1, -2)
     rows = compute_pbest(a, b, num_points=num_points)    # (..., C, H)
     return (rows * pi_hat[..., :, None]).sum(-2)
+
+
+# -- the hypothetical-label row refresh ------------------------------------
+# (the reference keeps these in selectors/coda.py; here the selector and
+# kernel 6's wrapper in ops/eig_kernels.py share them)
+
+def _trapz_weights(num_points: int, dx: torch.Tensor) -> torch.Tensor:
+    """Uniform-grid trapezoid weights (half weight at both ends)."""
+    w = dx.expand(num_points).clone()
+    w[0] = 0.5 * dx
+    w[-1] = 0.5 * dx
+    return w
+
+
+def _bump_tables(a, b, x, dx, update_weight):
+    """Per-model Beta grid tables for the two hypothetical-label variants
+    of ``(..., H)`` Beta parameters: "bumped" ``(a+w, b)`` when the model
+    predicted the hypothesised class, else "unbumped" ``(a, b+w)``.
+
+    Returns ``(S0, dlogcdf, F_u, dF)`` with the grid axis last:
+    ``S0 = Σ_H logcdf_unbumped`` and the ``d*`` tables bumped - unbumped.
+    """
+    def tab(aa, bb):
+        logpdf = beta_log_pdf(x, aa[..., None], bb[..., None])  # (..., H, G)
+        cdf = cumtrapz_uniform(torch.exp(logpdf), dx, dim=-1)
+        logcdf = torch.log(torch.clamp_min(cdf, _EPS))
+        # cap the exponent so fp32 never overflows (binds only where the
+        # integrand is ~0 anyway)
+        return logcdf, torch.exp(torch.clamp_max(logpdf - logcdf, 85.0))
+
+    logcdf_u, F_u = tab(a, b + update_weight)     # model predicted != c
+    logcdf_b, F_b = tab(a + update_weight, b)     # model predicted c
+    return logcdf_u.sum(-2), logcdf_b - logcdf_u, F_u, F_b - F_u
+
+
+def _pbest_hyp_from_tables(tables, eq_t, w_trapz):
+    """The hypothetical-row integral for ONE class row over all items:
+    per-item exclusive log-cdf sum, max-shift, weighted integrand,
+    normalisation. Three fp32 ``(N, H)·(H, G)``/``(N, G)·(G, H)`` products
+    left to ``torch.matmul``: the precomputed refresh and kernel 6's plain
+    version (the kernel computes them inside its scoring pass)."""
+    S0_t, dlogcdf_t, F_u_t, dF_t = tables
+    eq = eq_t.to(w_trapz.dtype)
+    S = S0_t[None] + eq @ dlogcdf_t                    # (N, G)
+    S = S - S.amax(-1, keepdim=True)
+    wE = w_trapz * torch.exp(S)
+    t_base = wE @ F_u_t.T                              # (N, H)
+    t_diff = wE @ dF_t.T
+    unnorm = t_base + eq * t_diff
+    return unnorm / torch.clamp_min(unnorm.sum(-1, keepdim=True), _EPS)
+
+
+def refresh_tables(a_t: torch.Tensor, b_t: torch.Tensor,
+                   update_weight: float = 1.0, num_points: int = 256):
+    """One class row's O(H·G) tables from its Beta parameters ``a_t``,
+    ``b_t`` (H,), as the reference's refresh and its kernel-6 wrapper build
+    them: ``(S0 (G,), dlogcdf (H, G), F_u (H, G), dF (H, G), w_trapz
+    (G,))``, all contiguous fp32."""
+    x = pbest_grid(num_points, a_t.device)
+    dx = x[1] - x[0]
+    S0, dlogcdf, F_u, dF = _bump_tables(a_t, b_t, x, dx, update_weight)
+    return (S0.contiguous(), dlogcdf.contiguous(), F_u, dF,
+            _trapz_weights(num_points, dx))
+
+
+def _pbest_hyp_row(a_t, b_t, eq_t, update_weight: float, num_points: int):
+    """Hypothetical P(best) for one class row: ``a_t``, ``b_t`` (H,) Beta
+    parameters, ``eq_t`` (N, H) bool (did model h predict this class at
+    item n) -> (N, H)."""
+    *tables, w_trapz = refresh_tables(a_t, b_t, update_weight, num_points)
+    return _pbest_hyp_from_tables(tables, eq_t, w_trapz)

@@ -2,26 +2,31 @@
 path of the reference selector (counterpart of
 ``coda_tpu/selectors/coda.py``).
 
-This slice ports the configuration the paper's run resolves to: the dense
-Dirichlet posterior, the INCREMENTAL EIG tier carrying the ``(C, N, H)``
-hypothetical-P(best) cache, the exact scorer, the delta pi-hat update and
-full-pool EIG acquisition. One round:
+This port covers the configuration the paper's run resolves to — the
+dense Dirichlet posterior, the INCREMENTAL EIG tier carrying the
+``(C, N, H)`` hypothetical-P(best) cache, the exact scorer, the delta
+pi-hat update and full-pool EIG acquisition — and the reference's
+headline-speed knobs on that tier: ``eig_cache_dtype`` (fp32 or bf16
+storage of the cache), ``eig_entropy`` (exact or polynomial log2) and
+``eig_refresh`` (``precomputed`` or ``fused``). One round:
 
   * select: tie-broken masked argmax over the scores computed at the end
     of the previous init/update (score-ahead);
   * update: add to Dirichlet row ``true_class``; move pi-hat column
     ``true_class`` by the row-gather kernel (``ops/gather_kernels``);
-    recompute the class row of the cache with three fp32 contractions;
-    write it into the cache and re-score all N in one kernel pass
-    (``ops/eig_kernels``);
+    then either (``precomputed``) recompute the class row of the cache
+    with three fp32 contractions and write it into the cache while
+    re-scoring all N in one kernel pass (kernel 2), or (``fused``) hand
+    the class row's Beta parameters to kernel 6, which computes the row
+    inside the scoring pass (``ops/eig_kernels``);
   * best: argmax of the pi-hat-weighted cached P(best) rows.
 
 State is updated IN PLACE: ``update`` writes the Dirichlet row, the pi-hat
 column, the P(best) row, the cache row and the unlabeled mask into the
 tensors of the state it is given (the reference returned new arrays). The
-three refresh contractions and the pi-hat einsum are plain fp32
-``torch.matmul``/``einsum`` with TF32 off, as the reference left them to
-XLA at HIGHEST precision. Every knob value outside this path raises
+contractions and the pi-hat einsum are plain fp32 ``torch.matmul``/
+``einsum`` with TF32 off, as the reference left them to XLA at HIGHEST
+precision. Every knob value outside these paths raises
 ``NotImplementedError`` naming the later slice that brings it.
 """
 
@@ -33,11 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from coda_tpu_torch import random as trandom
-from coda_tpu_torch.ops.beta import (
-    beta_log_pdf,
-    cumtrapz_uniform,
-    dirichlet_to_beta,
-)
+from coda_tpu_torch.ops.beta import dirichlet_to_beta
 from coda_tpu_torch.ops.confusion import (
     create_confusion_matrices,
     ensemble_preds,
@@ -47,6 +48,8 @@ from coda_tpu_torch.ops.eig_kernels import (
     eig_scores_cache,
     eig_scores_from_cache,
     eig_scores_refresh,
+    eig_scores_refresh_compute,
+    eig_scores_refresh_compute_plain,
     eig_scores_refresh_plain,
 )
 from coda_tpu_torch.ops.gather_kernels import (
@@ -55,7 +58,14 @@ from coda_tpu_torch.ops.gather_kernels import (
     prep_gather_layout,
 )
 from coda_tpu_torch.ops.masked import masked_argmax_tiebreak
-from coda_tpu_torch.ops.pbest import _EPS, compute_pbest, pbest_grid
+from coda_tpu_torch.ops.pbest import (
+    _EPS,
+    _bump_tables,
+    _pbest_hyp_row,
+    _trapz_weights,
+    compute_pbest,
+    pbest_grid,
+)
 from coda_tpu_torch.selectors.protocol import Selector, SelectResult
 from coda_tpu_torch.utils.platform import (
     DeviceLike,
@@ -77,8 +87,8 @@ _SLICE_REST = "the rest of CODA (slice 2 of the port)"
 
 
 class CODAHyperparams(NamedTuple):
-    """The reference's fields and defaults. This slice runs the defaults'
-    main path; see :func:`check_supported` for what raises."""
+    """The reference's fields and defaults. See :func:`check_supported`
+    for the values that raise."""
 
     prefilter_n: int = 0
     alpha: float = 0.9            # prior_strength = 1 - alpha
@@ -97,9 +107,14 @@ class CODAHyperparams(NamedTuple):
     #                               the kernels are held to on the card)
     n_parallel: int = 1           # replicas sharing the card (auto budget)
     eig_precision: str = "highest"
-    eig_cache_dtype: str = "float32"
-    eig_refresh: str = "precomputed"
-    eig_entropy: str = "exact"
+    eig_cache_dtype: str = "float32"  # float32 | bfloat16: storage of the
+    #                               (C, N, H) cache; all math stays fp32
+    eig_refresh: str = "precomputed"  # precomputed | fused: the class row
+    #                               is computed by three fp32 products
+    #                               before the scoring pass, or inside it
+    #                               (kernel 6; opt-in numerics, as in the
+    #                               reference)
+    eig_entropy: str = "exact"    # exact | approx: the scoring chain's log2
     shard_spec: str = ""
     posterior: str = "dense"
     eig_pbest: str = "quad"
@@ -110,9 +125,10 @@ class CODAHyperparams(NamedTuple):
 
 def _unsupported(knob: str, value, where: str = _SLICE_REST):
     raise NotImplementedError(
-        f"{knob}={value!r} comes with {where}; this slice of coda_tpu_torch "
-        "runs the main path (incremental tier, exact fp32 scorer, delta "
-        "pi-hat, dense posterior)")
+        f"{knob}={value!r} comes with {where}; coda_tpu_torch runs the "
+        "incremental tier with the exact scorer, delta pi-hat and the dense "
+        "posterior (fp32 or bf16 cache, exact or approx entropy, "
+        "precomputed or fused refresh)")
 
 
 def resolve_eig_mode(hp: CODAHyperparams, H: int, N: int, C: int) -> str:
@@ -133,8 +149,10 @@ def resolve_eig_mode(hp: CODAHyperparams, H: int, N: int, C: int) -> str:
         _unsupported("eig_mode", hp.eig_mode)
     if hp.eig_mode != "auto":
         raise ValueError(f"unknown eig_mode {hp.eig_mode!r}")
-    # cache + the (C, H, N) delta layout + the dense posterior
-    resident = 4 * N * C * H + 4 * N * C * H + 4 * H * C * C
+    # the cache at its storage dtype + the fp32 (C, H, N) delta layout +
+    # the dense posterior
+    itemsize = 2 if hp.eig_cache_dtype == "bfloat16" else 4
+    resident = itemsize * N * C * H + 4 * N * C * H + 4 * H * C * C
     if full_pool_eig and max(1, hp.n_parallel) * resident \
             <= _INCR_CACHE_MAX_BYTES:
         return "incremental"
@@ -144,7 +162,9 @@ def resolve_eig_mode(hp: CODAHyperparams, H: int, N: int, C: int) -> str:
 
 
 def check_supported(hp: CODAHyperparams, N: int) -> None:
-    """Raise on every knob value outside this slice's path."""
+    """Raise on every knob value outside the port's paths: ``ValueError``
+    with the reference's text where the reference refuses the value too,
+    ``NotImplementedError`` where a later slice brings it."""
     if hp.q != "eig":
         _unsupported("q", hp.q)
     if hp.prefilter_n and hp.prefilter_n < N:
@@ -152,11 +172,32 @@ def check_supported(hp: CODAHyperparams, N: int) -> None:
     if hp.eig_backend not in ("auto", "plain"):
         raise ValueError(f"unknown eig_backend {hp.eig_backend!r} "
                          "(use 'auto' or 'plain')")
+    if hp.eig_cache_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown eig_cache_dtype {hp.eig_cache_dtype!r} "
+                         "(use 'float32' or 'bfloat16')")
+    if hp.eig_entropy not in ("exact", "approx"):
+        raise ValueError(f"unknown eig_entropy {hp.eig_entropy!r} "
+                         "(use 'exact' or 'approx')")
+    if hp.eig_refresh not in ("precomputed", "fused"):
+        raise ValueError(f"unknown eig_refresh {hp.eig_refresh!r} "
+                         "(use 'precomputed' or 'fused')")
+    fused = hp.eig_refresh == "fused"
+    if fused and (hp.shard_spec or hp.n_parallel > 1):
+        raise ValueError(
+            "eig_refresh='fused' computes the replacement row inside the "
+            "single-chip pallas scoring kernel; it requires the pallas "
+            "backend and supports neither shard_spec nor vmapped batches "
+            f"(got backend={hp.eig_backend!r}, shard_spec={hp.shard_spec!r}, "
+            f"n_parallel={hp.n_parallel})")
+    if hp.eig_pbest == "amortized" and fused:
+        raise ValueError(
+            "eig_pbest='amortized' runs the row refresh through the jnp "
+            "logistic-normal tables; the pallas kernels compute their own "
+            f"Beta tables (got backend={hp.eig_backend!r}, "
+            f"eig_refresh={hp.eig_refresh!r}) — it would silently not "
+            "apply")
     for knob, default, where in (
             ("eig_precision", "highest", _SLICE_REST),
-            ("eig_cache_dtype", "float32", _SLICE_REST),
-            ("eig_refresh", "precomputed", _SLICE_REST),
-            ("eig_entropy", "exact", _SLICE_REST),
             ("posterior", "dense", _SLICE_REST),
             ("eig_pbest", "quad", _SLICE_REST),
             ("eig_scorer", "exact", "batched acquisition and the surrogate "
@@ -229,35 +270,6 @@ def update_pi_hat_column_delta(true_class: torch.Tensor,
 
 # -- the P(best) cache ---------------------------------------------------------
 
-def _trapz_weights(num_points: int, dx: torch.Tensor) -> torch.Tensor:
-    """Uniform-grid trapezoid weights (half weight at both ends)."""
-    w = dx.expand(num_points).clone()
-    w[0] = 0.5 * dx
-    w[-1] = 0.5 * dx
-    return w
-
-
-def _bump_tables(a, b, x, dx, update_weight):
-    """Per-model Beta grid tables for the two hypothetical-label variants
-    of ``(..., H)`` Beta parameters: "bumped" ``(a+w, b)`` when the model
-    predicted the hypothesised class, else "unbumped" ``(a, b+w)``.
-
-    Returns ``(S0, dlogcdf, F_u, dF)`` with the grid axis last:
-    ``S0 = Σ_H logcdf_unbumped`` and the ``d*`` tables bumped - unbumped.
-    """
-    def tab(aa, bb):
-        logpdf = beta_log_pdf(x, aa[..., None], bb[..., None])  # (..., H, G)
-        cdf = cumtrapz_uniform(torch.exp(logpdf), dx, dim=-1)
-        logcdf = torch.log(torch.clamp_min(cdf, _EPS))
-        # cap the exponent so fp32 never overflows (binds only where the
-        # integrand is ~0 anyway)
-        return logcdf, torch.exp(torch.clamp_max(logpdf - logcdf, 85.0))
-
-    logcdf_u, F_u = tab(a, b + update_weight)     # model predicted != c
-    logcdf_b, F_b = tab(a + update_weight, b)     # model predicted c
-    return logcdf_u.sum(-2), logcdf_b - logcdf_u, F_u, F_b - F_u
-
-
 def _pbest_hyp_block(eq, S0, dlogcdf, F_u, dF, w_trapz):
     """Hypothetical P(best) for a block of items: ``eq`` (B, C, H) ->
     (B, C, H). Three fp32 contractions over the model and grid axes; the
@@ -273,10 +285,14 @@ def _pbest_hyp_block(eq, S0, dlogcdf, F_u, dF, w_trapz):
 
 def build_eig_cache(dirichlets: torch.Tensor, hard_preds: torch.Tensor,
                     update_weight: float = 1.0, num_points: int = 256,
-                    chunk: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+                    chunk: int = 256,
+                    cache_dtype: torch.dtype = torch.float32
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The full ``(pbest_rows (C, H), pbest_hyp (C, N, H))`` cache: one
     factored pass over all N items and C class rows, in ``chunk``-item
-    blocks written straight into the ``(C, N, H)`` layout."""
+    blocks written straight into the ``(C, N, H)`` layout. The math is
+    fp32; ``cache_dtype`` is the storage type of ``pbest_hyp`` (each block
+    rounded to nearest even on the way in)."""
     H, C, _ = dirichlets.shape
     N = hard_preds.shape[0]
     a_cc, b_cc = dirichlet_to_beta(dirichlets)
@@ -287,7 +303,7 @@ def build_eig_cache(dirichlets: torch.Tensor, hard_preds: torch.Tensor,
     w_trapz = _trapz_weights(num_points, dx)
     S0, dlogcdf, F_u, dF = _bump_tables(aT, bT, x, dx, update_weight)
     classes = torch.arange(C, dtype=hard_preds.dtype, device=hard_preds.device)
-    hyp = torch.empty((C, N, H), dtype=torch.float32, device=dirichlets.device)
+    hyp = torch.empty((C, N, H), dtype=cache_dtype, device=dirichlets.device)
     B = max(1, min(chunk, N))
     for start in range(0, N, B):
         pred_b = hard_preds[start:start + B]          # (B, H)
@@ -297,30 +313,12 @@ def build_eig_cache(dirichlets: torch.Tensor, hard_preds: torch.Tensor,
     return pbest_rows, hyp
 
 
-def _pbest_hyp_from_tables(tables, eq_t, w_trapz):
-    """The hypothetical-row integral for ONE class row over all items:
-    per-item exclusive log-cdf sum, max-shift, weighted integrand,
-    normalisation. Three fp32 ``(N, H)·(H, G)``/``(N, G)·(G, H)`` products
-    — the round's largest cost, left to ``torch.matmul``."""
-    S0_t, dlogcdf_t, F_u_t, dF_t = tables
-    eq = eq_t.to(w_trapz.dtype)
-    S = S0_t[None] + eq @ dlogcdf_t                    # (N, G)
-    S = S - S.amax(-1, keepdim=True)
-    wE = w_trapz * torch.exp(S)
-    t_base = wE @ F_u_t.T                              # (N, H)
-    t_diff = wE @ dF_t.T
-    unnorm = t_base + eq * t_diff
-    return unnorm / torch.clamp_min(unnorm.sum(-1, keepdim=True), _EPS)
-
-
-def _pbest_hyp_row(a_t, b_t, eq_t, update_weight: float, num_points: int):
-    """Hypothetical P(best) for one class row: ``a_t``, ``b_t`` (H,) Beta
-    parameters, ``eq_t`` (N, H) bool (did model h predict this class at
-    item n) -> (N, H)."""
-    x = pbest_grid(num_points, a_t.device)
-    dx = x[1] - x[0]
-    tables = _bump_tables(a_t, b_t, x, dx, update_weight)
-    return _pbest_hyp_from_tables(tables, eq_t, _trapz_weights(num_points, dx))
+def row_beta(dirichlets: torch.Tensor, true_class: torch.Tensor):
+    """``(a_t, b_t)`` (H,): the diagonal-Beta parameters of class row
+    ``true_class`` (a 0-d device tensor; no host synchronisation)."""
+    c = true_class.reshape(1).to(torch.int64)
+    a_cc, b_cc = dirichlet_to_beta(dirichlets)       # (H, C)
+    return a_cc.index_select(1, c)[:, 0], b_cc.index_select(1, c)[:, 0]
 
 
 def update_eig_cache_parts(dirichlets: torch.Tensor, true_class: torch.Tensor,
@@ -329,10 +327,7 @@ def update_eig_cache_parts(dirichlets: torch.Tensor, true_class: torch.Tensor,
     """The refreshed values of class row ``true_class`` without writing
     them: ``(row_t (H,), hyp_t (N, H))``. ``dirichlets`` already holds the
     new label; ``true_class`` is a 0-d device tensor."""
-    c = true_class.reshape(1).to(torch.int64)
-    a_cc, b_cc = dirichlet_to_beta(dirichlets)       # (H, C)
-    a_t = a_cc.index_select(1, c)[:, 0]
-    b_t = b_cc.index_select(1, c)[:, 0]
+    a_t, b_t = row_beta(dirichlets, true_class)
     eq_t = hard_preds == true_class                  # (N, H) bool
     hyp_t = _pbest_hyp_row(a_t, b_t, eq_t, update_weight, num_points)
     row_t = compute_pbest(a_t, b_t, num_points=num_points)
@@ -371,9 +366,14 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     resolve_eig_mode(hp, H, N, C)
     prior_strength = 1.0 - hp.alpha
     update_strength = hp.learning_rate
+    cache_dtype = getattr(torch, hp.eig_cache_dtype)
+    approx = hp.eig_entropy == "approx"
+    fused = hp.eig_refresh == "fused"
     plain = hp.eig_backend == "plain"
     score_fn = eig_scores_from_cache if plain else eig_scores_cache
     refresh_fn = eig_scores_refresh_plain if plain else eig_scores_refresh
+    compute_fn = (eig_scores_refresh_compute_plain if plain
+                  else eig_scores_refresh_compute)
     gather_fn = gather_rows_sum_plain if plain else gather_rows_sum
 
     hard_preds = preds.argmax(-1).T.to(torch.int32).contiguous()   # (N, H)
@@ -390,7 +390,8 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         pi_xi, pi = _normalize_pi(unnorm)
         rows, hyp = build_eig_cache(dirichlets0, hard_preds,
                                     num_points=hp.num_points,
-                                    chunk=hp.eig_chunk)
+                                    chunk=hp.eig_chunk,
+                                    cache_dtype=cache_dtype)
         return CODAState(
             dirichlets=dirichlets0.clone(),
             pi_hat_xi=pi_xi,
@@ -401,7 +402,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
             pi_xi_unnorm=unnorm,
             # score-ahead: the next select reads these
             eig_scores_cached=score_fn(rows, hyp, pi, pi_xi,
-                                       chunk=hp.eig_chunk),
+                                       chunk=hp.eig_chunk, approx=approx),
         )
 
     def select(state: CODAState, key: torch.Tensor) -> SelectResult:
@@ -427,12 +428,24 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         pi_xi, pi, unnorm = update_pi_hat_column_delta(
             true_class, pred_at, preds_by_class, state.pi_xi_unnorm,
             update_strength, gather_fn=gather_fn)
-        row_t, hyp_t = update_eig_cache_parts(
-            state.dirichlets, true_class, hard_preds,
-            num_points=hp.num_points)
-        state.pbest_rows.index_copy_(0, c, row_t[None])
-        scores, hyp = refresh_fn(state.pbest_rows, state.pbest_hyp, hyp_t,
-                                 true_class, pi, pi_xi, chunk=hp.eig_chunk)
+        if fused:
+            # the class row is computed inside the scoring pass (kernel 6)
+            # from the labelled class's Beta tables
+            a_t, b_t = row_beta(state.dirichlets, true_class)
+            row_t = compute_pbest(a_t, b_t, num_points=hp.num_points)
+            state.pbest_rows.index_copy_(0, c, row_t[None])
+            scores, hyp = compute_fn(
+                state.pbest_rows, state.pbest_hyp, a_t, b_t, hard_preds,
+                true_class, pi, pi_xi, num_points=hp.num_points,
+                approx=approx, chunk=hp.eig_chunk)
+        else:
+            row_t, hyp_t = update_eig_cache_parts(
+                state.dirichlets, true_class, hard_preds,
+                num_points=hp.num_points)
+            state.pbest_rows.index_copy_(0, c, row_t[None])
+            scores, hyp = refresh_fn(state.pbest_rows, state.pbest_hyp,
+                                     hyp_t, true_class, pi, pi_xi,
+                                     chunk=hp.eig_chunk, approx=approx)
         state.unlabeled.index_fill_(0, idx.reshape(1).to(torch.int64), False)
         return state._replace(pi_hat_xi=pi_xi, pi_hat=pi, pi_xi_unnorm=unnorm,
                               pbest_hyp=hyp, eig_scores_cached=scores)

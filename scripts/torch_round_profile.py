@@ -2,19 +2,22 @@
 """Where a CODA round's time goes on the GPU (coda_tpu_torch main path).
 
     python scripts/torch_round_profile.py [--shape H,N,C] [--rounds 5]
-        [--out profile.json]
+        [--eig-refresh precomputed|fused] [--eig-cache-dtype float32|bfloat16]
+        [--eig-entropy exact|approx] [--out profile.json]
 
 Builds the synthetic task of ``--shape`` (default the headline 1000,50000,10)
-on the card, runs CODA's init twice (cold, then warm; host clock with the
-device synchronised) and two warm-up rounds, then times ``--rounds`` rounds
-twice: on the host clock with the device synchronised (ms/round), and under
-``torch.profiler`` (device time per kernel, grouped into the port's CUDA
-kernels, matrix products, and other PyTorch kernels; only device-side
-events are summed, so an operator and the kernels it launched are not
-counted twice). Kernels on one stream do not overlap, so the device's busy
-share is the summed kernel time over the profiled wall time. Prints a
-summary and, with ``--out``, writes the full table as JSON there. Needs a
-CUDA device; prints the card's name and power limit beside the numbers.
+on the card, builds CODA with the given numerics knobs (default: the
+reference's precomputed refresh, fp32 cache, exact entropy), runs its init
+twice (cold, then warm; host clock with the device synchronised) and two
+warm-up rounds, then times ``--rounds`` rounds twice: on the host clock
+with the device synchronised (ms/round), and under ``torch.profiler``
+(device time per kernel, grouped into the port's CUDA kernels, matrix
+products, and other PyTorch kernels; only device-side events are summed,
+so an operator and the kernels it launched are not counted twice).
+Kernels on one stream do not overlap, so the device's busy share is the
+summed kernel time over the profiled wall time. Prints a summary and, with
+``--out``, writes the full table as JSON there. Needs a CUDA device;
+prints the card's name and power limit beside the numbers.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def _group(name: str) -> str:
     n = name.lower()
+    if "refresh_compute_kernel" in n:
+        return "kernel: eig_refresh_compute (csrc/eig_refresh_compute.cu)"
     if "score_kernel" in n:
         return "kernel: eig_score/refresh (csrc/eig_score.cu)"
     if "row_gather" in n:
@@ -47,6 +52,12 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--shape", default="1000,50000,10")
     p.add_argument("--rounds", type=int, default=5)
+    p.add_argument("--eig-refresh", default="precomputed",
+                   choices=["precomputed", "fused"])
+    p.add_argument("--eig-cache-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--eig-entropy", default="exact",
+                   choices=["exact", "approx"])
     p.add_argument("--out", default=None,
                    help="also write the full table as JSON here")
     args = p.parse_args(argv)
@@ -70,7 +81,11 @@ def main(argv=None) -> int:
     H, N, C = (int(x) for x in args.shape.split(","))
     dev = torch.device("cuda")
     task = make_synthetic_task(0, H=H, N=N, C=C, device=dev)
-    sel = make_coda(task.preds, CODAHyperparams(eig_chunk=1024), device=dev)
+    knobs = dict(eig_refresh=args.eig_refresh,
+                 eig_cache_dtype=args.eig_cache_dtype,
+                 eig_entropy=args.eig_entropy)
+    sel = make_coda(task.preds, CODAHyperparams(eig_chunk=1024, **knobs),
+                    device=dev)
     step = make_step_fn(sel, task.labels,
                         true_losses(task.preds, task.labels))
     k_init, _, k_scan = trandom.split(trandom.PRNGKey(0), 3)
@@ -120,6 +135,7 @@ def main(argv=None) -> int:
     busy = device_ms * args.rounds / prof_wall_ms if prof_wall_ms else 0.0
     summary = {
         "card": smi, "shape_HNC": [H, N, C], "rounds": args.rounds,
+        "knobs": knobs,
         "init_ms_cold": init_ms[0], "init_ms_warm": init_ms[1],
         "ms_per_round": round_ms,
         "device_launches_per_round": launches,
@@ -137,6 +153,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)
     print(f"card: {smi}")
+    print(f"knobs: {knobs}")
     print(f"shape (H, N, C) = ({H}, {N}, {C}): init {init_ms[0]:.1f} ms "
           f"cold, {init_ms[1]:.1f} ms warm; {round_ms:.3f} ms/round (host "
           f"clock, synchronised); profiled device time {device_ms:.3f} "

@@ -266,8 +266,7 @@ def test_disagreement_mask_matches_reference():
 
 @pytest.mark.parametrize("knob,value", [
     ("eig_mode", "factored"), ("eig_mode", "rowscan"), ("eig_mode", "direct"),
-    ("eig_cache_dtype", "bfloat16"), ("eig_entropy", "approx"),
-    ("eig_refresh", "fused"), ("eig_precision", "high"),
+    ("eig_precision", "high"),
     ("pi_update", "exact"), ("posterior", "sparse:2"),
     ("eig_pbest", "amortized"), ("eig_scorer", "surrogate:8"),
     ("surrogate_prior", "pool"), ("q", "iid"), ("q", "uncertainty"),
@@ -279,6 +278,29 @@ def test_later_slice_knobs_raise(knob, value):
     hp = tcoda.CODAHyperparams(**{knob: value})
     with pytest.raises(NotImplementedError, match="slice"):
         tcoda.make_coda(preds, hp, device="cpu")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("eig_cache_dtype", "bfloat16"), ("eig_entropy", "approx"),
+    ("eig_refresh", "fused")])
+def test_headline_speed_knobs_build_and_run(knob, value):
+    """The knobs the fused slice brings build a selector and run a round
+    on the CPU, with finite scores for every item."""
+    from coda_tpu_torch.engine.loop import make_step_fn
+    from coda_tpu_torch.oracle import true_losses
+
+    task = _jax_task("synthetic")
+    preds = torch.from_numpy(np.array(task.preds))
+    labels = torch.from_numpy(np.array(task.labels))
+    sel = tcoda.make_coda(preds, tcoda.CODAHyperparams(**{knob: value}),
+                          device="cpu")
+    state = sel.init(None)
+    if knob == "eig_cache_dtype":
+        assert state.pbest_hyp.dtype == torch.bfloat16
+    step = make_step_fn(sel, labels, true_losses(preds, labels))
+    state, _, outs = step(state, torch.zeros(()), trandom.PRNGKey(0))
+    assert not bool(state.unlabeled[outs[0]])
+    assert torch.isfinite(state.eig_scores_cached).all()
 
 
 def test_unknown_knob_values_raise_value_error():
