@@ -17,7 +17,11 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    least time the card could take (bytes or operations over the card's
    peak rates) and, for the gather, the time of the PyTorch indexing
    expression that computes the same sum. Kernel 6 (the fused
-   refresh-compute-score) also shows its row against the plain one;
+   refresh-compute-score) also shows its row against the plain one. The
+   seed-batched kernels 4 and 5 and kernel 3 with a replica axis run at
+   S = 5 replicas (the CLI's default seeds) of the same shapes, held to
+   their plain versions and, bitwise, to kernels 1, 2 and 3 launched on
+   each replica;
 3. drives the main path — ``make_synthetic_task(0, H=1000, N=50000, C=10)``
    through ``run_seeds_compiled`` with CODA, one seed — once per
    configuration of MAIN_PATHS: the reference's default (precomputed
@@ -26,12 +30,20 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    Each run has every launch counter set to 0 just before and read just
    after, and must have launched kernel 1 once (init), kernel 3 once a
    round and kernel 2 (precomputed) or kernel 6 (fused) once a round, in
-   the run's flavour, and nothing else;
+   the run's flavour, and nothing else. Then the seed-batched engine, once
+   per configuration of BATCHED_PATHS: 5 seeds in one batch
+   (``eig_mode='incremental'``, precomputed refresh), fp32 exact for 20
+   rounds and the other three flavours for 5, each of which must have
+   launched kernel 4 once and kernel 5 and the batched kernel 3 once a
+   round, and nothing else;
 4. runs ``data/digits_h80.npz`` for 30 rounds on the kernel path and on the
    plain path, precomputed and fused, and requires identical trajectories;
    runs it for 100 rounds fused and precomputed on the kernels and requires
-   the same chosen items and best models; runs ``data/digits.npz`` for 100
-   rounds x 3 seeds and compares it with the reference package's committed
+   the same chosen items and best models; runs it for 3 seeds x 30 rounds
+   batched on the kernels, one seed after another on the kernels and
+   batched on the plain versions, and requires identical trajectories;
+   runs ``data/digits.npz`` for 100 rounds x 3 seeds, batched and one seed
+   after another, and compares each with the reference package's committed
    record ``runs/surrogate_r17/exact`` (same key schedule; the rounds before
    the record's first near-tie must agree).
 
@@ -57,6 +69,8 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 HEADLINE = (10, 50_000, 1000)        # (C, N, H)
 RAGGED_N = 50_001
+SEEDS = 5                            # replicas of the batched kernels and
+#                                      engine: the CLI's default --seeds
 REPS = 20
 SCORE_RTOL = 1e-4
 
@@ -119,17 +133,19 @@ def score_atol(H: int) -> float:
     return 4 * math.sqrt(H) * 2.0 ** -24 * max(1.0, math.log2(H))
 
 
-def random_cache(gen, C, N, H, dev):
+def random_cache(gen, C, N, H, dev, lead=()):
+    """Random normalised (rows, hyp, pi, pi_xi, hyp_t), each with the
+    leading axes ``lead`` (a batch of replicas)."""
     import torch
 
     def simplex(*shape):
-        x = torch.rand(shape, generator=gen, device=dev) + 0.1
+        x = torch.rand((*lead, *shape), generator=gen, device=dev) + 0.1
         return x / x.sum(-1, keepdim=True)
 
     rows, hyp, pi_xi, hyp_t = (simplex(C, H), simplex(C, N, H),
                                simplex(N, C), simplex(N, H))
-    pi = pi_xi.mean(0)
-    return rows, hyp, pi / pi.sum(), pi_xi, hyp_t
+    pi = pi_xi.mean(-2)
+    return rows, hyp, pi / pi.sum(-1, keepdim=True), pi_xi, hyp_t
 
 
 FLAVOURS = [(dt, approx) for dt in ("float32", "bfloat16")
@@ -333,21 +349,171 @@ def _k6(dev, peaks, recs, N, gen, rows0, hyp32, pi, pi_xi):
     del hard
 
 
+def _k45(dev, peaks, recs, N, gen):
+    """Kernels 4 and 5 (the seed-batched kernels 1 and 2) in all four
+    flavours at S = SEEDS replicas: against their plain versions, and
+    bitwise against kernels 1 and 2 launched on each replica."""
+    import torch
+
+    from coda_tpu_torch.ops import eig_kernels as ek
+
+    S, (C, _, H) = SEEDS, HEADLINE
+    headline = N == HEADLINE[1]
+    rows, hyp32, pi, pi_xi, hyp_t = random_cache(gen, C, N, H, dev, lead=(S,))
+    # each replica refreshes its own class row
+    cls = torch.tensor([(3 * s + 1) % C for s in range(S)],
+                       dtype=torch.int32, device=dev)
+    atol = score_atol(H)
+    for dtype, approx in FLAVOURS:
+        tdt = getattr(torch, dtype)
+        size = torch.finfo(tdt).bits // 8
+        hyp = hyp32.to(tdt)
+        tag = f"S={S} N={N} ({dtype}{',approx' if approx else ''})"
+
+        # kernel 4
+        name = ek.flavour("eig_score_batched", tdt, approx)
+        got = ek.eig_scores_cache_batched(rows, hyp, pi, pi_xi, approx=approx)
+        want = ek.eig_scores_from_cache_batched(rows, hyp, pi, pi_xi,
+                                                chunk=1024, approx=approx)
+        one = torch.stack([ek.eig_scores_cache(rows[s], hyp[s], pi[s],
+                                               pi_xi[s], approx=approx)
+                           for s in range(S)])
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=SCORE_RTOL, atol=atol)
+        if not torch.equal(got, one):
+            raise AssertionError(f"{name}: scores != kernel 1 per replica")
+        r = recs.setdefault(name, dict(
+            source="coda_tpu_torch/csrc/eig_score.cu",
+            replaces="coda_tpu/ops/pallas_eig.py:556", max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        nbytes = S * (size * C * N * H + 4 * (C * H + C + N * C + H + 1 + N))
+        ms = time_ms(lambda: ek.eig_scores_cache_batched(rows, hyp, pi, pi_xi,
+                                                         approx=approx))
+        plain = time_ms(lambda: ek.eig_scores_from_cache_batched(
+            rows, hyp, pi, pi_xi, chunk=1024, approx=approx), reps=5)
+        b, by = bound(nbytes, 8.0 * S * C * N * H, peaks)
+        log(f"kernel {name} {tag}: max_abs_err={err:.3e} (tol atol="
+            f"{atol:.2e} rtol={SCORE_RTOL}) == kernel 1 per replica bitwise "
+            f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f} ({by})")
+        if headline:
+            r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                     library_ms=None)
+
+        # kernel 5: replica s refreshes row cls[s] in place, then scores
+        name = ek.flavour("eig_refresh_score_batched", tdt, approx)
+        hyp_k, hyp_p, hyp_q = hyp.clone(), hyp.clone(), hyp.clone()
+        got, _ = ek.eig_scores_refresh_batched(rows, hyp_k, hyp_t, cls, pi,
+                                               pi_xi, approx=approx)
+        want, _ = ek.eig_scores_refresh_batched_plain(
+            rows, hyp_p, hyp_t, cls, pi, pi_xi, chunk=1024, approx=approx)
+        one = torch.stack([ek.eig_scores_refresh(
+            rows[s], hyp_q[s], hyp_t[s], cls[s], pi[s], pi_xi[s],
+            approx=approx)[0] for s in range(S)])
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=SCORE_RTOL, atol=atol)
+        if not torch.equal(hyp_k, hyp_p):
+            raise AssertionError(f"{name}: cache != plain cache")
+        if not (torch.equal(got, one) and torch.equal(hyp_k, hyp_q)):
+            raise AssertionError(f"{name}: scores or cache != kernel 2 per "
+                                 "replica")
+        for s in range(S):
+            c_idx = int(cls[s])
+            if not torch.equal(hyp_k[s, c_idx], hyp_t[s].to(tdt)):
+                raise AssertionError(f"{name}: replica {s} row != hyp_t")
+            _check_refresh_rows(hyp_k[s], hyp_p[s], hyp[s], c_idx, C)
+        del hyp_p, hyp_q
+        r = recs.setdefault(name, dict(
+            source="coda_tpu_torch/csrc/eig_score.cu",
+            replaces="coda_tpu/ops/pallas_eig.py:825", max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        nbytes = S * (size * ((C - 1) * N * H + N * H) + 4 * (
+            N * H + C * H + C + N * C + H + 1 + N + 1))
+        ms = time_ms(lambda: ek.eig_scores_refresh_batched(
+            rows, hyp_k, hyp_t, cls, pi, pi_xi, approx=approx))
+        plain = time_ms(lambda: ek.eig_scores_refresh_batched_plain(
+            rows, hyp_k, hyp_t, cls, pi, pi_xi, chunk=1024, approx=approx),
+            reps=5)
+        b, by = bound(nbytes, 8.0 * S * C * N * H, peaks)
+        log(f"kernel {name} {tag}: max_abs_err={err:.3e} (tol atol="
+            f"{atol:.2e} rtol={SCORE_RTOL}) cache == plain cache, == kernel 2 "
+            f"per replica bitwise, other rows untouched ms={ms:.4f} "
+            f"plain_ms={plain:.4f} bound_ms={b:.4f} ({by})")
+        if headline:
+            r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                     library_ms=None)
+        del hyp, hyp_k
+        torch.cuda.empty_cache()
+    del rows, hyp32, pi, pi_xi, hyp_t
+    torch.cuda.empty_cache()
+
+
+def _gather(dev, peaks, recs, N, gen):
+    """Kernel 3, and kernel 3 with a replica axis at S = SEEDS (bitwise
+    kernel 3 on each replica), against their plain versions."""
+    import torch
+
+    from coda_tpu_torch.ops import gather_kernels as gk
+
+    S, (C, _, H) = SEEDS, HEADLINE
+    headline = N == HEADLINE[1]
+    pbc = torch.rand((C, H, N), generator=gen, device=dev)
+    hidx = torch.arange(H, device=dev)
+    s = torch.randint(0, C, (S, H), generator=gen, device=dev,
+                      dtype=torch.int32)
+    s64 = s.long()
+    # H positive fp32 adds in two orders: |diff| <= H*2^-24*|sum|
+    rtol = H * 2.0 ** -24
+    for name, fn, plain_fn, lib_fn, sel in (
+            ("row_gather", gk.gather_rows_sum, gk.gather_rows_sum_plain,
+             lambda: pbc[s64[0], hidx].sum(0), s[0]),
+            ("row_gather_batched", gk.gather_rows_sum_batched,
+             gk.gather_rows_sum_batched_plain,
+             lambda: pbc[s64, hidx].sum(1), s)):
+        got = fn(pbc, sel)
+        want = plain_fn(pbc, sel)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+        note = ""
+        if sel.dim() == 2:
+            if not all(torch.equal(got[r], gk.gather_rows_sum(pbc, sel[r]))
+                       for r in range(S)):
+                raise AssertionError(f"{name}: != kernel 3 per replica")
+            note = f"S={S}, == kernel 3 per replica bitwise "
+        r = recs.setdefault(name, dict(
+            source="coda_tpu_torch/csrc/row_gather.cu",
+            replaces="coda_tpu/ops/pallas_gather.py:66", max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        ms = time_ms(lambda: fn(pbc, sel))
+        plain = time_ms(lambda: plain_fn(pbc, sel))
+        lib = time_ms(lib_fn)
+        # the distinct (class, model) rows these classes select, each read
+        # once, the classes and the output
+        rows_needed = int(torch.unique(sel.long() * H + hidx).numel())
+        b, by = bound(4 * (rows_needed * N + sel.numel() + got.numel()),
+                      float(sel.numel() * N), peaks)
+        log(f"kernel {name} N={N}: {note}max_abs_err={err:.3e} (tol rtol="
+            f"{rtol:.2e}) ms={ms:.4f} plain_ms={plain:.4f} library_ms="
+            f"{lib:.4f} bound_ms={b:.4f} ({by}; {rows_needed} distinct rows)")
+        if headline:
+            r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                     library_ms=lib)
+    del pbc
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(dev, peaks):
     """Every kernel, in every flavour, against its plain version at the
     headline and a ragged shape. Returns per-flavour records (times at the
     headline)."""
     import torch
 
-    from coda_tpu_torch.ops import gather_kernels as gk
-
-    recs = {"row_gather": dict(source="coda_tpu_torch/csrc/row_gather.cu",
-                               replaces="coda_tpu/ops/pallas_gather.py:66",
-                               max_abs_err=0.0)}
+    recs = {}
     gen = torch.Generator(device=dev)
     C, _, H = HEADLINE
     for N in (HEADLINE[1], RAGGED_N):
-        headline = N == HEADLINE[1]
         gen.manual_seed(N)
         rows, hyp, pi, pi_xi, hyp_t = random_cache(gen, C, N, H, dev)
         for dtype, approx in FLAVOURS:
@@ -358,33 +524,8 @@ def phase_kernels(dev, peaks):
         _k6(dev, peaks, recs, N, gen, rows, hyp, pi, pi_xi)
         del rows, hyp, pi, pi_xi
         torch.cuda.empty_cache()
-
-        # kernel 3: (C, H, N) row gather-sum
-        pbc = torch.rand((C, H, N), generator=gen, device=dev)
-        s = torch.randint(0, C, (H,), generator=gen, device=dev,
-                          dtype=torch.int32)
-        got = gk.gather_rows_sum(pbc, s)
-        want = gk.gather_rows_sum_plain(pbc, s)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        # H positive fp32 adds in two orders: |diff| <= H*2^-24*|sum|
-        torch.testing.assert_close(got, want, rtol=H * 2.0 ** -24, atol=0)
-        r = recs["row_gather"]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        hidx = torch.arange(H, device=dev)
-        s64 = s.long()
-        ms = time_ms(lambda: gk.gather_rows_sum(pbc, s))
-        plain = time_ms(lambda: gk.gather_rows_sum_plain(pbc, s))
-        lib = time_ms(lambda: pbc[s64, hidx].sum(0))
-        b, by = bound(4 * (H * N + H + N), float(H * N), peaks)
-        log(f"kernel row_gather N={N}: max_abs_err={err:.3e} "
-            f"(tol rtol={H * 2.0 ** -24:.2e}) ms={ms:.4f} plain_ms="
-            f"{plain:.4f} library_ms={lib:.4f} bound_ms={b:.4f} ({by})")
-        if headline:
-            r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                     library_ms=lib)
-        del pbc
-        torch.cuda.empty_cache()
+        _k45(dev, peaks, recs, N, gen)
+        _gather(dev, peaks, recs, N, gen)
     return recs
 
 
@@ -405,7 +546,10 @@ def read_counts() -> tuple[dict, dict]:
 
     by_flavour = {**ek.launch_counts, **gk.launch_counts}
     by_kernel = dict.fromkeys(("eig_score", "eig_refresh_score",
-                               "eig_refresh_compute_score", "row_gather"), 0)
+                               "eig_refresh_compute_score", "row_gather",
+                               "eig_score_batched",
+                               "eig_refresh_score_batched",
+                               "row_gather_batched"), 0)
     for name, n in by_flavour.items():
         kernel = name.split("[")[0]
         by_kernel[kernel] = by_kernel.get(kernel, 0) + n
@@ -420,13 +564,36 @@ MAIN_PATHS = [("precomputed", "float32", "exact", 20),
     for d in ("float32", "bfloat16") for e in ("exact", "approx")
     if (r, d, e) not in (("precomputed", "float32", "exact"),
                          ("fused", "bfloat16", "exact"))]
+# (eig_cache_dtype, eig_entropy, rounds) of the seed-batched engine
+# (precomputed refresh, SEEDS seeds in one batch): the reference's default
+# at 20 rounds, the other flavours at 5
+BATCHED_PATHS = [("float32", "exact", 20), ("float32", "approx", 5),
+                 ("bfloat16", "exact", 5), ("bfloat16", "approx", 5)]
+
+
+def _check_run(res, config, iters, N):
+    """Finite, in range, no item chosen twice by a seed, regret >= 0."""
+    import torch
+
+    regret = res.regret.cpu()
+    idx = res.chosen_idx.cpu()
+    if not (torch.isfinite(regret).all() and torch.isfinite(
+            res.select_prob.cpu()).all()):
+        raise AssertionError(f"{config}: non-finite regret or select_prob")
+    if not ((idx >= 0).all() and (idx < N).all()
+            and all(len(set(row.tolist())) == iters for row in idx)):
+        raise AssertionError(f"{config}: chosen indices out of range or "
+                             f"repeated: {idx}")
+    if (regret < 0).any():
+        raise AssertionError(f"{config}: negative regret")
 
 
 def phase_main_path(dev) -> dict:
     """The headline CODA run through the user's entry points, once per
-    configuration of MAIN_PATHS, each with the launch counters set to 0
-    just before and read just after. Returns the launches by flavour,
-    summed over the runs."""
+    configuration of MAIN_PATHS (one seed) and of BATCHED_PATHS (SEEDS
+    seeds in one batch), each with the launch counters set to 0 just
+    before and read just after. Returns the launches by flavour, summed
+    over the runs."""
     import torch
 
     from coda_tpu_torch.data import make_synthetic_task
@@ -469,23 +636,52 @@ def phase_main_path(dev) -> dict:
                                  f"expected {want}")
         for k, v in by_flavour.items():
             total[k] = total.get(k, 0) + v
+        _check_run(res, config, iters, N)
         regret = res.regret.cpu()
-        idx = res.chosen_idx.cpu()
-        if not (torch.isfinite(regret).all() and torch.isfinite(
-                res.select_prob.cpu()).all()):
-            raise AssertionError(f"{config}: non-finite regret or "
-                                 "select_prob")
-        if not ((idx >= 0).all() and (idx < N).all()
-                and len(set(idx[0].tolist())) == iters):
-            raise AssertionError(f"{config}: chosen indices out of range or "
-                                 f"repeated: {idx}")
-        if (regret < 0).any():
-            raise AssertionError(f"{config}: negative regret")
         init_ms = timings[0]["init_ms"]
         round_ms = timings[0]["rounds_ms"] / iters
         log(f"main path {config}, {iters} rounds: init_ms={init_ms:.1f} "
             f"ms_per_round={round_ms:.3f} "
             f"regret@{iters}={float(regret[0, -1]):.4f} "
+            f"regret@0={float(res.regret_at_0[0]):.4f} "
+            f"peak_mem_gb={peak_gb:.2f} launches={json.dumps(counts)}")
+        del res
+
+    # the seed-batched engine: SEEDS seeds in one round loop
+    for dtype, entropy, iters in BATCHED_PATHS:
+        hp = CODAHyperparams(eig_chunk=1024, eig_mode="incremental",
+                             eig_cache_dtype=dtype, eig_entropy=entropy,
+                             n_parallel=SEEDS)
+        timings = []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res = run_seeds_compiled(lambda p: make_coda(p, hp, device=dev),
+                                 task.preds, task.labels, iters=iters,
+                                 seeds=SEEDS, device=dev, timings=timings)
+        torch.cuda.synchronize()
+        counts, by_flavour = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        tdt, approx = getattr(torch, dtype), entropy == "approx"
+        want = {flavour("eig_score_batched", tdt, approx): 1,
+                flavour("eig_refresh_score_batched", tdt, approx): iters,
+                "row_gather_batched": iters}
+        config = f"batched seeds={SEEDS} eig_cache_dtype={dtype} " \
+                 f"eig_entropy={entropy}"
+        if by_flavour != want or len(timings) != 1:
+            raise AssertionError(f"{config}: launch counts {by_flavour}, "
+                                 f"expected {want}; timings {timings}")
+        for k, v in by_flavour.items():
+            total[k] = total.get(k, 0) + v
+        _check_run(res, config, iters, N)
+        regret = res.regret.cpu()
+        round_ms = timings[0]["rounds_ms"] / iters
+        log(f"main path {config}, {iters} rounds: init_ms="
+            f"{timings[0]['init_ms']:.1f} ms_per_round={round_ms:.3f} "
+            f"ms_per_seed_round={round_ms / SEEDS:.3f} "
+            f"regret@{iters} per seed="
+            f"{[round(float(x), 4) for x in regret[:, -1]]} "
             f"regret@0={float(res.regret_at_0[0]):.4f} "
             f"peak_mem_gb={peak_gb:.2f} launches={json.dumps(counts)}")
         del res
@@ -501,8 +697,11 @@ def _same_run(a, b, fields, what):
 
 
 def phase_parity(dev):
-    """digits_h80: kernel path == plain path on the card; digits: agree
-    with the reference package's committed record."""
+    """digits_h80: kernel path == plain path on the card, and the
+    seed-batched engine == seeds one after another; digits: agree with the
+    reference package's committed record, batched and one after another."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -514,11 +713,18 @@ def phase_parity(dev):
     ds = Dataset.from_file(os.path.join(HERE, "data", "digits_h80.npz"),
                            device=dev)
 
-    def run(iters, **kw):
-        hp = CODAHyperparams(eig_chunk=1024, **kw)
-        return run_seeds_compiled(lambda p: make_coda(p, hp, device=dev),
-                                  ds.preds, ds.labels, iters=iters, seeds=1,
-                                  device=dev)
+    def run(iters, seeds=1, sequential=False, **kw):
+        hp = CODAHyperparams(eig_chunk=1024, n_parallel=seeds, **kw)
+
+        def factory(p):
+            sel = make_coda(p, hp, device=dev)
+            # without its batched form, the engine runs seeds one after
+            # another
+            return dataclasses.replace(sel, batched=None) if sequential \
+                else sel
+
+        return run_seeds_compiled(factory, ds.preds, ds.labels, iters=iters,
+                                  seeds=seeds, device=dev)
 
     trajectory = ("chosen_idx", "true_class", "best_model", "regret")
     for refresh, tol in (("precomputed", 1e-5), ("fused", 1e-4)):
@@ -542,6 +748,27 @@ def phase_parity(dev):
     log(f"parity digits_h80: 100 rounds eig_refresh=fused == precomputed on "
         f"the kernels (chosen_idx, best_model identical), regret@100="
         f"{float(f100.regret[0, -1]):.4f}")
+    # the seed-batched engine (kernels 4, 5 and the batched kernel 3)
+    # against seeds one after another on the kernels and against the
+    # batched plain versions
+    reset_counts()
+    b = run(30, seeds=3)
+    counts, _ = read_counts()
+    if (counts["eig_score_batched"], counts["eig_refresh_score_batched"],
+            counts["row_gather_batched"]) != (1, 30, 30):
+        raise AssertionError(f"digits_h80 batched run: launches {counts}")
+    for other, what in ((run(30, seeds=3, sequential=True),
+                         "one seed after another on the kernels"),
+                        (run(30, seeds=3, eig_backend="plain"),
+                         "batched on the plain versions")):
+        _same_run(b, other, trajectory, f"digits_h80 batched vs {what}")
+        dprob = float((b.select_prob - other.select_prob).abs().max())
+        if dprob > 1e-5:
+            raise AssertionError(f"digits_h80 batched vs {what}: "
+                                 f"select_prob differs by {dprob}")
+        log(f"parity digits_h80: 3 seeds x 30 rounds batched on the kernels "
+            f"== {what} (idx, class, best, regret identical; max |d "
+            f"select_prob|={dprob:.3e} <= 1e-05)")
 
     rec = np.load(os.path.join(HERE, "runs", "surrogate_r17", "exact",
                                "rounds.npz"))
@@ -554,24 +781,25 @@ def phase_parity(dev):
                               rec["round_key"][s].astype(np.int64)):
             raise AssertionError(f"round keys differ from the record, "
                                  f"seed {s}")
-    res = run_seeds_compiled(
-        lambda p: make_coda(p, CODAHyperparams(eig_chunk=1024), device=dev),
-        ds.preds, ds.labels, iters=iters, seeds=seeds, device=dev)
-    same = np.ones((seeds, iters), bool)
-    for f in ("chosen_idx", "true_class", "best_model", "regret"):
-        same &= getattr(res, f).cpu().numpy() == rec[f]
-    agree = [int(np.argmin(r)) if not r.all() else iters for r in same]
     # the record's first round whose top-2 gap is below 1e-5: before it,
     # a difference is a port fault, not a near-tie
     clean = [int(np.argmax(g < 1e-5)) if (g < 1e-5).any() else iters
              for g in rec["runner_up_gap"]]
-    if any(a < c for a, c in zip(agree, clean)):
-        raise AssertionError(f"digits diverges from the reference record "
-                             f"at rounds {agree} (near-tie-free prefix "
-                             f"{clean})")
-    log(f"reference record digits {tuple(ds.shape)}: rounds agreeing with "
-        f"runs/surrogate_r17/exact per seed {agree} of {iters} "
-        f"(required: the near-tie-free prefix {clean}); round keys equal")
+    for sequential, how in ((True, "one seed after another"),
+                            (False, "seeds batched")):
+        res = run(iters, seeds=seeds, sequential=sequential)
+        same = np.ones((seeds, iters), bool)
+        for f in ("chosen_idx", "true_class", "best_model", "regret"):
+            same &= getattr(res, f).cpu().numpy() == rec[f]
+        agree = [int(np.argmin(r)) if not r.all() else iters for r in same]
+        if any(a < c for a, c in zip(agree, clean)):
+            raise AssertionError(f"digits ({how}) diverges from the "
+                                 f"reference record at rounds {agree} "
+                                 f"(near-tie-free prefix {clean})")
+        log(f"reference record digits {tuple(ds.shape)} ({how}): rounds "
+            f"agreeing with runs/surrogate_r17/exact per seed {agree} of "
+            f"{iters} (required: the near-tie-free prefix {clean}); round "
+            "keys equal")
 
 
 def main() -> int:

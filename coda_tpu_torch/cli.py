@@ -5,13 +5,18 @@ run of ``coda_tpu/cli.py``).
         --iters 20 --seeds 1
     python -m coda_tpu_torch.cli --synthetic 1000,50000,10 --method coda \\
         --eig-refresh fused --eig-cache-dtype bfloat16 --iters 20 --seeds 1
+    python -m coda_tpu_torch.cli --synthetic 1000,50000,10 --method coda \\
+        --eig-backend pallas --eig-mode incremental --iters 20 --seeds 5
     python -m coda_tpu_torch.cli --task digits --data-dir data --method coda \\
         --device cpu
 
 Runs CODA on the card (``--device cuda``, the default) and prints the
 reference CLI's per-seed ``seed s: regret@T=... cumulative=...
-stochastic=...`` lines. The tracking store and the flight recorder come
-with later slices of the port.
+stochastic=...`` lines. More than one seed runs as one batch (kernels 4
+and 5) unless ``--eig-refresh fused``, whose seeds run one after another;
+``n_parallel``, the auto tier's replica count, is the batch's width, as in
+the reference. The tracking store and the flight recorder come with later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -42,6 +47,11 @@ def parse_args(argv=None):
                    help="Disable diagonal prior (ablation 1).")
     p.add_argument("--eig-chunk", type=int, default=1024,
                    help="N-block of the cache build and the plain scoring")
+    p.add_argument("--eig-mode", default="auto",
+                   choices=["auto", "incremental"],
+                   help="EIG tier: auto (the reference's budget over every "
+                        "batched replica) or incremental (the (C, N, H) "
+                        "cache tier regardless of the budget)")
     # the incremental tier's numerics knobs (the reference's flags)
     p.add_argument("--eig-backend", default="auto",
                    choices=["auto", "plain", "pallas"],
@@ -59,9 +69,10 @@ def parse_args(argv=None):
                    help="where the row-refresh products run: precomputed = "
                         "fp32 matrix products before the scoring pass "
                         "(reference numerics); fused = inside the scoring "
-                        "kernel (opt-in numerics). Seeds run one after "
-                        "another, so fused takes any --seeds, where the "
-                        "reference's vmapped CLI refuses it for more than one")
+                        "kernel (opt-in numerics). Fused has no seed-batched "
+                        "form: its seeds run one after another, so it takes "
+                        "any --seeds, where the reference's vmapped CLI "
+                        "refuses it for more than one")
     p.add_argument("--eig-entropy", default="exact",
                    choices=["exact", "approx"],
                    help="log2 of the expected-entropy chain: exact, or a "
@@ -87,12 +98,35 @@ def load_dataset(args):
     return Dataset.from_file(fp, name=args.task, device=args.device)
 
 
+def hyperparams(args):
+    """The run's ``CODAHyperparams``. ``n_parallel`` is the number of
+    replicas the engine batches — ``--seeds`` where the selector has a
+    seed-batched form, 1 where seeds run one after another — so the auto
+    tier's budget sees every replica (the reference's rule)."""
+    from coda_tpu_torch.selectors import CODAHyperparams
+    from coda_tpu_torch.selectors.coda import batches_seeds
+
+    hp = CODAHyperparams(alpha=args.alpha, learning_rate=args.learning_rate,
+                         multiplier=args.multiplier,
+                         disable_diag_prior=args.no_diag_prior,
+                         eig_chunk=args.eig_chunk, eig_mode=args.eig_mode,
+                         eig_backend=("auto" if args.eig_backend == "pallas"
+                                      else args.eig_backend),
+                         eig_cache_dtype=args.eig_cache_dtype,
+                         eig_refresh=args.eig_refresh,
+                         eig_entropy=args.eig_entropy)
+    batched = args.seeds > 1 and batches_seeds(hp)
+    return hp._replace(n_parallel=args.seeds if batched else 1)
+
+
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
+    import torch
+
     from coda_tpu_torch.engine import run_seeds_compiled
     from coda_tpu_torch.losses import LOSS_FNS
     from coda_tpu_torch.oracle import true_losses
-    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+    from coda_tpu_torch.selectors import make_coda
     from coda_tpu_torch.utils.platform import device_name, resolve_device
 
     dev = resolve_device(args.device)
@@ -107,16 +141,7 @@ def main(argv=None):
                                   loss_fn).min())
     print("Best possible loss is", best_loss)
 
-    # seeds run one after another: each selector is one replica
-    hp = CODAHyperparams(alpha=args.alpha, learning_rate=args.learning_rate,
-                         multiplier=args.multiplier,
-                         disable_diag_prior=args.no_diag_prior,
-                         eig_chunk=args.eig_chunk,
-                         eig_backend=("auto" if args.eig_backend == "pallas"
-                                      else args.eig_backend),
-                         eig_cache_dtype=args.eig_cache_dtype,
-                         eig_refresh=args.eig_refresh,
-                         eig_entropy=args.eig_entropy, n_parallel=1)
+    hp = hyperparams(args)
     t0 = time.perf_counter()
     result = run_seeds_compiled(
         lambda preds: make_coda(preds, hp, name=args.method, device=dev),
@@ -127,8 +152,13 @@ def main(argv=None):
     cums = result.cumulative_regret.cpu().numpy()
     stoch = result.stochastic.cpu().numpy()
     steps = args.iters * args.seeds
+    how = ("seeds run as one batch" if hp.n_parallel > 1
+           else "seeds run one after another")
     print(f"{steps} selection steps in {wall:.2f}s "
-          f"({steps / wall:.2f} steps/s, seeds run one after another)")
+          f"({steps / wall:.2f} steps/s, {how})")
+    if dev.type == "cuda":
+        print(f"peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     for s in range(args.seeds):
         print(f"seed {s}: regret@{args.iters}={regrets[s, -1]:.4f} "
               f"cumulative={cums[s, -1]:.4f} stochastic={bool(stoch[s])}")

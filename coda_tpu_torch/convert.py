@@ -6,7 +6,9 @@ its caches. :func:`state_from_numpy` turns the reference's ``CODAState``
 :class:`~coda_tpu_torch.selectors.coda.CODAState` on a device, so both
 packages can continue from the same mid-run state; :func:`state_to_numpy`
 goes back. Fields of later slices (sparse posterior, surrogate fit) must
-be absent or None.
+be absent or None. A seed-batched state — the reference's ``CODAState``
+under ``vmap``, every field with a leading replica axis S — crosses the
+same way and becomes the state of the port's ``Selector.batched``.
 
 A bfloat16 cache (``eig_cache_dtype='bfloat16'``) arrives from JAX as an
 ``ml_dtypes`` bfloat16 array, which ``torch.from_numpy`` refuses: its bits

@@ -13,8 +13,17 @@ Kernel 6, :func:`eig_scores_refresh_compute`, replaces
 that row inside the scoring pass from the labelled class's O(H·G) Beta
 grid tables, so the ``(N, H)`` row never reaches device memory; it too
 writes row ``c`` in place.
+Kernels 4 and 5, :func:`eig_scores_cache_batched` and
+:func:`eig_scores_refresh_batched`, replace ``_batched_score_kernel`` and
+``_batched_refresh_kernel``: kernels 1 and 2 for S replicas in one launch
+(the seed-batched engine), every operand with a leading replica axis and
+each replica refreshing its own class row; per replica bitwise kernels 1
+and 2. On the card they take any S up to the grid's 65,535 whose state
+fits in device memory: the reference's ``batched_pallas_viable`` (a budget
+for the TPU's lane padding) and ``choose_block`` (a VMEM budget) have no
+counterpart, since the card pads nothing and a block's tile is fixed.
 
-Kernels 1 and 2 live in ``csrc/eig_score.cu``, kernel 6 in
+Kernels 1, 2, 4 and 5 live in ``csrc/eig_score.cu``, kernel 6 in
 ``csrc/eig_refresh_compute.cu`` (each header states the bound and the
 design). Each takes two flavours, as the Pallas kernels do: the cache's
 storage type (float32 or bfloat16, ``eig_cache_dtype``; all arithmetic
@@ -45,12 +54,14 @@ _LOG2E = 1.4426950408889634
 # launches of each kernel flavour (see :func:`flavour`), counted where the
 # wrapper launches it; a kernel's total is the sum over its flavours
 launch_counts = {"eig_score": 0, "eig_refresh_score": 0,
-                 "eig_refresh_compute_score": 0}
+                 "eig_refresh_compute_score": 0, "eig_score_batched": 0,
+                 "eig_refresh_score_batched": 0}
 
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_SMEM = 48 << 10  # default dynamic shared memory a block may use
 # shared memory a block may opt in to on Hopper (H100 and H200 alike)
 _MAX_SMEM_OPTIN = 232_448
+_MAX_GRID_Y = 65535   # replicas of one batched launch (gridDim.y)
 
 
 def flavour(kernel: str, dtype: torch.dtype, approx: bool) -> str:
@@ -72,8 +83,10 @@ def mixture_stats(pbest_rows: torch.Tensor, pi_hat: torch.Tensor,
     P(best) rows and its entropy — the cheap pre-kernel scalars. ``approx``
     must match the scoring pass's flavour: h_before and the per-class
     entropies enter one subtraction, and a mixed lowering would forfeit
-    the error cancellation the scores rely on."""
-    mixture0 = (pi_hat[:, None] * pbest_rows).sum(0)
+    the error cancellation the scores rely on. With a replica axis,
+    ``(S, C, H)`` rows and ``(S, C)`` pi-hat give ``(S, H)`` and ``(S,)``
+    (the reference's ``jax.vmap(_mixture_stats)``)."""
+    mixture0 = (pi_hat[..., :, None] * pbest_rows).sum(-2)
     return mixture0, entropy2(mixture0, approx=approx)
 
 
@@ -136,6 +149,28 @@ def eig_scores_refresh_compute_plain(pbest_rows, pbest_hyp, a_t, b_t,
                                     pi_hat_xi, chunk, approx)
 
 
+def eig_scores_from_cache_batched(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi,
+                                  chunk: int = 256,
+                                  approx: bool = False) -> torch.Tensor:
+    """Plain version of kernel 4: :func:`eig_scores_from_cache` for each
+    replica of ``(S, C, N, H)`` caches. Returns ``(S, N)``."""
+    return torch.stack([
+        eig_scores_from_cache(r, h, p, px, chunk, approx)
+        for r, h, p, px in zip(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi)])
+
+
+def eig_scores_refresh_batched_plain(pbest_rows, pbest_hyp, hyp_t,
+                                     true_class, pi_hat, pi_hat_xi,
+                                     chunk: int = 256, approx: bool = False):
+    """Plain version of kernel 5: :func:`eig_scores_refresh_plain` for each
+    replica s, writing ``hyp_t[s]`` into class row ``true_class[s]`` of
+    replica s IN PLACE. Returns ``(scores (S, N), pbest_hyp)``."""
+    scores = [eig_scores_refresh_plain(r, h, ht, c, p, px, chunk, approx)[0]
+              for r, h, ht, c, p, px in zip(pbest_rows, pbest_hyp, hyp_t,
+                                            true_class, pi_hat, pi_hat_xi)]
+    return torch.stack(scores), pbest_hyp
+
+
 # -- kernels ---------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -149,6 +184,11 @@ def _lib():
         lib.eig_score_launch.restype = _I
         lib.eig_refresh_score_launch.argtypes = [_P] * 9 + [_I] * 6 + [_P]
         lib.eig_refresh_score_launch.restype = _I
+        lib.eig_score_batched_launch.argtypes = [_P] * 7 + [_I] * 7 + [_P]
+        lib.eig_score_batched_launch.restype = _I
+        lib.eig_refresh_score_batched_launch.argtypes = \
+            [_P] * 9 + [_I] * 7 + [_P]
+        lib.eig_refresh_score_batched_launch.restype = _I
         lib._typed = True
     return lib
 
@@ -169,18 +209,23 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi):
-    """Device, dtype, shape and contiguity the kernels accept."""
+def _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi,
+                    batched: bool = False):
+    """Device, dtype, shape and contiguity the kernels accept; ``batched``
+    (kernels 4 and 5): every operand carries a leading replica axis S."""
     _require(pbest_hyp.device.type == "cuda",
              f"EIG kernels take CUDA tensors; got {pbest_hyp.device}")
-    _require(pbest_hyp.dim() == 3, "pbest_hyp must be (C, N, H)")
+    _require(pbest_hyp.dim() == 3 + batched, "pbest_hyp must be "
+             + ("(S, C, N, H)" if batched else "(C, N, H)"))
     _require(pbest_hyp.dtype in CACHE_DTYPES,
              f"pbest_hyp must be float32 or bfloat16 (got {pbest_hyp.dtype})")
-    C, N, H = pbest_hyp.shape
-    for name, t, shape in (("pbest_rows", pbest_rows, (C, H)),
-                           ("pbest_hyp", pbest_hyp, (C, N, H)),
-                           ("pi_hat", pi_hat, (C,)),
-                           ("pi_hat_xi", pi_hat_xi, (N, C))):
+    *lead, C, N, H = pbest_hyp.shape
+    _require(all(1 <= s <= _MAX_GRID_Y for s in lead),
+             f"a batch takes 1 to {_MAX_GRID_Y} replicas (got {lead})")
+    for name, t, shape in (("pbest_rows", pbest_rows, (*lead, C, H)),
+                           ("pbest_hyp", pbest_hyp, (*lead, C, N, H)),
+                           ("pi_hat", pi_hat, (*lead, C)),
+                           ("pi_hat_xi", pi_hat_xi, (*lead, N, C))):
         _require(t.device == pbest_hyp.device,
                  f"{name} is on {t.device}, the cache on {pbest_hyp.device}")
         _require(t is pbest_hyp or t.dtype == torch.float32,
@@ -193,13 +238,18 @@ def _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi):
     return C, N, H
 
 
-def _check_class(true_class, dev) -> torch.Tensor:
+def _check_class(true_class, dev, S: int = 0) -> torch.Tensor:
+    """The class index as contiguous int32: one element, or ``(S,)`` for a
+    batch of ``S`` replicas."""
     _require(isinstance(true_class, torch.Tensor)
-             and true_class.device == dev and true_class.numel() == 1
+             and true_class.device == dev
+             and (true_class.numel() == 1 if not S
+                  else tuple(true_class.shape) == (S,))
              and not torch.is_floating_point(true_class),
-             "true_class must be a 1-element integer tensor on the cache's "
-             "device")
-    return true_class.reshape(1).to(torch.int32)
+             ("true_class must be a 1-element integer tensor" if not S
+              else f"true_class must be an integer ({S},) tensor")
+             + " on the cache's device")
+    return true_class.reshape(-1).to(torch.int32).contiguous()
 
 
 def _vec(H: int, cache: torch.Tensor, *tensors) -> int:
@@ -275,6 +325,71 @@ def eig_scores_refresh(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
         int(pbest_hyp.dtype == torch.bfloat16), int(approx), _stream())
     _raise_on(rc, "eig_refresh_score")
     _count("eig_refresh_score", pbest_hyp.dtype, approx)
+    return out, pbest_hyp
+
+
+def eig_scores_cache_batched(pbest_rows: torch.Tensor,
+                             pbest_hyp: torch.Tensor, pi_hat: torch.Tensor,
+                             pi_hat_xi: torch.Tensor, chunk: int = 256,
+                             approx: bool = False) -> torch.Tensor:
+    """Kernel 4 (``csrc/eig_score.cu``): kernel 1 for S replicas in one
+    launch. ``pbest_rows`` (S, C, H), ``pbest_hyp`` (S, C, N, H) float32 or
+    bfloat16, ``pi_hat`` (S, C), ``pi_hat_xi`` (S, N, C) -> ``(S, N)``
+    scores, row s bitwise kernel 1's on replica s. CPU tensors take
+    :func:`eig_scores_from_cache_batched`."""
+    if pbest_hyp.device.type == "cpu":
+        return eig_scores_from_cache_batched(pbest_rows, pbest_hyp, pi_hat,
+                                             pi_hat_xi, chunk, approx)
+    C, N, H = _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi,
+                              batched=True)
+    S = pbest_hyp.shape[0]
+    mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
+    out = torch.empty((S, N), dtype=torch.float32, device=pbest_hyp.device)
+    rc = _lib().eig_score_batched_launch(
+        pbest_rows.data_ptr(), pbest_hyp.data_ptr(), pi_hat.data_ptr(),
+        pi_hat_xi.data_ptr(), mixture0.data_ptr(), h_before.data_ptr(),
+        out.data_ptr(), S, C, N, H, _vec(H, pbest_hyp, pbest_rows, mixture0),
+        int(pbest_hyp.dtype == torch.bfloat16), int(approx), _stream())
+    _raise_on(rc, "eig_score_batched")
+    _count("eig_score_batched", pbest_hyp.dtype, approx)
+    return out
+
+
+def eig_scores_refresh_batched(pbest_rows: torch.Tensor,
+                               pbest_hyp: torch.Tensor, hyp_t: torch.Tensor,
+                               true_class: torch.Tensor, pi_hat: torch.Tensor,
+                               pi_hat_xi: torch.Tensor, chunk: int = 256,
+                               approx: bool = False):
+    """Kernel 5 (``csrc/eig_score.cu``): kernel 2 for S replicas in one
+    launch. Replica s writes ``hyp_t[s]`` (N, H) fp32 into its class row
+    ``true_class[s]`` of ``pbest_hyp`` (S, C, N, H) IN PLACE, rounded to
+    the storage type, and scores every item with the stored row; row s of
+    the scores and replica s of the cache are bitwise kernel 2's on
+    replica s. ``true_class`` is an integer (S,) tensor on the cache's
+    device, read by the kernel; an out-of-range class gives NaN scores for
+    its replica only. Returns ``(scores (S, N), pbest_hyp)``."""
+    if pbest_hyp.device.type == "cpu":
+        return eig_scores_refresh_batched_plain(
+            pbest_rows, pbest_hyp, hyp_t, true_class, pi_hat, pi_hat_xi,
+            chunk, approx)
+    C, N, H = _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi,
+                              batched=True)
+    S = pbest_hyp.shape[0]
+    _require(tuple(hyp_t.shape) == (S, N, H) and hyp_t.dtype == torch.float32
+             and hyp_t.device == pbest_hyp.device and hyp_t.is_contiguous(),
+             f"hyp_t must be a contiguous float32 ({S}, {N}, {H}) tensor on "
+             f"{pbest_hyp.device}")
+    c = _check_class(true_class, pbest_hyp.device, S)
+    mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
+    out = torch.empty((S, N), dtype=torch.float32, device=pbest_hyp.device)
+    rc = _lib().eig_refresh_score_batched_launch(
+        pbest_rows.data_ptr(), pbest_hyp.data_ptr(), hyp_t.data_ptr(),
+        c.data_ptr(), pi_hat.data_ptr(), pi_hat_xi.data_ptr(),
+        mixture0.data_ptr(), h_before.data_ptr(), out.data_ptr(), S, C, N, H,
+        _vec(H, pbest_hyp, pbest_rows, hyp_t, mixture0),
+        int(pbest_hyp.dtype == torch.bfloat16), int(approx), _stream())
+    _raise_on(rc, "eig_refresh_score_batched")
+    _count("eig_refresh_score_batched", pbest_hyp.dtype, approx)
     return out, pbest_hyp
 
 

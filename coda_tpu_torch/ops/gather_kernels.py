@@ -6,6 +6,8 @@ Kernel 3, :func:`gather_rows_sum`, replaces the Pallas ``_gather_kernel``:
 ``(C, H, N)`` contiguous transpose of the predictions that
 :func:`prep_gather_layout` builds once per experiment. The source is
 ``csrc/row_gather.cu`` (its header states the byte bound and the design).
+:func:`gather_rows_sum_batched` is the same kernel with a replica axis
+(the seed-batched engine's ``(S, H)`` classes, one launch for all S).
 A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
 plain version.
 """
@@ -19,9 +21,10 @@ import torch
 from coda_tpu_torch.ops.build import load
 
 # launches of the kernel, counted where the wrapper launches it
-launch_counts = {"row_gather": 0}
+launch_counts = {"row_gather": 0, "row_gather_batched": 0}
 
 _MAX_SMEM = 48 << 10
+_MAX_GRID_Y = 65535   # replicas of one batched launch (gridDim.y)
 
 
 def prep_gather_layout(preds: torch.Tensor) -> torch.Tensor:
@@ -39,14 +42,52 @@ def gather_rows_sum_plain(preds_by_class: torch.Tensor,
     return preds_by_class[pred_classes.to(torch.int64), h].sum(0)
 
 
+def gather_rows_sum_batched_plain(preds_by_class: torch.Tensor,
+                                  pred_classes: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched kernel 3: ``(S, H)`` classes ->
+    ``(S, N)``, one indexing expression for all replicas."""
+    H = preds_by_class.shape[1]
+    h = torch.arange(H, device=preds_by_class.device)
+    return preds_by_class[pred_classes.to(torch.int64), h].sum(1)
+
+
 def _lib():
     lib = load("row_gather")
     if not getattr(lib, "_typed", False):
         lib.row_gather_launch.argtypes = [ctypes.c_void_p] * 3 + \
             [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.row_gather_launch.restype = ctypes.c_int
+        lib.row_gather_batched_launch.argtypes = [ctypes.c_void_p] * 3 + \
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.row_gather_batched_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def _check(preds_by_class: torch.Tensor, pred_classes: torch.Tensor,
+           lead: tuple) -> torch.Tensor:
+    """Device, dtype and shape the kernel accepts; returns the classes as
+    contiguous int32."""
+    dev = preds_by_class.device
+    if dev.type != "cuda":
+        raise ValueError(f"row_gather takes CUDA tensors; got {dev}")
+    if (preds_by_class.dim() != 3 or preds_by_class.dtype != torch.float32
+            or not preds_by_class.is_contiguous()):
+        raise ValueError("preds_by_class must be a contiguous float32 "
+                         "(C, H, N) tensor")
+    H = preds_by_class.shape[1]
+    if (tuple(pred_classes.shape) != (*lead, H) or pred_classes.device != dev
+            or torch.is_floating_point(pred_classes)):
+        raise ValueError(f"pred_classes must be an integer {(*lead, H)} "
+                         f"tensor on {dev}")
+    if 4 * H > _MAX_SMEM:
+        raise ValueError(f"H={H} exceeds the kernel's shared-memory budget")
+    return pred_classes.to(torch.int32).contiguous()
+
+
+def _raise_on(rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"row_gather launch failed: cudaError {rc}")
 
 
 def gather_rows_sum(preds_by_class: torch.Tensor,
@@ -57,26 +98,36 @@ def gather_rows_sum(preds_by_class: torch.Tensor,
     gives NaN (the kernel reads nothing then)."""
     if preds_by_class.device.type == "cpu":
         return gather_rows_sum_plain(preds_by_class, pred_classes)
-    dev = preds_by_class.device
-    if dev.type != "cuda":
-        raise ValueError(f"row_gather takes CUDA tensors; got {dev}")
-    if (preds_by_class.dim() != 3 or preds_by_class.dtype != torch.float32
-            or not preds_by_class.is_contiguous()):
-        raise ValueError("preds_by_class must be a contiguous float32 "
-                         "(C, H, N) tensor")
+    s = _check(preds_by_class, pred_classes, ())
     C, H, N = preds_by_class.shape
-    if (tuple(pred_classes.shape) != (H,) or pred_classes.device != dev
-            or torch.is_floating_point(pred_classes)):
-        raise ValueError(f"pred_classes must be an integer ({H},) tensor on "
-                         f"{dev}")
-    if 4 * H > _MAX_SMEM:
-        raise ValueError(f"H={H} exceeds the kernel's shared-memory budget")
-    s = pred_classes.to(torch.int32).contiguous()
-    out = torch.empty(N, dtype=torch.float32, device=dev)
-    rc = _lib().row_gather_launch(
+    out = torch.empty(N, dtype=torch.float32, device=preds_by_class.device)
+    _raise_on(_lib().row_gather_launch(
         preds_by_class.data_ptr(), s.data_ptr(), out.data_ptr(), C, H, N,
-        torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"row_gather launch failed: cudaError {rc}")
+        torch.cuda.current_stream().cuda_stream))
     launch_counts["row_gather"] += 1
+    return out
+
+
+def gather_rows_sum_batched(preds_by_class: torch.Tensor,
+                            pred_classes: torch.Tensor) -> torch.Tensor:
+    """Kernel 3 with a replica axis (``csrc/row_gather.cu``): ``(S, N)``,
+    row ``s`` the sum over models h of row ``pred_classes[s, h]``, bitwise
+    the single-replica kernel's, in one launch for all S replicas. CPU
+    tensors take :func:`gather_rows_sum_batched_plain`. A class out of
+    range gives NaN for that replica only."""
+    if preds_by_class.device.type == "cpu":
+        return gather_rows_sum_batched_plain(preds_by_class, pred_classes)
+    if pred_classes.dim() != 2 or not 1 <= pred_classes.shape[0] \
+            <= _MAX_GRID_Y:
+        raise ValueError(f"pred_classes must be (S, H) with 1 <= S <= "
+                         f"{_MAX_GRID_Y}; got {tuple(pred_classes.shape)}")
+    S = pred_classes.shape[0]
+    s = _check(preds_by_class, pred_classes, (S,))
+    C, H, N = preds_by_class.shape
+    out = torch.empty((S, N), dtype=torch.float32,
+                      device=preds_by_class.device)
+    _raise_on(_lib().row_gather_batched_launch(
+        preds_by_class.data_ptr(), s.data_ptr(), out.data_ptr(), S, C, H, N,
+        torch.cuda.current_stream().cuda_stream))
+    launch_counts["row_gather_batched"] += 1
     return out

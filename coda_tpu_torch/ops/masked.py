@@ -60,18 +60,22 @@ def masked_argmax_tiebreak(key: torch.Tensor, scores: torch.Tensor,
     else exact equality). ``key`` is a ``(2,)`` threefry key, usually on
     the host; the ``(N,)`` draw runs on ``scores``' device.
 
-    Returns ``(idx, tie_count)`` as 0-d device tensors; ``tie_count > 1``
-    means the choice was stochastic.
+    Seed-batched: ``scores`` and ``mask`` ``(S, N)`` with ``(S, 2)`` keys
+    (on ``scores``' device: the engine uploads a run's keys once) pick one
+    index per row, with the same semantics row by row.
+
+    Returns ``(idx, tie_count)`` as device tensors (0-d, or ``(S,)``);
+    ``tie_count > 1`` means the choice was stochastic.
     """
     masked = torch.where(mask, scores, float("-inf"))
-    best = masked.max()
+    best = masked.amax(-1, keepdim=True)
     if rtol > 0 or atol > 0:
         ties = torch.isclose(masked, best, rtol=rtol, atol=atol) & mask
     else:
         ties = (masked == best) & mask
-    n_ties = ties.sum()
-    idx_first = masked.argmax()
-    u = trandom.uniform(key, ties.shape, device=scores.device)
-    idx_rand = torch.where(ties, u, -1.0).argmax()
+    n_ties = ties.sum(-1)
+    idx_first = masked.argmax(-1)
+    u = trandom.uniform(key, ties.shape[-1:], device=scores.device)
+    idx_rand = torch.where(ties, u, -1.0).argmax(-1)
     idx = torch.where(n_ties > 1, idx_rand, idx_first)
     return idx, n_ties

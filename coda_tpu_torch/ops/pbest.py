@@ -133,14 +133,16 @@ def _pbest_hyp_from_tables(tables, eq_t, w_trapz):
     per-item exclusive log-cdf sum, max-shift, weighted integrand,
     normalisation. Three fp32 ``(N, H)·(H, G)``/``(N, G)·(G, H)`` products
     left to ``torch.matmul``: the precomputed refresh and kernel 6's plain
-    version (the kernel computes them inside its scoring pass)."""
+    version (the kernel computes them inside its scoring pass). With a
+    leading replica axis (tables ``(S, ...)``, ``eq_t`` ``(S, N, H)``) the
+    products are batched ``torch.matmul`` calls, one row per replica."""
     S0_t, dlogcdf_t, F_u_t, dF_t = tables
     eq = eq_t.to(w_trapz.dtype)
-    S = S0_t[None] + eq @ dlogcdf_t                    # (N, G)
+    S = S0_t.unsqueeze(-2) + eq @ dlogcdf_t            # (N, G)
     S = S - S.amax(-1, keepdim=True)
     wE = w_trapz * torch.exp(S)
-    t_base = wE @ F_u_t.T                              # (N, H)
-    t_diff = wE @ dF_t.T
+    t_base = wE @ F_u_t.transpose(-1, -2)              # (N, H)
+    t_diff = wE @ dF_t.transpose(-1, -2)
     unnorm = t_base + eq * t_diff
     return unnorm / torch.clamp_min(unnorm.sum(-1, keepdim=True), _EPS)
 
@@ -150,7 +152,8 @@ def refresh_tables(a_t: torch.Tensor, b_t: torch.Tensor,
     """One class row's O(H·G) tables from its Beta parameters ``a_t``,
     ``b_t`` (H,), as the reference's refresh and its kernel-6 wrapper build
     them: ``(S0 (G,), dlogcdf (H, G), F_u (H, G), dF (H, G), w_trapz
-    (G,))``, all contiguous fp32."""
+    (G,))``, all contiguous fp32. ``(S, H)`` parameters give each table a
+    leading replica axis (``w_trapz`` stays ``(G,)``)."""
     x = pbest_grid(num_points, a_t.device)
     dx = x[1] - x[0]
     S0, dlogcdf, F_u, dF = _bump_tables(a_t, b_t, x, dx, update_weight)
@@ -161,6 +164,7 @@ def refresh_tables(a_t: torch.Tensor, b_t: torch.Tensor,
 def _pbest_hyp_row(a_t, b_t, eq_t, update_weight: float, num_points: int):
     """Hypothetical P(best) for one class row: ``a_t``, ``b_t`` (H,) Beta
     parameters, ``eq_t`` (N, H) bool (did model h predict this class at
-    item n) -> (N, H)."""
+    item n) -> (N, H). Seed-batched: ``(S, H)`` parameters and ``(S, N,
+    H)`` masks -> ``(S, N, H)``, each replica its own class row."""
     *tables, w_trapz = refresh_tables(a_t, b_t, update_weight, num_points)
     return _pbest_hyp_from_tables(tables, eq_t, w_trapz)

@@ -9,10 +9,13 @@ tie-break draws of :func:`coda_tpu_torch.ops.masked.masked_argmax_tiebreak`
 
 Keys are explicit ``(2,)`` int64 tensors holding uint32 values; all uint32
 arithmetic is emulated in int64 with masking (PyTorch's uint32 dtype lacks
-the shifts and xors this needs). Functions run on whichever device their
-key or ``device`` argument names; a key is tiny, so the engine derives its
-key schedule on the host and only the ``(N,)`` tie-break draw runs on the
-card.
+the shifts and xors this needs). A batch of keys is a ``(..., 2)`` tensor
+(the seed-batched engine's ``(S, 2)`` replica keys): ``split`` and
+``uniform`` then hash every key at once, and row ``s`` of the result is
+bitwise the single-key call on key ``s``. Functions run on whichever device
+their key or ``device`` argument names; a key is tiny, so the engine
+derives its key schedule on the host and only the tie-break draw runs on
+the card.
 """
 
 from __future__ import annotations
@@ -65,9 +68,10 @@ def PRNGKey(seed: int, device: Union[str, torch.device] = "cpu"
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)``: ``(num, 2)`` keys, row ``i`` the
     threefry hash of ``key`` at count ``i`` (the partitionable fold-like
-    split)."""
+    split). A ``(..., 2)`` batch of keys gives ``(..., num, 2)``, as
+    ``jax.vmap(jax.random.split)`` does."""
     hi, lo = _iota_2x32((num,), key.device)
-    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+    b1, b2 = threefry2x32(key[..., :1], key[..., 1:], hi, lo)
     return torch.stack([b1, b2], dim=-1)
 
 
@@ -75,10 +79,17 @@ def random_bits(key: torch.Tensor, shape: Sequence[int],
                 device=None) -> torch.Tensor:
     """32-bit random words of ``shape``: the xor of threefry's two output
     words at each position (partitionable mode). ``device`` defaults to
-    the key's; a host key may fill a device tensor."""
+    the key's; a host key may fill a device tensor. A ``(..., 2)`` batch of
+    keys gives ``(..., *shape)``; it is copied to ``device`` if it lies
+    elsewhere (the engine uploads a run's keys once instead)."""
     device = key.device if device is None else torch.device(device)
-    hi, lo = _iota_2x32(tuple(shape), device)
-    if key.device == device:
+    shape = tuple(shape)
+    hi, lo = _iota_2x32(shape, device)
+    if key.dim() > 1:
+        words = key.to(device).reshape(key.shape[:-1] + (1,) * len(shape)
+                                       + (2,))
+        k1, k2 = words[..., 0], words[..., 1]
+    elif key.device == device:
         k1, k2 = key[0], key[1]
     else:
         # a host key enters as two Python ints: copying it to the card
@@ -91,7 +102,8 @@ def random_bits(key: torch.Tensor, shape: Sequence[int],
 def uniform(key: torch.Tensor, shape: Sequence[int],
             device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in float32 on [0, 1): the top 23
-    bits of each word become the mantissa of a float in [1, 2), minus 1."""
+    bits of each word become the mantissa of a float in [1, 2), minus 1.
+    A ``(..., 2)`` batch of keys gives ``(..., *shape)``."""
     bits = random_bits(key, shape, device)
     fbits = (bits >> 9) | 0x3F800000
     # every value is < 2**31, so the int32 view is the same bit pattern

@@ -21,6 +21,14 @@ storage of the cache), ``eig_entropy`` (exact or polynomial log2) and
     inside the scoring pass (``ops/eig_kernels``);
   * best: argmax of the pi-hat-weighted cached P(best) rows.
 
+The selector also has a seed-batched form (``Selector.batched``) for the
+precomputed refresh: the same state with a leading replica axis S, one
+round for all S seeds through kernels 4 and 5 and the batched kernel 3 —
+what the reference's ``vmap`` over seeds reaches with
+``eig_backend='pallas'``. The fused refresh has none: the reference
+refuses it under ``vmap`` (``n_parallel > 1``), so its seeds run one after
+another.
+
 State is updated IN PLACE: ``update`` writes the Dirichlet row, the pi-hat
 column, the P(best) row, the cache row and the unlabeled mask into the
 tensors of the state it is given (the reference returned new arrays). The
@@ -46,14 +54,20 @@ from coda_tpu_torch.ops.confusion import (
 )
 from coda_tpu_torch.ops.eig_kernels import (
     eig_scores_cache,
+    eig_scores_cache_batched,
     eig_scores_from_cache,
+    eig_scores_from_cache_batched,
     eig_scores_refresh,
+    eig_scores_refresh_batched,
+    eig_scores_refresh_batched_plain,
     eig_scores_refresh_compute,
     eig_scores_refresh_compute_plain,
     eig_scores_refresh_plain,
 )
 from coda_tpu_torch.ops.gather_kernels import (
     gather_rows_sum,
+    gather_rows_sum_batched,
+    gather_rows_sum_batched_plain,
     gather_rows_sum_plain,
     prep_gather_layout,
 )
@@ -66,7 +80,11 @@ from coda_tpu_torch.ops.pbest import (
     compute_pbest,
     pbest_grid,
 )
-from coda_tpu_torch.selectors.protocol import Selector, SelectResult
+from coda_tpu_torch.selectors.protocol import (
+    BatchedSelector,
+    Selector,
+    SelectResult,
+)
 from coda_tpu_torch.utils.platform import (
     DeviceLike,
     pin_fp32_matmul,
@@ -105,7 +123,8 @@ class CODAHyperparams(NamedTuple):
     #                               plain versions on the CPU; plain = the
     #                               plain versions everywhere (the yardstick
     #                               the kernels are held to on the card)
-    n_parallel: int = 1           # replicas sharing the card (auto budget)
+    n_parallel: int = 1           # replicas sharing the card: the seeds
+    #                               the engine batches (auto budget)
     eig_precision: str = "highest"
     eig_cache_dtype: str = "float32"  # float32 | bfloat16: storage of the
     #                               (C, N, H) cache; all math stays fp32
@@ -158,7 +177,15 @@ def resolve_eig_mode(hp: CODAHyperparams, H: int, N: int, C: int) -> str:
         return "incremental"
     _unsupported("eig_mode", "auto",
                  f"{_SLICE_REST}: this shape resolves past the incremental "
-                 "tier's budget")
+                 f"tier's budget at n_parallel={max(1, hp.n_parallel)}; "
+                 "eig_mode='incremental' (the CLI's --eig-mode incremental) "
+                 "runs it")
+
+
+def batches_seeds(hp: CODAHyperparams) -> bool:
+    """Whether the selector has a seed-batched form: the precomputed
+    refresh has (kernels 4 and 5), the fused one has none."""
+    return hp.eig_refresh != "fused"
 
 
 def check_supported(hp: CODAHyperparams, N: int) -> None:
@@ -219,7 +246,8 @@ def check_supported(hp: CODAHyperparams, N: int) -> None:
 class CODAState(NamedTuple):
     """Selector state of the incremental tier (the reference's
     ``CODAState`` minus the fields of later slices). ``update`` modifies
-    these tensors in place."""
+    these tensors in place. The seed-batched form carries the same fields
+    with a leading replica axis S."""
 
     dirichlets: torch.Tensor        # (H, C, C) Dirichlet confusion posteriors
     pi_hat_xi: torch.Tensor         # (N, C) per-item class posterior
@@ -239,10 +267,11 @@ def pi_unnorm(dirichlets: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
 
 
 def _normalize_pi(unnorm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(pi_hat_xi, pi_hat) from the unnormalised (N, C) class scores."""
+    """(pi_hat_xi, pi_hat) from the unnormalised (..., N, C) class
+    scores."""
     pi_xi = unnorm / torch.clamp_min(unnorm.sum(-1, keepdim=True), 1e-12)
-    pi = pi_xi.sum(0)
-    return pi_xi, pi / pi.sum()
+    pi = pi_xi.sum(-2)
+    return pi_xi, pi / pi.sum(-1, keepdim=True)
 
 
 def update_pi_hat(dirichlets: torch.Tensor, preds: torch.Tensor):
@@ -315,10 +344,15 @@ def build_eig_cache(dirichlets: torch.Tensor, hard_preds: torch.Tensor,
 
 def row_beta(dirichlets: torch.Tensor, true_class: torch.Tensor):
     """``(a_t, b_t)`` (H,): the diagonal-Beta parameters of class row
-    ``true_class`` (a 0-d device tensor; no host synchronisation)."""
-    c = true_class.reshape(1).to(torch.int64)
-    a_cc, b_cc = dirichlet_to_beta(dirichlets)       # (H, C)
-    return a_cc.index_select(1, c)[:, 0], b_cc.index_select(1, c)[:, 0]
+    ``true_class`` (a 0-d device tensor; no host synchronisation).
+    Seed-batched: ``(S, H, C, C)`` posteriors and ``(S,)`` classes give
+    ``(S, H)``, replica s's row ``true_class[s]``."""
+    a_cc, b_cc = dirichlet_to_beta(dirichlets)       # (..., H, C)
+    if dirichlets.dim() == 3:
+        c = true_class.reshape(1).to(torch.int64)
+        return a_cc.index_select(1, c)[:, 0], b_cc.index_select(1, c)[:, 0]
+    c = true_class.to(torch.int64)[:, None, None].expand(-1, a_cc.shape[1], 1)
+    return a_cc.gather(-1, c)[..., 0], b_cc.gather(-1, c)[..., 0]
 
 
 def update_eig_cache_parts(dirichlets: torch.Tensor, true_class: torch.Tensor,
@@ -326,9 +360,13 @@ def update_eig_cache_parts(dirichlets: torch.Tensor, true_class: torch.Tensor,
                            num_points: int = 256):
     """The refreshed values of class row ``true_class`` without writing
     them: ``(row_t (H,), hyp_t (N, H))``. ``dirichlets`` already holds the
-    new label; ``true_class`` is a 0-d device tensor."""
+    new label; ``true_class`` is a 0-d device tensor. Seed-batched:
+    ``(S, H, C, C)`` and ``(S,)`` give ``((S, H), (S, N, H))``."""
     a_t, b_t = row_beta(dirichlets, true_class)
-    eq_t = hard_preds == true_class                  # (N, H) bool
+    # (N, H) bool, or (S, N, H) with each replica's own class; compared in
+    # hard_preds' int32 (an int64 class would widen the whole pass)
+    c = true_class.to(hard_preds.dtype)
+    eq_t = hard_preds == c.reshape(c.shape + (1, 1))
     hyp_t = _pbest_hyp_row(a_t, b_t, eq_t, update_weight, num_points)
     row_t = compute_pbest(a_t, b_t, num_points=num_points)
     return row_t, hyp_t
@@ -355,7 +393,8 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     versions). The statics — hard predictions, disagreement mask, the
     confusion prior and the ``(C, H, N)`` gather layout — are built once
     here; ``init``/``select``/``update``/``best`` keep everything on the
-    device and never synchronise with the host.
+    device and never synchronise with the host. So does the seed-batched
+    form, ``Selector.batched`` (None for the fused refresh).
     """
     hp = hp or CODAHyperparams()
     dev = resolve_device(device)
@@ -375,6 +414,12 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     compute_fn = (eig_scores_refresh_compute_plain if plain
                   else eig_scores_refresh_compute)
     gather_fn = gather_rows_sum_plain if plain else gather_rows_sum
+    score_s_fn = (eig_scores_from_cache_batched if plain
+                  else eig_scores_cache_batched)
+    refresh_s_fn = (eig_scores_refresh_batched_plain if plain
+                    else eig_scores_refresh_batched)
+    gather_s_fn = (gather_rows_sum_batched_plain if plain
+                   else gather_rows_sum_batched)
 
     hard_preds = preds.argmax(-1).T.to(torch.int32).contiguous()   # (N, H)
     disagree = _disagreement_mask(hard_preds, C)                   # (N,)
@@ -384,8 +429,8 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         soft_conf, prior_strength, hp.disable_diag_prior)
     preds_by_class = prep_gather_layout(preds)                     # (C, H, N)
 
-    def init(key=None) -> CODAState:
-        del key  # CODA's initialisation is deterministic
+    def _initial_state() -> CODAState:
+        """The deterministic initial state, before its score-ahead."""
         unnorm = pi_unnorm(dirichlets0, preds)
         pi_xi, pi = _normalize_pi(unnorm)
         rows, hyp = build_eig_cache(dirichlets0, hard_preds,
@@ -400,10 +445,16 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
             pbest_rows=rows,
             pbest_hyp=hyp,
             pi_xi_unnorm=unnorm,
-            # score-ahead: the next select reads these
-            eig_scores_cached=score_fn(rows, hyp, pi, pi_xi,
-                                       chunk=hp.eig_chunk, approx=approx),
+            eig_scores_cached=None,
         )
+
+    def init(key=None) -> CODAState:
+        del key  # CODA's initialisation is deterministic
+        st = _initial_state()
+        # score-ahead: the next select reads these
+        return st._replace(eig_scores_cached=score_fn(
+            st.pbest_rows, st.pbest_hyp, st.pi_hat, st.pi_hat_xi,
+            chunk=hp.eig_chunk, approx=approx))
 
     def select(state: CODAState, key: torch.Tensor) -> SelectResult:
         _k_sub, k_tie = trandom.split(key)
@@ -452,13 +503,80 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
 
     def get_pbest(state: CODAState) -> torch.Tensor:
         # the cached per-row P(best) is compute_pbest of the current
-        # posterior; only the pi-hat mixture is recomputed
-        return (state.pi_hat[:, None] * state.pbest_rows).sum(0)
+        # posterior; only the pi-hat mixture is recomputed ((S, H) for a
+        # batched state)
+        return (state.pi_hat[..., :, None] * state.pbest_rows).sum(-2)
 
     def best(state: CODAState, key=None):
         del key  # plain argmax, as the reference
         return (get_pbest(state).argmax(),
                 torch.zeros((), dtype=torch.bool, device=dev))
+
+    # -- the seed-batched form: S replicas, one round for all ---------------
+
+    def init_batched(S: int) -> CODAState:
+        """S writable replicas of the deterministic initial state (the
+        cache is built once and copied: ``update`` writes each replica in
+        place), then one launch of kernel 4 for every replica's
+        score-ahead."""
+        st = CODAState(*(t.unsqueeze(0).repeat(S, *[1] * t.dim())
+                         for t in _initial_state()[:-1]), None)
+        return st._replace(eig_scores_cached=score_s_fn(
+            st.pbest_rows, st.pbest_hyp, st.pi_hat, st.pi_hat_xi,
+            chunk=hp.eig_chunk, approx=approx))
+
+    def select_keys(keys: torch.Tensor) -> torch.Tensor:
+        # select's own split of its key (``select`` above), on the host:
+        # the tie-break draws from the second half
+        return trandom.split(keys)[..., 1, :]
+
+    def select_batched(state: CODAState, k_tie: torch.Tensor
+                       ) -> SelectResult:
+        """One pick per replica; ``k_tie`` (S, 2) on the state's device,
+        rows of :func:`select_keys`."""
+        cand0 = disagree & state.unlabeled                         # (S, N)
+        cand = torch.where(cand0.any(-1, keepdim=True), cand0,
+                           state.unlabeled)
+        scores = state.eig_scores_cached
+        idx, n_ties = masked_argmax_tiebreak(k_tie, scores, cand,
+                                             rtol=_TIE_RTOL, atol=_TIE_ATOL)
+        return SelectResult(idx=idx, prob=scores.gather(1, idx[:, None])[:, 0],
+                            stochastic=n_ties > 1)
+
+    def update_batched(state: CODAState, idx, true_class, prob=None
+                       ) -> CODAState:
+        """One label per replica, ``idx`` and ``true_class`` (S,), applied
+        IN PLACE: each replica's Dirichlet row, pi-hat column (batched
+        kernel 3), P(best) row, and cache row with the scores (kernel 5,
+        one launch for all replicas)."""
+        del prob
+        rep = torch.arange(idx.shape[0], device=dev)
+        c = true_class.to(torch.int64)
+        pred_at = hard_preds.index_select(0, idx.to(torch.int64))  # (S, H)
+        onehot = F.one_hot(pred_at.to(torch.int64), C).to(torch.float32)
+        state.dirichlets[rep, :, c] += update_strength * onehot
+        delta = update_strength * gather_s_fn(preds_by_class, pred_at)
+        state.pi_xi_unnorm[rep, :, c] += delta
+        pi_xi, pi = _normalize_pi(state.pi_xi_unnorm)
+        row_t, hyp_t = update_eig_cache_parts(
+            state.dirichlets, c, hard_preds, num_points=hp.num_points)
+        state.pbest_rows[rep, c] = row_t
+        scores, hyp = refresh_s_fn(state.pbest_rows, state.pbest_hyp, hyp_t,
+                                   c, pi, pi_xi, chunk=hp.eig_chunk,
+                                   approx=approx)
+        state.unlabeled[rep, idx.to(torch.int64)] = False
+        return state._replace(pi_hat_xi=pi_xi, pi_hat=pi, pbest_hyp=hyp,
+                              eig_scores_cached=scores)
+
+    def best_batched(state: CODAState):
+        pbest = get_pbest(state)                                   # (S, H)
+        return (pbest.argmax(-1),
+                torch.zeros(pbest.shape[0], dtype=torch.bool, device=dev))
+
+    batched = BatchedSelector(
+        init=init_batched, select_keys=select_keys, select=select_batched,
+        update=update_batched, best=best_batched) if batches_seeds(hp) \
+        else None
 
     return Selector(
         name=name, init=init, select=select, update=update, best=best,
@@ -467,4 +585,5 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         hyperparam_defaults=dict(CODAHyperparams()._asdict()),
         extras={"get_pbest": get_pbest, "hard_preds": hard_preds,
                 "preds_by_class": preds_by_class},
+        batched=batched,
     )

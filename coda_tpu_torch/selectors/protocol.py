@@ -12,6 +12,11 @@ A method is four functions over a state object:
 (``coda_tpu_torch/random.py``). Results are device tensors, so a round
 never waits on the host. Unlike the reference's pure functions, ``update``
 may modify the state's tensors in place; each method says so.
+
+A method may also have a seed-batched form (:class:`BatchedSelector`): the
+same functions over one state whose tensors carry a leading replica axis
+S, so the engine runs S seeds in one round loop — where the reference
+``vmap``s the four functions over seeds.
 """
 
 from __future__ import annotations
@@ -46,3 +51,30 @@ class Selector:
     hyperparam_defaults: dict = field(default_factory=dict)
     # method-specific functions (e.g. CODA's get_pbest) for diagnostics
     extras: dict = field(default_factory=dict)
+    # the seed-batched form, or None where the method has none (the engine
+    # then runs seeds one after another)
+    batched: Any = None
+
+
+@dataclass(frozen=True)
+class BatchedSelector:
+    """A method's seed-batched form: S replicas in one state.
+
+        init(S)                            -> state (leading axis S)
+        select_keys(keys)                  -> host tensor (..., 2)
+        select(state, keys)                -> SelectResult of (S,) tensors
+        update(state, idx, true_class, p)  -> state
+        best(state)                        -> ((S,) best models, (S,) bool)
+
+    ``select_keys`` is the host side of ``select``'s key use: it maps a
+    run's per-replica select keys ``(..., 2)`` (the engine's schedule) to
+    the keys ``select`` draws from, so the engine can compute them for
+    every round before the loop and upload them to the device once;
+    ``select`` then takes one round's ``(S, 2)`` rows of them. Replica s
+    follows the trajectory the single-replica functions give seed s."""
+
+    init: Callable[[int], Any]
+    select_keys: Callable[[torch.Tensor], torch.Tensor]
+    select: Callable[[Any, torch.Tensor], SelectResult]
+    update: Callable[[Any, torch.Tensor, torch.Tensor, torch.Tensor], Any]
+    best: Callable[[Any], tuple]

@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""Time the port's scoring kernels at the headline shape, for comparing two
+checkouts on one card.
+
+    python scripts/torch_kernel_times.py [--root DIR]
+
+Imports ``coda_tpu_torch`` from ``--root`` (default: this checkout), builds
+its kernels there, and prints one JSON line: the median time of 50
+launches (CUDA events, after warm-up) of kernels 1 and 2
+(``eig_scores_cache``, ``eig_scores_refresh``) and kernel 3
+(``gather_rows_sum``) at (C, N, H) = (10, 50000, 1000) in the fp32 and bf16
+caches, and, where the checkout has them, kernels 4 and 5
+(``eig_scores_cache_batched``, ``eig_scores_refresh_batched``) and the
+batched kernel 3 at 5 replicas (the CLI's default seeds); beside them the
+registers ``ptxas`` reports for each library and the card's name and power
+limit.
+Two checkouts are compared in one call, in turns (parent, change, change,
+parent), each in its own process. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+REPS = 50
+SEEDS = 5
+
+
+def _median_ms(fn) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    args = p.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.root))
+    from coda_tpu_torch.ops import build
+    from coda_tpu_torch.ops import eig_kernels as ek
+    from coda_tpu_torch.ops import gather_kernels as gk
+
+    logs = build.build_all()["logs"]
+    regs = {lib: sorted({int(m) for m in re.findall(r"Used (\d+) registers",
+                                                     text)})
+            for lib, text in logs.items()}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda")
+    S, C, N, H = SEEDS, 10, 50_000, 1000
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def simplex(*shape):
+        x = torch.rand(shape, generator=gen, device=dev) + 0.1
+        return x / x.sum(-1, keepdim=True)
+
+    out = {"root": os.path.abspath(args.root), "card": smi,
+           "registers": regs, "ms": {}}
+    # the gather first, on a fresh allocator in both checkouts
+    pbc = torch.rand((C, H, N), generator=gen, device=dev)
+    s = torch.randint(0, C, (S, H), generator=gen, device=dev,
+                      dtype=torch.int32)
+    out["ms"]["row_gather"] = _median_ms(
+        lambda: gk.gather_rows_sum(pbc, s[0]))
+    if hasattr(gk, "gather_rows_sum_batched"):
+        out["ms"]["row_gather_batched"] = _median_ms(
+            lambda: gk.gather_rows_sum_batched(pbc, s))
+    del pbc
+    torch.cuda.empty_cache()
+
+    batched = hasattr(ek, "eig_scores_cache_batched")
+    lead = (S,) if batched else ()
+    rows, hyp32, pi_xi, hyp_t = (simplex(*lead, C, H),
+                                 simplex(*lead, C, N, H),
+                                 simplex(*lead, N, C), simplex(*lead, N, H))
+    pi = pi_xi.mean(-2)
+    pi = pi / pi.sum(-1, keepdim=True)
+    cls = torch.arange(S, dtype=torch.int32, device=dev) % C
+    for dtype in (torch.float32, torch.bfloat16):
+        hyp = hyp32.to(dtype)
+        tag = "" if dtype == torch.float32 else "[bfloat16]"
+        # the single-replica kernels on replica 0's operands
+        one = [t[0] for t in (rows, hyp, pi, pi_xi, hyp_t)] if batched \
+            else [rows, hyp, pi, pi_xi, hyp_t]
+        r1, h1, p1, px1, ht1 = one
+        c1 = cls[0]
+        out["ms"]["eig_score" + tag] = _median_ms(
+            lambda: ek.eig_scores_cache(r1, h1, p1, px1))
+        out["ms"]["eig_refresh_score" + tag] = _median_ms(
+            lambda: ek.eig_scores_refresh(r1, h1, ht1, c1, p1, px1))
+        if batched:
+            out["ms"]["eig_score_batched" + tag] = _median_ms(
+                lambda: ek.eig_scores_cache_batched(rows, hyp, pi, pi_xi))
+            out["ms"]["eig_refresh_score_batched" + tag] = _median_ms(
+                lambda: ek.eig_scores_refresh_batched(rows, hyp, hyp_t, cls,
+                                                      pi, pi_xi))
+        del hyp, one, r1, h1, p1, px1, ht1
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

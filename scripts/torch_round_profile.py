@@ -2,8 +2,9 @@
 """Where a CODA round's time goes on the GPU (coda_tpu_torch main path).
 
     python scripts/torch_round_profile.py [--shape H,N,C] [--rounds 5]
-        [--eig-refresh precomputed|fused] [--eig-cache-dtype float32|bfloat16]
-        [--eig-entropy exact|approx] [--out profile.json]
+        [--seeds S] [--eig-refresh precomputed|fused]
+        [--eig-cache-dtype float32|bfloat16] [--eig-entropy exact|approx]
+        [--out profile.json]
 
 Builds the synthetic task of ``--shape`` (default the headline 1000,50000,10)
 on the card, builds CODA with the given numerics knobs (default: the
@@ -14,6 +15,10 @@ with the device synchronised (ms/round), and under ``torch.profiler``
 (device time per kernel, grouped into the port's CUDA kernels, matrix
 products, and other PyTorch kernels; only device-side events are summed,
 so an operator and the kernels it launched are not counted twice).
+``--seeds S`` (S > 1) profiles one round of the seed-batched engine: S
+replicas in one state, each round one pass for all of them (kernel 5,
+the batched products, the batched kernel 3); ms/round is then the round
+of all S seeds, and ms/seed-round that over S.
 Kernels on one stream do not overlap, so the device's busy share is the
 summed kernel time over the profiled wall time. Prints a summary and, with
 ``--out``, writes the full table as JSON there. Needs a CUDA device;
@@ -52,6 +57,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--shape", default="1000,50000,10")
     p.add_argument("--rounds", type=int, default=5)
+    p.add_argument("--seeds", type=int, default=1,
+                   help="replicas of the seed-batched engine (1: one seed)")
     p.add_argument("--eig-refresh", default="precomputed",
                    choices=["precomputed", "fused"])
     p.add_argument("--eig-cache-dtype", default="float32",
@@ -71,7 +78,11 @@ def main(argv=None) -> int:
         return 2
     from coda_tpu_torch import random as trandom
     from coda_tpu_torch.data import make_synthetic_task
-    from coda_tpu_torch.engine.loop import make_step_fn
+    from coda_tpu_torch.engine.loop import (
+        batched_select_keys,
+        make_batched_step_fn,
+        make_step_fn,
+    )
     from coda_tpu_torch.oracle import true_losses
     from coda_tpu_torch.selectors import CODAHyperparams, make_coda
 
@@ -84,20 +95,35 @@ def main(argv=None) -> int:
     knobs = dict(eig_refresh=args.eig_refresh,
                  eig_cache_dtype=args.eig_cache_dtype,
                  eig_entropy=args.eig_entropy)
-    sel = make_coda(task.preds, CODAHyperparams(eig_chunk=1024, **knobs),
-                    device=dev)
-    step = make_step_fn(sel, task.labels,
-                        true_losses(task.preds, task.labels))
-    k_init, _, k_scan = trandom.split(trandom.PRNGKey(0), 3)
-    keys = trandom.split(k_scan, 2 + 2 * args.rounds)
+    S = args.seeds
+    sel = make_coda(task.preds, CODAHyperparams(
+        eig_chunk=1024, eig_mode="incremental", n_parallel=S, **knobs),
+        device=dev)
+    losses = true_losses(task.preds, task.labels)
+    n_keys = 2 + 2 * args.rounds
+    if S > 1:
+        # the engine's per-seed schedule for seeds 0..S-1, on the device
+        step = make_batched_step_fn(sel, task.labels, losses)
+        keys = batched_select_keys(sel, torch.stack(
+            [trandom.PRNGKey(s) for s in range(S)]), n_keys, dev)
+
+        def init():
+            return sel.batched.init(S)
+    else:
+        step = make_step_fn(sel, task.labels, losses)
+        k_init, _, k_scan = trandom.split(trandom.PRNGKey(0), 3)
+        keys = trandom.split(k_scan, n_keys)
+
+        def init():
+            return sel.init(k_init)
     init_ms = []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state = sel.init(k_init)
+        state = init()
         torch.cuda.synchronize()
         init_ms.append((time.perf_counter() - t0) * 1e3)
-    cum = torch.zeros((), device=dev)
+    cum = torch.zeros(S if S > 1 else (), device=dev)
     for k in keys[:2]:
         state, cum, _ = step(state, cum, k)
     torch.cuda.synchronize()
@@ -135,9 +161,9 @@ def main(argv=None) -> int:
     busy = device_ms * args.rounds / prof_wall_ms if prof_wall_ms else 0.0
     summary = {
         "card": smi, "shape_HNC": [H, N, C], "rounds": args.rounds,
-        "knobs": knobs,
+        "seeds": S, "knobs": knobs,
         "init_ms_cold": init_ms[0], "init_ms_warm": init_ms[1],
-        "ms_per_round": round_ms,
+        "ms_per_round": round_ms, "ms_per_seed_round": round_ms / S,
         "device_launches_per_round": launches,
         "profiled_wall_ms_per_round": prof_wall_ms / args.rounds,
         "device_ms_per_round": device_ms, "device_busy_share": busy,
@@ -153,10 +179,12 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)
     print(f"card: {smi}")
-    print(f"knobs: {knobs}")
+    print(f"knobs: {knobs}, seeds {S} "
+          f"({'one batch' if S > 1 else 'one replica'})")
     print(f"shape (H, N, C) = ({H}, {N}, {C}): init {init_ms[0]:.1f} ms "
           f"cold, {init_ms[1]:.1f} ms warm; {round_ms:.3f} ms/round (host "
-          f"clock, synchronised); profiled device time {device_ms:.3f} "
+          f"clock, synchronised; {round_ms / S:.3f} ms/seed-round); "
+          f"profiled device time {device_ms:.3f} "
           f"ms/round in {launches:.0f} device events, busy share "
           f"{busy:.3f} of the profiled wall, "
           f"{device_ms / round_ms:.3f} of the unprofiled round")
