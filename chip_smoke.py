@@ -17,7 +17,10 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    least time the card could take (bytes or operations over the card's
    peak rates) and, for the gather, the time of the PyTorch indexing
    expression that computes the same sum. Kernel 6 (the fused
-   refresh-compute-score) also shows its row against the plain one. The
+   refresh-compute-score) also shows its row against the plain one, logs
+   its tiling and shared memory, and runs once more at H = 4000 models
+   (past its first design's shared-memory limit); its bound counts its
+   products at the tensor cores' TF32 rate, as it runs them. The
    seed-batched kernels 4 and 5 and kernel 3 with a replica axis run at
    S = 5 replicas (the CLI's default seeds) of the same shapes, held to
    their plain versions and, bitwise, to kernels 1, 2 and 3 launched on
@@ -89,16 +92,17 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def card_peaks(name: str) -> tuple[float, float]:
-    """(memory bytes/s, fp32 non-tensor FLOP/s) of the card, from NVIDIA's
-    data sheets (H100 SXM: 3.35 TB/s, 67 TFLOP/s)."""
+def card_peaks(name: str) -> tuple[float, float, float]:
+    """(memory bytes/s, fp32 non-tensor FLOP/s, dense TF32 tensor FLOP/s)
+    of the card, from NVIDIA's data sheets (H100 SXM: 3.35 TB/s, 67 and
+    495 TFLOP/s)."""
     if "H200" in name:
-        return 4.8e12, 67e12
+        return 4.8e12, 67e12, 495e12
     if "H100" in name and "PCIe" in name:
-        return 2.0e12, 51e12
+        return 2.0e12, 51e12, 378e12
     if "H100" in name and "NVL" in name:
-        return 3.9e12, 60e12
-    return 3.35e12, 67e12
+        return 3.9e12, 60e12, 417e12
+    return 3.35e12, 67e12, 495e12
 
 
 def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
@@ -120,8 +124,13 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(nbytes: float, nops: float, peaks) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / peaks[0] * 1e3, nops / peaks[1] * 1e3
+def bound(nbytes: float, nops: float, peaks,
+          tensor_ops: float = 0.0) -> tuple[float, str]:
+    """The least time in ms: bytes at the memory rate, or operations —
+    ``nops`` on the fp32 CUDA cores and ``tensor_ops`` on the TF32 tensor
+    cores, the two pipes overlapping — whichever is longer."""
+    t_bytes = nbytes / peaks[0] * 1e3
+    t_ops = max(nops / peaks[1], tensor_ops / peaks[2]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -287,10 +296,20 @@ def _k6(dev, peaks, recs, N, gen, rows0, hyp32, pi, pi_xi):
                          dtype=torch.int32)
     args = (a_t, b_t, hard, c, pi, pi_xi)
     # the operations the function needs on these inputs: the base product
-    # densely, S and the diff product only where eq = hard == c is 1, and
-    # the scoring of C*N*H elements
+    # densely and the diff product only where eq = hard == c is 1, in the
+    # design's 3xTF32 on the tensor cores (three TF32 products each); S
+    # only where eq is 1 and the scoring of C*N*H elements on the fp32
+    # CUDA cores
     nnz = int((hard == c_idx).sum())
-    nops = 2.0 * N * H * G + 3.0 * nnz * G + 8.0 * C * N * H
+    tensor_ops = 3.0 * (2.0 * N * H * G + 2.0 * nnz * G)
+    nops = 1.0 * nnz * G + 8.0 * C * N * H
+    lay = ek.refresh_compute_layout(C, H, G)
+    log(f"kernel 6 layout at (C, H, G) = ({C}, {H}, {G}): "
+        f"{lay['items_per_block']} items a block, products in chunks of "
+        f"{lay['models_per_chunk']} models x {lay['points_per_stage']} grid "
+        f"points a stage, {lay['smem_bytes']} bytes of shared memory a "
+        f"block, {lay['blocks_per_sm']} blocks an SM, H up to "
+        f"{lay['max_models']}")
     rows32 = {}
     for dtype, approx in FLAVOURS:
         tdt = getattr(torch, dtype)
@@ -337,7 +356,7 @@ def _k6(dev, peaks, recs, N, gen, rows0, hyp32, pi, pi_xi):
             rows, hyp_k, *args, approx=approx))
         plain = time_ms(lambda: ek.eig_scores_refresh_compute_plain(
             rows, hyp_k, *args, approx=approx, chunk=1024), reps=5)
-        b_ms, by = bound(nbytes, nops, peaks)
+        b_ms, by = bound(nbytes, nops, peaks, tensor_ops)
         log(f"kernel {name} N={N}: max_abs_err={err:.3e} (tol atol="
             f"{atol:.2e} rtol={K6_RTOL}) {row_note}; other rows bitwise "
             f"untouched ms={ms:.4f} plain_ms={plain:.4f} bound_ms="
@@ -347,6 +366,62 @@ def _k6(dev, peaks, recs, N, gen, rows0, hyp32, pi, pi_xi):
                      library_ms=None)
         del hyp, hyp_k
     del hard
+
+
+WIDE_H = 4000   # past the first kernel 6's shared-memory limit (~3,300)
+
+
+def _k6_wide(dev, gen):
+    """Kernel 6 at the headline's C and N with H = WIDE_H models (fp32
+    cache, exact entropy) against its plain version: scores, the refreshed
+    row, the other rows untouched."""
+    import torch
+
+    from coda_tpu_torch.ops import eig_kernels as ek
+    from coda_tpu_torch.ops.beta import dirichlet_to_beta
+    from coda_tpu_torch.ops.pbest import compute_pbest
+
+    C, N, H = HEADLINE[0], HEADLINE[1], WIDE_H
+    c_idx = C // 2
+    c = torch.tensor(c_idx, dtype=torch.int32, device=dev)
+    hyp = torch.rand((C, N, H), generator=gen, device=dev).add_(0.1)
+    hyp.div_(hyp.sum(-1, keepdim=True))
+    pi_xi = torch.rand((N, C), generator=gen, device=dev) + 0.1
+    pi_xi /= pi_xi.sum(-1, keepdim=True)
+    pi = pi_xi.mean(0)
+    pi /= pi.sum()
+    d = torch.rand((H, C, C), generator=gen, device=dev) * 3 + 0.5
+    a, b = dirichlet_to_beta(d)
+    a_t, b_t = a[:, c_idx].contiguous(), b[:, c_idx].contiguous()
+    rows = compute_pbest(a.T, b.T)
+    rows[c_idx] = compute_pbest(a_t, b_t)
+    hard = torch.randint(0, C, (N, H), generator=gen, device=dev,
+                         dtype=torch.int32)
+    args = (a_t, b_t, hard, c, pi, pi_xi)
+    hyp_k = hyp.clone()
+    got, _ = ek.eig_scores_refresh_compute(rows, hyp_k, *args)
+    torch.cuda.synchronize()
+    hyp_p = hyp.clone()
+    want, _ = ek.eig_scores_refresh_compute_plain(rows, hyp_p, *args,
+                                                  chunk=256)
+    torch.cuda.synchronize()
+    atol = K6_ATOL + score_atol(H)
+    torch.testing.assert_close(got, want, rtol=K6_RTOL, atol=atol)
+    _check_refresh_rows(hyp_k, hyp_p, hyp, c_idx, C)
+    row_rel = float(((hyp_k[c_idx] - hyp_p[c_idx]).abs()
+                     / hyp_p[c_idx].abs().clamp_min(1e-30)).max())
+    torch.testing.assert_close(hyp_k[c_idx], hyp_p[c_idx], rtol=K6_ROW_RTOL,
+                               atol=K6_ROW_RTOL / H)
+    del hyp, hyp_p
+    ms = time_ms(lambda: ek.eig_scores_refresh_compute(rows, hyp_k, *args),
+                 reps=5)
+    log(f"kernel eig_refresh_compute_score (C, N, H) = ({C}, {N}, {H}): "
+        f"max_abs_err={float((got - want).abs().max()):.3e} (tol atol="
+        f"{atol:.2e} rtol={K6_RTOL}), row max_rel_err={row_rel:.3e} (tol "
+        f"rtol={K6_ROW_RTOL} atol={K6_ROW_RTOL / H:.1e}), other rows "
+        f"bitwise untouched, ms={ms:.4f}")
+    del hyp_k, hard
+    torch.cuda.empty_cache()
 
 
 def _k45(dev, peaks, recs, N, gen):
@@ -526,6 +601,7 @@ def phase_kernels(dev, peaks):
         torch.cuda.empty_cache()
         _k45(dev, peaks, recs, N, gen)
         _gather(dev, peaks, recs, N, gen)
+    _k6_wide(dev, gen)
     return recs
 
 
@@ -827,7 +903,8 @@ def main() -> int:
     peaks = card_peaks(name)
     log(f"card: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"peaks used for bounds: {peaks[0] / 1e12:.2f} TB/s, "
-        f"{peaks[1] / 1e12:.0f} TFLOP/s fp32)")
+        f"{peaks[1] / 1e12:.0f} TFLOP/s fp32, {peaks[2] / 1e12:.0f} TFLOP/s "
+        "TF32 tensor)")
     phase = "build"
     try:
         info = build.build_all()

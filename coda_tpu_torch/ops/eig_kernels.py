@@ -10,9 +10,11 @@ scores with it — the cache tensor passed in is modified (JAX returned a
 new, donated buffer instead).
 Kernel 6, :func:`eig_scores_refresh_compute`, replaces
 ``_refresh_compute_score_kernel`` (``eig_refresh='fused'``): it computes
-that row inside the scoring pass from the labelled class's O(H·G) Beta
-grid tables, so the ``(N, H)`` row never reaches device memory; it too
-writes row ``c`` in place.
+that row on the card from the labelled class's O(H·G) Beta grid tables
+(no three-product refresh before it) and scores with it; it too writes
+row ``c`` in place. It runs as two launches: a row kernel that writes the
+unnormalised row to an fp32 ``(N, H)`` scratch, and a scoring pass that
+normalises, stores and scores it.
 Kernels 4 and 5, :func:`eig_scores_cache_batched` and
 :func:`eig_scores_refresh_batched`, replace ``_batched_score_kernel`` and
 ``_batched_refresh_kernel``: kernels 1 and 2 for S replicas in one launch
@@ -41,6 +43,7 @@ Beta tables too, as the reference's wrapper builds them.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -196,12 +199,34 @@ def _lib():
 def _lib6(defines: tuple[str, ...] = ()):
     lib = load("eig_refresh_compute", defines)
     if not getattr(lib, "_typed", False):
-        lib.eig_refresh_compute_smem.argtypes = [_I] * 3
-        lib.eig_refresh_compute_smem.restype = ctypes.c_longlong
-        lib.eig_refresh_compute_launch.argtypes = [_P] * 14 + [_I] * 7 + [_P]
+        lib.eig_refresh_compute_layout.argtypes = [_I] * 3 + [_P]
+        lib.eig_refresh_compute_layout.restype = _I
+        lib.eig_refresh_compute_launch.argtypes = [_P] * 16 + [_I] * 7 + [_P]
         lib.eig_refresh_compute_launch.restype = _I
         lib._typed = True
     return lib
+
+
+_LAYOUT_KEYS = ("items_per_block", "models_per_chunk", "points_per_stage",
+                "smem_bytes", "blocks_per_sm", "max_models")
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(C: int, H: int, num_points: int, device: int) -> tuple:
+    out = (ctypes.c_longlong * len(_LAYOUT_KEYS))()
+    _raise_on(_lib6().eig_refresh_compute_layout(C, H, num_points, out),
+              "eig_refresh_compute_layout")
+    return tuple(out)
+
+
+def refresh_compute_layout(C: int, H: int, num_points: int = 256) -> dict:
+    """Kernel 6's tiling at ``(C, H, num_points)`` on the current card:
+    items per block, models per chunk of the products, grid points per
+    stage of the products, dynamic shared memory per block of the row
+    kernel (bytes), its resident blocks per SM (0 if it does not fit), and
+    the largest H that fits at this ``num_points``."""
+    return dict(zip(_LAYOUT_KEYS, _layout(C, H, num_points,
+                                          torch.cuda.current_device())))
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -405,11 +430,15 @@ def eig_scores_refresh_compute(pbest_rows: torch.Tensor,
     ``true_class`` of the cache from the Beta parameters ``a_t``, ``b_t``
     (H,) of the labelled class and ``hard_preds`` (N, H) int32, write it
     into ``pbest_hyp`` IN PLACE at the storage type, and score every item
-    with the stored row, in one pass. ``pbest_rows`` must already hold the
-    refreshed P(best) row; ``pbest_hyp`` holds the old class row. The
-    O(H·G) tables are built here with PyTorch, as the reference's wrapper
-    builds them. CPU tensors take :func:`eig_scores_refresh_compute_plain`
-    (``chunk`` is its scoring valve). Returns ``(scores (N,), pbest_hyp)``.
+    with the stored row. ``pbest_rows`` must already hold the refreshed
+    P(best) row; ``pbest_hyp`` holds the old class row. The O(H·G) tables
+    are built here with PyTorch, as the reference's wrapper builds them,
+    and so is the fp32 ``(N, H)`` scratch the two launches share. H is
+    bounded by the row kernel's shared memory (the eq bitmask of its item
+    tile: 16,224 models at ``num_points=256``; see
+    :func:`refresh_compute_layout`). CPU tensors take
+    :func:`eig_scores_refresh_compute_plain` (``chunk`` is its scoring
+    valve). Returns ``(scores (N,), pbest_hyp)``.
     """
     if pbest_hyp.device.type == "cpu":
         return eig_scores_refresh_compute_plain(
@@ -429,23 +458,28 @@ def eig_scores_refresh_compute(pbest_rows: torch.Tensor,
     _require(num_points >= 2, f"num_points={num_points} must be >= 2")
     c = _check_class(true_class, dev)
     lib = _lib6()
-    smem = lib.eig_refresh_compute_smem(C, H, num_points)
+    layout = refresh_compute_layout(C, H, num_points)
+    smem = layout["smem_bytes"]
     _require(smem <= _MAX_SMEM_OPTIN,
              f"kernel 6 needs {smem} bytes of shared memory per block at "
              f"C={C}, H={H}, num_points={num_points}; a Hopper block may opt "
-             f"in to at most {_MAX_SMEM_OPTIN}")
+             f"in to at most {_MAX_SMEM_OPTIN} (H up to "
+             f"{layout['max_models']} at this num_points)")
     S0, dlogcdf, F_u, dF, w_trapz = refresh_tables(a_t, b_t, update_weight,
                                                    num_points)
     fu_t, df_t = F_u.T.contiguous(), dF.T.contiguous()     # (G, H) once
     mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
+    # the unnormalised rows and their clamped sums between the two launches
+    scratch = torch.empty((N, H), dtype=torch.float32, device=dev)
+    den = torch.empty(N, dtype=torch.float32, device=dev)
     out = torch.empty(N, dtype=torch.float32, device=dev)
     rc = lib.eig_refresh_compute_launch(
         pbest_rows.data_ptr(), pbest_hyp.data_ptr(), hard_preds.data_ptr(),
         c.data_ptr(), S0.data_ptr(), dlogcdf.data_ptr(), fu_t.data_ptr(),
         df_t.data_ptr(), w_trapz.data_ptr(), pi_hat.data_ptr(),
         pi_hat_xi.data_ptr(), mixture0.data_ptr(), h_before.data_ptr(),
-        out.data_ptr(), C, N, H, num_points,
-        _vec(H, pbest_hyp, pbest_rows, mixture0),
+        scratch.data_ptr(), den.data_ptr(), out.data_ptr(), C, N, H,
+        num_points, _vec(H, pbest_hyp, pbest_rows, mixture0, scratch),
         int(pbest_hyp.dtype == torch.bfloat16), int(approx), _stream())
     _raise_on(rc, "eig_refresh_compute_score")
     _count("eig_refresh_compute_score", pbest_hyp.dtype, approx)

@@ -9,11 +9,12 @@ its kernels there, and prints one JSON line: the median time of 50
 launches (CUDA events, after warm-up) of kernels 1 and 2
 (``eig_scores_cache``, ``eig_scores_refresh``) and kernel 3
 (``gather_rows_sum``) at (C, N, H) = (10, 50000, 1000) in the fp32 and bf16
-caches, and, where the checkout has them, kernels 4 and 5
-(``eig_scores_cache_batched``, ``eig_scores_refresh_batched``) and the
-batched kernel 3 at 5 replicas (the CLI's default seeds); beside them the
-registers ``ptxas`` reports for each library and the card's name and power
-limit.
+caches, kernel 6 (``eig_scores_refresh_compute``, G = 256 grid points) in
+its four flavours (fp32 or bf16 cache, exact or approx entropy), and, where
+the checkout has them, kernels 4 and 5 (``eig_scores_cache_batched``,
+``eig_scores_refresh_batched``) and the batched kernel 3 at 5 replicas (the
+CLI's default seeds); beside them the registers ``ptxas`` reports for each
+library and the card's name and power limit.
 Two checkouts are compared in one call, in turns (parent, change, change,
 parent), each in its own process. Needs a CUDA device.
 """
@@ -65,6 +66,8 @@ def main(argv=None) -> int:
     from coda_tpu_torch.ops import build
     from coda_tpu_torch.ops import eig_kernels as ek
     from coda_tpu_torch.ops import gather_kernels as gk
+    from coda_tpu_torch.ops.beta import dirichlet_to_beta
+    from coda_tpu_torch.ops.pbest import compute_pbest
 
     logs = build.build_all()["logs"]
     regs = {lib: sorted({int(m) for m in re.findall(r"Used (\d+) registers",
@@ -104,6 +107,13 @@ def main(argv=None) -> int:
     pi = pi_xi.mean(-2)
     pi = pi / pi.sum(-1, keepdim=True)
     cls = torch.arange(S, dtype=torch.int32, device=dev) % C
+    # kernel 6's operands: the Beta parameters of class c and hard
+    # predictions, on replica 0's rows
+    d = torch.rand((H, C, C), generator=gen, device=dev) * 3 + 0.5
+    a, b = dirichlet_to_beta(d)
+    a_t, b_t = a[:, 0].contiguous(), b[:, 0].contiguous()
+    hard = torch.randint(0, C, (N, H), generator=gen, device=dev,
+                         dtype=torch.int32)
     for dtype in (torch.float32, torch.bfloat16):
         hyp = hyp32.to(dtype)
         tag = "" if dtype == torch.float32 else "[bfloat16]"
@@ -112,6 +122,13 @@ def main(argv=None) -> int:
             else [rows, hyp, pi, pi_xi, hyp_t]
         r1, h1, p1, px1, ht1 = one
         c1 = cls[0]
+        r6 = r1.clone()
+        r6[0] = compute_pbest(a_t, b_t)
+        for approx in (False, True):
+            out["ms"][ek.flavour("eig_refresh_compute_score", dtype,
+                                 approx)] = _median_ms(
+                lambda: ek.eig_scores_refresh_compute(
+                    r6, h1, a_t, b_t, hard, c1, p1, px1, approx=approx))
         out["ms"]["eig_score" + tag] = _median_ms(
             lambda: ek.eig_scores_cache(r1, h1, p1, px1))
         out["ms"]["eig_refresh_score" + tag] = _median_ms(
@@ -122,7 +139,7 @@ def main(argv=None) -> int:
             out["ms"]["eig_refresh_score_batched" + tag] = _median_ms(
                 lambda: ek.eig_scores_refresh_batched(rows, hyp, hyp_t, cls,
                                                       pi, pi_xi))
-        del hyp, one, r1, h1, p1, px1, ht1
+        del hyp, one, r1, h1, p1, px1, ht1, r6
         torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0

@@ -40,7 +40,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def _group(name: str) -> str:
     n = name.lower()
-    if "refresh_compute_kernel" in n:
+    if "refresh_compute" in n:     # kernel 6's row and scoring launches
         return "kernel: eig_refresh_compute (csrc/eig_refresh_compute.cu)"
     if "score_kernel" in n:
         return "kernel: eig_score/refresh (csrc/eig_score.cu)"

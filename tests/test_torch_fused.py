@@ -480,7 +480,13 @@ def _score_tol(H):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,approx", FLAVOURS)
 @pytest.mark.parametrize("N,C,H,G", [(1000, 10, 100, 256), (1001, 3, 37, 256),
-                                     (77, 4, 10, 50)])
+                                     (77, 4, 10, 50),
+                                     # H past one 128-model chunk, ragged
+                                     (640, 10, 300, 256),
+                                     # N past two 64-item tiles, ragged
+                                     (130, 5, 256, 256),
+                                     # G past one 256-point pass of S
+                                     (200, 3, 40, 300)])
 def test_refresh_compute_kernel_matches_plain_on_card(cuda, dtype, approx, N,
                                                       C, H, G):
     c = C - 1
@@ -543,9 +549,22 @@ def test_score_kernel_flavours_match_plain_on_card(cuda, dtype, approx, N, C,
 
 @pytest.mark.gpu
 def test_refresh_compute_refuses_models_past_shared_memory(cuda):
-    """A model count whose block would pass the opt-in shared-memory limit
-    is refused before launch, naming the limit."""
+    """The row kernel keeps only the eq bitmask of its 64 items in shared
+    memory per model, so H = 4000 (past the first design's limit of about
+    3,300) runs and matches the plain version; a model count whose block
+    would pass the opt-in shared-memory limit (16,224 at G = 256) is still
+    refused before launch, naming the limit and the largest H."""
     C, N, H, c = 3, 40, 4000, 1
     inp = _fused_inputs(5, N, C, H, c)
-    with pytest.raises(ValueError, match="232448"):
+    s_k, h_k = _port_fused(inp, c, "float32", False, device=cuda)
+    s_p, h_p = _port_fused(inp, c, "float32", False, device=cuda, plain=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s_k, s_p, rtol=1e-3, atol=2e-5)
+    torch.testing.assert_close(h_k[c], h_p[c], rtol=2e-5, atol=2e-5 / H)
+    h_max = ek.refresh_compute_layout(C, H)["max_models"]
+    assert h_max >= 16_000
+    assert ek.refresh_compute_layout(C, h_max)["smem_bytes"] <= 232_448 < \
+        ek.refresh_compute_layout(C, h_max + 1)["smem_bytes"]
+    inp = _fused_inputs(5, 4, C, h_max + 1, c)
+    with pytest.raises(ValueError, match=f"232448.*H up to {h_max}"):
         _port_fused(inp, c, "float32", False, device=cuda)
