@@ -8,7 +8,11 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
 
 1. builds the CUDA kernels from ``coda_tpu_torch/csrc`` (one ``nvcc`` per
    source, all started together) and prints the build time, the compiler's
-   register/spill report and the card's name and power limit;
+   register/spill report and the card's name and power limit; then sweeps
+   every fp32 p in [1e-12, 1] through the exact entropy's log term on the
+   card and holds each to its contract, within 4 * 2^-24 * max(|t|, p) of
+   t = p*log2(p) in float64 (beside it, the worst error of the full-precision
+   ``logf`` term and of the bare ``lg2.approx``);
 2. holds each kernel, in each flavour (fp32 or bf16 cache; exact or approx
    entropy), to its plain PyTorch version on the card at the headline
    shape (C, N, H) = (10, 50000, 1000) and at a ragged N = 50001, printing
@@ -24,12 +28,15 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    seed-batched kernels 4 and 5 and kernel 3 with a replica axis run at
    S = 5 replicas (the CLI's default seeds) of the same shapes, held to
    their plain versions and, bitwise, to kernels 1, 2 and 3 launched on
-   each replica;
+   each replica; kernel 3 and its batched form are also held bitwise to
+   the in-order fp32 sum over models (``gather_rows_sum_inorder``, the
+   Pallas kernel's accumulator);
 3. drives the main path — ``make_synthetic_task(0, H=1000, N=50000, C=10)``
    through ``run_seeds_compiled`` with CODA, one seed — once per
    configuration of MAIN_PATHS: the reference's default (precomputed
-   refresh, fp32 cache) and its headline-speed configuration (fused
-   refresh, bf16 cache) for 20 rounds each, every other flavour for 5.
+   refresh, fp32 cache), its headline-speed configuration (fused refresh,
+   bf16 cache) and the precomputed refresh over a bf16 cache for 20
+   rounds each, every other flavour for 5.
    Each run has every launch counter set to 0 just before and read just
    after, and must have launched kernel 1 once (init), kernel 3 once a
    round and kernel 2 (precomputed) or kernel 6 (fused) once a round, in
@@ -548,15 +555,19 @@ def _gather(dev, peaks, recs, N, gen):
              lambda: pbc[s64, hidx].sum(1), s)):
         got = fn(pbc, sel)
         want = plain_fn(pbc, sel)
+        inorder = gk.gather_rows_sum_inorder(pbc, sel)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         torch.testing.assert_close(got, want, rtol=rtol, atol=0)
-        note = ""
+        # the kernel sums in h order from 0, as the Pallas kernel does
+        if not torch.equal(got, inorder):
+            raise AssertionError(f"{name}: != the in-order sum bitwise")
+        note = "== the in-order sum bitwise, "
         if sel.dim() == 2:
             if not all(torch.equal(got[r], gk.gather_rows_sum(pbc, sel[r]))
                        for r in range(S)):
                 raise AssertionError(f"{name}: != kernel 3 per replica")
-            note = f"S={S}, == kernel 3 per replica bitwise "
+            note += f"S={S}, == kernel 3 per replica bitwise, "
         r = recs.setdefault(name, dict(
             source="coda_tpu_torch/csrc/row_gather.cu",
             replaces="coda_tpu/ops/pallas_gather.py:66", max_abs_err=0.0))
@@ -577,6 +588,58 @@ def _gather(dev, peaks, recs, N, gen):
                      library_ms=lib)
     del pbc
     torch.cuda.empty_cache()
+
+
+LOG_SWEEP_CHUNK = 1 << 25
+
+
+def phase_log_sweep(dev) -> dict:
+    """Every fp32 p in [1e-12, 1] through the exact flavour's log term on
+    the card (``eig_plogp_sweep_launch``), held to its error contract
+    against ``p * log2(p)`` in float64; beside it the full-precision
+    ``logf(p) * log2(e) * p`` and the bare ``lg2.approx`` term, below and
+    above the threshold where the exact flavour leaves the latter. Returns
+    the worst error of each in units of the contract; fails if the exact
+    term breaks it."""
+    import numpy as np
+    import torch
+
+    from coda_tpu_torch.ops import eig_kernels as ek
+
+    lo = int(np.float32(1e-12).view(np.int32))
+    hi = int(np.float32(1.0).view(np.int32))
+    wide = int(np.float32(0.0625).view(np.int32))
+    worst = {"exact": 0.0, "logf": 0.0, "lg2 p<=1/16": 0.0, "lg2 p>1/16": 0.0}
+    at = {}
+    t0 = time.perf_counter()
+    for start in range(lo, hi + 1, LOG_SWEEP_CHUNK):
+        bits = torch.arange(start, min(start + LOG_SWEEP_CHUNK, hi + 1),
+                            dtype=torch.int32, device=dev)
+        p = bits.view(torch.float32)
+        for form in ek.PLOGP_FORMS:
+            ratio = ek.plogp_error_units(p, ek.plogp_terms(p, form))
+            parts = ([(form, ratio, p)] if form != "lg2" else
+                     [("lg2 p<=1/16", ratio[bits <= wide], p[bits <= wide]),
+                      ("lg2 p>1/16", ratio[bits > wide], p[bits > wide])])
+            for key, r, pp in parts:
+                if r.numel() == 0:
+                    continue
+                m, i = r.max(0)
+                if float(m) > worst[key]:
+                    worst[key], at[key] = float(m), float(pp[i])
+            del ratio
+        del bits, p
+    torch.cuda.synchronize()
+    n = hi - lo + 1
+    log(f"log-term sweep: {n} fp32 p in [1e-12, 1] in "
+        f"{time.perf_counter() - t0:.1f} s; worst |t - p*log2(p)| in units "
+        f"of {ek.PLOGP_CONTRACT_ULPS}*2^-24*max(|t|, p): "
+        + ", ".join(f"{k} {v:.4f} (p={at.get(k, float('nan')):.6e})"
+                    for k, v in worst.items()))
+    if worst["exact"] > 1.0:
+        raise AssertionError(f"the exact log term breaks its contract: "
+                             f"{worst['exact']:.4f} units at p={at['exact']}")
+    return worst
 
 
 def phase_kernels(dev, peaks):
@@ -633,13 +696,14 @@ def read_counts() -> tuple[dict, dict]:
 
 
 # (eig_refresh, eig_cache_dtype, eig_entropy, rounds): the two headline
-# configurations at 20 rounds, then every other flavour at 5
-MAIN_PATHS = [("precomputed", "float32", "exact", 20),
-              ("fused", "bfloat16", "exact", 20)] + [
+# configurations and the precomputed bf16 exact one (the path of kernel 2's
+# bf16 flavour) at 20 rounds, then every other flavour at 5
+_DEEP = (("precomputed", "float32", "exact"),
+         ("precomputed", "bfloat16", "exact"), ("fused", "bfloat16", "exact"))
+MAIN_PATHS = [(*k, 20) for k in _DEEP] + [
     (r, d, e, 5) for r in ("precomputed", "fused")
     for d in ("float32", "bfloat16") for e in ("exact", "approx")
-    if (r, d, e) not in (("precomputed", "float32", "exact"),
-                         ("fused", "bfloat16", "exact"))]
+    if (r, d, e) not in _DEEP]
 # (eig_cache_dtype, eig_entropy, rounds) of the seed-batched engine
 # (precomputed refresh, SEEDS seeds in one batch): the reference's default
 # at 20 rounds, the other flavours at 5
@@ -914,6 +978,8 @@ def main() -> int:
             for line in text.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {lib}: {line.strip()}")
+        phase = "log sweep"
+        phase_log_sweep(dev)
         phase = "kernels"
         recs = phase_kernels(dev, peaks)
         phase = "main path"

@@ -62,11 +62,13 @@
 //    About 108 KB of shared memory at H=1000, G=256: two blocks (16
 //    warps) an SM. The scratch keeps the row out of shared memory, so the
 //    model count is bounded only by the mask (H <= 16,224 at G=256).
-// 2. refresh_compute_score_kernel: kernel 2's scoring pass (a warp per
-//    (c, n) row, 8 items and their C rows a block): row c is read from the
-//    scratch, divided by den, rounded to the storage type, stored and
-//    scored as rounded; the C-1 other rows stream from the cache. This
-//    stage is bound by bytes and runs at kernel 2's occupancy.
+// 2. refresh_compute_score_kernel: kernel 2's scoring pass
+//    (eig::score_warp, a warp scoring eig::kExactRows items class by
+//    class; eig::score_block_approx, one row a warp, for the approx entropy):
+//    row c is read from the scratch, divided by den, rounded to the
+//    storage type, stored and scored as rounded; the C-1 other rows stream
+//    from the cache. This stage is bound by bytes and runs at kernel 2's
+//    occupancy.
 //
 // The scratch costs 0.4 GB of extra traffic (written once, read once). The
 // block that computes or stores row c of item n is that row's only
@@ -92,7 +94,6 @@ constexpr int kAhead = 2;              // stages in flight beyond the one used
 constexpr int kSR = 8;                 // dlogcdf rows per stage of S
 constexpr int kBS = kHc + 8;           // row stride of a staged table tile
 constexpr int kSlot = 2 * kKc * kBS;   // floats per slot
-constexpr int kSItems = 8;             // items per block (launch 2)
 static_assert(kSR * kGb <= kSlot, "an S stage fits a slot");
 static_assert(kAhead + 2 <= kDepth, "one barrier a stage needs two spare");
 
@@ -457,30 +458,11 @@ refresh_compute_rows_kernel(const int* __restrict__ hard_preds,
 #endif
 }
 
-// Sum over h of p*log2(p) for row c of one item: the unnormalised fp32 row
-// from the scratch divided by den, rounded to T, stored to dst and scored
-// as rounded (eig::row_plogp's loop with the division in front).
-template <int VEC, bool APPROX, typename T>
-__device__ float stored_row_plogp(const float* src, float d,
-                                  const float* __restrict__ base,
-                                  const float* __restrict__ mix0, float pi_c,
-                                  int H, int lane, T* dst) {
-  float acc = 0.f;
-  for (int i = lane; i < H / VEC; i += 32) {
-    float s[VEC], b[VEC], m[VEC];
-    eig::load<VEC>(src, i, s);
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) s[k] = s[k] / d;
-    eig::load<VEC>(base, i, b);
-    eig::load<VEC>(mix0, i, m);
-    eig::store_round<VEC>(dst, i, s);
-#pragma unroll
-    for (int k = 0; k < VEC; ++k)
-      acc += eig::plogp<APPROX>(s[k], b[k], m[k], pi_c);
-  }
-  return eig::warp_sum(acc);
-}
-
+// Launch 2: kernel 2's scoring pass (eig::score_warp, or
+// eig::score_block_approx for the approx entropy) with class row c read
+// from the scratch u, divided by den[n], rounded to T, stored into the
+// cache and scored as rounded (FRESH = 2)
+static_assert(kWarps == eig::kScoreWarps, "launch 2 is a scoring block");
 template <typename T, int VEC, bool APPROX>
 __global__ void __launch_bounds__(kThreads)
 refresh_compute_score_kernel(const float* __restrict__ rows, T* hyp,
@@ -492,36 +474,17 @@ refresh_compute_score_kernel(const float* __restrict__ rows, T* hyp,
                              const float* __restrict__ mixture0,
                              const float* __restrict__ h_before,
                              float* __restrict__ out, int C, int N, int H) {
-  extern __shared__ float h_after[];  // [kSItems][C]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n0 = blockIdx.x * kSItems;
-  const int c = *c_ptr;
-  if ((unsigned)c >= (unsigned)C) {  // no row was refreshed
-    const int n = n0 + (int)threadIdx.x;
-    if (threadIdx.x < kSItems && n < N) out[n] = NAN;
-    return;
-  }
-  for (int j = warp; j < kSItems * C; j += kWarps) {
-    const int cc = j / kSItems, i = j % kSItems, n = n0 + i;
-    if (n >= N) continue;
-    T* row = hyp + ((size_t)cc * N + n) * (size_t)H;
-    const float* base = rows + (size_t)cc * H;
-    float acc;
-    if (cc == c)
-      acc = stored_row_plogp<VEC, APPROX>(u + (size_t)n * H, den[n], base,
-                                          mixture0, pi[cc], H, lane, row);
-    else
-      acc = eig::row_plogp<VEC, APPROX>(row, base, mixture0, pi[cc], H, lane,
-                                        (T*)nullptr);
-    if (lane == 0) h_after[i * C + cc] = -acc;
-  }
-  __syncthreads();
-  const int i = threadIdx.x, n = n0 + i;
-  if (i < kSItems && n < N) {
-    float s = 0.f;
-    for (int cc = 0; cc < C; ++cc)
-      s += pi_xi[(size_t)n * C + cc] * h_after[i * C + cc];
-    out[n] = h_before[0] - s;
+  extern __shared__ float h_after[];  // the approx pass: [kWarps][C]
+  if constexpr (APPROX) {
+    eig::score_block_approx<T, VEC, 2>(rows, hyp, hyp, u, den, *c_ptr, pi,
+                                       pi_xi, mixture0, h_before, out, C, N,
+                                       H, 0, h_after);
+  } else {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int n0 = (blockIdx.x * kWarps + warp) * eig::kExactRows;
+    eig::score_warp<T, VEC, 2>(rows, hyp, hyp, u, den, *c_ptr, pi, pi_xi,
+                               mixture0, h_before[0], out, C, N, H, 0, n0,
+                               lane);
   }
 }
 
@@ -537,8 +500,9 @@ int score_t(const float* rows, void* hyp, const float* u, const float* den,
             const float* mixture0, const float* h_before, float* out, int C,
             int N, int H, int vec, cudaStream_t stream) {
   constexpr int kVec = sizeof(T) == 2 ? 8 : 4;
+  constexpr int kSItems = eig::score_items<APPROX>();  // items a block
   const int grid = (N + kSItems - 1) / kSItems;
-  const size_t smem = sizeof(float) * kSItems * C;
+  const size_t smem = APPROX ? sizeof(float) * kWarps * C : 0;
   T* h = static_cast<T*>(hyp);
   if (vec > 1)
     refresh_compute_score_kernel<T, kVec, APPROX>

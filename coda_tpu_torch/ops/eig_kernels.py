@@ -58,7 +58,7 @@ _LOG2E = 1.4426950408889634
 # wrapper launches it; a kernel's total is the sum over its flavours
 launch_counts = {"eig_score": 0, "eig_refresh_score": 0,
                  "eig_refresh_compute_score": 0, "eig_score_batched": 0,
-                 "eig_refresh_score_batched": 0}
+                 "eig_refresh_score_batched": 0, "eig_plogp_sweep": 0}
 
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_SMEM = 48 << 10  # default dynamic shared memory a block may use
@@ -192,6 +192,9 @@ def _lib():
         lib.eig_refresh_score_batched_launch.argtypes = \
             [_P] * 9 + [_I] * 7 + [_P]
         lib.eig_refresh_score_batched_launch.restype = _I
+        lib.eig_plogp_sweep_launch.argtypes = [_P, _P, ctypes.c_longlong, _I,
+                                               _P]
+        lib.eig_plogp_sweep_launch.restype = _I
         lib._typed = True
     return lib
 
@@ -258,6 +261,7 @@ def _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi,
         _require(tuple(t.shape) == shape,
                  f"{name} has shape {tuple(t.shape)}, expected {shape}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
+    # the approx pass's per-block class entropies: 8 items x C floats
     _require(4 * C * 8 <= _MAX_SMEM, f"C={C} exceeds the kernel's "
              "shared-memory budget")
     return C, N, H
@@ -416,6 +420,47 @@ def eig_scores_refresh_batched(pbest_rows: torch.Tensor,
     _raise_on(rc, "eig_refresh_score_batched")
     _count("eig_refresh_score_batched", pbest_hyp.dtype, approx)
     return out, pbest_hyp
+
+
+# the terms plogp_terms evaluates: the exact flavour's, the full-precision
+# logf(p) * log2(e) * p, and p * lg2.approx(p) for every p
+PLOGP_FORMS = ("exact", "logf", "lg2")
+# the exact flavour's contract: each term t = p*log2(p) within
+# PLOGP_CONTRACT_ULPS * 2^-24 * max(|t|, p) of its double-precision value
+PLOGP_CONTRACT_ULPS = 4
+
+
+def plogp_error_units(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``|t - p*log2(p)|`` in units of the exact flavour's contract,
+    ``PLOGP_CONTRACT_ULPS * 2^-24 * max(|p*log2(p)|, p)``, the reference
+    taken in float64; the contract holds where this is at most 1."""
+    p64 = p.double()
+    ref = p64 * torch.log2(p64)
+    unit = PLOGP_CONTRACT_ULPS * 2.0 ** -24 * torch.maximum(ref.abs(), p64)
+    return (t.double() - ref).abs() / unit
+
+
+def plogp_terms(p: torch.Tensor, form: str = "exact") -> torch.Tensor:
+    """The log-term sweep's entry (``eig_plogp_sweep_launch`` in
+    ``csrc/eig_score.cu``): ``p * log2(p)`` for each fp32 ``p`` as the
+    scoring kernels compute it in the exact flavour (``form="exact"``), with
+    a full-precision log (``"logf"``: ``logf(p) * log2(e) * p``), or with
+    the hardware's ``lg2.approx`` for every p (``"lg2"``). ``p`` must lie in
+    ``[1e-12, 1]`` for the exact form to equal the scoring loop's term
+    (the loop floors p there). CPU tensors take the plain versions' term,
+    ``p * (log(p) * log2(e))``, for every form."""
+    _require(form in PLOGP_FORMS, f"form must be one of {PLOGP_FORMS}")
+    if p.device.type == "cpu":
+        return p * (torch.log(p) * _LOG2E)
+    _require(p.device.type == "cuda" and p.dtype == torch.float32
+             and p.is_contiguous(), "p must be a contiguous float32 CUDA "
+             "tensor")
+    out = torch.empty_like(p)
+    _raise_on(_lib().eig_plogp_sweep_launch(
+        p.data_ptr(), out.data_ptr(), p.numel(), PLOGP_FORMS.index(form),
+        _stream()), "eig_plogp_sweep")
+    launch_counts["eig_plogp_sweep"] += 1
+    return out
 
 
 def eig_scores_refresh_compute(pbest_rows: torch.Tensor,

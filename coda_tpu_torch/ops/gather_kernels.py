@@ -9,7 +9,9 @@ Kernel 3, :func:`gather_rows_sum`, replaces the Pallas ``_gather_kernel``:
 :func:`gather_rows_sum_batched` is the same kernel with a replica axis
 (the seed-batched engine's ``(S, H)`` classes, one launch for all S).
 A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
-plain version.
+plain version. :func:`gather_rows_sum_inorder` is the plain version that
+sums in the kernel's order (h from 0, fp32), for the tests that hold the
+kernel to it bitwise.
 """
 
 from __future__ import annotations
@@ -23,8 +25,7 @@ from coda_tpu_torch.ops.build import load
 # launches of the kernel, counted where the wrapper launches it
 launch_counts = {"row_gather": 0, "row_gather_batched": 0}
 
-_MAX_SMEM = 48 << 10
-_MAX_GRID_Y = 65535   # replicas of one batched launch (gridDim.y)
+_MAX_GRID_Y = 65535   # replicas of one batched launch, as kernels 4-5
 
 
 def prep_gather_layout(preds: torch.Tensor) -> torch.Tensor:
@@ -42,6 +43,21 @@ def gather_rows_sum_plain(preds_by_class: torch.Tensor,
     return preds_by_class[pred_classes.to(torch.int64), h].sum(0)
 
 
+def gather_rows_sum_inorder(preds_by_class: torch.Tensor,
+                            pred_classes: torch.Tensor) -> torch.Tensor:
+    """Kernel 3's sum in its own order: ``acc = acc + row(s_h, h)`` for h
+    from 0, in fp32 — the Pallas kernel's accumulator. ``(H,)`` classes
+    give ``(N,)``, ``(S, H)`` give ``(S, N)``. One PyTorch add per model:
+    for the tests and the chip smoke test, not the main path."""
+    H = preds_by_class.shape[1]
+    s = pred_classes.to(torch.int64)
+    acc = torch.zeros((*s.shape[:-1], preds_by_class.shape[2]),
+                      dtype=torch.float32, device=preds_by_class.device)
+    for h in range(H):
+        acc = acc + preds_by_class[s[..., h], h]
+    return acc
+
+
 def gather_rows_sum_batched_plain(preds_by_class: torch.Tensor,
                                   pred_classes: torch.Tensor) -> torch.Tensor:
     """Plain version of the batched kernel 3: ``(S, H)`` classes ->
@@ -55,10 +71,10 @@ def _lib():
     lib = load("row_gather")
     if not getattr(lib, "_typed", False):
         lib.row_gather_launch.argtypes = [ctypes.c_void_p] * 3 + \
-            [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.row_gather_launch.restype = ctypes.c_int
         lib.row_gather_batched_launch.argtypes = [ctypes.c_void_p] * 3 + \
-            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.row_gather_batched_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -80,9 +96,15 @@ def _check(preds_by_class: torch.Tensor, pred_classes: torch.Tensor,
             or torch.is_floating_point(pred_classes)):
         raise ValueError(f"pred_classes must be an integer {(*lead, H)} "
                          f"tensor on {dev}")
-    if 4 * H > _MAX_SMEM:
-        raise ValueError(f"H={H} exceeds the kernel's shared-memory budget")
     return pred_classes.to(torch.int32).contiguous()
+
+
+def _aligned(preds_by_class: torch.Tensor) -> bool:
+    """Every row segment starts 16-byte aligned (N a multiple of 4, the
+    tensor 16-byte aligned): the kernel's ring of 16-byte copies; else its
+    4-byte path."""
+    N = preds_by_class.shape[2]
+    return N % 4 == 0 and preds_by_class.data_ptr() % 16 == 0
 
 
 def _raise_on(rc: int) -> None:
@@ -103,6 +125,7 @@ def gather_rows_sum(preds_by_class: torch.Tensor,
     out = torch.empty(N, dtype=torch.float32, device=preds_by_class.device)
     _raise_on(_lib().row_gather_launch(
         preds_by_class.data_ptr(), s.data_ptr(), out.data_ptr(), C, H, N,
+        int(_aligned(preds_by_class)),
         torch.cuda.current_stream().cuda_stream))
     launch_counts["row_gather"] += 1
     return out
@@ -128,6 +151,7 @@ def gather_rows_sum_batched(preds_by_class: torch.Tensor,
                       device=preds_by_class.device)
     _raise_on(_lib().row_gather_batched_launch(
         preds_by_class.data_ptr(), s.data_ptr(), out.data_ptr(), S, C, H, N,
+        int(_aligned(preds_by_class)),
         torch.cuda.current_stream().cuda_stream))
     launch_counts["row_gather_batched"] += 1
     return out

@@ -6,12 +6,13 @@ checkouts on one card.
 
 Imports ``coda_tpu_torch`` from ``--root`` (default: this checkout), builds
 its kernels there, and prints one JSON line: the median time of 50
-launches (CUDA events, after warm-up) of kernels 1 and 2
-(``eig_scores_cache``, ``eig_scores_refresh``) and kernel 3
-(``gather_rows_sum``) at (C, N, H) = (10, 50000, 1000) in the fp32 and bf16
-caches, kernel 6 (``eig_scores_refresh_compute``, G = 256 grid points) in
-its four flavours (fp32 or bf16 cache, exact or approx entropy), and, where
-the checkout has them, kernels 4 and 5 (``eig_scores_cache_batched``,
+launches (CUDA events, after warm-up) of kernel 3 (``gather_rows_sum``;
+``[4-byte]``: the same rows one float past 16-byte alignment, which takes
+the kernel's 4-byte path) and, at (C, N, H) = (10, 50000, 1000) in each
+of their four flavours (fp32 or bf16 cache, exact or approx entropy),
+kernels 1 and 2 (``eig_scores_cache``, ``eig_scores_refresh``), kernel 6
+(``eig_scores_refresh_compute``, G = 256 grid points) and, where the
+checkout has them, kernels 4 and 5 (``eig_scores_cache_batched``,
 ``eig_scores_refresh_batched``) and the batched kernel 3 at 5 replicas (the
 CLI's default seeds); beside them the registers ``ptxas`` reports for each
 library and the card's name and power limit.
@@ -96,7 +97,17 @@ def main(argv=None) -> int:
     if hasattr(gk, "gather_rows_sum_batched"):
         out["ms"]["row_gather_batched"] = _median_ms(
             lambda: gk.gather_rows_sum_batched(pbc, s))
+    # the same rows one float past 16-byte alignment: kernel 3's 4-byte path
+    flat = torch.empty(C * H * N + 1, device=dev)
+    pbc4 = flat[1:].view(C, H, N)
+    pbc4.copy_(pbc)
     del pbc
+    out["ms"]["row_gather[4-byte]"] = _median_ms(
+        lambda: gk.gather_rows_sum(pbc4, s[0]))
+    if hasattr(gk, "gather_rows_sum_batched"):
+        out["ms"]["row_gather_batched[4-byte]"] = _median_ms(
+            lambda: gk.gather_rows_sum_batched(pbc4, s))
+    del flat, pbc4
     torch.cuda.empty_cache()
 
     batched = hasattr(ek, "eig_scores_cache_batched")
@@ -116,7 +127,6 @@ def main(argv=None) -> int:
                          dtype=torch.int32)
     for dtype in (torch.float32, torch.bfloat16):
         hyp = hyp32.to(dtype)
-        tag = "" if dtype == torch.float32 else "[bfloat16]"
         # the single-replica kernels on replica 0's operands
         one = [t[0] for t in (rows, hyp, pi, pi_xi, hyp_t)] if batched \
             else [rows, hyp, pi, pi_xi, hyp_t]
@@ -129,16 +139,20 @@ def main(argv=None) -> int:
                                  approx)] = _median_ms(
                 lambda: ek.eig_scores_refresh_compute(
                     r6, h1, a_t, b_t, hard, c1, p1, px1, approx=approx))
-        out["ms"]["eig_score" + tag] = _median_ms(
-            lambda: ek.eig_scores_cache(r1, h1, p1, px1))
-        out["ms"]["eig_refresh_score" + tag] = _median_ms(
-            lambda: ek.eig_scores_refresh(r1, h1, ht1, c1, p1, px1))
-        if batched:
-            out["ms"]["eig_score_batched" + tag] = _median_ms(
-                lambda: ek.eig_scores_cache_batched(rows, hyp, pi, pi_xi))
-            out["ms"]["eig_refresh_score_batched" + tag] = _median_ms(
-                lambda: ek.eig_scores_refresh_batched(rows, hyp, hyp_t, cls,
-                                                      pi, pi_xi))
+            out["ms"][ek.flavour("eig_score", dtype, approx)] = _median_ms(
+                lambda: ek.eig_scores_cache(r1, h1, p1, px1, approx=approx))
+            out["ms"][ek.flavour("eig_refresh_score", dtype, approx)] = \
+                _median_ms(lambda: ek.eig_scores_refresh(
+                    r1, h1, ht1, c1, p1, px1, approx=approx))
+            if not batched:
+                continue
+            out["ms"][ek.flavour("eig_score_batched", dtype, approx)] = \
+                _median_ms(lambda: ek.eig_scores_cache_batched(
+                    rows, hyp, pi, pi_xi, approx=approx))
+            out["ms"][ek.flavour("eig_refresh_score_batched", dtype,
+                                 approx)] = _median_ms(
+                lambda: ek.eig_scores_refresh_batched(
+                    rows, hyp, hyp_t, cls, pi, pi_xi, approx=approx))
         del hyp, one, r1, h1, p1, px1, ht1, r6
         torch.cuda.empty_cache()
     print(json.dumps(out))

@@ -44,7 +44,7 @@ def _group(name: str) -> str:
         return "kernel: eig_refresh_compute (csrc/eig_refresh_compute.cu)"
     if "score_kernel" in n:
         return "kernel: eig_score/refresh (csrc/eig_score.cu)"
-    if "row_gather" in n:
+    if "gather_kernel" in n:      # kernel 3's ring and 4-byte paths
         return "kernel: row_gather (csrc/row_gather.cu)"
     if "gemm" in n or "cutlass" in n or "xmma" in n or "matmul" in n:
         return "matrix products (cuBLAS fp32)"

@@ -159,6 +159,59 @@ def test_gather_plain_matches_pallas_kernel(C, H, N):
     assert gk.launch_counts == before
 
 
+@pytest.mark.parametrize("C,H,N", [(4, 12, 256), (10, 37, 1000), (3, 8, 129),
+                                   (5, 9, 300)])
+def test_gather_inorder_equals_pallas_kernel_bitwise(C, H, N):
+    """The in-order plain version (the sum kernel 3 takes on the card) is
+    bitwise the Pallas kernel's fp32 accumulator over h, for one replica
+    and, row by row, for a batch of replicas."""
+    import jax.numpy as jnp
+
+    from coda_tpu.ops.pallas_gather import (
+        gather_rows_sum_prepped,
+        prep_gather_layout,
+    )
+
+    rng = np.random.default_rng(C * H + N)
+    preds = rng.dirichlet(np.ones(C), size=(H, N)).astype(np.float32)
+    s = rng.integers(0, C, size=(3, H)).astype(np.int32)
+    flat = prep_gather_layout(jnp.transpose(jnp.asarray(preds), (2, 0, 1)))
+    refs = [np.asarray(gather_rows_sum_prepped(flat, jnp.asarray(row), N,
+                                               interpret=True))
+            for row in s]
+    pbc = gk.prep_gather_layout(torch.from_numpy(preds))
+    np.testing.assert_array_equal(
+        gk.gather_rows_sum_inorder(pbc, torch.from_numpy(s[0])).numpy(),
+        refs[0])
+    batched = gk.gather_rows_sum_inorder(pbc, torch.from_numpy(s))
+    assert batched.shape == (3, N)
+    np.testing.assert_array_equal(batched.numpy(), np.stack(refs))
+
+
+def test_gather_path_choice():
+    """Kernel 3's ring of 16-byte copies only when every row segment starts
+    16-byte aligned; its 4-byte path otherwise."""
+    pbc = torch.zeros(2, 3, 260)
+    assert gk._aligned(pbc)
+    assert not gk._aligned(torch.zeros(2, 3, 259))
+    assert not gk._aligned(pbc.view(-1)[1:1 + 2 * 3 * 256].view(2, 3, 256))
+
+
+def test_plogp_error_units():
+    """The exact flavour's contract as the card's sweep measures it: the
+    correctly rounded term is within a quarter of a unit; for p <= 1/2
+    (where |t| >= p) a term 8 ulps off is not within one."""
+    p = torch.tensor([1e-12, 3e-7, 0.001, 0.0625, 0.3, 0.5, 0.999, 1.0],
+                     dtype=torch.float32)
+    p64 = p.double()
+    t = (p64 * torch.log2(p64)).float()
+    assert float(ek.plogp_error_units(p, t).max()) <= 0.25
+    off = t + 8 * torch.finfo(torch.float32).eps * t.abs()
+    assert float(ek.plogp_error_units(p[:6], off[:6]).min()) > 1.0
+    # on the CPU every form is the plain versions' term
+    assert torch.equal(ek.plogp_terms(p), p * (torch.log(p) * ek._LOG2E))
+
+
 # -- wrappers: no silent fallback --------------------------------------------
 
 def test_wrappers_refuse_other_devices():
@@ -249,3 +302,36 @@ def test_gather_kernel_matches_plain_on_card(cuda, C, H, N):
     bad = s.clone()
     bad[0] = C
     assert torch.isnan(gk.gather_rows_sum(pbc, bad)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,H,N", [(10, 1000, 5000), (3, 37, 1001),
+                                   (4, 13, 130)])
+def test_gather_kernel_sums_in_order_on_card(cuda, C, H, N):
+    """Kernel 3 and its batched form are bitwise the in-order fp32 sum over
+    h (16-byte copies at N % 4 == 0, 4-byte copies otherwise)."""
+    rng = np.random.default_rng(H + N)
+    pbc = torch.from_numpy(rng.uniform(0, 1, (C, H, N)).astype(
+        np.float32)).to(cuda)
+    s = torch.from_numpy(rng.integers(0, C, (3, H)).astype(np.int32)).to(cuda)
+    assert torch.equal(gk.gather_rows_sum(pbc, s[0]),
+                       gk.gather_rows_sum_inorder(pbc, s[0]))
+    assert torch.equal(gk.gather_rows_sum_batched(pbc, s),
+                       gk.gather_rows_sum_inorder(pbc, s))
+
+
+@pytest.mark.gpu
+def test_plogp_exact_term_meets_contract_on_card(cuda):
+    """The exact flavour's log term on a strided subset of the fp32 p in
+    [1e-12, 1] (chip_smoke.py sweeps all of them), with the ends and the
+    p = 1/16 switch: within its contract."""
+    lo, hi, wide = (int(np.float32(x).view(np.int32))
+                    for x in (1e-12, 1.0, 0.0625))
+    bits = torch.cat([
+        torch.arange(lo, hi + 1, 997, dtype=torch.int32),
+        torch.arange(wide - 64, wide + 64, dtype=torch.int32),
+        torch.arange(hi - 4096, hi + 1, dtype=torch.int32),
+        torch.tensor([lo, hi], dtype=torch.int32)]).to(cuda)
+    p = bits.view(torch.float32)
+    units = ek.plogp_error_units(p, ek.plogp_terms(p))
+    assert float(units.max()) <= 1.0, float(p[units.argmax()])
