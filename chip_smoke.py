@@ -52,10 +52,26 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    the same chosen items and best models; runs it for 3 seeds x 30 rounds
    batched on the kernels, one seed after another on the kernels and
    batched on the plain versions, and requires identical trajectories;
-   runs ``data/digits.npz`` for 100 rounds x 3 seeds, batched and one seed
-   after another, and compares each with the reference package's committed
-   record ``runs/surrogate_r17/exact`` (same key schedule; the rounds before
-   the record's first near-tie must agree).
+   records ``data/digits.npz`` for 100 rounds x 3 seeds with the reference
+   package's committed knobs, batched and one seed after another, into a
+   temporary directory, holds each record to the schema and the committed
+   dataset digest, and triages it against the committed record
+   ``runs/surrogate_r17/exact`` with the port's ``compare_records`` at the
+   cross-backend contract (2.34e-4): every seed must be at parity or
+   diverge first as a ``tie-break-flip`` where the committed runner-up gap
+   is at most 2.34e-4; each seed's triage line is printed;
+5. runs the five baselines (IID, Uncertainty, ActiveTesting, VMA,
+   ModelPicker) at the headline width, 1 seed x 20 rounds, twice each: the
+   two runs must be identical; prints each one's init ms, ms per round
+   (host clock) and peak memory; then runs each on ``digits_h80`` for 3
+   seeds x 30 rounds on the card and on the CPU and triages the card's
+   record against the CPU's as in 4;
+6. records CODA at the headline with its default knobs, 1 seed x 20
+   rounds, through the CLI's ``--record-dir`` into a temporary directory,
+   holds the record to the schema and its decisions to the unrecorded
+   run's, and prints the recording round's ms beside the unrecorded one.
+   These runs are counted like the main path's (kernel 1 once, kernels 2
+   and 3 once a round) and add to its launches.
 
 It prints one JSON line with every kernel flavour (its ``launches`` summed
 over the main-path runs), then the card's name and power
@@ -728,7 +744,7 @@ def _check_run(res, config, iters, N):
         raise AssertionError(f"{config}: negative regret")
 
 
-def phase_main_path(dev) -> dict:
+def phase_main_path(dev, task) -> dict:
     """The headline CODA run through the user's entry points, once per
     configuration of MAIN_PATHS (one seed) and of BATCHED_PATHS (SEEDS
     seeds in one batch), each with the launch counters set to 0 just
@@ -736,17 +752,12 @@ def phase_main_path(dev) -> dict:
     over the runs."""
     import torch
 
-    from coda_tpu_torch.data import make_synthetic_task
     from coda_tpu_torch.engine import run_seeds_compiled
     from coda_tpu_torch.ops.eig_kernels import flavour
     from coda_tpu_torch.selectors import CODAHyperparams, make_coda
 
     C, N, H = HEADLINE
     seeds = 1
-    t0 = time.perf_counter()
-    task = make_synthetic_task(0, H=H, N=N, C=C, device=dev)
-    log(f"main path: synthetic task ({H}, {N}, {C}) built in "
-        f"{time.perf_counter() - t0:.1f} s")
     total: dict = {}
     for refresh, dtype, entropy, iters in MAIN_PATHS:
         hp = CODAHyperparams(eig_chunk=1024, eig_refresh=refresh,
@@ -842,10 +853,6 @@ def phase_parity(dev):
     reference package's committed record, batched and one after another."""
     import dataclasses
 
-    import numpy as np
-    import torch
-
-    from coda_tpu_torch import random as trandom
     from coda_tpu_torch.data import Dataset
     from coda_tpu_torch.engine import run_seeds_compiled
     from coda_tpu_torch.selectors import CODAHyperparams, make_coda
@@ -910,36 +917,278 @@ def phase_parity(dev):
             f"== {what} (idx, class, best, regret identical; max |d "
             f"select_prob|={dprob:.3e} <= 1e-05)")
 
-    rec = np.load(os.path.join(HERE, "runs", "surrogate_r17", "exact",
-                               "rounds.npz"))
+    phase_digits_triage(dev)
+
+
+def _save_and_load(res, aux, ds, dev, out_dir, run, knobs):
+    """Write ``(res, aux)`` as a record under ``out_dir`` the way
+    ``--record-dir`` does, read it back and hold it to the schema."""
+    from coda_tpu_torch.telemetry.recorder import (
+        RunRecord,
+        environment_fingerprint,
+    )
+
+    RunRecord.from_result(
+        res, aux, environment_fingerprint(dataset=ds, knobs=knobs,
+                                          device=dev), run=run).save(out_dir)
+    rec = RunRecord.load(out_dir)
+    bad = rec.violations()
+    if bad:
+        raise AssertionError(f"record {out_dir} breaks the schema: {bad}")
+    return rec
+
+
+def _triage(got, ref, what: str, tol: float) -> list:
+    """The port's triage of ``got`` against ``ref``: every seed at parity,
+    or first diverging as a ``tie-break-flip`` where ``ref``'s runner-up
+    gap is at most ``tol``. Prints each seed's line; returns them."""
+    from coda_tpu_torch.engine.replay import compare_records
+
+    report = compare_records(got, ref, score_tol=tol)
+    lines, bad = [], []
+    for s in report.seeds:
+        if s.parity:
+            line = f"seed {s.seed}: PARITY ({got.rounds} rounds)"
+        else:
+            t0 = s.first_divergent_round
+            gap = float(ref.arrays["runner_up_gap"][s.seed, t0])
+            line = (f"seed {s.seed}: first divergence at round {t0}, "
+                    f"{s.quantity} [{s.classification}], recorded runner-up "
+                    f"gap {gap:.3e}")
+            if s.classification != "tie-break-flip" or abs(gap) > tol:
+                bad.append(line)
+        lines.append(line)
+        log(f"triage {what}: {line}")
+    if bad:
+        raise AssertionError(f"{what}: divergence not a near-tie flip: "
+                             f"{bad}")
+    return lines
+
+
+def phase_digits_triage(dev):
+    """digits (14, 899, 10), 100 rounds x 3 seeds with the committed
+    record's knobs, batched and one seed after another on the kernels:
+    each recorded, and triaged against the reference package's committed
+    record ``runs/surrogate_r17/exact`` at the cross-backend contract."""
+    import dataclasses
+    import tempfile
+
+    from coda_tpu_torch.data import Dataset
+    from coda_tpu_torch.engine import run_seeds_recorded
+    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+    from coda_tpu_torch.telemetry.recorder import (
+        CROSS_BACKEND_SCORE_TOL,
+        RunRecord,
+    )
+
+    ref = RunRecord.load(os.path.join(HERE, "runs", "surrogate_r17",
+                                      "exact"))
     ds = Dataset.from_file(os.path.join(HERE, "data", "digits.npz"),
                            device=dev)
-    seeds, iters = rec["chosen_idx"].shape
-    for s in range(seeds):
-        k_scan = trandom.split(trandom.PRNGKey(s), 3)[2]
-        if not np.array_equal(trandom.split(k_scan, iters).numpy(),
-                              rec["round_key"][s].astype(np.int64)):
-            raise AssertionError(f"round keys differ from the record, "
-                                 f"seed {s}")
-    # the record's first round whose top-2 gap is below 1e-5: before it,
-    # a difference is a port fault, not a near-tie
-    clean = [int(np.argmax(g < 1e-5)) if (g < 1e-5).any() else iters
-             for g in rec["runner_up_gap"]]
-    for sequential, how in ((True, "one seed after another"),
-                            (False, "seeds batched")):
-        res = run(iters, seeds=seeds, sequential=sequential)
-        same = np.ones((seeds, iters), bool)
-        for f in ("chosen_idx", "true_class", "best_model", "regret"):
-            same &= getattr(res, f).cpu().numpy() == rec[f]
-        agree = [int(np.argmin(r)) if not r.all() else iters for r in same]
-        if any(a < c for a, c in zip(agree, clean)):
-            raise AssertionError(f"digits ({how}) diverges from the "
-                                 f"reference record at rounds {agree} "
-                                 f"(near-tie-free prefix {clean})")
-        log(f"reference record digits {tuple(ds.shape)} ({how}): rounds "
-            f"agreeing with runs/surrogate_r17/exact per seed {agree} of "
-            f"{iters} (required: the near-tie-free prefix {clean}); round "
-            "keys equal")
+    seeds, iters = ref.seeds, ref.rounds
+    want_digest = ref.meta["fingerprint"]["dataset"]["digest"]
+    run = {"task": ds.name, "synthetic": None, "data_dir": "data",
+           "method": "coda", "loss": "acc", "iters": iters, "seeds": seeds,
+           "acq_batch": 1}
+    with tempfile.TemporaryDirectory() as tmp:
+        for sequential, how in ((False, "seeds batched"),
+                                (True, "one seed after another")):
+            hp = CODAHyperparams(eig_chunk=1024,
+                                 n_parallel=1 if sequential else seeds)
+
+            def factory(p):
+                sel = make_coda(p, hp, device=dev)
+                return dataclasses.replace(sel, batched=None) \
+                    if sequential else sel
+
+            reset_counts()
+            res, aux = run_seeds_recorded(factory, ds.preds, ds.labels,
+                                          iters=iters, seeds=seeds,
+                                          device=dev)
+            counts, _ = read_counts()
+            k1, k2, k3 = (("eig_score", "eig_refresh_score", "row_gather")
+                          if sequential else
+                          ("eig_score_batched", "eig_refresh_score_batched",
+                           "row_gather_batched"))
+            n = seeds if sequential else 1
+            if (counts[k1], counts[k2], counts[k3]) != (n, n * iters,
+                                                        n * iters):
+                raise AssertionError(f"digits ({how}): launches {counts}")
+            got = _save_and_load(
+                res, aux, ds, dev, os.path.join(tmp, how.replace(" ", "_")),
+                run, {"method": "coda", "eig_chunk": 1024, "seeds": seeds,
+                      "n_parallel": hp.n_parallel})
+            digest = got.meta["fingerprint"]["dataset"]["digest"]
+            if digest != want_digest:
+                raise AssertionError(f"digits digest {digest} != the "
+                                     f"record's {want_digest}")
+            _triage(got, ref, f"digits {tuple(ds.shape)} ({how}) vs "
+                    "runs/surrogate_r17/exact", CROSS_BACKEND_SCORE_TOL)
+    log(f"reference record digits: dataset digest {want_digest}, schema "
+        f"v{got.meta['schema_version']} record clean, every seed at parity "
+        "or a near-tie flip")
+
+
+BASELINE_ROUNDS = 20
+H80_SEEDS, H80_ROUNDS = 3, 30
+
+
+def _baseline_factory(method, iters, dev):
+    from coda_tpu_torch.selectors import DEFAULT_EPS, SELECTOR_FACTORIES
+
+    kw = ({"budget": iters} if method in ("activetesting", "vma") else
+          {"epsilon": DEFAULT_EPS} if method == "model_picker" else {})
+    return lambda p: SELECTOR_FACTORIES[method](p, device=dev, **kw)
+
+
+BASELINES = ("iid", "uncertainty", "activetesting", "vma", "model_picker")
+
+
+def phase_baselines(dev, task) -> dict:
+    """The five baselines at the headline width, 1 seed x BASELINE_ROUNDS
+    rounds on the card, twice in one process (identical trajectories);
+    then on digits_h80, 3 seeds x 30 rounds on the card and on the CPU,
+    triaged. Returns {method: (init_ms, ms_per_round, peak_gb)} of the
+    second headline run. None of them launches a kernel of this repo."""
+    import numpy as np
+    import torch
+
+    from coda_tpu_torch.data import Dataset
+    from coda_tpu_torch.engine import run_seeds_compiled, run_seeds_recorded
+    from coda_tpu_torch.telemetry.recorder import (
+        CROSS_BACKEND_SCORE_TOL,
+        RunRecord,
+    )
+
+    C, N, H = HEADLINE
+    iters = BASELINE_ROUNDS
+    fields = ("chosen_idx", "true_class", "best_model", "regret",
+              "select_prob", "regret_at_0", "stochastic")
+    out = {}
+    for method in BASELINES:
+        runs, timings = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            timings.clear()
+            reset_counts()
+            res = run_seeds_compiled(_baseline_factory(method, iters, dev),
+                                     task.preds, task.labels, iters=iters,
+                                     seeds=1, device=dev, timings=timings)
+            torch.cuda.synchronize()
+            _, by_flavour = read_counts()
+            if by_flavour:
+                raise AssertionError(f"{method}: launched {by_flavour}")
+            _check_run(res, method, iters, N)
+            runs.append(res)
+        _same_run(runs[0], runs[1], fields, f"{method} headline, run 1 vs 2")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        init_ms = timings[0]["init_ms"]
+        round_ms = timings[0]["rounds_ms"] / iters
+        out[method] = (init_ms, round_ms, peak_gb)
+        log(f"baseline {method} ({H}, {N}, {C}), 1 seed x {iters} rounds: "
+            f"two runs identical; second run init_ms={init_ms:.2f} "
+            f"ms_per_round={round_ms:.3f} peak_mem_gb={peak_gb:.3f} "
+            f"regret@{iters}={float(runs[1].regret[0, -1]):.4f}")
+        del runs, res
+
+    ds = {d: Dataset.from_file(os.path.join(HERE, "data", "digits_h80.npz"),
+                               device=d) for d in (dev, "cpu")}
+    for method in BASELINES:
+        recs = {}
+        for d in (dev, "cpu"):
+            res, aux = run_seeds_recorded(
+                _baseline_factory(method, H80_ROUNDS, d), ds[d].preds,
+                ds[d].labels, iters=H80_ROUNDS, seeds=H80_SEEDS, device=d)
+            recs[d] = RunRecord.from_result(res, aux, {}, {})
+        lines = _triage(recs[dev], recs["cpu"],
+                        f"digits_h80 {method} card vs CPU",
+                        CROSS_BACKEND_SCORE_TOL)
+        a, b = recs[dev].arrays, recs["cpu"].arrays
+        # regrets are differences of mean losses over N, which the card
+        # and the CPU sum in other orders
+        same = all(np.array_equal(a[f], b[f]) for f in (
+            "chosen_idx", "true_class", "best_model")) and np.allclose(
+                a["regret"], b["regret"], rtol=0, atol=1e-6)
+        log(f"baseline {method} digits_h80 {tuple(ds['cpu'].shape)}, "
+            f"{H80_SEEDS} seeds x {H80_ROUNDS} rounds: card vs CPU "
+            f"trajectories {'identical' if same else 'triaged'} "
+            f"({'; '.join(lines)})")
+    return out
+
+
+def phase_recorded(dev, task, total: dict) -> None:
+    """CODA at the headline with its default knobs, 1 seed x 20 rounds:
+    unrecorded, then recorded through the CLI's ``--record-dir`` into a
+    temporary directory (the record held to the schema and to the
+    unrecorded trajectory), then recorded through ``run_seeds_recorded``
+    for the recording round's time. Each run's launches are counted and
+    added to ``total``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from coda_tpu_torch import cli
+    from coda_tpu_torch.engine import run_seeds_compiled, run_seeds_recorded
+    from coda_tpu_torch.ops.eig_kernels import flavour
+    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+    from coda_tpu_torch.telemetry.recorder import RunRecord
+
+    C, N, H = HEADLINE
+    iters = 20
+    hp = CODAHyperparams(eig_chunk=1024)
+    want = {flavour("eig_score", torch.float32, False): 1,
+            flavour("eig_refresh_score", torch.float32, False): iters,
+            "row_gather": iters}
+
+    def counted(what, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        _, by_flavour = read_counts()
+        if by_flavour != want:
+            raise AssertionError(f"{what}: launches {by_flavour}, expected "
+                                 f"{want}")
+        for k, v in by_flavour.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "record")
+        counted("recorded run (CLI --record-dir)", lambda: cli.main([
+            "--synthetic", f"{H},{N},{C}", "--method", "coda", "--iters",
+            str(iters), "--seeds", "1", "--record-dir", out_dir]))
+        rec = RunRecord.load(out_dir)
+        bad = rec.violations()
+        if bad:
+            raise AssertionError(f"the CLI's record breaks the schema: {bad}")
+    t_plain, t_rec = [], []
+    plain = counted("unrecorded run", lambda: run_seeds_compiled(
+        lambda p: make_coda(p, hp, device=dev), task.preds, task.labels,
+        iters=iters, seeds=1, device=dev, timings=t_plain))
+    res, aux = counted("recorded run", lambda: run_seeds_recorded(
+        lambda p: make_coda(p, hp, device=dev), task.preds, task.labels,
+        iters=iters, seeds=1, device=dev, timings=t_rec))
+    for f in ("chosen_idx", "best_model", "regret"):
+        if not (np.array_equal(rec.arrays[f], getattr(plain, f).cpu().numpy())
+                and torch.equal(getattr(res, f), getattr(plain, f))):
+            raise AssertionError(f"recording changed {f}")
+    top = aux.trace.topk_score[0].cpu()
+    if not torch.allclose(aux.trace.chosen_score[0].cpu(),
+                          res.select_prob[0].cpu()):
+        raise AssertionError("recorded chosen score != select_prob")
+    log(f"recorded CODA ({H}, {N}, {C}), 1 seed x {iters} rounds: CLI "
+        f"--record-dir record clean (schema v{rec.meta['schema_version']}, "
+        f"digest {rec.meta['fingerprint']['dataset']['digest']}); chosen_idx, "
+        f"best_model, regret == the unrecorded run's; ms_per_round "
+        f"recorded={t_rec[0]['rounds_ms'] / iters:.3f} unrecorded="
+        f"{t_plain[0]['rounds_ms'] / iters:.3f}; init_ms recorded="
+        f"{t_rec[0]['init_ms']:.1f} unrecorded={t_plain[0]['init_ms']:.1f}; "
+        f"round-0 top-2 scores {top[0, :2].tolist()}")
+    del plain, res, aux
 
 
 def main() -> int:
@@ -982,10 +1231,21 @@ def main() -> int:
         phase_log_sweep(dev)
         phase = "kernels"
         recs = phase_kernels(dev, peaks)
+        from coda_tpu_torch.data import make_synthetic_task
+
+        C, N, H = HEADLINE
+        t0 = time.perf_counter()
+        task = make_synthetic_task(0, H=H, N=N, C=C, device=dev)
+        log(f"main path: synthetic task ({H}, {N}, {C}) built in "
+            f"{time.perf_counter() - t0:.1f} s")
         phase = "main path"
-        launches = phase_main_path(dev)
+        launches = phase_main_path(dev, task)
         phase = "parity"
         phase_parity(dev)
+        phase = "baselines"
+        phase_baselines(dev, task)
+        phase = "recorded"
+        phase_recorded(dev, task, launches)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)

@@ -10,13 +10,18 @@ run of ``coda_tpu/cli.py``).
     python -m coda_tpu_torch.cli --task digits --data-dir data --method coda \\
         --device cpu
 
-Runs CODA on the card (``--device cuda``, the default) and prints the
+Runs a method on the card (``--device cuda``, the default) and prints the
 reference CLI's per-seed ``seed s: regret@T=... cumulative=...
-stochastic=...`` lines. More than one seed runs as one batch (kernels 4
-and 5) unless ``--eig-refresh fused``, whose seeds run one after another;
-``n_parallel``, the auto tier's replica count, is the batch's width, as in
-the reference. The tracking store and the flight recorder come with later
-slices of the port.
+stochastic=...`` lines. ``--method`` defaults to ``iid``, as in the
+reference, and takes its names: ``iid``, ``uncertainty``, any ``coda*``,
+``activetesting``, ``vma``, ``model_picker``. More than one CODA seed runs
+as one batch (kernels 4 and 5) unless ``--eig-refresh fused``, whose seeds
+run one after another, as the baselines' do; ``n_parallel``, the auto
+tier's replica count, is the batch's width, as in the reference.
+``--record-dir`` writes a flight-recorder record (schema v4, the
+reference's ``record.json`` + ``rounds.npz``) that the reference's
+``python -m coda_tpu.cli replay <dir> --against <record>`` triages. The
+tracking store comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -36,15 +41,39 @@ def parse_args(argv=None):
     p.add_argument("--iters", type=int, default=100)
     p.add_argument("--seeds", type=int, default=5)
     p.add_argument("--loss", default="acc", choices=["acc", "ce"])
-    p.add_argument("--method", default="coda", choices=["coda"],
-                   help="selection method (the baselines are a later slice)")
+    p.add_argument("--method", default="iid",
+                   help="{iid, uncertainty, coda*, activetesting, vma, "
+                        "model_picker}")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--record-dir", default=None,
+                   help="decision flight recorder: write a per-round "
+                        "provenance record (record.json + rounds.npz) "
+                        "there")
+    p.add_argument("--record-topk", type=int, default=8,
+                   help="top-scored candidates the recorder keeps a round")
     # CODA prior knobs (same flags and defaults as the reference)
     p.add_argument("--alpha", default=0.9, type=float)
     p.add_argument("--learning-rate", default=0.01, type=float)
     p.add_argument("--multiplier", default=2.0, type=float)
+    p.add_argument("--prefilter-n", type=int, default=0,
+                   help="Randomly subsample n candidates per iteration "
+                        "(a later slice of the port).")
     p.add_argument("--no-diag-prior", action="store_true",
                    help="Disable diagonal prior (ablation 1).")
+    p.add_argument("--q", default="eig",
+                   help="Acquisition function {eig, iid, uncertainty} "
+                        "(ablation 2; only eig so far).")
+
+    def _epsilon(v):
+        f = float(v)
+        if not 0.0 < f < 1.0:
+            raise argparse.ArgumentTypeError(
+                f"epsilon must be in (0, 1), got {f}")
+        return f
+
+    p.add_argument("--epsilon", type=_epsilon, default=None,
+                   help="ModelPicker epsilon in (0, 1); default: the "
+                        "per-task tuned TASK_EPS table")
     p.add_argument("--eig-chunk", type=int, default=1024,
                    help="N-block of the cache build and the plain scoring")
     p.add_argument("--eig-mode", default="auto",
@@ -54,11 +83,13 @@ def parse_args(argv=None):
                         "cache tier regardless of the budget)")
     # the incremental tier's numerics knobs (the reference's flags)
     p.add_argument("--eig-backend", default="auto",
-                   choices=["auto", "plain", "pallas"],
+                   type=lambda v: "jnp" if v == "plain" else v,
+                   choices=["auto", "jnp", "pallas"],
                    help="scoring backend: auto (default) = the CUDA kernels "
                         "on the card, the plain PyTorch versions on the CPU; "
-                        "plain = the plain versions everywhere; pallas "
-                        "(the reference's name for its kernels) = auto")
+                        "jnp (the reference's name; plain is an alias) = "
+                        "the plain versions everywhere; pallas (the "
+                        "reference's name for its kernels) = auto")
     p.add_argument("--eig-cache-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="storage dtype of the incremental P(best) cache: "
@@ -106,9 +137,10 @@ def hyperparams(args):
     from coda_tpu_torch.selectors import CODAHyperparams
     from coda_tpu_torch.selectors.coda import batches_seeds
 
-    hp = CODAHyperparams(alpha=args.alpha, learning_rate=args.learning_rate,
+    hp = CODAHyperparams(prefilter_n=args.prefilter_n, alpha=args.alpha,
+                         learning_rate=args.learning_rate,
                          multiplier=args.multiplier,
-                         disable_diag_prior=args.no_diag_prior,
+                         disable_diag_prior=args.no_diag_prior, q=args.q,
                          eig_chunk=args.eig_chunk, eig_mode=args.eig_mode,
                          eig_backend=("auto" if args.eig_backend == "pallas"
                                       else args.eig_backend),
@@ -119,6 +151,63 @@ def hyperparams(args):
     return hp._replace(n_parallel=args.seeds if batched else 1)
 
 
+def build_selector_factory(args, task_name: str):
+    """``preds -> Selector`` for the configured method on ``args.device``
+    (the reference's ``build_selector_factory``: ActiveTesting and VMA get
+    a label buffer of ``--iters``; ModelPicker takes ``--epsilon``, else
+    the task's tuned value, else the default)."""
+    from coda_tpu_torch.losses import LOSS_FNS
+    from coda_tpu_torch.selectors import (
+        SELECTOR_FACTORIES,
+        TASK_EPS,
+        make_coda,
+        make_modelpicker,
+    )
+
+    loss_fn = LOSS_FNS[args.loss]
+    method, dev = args.method, args.device
+    if method.startswith("coda"):
+        hp = hyperparams(args)
+        return lambda preds: make_coda(preds, hp, name=method, device=dev)
+    if method == "model_picker":
+        eps = args.epsilon
+        if eps is None:
+            eps = TASK_EPS.get(task_name)
+        if eps is None:
+            print(f"{task_name} not in TASK_EPS; using default")
+            return lambda preds: make_modelpicker(preds, device=dev)
+        return lambda preds: make_modelpicker(preds, epsilon=eps, device=dev)
+    if method in ("activetesting", "vma"):
+        return lambda preds: SELECTOR_FACTORIES[method](
+            preds, loss_fn=loss_fn, budget=args.iters, device=dev)
+    if method in SELECTOR_FACTORIES:
+        return lambda preds: SELECTOR_FACTORIES[method](
+            preds, loss_fn=loss_fn, device=dev)
+    raise SystemExit(f"{method} is not a supported method.")
+
+
+def _write_record(args, dataset, result, aux, n_parallel: int, dev) -> None:
+    from coda_tpu_torch.telemetry.recorder import (
+        RunRecord,
+        environment_fingerprint,
+        knobs_from_args,
+    )
+
+    knobs = knobs_from_args(args)
+    # the replica width the auto tier's budget saw (the reference's knob)
+    knobs["n_parallel"] = n_parallel
+    record = RunRecord.from_result(
+        result, aux,
+        environment_fingerprint(dataset=dataset, knobs=knobs, device=dev),
+        run={"task": dataset.name, "synthetic": args.synthetic,
+             "data_dir": args.data_dir, "method": args.method,
+             "loss": args.loss, "iters": args.iters, "seeds": args.seeds,
+             "acq_batch": 1})
+    record.save(args.record_dir)
+    print(f"decision record written to {args.record_dir} (triage: python "
+          f"-m coda_tpu.cli replay {args.record_dir} --against <record>)")
+
+
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
     import torch
@@ -126,7 +215,6 @@ def main(argv=None):
     from coda_tpu_torch.engine import run_seeds_compiled
     from coda_tpu_torch.losses import LOSS_FNS
     from coda_tpu_torch.oracle import true_losses
-    from coda_tpu_torch.selectors import make_coda
     from coda_tpu_torch.utils.platform import device_name, resolve_device
 
     dev = resolve_device(args.device)
@@ -141,18 +229,23 @@ def main(argv=None):
                                   loss_fn).min())
     print("Best possible loss is", best_loss)
 
-    hp = hyperparams(args)
+    factory = build_selector_factory(args, dataset.name)
+    coda = args.method.startswith("coda")
+    n_parallel = hyperparams(args).n_parallel if coda else max(1, args.seeds)
+    trace_k = args.record_topk if args.record_dir else 0
     t0 = time.perf_counter()
-    result = run_seeds_compiled(
-        lambda preds: make_coda(preds, hp, name=args.method, device=dev),
-        dataset.preds, dataset.labels, iters=args.iters, seeds=args.seeds,
-        loss_fn=loss_fn, device=dev)
+    out = run_seeds_compiled(factory, dataset.preds, dataset.labels,
+                             iters=args.iters, seeds=args.seeds,
+                             loss_fn=loss_fn, device=dev, trace_k=trace_k)
+    result, aux = out if trace_k else (out, None)
     regrets = result.regret.cpu().numpy()            # (seeds, iters)
     wall = time.perf_counter() - t0
+    if aux is not None:
+        _write_record(args, dataset, result, aux, n_parallel, dev)
     cums = result.cumulative_regret.cpu().numpy()
     stoch = result.stochastic.cpu().numpy()
     steps = args.iters * args.seeds
-    how = ("seeds run as one batch" if hp.n_parallel > 1
+    how = ("seeds run as one batch" if coda and n_parallel > 1
            else "seeds run one after another")
     print(f"{steps} selection steps in {wall:.2f}s "
           f"({steps / wall:.2f} steps/s, {how})")

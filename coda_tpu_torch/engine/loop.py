@@ -15,6 +15,11 @@ keys — computed on the host with the same threefry bits, so per-seed
 trajectories are comparable with the reference's. No round reads a value
 back to the host: labels, regrets and indices stay on the device and are
 stacked once at the end.
+
+With ``trace_k > 0`` each round also yields a :class:`RoundTrace`, the
+flight recorder's provenance of the round (``telemetry/recorder.py``):
+the recording run takes the unrecorded run's decisions, reads the values
+the round computes, and keeps them on the device until the run ends.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 
 from coda_tpu_torch import random as trandom
 from coda_tpu_torch.losses import accuracy_loss
+from coda_tpu_torch.ops.masked import entropy2
 from coda_tpu_torch.oracle import true_losses as compute_true_losses
 from coda_tpu_torch.selectors.protocol import Selector
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -46,48 +52,141 @@ class ExperimentResult(NamedTuple):
     stochastic: torch.Tensor         # 0-d bool — did RNG affect the run?
 
 
+class RoundTrace(NamedTuple):
+    """Flight-recorder provenance of one labeling round (a leading round
+    axis once stacked; the seed-batched engine's fields carry the replica
+    axis first)."""
+
+    round_key: torch.Tensor       # (2,) the round's key before its split
+    topk_idx: torch.Tensor        # (k,) int64 — top-k candidate indices
+    topk_score: torch.Tensor      # (k,) float32 — their acquisition scores
+    chosen_score: torch.Tensor    # 0-d float32 — score of the picked point
+    runner_up_gap: torch.Tensor   # 0-d float32 — top1 - top2 score margin
+    pbest_max: torch.Tensor       # 0-d float32 — max of P(best); NaN when
+    #                               the method exposes no posterior
+    pbest_entropy: torch.Tensor   # 0-d float32 — entropy (bits) of P(best)
+    surrogate_fallback: torch.Tensor  # 0-d bool — always False: the port
+    #                               has only the exact scorer
+
+
+class RunTraceAux(NamedTuple):
+    """A run's round traces and the key material of its set-up."""
+
+    trace: RoundTrace
+    root_key: torch.Tensor    # (2,) PRNGKey(seed)
+    init_key: torch.Tensor    # (2,) consumed by selector.init
+    prior_key: torch.Tensor   # (2,) consumed by the round-0 best()
+
+
+def _score_digest(res, trace_k: int) -> tuple:
+    """``(topk_idx, topk_score, chosen_score, runner_up_gap)`` of a
+    round's select result, over the last axis (a leading replica axis is
+    kept). A method without a score vector records its chosen index and
+    probability in slot 0 and -inf/-1 elsewhere, as the reference does."""
+    idx = res.idx.to(torch.int64)
+    if res.scores is None:
+        prob = res.prob.to(torch.float32)
+        topk_score = torch.full(prob.shape + (trace_k,), float("-inf"),
+                                device=prob.device)
+        topk_score[..., 0] = prob
+        topk_idx = torch.full(idx.shape + (trace_k,), -1, dtype=torch.int64,
+                              device=idx.device)
+        topk_idx[..., 0] = idx
+        chosen = prob
+    else:
+        scores = res.scores.to(torch.float32)
+        topk_score, topk_idx = torch.topk(scores, trace_k, dim=-1)
+        chosen = scores.gather(-1, idx[..., None])[..., 0]
+    gap = (topk_score[..., 0] - topk_score[..., 1] if trace_k >= 2
+           else torch.zeros_like(chosen))
+    return topk_idx, topk_score, chosen, gap
+
+
+def _posterior_digest(selector: Selector, state_after,
+                      like: torch.Tensor) -> tuple:
+    """``(pbest_max, pbest_entropy)`` of the post-update posterior
+    (``extras["get_pbest"]``); NaN, shaped ``like``, for a method without
+    one."""
+    get_pbest = selector.extras.get("get_pbest")
+    if get_pbest is None:
+        nan = torch.full_like(like, float("nan"))
+        return nan, nan
+    pb = get_pbest(state_after).to(torch.float32)
+    return pb.amax(-1), entropy2(pb)
+
+
+def make_round_trace(selector: Selector, res, state_after, k: torch.Tensor,
+                     trace_k: int, scored: Optional[tuple] = None
+                     ) -> RoundTrace:
+    """One round's :class:`RoundTrace`. ``state_after`` is the post-update
+    state (the posterior digest describes the round's outcome, aligned
+    with its ``best_model``). ``scored`` is the score half
+    (:func:`_score_digest`) when the caller took it before an in-place
+    ``update``; it is computed from ``res`` otherwise."""
+    scored = _score_digest(res, trace_k) if scored is None else scored
+    chosen = scored[2]
+    pbest_max, pbest_entropy = _posterior_digest(selector, state_after,
+                                                 chosen)
+    return RoundTrace(k, *scored, pbest_max, pbest_entropy,
+                      torch.zeros_like(chosen, dtype=torch.bool))
+
+
 def make_step_fn(selector: Selector, labels: torch.Tensor,
-                 model_losses: torch.Tensor):
+                 model_losses: torch.Tensor, trace_k: int = 0):
     """One labeling round: ``(state, cum, key) -> (state, cum, outs)`` with
     ``outs = (idx, true_class, best, regret, cum, prob, stochastic)``, all
-    0-d device tensors."""
+    0-d device tensors; ``trace_k > 0`` appends the round's
+    :class:`RoundTrace` (its scores read before ``update``, which may
+    rewrite the state in place)."""
     best_loss = model_losses.min()
 
     def step(state, cum, k):
         k_sel, k_best = trandom.split(k)
         res = selector.select(state, k_sel)
+        scored = _score_digest(res, trace_k) if trace_k else None
         tc = labels.take(res.idx)
         state = selector.update(state, res.idx, tc, res.prob)
         best, b_stoch = selector.best(state, k_best)
         regret = model_losses.take(best) - best_loss
         cum = cum + regret
-        return state, cum, (res.idx, tc, best, regret, cum, res.prob,
-                            res.stochastic | b_stoch)
+        outs = (res.idx, tc, best, regret, cum, res.prob,
+                res.stochastic | b_stoch)
+        if trace_k:
+            outs += (make_round_trace(selector, res, state, k, trace_k,
+                                      scored),)
+        return state, cum, outs
 
     return step
 
 
 def make_batched_step_fn(selector: Selector, labels: torch.Tensor,
-                         model_losses: torch.Tensor):
+                         model_losses: torch.Tensor, trace_k: int = 0):
     """One labeling round of all S replicas through ``selector.batched``:
-    ``(state, cum (S,), keys (S, 2)) -> (state, cum, outs)``, ``keys`` the
-    round's rows of ``select_keys`` on the device, ``outs`` as in
-    :func:`make_step_fn` with each entry ``(S,)``."""
+    ``(state, cum (S,), keys (S, 2), round_keys=None) -> (state, cum,
+    outs)``, ``keys`` the round's rows of ``select_keys`` on the device,
+    ``outs`` as in :func:`make_step_fn` with each entry ``(S,)``;
+    ``trace_k > 0`` appends the round's :class:`RoundTrace` with the
+    replicas' ``round_keys`` (S, 2)."""
     bsel = selector.batched
     if bsel is None:
         raise ValueError(f"selector {selector.name!r} has no seed-batched "
                          "form; run its seeds with build_experiment_fn")
     best_loss = model_losses.min()
 
-    def step(state, cum, keys):
+    def step(state, cum, keys, round_keys=None):
         res = bsel.select(state, keys)
+        scored = _score_digest(res, trace_k) if trace_k else None
         tc = labels.take(res.idx)
         state = bsel.update(state, res.idx, tc, res.prob)
         best, b_stoch = bsel.best(state)
         regret = model_losses.take(best) - best_loss
         cum = cum + regret
-        return state, cum, (res.idx, tc, best, regret, cum, res.prob,
-                            res.stochastic | b_stoch)
+        outs = (res.idx, tc, best, regret, cum, res.prob,
+                res.stochastic | b_stoch)
+        if trace_k:
+            outs += (make_round_trace(selector, res, state, round_keys,
+                                      trace_k, scored),)
+        return state, cum, outs
 
     return step
 
@@ -112,28 +211,46 @@ def _synchronizer(dev: torch.device) -> Callable[[], None]:
     return sync
 
 
-def _validate_rounds(N: int, iters: int) -> None:
+def _validate_rounds(selector: Selector, N: int, iters: int) -> None:
+    """``iters`` labels must fit the pool and any fixed label buffer."""
     if iters > N:
         raise ValueError(f"iters={iters} labels exceeds the {N} labelable "
                          "points; the unlabeled set would be exhausted")
+    budget = selector.hyperparams.get("budget")
+    if budget is not None and iters > budget:
+        raise ValueError(
+            f"selector '{selector.name}' has a fixed label buffer of "
+            f"{budget} but iters={iters}; rebuild it with budget >= {iters}")
+
+
+def _trace_k(trace_k: int, N: int) -> int:
+    return max(1, min(int(trace_k), N)) if trace_k else 0
+
+
+def _stack_trace(traces: list, dim: int = 0) -> RoundTrace:
+    """A run's per-round traces stacked along a round axis at ``dim``."""
+    return RoundTrace(*(torch.stack(f, dim) for f in zip(*traces)))
 
 
 def build_experiment_fn(selector: Selector, labels: torch.Tensor,
                         model_losses: torch.Tensor, iters: int = 100,
-                        timings: Optional[list] = None
+                        timings: Optional[list] = None, trace_k: int = 0
                         ) -> Callable[[torch.Tensor], ExperimentResult]:
-    """``key -> ExperimentResult`` for one seed.
+    """``key -> ExperimentResult`` for one seed; with ``trace_k > 0``,
+    ``key -> (ExperimentResult, RunTraceAux)`` (the same decisions, the
+    flight recorder's top-``trace_k`` scores of every round).
 
     ``timings``: when a list is given, each call appends ``{"init_ms",
     "rounds_ms"}`` measured on the host clock with the device synchronised
     at the phase boundaries (two synchronisations per seed)."""
     best_loss = model_losses.min()
-    _validate_rounds(labels.shape[0], iters)
-    step = make_step_fn(selector, labels, model_losses)
+    _validate_rounds(selector, labels.shape[0], iters)
+    trace_k = _trace_k(trace_k, labels.shape[0])
+    step = make_step_fn(selector, labels, model_losses, trace_k=trace_k)
     dev = labels.device
     _sync = _synchronizer(dev)
 
-    def experiment(key: torch.Tensor) -> ExperimentResult:
+    def experiment(key: torch.Tensor):
         k_init, k_prior, k_scan = trandom.split(key, 3)
         if timings is not None:
             _sync()
@@ -155,9 +272,9 @@ def build_experiment_fn(selector: Selector, labels: torch.Tensor,
             t2 = time.perf_counter()
             timings.append({"init_ms": 1e3 * (t1 - t0),
                             "rounds_ms": 1e3 * (t2 - t1)})
-        cols = [torch.stack(c) for c in zip(*outs)]
+        cols = [torch.stack(c) for c in zip(*(o[:7] for o in outs))]
         idxs, tcs, bests, regrets, cums, probs, stoch = cols
-        return ExperimentResult(
+        result = ExperimentResult(
             chosen_idx=idxs.to(torch.int32),
             true_class=tcs.to(torch.int32),
             best_model=bests.to(torch.int32),
@@ -167,16 +284,23 @@ def build_experiment_fn(selector: Selector, labels: torch.Tensor,
             regret_at_0=regret0,
             stochastic=stoch.any() | stoch0 | selector.always_stochastic,
         )
+        if not trace_k:
+            return result
+        return result, RunTraceAux(_stack_trace([o[7] for o in outs]),
+                                   key, k_init, k_prior)
 
     return experiment
 
 
 def build_batched_experiment_fn(selector: Selector, labels: torch.Tensor,
                                 model_losses: torch.Tensor, iters: int = 100,
-                                timings: Optional[list] = None
+                                timings: Optional[list] = None,
+                                trace_k: int = 0
                                 ) -> Callable[[torch.Tensor], ExperimentResult]:
     """``keys (S, 2) -> ExperimentResult`` with a leading ``(S,)`` axis:
-    all S seeds in one round loop through ``selector.batched``.
+    all S seeds in one round loop through ``selector.batched``; with
+    ``trace_k > 0`` also the :class:`RunTraceAux` of every seed (leading
+    axis S).
 
     Each seed's key schedule is the single-seed one of
     :func:`build_experiment_fn`, computed for every seed and round on the
@@ -184,16 +308,20 @@ def build_batched_experiment_fn(selector: Selector, labels: torch.Tensor,
     device once. ``timings``: one ``{"init_ms", "rounds_ms"}`` entry for
     the whole batch (host clock, device synchronised at the phase
     boundaries)."""
-    step = make_batched_step_fn(selector, labels, model_losses)
+    trace_k = _trace_k(trace_k, labels.shape[0])
+    step = make_batched_step_fn(selector, labels, model_losses,
+                                trace_k=trace_k)
     bsel = selector.batched
     best_loss = model_losses.min()
-    _validate_rounds(labels.shape[0], iters)
+    _validate_rounds(selector, labels.shape[0], iters)
     dev = labels.device
     _sync = _synchronizer(dev)
 
-    def experiment(keys: torch.Tensor) -> ExperimentResult:
+    def experiment(keys: torch.Tensor):
         S = keys.shape[0]
         sel_keys = batched_select_keys(selector, keys, iters, dev)
+        k_init, k_prior, k_scan = trandom.split(keys, 3).unbind(1)
+        round_keys = trandom.split(k_scan, iters).transpose(0, 1)  # (T, S, 2)
         if timings is not None:
             _sync()
             t0 = time.perf_counter()
@@ -206,16 +334,16 @@ def build_batched_experiment_fn(selector: Selector, labels: torch.Tensor,
         cum = torch.zeros(S, dtype=torch.float32, device=dev)
         outs = []
         for t in range(iters):
-            state, cum, o = step(state, cum, sel_keys[t])
+            state, cum, o = step(state, cum, sel_keys[t], round_keys[t])
             outs.append(o)
         if timings is not None:
             _sync()
             t2 = time.perf_counter()
             timings.append({"init_ms": 1e3 * (t1 - t0),
                             "rounds_ms": 1e3 * (t2 - t1)})
-        cols = [torch.stack(c, dim=1) for c in zip(*outs)]      # (S, T)
-        idxs, tcs, bests, regrets, cums, probs, stoch = cols
-        return ExperimentResult(
+        cols = [torch.stack(c, dim=1) for c in zip(*(o[:7] for o in outs))]
+        idxs, tcs, bests, regrets, cums, probs, stoch = cols   # (S, T)
+        result = ExperimentResult(
             chosen_idx=idxs.to(torch.int32),
             true_class=tcs.to(torch.int32),
             best_model=bests.to(torch.int32),
@@ -225,6 +353,10 @@ def build_batched_experiment_fn(selector: Selector, labels: torch.Tensor,
             regret_at_0=regret0,
             stochastic=stoch.any(1) | stoch0 | selector.always_stochastic,
         )
+        if not trace_k:
+            return result
+        return result, RunTraceAux(_stack_trace([o[7] for o in outs], 1),
+                                   keys, k_init, k_prior)
 
     return experiment
 
@@ -232,9 +364,11 @@ def build_batched_experiment_fn(selector: Selector, labels: torch.Tensor,
 def make_batched_experiment_fn(selector_factory: Callable[[torch.Tensor],
                                                           Selector],
                                iters: int, loss_fn: Callable = accuracy_loss,
-                               timings: Optional[list] = None):
+                               timings: Optional[list] = None,
+                               trace_k: int = 0):
     """``(preds, labels, keys (S, 2)) -> ExperimentResult`` with a leading
-    seed axis, under the reference's name.
+    seed axis, under the reference's name; with ``trace_k > 0``,
+    ``(ExperimentResult, RunTraceAux)``, both with the seed axis.
 
     The selector is built once by ``selector_factory(preds)``. A width-1
     batch runs as one single-replica experiment, as the reference skips
@@ -247,11 +381,19 @@ def make_batched_experiment_fn(selector_factory: Callable[[torch.Tensor],
         losses = compute_true_losses(preds, labels, loss_fn)
         if keys.shape[0] > 1 and sel.batched is not None:
             return build_batched_experiment_fn(sel, labels, losses, iters,
-                                               timings=timings)(keys)
+                                               timings=timings,
+                                               trace_k=trace_k)(keys)
         exp = build_experiment_fn(sel, labels, losses, iters,
-                                  timings=timings)
+                                  timings=timings, trace_k=trace_k)
         runs = [exp(k) for k in keys]
-        return ExperimentResult(*(torch.stack(f) for f in zip(*runs)))
+        if not trace_k:
+            return ExperimentResult(*(torch.stack(f) for f in zip(*runs)))
+        results, auxes = zip(*runs)
+        aux = RunTraceAux(
+            _stack_trace([a.trace for a in auxes]),
+            *(torch.stack(f) for f in list(zip(*auxes))[1:]))
+        return (ExperimentResult(*(torch.stack(f) for f in zip(*results))),
+                aux)
 
     return fn
 
@@ -267,7 +409,8 @@ def run_seeds_compiled(selector_factory: Callable[[torch.Tensor], Selector],
                        preds, labels, iters: int = 100, seeds: int = 5,
                        loss_fn: Callable = accuracy_loss,
                        device: DeviceLike = None,
-                       timings: Optional[list] = None) -> ExperimentResult:
+                       timings: Optional[list] = None,
+                       trace_k: int = 0) -> ExperimentResult:
     """All seeds of one method: the CLI's entry point.
 
     ``preds`` ``(H, N, C)`` and ``labels`` ``(N,)`` (tensors or numpy
@@ -275,13 +418,27 @@ def run_seeds_compiled(selector_factory: Callable[[torch.Tensor], Selector],
     run through :func:`make_batched_experiment_fn`: one batch of all seeds
     where the selector has a seed-batched form and ``seeds > 1``, else one
     after another. Returns an :class:`ExperimentResult` with a leading
-    ``(seeds,)`` axis. ``timings``: one entry per seed when seeds run one
-    after another, one for the whole batch otherwise.
+    ``(seeds,)`` axis (and its :class:`RunTraceAux` with ``trace_k > 0``).
+    ``timings``: one entry per seed when seeds run one after another, one
+    for the whole batch otherwise.
     """
     dev = resolve_device(device)
     preds = _as_tensor(preds).to(dev, torch.float32)
     labels = _as_tensor(labels).to(dev)
     keys = torch.stack([trandom.PRNGKey(s) for s in range(seeds)])
     fn = make_batched_experiment_fn(selector_factory, iters, loss_fn,
-                                    timings=timings)
+                                    timings=timings, trace_k=trace_k)
     return fn(preds, labels, keys)
+
+
+def run_seeds_recorded(selector_factory: Callable[[torch.Tensor], Selector],
+                       preds, labels, iters: int = 100, seeds: int = 5,
+                       loss_fn: Callable = accuracy_loss, trace_k: int = 8,
+                       device: DeviceLike = None,
+                       timings: Optional[list] = None):
+    """:func:`run_seeds_compiled` with the flight recorder on: returns
+    ``(ExperimentResult, RunTraceAux)``, both with a leading seed axis,
+    the decisions those of the unrecorded run."""
+    return run_seeds_compiled(selector_factory, preds, labels, iters=iters,
+                              seeds=seeds, loss_fn=loss_fn, device=device,
+                              timings=timings, trace_k=max(1, int(trace_k)))

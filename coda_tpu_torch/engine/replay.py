@@ -1,0 +1,366 @@
+"""Divergence triage between two flight-recorder records (counterpart of
+the numpy record-vs-record half of ``coda_tpu/engine/replay.py``).
+
+This copy lets the port triage a record with no JAX at hand, on the card:
+``compare_records`` locates, per seed, the first round where two records
+disagree and classifies it by the causally first diverging quantity:
+
+  * ``key-drift`` — the round's PRNG key words differ;
+  * ``score-delta`` — the acquisition scores moved beyond the tolerance;
+  * ``tie-break-flip`` — the scores agree within the tolerance but the pick
+    changed (a near-tie argmax flipped);
+  * ``posterior-drift`` — the decisions agree, the P(best) digest or the
+    best model moved;
+  * ``metric-drift`` — only derived metrics (regret) moved.
+
+It gives the reference's ``ReplayReport.to_dict()`` on every pair the
+reference compares round by round. Pairs the reference compares by the
+regret envelope (different ``acq_batch``, ``eig_scorer``, oracle or
+surrogate prior) raise ``NotImplementedError`` naming their slice, and so
+does re-executing a record, which comes with slice 5 of the port.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+
+from coda_tpu_torch.telemetry.recorder import (
+    CROSS_BACKEND_SCORE_TOL,
+    RunRecord,
+)
+
+# quantity -> triage class, in causal order: a key mismatch explains a
+# score delta explains a flip explains posterior drift explains metric
+# drift, so the FIRST diverging group at the first diverging round names
+# the root cause
+_QUANTITY_GROUPS = (
+    ("key-drift", ("round_key",)),
+    ("score-delta", ("topk_score", "chosen_score", "select_prob")),
+    ("tie-break-flip", ("chosen_idx", "true_class")),
+    ("posterior-drift", ("pbest_max", "pbest_entropy", "best_model")),
+    ("metric-drift", ("regret", "cumulative_regret", "runner_up_gap",
+                      "surrogate_fallback")),
+)
+_INT_QUANTITIES = {"chosen_idx", "true_class", "best_model", "round_key"}
+
+
+
+def _record_knobs(record: RunRecord) -> dict:
+    """A record's fingerprinted knob dict, NORMALIZED for comparison:
+    knobs that predate a record are filled with the default the replay
+    would rebuild them at (``eig_scorer`` missing == ``'exact'``: records
+    older than the knob would otherwise 'differ' from a fresh exact capture
+    on it and silently loosen the auto tolerance from bitwise to the
+    2.34e-4 contract)."""
+    knobs = dict(record.meta.get("fingerprint", {}).get("knobs", {}) or {})
+    knobs.setdefault("eig_scorer", "exact")
+    # crowd-oracle knobs: a CLEAN oracle runs the plain-oracle
+    # program bitwise, so 'clean'/'none' normalizes to ABSENT — a pre-v4
+    # record vs a fresh clean-crowd capture must take the bitwise path,
+    # not spuriously 'differ' on a knob that changes nothing. The
+    # satellite knobs only mean anything under a noisy spec, so they are
+    # dropped alongside it.
+    if knobs.get("oracle_noise") in (None, "clean", "none"):
+        for key in ("oracle_noise", "oracle_annotators",
+                    "oracle_reliability"):
+            knobs.pop(key, None)
+    # cross-session prior: 'off' runs the pre-pool program bitwise, so it
+    # normalizes to ABSENT — a pre-pool record vs a fresh
+    # --surrogate-prior off capture compares bitwise; the pool-digest
+    # satellite knob means nothing without the mode
+    if knobs.get("surrogate_prior") in (None, "off"):
+        knobs.pop("surrogate_prior", None)
+        knobs.pop("surrogate_prior_digest", None)
+    return knobs
+
+
+def _rows_equal(a: np.ndarray, b: np.ndarray, tol: float) -> np.ndarray:
+    """(T,) bool: per-round equality, reducing trailing axes. ``tol=0`` is
+    bitwise-for-floats (NaN==NaN so an absent posterior digest never
+    diverges); integers always compare exact."""
+    a = np.asarray(a)
+    b = np.asarray(b)
+    if a.dtype.kind in "iub" or tol == 0.0:
+        eq = (a == b)
+        if a.dtype.kind == "f":
+            eq |= np.isnan(a) & np.isnan(b)
+    else:
+        eq = np.isclose(a.astype(np.float64), b.astype(np.float64),
+                        rtol=0.0, atol=tol, equal_nan=True)
+        # two -inf (masked non-candidates) are equal; isclose(inf,inf) is
+        # already True, but inf-vs-finite must stay a divergence
+    while eq.ndim > 1:
+        eq = eq.all(axis=-1)
+    return eq
+
+
+def _max_delta(a: np.ndarray, b: np.ndarray) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    d = np.abs(a - b)
+    d = np.where(np.isnan(a) & np.isnan(b), 0.0, d)
+    # NaN on exactly ONE side is a structural difference (a posterior digest
+    # present in one record, absent in the other) — report it as inf, never
+    # drop it (nanmax would) or let it poison the max (plain max of NaN)
+    d = np.where(np.isnan(a) ^ np.isnan(b), np.inf, d)
+    d = np.where(np.isinf(a) & np.isinf(b) & (np.sign(a) == np.sign(b)),
+                 0.0, d)
+    return float(np.max(d)) if d.size else 0.0
+
+
+@dataclass
+class SeedTriage:
+    """Divergence verdict for one seed of a record comparison."""
+
+    seed: int
+    parity: bool
+    first_divergent_round: Optional[int] = None
+    quantity: Optional[str] = None
+    classification: Optional[str] = None
+    # per-quantity evidence: first diverging round + max |delta| over rounds
+    quantities: dict = field(default_factory=dict)
+    note: str = ""
+
+    def to_dict(self) -> dict:
+        return {
+            "seed": self.seed, "parity": self.parity,
+            "first_divergent_round": self.first_divergent_round,
+            "quantity": self.quantity,
+            "classification": self.classification,
+            "quantities": self.quantities, "note": self.note,
+        }
+
+
+@dataclass
+class ReplayReport:
+    """Aggregate verdict of a replay/record comparison."""
+
+    mode: str                    # "replay" | "records"
+    score_tol: float
+    seeds: list = field(default_factory=list)   # [SeedTriage]
+    meta: dict = field(default_factory=dict)
+
+    @property
+    def parity(self) -> bool:
+        return all(s.parity for s in self.seeds)
+
+    def to_dict(self) -> dict:
+        return {
+            "mode": self.mode, "parity": self.parity,
+            "score_tol": self.score_tol,
+            "seeds": [s.to_dict() for s in self.seeds],
+            "meta": self.meta,
+        }
+
+
+def compare_seed(rec: dict, rep: dict, score_tol: float = 0.0,
+                 seed: int = 0,
+                 int_tol_quantities: tuple = ()) -> SeedTriage:
+    """Triage one seed's recorded-vs-replayed (or A-vs-B) round arrays.
+
+    ``score_tol`` bounds every float quantity; integer decision quantities
+    always compare exact. The first diverging round is located across ALL
+    quantities, then classified by the causally-first diverging group at
+    that round (see module docstring)."""
+    first_by_q: dict = {}
+    deltas: dict = {}
+    T = int(np.asarray(rec["chosen_idx"]).shape[0])
+    for cls_name, quantities in _QUANTITY_GROUPS:
+        for q in quantities:
+            if q not in rec or q not in rep:
+                continue
+            # the runner-up gap is a DIFFERENCE of two tol-bounded scores,
+            # so its honest bound is 2·tol — comparing it at 1·tol would
+            # double-count drift the score comparison already admitted
+            tol_q = 2.0 * score_tol if q == "runner_up_gap" else score_tol
+            eq = _rows_equal(rec[q], rep[q], tol_q)
+            div = np.nonzero(~eq)[0]
+            if div.size:
+                first_by_q[q] = int(div[0])
+                if q not in _INT_QUANTITIES:
+                    deltas[q] = _max_delta(rec[q], rep[q])
+    if not first_by_q:
+        return SeedTriage(seed=seed, parity=True,
+                          quantities={"rounds_compared": T})
+    t0 = min(first_by_q.values())
+    quantity = None
+    classification = None
+    for cls_name, quantities in _QUANTITY_GROUPS:
+        hit = [q for q in quantities if first_by_q.get(q) == t0]
+        if hit:
+            quantity = hit[0]
+            classification = cls_name
+            break
+    note = ""
+    if classification == "tie-break-flip":
+        gap = float(np.asarray(rec["runner_up_gap"])[t0])
+        note = (f"recorded runner-up gap at round {t0} is {gap:.3e} — "
+                f"{'a near-tie; ' if abs(gap) <= max(score_tol, 1e-6) else ''}"
+                "scores agree within tolerance but the argmax pick changed")
+    info = {q: {"first_divergent_round": r,
+                "max_abs_delta": deltas.get(q)}
+            for q, r in sorted(first_by_q.items())}
+    return SeedTriage(seed=seed, parity=False, first_divergent_round=t0,
+                      quantity=quantity, classification=classification,
+                      quantities=info, note=note)
+
+
+def _scorer_knob(record: RunRecord) -> str:
+    return str(record.meta.get("fingerprint", {}).get("knobs", {}).get(
+        "eig_scorer") or "exact")
+
+
+def _oracle_knob(record: RunRecord) -> str:
+    """A record's normalized ``--oracle-noise`` spec: 'clean' when absent
+    (every pre-v4 record) or when explicitly clean."""
+    spec = record.meta.get("fingerprint", {}).get("knobs", {}).get(
+        "oracle_noise")
+    return "clean" if spec in (None, "clean", "none") else str(spec)
+
+
+def _prior_knob(record: RunRecord) -> str:
+    """A record's normalized ``--surrogate-prior`` mode, digest-qualified:
+    'off' when absent (every pre-pool record); a pool-seeded record is
+    ``pool@<digest>`` — two runs seeded from DIFFERENT pools ran
+    different warm-starts and must not be conflated."""
+    knobs = record.meta.get("fingerprint", {}).get("knobs", {}) or {}
+    mode = knobs.get("surrogate_prior")
+    if mode in (None, "off"):
+        return "off"
+    digest = knobs.get("surrogate_prior_digest")
+    return f"{mode}@{digest}" if digest else str(mode)
+
+
+# knobs whose difference the reference compares by the regret envelope:
+# (name, the record's normalized value, the port slice that brings it)
+_ENVELOPE_KNOBS = (
+    ("acq_batch", lambda r: r.acq_batch,
+     "batched acquisition and the surrogate (slice 4 of the port)"),
+    ("eig_scorer", _scorer_knob,
+     "batched acquisition and the surrogate (slice 4 of the port)"),
+    ("oracle_noise", _oracle_knob, "crowd (slice 6 of the port)"),
+    ("surrogate_prior", _prior_knob,
+     "batched acquisition and the surrogate (slice 4 of the port)"),
+)
+
+
+def compare_records(a: RunRecord, b: RunRecord,
+                    score_tol: float = 0.0) -> ReplayReport:
+    """Direct record-vs-record comparison (no re-execution), the
+    reference's per-round path: the first diverging round of each seed and
+    its triage class.
+
+    Records captured with different ``--record-topk`` compare on the
+    common top-k prefix; a seed-count mismatch compares the common seeds
+    and is surfaced in the report meta + triage text (never silently
+    called full parity). Records of different ``acq_batch`` widths,
+    ``eig_scorer`` rungs, oracles or surrogate priors take the
+    reference's regret-envelope comparison, which this copy lacks: they
+    raise ``NotImplementedError`` naming the slice that brings it."""
+    for knob, of, where in _ENVELOPE_KNOBS:
+        if of(a) != of(b):
+            raise NotImplementedError(
+                f"records differ in {knob} ({of(a)!r} vs {of(b)!r}): the "
+                "reference compares them by the label-aligned regret "
+                f"envelope, which comes with {where}")
+    if a.rounds != b.rounds:
+        raise ValueError(
+            f"records disagree on round count ({a.rounds} vs {b.rounds}); "
+            "nothing round-aligned to compare")
+    report = ReplayReport(mode="records", score_tol=score_tol, meta={
+        "a": a.meta.get("run", {}), "b": b.meta.get("run", {}),
+        "backend_a": a.meta.get("fingerprint", {}).get("backend"),
+        "backend_b": b.meta.get("fingerprint", {}).get("backend"),
+    })
+    # name the knobs the two sides disagree on (e.g. posterior=dense vs
+    # sparse:32) — the reason the auto tolerance dropped to the score
+    # contract, surfaced instead of leaving the reader to diff fingerprints
+    knobs_a = _record_knobs(a)
+    knobs_b = _record_knobs(b)
+    diff = {key: [knobs_a.get(key), knobs_b.get(key)]
+            for key in sorted(set(knobs_a) | set(knobs_b))
+            if knobs_a.get(key) != knobs_b.get(key)}
+    if diff:
+        report.meta["knob_diff"] = diff
+    k = min(int(a.meta.get("trace_k", 8)), int(b.meta.get("trace_k", 8)))
+    if a.meta.get("trace_k") != b.meta.get("trace_k"):
+        report.meta["trace_k_compared"] = k
+    n_seeds = min(a.seeds, b.seeds)
+    if a.seeds != b.seeds:
+        report.meta["seed_count_mismatch"] = {"a": a.seeds, "b": b.seeds,
+                                              "compared": n_seeds}
+    def _trim(arr_dict):
+        return {key: (v[:, :k] if key in ("topk_idx", "topk_score")
+                      else v) for key, v in arr_dict.items()}
+    for s in range(n_seeds):
+        report.seeds.append(compare_seed(_trim(a.seed_arrays(s)),
+                                         _trim(b.seed_arrays(s)),
+                                         score_tol=score_tol, seed=s))
+    return report
+
+
+def format_triage(report: ReplayReport) -> str:
+    """Human-readable verdict block (the CLI's stdout)."""
+    lines = []
+    tol = ("bitwise" if report.score_tol == 0.0
+           else f"|Δscore| ≤ {report.score_tol:g}")
+    lines.append(f"replay[{report.mode}] contract: {tol}")
+    mism = report.meta.get("seed_count_mismatch")
+    if mism:
+        lines.append(
+            f"  WARNING: seed counts differ (a={mism['a']}, b={mism['b']})"
+            f" — only the {mism['compared']} common seed(s) were compared;"
+            " this verdict covers nothing beyond them")
+    if "trace_k_compared" in report.meta:
+        lines.append(f"  note: records carry different top-k widths; "
+                     f"compared the common top-"
+                     f"{report.meta['trace_k_compared']} prefix")
+    if report.meta.get("knob_diff"):
+        pairs = ", ".join(f"{k}: {va!r} vs {vb!r}" for k, (va, vb)
+                          in report.meta["knob_diff"].items())
+        contract = ("BITWISE equality (score-tol 0 despite the knob diff)"
+                    if report.score_tol == 0.0
+                    else "the documented score contract")
+        lines.append(f"  knobs differ ({pairs}) — compared under "
+                     f"{contract}, not bitwise")
+    for s in report.seeds:
+        if s.parity:
+            lines.append(f"  seed {s.seed}: PARITY "
+                         f"({s.quantities.get('rounds_compared', '?')} "
+                         "rounds)")
+            continue
+        lines.append(
+            f"  seed {s.seed}: DIVERGED at round {s.first_divergent_round} "
+            f"— first diverging quantity: {s.quantity} "
+            f"[{s.classification}]")
+        if s.note:
+            lines.append(f"    {s.note}")
+        for q, info in s.quantities.items():
+            d = info.get("max_abs_delta")
+            lines.append(
+                f"    {q}: first at round {info['first_divergent_round']}"
+                + (f", max |Δ| = {d:.3e}" if d is not None else ""))
+    lines.append("verdict: " + ("PARITY" if report.parity else "DIVERGED"))
+    return "\n".join(lines)
+
+
+def _auto_tol(record: RunRecord, overrides: dict,
+              against: Optional[RunRecord] = None) -> float:
+    """The tolerance of a comparison with ``against``: bitwise when the
+    two records share a backend with unchanged knobs, the documented
+    cross-backend score contract otherwise. Without ``against`` (a replay
+    by re-execution) it raises: that comes with slice 5 of the port."""
+    fp = record.meta.get("fingerprint", {})
+    if against is not None:
+        fp_b = against.meta.get("fingerprint", {})
+        # knob dicts compare NORMALIZED (_record_knobs): a knob one
+        # record predates is its replay default, not a difference
+        same = (fp.get("backend") == fp_b.get("backend")
+                and _record_knobs(record) == _record_knobs(against))
+        return 0.0 if same else CROSS_BACKEND_SCORE_TOL
+    raise NotImplementedError(
+        "replay by re-execution comes with replay, suite and parallel "
+        "(slice 5 of the port); pass the record to compare with")

@@ -1,6 +1,7 @@
 """Fixed-shape selection primitives (counterpart of
-``coda_tpu/ops/masked.py``): masked argmax with random tie-breaking and
-base-2 entropy, including the bit-manipulation ``log2_approx``.
+``coda_tpu/ops/masked.py``): masked argmax/argmin with random
+tie-breaking, masked categorical sampling and base-2 entropy, including
+the bit-manipulation ``log2_approx``.
 
 Tie-break semantics are the reference's: a unique extremum gives its
 (first) index; among ties the choice is uniform, drawn from the same
@@ -79,3 +80,34 @@ def masked_argmax_tiebreak(key: torch.Tensor, scores: torch.Tensor,
     idx_rand = torch.where(ties, u, -1.0).argmax(-1)
     idx = torch.where(n_ties > 1, idx_rand, idx_first)
     return idx, n_ties
+
+
+def masked_argmin_tiebreak(key: torch.Tensor, scores: torch.Tensor,
+                           mask: torch.Tensor, rtol: float = 0.0,
+                           atol: float = 0.0):
+    """Argmin counterpart of :func:`masked_argmax_tiebreak`."""
+    return masked_argmax_tiebreak(key, -scores, mask, rtol=rtol, atol=atol)
+
+
+def masked_categorical(key: torch.Tensor, weights: torch.Tensor,
+                       mask: torch.Tensor):
+    """Sample an index proportionally to ``weights`` restricted to
+    ``mask`` (``jax.random.categorical`` over the log-probabilities, the
+    same threefry Gumbel noise). Where the masked weights sum to at most
+    1e-12 the draw is uniform over the mask (the reference's degenerate
+    fallback). ``key`` is a ``(2,)`` threefry key, usually on the host; the
+    ``(N,)`` draw runs on ``weights``' device.
+
+    Returns ``(idx, prob)`` as 0-d device tensors, ``prob`` the normalised
+    probability of the sampled index (the selection probability the LURE
+    estimator needs).
+    """
+    w = torch.where(mask, torch.clamp_min(weights, 0.0), 0.0)
+    total = w.sum()
+    n_mask = torch.clamp_min(mask.sum(), 1)
+    probs = torch.where(total > 1e-12, w / torch.clamp_min(total, 1e-30),
+                        mask.to(w.dtype) / n_mask)
+    logits = torch.log(torch.clamp_min(probs, 1e-38))
+    logits = torch.where(probs > 0, logits, float("-inf"))
+    idx = trandom.categorical(key, logits)
+    return idx, probs.take(idx)

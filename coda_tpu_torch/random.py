@@ -14,8 +14,13 @@ the shifts and xors this needs). A batch of keys is a ``(..., 2)`` tensor
 ``uniform`` then hash every key at once, and row ``s`` of the result is
 bitwise the single-key call on key ``s``. Functions run on whichever device
 their key or ``device`` argument names; a key is tiny, so the engine
-derives its key schedule on the host and only the tie-break draw runs on
-the card.
+derives its key schedule on the host and only the draws over N (the
+tie-break uniforms, the Gumbel noise of ``categorical``) run on the card.
+
+``fold_in``, ``gumbel``, ``categorical`` and ``randint`` follow the
+installed jax's defaults: ``categorical`` draws its Gumbel noise in the
+"low" mode and ``randint`` takes two 32-bit words a value
+(``jax._src.random._gumbel``, ``_randint``).
 """
 
 from __future__ import annotations
@@ -99,13 +104,78 @@ def random_bits(key: torch.Tensor, shape: Sequence[int],
     return b1 ^ b2
 
 
-def uniform(key: torch.Tensor, shape: Sequence[int],
-            device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32 on [0, 1): the top 23
-    bits of each word become the mantissa of a float in [1, 2), minus 1.
-    A ``(..., 2)`` batch of keys gives ``(..., *shape)``."""
+def _unit_floats(key: torch.Tensor, shape: Sequence[int],
+                 device=None) -> torch.Tensor:
+    """The float32 values in [0, 1) that ``jax.random.uniform`` builds from
+    the top 23 bits of each word (the mantissa of a float in [1, 2),
+    minus 1)."""
     bits = random_bits(key, shape, device)
     fbits = (bits >> 9) | 0x3F800000
     # every value is < 2**31, so the int32 view is the same bit pattern
-    floats = fbits.to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(floats, 0.0)
+    return fbits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int],
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in float32 on [0, 1).
+    A ``(..., 2)`` batch of keys gives ``(..., *shape)``."""
+    return torch.clamp_min(_unit_floats(key, shape, device), 0.0)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: the threefry hash of ``key`` at
+    the count words ``(0, data mod 2**32)`` (``prng.threefry_fold_in``;
+    the same key as ``split(key, data + 1)[data]``). ``data`` is a Python
+    int or an integer tensor broadcast against a ``(..., 2)`` batch of
+    keys."""
+    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
+
+
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int],
+           device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32, "low" mode:
+    ``-log(-log(u))`` with ``u`` the uniform draw on ``[tiny, 1)`` — the
+    same mantissa bits as :func:`uniform`, scaled by ``1 - tiny`` (1 in
+    float32), shifted by ``tiny`` and clamped at ``tiny``, so a zero word
+    gives ``tiny`` instead of 0. A ``(..., 2)`` batch of keys gives
+    ``(..., *shape)``."""
+    # ``floats * (1 - tiny) + tiny``: 1 - tiny rounds to 1 in float32
+    u = torch.clamp_min(_unit_floats(key, shape, device) + _F32_TINY,
+                        _F32_TINY)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis: the
+    argmax of Gumbel noise plus the logits (the first index among equal
+    maxima). A ``(2,)`` key samples one index per row of ``logits``; a
+    ``(S, 2)`` batch of keys with ``(S, N)`` logits samples row s with key
+    s, as ``jax.vmap`` gives. The noise is drawn on ``logits``' device."""
+    if key.dim() > 1:
+        noise = gumbel(key, logits.shape[key.dim() - 1:],
+                       device=logits.device)
+    else:
+        noise = gumbel(key, logits.shape, device=logits.device)
+    return torch.argmax(noise + logits, dim=-1)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32 values:
+    two 32-bit words a value from the two halves of ``split(key)``, folded
+    into the span as ``(hi % span * (2**32 % span) + lo % span) % span``
+    in uint32 arithmetic (emulated in int64, masked after every multiply
+    and add). Runs on the key's device; a ``(..., 2)`` batch of keys gives
+    ``(..., *shape)``. Returns int64 values."""
+    k = split(key)
+    hi = random_bits(k[..., 0, :], shape)
+    lo = random_bits(k[..., 1, :], shape)
+    span = (int(maxval) - int(minval)) & _MASK if maxval > minval else 1
+    multiplier = ((2 ** 16 % span) ** 2 & _MASK) % span
+    offset = (((hi % span) * multiplier) & _MASK) + lo % span
+    return int(minval) + (offset & _MASK) % span

@@ -103,6 +103,10 @@ _INCR_CACHE_MAX_BYTES = 4 << 30
 
 _SLICE_REST = "the rest of CODA (slice 2 of the port)"
 
+# eig_backend values that run the plain PyTorch versions: the reference's
+# name for its non-kernel path, and the port's own
+PLAIN_BACKENDS = ("jnp", "plain")
+
 
 class CODAHyperparams(NamedTuple):
     """The reference's fields and defaults. See :func:`check_supported`
@@ -120,7 +124,8 @@ class CODAHyperparams(NamedTuple):
     eig_mode: str = "auto"        # auto | incremental (factored, rowscan,
     #                               direct: a later slice)
     eig_backend: str = "auto"     # auto = the CUDA kernels on a card, the
-    #                               plain versions on the CPU; plain = the
+    #                               plain versions on the CPU; jnp (the
+    #                               reference's name; alias plain) = the
     #                               plain versions everywhere (the yardstick
     #                               the kernels are held to on the card)
     n_parallel: int = 1           # replicas sharing the card: the seeds
@@ -196,9 +201,9 @@ def check_supported(hp: CODAHyperparams, N: int) -> None:
         _unsupported("q", hp.q)
     if hp.prefilter_n and hp.prefilter_n < N:
         _unsupported("prefilter_n", hp.prefilter_n)
-    if hp.eig_backend not in ("auto", "plain"):
+    if hp.eig_backend not in ("auto",) + PLAIN_BACKENDS:
         raise ValueError(f"unknown eig_backend {hp.eig_backend!r} "
-                         "(use 'auto' or 'plain')")
+                         "(use 'auto', 'jnp' or 'plain')")
     if hp.eig_cache_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown eig_cache_dtype {hp.eig_cache_dtype!r} "
                          "(use 'float32' or 'bfloat16')")
@@ -408,7 +413,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     cache_dtype = getattr(torch, hp.eig_cache_dtype)
     approx = hp.eig_entropy == "approx"
     fused = hp.eig_refresh == "fused"
-    plain = hp.eig_backend == "plain"
+    plain = hp.eig_backend in PLAIN_BACKENDS
     score_fn = eig_scores_from_cache if plain else eig_scores_cache
     refresh_fn = eig_scores_refresh_plain if plain else eig_scores_refresh
     compute_fn = (eig_scores_refresh_compute_plain if plain
@@ -465,8 +470,10 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         scores = state.eig_scores_cached
         idx, n_ties = masked_argmax_tiebreak(k_tie, scores, cand,
                                              rtol=_TIE_RTOL, atol=_TIE_ATOL)
+        # a new tensor: ``update`` rewrites the state in place but not this
         return SelectResult(idx=idx, prob=scores.take(idx),
-                            stochastic=n_ties > 1)
+                            stochastic=n_ties > 1,
+                            scores=torch.where(cand, scores, float("-inf")))
 
     def update(state: CODAState, idx, true_class, prob=None) -> CODAState:
         """One label, applied IN PLACE to ``state``'s tensors; returns the
@@ -541,7 +548,8 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         idx, n_ties = masked_argmax_tiebreak(k_tie, scores, cand,
                                              rtol=_TIE_RTOL, atol=_TIE_ATOL)
         return SelectResult(idx=idx, prob=scores.gather(1, idx[:, None])[:, 0],
-                            stochastic=n_ties > 1)
+                            stochastic=n_ties > 1,
+                            scores=torch.where(cand, scores, float("-inf")))
 
     def update_batched(state: CODAState, idx, true_class, prob=None
                        ) -> CODAState:

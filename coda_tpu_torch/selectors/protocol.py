@@ -32,8 +32,17 @@ class SelectResult(NamedTuple):
     prob: torch.Tensor        # 0-d float32 — selection probability / q-value
     stochastic: torch.Tensor  # 0-d bool — did randomness affect this choice?
     # (N,) acquisition vector (higher = preferred, non-candidates -inf) for
-    # the flight recorder, or None; the recorder is a later slice
+    # the flight recorder, or None
     scores: Any = None
+
+
+def acq_batch_unported(*args, **kwargs):
+    """``select_q``/``update_q`` of every port selector: batched
+    acquisition (``--acq-batch``) is not ported yet."""
+    raise NotImplementedError(
+        "batched acquisition (select_q/update_q, the reference's "
+        "--acq-batch) comes with batched acquisition and the surrogate "
+        "(slice 4 of the port)")
 
 
 @dataclass(frozen=True)
@@ -54,6 +63,9 @@ class Selector:
     # the seed-batched form, or None where the method has none (the engine
     # then runs seeds one after another)
     batched: Any = None
+    # q labels a round (the reference's --acq-batch): a later slice
+    select_q: Callable = acq_batch_unported
+    update_q: Callable = acq_batch_unported
 
 
 @dataclass(frozen=True)

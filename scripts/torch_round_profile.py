@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where a CODA round's time goes on the GPU (coda_tpu_torch main path).
+"""Where a round's time goes on the GPU (coda_tpu_torch: CODA's main path
+or a baseline).
 
     python scripts/torch_round_profile.py [--shape H,N,C] [--rounds 5]
         [--seeds S] [--eig-refresh precomputed|fused]
         [--eig-cache-dtype float32|bfloat16] [--eig-entropy exact|approx]
-        [--out profile.json]
+        [--method coda|iid|uncertainty|activetesting|vma|model_picker]
+        [--record-topk K] [--out profile.json]
 
 Builds the synthetic task of ``--shape`` (default the headline 1000,50000,10)
 on the card, builds CODA with the given numerics knobs (default: the
@@ -18,7 +20,11 @@ so an operator and the kernels it launched are not counted twice).
 ``--seeds S`` (S > 1) profiles one round of the seed-batched engine: S
 replicas in one state, each round one pass for all of them (kernel 5,
 the batched products, the batched kernel 3); ms/round is then the round
-of all S seeds, and ms/seed-round that over S.
+of all S seeds, and ms/seed-round that over S. ``--method`` profiles a
+baseline instead (one seed; ActiveTesting and VMA with a label buffer of
+the rounds run, ModelPicker with the default epsilon); ``--record-topk K``
+profiles the flight recorder's round (the same round with its top-K
+scores and posterior digest kept on the device).
 Kernels on one stream do not overlap, so the device's busy share is the
 summed kernel time over the profiled wall time. Prints a summary and, with
 ``--out``, writes the full table as JSON there. Needs a CUDA device;
@@ -65,6 +71,11 @@ def main(argv=None) -> int:
                    choices=["float32", "bfloat16"])
     p.add_argument("--eig-entropy", default="exact",
                    choices=["exact", "approx"])
+    p.add_argument("--method", default="coda",
+                   choices=["coda", "iid", "uncertainty", "activetesting",
+                            "vma", "model_picker"])
+    p.add_argument("--record-topk", type=int, default=0,
+                   help="profile the recording round (0: unrecorded)")
     p.add_argument("--out", default=None,
                    help="also write the full table as JSON here")
     args = p.parse_args(argv)
@@ -84,7 +95,12 @@ def main(argv=None) -> int:
         make_step_fn,
     )
     from coda_tpu_torch.oracle import true_losses
-    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+    from coda_tpu_torch.selectors import (
+        DEFAULT_EPS,
+        SELECTOR_FACTORIES,
+        CODAHyperparams,
+        make_coda,
+    )
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -96,21 +112,34 @@ def main(argv=None) -> int:
                  eig_cache_dtype=args.eig_cache_dtype,
                  eig_entropy=args.eig_entropy)
     S = args.seeds
-    sel = make_coda(task.preds, CODAHyperparams(
-        eig_chunk=1024, eig_mode="incremental", n_parallel=S, **knobs),
-        device=dev)
-    losses = true_losses(task.preds, task.labels)
     n_keys = 2 + 2 * args.rounds
+    if args.method == "coda":
+        sel = make_coda(task.preds, CODAHyperparams(
+            eig_chunk=1024, eig_mode="incremental", n_parallel=S, **knobs),
+            device=dev)
+    else:
+        if S > 1:
+            p.error("the baselines have no seed-batched form: --seeds 1")
+        knobs = {"method": args.method}
+        kw = ({"budget": n_keys} if args.method in ("activetesting", "vma")
+              else {"epsilon": DEFAULT_EPS}
+              if args.method == "model_picker" else {})
+        sel = SELECTOR_FACTORIES[args.method](task.preds, device=dev, **kw)
+    if args.record_topk:
+        knobs["record_topk"] = args.record_topk
+    losses = true_losses(task.preds, task.labels)
     if S > 1:
         # the engine's per-seed schedule for seeds 0..S-1, on the device
-        step = make_batched_step_fn(sel, task.labels, losses)
+        step = make_batched_step_fn(sel, task.labels, losses,
+                                    trace_k=args.record_topk)
         keys = batched_select_keys(sel, torch.stack(
             [trandom.PRNGKey(s) for s in range(S)]), n_keys, dev)
 
         def init():
             return sel.batched.init(S)
     else:
-        step = make_step_fn(sel, task.labels, losses)
+        step = make_step_fn(sel, task.labels, losses,
+                            trace_k=args.record_topk)
         k_init, _, k_scan = trandom.split(trandom.PRNGKey(0), 3)
         keys = trandom.split(k_scan, n_keys)
 

@@ -334,7 +334,7 @@ def test_cli_prints_reference_lines(capsys):
     from coda_tpu_torch.cli import main
 
     assert main(["--synthetic", "6,60,3", "--iters", "5", "--seeds", "2",
-                 "--device", "cpu"]) == 0
+                 "--device", "cpu", "--method", "coda"]) == 0
     out = capsys.readouterr().out
     assert "Loaded preds of shape (6, 60, 3)" in out
     for s in range(2):
@@ -342,5 +342,5 @@ def test_cli_prints_reference_lines(capsys):
     line = [ln for ln in out.splitlines() if ln.startswith("seed 0:")][0]
     assert "cumulative=" in line and "stochastic=False" in line
     assert main(["--task", "iris", "--data-dir", "data", "--iters", "3",
-                 "--seeds", "1", "--device", "cpu"]) == 0
+                 "--seeds", "1", "--device", "cpu", "--method", "coda"]) == 0
     assert "seed 0: regret@3=" in capsys.readouterr().out
