@@ -1,12 +1,12 @@
-"""Command line for the port's main path (counterpart of the single-task
-run of ``coda_tpu/cli.py``).
+"""Command line for the port's single-task run (counterpart of the
+single-task run of ``coda_tpu/cli.py``).
 
     python -m coda_tpu_torch.cli --synthetic 1000,50000,10 --method coda \\
-        --iters 20 --seeds 1
+        --iters 20
     python -m coda_tpu_torch.cli --synthetic 1000,50000,10 --method coda \\
         --eig-refresh fused --eig-cache-dtype bfloat16 --iters 20 --seeds 1
-    python -m coda_tpu_torch.cli --synthetic 1000,50000,10 --method coda \\
-        --eig-backend pallas --eig-mode incremental --iters 20 --seeds 5
+    python -m coda_tpu_torch.cli --synthetic 500,256,1000 --method coda \\
+        --posterior sparse:32 --eig-mode incremental --eig-chunk 64
     python -m coda_tpu_torch.cli --task digits --data-dir data --method coda \\
         --device cpu
 
@@ -15,9 +15,20 @@ reference CLI's per-seed ``seed s: regret@T=... cumulative=...
 stochastic=...`` lines. ``--method`` defaults to ``iid``, as in the
 reference, and takes its names: ``iid``, ``uncertainty``, any ``coda*``,
 ``activetesting``, ``vma``, ``model_picker``. More than one CODA seed runs
-as one batch (kernels 4 and 5) unless ``--eig-refresh fused``, whose seeds
+as one batch on every EIG tier unless ``--eig-refresh fused``, whose seeds
 run one after another, as the baselines' do; ``n_parallel``, the auto
-tier's replica count, is the batch's width, as in the reference.
+tier's replica count, is the batch's width, as in the reference. So the
+paper's command at the headline, ``--synthetic 1000,50000,10 --method
+coda`` with the default 5 seeds, resolves to the factored tier, as the
+reference's resolver does (5 fp32 caches and delta layouts pass its 4 GiB
+budget).
+
+The CODA flags are the reference's, with its choices: ``--eig-mode``,
+``--eig-precision``, ``--eig-cache-dtype``, ``--eig-refresh``,
+``--eig-entropy``, ``--posterior``, ``--eig-pbest``, ``--pi-update``,
+``--prefilter-n``, ``--q``, ``--no-diag-prior``. ``--eig-scorer``,
+``--surrogate-prior`` and ``--mesh`` are parsed and raise
+``NotImplementedError`` at anything but their defaults (later slices).
 ``--record-dir`` writes a flight-recorder record (schema v4, the
 reference's ``record.json`` + ``rounds.npz``) that the reference's
 ``python -m coda_tpu.cli replay <dir> --against <record>`` triages. The
@@ -56,13 +67,12 @@ def parse_args(argv=None):
     p.add_argument("--learning-rate", default=0.01, type=float)
     p.add_argument("--multiplier", default=2.0, type=float)
     p.add_argument("--prefilter-n", type=int, default=0,
-                   help="Randomly subsample n candidates per iteration "
-                        "(a later slice of the port).")
+                   help="Randomly subsample n candidates per iteration.")
     p.add_argument("--no-diag-prior", action="store_true",
                    help="Disable diagonal prior (ablation 1).")
     p.add_argument("--q", default="eig",
                    help="Acquisition function {eig, iid, uncertainty} "
-                        "(ablation 2; only eig so far).")
+                        "(ablation 2).")
 
     def _epsilon(v):
         f = float(v)
@@ -77,11 +87,14 @@ def parse_args(argv=None):
     p.add_argument("--eig-chunk", type=int, default=1024,
                    help="N-block of the cache build and the plain scoring")
     p.add_argument("--eig-mode", default="auto",
-                   choices=["auto", "incremental"],
-                   help="EIG tier: auto (the reference's budget over every "
-                        "batched replica) or incremental (the (C, N, H) "
-                        "cache tier regardless of the budget)")
-    # the incremental tier's numerics knobs (the reference's flags)
+                   choices=["auto", "incremental", "factored", "rowscan",
+                            "direct"],
+                   help="EIG tier: auto picks incremental (the cached "
+                        "(C, N, H) P(best) rows) while every batched "
+                        "replica's cache fits the reference's budget, else "
+                        "factored, else rowscan; direct is the reference "
+                        "choreography's cross-check")
+    # the numerics knobs (the reference's flags)
     p.add_argument("--eig-backend", default="auto",
                    type=lambda v: "jnp" if v == "plain" else v,
                    choices=["auto", "jnp", "pallas"],
@@ -90,6 +103,13 @@ def parse_args(argv=None):
                         "jnp (the reference's name; plain is an alias) = "
                         "the plain versions everywhere; pallas (the "
                         "reference's name for its kernels) = auto")
+    p.add_argument("--eig-precision", default="highest",
+                   choices=["highest", "high", "default"],
+                   help="precision of the EIG table products: highest = "
+                        "fp32 (reference numerics); high = fp32 too (it "
+                        "stands for the TPU's 3-pass bf16, which fp32 "
+                        "meets); default = one TF32 pass (opt-in numerics; "
+                        "no effect on the CPU)")
     p.add_argument("--eig-cache-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="storage dtype of the incremental P(best) cache: "
@@ -109,6 +129,34 @@ def parse_args(argv=None):
                    help="log2 of the expected-entropy chain: exact, or a "
                         "bit-extracted exponent + degree-6 mantissa "
                         "polynomial (max |Dscore| <= 1e-4; opt-in numerics)")
+    p.add_argument("--posterior", default="dense", metavar="dense|sparse:K",
+                   help="Dirichlet posterior: dense = the (H, C, C) "
+                        "tensor; sparse:K keeps each class row as diagonal "
+                        "+ top-K off-diagonal entries + one residual mass "
+                        "(incremental tier only; sparse:K>=C is bitwise "
+                        "dense)")
+    p.add_argument("--eig-pbest", default="quad",
+                   choices=["quad", "amortized"],
+                   help="hypothetical P(best) row refresh: quad = the "
+                        "Beta quadrature; amortized = logistic-normal "
+                        "tables where the labelled row's concentration "
+                        "holds the 2.34e-4 score contract (opt-in "
+                        "numerics)")
+    p.add_argument("--pi-update", default="auto",
+                   choices=["auto", "delta", "exact"],
+                   help="incremental pi-hat refresh: auto (= delta) adds "
+                        "the label's exact increment (kernel 3); exact "
+                        "recomputes the column from the posterior row")
+    p.add_argument("--eig-scorer", default="exact",
+                   metavar="exact|surrogate:k",
+                   help="who scores the round (surrogate:k: a later slice "
+                        "of the port)")
+    p.add_argument("--surrogate-prior", default="off",
+                   choices=["off", "pool"],
+                   help="surrogate warm start (a later slice of the port)")
+    p.add_argument("--mesh", default=None, metavar="AXIS=K,...",
+                   help="shard the (H, N, C) tensor (a later slice of the "
+                        "port)")
     return p.parse_args(argv)
 
 
@@ -131,9 +179,9 @@ def load_dataset(args):
 
 def hyperparams(args):
     """The run's ``CODAHyperparams``. ``n_parallel`` is the number of
-    replicas the engine batches — ``--seeds`` where the selector has a
-    seed-batched form, 1 where seeds run one after another — so the auto
-    tier's budget sees every replica (the reference's rule)."""
+    replicas the engine batches — ``--seeds`` on every tier, 1 under the
+    fused refresh, whose seeds run one after another — so the auto tier's
+    budget sees every replica (the reference's rule)."""
     from coda_tpu_torch.selectors import CODAHyperparams
     from coda_tpu_torch.selectors.coda import batches_seeds
 
@@ -144,9 +192,16 @@ def hyperparams(args):
                          eig_chunk=args.eig_chunk, eig_mode=args.eig_mode,
                          eig_backend=("auto" if args.eig_backend == "pallas"
                                       else args.eig_backend),
+                         eig_precision=args.eig_precision,
                          eig_cache_dtype=args.eig_cache_dtype,
                          eig_refresh=args.eig_refresh,
-                         eig_entropy=args.eig_entropy)
+                         eig_entropy=args.eig_entropy,
+                         posterior=args.posterior,
+                         eig_pbest=args.eig_pbest,
+                         eig_scorer=args.eig_scorer,
+                         surrogate_prior=args.surrogate_prior,
+                         pi_update=args.pi_update,
+                         shard_spec=args.mesh or "")
     batched = args.seeds > 1 and batches_seeds(hp)
     return hp._replace(n_parallel=args.seeds if batched else 1)
 
@@ -232,6 +287,11 @@ def main(argv=None):
     factory = build_selector_factory(args, dataset.name)
     coda = args.method.startswith("coda")
     n_parallel = hyperparams(args).n_parallel if coda else max(1, args.seeds)
+    if coda:
+        from coda_tpu_torch.selectors.coda import resolve_eig_mode
+
+        print(f"EIG tier: {resolve_eig_mode(hyperparams(args), H, N, C)} "
+              f"(n_parallel={n_parallel})")
     trace_k = args.record_topk if args.record_dir else 0
     t0 = time.perf_counter()
     out = run_seeds_compiled(factory, dataset.preds, dataset.labels,

@@ -5,8 +5,11 @@ its caches. :func:`state_from_numpy` turns the reference's ``CODAState``
 — taken field by field with ``np.asarray`` — into the port's
 :class:`~coda_tpu_torch.selectors.coda.CODAState` on a device, so both
 packages can continue from the same mid-run state; :func:`state_to_numpy`
-goes back. Fields of later slices (sparse posterior, surrogate fit) must
-be absent or None. A seed-batched state — the reference's ``CODAState``
+goes back. The cache fields are None off the incremental tier, and a
+sparse posterior arrives as the reference's ``SparseRows`` (or any
+``(diag, vals, idx, resid)`` 4-tuple of arrays) with ``dirichlets`` None.
+The surrogate fit (a later slice) must be absent or None. A seed-batched
+state — the reference's ``CODAState``
 under ``vmap``, every field with a leading replica axis S — crosses the
 same way and becomes the state of the port's ``Selector.batched``.
 
@@ -20,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from coda_tpu_torch.ops.sparse_rows import SparseRows
 from coda_tpu_torch.selectors.coda import CODAState
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -28,7 +32,16 @@ _DTYPES = {
     "unlabeled": np.bool_, "pbest_rows": np.float32, "pbest_hyp": np.float32,
     "pi_xi_unnorm": np.float32, "eig_scores_cached": np.float32,
 }
-_LATER_SLICES = ("sparse", "surrogate")
+_SPARSE_DTYPES = {"diag": np.float32, "vals": np.float32, "idx": np.int32,
+                  "resid": np.float32}
+# fields every tier carries; the rest may be None
+_REQUIRED = ("pi_hat_xi", "pi_hat", "unlabeled")
+_LATER_SLICES = ("surrogate",)
+
+
+def _to_torch(arr, dtype, dev) -> torch.Tensor:
+    arr = np.ascontiguousarray(np.asarray(arr, dtype=dtype))
+    return torch.from_numpy(arr.copy()).to(dev)
 
 
 def state_from_numpy(fields: dict, device: DeviceLike = None) -> CODAState:
@@ -39,32 +52,45 @@ def state_from_numpy(fields: dict, device: DeviceLike = None) -> CODAState:
         if fields.get(name) is not None:
             raise NotImplementedError(
                 f"state field {name!r} belongs to a later slice of the port")
-    missing = [f for f in CODAState._fields if fields.get(f) is None]
+    missing = [f for f in _REQUIRED if fields.get(f) is None]
+    if fields.get("dirichlets") is None and fields.get("sparse") is None:
+        missing.append("dirichlets")
     if missing:
-        raise ValueError(f"state is missing {missing}: the port carries the "
-                         "incremental tier's full state")
+        raise ValueError(f"state is missing {missing}: every tier carries "
+                         "pi-hat, the unlabeled mask and a posterior")
     out = {}
     for f in CODAState._fields:
-        arr = np.asarray(fields[f])
-        if f == "pbest_hyp" and arr.dtype.name == "bfloat16":
-            bits = np.ascontiguousarray(arr).view(np.int16)
+        v = fields.get(f)
+        if v is None:
+            out[f] = None
+        elif f == "sparse":
+            out[f] = SparseRows(*(_to_torch(x, _SPARSE_DTYPES[n], dev)
+                                  for n, x in zip(SparseRows._fields, v)))
+        elif f == "pbest_hyp" and np.asarray(v).dtype.name == "bfloat16":
+            bits = np.ascontiguousarray(np.asarray(v)).view(np.int16)
             out[f] = torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
-            continue
-        arr = np.ascontiguousarray(np.asarray(arr, dtype=_DTYPES[f]))
-        out[f] = torch.from_numpy(arr.copy()).to(dev)
+        else:
+            out[f] = _to_torch(v, _DTYPES[f], dev)
     return CODAState(**out)
 
 
 def state_to_numpy(state: CODAState) -> dict:
-    """The port's state as ``{field: np.ndarray}`` on the host; a bfloat16
-    cache comes back as an ``ml_dtypes`` bfloat16 array, as JAX gives it."""
+    """The port's state as ``{field: np.ndarray}`` on the host (None
+    fields stay None, a sparse posterior is a ``(diag, vals, idx, resid)``
+    tuple of arrays); a bfloat16 cache comes back as an ``ml_dtypes``
+    bfloat16 array, as JAX gives it."""
     out = {}
     for f in CODAState._fields:
-        t = getattr(state, f).detach().cpu()
-        if t.dtype == torch.bfloat16:
+        t = getattr(state, f)
+        if t is None:
+            out[f] = None
+        elif f == "sparse":
+            out[f] = tuple(x.detach().cpu().numpy() for x in t)
+        elif t.dtype == torch.bfloat16:
             import ml_dtypes  # numpy's bfloat16; only a bf16 cache needs it
 
-            out[f] = t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+            out[f] = t.detach().cpu().view(torch.int16).numpy().view(
+                ml_dtypes.bfloat16)
         else:
-            out[f] = t.numpy()
+            out[f] = t.detach().cpu().numpy()
     return out

@@ -112,6 +112,10 @@ def _posterior_digest(selector: Selector, state_after,
         nan = torch.full_like(like, float("nan"))
         return nan, nan
     pb = get_pbest(state_after).to(torch.float32)
+    if pb.dim() == 2:
+        # one replica at a time: a batched reduction may sum in another
+        # order than the one-seed run's
+        return pb.amax(-1), torch.stack([entropy2(p) for p in pb])
     return pb.amax(-1), entropy2(pb)
 
 

@@ -10,15 +10,20 @@ log-product, trapezoid quadrature. All math fp32.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import warnings
 
 import numpy as np
 import torch
 
 from coda_tpu_torch.ops.beta import (
     beta_log_pdf,
+    beta_logit_normal_params,
     cumtrapz_uniform,
     dirichlet_to_beta,
+    logit_normal_log_cdf,
+    logit_normal_log_pdf,
 )
 from coda_tpu_torch.utils.checks import debug_check_finite
 
@@ -128,21 +133,55 @@ def _bump_tables(a, b, x, dx, update_weight):
     return logcdf_u.sum(-2), logcdf_b - logcdf_u, F_u, F_b - F_u
 
 
-def _pbest_hyp_from_tables(tables, eq_t, w_trapz):
+@contextlib.contextmanager
+def _tf32_products():
+    """TF32 tensor-core products for the body only: the setting is
+    restored on the way out, so no other product of the program (the
+    pi-hat contractions, the confusion prior) leaves fp32."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def eig_matmul(a: torch.Tensor, b: torch.Tensor,
+               precision: str = "highest") -> torch.Tensor:
+    """``a @ b`` at an ``eig_precision`` (the EIG table products only).
+    On the card: ``highest`` and ``high`` are fp32 on the CUDA cores (TF32
+    off); ``default`` is one TF32 tensor-core pass. ``high`` stands for the
+    TPU's 3-pass bf16: the fp32 product is at least as accurate and, on an
+    H100, faster than three TF32 passes over hi/lo splits. On the CPU every
+    precision is the fp32 product, as XLA's CPU backend ignores the
+    precision too."""
+    if precision != "default" or a.device.type != "cuda":
+        return a @ b
+    with _tf32_products():
+        return a @ b
+
+
+def _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision: str = "highest"):
     """The hypothetical-row integral for ONE class row over all items:
     per-item exclusive log-cdf sum, max-shift, weighted integrand,
-    normalisation. Three fp32 ``(N, H)·(H, G)``/``(N, G)·(G, H)`` products
-    left to ``torch.matmul``: the precomputed refresh and kernel 6's plain
-    version (the kernel computes them inside its scoring pass). With a
-    leading replica axis (tables ``(S, ...)``, ``eq_t`` ``(S, N, H)``) the
-    products are batched ``torch.matmul`` calls, one row per replica."""
+    normalisation — the body the quadrature and the amortized tables
+    share. Three ``(N, H)·(H, G)``/``(N, G)·(G, H)`` products at
+    ``precision`` (:func:`eig_matmul`): the precomputed refresh, the
+    row-scanned tier and kernel 6's plain version (the kernel computes
+    them inside its scoring pass). With leading axes (tables ``(..., H,
+    G)``, ``eq_t`` ``(..., N, H)``) the products are batched, one row per
+    leading index."""
     S0_t, dlogcdf_t, F_u_t, dF_t = tables
     eq = eq_t.to(w_trapz.dtype)
-    S = S0_t.unsqueeze(-2) + eq @ dlogcdf_t            # (N, G)
+    S = S0_t.unsqueeze(-2) + eig_matmul(eq, dlogcdf_t, precision)  # (N, G)
     S = S - S.amax(-1, keepdim=True)
     wE = w_trapz * torch.exp(S)
-    t_base = wE @ F_u_t.transpose(-1, -2)              # (N, H)
-    t_diff = wE @ dF_t.transpose(-1, -2)
+    t_base = eig_matmul(wE, F_u_t.transpose(-1, -2), precision)    # (N, H)
+    t_diff = eig_matmul(wE, dF_t.transpose(-1, -2), precision)
     unnorm = t_base + eq * t_diff
     return unnorm / torch.clamp_min(unnorm.sum(-1, keepdim=True), _EPS)
 
@@ -161,10 +200,76 @@ def refresh_tables(a_t: torch.Tensor, b_t: torch.Tensor,
             _trapz_weights(num_points, dx))
 
 
-def _pbest_hyp_row(a_t, b_t, eq_t, update_weight: float, num_points: int):
+def _pbest_hyp_row(a_t, b_t, eq_t, update_weight: float, num_points: int,
+                   precision: str = "highest"):
     """Hypothetical P(best) for one class row: ``a_t``, ``b_t`` (H,) Beta
     parameters, ``eq_t`` (N, H) bool (did model h predict this class at
     item n) -> (N, H). Seed-batched: ``(S, H)`` parameters and ``(S, N,
     H)`` masks -> ``(S, N, H)``, each replica its own class row."""
     *tables, w_trapz = refresh_tables(a_t, b_t, update_weight, num_points)
-    return _pbest_hyp_from_tables(tables, eq_t, w_trapz)
+    return _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision)
+
+
+def _amortized_bump_tables(a, b, x, update_weight):
+    """:func:`_bump_tables` on the logistic-normal closed forms
+    (``ops.beta.logit_normal_log_pdf``/``log_cdf``) instead of lgamma grids
+    and the cumulative trapezoid: the same eps floor and exponent clamp,
+    the same ``(S0, dlogcdf, F_u, dF)`` contract."""
+    log_eps = torch.log(torch.tensor(_EPS, dtype=torch.float32,
+                                     device=x.device))
+
+    def tab(aa, bb):
+        mu, sigma = beta_logit_normal_params(aa, bb)
+        mu, sigma = mu[..., None], sigma[..., None]
+        logcdf = torch.maximum(logit_normal_log_cdf(x, mu, sigma), log_eps)
+        logpdf = logit_normal_log_pdf(x, mu, sigma)
+        return logcdf, torch.exp(torch.clamp_max(logpdf - logcdf, 85.0))
+
+    logcdf_u, F_u = tab(a, b + update_weight)
+    logcdf_b, F_b = tab(a + update_weight, b)
+    return logcdf_u.sum(-2), logcdf_b - logcdf_u, F_u, F_b - F_u
+
+
+def _pbest_hyp_row_amortized(a_t, b_t, eq_t, update_weight: float,
+                             num_points: int, precision: str = "highest"):
+    """:func:`_pbest_hyp_row` on the amortized tables: the same integral
+    body (:func:`_pbest_hyp_from_tables`), other tables."""
+    x = pbest_grid(num_points, a_t.device)
+    w_trapz = _trapz_weights(num_points, x[1] - x[0])
+    tables = _amortized_bump_tables(a_t, b_t, x, update_weight)
+    return _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision)
+
+
+def _pbest_hyp_row_gated(a_t, b_t, eq_t, update_weight: float,
+                         num_points: int, min_conc: float,
+                         precision: str = "highest"):
+    """The ``eig_pbest='amortized'`` row refresh: the amortized tables
+    where the row's ``min_h(a + b) >= min_conc``, the quadrature's
+    elsewhere — the reference's ``lax.cond`` taken on the device. Both
+    table sets are O(H·G); the choice is made per element before the
+    shared integral body runs once, so each replica's result is bitwise
+    the branch its gate names and nothing waits on the host."""
+    x = pbest_grid(num_points, a_t.device)
+    dx = x[1] - x[0]
+    quad = _bump_tables(a_t, b_t, x, dx, update_weight)
+    amort = _amortized_bump_tables(a_t, b_t, x, update_weight)
+    gate = (a_t + b_t).amin(-1) >= min_conc                     # (...)
+    tables = tuple(
+        torch.where(gate.reshape(gate.shape + (1,) * (q.dim() - gate.dim())),
+                    am, q)
+        for q, am in zip(quad, amort))
+    return _pbest_hyp_from_tables(tables, eq_t,
+                                  _trapz_weights(num_points, dx), precision)
+
+
+def compute_pbest_rows(aT: torch.Tensor, bT: torch.Tensor,
+                       num_points: int = NUM_POINTS,
+                       row_chunk: int = 1) -> torch.Tensor:
+    """:func:`compute_pbest` over ``row_chunk`` class rows at a time:
+    ``(..., C, H)`` from ``(..., C, H)`` Beta parameters with
+    O(row_chunk·H·G) temporaries instead of the one-shot (C, H, G)."""
+    C = aT.shape[-2]
+    r = max(1, min(row_chunk, C))
+    return torch.cat([compute_pbest(aT[..., i:i + r, :], bT[..., i:i + r, :],
+                                    num_points=num_points)
+                      for i in range(0, C, r)], dim=-2)

@@ -1,41 +1,55 @@
-"""CODA: consensus-driven active model selection on the card — the main
-path of the reference selector (counterpart of
-``coda_tpu/selectors/coda.py``).
+"""CODA: consensus-driven active model selection on the card (counterpart
+of ``coda_tpu/selectors/coda.py``).
 
-This port covers the configuration the paper's run resolves to — the
-dense Dirichlet posterior, the INCREMENTAL EIG tier carrying the
-``(C, N, H)`` hypothetical-P(best) cache, the exact scorer, the delta
-pi-hat update and full-pool EIG acquisition — and the reference's
-headline-speed knobs on that tier: ``eig_cache_dtype`` (fp32 or bf16
-storage of the cache), ``eig_entropy`` (exact or polynomial log2) and
-``eig_refresh`` (``precomputed`` or ``fused``). One round:
+Every EIG tier of the reference, chosen by ``eig_mode`` (``auto`` takes
+the reference's rule, :func:`resolve_eig_mode`):
 
-  * select: tie-broken masked argmax over the scores computed at the end
-    of the previous init/update (score-ahead);
-  * update: add to Dirichlet row ``true_class``; move pi-hat column
-    ``true_class`` by the row-gather kernel (``ops/gather_kernels``);
-    then either (``precomputed``) recompute the class row of the cache
-    with three fp32 contractions and write it into the cache while
-    re-scoring all N in one kernel pass (kernel 2), or (``fused``) hand
-    the class row's Beta parameters to kernel 6, which computes the row
-    inside the scoring pass (``ops/eig_kernels``);
-  * best: argmax of the pi-hat-weighted cached P(best) rows.
+  * **incremental** — the ``(C, N, H)`` hypothetical-P(best) cache is
+    carried in the state and one class row is refreshed a round; scoring
+    runs through the CUDA kernels (``ops/eig_kernels``): kernel 1 at init,
+    kernel 2 (precomputed refresh) or kernel 6 (``eig_refresh='fused'``)
+    a round, the pi-hat column through kernel 3 (``ops/gather_kernels``);
+  * **factored** — no cache: every round scores all N from the C class
+    rows' Beta grid tables by three fp32 products a block
+    (:func:`eig_scores_factored`), and pi-hat is recomputed in full;
+  * **rowscan** — the factored integral over groups of class rows, with
+    temporaries bounded by a byte budget instead of (C, H, G) tables
+    (:func:`eig_scores_rowscan`);
+  * **direct** — the reference's per-item choreography, ``compute_pbest``
+    for every item and class (:func:`eig_scores`), a cross-check.
 
-The selector also has a seed-batched form (``Selector.batched``) for the
-precomputed refresh: the same state with a leading replica axis S, one
-round for all S seeds through kernels 4 and 5 and the batched kernel 3 —
-what the reference's ``vmap`` over seeds reaches with
-``eig_backend='pallas'``. The fused refresh has none: the reference
-refuses it under ``vmap`` (``n_parallel > 1``), so its seeds run one after
-another.
+and the knobs on them: ``eig_precision`` (the precision of the EIG table
+products, :func:`~coda_tpu_torch.ops.pbest.eig_matmul`), ``posterior``
+(dense, or the sparse top-K rows of ``ops/sparse_rows``, incremental tier
+only), ``eig_pbest`` (the quadrature, or the amortized logistic-normal
+tables gated on the labelled row's concentration), ``pi_update`` (the
+delta column through kernel 3, or the exact column recompute),
+``prefilter_n`` and the ``q`` ablations. The factored, rowscan and direct
+tiers, the prefilter and the ablations run no kernel of this repository:
+the reference leaves them to XLA einsums, and here they are PyTorch
+products.
 
-State is updated IN PLACE: ``update`` writes the Dirichlet row, the pi-hat
-column, the P(best) row, the cache row and the unlabeled mask into the
-tensors of the state it is given (the reference returned new arrays). The
-contractions and the pi-hat einsum are plain fp32 ``torch.matmul``/
-``einsum`` with TF32 off, as the reference left them to XLA at HIGHEST
-precision. Every knob value outside these paths raises
-``NotImplementedError`` naming the later slice that brings it.
+Each round: select (a tie-broken masked argmax over the round's scores —
+the incremental tier's were computed at the end of the previous
+init/update), update (the Dirichlet row, pi-hat, and on the incremental
+tier the cache row with the next scores), best (the argmax of the
+pi-hat-weighted P(best) rows).
+
+The selector has a seed-batched form (``Selector.batched``) on every
+tier except the fused refresh, which the reference refuses under ``vmap``:
+the same state with a leading replica axis S, one round for all S seeds.
+Off the incremental tier, replica s follows seed s's one-seed run
+bitwise: the scoring, the pi-hat recompute and the P(best) readout run one
+replica at a time inside the round, since neither cuBLAS nor PyTorch's
+reductions promise one summation order at every batch size.
+
+State is updated IN PLACE where the reference returned new arrays: the
+Dirichlet (or sparse) row, the pi-hat column, the cache row and the
+unlabeled mask. Every product runs at fp32 with TF32 off, except the EIG
+table products under ``eig_precision`` ``high`` or ``default``, which
+switch TF32 on for those products alone. ``eig_scorer``,
+``surrogate_prior`` and ``shard_spec`` raise ``NotImplementedError``
+naming the later slice that brings them.
 """
 
 from __future__ import annotations
@@ -71,20 +85,34 @@ from coda_tpu_torch.ops.gather_kernels import (
     gather_rows_sum_plain,
     prep_gather_layout,
 )
-from coda_tpu_torch.ops.masked import masked_argmax_tiebreak
+from coda_tpu_torch.ops.masked import entropy2, masked_argmax_tiebreak
 from coda_tpu_torch.ops.pbest import (
-    _EPS,
     _bump_tables,
+    _pbest_hyp_from_tables,
     _pbest_hyp_row,
+    _pbest_hyp_row_gated,
     _trapz_weights,
     compute_pbest,
+    compute_pbest_rows,
     pbest_grid,
+    pbest_row_mixture,
 )
+from coda_tpu_torch.ops.sparse_rows import (
+    SparseRows,
+    _take_row,
+    densify_row,
+    parse_posterior,
+    posterior_nbytes,
+    scatter_row,
+    sparsify,
+)
+from coda_tpu_torch.ops.sparse_rows import row_beta as sparse_row_beta
 from coda_tpu_torch.selectors.protocol import (
     BatchedSelector,
     Selector,
     SelectResult,
 )
+from coda_tpu_torch.selectors.uncertainty import uncertainty_scores
 from coda_tpu_torch.utils.platform import (
     DeviceLike,
     pin_fp32_matmul,
@@ -96,33 +124,55 @@ from coda_tpu_torch.utils.platform import (
 _TIE_RTOL = 1e-8
 _TIE_ATOL = 1e-8
 
-# the reference's "auto" budget for the incremental tier (cache + the
-# (C, H, N) delta layout + the dense posterior, per replica); kept so
-# "auto" resolves the same tier in both packages
+# The reference's "auto" budgets, kept so that "auto" names the same tier
+# in both packages. They were sized for a TPU's memory: the incremental
+# tier while its per-replica cache + (C, H, N) delta layout + posterior
+# fit 4 GiB (6 GiB under the surrogate scorer), then the factored tier
+# while its four (C, H, G) fp32 tables per replica fit 2 GiB, then
+# rowscan.
 _INCR_CACHE_MAX_BYTES = 4 << 30
+_SURROGATE_INCR_CACHE_MAX_BYTES = 6 << 30
+_TABLES_MAX_BYTES = 2 << 30
 
-_SLICE_REST = "the rest of CODA (slice 2 of the port)"
+# eig_pbest='amortized' engages on a round whose labelled row has
+# min_h(a + b) at or above this (the reference's calibrated gate: the
+# 2.34e-4 score contract holds above it); below, the quadrature runs
+_AMORTIZED_MIN_CONC = 32.0
+
+# temporaries of one step of the row-scanned tier (a group of class rows
+# over a block of items) and of one block of the direct tier: the groups
+# and blocks are sized to stay under these
+_ROWSCAN_TEMP_BYTES = 1 << 30
+_DIRECT_TEMP_BYTES = 1 << 30
+
+_SLICE_4 = "batched acquisition and the surrogate (slice 4 of the port)"
+_SLICE_5 = "replay, suite and parallel (slice 5 of the port)"
 
 # eig_backend values that run the plain PyTorch versions: the reference's
 # name for its non-kernel path, and the port's own
 PLAIN_BACKENDS = ("jnp", "plain")
 
+EIG_MODES = ("incremental", "factored", "rowscan", "direct")
+PRECISIONS = ("highest", "high", "default")
+
 
 class CODAHyperparams(NamedTuple):
-    """The reference's fields and defaults. See :func:`check_supported`
-    for the values that raise."""
+    """The reference's fields and defaults. ``eig_scorer``,
+    ``surrogate_prior`` and ``shard_spec`` raise at anything but their
+    defaults (later slices)."""
 
-    prefilter_n: int = 0
+    prefilter_n: int = 0          # EIG on a random subset of this many
+    #                               candidates a round (0: all)
     alpha: float = 0.9            # prior_strength = 1 - alpha
     learning_rate: float = 0.01   # update_strength
     multiplier: float = 2.0
     disable_diag_prior: bool = False
     q: str = "eig"                # acquisition: eig | iid | uncertainty
-    eig_chunk: int = 256          # N-block of the plain scoring and the
+    eig_chunk: int = 256          # N-block of the scoring passes and the
     #                               cache build (a memory valve)
     num_points: int = 256         # P(best) integration grid
-    eig_mode: str = "auto"        # auto | incremental (factored, rowscan,
-    #                               direct: a later slice)
+    eig_mode: str = "auto"        # auto | incremental | factored |
+    #                               rowscan | direct
     eig_backend: str = "auto"     # auto = the CUDA kernels on a card, the
     #                               plain versions on the CPU; jnp (the
     #                               reference's name; alias plain) = the
@@ -130,7 +180,10 @@ class CODAHyperparams(NamedTuple):
     #                               the kernels are held to on the card)
     n_parallel: int = 1           # replicas sharing the card: the seeds
     #                               the engine batches (auto budget)
-    eig_precision: str = "highest"
+    eig_precision: str = "highest"  # highest | high | default: the EIG
+    #                               table products only (fp32; fp32; one
+    #                               TF32 pass on the card; no effect on the
+    #                               CPU, as in the reference)
     eig_cache_dtype: str = "float32"  # float32 | bfloat16: storage of the
     #                               (C, N, H) cache; all math stays fp32
     eig_refresh: str = "precomputed"  # precomputed | fused: the class row
@@ -140,67 +193,94 @@ class CODAHyperparams(NamedTuple):
     #                               reference)
     eig_entropy: str = "exact"    # exact | approx: the scoring chain's log2
     shard_spec: str = ""
-    posterior: str = "dense"
-    eig_pbest: str = "quad"
+    posterior: str = "dense"      # dense | sparse:K (incremental tier only)
+    eig_pbest: str = "quad"       # quad | amortized (incremental tier,
+    #                               precomputed refresh)
     eig_scorer: str = "exact"
     surrogate_prior: str = "off"
-    pi_update: str = "auto"       # auto | delta (exact: a later slice)
+    pi_update: str = "auto"       # auto (= delta) | delta | exact
 
 
-def _unsupported(knob: str, value, where: str = _SLICE_REST):
+def _unsupported(knob: str, value, where: str):
     raise NotImplementedError(
-        f"{knob}={value!r} comes with {where}; coda_tpu_torch runs the "
-        "incremental tier with the exact scorer, delta pi-hat and the dense "
-        "posterior (fp32 or bf16 cache, exact or approx entropy, "
-        "precomputed or fused refresh)")
+        f"{knob}={value!r} comes with {where}; coda_tpu_torch runs every EIG "
+        "tier and numerics knob of the reference with the exact scorer on "
+        "one card")
+
+
+def resolve_pi_update(hp: CODAHyperparams, N: Optional[int] = None) -> str:
+    """The pi-hat refresh the incremental tier runs: ``exact`` (the column
+    recomputed from the posterior row) when asked, else ``delta`` (the
+    label's exact linear increment, kernel 3 on the card). The reference
+    resolves ``auto`` by backend — delta on the CPU, the exact column on a
+    TPU where its gather kernel cannot run; on the card kernel 3 always
+    can, so ``auto`` is ``delta``."""
+    del N
+    if hp.pi_update not in ("auto", "delta", "exact"):
+        raise ValueError(f"unknown pi_update {hp.pi_update!r} "
+                         "(use 'auto', 'delta' or 'exact')")
+    return "exact" if hp.pi_update == "exact" else "delta"
+
+
+def resolve_precision(name: str) -> str:
+    """``eig_precision`` checked: ``highest``, ``high`` or ``default``
+    (what :func:`~coda_tpu_torch.ops.pbest.eig_matmul` takes)."""
+    if name not in PRECISIONS:
+        raise ValueError(
+            f"unknown eig_precision {name!r} (use highest/high/default)")
+    return name
 
 
 def resolve_eig_mode(hp: CODAHyperparams, H: int, N: int, C: int) -> str:
-    """The EIG tier, restricted to the incremental one: ``auto`` resolves
-    as the reference does (incremental while its per-replica bytes fit the
-    reference's budget) and raises where the reference would pick a tier
-    this slice lacks."""
+    """The EIG tier, by the reference's rule: ``auto`` -> incremental while
+    the acquisition is full-pool EIG and every replica's cache (at its
+    storage type), delta layout (unless ``pi_update='exact'``) and
+    posterior (dense or sparse) fit the budget; else factored while the
+    replicas' (C, H, G) tables fit theirs; else rowscan. An explicit
+    ``incremental`` without full-pool EIG raises."""
     full_pool_eig = (hp.q == "eig"
                      and not (hp.prefilter_n and hp.prefilter_n < N))
-    if hp.eig_mode == "incremental":
-        if not full_pool_eig:
+    if hp.eig_mode != "auto":
+        if hp.eig_mode not in EIG_MODES:
+            raise ValueError(f"unknown eig_mode {hp.eig_mode!r} (use auto, "
+                             + ", ".join(EIG_MODES) + ")")
+        if hp.eig_mode == "incremental" and not full_pool_eig:
             raise ValueError(
                 "eig_mode='incremental' requires the full-pool EIG "
-                f"acquisition (q='eig' without an active prefilter); got "
-                f"q={hp.q!r}, prefilter_n={hp.prefilter_n}")
-        return "incremental"
-    if hp.eig_mode in ("factored", "rowscan", "direct"):
-        _unsupported("eig_mode", hp.eig_mode)
-    if hp.eig_mode != "auto":
-        raise ValueError(f"unknown eig_mode {hp.eig_mode!r}")
-    # the cache at its storage dtype + the fp32 (C, H, N) delta layout +
-    # the dense posterior
+                "acquisition (q='eig' without an active prefilter); the "
+                f"requested config (q={hp.q!r}, prefilter_n={hp.prefilter_n}) "
+                "would maintain a large P(best) cache that is never read")
+        return hp.eig_mode
     itemsize = 2 if hp.eig_cache_dtype == "bfloat16" else 4
-    resident = itemsize * N * C * H + 4 * N * C * H + 4 * H * C * C
-    if full_pool_eig and max(1, hp.n_parallel) * resident \
-            <= _INCR_CACHE_MAX_BYTES:
+    cache_bytes = itemsize * N * C * H
+    budget = (_SURROGATE_INCR_CACHE_MAX_BYTES if hp.eig_scorer != "exact"
+              else _INCR_CACHE_MAX_BYTES)
+    delta_bytes = 4 * N * C * H if resolve_pi_update(hp, N) == "delta" else 0
+    post_bytes = posterior_nbytes(H, C, parse_posterior(hp.posterior))
+    par = max(1, hp.n_parallel)
+    if full_pool_eig and par * (cache_bytes + delta_bytes + post_bytes) \
+            <= budget:
         return "incremental"
-    _unsupported("eig_mode", "auto",
-                 f"{_SLICE_REST}: this shape resolves past the incremental "
-                 f"tier's budget at n_parallel={max(1, hp.n_parallel)}; "
-                 "eig_mode='incremental' (the CLI's --eig-mode incremental) "
-                 "runs it")
+    if par * 16 * C * H * hp.num_points <= _TABLES_MAX_BYTES:
+        return "factored"
+    return "rowscan"
 
 
 def batches_seeds(hp: CODAHyperparams) -> bool:
-    """Whether the selector has a seed-batched form: the precomputed
-    refresh has (kernels 4 and 5), the fused one has none."""
+    """Whether the selector has a seed-batched form: every tier does but
+    the fused refresh (the reference refuses it under ``vmap``)."""
     return hp.eig_refresh != "fused"
 
 
 def check_supported(hp: CODAHyperparams, N: int) -> None:
-    """Raise on every knob value outside the port's paths: ``ValueError``
+    """Raise on every knob value the port does not run: ``ValueError``
     with the reference's text where the reference refuses the value too,
-    ``NotImplementedError`` where a later slice brings it."""
-    if hp.q != "eig":
-        _unsupported("q", hp.q)
-    if hp.prefilter_n and hp.prefilter_n < N:
-        _unsupported("prefilter_n", hp.prefilter_n)
+    ``NotImplementedError`` where a later slice brings it. The refusals
+    that depend on the resolved tier are :func:`check_tier`'s."""
+    del N
+    if hp.q not in ("eig", "iid", "uncertainty"):
+        raise ValueError(f"unknown q {hp.q!r} "
+                         "(use 'eig', 'iid' or 'uncertainty')")
     if hp.eig_backend not in ("auto",) + PLAIN_BACKENDS:
         raise ValueError(f"unknown eig_backend {hp.eig_backend!r} "
                          "(use 'auto', 'jnp' or 'plain')")
@@ -213,14 +293,58 @@ def check_supported(hp: CODAHyperparams, N: int) -> None:
     if hp.eig_refresh not in ("precomputed", "fused"):
         raise ValueError(f"unknown eig_refresh {hp.eig_refresh!r} "
                          "(use 'precomputed' or 'fused')")
-    fused = hp.eig_refresh == "fused"
-    if fused and (hp.shard_spec or hp.n_parallel > 1):
+    if hp.eig_pbest not in ("quad", "amortized"):
+        raise ValueError(f"unknown eig_pbest {hp.eig_pbest!r} "
+                         "(use 'quad' or 'amortized')")
+    resolve_pi_update(hp)
+    resolve_precision(hp.eig_precision)
+    parse_posterior(hp.posterior)
+    if hp.eig_refresh == "fused" and (hp.shard_spec or hp.n_parallel > 1):
         raise ValueError(
             "eig_refresh='fused' computes the replacement row inside the "
             "single-chip pallas scoring kernel; it requires the pallas "
             "backend and supports neither shard_spec nor vmapped batches "
             f"(got backend={hp.eig_backend!r}, shard_spec={hp.shard_spec!r}, "
             f"n_parallel={hp.n_parallel})")
+    for knob, default, where in (("eig_scorer", "exact", _SLICE_4),
+                                 ("surrogate_prior", "off", _SLICE_4),
+                                 ("shard_spec", "", _SLICE_5)):
+        value = getattr(hp, knob)
+        if value != default:
+            _unsupported(knob, value, where)
+
+
+def check_tier(hp: CODAHyperparams, eig_mode: str) -> None:
+    """The reference's refusals of knobs that would silently not apply
+    on the resolved tier (``ValueError``, the reference's text)."""
+    if parse_posterior(hp.posterior) is not None and eig_mode != "incremental":
+        raise ValueError(
+            "posterior='sparse:K' requires the incremental EIG tier "
+            f"(this config resolved to eig_mode={eig_mode!r}): the dense "
+            "recompute tiers re-read the full posterior every round, so a "
+            "sparse carry would be densified right back — shrink the "
+            "config into the incremental budget or use posterior='dense'")
+    if hp.eig_pbest == "amortized" and eig_mode != "incremental":
+        raise ValueError(
+            "eig_pbest='amortized' replaces the incremental row-refresh "
+            f"quadrature; this config resolved to eig_mode={eig_mode!r} "
+            "where it would silently not apply")
+    if eig_mode == "direct" and hp.eig_precision != "highest":
+        raise ValueError(
+            "eig_mode='direct' is the reference-choreography cross-check "
+            "kernel and always runs at HIGHEST precision; "
+            f"eig_precision={hp.eig_precision!r} would silently not apply")
+    if eig_mode == "direct" and hp.eig_entropy == "approx":
+        raise ValueError(
+            "eig_mode='direct' is the reference-choreography cross-check "
+            "kernel and always uses the exact entropy lowering; "
+            "eig_entropy='approx' would silently not apply")
+    fused = hp.eig_refresh == "fused"
+    if fused and eig_mode != "incremental":
+        raise ValueError(
+            "eig_refresh='fused' computes the incremental tier's cache row "
+            f"inside the scoring kernel, but this config resolved to "
+            f"eig_mode={eig_mode!r} — it would silently never run")
     if hp.eig_pbest == "amortized" and fused:
         raise ValueError(
             "eig_pbest='amortized' runs the row refresh through the jnp "
@@ -228,46 +352,35 @@ def check_supported(hp: CODAHyperparams, N: int) -> None:
             f"Beta tables (got backend={hp.eig_backend!r}, "
             f"eig_refresh={hp.eig_refresh!r}) — it would silently not "
             "apply")
-    for knob, default, where in (
-            ("eig_precision", "highest", _SLICE_REST),
-            ("posterior", "dense", _SLICE_REST),
-            ("eig_pbest", "quad", _SLICE_REST),
-            ("eig_scorer", "exact", "batched acquisition and the surrogate "
-             "(slice 4 of the port)"),
-            ("surrogate_prior", "off", "batched acquisition and the "
-             "surrogate (slice 4 of the port)"),
-            ("shard_spec", "", "replay, suite and parallel (slice 5 of the "
-             "port)")):
-        value = getattr(hp, knob)
-        if value != default:
-            _unsupported(knob, value, where)
-    if hp.pi_update == "exact":
-        _unsupported("pi_update", "exact")
-    if hp.pi_update not in ("auto", "delta"):
-        raise ValueError(f"unknown pi_update {hp.pi_update!r} "
-                         "(use 'auto' or 'delta')")
 
 
 class CODAState(NamedTuple):
-    """Selector state of the incremental tier (the reference's
-    ``CODAState`` minus the fields of later slices). ``update`` modifies
+    """Selector state (the reference's ``CODAState`` minus the surrogate
+    fit). The cache fields are None off the incremental tier; a sparse
+    posterior (``sparse``) replaces ``dirichlets``. ``update`` modifies
     these tensors in place. The seed-batched form carries the same fields
     with a leading replica axis S."""
 
-    dirichlets: torch.Tensor        # (H, C, C) Dirichlet confusion posteriors
+    dirichlets: Optional[torch.Tensor]  # (H, C, C) Dirichlet posteriors
     pi_hat_xi: torch.Tensor         # (N, C) per-item class posterior
     pi_hat: torch.Tensor            # (C,) marginal class estimate
     unlabeled: torch.Tensor         # (N,) bool
-    pbest_rows: torch.Tensor        # (C, H) P(best | class row c)
-    pbest_hyp: torch.Tensor         # (C, N, H) ... under a +1 label of n as c
-    pi_xi_unnorm: torch.Tensor      # (N, C) unnormalised pi-hat factors
-    eig_scores_cached: torch.Tensor  # (N,) scores of the current posterior
+    pbest_rows: Optional[torch.Tensor] = None   # (C, H) P(best | row c)
+    pbest_hyp: Optional[torch.Tensor] = None    # (C, N, H) ... under a
+    #                                             +1 label of n as c
+    pi_xi_unnorm: Optional[torch.Tensor] = None  # (N, C) unnormalised pi
+    eig_scores_cached: Optional[torch.Tensor] = None  # (N,) next scores
+    sparse: Optional[SparseRows] = None  # the sparse:K posterior
 
 
 # -- pi-hat ------------------------------------------------------------------
 
 def pi_unnorm(dirichlets: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
-    """Unnormalised (N, C) class scores ``Σ_{h,s} d[h,c,s]·preds[h,n,s]``."""
+    """Unnormalised (N, C) class scores ``Σ_{h,s} d[h,c,s]·preds[h,n,s]``.
+    A ``(S, H, C, C)`` posterior gives ``(S, N, C)``, one contraction per
+    replica (each replica's bits are then its one-seed run's)."""
+    if dirichlets.dim() == 4:
+        return torch.stack([pi_unnorm(d, preds) for d in dirichlets])
     return torch.einsum("hcs,hns->nc", dirichlets, preds)
 
 
@@ -280,8 +393,57 @@ def _normalize_pi(unnorm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def update_pi_hat(dirichlets: torch.Tensor, preds: torch.Tensor):
-    """Dirichlet-adjusted class posterior per item + dataset marginal."""
+    """Dirichlet-adjusted class posterior per item + dataset marginal; a
+    ``(S, H, C, C)`` posterior one replica at a time (bitwise each
+    replica's one-seed values)."""
+    if dirichlets.dim() == 4:
+        pi_xi, pi = zip(*(update_pi_hat(d, preds) for d in dirichlets))
+        return torch.stack(pi_xi), torch.stack(pi)
     return _normalize_pi(pi_unnorm(dirichlets, preds))
+
+
+def update_pi_hat_column(dirichlets: torch.Tensor, true_class: torch.Tensor,
+                         preds: torch.Tensor, pi_xi_unnorm: torch.Tensor):
+    """Recompute column ``true_class`` of the pi-hat factorisation from
+    Dirichlet row ``true_class`` (``dirichlets`` already holds the label):
+    one O(N·H·C) contraction. ``pi_xi_unnorm`` is updated IN PLACE.
+    Returns ``(pi_hat_xi, pi_hat, pi_xi_unnorm)``."""
+    return update_pi_hat_column_from_row(_take_row(dirichlets, true_class),
+                                         true_class, preds, pi_xi_unnorm)
+
+
+def update_pi_hat_column_from_row(d_t: torch.Tensor, true_class: torch.Tensor,
+                                  preds: torch.Tensor,
+                                  pi_xi_unnorm: torch.Tensor):
+    """:func:`update_pi_hat_column` from the class row itself, ``d_t``
+    (H, C) — what the sparse posterior feeds with its rebuilt row
+    (``ops.sparse_rows.densify_row``). Seed-batched: ``(S, H, C)`` rows,
+    ``(S,)`` classes, ``(S, N, C)`` factors, one contraction a replica."""
+    if d_t.dim() == 3:
+        col = torch.stack([torch.einsum("hs,hns->n", d, preds) for d in d_t])
+    else:
+        col = torch.einsum("hs,hns->n", d_t, preds)
+    _put_col(pi_xi_unnorm, true_class, col)
+    pi_xi, pi = _normalize_pi(pi_xi_unnorm)
+    return pi_xi, pi, pi_xi_unnorm
+
+
+def _put_col(unnorm: torch.Tensor, c: torch.Tensor, col: torch.Tensor,
+             add: bool = False) -> None:
+    """Set (or add to) column ``c`` of ``(N, C)`` factors IN PLACE; with a
+    replica axis, column ``c[s]`` of replica s from ``col[s]``."""
+    c = c.to(torch.int64)
+    if c.dim() == 0:
+        if add:
+            unnorm.index_add_(1, c.reshape(1), col[:, None])
+        else:
+            unnorm.index_copy_(1, c.reshape(1), col[:, None])
+        return
+    rep = torch.arange(c.shape[0], device=unnorm.device)
+    if add:
+        unnorm[rep, :, c] += col
+    else:
+        unnorm[rep, :, c] = col
 
 
 def update_pi_hat_column_delta(true_class: torch.Tensor,
@@ -296,54 +458,213 @@ def update_pi_hat_column_delta(true_class: torch.Tensor,
     PLACE. Returns ``(pi_hat_xi, pi_hat, pi_xi_unnorm)``."""
     gather_fn = gather_fn or gather_rows_sum
     delta = update_strength * gather_fn(preds_by_class, pred_classes)
-    c = true_class.reshape(1).to(torch.int64)
-    pi_xi_unnorm.index_add_(1, c, delta[:, None])
+    _put_col(pi_xi_unnorm, true_class, delta, add=True)
     pi_xi, pi = _normalize_pi(pi_xi_unnorm)
     return pi_xi, pi, pi_xi_unnorm
 
 
+# -- the tiers' scoring --------------------------------------------------------
+
+def _beta_rows(dirichlets: torch.Tensor):
+    """``(aT, bT)`` ``(..., C, H)``: every class row's diagonal Beta."""
+    a_cc, b_cc = dirichlet_to_beta(dirichlets)       # (..., H, C)
+    return a_cc.transpose(-1, -2), b_cc.transpose(-1, -2)
+
+
+def _class_eq(pred_b: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
+    """``(..., R, B, H)`` fp32: did model h predict class ``classes[r]`` at
+    item b, from ``(..., B, H)`` hard predictions."""
+    return (pred_b.unsqueeze(-3) == classes[:, None, None]).to(torch.float32)
+
+
+def _class_entropy_drop(hyp, mixture0, pi_r, before_r, pi_xi_b, approx):
+    """``Σ_r pi_xi[b, r] · H(mixture | label r)`` over the ``(..., R, B, H)``
+    hypothetical rows of R classes: the mixture moves by row r's change
+    only. Returns ``(..., B)``."""
+    mix = mixture0[..., None, None, :] + pi_r[..., :, None, None] * (
+        hyp - before_r[..., :, None, :])
+    h_after = entropy2(mix, -1, approx=approx)                 # (..., R, B)
+    return (pi_xi_b.transpose(-1, -2) * h_after).sum(-2)
+
+
+def _per_replica(fn, dirichlets, pi_hat, pi_hat_xi, hard_preds, **kw):
+    """A tier's scores for a leading replica axis, one replica at a time:
+    neither cuBLAS nor PyTorch's reductions promise one summation order at
+    every batch size, and each replica must stay bitwise its one-seed run
+    (``scripts/torch_bmm_probe.py`` times both forms of the products)."""
+    return torch.stack([
+        fn(d, p, px, hard_preds if hard_preds.dim() == 2 else hard_preds[s],
+           **kw)
+        for s, (d, p, px) in enumerate(zip(dirichlets, pi_hat, pi_hat_xi))])
+
+
+def eig_scores(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
+               pi_hat_xi: torch.Tensor, hard_preds: torch.Tensor,
+               update_weight: float = 1.0, num_points: int = 256,
+               chunk: int = 256) -> torch.Tensor:
+    """The direct tier: expected information gain of labeling each point,
+    ``compute_pbest`` of every class row under every item's +1 label, as
+    the reference's choreography. Returns (N,). With a leading replica
+    axis (``(S, H, C, C)``, ``(S, C)``, ``(S, N, C)``; ``hard_preds``
+    ``(N, H)`` shared or ``(S, N, H)``) returns ``(S, N)``. Items run in
+    blocks of at most ``chunk`` whose ``(B, C, H, G)`` temporaries stay
+    within ``_DIRECT_TEMP_BYTES``."""
+    if dirichlets.dim() == 4:
+        return _per_replica(eig_scores, dirichlets, pi_hat, pi_hat_xi,
+                            hard_preds, update_weight=update_weight,
+                            num_points=num_points, chunk=chunk)
+    H, C = dirichlets.shape[-3], dirichlets.shape[-1]
+    lead = dirichlets.shape[:-3]
+    aT, bT = _beta_rows(dirichlets)
+    before = compute_pbest(aT, bT, num_points=num_points)      # (..., C, H)
+    mixture0 = (pi_hat[..., :, None] * before).sum(-2)
+    h_before = entropy2(mixture0)
+    classes = torch.arange(C, dtype=hard_preds.dtype,
+                           device=hard_preds.device)
+    N = hard_preds.shape[-2]
+    per_item = 8 * 4 * C * H * num_points * max(1, lead.numel())
+    B = max(1, min(chunk, N, _DIRECT_TEMP_BYTES // per_item))
+    out = []
+    for start in range(0, N, B):
+        eq = _class_eq(hard_preds[..., start:start + B, :], classes)
+        eq = eq.transpose(-3, -2)                              # (..., B, C, H)
+        a_hyp = aT.unsqueeze(-3) + update_weight * eq
+        b_hyp = bT.unsqueeze(-3) + update_weight * (1.0 - eq)
+        hyp = compute_pbest(a_hyp, b_hyp, num_points=num_points)
+        mix = mixture0[..., None, None, :] + pi_hat[..., None, :, None] * (
+            hyp - before.unsqueeze(-3))
+        h_after = entropy2(mix, -1)                            # (..., B, C)
+        out.append(h_before[..., None]
+                   - (pi_hat_xi[..., start:start + B, :] * h_after).sum(-1))
+    return torch.cat(out, -1)
+
+
+def eig_scores_factored(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
+                        pi_hat_xi: torch.Tensor, hard_preds: torch.Tensor,
+                        update_weight: float = 1.0, num_points: int = 256,
+                        chunk: int = 256, precision: str = "highest",
+                        approx: bool = False) -> torch.Tensor:
+    """The factored tier: the same integral as :func:`eig_scores`, with
+    the Beta grid tables of the two hypothetical variants of every class
+    row built once (O(C·H·G) transcendentals, independent of N) and the
+    per-item integral as three products over the model and grid axes a
+    block of ``chunk`` items (``eig_precision`` sets their precision).
+    Returns (N,), or ``(S, N)`` with a leading replica axis (see
+    :func:`eig_scores`), one replica at a time (:func:`_per_replica`)."""
+    if dirichlets.dim() == 4:
+        return _per_replica(eig_scores_factored, dirichlets, pi_hat,
+                            pi_hat_xi, hard_preds, update_weight=update_weight,
+                            num_points=num_points, chunk=chunk,
+                            precision=precision, approx=approx)
+    C = dirichlets.shape[-1]
+    aT, bT = _beta_rows(dirichlets)
+    before = compute_pbest(aT, bT, num_points=num_points)      # (..., C, H)
+    mixture0 = (pi_hat[..., :, None] * before).sum(-2)
+    h_before = entropy2(mixture0, approx=approx)
+    x = pbest_grid(num_points, aT.device)
+    dx = x[1] - x[0]
+    w_trapz = _trapz_weights(num_points, dx)
+    tables = _bump_tables(aT, bT, x, dx, update_weight)
+    classes = torch.arange(C, dtype=hard_preds.dtype,
+                           device=hard_preds.device)
+    N = hard_preds.shape[-2]
+    B = max(1, min(chunk, N))
+    out = []
+    for start in range(0, N, B):
+        eq = _class_eq(hard_preds[..., start:start + B, :], classes)
+        hyp = _pbest_hyp_from_tables(tables, eq, w_trapz, precision)
+        out.append(h_before[..., None] - _class_entropy_drop(
+            hyp, mixture0, pi_hat, before,
+            pi_hat_xi[..., start:start + B, :], approx))
+    return torch.cat(out, -1)
+
+
+def _rowscan_rows(lead: int, H: int, B: int, num_points: int) -> int:
+    """Class rows a step of the row-scanned tier: as many as keep the
+    step's tables (four (H, G) and two bump variants' grids) and block
+    temporaries (a few (B, G) and (B, H)) within ``_ROWSCAN_TEMP_BYTES``."""
+    G = num_points
+    per_row = 4 * lead * (8 * H * G + B * (3 * G + 8 * H))
+    return max(1, _ROWSCAN_TEMP_BYTES // per_row)
+
+
+def eig_scores_rowscan(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
+                       pi_hat_xi: torch.Tensor, hard_preds: torch.Tensor,
+                       update_weight: float = 1.0, num_points: int = 256,
+                       chunk: int = 256, precision: str = "highest",
+                       approx: bool = False) -> torch.Tensor:
+    """The row-scanned tier: the factored integral visiting class rows in
+    groups, each group's tables built, used over every block of ``chunk``
+    items and dropped, its expected-entropy terms added into a running
+    (N,) sum. The reference scans one row at a time (O(H·G) tables); here
+    a group holds as many rows as keep a step's temporaries within
+    ``_ROWSCAN_TEMP_BYTES``, which cuts the launches C-fold where memory
+    allows (at the ImageNet-scale pool, C = 1000 rows a round). Products
+    as the factored tier's. Returns (N,), or ``(S, N)`` one replica at a
+    time (:func:`_per_replica`)."""
+    if dirichlets.dim() == 4:
+        return _per_replica(eig_scores_rowscan, dirichlets, pi_hat,
+                            pi_hat_xi, hard_preds, update_weight=update_weight,
+                            num_points=num_points, chunk=chunk,
+                            precision=precision, approx=approx)
+    H, C = dirichlets.shape[-3], dirichlets.shape[-1]
+    lead = max(1, dirichlets.shape[:-3].numel())
+    aT, bT = _beta_rows(dirichlets)
+    N = hard_preds.shape[-2]
+    B = max(1, min(chunk, N))
+    R = _rowscan_rows(lead, H, B, num_points)
+    before = compute_pbest_rows(aT, bT, num_points=num_points, row_chunk=R)
+    mixture0 = (pi_hat[..., :, None] * before).sum(-2)
+    h_before = entropy2(mixture0, approx=approx)
+    x = pbest_grid(num_points, aT.device)
+    dx = x[1] - x[0]
+    w_trapz = _trapz_weights(num_points, dx)
+    classes = torch.arange(C, dtype=hard_preds.dtype,
+                           device=hard_preds.device)
+    acc = torch.zeros(h_before.shape + (N,), dtype=torch.float32,
+                      device=aT.device)
+    for c0 in range(0, C, R):
+        rows = slice(c0, c0 + R)
+        tables = _bump_tables(aT[..., rows, :], bT[..., rows, :], x, dx,
+                              update_weight)
+        for start in range(0, N, B):
+            items = slice(start, start + B)
+            eq = _class_eq(hard_preds[..., items, :], classes[rows])
+            hyp = _pbest_hyp_from_tables(tables, eq, w_trapz, precision)
+            acc[..., items] += _class_entropy_drop(
+                hyp, mixture0, pi_hat[..., rows], before[..., rows, :],
+                pi_hat_xi[..., items, rows], approx)
+    return h_before[..., None] - acc
+
+
 # -- the P(best) cache ---------------------------------------------------------
-
-def _pbest_hyp_block(eq, S0, dlogcdf, F_u, dF, w_trapz):
-    """Hypothetical P(best) for a block of items: ``eq`` (B, C, H) ->
-    (B, C, H). Three fp32 contractions over the model and grid axes; the
-    max-shift of S per (n, c) is the reference's underflow guard."""
-    S = S0[None] + torch.einsum("bch,chg->bcg", eq, dlogcdf)
-    S = S - S.amax(-1, keepdim=True)
-    wE = w_trapz * torch.exp(S)                       # (B, C, G)
-    t_base = torch.einsum("bcg,chg->bch", wE, F_u)
-    t_diff = torch.einsum("bcg,chg->bch", wE, dF)
-    unnorm = t_base + eq * t_diff
-    return unnorm / torch.clamp_min(unnorm.sum(-1, keepdim=True), _EPS)
-
 
 def build_eig_cache(dirichlets: torch.Tensor, hard_preds: torch.Tensor,
                     update_weight: float = 1.0, num_points: int = 256,
-                    chunk: int = 256,
+                    chunk: int = 256, precision: str = "highest",
                     cache_dtype: torch.dtype = torch.float32
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The full ``(pbest_rows (C, H), pbest_hyp (C, N, H))`` cache: one
-    factored pass over all N items and C class rows, in ``chunk``-item
-    blocks written straight into the ``(C, N, H)`` layout. The math is
-    fp32; ``cache_dtype`` is the storage type of ``pbest_hyp`` (each block
-    rounded to nearest even on the way in)."""
+    """The full ``(pbest_rows (C, H), pbest_hyp (C, N, H))`` cache: the
+    factored tier's tables and products over all N items and C class rows
+    (at ``precision``), in ``chunk``-item blocks written straight into the
+    ``(C, N, H)`` layout. The math is fp32; ``cache_dtype`` is the storage
+    type of ``pbest_hyp`` (each block rounded to nearest even on the way
+    in)."""
     H, C, _ = dirichlets.shape
     N = hard_preds.shape[0]
-    a_cc, b_cc = dirichlet_to_beta(dirichlets)
-    aT, bT = a_cc.T, b_cc.T                           # (C, H)
+    aT, bT = _beta_rows(dirichlets)
     pbest_rows = compute_pbest(aT, bT, num_points=num_points)
     x = pbest_grid(num_points, dirichlets.device)
     dx = x[1] - x[0]
     w_trapz = _trapz_weights(num_points, dx)
-    S0, dlogcdf, F_u, dF = _bump_tables(aT, bT, x, dx, update_weight)
+    tables = _bump_tables(aT, bT, x, dx, update_weight)
     classes = torch.arange(C, dtype=hard_preds.dtype, device=hard_preds.device)
     hyp = torch.empty((C, N, H), dtype=cache_dtype, device=dirichlets.device)
     B = max(1, min(chunk, N))
     for start in range(0, N, B):
-        pred_b = hard_preds[start:start + B]          # (B, H)
-        eq = (pred_b[:, None, :] == classes[None, :, None]).to(torch.float32)
-        blk = _pbest_hyp_block(eq, S0, dlogcdf, F_u, dF, w_trapz)
-        hyp[:, start:start + B] = blk.transpose(0, 1)
+        eq = _class_eq(hard_preds[start:start + B], classes)   # (C, B, H)
+        hyp[:, start:start + B] = _pbest_hyp_from_tables(tables, eq, w_trapz,
+                                                         precision)
     return pbest_rows, hyp
 
 
@@ -351,28 +672,42 @@ def row_beta(dirichlets: torch.Tensor, true_class: torch.Tensor):
     """``(a_t, b_t)`` (H,): the diagonal-Beta parameters of class row
     ``true_class`` (a 0-d device tensor; no host synchronisation).
     Seed-batched: ``(S, H, C, C)`` posteriors and ``(S,)`` classes give
-    ``(S, H)``, replica s's row ``true_class[s]``."""
-    a_cc, b_cc = dirichlet_to_beta(dirichlets)       # (..., H, C)
-    if dirichlets.dim() == 3:
-        c = true_class.reshape(1).to(torch.int64)
-        return a_cc.index_select(1, c)[:, 0], b_cc.index_select(1, c)[:, 0]
-    c = true_class.to(torch.int64)[:, None, None].expand(-1, a_cc.shape[1], 1)
-    return a_cc.gather(-1, c)[..., 0], b_cc.gather(-1, c)[..., 0]
+    ``(S, H)``, replica s's row ``true_class[s]``. The row is taken first
+    and reduced alone — the same reduction as the sparse posterior's
+    parity layout, so ``sparse:K>=C`` stays bitwise dense on the card."""
+    row = _take_row(dirichlets, true_class)                    # (..., H, C)
+    c = true_class.to(torch.int64).reshape(true_class.shape + (1, 1))
+    a_t = row.gather(-1, c.expand(*row.shape[:-1], 1))[..., 0]
+    return a_t, row.sum(-1) - a_t
 
 
-def update_eig_cache_parts(dirichlets: torch.Tensor, true_class: torch.Tensor,
-                           hard_preds: torch.Tensor, update_weight: float = 1.0,
-                           num_points: int = 256):
+def update_eig_cache_parts(dirichlets: Optional[torch.Tensor],
+                           true_class: torch.Tensor, hard_preds: torch.Tensor,
+                           update_weight: float = 1.0, num_points: int = 256,
+                           precision: str = "highest", beta_t=None,
+                           pbest: str = "quad"):
     """The refreshed values of class row ``true_class`` without writing
     them: ``(row_t (H,), hyp_t (N, H))``. ``dirichlets`` already holds the
-    new label; ``true_class`` is a 0-d device tensor. Seed-batched:
-    ``(S, H, C, C)`` and ``(S,)`` give ``((S, H), (S, N, H))``."""
-    a_t, b_t = row_beta(dirichlets, true_class)
+    new label; ``true_class`` is a 0-d device tensor. ``beta_t``: the
+    row's ``(a_t, b_t)`` when the caller has them (the sparse posterior's
+    O(H·K) reduction; ``dirichlets`` may then be None). ``pbest=
+    'amortized'``: the row's hypothetical integral on the logistic-normal
+    tables where its ``min(a_t + b_t) >= _AMORTIZED_MIN_CONC``, chosen on
+    the device; ``row_t`` is always the quadrature's. Seed-batched:
+    ``(S, ...)`` and ``(S,)`` give ``((S, H), (S, N, H))``."""
+    a_t, b_t = beta_t if beta_t is not None else row_beta(dirichlets,
+                                                          true_class)
     # (N, H) bool, or (S, N, H) with each replica's own class; compared in
     # hard_preds' int32 (an int64 class would widen the whole pass)
     c = true_class.to(hard_preds.dtype)
     eq_t = hard_preds == c.reshape(c.shape + (1, 1))
-    hyp_t = _pbest_hyp_row(a_t, b_t, eq_t, update_weight, num_points)
+    if pbest == "amortized":
+        hyp_t = _pbest_hyp_row_gated(a_t, b_t, eq_t, update_weight,
+                                     num_points, _AMORTIZED_MIN_CONC,
+                                     precision)
+    else:
+        hyp_t = _pbest_hyp_row(a_t, b_t, eq_t, update_weight, num_points,
+                               precision)
     row_t = compute_pbest(a_t, b_t, num_points=num_points)
     return row_t, hyp_t
 
@@ -388,6 +723,15 @@ def _disagreement_mask(hard_preds: torch.Tensor, C: int) -> torch.Tensor:
     return (hard_preds != maj[:, None]).any(-1)
 
 
+def _replicate(t, S: int):
+    """S writable copies of a state field along a new leading axis."""
+    if t is None:
+        return None
+    if isinstance(t, SparseRows):
+        return SparseRows(*(_replicate(x, S) for x in t))
+    return t.unsqueeze(0).repeat(S, *[1] * t.dim())
+
+
 # -- the selector --------------------------------------------------------------
 
 def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
@@ -396,10 +740,13 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
 
     Runs on ``device`` (default: the card; ``device="cpu"`` runs the plain
     versions). The statics — hard predictions, disagreement mask, the
-    confusion prior and the ``(C, H, N)`` gather layout — are built once
-    here; ``init``/``select``/``update``/``best`` keep everything on the
-    device and never synchronise with the host. So does the seed-batched
-    form, ``Selector.batched`` (None for the fused refresh).
+    confusion prior and (incremental tier, delta pi-hat) the ``(C, H, N)``
+    gather layout — are built once here. ``init``/``select``/``update``/
+    ``best`` keep everything on the device, and read nothing back to the
+    host but one flag a round under ``prefilter_n`` (the reference's
+    ``lax.cond`` between the prefiltered and the full pool). So does the
+    seed-batched form, ``Selector.batched`` (None for the fused refresh).
+    ``extras["eig_mode"]`` names the resolved tier.
     """
     hp = hp or CODAHyperparams()
     dev = resolve_device(device)
@@ -407,7 +754,14 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
     H, N, C = preds.shape
     check_supported(hp, N)
-    resolve_eig_mode(hp, H, N, C)
+    eig_mode = resolve_eig_mode(hp, H, N, C)
+    check_tier(hp, eig_mode)
+    precision = resolve_precision(hp.eig_precision)
+    pi_update = resolve_pi_update(hp, N)
+    sparse_k = parse_posterior(hp.posterior)
+    incremental = eig_mode == "incremental"
+    use_prefilter = bool(hp.q == "eig" and hp.prefilter_n
+                         and hp.prefilter_n < N)
     prior_strength = 1.0 - hp.alpha
     update_strength = hp.learning_rate
     cache_dtype = getattr(torch, hp.eig_cache_dtype)
@@ -430,68 +784,224 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     disagree = _disagreement_mask(hard_preds, C)                   # (N,)
     ens_hard = ensemble_preds(preds).argmax(-1)
     soft_conf = create_confusion_matrices(ens_hard, preds, mode="soft")
-    dirichlets0 = hp.multiplier * initialize_dirichlets(
-        soft_conf, prior_strength, hp.disable_diag_prior)
-    preds_by_class = prep_gather_layout(preds)                     # (C, H, N)
+    # contiguous: the prior comes out of its contraction in a transposed
+    # layout, and a reduction over another layout may sum in another order
+    # (a replica of the seed-batched state is contiguous)
+    dirichlets0 = (hp.multiplier * initialize_dirichlets(
+        soft_conf, prior_strength, hp.disable_diag_prior)).contiguous()
+    preds_by_class = (prep_gather_layout(preds)                    # (C, H, N)
+                      if incremental and pi_update == "delta" else None)
+    unc_scores = uncertainty_scores(preds) if hp.q == "uncertainty" else None
+
+    if eig_mode == "direct":
+        eig_fn, eig_kwargs = eig_scores, {}
+    else:
+        eig_fn = (eig_scores_rowscan if eig_mode == "rowscan"
+                  else eig_scores_factored)
+        eig_kwargs = {"precision": precision, "approx": approx}
+
+    def _tier_scores(state: CODAState, pi_xi, hard, chunk):
+        return eig_fn(state.dirichlets, state.pi_hat, pi_xi, hard,
+                      num_points=hp.num_points, chunk=chunk, **eig_kwargs)
 
     def _initial_state() -> CODAState:
         """The deterministic initial state, before its score-ahead."""
         unnorm = pi_unnorm(dirichlets0, preds)
         pi_xi, pi = _normalize_pi(unnorm)
-        rows, hyp = build_eig_cache(dirichlets0, hard_preds,
-                                    num_points=hp.num_points,
-                                    chunk=hp.eig_chunk,
-                                    cache_dtype=cache_dtype)
+        rows = hyp = None
+        if incremental:
+            rows, hyp = build_eig_cache(dirichlets0, hard_preds,
+                                        num_points=hp.num_points,
+                                        chunk=hp.eig_chunk,
+                                        precision=precision,
+                                        cache_dtype=cache_dtype)
+        sparse = (sparsify(dirichlets0, sparse_k) if sparse_k is not None
+                  else None)
         return CODAState(
-            dirichlets=dirichlets0.clone(),
+            dirichlets=None if sparse is not None else dirichlets0.clone(),
             pi_hat_xi=pi_xi,
             pi_hat=pi,
             unlabeled=torch.ones(N, dtype=torch.bool, device=dev),
             pbest_rows=rows,
             pbest_hyp=hyp,
-            pi_xi_unnorm=unnorm,
+            pi_xi_unnorm=unnorm if incremental else None,
             eig_scores_cached=None,
+            sparse=sparse,
         )
 
     def init(key=None) -> CODAState:
         del key  # CODA's initialisation is deterministic
         st = _initial_state()
+        if not incremental:
+            return st
         # score-ahead: the next select reads these
         return st._replace(eig_scores_cached=score_fn(
             st.pbest_rows, st.pbest_hyp, st.pi_hat, st.pi_hat_xi,
             chunk=hp.eig_chunk, approx=approx))
 
-    def select(state: CODAState, key: torch.Tensor) -> SelectResult:
-        _k_sub, k_tie = trandom.split(key)
-        # reference order: the disagreement filter first; an empty set
-        # falls back to every unlabeled point
-        cand0 = disagree & state.unlabeled
-        cand = torch.where(cand0.any(), cand0, state.unlabeled)
-        scores = state.eig_scores_cached
+    # -- select: one form for a state with or without a replica axis ------
+
+    def _eig_select_full(state: CODAState, cand, k_tie) -> SelectResult:
+        """Every point scored, the candidates masked at argmax time."""
+        if incremental:
+            scores = state.eig_scores_cached
+        else:
+            scores = _tier_scores(state, state.pi_hat_xi, hard_preds,
+                                  hp.eig_chunk)
         idx, n_ties = masked_argmax_tiebreak(k_tie, scores, cand,
                                              rtol=_TIE_RTOL, atol=_TIE_ATOL)
-        # a new tensor: ``update`` rewrites the state in place but not this
-        return SelectResult(idx=idx, prob=scores.take(idx),
+        return SelectResult(idx=idx,
+                            prob=scores.gather(-1, idx[..., None])[..., 0],
                             stochastic=n_ties > 1,
                             scores=torch.where(cand, scores, float("-inf")))
 
-    def update(state: CODAState, idx, true_class, prob=None) -> CODAState:
-        """One label, applied IN PLACE to ``state``'s tensors; returns the
-        state with the new pi-hat and scores."""
-        del prob
-        c = true_class.reshape(1).to(torch.int64)
-        pred_at = hard_preds.index_select(0, idx.reshape(1).to(torch.int64))[0]
+    def _eig_select_prefiltered(state: CODAState, cand, k_sub, k_tie
+                         ) -> SelectResult:
+        """EIG on ``prefilter_n`` candidates drawn uniformly (the top of
+        masked uniforms, lower index first among equal values as
+        ``lax.top_k``); with fewer candidates the masked slots are excluded
+        again at argmax time."""
+        K = hp.prefilter_n
+        u = torch.where(cand, trandom.uniform(k_sub, (N,), device=dev), -1.0)
+        cand_idx = torch.sort(u, dim=-1, descending=True,
+                              stable=True).indices[..., :K]      # (..., K)
+        valid = u.gather(-1, cand_idx) >= 0.0
+        pi_xi_sub = state.pi_hat_xi.gather(
+            -2, cand_idx[..., None].expand(*cand_idx.shape, C))
+        scores_sub = _tier_scores(state, pi_xi_sub, hard_preds[cand_idx],
+                                  min(hp.eig_chunk, K))
+        local, n_ties = masked_argmax_tiebreak(
+            k_tie, scores_sub, valid, rtol=_TIE_RTOL, atol=_TIE_ATOL)
+        subsampled = cand.sum(-1) > K
+        # the subset's scores back at full N for the flight recorder
+        scores_full = torch.full(cand.shape, float("-inf"), device=dev)
+        scores_full.scatter_(-1, cand_idx, torch.where(valid, scores_sub,
+                                                       float("-inf")))
+        return SelectResult(
+            idx=cand_idx.gather(-1, local[..., None])[..., 0],
+            prob=scores_sub.gather(-1, local[..., None])[..., 0],
+            stochastic=(n_ties > 1) | subsampled,
+            scores=scores_full)
+
+    def _select(state: CODAState, k_sub, k_tie) -> SelectResult:
+        # reference order: the disagreement filter first; an empty set
+        # falls back to every unlabeled point, which is never subsampled
+        cand0 = disagree & state.unlabeled
+        may_subsample = cand0.any(-1, keepdim=True)
+        cand = torch.where(may_subsample, cand0, state.unlabeled)
+        may_subsample = may_subsample[..., 0]
+        if hp.q == "eig" and not use_prefilter:
+            return _eig_select_full(state, cand, k_tie)
+        if use_prefilter:
+            # the reference's lax.cond: one flag read back a round
+            if bool(may_subsample.all()):
+                return _eig_select_prefiltered(state, cand, k_sub, k_tie)
+            full = _eig_select_full(state, cand, k_tie)
+            if not bool(may_subsample.any()):
+                return full
+            # replicas differ (seed-batched): each takes its own branch
+            sub = _eig_select_prefiltered(state, cand, k_sub, k_tie)
+            return SelectResult(*(
+                torch.where(may_subsample.reshape(
+                    may_subsample.shape + (1,) * (a.dim() - 1)), a, b)
+                for a, b in zip(sub, full)))
+        # the ablation acquisitions subsample the mask before scoring, so
+        # the iid probability is 1/|pool| of the subsampled pool
+        subsampled = torch.zeros_like(may_subsample)
+        if hp.prefilter_n and hp.prefilter_n < N:
+            K = hp.prefilter_n
+            u = torch.where(cand, trandom.uniform(k_sub, (N,), device=dev),
+                            -1.0)
+            kth = torch.sort(u, dim=-1).values[..., N - K]
+            take = may_subsample & (cand.sum(-1) > K)
+            cand = torch.where(take[..., None], cand & (u >= kth[..., None]),
+                               cand)
+            subsampled = take
+        if hp.q == "iid":
+            scores = torch.ones(cand.shape, device=dev) / torch.clamp_min(
+                cand.sum(-1, keepdim=True), 1)
+        else:
+            scores = unc_scores.expand(cand.shape)
+        idx, n_ties = masked_argmax_tiebreak(k_tie, scores, cand,
+                                             rtol=_TIE_RTOL, atol=_TIE_ATOL)
+        return SelectResult(idx=idx,
+                            prob=scores.gather(-1, idx[..., None])[..., 0],
+                            stochastic=(n_ties > 1) | subsampled,
+                            scores=torch.where(cand, scores, float("-inf")))
+
+    def select(state: CODAState, key: torch.Tensor) -> SelectResult:
+        k_sub, k_tie = trandom.split(key)
+        return _select(state, k_sub, k_tie)
+
+    # -- update: one form for a state with or without a replica axis ------
+
+    def _pred_rows(idx):
+        """Each model's hard prediction at ``idx``: (H,) or (S, H)."""
+        return hard_preds.index_select(0, idx.reshape(-1).to(torch.int64)) \
+            .reshape(idx.shape + (H,))
+
+    def _add_label(state: CODAState, idx, true_class):
+        """The label into the posterior IN PLACE; returns ``(pred_at,
+        beta_t)`` — ``beta_t`` the sparse row's ``(a_t, b_t)``, else
+        None."""
+        pred_at = _pred_rows(idx)
+        if state.sparse is not None:
+            # one-row sparse scatter; the labelled row's Betas from its
+            # O(H·K) compact form, not a dense (H, C, C) pass
+            scatter_row(state.sparse, true_class, pred_at, update_strength)
+            return pred_at, sparse_row_beta(state.sparse, true_class)
         onehot = F.one_hot(pred_at.to(torch.int64), C).to(torch.float32)
-        state.dirichlets.index_add_(1, c, (update_strength * onehot)[:, None])
-        pi_xi, pi, unnorm = update_pi_hat_column_delta(
-            true_class, pred_at, preds_by_class, state.pi_xi_unnorm,
-            update_strength, gather_fn=gather_fn)
+        c = true_class.to(torch.int64)
+        if c.dim() == 0:
+            state.dirichlets.index_add_(1, c.reshape(1),
+                                        (update_strength * onehot)[:, None])
+        else:
+            rep = torch.arange(c.shape[0], device=dev)
+            state.dirichlets[rep, :, c] += update_strength * onehot
+        return pred_at, None
+
+    def _update_pi(state: CODAState, true_class, pred_at):
+        """The incremental tier's pi-hat column: the delta increment
+        (kernel 3) or the exact column recompute."""
+        if pi_update == "delta":
+            if true_class.dim() == 0:
+                return update_pi_hat_column_delta(
+                    true_class, pred_at, preds_by_class, state.pi_xi_unnorm,
+                    update_strength, gather_fn=gather_fn)
+            delta = update_strength * gather_s_fn(preds_by_class, pred_at)
+            _put_col(state.pi_xi_unnorm, true_class, delta, add=True)
+            pi_xi, pi = _normalize_pi(state.pi_xi_unnorm)
+            return pi_xi, pi, state.pi_xi_unnorm
+        d_t = (densify_row(state.sparse, true_class)
+               if state.sparse is not None
+               else _take_row(state.dirichlets, true_class))
+        return update_pi_hat_column_from_row(d_t, true_class, preds,
+                                             state.pi_xi_unnorm)
+
+    def _update(state: CODAState, idx, true_class) -> CODAState:
+        """One label per replica, applied IN PLACE to ``state``'s tensors;
+        returns the state with the new pi-hat (and, on the incremental
+        tier, scores)."""
+        pred_at, beta_t = _add_label(state, idx, true_class)
+        batched = true_class.dim() > 0
+        unlabeled = state.unlabeled
+        if batched:
+            rep = torch.arange(idx.shape[0], device=dev)
+            unlabeled[rep, idx.to(torch.int64)] = False
+        else:
+            unlabeled.index_fill_(0, idx.reshape(1).to(torch.int64), False)
+        if not incremental:
+            pi_xi, pi = update_pi_hat(state.dirichlets, preds)
+            return state._replace(pi_hat_xi=pi_xi, pi_hat=pi)
+        pi_xi, pi, unnorm = _update_pi(state, true_class, pred_at)
+        c = true_class.to(torch.int64)
         if fused:
             # the class row is computed inside the scoring pass (kernel 6)
             # from the labelled class's Beta tables
-            a_t, b_t = row_beta(state.dirichlets, true_class)
+            a_t, b_t = (beta_t if beta_t is not None
+                        else row_beta(state.dirichlets, true_class))
             row_t = compute_pbest(a_t, b_t, num_points=hp.num_points)
-            state.pbest_rows.index_copy_(0, c, row_t[None])
+            state.pbest_rows.index_copy_(0, c.reshape(1), row_t[None])
             scores, hyp = compute_fn(
                 state.pbest_rows, state.pbest_hyp, a_t, b_t, hard_preds,
                 true_class, pi, pi_xi, num_points=hp.num_points,
@@ -499,20 +1009,51 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         else:
             row_t, hyp_t = update_eig_cache_parts(
                 state.dirichlets, true_class, hard_preds,
-                num_points=hp.num_points)
-            state.pbest_rows.index_copy_(0, c, row_t[None])
-            scores, hyp = refresh_fn(state.pbest_rows, state.pbest_hyp,
-                                     hyp_t, true_class, pi, pi_xi,
-                                     chunk=hp.eig_chunk, approx=approx)
-        state.unlabeled.index_fill_(0, idx.reshape(1).to(torch.int64), False)
+                num_points=hp.num_points, precision=precision,
+                beta_t=beta_t, pbest=hp.eig_pbest)
+            if batched:
+                state.pbest_rows[rep, c] = row_t
+                scores, hyp = refresh_s_fn(
+                    state.pbest_rows, state.pbest_hyp, hyp_t, c, pi, pi_xi,
+                    chunk=hp.eig_chunk, approx=approx)
+            else:
+                state.pbest_rows.index_copy_(0, c.reshape(1), row_t[None])
+                scores, hyp = refresh_fn(
+                    state.pbest_rows, state.pbest_hyp, hyp_t, true_class,
+                    pi, pi_xi, chunk=hp.eig_chunk, approx=approx)
         return state._replace(pi_hat_xi=pi_xi, pi_hat=pi, pi_xi_unnorm=unnorm,
                               pbest_hyp=hyp, eig_scores_cached=scores)
 
+    def update(state: CODAState, idx, true_class, prob=None) -> CODAState:
+        """One label, applied IN PLACE to ``state``'s tensors; returns the
+        state with the new pi-hat (and scores)."""
+        del prob
+        return _update(state, idx, true_class)
+
+    def _pbest_recomputed(dirichlets, pi_hat):
+        """P(best) of one replica's posterior, off the incremental tier."""
+        if eig_mode != "rowscan":
+            return pbest_row_mixture(dirichlets, pi_hat,
+                                     num_points=hp.num_points)
+        # large C: the (C, H, G) temporary in row groups
+        aT, bT = _beta_rows(dirichlets)
+        rows = compute_pbest_rows(
+            aT, bT, num_points=hp.num_points,
+            row_chunk=_rowscan_rows(1, H, 1, hp.num_points))
+        return (pi_hat[:, None] * rows).sum(0)
+
     def get_pbest(state: CODAState) -> torch.Tensor:
-        # the cached per-row P(best) is compute_pbest of the current
-        # posterior; only the pi-hat mixture is recomputed ((S, H) for a
-        # batched state)
-        return (state.pi_hat[..., :, None] * state.pbest_rows).sum(-2)
+        """P(best) under the current posterior: ``(H,)``, or ``(S, H)``
+        for a batched state."""
+        if incremental:
+            # the cached per-row P(best) is compute_pbest of the current
+            # posterior; only the pi-hat mixture is recomputed
+            return (state.pi_hat[..., :, None] * state.pbest_rows).sum(-2)
+        if state.dirichlets.dim() == 4:
+            # one replica at a time, bitwise its one-seed readout
+            return torch.stack([_pbest_recomputed(d, p) for d, p in
+                                zip(state.dirichlets, state.pi_hat)])
+        return _pbest_recomputed(state.dirichlets, state.pi_hat)
 
     def best(state: CODAState, key=None):
         del key  # plain argmax, as the reference
@@ -524,57 +1065,34 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     def init_batched(S: int) -> CODAState:
         """S writable replicas of the deterministic initial state (the
         cache is built once and copied: ``update`` writes each replica in
-        place), then one launch of kernel 4 for every replica's
-        score-ahead."""
-        st = CODAState(*(t.unsqueeze(0).repeat(S, *[1] * t.dim())
-                         for t in _initial_state()[:-1]), None)
+        place), then, on the incremental tier, one launch of kernel 4 for
+        every replica's score-ahead."""
+        st = CODAState(*(_replicate(t, S) for t in _initial_state()))
+        if not incremental:
+            return st
         return st._replace(eig_scores_cached=score_s_fn(
             st.pbest_rows, st.pbest_hyp, st.pi_hat, st.pi_hat_xi,
             chunk=hp.eig_chunk, approx=approx))
 
     def select_keys(keys: torch.Tensor) -> torch.Tensor:
         # select's own split of its key (``select`` above), on the host:
-        # the tie-break draws from the second half
-        return trandom.split(keys)[..., 1, :]
+        # (..., 2, 2), the subsample key then the tie-break key
+        return trandom.split(keys)
 
-    def select_batched(state: CODAState, k_tie: torch.Tensor
-                       ) -> SelectResult:
-        """One pick per replica; ``k_tie`` (S, 2) on the state's device,
+    def select_batched(state: CODAState, keys: torch.Tensor) -> SelectResult:
+        """One pick per replica; ``keys`` (S, 2, 2) on the state's device,
         rows of :func:`select_keys`."""
-        cand0 = disagree & state.unlabeled                         # (S, N)
-        cand = torch.where(cand0.any(-1, keepdim=True), cand0,
-                           state.unlabeled)
-        scores = state.eig_scores_cached
-        idx, n_ties = masked_argmax_tiebreak(k_tie, scores, cand,
-                                             rtol=_TIE_RTOL, atol=_TIE_ATOL)
-        return SelectResult(idx=idx, prob=scores.gather(1, idx[:, None])[:, 0],
-                            stochastic=n_ties > 1,
-                            scores=torch.where(cand, scores, float("-inf")))
+        return _select(state, keys[:, 0], keys[:, 1])
 
     def update_batched(state: CODAState, idx, true_class, prob=None
                        ) -> CODAState:
         """One label per replica, ``idx`` and ``true_class`` (S,), applied
-        IN PLACE: each replica's Dirichlet row, pi-hat column (batched
-        kernel 3), P(best) row, and cache row with the scores (kernel 5,
-        one launch for all replicas)."""
+        IN PLACE: on the incremental tier each replica's posterior row,
+        pi-hat column (batched kernel 3, or the exact column), P(best) row,
+        and cache row with the scores (kernel 5, one launch for all
+        replicas); elsewhere the posterior rows and the full pi-hat."""
         del prob
-        rep = torch.arange(idx.shape[0], device=dev)
-        c = true_class.to(torch.int64)
-        pred_at = hard_preds.index_select(0, idx.to(torch.int64))  # (S, H)
-        onehot = F.one_hot(pred_at.to(torch.int64), C).to(torch.float32)
-        state.dirichlets[rep, :, c] += update_strength * onehot
-        delta = update_strength * gather_s_fn(preds_by_class, pred_at)
-        state.pi_xi_unnorm[rep, :, c] += delta
-        pi_xi, pi = _normalize_pi(state.pi_xi_unnorm)
-        row_t, hyp_t = update_eig_cache_parts(
-            state.dirichlets, c, hard_preds, num_points=hp.num_points)
-        state.pbest_rows[rep, c] = row_t
-        scores, hyp = refresh_s_fn(state.pbest_rows, state.pbest_hyp, hyp_t,
-                                   c, pi, pi_xi, chunk=hp.eig_chunk,
-                                   approx=approx)
-        state.unlabeled[rep, idx.to(torch.int64)] = False
-        return state._replace(pi_hat_xi=pi_xi, pi_hat=pi, pbest_hyp=hyp,
-                              eig_scores_cached=scores)
+        return _update(state, idx, true_class.to(torch.int64))
 
     def best_batched(state: CODAState):
         pbest = get_pbest(state)                                   # (S, H)
@@ -591,7 +1109,8 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         always_stochastic=False,
         hyperparams=dict(hp._asdict()),
         hyperparam_defaults=dict(CODAHyperparams()._asdict()),
-        extras={"get_pbest": get_pbest, "hard_preds": hard_preds,
+        extras={"get_pbest": get_pbest, "eig_scores": eig_scores,
+                "eig_mode": eig_mode, "hard_preds": hard_preds,
                 "preds_by_class": preds_by_class},
         batched=batched,
     )

@@ -73,14 +73,15 @@ class BatchedSelector:
     """A method's seed-batched form: S replicas in one state.
 
         init(S)                            -> state (leading axis S)
-        select_keys(keys)                  -> host tensor (..., 2)
+        select_keys(keys)                  -> host tensor (..., 2[, 2])
         select(state, keys)                -> SelectResult of (S,) tensors
         update(state, idx, true_class, p)  -> state
         best(state)                        -> ((S,) best models, (S,) bool)
 
     ``select_keys`` is the host side of ``select``'s key use: it maps a
     run's per-replica select keys ``(..., 2)`` (the engine's schedule) to
-    the keys ``select`` draws from, so the engine can compute them for
+    the keys ``select`` draws from (CODA's: both halves of its split,
+    ``(..., 2, 2)``), so the engine can compute them for
     every round before the loop and upload them to the device once;
     ``select`` then takes one round's ``(S, 2)`` rows of them. Replica s
     follows the trajectory the single-replica functions give seed s."""

@@ -5,6 +5,10 @@ or a baseline).
     python scripts/torch_round_profile.py [--shape H,N,C] [--rounds 5]
         [--seeds S] [--eig-refresh precomputed|fused]
         [--eig-cache-dtype float32|bfloat16] [--eig-entropy exact|approx]
+        [--eig-mode incremental|auto|factored|rowscan|direct]
+        [--eig-precision highest|high|default] [--posterior dense|sparse:K]
+        [--eig-pbest quad|amortized] [--pi-update auto|delta|exact]
+        [--multiplier M]
         [--method coda|iid|uncertainty|activetesting|vma|model_picker]
         [--record-topk K] [--out profile.json]
 
@@ -20,8 +24,13 @@ so an operator and the kernels it launched are not counted twice).
 ``--seeds S`` (S > 1) profiles one round of the seed-batched engine: S
 replicas in one state, each round one pass for all of them (kernel 5,
 the batched products, the batched kernel 3); ms/round is then the round
-of all S seeds, and ms/seed-round that over S. ``--method`` profiles a
-baseline instead (one seed; ActiveTesting and VMA with a label buffer of
+of all S seeds, and ms/seed-round that over S. ``--eig-mode`` (default
+``incremental``, the tier every earlier profile ran) picks CODA's EIG
+tier; off the incremental tier a third window of ``--rounds`` rounds
+splits the round's device time, by CUDA events around each part's calls,
+into the Beta tables, the three table products, the integrand and
+normalisation between them, the entropy pass and the full pi-hat
+recompute. ``--method`` profiles a baseline instead (one seed; ActiveTesting and VMA with a label buffer of
 the rounds run, ModelPicker with the default epsilon); ``--record-topk K``
 profiles the flight recorder's round (the same round with its top-K
 scores and posterior digest kept on the device).
@@ -59,6 +68,61 @@ def _group(name: str) -> str:
     return "other PyTorch kernels"
 
 
+# the parts of a recomputing tier's round, by the functions that run them:
+# (part, module attribute); the products are called inside the integrand
+# and are subtracted from it
+_PARTS = (("Beta tables", "coda._beta_rows"), ("Beta tables",
+                                               "coda.compute_pbest"),
+          ("Beta tables", "coda.compute_pbest_rows"),
+          ("Beta tables", "coda._bump_tables"),
+          ("integrand and normalisation", "coda._pbest_hyp_from_tables"),
+          ("three table products", "pbest.eig_matmul"),
+          ("entropy pass", "coda._class_entropy_drop"),
+          ("pi-hat recompute", "coda.update_pi_hat"))
+
+
+def _split_parts(step, state, cum, keys, rounds: int) -> dict:
+    """Device ms a round of each part in ``_PARTS``: CUDA events around
+    every call of the part's function over ``keys``' rounds."""
+    import torch
+
+    from coda_tpu_torch.ops import pbest
+    from coda_tpu_torch.selectors import coda
+
+    mods = {"coda": coda, "pbest": pbest}
+    pairs: list = []
+    saved = []
+    for part, path in _PARTS:
+        mod_name, attr = path.split(".")
+        mod = mods[mod_name]
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+
+        def timed(*a, _fn=fn, _part=part, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _fn(*a, **k)
+            end.record()
+            pairs.append((_part, start, end))
+            return out
+        setattr(mod, attr, timed)
+    try:
+        for k in keys:
+            state, cum, _ = step(state, cum, k)
+        torch.cuda.synchronize()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    ms: dict = {}
+    for part, start, end in pairs:
+        ms[part] = ms.get(part, 0.0) + start.elapsed_time(end) / rounds
+    if "integrand and normalisation" in ms:
+        ms["integrand and normalisation"] -= ms.get("three table products",
+                                                    0.0)
+    return ms
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--shape", default="1000,50000,10")
@@ -71,6 +135,19 @@ def main(argv=None) -> int:
                    choices=["float32", "bfloat16"])
     p.add_argument("--eig-entropy", default="exact",
                    choices=["exact", "approx"])
+    p.add_argument("--eig-mode", default="incremental",
+                   choices=["incremental", "auto", "factored", "rowscan",
+                            "direct"])
+    p.add_argument("--eig-precision", default="highest",
+                   choices=["highest", "high", "default"])
+    p.add_argument("--posterior", default="dense")
+    p.add_argument("--eig-pbest", default="quad",
+                   choices=["quad", "amortized"])
+    p.add_argument("--pi-update", default="auto",
+                   choices=["auto", "delta", "exact"])
+    p.add_argument("--multiplier", type=float, default=2.0,
+                   help="the prior's multiplier (20 engages the amortized "
+                        "gate at the headline)")
     p.add_argument("--method", default="coda",
                    choices=["coda", "iid", "uncertainty", "activetesting",
                             "vma", "model_picker"])
@@ -110,13 +187,16 @@ def main(argv=None) -> int:
     task = make_synthetic_task(0, H=H, N=N, C=C, device=dev)
     knobs = dict(eig_refresh=args.eig_refresh,
                  eig_cache_dtype=args.eig_cache_dtype,
-                 eig_entropy=args.eig_entropy)
+                 eig_entropy=args.eig_entropy, eig_mode=args.eig_mode,
+                 eig_precision=args.eig_precision, posterior=args.posterior,
+                 eig_pbest=args.eig_pbest, pi_update=args.pi_update,
+                 multiplier=args.multiplier)
     S = args.seeds
-    n_keys = 2 + 2 * args.rounds
+    n_keys = 2 + 3 * args.rounds
     if args.method == "coda":
         sel = make_coda(task.preds, CODAHyperparams(
-            eig_chunk=1024, eig_mode="incremental", n_parallel=S, **knobs),
-            device=dev)
+            eig_chunk=1024, n_parallel=S, **knobs), device=dev)
+        knobs["resolved_eig_mode"] = sel.extras["eig_mode"]
     else:
         if S > 1:
             p.error("the baselines have no seed-batched form: --seeds 1")
@@ -166,10 +246,14 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for k in keys[2 + args.rounds:]:
+        for k in keys[2 + args.rounds:2 + 2 * args.rounds]:
             state, cum, _ = step(state, cum, k)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    parts = {}
+    if args.method == "coda" and sel.extras["eig_mode"] != "incremental":
+        parts = _split_parts(step, state, cum, keys[2 + 2 * args.rounds:],
+                             args.rounds)
     rows = []
     for ev in prof.key_averages():
         # device-side events only: a CPU operator's "self device time" is
@@ -201,6 +285,7 @@ def main(argv=None) -> int:
         "device_share_of_unprofiled_round": device_ms / round_ms,
         "groups_ms_per_round": dict(sorted(groups.items(),
                                            key=lambda kv: -kv[1])),
+        "parts_ms_per_round_by_events": parts,
         "top_ops": rows[:25],
     }
     if args.out:
@@ -219,6 +304,9 @@ def main(argv=None) -> int:
           f"{device_ms / round_ms:.3f} of the unprofiled round")
     for g, ms in summary["groups_ms_per_round"].items():
         print(f"  {g}: {ms:.3f} ms/round")
+    for part, ms in parts.items():
+        print(f"  part (CUDA events, another window): {part}: {ms:.3f} "
+              "ms/round")
     for r in rows[:12]:
         print(f"  {r['device_ms_per_round']:8.3f} ms  x{r['count']:<4d} "
               f"{r['name'][:90]}")

@@ -359,8 +359,10 @@ def test_batched_update_equals_single_replica_updates():
     bsel, S = sel.batched, 3
     state = bsel.init(S)
     single = [sel.init() for _ in range(S)]
+    fields = [f for f in tcoda.CODAState._fields
+              if getattr(state, f) is not None]       # dense: no sparse rows
     for s in range(S):
-        for f in tcoda.CODAState._fields:
+        for f in fields:
             assert torch.equal(getattr(state, f)[s], getattr(single[s], f)), f
     keys = trandom.split(trandom.PRNGKey(9), S)
     for r in range(3):
@@ -375,7 +377,7 @@ def test_batched_update_equals_single_replica_updates():
             single[s] = sel.update(single[s], one.idx, labels[s], one.prob)
             assert int(sel.best(single[s])[0]) == int(b_best[s])
     for s in range(S):
-        for f in tcoda.CODAState._fields:
+        for f in fields:
             torch.testing.assert_close(getattr(state, f)[s],
                                        getattr(single[s], f), rtol=1e-6,
                                        atol=1e-7, msg=f)
@@ -467,9 +469,10 @@ def test_cli_batches_seeds(capsys):
 
 def test_cli_headline_five_seeds_needs_incremental():
     """--synthetic 1000,50000,10 --seeds 5: auto resolves past the
-    incremental budget over the five replicas, as the reference does (5 x
-    4.0 GB > 4 GiB), and names --eig-mode incremental; with that flag the
-    tier resolves. Checked through resolve_eig_mode, no allocation."""
+    incremental budget over the five replicas (5 x 4.0 GB > 4 GiB) to the
+    factored tier, as the reference does; --eig-mode incremental keeps the
+    incremental tier, and so does one seed. Checked through
+    resolve_eig_mode, no allocation."""
     from coda_tpu.selectors import CODAHyperparams
     from coda_tpu.selectors.coda import resolve_eig_mode
     from coda_tpu_torch.cli import hyperparams, parse_args
@@ -478,10 +481,8 @@ def test_cli_headline_five_seeds_needs_incremental():
     argv = ["--synthetic", ",".join(map(str, shape)), "--seeds", "5"]
     hp = hyperparams(parse_args(argv))
     assert hp.n_parallel == 5 and hp.eig_mode == "auto"
-    with pytest.raises(NotImplementedError, match="--eig-mode incremental"):
-        tcoda.resolve_eig_mode(hp, *shape)
-    assert resolve_eig_mode(CODAHyperparams(n_parallel=5), *shape) != \
-        "incremental"
+    assert tcoda.resolve_eig_mode(hp, *shape) == "factored" == \
+        resolve_eig_mode(CODAHyperparams(n_parallel=5), *shape)
     hp1 = hyperparams(parse_args(argv[:2] + ["--seeds", "1"]))
     assert tcoda.resolve_eig_mode(hp1, *shape) == "incremental"
     hpi = hyperparams(parse_args(argv + ["--eig-mode", "incremental"]))

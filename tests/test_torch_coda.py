@@ -187,7 +187,7 @@ def test_convert_refuses_later_slice_fields():
     from coda_tpu_torch.convert import state_from_numpy
 
     with pytest.raises(NotImplementedError, match="later slice"):
-        state_from_numpy({"sparse": np.zeros(3)}, device="cpu")
+        state_from_numpy({"surrogate": np.zeros(3)}, device="cpu")
     with pytest.raises(ValueError, match="missing"):
         state_from_numpy({"dirichlets": np.ones((2, 2, 2))}, device="cpu")
 
@@ -265,12 +265,8 @@ def test_disagreement_mask_matches_reference():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("eig_mode", "factored"), ("eig_mode", "rowscan"), ("eig_mode", "direct"),
-    ("eig_precision", "high"),
-    ("pi_update", "exact"), ("posterior", "sparse:2"),
-    ("eig_pbest", "amortized"), ("eig_scorer", "surrogate:8"),
-    ("surrogate_prior", "pool"), ("q", "iid"), ("q", "uncertainty"),
-    ("prefilter_n", 10), ("shard_spec", "data=2")])
+    ("eig_scorer", "surrogate:8"), ("surrogate_prior", "pool"),
+    ("shard_spec", "data=2")])
 def test_later_slice_knobs_raise(knob, value):
     """Knobs of later slices raise NotImplementedError naming the slice —
     never a silent fallback."""
@@ -278,6 +274,30 @@ def test_later_slice_knobs_raise(knob, value):
     hp = tcoda.CODAHyperparams(**{knob: value})
     with pytest.raises(NotImplementedError, match="slice"):
         tcoda.make_coda(preds, hp, device="cpu")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("eig_mode", "factored"), ("eig_mode", "rowscan"), ("eig_mode", "direct"),
+    ("eig_precision", "high"),
+    ("pi_update", "exact"), ("posterior", "sparse:2"),
+    ("eig_pbest", "amortized"), ("q", "iid"), ("q", "uncertainty"),
+    ("prefilter_n", 10)])
+def test_slice_rest_knobs_build_and_run(knob, value):
+    """The knobs the rest of CODA brings (they raised before it) build a
+    selector and run a round on the CPU."""
+    from coda_tpu_torch.engine.loop import make_step_fn
+    from coda_tpu_torch.oracle import true_losses
+
+    task = _jax_task("synthetic")
+    preds = torch.from_numpy(np.array(task.preds))
+    labels = torch.from_numpy(np.array(task.labels))
+    sel = tcoda.make_coda(preds, tcoda.CODAHyperparams(**{knob: value}),
+                          device="cpu")
+    state = sel.init(None)
+    step = make_step_fn(sel, labels, true_losses(preds, labels))
+    state, _, outs = step(state, torch.zeros(()), trandom.PRNGKey(0))
+    assert not bool(state.unlabeled[outs[0]])
+    assert torch.isfinite(outs[3])
 
 
 @pytest.mark.parametrize("knob,value", [

@@ -264,7 +264,8 @@ def test_build_eig_cache_bf16_matches_reference():
 
 def test_resolve_eig_mode_charges_the_cache_itemsize():
     """A shape whose fp32 cache is past the incremental tier's budget but
-    whose bf16 cache fits: both packages keep bf16 incremental."""
+    whose bf16 cache fits: both packages keep bf16 incremental, and both
+    take the factored tier for the fp32 cache."""
     from coda_tpu.selectors import CODAHyperparams
     from coda_tpu.selectors.coda import resolve_eig_mode
 
@@ -273,9 +274,9 @@ def test_resolve_eig_mode_charges_the_cache_itemsize():
     assert tcoda.resolve_eig_mode(hp16, H, N, C) == "incremental"
     assert resolve_eig_mode(CODAHyperparams(eig_cache_dtype="bfloat16"),
                             H, N, C) == "incremental"
-    assert resolve_eig_mode(CODAHyperparams(), H, N, C) != "incremental"
-    with pytest.raises(NotImplementedError, match="budget"):
-        tcoda.resolve_eig_mode(tcoda.CODAHyperparams(), H, N, C)
+    assert resolve_eig_mode(CODAHyperparams(), H, N, C) == "factored"
+    assert tcoda.resolve_eig_mode(tcoda.CODAHyperparams(), H, N, C) == \
+        "factored"
 
 
 # -- whole trajectories ------------------------------------------------------
