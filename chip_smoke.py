@@ -100,6 +100,30 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    launches add to the JSON line's. Every time and peak memory is
    printed.
 
+8. the "batchq and surrogate" phase, each run with the counters set to 0
+   just before and read just after, its launches checked and added to the
+   JSON line's: at the headline, 1 seed, ``acq_batch`` q = 4 for 20 rounds
+   and q = 8 for 10 (kernel 1 once a round and at init, kernel 3 q times
+   a round, nothing else; ms per round and per label, peak memory, beside
+   the q = 1 round), q = 4 in bf16 + approx and fused + bf16 (kernel 6
+   and kernel 3 q times a round) for 5; 5 seeds at q = 4 for 5 rounds,
+   one after another (kernel 1 once a round and at init, kernel 3 q times
+   a round, for every seed; seed 0 bitwise the one-seed run), beside the
+   5-seed q = 1 batch; ``data/digits.npz`` at q = 4 and q = 8 with
+   ``runs/batchq_r14``'s knobs, triaged against those records (q4 against
+   q1 by the acq-batch envelope); the five baselines at q = 4 on
+   ``digits_h80``, card against CPU; the surrogate scorer
+   (``surrogate:32``) on ``digits``, 3 seeds x 100 rounds, triaged
+   against ``runs/surrogate_r17/surrogate`` and by the scorer envelope
+   against ``.../exact``, kernel 1 once a full round; a donor session's
+   pool prior seeding ``surrogate:16`` runs, triaged against
+   ``runs/prior_r18`` and held to the reference's prior envelope; the
+   surrogate's ms per round against the exact scorer's at the
+   imagenet_sparse pool and the headline; and the CLI's tracking store in
+   a temporary database, read back with the reference's analysis SQL,
+   resumed ("Seed 0 finished. Skipping.") and re-logged with
+   ``--force-rerun``. It prints the phase's wall time.
+
 It prints one JSON line with every kernel flavour (its ``launches`` summed
 over the main-path runs), then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -967,9 +991,11 @@ def _save_and_load(res, aux, ds, dev, out_dir, run, knobs):
 
 def _triage(got, ref, what: str, tol: float) -> list:
     """The port's triage of ``got`` against ``ref``: every seed at parity,
-    or first diverging as a ``tie-break-flip`` where ``ref``'s runner-up
-    gap is at most ``tol``. Prints each seed's line; returns them."""
-    from coda_tpu_torch.engine.replay import compare_records
+    or first diverging as a ``tie-break-flip`` (at q > 1 also a near tie
+    of a round's first pick, ``replay.first_pick_flip``) where ``ref``'s
+    runner-up gap is at most ``tol``. Prints each seed's line; returns
+    them."""
+    from coda_tpu_torch.engine.replay import compare_records, first_pick_flip
 
     report = compare_records(got, ref, score_tol=tol)
     lines, bad = [], []
@@ -979,10 +1005,15 @@ def _triage(got, ref, what: str, tol: float) -> list:
         else:
             t0 = s.first_divergent_round
             gap = float(ref.arrays["runner_up_gap"][s.seed, t0])
+            tie = s.classification == "tie-break-flip"
+            first = (not tie and ref.acq_batch > 1
+                     and first_pick_flip(ref, got, s.seed, t0, tol))
+            flip = tie or first
+            note = ", a first-pick near tie" if first else ""
             line = (f"seed {s.seed}: first divergence at round {t0}, "
-                    f"{s.quantity} [{s.classification}], recorded runner-up "
-                    f"gap {gap:.3e}")
-            if s.classification != "tie-break-flip" or abs(gap) > tol:
+                    f"{s.quantity} [{s.classification}{note}], recorded "
+                    f"runner-up gap {gap:.3e}")
+            if not flip or abs(gap) > tol:
                 bad.append(line)
         lines.append(line)
         log(f"triage {what}: {line}")
@@ -1187,7 +1218,8 @@ def phase_recorded(dev, task, total: dict) -> None:
         out_dir = os.path.join(tmp, "record")
         counted("recorded run (CLI --record-dir)", lambda: cli.main([
             "--synthetic", f"{H},{N},{C}", "--method", "coda", "--iters",
-            str(iters), "--seeds", "1", "--record-dir", out_dir]))
+            str(iters), "--seeds", "1", "--record-dir", out_dir,
+            "--no-mlflow"]))
         rec = RunRecord.load(out_dir)
         bad = rec.violations()
         if bad:
@@ -1706,6 +1738,473 @@ def phase_tiers(dev, task, total: dict) -> dict:
     return out
 
 
+# -- batched acquisition, the surrogate scorer, the tracking store ----------
+
+BATCHQ_PATHS = ((1, 20), (4, 20), (8, 10))   # (q, rounds), headline, 1 seed
+BATCHQ_SEED_ROUNDS = 5                 # the 5-seed q = 4 batch
+BATCHQ_FLAVOUR_ROUNDS = 5              # bf16 + approx; fused + bf16
+BATCHQ_BASELINE_ROUNDS = 10            # the baselines at q = 4 on digits_h80
+SURROGATE_ROUNDS = 20                  # the speed runs, 1 seed
+DONOR_ROUNDS = 20                      # the pool's donor session
+TRACKING_ROUNDS = 5
+
+# the reference's analysis query (paper/common.py's _SQL), copied here:
+# the smoke reads the port's database with sqlite3 alone
+_PAPER_SQL = """
+SELECT  e.name   AS task,
+        rn.value AS run_name,
+        m.value  AS value,
+        m.step   AS step
+FROM    metrics   m
+JOIN    runs      r   ON m.run_uuid      = r.run_uuid
+JOIN    experiments e ON r.experiment_id = e.experiment_id
+JOIN    tags t_parent
+       ON r.run_uuid = t_parent.run_uuid
+      AND t_parent.key = 'mlflow.parentRunId'
+LEFT JOIN tags rn
+       ON r.run_uuid = rn.run_uuid
+      AND rn.key     = 'mlflow.runName'
+WHERE   m.key  = ?
+  AND   m.is_nan = 0
+  AND   r.lifecycle_stage = 'active'
+  AND   e.lifecycle_stage = 'active'
+"""
+
+
+def _q_run(dev, preds, labels, iters, seeds, q, what, total, want,
+           prior=None, **knobs):
+    """One recorded CODA run at ``q`` labels a round, counters set to 0
+    just before and read just after. ``want`` (launches by flavour, or a
+    function of the run's ``(result, aux)`` giving them) is checked and
+    added to ``total``. Returns ``(result, aux, timings, peak_gb,
+    selector)``."""
+    import torch
+
+    from coda_tpu_torch.engine import run_seeds_recorded
+    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+
+    knobs.setdefault("eig_chunk", 1024)
+    # the replicas the engine batches: a q-wide run's seeds go one after
+    # another
+    hp = CODAHyperparams(n_parallel=seeds if q == 1 else 1, **knobs)
+    sels, timings = [], []
+
+    def factory(p):
+        sels.append(make_coda(p, hp, device=dev, prior=prior))
+        return sels[-1]
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res, aux = run_seeds_recorded(factory, preds, labels, iters=iters,
+                                  seeds=seeds, device=dev, timings=timings,
+                                  acq_batch=q)
+    torch.cuda.synchronize()
+    _, by_flavour = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if callable(want):
+        want = want(res, aux)
+    if by_flavour != want:
+        raise AssertionError(f"{what}: launches {by_flavour}, expected "
+                             f"{want}")
+    for k, v in by_flavour.items():
+        total[k] = total.get(k, 0) + v
+    idx = res.chosen_idx.cpu().reshape(seeds, -1)
+    regret = res.regret.cpu()
+    N = preds.shape[1]
+    if not (torch.isfinite(regret).all() and (regret >= 0).all()
+            and (idx >= 0).all() and (idx < N).all()
+            and all(len(set(r.tolist())) == iters * q for r in idx)):
+        raise AssertionError(f"{what}: regret not finite and >= 0, or an "
+                             "index out of range or labelled twice")
+    return res, aux, timings, peak_gb, sels[0]
+
+
+def phase_batchq_surrogate(dev, task, total: dict) -> dict:
+    """Batched acquisition (``acq_batch`` q), the surrogate scorer and the
+    tracking store on the card (see the module docstring, item 8). Every
+    run has the counters set to 0 just before and read just after, its
+    launches checked and added to ``total``. Returns the measured
+    figures."""
+    import contextlib
+    import io
+    import sqlite3
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from coda_tpu_torch import cli
+    from coda_tpu_torch import random as trandom
+    from coda_tpu_torch.data import Dataset, make_synthetic_task
+    from coda_tpu_torch.engine import run_seeds_recorded
+    from coda_tpu_torch.engine.replay import (
+        compare_records,
+        within_prior_envelope,
+    )
+    from coda_tpu_torch.ops.eig_kernels import flavour
+    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+    from coda_tpu_torch.selectors import surrogate as sg
+    from coda_tpu_torch.telemetry.recorder import RunRecord
+
+    t_phase = time.perf_counter()
+    C, N, H = HEADLINE
+    f32, bf16 = torch.float32, torch.bfloat16
+    k1, k3 = flavour("eig_score", f32, False), "row_gather"
+    out: dict = {}
+
+    def warm_full(aux, credit=0):
+        """A surrogate run's full-pass rounds over its seeds: the warmup
+        rounds its prior's credit leaves, then every fallback."""
+        fb = aux.trace.surrogate_fallback.cpu().numpy()
+        T = fb.shape[1]
+        warm = max(0, min(T, sg.SURROGATE_WARMUP_ROUNDS - credit))
+        return fb.shape[0] * warm + int(fb.sum())
+
+    def record(res, aux, ds, tmp, name, knobs, q=1):
+        run = {"task": ds.name, "synthetic": None, "data_dir": "data",
+               "method": "coda", "loss": "acc",
+               "iters": int(res.regret.shape[1]),
+               "seeds": int(res.regret.shape[0]), "acq_batch": q}
+        return _save_and_load(res, aux, ds, dev, os.path.join(tmp, name),
+                              run, dict(knobs, method="coda"))
+
+    # 1. the headline at q labels a round, one seed (q = 1 first, in the
+    # same window, for the comparison)
+    one = {}
+    for q, iters in BATCHQ_PATHS:
+        want = ({k1: 1 + iters, k3: q * iters} if q > 1 else
+                {k1: 1, flavour("eig_refresh_score", f32, False): iters,
+                 k3: iters})
+        res, aux, tm, peak, _ = _q_run(
+            dev, task.preds, task.labels, iters, 1, q, f"headline q={q}",
+            total, want)
+        ms = _round_ms(tm, iters)
+        one[q] = RunRecord.from_result(res, aux, {}, {})
+        out[f"q{q}"] = (ms, ms / q, peak)
+        log(f"batchq: headline ({H}, {N}, {C}), 1 seed, q={q} x {iters} "
+            f"rounds, default knobs: launches {json.dumps(want)}, nothing "
+            f"else; ms_per_round={ms:.3f} ms_per_label={ms / q:.3f} "
+            f"peak_mem_gb={peak:.2f}; regret@{iters}="
+            f"{float(res.regret[0, -1]):.4f} cumulative="
+            f"{float(res.cumulative_regret[0, -1]):.4f}")
+        del res, aux
+    R = BATCHQ_FLAVOUR_ROUNDS
+    for what, knobs, want in (
+            ("bf16 + approx", dict(eig_cache_dtype="bfloat16",
+                                   eig_entropy="approx"),
+             {flavour("eig_score", bf16, True): 1 + R, k3: 4 * R}),
+            ("fused + bf16", dict(eig_refresh="fused",
+                                  eig_cache_dtype="bfloat16"),
+             {flavour("eig_score", bf16, False): 1,
+              flavour("eig_refresh_compute_score", bf16, False): 4 * R,
+              k3: 4 * R})):
+        res, aux, tm, peak, sel = _q_run(
+            dev, task.preds, task.labels, R, 1, 4, f"headline q=4 {what}",
+            total, want, **knobs)
+        ms = _round_ms(tm, R)
+        out[f"q4 {what}"] = (ms, ms / 4, peak)
+        log(f"batchq: headline q=4 {what}, 1 seed x {R} rounds: launches "
+            f"{json.dumps(want)}; ms_per_round={ms:.3f} ms_per_label="
+            f"{ms / 4:.3f} peak_mem_gb={peak:.2f}; fused update_q "
+            f"{'off (q updates a round)' if sel.update_q is None else 'on'}")
+        del res, aux, sel
+
+    # 2. SEEDS seeds at the headline, q = 4: one after another (a seed
+    # batch refreshes its rows replica by replica and measured slower)
+    R = BATCHQ_SEED_ROUNDS
+    res, aux, tm, peak, _ = _q_run(
+        dev, task.preds, task.labels, R, SEEDS, 4, "headline seeds q=4",
+        total, {k1: SEEDS * (1 + R), k3: SEEDS * 4 * R},
+        eig_mode="incremental")
+    # the 5-seed q = 1 batch in the same window, for the comparison
+    _, _, tm1, peak1, _ = _q_run(
+        dev, task.preds, task.labels, R, SEEDS, 1, "headline seed batch q=1",
+        total, {flavour("eig_score_batched", f32, False): 1,
+                flavour("eig_refresh_score_batched", f32, False): R,
+                "row_gather_batched": R}, eig_mode="incremental")
+    ms1 = _round_ms(tm1, R)
+    batch = RunRecord.from_result(res, aux, {}, {})
+    ms = _round_ms(tm, R)      # one timing entry a seed, summed
+    out["q4 seeds"] = (ms, ms / (4 * SEEDS), peak)
+    seed0 = {f: v[:1, :R] for f, v in batch.arrays.items()
+             if v.ndim >= 2 and f not in ("root_key", "init_key",
+                                          "prior_key")}
+    ref0 = {f: one[4].arrays[f][:1, :R] for f in seed0}
+    for f in ("chosen_idx", "true_class", "best_model"):
+        if not np.array_equal(seed0[f], ref0[f]):
+            raise AssertionError(f"{SEEDS} seeds: seed 0's {f} differs "
+                                 "from the one-seed q=4 run")
+    diff = {f: float(np.max(np.abs(seed0[f].astype(np.float64)
+                                   - ref0[f].astype(np.float64))))
+            for f in seed0 if not np.array_equal(seed0[f], ref0[f],
+                                                 equal_nan=True)}
+    bitwise = not diff
+    out["q4 seeds seed 0 bitwise"] = bitwise
+    log(f"batchq: headline {SEEDS} seeds one after another, q=4 x {R} "
+        f"rounds (eig_mode=incremental): kernel 1 x {SEEDS * (1 + R)}, "
+        f"kernel 3 x {SEEDS * 4 * R}; ms_per_round (all seeds)={ms:.3f} "
+        f"ms_per_seed_label={ms / (4 * SEEDS):.3f} peak_mem_gb={peak:.2f} "
+        f"(the q=1 batch: ms_per_round={ms1:.3f} ms_per_seed_label="
+        f"{ms1 / SEEDS:.3f} peak_mem_gb={peak1:.2f}); seed 0 vs the "
+        f"one-seed q=4 run's first {R} rounds: "
+        + ("bitwise" if bitwise else f"decisions equal, max |d| {diff}"))
+    del res, aux, batch
+    if not bitwise:
+        raise AssertionError(f"{SEEDS} seeds: seed 0 not bitwise the "
+                             f"one-seed q=4 run: {diff}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 3. the committed digits records at q = 4 and q = 8
+        ds = Dataset.from_file(os.path.join(HERE, "data", "digits.npz"),
+                               device=dev)
+        q1_ref = RunRecord.load(os.path.join(HERE, "runs", "batchq_r14",
+                                             "q1"))
+        for name in ("q4", "q8"):
+            ref = RunRecord.load(os.path.join(HERE, "runs", "batchq_r14",
+                                              name))
+            kn = ref.meta["fingerprint"]["knobs"]
+            q, iters, seeds = ref.acq_batch, ref.rounds, ref.seeds
+            res, aux, tm, _, _ = _q_run(
+                dev, ds.preds, ds.labels, iters, seeds, q,
+                f"digits {name}", total,
+                {k1: seeds * (1 + iters), k3: seeds * q * iters},
+                eig_chunk=kn["eig_chunk"])
+            got = record(res, aux, ds, tmp, name,
+                         {"eig_chunk": kn["eig_chunk"], "seeds": seeds,
+                          "n_parallel": 1, "acq_batch": q}, q)
+            digest = got.meta["fingerprint"]["dataset"]["digest"]
+            if digest != ref.meta["fingerprint"]["dataset"]["digest"]:
+                raise AssertionError(f"digits digest {digest}")
+            _triage(got, ref, f"digits {name} vs runs/batchq_r14/{name}",
+                    CONTRACT)
+            if name == "q4":
+                env = compare_records(q1_ref, got)
+                if not all(s.classification == "acq-batch-envelope"
+                           for s in env.seeds):
+                    raise AssertionError("q1 vs q4: not the envelope")
+                e = env.meta["batchq_envelope"]
+                log(f"batchq: runs/batchq_r14/q1 vs the card's q4 by the "
+                    f"acq-batch envelope: worst final cum-regret ratio "
+                    f"{e['max_final_ratio_b_over_a']:.3f}, worst aligned "
+                    f"gap {e['max_aligned_gap']:.4f}")
+
+        # 4. the five baselines at q = 4, card against CPU
+        R = BATCHQ_BASELINE_ROUNDS
+        h80 = {d: Dataset.from_file(os.path.join(HERE, "data",
+                                                 "digits_h80.npz"), device=d)
+               for d in (dev, "cpu")}
+        for method in BASELINES:
+            recs = {}
+            for d in (dev, "cpu"):
+                reset_counts()
+                res, aux = run_seeds_recorded(
+                    _baseline_factory(method, 4 * R, d), h80[d].preds,
+                    h80[d].labels, iters=R, seeds=H80_SEEDS, device=d,
+                    acq_batch=4)
+                if read_counts()[1]:
+                    raise AssertionError(f"{method} q=4 launched "
+                                         f"{read_counts()[1]}")
+                recs[d] = RunRecord.from_result(res, aux, {}, {})
+            lines = _triage(recs[dev], recs["cpu"],
+                            f"digits_h80 {method} q=4 card vs CPU",
+                            CONTRACT)
+            log(f"batchq: {method} q=4 digits_h80, {H80_SEEDS} seeds x {R} "
+                f"rounds: card vs CPU ({'; '.join(lines)})")
+
+        # 5. the surrogate on digits, the committed record's knobs
+        ref = RunRecord.load(os.path.join(HERE, "runs", "surrogate_r17",
+                                          "surrogate"))
+        exact_ref = RunRecord.load(os.path.join(HERE, "runs",
+                                                "surrogate_r17", "exact"))
+        seeds, iters = ref.seeds, ref.rounds
+        res, aux, tm, _, _ = _q_run(
+            dev, ds.preds, ds.labels, iters, seeds, 1, "digits surrogate:32",
+            total, lambda r, a: {k1: seeds + warm_full(a),
+                                 k3: seeds * iters},
+            eig_scorer="surrogate:32")
+        got = record(res, aux, ds, tmp, "surrogate",
+                     {"eig_chunk": 1024, "seeds": seeds, "n_parallel": 1,
+                      "eig_scorer": "surrogate:32"})
+        fb = got.arrays["surrogate_fallback"]
+        share = fb.sum() / (seeds * (iters - sg.SURROGATE_WARMUP_ROUNDS))
+        out["digits surrogate fallback share"] = float(share)
+        _triage(got, ref, "digits surrogate:32 vs "
+                "runs/surrogate_r17/surrogate", CONTRACT)
+        env = compare_records(exact_ref, got)
+        if not all(s.classification == "eig-scorer-envelope"
+                   for s in env.seeds):
+            raise AssertionError("surrogate vs exact: not the envelope")
+        e = env.meta["scorer_envelope"]
+        log(f"surrogate: digits {tuple(ds.shape)} surrogate:32, {seeds} "
+            f"seeds x {iters} rounds (seeds one after another): kernel 1 x "
+            f"{seeds + warm_full(aux)} (1 + full rounds a seed), kernel 2 "
+            f"x 0; fallback share {share:.4f} ({int(fb.sum())} of "
+            f"{seeds * (iters - sg.SURROGATE_WARMUP_ROUNDS)} gated rounds; "
+            f"the committed record's: {int(ref.arrays['surrogate_fallback'].sum())}); "
+            f"vs runs/surrogate_r17/exact by the eig-scorer envelope: worst "
+            f"final ratio {e['max_final_ratio_b_over_a']:.3f}")
+
+        # 6. the pool-seeded surrogate: a donor session, then seeded and
+        # cold runs
+        hp16 = CODAHyperparams(eig_scorer="surrogate:16", eig_chunk=1024)
+        donor_sel = make_coda(ds.preds, hp16, device=dev)
+        st = donor_sel.init(None)
+        key = trandom.PRNGKey(1)
+        reset_counts()
+        for _ in range(DONOR_ROUNDS):
+            key, k = trandom.split(key)
+            r = donor_sel.select(st, k)
+            st = donor_sel.update(st, r.idx, ds.labels.take(r.idx), r.prob)
+        for kk, v in read_counts()[1].items():
+            total[kk] = total.get(kk, 0) + v
+        fit = st.surrogate
+        donor = sg.clip_prior(sg.prior_from_fit(fit.A, fit.b, fit.n,
+                                                fit.rounds))
+        digest = sg.prior_digest(donor)
+        credit = sg.prior_warmup_credit(donor)
+        del donor_sel, st
+        runs = {}
+        for name, prior, knobs in (
+                ("cold", None, {"eig_scorer": "surrogate:16"}),
+                ("seeded", donor, {"eig_scorer": "surrogate:16",
+                                   "surrogate_prior": "pool",
+                                   "surrogate_prior_digest": digest})):
+            c = 0 if prior is None else credit
+            res, aux, tm, _, _ = _q_run(
+                dev, ds.preds, ds.labels, iters, seeds, 1,
+                f"digits surrogate:16 {name}", total,
+                lambda r, a, c=c: {k1: seeds + warm_full(a, c),
+                                   k3: seeds * iters},
+                prior=prior, eig_scorer="surrogate:16",
+                surrogate_prior="off" if prior is None else "pool")
+            runs[name] = (record(res, aux, ds, tmp, f"prior_{name}",
+                                 dict(knobs, seeds=seeds, n_parallel=1)),
+                          seeds + warm_full(aux, c))
+        for name in ("cold", "seeded"):
+            ref = RunRecord.load(os.path.join(HERE, "runs", "prior_r18",
+                                              name))
+            got = runs[name][0]
+            if name == "cold":
+                _triage(got, ref, "digits surrogate:16 cold vs "
+                        "runs/prior_r18/cold", CONTRACT)
+            rep = compare_records(ref, got, score_tol=CONTRACT)
+            cls = {s.classification or "parity" for s in rep.seeds}
+            log(f"surrogate prior: runs/prior_r18/{name} vs the card's "
+                f"{name} run: {sorted(cls)}"
+                + (f", worst final ratio "
+                   f"{rep.meta['prior_envelope']['max_final_ratio_b_over_a']:.3f}"
+                   if "prior_envelope" in rep.meta else ""))
+            if name == "seeded" and cls != {"surrogate-prior-envelope"}:
+                raise AssertionError("seeded vs the committed seeded record: "
+                                     f"{cls}, not the prior envelope")
+        cold_mean = float(runs["cold"][0].arrays["cumulative_regret"][
+            :, -1].mean())
+        seeded_mean = float(runs["seeded"][0].arrays["cumulative_regret"][
+            :, -1].mean())
+        env = compare_records(runs["cold"][0], runs["seeded"][0])
+        if {s.classification for s in env.seeds} != {
+                "surrogate-prior-envelope"}:
+            raise AssertionError("cold vs seeded: not the prior envelope")
+        ok = within_prior_envelope(cold_mean, seeded_mean)
+        out["prior"] = (digest, credit, runs["cold"][1], runs["seeded"][1],
+                        cold_mean, seeded_mean, ok)
+        log(f"surrogate prior: donor {DONOR_ROUNDS} rounds -> digest "
+            f"{digest} (the committed records': "
+            f"{RunRecord.load(os.path.join(HERE, 'runs', 'prior_r18', 'seeded')).meta['fingerprint']['knobs']['surrogate_prior_digest']}), "
+            f"warmup credit {credit}; kernel 1 cold x {runs['cold'][1]}, "
+            f"seeded x {runs['seeded'][1]}; final cumulative regret mean "
+            f"cold {cold_mean:.4f} seeded {seeded_mean:.4f}: "
+            f"{'within' if ok else 'OUTSIDE'} the reference's envelope "
+            f"(1.05 x cold + 0.02)")
+        if not ok:
+            raise AssertionError("the seeded run is outside the prior "
+                                 "envelope")
+
+    # 7. the surrogate's speed against the exact scorer
+    pool = make_synthetic_task(5, H=SPARSE_POOL[0], N=SPARSE_POOL[1],
+                               C=SPARSE_POOL[2], device=dev)
+    for label, t, k in (("pool", pool, 16), ("headline", task, 32)):
+        Ht, Nt, Ct = t.preds.shape
+        got = {}
+        for scorer in ("exact", f"surrogate:{k}"):
+            ms = {}
+            for iters in (sg.SURROGATE_WARMUP_ROUNDS, SURROGATE_ROUNDS
+                          + sg.SURROGATE_WARMUP_ROUNDS):
+                want = ((lambda r, a: {k1: 1 + warm_full(a), k3: iters})
+                        if scorer != "exact" else
+                        {k1: 1, flavour("eig_refresh_score", f32, False):
+                         iters, k3: iters})
+                res, aux, tm, peak, _ = _q_run(
+                    dev, t.preds, t.labels, iters, 1, 1,
+                    f"{label} {scorer}", total, want, eig_scorer=scorer)
+                ms[iters] = tm[0]["rounds_ms"]
+            fb = aux.trace.surrogate_fallback.cpu().numpy()
+            gated = (ms[max(ms)] - ms[min(ms)]) / SURROGATE_ROUNDS
+            got[scorer] = (gated, int(fb.sum()), peak)
+            del res, aux
+        ex, su = got["exact"], got[f"surrogate:{k}"]
+        out[f"surrogate speed {label}"] = (ex, su)
+        log(f"surrogate speed: {label} ({Ht}, {Nt}, {Ct}), 1 seed, rounds "
+            f"{sg.SURROGATE_WARMUP_ROUNDS + 1}-"
+            f"{sg.SURROGATE_WARMUP_ROUNDS + SURROGATE_ROUNDS} (past the "
+            f"warmup): exact ms_per_round={ex[0]:.3f} peak_mem_gb="
+            f"{ex[2]:.2f}; surrogate:{k} ms_per_round={su[0]:.3f} "
+            f"fallbacks {su[1]} of {SURROGATE_ROUNDS} peak_mem_gb="
+            f"{su[2]:.2f}; speed-up {ex[0] / su[0]:.2f}x")
+    del pool
+
+    # 8. the tracking store through the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        db = os.path.join(tmp, "coda.sqlite")
+        argv = ["--synthetic", f"{H},{N},{C}", "--method", "coda",
+                "--iters", str(TRACKING_ROUNDS), "--seeds", "1",
+                "--tracking-db", db]
+        want = {k1: 1, flavour("eig_refresh_score", f32, False):
+                TRACKING_ROUNDS, k3: TRACKING_ROUNDS}
+        outs = []
+        for extra in ([], [], ["--force-rerun"]):
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            reset_counts()
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv + extra)
+            torch.cuda.synchronize()
+            by_flavour = read_counts()[1]
+            if by_flavour != want:
+                raise AssertionError(f"tracking CLI run: launches "
+                                     f"{by_flavour}")
+            for kk, v in by_flavour.items():
+                total[kk] = total.get(kk, 0) + v
+            outs.append(buf.getvalue())
+            with sqlite3.connect(db) as conn:
+                rows = conn.execute(_PAPER_SQL + "  AND m.step = ?",
+                                    ("cumulative regret",
+                                     TRACKING_ROUNDS)).fetchall()
+                n_metrics = conn.execute(
+                    "SELECT COUNT(*) FROM metrics").fetchone()[0]
+            name = f"synthetic_{H}x{N}x{C}-coda-0"
+            if [(r[0], r[1], r[3]) for r in rows] != [
+                    (f"synthetic_{H}x{N}x{C}", name, TRACKING_ROUNDS)] \
+                    or n_metrics != 2 * TRACKING_ROUNDS \
+                    or not math.isfinite(rows[0][2]):
+                raise AssertionError(f"tracking DB: {rows}, {n_metrics} "
+                                     "metric rows")
+        if "Skipping" in outs[0] or "Seed 0 finished. Skipping." not in \
+                outs[1] or "Skipping" in outs[2]:
+            raise AssertionError("tracking: resume / --force-rerun")
+        log(f"tracking: CLI at the headline, 1 seed x {TRACKING_ROUNDS} "
+            f"rounds into a temporary --tracking-db: the reference's "
+            f"analysis SQL reads run {name}, cumulative regret "
+            f"{rows[0][2]:.4f} at step {TRACKING_ROUNDS}; the second run "
+            f"printed 'Seed 0 finished. Skipping.'; --force-rerun re-logged "
+            f"({n_metrics} metric rows, not doubled)")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"batchq and surrogate phase: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1763,6 +2262,8 @@ def main() -> int:
         phase_recorded(dev, task, launches)
         phase = "tiers"
         phase_tiers(dev, task, launches)
+        phase = "batchq and surrogate"
+        phase_batchq_surrogate(dev, task, launches)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)

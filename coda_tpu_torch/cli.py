@@ -15,8 +15,9 @@ reference CLI's per-seed ``seed s: regret@T=... cumulative=...
 stochastic=...`` lines. ``--method`` defaults to ``iid``, as in the
 reference, and takes its names: ``iid``, ``uncertainty``, any ``coda*``,
 ``activetesting``, ``vma``, ``model_picker``. More than one CODA seed runs
-as one batch on every EIG tier unless ``--eig-refresh fused``, whose seeds
-run one after another, as the baselines' do; ``n_parallel``, the auto
+as one batch on every EIG tier unless ``--eig-refresh fused`` or
+``--acq-batch`` Q > 1, whose seeds run one after another, as the
+baselines' do; ``n_parallel``, the auto
 tier's replica count, is the batch's width, as in the reference. So the
 paper's command at the headline, ``--synthetic 1000,50000,10 --method
 coda`` with the default 5 seeds, resolves to the factored tier, as the
@@ -26,13 +27,21 @@ budget).
 The CODA flags are the reference's, with its choices: ``--eig-mode``,
 ``--eig-precision``, ``--eig-cache-dtype``, ``--eig-refresh``,
 ``--eig-entropy``, ``--posterior``, ``--eig-pbest``, ``--pi-update``,
-``--prefilter-n``, ``--q``, ``--no-diag-prior``. ``--eig-scorer``,
-``--surrogate-prior`` and ``--mesh`` are parsed and raise
-``NotImplementedError`` at anything but their defaults (later slices).
+``--prefilter-n``, ``--q``, ``--no-diag-prior``, ``--eig-scorer
+exact|surrogate:k`` and ``--surrogate-prior off|pool``. ``--mesh`` is
+parsed and raises ``NotImplementedError`` (a later slice).
+``--acq-batch Q`` labels Q points a round (``--iters`` counts rounds, so a
+run takes Q x iters labels; the cumulative regret is label-weighted).
 ``--record-dir`` writes a flight-recorder record (schema v4, the
 reference's ``record.json`` + ``rounds.npz``) that the reference's
-``python -m coda_tpu.cli replay <dir> --against <record>`` triages. The
-tracking store comes with a later slice of the port.
+``python -m coda_tpu.cli replay <dir> --against <record>`` triages.
+
+Every seed's ``regret`` and ``cumulative regret`` series go to the
+tracking store (``--tracking-db``, default ``coda.sqlite``, the
+reference's MLflow-schema sqlite; ``--no-mlflow`` turns it off): a parent
+run ``<experiment>-<method>`` and a child run a seed, the experiment
+named ``--experiment-name`` or the task. A seed whose run finished is
+skipped ("Seed N finished. Skipping.") unless ``--force-rerun``.
 """
 
 from __future__ import annotations
@@ -51,10 +60,33 @@ def parse_args(argv=None):
                    help="run on a seeded synthetic task of this shape")
     p.add_argument("--iters", type=int, default=100)
     p.add_argument("--seeds", type=int, default=5)
+    p.add_argument("--force-rerun", action="store_true",
+                   help="Overwrite existing finished runs.")
+    p.add_argument("--experiment-name", default=None)
+    p.add_argument("--no-mlflow", action="store_true",
+                   help="Disable tracking-store logging.")
+    p.add_argument("--tracking-db", default="coda.sqlite",
+                   help="Path of the sqlite tracking database.")
     p.add_argument("--loss", default="acc", choices=["acc", "ce"])
     p.add_argument("--method", default="iid",
                    help="{iid, uncertainty, coda*, activetesting, vma, "
                         "model_picker}")
+
+    def _acq_batch(v):
+        q = int(v)
+        if q < 1:
+            raise argparse.ArgumentTypeError(
+                f"acq-batch must be >= 1, got {q}")
+        return q
+
+    p.add_argument("--acq-batch", type=_acq_batch, default=1, metavar="Q",
+                   help="oracle labels acquired per round (default 1, the "
+                        "paper's protocol). Q > 1 selects Q points a round "
+                        "from one scoring pass (CODA: greedy EIG with an "
+                        "information-overlap penalty; the others: their "
+                        "top-Q or draws without replacement) and applies "
+                        "the Q answers as one update (--iters counts "
+                        "rounds: Q*iters labels)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--record-dir", default=None,
                    help="decision flight recorder: write a per-round "
@@ -149,11 +181,21 @@ def parse_args(argv=None):
                         "recomputes the column from the posterior row")
     p.add_argument("--eig-scorer", default="exact",
                    metavar="exact|surrogate:k",
-                   help="who scores the round (surrogate:k: a later slice "
-                        "of the port)")
+                   help="who scores the round: exact = the full scoring "
+                        "pass; surrogate:k = a ridge regressor over cheap "
+                        "per-candidate features scores all N, its top-k "
+                        "and a rotating audit set are re-scored exactly, "
+                        "and a trust gate (the 2.34e-4 score contract) "
+                        "falls back to the full pass when violated; "
+                        "warmup rounds are full (incremental tier, "
+                        "precomputed refresh; seeds run one after another; "
+                        "surrogate:k>=N equals exact)")
     p.add_argument("--surrogate-prior", default="off",
                    choices=["off", "pool"],
-                   help="surrogate warm start (a later slice of the port)")
+                   help="surrogate scorer only: pool seeds the fit from a "
+                        "cross-session prior instead of zeros (the CLI "
+                        "passes none, so its run is the cold program under "
+                        "the pool knob)")
     p.add_argument("--mesh", default=None, metavar="AXIS=K,...",
                    help="shard the (H, N, C) tensor (a later slice of the "
                         "port)")
@@ -180,8 +222,9 @@ def load_dataset(args):
 def hyperparams(args):
     """The run's ``CODAHyperparams``. ``n_parallel`` is the number of
     replicas the engine batches — ``--seeds`` on every tier, 1 under the
-    fused refresh, whose seeds run one after another — so the auto tier's
-    budget sees every replica (the reference's rule)."""
+    fused refresh or ``--acq-batch`` Q > 1, whose seeds run one after
+    another — so the auto tier's budget sees every replica (the
+    reference's rule)."""
     from coda_tpu_torch.selectors import CODAHyperparams
     from coda_tpu_torch.selectors.coda import batches_seeds
 
@@ -202,7 +245,7 @@ def hyperparams(args):
                          surrogate_prior=args.surrogate_prior,
                          pi_update=args.pi_update,
                          shard_spec=args.mesh or "")
-    batched = args.seeds > 1 and batches_seeds(hp)
+    batched = args.seeds > 1 and args.acq_batch == 1 and batches_seeds(hp)
     return hp._replace(n_parallel=args.seeds if batched else 1)
 
 
@@ -241,6 +284,35 @@ def build_selector_factory(args, task_name: str):
     raise SystemExit(f"{method} is not a supported method.")
 
 
+def _log_to_store(args, dataset, regrets, cums, stoch) -> None:
+    """The reference's tracking layout: parent run ``<experiment>-
+    <method>`` with the run's flags as params, a child run a seed with
+    the ``regret`` and ``cumulative regret`` series from step 1; a seed
+    whose run finished is skipped unless ``--force-rerun``."""
+    from coda_tpu_torch.tracking import TrackingStore
+
+    store = TrackingStore(args.tracking_db)
+    experiment = args.experiment_name or dataset.name
+    run_name = f"{experiment}-{args.method}"
+    with store.run(experiment, run_name, params=vars(args)) as parent:
+        for s in range(args.seeds):
+            seed_run = f"{experiment}-{args.method}-{s}"
+            if store.is_finished(experiment, seed_run) \
+                    and not args.force_rerun:
+                print("Seed", s, "finished. Skipping.")
+                continue
+            with store.run(experiment, seed_run, parent=parent,
+                           params={"seed": s,
+                                   "stochastic": bool(stoch[s])}) as r:
+                r.log_metric_series("regret", regrets[s], start_step=1)
+                r.log_metric_series("cumulative regret", cums[s],
+                                    start_step=1)
+        if not stoch.any():
+            print("Method is not stochastic for this task.")
+    store.close()
+    print(f"Logged to {args.tracking_db}")
+
+
 def _write_record(args, dataset, result, aux, n_parallel: int, dev) -> None:
     from coda_tpu_torch.telemetry.recorder import (
         RunRecord,
@@ -257,7 +329,7 @@ def _write_record(args, dataset, result, aux, n_parallel: int, dev) -> None:
         run={"task": dataset.name, "synthetic": args.synthetic,
              "data_dir": args.data_dir, "method": args.method,
              "loss": args.loss, "iters": args.iters, "seeds": args.seeds,
-             "acq_batch": 1})
+             "acq_batch": args.acq_batch})
     record.save(args.record_dir)
     print(f"decision record written to {args.record_dir} (triage: python "
           f"-m coda_tpu.cli replay {args.record_dir} --against <record>)")
@@ -286,6 +358,7 @@ def main(argv=None):
 
     factory = build_selector_factory(args, dataset.name)
     coda = args.method.startswith("coda")
+    q = args.acq_batch
     n_parallel = hyperparams(args).n_parallel if coda else max(1, args.seeds)
     if coda:
         from coda_tpu_torch.selectors.coda import resolve_eig_mode
@@ -296,7 +369,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     out = run_seeds_compiled(factory, dataset.preds, dataset.labels,
                              iters=args.iters, seeds=args.seeds,
-                             loss_fn=loss_fn, device=dev, trace_k=trace_k)
+                             loss_fn=loss_fn, device=dev, trace_k=trace_k,
+                             acq_batch=q)
     result, aux = out if trace_k else (out, None)
     regrets = result.regret.cpu().numpy()            # (seeds, iters)
     wall = time.perf_counter() - t0
@@ -307,14 +381,17 @@ def main(argv=None):
     steps = args.iters * args.seeds
     how = ("seeds run as one batch" if coda and n_parallel > 1
            else "seeds run one after another")
+    batch_note = f", {q} labels/round" if q > 1 else ""
     print(f"{steps} selection steps in {wall:.2f}s "
-          f"({steps / wall:.2f} steps/s, {how})")
+          f"({steps / wall:.2f} steps/s, {how}{batch_note})")
     if dev.type == "cuda":
         print(f"peak device memory "
               f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     for s in range(args.seeds):
         print(f"seed {s}: regret@{args.iters}={regrets[s, -1]:.4f} "
               f"cumulative={cums[s, -1]:.4f} stochastic={bool(stoch[s])}")
+    if not args.no_mlflow:
+        _log_to_store(args, dataset, regrets, cums, stoch)
     return 0
 
 

@@ -20,6 +20,12 @@ With ``trace_k > 0`` each round also yields a :class:`RoundTrace`, the
 flight recorder's provenance of the round (``telemetry/recorder.py``):
 the recording run takes the unrecorded run's decisions, reads the values
 the round computes, and keeps them on the device until the run ends.
+
+With ``acq_batch = q > 1`` a round acquires q points from one scoring
+pass and applies the q answers as one update (``selectors/batch.py``):
+the decision fields carry a trailing ``(q,)`` axis and the cumulative
+regret counts each round's regret q times (label-weighted, so budgets
+line up with q = 1 runs). ``q = 1`` runs the one-label round unchanged.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from coda_tpu_torch import random as trandom
 from coda_tpu_torch.losses import accuracy_loss
 from coda_tpu_torch.ops.masked import entropy2
 from coda_tpu_torch.oracle import true_losses as compute_true_losses
+from coda_tpu_torch.selectors.batch import resolve_batch_fns
 from coda_tpu_torch.selectors.protocol import Selector
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -65,8 +72,9 @@ class RoundTrace(NamedTuple):
     pbest_max: torch.Tensor       # 0-d float32 — max of P(best); NaN when
     #                               the method exposes no posterior
     pbest_entropy: torch.Tensor   # 0-d float32 — entropy (bits) of P(best)
-    surrogate_fallback: torch.Tensor  # 0-d bool — always False: the port
-    #                               has only the exact scorer
+    surrogate_fallback: torch.Tensor  # 0-d bool — did the surrogate scorer
+    #                               fall back to the full exact pass this
+    #                               round (False for exact scorers)
 
 
 class RunTraceAux(NamedTuple):
@@ -119,6 +127,12 @@ def _posterior_digest(selector: Selector, state_after,
     return pb.amax(-1), entropy2(pb)
 
 
+def _first_pick(res):
+    """A q-wide select result as its first pick (the unpenalised argmax),
+    the round's "chosen" slot in the trace."""
+    return res._replace(idx=res.idx[..., 0], prob=res.prob[..., 0])
+
+
 def make_round_trace(selector: Selector, res, state_after, k: torch.Tensor,
                      trace_k: int, scored: Optional[tuple] = None
                      ) -> RoundTrace:
@@ -126,38 +140,50 @@ def make_round_trace(selector: Selector, res, state_after, k: torch.Tensor,
     state (the posterior digest describes the round's outcome, aligned
     with its ``best_model``). ``scored`` is the score half
     (:func:`_score_digest`) when the caller took it before an in-place
-    ``update``; it is computed from ``res`` otherwise."""
+    ``update``; it is computed from ``res`` otherwise. The surrogate
+    scorer's fallback flag is ``extras["scorer_round_stats"]`` of the
+    post-update state (False for a method without it)."""
     scored = _score_digest(res, trace_k) if scored is None else scored
     chosen = scored[2]
     pbest_max, pbest_entropy = _posterior_digest(selector, state_after,
                                                  chosen)
-    return RoundTrace(k, *scored, pbest_max, pbest_entropy,
-                      torch.zeros_like(chosen, dtype=torch.bool))
+    stats_fn = selector.extras.get("scorer_round_stats")
+    fallback = (stats_fn(state_after).to(torch.bool) if stats_fn is not None
+                else torch.zeros_like(chosen, dtype=torch.bool))
+    return RoundTrace(k, *scored, pbest_max, pbest_entropy, fallback)
 
 
 def make_step_fn(selector: Selector, labels: torch.Tensor,
-                 model_losses: torch.Tensor, trace_k: int = 0):
+                 model_losses: torch.Tensor, trace_k: int = 0,
+                 acq_batch: int = 1):
     """One labeling round: ``(state, cum, key) -> (state, cum, outs)`` with
     ``outs = (idx, true_class, best, regret, cum, prob, stochastic)``, all
-    0-d device tensors; ``trace_k > 0`` appends the round's
-    :class:`RoundTrace` (its scores read before ``update``, which may
-    rewrite the state in place)."""
+    0-d device tensors (``idx``, ``true_class``, ``prob`` ``(q,)`` under
+    ``acq_batch = q > 1``, whose ``cum`` adds ``q * regret``);
+    ``trace_k > 0`` appends the round's :class:`RoundTrace` (its scores
+    read before ``update``, which may rewrite the state in place)."""
     best_loss = model_losses.min()
+    select, update = selector.select, selector.update
+    first = (lambda r: r)
+    if acq_batch > 1:
+        select, update = resolve_batch_fns(selector, acq_batch)
+        first = _first_pick
 
     def step(state, cum, k):
         k_sel, k_best = trandom.split(k)
-        res = selector.select(state, k_sel)
-        scored = _score_digest(res, trace_k) if trace_k else None
+        res = select(state, k_sel)
+        scored = _score_digest(first(res), trace_k) if trace_k else None
         tc = labels.take(res.idx)
-        state = selector.update(state, res.idx, tc, res.prob)
+        state = update(state, res.idx, tc, res.prob)
         best, b_stoch = selector.best(state, k_best)
         regret = model_losses.take(best) - best_loss
-        cum = cum + regret
+        # label-weighted: a round of q answers counts its regret q times
+        cum = cum + (acq_batch * regret if acq_batch > 1 else regret)
         outs = (res.idx, tc, best, regret, cum, res.prob,
                 res.stochastic | b_stoch)
         if trace_k:
-            outs += (make_round_trace(selector, res, state, k, trace_k,
-                                      scored),)
+            outs += (make_round_trace(selector, first(res), state, k,
+                                      trace_k, scored),)
         return state, cum, outs
 
     return step
@@ -215,16 +241,22 @@ def _synchronizer(dev: torch.device) -> Callable[[], None]:
     return sync
 
 
-def _validate_rounds(selector: Selector, N: int, iters: int) -> None:
-    """``iters`` labels must fit the pool and any fixed label buffer."""
-    if iters > N:
-        raise ValueError(f"iters={iters} labels exceeds the {N} labelable "
-                         "points; the unlabeled set would be exhausted")
+def _validate_rounds(selector: Selector, N: int, iters: int,
+                     acq_batch: int = 1) -> None:
+    """``iters`` rounds of ``acq_batch`` labels must fit the pool and any
+    fixed label buffer (the reference's messages)."""
+    n_labels = iters * acq_batch
+    if n_labels > N:
+        raise ValueError(
+            f"iters={iters} x acq_batch={acq_batch} = {n_labels} labels "
+            f"exceeds the {N} labelable points; the unlabeled set would "
+            "be exhausted mid-run")
     budget = selector.hyperparams.get("budget")
-    if budget is not None and iters > budget:
+    if budget is not None and n_labels > budget:
         raise ValueError(
             f"selector '{selector.name}' has a fixed label buffer of "
-            f"{budget} but iters={iters}; rebuild it with budget >= {iters}")
+            f"{budget} but iters={iters} x acq_batch={acq_batch} = "
+            f"{n_labels} labels; rebuild it with budget >= {n_labels}")
 
 
 def _trace_k(trace_k: int, N: int) -> int:
@@ -238,7 +270,8 @@ def _stack_trace(traces: list, dim: int = 0) -> RoundTrace:
 
 def build_experiment_fn(selector: Selector, labels: torch.Tensor,
                         model_losses: torch.Tensor, iters: int = 100,
-                        timings: Optional[list] = None, trace_k: int = 0
+                        timings: Optional[list] = None, trace_k: int = 0,
+                        acq_batch: int = 1
                         ) -> Callable[[torch.Tensor], ExperimentResult]:
     """``key -> ExperimentResult`` for one seed; with ``trace_k > 0``,
     ``key -> (ExperimentResult, RunTraceAux)`` (the same decisions, the
@@ -246,11 +279,13 @@ def build_experiment_fn(selector: Selector, labels: torch.Tensor,
 
     ``timings``: when a list is given, each call appends ``{"init_ms",
     "rounds_ms"}`` measured on the host clock with the device synchronised
-    at the phase boundaries (two synchronisations per seed)."""
+    at the phase boundaries (two synchronisations per seed). ``acq_batch``:
+    labels a round (:func:`make_step_fn`)."""
     best_loss = model_losses.min()
-    _validate_rounds(selector, labels.shape[0], iters)
+    _validate_rounds(selector, labels.shape[0], iters, acq_batch)
     trace_k = _trace_k(trace_k, labels.shape[0])
-    step = make_step_fn(selector, labels, model_losses, trace_k=trace_k)
+    step = make_step_fn(selector, labels, model_losses, trace_k=trace_k,
+                        acq_batch=acq_batch)
     dev = labels.device
     _sync = _synchronizer(dev)
 
@@ -369,7 +404,7 @@ def make_batched_experiment_fn(selector_factory: Callable[[torch.Tensor],
                                                           Selector],
                                iters: int, loss_fn: Callable = accuracy_loss,
                                timings: Optional[list] = None,
-                               trace_k: int = 0):
+                               trace_k: int = 0, acq_batch: int = 1):
     """``(preds, labels, keys (S, 2)) -> ExperimentResult`` with a leading
     seed axis, under the reference's name; with ``trace_k > 0``,
     ``(ExperimentResult, RunTraceAux)``, both with the seed axis.
@@ -377,18 +412,20 @@ def make_batched_experiment_fn(selector_factory: Callable[[torch.Tensor],
     The selector is built once by ``selector_factory(preds)``. A width-1
     batch runs as one single-replica experiment, as the reference skips
     its ``vmap`` there; S > 1 seeds run as one batch where the selector
-    has a seed-batched form, else one after another. ``timings``: see
+    has a seed-batched form and ``acq_batch`` is 1, else one after
+    another. ``timings``: see
     :func:`build_experiment_fn` (one entry per seed) and
     :func:`build_batched_experiment_fn` (one for the batch)."""
     def fn(preds, labels, keys):
         sel = selector_factory(preds)
         losses = compute_true_losses(preds, labels, loss_fn)
-        if keys.shape[0] > 1 and sel.batched is not None:
+        if keys.shape[0] > 1 and seeds_batch(sel, acq_batch):
             return build_batched_experiment_fn(sel, labels, losses, iters,
                                                timings=timings,
                                                trace_k=trace_k)(keys)
         exp = build_experiment_fn(sel, labels, losses, iters,
-                                  timings=timings, trace_k=trace_k)
+                                  timings=timings, trace_k=trace_k,
+                                  acq_batch=acq_batch)
         runs = [exp(k) for k in keys]
         if not trace_k:
             return ExperimentResult(*(torch.stack(f) for f in zip(*runs)))
@@ -400,6 +437,15 @@ def make_batched_experiment_fn(selector_factory: Callable[[torch.Tensor],
                 aux)
 
     return fn
+
+
+def seeds_batch(selector: Selector, acq_batch: int = 1) -> bool:
+    """Whether more than one seed of ``selector`` runs as one batch: it
+    has a seed-batched form and a round takes one label. A q-wide round
+    has none: a batch would refresh each replica's q class rows on its
+    own (seed 0 bitwise its one-seed run), and such a batch ran slower on
+    the card than the seeds in turn."""
+    return selector.batched is not None and acq_batch == 1
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -414,7 +460,8 @@ def run_seeds_compiled(selector_factory: Callable[[torch.Tensor], Selector],
                        loss_fn: Callable = accuracy_loss,
                        device: DeviceLike = None,
                        timings: Optional[list] = None,
-                       trace_k: int = 0) -> ExperimentResult:
+                       trace_k: int = 0, acq_batch: int = 1
+                       ) -> ExperimentResult:
     """All seeds of one method: the CLI's entry point.
 
     ``preds`` ``(H, N, C)`` and ``labels`` ``(N,)`` (tensors or numpy
@@ -424,14 +471,16 @@ def run_seeds_compiled(selector_factory: Callable[[torch.Tensor], Selector],
     after another. Returns an :class:`ExperimentResult` with a leading
     ``(seeds,)`` axis (and its :class:`RunTraceAux` with ``trace_k > 0``).
     ``timings``: one entry per seed when seeds run one after another, one
-    for the whole batch otherwise.
+    for the whole batch otherwise. ``acq_batch``: labels a round (``iters``
+    counts rounds).
     """
     dev = resolve_device(device)
     preds = _as_tensor(preds).to(dev, torch.float32)
     labels = _as_tensor(labels).to(dev)
     keys = torch.stack([trandom.PRNGKey(s) for s in range(seeds)])
     fn = make_batched_experiment_fn(selector_factory, iters, loss_fn,
-                                    timings=timings, trace_k=trace_k)
+                                    timings=timings, trace_k=trace_k,
+                                    acq_batch=acq_batch)
     return fn(preds, labels, keys)
 
 
@@ -439,10 +488,11 @@ def run_seeds_recorded(selector_factory: Callable[[torch.Tensor], Selector],
                        preds, labels, iters: int = 100, seeds: int = 5,
                        loss_fn: Callable = accuracy_loss, trace_k: int = 8,
                        device: DeviceLike = None,
-                       timings: Optional[list] = None):
+                       timings: Optional[list] = None, acq_batch: int = 1):
     """:func:`run_seeds_compiled` with the flight recorder on: returns
     ``(ExperimentResult, RunTraceAux)``, both with a leading seed axis,
     the decisions those of the unrecorded run."""
     return run_seeds_compiled(selector_factory, preds, labels, iters=iters,
                               seeds=seeds, loss_fn=loss_fn, device=device,
-                              timings=timings, trace_k=max(1, int(trace_k)))
+                              timings=timings, trace_k=max(1, int(trace_k)),
+                              acq_batch=acq_batch)

@@ -13,11 +13,17 @@ disagree and classifies it by the causally first diverging quantity:
     best model moved;
   * ``metric-drift`` — only derived metrics (regret) moved.
 
-It gives the reference's ``ReplayReport.to_dict()`` on every pair the
-reference compares round by round. Pairs the reference compares by the
-regret envelope (different ``acq_batch``, ``eig_scorer``, oracle or
-surrogate prior) raise ``NotImplementedError`` naming their slice, and so
-does re-executing a record, which comes with slice 5 of the port.
+Records of different ``acq_batch`` widths, ``eig_scorer`` rungs or
+surrogate priors run genuinely different acquisition programs; they
+compare by the reference's label-aligned regret envelope
+(``acq-batch-envelope``, ``eig-scorer-envelope``,
+``surrogate-prior-envelope``), never claiming parity. In two q-wide
+records a near tie of a round's first pick reads as ``score-delta`` (the
+later picks follow it); :func:`first_pick_flip` tells it apart.
+
+It gives the reference's ``ReplayReport.to_dict()`` on every pair. Records
+of different oracles raise ``NotImplementedError`` naming the crowd slice
+(6), and re-executing a record raises naming slice 5 of the port.
 """
 
 from __future__ import annotations
@@ -234,38 +240,181 @@ def _prior_knob(record: RunRecord) -> str:
     return f"{mode}@{digest}" if digest else str(mode)
 
 
-# knobs whose difference the reference compares by the regret envelope:
-# (name, the record's normalized value, the port slice that brings it)
-_ENVELOPE_KNOBS = (
-    ("acq_batch", lambda r: r.acq_batch,
-     "batched acquisition and the surrogate (slice 4 of the port)"),
-    ("eig_scorer", _scorer_knob,
-     "batched acquisition and the surrogate (slice 4 of the port)"),
-    ("oracle_noise", _oracle_knob, "crowd (slice 6 of the port)"),
-    ("surrogate_prior", _prior_knob,
-     "batched acquisition and the surrogate (slice 4 of the port)"),
-)
+def _label_aligned_cum(record: RunRecord, seed: int) -> np.ndarray:
+    """One seed's cumulative regret indexed by label: entry L-1 is the
+    cumulative regret after L labels (each round's regret counted for its
+    q labels, re-derived from ``regret`` so v1 and v2 records align)."""
+    q = record.acq_batch
+    regret = np.asarray(record.arrays["regret"][seed], np.float64)
+    return np.repeat(np.cumsum(q * regret), q)
+
+
+def _compare_records_envelope(a: RunRecord, b: RunRecord,
+                              classification: str, meta_key: str,
+                              label_a: str, label_b: str,
+                              force_diff_key: Optional[str] = None
+                              ) -> ReplayReport:
+    """The label-aligned regret-envelope comparison of two records that
+    ran different acquisition programs: per seed, the two cumulative
+    regret curves on their common label prefix, the final gap and ratio
+    and the worst aligned gap, under ``classification``. Parity is never
+    claimed."""
+    report = ReplayReport(mode="records", score_tol=0.0, meta={
+        "a": a.meta.get("run", {}), "b": b.meta.get("run", {}),
+        "backend_a": a.meta.get("fingerprint", {}).get("backend"),
+        "backend_b": b.meta.get("fingerprint", {}).get("backend"),
+    })
+    knobs_a = _record_knobs(a)
+    knobs_b = _record_knobs(b)
+    diff = {key: [knobs_a.get(key), knobs_b.get(key)]
+            for key in sorted(set(knobs_a) | set(knobs_b))
+            if knobs_a.get(key) != knobs_b.get(key)}
+    if force_diff_key:
+        diff.setdefault(force_diff_key, [a.acq_batch, b.acq_batch])
+    report.meta["knob_diff"] = diff
+    n_seeds = min(a.seeds, b.seeds)
+    if a.seeds != b.seeds:
+        report.meta["seed_count_mismatch"] = {"a": a.seeds, "b": b.seeds,
+                                              "compared": n_seeds}
+    per_seed = []
+    for s in range(n_seeds):
+        ca = _label_aligned_cum(a, s)
+        cb = _label_aligned_cum(b, s)
+        L = min(ca.shape[0], cb.shape[0])
+        ca, cb = ca[:L], cb[:L]
+        gap = cb - ca
+        final_ratio = (float(cb[-1] / ca[-1]) if ca[-1] > 0
+                       else (1.0 if cb[-1] <= 0 else float("inf")))
+        info = {
+            "labels_compared": int(L),
+            "final_cum_a": float(ca[-1]), "final_cum_b": float(cb[-1]),
+            "final_gap": float(gap[-1]),
+            "max_aligned_gap": float(np.max(gap)),
+            "final_ratio_b_over_a": final_ratio,
+        }
+        per_seed.append(info)
+        report.seeds.append(SeedTriage(
+            seed=s, parity=False, first_divergent_round=0,
+            quantity="cumulative_regret",
+            classification=classification,
+            quantities={"cumulative_regret": info},
+            note=(f"label-aligned regret envelope over {L} labels: "
+                  f"final {ca[-1]:.4f} ({label_a}) vs "
+                  f"{cb[-1]:.4f} ({label_b}), "
+                  f"ratio {final_ratio:.3f}, "
+                  f"max aligned gap {np.max(gap):.4f}")))
+    report.meta[meta_key] = {
+        "a": label_a, "b": label_b, "seeds": per_seed,
+        "max_final_ratio_b_over_a": max(
+            (i["final_ratio_b_over_a"] for i in per_seed), default=None),
+        "max_aligned_gap": max(
+            (i["max_aligned_gap"] for i in per_seed), default=None),
+    }
+    return report
+
+
+def compare_records_batchq(a: RunRecord, b: RunRecord) -> ReplayReport:
+    """Records of different ``acq_batch`` widths: the envelope, triage
+    class ``acq-batch-envelope``."""
+    report = _compare_records_envelope(
+        a, b, classification="acq-batch-envelope",
+        meta_key="batchq_envelope",
+        label_a=f"q={a.acq_batch}", label_b=f"q={b.acq_batch}",
+        force_diff_key="acq_batch")
+    report.meta["batchq_envelope"].update(
+        {"q_a": a.acq_batch, "q_b": b.acq_batch})
+    return report
+
+
+def compare_records_scorer(a: RunRecord, b: RunRecord) -> ReplayReport:
+    """Records of different ``eig_scorer`` rungs (the surrogate's score
+    vector legitimately holds predictions outside its re-scored rows):
+    the envelope, triage class ``eig-scorer-envelope``."""
+    report = _compare_records_envelope(
+        a, b, classification="eig-scorer-envelope",
+        meta_key="scorer_envelope",
+        label_a=f"eig_scorer={_scorer_knob(a)}",
+        label_b=f"eig_scorer={_scorer_knob(b)}")
+    report.meta["scorer_envelope"].update(
+        {"scorer_a": _scorer_knob(a), "scorer_b": _scorer_knob(b)})
+    return report
+
+
+def compare_records_prior(a: RunRecord, b: RunRecord) -> ReplayReport:
+    """Records of different ``--surrogate-prior`` modes or pool digests (a
+    seeded run skips warmup rounds already paid): the envelope, triage
+    class ``surrogate-prior-envelope``; the reference's gate bounds the
+    seeded run's final cumulative regret at :data:`PRIOR_ENVELOPE_RATIO`
+    times the cold one's plus :data:`PRIOR_ENVELOPE_ABS`."""
+    report = _compare_records_envelope(
+        a, b, classification="surrogate-prior-envelope",
+        meta_key="prior_envelope",
+        label_a=f"surrogate_prior={_prior_knob(a)}",
+        label_b=f"surrogate_prior={_prior_knob(b)}")
+    report.meta["prior_envelope"].update(
+        {"prior_a": _prior_knob(a), "prior_b": _prior_knob(b)})
+    return report
+
+
+# the reference's bound on a pool-seeded run against a cold one
+# (scripts/check_perf.py PRIOR_ENVELOPE_RATIO / PRIOR_ENVELOPE_ABS)
+PRIOR_ENVELOPE_RATIO = 1.05
+PRIOR_ENVELOPE_ABS = 0.02
+
+
+def within_prior_envelope(cold_final_mean: float,
+                          seeded_final_mean: float) -> bool:
+    """The seeded run's mean final cumulative regret within the
+    reference's envelope of the cold run's."""
+    return seeded_final_mean <= (PRIOR_ENVELOPE_RATIO * cold_final_mean
+                                 + PRIOR_ENVELOPE_ABS)
+
+
+def first_pick_flip(a: RunRecord, b: RunRecord, seed: int, t0: int,
+                    tol: float = CROSS_BACKEND_SCORE_TOL) -> bool:
+    """Whether seed ``seed`` of two q-wide records first diverges at round
+    ``t0`` by a near tie of the round's FIRST pick: the first picks
+    differ, the score vectors agree within ``tol`` (the top-k and the
+    chosen score) and ``a``'s runner-up gap is within it. The later picks
+    then follow another first pick, so their probabilities differ by more
+    than ``tol`` and the per-round triage names the round ``score-delta``
+    (its quantity order) where the cause is a ``tie-break-flip``."""
+    x, y = a.seed_arrays(seed), b.seed_arrays(seed)
+    return bool(
+        x["chosen_idx"][t0, 0] != y["chosen_idx"][t0, 0]
+        and abs(float(x["runner_up_gap"][t0])) <= tol
+        and abs(float(x["chosen_score"][t0] - y["chosen_score"][t0])) <= tol
+        and np.allclose(x["topk_score"][t0], y["topk_score"][t0], rtol=0,
+                        atol=tol))
 
 
 def compare_records(a: RunRecord, b: RunRecord,
                     score_tol: float = 0.0) -> ReplayReport:
     """Direct record-vs-record comparison (no re-execution), the
-    reference's per-round path: the first diverging round of each seed and
-    its triage class.
+    reference's path: the first diverging round of each seed and its
+    triage class.
 
     Records captured with different ``--record-topk`` compare on the
     common top-k prefix; a seed-count mismatch compares the common seeds
     and is surfaced in the report meta + triage text (never silently
     called full parity). Records of different ``acq_batch`` widths,
-    ``eig_scorer`` rungs, oracles or surrogate priors take the
-    reference's regret-envelope comparison, which this copy lacks: they
-    raise ``NotImplementedError`` naming the slice that brings it."""
-    for knob, of, where in _ENVELOPE_KNOBS:
-        if of(a) != of(b):
-            raise NotImplementedError(
-                f"records differ in {knob} ({of(a)!r} vs {of(b)!r}): the "
-                "reference compares them by the label-aligned regret "
-                f"envelope, which comes with {where}")
+    ``eig_scorer`` rungs or surrogate priors take the label-aligned
+    regret envelope (:func:`compare_records_batchq`,
+    :func:`compare_records_scorer`, :func:`compare_records_prior`), as the
+    reference's do. Records of different oracles raise
+    ``NotImplementedError``: the crowd oracle is slice 6 of the port."""
+    if a.acq_batch != b.acq_batch:
+        return compare_records_batchq(a, b)
+    if _scorer_knob(a) != _scorer_knob(b):
+        return compare_records_scorer(a, b)
+    if _oracle_knob(a) != _oracle_knob(b):
+        raise NotImplementedError(
+            f"records differ in oracle_noise ({_oracle_knob(a)!r} vs "
+            f"{_oracle_knob(b)!r}): the reference compares them by the "
+            "label-aligned regret envelope, which comes with the crowd "
+            "oracle (slice 6 of the port)")
+    if _prior_knob(a) != _prior_knob(b):
+        return compare_records_prior(a, b)
     if a.rounds != b.rounds:
         raise ValueError(
             f"records disagree on round count ({a.rounds} vs {b.rounds}); "
@@ -321,11 +470,44 @@ def format_triage(report: ReplayReport) -> str:
     if report.meta.get("knob_diff"):
         pairs = ", ".join(f"{k}: {va!r} vs {vb!r}" for k, (va, vb)
                           in report.meta["knob_diff"].items())
-        contract = ("BITWISE equality (score-tol 0 despite the knob diff)"
-                    if report.score_tol == 0.0
-                    else "the documented score contract")
+        contract = ("the label-aligned regret envelope"
+                    if (report.meta.get("batchq_envelope")
+                        or report.meta.get("scorer_envelope")
+                        or report.meta.get("oracle_envelope")
+                        or report.meta.get("prior_envelope"))
+                    else ("BITWISE equality (score-tol 0 despite the "
+                          "knob diff)" if report.score_tol == 0.0
+                          else "the documented score contract"))
         lines.append(f"  knobs differ ({pairs}) — compared under "
                      f"{contract}, not bitwise")
+    env = report.meta.get("batchq_envelope")
+    if env:
+        lines.append(
+            f"  acq-batch envelope: q={env['q_a']} vs q={env['q_b']}, "
+            f"worst final cum-regret ratio "
+            f"{env['max_final_ratio_b_over_a']:.3f}, worst aligned gap "
+            f"{env['max_aligned_gap']:.4f}")
+    env = report.meta.get("scorer_envelope")
+    if env:
+        lines.append(
+            f"  eig-scorer envelope: {env['scorer_a']} vs "
+            f"{env['scorer_b']}, worst final cum-regret ratio "
+            f"{env['max_final_ratio_b_over_a']:.3f}, worst aligned gap "
+            f"{env['max_aligned_gap']:.4f}")
+    env = report.meta.get("oracle_envelope")
+    if env:
+        lines.append(
+            f"  oracle-noise envelope: {env['oracle_a']} vs "
+            f"{env['oracle_b']}, worst final cum-regret ratio "
+            f"{env['max_final_ratio_b_over_a']:.3f}, worst aligned gap "
+            f"{env['max_aligned_gap']:.4f}")
+    env = report.meta.get("prior_envelope")
+    if env:
+        lines.append(
+            f"  surrogate-prior envelope: {env['prior_a']} vs "
+            f"{env['prior_b']}, worst final cum-regret ratio "
+            f"{env['max_final_ratio_b_over_a']:.3f}, worst aligned gap "
+            f"{env['max_aligned_gap']:.4f}")
     for s in report.seeds:
         if s.parity:
             lines.append(f"  seed {s.seed}: PARITY "
@@ -339,6 +521,8 @@ def format_triage(report: ReplayReport) -> str:
         if s.note:
             lines.append(f"    {s.note}")
         for q, info in s.quantities.items():
+            if "first_divergent_round" not in info:
+                continue  # envelope entries carry their own note line
             d = info.get("max_abs_delta")
             lines.append(
                 f"    {q}: first at round {info['first_divergent_round']}"

@@ -88,8 +88,14 @@ def mixture_stats(pbest_rows: torch.Tensor, pi_hat: torch.Tensor,
     entropies enter one subtraction, and a mixed lowering would forfeit
     the error cancellation the scores rely on. With a replica axis,
     ``(S, C, H)`` rows and ``(S, C)`` pi-hat give ``(S, H)`` and ``(S,)``
-    (the reference's ``jax.vmap(_mixture_stats)``)."""
-    mixture0 = (pi_hat[..., :, None] * pbest_rows).sum(-2)
+    (the reference's ``jax.vmap(_mixture_stats)``), one replica at a time:
+    a reduction over another axis of a larger tensor may add in another
+    order, and replica s must give the one-replica bits."""
+    if pbest_rows.dim() == 3:
+        mixture0, h_before = zip(*(mixture_stats(r, p, approx)
+                                   for r, p in zip(pbest_rows, pi_hat)))
+        return torch.stack(mixture0), torch.stack(h_before)
+    mixture0 = (pi_hat[:, None] * pbest_rows).sum(0)
     return mixture0, entropy2(mixture0, approx=approx)
 
 
@@ -110,14 +116,37 @@ def eig_scores_from_cache(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
     B = max(1, min(chunk, N))
     out = torch.empty(N, dtype=torch.float32, device=pbest_hyp.device)
     for start in range(0, N, B):
-        hyp_b = pbest_hyp[:, start:start + B].to(torch.float32)
-        mix = mixture0 + pi_hat[:, None, None] * (hyp_b - pbest_rows[:, None])
-        p = torch.clamp_min(mix, _ENTROPY_FLOOR)
-        log2p = log2_approx(p) if approx else torch.log(p) * _LOG2E
-        h_after = -(p * log2p).sum(-1)                          # (C, b)
-        out[start:start + B] = h_before - (
-            pi_hat_xi[start:start + B].T * h_after).sum(0)
+        out[start:start + B] = _score_block(
+            pbest_hyp[:, start:start + B], pi_hat_xi[start:start + B],
+            pbest_rows, pi_hat, mixture0, h_before, approx)
     return out
+
+
+def _score_block(hyp_b, pi_xi_b, pbest_rows, pi_hat, mixture0, h_before,
+                 approx: bool) -> torch.Tensor:
+    """The scores of the items of one ``(C, b, H)`` slice of the cache
+    (``pi_xi_b`` their ``(b, C)`` pi-hat rows): the plain scoring pass's
+    body."""
+    hyp_b = hyp_b.to(torch.float32)
+    mix = mixture0 + pi_hat[:, None, None] * (hyp_b - pbest_rows[:, None])
+    p = torch.clamp_min(mix, _ENTROPY_FLOOR)
+    log2p = log2_approx(p) if approx else torch.log(p) * _LOG2E
+    h_after = -(p * log2p).sum(-1)                              # (C, b)
+    return h_before - (pi_xi_b.T * h_after).sum(0)
+
+
+def eig_scores_rows(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
+                    pi_hat: torch.Tensor, pi_hat_xi: torch.Tensor,
+                    rows: torch.Tensor, approx: bool = False
+                    ) -> torch.Tensor:
+    """The plain scoring pass on the items ``rows`` (int64 ``(m,)``) only:
+    ``(m,)`` scores, each the value :func:`eig_scores_from_cache` gives
+    that item (the same block body on the gathered ``(C, m, H)`` slice).
+    The surrogate scorer's exact re-score of its shortlist."""
+    mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
+    return _score_block(pbest_hyp.index_select(1, rows),
+                        pi_hat_xi.index_select(0, rows), pbest_rows, pi_hat,
+                        mixture0, h_before, approx)
 
 
 def eig_scores_refresh_plain(pbest_rows, pbest_hyp, hyp_t, true_class,

@@ -145,11 +145,13 @@ def _take_row(t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return t[rep, :, c]
 
 
-def _even_share(r: torch.Tensor, n: int) -> torch.Tensor:
+def _even_share(r: torch.Tensor, n: float) -> torch.Tensor:
     """``r / n`` rounded as one IEEE division on every device: PyTorch's
     CUDA kernel turns a division by a host scalar into a multiplication by
     its reciprocal, an ulp away from the reference's quotient, so the
-    divisor is a device tensor."""
+    divisor is a device tensor (``n`` rounded to ``r``'s dtype). The
+    surrogate's means and the overlap re-rank's scaling divide this way
+    too."""
     return r / torch.full((), n, dtype=r.dtype, device=r.device)
 
 

@@ -121,6 +121,33 @@ def make_activetesting(preds: torch.Tensor,
         state.n_labeled.add_(1)
         return state
 
+    def select_q(state: LUREState, key, q: int) -> SelectResult:
+        """q proportional draws without replacement from the static
+        weights, draw t with key t of ``split(key, q)``: each draw's
+        probability is conditional on the picks before it (the q_m the
+        LURE weights need)."""
+        keys = trandom.split(key, q)
+        mask = state.unlabeled.clone()
+        idxs, probs = [], []
+        for t in range(q):
+            idx_t, prob_t = masked_categorical(keys[t], acquisition_scores,
+                                               mask)
+            mask.index_fill_(0, idx_t.reshape(1), False)
+            idxs.append(idx_t)
+            probs.append(prob_t.to(torch.float32))
+        return SelectResult(idx=torch.stack(idxs), prob=torch.stack(probs),
+                            stochastic=always,
+                            scores=torch.where(state.unlabeled,
+                                               acquisition_scores,
+                                               float("-inf")))
+
+    def update_q(state: LUREState, idxs, true_classes, probs) -> LUREState:
+        """The q answers' loss vectors and probabilities into buffer slots
+        ``m..m+q-1``, IN PLACE."""
+        for j in range(idxs.shape[0]):
+            update(state, idxs[j], true_classes[j], probs[j])
+        return state
+
     def best(state: LUREState, key):
         risk = lure_risks(state.losses, state.qs, state.n_labeled, N)
         k_tie, k_rand = trandom.split(key)
@@ -134,6 +161,7 @@ def make_activetesting(preds: torch.Tensor,
 
     return Selector(
         name=name, init=init, select=select, update=update, best=best,
+        select_q=select_q, update_q=update_q,
         always_stochastic=True,
         hyperparams={"budget": budget},
         extras={

@@ -43,17 +43,38 @@ bitwise: the scoring, the pi-hat recompute and the P(best) readout run one
 replica at a time inside the round, since neither cuBLAS nor PyTorch's
 reductions promise one summation order at every batch size.
 
+Batched acquisition (``--acq-batch q``, ``selectors/batch.py``): on the
+full-pool EIG acquisition ``select_q`` re-ranks the round's one score
+vector greedily with the reference's information-overlap penalty, and
+``update_q`` applies the q answers as one update — the posterior rows,
+pi-hat column by column (kernel 3 once an answer on the delta path), the
+q class rows of the cache refreshed from the final posterior, then ONE
+scoring pass (kernel 1). Several seeds run one after another: a seed
+batch refreshes its rows replica by replica anyway, and measured slower
+on the card than the seeds in turn. Under
+``eig_refresh='fused'`` the q answers go through ``update`` one after
+another (kernel 6 and kernel 3 q times a round). ``update_w`` and
+``update_qw`` scale an answer's increment by a weight (the crowd oracle's
+protocol).
+
+The contract-gated surrogate scorer (``eig_scorer='surrogate:k'``,
+``selectors/surrogate.py``, incremental tier, precomputed refresh): the
+class row is written without kernel 2, and the round's scores are the
+surrogate's hybrid vector, or the full pass through kernel 1 on a warmup
+or fallback round. Its seeds run one after another (the round's branch
+is a host decision per seed).
+
 State is updated IN PLACE where the reference returned new arrays: the
 Dirichlet (or sparse) row, the pi-hat column, the cache row and the
 unlabeled mask. Every product runs at fp32 with TF32 off, except the EIG
 table products under ``eig_precision`` ``high`` or ``default``, which
-switch TF32 on for those products alone. ``eig_scorer``,
-``surrogate_prior`` and ``shard_spec`` raise ``NotImplementedError``
-naming the later slice that brings them.
+switch TF32 on for those products alone. ``shard_spec`` raises
+``NotImplementedError`` naming the later slice that brings it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -71,6 +92,7 @@ from coda_tpu_torch.ops.eig_kernels import (
     eig_scores_cache_batched,
     eig_scores_from_cache,
     eig_scores_from_cache_batched,
+    eig_scores_rows,
     eig_scores_refresh,
     eig_scores_refresh_batched,
     eig_scores_refresh_batched_plain,
@@ -99,6 +121,7 @@ from coda_tpu_torch.ops.pbest import (
 )
 from coda_tpu_torch.ops.sparse_rows import (
     SparseRows,
+    _even_share,
     _take_row,
     densify_row,
     parse_posterior,
@@ -107,6 +130,7 @@ from coda_tpu_torch.ops.sparse_rows import (
     sparsify,
 )
 from coda_tpu_torch.ops.sparse_rows import row_beta as sparse_row_beta
+from coda_tpu_torch.selectors import surrogate as sg
 from coda_tpu_torch.selectors.protocol import (
     BatchedSelector,
     Selector,
@@ -144,8 +168,10 @@ _AMORTIZED_MIN_CONC = 32.0
 # and blocks are sized to stay under these
 _ROWSCAN_TEMP_BYTES = 1 << 30
 _DIRECT_TEMP_BYTES = 1 << 30
+# temporaries of one batched pass of a q-wide round's class-row refresh
+# (:func:`_refresh_row_chunk`)
+_REFRESH_TEMP_BYTES = 1 << 30
 
-_SLICE_4 = "batched acquisition and the surrogate (slice 4 of the port)"
 _SLICE_5 = "replay, suite and parallel (slice 5 of the port)"
 
 # eig_backend values that run the plain PyTorch versions: the reference's
@@ -157,9 +183,8 @@ PRECISIONS = ("highest", "high", "default")
 
 
 class CODAHyperparams(NamedTuple):
-    """The reference's fields and defaults. ``eig_scorer``,
-    ``surrogate_prior`` and ``shard_spec`` raise at anything but their
-    defaults (later slices)."""
+    """The reference's fields and defaults. ``shard_spec`` raises at
+    anything but its default (a later slice)."""
 
     prefilter_n: int = 0          # EIG on a random subset of this many
     #                               candidates a round (0: all)
@@ -196,16 +221,17 @@ class CODAHyperparams(NamedTuple):
     posterior: str = "dense"      # dense | sparse:K (incremental tier only)
     eig_pbest: str = "quad"       # quad | amortized (incremental tier,
     #                               precomputed refresh)
-    eig_scorer: str = "exact"
-    surrogate_prior: str = "off"
+    eig_scorer: str = "exact"     # exact | surrogate:k (incremental tier,
+    #                               precomputed refresh)
+    surrogate_prior: str = "off"  # off | pool: the surrogate's fit seeded
+    #                               from a cross-session prior
     pi_update: str = "auto"       # auto (= delta) | delta | exact
 
 
 def _unsupported(knob: str, value, where: str):
     raise NotImplementedError(
         f"{knob}={value!r} comes with {where}; coda_tpu_torch runs every EIG "
-        "tier and numerics knob of the reference with the exact scorer on "
-        "one card")
+        "tier, numerics knob and scorer of the reference on one card")
 
 
 def resolve_pi_update(hp: CODAHyperparams, N: Optional[int] = None) -> str:
@@ -268,8 +294,9 @@ def resolve_eig_mode(hp: CODAHyperparams, H: int, N: int, C: int) -> str:
 
 def batches_seeds(hp: CODAHyperparams) -> bool:
     """Whether the selector has a seed-batched form: every tier does but
-    the fused refresh (the reference refuses it under ``vmap``)."""
-    return hp.eig_refresh != "fused"
+    the fused refresh (the reference refuses it under ``vmap``) and the
+    surrogate scorer (its round branches per seed on the host)."""
+    return hp.eig_refresh != "fused" and hp.eig_scorer == "exact"
 
 
 def check_supported(hp: CODAHyperparams, N: int) -> None:
@@ -299,6 +326,13 @@ def check_supported(hp: CODAHyperparams, N: int) -> None:
     resolve_pi_update(hp)
     resolve_precision(hp.eig_precision)
     parse_posterior(hp.posterior)
+    scorer_k = sg.parse_scorer(hp.eig_scorer)
+    if sg.parse_prior(hp.surrogate_prior) and scorer_k is None:
+        raise ValueError(
+            "surrogate_prior='pool' warm-starts the carried surrogate "
+            "fit; eig_scorer='exact' carries none — it would silently "
+            "not apply (use eig_scorer='surrogate:k' or "
+            "surrogate_prior='off')")
     if hp.eig_refresh == "fused" and (hp.shard_spec or hp.n_parallel > 1):
         raise ValueError(
             "eig_refresh='fused' computes the replacement row inside the "
@@ -306,12 +340,8 @@ def check_supported(hp: CODAHyperparams, N: int) -> None:
             "backend and supports neither shard_spec nor vmapped batches "
             f"(got backend={hp.eig_backend!r}, shard_spec={hp.shard_spec!r}, "
             f"n_parallel={hp.n_parallel})")
-    for knob, default, where in (("eig_scorer", "exact", _SLICE_4),
-                                 ("surrogate_prior", "off", _SLICE_4),
-                                 ("shard_spec", "", _SLICE_5)):
-        value = getattr(hp, knob)
-        if value != default:
-            _unsupported(knob, value, where)
+    if hp.shard_spec:
+        _unsupported("shard_spec", hp.shard_spec, _SLICE_5)
 
 
 def check_tier(hp: CODAHyperparams, eig_mode: str) -> None:
@@ -352,14 +382,29 @@ def check_tier(hp: CODAHyperparams, eig_mode: str) -> None:
             f"Beta tables (got backend={hp.eig_backend!r}, "
             f"eig_refresh={hp.eig_refresh!r}) — it would silently not "
             "apply")
+    surrogate = sg.parse_scorer(hp.eig_scorer) is not None
+    if surrogate and eig_mode != "incremental":
+        raise ValueError(
+            "eig_scorer='surrogate:k' amortizes the incremental tier's "
+            f"scoring pass; this config resolved to eig_mode={eig_mode!r} "
+            "where the shortlist refresh has no carried cache to read — "
+            "shrink the config into the incremental budget or use "
+            "eig_scorer='exact'")
+    if surrogate and fused:
+        raise ValueError(
+            "eig_scorer='surrogate:k' scores through the shortlist "
+            "gather; eig_refresh='fused' scores the full pool inside the "
+            "refresh kernel and cannot take the hybrid vector — drop "
+            "eig_refresh='fused' or the surrogate")
 
 
 class CODAState(NamedTuple):
-    """Selector state (the reference's ``CODAState`` minus the surrogate
-    fit). The cache fields are None off the incremental tier; a sparse
-    posterior (``sparse``) replaces ``dirichlets``. ``update`` modifies
-    these tensors in place. The seed-batched form carries the same fields
-    with a leading replica axis S."""
+    """Selector state (the reference's ``CODAState``). The cache fields
+    are None off the incremental tier; a sparse posterior (``sparse``)
+    replaces ``dirichlets``; ``surrogate`` is the surrogate scorer's fit
+    (None for the exact scorer). ``update`` modifies these tensors in
+    place. The seed-batched form carries the same fields with a leading
+    replica axis S."""
 
     dirichlets: Optional[torch.Tensor]  # (H, C, C) Dirichlet posteriors
     pi_hat_xi: torch.Tensor         # (N, C) per-item class posterior
@@ -371,6 +416,7 @@ class CODAState(NamedTuple):
     pi_xi_unnorm: Optional[torch.Tensor] = None  # (N, C) unnormalised pi
     eig_scores_cached: Optional[torch.Tensor] = None  # (N,) next scores
     sparse: Optional[SparseRows] = None  # the sparse:K posterior
+    surrogate: Optional[sg.SurrogateFit] = None  # the surrogate's fit
 
 
 # -- pi-hat ------------------------------------------------------------------
@@ -386,7 +432,11 @@ def pi_unnorm(dirichlets: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
 
 def _normalize_pi(unnorm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(pi_hat_xi, pi_hat) from the unnormalised (..., N, C) class
-    scores."""
+    scores; with a replica axis one replica at a time (the reduction over
+    N may add in another order on a larger tensor)."""
+    if unnorm.dim() == 3:
+        pi_xi, pi = zip(*(_normalize_pi(u) for u in unnorm))
+        return torch.stack(pi_xi), torch.stack(pi)
     pi_xi = unnorm / torch.clamp_min(unnorm.sum(-1, keepdim=True), 1e-12)
     pi = pi_xi.sum(-2)
     return pi_xi, pi / pi.sum(-1, keepdim=True)
@@ -588,6 +638,16 @@ def _rowscan_rows(lead: int, H: int, B: int, num_points: int) -> int:
     return max(1, _ROWSCAN_TEMP_BYTES // per_row)
 
 
+def _refresh_row_chunk(N: int, H: int, num_points: int) -> int:
+    """Class rows one batched pass of the q-wide refresh takes: as many as
+    keep a row's temporaries — six (N, H) and three (N, G) fp32 arrays,
+    two table sets of four (H, G) — within ``_REFRESH_TEMP_BYTES``. At
+    the headline (N, H) = (50000, 1000) that is one row, about 1.2 GB."""
+    G = num_points
+    per_row = 4 * (6 * N * H + 3 * N * G + 8 * H * G)
+    return max(1, _REFRESH_TEMP_BYTES // per_row)
+
+
 def eig_scores_rowscan(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
                        pi_hat_xi: torch.Tensor, hard_preds: torch.Tensor,
                        update_weight: float = 1.0, num_points: int = 256,
@@ -727,15 +787,16 @@ def _replicate(t, S: int):
     """S writable copies of a state field along a new leading axis."""
     if t is None:
         return None
-    if isinstance(t, SparseRows):
-        return SparseRows(*(_replicate(x, S) for x in t))
+    if isinstance(t, tuple):
+        return type(t)(*(_replicate(x, S) for x in t))
     return t.unsqueeze(0).repeat(S, *[1] * t.dim())
 
 
 # -- the selector --------------------------------------------------------------
 
 def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
-              name: str = "coda", device: DeviceLike = None) -> Selector:
+              name: str = "coda", device: DeviceLike = None,
+              prior: Optional[sg.PriorStats] = None) -> Selector:
     """Build the CODA selector over a ``(H, N, C)`` prediction tensor.
 
     Runs on ``device`` (default: the card; ``device="cpu"`` runs the plain
@@ -745,8 +806,14 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     ``best`` keep everything on the device, and read nothing back to the
     host but one flag a round under ``prefilter_n`` (the reference's
     ``lax.cond`` between the prefiltered and the full pool). So does the
-    seed-batched form, ``Selector.batched`` (None for the fused refresh).
+    seed-batched form, ``Selector.batched`` (None for the fused refresh and
+    the surrogate scorer). The surrogate scorer reads at most two flags a
+    round (its warmup counter, then its gate's verdict).
     ``extras["eig_mode"]`` names the resolved tier.
+
+    ``prior``: a cross-session :class:`~coda_tpu_torch.selectors.surrogate.
+    PriorStats` the surrogate's fit starts from (``surrogate_prior='pool'``
+    only, as in the reference).
     """
     hp = hp or CODAHyperparams()
     dev = resolve_device(device)
@@ -754,8 +821,14 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
     H, N, C = preds.shape
     check_supported(hp, N)
+    if prior is not None and not sg.parse_prior(hp.surrogate_prior):
+        raise ValueError(
+            "a prior was passed but surrogate_prior='off' — seeding "
+            "under the off knob would break the off-config bitwise pin; "
+            "set surrogate_prior='pool'")
     eig_mode = resolve_eig_mode(hp, H, N, C)
     check_tier(hp, eig_mode)
+    scorer_k = sg.parse_scorer(hp.eig_scorer)
     precision = resolve_precision(hp.eig_precision)
     pi_update = resolve_pi_update(hp, N)
     sparse_k = parse_posterior(hp.posterior)
@@ -817,6 +890,15 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
                                         cache_dtype=cache_dtype)
         sparse = (sparsify(dirichlets0, sparse_k) if sparse_k is not None
                   else None)
+        fit = None
+        if scorer_k is not None:
+            # init is exact (round 0 of the warmup); the fit starts zeroed
+            # with the prior posterior's class summaries, then takes the
+            # pool's normal equations and warmup credit if given one
+            aT, bT = _beta_rows(dirichlets0)
+            fit = sg.init_fit(aT, bT)
+            if prior is not None:
+                fit = sg.seed_fit(fit, prior)
         return CODAState(
             dirichlets=None if sparse is not None else dirichlets0.clone(),
             pi_hat_xi=pi_xi,
@@ -827,6 +909,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
             pi_xi_unnorm=unnorm if incremental else None,
             eig_scores_cached=None,
             sparse=sparse,
+            surrogate=fit,
         )
 
     def init(key=None) -> CODAState:
@@ -883,13 +966,17 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
             stochastic=(n_ties > 1) | subsampled,
             scores=scores_full)
 
-    def _select(state: CODAState, k_sub, k_tie) -> SelectResult:
-        # reference order: the disagreement filter first; an empty set
-        # falls back to every unlabeled point, which is never subsampled
-        cand0 = disagree & state.unlabeled
+    def _candidates(unlabeled):
+        """``(candidate mask, may_subsample)``. Reference order: the
+        disagreement filter first; an empty set falls back to every
+        unlabeled point, which is never subsampled."""
+        cand0 = disagree & unlabeled
         may_subsample = cand0.any(-1, keepdim=True)
-        cand = torch.where(may_subsample, cand0, state.unlabeled)
-        may_subsample = may_subsample[..., 0]
+        cand = torch.where(may_subsample, cand0, unlabeled)
+        return cand, may_subsample[..., 0]
+
+    def _select(state: CODAState, k_sub, k_tie) -> SelectResult:
+        cand, may_subsample = _candidates(state.unlabeled)
         if hp.q == "eig" and not use_prefilter:
             return _eig_select_full(state, cand, k_tie)
         if use_prefilter:
@@ -933,68 +1020,199 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         k_sub, k_tie = trandom.split(key)
         return _select(state, k_sub, k_tie)
 
+    def _greedy_overlap_topq(pi_xi, pi, unlabeled, rows, hyp, scores, cand,
+                             k_tie, q: int) -> SelectResult:
+        """Greedy top-q EIG with the reference's information-overlap
+        penalty, a re-rank of one scoring pass (one replica). Each of the
+        top ``M = max(32, 8q)`` candidates carries unit feature vectors —
+        its pi-hat row and, on the incremental tier, its expected
+        |dP(best)| profile over models at its ``min(8, C)`` likeliest
+        labels read from the cache — and after each pick every remaining
+        score is scaled by ``1 - (max cosine overlap with the picks)``.
+        ``lax.top_k`` is a stable descending sort; the features are
+        normalised by device-tensor divisions."""
+        M = min(N, max(32, 8 * q))
+        inf = float("-inf")
+        # candidates by score; unlabeled non-candidates at a finite floor,
+        # so a candidate set smaller than q falls back to unlabeled points
+        pool_scores = torch.where(cand, scores,
+                                  torch.where(unlabeled, -1e30, inf))
+        top_scores, pool = sg._top(pool_scores, M)
+        valid = top_scores > -1e29
+        pi_xi_p = pi_xi.index_select(0, pool)                       # (M, C)
+        U = pi_xi_p / torch.clamp_min(
+            torch.linalg.vector_norm(pi_xi_p, dim=1, keepdim=True), 1e-12)
+        feats = [U]
+        if incremental:
+            kc = min(8, C)
+            wv, ci = sg._top(pi_xi_p * pi[None, :], kc)             # (M, kc)
+            hyp_sel = hyp[ci, pool[:, None]].to(torch.float32)      # (M,kc,H)
+            E = (wv[:, :, None] * torch.abs(hyp_sel - rows[ci])).sum(1)
+            feats.append(E / torch.clamp_min(
+                torch.linalg.vector_norm(E, dim=1, keepdim=True), 1e-12))
+        # a device-tensor divisor: one IEEE division on every device
+        Fm = _even_share(torch.cat(feats, 1), math.sqrt(len(feats)))
+        keys = trandom.split(k_tie, q)
+        pen = torch.zeros(M, dtype=torch.float32, device=dev)
+        taken = torch.zeros(M, dtype=torch.bool, device=dev)
+        fb_base = unlabeled.index_select(0, pool)
+        locs, ties = [], []
+        for t in range(q):
+            eff = top_scores * (1.0 - pen)
+            avail = valid & ~taken
+            use = torch.where(avail.any(), avail, fb_base & ~taken)
+            loc, n_ties = masked_argmax_tiebreak(
+                keys[t], torch.where(avail, eff, inf), use,
+                rtol=_TIE_RTOL, atol=_TIE_ATOL)
+            overlap = torch.clamp(Fm @ Fm[loc], 0.0, 1.0)
+            pen = torch.maximum(pen, overlap)
+            taken.index_fill_(0, loc.reshape(1), True)
+            locs.append(loc)
+            ties.append(n_ties > 1)
+        locs = torch.stack(locs)
+        return SelectResult(
+            idx=pool.index_select(0, locs),
+            prob=torch.where(valid.index_select(0, locs),
+                             top_scores.index_select(0, locs), inf),
+            stochastic=torch.stack(ties).any(),
+            scores=torch.where(cand, scores, inf))
+
+    def _round_scores(state: CODAState):
+        """The round's full-pool scores: the incremental tier's cached
+        score-ahead, else the tier's scoring pass."""
+        if incremental:
+            return state.eig_scores_cached
+        return _tier_scores(state, state.pi_hat_xi, hard_preds, hp.eig_chunk)
+
+    def select_q(state: CODAState, key, q: int) -> SelectResult:
+        """q picks of the full-pool EIG from the round's one scoring pass
+        (the score-ahead on the incremental tier), re-ranked greedily with
+        the overlap penalty; the key is split as ``select``'s (the
+        subsample half unused), the tie-break half split q ways."""
+        _, k_tie = trandom.split(key)
+        cand, _ = _candidates(state.unlabeled)
+        return _greedy_overlap_topq(
+            state.pi_hat_xi, state.pi_hat, state.unlabeled,
+            state.pbest_rows, state.pbest_hyp, _round_scores(state), cand,
+            k_tie, q)
+
     # -- update: one form for a state with or without a replica axis ------
 
     def _pred_rows(idx):
-        """Each model's hard prediction at ``idx``: (H,) or (S, H)."""
+        """Each model's hard prediction at ``idx``: (..., H)."""
         return hard_preds.index_select(0, idx.reshape(-1).to(torch.int64)) \
             .reshape(idx.shape + (H,))
 
-    def _add_label(state: CODAState, idx, true_class):
-        """The label into the posterior IN PLACE; returns ``(pred_at,
-        beta_t)`` — ``beta_t`` the sparse row's ``(a_t, b_t)``, else
-        None."""
-        pred_at = _pred_rows(idx)
+    def _eff(w):
+        """The posterior increment: the learning rate, scaled by ``w``."""
+        return update_strength if w is None else update_strength * w
+
+    def _post_add(state: CODAState, true_class, pred_at, w=None):
+        """One label (per replica) into the posterior IN PLACE; returns the
+        sparse row's ``(a_t, b_t)``, else None."""
         if state.sparse is not None:
             # one-row sparse scatter; the labelled row's Betas from its
             # O(H·K) compact form, not a dense (H, C, C) pass
-            scatter_row(state.sparse, true_class, pred_at, update_strength)
-            return pred_at, sparse_row_beta(state.sparse, true_class)
+            scatter_row(state.sparse, true_class, pred_at, update_strength,
+                        weight=w)
+            return sparse_row_beta(state.sparse, true_class)
         onehot = F.one_hot(pred_at.to(torch.int64), C).to(torch.float32)
+        inc = _eff(w) * onehot
         c = true_class.to(torch.int64)
         if c.dim() == 0:
-            state.dirichlets.index_add_(1, c.reshape(1),
-                                        (update_strength * onehot)[:, None])
+            state.dirichlets.index_add_(1, c.reshape(1), inc[:, None])
         else:
             rep = torch.arange(c.shape[0], device=dev)
-            state.dirichlets[rep, :, c] += update_strength * onehot
-        return pred_at, None
+            state.dirichlets[rep, :, c] += inc
+        return None
 
-    def _update_pi(state: CODAState, true_class, pred_at):
-        """The incremental tier's pi-hat column: the delta increment
-        (kernel 3) or the exact column recompute."""
-        if pi_update == "delta":
-            if true_class.dim() == 0:
-                return update_pi_hat_column_delta(
-                    true_class, pred_at, preds_by_class, state.pi_xi_unnorm,
-                    update_strength, gather_fn=gather_fn)
-            delta = update_strength * gather_s_fn(preds_by_class, pred_at)
-            _put_col(state.pi_xi_unnorm, true_class, delta, add=True)
-            pi_xi, pi = _normalize_pi(state.pi_xi_unnorm)
-            return pi_xi, pi, state.pi_xi_unnorm
+    def _row_beta(state: CODAState, true_class):
+        """``(a_t, b_t)`` of class row ``true_class`` of the posterior."""
+        if state.sparse is not None:
+            return sparse_row_beta(state.sparse, true_class)
+        return row_beta(state.dirichlets, true_class)
+
+    def _mark_labeled(unlabeled, idx):
+        """``idx`` (one point, the round's (q,), or one a replica) leaves
+        the unlabeled set, IN PLACE."""
+        idx = idx.to(torch.int64)
+        if unlabeled.dim() == 1:
+            unlabeled.index_fill_(0, idx.reshape(-1), False)
+        else:
+            unlabeled[torch.arange(idx.shape[0], device=dev), idx] = False
+
+    def _delta_col(state: CODAState, true_class, pred_at, w=None):
+        """Add the label's exact pi-hat increment to column ``true_class``
+        IN PLACE (kernel 3, or its batched form, on the card)."""
+        gathered = (gather_fn(preds_by_class, pred_at)
+                    if true_class.dim() == 0
+                    else gather_s_fn(preds_by_class, pred_at))
+        _put_col(state.pi_xi_unnorm, true_class, _eff(w) * gathered,
+                 add=True)
+
+    def _exact_col(state: CODAState, true_class):
+        """Recompute pi-hat column ``true_class`` from the posterior row IN
+        PLACE."""
         d_t = (densify_row(state.sparse, true_class)
                if state.sparse is not None
                else _take_row(state.dirichlets, true_class))
-        return update_pi_hat_column_from_row(d_t, true_class, preds,
-                                             state.pi_xi_unnorm)
+        if d_t.dim() == 3:
+            col = torch.stack([torch.einsum("hs,hns->n", d, preds)
+                               for d in d_t])
+        else:
+            col = torch.einsum("hs,hns->n", d_t, preds)
+        _put_col(state.pi_xi_unnorm, true_class, col)
 
-    def _update(state: CODAState, idx, true_class) -> CODAState:
+    def _surrogate_scores(state: CODAState, pi, pi_xi, true_classes, a_t,
+                          b_t):
+        """The contract-gated scoring pass (one replica) on the refreshed
+        cache: ``(scores, fit)``. ``true_classes`` (q,) and their (q, H)
+        Betas are the round's labelled rows; ``state.eig_scores_cached`` is
+        the previous round's vector and ``state.unlabeled`` already the
+        next select's."""
+        fit = sg.refresh_class_feats(state.surrogate, true_classes, a_t, b_t)
+        rows, hyp = state.pbest_rows, state.pbest_hyp
+        feats = sg.build_features(state.eig_scores_cached, pi_xi, pi,
+                                  fit.cls_feats, rows, hyp, hard_preds,
+                                  true_classes)
+        cand, _ = _candidates(state.unlabeled)
+        return sg.surrogate_score_round(
+            fit, feats, cand, scorer_k,
+            lambda sel: eig_scores_rows(rows, hyp, pi, pi_xi, sel,
+                                        approx=approx),
+            lambda: score_fn(rows, hyp, pi, pi_xi, chunk=hp.eig_chunk,
+                             approx=approx))
+
+    def _write_row(state: CODAState, c, row_t, hyp_t) -> None:
+        """Class row ``c`` (per replica) of the P(best) cache IN PLACE,
+        ``hyp_t`` rounded to the cache's storage type."""
+        if c.dim() == 0:
+            state.pbest_rows.index_copy_(0, c.reshape(1), row_t[None])
+            state.pbest_hyp.index_copy_(
+                0, c.reshape(1), hyp_t.to(state.pbest_hyp.dtype)[None])
+        else:
+            rep = torch.arange(c.shape[0], device=dev)
+            state.pbest_rows[rep, c] = row_t
+            state.pbest_hyp[rep, c] = hyp_t.to(state.pbest_hyp.dtype)
+
+    def _update(state: CODAState, idx, true_class, w=None) -> CODAState:
         """One label per replica, applied IN PLACE to ``state``'s tensors;
         returns the state with the new pi-hat (and, on the incremental
-        tier, scores)."""
-        pred_at, beta_t = _add_label(state, idx, true_class)
+        tier, scores). ``w``: the increment's weight (``update_w``)."""
+        pred_at = _pred_rows(idx)
+        beta_t = _post_add(state, true_class, pred_at, w)
         batched = true_class.dim() > 0
-        unlabeled = state.unlabeled
-        if batched:
-            rep = torch.arange(idx.shape[0], device=dev)
-            unlabeled[rep, idx.to(torch.int64)] = False
-        else:
-            unlabeled.index_fill_(0, idx.reshape(1).to(torch.int64), False)
+        _mark_labeled(state.unlabeled, idx)
         if not incremental:
             pi_xi, pi = update_pi_hat(state.dirichlets, preds)
             return state._replace(pi_hat_xi=pi_xi, pi_hat=pi)
-        pi_xi, pi, unnorm = _update_pi(state, true_class, pred_at)
+        if pi_update == "delta":
+            _delta_col(state, true_class, pred_at, w)
+        else:
+            _exact_col(state, true_class)
+        pi_xi, pi = _normalize_pi(state.pi_xi_unnorm)
         c = true_class.to(torch.int64)
+        fit = state.surrogate
         if fused:
             # the class row is computed inside the scoring pass (kernel 6)
             # from the labelled class's Beta tables
@@ -1006,12 +1224,27 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
                 state.pbest_rows, state.pbest_hyp, a_t, b_t, hard_preds,
                 true_class, pi, pi_xi, num_points=hp.num_points,
                 approx=approx, chunk=hp.eig_chunk)
+        elif scorer_k is not None:
+            # the surrogate needs the labelled row's Betas too: taken once
+            # and handed to the row refresh, which is written without
+            # kernel 2 (the round's scores are the surrogate's)
+            beta_t = beta_t if beta_t is not None else _row_beta(
+                state, true_class)
+            row_t, hyp_t = update_eig_cache_parts(
+                state.dirichlets, true_class, hard_preds,
+                num_points=hp.num_points, precision=precision,
+                beta_t=beta_t, pbest=hp.eig_pbest)
+            _write_row(state, c, row_t, hyp_t)
+            hyp = state.pbest_hyp
+            scores, fit = _surrogate_scores(state, pi, pi_xi, c.reshape(1),
+                                            beta_t[0][None], beta_t[1][None])
         else:
             row_t, hyp_t = update_eig_cache_parts(
                 state.dirichlets, true_class, hard_preds,
                 num_points=hp.num_points, precision=precision,
                 beta_t=beta_t, pbest=hp.eig_pbest)
             if batched:
+                rep = torch.arange(c.shape[0], device=dev)
                 state.pbest_rows[rep, c] = row_t
                 scores, hyp = refresh_s_fn(
                     state.pbest_rows, state.pbest_hyp, hyp_t, c, pi, pi_xi,
@@ -1021,14 +1254,92 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
                 scores, hyp = refresh_fn(
                     state.pbest_rows, state.pbest_hyp, hyp_t, true_class,
                     pi, pi_xi, chunk=hp.eig_chunk, approx=approx)
-        return state._replace(pi_hat_xi=pi_xi, pi_hat=pi, pi_xi_unnorm=unnorm,
-                              pbest_hyp=hyp, eig_scores_cached=scores)
+        return state._replace(pi_hat_xi=pi_xi, pi_hat=pi, pbest_hyp=hyp,
+                              eig_scores_cached=scores, surrogate=fit)
 
     def update(state: CODAState, idx, true_class, prob=None) -> CODAState:
         """One label, applied IN PLACE to ``state``'s tensors; returns the
         state with the new pi-hat (and scores)."""
         del prob
         return _update(state, idx, true_class)
+
+    def update_w(state: CODAState, idx, true_class, prob, w) -> CODAState:
+        """``update`` with the posterior increment scaled by ``w`` (a
+        tensor): w = 1 is ``update`` bitwise, w = 0 leaves the posterior
+        as it was (the point is still labelled)."""
+        del prob
+        return _update(state, idx, true_class, w=w)
+
+    def _refresh_rows(state: CODAState, classes):
+        """The class rows ``classes`` (q,) refreshed from the posterior, as
+        many at a time in one batched pass (the reference's ``vmap`` over
+        the rows) as keep the pass's temporaries within
+        ``_REFRESH_TEMP_BYTES`` (:func:`_refresh_row_chunk`), and written
+        in order, a repeated class twice with equal values. Returns their
+        ``(q, H)`` Beta parameters."""
+        betas = [_row_beta(state, c) for c in classes]
+        a_t = torch.stack([a for a, _ in betas])
+        b_t = torch.stack([b for _, b in betas])
+        step = _refresh_row_chunk(N, H, hp.num_points)
+        for j0 in range(0, classes.shape[0], step):
+            cs = classes[j0:j0 + step]
+            rows_t, hyps_t = update_eig_cache_parts(
+                state.dirichlets, cs, hard_preds, num_points=hp.num_points,
+                precision=precision,
+                beta_t=(a_t[j0:j0 + step], b_t[j0:j0 + step]),
+                pbest=hp.eig_pbest)
+            for j in range(cs.shape[0]):
+                _write_row(state, cs[j], rows_t[j], hyps_t[j])
+        return a_t, b_t
+
+    def _update_q(state: CODAState, idxs, true_classes, ws=None
+                  ) -> CODAState:
+        """All q answers of a round (``(q,)``) as one update, IN PLACE: the
+        posterior rows in order, pi-hat column by column (kernel 3 once an
+        answer on the delta path; the exact column from the final
+        posterior otherwise), the q class rows of the cache refreshed from
+        the final posterior and written in order (a repeated class writes
+        equal values twice), then one scoring pass — kernel 1, or the
+        surrogate's. ``ws``: per-answer weights (``update_qw``)."""
+        q = true_classes.shape[-1]
+        tcs = true_classes.to(torch.int64)
+        pred_q = _pred_rows(idxs)                               # (q, H)
+        for j in range(q):
+            _post_add(state, tcs[j], pred_q[j],
+                      None if ws is None else ws[j])
+        _mark_labeled(state.unlabeled, idxs)
+        if not incremental:
+            pi_xi, pi = update_pi_hat(state.dirichlets, preds)
+            return state._replace(pi_hat_xi=pi_xi, pi_hat=pi)
+        for j in range(q):
+            if pi_update == "delta":
+                _delta_col(state, tcs[j], pred_q[j],
+                           None if ws is None else ws[j])
+            else:
+                _exact_col(state, tcs[j])
+        pi_xi, pi = _normalize_pi(state.pi_xi_unnorm)
+        a_t, b_t = _refresh_rows(state, tcs)
+        fit = state.surrogate
+        if scorer_k is not None:
+            scores, fit = _surrogate_scores(state, pi, pi_xi, tcs, a_t, b_t)
+        else:
+            scores = score_fn(state.pbest_rows, state.pbest_hyp, pi, pi_xi,
+                              chunk=hp.eig_chunk, approx=approx)
+        return state._replace(pi_hat_xi=pi_xi, pi_hat=pi,
+                              eig_scores_cached=scores, surrogate=fit)
+
+    def update_q(state: CODAState, idxs, true_classes, probs=None
+                 ) -> CODAState:
+        """The q answers of a round as one update (:func:`_update_q`)."""
+        del probs
+        return _update_q(state, idxs, true_classes)
+
+    def update_qw(state: CODAState, idxs, true_classes, probs, ws
+                  ) -> CODAState:
+        """The weighted q-wide update: answer j's increment scaled by
+        ``ws[j]`` (w = 1 everywhere is ``update_q`` bitwise)."""
+        del probs
+        return _update_q(state, idxs, true_classes, ws=ws)
 
     def _pbest_recomputed(dirichlets, pi_hat):
         """P(best) of one replica's posterior, off the incremental tier."""
@@ -1047,8 +1358,12 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         for a batched state."""
         if incremental:
             # the cached per-row P(best) is compute_pbest of the current
-            # posterior; only the pi-hat mixture is recomputed
-            return (state.pi_hat[..., :, None] * state.pbest_rows).sum(-2)
+            # posterior; only the pi-hat mixture is recomputed (one
+            # replica at a time, bitwise its one-seed readout)
+            if state.pbest_rows.dim() == 3:
+                return torch.stack([(p[:, None] * r).sum(0) for p, r in
+                                    zip(state.pi_hat, state.pbest_rows)])
+            return (state.pi_hat[:, None] * state.pbest_rows).sum(0)
         if state.dirichlets.dim() == 4:
             # one replica at a time, bitwise its one-seed readout
             return torch.stack([_pbest_recomputed(d, p) for d, p in
@@ -1101,16 +1416,55 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
 
     batched = BatchedSelector(
         init=init_batched, select_keys=select_keys, select=select_batched,
-        update=update_batched, best=best_batched) if batches_seeds(hp) \
-        else None
+        update=update_batched, best=best_batched) \
+        if batches_seeds(hp) else None
+    # the q-wide pair: the overlap re-rank on the full-pool EIG (the
+    # prefilter and the ablations take batch.py's generic top-q); the
+    # fused refresh has no multi-row form, so its q answers go through
+    # ``update`` one after another (batch.py's fallback). Neither has a
+    # seed-batched form: under --acq-batch the seeds run one after another
+    full_pool = hp.q == "eig" and not use_prefilter
+
+    extras = {"get_pbest": get_pbest, "eig_scores": eig_scores,
+              "eig_mode": eig_mode, "hard_preds": hard_preds,
+              "preds_by_class": preds_by_class}
+    if incremental:
+        # the exact scoring pass on a carried state (the surrogate's
+        # yardstick)
+        extras["score_exact"] = lambda st: score_fn(
+            st.pbest_rows, st.pbest_hyp, st.pi_hat, st.pi_hat_xi,
+            chunk=hp.eig_chunk, approx=approx)
+    if scorer_k is not None:
+        # the round's fallback flag, for the recorder's trace
+        extras["scorer_round_stats"] = lambda st: st.surrogate.last_fallback
+
+        def score_surrogate(st: CODAState, tcs):
+            """A surviving round's surrogate pass on a carried state
+            (features, predictions, the shortlist's exact re-score, the
+            gate, the hybrid vector and refold): ``(scores, fit)``."""
+            fit = st.surrogate
+            feats = sg.build_features(
+                st.eig_scores_cached, st.pi_hat_xi, st.pi_hat,
+                fit.cls_feats, st.pbest_rows, st.pbest_hyp, hard_preds, tcs)
+            cand, _ = _candidates(st.unlabeled)
+            scores, fit, _ = sg.hybrid_score_pass(
+                fit, feats, cand, scorer_k,
+                lambda sel: eig_scores_rows(
+                    st.pbest_rows, st.pbest_hyp, st.pi_hat, st.pi_hat_xi,
+                    sel, approx=approx))
+            return scores, fit
+
+        extras["score_surrogate"] = score_surrogate
 
     return Selector(
         name=name, init=init, select=select, update=update, best=best,
+        select_q=select_q if full_pool else None,
+        update_q=None if fused else update_q,
+        update_w=update_w,
+        update_qw=None if fused else update_qw,
         always_stochastic=False,
         hyperparams=dict(hp._asdict()),
         hyperparam_defaults=dict(CODAHyperparams()._asdict()),
-        extras={"get_pbest": get_pbest, "eig_scores": eig_scores,
-                "eig_mode": eig_mode, "hard_preds": hard_preds,
-                "preds_by_class": preds_by_class},
+        extras=extras,
         batched=batched,
     )

@@ -185,6 +185,43 @@ def make_modelpicker(preds: torch.Tensor, epsilon: float = DEFAULT_EPS,
         state.n_labeled.add_(1)
         return state._replace(posterior=post / post.sum())
 
+    def select_q(state: ModelPickerState, key, q: int) -> SelectResult:
+        """Argmin top-q: the q lowest expected entropies of one scoring
+        pass, pick t breaking its ties with key t of ``split(key, q)``; a
+        candidate set smaller than q falls back to any unlabeled point."""
+        ent = expected_entropies(hard_preds, state.posterior, gamma, C)
+        cand0 = disagree & state.unlabeled
+        cand = torch.where(cand0.any(), cand0, state.unlabeled)
+        prob = 1.0 / state.unlabeled.sum().to(torch.float32)
+        keys = trandom.split(key, q)
+        taken = torch.zeros(N, dtype=torch.bool, device=dev)
+        idxs = []
+        for t in range(q):
+            avail = cand & ~taken
+            use = torch.where(avail.any(), avail, state.unlabeled & ~taken)
+            idx_t, _ = masked_argmin_tiebreak(keys[t], ent, use)
+            taken.index_fill_(0, idx_t.reshape(1), True)
+            idxs.append(idx_t)
+        return SelectResult(
+            idx=torch.stack(idxs), prob=prob.expand(q).clone(),
+            stochastic=always,
+            scores=torch.where(cand, -ent, float("-inf")))
+
+    def update_q(state: ModelPickerState, idxs, true_classes, probs=None
+                 ) -> ModelPickerState:
+        """One multiplicative update for all q answers: the posterior
+        moves by ``gamma^(sum of agreements)`` and is normalised once."""
+        del probs
+        pred_q = hard_preds.index_select(0, idxs.to(torch.int64))  # (q, H)
+        agree = (pred_q == true_classes.to(torch.int32)[:, None]).to(
+            torch.float32)
+        a_sum = agree.sum(0)                                       # (H,)
+        post = state.posterior * torch.pow(gamma32, a_sum)
+        state.correct_counts.add_(a_sum.to(torch.int32))
+        state.unlabeled.index_fill_(0, idxs.to(torch.int64), False)
+        state.n_labeled.add_(idxs.shape[0])
+        return state._replace(posterior=post / post.sum())
+
     def best(state: ModelPickerState, key):
         k_tie, k_rand = trandom.split(key)
         idx, n_ties = masked_argmin_tiebreak(
@@ -197,6 +234,7 @@ def make_modelpicker(preds: torch.Tensor, epsilon: float = DEFAULT_EPS,
 
     return Selector(
         name=name, init=init, select=select, update=update, best=best,
+        select_q=select_q, update_q=update_q,
         always_stochastic=True,
         hyperparams={"epsilon": epsilon},
         # the multiplicative-weights posterior is this method's P(best),

@@ -22,7 +22,7 @@ S, so the engine runs S seeds in one round loop — where the reference
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -34,15 +34,6 @@ class SelectResult(NamedTuple):
     # (N,) acquisition vector (higher = preferred, non-candidates -inf) for
     # the flight recorder, or None
     scores: Any = None
-
-
-def acq_batch_unported(*args, **kwargs):
-    """``select_q``/``update_q`` of every port selector: batched
-    acquisition (``--acq-batch``) is not ported yet."""
-    raise NotImplementedError(
-        "batched acquisition (select_q/update_q, the reference's "
-        "--acq-batch) comes with batched acquisition and the surrogate "
-        "(slice 4 of the port)")
 
 
 @dataclass(frozen=True)
@@ -63,9 +54,22 @@ class Selector:
     # the seed-batched form, or None where the method has none (the engine
     # then runs seeds one after another)
     batched: Any = None
-    # q labels a round (the reference's --acq-batch): a later slice
-    select_q: Callable = acq_batch_unported
-    update_q: Callable = acq_batch_unported
+    # -- batched acquisition (--acq-batch q) -------------------------------
+    # select_q(state, key, q): q distinct points from one scoring pass, a
+    # SelectResult whose idx/prob carry a trailing (q,) axis. None: the
+    # method has no native form and ``selectors/batch.py`` derives a
+    # greedy top-q from the score vector ``select`` returns.
+    # update_q(state, idxs, true_classes, probs) with (q,) tensors: all q
+    # answers as one fused update. None: ``batch.py`` applies ``update``
+    # q times in order.
+    select_q: Optional[Callable] = None
+    update_q: Optional[Callable] = None
+    # -- weighted updates (the crowd oracle's protocol) --------------------
+    # update_w(state, idx, true_class, prob, w): ``update`` with the
+    # posterior increment scaled by w (w = 1 is ``update``; w = 0 leaves
+    # the posterior as it was); update_qw its q-wide form
+    update_w: Optional[Callable] = None
+    update_qw: Optional[Callable] = None
 
 
 @dataclass(frozen=True)
@@ -84,7 +88,9 @@ class BatchedSelector:
     ``(..., 2, 2)``), so the engine can compute them for
     every round before the loop and upload them to the device once;
     ``select`` then takes one round's ``(S, 2)`` rows of them. Replica s
-    follows the trajectory the single-replica functions give seed s."""
+    follows the trajectory the single-replica functions give seed s.
+    There is no q-wide form: under ``--acq-batch`` seeds run one after
+    another."""
 
     init: Callable[[int], Any]
     select_keys: Callable[[torch.Tensor], torch.Tensor]

@@ -12,6 +12,7 @@ from coda_tpu_torch.telemetry.recorder import (
     environment_fingerprint,
     is_record_dir,
     knobs_from_args,
+    optional_arrays,
     required_arrays,
 )
 
@@ -25,5 +26,6 @@ __all__ = [
     "environment_fingerprint",
     "is_record_dir",
     "knobs_from_args",
+    "optional_arrays",
     "required_arrays",
 ]

@@ -79,6 +79,22 @@ _VERSIONED_ARRAYS = {
     "surrogate_fallback": (3, ("b", 2)),   # (S, T)
 }
 
+# v4's optional per-round arrays of a crowd-oracle run (validated when
+# present, never demanded)
+_OPTIONAL_ARRAYS = {
+    "oracle_label": ("i", 2),   # (S, T) the aggregated crowd answer
+    "label_weight": ("f", 2),   # (S, T) the applied reliability weight
+}
+
+
+def optional_arrays(acq_batch: int = 1) -> dict:
+    """The optional arrays' spec at a record's ``acq_batch``: a trailing
+    ``(q,)`` axis at q > 1, like the decision arrays."""
+    out = dict(_OPTIONAL_ARRAYS)
+    if acq_batch <= 1:
+        return out
+    return {name: (kind, ndim + 1) for name, (kind, ndim) in out.items()}
+
 
 def required_arrays(acq_batch: int = 1,
                     schema_version: int = RECORD_SCHEMA_VERSION) -> dict:
@@ -282,14 +298,24 @@ class RunRecord:
         out = []
         meta = self.meta
         v = meta.get("schema_version")
-        if v not in SUPPORTED_RECORD_VERSIONS:
+        if v is None:
+            out.append("record.json has no schema_version stamp")
+        elif v not in SUPPORTED_RECORD_VERSIONS:
             out.append(f"schema_version {v!r} not in supported "
                        f"{list(SUPPORTED_RECORD_VERSIONS)}")
+        # v2 on stamps acq_batch; v1 predates batching and reads as q = 1
+        q = meta.get("acq_batch", 1)
+        if isinstance(v, int) and v >= 2 \
+                and not isinstance(meta.get("acq_batch"), int):
+            out.append(f"v{v} record.json missing integer 'acq_batch'")
+            q = 1
+        q = q if isinstance(q, int) else 1
+        spec = required_arrays(q, v if isinstance(v, int) else 1)
+        optional = optional_arrays(q) if isinstance(v, int) and v >= 4 \
+            else {}
         out += [f"record.json missing required field {key!r}"
                 for key in REQUIRED_META if key not in meta]
         S, T, k = meta.get("seeds"), meta.get("rounds"), meta.get("trace_k")
-        spec = required_arrays(self.acq_batch,
-                               v if isinstance(v, int) else 1)
         for name, (kind, ndim) in spec.items():
             a = self.arrays.get(name)
             if a is None:
@@ -310,6 +336,28 @@ class RunRecord:
             if name.startswith("topk_") and a.shape[2] != k:
                 out.append(f"{name}: top-k extent {a.shape[2]} != "
                            f"meta trace_k {k}")
+            if name in _BATCH_ARRAYS and q > 1 and a.shape[2] != q:
+                out.append(f"{name}: label-batch extent {a.shape[2]} != "
+                           f"meta acq_batch {q}")
+        for name, (kind, ndim) in optional.items():
+            a = self.arrays.get(name)
+            if a is None:
+                continue
+            if a.dtype.kind != kind:
+                out.append(f"{name}: dtype kind {a.dtype.kind!r} != "
+                           f"expected {kind!r}")
+            if a.ndim != ndim:
+                out.append(f"{name}: rank {a.ndim} != expected {ndim}")
+            elif a.shape[0] != S:
+                out.append(f"{name}: leading seed extent {a.shape[0]} != "
+                           f"meta seeds {S}")
+            elif a.shape[1] != T:
+                out.append(f"{name}: round extent {a.shape[1]} != "
+                           f"meta rounds {T}")
+        extra = set(self.arrays) - set(spec) - set(optional)
+        if extra:
+            out.append(f"unversioned field drift: unexpected arrays "
+                       f"{sorted(extra)} (bump RECORD_SCHEMA_VERSION)")
         return out
 
 

@@ -8,7 +8,7 @@ or a baseline).
         [--eig-mode incremental|auto|factored|rowscan|direct]
         [--eig-precision highest|high|default] [--posterior dense|sparse:K]
         [--eig-pbest quad|amortized] [--pi-update auto|delta|exact]
-        [--multiplier M]
+        [--multiplier M] [--acq-batch Q] [--eig-scorer exact|surrogate:k]
         [--method coda|iid|uncertainty|activetesting|vma|model_picker]
         [--record-topk K] [--out profile.json]
 
@@ -33,7 +33,11 @@ normalisation between them, the entropy pass and the full pi-hat
 recompute. ``--method`` profiles a baseline instead (one seed; ActiveTesting and VMA with a label buffer of
 the rounds run, ModelPicker with the default epsilon); ``--record-topk K``
 profiles the flight recorder's round (the same round with its top-K
-scores and posterior digest kept on the device).
+scores and posterior digest kept on the device). ``--acq-batch Q``
+profiles the round of Q labels (one scoring pass, Q answers as one
+update); ``--eig-scorer surrogate:k`` the surrogate scorer's round (its
+first 10 rounds are the full pass: profile with ``--rounds`` past them,
+the two warm-up rounds included, to see a gated round).
 Kernels on one stream do not overlap, so the device's busy share is the
 summed kernel time over the profiled wall time. Prints a summary and, with
 ``--out``, writes the full table as JSON there. Needs a CUDA device;
@@ -145,6 +149,9 @@ def main(argv=None) -> int:
                    choices=["quad", "amortized"])
     p.add_argument("--pi-update", default="auto",
                    choices=["auto", "delta", "exact"])
+    p.add_argument("--acq-batch", type=int, default=1,
+                   help="labels a round (q-wide select and update)")
+    p.add_argument("--eig-scorer", default="exact")
     p.add_argument("--multiplier", type=float, default=2.0,
                    help="the prior's multiplier (20 engages the amortized "
                         "gate at the headline)")
@@ -190,7 +197,8 @@ def main(argv=None) -> int:
                  eig_entropy=args.eig_entropy, eig_mode=args.eig_mode,
                  eig_precision=args.eig_precision, posterior=args.posterior,
                  eig_pbest=args.eig_pbest, pi_update=args.pi_update,
-                 multiplier=args.multiplier)
+                 multiplier=args.multiplier, eig_scorer=args.eig_scorer)
+    Q = args.acq_batch
     S = args.seeds
     n_keys = 2 + 3 * args.rounds
     if args.method == "coda":
@@ -201,12 +209,18 @@ def main(argv=None) -> int:
         if S > 1:
             p.error("the baselines have no seed-batched form: --seeds 1")
         knobs = {"method": args.method}
-        kw = ({"budget": n_keys} if args.method in ("activetesting", "vma")
+        kw = ({"budget": n_keys * Q}
+              if args.method in ("activetesting", "vma")
               else {"epsilon": DEFAULT_EPS}
               if args.method == "model_picker" else {})
         sel = SELECTOR_FACTORIES[args.method](task.preds, device=dev, **kw)
     if args.record_topk:
         knobs["record_topk"] = args.record_topk
+    if Q > 1:
+        if S > 1:
+            p.error("a q-wide round has no seed-batched form (the engine "
+                    "runs its seeds one after another): --seeds 1")
+        knobs["acq_batch"] = Q
     losses = true_losses(task.preds, task.labels)
     if S > 1:
         # the engine's per-seed schedule for seeds 0..S-1, on the device
@@ -219,7 +233,7 @@ def main(argv=None) -> int:
             return sel.batched.init(S)
     else:
         step = make_step_fn(sel, task.labels, losses,
-                            trace_k=args.record_topk)
+                            trace_k=args.record_topk, acq_batch=Q)
         k_init, _, k_scan = trandom.split(trandom.PRNGKey(0), 3)
         keys = trandom.split(k_scan, n_keys)
 

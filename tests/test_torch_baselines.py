@@ -290,8 +290,16 @@ def test_label_buffer_and_unported_batch_acquisition_raise():
         run_seeds_compiled(lambda p: tat.make_activetesting(
             p, budget=5, device="cpu"), preds, labels, iters=6, seeds=1,
             device="cpu")
+    # batched acquisition is ported: ActiveTesting (and VMA, built on it)
+    # and ModelPicker have their own q-wide pair, IID and Uncertainty take
+    # batch.py's generic one; the label buffer counts labels, q a round
+    with pytest.raises(ValueError, match="= 6 labels"):
+        run_seeds_compiled(lambda p: tat.make_activetesting(
+            p, budget=5, device="cpu"), preds, labels, iters=2, seeds=1,
+            device="cpu", acq_batch=3)
     for method in METHODS:
         sel = SELECTOR_FACTORIES[method](preds, device="cpu")
         assert sel.batched is None
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            sel.select_q(sel.init(None), None, 4)
+        native = method in ("activetesting", "vma", "model_picker")
+        assert (sel.select_q is not None) == native
+        assert (sel.update_q is not None) == native

@@ -454,7 +454,8 @@ def test_cli_batches_seeds(capsys):
     from coda_tpu_torch.cli import hyperparams, main, parse_args
 
     argv = ["--synthetic", "6,60,3", "--iters", "4", "--seeds", "3",
-            "--device", "cpu", "--eig-backend", "pallas", "--method", "coda"]
+            "--device", "cpu", "--eig-backend", "pallas", "--method", "coda",
+            "--no-mlflow"]
     assert hyperparams(parse_args(argv)).n_parallel == 3
     assert main(argv) == 0
     out = capsys.readouterr().out

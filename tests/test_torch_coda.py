@@ -184,10 +184,13 @@ def test_convert_state_then_step_matches_reference():
 
 
 def test_convert_refuses_later_slice_fields():
+    """Every field of the reference's state crosses now (the surrogate fit
+    too, ``tests/test_torch_batchq.py``); a field the state does not have
+    and a state without a posterior are refused."""
     from coda_tpu_torch.convert import state_from_numpy
 
-    with pytest.raises(NotImplementedError, match="later slice"):
-        state_from_numpy({"surrogate": np.zeros(3)}, device="cpu")
+    with pytest.raises(ValueError, match="not CODAState's"):
+        state_from_numpy({"crowd": np.zeros(3)}, device="cpu")
     with pytest.raises(ValueError, match="missing"):
         state_from_numpy({"dirichlets": np.ones((2, 2, 2))}, device="cpu")
 
@@ -269,11 +272,21 @@ def test_disagreement_mask_matches_reference():
     ("shard_spec", "data=2")])
 def test_later_slice_knobs_raise(knob, value):
     """Knobs of later slices raise NotImplementedError naming the slice —
-    never a silent fallback."""
+    never a silent fallback. Slice 4's knobs build now: the surrogate
+    scorer, and the pool prior with it (alone it is the reference's
+    refusal)."""
     preds = torch.from_numpy(np.array(_jax_task("synthetic").preds))
     hp = tcoda.CODAHyperparams(**{knob: value})
-    with pytest.raises(NotImplementedError, match="slice"):
-        tcoda.make_coda(preds, hp, device="cpu")
+    if knob == "shard_spec":
+        with pytest.raises(NotImplementedError, match="slice 5"):
+            tcoda.make_coda(preds, hp, device="cpu")
+        return
+    if knob == "surrogate_prior":
+        with pytest.raises(ValueError, match="warm-starts the carried"):
+            tcoda.make_coda(preds, hp, device="cpu")
+        hp = hp._replace(eig_scorer="surrogate:8")
+    sel = tcoda.make_coda(preds, hp, device="cpu")
+    assert sel.init(None).surrogate is not None
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -354,7 +367,7 @@ def test_cli_prints_reference_lines(capsys):
     from coda_tpu_torch.cli import main
 
     assert main(["--synthetic", "6,60,3", "--iters", "5", "--seeds", "2",
-                 "--device", "cpu", "--method", "coda"]) == 0
+                 "--device", "cpu", "--method", "coda", "--no-mlflow"]) == 0
     out = capsys.readouterr().out
     assert "Loaded preds of shape (6, 60, 3)" in out
     for s in range(2):
@@ -362,5 +375,6 @@ def test_cli_prints_reference_lines(capsys):
     line = [ln for ln in out.splitlines() if ln.startswith("seed 0:")][0]
     assert "cumulative=" in line and "stochastic=False" in line
     assert main(["--task", "iris", "--data-dir", "data", "--iters", "3",
-                 "--seeds", "1", "--device", "cpu", "--method", "coda"]) == 0
+                 "--seeds", "1", "--device", "cpu", "--method", "coda",
+                 "--no-mlflow"]) == 0
     assert "seed 0: regret@3=" in capsys.readouterr().out

@@ -428,7 +428,7 @@ def test_cli_takes_the_reference_headline_flags(capsys):
     argv = ["--synthetic", "6,60,3", "--iters", "4", "--seeds", "2",
             "--device", "cpu", "--eig-backend", "pallas", "--eig-refresh",
             "fused", "--eig-cache-dtype", "bfloat16", "--eig-entropy",
-            "approx"]
+            "approx", "--no-mlflow"]
     args = parse_args(argv)
     assert (args.eig_refresh, args.eig_cache_dtype, args.eig_entropy) == (
         "fused", "bfloat16", "approx")

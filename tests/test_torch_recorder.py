@@ -8,9 +8,9 @@ package on the CPU.
   tolerance finds parity, or only ``tie-break-flip``s at a recorded gap of
   at most 2.34e-4.
 * The port's ``compare_records`` gives the reference's ``to_dict()`` on
-  every pair of committed records that takes the per-round path, and on
-  the port record against each; pairs the reference compares by the regret
-  envelope raise ``NotImplementedError`` in the port.
+  every pair of committed records and on the port record against each,
+  both the pairs that take the per-round path and those the reference
+  compares by the regret envelope (different scorers or priors).
 * The reference rebuilds its selector from a port record's knobs.
 * IID and ModelPicker records carry the reference's conventions (NaN
   posterior digest without a posterior, slot 0 without a score vector).
@@ -49,7 +49,7 @@ TOL = trec.CROSS_BACKEND_SCORE_TOL
 def _cli(argv):
     from coda_tpu_torch.cli import main
 
-    return main(argv + ["--device", "cpu"])
+    return main(argv + ["--device", "cpu", "--no-mlflow"])
 
 
 @pytest.fixture(scope="module")
@@ -123,8 +123,12 @@ def test_port_compare_records_gives_the_reference_report(a, b,
     envelope = ("envelope" in json.dumps(
         jreplay.compare_records(ja, jb).to_dict()))
     if envelope:
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            treplay.compare_records(ta, tb)
+        # the label-aligned regret envelope, both ways round
+        for order in ((ja, jb, ta, tb), (jb, ja, tb, ta)):
+            want = jreplay.compare_records(order[0], order[1])
+            got = treplay.compare_records(order[2], order[3])
+            assert got.to_dict() == want.to_dict()
+            assert treplay.format_triage(got) == jreplay.format_triage(want)
         return
     tol = jreplay._auto_tol(ja, {}, against=jb)
     assert treplay._auto_tol(ta, {}, against=tb) == tol

@@ -583,7 +583,8 @@ def test_cli_runs_every_reference_knob(knob, capsys):
     from coda_tpu_torch.cli import main
 
     assert main(["--synthetic", "6,64,4", "--method", "coda", "--iters",
-                 "4", "--seeds", "3", "--device", "cpu"] + knob) == 0
+                 "4", "--seeds", "3", "--device", "cpu", "--no-mlflow"]
+                + knob) == 0
     out = capsys.readouterr().out
     assert "seed 2: regret@4=" in out
 
@@ -592,27 +593,40 @@ def test_cli_runs_every_reference_knob(knob, capsys):
     (["--eig-scorer", "surrogate:8"], "slice 4"),
     (["--surrogate-prior", "pool"], "slice 4"),
     (["--mesh", "data=2"], "slice 5")])
-def test_cli_later_slice_flags_raise(knob, where):
+def test_cli_later_slice_flags_raise(knob, where, tmp_path):
+    """``--mesh`` raises naming its slice (5). The slice 4 flags run now:
+    ``--eig-scorer surrogate:8``, and ``--surrogate-prior pool`` with it;
+    ``pool`` alone is the reference's refusal."""
     from coda_tpu_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match=where):
-        main(["--synthetic", "6,64,4", "--method", "coda", "--iters", "2",
-              "--seeds", "1", "--device", "cpu"] + knob)
+    argv = ["--synthetic", "6,64,4", "--method", "coda", "--iters", "2",
+            "--seeds", "1", "--device", "cpu", "--no-mlflow"] + knob
+    if where == "slice 5":
+        with pytest.raises(NotImplementedError, match=where):
+            main(argv)
+        return
+    if knob[0] == "--surrogate-prior":
+        with pytest.raises(ValueError, match="eig_scorer='exact' carries"):
+            main(argv)
+        argv += ["--eig-scorer", "surrogate:8"]
+    assert main(argv) == 0
 
 
-@pytest.mark.parametrize("knob", [["--acq-batch", "4"],
+@pytest.mark.parametrize("knob", [["--acq-batch", "0"],
                                   ["--oracle-noise", "annotators=4"]])
 def test_cli_refuses_unported_flags(knob, capsys):
-    """Flags of later slices that the port does not parse yet (batched
-    acquisition, the crowd oracle) are refused as unknown, never run as
-    the plain oracle."""
+    """The crowd oracle's flags (a later slice) are refused as unknown,
+    never run as the plain oracle; ``--acq-batch`` is parsed now, with the
+    reference's validator (at least 1)."""
     from coda_tpu_torch.cli import main
 
     with pytest.raises(SystemExit) as exc:
         main(["--synthetic", "6,64,4", "--method", "coda", "--iters", "2",
               "--seeds", "1", "--device", "cpu"] + knob)
     assert exc.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert ("acq-batch must be >= 1, got 0" in err if knob[0] ==
+            "--acq-batch" else "unrecognized arguments" in err)
 
 
 def test_cli_headline_resolves_factored():
