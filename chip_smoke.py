@@ -123,6 +123,28 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    a temporary database, read back with the reference's analysis SQL,
    resumed ("Seed 0 finished. Skipping.") and re-logged with
    ``--force-rerun``. It prints the phase's wall time.
+9. the "replay, checkpoint and suite" phase, each in-process run with the
+   counters set to 0 just before and read just after, its launches
+   checked and added to the JSON line's: three headline CODA records (1
+   seed x 20 rounds with the default knobs; 5 seeds x 10 as one batch on
+   the incremental tier, kernels 4, 5 and batched 3; ``--eig-refresh
+   fused --eig-cache-dtype bfloat16``, 1 seed x 10, kernel 6), each
+   re-executed by ``python -m coda_tpu_torch.cli replay`` in a subprocess
+   (PARITY, bitwise, exit 0; its ms per round beside the recorded run's);
+   the first record with one ``chosen_idx`` changed, replayed in-process
+   (exit 2, DIVERGED at that round); ``runs/surrogate_r17/exact``
+   re-executed on the card (each seed at parity or a ``tie-break-flip``
+   within 2.34e-4); headline checkpoint runs (fp32 and bf16 CODA,
+   ActiveTesting; 1 seed, every 10 rounds) cut after round 20 and resumed
+   to 30, every trace bitwise the uninterrupted run, with a checkpoint's
+   bytes and its save and restore seconds; the suite over ``data/`` (the
+   six methods, 5 seeds x 100 rounds, ``runs/real.sqlite``'s sweep) into
+   a fresh database, its rerun skipping every pair, a 3-task x 2-seed x
+   30-round subset under ``--task-batch --suite-devices 1`` bitwise the
+   serial run, two pairs' rows bitwise the single-task CLI's, and a
+   table of mean cumulative regret x100 at step 100 beside
+   ``runs/real.sqlite``'s (information, not a gate). It prints the
+   sweep's and the phase's wall time.
 
 It prints one JSON line with every kernel flavour (its ``launches`` summed
 over the main-path runs), then the card's name and power
@@ -2205,6 +2227,435 @@ def phase_batchq_surrogate(dev, task, total: dict) -> dict:
     return out
 
 
+# -- re-executing records, checkpoint/resume and the in-process suite -------
+
+# (label, CLI flags, seeds, rounds) of the headline records re-executed
+# through ``python -m coda_tpu_torch.cli replay`` in a subprocess
+REPLAY_PATHS = (
+    ("default", [], 1, 20),
+    ("5 seeds batched", ["--eig-mode", "incremental"], SEEDS, 10),
+    ("fused bf16", ["--eig-refresh", "fused", "--eig-cache-dtype",
+                    "bfloat16"], 1, 10),
+)
+TAMPER_ROUND = 7
+CKPT_ROUNDS, CKPT_EVERY, CKPT_CUT = 30, 10, 25   # the cut run saves 10, 20
+SUITE_SEEDS, SUITE_ROUNDS = 5, 100               # runs/real.sqlite's sweep
+SUBSET = ("digits", "iris", "wine")              # --task-batch subset
+SUBSET_SEEDS, SUBSET_ROUNDS = 2, 30
+CLI_PAIRS = (("digits", "coda"), ("digits", "model_picker"))
+SUITE_METHODS = ("iid", "uncertainty", "coda", "activetesting", "vma",
+                 "model_picker")
+
+
+def _headline_wants(argv, seeds, iters):
+    """The launches a recorded headline run of ``argv`` must make."""
+    import torch
+
+    from coda_tpu_torch.ops.eig_kernels import flavour
+
+    dt = (torch.bfloat16 if "bfloat16" in argv else torch.float32)
+    if seeds > 1:
+        return {flavour("eig_score_batched", dt, False): 1,
+                flavour("eig_refresh_score_batched", dt, False): iters,
+                "row_gather_batched": iters}
+    refresh = ("eig_refresh_compute_score" if "fused" in argv
+               else "eig_refresh_score")
+    return {flavour("eig_score", dt, False): 1,
+            flavour(refresh, dt, False): iters, "row_gather": iters}
+
+
+def _counted(what, want, total, fn):
+    """Run ``fn`` with the counters set to 0 just before and read just
+    after; the launches must be ``want`` (a dict) or, for a callable,
+    pass it; they add to ``total``."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    by_kernel, by_flavour = read_counts()
+    ok = want(by_kernel) if callable(want) else by_flavour == want
+    if not ok:
+        raise AssertionError(f"{what}: launches {by_flavour}")
+    for k, v in by_flavour.items():
+        total[k] = total.get(k, 0) + v
+    return out
+
+
+def _hold_replay(report: dict, record, what: str, tol: float) -> list:
+    """Each seed of a replay report at parity, or first diverging as a
+    ``tie-break-flip`` where the record's runner-up gap is at most
+    ``tol``; prints and returns each seed's line."""
+    lines, bad = [], []
+    for s in report["seeds"]:
+        if s["parity"]:
+            line = f"seed {s['seed']}: PARITY"
+        else:
+            t0 = s["first_divergent_round"]
+            gap = float(record.arrays["runner_up_gap"][s["seed"], t0])
+            line = (f"seed {s['seed']}: first divergence at round {t0}, "
+                    f"{s['quantity']} [{s['classification']}], recorded "
+                    f"runner-up gap {gap:.3e}")
+            if s["classification"] != "tie-break-flip" or abs(gap) > tol:
+                bad.append(line)
+        lines.append(line)
+        log(f"replay {what}: {line}")
+    if bad:
+        raise AssertionError(f"{what}: not parity or a near-tie flip: {bad}")
+    return lines
+
+
+def _suite_rows(db: str, runs) -> dict:
+    """``{run name: [(key, step, value), ...]}`` of the named runs."""
+    import sqlite3
+
+    with sqlite3.connect(db) as conn:
+        out = {}
+        for name in runs:
+            out[name] = conn.execute(
+                """SELECT m.key, m.step, m.value FROM metrics m
+                   JOIN tags t ON t.run_uuid = m.run_uuid
+                     AND t.key = 'mlflow.runName'
+                   WHERE t.value = ? ORDER BY m.key, m.step""",
+                (name,)).fetchall()
+    return out
+
+
+def _cum_regret_table(db: str, step: int) -> dict:
+    """``{(task, method): mean over seed children of the cumulative
+    regret at ``step``}`` (the paper's table entry, x100)."""
+    import sqlite3
+
+    with sqlite3.connect(db) as conn:
+        rows = conn.execute(
+            """SELECT t.value, m.value FROM metrics m
+               JOIN tags t ON t.run_uuid = m.run_uuid
+                 AND t.key = 'mlflow.runName'
+               WHERE m.key = 'cumulative regret' AND m.step = ?
+                 AND m.run_uuid IN (SELECT run_uuid FROM tags
+                                    WHERE key = 'mlflow.parentRunId')""",
+            (step,)).fetchall()
+    acc: dict = {}
+    for name, v in rows:
+        task, method, _ = name.rsplit("-", 2)
+        acc.setdefault((task, method), []).append(v)
+    return {k: 100.0 * sum(v) / len(v) for k, v in acc.items()}
+
+
+def phase_replay_checkpoint_suite(dev, task, total: dict) -> dict:
+    """Re-executed records, checkpoint/resume and the in-process suite on
+    the card (see the module docstring, item 9). Every in-process run has
+    the counters set to 0 just before and read just after, its launches
+    checked and added to ``total``. Returns the measured figures."""
+    import contextlib
+    import io
+    import json as _json
+    import shutil
+    import tempfile
+
+    import torch
+
+    from coda_tpu_torch import cli
+    from coda_tpu_torch.engine import (
+        build_experiment_fn,
+        make_resumable_runner,
+        run_seeds_compiled,
+    )
+    from coda_tpu_torch.engine.replay import replay_main
+    from coda_tpu_torch.ops.eig_kernels import flavour
+    from coda_tpu_torch.oracle import true_losses
+    from coda_tpu_torch.random import PRNGKey
+    from coda_tpu_torch.selectors import (
+        CODAHyperparams,
+        make_activetesting,
+        make_coda,
+    )
+    from coda_tpu_torch.telemetry.recorder import RunRecord
+
+    t_phase = time.perf_counter()
+    C, N, H = HEADLINE
+    data = os.path.join(HERE, "data")
+    out: dict = {"replay": {}, "checkpoint": {}, "suite": {}}
+    tmp = tempfile.mkdtemp(prefix="coda_smoke_")
+    try:
+        # 1. record three headline runs, re-execute each in a subprocess
+        for label, flags, seeds, iters in REPLAY_PATHS:
+            argv = ["--synthetic", f"{H},{N},{C}", "--method", "coda",
+                    "--iters", str(iters), "--seeds", str(seeds),
+                    "--record-dir", os.path.join(tmp, label.replace(" ", "_")),
+                    "--no-mlflow", "--device", dev.type] + flags
+            args = cli.parse_args(argv)
+            factory = cli.build_selector_factory(args, task.name)
+            width = cli.hyperparams(args).n_parallel
+            timings: list = []
+            res, aux = _counted(
+                f"recorded {label}", _headline_wants(flags, seeds, iters),
+                total, lambda: run_seeds_compiled(
+                    factory, task.preds, task.labels, iters=iters,
+                    seeds=seeds, device=dev, trace_k=args.record_topk,
+                    timings=timings))
+            cli._write_record(args, task, res, aux, width, dev)
+            rec_ms = sum(t["rounds_ms"] for t in timings) / iters
+            report = os.path.join(tmp, "report.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "coda_tpu_torch.cli", "replay",
+                 args.record_dir, "--out", report], cwd=HERE,
+                capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"replay {label}: exit {proc.returncode}\n"
+                    f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            with open(report) as f:
+                rep = _json.load(f)
+            if not rep["parity"] or rep["score_tol"] != 0.0:
+                raise AssertionError(f"replay {label}: {rep['seeds']}")
+            rep_ms = sum(t["rounds_ms"] for t in rep["meta"]["timings"]) \
+                / iters
+            out["replay"][label] = {"recorded_ms": rec_ms,
+                                    "replay_ms": rep_ms,
+                                    "subprocess_s": wall, "width": width}
+            log(f"replay {label} ({H}, {N}, {C}), {seeds} seed(s) x "
+                f"{iters} rounds, n_parallel={width}: PARITY bitwise, exit "
+                f"0; ms_per_round recorded={rec_ms:.3f} replayed="
+                f"{rep_ms:.3f}; the replay subprocess took {wall:.1f} s")
+            del res, aux
+
+        # 2. the default record with one chosen_idx changed: exit 2
+        rec = RunRecord.load(os.path.join(tmp, "default"))
+        t, iters = TAMPER_ROUND, REPLAY_PATHS[0][3]
+        rec.arrays["chosen_idx"][0, t] = rec.arrays["topk_idx"][0, t, 1]
+        rec.save(os.path.join(tmp, "tampered"))
+        report = os.path.join(tmp, "tampered.json")
+        rc = _counted("tampered replay",
+                      _headline_wants([], 1, iters), total,
+                      lambda: replay_main([os.path.join(tmp, "tampered"),
+                                           "--out", report]))
+        with open(report) as f:
+            seed0 = _json.load(f)["seeds"][0]
+        if rc != 2 or seed0["parity"] or \
+                seed0["first_divergent_round"] != t:
+            raise AssertionError(f"tampered replay: exit {rc}, {seed0}")
+        log(f"replay of the default record with chosen_idx changed at round "
+            f"{t}: exit 2, DIVERGED at round {t} ({seed0['quantity']} "
+            f"[{seed0['classification']}])")
+
+        # 3. the committed digits record on the card
+        r17 = os.path.join(HERE, "runs", "surrogate_r17", "exact")
+        report = os.path.join(tmp, "r17.json")
+        committed = RunRecord.load(r17)
+        rc = _counted(
+            "runs/surrogate_r17/exact replay",
+            lambda k: k["eig_score_batched"] == 1 and
+            k["eig_refresh_score_batched"] == committed.rounds ==
+            k["row_gather_batched"], total,
+            lambda: replay_main([r17, "--data-dir", data, "--out", report]))
+        with open(report) as f:
+            rep = _json.load(f)
+        if rep["score_tol"] != CONTRACT or rc != (0 if rep["parity"] else 2):
+            raise AssertionError(f"r17 replay: exit {rc}, tol "
+                                 f"{rep['score_tol']}")
+        out["replay"]["r17"] = _hold_replay(rep, committed,
+                                            "runs/surrogate_r17/exact",
+                                            CONTRACT)
+
+        # 4. checkpoint/resume at the headline: cut after round 20 (the
+        # cut run reaches round 25; its last save is step 20), resume,
+        # every trace bitwise the uninterrupted run
+        losses = true_losses(task.preds, task.labels)
+        for label, make, dt in (
+                ("fp32", lambda: make_coda(task.preds, CODAHyperparams(
+                    eig_chunk=1024), device=dev), "float32"),
+                ("bf16", lambda: make_coda(task.preds, CODAHyperparams(
+                    eig_chunk=1024, eig_cache_dtype="bfloat16"),
+                    device=dev), "bfloat16"),
+                ("activetesting", lambda: make_activetesting(
+                    task.preds, budget=CKPT_ROUNDS, device=dev), None)):
+            def wants(rounds, init, dt=dt):
+                if dt is None:
+                    return {}
+                tdt = getattr(torch, dt)
+                w = {flavour("eig_refresh_score", tdt, False): rounds,
+                     "row_gather": rounds}
+                if init:
+                    w[flavour("eig_score", tdt, False)] = 1
+                return w
+
+            sel = make()
+            full = _counted(f"checkpoint {label} uninterrupted",
+                            wants(CKPT_ROUNDS, True), total,
+                            lambda: build_experiment_fn(
+                                sel, task.labels, losses,
+                                CKPT_ROUNDS)(PRNGKey(0)))
+            ck = os.path.join(tmp, f"ck_{label}")
+            timings: list = []
+            _counted(f"checkpoint {label} cut", wants(CKPT_CUT, True), total,
+                     lambda: make_resumable_runner(
+                         sel, task.labels, losses, CKPT_CUT, CKPT_EVERY,
+                         timings=timings)(0, ck))
+            got = _counted(f"checkpoint {label} resumed",
+                           wants(CKPT_ROUNDS - 20, False), total,
+                           lambda: make_resumable_runner(
+                               sel, task.labels, losses, CKPT_ROUNDS,
+                               CKPT_EVERY, timings=timings)(0, ck))
+            for f in full._fields:
+                if not torch.equal(getattr(full, f), getattr(got, f)):
+                    raise AssertionError(f"checkpoint {label}: resumed {f} "
+                                         "differs from the uninterrupted run")
+            saves = [x for x in timings if x["op"] == "save"]
+            restore = [x for x in timings if x["op"] == "restore"]
+            if [x["round"] for x in saves] != [10, 20] or \
+                    [x["round"] for x in restore] != [20]:
+                raise AssertionError(f"checkpoint {label}: {timings}")
+            out["checkpoint"][label] = {
+                "bytes": saves[-1]["bytes"],
+                "save_s": [x["seconds"] for x in saves],
+                "restore_s": restore[0]["seconds"]}
+            log(f"checkpoint {label} ({H}, {N}, {C}), 1 seed, cut after "
+                f"round 20 and resumed to {CKPT_ROUNDS}: every trace "
+                f"bitwise the uninterrupted run; a checkpoint "
+                f"{saves[-1]['bytes']} bytes, save "
+                f"{', '.join(f'{x:.3f}' for x in out['checkpoint'][label]['save_s'])}"
+                f" s, restore {restore[0]['seconds']:.3f} s")
+            shutil.rmtree(ck)
+            del sel, full, got
+        torch.cuda.empty_cache()
+
+        # 5. the suite over data/: the sweep of runs/real.sqlite
+        def suite(db, *extra):
+            buf = io.StringIO()
+            argv = ["suite", "--pred-dir", data, "--db", db, "--methods",
+                    ",".join(SUITE_METHODS)] + list(extra)
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            text = buf.getvalue()
+            if rc != 0:
+                raise AssertionError(f"suite {extra}: exit {rc}\n{text}")
+            return text, _json.loads(text.strip().splitlines()[-1])
+
+        def kernels_ran(k):
+            return k["eig_score"] > 0 and k["eig_refresh_score"] > 0 and \
+                k["row_gather"] > 0
+
+        db = os.path.join(tmp, "suite.sqlite")
+        full_args = ("--seeds", str(SUITE_SEEDS), "--iters",
+                     str(SUITE_ROUNDS))
+        text, line = _counted("suite sweep", kernels_ran, total,
+                              lambda: suite(db, *full_args))
+        n_pairs = line["tasks"] * line["methods"]
+        if line["pairs_run"] != n_pairs:
+            raise AssertionError(f"suite sweep: {line}")
+        out["suite"]["wall_s"] = line["value"]
+        out["suite"]["pairs"] = n_pairs
+        # a pair whose seed-0 probe was deterministic logged it to every
+        # seed (all False); the others ran seeds 1-4 too
+        import sqlite3
+
+        with sqlite3.connect(db) as conn:
+            flags: dict = {}
+            for name, v in conn.execute(
+                    """SELECT t.value, p.value FROM params p
+                       JOIN tags t ON t.run_uuid = p.run_uuid
+                         AND t.key = 'mlflow.runName'
+                       WHERE p.key = 'stochastic'"""):
+                flags.setdefault(name.rsplit("-", 1)[0], []).append(
+                    v == "True")
+        n_stoch = sum(any(v) for v in flags.values())
+        seed_rounds = SUITE_ROUNDS * (n_pairs + (SUITE_SEEDS - 1) * n_stoch)
+        out["suite"].update(stochastic_pairs=n_stoch,
+                            seed_rounds=seed_rounds)
+        log(f"suite: {line['tasks']} tasks x {line['methods']} methods x "
+            f"{SUITE_SEEDS} seeds x {SUITE_ROUNDS} rounds on the card in "
+            f"{line['value']} s ({n_pairs} pairs; {n_stoch} stochastic, "
+            f"whose seeds 1-{SUITE_SEEDS - 1} ran: {seed_rounds} "
+            f"seed-rounds, {1e3 * line['value'] / seed_rounds:.3f} ms "
+            "each)")
+        for ln in text.splitlines():
+            if " seeds x " in ln:
+                log(f"  {ln}")
+        text, line = suite(db, *full_args)
+        if line["pairs_run"] != 0 or text.count("skip ") != n_pairs:
+            raise AssertionError(f"suite rerun: {line}")
+        log(f"suite rerun: every one of the {n_pairs} pairs skipped "
+            f"({line['value']} s)")
+
+        # the task-batch subset through the scheduler, against serial
+        sub = ("--tasks", ",".join(SUBSET), "--seeds", str(SUBSET_SEEDS),
+               "--iters", str(SUBSET_ROUNDS))
+        db_ser = os.path.join(tmp, "subset_serial.sqlite")
+        db_sch = os.path.join(tmp, "subset_sched.sqlite")
+        _, l_ser = _counted("suite subset serial", kernels_ran, total,
+                            lambda: suite(db_ser, *sub))
+        _, l_sch = _counted("suite subset scheduled", kernels_ran, total,
+                            lambda: suite(db_sch, *sub, "--task-batch",
+                                          "--suite-devices", "1"))
+        names = [f"{t}-{m}-{s}" for t in SUBSET for m in SUITE_METHODS
+                 for s in range(SUBSET_SEEDS)]
+        a, b = _suite_rows(db_ser, names), _suite_rows(db_sch, names)
+        if a != b or not all(len(v) == 2 * SUBSET_ROUNDS
+                             for v in a.values()):
+            raise AssertionError("suite subset: --task-batch "
+                                 "--suite-devices 1 differs from serial")
+        log(f"suite subset {','.join(SUBSET)} x {len(SUITE_METHODS)} "
+            f"methods x {SUBSET_SEEDS} seeds x {SUBSET_ROUNDS} rounds: "
+            f"--task-batch --suite-devices 1 ({l_sch['value']} s, occupancy "
+            f"{l_sch.get('occupancy')}) bitwise the serial run "
+            f"({l_ser['value']} s), {len(names)} seed runs")
+
+        # two pairs against the single-task CLI
+        def batch_ran(k):   # CODA's 5 seeds as one batch
+            return k["eig_score_batched"] == 1 and \
+                k["eig_refresh_score_batched"] == SUITE_ROUNDS == \
+                k["row_gather_batched"]
+
+        for tname, method in CLI_PAIRS:
+            db_cli = os.path.join(tmp, f"cli_{method}.sqlite")
+            with contextlib.redirect_stdout(io.StringIO()):
+                _counted(f"CLI {tname}/{method}",
+                         batch_ran if method == "coda"
+                         else (lambda k: not any(k.values())), total,
+                         lambda: cli.main([
+                             "--task", tname, "--data-dir", data,
+                             "--method", method, "--iters",
+                             str(SUITE_ROUNDS), "--seeds", str(SUITE_SEEDS),
+                             "--tracking-db", db_cli]))
+            runs = [f"{tname}-{method}-{s}" for s in range(SUITE_SEEDS)]
+            a, b = _suite_rows(db, runs), _suite_rows(db_cli, runs)
+            if a != b or not all(len(v) == 2 * SUITE_ROUNDS
+                                 for v in a.values()):
+                raise AssertionError(f"{tname}/{method}: the suite's rows "
+                                     "differ from the single-task CLI's")
+            log(f"suite {tname}/{method}: its {SUITE_SEEDS} seed runs' "
+                "regret and cumulative regret rows bitwise the single-task "
+                "CLI's")
+
+        # the paper's table entry beside runs/real.sqlite (information)
+        mine = _cum_regret_table(db, SUITE_ROUNDS)
+        ref = _cum_regret_table(os.path.join(HERE, "runs", "real.sqlite"),
+                                SUITE_ROUNDS)
+        agree = 0
+        log(f"mean cumulative regret x100 at step {SUITE_ROUNDS}, port "
+            "(card) | runs/real.sqlite (an older reference on JAX's CPU):")
+        for key in sorted(mine):
+            r = ref.get(key)
+            same = r is not None and round(mine[key], 1) == round(r, 1)
+            agree += same
+            log(f"  {key[0]:>14} {key[1]:>13}: {mine[key]:9.3f} | "
+                + (f"{r:9.3f}" if r is not None else "      n/a")
+                + ("  =" if same else ""))
+        shared = sum(1 for k in mine if k in ref)
+        out["suite"]["agree"] = (agree, shared)
+        log(f"  {agree} of the {shared} pairs in both agree to the decimal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"replay, checkpoint and suite phase: {out['wall_s']:.1f} s")
+    return out
+
+
+
 def main() -> int:
     try:
         import torch
@@ -2264,6 +2715,8 @@ def main() -> int:
         phase_tiers(dev, task, launches)
         phase = "batchq and surrogate"
         phase_batchq_surrogate(dev, task, launches)
+        phase = "replay, checkpoint and suite"
+        phase_replay_checkpoint_suite(dev, task, launches)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)

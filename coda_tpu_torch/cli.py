@@ -29,12 +29,14 @@ The CODA flags are the reference's, with its choices: ``--eig-mode``,
 ``--eig-entropy``, ``--posterior``, ``--eig-pbest``, ``--pi-update``,
 ``--prefilter-n``, ``--q``, ``--no-diag-prior``, ``--eig-scorer
 exact|surrogate:k`` and ``--surrogate-prior off|pool``. ``--mesh`` is
-parsed and raises ``NotImplementedError`` (a later slice).
+parsed and raises ``NotImplementedError`` (the N-axis parallel part of
+slice 5 of the port).
 ``--acq-batch Q`` labels Q points a round (``--iters`` counts rounds, so a
 run takes Q x iters labels; the cumulative regret is label-weighted).
 ``--record-dir`` writes a flight-recorder record (schema v4, the
-reference's ``record.json`` + ``rounds.npz``) that the reference's
-``python -m coda_tpu.cli replay <dir> --against <record>`` triages.
+reference's ``record.json`` + ``rounds.npz``) that ``python -m
+coda_tpu_torch.cli replay <dir>`` re-executes and the reference's
+``replay`` reads too.
 
 Every seed's ``regret`` and ``cumulative regret`` series go to the
 tracking store (``--tracking-db``, default ``coda.sqlite``, the
@@ -42,11 +44,30 @@ reference's MLflow-schema sqlite; ``--no-mlflow`` turns it off): a parent
 run ``<experiment>-<method>`` and a child run a seed, the experiment
 named ``--experiment-name`` or the task. A seed whose run finished is
 skipped ("Seed N finished. Skipping.") unless ``--force-rerun``.
+
+``--checkpoint-dir D`` makes the run resumable: seeds run one after
+another (``n_parallel`` 1), each saving its state every
+``--checkpoint-every`` rounds under ``D/seed_<s>/step_<r>``
+(``engine/checkpoint.py``); the same command after a cut resumes from the
+newest checkpoint, bitwise the uninterrupted run. It refuses
+``--record-dir`` and ``--acq-batch`` > 1, as the reference does.
+
+Two subcommands:
+
+    python -m coda_tpu_torch.cli replay <record-dir> [--against DIR] ...
+    python -m coda_tpu_torch.cli suite --pred-dir data --db coda.sqlite ...
+
+``replay`` re-executes a flight-recorder record and triages any
+divergence (``engine/replay.py``; exit 0 on PARITY, 2 on DIVERGED);
+``suite`` sweeps tasks x methods x seeds in one process
+(``coda_tpu_torch/run_suite.py``, ``engine/suite.py``,
+``engine/scheduler.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -197,8 +218,15 @@ def parse_args(argv=None):
                         "passes none, so its run is the cold program under "
                         "the pool knob)")
     p.add_argument("--mesh", default=None, metavar="AXIS=K,...",
-                   help="shard the (H, N, C) tensor (a later slice of the "
-                        "port)")
+                   help="shard the (H, N, C) tensor (the N-axis parallel "
+                        "part of slice 5 of the port)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="resumable run: save the selector state every "
+                        "--checkpoint-every rounds under "
+                        "<dir>/seed_<s>/step_<r> and resume from the "
+                        "newest (seeds run one after another)")
+    p.add_argument("--checkpoint-every", type=int, default=25,
+                   help="rounds between checkpoints (--checkpoint-dir)")
     return p.parse_args(argv)
 
 
@@ -222,9 +250,11 @@ def load_dataset(args):
 def hyperparams(args):
     """The run's ``CODAHyperparams``. ``n_parallel`` is the number of
     replicas the engine batches — ``--seeds`` on every tier, 1 under the
-    fused refresh or ``--acq-batch`` Q > 1, whose seeds run one after
-    another — so the auto tier's budget sees every replica (the
-    reference's rule)."""
+    fused refresh, ``--acq-batch`` Q > 1 or ``--checkpoint-dir``, whose
+    seeds run one after another — so the auto tier's budget sees every
+    replica (the reference's rule). An ``args.n_parallel`` set by a caller
+    with another execution width (a replay's recorded width, the suite's
+    probe and remaining seeds) wins."""
     from coda_tpu_torch.selectors import CODAHyperparams
     from coda_tpu_torch.selectors.coda import batches_seeds
 
@@ -245,7 +275,11 @@ def hyperparams(args):
                          surrogate_prior=args.surrogate_prior,
                          pi_update=args.pi_update,
                          shard_spec=args.mesh or "")
-    batched = args.seeds > 1 and args.acq_batch == 1 and batches_seeds(hp)
+    explicit = getattr(args, "n_parallel", None)
+    if explicit:
+        return hp._replace(n_parallel=int(explicit))
+    batched = (args.seeds > 1 and args.acq_batch == 1 and batches_seeds(hp)
+               and not getattr(args, "checkpoint_dir", None))
     return hp._replace(n_parallel=args.seeds if batched else 1)
 
 
@@ -331,12 +365,52 @@ def _write_record(args, dataset, result, aux, n_parallel: int, dev) -> None:
              "loss": args.loss, "iters": args.iters, "seeds": args.seeds,
              "acq_batch": args.acq_batch})
     record.save(args.record_dir)
-    print(f"decision record written to {args.record_dir} (triage: python "
-          f"-m coda_tpu.cli replay {args.record_dir} --against <record>)")
+    print(f"decision record written to {args.record_dir} (replay: python "
+          f"-m coda_tpu_torch.cli replay {args.record_dir})")
+
+
+def _run_resumable(args, factory, dataset, loss_fn, dev):
+    """The ``--checkpoint-dir`` run: seeds one after another, each through
+    ``make_resumable_runner`` under ``<dir>/seed_<s>``; the result stacked
+    on a leading seed axis."""
+    import torch
+
+    from coda_tpu_torch.engine import ExperimentResult, make_resumable_runner
+    from coda_tpu_torch.oracle import true_losses
+
+    if args.record_dir:
+        raise SystemExit(
+            "--record-dir does not compose with --checkpoint-dir: the "
+            "chunked resumable scan is a different program from the "
+            "recorded one, so the record could not honor the bitwise "
+            "replay contract; drop one of the flags")
+    if args.acq_batch > 1:
+        raise SystemExit(
+            "--acq-batch > 1 does not compose with --checkpoint-dir: "
+            "the chunked resumable runner drives the single-label "
+            "step; drop one of the flags")
+    preds = dataset.preds.to(dev, torch.float32)
+    labels = dataset.labels.to(dev)
+    runner = make_resumable_runner(
+        factory(preds), labels, true_losses(preds, labels, loss_fn),
+        iters=args.iters, every=args.checkpoint_every,
+        dataset_id=dataset.name)
+    per_seed = [runner(s, os.path.join(args.checkpoint_dir, f"seed_{s}"))
+                for s in range(args.seeds)]
+    return ExperimentResult(*(torch.stack(f) for f in zip(*per_seed)))
 
 
 def main(argv=None):
-    args = parse_args(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "replay":
+        from coda_tpu_torch.engine.replay import replay_main
+
+        return replay_main(argv[1:])
+    if argv and argv[0] == "suite":
+        from coda_tpu_torch.run_suite import main as suite_main
+
+        return suite_main(argv[1:])
+    args = parse_args(argv)
     import torch
 
     from coda_tpu_torch.engine import run_seeds_compiled
@@ -367,11 +441,15 @@ def main(argv=None):
               f"(n_parallel={n_parallel})")
     trace_k = args.record_topk if args.record_dir else 0
     t0 = time.perf_counter()
-    out = run_seeds_compiled(factory, dataset.preds, dataset.labels,
-                             iters=args.iters, seeds=args.seeds,
-                             loss_fn=loss_fn, device=dev, trace_k=trace_k,
-                             acq_batch=q)
-    result, aux = out if trace_k else (out, None)
+    if args.checkpoint_dir:
+        result, aux = _run_resumable(args, factory, dataset, loss_fn,
+                                     dev), None
+    else:
+        out = run_seeds_compiled(factory, dataset.preds, dataset.labels,
+                                 iters=args.iters, seeds=args.seeds,
+                                 loss_fn=loss_fn, device=dev,
+                                 trace_k=trace_k, acq_batch=q)
+        result, aux = out if trace_k else (out, None)
     regrets = result.regret.cpu().numpy()            # (seeds, iters)
     wall = time.perf_counter() - t0
     if aux is not None:

@@ -32,6 +32,17 @@ def find_task_file(data_dir: str, task: str) -> Optional[str]:
     return None
 
 
+def list_tasks(data_dir: str) -> list[str]:
+    """Task names with a prediction tensor under ``data_dir`` (label files
+    excluded), sorted."""
+    tasks = set()
+    for f in os.listdir(data_dir):
+        base, ext = os.path.splitext(f)
+        if ext in DATA_EXTS and not base.endswith("_labels"):
+            tasks.add(base)
+    return sorted(tasks)
+
+
 def _load_array(filepath: str) -> np.ndarray:
     """Load a dense array from .npy/.npz/.pt into host memory (numpy)."""
     if filepath.endswith(".npy"):

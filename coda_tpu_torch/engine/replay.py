@@ -23,11 +23,34 @@ later picks follow it); :func:`first_pick_flip` tells it apart.
 
 It gives the reference's ``ReplayReport.to_dict()`` on every pair. Records
 of different oracles raise ``NotImplementedError`` naming the crowd slice
-(6), and re-executing a record raises naming slice 5 of the port.
+(6).
+
+The re-execution half (:func:`replay_record`, :func:`verify_replay`,
+:func:`replay_main`) runs a record's program again: the same recording
+program (``make_batched_experiment_fn`` with the record's ``trace_k`` and
+``acq_batch``) at the recorded replica width (the ``n_parallel`` knob,
+which decides the auto tier; seeds as one batch where
+``engine/loop.seeds_batch`` says so, else one after another), seeded with
+the record's root keys, on ``--device``. On the recording's backend
+(``torch-cuda`` or ``torch-cpu``) with unchanged knobs the replay is
+bitwise its record; against a JAX record (backends ``cpu``/``tpu``) or
+with ``--set`` overrides the tolerance is the cross-backend score
+contract, 2.34e-4::
+
+    python -m coda_tpu_torch.cli replay <record-dir> [--against DIR]
+        [--data-dir D] [--device cuda|cpu] [--score-tol auto|x] [--seed s]
+        [--set K=V] [--allow-digest-mismatch] [--out REPORT.json]
+
+It exits 0 on PARITY and 2 on DIVERGED. A record of a noisy crowd oracle
+raises ``NotImplementedError`` naming slice 6; a ``mesh`` knob raises
+naming the N-axis parallel part of slice 5.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -36,6 +59,7 @@ import numpy as np
 from coda_tpu_torch.telemetry.recorder import (
     CROSS_BACKEND_SCORE_TOL,
     RunRecord,
+    dataset_digest,
 )
 
 # quantity -> triage class, in causal order: a key mismatch explains a
@@ -531,12 +555,22 @@ def format_triage(report: ReplayReport) -> str:
     return "\n".join(lines)
 
 
+def _current_backend(device) -> str:
+    """The fingerprint backend a re-execution on ``device`` writes."""
+    import torch
+
+    return f"torch-{torch.device(device or 'cuda').type}"
+
+
 def _auto_tol(record: RunRecord, overrides: dict,
-              against: Optional[RunRecord] = None) -> float:
-    """The tolerance of a comparison with ``against``: bitwise when the
-    two records share a backend with unchanged knobs, the documented
-    cross-backend score contract otherwise. Without ``against`` (a replay
-    by re-execution) it raises: that comes with slice 5 of the port."""
+              against: Optional[RunRecord] = None, device=None) -> float:
+    """Bitwise when the two sides share a backend with unchanged knobs;
+    the documented cross-backend score contract otherwise.
+
+    In replay mode the "other side" is this process on ``device``
+    (``torch-cuda`` or ``torch-cpu``; every JAX record differs); in
+    ``--against`` mode it is the second record, and this process's device
+    is irrelevant."""
     fp = record.meta.get("fingerprint", {})
     if against is not None:
         fp_b = against.meta.get("fingerprint", {})
@@ -545,6 +579,229 @@ def _auto_tol(record: RunRecord, overrides: dict,
         same = (fp.get("backend") == fp_b.get("backend")
                 and _record_knobs(record) == _record_knobs(against))
         return 0.0 if same else CROSS_BACKEND_SCORE_TOL
-    raise NotImplementedError(
-        "replay by re-execution comes with replay, suite and parallel "
-        "(slice 5 of the port); pass the record to compare with")
+    same_backend = fp.get("backend") == _current_backend(device)
+    return 0.0 if (same_backend and not overrides) \
+        else CROSS_BACKEND_SCORE_TOL
+
+
+# ---------------------------------------------------------------------------
+# re-execution: the record's own program, run again
+# ---------------------------------------------------------------------------
+
+def replay_record(record: RunRecord, selector_factory, preds, labels,
+                  loss: str = "acc", device=None,
+                  timings: Optional[list] = None) -> dict:
+    """Re-execute a record's program and return the replayed arrays
+    (the record's names and dtypes, a leading seed axis).
+
+    Runs the recording program — ``make_batched_experiment_fn`` with the
+    record's ``trace_k`` and ``acq_batch``, seeds as one batch where the
+    selector batches them — seeded with the record's root keys, on
+    ``device`` (default: the card). ``selector_factory`` carries the
+    recorded replica width (:func:`load_record_environment`). Same backend
+    and knobs: bitwise the recorded arrays. ``timings``: the experiment
+    functions' ``{"init_ms", "rounds_ms"}`` entries (one for a seed batch,
+    one a seed otherwise)."""
+    import torch
+
+    from coda_tpu_torch.engine.loop import (
+        _as_tensor,
+        make_batched_experiment_fn,
+    )
+    from coda_tpu_torch.losses import LOSS_FNS
+    from coda_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    run = record.meta.get("run", {})
+    iters = int(run.get("iters", record.rounds))
+    fn = make_batched_experiment_fn(
+        selector_factory, iters, LOSS_FNS[loss],
+        trace_k=int(record.meta.get("trace_k", 8)),
+        acq_batch=record.acq_batch, timings=timings)
+    keys = torch.from_numpy(
+        np.asarray(record.arrays["root_key"]).astype(np.int64))
+    result, aux = fn(_as_tensor(preds).to(dev, torch.float32),
+                     _as_tensor(labels).to(dev), keys)
+    arrays = RunRecord.from_result(result, aux, {}, {}).arrays
+    return {k: arrays[k] for k in (
+        "chosen_idx", "true_class", "best_model", "regret",
+        "cumulative_regret", "select_prob", "round_key", "topk_idx",
+        "topk_score", "chosen_score", "runner_up_gap", "pbest_max",
+        "pbest_entropy", "surrogate_fallback")}
+
+
+def verify_replay(record: RunRecord, selector_factory, preds, labels,
+                  loss: str = "acc", score_tol: float = 0.0, seeds=None,
+                  device=None) -> ReplayReport:
+    """Re-execute ``record`` through its own program and triage each seed
+    (all of them, or ``seeds``: the program always runs every recorded
+    seed, as it was recorded). ``meta["timings"]`` holds the
+    re-execution's init and round times (host clock, the device
+    synchronised at the phase boundaries)."""
+    timings: list = []
+    report = ReplayReport(mode="replay", score_tol=score_tol,
+                          meta={"run": record.meta.get("run", {}),
+                                "timings": timings})
+    replayed = replay_record(record, selector_factory, preds, labels,
+                             loss=loss, device=device, timings=timings)
+    for s in (range(record.seeds) if seeds is None else seeds):
+        rec = record.seed_arrays(s)
+        rep = {k: v[s] for k, v in replayed.items()}
+        report.seeds.append(compare_seed(rec, rep, score_tol=score_tol,
+                                         seed=s))
+    return report
+
+
+# knobs of a record that name where the reference ran, not what: the
+# port's --device decides
+_PLACE_KNOBS = ("platform",)
+
+
+def _args_from_record(record: RunRecord, data_dir: Optional[str] = None,
+                      overrides: Optional[dict] = None):
+    """Rebuild the port's argparse namespace a record was captured under:
+    the port CLI's defaults, then the fingerprinted knobs (a reference
+    record's too: ``eig_backend='pallas'`` runs the kernels, ``'jnp'`` the
+    plain versions; the ``n_parallel`` knob keeps the recorded replica
+    width, so the auto tier resolves as it did), then explicit
+    overrides."""
+    from coda_tpu_torch.cli import parse_args
+
+    args = parse_args([])
+    run = record.meta.get("run", {})
+    knobs = dict(record.meta.get("fingerprint", {}).get("knobs", {}))
+    knobs.update(overrides or {})
+    for k, v in knobs.items():
+        if k not in _PLACE_KNOBS:
+            setattr(args, k, v)
+    if args.eig_backend == "plain":
+        args.eig_backend = "jnp"
+    args.task = run.get("task")
+    args.synthetic = run.get("synthetic")
+    if data_dir:
+        args.data_dir = data_dir
+    elif run.get("data_dir"):
+        args.data_dir = run["data_dir"]
+    return args
+
+
+def load_record_environment(record: RunRecord,
+                            data_dir: Optional[str] = None,
+                            overrides: Optional[dict] = None,
+                            check_digest: bool = True, device=None):
+    """``(dataset, selector_factory, args)`` for a record on ``device`` —
+    everything :func:`verify_replay` needs to re-execute the recorded
+    program. The dataset's digest must be the record's unless
+    ``check_digest`` is False."""
+    from coda_tpu_torch.cli import build_selector_factory, load_dataset
+
+    if _oracle_knob(record) != "clean":
+        raise NotImplementedError(
+            f"the record ran a noisy crowd oracle ({_oracle_knob(record)!r})"
+            ", which comes with the crowd oracle (slice 6 of the port)")
+    args = _args_from_record(record, data_dir, overrides)
+    args.device = "cuda" if device is None else str(device)
+    dataset = load_dataset(args)
+    want = record.meta.get("fingerprint", {}).get("dataset", {}).get(
+        "digest")
+    if check_digest and want:
+        got = dataset_digest(dataset.preds, dataset.labels)
+        if got != want:
+            raise ValueError(
+                f"dataset digest mismatch: record was captured on "
+                f"{want}, loaded data hashes to {got} — replaying against "
+                "different data answers a different question "
+                "(pass --allow-digest-mismatch to proceed anyway)")
+    factory = build_selector_factory(args, dataset.name)
+    return dataset, factory, args
+
+
+def _parse_overrides(pairs) -> dict:
+    """``--set KEY=VALUE`` pairs: ints, then floats, then true/false, else
+    the string."""
+    out = {}
+    for p in pairs or ():
+        if "=" not in p:
+            raise SystemExit(f"--set expects KEY=VALUE, got {p!r}")
+        k, v = p.split("=", 1)
+        for cast in (int, float):
+            try:
+                v = cast(v)
+                break
+            except ValueError:
+                continue
+        if v in ("true", "True"):
+            v = True
+        elif v in ("false", "False"):
+            v = False
+        out[k] = v
+    return out
+
+
+def replay_main(argv=None) -> int:
+    """``python -m coda_tpu_torch.cli replay <record-dir> [...]``: 0 on
+    PARITY, 2 on DIVERGED."""
+    p = argparse.ArgumentParser(
+        prog="coda_tpu_torch.cli replay",
+        description="re-execute a flight-recorder record on the card and "
+                    "triage any divergence (or diff two records with "
+                    "--against)")
+    p.add_argument("record_dir", help="directory with record.json + "
+                                      "rounds.npz (a --record-dir output)")
+    p.add_argument("--against", default=None, metavar="DIR",
+                   help="compare against this second record instead of "
+                        "re-executing")
+    p.add_argument("--data-dir", default=None,
+                   help="override the recorded data directory")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the re-execution runs (default: the card)")
+    p.add_argument("--score-tol", default="auto",
+                   help="float tolerance on score/posterior quantities; "
+                        "'auto' = bitwise (0.0) on the recorded backend "
+                        "with unchanged knobs, else the documented "
+                        f"{CROSS_BACKEND_SCORE_TOL} cross-backend contract")
+    p.add_argument("--seed", type=int, default=None,
+                   help="triage only this recorded seed (default: all)")
+    p.add_argument("--set", action="append", metavar="KEY=VALUE",
+                   dest="overrides",
+                   help="override a recorded knob for the replay (e.g. "
+                        "eig_entropy=approx)")
+    p.add_argument("--allow-digest-mismatch", action="store_true")
+    p.add_argument("--out", default=None, metavar="REPORT.json",
+                   help="write the triage report there as JSON")
+    args = p.parse_args(argv)
+
+    record = RunRecord.load(args.record_dir)
+    overrides = _parse_overrides(args.overrides)
+    other = RunRecord.load(args.against) if args.against else None
+    tol = (_auto_tol(record, overrides, against=other, device=args.device)
+           if args.score_tol == "auto" else float(args.score_tol))
+
+    if other is not None:
+        report = compare_records(record, other, score_tol=tol)
+    else:
+        from coda_tpu_torch.utils.platform import resolve_device
+
+        dev = resolve_device(args.device)
+        dataset, factory, rec_args = load_record_environment(
+            record, data_dir=args.data_dir, overrides=overrides,
+            check_digest=not args.allow_digest_mismatch, device=dev)
+        seeds = None if args.seed is None else [args.seed]
+        report = verify_replay(record, factory, dataset.preds,
+                               dataset.labels,
+                               loss=getattr(rec_args, "loss", "acc"),
+                               score_tol=tol, seeds=seeds, device=dev)
+        report.meta["device"] = str(dev)
+    print(format_triage(report))
+    if report.meta.get("timings"):
+        rounds_ms = sum(t["rounds_ms"] for t in report.meta["timings"])
+        print(f"re-executed {record.seeds} seed(s) x {record.rounds} rounds "
+              f"on {report.meta['device']}: "
+              f"{rounds_ms / record.rounds:.3f} ms a round")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report.to_dict(), f, indent=2)
+        print(f"triage report written to {args.out}")
+    return 0 if report.parity else 2

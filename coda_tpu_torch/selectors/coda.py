@@ -172,7 +172,7 @@ _DIRECT_TEMP_BYTES = 1 << 30
 # (:func:`_refresh_row_chunk`)
 _REFRESH_TEMP_BYTES = 1 << 30
 
-_SLICE_5 = "replay, suite and parallel (slice 5 of the port)"
+_SLICE_5 = "the N-axis parallel part of slice 5 of the port"
 
 # eig_backend values that run the plain PyTorch versions: the reference's
 # name for its non-kernel path, and the port's own
@@ -184,7 +184,7 @@ PRECISIONS = ("highest", "high", "default")
 
 class CODAHyperparams(NamedTuple):
     """The reference's fields and defaults. ``shard_spec`` raises at
-    anything but its default (a later slice)."""
+    anything but its default (the N-axis parallel part of slice 5)."""
 
     prefilter_n: int = 0          # EIG on a random subset of this many
     #                               candidates a round (0: all)

@@ -29,6 +29,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -364,3 +365,15 @@ class RunRecord:
 def is_record_dir(path: str) -> bool:
     return (os.path.isfile(os.path.join(path, "record.json"))
             and os.path.isfile(os.path.join(path, "rounds.npz")))
+
+
+_STREAM_SAFE = re.compile(r"[^A-Za-z0-9_.-]+")
+
+
+def stream_dir(root: str, *parts: str) -> str:
+    """``<root>/<part>/...`` with filesystem-hostile characters squashed
+    (a task name like ``glue/cola`` must not nest): the suite's
+    per-(family, method) record streams, as the reference lays them
+    out."""
+    safe = [_STREAM_SAFE.sub("-", p) for p in parts if p]
+    return os.path.join(root, *safe)

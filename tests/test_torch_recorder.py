@@ -140,9 +140,19 @@ def test_port_compare_records_gives_the_reference_report(a, b,
 
 
 def test_replay_without_a_record_to_compare_raises(digits_record):
+    """Without a second record the replay re-executes the record: on the
+    recording's backend (the CPU here) with unchanged knobs its tolerance
+    is bitwise, on another backend or with overrides the contract; asked
+    for the card on a machine without one, it raises (no fallback to the
+    CPU)."""
     rec = trec.RunRecord.load(digits_record)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        treplay._auto_tol(rec, {})
+    assert treplay._auto_tol(rec, {}, device="cpu") == 0.0
+    assert treplay._auto_tol(rec, {}, device="cuda") == TOL
+    assert treplay._auto_tol(rec, {"eig_entropy": "approx"},
+                             device="cpu") == TOL
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            treplay.replay_main([digits_record])
 
 
 @pytest.mark.parametrize("backend,knob", [("plain", "jnp"), ("jnp", "jnp"),
