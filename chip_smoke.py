@@ -138,13 +138,37 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    ActiveTesting; 1 seed, every 10 rounds) cut after round 20 and resumed
    to 30, every trace bitwise the uninterrupted run, with a checkpoint's
    bytes and its save and restore seconds; the suite over ``data/`` (the
-   six methods, 5 seeds x 100 rounds, ``runs/real.sqlite``'s sweep) into
+   six methods, 5 seeds x 50 rounds, ``runs/real.sqlite``'s sweep cut
+   from 100 rounds) into
    a fresh database, its rerun skipping every pair, a 3-task x 2-seed x
    30-round subset under ``--task-batch --suite-devices 1`` bitwise the
    serial run, two pairs' rows bitwise the single-task CLI's, and a
-   table of mean cumulative regret x100 at step 100 beside
+   table of mean cumulative regret x100 at step 50 beside
    ``runs/real.sqlite``'s (information, not a gate). It prints the
    sweep's and the phase's wall time.
+10. the "crowd and telemetry" phase, each in-process run with the
+   counters set to 0 just before and read just after, its launches checked
+   against the main path's for its configuration and added to the JSON
+   line's: CODA at the headline under the reference's noisy crowd
+   (``ROBUSTNESS_CPU_r18.json``'s spec) 1 seed x 20 rounds precomputed
+   fp32 and fused bf16, 5 seeds x 10 as one batch (incremental) and q = 4
+   x 5, each beside the clean run of its knobs (ms a round, peak memory)
+   and the device events a round of crowd and clean (``torch.profiler``);
+   ``digits_h80`` 3 seeds x 30 rounds under the noisy spec batched on the
+   kernels, one seed after another and on the plain versions, identical
+   with every ``CrowdAux`` array; the reference's reliability recovery
+   (corr >= 0.8, mae <= 0.25, adversaries separated); the fused bf16 crowd
+   run recorded, re-executed by ``cli replay`` in a subprocess (PARITY
+   bitwise) and against a clean record the ``oracle-noise-envelope``
+   within the reference's bounds; the CLI at the headline with
+   ``--telemetry-dir`` and ``--profile-dir`` (the device peak of
+   ``telemetry.json`` equal to ``torch.cuda.max_memory_allocated()``,
+   ``metrics.prom`` clean by ``lint``, the ``load_dataset`` and
+   ``experiment`` spans, kernels 1-3 in the profiler trace, each cost
+   entry's bytes over those kernels' measured time under the card's
+   memory rate), ms a round with telemetry off, on, and on with the
+   profiler; and the suite with ``--telemetry-dir`` on a 2-task x
+   2-method x 2-seed subset (spans on ``device:0``, the store flushed).
 
 It prints one JSON line with every kernel flavour (its ``launches`` summed
 over the main-path runs), then the card's name and power
@@ -190,15 +214,12 @@ def smi_line() -> str:
 
 def card_peaks(name: str) -> tuple[float, float, float]:
     """(memory bytes/s, fp32 non-tensor FLOP/s, dense TF32 tensor FLOP/s)
-    of the card, from NVIDIA's data sheets (H100 SXM: 3.35 TB/s, 67 and
-    495 TFLOP/s)."""
-    if "H200" in name:
-        return 4.8e12, 67e12, 495e12
-    if "H100" in name and "PCIe" in name:
-        return 2.0e12, 51e12, 378e12
-    if "H100" in name and "NVL" in name:
-        return 3.9e12, 60e12, 417e12
-    return 3.35e12, 67e12, 495e12
+    of the card, from the package's table
+    (``coda_tpu_torch.telemetry.costs.CARD_PEAKS``, NVIDIA's data sheets;
+    H100 SXM: 3.35 TB/s, 67 and 495 TFLOP/s, also for a name it lacks)."""
+    from coda_tpu_torch.telemetry import costs
+
+    return costs.card_peaks(name) or costs.card_peaks("H100")
 
 
 def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
@@ -222,12 +243,22 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
 
 def bound(nbytes: float, nops: float, peaks,
           tensor_ops: float = 0.0) -> tuple[float, str]:
-    """The least time in ms: bytes at the memory rate, or operations —
-    ``nops`` on the fp32 CUDA cores and ``tensor_ops`` on the TF32 tensor
-    cores, the two pipes overlapping — whichever is longer."""
-    t_bytes = nbytes / peaks[0] * 1e3
-    t_ops = max(nops / peaks[1], tensor_ops / peaks[2]) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """The least time in ms (``costs.bound_ms``): bytes at the memory
+    rate, or operations — ``nops`` on the fp32 CUDA cores and
+    ``tensor_ops`` on the TF32 tensor cores, the two pipes overlapping —
+    whichever is longer."""
+    from coda_tpu_torch.telemetry import costs
+
+    return costs.bound_ms(nbytes, nops, peaks, tensor_ops)
+
+
+def work(kernel: str, *args, **kw) -> tuple[float, float, float]:
+    """(bytes, fp32 ops, TF32 tensor ops) of one launch: the package's
+    analytic model (``costs.kernel_work``), which the cost book reads
+    too."""
+    from coda_tpu_torch.telemetry import costs
+
+    return costs.kernel_work(kernel, *args, **kw)
 
 
 def score_atol(H: int) -> float:
@@ -300,12 +331,12 @@ def _k12(dev, peaks, recs, N, dtype, approx, rows, hyp32, pi, pi_xi, hyp_t):
         source="coda_tpu_torch/csrc/eig_score.cu",
         replaces="coda_tpu/ops/pallas_eig.py:163", max_abs_err=0.0))
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    nbytes = size * C * N * H + 4 * (C * H + C + N * C + H + 1 + N)
+    nbytes, nops, _ = work("eig_score", C, N, H, size)
     ms = time_ms(lambda: ek.eig_scores_cache(rows, hyp, pi, pi_xi,
                                              approx=approx))
     plain = time_ms(lambda: ek.eig_scores_from_cache(
         rows, hyp, pi, pi_xi, chunk=1024, approx=approx), reps=5)
-    b, by = bound(nbytes, 8.0 * C * N * H, peaks)
+    b, by = bound(nbytes, nops, peaks)
     log(f"kernel {name} N={N} ({tag}): max_abs_err={err:.3e} (tol atol="
         f"{atol:.2e} rtol={SCORE_RTOL}) ms={ms:.4f} plain_ms={plain:.4f} "
         f"bound_ms={b:.4f} ({by})")
@@ -336,13 +367,12 @@ def _k12(dev, peaks, recs, N, dtype, approx, rows, hyp32, pi, pi_xi, hyp_t):
         source="coda_tpu_torch/csrc/eig_score.cu",
         replaces="coda_tpu/ops/pallas_eig.py:646", max_abs_err=0.0))
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    nbytes = (size * ((C - 1) * N * H + N * H) + 4 * (
-        N * H + C * H + C + N * C + H + 1 + N + 1))
+    nbytes, nops, _ = work("eig_refresh_score", C, N, H, size)
     ms = time_ms(lambda: ek.eig_scores_refresh(rows, hyp_k, hyp_t, c, pi,
                                                pi_xi, approx=approx))
     plain = time_ms(lambda: ek.eig_scores_refresh_plain(
         rows, hyp_k, hyp_t, c, pi, pi_xi, chunk=1024, approx=approx), reps=5)
-    b, by = bound(nbytes, 8.0 * C * N * H, peaks)
+    b, by = bound(nbytes, nops, peaks)
     log(f"kernel {name} N={N} ({tag}): max_abs_err={err:.3e} (tol atol="
         f"{atol:.2e} rtol={SCORE_RTOL}) cache == plain cache, other rows "
         f"bitwise untouched ms={ms:.4f} plain_ms={plain:.4f} "
@@ -397,8 +427,6 @@ def _k6(dev, peaks, recs, N, gen, rows0, hyp32, pi, pi_xi):
     # only where eq is 1 and the scoring of C*N*H elements on the fp32
     # CUDA cores
     nnz = int((hard == c_idx).sum())
-    tensor_ops = 3.0 * (2.0 * N * H * G + 2.0 * nnz * G)
-    nops = 1.0 * nnz * G + 8.0 * C * N * H
     lay = ek.refresh_compute_layout(C, H, G)
     log(f"kernel 6 layout at (C, H, G) = ({C}, {H}, {G}): "
         f"{lay['items_per_block']} items a block, products in chunks of "
@@ -445,9 +473,8 @@ def _k6(dev, peaks, recs, N, gen, rows0, hyp32, pi, pi_xi):
             source="coda_tpu_torch/csrc/eig_refresh_compute.cu",
             replaces="coda_tpu/ops/pallas_eig.py:320", max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        nbytes = (size * ((C - 1) * N * H + N * H) + 4 * (
-            N * H + N * C + C * H + C + H + 1 + N + 1 + 3 * H * G + 2 * G
-            + 2 * H))
+        nbytes, nops, tensor_ops = work("eig_refresh_compute_score", C, N,
+                                        H, size, G=G, nnz=nnz)
         ms = time_ms(lambda: ek.eig_scores_refresh_compute(
             rows, hyp_k, *args, approx=approx))
         plain = time_ms(lambda: ek.eig_scores_refresh_compute_plain(
@@ -558,12 +585,12 @@ def _k45(dev, peaks, recs, N, gen):
             source="coda_tpu_torch/csrc/eig_score.cu",
             replaces="coda_tpu/ops/pallas_eig.py:556", max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        nbytes = S * (size * C * N * H + 4 * (C * H + C + N * C + H + 1 + N))
+        nbytes, nops, _ = work("eig_score_batched", C, N, H, size, S)
         ms = time_ms(lambda: ek.eig_scores_cache_batched(rows, hyp, pi, pi_xi,
                                                          approx=approx))
         plain = time_ms(lambda: ek.eig_scores_from_cache_batched(
             rows, hyp, pi, pi_xi, chunk=1024, approx=approx), reps=5)
-        b, by = bound(nbytes, 8.0 * S * C * N * H, peaks)
+        b, by = bound(nbytes, nops, peaks)
         log(f"kernel {name} {tag}: max_abs_err={err:.3e} (tol atol="
             f"{atol:.2e} rtol={SCORE_RTOL}) == kernel 1 per replica bitwise "
             f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f} ({by})")
@@ -599,14 +626,14 @@ def _k45(dev, peaks, recs, N, gen):
             source="coda_tpu_torch/csrc/eig_score.cu",
             replaces="coda_tpu/ops/pallas_eig.py:825", max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        nbytes = S * (size * ((C - 1) * N * H + N * H) + 4 * (
-            N * H + C * H + C + N * C + H + 1 + N + 1))
+        nbytes, nops, _ = work("eig_refresh_score_batched", C, N, H, size,
+                               S)
         ms = time_ms(lambda: ek.eig_scores_refresh_batched(
             rows, hyp_k, hyp_t, cls, pi, pi_xi, approx=approx))
         plain = time_ms(lambda: ek.eig_scores_refresh_batched_plain(
             rows, hyp_k, hyp_t, cls, pi, pi_xi, chunk=1024, approx=approx),
             reps=5)
-        b, by = bound(nbytes, 8.0 * S * C * N * H, peaks)
+        b, by = bound(nbytes, nops, peaks)
         log(f"kernel {name} {tag}: max_abs_err={err:.3e} (tol atol="
             f"{atol:.2e} rtol={SCORE_RTOL}) cache == plain cache, == kernel 2 "
             f"per replica bitwise, other rows untouched ms={ms:.4f} "
@@ -667,8 +694,8 @@ def _gather(dev, peaks, recs, N, gen):
         # the distinct (class, model) rows these classes select, each read
         # once, the classes and the output
         rows_needed = int(torch.unique(sel.long() * H + hidx).numel())
-        b, by = bound(4 * (rows_needed * N + sel.numel() + got.numel()),
-                      float(sel.numel() * N), peaks)
+        b, by = bound(*work(name, C, N, H, S=sel.numel() // H,
+                            rows=rows_needed)[:2], peaks)
         log(f"kernel {name} N={N}: {note}max_abs_err={err:.3e} (tol rtol="
             f"{rtol:.2e}) ms={ms:.4f} plain_ms={plain:.4f} library_ms="
             f"{lib:.4f} bound_ms={b:.4f} ({by}; {rows_needed} distinct rows)")
@@ -2239,7 +2266,9 @@ REPLAY_PATHS = (
 )
 TAMPER_ROUND = 7
 CKPT_ROUNDS, CKPT_EVERY, CKPT_CUT = 30, 10, 25   # the cut run saves 10, 20
-SUITE_SEEDS, SUITE_ROUNDS = 5, 100               # runs/real.sqlite's sweep
+# runs/real.sqlite's sweep (5 seeds x 100 rounds) cut to 50 rounds, its
+# table read at step 50
+SUITE_SEEDS, SUITE_ROUNDS = 5, 50
 SUBSET = ("digits", "iris", "wine")              # --task-batch subset
 SUBSET_SEEDS, SUBSET_ROUNDS = 2, 30
 CLI_PAIRS = (("digits", "coda"), ("digits", "model_picker"))
@@ -2655,6 +2684,505 @@ def phase_replay_checkpoint_suite(dev, task, total: dict) -> dict:
     return out
 
 
+# -- the crowd oracle and the telemetry core --------------------------------
+
+CROWD_SPEC = ("annotators=8,votes=3,acc=0.6:0.95,abstain=0.1,"
+              "adversarial=1,trust=16,seed=0")     # ROBUSTNESS_CPU_r18 noisy
+RELIABILITY_SPEC = ("annotators=8,votes=3,acc=0.55:0.95,abstain=0.05,"
+                    "adversarial=2,trust=24,seed=1")
+RELIABILITY_ROUNDS = 400
+CORR_BOUND, MAE_BOUND = 0.8, 0.25                   # its reliability bounds
+ENVELOPE_RATIO, ENVELOPE_ABS = 2.0, 1.0             # its oracle envelope
+# (label, CODA knobs, seeds, rounds, labels a round)
+CROWD_PATHS = (
+    ("precomputed fp32", {}, 1, 20, 1),
+    ("fused bf16", {"eig_refresh": "fused", "eig_cache_dtype": "bfloat16"},
+     1, 20, 1),
+    ("5 seeds batched", {"eig_mode": "incremental"}, SEEDS, 10, 1),
+    ("q = 4", {}, 1, 5, 4),
+)
+CROWD_PARITY_SEEDS, CROWD_PARITY_ROUNDS = 3, 30     # digits_h80
+TELEMETRY_ROUNDS = 20
+SUITE_TELEMETRY = ("digits,iris", "iid,coda", 2, 10)   # tasks, methods, seeds,
+#                                                        rounds
+
+
+def _crowd_wants(knobs: dict, seeds: int, iters: int, q: int) -> dict:
+    """The launches a headline crowd run of ``knobs`` must make: the main
+    path's for the configuration."""
+    import torch
+
+    from coda_tpu_torch.ops.eig_kernels import flavour
+
+    dt = getattr(torch, knobs.get("eig_cache_dtype", "float32"))
+    if q > 1:
+        return {flavour("eig_score", dt, False): 1 + iters,
+                "row_gather": q * iters}
+    if seeds > 1:
+        return {flavour("eig_score_batched", dt, False): 1,
+                flavour("eig_refresh_score_batched", dt, False): iters,
+                "row_gather_batched": iters}
+    refresh = ("eig_refresh_compute_score"
+               if knobs.get("eig_refresh") == "fused"
+               else "eig_refresh_score")
+    return {flavour("eig_score", dt, False): 1,
+            flavour(refresh, dt, False): iters, "row_gather": iters}
+
+
+def _cuda_events(fn) -> int:
+    """CUDA activities (kernels, copies, sets) ``fn`` puts on the card,
+    counted by ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+class _headline_cli:
+    """``cli.main`` with the headline task already built: ``load_dataset``
+    returns ``task`` for ``--synthetic`` at its shape (the numpy build is
+    deterministic and takes about 20 s on the host)."""
+
+    def __init__(self, task):
+        from coda_tpu_torch import cli
+
+        self.cli, self.task = cli, task
+        self.shape = ",".join(str(x) for x in task.shape)
+
+    def __enter__(self):
+        self.orig = self.cli.load_dataset
+        self.cli.load_dataset = lambda args: (
+            self.task if args.synthetic == self.shape else self.orig(args))
+        return self.cli
+
+    def __exit__(self, *exc):
+        self.cli.load_dataset = self.orig
+        return False
+
+
+_KERNEL_NAMES = {   # kernel -> a pattern of its demangled name in a trace
+    "kernel 1": r"score_kernel<float, \d+, false, false, false>",
+    "kernel 2": r"score_kernel<float, \d+, true, false, false>",
+    "kernel 3": r"gather_kernel<false>",
+}
+
+
+def _trace_kernels(path: str) -> list:
+    """The CUDA kernel events (``cat`` kernel) of a profiler trace."""
+    with open(path) as f:
+        return [e for e in json.load(f)["traceEvents"]
+                if e.get("cat") == "kernel"]
+
+
+def phase_crowd_telemetry(dev, task, total: dict, smi: str, peaks) -> dict:
+    """The crowd oracle and the telemetry core on the card (see the module
+    docstring, item 10). Every in-process run has the counters set to 0
+    just before and read just after, its launches checked and added to
+    ``total``. Returns the measured figures."""
+    import contextlib
+    import dataclasses
+    import io
+    import json as _json
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from coda_tpu_torch import random as trandom
+    from coda_tpu_torch.crowd import (
+        aggregate_votes,
+        annotator_accuracy,
+        init_reliability,
+        make_annotators,
+        parse_oracle_spec,
+        run_seeds_crowd,
+        run_seeds_crowd_recorded,
+        sample_votes,
+    )
+    from coda_tpu_torch.data import Dataset
+    from coda_tpu_torch.engine import run_seeds_compiled, run_seeds_recorded
+    from coda_tpu_torch.engine.replay import compare_records
+    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+    from coda_tpu_torch.telemetry import Telemetry, costs, lint_prometheus
+    from coda_tpu_torch.telemetry.recorder import RunRecord
+    from coda_tpu_torch.tracking import TrackingStore
+    from coda_tpu_torch.utils.profiling import TRACE_FILE
+    from coda_tpu_torch.utils.profiling import trace as profiler_trace
+
+    t_phase = time.perf_counter()
+    C, N, H = HEADLINE
+    cfg = parse_oracle_spec(CROWD_SPEC)
+    out: dict = {"runs": {}, "telemetry": {}}
+    log(f"crowd and telemetry on {smi}: --oracle-noise {CROWD_SPEC}")
+
+    def factory_of(hp, sequential=False):
+        def factory(p):
+            sel = make_coda(p, hp, device=dev)
+            return dataclasses.replace(sel, batched=None) if sequential \
+                else sel
+        return factory
+
+    # 1. the crowd at the headline, each beside the clean run of its knobs
+    for label, knobs, seeds, iters, q in CROWD_PATHS:
+        hp = CODAHyperparams(eig_chunk=1024, n_parallel=seeds, **knobs)
+        want = _crowd_wants(knobs, seeds, iters, q)
+        # clean, crowd, clean, crowd: the second of each is timed (the
+        # first pays the configuration's first uses)
+        for rep in range(2):
+            t_clean: list = []
+            t_crowd: list = []
+            clean = _counted(f"clean {label}", want, total,
+                             lambda: run_seeds_compiled(
+                                 factory_of(hp), task.preds, task.labels,
+                                 iters=iters, seeds=seeds, device=dev,
+                                 timings=t_clean, acq_batch=q))
+            del clean
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            res, crowd = _counted(f"crowd {label}", want, total,
+                                  lambda: run_seeds_crowd(
+                                      factory_of(hp), task.preds,
+                                      task.labels, cfg, iters=iters,
+                                      seeds=seeds, device=dev,
+                                      timings=t_crowd, acq_batch=q))
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if len(t_crowd) != len(t_clean):
+            raise AssertionError(f"crowd {label}: {len(t_crowd)} timed "
+                                 f"experiments, clean {len(t_clean)}")
+        idx = res.chosen_idx.cpu()
+        w = crowd.label_weight.cpu()
+        if not (torch.isfinite(res.regret.cpu()).all()
+                and ((w >= 0) & (w <= 1)).all()
+                and (res.regret.cpu() >= 0).all()
+                and all(len(set(r.reshape(-1).tolist())) == iters * q
+                        for r in idx)
+                and crowd.annotator_accuracy.shape[-1] == cfg.annotators):
+            raise AssertionError(f"crowd {label}: bad trajectory")
+        flips = int((crowd.applied_label != crowd.oracle_label).sum())
+        ms = sum(t["rounds_ms"] for t in t_crowd) / iters
+        ms_clean = sum(t["rounds_ms"] for t in t_clean) / iters
+        out["runs"][label] = {"ms": ms, "clean_ms": ms_clean,
+                              "peak_gb": peak_gb, "flips": flips}
+        log(f"crowd {label} ({H}, {N}, {C}), {seeds} seed(s) x {iters} "
+            f"rounds x {q} label(s): launches == the main path's "
+            f"{_json.dumps(want)}; ms_per_round crowd={ms:.3f} "
+            f"clean={ms_clean:.3f}; peak_mem_gb={peak_gb:.2f}; "
+            f"{flips} of {w.numel()} applied labels differ from the truth, "
+            f"mean weight {float(w.mean()):.4f}")
+        del res, crowd
+    torch.cuda.empty_cache()
+
+    # device events a round, crowd against clean (precomputed fp32, rounds
+    # 3-7: the difference of a 7-round and a 2-round run)
+    hp = CODAHyperparams(eig_chunk=1024)
+    ev = {}
+    for name, run in (
+            ("clean", lambda r: run_seeds_compiled(
+                factory_of(hp), task.preds, task.labels, iters=r, seeds=1,
+                device=dev)),
+            ("crowd", lambda r: run_seeds_crowd(
+                factory_of(hp), task.preds, task.labels, cfg, iters=r,
+                seeds=1, device=dev))):
+        counts = [_counted(f"events {name} {r}",
+                           _crowd_wants({}, 1, r, 1), total,
+                           lambda r=r: _cuda_events(lambda: run(r)))
+                  for r in (2, 7)]
+        ev[name] = (counts[1] - counts[0]) / 5
+    out["events"] = ev
+    log(f"device events a round (torch.profiler, precomputed fp32, 1 seed): "
+        f"crowd={ev['crowd']:.1f} clean={ev['clean']:.1f}")
+
+    # 2. digits_h80 under the noisy spec: kernels batched == kernels one
+    # seed after another, bitwise with the crowd's arrays; the plain
+    # versions batched at parity or first diverging at a near tie (the
+    # kernels' scores differ from the plain ones within their tolerance),
+    # identical before it
+    ds = Dataset.from_file(os.path.join(HERE, "data", "digits_h80.npz"),
+                           device=dev)
+    S, T = CROWD_PARITY_SEEDS, CROWD_PARITY_ROUNDS
+
+    def digits(sequential=False, **kw):
+        hp = CODAHyperparams(eig_chunk=1024, n_parallel=S, **kw)
+        return run_seeds_crowd_recorded(
+            factory_of(hp, sequential), ds.preds, ds.labels, cfg, iters=T,
+            seeds=S, device=dev)
+
+    kb = _counted("digits_h80 crowd batched", {
+        "eig_score_batched": 1, "eig_refresh_score_batched": T,
+        "row_gather_batched": T}, total, digits)
+    ks = _counted("digits_h80 crowd in turn", {
+        "eig_score": S, "eig_refresh_score": S * T, "row_gather": S * T},
+        total, lambda: digits(sequential=True))
+    pb = _counted("digits_h80 crowd plain", {}, total,
+                  lambda: digits(eig_backend="plain"))
+    leaves = torch.utils._pytree.tree_leaves
+    if not all(torch.equal(x, y) for x, y in zip(leaves(kb), leaves(ks))):
+        raise AssertionError("digits_h80 crowd: the batch differs from the "
+                             "seeds one after another")
+    log(f"crowd parity digits_h80 {tuple(ds.shape)}: {S} seeds x {T} "
+        f"rounds batched on the kernels == one seed after another, bitwise "
+        f"(every result, trace and CrowdAux array)")
+
+    def record(o):
+        return RunRecord.from_result(o[0], o[1], {"backend": "torch-cuda"},
+                                     {"iters": T}, crowd=o[2])
+
+    kr, pr = record(kb), record(pb)
+    _triage(pr, kr, "digits_h80 crowd plain versions vs kernels", CONTRACT)
+    for sd in compare_records(pr, kr, score_tol=CONTRACT).seeds:
+        t0 = T if sd.parity else sd.first_divergent_round
+        for f in ("chosen_idx", "true_class", "best_model", "oracle_label",
+                  "label_weight"):
+            if not np.array_equal(kr.arrays[f][sd.seed, :t0],
+                                  pr.arrays[f][sd.seed, :t0]):
+                raise AssertionError(f"digits_h80 crowd plain seed "
+                                     f"{sd.seed}: {f} differs before round "
+                                     f"{t0}")
+    log(f"crowd parity digits_h80: the plain versions batched hold the "
+        f"kernels' decisions and crowd arrays bitwise up to each seed's "
+        f"first divergence (above)")
+    del kb, ks, pb, ds
+
+    # 3. the learned reliability: the reference's recovery check
+    rcfg = parse_oracle_spec(RELIABILITY_SPEC)
+    conf = make_annotators(rcfg, 4, dev)
+    rel = init_reliability(rcfg, 4, dev)
+    keys = trandom.split(trandom.PRNGKey(7), RELIABILITY_ROUNDS)
+    for t in range(RELIABILITY_ROUNDS):
+        k_z, k_votes = trandom.split(keys[t])
+        z = trandom.randint(k_z, (), 0, 4)
+        rel = aggregate_votes(rel, *sample_votes(k_votes, conf, z, rcfg),
+                              rcfg)[2]
+    learned = annotator_accuracy(rel).cpu().numpy()
+    planted = torch.diagonal(conf, dim1=-2, dim2=-1).mean(-1).cpu().numpy()
+    honest = np.arange(rcfg.annotators) < rcfg.annotators - rcfg.adversarial
+    corr = float(np.corrcoef(learned, planted)[0, 1])
+    mae = float(np.abs(learned - planted).mean())
+    separated = bool(learned[~honest].max() < learned[honest].min())
+    if not (corr >= CORR_BOUND and mae <= MAE_BOUND and separated):
+        raise AssertionError(f"reliability: corr {corr}, mae {mae}, "
+                             f"separated {separated}")
+    out["reliability"] = {"corr": corr, "mae": mae}
+    log(f"reliability ({RELIABILITY_SPEC}, {RELIABILITY_ROUNDS} rounds on "
+        f"the card): corr={corr:.4f} >= {CORR_BOUND}, mae={mae:.4f} <= "
+        f"{MAE_BOUND}, adversaries separated; learned "
+        f"{[round(float(x), 4) for x in learned]}")
+
+    tmp = tempfile.mkdtemp(prefix="coda_smoke_crowd_")
+    try:
+        # 4. record the fused bf16 crowd run, replay it in a subprocess;
+        # against a clean record it is the oracle-noise envelope
+        with _headline_cli(task) as cli:
+            fused = ["--eig-refresh", "fused", "--eig-cache-dtype",
+                     "bfloat16"]
+            iters = 20
+            base = ["--synthetic", f"{H},{N},{C}", "--method", "coda",
+                    "--iters", str(iters), "--seeds", "1", "--no-mlflow",
+                    "--device", dev.type] + fused
+            recs = {}
+            for name, extra in (("noisy", ["--oracle-noise", CROWD_SPEC]),
+                                ("clean", [])):
+                args = cli.parse_args(base + extra + [
+                    "--record-dir", os.path.join(tmp, name)])
+                fac = cli.build_selector_factory(args, task.name)
+                want = _crowd_wants(dict(eig_refresh="fused",
+                                         eig_cache_dtype="bfloat16"),
+                                    1, iters, 1)
+                if name == "noisy":
+                    res, aux, crowd = _counted(
+                        "recorded crowd fused bf16", want, total,
+                        lambda: run_seeds_crowd_recorded(
+                            fac, task.preds, task.labels, cfg, iters=iters,
+                            seeds=1, device=dev,
+                            trace_k=args.record_topk))
+                else:
+                    (res, aux), crowd = _counted(
+                        "recorded clean fused bf16", want, total,
+                        lambda: run_seeds_recorded(
+                            fac, task.preds, task.labels, iters=iters,
+                            seeds=1, device=dev,
+                            trace_k=args.record_topk)), None
+                cli._write_record(args, task, res, aux, 1, dev, crowd)
+                recs[name] = RunRecord.load(args.record_dir)
+                bad = recs[name].violations()
+                if bad:
+                    raise AssertionError(f"{name} record: {bad}")
+        report = os.path.join(tmp, "replay.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "coda_tpu_torch.cli", "replay",
+             os.path.join(tmp, "noisy"), "--out", report], cwd=HERE,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"crowd replay: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        with open(report) as f:
+            rep = _json.load(f)
+        if not rep["parity"] or rep["score_tol"] != 0.0:
+            raise AssertionError(f"crowd replay: {rep['seeds']}")
+        rep_ms = sum(t["rounds_ms"] for t in rep["meta"]["timings"]) / iters
+        env = compare_records(recs["clean"], recs["noisy"])
+        per_seed = env.meta["oracle_envelope"]["seeds"]
+        ok = all(s.classification == "oracle-noise-envelope"
+                 for s in env.seeds) and all(
+            p["final_cum_b"] <= ENVELOPE_RATIO * p["final_cum_a"]
+            + ENVELOPE_ABS for p in per_seed)
+        if not ok:
+            raise AssertionError(f"noisy vs clean: {env.to_dict()}")
+        out["replay"] = {"replay_ms": rep_ms, "subprocess_s": wall}
+        log(f"crowd record fused bf16 ({H}, {N}, {C}), 1 seed x {iters}: "
+            f"schema clean, oracle_label/label_weight recorded; cli replay "
+            f"in a subprocess: PARITY bitwise, exit 0, {rep_ms:.3f} ms a "
+            f"round, {wall:.1f} s; against the clean record: "
+            f"oracle-noise-envelope, final cum regret "
+            f"{per_seed[0]['final_cum_b']:.4f} vs clean "
+            f"{per_seed[0]['final_cum_a']:.4f} (envelope_ok: <= "
+            f"{ENVELOPE_RATIO} x clean + {ENVELOPE_ABS})")
+
+        # 5. telemetry at the headline: the CLI with --telemetry-dir and
+        # --profile-dir
+        tdir, pdir = os.path.join(tmp, "tel"), os.path.join(tmp, "prof")
+        iters = TELEMETRY_ROUNDS
+        with _headline_cli(task) as cli:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            costs.COSTS.clear()    # the book then holds this run's entry
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = _counted("telemetry CLI run",
+                              _crowd_wants({}, 1, iters, 1), total,
+                              lambda: cli.main([
+                                  "--synthetic", f"{H},{N},{C}", "--method",
+                                  "coda", "--iters", str(iters), "--seeds",
+                                  "1", "--no-mlflow", "--telemetry-dir",
+                                  tdir, "--profile-dir", pdir]))
+            peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            raise AssertionError(f"telemetry CLI run: exit {rc}\n"
+                                 f"{buf.getvalue()}")
+        with open(os.path.join(tdir, "telemetry.json")) as f:
+            snap = _json.load(f)
+        dev_peak = snap["devices"].get(str(dev.index or 0), {}).get(
+            "peak_bytes_in_use")
+        if dev_peak != peak:
+            raise AssertionError(f"telemetry.json device peak {dev_peak} != "
+                                 f"max_memory_allocated {peak}")
+        with open(os.path.join(tdir, "metrics.prom")) as f:
+            bad = lint_prometheus(f.read())
+        if bad:
+            raise AssertionError(f"metrics.prom: {bad}")
+        with open(os.path.join(tdir, "trace.json")) as f:
+            spans = {e["name"] for e in _json.load(f)["traceEvents"]
+                     if e["ph"] == "X"}
+        if not {"load_dataset", "experiment"} <= spans:
+            raise AssertionError(f"trace.json spans {spans}")
+        kern = _trace_kernels(os.path.join(pdir, TRACE_FILE))
+        found = {k: sum(e["dur"] for e in kern if re.search(p, e["name"]))
+                 for k, p in _KERNEL_NAMES.items()}
+        if not all(found.values()):
+            names = sorted({e["name"][:90] for e in kern
+                            if "kernel" in e["name"]})[:20]
+            raise AssertionError(f"profiler trace: kernels {found}; names "
+                                 f"{names}")
+        ours = sum(e["dur"] for e in kern if any(
+            re.search(p, e["name"]) for p in _KERNEL_NAMES.values()))
+        entries = snap["costs"]
+        name = f"engine/run_seeds/coda/{H}x{N}x{C}/s1x{iters}"
+        if list(entries) != [name]:
+            raise AssertionError(f"telemetry.json cost entries {entries}")
+        shares = {}
+        for name, e in entries.items():
+            rate = e["bytes_accessed"] / (ours * 1e-6)
+            shares[name] = rate / peaks[0]
+            if rate >= peaks[0] or e.get("source") != "analytic" or \
+                    e.get("peak_source") != "table":
+                raise AssertionError(f"cost entry {name}: {rate / 1e12:.3f} "
+                                     f"TB/s over the kernels' measured "
+                                     f"{ours / 1e3:.3f} ms, {e}")
+        out["telemetry"].update(
+            peak_bytes=peak, kernel_ms={k: v / 1e3 for k, v in found.items()},
+            share=shares)
+        log(f"telemetry CLI run ({H}, {N}, {C}), 1 seed x {iters}: "
+            f"telemetry.json device peak {dev_peak} == max_memory_allocated; "
+            f"metrics.prom lints clean; trace.json spans load_dataset, "
+            f"experiment; the profiler trace names kernels 1-3, device ms "
+            f"{ {k: round(v / 1e3, 3) for k, v in found.items()} }; cost "
+            f"entries' bytes over those kernels' time, share of "
+            f"{peaks[0] / 1e12:.2f} TB/s: "
+            f"{ {k: round(v, 4) for k, v in shares.items()} }")
+
+        # telemetry on and off, the same entry (run_seeds_compiled, 1 seed
+        # x 20 rounds, precomputed fp32), in turns: plain; under the CLI's
+        # span and cost harvest; then once under the profiler as well
+        hp = CODAHyperparams(eig_chunk=1024)
+        tele = Telemetry()
+        ms: dict = {"off": [], "on": [], "on+profile": []}
+        for mode in ("off", "on", "off", "on", "on+profile"):
+            timings: list = []
+            prof = (profiler_trace(os.path.join(tmp, "p2"), dev)
+                    if mode == "on+profile" else contextlib.nullcontext())
+            span = (tele.span("experiment", lane="host:main", annotate=True)
+                    if mode != "off" else contextlib.nullcontext())
+            with prof, span:
+                _counted(f"telemetry {mode}", _crowd_wants({}, 1, iters, 1),
+                         total, lambda: run_seeds_compiled(
+                             factory_of(hp), task.preds, task.labels,
+                             iters=iters, seeds=1, device=dev,
+                             timings=timings,
+                             cost_label=None if mode == "off" else "coda"))
+            ms[mode].append(timings[0]["rounds_ms"] / iters)
+        out["telemetry"]["ms"] = ms
+        log(f"ms_per_round (off, on in turns; then on with the profiler): "
+            f"off={[round(x, 3) for x in ms['off']]} "
+            f"on={[round(x, 3) for x in ms['on']]} "
+            f"on+profile={round(ms['on+profile'][0], 3)}")
+
+        # 6. the suite with --telemetry-dir on a subset
+        tasks, methods, seeds, rounds = SUITE_TELEMETRY
+        sdir, db = os.path.join(tmp, "suite_tel"), os.path.join(tmp, "s.db")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = _counted(
+                "suite telemetry",
+                lambda k: k["eig_score"] > 0 and k["row_gather"] > 0, total,
+                lambda: cli.main([
+                    "suite", "--pred-dir", os.path.join(HERE, "data"),
+                    "--tasks", tasks, "--methods", methods, "--seeds",
+                    str(seeds), "--iters", str(rounds), "--db", db,
+                    "--telemetry-dir", sdir]))
+        if rc != 0:
+            raise AssertionError(f"suite telemetry: exit {rc}\n"
+                                 f"{buf.getvalue()}")
+        with open(os.path.join(sdir, "trace.json")) as f:
+            tr = _json.load(f)["traceEvents"]
+        lanes = {e["args"]["name"] for e in tr if e["name"] == "thread_name"}
+        n_spans = sum(1 for e in tr if e["ph"] == "X")
+        store = TrackingStore(db)
+        flushed = store.find_run("suite", "suite-telemetry")
+        store.close()
+        if lanes != {"device:0"} or n_spans != 4 or flushed is None:
+            raise AssertionError(f"suite telemetry: lanes {lanes}, "
+                                 f"{n_spans} spans, flushed {flushed}")
+        log(f"suite --telemetry-dir ({tasks} x {methods} x {seeds} seeds x "
+            f"{rounds} rounds): {n_spans} dispatch spans on device:0, the "
+            f"scalars flushed to the store as suite-telemetry")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"crowd and telemetry phase: {out['wall_s']:.1f} s")
+    return out
+
+
 
 def main() -> int:
     try:
@@ -2717,6 +3245,8 @@ def main() -> int:
         phase_batchq_surrogate(dev, task, launches)
         phase = "replay, checkpoint and suite"
         phase_replay_checkpoint_suite(dev, task, launches)
+        phase = "crowd and telemetry"
+        phase_crowd_telemetry(dev, task, launches, smi, peaks)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)

@@ -38,6 +38,20 @@ reference's ``record.json`` + ``rounds.npz``) that ``python -m
 coda_tpu_torch.cli replay <dir>`` re-executes and the reference's
 ``replay`` reads too.
 
+``--oracle-noise SPEC`` labels with a noisy crowd (``crowd/``): each
+answer is a vote of ``votes`` annotators from a seeded pool, aggregated by
+a Dawid-Skene reliability posterior and applied through the weighted
+update; ``--oracle-annotators`` and ``--oracle-reliability`` override the
+spec, a clean spec runs the plain engine, and ``--checkpoint-dir`` is
+refused with it, as in the reference. ``--telemetry-dir D`` writes
+``trace.json`` (the ``load_dataset`` and ``experiment`` spans),
+``telemetry.json`` (kernel builds and launches, the device memory
+watermarks, the analytic cost book) and ``metrics.prom`` there;
+``--profile-dir`` captures a ``torch.profiler`` trace (CPU and CUDA
+activity) of the experiment; ``--no-cost-capture`` turns the cost book
+off; ``--debug-viz`` logs each seed's regret curve and final P(best) as
+PNG artifacts of the tracking store (it needs matplotlib).
+
 Every seed's ``regret`` and ``cumulative regret`` series go to the
 tracking store (``--tracking-db``, default ``coda.sqlite``, the
 reference's MLflow-schema sqlite; ``--no-mlflow`` turns it off): a parent
@@ -67,6 +81,7 @@ divergence (``engine/replay.py``; exit 0 on PARITY, 2 on DIVERGED);
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -227,6 +242,34 @@ def parse_args(argv=None):
                         "newest (seeds run one after another)")
     p.add_argument("--checkpoint-every", type=int, default=25,
                    help="rounds between checkpoints (--checkpoint-dir)")
+    # the crowd oracle (the reference's flags)
+    p.add_argument("--oracle-noise", default=None, metavar="SPEC",
+                   help="label with a noisy crowd instead of the clean "
+                        "oracle: 'clean' or comma-separated k=v, e.g. "
+                        "annotators=8,votes=3,acc=0.55:0.95,abstain=0.1,"
+                        "adversarial=1,trust=32,reliability=learned,seed=0 "
+                        "(votes aggregate through a Dawid-Skene "
+                        "reliability posterior; answers apply through the "
+                        "weighted update)")
+    p.add_argument("--oracle-annotators", type=int, default=None,
+                   help="override the spec's annotator pool size")
+    p.add_argument("--oracle-reliability", default=None,
+                   choices=["learned", "majority"],
+                   help="override the spec's vote aggregation")
+    # telemetry (the reference's flags)
+    p.add_argument("--telemetry-dir", default=None,
+                   help="write trace.json (host spans), telemetry.json "
+                        "(kernel builds and launches, device memory, the "
+                        "analytic cost book) and metrics.prom there")
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace (CPU and CUDA "
+                        "activity) of the experiment into this directory")
+    p.add_argument("--no-cost-capture", action="store_true",
+                   help="do not harvest the analytic kernel costs")
+    p.add_argument("--debug-viz", action="store_true",
+                   help="log a regret curve and the final P(best) of each "
+                        "seed as PNG artifacts of the tracking store "
+                        "(needs matplotlib)")
     return p.parse_args(argv)
 
 
@@ -318,11 +361,66 @@ def build_selector_factory(args, task_name: str):
     raise SystemExit(f"{method} is not a supported method.")
 
 
-def _log_to_store(args, dataset, regrets, cums, stoch) -> None:
+def crowd_config(args):
+    """The run's ``CrowdConfig`` from ``--oracle-noise`` and its overrides
+    (the reference's dispatch), or None without the flag. An override that
+    leaves no honest annotator is refused."""
+    if args.oracle_noise is None:
+        return None
+    from coda_tpu_torch.crowd import parse_oracle_spec
+
+    cfg = parse_oracle_spec(args.oracle_noise)
+    if args.oracle_annotators:
+        cfg = cfg._replace(annotators=int(args.oracle_annotators))
+    if args.oracle_reliability:
+        cfg = cfg._replace(reliability=args.oracle_reliability)
+    if cfg.adversarial >= cfg.annotators:
+        raise SystemExit(
+            "--oracle-annotators override leaves no honest annotator "
+            f"(adversarial={cfg.adversarial} of {cfg.annotators})")
+    return cfg
+
+
+def _log_debug_viz(run, factory, dataset, result, seed: int, dev) -> None:
+    """The seed's regret curve and, for a method with a posterior, its
+    final P(best), as PNG artifacts of ``run``. The posterior is recovered
+    after the run by applying the recorded labels to a fresh selector
+    through ``update`` (the reference's ``_log_debug_viz``)."""
+    import torch
+
+    from coda_tpu_torch import random as trandom
+    from coda_tpu_torch.utils.viz import plot_bar, plot_series
+
+    regret = result.regret[seed].cpu().numpy()
+    cum = result.cumulative_regret[seed].cpu().numpy()
+    run.log_figure("regret_curve", plot_series(
+        [regret, cum], title=f"seed {seed}", ylabel="regret",
+        labels=["regret", "cumulative"]))
+    selector = factory(dataset.preds.to(dev, torch.float32))
+    get_pbest = selector.extras.get("get_pbest")
+    if get_pbest is None:
+        return
+    state = selector.init(trandom.PRNGKey(seed))
+    prob = torch.zeros((), device=dev)
+    for idx, tc in zip(result.chosen_idx[seed].reshape(-1).tolist(),
+                       result.true_class[seed].reshape(-1).tolist()):
+        state = selector.update(state, torch.tensor(idx, device=dev),
+                                torch.tensor(tc, device=dev), prob)
+    pbest = get_pbest(state).cpu().numpy()
+    n = result.chosen_idx[seed].numel()
+    run.log_figure("pbest", plot_bar(
+        pbest, title=f"P(best) after {n} labels (seed {seed})",
+        highlight=int(pbest.argmax()), xlabel="model", ylabel="P(best)"))
+
+
+def _log_to_store(args, dataset, result, regrets, cums, stoch, factory,
+                  dev, telemetry=None) -> None:
     """The reference's tracking layout: parent run ``<experiment>-
     <method>`` with the run's flags as params, a child run a seed with
-    the ``regret`` and ``cumulative regret`` series from step 1; a seed
-    whose run finished is skipped unless ``--force-rerun``."""
+    the ``regret`` and ``cumulative regret`` series from step 1 (and,
+    under ``--debug-viz``, its figures); a seed whose run finished is
+    skipped unless ``--force-rerun``. Telemetry's scalars go to a run
+    ``<experiment>-<method>-telemetry``."""
     from coda_tpu_torch.tracking import TrackingStore
 
     store = TrackingStore(args.tracking_db)
@@ -341,13 +439,20 @@ def _log_to_store(args, dataset, regrets, cums, stoch) -> None:
                 r.log_metric_series("regret", regrets[s], start_step=1)
                 r.log_metric_series("cumulative regret", cums[s],
                                     start_step=1)
+                if args.debug_viz:
+                    _log_debug_viz(r, factory, dataset, result, s, dev)
         if not stoch.any():
             print("Method is not stochastic for this task.")
+    if telemetry is not None:
+        telemetry.flush_to_store(store, experiment=experiment,
+                                 run_name=f"{run_name}-telemetry",
+                                 params={"method": args.method})
     store.close()
     print(f"Logged to {args.tracking_db}")
 
 
-def _write_record(args, dataset, result, aux, n_parallel: int, dev) -> None:
+def _write_record(args, dataset, result, aux, n_parallel: int, dev,
+                  crowd=None, registry=None) -> None:
     from coda_tpu_torch.telemetry.recorder import (
         RunRecord,
         environment_fingerprint,
@@ -363,8 +468,9 @@ def _write_record(args, dataset, result, aux, n_parallel: int, dev) -> None:
         run={"task": dataset.name, "synthetic": args.synthetic,
              "data_dir": args.data_dir, "method": args.method,
              "loss": args.loss, "iters": args.iters, "seeds": args.seeds,
-             "acq_batch": args.acq_batch})
-    record.save(args.record_dir)
+             "acq_batch": args.acq_batch},
+        crowd=crowd)
+    record.save(args.record_dir, registry=registry)
     print(f"decision record written to {args.record_dir} (replay: python "
           f"-m coda_tpu_torch.cli replay {args.record_dir})")
 
@@ -400,6 +506,47 @@ def _run_resumable(args, factory, dataset, loss_fn, dev):
     return ExperimentResult(*(torch.stack(f) for f in zip(*per_seed)))
 
 
+def run_all_seeds(args, factory, dataset, loss_fn, dev):
+    """``(ExperimentResult, RunTraceAux | None, CrowdAux | None)``: the
+    flight recorder's sidecar under ``--record-dir``, the crowd's
+    provenance under a noisy ``--oracle-noise`` (a clean spec runs the
+    engine's paths below, as the reference's dispatch does)."""
+    from coda_tpu_torch.engine import run_seeds_compiled
+
+    q = args.acq_batch
+    trace_k = args.record_topk if args.record_dir else 0
+    cfg = crowd_config(args)
+    if cfg is not None and not cfg.clean:
+        if args.checkpoint_dir:
+            raise SystemExit(
+                "--oracle-noise does not compose with --checkpoint-dir: "
+                "the chunked resumable runner drives the perfect-oracle "
+                "step; drop one flag")
+        from coda_tpu_torch.crowd import (
+            run_seeds_crowd,
+            run_seeds_crowd_recorded,
+        )
+
+        common = dict(iters=args.iters, seeds=args.seeds, loss_fn=loss_fn,
+                      acq_batch=q, device=dev, cost_label=args.method)
+        if trace_k:
+            return run_seeds_crowd_recorded(
+                factory, dataset.preds, dataset.labels, cfg,
+                trace_k=trace_k, **common)
+        result, crowd = run_seeds_crowd(factory, dataset.preds,
+                                        dataset.labels, cfg, **common)
+        return result, None, crowd
+    if args.checkpoint_dir:
+        return _run_resumable(args, factory, dataset, loss_fn, dev), \
+            None, None
+    out = run_seeds_compiled(factory, dataset.preds, dataset.labels,
+                             iters=args.iters, seeds=args.seeds,
+                             loss_fn=loss_fn, device=dev, trace_k=trace_k,
+                             acq_batch=q, cost_label=args.method)
+    result, aux = out if trace_k else (out, None)
+    return result, aux, None
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "replay":
@@ -413,14 +560,36 @@ def main(argv=None):
     args = parse_args(argv)
     import torch
 
-    from coda_tpu_torch.engine import run_seeds_compiled
     from coda_tpu_torch.losses import LOSS_FNS
     from coda_tpu_torch.oracle import true_losses
+    from coda_tpu_torch.telemetry import costs
     from coda_tpu_torch.utils.platform import device_name, resolve_device
+    from coda_tpu_torch.utils.profiling import trace as profiler_trace
 
     dev = resolve_device(args.device)
+    if args.no_cost_capture:
+        costs.set_enabled(False)
+    if args.debug_viz:
+        # before the run: a missing matplotlib fails here, not after it
+        from coda_tpu_torch.utils.viz import _pyplot
+
+        _pyplot()
+    crowd_config(args)    # the spec's errors before any work
+    # telemetry before any kernel build, so the build hook sees them all
+    telemetry = None
+    if args.telemetry_dir:
+        from coda_tpu_torch.telemetry import Telemetry
+
+        telemetry = Telemetry(out_dir=args.telemetry_dir)
+
+    def tele_span(name, **attrs):
+        return (telemetry.span(name, lane="host:main", annotate=True,
+                               **attrs)
+                if telemetry is not None else contextlib.nullcontext())
+
     print("device:", device_name(dev))
-    dataset = load_dataset(args)
+    with tele_span("load_dataset"):
+        dataset = load_dataset(args)
     H, N, C = dataset.shape
     print(f"Loaded preds of shape ({H}, {N}, {C})")
     if dataset.labels is None:
@@ -439,21 +608,21 @@ def main(argv=None):
 
         print(f"EIG tier: {resolve_eig_mode(hyperparams(args), H, N, C)} "
               f"(n_parallel={n_parallel})")
-    trace_k = args.record_topk if args.record_dir else 0
     t0 = time.perf_counter()
-    if args.checkpoint_dir:
-        result, aux = _run_resumable(args, factory, dataset, loss_fn,
-                                     dev), None
-    else:
-        out = run_seeds_compiled(factory, dataset.preds, dataset.labels,
-                                 iters=args.iters, seeds=args.seeds,
-                                 loss_fn=loss_fn, device=dev,
-                                 trace_k=trace_k, acq_batch=q)
-        result, aux = out if trace_k else (out, None)
-    regrets = result.regret.cpu().numpy()            # (seeds, iters)
+    with profiler_trace(args.profile_dir, dev):
+        with tele_span("experiment", method=args.method, iters=args.iters,
+                       seeds=args.seeds):
+            result, aux, crowd = run_all_seeds(args, factory, dataset,
+                                               loss_fn, dev)
+            regrets = result.regret.cpu().numpy()    # (seeds, iters)
     wall = time.perf_counter() - t0
+    if args.profile_dir:
+        print(f"Profiler trace written to {args.profile_dir}")
+    if telemetry is not None:
+        telemetry.sample_devices([dev])
     if aux is not None:
-        _write_record(args, dataset, result, aux, n_parallel, dev)
+        _write_record(args, dataset, result, aux, n_parallel, dev, crowd,
+                      telemetry.registry if telemetry is not None else None)
     cums = result.cumulative_regret.cpu().numpy()
     stoch = result.stochastic.cpu().numpy()
     steps = args.iters * args.seeds
@@ -469,7 +638,15 @@ def main(argv=None):
         print(f"seed {s}: regret@{args.iters}={regrets[s, -1]:.4f} "
               f"cumulative={cums[s, -1]:.4f} stochastic={bool(stoch[s])}")
     if not args.no_mlflow:
-        _log_to_store(args, dataset, regrets, cums, stoch)
+        _log_to_store(args, dataset, result, regrets, cums, stoch, factory,
+                      dev, telemetry)
+    if telemetry is not None:
+        paths = telemetry.write(extra={
+            "run": {"task": dataset.name, "method": args.method,
+                    "iters": args.iters, "seeds": args.seeds,
+                    "wall_s": round(wall, 4)}})
+        print(f"Telemetry written to {args.telemetry_dir} "
+              f"({', '.join(sorted(paths))})")
     return 0
 
 

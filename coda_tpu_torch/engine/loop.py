@@ -455,12 +455,25 @@ def _as_tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.require(x, requirements="W"))
 
 
+def _engine_cost_name(preds, seeds: int, iters: int, factory, label,
+                      recorded: bool, acq_batch: int) -> str:
+    """The cost book's name of an engine entry (the reference's):
+    ``engine/run_seeds/<method>/<H>x<N>x<C>/s<seeds>x<iters>[/q<q>][/rec]``."""
+    if label is None:
+        label = getattr(factory, "__name__", None) or "anon"
+    shape = "x".join(str(int(s)) for s in preds.shape)
+    return (f"engine/run_seeds/{label}/{shape}/s{seeds}x{iters}"
+            + (f"/q{acq_batch}" if acq_batch > 1 else "")
+            + ("/rec" if recorded else ""))
+
+
 def run_seeds_compiled(selector_factory: Callable[[torch.Tensor], Selector],
                        preds, labels, iters: int = 100, seeds: int = 5,
                        loss_fn: Callable = accuracy_loss,
                        device: DeviceLike = None,
                        timings: Optional[list] = None,
-                       trace_k: int = 0, acq_batch: int = 1
+                       trace_k: int = 0, acq_batch: int = 1,
+                       cost_label: Optional[str] = None
                        ) -> ExperimentResult:
     """All seeds of one method: the CLI's entry point.
 
@@ -472,7 +485,9 @@ def run_seeds_compiled(selector_factory: Callable[[torch.Tensor], Selector],
     ``(seeds,)`` axis (and its :class:`RunTraceAux` with ``trace_k > 0``).
     ``timings``: one entry per seed when seeds run one after another, one
     for the whole batch otherwise. ``acq_batch``: labels a round (``iters``
-    counts rounds).
+    counts rounds). ``cost_label`` (the CLI's method name): harvest the
+    run's analytic kernel cost into the cost book
+    (``telemetry/costs.aot_call``; host counters only).
     """
     dev = resolve_device(device)
     preds = _as_tensor(preds).to(dev, torch.float32)
@@ -481,18 +496,25 @@ def run_seeds_compiled(selector_factory: Callable[[torch.Tensor], Selector],
     fn = make_batched_experiment_fn(selector_factory, iters, loss_fn,
                                     timings=timings, trace_k=trace_k,
                                     acq_batch=acq_batch)
-    return fn(preds, labels, keys)
+    if cost_label is None:
+        return fn(preds, labels, keys)
+    from coda_tpu_torch.telemetry.costs import aot_call
+
+    return aot_call(fn, (preds, labels, keys), _engine_cost_name(
+        preds, seeds, iters, selector_factory, cost_label, bool(trace_k),
+        acq_batch), site="engine")
 
 
 def run_seeds_recorded(selector_factory: Callable[[torch.Tensor], Selector],
                        preds, labels, iters: int = 100, seeds: int = 5,
                        loss_fn: Callable = accuracy_loss, trace_k: int = 8,
                        device: DeviceLike = None,
-                       timings: Optional[list] = None, acq_batch: int = 1):
+                       timings: Optional[list] = None, acq_batch: int = 1,
+                       cost_label: Optional[str] = None):
     """:func:`run_seeds_compiled` with the flight recorder on: returns
     ``(ExperimentResult, RunTraceAux)``, both with a leading seed axis,
     the decisions those of the unrecorded run."""
     return run_seeds_compiled(selector_factory, preds, labels, iters=iters,
                               seeds=seeds, loss_fn=loss_fn, device=device,
                               timings=timings, trace_k=max(1, int(trace_k)),
-                              acq_batch=acq_batch)
+                              acq_batch=acq_batch, cost_label=cost_label)

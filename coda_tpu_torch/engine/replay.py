@@ -21,9 +21,9 @@ compare by the reference's label-aligned regret envelope
 records a near tie of a round's first pick reads as ``score-delta`` (the
 later picks follow it); :func:`first_pick_flip` tells it apart.
 
-It gives the reference's ``ReplayReport.to_dict()`` on every pair. Records
-of different oracles raise ``NotImplementedError`` naming the crowd slice
-(6).
+Records of different oracles (``--oracle-noise``) compare by the same
+envelope (``oracle-noise-envelope``). It gives the reference's
+``ReplayReport.to_dict()`` on every pair.
 
 The re-execution half (:func:`replay_record`, :func:`verify_replay`,
 :func:`replay_main`) runs a record's program again: the same recording
@@ -42,7 +42,9 @@ contract, 2.34e-4::
         [--set K=V] [--allow-digest-mismatch] [--out REPORT.json]
 
 It exits 0 on PARITY and 2 on DIVERGED. A record of a noisy crowd oracle
-raises ``NotImplementedError`` naming slice 6; a ``mesh`` knob raises
+re-executes the crowd program (``crowd/loop.py``) from its knobs
+(``oracle_noise``, ``oracle_annotators``, ``oracle_reliability``); the
+reference's replay runs the clean engine there. A ``mesh`` knob raises
 naming the N-axis parallel part of slice 5.
 """
 
@@ -364,6 +366,20 @@ def compare_records_scorer(a: RunRecord, b: RunRecord) -> ReplayReport:
     return report
 
 
+def compare_records_oracle(a: RunRecord, b: RunRecord) -> ReplayReport:
+    """Records of different ``--oracle-noise`` specs (a noisy crowd labels
+    with corrupted answers, so per-round parity is not the contract): the
+    envelope, triage class ``oracle-noise-envelope``."""
+    report = _compare_records_envelope(
+        a, b, classification="oracle-noise-envelope",
+        meta_key="oracle_envelope",
+        label_a=f"oracle={_oracle_knob(a)}",
+        label_b=f"oracle={_oracle_knob(b)}")
+    report.meta["oracle_envelope"].update(
+        {"oracle_a": _oracle_knob(a), "oracle_b": _oracle_knob(b)})
+    return report
+
+
 def compare_records_prior(a: RunRecord, b: RunRecord) -> ReplayReport:
     """Records of different ``--surrogate-prior`` modes or pool digests (a
     seeded run skips warmup rounds already paid): the envelope, triage
@@ -424,19 +440,14 @@ def compare_records(a: RunRecord, b: RunRecord,
     called full parity). Records of different ``acq_batch`` widths,
     ``eig_scorer`` rungs or surrogate priors take the label-aligned
     regret envelope (:func:`compare_records_batchq`,
-    :func:`compare_records_scorer`, :func:`compare_records_prior`), as the
-    reference's do. Records of different oracles raise
-    ``NotImplementedError``: the crowd oracle is slice 6 of the port."""
+    :func:`compare_records_scorer`, :func:`compare_records_oracle`,
+    :func:`compare_records_prior`), as the reference's do."""
     if a.acq_batch != b.acq_batch:
         return compare_records_batchq(a, b)
     if _scorer_knob(a) != _scorer_knob(b):
         return compare_records_scorer(a, b)
     if _oracle_knob(a) != _oracle_knob(b):
-        raise NotImplementedError(
-            f"records differ in oracle_noise ({_oracle_knob(a)!r} vs "
-            f"{_oracle_knob(b)!r}): the reference compares them by the "
-            "label-aligned regret envelope, which comes with the crowd "
-            "oracle (slice 6 of the port)")
+        return compare_records_oracle(a, b)
     if _prior_knob(a) != _prior_knob(b):
         return compare_records_prior(a, b)
     if a.rounds != b.rounds:
@@ -597,7 +608,10 @@ def replay_record(record: RunRecord, selector_factory, preds, labels,
     Runs the recording program — ``make_batched_experiment_fn`` with the
     record's ``trace_k`` and ``acq_batch``, seeds as one batch where the
     selector batches them — seeded with the record's root keys, on
-    ``device`` (default: the card). ``selector_factory`` carries the
+    ``device`` (default: the card); a noisy crowd record runs the crowd's
+    (``crowd.loop.make_batched_crowd_experiment_fn``, its config from the
+    record's knobs, :func:`record_crowd_config`) and returns its
+    ``oracle_label``/``label_weight`` too. ``selector_factory`` carries the
     recorded replica width (:func:`load_record_environment`). Same backend
     and knobs: bitwise the recorded arrays. ``timings``: the experiment
     functions' ``{"init_ms", "rounds_ms"}`` entries (one for a seed batch,
@@ -614,20 +628,49 @@ def replay_record(record: RunRecord, selector_factory, preds, labels,
     dev = resolve_device(device)
     run = record.meta.get("run", {})
     iters = int(run.get("iters", record.rounds))
-    fn = make_batched_experiment_fn(
-        selector_factory, iters, LOSS_FNS[loss],
-        trace_k=int(record.meta.get("trace_k", 8)),
-        acq_batch=record.acq_batch, timings=timings)
+    trace_k = int(record.meta.get("trace_k", 8))
     keys = torch.from_numpy(
         np.asarray(record.arrays["root_key"]).astype(np.int64))
-    result, aux = fn(_as_tensor(preds).to(dev, torch.float32),
-                     _as_tensor(labels).to(dev), keys)
-    arrays = RunRecord.from_result(result, aux, {}, {}).arrays
+    args = (_as_tensor(preds).to(dev, torch.float32),
+            _as_tensor(labels).to(dev), keys)
+    cfg = record_crowd_config(record)
+    if cfg is None:
+        result, aux = make_batched_experiment_fn(
+            selector_factory, iters, LOSS_FNS[loss], trace_k=trace_k,
+            acq_batch=record.acq_batch, timings=timings)(*args)
+        crowd = None
+    else:
+        from coda_tpu_torch.crowd.loop import (
+            make_batched_crowd_experiment_fn,
+        )
+
+        result, aux, crowd = make_batched_crowd_experiment_fn(
+            selector_factory, cfg, iters, LOSS_FNS[loss], trace_k=trace_k,
+            acq_batch=record.acq_batch, timings=timings)(*args)
+    arrays = RunRecord.from_result(result, aux, {}, {}, crowd=crowd).arrays
     return {k: arrays[k] for k in (
         "chosen_idx", "true_class", "best_model", "regret",
         "cumulative_regret", "select_prob", "round_key", "topk_idx",
         "topk_score", "chosen_score", "runner_up_gap", "pbest_max",
-        "pbest_entropy", "surrogate_fallback")}
+        "pbest_entropy", "surrogate_fallback", "oracle_label",
+        "label_weight") if k in arrays}
+
+
+def record_crowd_config(record: RunRecord):
+    """The ``CrowdConfig`` of a record that ran a noisy crowd oracle (its
+    ``oracle_noise``, ``oracle_annotators`` and ``oracle_reliability``
+    knobs, as the CLI resolves them), else None."""
+    if _oracle_knob(record) == "clean":
+        return None
+    from argparse import Namespace
+
+    from coda_tpu_torch.cli import crowd_config
+
+    knobs = record.meta.get("fingerprint", {}).get("knobs", {})
+    return crowd_config(Namespace(
+        oracle_noise=knobs["oracle_noise"],
+        oracle_annotators=knobs.get("oracle_annotators"),
+        oracle_reliability=knobs.get("oracle_reliability")))
 
 
 def verify_replay(record: RunRecord, selector_factory, preds, labels,
@@ -695,10 +738,6 @@ def load_record_environment(record: RunRecord,
     ``check_digest`` is False."""
     from coda_tpu_torch.cli import build_selector_factory, load_dataset
 
-    if _oracle_knob(record) != "clean":
-        raise NotImplementedError(
-            f"the record ran a noisy crowd oracle ({_oracle_knob(record)!r})"
-            ", which comes with the crowd oracle (slice 6 of the port)")
     args = _args_from_record(record, data_dir, overrides)
     args.device = "cuda" if device is None else str(device)
     dataset = load_dataset(args)

@@ -35,8 +35,10 @@ argument of the callable, not part of its key: same-shape tasks with
 different tuned values share one callable. With a ``record_dir`` every
 pair's seed-0 probe is written as a flight-recorder record under
 ``<record_dir>/<family>__<method>/<task>/``, replayable with ``python -m
-coda_tpu_torch.cli replay``. Telemetry spans and cost capture come with
-slice 7 of the port.
+coda_tpu_torch.cli replay``. With a ``telemetry`` every dispatch is a
+span on its device's lane (``device:<index>``) and each experiment
+callable's first call per signature lands in the cost book
+(``cost_capture``).
 """
 
 from __future__ import annotations
@@ -56,9 +58,6 @@ from coda_tpu_torch.engine.loop import (
 )
 from coda_tpu_torch.losses import LOSS_FNS
 from coda_tpu_torch.utils.platform import resolve_device
-
-_SLICE_7 = "the telemetry core (slice 7 of the port)"
-
 
 @dataclass
 class PendingBatch:
@@ -146,13 +145,7 @@ class SuiteRunner:
     def __init__(self, iters: int = 100, seeds: int = 5, loss: str = "acc",
                  dedup_seeds: bool = True, telemetry=None,
                  record_dir: Optional[str] = None, record_topk: int = 8,
-                 cost_capture: bool = False, device=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                f"suite telemetry comes with {_SLICE_7}")
-        if cost_capture:
-            raise NotImplementedError(
-                f"per-program cost capture comes with {_SLICE_7}")
+                 cost_capture: bool = True, device=None):
         self.iters = iters
         self.seeds = seeds
         self.loss_fn = LOSS_FNS[loss]
@@ -161,12 +154,41 @@ class SuiteRunner:
         self.record_dir = record_dir
         self.record_topk = int(record_topk)
         self.dedup_seeds = dedup_seeds
+        # an optional telemetry.Telemetry: every dispatch becomes a span on
+        # its device lane, first dispatches feed the cold counter, and the
+        # device memory is sampled after each harvest
+        self.telemetry = telemetry
+        # each experiment callable is a CostTracked (telemetry/costs.py):
+        # its first call per argument signature lands in the cost book;
+        # harvesting happens when this and the process switch are both on
+        self.cost_capture = bool(cost_capture)
         self._digests: dict = {}   # task name -> dataset digest (hash once)
         self._jitted: dict = {}    # _fn_for key -> experiment callable
         # first dispatches seen, across run()/run_batched() calls, so a
         # warm rerun on one runner marks no pair cold
         self._seen_shapes: set = set()
         self._keys = torch.stack([trandom.PRNGKey(s) for s in range(seeds)])
+
+    def _tele_cold(self, cold: bool) -> None:
+        """Count a callable's first dispatch (the cold attribution)."""
+        if cold and self.telemetry is not None:
+            self.telemetry.counter(
+                "suite_cold_dispatches_total",
+                "Suite dispatches that were a callable's first (the "
+                "kernels' first load)").inc()
+
+    def _tele_span(self, name: str, device, t_start: float, t_end: float,
+                   attrs: Optional[dict] = None) -> None:
+        """One finished dispatch as a span on its device's lane
+        (``device:<index>``), then that device's memory sampled (no-op
+        without telemetry)."""
+        tele = self.telemetry
+        if tele is None:
+            return
+        dev = torch.device(self.device if device is None else device)
+        tele.spans.record(name, lane=f"device:{dev.index or 0}",
+                          t_start=t_start, t_end=t_end, attrs=attrs)
+        tele.sample_devices([dev])
 
     def _dataset_digest(self, name: str, preds=None, labels=None):
         if name not in self._digests and preds is not None:
@@ -203,7 +225,8 @@ class SuiteRunner:
                  "stream": "suite"})
         out = stream_dir(self.record_dir, f"{family_of(task)}__{method}",
                          task)
-        rec.save(out)
+        rec.save(out, registry=(self.telemetry.registry
+                                if self.telemetry is not None else None))
         return out
 
     def _resolved_args(self, method: str, method_args: Optional[dict],
@@ -267,6 +290,23 @@ class SuiteRunner:
                 fn = make_batched_experiment_fn(
                     build_selector_factory(args, task_name), self.iters,
                     self.loss_fn, trace_k=trace_k)
+            if self.cost_capture:
+                import hashlib
+
+                from coda_tpu_torch.telemetry.costs import CostTracked
+
+                label = f"suite/{method}/w{width}" + ("/rec" if trace_k
+                                                      else "")
+                if static:
+                    # two configurations of a method keep their own entries
+                    label += "/h" + hashlib.sha256(
+                        repr(sorted(static.items())).encode()
+                    ).hexdigest()[:6]
+                fn = CostTracked(
+                    fn, name=label, site="suite",
+                    registry=(self.telemetry.registry
+                              if self.telemetry is not None else None),
+                    extra={"method": method, "width": width})
             self._jitted[key] = fn
         return self._jitted[key]
 
@@ -361,10 +401,15 @@ class SuiteRunner:
                 cold = self._cold(method, method_args, ds.name,
                                   1 if dedup else self.seeds,
                                   bool(self.record_dir), self.device)
+                self._tele_cold(cold)
                 t0 = time.perf_counter()
                 res = self.run_one(method, ds, method_args)
-                dt = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                dt = t1 - t0
                 t_compute += dt
+                self._tele_span(f"{ds.name}/{method}", None, t0, t1,
+                                {"task": ds.name, "method": method,
+                                 "cold": cold})
                 pairs.append({"task": ds.name, "method": method,
                               "shape": list(ds.shape), "seconds": dt,
                               "cold": cold})
@@ -504,6 +549,7 @@ class SuiteRunner:
         names_m = [names[i] for i in todo]
         record = bool(self.record_dir)
         cold = self._cold(method, method_args, names_m[0], 1, record, dev)
+        self._tele_cold(cold)
         if record:
             # hash each task once while its tensors are at hand
             for i in todo:
@@ -555,6 +601,10 @@ class SuiteRunner:
                 if pend.rest is not None else None)
         pend.t_end = time.perf_counter()
         dt = pend.t_end - pend.t_start
+        self._tele_span(
+            f"{pend.method}[x{len(pend.names)}]", pend.device, pend.t_start,
+            pend.t_end, {"method": pend.method, "tasks": list(pend.names),
+                         "cold": pend.cold, "est_cost": round(pend.cost, 4)})
         T = len(pend.names)
         method = pend.method
         for t, name in enumerate(pend.names):

@@ -36,6 +36,23 @@ NVCC_FLAGS = (
 
 _loaded: dict[tuple, ctypes.CDLL] = {}
 
+# callables ``fn(event, seconds)`` told of every library this process
+# builds (``"build"``, the nvcc wall seconds) and loads (``"load"``: 0 s;
+# ``"load_built"`` when it was built earlier, the persistent cache's hit):
+# the telemetry registry's counterpart of a compile hook
+_listeners: list = []
+
+
+def add_listener(fn) -> None:
+    """Call ``fn(event, seconds)`` on every build and load from now on."""
+    if fn not in _listeners:
+        _listeners.append(fn)
+
+
+def _notify(event: str, seconds: float = 0.0) -> None:
+    for fn in list(_listeners):
+        fn(event, seconds)
+
 
 def nvcc_path() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
@@ -77,7 +94,7 @@ def _start(name: str, defines: tuple[str, ...] = ()):
     return proc, tmp, out
 
 
-def _finish(name: str, job) -> str:
+def _finish(name: str, job, t0: float) -> str:
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
@@ -85,6 +102,7 @@ def _finish(name: str, job) -> str:
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)          # atomic: a reader never sees half a file
     out.with_suffix(".log").write_text(log)
+    _notify("build", time.perf_counter() - t0)
     return log
 
 
@@ -97,7 +115,7 @@ def build_all(names=SOURCES, defines: tuple[str, ...] = ()) -> dict:
     logs = {}
     try:
         for n, job in jobs.items():
-            logs[n] = "" if job is None else _finish(n, job)
+            logs[n] = "" if job is None else _finish(n, job, t0)
     finally:
         for job in jobs.values():
             if job is not None and job[0].poll() is None:
@@ -111,7 +129,9 @@ def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     built on first use."""
     lib = _loaded.get((name, defines))
     if lib is None:
+        built = library_path(name, defines).exists()
         build_all((name,), defines)
         lib = ctypes.CDLL(str(library_path(name, defines)))
         _loaded[(name, defines)] = lib
+        _notify("load_built" if built else "load")
     return lib

@@ -165,7 +165,8 @@ def eig_matmul(a: torch.Tensor, b: torch.Tensor,
         return a @ b
 
 
-def _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision: str = "highest"):
+def _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision: str = "highest",
+                           out=None):
     """The hypothetical-row integral for ONE class row over all items:
     per-item exclusive log-cdf sum, max-shift, weighted integrand,
     normalisation — the body the quadrature and the amortized tables
@@ -174,7 +175,8 @@ def _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision: str = "highest"):
     row-scanned tier and kernel 6's plain version (the kernel computes
     them inside its scoring pass). With leading axes (tables ``(..., H,
     G)``, ``eq_t`` ``(..., N, H)``) the products are batched, one row per
-    leading index."""
+    leading index. ``out``: the tensor the normalised rows are written
+    into (the same division), else a new one."""
     S0_t, dlogcdf_t, F_u_t, dF_t = tables
     eq = eq_t.to(w_trapz.dtype)
     S = S0_t.unsqueeze(-2) + eig_matmul(eq, dlogcdf_t, precision)  # (N, G)
@@ -183,7 +185,8 @@ def _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision: str = "highest"):
     t_base = eig_matmul(wE, F_u_t.transpose(-1, -2), precision)    # (N, H)
     t_diff = eig_matmul(wE, dF_t.transpose(-1, -2), precision)
     unnorm = t_base + eq * t_diff
-    return unnorm / torch.clamp_min(unnorm.sum(-1, keepdim=True), _EPS)
+    return torch.div(unnorm, torch.clamp_min(unnorm.sum(-1, keepdim=True),
+                                             _EPS), out=out)
 
 
 def refresh_tables(a_t: torch.Tensor, b_t: torch.Tensor,
@@ -201,13 +204,14 @@ def refresh_tables(a_t: torch.Tensor, b_t: torch.Tensor,
 
 
 def _pbest_hyp_row(a_t, b_t, eq_t, update_weight: float, num_points: int,
-                   precision: str = "highest"):
+                   precision: str = "highest", out=None):
     """Hypothetical P(best) for one class row: ``a_t``, ``b_t`` (H,) Beta
     parameters, ``eq_t`` (N, H) bool (did model h predict this class at
-    item n) -> (N, H). Seed-batched: ``(S, H)`` parameters and ``(S, N,
-    H)`` masks -> ``(S, N, H)``, each replica its own class row."""
+    item n) -> (N, H), written into ``out`` when given. Seed-batched:
+    ``(S, H)`` parameters and ``(S, N, H)`` masks -> ``(S, N, H)``, each
+    replica its own class row."""
     *tables, w_trapz = refresh_tables(a_t, b_t, update_weight, num_points)
-    return _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision)
+    return _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision, out)
 
 
 def _amortized_bump_tables(a, b, x, update_weight):

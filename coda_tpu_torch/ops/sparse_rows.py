@@ -155,6 +155,12 @@ def _even_share(r: torch.Tensor, n: float) -> torch.Tensor:
     return r / torch.full((), n, dtype=r.dtype, device=r.device)
 
 
+def _per_model(w):
+    """A weight as an operand of ``(..., H)`` row leaves: a 0-d weight as
+    it is, a replica's ``(S,)`` weights as ``(S, 1)``."""
+    return w[..., None] if w is not None and w.dim() else w
+
+
 def _put_row(t: torch.Tensor, c: torch.Tensor, v: torch.Tensor) -> None:
     """Write class row ``c`` of ``t`` IN PLACE (the inverse of
     :func:`_take_row`)."""
@@ -182,14 +188,16 @@ def _scatter_into_row(dcol, rv, ri, r, true_class, pred_classes, lr: float,
     """The per-row scatter on compact row leaves ``(dcol (..., H), rv
     (..., H, K), ri (..., H, K), r (..., H))`` -> the same four, updated
     (the reference's float operations). ``true_class`` is 0-d or ``(S,)``
-    beside ``(S, H)`` leaves. ``w`` (optional tensor) scales the increment
-    to ``lr * w``; ``w = 0`` inserts nothing."""
+    beside ``(S, H)`` leaves. ``w`` (optional tensor; 0-d, or ``(S, 1)``
+    per replica, :func:`_per_model`) scales the increment to ``lr * w``;
+    ``w = 0`` inserts nothing."""
     eff = lr if w is None else lr * w
+    eff_k = eff[..., None] if w is not None and w.dim() else eff
     tc = true_class.reshape(true_class.shape + (1,)).to(pred_classes.dtype)
     is_diag = pred_classes == tc                                # (..., H)
     hit = ri == pred_classes[..., None]                         # (..., H, K)
     tracked = hit & (~is_diag)[..., None]
-    rv1 = rv + eff * tracked.to(rv.dtype)
+    rv1 = rv + eff_k * tracked.to(rv.dtype)
     hit_any = hit.any(-1)
 
     n_untracked = C - 1 - K
@@ -232,11 +240,14 @@ def scatter_row(s: SparseRows, true_class: torch.Tensor,
     C, K = s.n_classes, s.k
     rv = _take_row(s.vals, true_class)                          # (..., H, K)
     dcol = _take_row(s.diag, true_class)                        # (..., H)
+    weight = _per_model(weight)
     eff = lr if weight is None else lr * weight
     if s.full:
         # parity layout: the dense one-hot add at the same positions
         onehot = F.one_hot(pred_classes.to(torch.int64), C).to(rv.dtype)
-        rv1 = rv + eff * onehot
+        eff_k = eff[..., None] if weight is not None and weight.dim() \
+            else eff
+        rv1 = rv + eff_k * onehot
         tc = true_class.to(torch.int64)
         on_diag = onehot.gather(-1, tc.reshape(tc.shape + (1, 1)).expand(
             *onehot.shape[:-1], 1))[..., 0]

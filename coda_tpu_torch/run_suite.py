@@ -12,9 +12,11 @@ Results land in the tracking store (``--db``) in the reference's layout; a
 rerun skips finished pairs unless ``--force-rerun``. ``--task-batch``
 dispatches same-size tasks a (group, method) at a time
 (``SuiteRunner.run_batched``); ``--suite-devices`` (which implies it)
-hands the dispatches to the task-parallel scheduler. ``--mesh`` raises
-``NotImplementedError`` naming the N-axis parallel part of slice 5 of the
-port, ``--telemetry-dir`` naming slice 7. The last line printed is a JSON
+hands the dispatches to the task-parallel scheduler. ``--telemetry-dir``
+writes ``trace.json`` (a span a dispatch on its device's lane),
+``telemetry.json`` and ``metrics.prom`` there and flushes the scalars into
+the store. ``--mesh`` raises ``NotImplementedError`` naming the N-axis
+parallel part of slice 5 of the port. The last line printed is a JSON
 object with the sweep's wall seconds.
 """
 
@@ -66,7 +68,11 @@ def parse_args(argv=None):
                    help="with --suite-devices: JSON with per_family_warm_s"
                         "/per_method_warm_s to seed the LPT costs")
     p.add_argument("--telemetry-dir", default=None,
-                   help="suite telemetry (slice 7 of the port)")
+                   help="write trace.json (a span a dispatch on its "
+                        "device's lane), telemetry.json (kernel builds and "
+                        "launches, device memory, the cost book) and "
+                        "metrics.prom there; the scalars also flush into "
+                        "--db")
     p.add_argument("--record-dir", default=None,
                    help="write each pair's seed-0 probe as a flight-"
                         "recorder record under <dir>/<family>__<method>/"
@@ -83,10 +89,6 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "--mesh comes with the N-axis parallel part of slice 5 of the "
             "port")
-    if args.telemetry_dir:
-        raise NotImplementedError(
-            "--telemetry-dir comes with the telemetry core (slice 7 of the "
-            "port)")
     if args.suite_devices is not None:
         args.task_batch = True   # scheduling runs through run_batched
 
@@ -112,9 +114,14 @@ def main(argv=None) -> int:
         return lambda: Dataset.from_file(fp, name=t, device=dev)
 
     methods = args.methods.split(",")
+    telemetry = None
+    if args.telemetry_dir:
+        from coda_tpu_torch.telemetry import Telemetry
+
+        telemetry = Telemetry(out_dir=args.telemetry_dir)
     store = None if args.no_db else TrackingStore(args.db)
     runner = SuiteRunner(iters=args.iters, seeds=args.seeds, loss=args.loss,
-                         record_dir=args.record_dir,
+                         telemetry=telemetry, record_dir=args.record_dir,
                          record_topk=args.record_topk, device=dev)
     t0 = time.perf_counter()
     if args.task_batch:
@@ -135,8 +142,6 @@ def main(argv=None) -> int:
                              methods, store=store,
                              force_rerun=args.force_rerun)
     wall = time.perf_counter() - t0
-    if store is not None:
-        store.close()
     stats = getattr(runner, "last_stats", {})
     line = {"metric": "suite-wall-clock", "tasks": len(paths),
             "methods": len(methods), "seeds": args.seeds,
@@ -152,6 +157,18 @@ def main(argv=None) -> int:
             stats.get("compute_device_s", 0.0), 2)
     if args.record_dir:
         line["record_dir"] = args.record_dir
+    if telemetry is not None:
+        paths = telemetry.write(extra={"suite": {
+            k: stats.get(k) for k in ("total_s", "compute_s",
+                                      "compute_device_s", "n_devices",
+                                      "schedule", "occupancy")
+            if k in stats}})
+        if store is not None:
+            telemetry.flush_to_store(store, experiment="suite",
+                                     run_name="suite-telemetry")
+        line["telemetry"] = paths.get("telemetry")
+    if store is not None:
+        store.close()
     print(json.dumps(line))
     return 0
 

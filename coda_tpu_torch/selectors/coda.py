@@ -745,7 +745,7 @@ def update_eig_cache_parts(dirichlets: Optional[torch.Tensor],
                            true_class: torch.Tensor, hard_preds: torch.Tensor,
                            update_weight: float = 1.0, num_points: int = 256,
                            precision: str = "highest", beta_t=None,
-                           pbest: str = "quad"):
+                           pbest: str = "quad", out=None):
     """The refreshed values of class row ``true_class`` without writing
     them: ``(row_t (H,), hyp_t (N, H))``. ``dirichlets`` already holds the
     new label; ``true_class`` is a 0-d device tensor. ``beta_t``: the
@@ -754,7 +754,8 @@ def update_eig_cache_parts(dirichlets: Optional[torch.Tensor],
     'amortized'``: the row's hypothetical integral on the logistic-normal
     tables where its ``min(a_t + b_t) >= _AMORTIZED_MIN_CONC``, chosen on
     the device; ``row_t`` is always the quadrature's. Seed-batched:
-    ``(S, ...)`` and ``(S,)`` give ``((S, H), (S, N, H))``."""
+    ``(S, ...)`` and ``(S,)`` give ``((S, H), (S, N, H))``. ``out``: the
+    ``hyp_t`` tensor to write into."""
     a_t, b_t = beta_t if beta_t is not None else row_beta(dirichlets,
                                                           true_class)
     # (N, H) bool, or (S, N, H) with each replica's own class; compared in
@@ -765,9 +766,11 @@ def update_eig_cache_parts(dirichlets: Optional[torch.Tensor],
         hyp_t = _pbest_hyp_row_gated(a_t, b_t, eq_t, update_weight,
                                      num_points, _AMORTIZED_MIN_CONC,
                                      precision)
+        if out is not None:
+            hyp_t = out.copy_(hyp_t)
     else:
         hyp_t = _pbest_hyp_row(a_t, b_t, eq_t, update_weight, num_points,
-                               precision)
+                               precision, out)
     row_t = compute_pbest(a_t, b_t, num_points=num_points)
     return row_t, hyp_t
 
@@ -1117,7 +1120,9 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
                         weight=w)
             return sparse_row_beta(state.sparse, true_class)
         onehot = F.one_hot(pred_at.to(torch.int64), C).to(torch.float32)
-        inc = _eff(w) * onehot
+        # a replica's weight scales its (H, C) increment
+        inc = (_eff(w) if w is None or w.dim() == 0
+               else _eff(w)[:, None, None]) * onehot
         c = true_class.to(torch.int64)
         if c.dim() == 0:
             state.dirichlets.index_add_(1, c.reshape(1), inc[:, None])
@@ -1147,8 +1152,9 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         gathered = (gather_fn(preds_by_class, pred_at)
                     if true_class.dim() == 0
                     else gather_s_fn(preds_by_class, pred_at))
-        _put_col(state.pi_xi_unnorm, true_class, _eff(w) * gathered,
-                 add=True)
+        eff = (_eff(w) if w is None or w.dim() == 0
+               else _eff(w)[:, None])
+        _put_col(state.pi_xi_unnorm, true_class, eff * gathered, add=True)
 
     def _exact_col(state: CODAState, true_class):
         """Recompute pi-hat column ``true_class`` from the posterior row IN
@@ -1195,6 +1201,27 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
             state.pbest_rows[rep, c] = row_t
             state.pbest_hyp[rep, c] = hyp_t.to(state.pbest_hyp.dtype)
 
+    def _refresh_parts(state: CODAState, true_class, beta_t):
+        """:func:`update_eig_cache_parts` of the labelled class row; a seed
+        batch's one replica at a time: the batched row refresh (its Beta
+        tables' scans and sums, its products) is not batch-size invariant
+        on the card at every shape, and replica s must be bitwise its
+        one-seed run."""
+        kw = dict(num_points=hp.num_points, precision=precision,
+                  pbest=hp.eig_pbest)
+        if true_class.dim() == 0:
+            return update_eig_cache_parts(state.dirichlets, true_class,
+                                          hard_preds, beta_t=beta_t, **kw)
+        S = true_class.shape[0]
+        # each replica's rows written in place: no (S, N, H) stacking copy
+        hyp_t = torch.empty((S, N, H), dtype=torch.float32, device=dev)
+        rows = [update_eig_cache_parts(
+            None if state.dirichlets is None else state.dirichlets[s],
+            true_class[s], hard_preds,
+            beta_t=None if beta_t is None else (beta_t[0][s], beta_t[1][s]),
+            out=hyp_t[s], **kw)[0] for s in range(S)]
+        return torch.stack(rows), hyp_t
+
     def _update(state: CODAState, idx, true_class, w=None) -> CODAState:
         """One label per replica, applied IN PLACE to ``state``'s tensors;
         returns the state with the new pi-hat (and, on the incremental
@@ -1239,10 +1266,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
             scores, fit = _surrogate_scores(state, pi, pi_xi, c.reshape(1),
                                             beta_t[0][None], beta_t[1][None])
         else:
-            row_t, hyp_t = update_eig_cache_parts(
-                state.dirichlets, true_class, hard_preds,
-                num_points=hp.num_points, precision=precision,
-                beta_t=beta_t, pbest=hp.eig_pbest)
+            row_t, hyp_t = _refresh_parts(state, true_class, beta_t)
             if batched:
                 rep = torch.arange(c.shape[0], device=dev)
                 state.pbest_rows[rep, c] = row_t
@@ -1409,6 +1433,13 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         del prob
         return _update(state, idx, true_class.to(torch.int64))
 
+    def update_w_batched(state: CODAState, idx, true_class, prob, w
+                         ) -> CODAState:
+        """``update_batched`` with replica s's increment scaled by
+        ``w[s]`` (``(S,)``): bitwise ``update_w`` on each replica."""
+        del prob
+        return _update(state, idx, true_class.to(torch.int64), w=w)
+
     def best_batched(state: CODAState):
         pbest = get_pbest(state)                                   # (S, H)
         return (pbest.argmax(-1),
@@ -1416,7 +1447,8 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
 
     batched = BatchedSelector(
         init=init_batched, select_keys=select_keys, select=select_batched,
-        update=update_batched, best=best_batched) \
+        update=update_batched, best=best_batched,
+        update_w=update_w_batched) \
         if batches_seeds(hp) else None
     # the q-wide pair: the overlap re-rank on the full-pool EIG (the
     # prefilter and the ablations take batch.py's generic top-q); the

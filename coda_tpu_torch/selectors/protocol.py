@@ -90,10 +90,13 @@ class BatchedSelector:
     ``select`` then takes one round's ``(S, 2)`` rows of them. Replica s
     follows the trajectory the single-replica functions give seed s.
     There is no q-wide form: under ``--acq-batch`` seeds run one after
-    another."""
+    another. ``update_w(state, idx, true_class, p, w)`` with ``(S,)``
+    weights is ``update`` with replica s's increment scaled by ``w[s]``
+    (the crowd oracle's), or None where the method has none."""
 
     init: Callable[[int], Any]
     select_keys: Callable[[torch.Tensor], torch.Tensor]
     select: Callable[[Any, torch.Tensor], SelectResult]
     update: Callable[[Any, torch.Tensor, torch.Tensor, torch.Tensor], Any]
     best: Callable[[Any], tuple]
+    update_w: Optional[Callable] = None

@@ -20,8 +20,9 @@ reference fixes the bytes (the dataset digest), so the reference's
 The fingerprint's ``backend`` names the port (``torch-cuda``,
 ``torch-cpu``), so a comparison with a JAX record takes the cross-backend
 score contract, never the bitwise one. Serving-session streams
-(``SessionRecorder``) come with slice 8 of the port and the registry
-counters ``save`` feeds in the reference with slice 7.
+(``SessionRecorder``) come with slice 8 of the port. ``save`` feeds the
+registry's recorder counters (``telemetry/registry.py``), as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import hashlib
 import json
 import os
 import re
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -205,9 +207,14 @@ class RunRecord:
 
     @classmethod
     def from_result(cls, result, aux, fingerprint: dict, run: dict,
-                    extra_meta: Optional[dict] = None) -> "RunRecord":
+                    extra_meta: Optional[dict] = None,
+                    crowd=None) -> "RunRecord":
         """Build a record from an ``(ExperimentResult, RunTraceAux)`` pair
-        with a leading seed axis (as ``run_seeds_recorded`` returns)."""
+        with a leading seed axis (as ``run_seeds_recorded`` returns).
+        ``crowd``, the ``CrowdAux`` of a crowd-oracle run, adds the v4
+        optional arrays: ``oracle_label`` holds its ``applied_label`` (the
+        aggregated answer, as the reference stores it) and
+        ``label_weight`` its weights; a clean run passes None."""
         trace = aux.trace
         arrays = {
             "chosen_idx": _host(result.chosen_idx).astype(np.int32),
@@ -234,6 +241,11 @@ class RunRecord:
             "prior_key": _host(aux.prior_key).astype(np.uint32).reshape(
                 -1, 2),
         }
+        if crowd is not None:
+            arrays["oracle_label"] = _host(crowd.applied_label).astype(
+                np.int32)
+            arrays["label_weight"] = _host(crowd.label_weight).astype(
+                np.float32)
         ci = arrays["chosen_idx"]
         meta = {
             "schema_version": RECORD_SCHEMA_VERSION,
@@ -248,10 +260,13 @@ class RunRecord:
             meta.update(extra_meta)
         return cls(meta=meta, arrays=arrays)
 
-    def save(self, out_dir: str) -> dict:
+    def save(self, out_dir: str, registry=None) -> dict:
         """Write ``rounds.npz`` then ``record.json`` under ``out_dir``
         (arrays first: a crash between the writes leaves no record.json
-        pointing at missing arrays); returns {artifact: path}."""
+        pointing at missing arrays); returns {artifact: path} and feeds the
+        recorder counters of ``registry`` (default: the process
+        registry)."""
+        t0 = time.perf_counter()
         os.makedirs(out_dir, exist_ok=True)
         paths = {"record": os.path.join(out_dir, "record.json"),
                  "rounds": os.path.join(out_dir, "rounds.npz")}
@@ -259,6 +274,17 @@ class RunRecord:
             np.savez(f, **self.arrays)
         with open(paths["record"], "w") as f:
             json.dump(self.meta, f, indent=2, default=str)
+        from coda_tpu_torch.telemetry.registry import get_registry
+
+        reg = registry if registry is not None else get_registry()
+        reg.counter("records_written_total",
+                    "Flight-recorder run records written").inc()
+        reg.counter("record_rounds_total",
+                    "Labeling rounds captured by the flight recorder").inc(
+                        float(self.meta["seeds"] * self.meta["rounds"]))
+        reg.gauge("recorder_last_write_seconds",
+                  "Host seconds to serialize the last run record").set(
+                      time.perf_counter() - t0)
         return paths
 
     @classmethod

@@ -186,12 +186,12 @@ class Run:
         return path
 
     def log_figure(self, name: str, fig) -> str:
-        """A matplotlib figure as a PNG artifact: it needs the plotting
-        helpers of ``utils/viz``, which come with the telemetry core
-        (slice 7 of the port)."""
-        raise NotImplementedError(
-            "Run.log_figure needs utils/viz, which comes with the "
-            "telemetry core (slice 7 of the port)")
+        """Rasterize a matplotlib figure and log it as a PNG artifact."""
+        from coda_tpu_torch.utils.viz import fig_to_png
+
+        if not name.endswith(".png"):
+            name += ".png"
+        return self.log_artifact_bytes(name, fig_to_png(fig))
 
     def finish(self, status: str = "FINISHED") -> None:
         self.store._conn.execute(

@@ -151,14 +151,22 @@ def test_port_replay_seed_set_and_out(port_records, tmp_path, capsys):
 
 
 def test_port_replay_refuses_other_programs(port_records, tmp_path):
-    """A crowd-oracle record names slice 6; a mesh knob names the N-axis
-    parallel part of slice 5; on a machine without a card the default
-    device raises (no fallback to the CPU)."""
+    """A crowd-oracle record re-executes the crowd program from its knobs
+    (a spec the crowd cannot parse raises its error); a mesh knob names
+    the N-axis parallel part of slice 5; on a machine without a card the
+    default device raises (no fallback to the CPU)."""
     rec = trec.RunRecord.load(port_records["coda"])
     noisy = trec.RunRecord(json.loads(json.dumps(rec.meta)), rec.arrays)
     noisy.meta["fingerprint"]["knobs"]["oracle_noise"] = "flip:0.2"
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        treplay.load_record_environment(noisy, device="cpu")
+    treplay.load_record_environment(noisy, device="cpu")
+    with pytest.raises(ValueError, match="not key=value"):
+        treplay.record_crowd_config(noisy)
+    noisy.meta["fingerprint"]["knobs"].update(
+        oracle_noise="annotators=4,votes=3", oracle_reliability="majority")
+    cfg = treplay.record_crowd_config(noisy)
+    assert (cfg.annotators, cfg.votes, cfg.reliability) == (4, 3,
+                                                            "majority")
+    assert treplay.record_crowd_config(rec) is None
     meshed = trec.RunRecord(json.loads(json.dumps(rec.meta)), rec.arrays)
     meshed.meta["fingerprint"]["knobs"]["mesh"] = "data=2"
     ds, factory, _ = treplay.load_record_environment(meshed, device="cpu")

@@ -117,10 +117,13 @@ def test_port_suite_batched_guards(three_tasks):
     r_un = _runner(iters=2, seeds=2).run([ta, tb], ["model_picker"],
                                          **QUIET)
     _bitwise(r_un, r_ba)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        SuiteRunner(device="cpu", cost_capture=True)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        SuiteRunner(device="cpu", telemetry=object())
+    # cost capture and telemetry are the runner's own knobs now
+    from coda_tpu_torch.telemetry import Registry, Telemetry
+
+    tele = Telemetry(registry=Registry())
+    assert SuiteRunner(device="cpu", cost_capture=False).cost_capture is \
+        False
+    assert SuiteRunner(device="cpu", telemetry=tele).telemetry is tele
 
 
 def test_port_suite_modelpicker_per_task_epsilon():
@@ -218,8 +221,10 @@ def test_port_cli_suite_subcommand(three_tasks, tmp_path, capsys):
     assert out.count("skip ") == 6 and '"pairs_run": 0' in out
     with pytest.raises(NotImplementedError, match="parallel part of slice 5"):
         cli.main(argv + ["--mesh", "data=2"])
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        cli.main(argv + ["--telemetry-dir", str(tmp_path / "t")])
+    tdir = tmp_path / "t"
+    assert cli.main(argv + ["--telemetry-dir", str(tdir)]) == 0
+    assert {"trace.json", "telemetry.json", "metrics.prom"} <= \
+        {p.name for p in tdir.iterdir()}
 
 
 def test_port_suite_width_divergent_tiers(monkeypatch):

@@ -613,11 +613,11 @@ def test_cli_later_slice_flags_raise(knob, where, tmp_path):
 
 
 @pytest.mark.parametrize("knob", [["--acq-batch", "0"],
-                                  ["--oracle-noise", "annotators=4"]])
+                                  ["--oracle-reliability", "vote"]])
 def test_cli_refuses_unported_flags(knob, capsys):
-    """The crowd oracle's flags (a later slice) are refused as unknown,
-    never run as the plain oracle; ``--acq-batch`` is parsed now, with the
-    reference's validator (at least 1)."""
+    """Flags are parsed with the reference's validators: ``--acq-batch``
+    at least 1, ``--oracle-reliability`` learned or majority (the crowd
+    oracle's flags are parsed since it was ported)."""
     from coda_tpu_torch.cli import main
 
     with pytest.raises(SystemExit) as exc:
@@ -626,7 +626,7 @@ def test_cli_refuses_unported_flags(knob, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert ("acq-batch must be >= 1, got 0" in err if knob[0] ==
-            "--acq-batch" else "unrecognized arguments" in err)
+            "--acq-batch" else "invalid choice: 'vote'" in err)
 
 
 def test_cli_headline_resolves_factored():

@@ -72,8 +72,13 @@ def test_store_schema_and_hierarchy(tmp_path):
     except RuntimeError:
         pass
     assert store.find_run("taskA", "taskA-x-0")[1] == "FAILED"
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        store.run("taskA", "taskA-coda").log_figure("f", None)
+    from coda_tpu_torch.utils.viz import plot_bar
+
+    path = store.run("taskA", "taskA-coda").log_figure(
+        "f", plot_bar([0.2, 0.8], highlight=1))
+    assert path.endswith("f.png")
+    with open(path, "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
     store.close()
 
 
