@@ -169,6 +169,27 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    memory rate), ms a round with telemetry off, on, and on with the
    profiler; and the suite with ``--telemetry-dir`` on a 2-task x
    2-method x 2-seed subset (spans on ``device:0``, the store flushed).
+11. serves (``coda_tpu_torch/serve``): a bucket of 16 incremental CODA
+   slots at the headline (seeds 0-15) and at ``digits_h80``, each in both
+   step lowerings: the start of every slot, 10 full label rounds, timed
+   rounds at 1 and 4 requested slots, a 5-of-16 set twice (every idle
+   slot's state and key fingerprinted unchanged) and one profiled round at
+   1 and 16 slots; the ``map`` run bitwise the port's
+   ``InteractiveSelector`` on each seed (next item, its score, best, the
+   P(best) digest), the ``batched`` run bitwise the ``map`` run; the
+   plain versions' slab run identical or first a near-tie flip within
+   2.34e-4; a fused bf16 bucket of 4 slots (kernel 6) bitwise its twins;
+   dispatch ms (host clock) by occupancy and lowering, admission ms,
+   device events of a dispatch and peak memory; then ``ServeApp`` behind
+   ``AsyncHTTPServer`` in-process (``/healthz`` 503 before warm, 200
+   after; 16 client threads each open -> 10 labels -> best -> trace ->
+   close, every answer the slab run's; a duplicated ``request_id``
+   deduped; a 17th open 503; ``/metrics`` clean under ``lint``; the
+   label latency's p50/p99 and requests a second); a
+   ``step_raise:after=5`` fault healed from the recorder streams with the
+   sessions finishing bitwise the unfaulted run; and ``cli serve`` on
+   ``digits_h80`` in a subprocess, two sessions labelled, drained by
+   SIGTERM with exit 0.
 
 It prints one JSON line with every kernel flavour (its ``launches`` summed
 over the main-path runs), then the card's name and power
@@ -3184,6 +3205,692 @@ def phase_crowd_telemetry(dev, task, total: dict, smi: str, peaks) -> dict:
 
 
 
+SERVE_CAPACITY = 16                  # the headline slab's slots
+SERVE_ROUNDS = 10                    # full-occupancy label rounds
+SERVE_OCCUPANCY = (1, 4)             # partial rounds timed (16 = the full)
+SERVE_TIME_REPS = 3                  # timed rounds a partial occupancy
+SERVE_PARTIAL = (0, 2, 3, 7, 11)     # 5 of 16 requested: four runs
+SERVE_PLAIN_ROUNDS = 5               # the plain versions' slab run
+SERVE_FUSED = (4, 3)                 # fused bf16 bucket: slots, rounds
+SERVE_HTTP_LABELS = 10               # labels a client session
+SERVE_FAULT = (4, 5)                 # fault app: slots, step_raise after
+SERVE_CLI_ROUNDS = 3
+SERVE_CLI_EXTRA: list = []           # extra `cli serve` flags (rehearsals)
+
+
+def _f32_bits(x) -> bytes:
+    import numpy as np
+
+    return np.float32(x).tobytes()
+
+
+def _same_row(a: dict, b: dict, keys=("next_idx", "best"),
+              fkeys=("next_prob", "pbest_max", "pbest_entropy")) -> bool:
+    """Two result rows equal: integers exactly, floats bit for bit."""
+    return (all(a[k] == b[k] for k in keys)
+            and all(_f32_bits(a[k]) == _f32_bits(b[k]) for k in fkeys))
+
+
+def _serve_plan(cap: int) -> list:
+    """The slab runs' dispatches: (tag, requested slots). The start of
+    every slot, SERVE_ROUNDS full rounds, the partial occupancies, the
+    5-of-16 set twice and one profiled round at 1 and at ``cap`` slots."""
+    full = list(range(cap))
+    plan = [("start", full)] + [("full", full)] * SERVE_ROUNDS
+    for n in SERVE_OCCUPANCY:
+        plan += [(f"occ{n}", list(range(min(n, cap))))] * SERVE_TIME_REPS
+    part = [s for s in SERVE_PARTIAL if s < cap]
+    plan += [("partial", part)] * 2
+    plan += [("prof1", [0]), ("prof_full", full)]
+    return plan
+
+
+def _state_fp(state, key) -> tuple:
+    """A fingerprint of a state and its key: every leaf's 32-bit word sum
+    and odd-word sum on the device (bytes for small or odd leaves)."""
+    import torch
+
+    from coda_tpu_torch.serve.state import tree_leaves
+
+    out = []
+    for leaf in tree_leaves(state):
+        if not isinstance(leaf, torch.Tensor):
+            out.append(repr(leaf))
+            continue
+        flat = leaf.reshape(-1)
+        if flat.numel() * flat.element_size() % 4 == 0 and flat.numel():
+            w = flat.view(torch.uint8).view(torch.int32)
+            out.append((int(w.sum(dtype=torch.int64)),
+                        int(w[1::2].sum(dtype=torch.int64))))
+        else:
+            out.append(flat.cpu().view(torch.uint8).numpy().tobytes())
+    out.append(tuple(key.tolist()))
+    return tuple(out)
+
+
+def _slot_fp(bucket, slot: int) -> tuple:
+    """:func:`_state_fp` of one slot of ``bucket``."""
+    with bucket.lock:
+        return _state_fp(bucket.slot_state(slot), bucket.keys[slot])
+
+
+_DISPATCH_PARTS = (   # part -> a pattern of its kernels' demangled names
+    ("kernel 2", r"score_kernel<[^>]*, true, (?:true|false), false>"),
+    ("kernel 5", r"score_kernel<[^>]*, true, (?:true|false), true>"),
+    ("kernel 3", r"gather_kernel"),
+    ("products", r"gemm|gemv|cutlass|xmma|sm90_|Kernel2|splitK"),
+    ("copies", r"[Mm]emcpy|[Mm]emset|copy_kernel|CatArrayBatched"),
+)
+
+
+def _dispatch_profile(fn) -> dict:
+    """``fn`` under ``torch.profiler``: its device events, their device ms
+    by part (:data:`_DISPATCH_PARTS`, the rest ``other``) and in all."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = dict.fromkeys([p for p, _ in _DISPATCH_PARTS] + ["other"], 0.0)
+    n = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n += 1
+        part = next((p for p, pat in _DISPATCH_PARTS
+                     if re.search(pat, e.name)), "other")
+        parts[part] += e.time_range.elapsed_us() / 1e3
+    return {"events": n, "device_ms": sum(parts.values()),
+            "parts_ms": {k: round(v, 3) for k, v in parts.items()}}
+
+
+def _serve_drive(bucket, seeds, labels, plan, store, spec, task_name,
+                 idle_check: bool = False) -> dict:
+    """Admit one session a seed on ``bucket`` and run ``plan`` on it:
+    each requested slot labels its current item with the oracle's label.
+    Returns the rows per seed, the dispatch ms per tag, the admission ms,
+    the idle-slot checks and the device events of the profiled rounds."""
+    import torch
+
+    def sync():
+        if bucket.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    admit_ms, sessions = [], []
+    for s in seeds:
+        sync()
+        t0 = time.perf_counter()
+        sess = store.open(task_name, spec, seed=s)
+        with bucket.lock:
+            bucket._apply_staged()
+        sync()
+        admit_ms.append((time.perf_counter() - t0) * 1e3)
+        sessions.append(sess)
+    by_slot = {sess.slot: i for i, sess in enumerate(sessions)}
+    rows = [[] for _ in seeds]
+    times: dict = {}
+    events: dict = {}
+    idle_checked = 0
+    for tag, slots in plan:
+        reqs = {}
+        for slot in slots:
+            i = by_slot[slot]
+            if tag == "start":
+                reqs[slot] = {"do_update": False}
+            else:
+                last = rows[i][-1]
+                reqs[slot] = {"do_update": True, "idx": last["next_idx"],
+                              "label": int(labels[last["next_idx"]]),
+                              "prob": last["next_prob"]}
+        idle = ([s for s in by_slot if s not in reqs]
+                if idle_check and tag == "partial" else [])
+        before = {s: _slot_fp(bucket, s) for s in idle}
+
+        def run():
+            with bucket.lock:
+                return bucket.dispatch(reqs)
+
+        sync()
+        t0 = time.perf_counter()
+        if tag.startswith("prof") and bucket.device.type == "cuda":
+            box = {}
+            events[tag] = _dispatch_profile(lambda: box.update(out=run()))
+            res = box["out"]
+        else:
+            res = run()
+        times.setdefault(tag, []).append((time.perf_counter() - t0) * 1e3)
+        for s in idle:
+            if _slot_fp(bucket, s) != before[s]:
+                raise AssertionError(f"idle slot {s} changed in a "
+                                     f"{tag} dispatch")
+        idle_checked += len(idle)
+        for slot, r in res.items():
+            rows[by_slot[slot]].append(r)
+    return {"rows": rows, "times": times, "admit_ms": admit_ms,
+            "events": events, "idle_checked": idle_checked,
+            "sessions": sessions}
+
+
+def _twin_rows(selector, seed: int, n: int, labels, rows) -> tuple:
+    """The sequential twin of a slab session: ``InteractiveSelector(
+    selector, seed)`` driven through the slab's requests (its first ``n``
+    rows); returns its rows and the fingerprint of its final state."""
+    from coda_tpu_torch.ops.masked import entropy2
+    from coda_tpu_torch.selectors.protocol import InteractiveSelector
+
+    twin = InteractiveSelector(selector, seed=seed)
+    get_pbest = selector.extras.get("get_pbest")
+    out = []
+    for j in range(n):
+        if j:
+            prev = rows[j - 1]
+            twin.add_label(prev["next_idx"], int(labels[prev["next_idx"]]),
+                           prev["next_prob"])
+        idx, prob = twin.get_next_item_to_label()
+        best = twin.get_best_model_prediction()
+        pb = get_pbest(twin.state).float()
+        out.append({"next_idx": idx, "next_prob": prob, "best": best,
+                    "pbest_max": float(pb.max()),
+                    "pbest_entropy": float(entropy2(pb))})
+    fp = _state_fp(twin.state, twin._key)
+    del twin
+    return out, fp
+
+
+def _hold_twins(bucket, seeds, labels, drive, what: str) -> None:
+    """Every slab session bitwise its sequential twin, row for row, and
+    its slot's final state and key the twin's (by fingerprint)."""
+    for i, s in enumerate(seeds):
+        rows = drive["rows"][i]
+        twin, fp = _twin_rows(bucket.selector, s, len(rows), labels, rows)
+        if _slot_fp(bucket, drive["sessions"][i].slot) != fp:
+            raise AssertionError(f"{what}: seed {s}: the slot's state is "
+                                 "not the InteractiveSelector's")
+        for j, (a, b) in enumerate(zip(rows, twin)):
+            if not _same_row(a, b):
+                raise AssertionError(
+                    f"{what}: seed {s} row {j}: slab {a} != "
+                    f"InteractiveSelector {b}")
+    log(f"serve {what}: {len(seeds)} sessions x "
+        f"{len(drive['rows'][0])} rows bitwise the InteractiveSelector, "
+        "the slots' final states and keys its")
+
+
+def _hold_same(a: dict, b: dict, what: str) -> None:
+    for i, (ra, rb) in enumerate(zip(a["rows"], b["rows"])):
+        if len(ra) != len(rb):
+            raise AssertionError(f"{what}: session {i} has {len(ra)} and "
+                                 f"{len(rb)} rows")
+        for j, (x, y) in enumerate(zip(ra, rb)):
+            if not _same_row(x, y):
+                raise AssertionError(f"{what}: session {i} row {j}: {x} "
+                                     f"!= {y}")
+
+
+def _hold_plain(kern: dict, plain: dict, selector, seeds, labels,
+                what: str) -> list:
+    """The plain versions' slab run against the kernels' one: each
+    session identical (scores within the 2.34e-4 contract), or first
+    diverging as a tie-break flip: the kernel's scores of the two picks
+    within 2.34e-4 (read from the sequential twin at that row)."""
+    from coda_tpu_torch.selectors.protocol import InteractiveSelector
+
+    lines = []
+    for i, s in enumerate(seeds):
+        ka, pa = kern["rows"][i], plain["rows"][i]
+        n = min(len(ka), len(pa))
+        div = next((j for j in range(n)
+                    if ka[j]["next_idx"] != pa[j]["next_idx"]
+                    or ka[j]["best"] != pa[j]["best"]), None)
+        worst = max(abs(ka[j]["next_prob"] - pa[j]["next_prob"])
+                    for j in range(n if div is None else div) or [0])
+        if worst > CONTRACT:
+            raise AssertionError(f"{what}: seed {s} scores differ by "
+                                 f"{worst:.3e} > {CONTRACT}")
+        if div is None:
+            lines.append(f"seed {s}: identical ({n} rows, scores within "
+                         f"{worst:.3e})")
+            continue
+        twin = InteractiveSelector(selector, seed=s)
+        for j in range(1, div + 1):
+            prev = ka[j - 1]
+            twin.add_label(prev["next_idx"], int(labels[prev["next_idx"]]),
+                           prev["next_prob"])
+        sc = twin.state.eig_scores_cached
+        gap = float(sc[ka[div]["next_idx"]] - sc[pa[div]["next_idx"]])
+        del twin
+        line = (f"seed {s}: first divergence at row {div}, gap {gap:.3e} "
+                "[tie-break-flip]")
+        if ka[div]["best"] != pa[div]["best"] and \
+                ka[div]["next_idx"] == pa[div]["next_idx"]:
+            raise AssertionError(f"{what}: seed {s} row {div}: best "
+                                 "differs with the same pick")
+        if abs(gap) > CONTRACT:
+            raise AssertionError(f"{what}: {line} beyond {CONTRACT}")
+        lines.append(line)
+    for line in lines:
+        log(f"serve {what}: {line}")
+    return lines
+
+
+def _http(port: int, method: str, path: str, body=None):
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _serve_bucket(dev, preds, spec, cap, impl):
+    from coda_tpu_torch.serve.state import SessionStore
+
+    store = SessionStore(capacity=cap, step_impl=impl, device=dev)
+    store.register_task("t", preds)
+    bucket = store._bucket_for("t", spec)
+    info = bucket.warm()
+    return store, bucket, info
+
+
+def _ms(xs) -> str:
+    return f"{statistics.median(xs):.3f}"
+
+
+def phase_serve(dev, task, total: dict, smi: str) -> dict:
+    """The serve slab, the batcher and the HTTP server on the card (see
+    the module docstring, item 11). Every in-process slab run has the
+    counters set to 0 just before and read just after, its launches
+    checked and added to ``total``. Returns the measured figures."""
+    import gc
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    from coda_tpu_torch.data import Dataset
+    from coda_tpu_torch.serve import ServeApp, SelectorSpec, make_server
+    from coda_tpu_torch.serve.state import DEFAULT_IMPL
+    from coda_tpu_torch.telemetry import lint_prometheus
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    C, N, H = HEADLINE
+    cap = SERVE_CAPACITY
+    seeds = list(range(cap))
+    labels = task.labels.cpu().numpy()
+    preds = task.preds
+    spec = SelectorSpec.create("coda", n_parallel=cap,
+                               eig_mode="incremental")
+    plan = _serve_plan(cap)
+    out: dict = {"card": smi, "default_impl": DEFAULT_IMPL}
+    log(f"serve on {smi}: headline ({H}, {N}, {C}), {cap} slots, "
+        f"{SERVE_ROUNDS} full rounds; default lowering {DEFAULT_IMPL}")
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+
+    def want_map(k):
+        return k["eig_refresh_score"] > 0 and k["row_gather"] > 0 \
+            and k["eig_refresh_score_batched"] == 0
+
+    def want_batched(k):   # lone requested slots take kernel 2
+        return k["eig_refresh_score_batched"] > 0 \
+            and k["row_gather_batched"] > 0
+
+    def want_none(k):
+        return not any(k.values())
+
+    runs = {}
+    # 1. the slab against its sequential twin, and the lowerings at the
+    #    headline and at digits_h80
+    h80 = Dataset.from_file(os.path.join(HERE, "data", "digits_h80.npz"),
+                            name="digits_h80", device=dev)
+    h80_labels = h80.labels.cpu().numpy()
+    for where, p, labs in (("digits_h80", h80.preds, h80_labels),
+                           ("headline", preds, labels)):
+        shape_spec = SelectorSpec.create("coda", n_parallel=cap,
+                                         eig_mode="incremental")
+        for impl, want in (("map", want_map), ("batched", want_batched)):
+            free()
+            peak_reset()
+            t0 = time.perf_counter()
+            store, bucket, info = _serve_bucket(dev, p, shape_spec, cap,
+                                                impl)
+            setup_s = time.perf_counter() - t0
+            drive = _counted(
+                f"serve {where} {impl}", want, total,
+                lambda: _serve_drive(bucket, seeds, labs, plan, store,
+                                     shape_spec, "t", idle_check=True))
+            drive["peak_gb"] = peak_gb()
+            drive["setup_s"] = setup_s
+            drive["warm"] = info
+            if impl == "map":
+                _hold_twins(bucket, seeds, labs, drive, f"{where} map")
+            else:
+                _hold_same(runs[(where, "map")], drive,
+                           f"{where} batched == map")
+                log(f"serve {where}: batched bitwise map over "
+                    f"{len(plan)} dispatches (full, 1, 4 and "
+                    f"{len(SERVE_PARTIAL)} of {cap} slots); "
+                    f"{drive['idle_checked']} idle-slot checks unchanged")
+            runs[(where, impl)] = {k: v for k, v in drive.items()
+                                   if k != "sessions"}
+            t = drive["times"]
+            log(f"serve {where} {impl}: bucket + warm {setup_s:.2f} s "
+                f"(warm {info['seconds']:.2f} s), admission ms median "
+                f"{_ms(drive['admit_ms'])}, dispatch ms (host clock, "
+                f"synchronized) {cap} slots {_ms(t['full'])}, "
+                + ", ".join(f"{n} slot(s) {_ms(t[f'occ{n}'])}"
+                            for n in SERVE_OCCUPANCY)
+                + f", 5 of {cap} {_ms(t['partial'])}; peak "
+                f"{drive['peak_gb']:.2f} GB")
+            for tag, prof in drive["events"].items():
+                log(f"serve {where} {impl} {tag} (profiled dispatch): "
+                    f"{prof['events']} device events, "
+                    f"{prof['device_ms']:.3f} device ms, by part "
+                    f"{prof['parts_ms']}")
+            del store, bucket, drive
+    out["runs"] = {f"{w}/{i}": {"times": r["times"],
+                                "admit_ms": r["admit_ms"],
+                                "events": r["events"],
+                                "peak_gb": r["peak_gb"]}
+                   for (w, i), r in runs.items()}
+    # 2. the plain versions on the slab; the fused bf16 bucket (kernel 6)
+    free()
+    plain_spec = SelectorSpec.create("coda", n_parallel=cap,
+                                     eig_mode="incremental",
+                                     eig_backend="jnp")
+    pplan = plan[:1 + SERVE_PLAIN_ROUNDS]
+    store, bucket, _ = _serve_bucket(dev, preds, plain_spec, cap, "map")
+    plain = _counted("serve plain", want_none, total,
+                     lambda: _serve_drive(bucket, seeds, labels, pplan,
+                                          store, plain_spec, "t"))
+    del store, bucket
+    free()
+    out["plain"] = _hold_plain(runs[("headline", "map")], plain,
+                               spec.factory(dev)(preds), seeds, labels,
+                               "kernels == plain")
+    del plain
+    free()
+    fslots, frounds = SERVE_FUSED
+    # n_parallel 1: the fused refresh runs one replica at a time (the
+    # reference refuses it batched), as the map lowering does
+    fspec = SelectorSpec.create("coda", n_parallel=1,
+                                eig_mode="incremental", eig_refresh="fused",
+                                eig_cache_dtype="bfloat16")
+    fplan = [("start", list(range(fslots)))] + \
+        [("full", list(range(fslots)))] * frounds
+    store, bucket, _ = _serve_bucket(dev, preds, fspec, fslots, None)
+    fused = _counted(
+        "serve fused bf16", lambda k: k["eig_refresh_compute_score"] > 0
+        and k["row_gather"] > 0, total,
+        lambda: _serve_drive(bucket, list(range(fslots)), labels, fplan,
+                             store, fspec, "t"))
+    _hold_twins(bucket, list(range(fslots)), labels, fused,
+                "fused bf16 map")
+    out["fused_ms"] = fused["times"]["full"]
+    del store, bucket, fused
+    free()
+
+    # 3. the HTTP front door in-process
+    app = ServeApp(spec=spec, capacity=cap, tiering=False, quality=False,
+                   device=dev)
+    app.add_task("headline", preds)
+    srv = make_server(app, 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    srv._started.wait(30)
+    port = srv.server_address[1]
+    ref = runs[("headline", "map")]["rows"]
+    lat, errors = [], []
+    try:
+        code, _ = _http(port, "GET", "/healthz")
+        if code != 503:
+            raise AssertionError(f"/healthz before warm answered {code}")
+        t0 = time.perf_counter()
+        app.start(warm=True)
+        out["http_warm_s"] = time.perf_counter() - t0
+        code, _ = _http(port, "GET", "/healthz")
+        if code != 200:
+            raise AssertionError(f"/healthz after warm answered {code}")
+        opened = threading.Barrier(cap + 1)
+        go = threading.Barrier(cap + 1)
+
+        def client(s):
+            try:
+                code, body = _http(port, "POST", "/session", {"seed": s})
+                first = json.loads(body)
+                if code != 200:
+                    raise AssertionError(f"open {s}: {code} {body}")
+                sid = first["session"]
+                opened.wait(120)
+                go.wait(120)
+                got = [first]
+                for k in range(SERVE_HTTP_LABELS):
+                    t1 = time.perf_counter()
+                    code, body = _http(
+                        port, "POST", f"/session/{sid}/label",
+                        {"label": int(labels[got[-1]["idx"]]),
+                         "request_id": f"{s}-{k}"})
+                    lat.append(time.perf_counter() - t1)
+                    if code != 200:
+                        raise AssertionError(f"label {s}/{k}: {code} {body}")
+                    got.append(json.loads(body))
+                code, body = _http(
+                    port, "POST", f"/session/{sid}/label",
+                    {"label": 0, "request_id": f"{s}-{SERVE_HTTP_LABELS - 1}"})
+                if code != 200 or json.loads(body) != got[-1]:
+                    raise AssertionError(f"dedupe {s}: {code} {body}")
+                code, body = _http(port, "GET", f"/session/{sid}/best")
+                best = json.loads(body)
+                code, body = _http(port, "GET", f"/session/{sid}/trace")
+                trace = json.loads(body)["rounds"]
+                _http(port, "DELETE", f"/session/{sid}")
+                want = ref[s][:len(got)]
+                for j, (g, r) in enumerate(zip(got, want)):
+                    if (g["idx"] != r["next_idx"] or g["best"] != r["best"]
+                            or _f32_bits(g["prob"]) != _f32_bits(
+                                r["next_prob"])):
+                        raise AssertionError(f"http seed {s} answer {j}: "
+                                             f"{g} != slab {r}")
+                for j, (tr, r) in enumerate(zip(trace, want)):
+                    if not _same_row(tr, r):
+                        raise AssertionError(f"http seed {s} trace row {j}"
+                                             f": {tr} != slab {r}")
+                if best["n_labeled"] != SERVE_HTTP_LABELS or \
+                        len(trace) != SERVE_HTTP_LABELS + 1 or \
+                        len(best["pbest"]) != H:
+                    raise AssertionError(f"http seed {s}: best {best}, "
+                                         f"{len(trace)} trace rows")
+            except BaseException as e:   # reported by the main thread
+                errors.append(f"seed {s}: {e!r}")
+                for b in (opened, go):
+                    b.abort()
+
+        threads = [threading.Thread(target=client, args=(s,))
+                   for s in seeds]
+        t0 = time.perf_counter()
+        reset_counts()
+        for t in threads:
+            t.start()
+        try:
+            opened.wait(300)
+            code, body = _http(port, "POST", "/session", {"seed": 99})
+            if code != 503:
+                raise AssertionError(f"a {cap + 1}th open answered {code}")
+            go.wait(300)
+        except threading.BrokenBarrierError:
+            pass
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.synchronize()
+        by_kernel, by_flavour = read_counts()
+        if errors:
+            raise AssertionError(f"http clients: {errors}")
+        if not (by_kernel["eig_refresh_score"]
+                or by_kernel["eig_refresh_score_batched"]):
+            raise AssertionError(f"http: launches {by_flavour}")
+        for k, v in by_flavour.items():
+            total[k] = total.get(k, 0) + v
+        code, text = _http(port, "GET", "/metrics")
+        problems = lint_prometheus(text)
+        if code != 200 or problems:
+            raise AssertionError(f"/metrics {code}: {problems[:5]}")
+        stats = json.loads(_http(port, "GET", "/stats")[1])
+        n_req = cap * (SERVE_HTTP_LABELS + 5)
+        lat_ms = np.asarray(lat) * 1e3
+        out["http"] = {
+            "label_p50_ms": float(np.percentile(lat_ms, 50)),
+            "label_p99_ms": float(np.percentile(lat_ms, 99)),
+            "requests_per_s": n_req / wall, "wall_s": wall,
+            "dispatches": stats["dispatches"],
+            "mean_occupancy": stats["mean_occupancy"]}
+        log(f"serve http ({smi}): {cap} clients x {SERVE_HTTP_LABELS} "
+            f"labels, every answer the slab's; label latency p50 "
+            f"{out['http']['label_p50_ms']:.3f} ms p99 "
+            f"{out['http']['label_p99_ms']:.3f} ms; {n_req} requests in "
+            f"{wall:.2f} s = {out['http']['requests_per_s']:.1f}/s; "
+            f"{stats['dispatches']} dispatches, mean occupancy "
+            f"{stats['mean_occupancy']}; duplicate request_id deduped, "
+            f"open {cap + 1} -> 503, /healthz 503 -> 200, /metrics lint "
+            f"clean; launches {by_flavour}")
+    finally:
+        srv.shutdown()
+        app.drain()
+        srv.server_close()
+    del app
+    free()
+
+    # 4. a fault: step_raise quarantines the bucket, the healer rebuilds it
+    fslots, after = SERVE_FAULT
+    app = ServeApp(spec=spec, capacity=fslots, tiering=False,
+                   quality=False, fault_spec=f"step_raise:after={after}",
+                   device=dev)
+    app.add_task("headline", preds)
+    app.start(warm=True)
+    try:
+        got = {s: [app.open_session(seed=s)] for s in range(fslots)}
+        sids = {s: got[s][0]["session"] for s in got}
+        faults = 0
+        for k in range(SERVE_HTTP_LABELS):
+            for s in range(fslots):
+                for _ in range(200):
+                    try:
+                        r = app.label(sids[s], int(labels[got[s][-1]["idx"]]),
+                                      request_id=f"{s}-{k}")
+                        break
+                    except Exception as e:
+                        faults += type(e).__name__ == "FaultInjected"
+                        time.sleep(0.05)
+                else:
+                    raise AssertionError("the bucket never healed")
+                got[s].append(r)
+        bucket = app.store.buckets()[0]
+        if faults != 1 or bucket.heals != 1:
+            raise AssertionError(f"fault: {faults} injected, "
+                                 f"{bucket.heals} heals")
+        for s in range(fslots):
+            for j, (g, r) in enumerate(zip(got[s], ref[s])):
+                if (g["idx"] != r["next_idx"] or g["best"] != r["best"]
+                        or _f32_bits(g["prob"]) != _f32_bits(r["next_prob"])):
+                    raise AssertionError(f"healed seed {s} answer {j}: {g}"
+                                         f" != unfaulted {r}")
+        out["heal"] = dict(app.healer.last_report)
+        log(f"serve fault: step_raise after {after} quarantined the "
+            f"bucket, healed from the streams in "
+            f"{out['heal']['seconds']:.3f} s ({out['heal']['rounds']} "
+            f"rounds of {out['heal']['sessions']} sessions, digests "
+            f"verified); {fslots} sessions x {SERVE_HTTP_LABELS} labels "
+            "bitwise the unfaulted run")
+    finally:
+        app.drain()
+    del app
+    free()
+
+    # 5. `cli serve` in a subprocess on the card, drained by SIGTERM
+    port = _free_port()
+    cmd = [sys.executable, "-m", "coda_tpu_torch.cli", "serve", "--task",
+           "digits_h80", "--data-dir", os.path.join(HERE, "data"),
+           "--capacity", "8", "--no-tiering", "--no-quality", "--port",
+           str(port), *SERVE_CLI_EXTRA]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        for _ in range(1200):
+            try:
+                if _http(port, "GET", "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if proc.poll() is not None:
+                raise AssertionError(f"cli serve exited {proc.returncode}:"
+                                     f" {proc.stdout.read()}")
+            time.sleep(0.1)
+        else:
+            raise AssertionError("cli serve never became ready")
+        ready_s = time.perf_counter() - t0
+        for s in (0, 1):
+            code, body = _http(port, "POST", "/session", {"seed": s})
+            cur = json.loads(body)
+            for k in range(SERVE_CLI_ROUNDS):
+                code, body = _http(
+                    port, "POST", f"/session/{cur['session']}/label",
+                    {"label": int(h80_labels[cur["idx"]])})
+                if code != 200:
+                    raise AssertionError(f"cli label: {code} {body}")
+                cur = json.loads(body)
+            code, body = _http(port, "GET", f"/session/{cur['session']}"
+                               "/best")
+            if code != 200 or json.loads(body)["n_labeled"] != \
+                    SERVE_CLI_ROUNDS:
+                raise AssertionError(f"cli best: {code} {body}")
+        proc.send_signal(signal.SIGTERM)
+        text, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0 or "drained" not in text:
+        raise AssertionError(f"cli serve exit {proc.returncode}: {text}")
+    log(f"serve cli: `cli serve --task digits_h80 --capacity 8` ready in "
+        f"{ready_s:.1f} s, 2 sessions x {SERVE_CLI_ROUNDS} labels, SIGTERM "
+        "drained, exit 0")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3247,6 +3954,8 @@ def main() -> int:
         phase_replay_checkpoint_suite(dev, task, launches)
         phase = "crowd and telemetry"
         phase_crowd_telemetry(dev, task, launches, smi, peaks)
+        phase = "serve"
+        phase_serve(dev, task, launches, smi)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)

@@ -36,7 +36,10 @@ run takes Q x iters labels; the cumulative regret is label-weighted).
 ``--record-dir`` writes a flight-recorder record (schema v4, the
 reference's ``record.json`` + ``rounds.npz``) that ``python -m
 coda_tpu_torch.cli replay <dir>`` re-executes and the reference's
-``replay`` reads too.
+``replay`` reads too. ``python -m coda_tpu_torch.cli serve ...`` runs the
+labeling service (``serve/server.py``; ``--no-tiering --no-quality`` until
+slice 8b); ``replay-serve``, ``quality`` and ``trace`` raise naming their
+slice.
 
 ``--oracle-noise SPEC`` labels with a noisy crowd (``crowd/``): each
 answer is a vote of ``votes`` annotators from a seeded pool, aggregated by
@@ -547,8 +550,20 @@ def run_all_seeds(args, factory, dataset, loss_fn, dev):
     return result, aux, None
 
 
+# the reference's subcommands a later slice of the port brings
+_LATER_SUBCOMMANDS = {"replay-serve": "8b", "quality": "8b", "trace": "9"}
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "serve":
+        from coda_tpu_torch.serve.server import main as serve_main
+
+        return serve_main(argv[1:])
+    if argv and argv[0] in _LATER_SUBCOMMANDS:
+        raise NotImplementedError(
+            f"`cli {argv[0]}` comes with slice "
+            f"{_LATER_SUBCOMMANDS[argv[0]]} of the port")
     if argv and argv[0] == "replay":
         from coda_tpu_torch.engine.replay import replay_main
 

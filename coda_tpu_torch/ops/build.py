@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 (with the shared ``csrc/*.cuh`` headers) with ``nvcc`` for ``sm_90a`` into
-``coda_tpu_torch/_build/<name>-<hash>.so`` (git-ignored), loaded with
-``ctypes``. The hash covers the source, the headers and the flags, so an
-edited source never loads a stale library. A build may add preprocessor
+``coda_tpu_torch/_build/<name>-<hash>.so`` (git-ignored;
+:func:`set_build_dir` moves that directory), loaded with ``ctypes``. The
+hash covers the source, the headers and the flags, so an edited source
+never loads a stale library. A build may add preprocessor
 ``defines`` (e.g. ``K6_STAGES``, the per-stage clock of kernel 6); such a
 library is a separate file, ``<name>-<DEFINE>-<hash>.so``. Nothing is built when a module
 is imported: a kernel's wrapper builds its library at first use, and
@@ -52,6 +53,15 @@ def add_listener(fn) -> None:
 def _notify(event: str, seconds: float = 0.0) -> None:
     for fn in list(_listeners):
         fn(event, seconds)
+
+
+def set_build_dir(path) -> Path:
+    """Build into and load from ``path`` instead of ``_build/`` (the
+    serve CLI's ``--compilation-cache-dir``: a restarted server loads the
+    libraries an earlier one built there, with no ``nvcc``)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+    return BUILD_DIR
 
 
 def nvcc_path() -> str:

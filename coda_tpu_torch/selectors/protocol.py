@@ -26,6 +26,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from coda_tpu_torch import random as trandom
+
 
 class SelectResult(NamedTuple):
     idx: torch.Tensor         # 0-d int64 — chosen data point
@@ -100,3 +102,57 @@ class BatchedSelector:
     update: Callable[[Any, torch.Tensor, torch.Tensor, torch.Tensor], Any]
     best: Callable[[Any], tuple]
     update_w: Optional[Callable] = None
+
+
+class InteractiveSelector:
+    """Mutable, host-driven wrapper with the reference's 3-method API
+    (counterpart of ``coda_tpu/selectors/protocol.py``'s): one session
+    driven by hand, the sequential twin the serve slab is held against.
+
+    The key choreography is the reference's: ``PRNGKey(seed)``, one
+    ``split`` for ``init``, then one for every ``select`` and one for
+    every ``best``. The state lives on the selector's device; ``update``
+    writes it in place."""
+
+    def __init__(self, selector: Selector, seed: int = 0):
+        self.selector = selector
+        self._key = trandom.PRNGKey(seed)
+        self.state = selector.init(self._next_key())
+        self.stochastic = selector.always_stochastic
+        self.labeled_idxs: list[int] = []
+        self.labels: list[int] = []
+        self.q_vals: list[float] = []
+
+    def _next_key(self) -> torch.Tensor:
+        self._key, sub = trandom.split(self._key)
+        return sub
+
+    def _device(self) -> torch.device:
+        leaf = next((t for t in self.state if isinstance(t, torch.Tensor)),
+                    None)
+        return torch.device("cpu") if leaf is None else leaf.device
+
+    def get_next_item_to_label(self):
+        res = self.selector.select(self.state, self._next_key())
+        if bool(res.stochastic):
+            self.stochastic = True
+        return int(res.idx), float(res.prob)
+
+    def add_label(self, idx: int, true_class: int,
+                  selection_prob: float = 0.0):
+        dev = self._device()
+        self.state = self.selector.update(
+            self.state,
+            torch.tensor(int(idx), dtype=torch.int64, device=dev),
+            torch.tensor(int(true_class), dtype=torch.int64, device=dev),
+            torch.tensor(float(selection_prob), dtype=torch.float32,
+                         device=dev))
+        self.labeled_idxs.append(int(idx))
+        self.labels.append(int(true_class))
+        self.q_vals.append(float(selection_prob))
+
+    def get_best_model_prediction(self) -> int:
+        idx, stochastic = self.selector.best(self.state, self._next_key())
+        if bool(stochastic):
+            self.stochastic = True
+        return int(idx)

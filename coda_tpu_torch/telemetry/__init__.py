@@ -12,13 +12,16 @@ book and the decision flight recorder.
     its lint;
   * :mod:`~coda_tpu_torch.telemetry.costs`: the kernels' analytic bytes
     and operations per program, and the roofline;
-  * :mod:`~coda_tpu_torch.telemetry.recorder`: the run records.
+  * :mod:`~coda_tpu_torch.telemetry.recorder`: the run records and the
+    serving sessions' streams (:class:`SessionRecorder`);
+  * :mod:`~coda_tpu_torch.telemetry.trace`: the serve layer's trace
+    context (stdlib; the reference's own module, kept as the port's copy).
 
 :class:`Telemetry` bundles the first four for the plumbing layers: the
 CLI's and the suite's ``--telemetry-dir`` write ``trace.json``,
 ``telemetry.json`` and ``metrics.prom`` there and can flush the scalars
 into the tracking store beside the regret curves. The reference's
-``quality``, ``slo`` and ``trace`` modules come with slice 9 of the port.
+``quality`` and ``slo`` modules come with slice 8b of the port.
 """
 
 from __future__ import annotations
@@ -44,7 +47,10 @@ from coda_tpu_torch.telemetry.recorder import (
     KNOB_FIELDS,
     RECORD_SCHEMA_VERSION,
     REQUIRED_ARRAYS,
+    SESSION_SCHEMA_VERSION,
+    SUPPORTED_SESSION_VERSIONS,
     RunRecord,
+    SessionRecorder,
     dataset_digest,
     environment_fingerprint,
     is_record_dir,
@@ -83,6 +89,9 @@ __all__ = [
     "REQUIRED_ARRAYS",
     "Registry",
     "RunRecord",
+    "SESSION_SCHEMA_VERSION",
+    "SUPPORTED_SESSION_VERSIONS",
+    "SessionRecorder",
     "SpanRecorder",
     "Telemetry",
     "annotation",

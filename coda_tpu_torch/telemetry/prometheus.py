@@ -5,8 +5,10 @@
 exposition format (version 0.0.4), written as ``metrics.prom`` beside
 ``telemetry.json``; :func:`lint` checks a text against that contract. No
 client library: the format is lines of ``name{labels} value`` under
-``# HELP`` / ``# TYPE`` headers. The serve, fleet and quality families of
-the reference come with the serve layer (slices 8-9 of the port).
+``# HELP`` / ``# TYPE`` headers. ``render(serve_metrics=...)`` adds the
+serve families (``ServeMetrics``' snapshot, the reference's names); the
+quality families come with slice 8b and :func:`render_fleet` with the
+fleet, slice 9, of the port.
 """
 
 from __future__ import annotations
@@ -62,19 +64,178 @@ def _family(out: list, name: str, kind: str, help: str,
         out.append(_line(name, labels, value))
 
 
+def _exemplar_family(out: list, name: str, help: str,
+                     samples: list) -> None:
+    """A gauge family whose samples carry OpenMetrics exemplars:
+    ``name{labels} value # {trace_id="..."} value`` — the one-hop join
+    from a latency outlier on ``/metrics`` to its distributed trace.
+    ``samples`` is ``[(labels, {"value_s": float, "trace_id": str})]``."""
+    if help:
+        out.append(f"# HELP {name} {_escape(help)}")
+    out.append(f"# TYPE {name} gauge")
+    for labels, ex in samples:
+        v = float(ex["value_s"])
+        out.append(_line(name, labels, v)
+                   + f' # {{trace_id="{_escape(ex["trace_id"])}"}} '
+                   + _fmt(v))
+
+
 def render(registry: Optional[Registry] = None, serve_metrics=None,
            prefix: str = "coda") -> str:
-    """The registry as exposition text. ``serve_metrics`` (a serve layer's
-    snapshot) comes with the serve layer, slice 8 of the port."""
-    if serve_metrics is not None:
-        raise NotImplementedError(
-            "the serve metric families come with the serve layer (slice 8 "
-            "of the port)")
+    """The registry (+ an optional ``ServeMetrics`` snapshot) as exposition
+    text."""
     out: list[str] = []
     reg = registry if registry is not None else get_registry()
     for m in reg.collect():
         _family(out, _name(prefix, m.name), m.kind, m.help, m.samples())
+    if serve_metrics is not None:
+        _render_serve(out, serve_metrics.snapshot(), prefix)
     return "\n".join(out) + "\n"
+
+
+def render_fleet(*args, **kwargs) -> str:
+    """The fleet router's merged exposition comes with the fleet, slice 9
+    of the port."""
+    raise NotImplementedError(
+        "render_fleet: the fleet router comes with slice 9 of the port")
+
+
+# (snapshot key, metric suffix, kind, help) — counters keep their
+# monotonic-total names, distribution means/maxes surface as gauges
+_SERVE_SCALARS = [
+    ("uptime_s", "serve_uptime_seconds", "gauge",
+     "Seconds since the serve metrics baseline (monotonic clock)"),
+    ("dispatches", "serve_dispatches_total", "counter",
+     "Compiled slab-step dispatches"),
+    ("requests", "serve_requests_total", "counter",
+     "Requests served across all dispatches"),
+    ("sessions_opened", "serve_sessions_opened_total", "counter",
+     "Sessions admitted"),
+    ("sessions_closed", "serve_sessions_closed_total", "counter",
+     "Sessions closed"),
+    ("sessions_rejected", "serve_sessions_rejected_total", "counter",
+     "Sessions refused by admission control (slab full / draining)"),
+    ("requests_rejected", "serve_requests_rejected_total", "counter",
+     "Requests refused (draining / unknown session / stale item)"),
+    ("fencing_rejections", "serve_fencing_rejections_total", "counter",
+     "Stale-epoch verbs this replica refused (the ownership fence held)"),
+    ("max_occupancy", "serve_max_occupancy", "gauge",
+     "Most requests ever served by one dispatch"),
+    # tiered posterior state (serve/tiering.py)
+    ("demotions", "serve_demotions_total", "counter",
+     "Sessions demoted hot -> warm (slab slot freed, payload in host RAM)"),
+    ("hibernates", "serve_hibernates_total", "counter",
+     "Sessions hibernated warm -> cold (payload spilled to disk)"),
+    ("peer_pages", "serve_peer_pages_total", "counter",
+     "Warm sessions paged to a less-loaded peer replica instead of disk"),
+    ("wakes", "serve_wakes_total", "counter",
+     "Non-resident sessions transparently woken back onto the slab"),
+    ("wakes_from_warm", "serve_wakes_from_warm_total", "counter",
+     "Wakes served from the host-RAM warm tier"),
+    ("wakes_from_cold", "serve_wakes_from_cold_total", "counter",
+     "Wakes served from the on-disk cold tier"),
+    ("wake_failures", "serve_wake_failures_total", "counter",
+     "Wakes that raised (payload re-parked, session still reachable)"),
+    ("mean_occupancy", "serve_mean_occupancy", "gauge",
+     "Mean requests per dispatch over the recent ring"),
+    ("mean_queue_depth", "serve_mean_queue_depth", "gauge",
+     "Mean queue depth at tick start over the recent ring"),
+    ("ring_capacity", "serve_ring_capacity", "gauge",
+     "Capacity of each metrics ring (fill == capacity means wrapped)"),
+    # contract-gated EIG surrogate (--eig-scorer surrogate:k buckets):
+    # absent (not zero) on servers with no surrogate bucket. GAUGES, not
+    # counters: the values are sums over LIVE slots of the slab-carried
+    # fit state, and a session closing / demoting / migrating away takes
+    # its slot's contribution with it — a decreasing "_total" would make
+    # Prometheus rate() fabricate counter-reset spikes
+    ("surrogate_rounds", "serve_surrogate_rounds", "gauge",
+     "Rounds scored by the surrogate rung, summed over live slots "
+     "(decreases when sessions close/demote/migrate)"),
+    ("surrogate_fallbacks", "serve_surrogate_fallbacks", "gauge",
+     "Surrogate rounds that fell back to the full exact pass on a "
+     "violated contract, summed over live slots"),
+    ("surrogate_fit_refreshes", "serve_surrogate_fit_refreshes", "gauge",
+     "Surrogate ridge-fit refolds (normal-equation updates + re-solves), "
+     "summed over live slots"),
+    ("surrogate_contract_margin", "serve_surrogate_contract_margin",
+     "gauge",
+     "Worst escape-gate margin across live slots (best refreshed exact "
+     "score minus best unrefreshed prediction; healthy > 0)"),
+    # cross-session surrogate prior pool (--surrogate-prior pool): absent
+    # (not zero) under the default 'off'. The warmup/rejection pair are
+    # live-slot sums of slab-carried counters (same decrease-on-close
+    # semantics as the surrogate gauges above); sessions_contributed is
+    # pool state and only ever grows, but stays a gauge so the family
+    # keeps one scrape semantics
+    ("prior_sessions_contributed", "serve_prior_sessions_contributed",
+     "gauge",
+     "Sessions whose surrogate fit statistics were folded into the "
+     "cross-session prior pool"),
+    ("prior_warmup_rounds_skipped", "serve_prior_warmup_rounds_skipped",
+     "gauge",
+     "Exact warmup rounds the pool prior credited to live sessions "
+     "(summed over live slots; decreases when sessions close/demote)"),
+    ("prior_gate_rejections", "serve_prior_gate_rejections", "gauge",
+     "Trust-gate fallbacks fired inside a prior-credited warmup window, "
+     "summed over live slots (a transferring-badly prior shows up here)"),
+    ("prior_pools", "serve_prior_pools", "gauge",
+     "Distinct (task, pool-fingerprint) priors this replica holds"),
+    ("prior_rounds_pooled", "serve_prior_rounds_pooled", "gauge",
+     "Decay-weighted audited rounds aggregated across all pool priors"),
+    ("prior_pool_staleness_seconds", "serve_prior_pool_staleness_seconds",
+     "gauge",
+     "Age of the LEAST recently refreshed prior pool (seconds since its "
+     "last statistic fold) — the learned-decay sensor's staleness axis"),
+]
+
+# spill store v3 evidence (serve/spill.py, nested under snapshot["spill"]):
+# absent without --tier-spill-dir
+_SERVE_SPILL = [
+    ("entries", "serve_spill_entries", "gauge",
+     "Live hibernated payloads in the spill store"),
+    ("segments", "serve_spill_segments", "gauge",
+     "Sharded segment files currently on disk"),
+    ("live_bytes", "serve_spill_live_bytes", "gauge",
+     "Bytes of live frames across all segments"),
+    ("log_bytes", "serve_spill_log_bytes", "gauge",
+     "Total bytes across all segment files"),
+    ("garbage_bytes", "serve_spill_garbage_bytes", "gauge",
+     "Bytes of superseded/tombstoned frames awaiting compaction"),
+    ("segment_compactions", "serve_spill_segment_compactions_total",
+     "counter",
+     "Per-segment compactions (live frames copied forward, file "
+     "reclaimed) — never stop-the-world"),
+    ("put_errors", "serve_spill_put_errors_total", "counter",
+     "Spill appends that failed (payload kept warm instead)"),
+    ("startup_scan_frames", "serve_spill_startup_scan_frames", "gauge",
+     "Frames the last startup had to scan past the persisted index "
+     "(0 = pure O(index) startup)"),
+]
+
+_SERVE_SUMMARIES = [
+    ("dispatch_latency", "serve_dispatch_latency_seconds", "dispatches",
+     "Slab-step dispatch seconds over the recent ring"),
+    ("request_latency", "serve_request_latency_seconds", "requests",
+     "Submit-to-result request seconds over the recent ring"),
+    ("queue_wait", "serve_queue_wait_seconds", "requests",
+     "Submit-to-tick-start queue wait seconds over the recent ring"),
+    ("step_latency", "serve_step_latency_seconds", "dispatches",
+     "Compiled slab-step execution seconds over the recent ring"),
+    ("wake_latency", "serve_wake_latency_seconds", "wakes",
+     "Non-resident session wake seconds over the recent ring"),
+]
+
+# warm-pool evidence: (warm_pool snapshot key, metric suffix, kind, help)
+_SERVE_WARM = [
+    ("size", "serve_warm_pool_size", "gauge",
+     "AOT-precompiled executables in the warm pool"),
+    ("warm_s", "serve_warm_pool_seconds", "gauge",
+     "Wall seconds the warm-up pass took"),
+    ("hits", "serve_warm_pool_hits_total", "counter",
+     "Dispatches served by an AOT-precompiled executable"),
+    ("misses", "serve_warm_pool_misses_total", "counter",
+     "Dispatches that fell back to lazy jit compilation"),
+]
 
 
 # -- exposition lint ---------------------------------------------------------
@@ -219,3 +380,60 @@ def lint(text: str) -> list[str]:
             except ValueError:
                 out.append(f"line {i}: bad value {val!r}")
     return out
+
+
+def _render_serve(out: list, snap: dict, prefix: str) -> None:
+    for key, suffix, kind, help in _SERVE_SCALARS:
+        v = snap.get(key)
+        if v is not None:
+            _family(out, _name(prefix, suffix), kind, help, [({}, v)])
+    warm = snap.get("warm_pool") or {}
+    for key, suffix, kind, help in _SERVE_WARM:
+        v = warm.get(key)
+        if v is not None:
+            _family(out, _name(prefix, suffix), kind, help, [({}, v)])
+    tiers = snap.get("tiers") or {}
+    for tier in ("hot", "warm", "cold"):
+        if tier in tiers:
+            _family(out, _name(prefix, f"serve_sessions_{tier}"), "gauge",
+                    f"Open sessions currently in the {tier} tier",
+                    [({}, tiers[tier])])
+    spill = snap.get("spill") or {}
+    for key, suffix, kind, help in _SERVE_SPILL:
+        v = spill.get(key)
+        if v is not None:
+            _family(out, _name(prefix, suffix), kind, help, [({}, v)])
+    ages = (snap.get("prior_pool_ages_seconds")
+            or (snap.get("prior_pool") or {}).get("pool_ages_seconds")
+            or {})
+    if ages:
+        _family(out, _name(prefix, "serve_prior_pool_age_seconds"),
+                "gauge",
+                "Seconds since each prior pool's last statistic fold",
+                [({"pool": k}, v) for k, v in sorted(ages.items())])
+    fills = snap.get("ring_fill") or {}
+    if fills:
+        _family(out, _name(prefix, "serve_ring_fill"), "gauge",
+                "Events currently held in a metrics ring",
+                [({"ring": k}, n) for k, n in sorted(fills.items())])
+    exemplars = snap.get("exemplars") or {}
+    samples = [({"ring": ring}, ex)
+               for ring, ex in sorted(exemplars.items())
+               if ex and ex.get("trace_id")]
+    if samples:
+        _exemplar_family(
+            out, _name(prefix, "serve_latency_outlier_seconds"),
+            "Latest p99-bucket latency outlier per ring; the exemplar's "
+            "trace_id joins it to its stitched distributed trace",
+            samples)
+    for key, suffix, count_key, help in _SERVE_SUMMARIES:
+        q = snap.get(key) or {}
+        name = _name(prefix, suffix)
+        samples = []
+        for qk, quantile in (("p50_ms", "0.5"), ("p99_ms", "0.99")):
+            if q.get(qk) is not None:
+                samples.append(({"quantile": quantile}, q[qk] / 1e3))
+        if not samples:
+            continue
+        _family(out, name, "summary", help, samples)
+        out.append(_line(name + "_count", {}, snap.get(count_key, 0)))

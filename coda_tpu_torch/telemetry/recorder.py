@@ -20,7 +20,8 @@ reference fixes the bytes (the dataset digest), so the reference's
 The fingerprint's ``backend`` names the port (``torch-cuda``,
 ``torch-cpu``), so a comparison with a JAX record takes the cross-backend
 score contract, never the bitwise one. Serving-session streams
-(``SessionRecorder``) come with slice 8 of the port. ``save`` feeds the
+(:class:`SessionRecorder`, schema v4 like the reference's) are the serve
+layer's per-session JSONL logs. ``save`` feeds the
 registry's recorder counters (``telemetry/registry.py``), as the
 reference's does.
 """
@@ -31,6 +32,7 @@ import hashlib
 import json
 import os
 import re
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -403,3 +405,285 @@ def stream_dir(root: str, *parts: str) -> str:
     out."""
     safe = [_STREAM_SAFE.sub("-", p) for p in parts if p]
     return os.path.join(root, *safe)
+
+
+# -- serving-session streams (SessionRecorder) -------------------------------
+
+# the session stream's schema, the reference's: v2 added request_id, the
+# P(best) digest and the session_close marker; v3 q-wide batch-label rows
+# and the meta's acq_batch; v4 answer_park rows (the crowd's answer verb,
+# which the port serves from slice 8b). Rows may carry the additive
+# optional ``trace_id``; a reader tolerates extra keys.
+SESSION_SCHEMA_VERSION = 4
+SUPPORTED_SESSION_VERSIONS = (2, 3, 4)
+
+
+def _counters(registry=None):
+    from coda_tpu_torch.telemetry.registry import get_registry
+
+    return registry if registry is not None else get_registry()
+
+
+def _truncate_torn_tail(path: str) -> None:
+    """Drop a torn final line (no trailing newline) from a JSONL stream —
+    the leftover of a crash mid-write. Keeps everything through the last
+    newline; a file that is ONE torn line truncates to empty."""
+    with open(path, "rb+") as f:
+        f.seek(0, os.SEEK_END)
+        size = f.tell()
+        if size == 0:
+            return
+        back = min(size, 1 << 20)
+        f.seek(size - back)
+        tail = f.read(back)
+        if tail.endswith(b"\n"):
+            return
+        cut = tail.rfind(b"\n")
+        f.truncate(size - back + cut + 1 if cut >= 0 else 0)
+
+
+def _count_stream_rows(path: str) -> tuple:
+    """``(n_data_rows, resumable)`` for a session stream file. Not
+    resumable when a ``session_close`` marker is present (the stream
+    ended here — anything after it is a new incarnation, not a
+    continuation) or a line fails to parse."""
+    n = 0
+    with open(path) as f:
+        for line in f:
+            try:
+                kind = json.loads(line).get("kind")
+            except ValueError:
+                return n, False
+            if kind == "session_close":
+                return n, False
+            if not kind:
+                # only DATA rows count toward the resume prefix: marker
+                # rows (session_meta, v4's answer_park) are not part of
+                # the decision-row sequence import_history aligns on
+                n += 1
+    return n, True
+
+
+class SessionRecorder:
+    """Per-session decision streams for the serving layer.
+
+    An interactive session has no known end, so its record is a *stream*:
+    one in-memory history per live session (the ``GET /session/{id}/trace``
+    payload) plus, with an ``out_dir``, an append-only JSONL file per
+    session (one meta line, then one versioned row per dispatch) that
+    survives a crash mid-session — every ``append`` is flushed.
+
+    Thread-safe: the batcher thread appends, HTTP worker threads read.
+
+    Failure semantics (the disk-full recovery path): a stream write that
+    raises (``OSError`` — full disk, dead mount, or the injected
+    ``record_eio`` fault) DEGRADES that session's stream to memory-only
+    instead of failing the request: the file handle is dropped, the
+    session keeps serving, ``degraded_streams`` counts the evidence (and
+    rides the ``serve_record_write_errors_total`` registry counter +
+    ``/healthz`` degraded status). A clean close writes a
+    ``session_close`` marker row so crash restore can tell a finished
+    session from one that was live at process death.
+    """
+
+    def __init__(self, out_dir: Optional[str] = None, registry=None,
+                 faults=None):
+        self.out_dir = out_dir
+        self._lock = threading.Lock()
+        self._history: dict[str, list] = {}
+        self._files: dict[str, object] = {}
+        self._registry = registry
+        self.faults = faults        # optional FaultInjector (record_eio)
+        self._task_of: dict[str, str] = {}  # sid -> task (fault filter)
+        self.rows_written = 0
+        self.degraded_streams = 0   # streams downgraded to memory-only
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+
+    def _counter(self):
+        return _counters(self._registry).counter(
+            "serve_record_rows_total",
+            "Per-round decision rows streamed by the serving recorder")
+
+    def _write(self, sid: str, f, line: str) -> None:
+        """One flushed stream write; degrades the stream on failure.
+        Caller holds ``_lock`` and has already committed the row to the
+        in-memory history — a full disk must not lose the session."""
+        try:
+            if self.faults is not None:
+                self.faults.fire("record_write",
+                                 task=self._task_of.get(sid))
+            f.write(line)
+            f.flush()  # crash-mid-session keeps every completed row
+        except OSError as e:
+            self._files.pop(sid, None)
+            self.degraded_streams += 1
+            try:
+                f.close()
+            except OSError:
+                pass
+            _counters(self._registry).counter(
+                "serve_record_write_errors_total",
+                "Recorder stream writes that failed; the stream degraded "
+                "to memory-only").inc()
+            import sys
+
+            print(f"recorder: stream for session {sid} degraded to "
+                  f"memory-only ({e})", file=sys.stderr)
+
+    def open(self, sid: str, meta: Optional[dict] = None) -> None:
+        with self._lock:
+            self._history[sid] = []
+            if meta and meta.get("task"):
+                self._task_of[sid] = meta["task"]
+            if self.out_dir:
+                f = open(os.path.join(self.out_dir,
+                                      f"session_{sid}.jsonl"), "a")
+                self._files[sid] = f
+                header = {"v": SESSION_SCHEMA_VERSION, "kind": "session_meta",
+                          "session": sid}
+                header.update(meta or {})
+                self._write(sid, f, json.dumps(header, default=str) + "\n")
+
+    def import_history(self, sid: str, meta: Optional[dict] = None,
+                       rows=()) -> None:
+        """Seed a session's history from an imported/restored stream.
+
+        The portable session log moves WITH the session: on a fresh
+        record dir the full history (meta + rows) is written so the new
+        server's stream is self-contained; when the stream file already
+        exists here AND is a live prefix of the imported rows (crash
+        restore against the same dir), it is resumed by appending only
+        the missing suffix — a file that is closed (the session migrated
+        away from this dir and is now coming back), unreadable, or ahead
+        of the payload is rewritten whole, since appending after a close
+        marker or a row gap would leave a stream a later crash restore
+        replays into a false divergence. A resumed file may end in a
+        TORN line (the crash the restore is recovering from happened
+        mid-write); that tail is truncated before appending —
+        concatenating a new row onto the fragment would corrupt a
+        mid-file line and make the stream unreadable."""
+        rows = [dict(r) for r in rows]
+        path = (os.path.join(self.out_dir, f"session_{sid}.jsonl")
+                if self.out_dir else None)
+        resume = path is not None and os.path.exists(path)
+        n_existing = 0
+        if resume:
+            _truncate_torn_tail(path)
+            n_existing, resumable = _count_stream_rows(path)
+            if not resumable or n_existing > len(rows):
+                resume, n_existing = False, 0
+        with self._lock:
+            self._history[sid] = rows
+            if meta and meta.get("task"):
+                self._task_of[sid] = meta["task"]
+            if path is None:
+                return
+            f = open(path, "a" if resume else "w")
+            self._files[sid] = f
+            lines = []
+            if not resume:
+                header = {"v": SESSION_SCHEMA_VERSION,
+                          "kind": "session_meta", "session": sid}
+                header.update(meta or {})
+                lines.append(json.dumps(header, default=str))
+            lines += [json.dumps(dict(r, v=SESSION_SCHEMA_VERSION),
+                                 default=str) for r in rows[n_existing:]]
+            if lines:
+                self._write(sid, f, "\n".join(lines) + "\n")
+
+    def append(self, sid: str, row: dict) -> None:
+        with self._lock:
+            hist = self._history.get(sid)
+            if hist is None:
+                return  # session closed (or never opened) while queued
+            row = dict(row, v=SESSION_SCHEMA_VERSION)
+            hist.append(row)
+            self.rows_written += 1
+            f = self._files.get(sid)
+            if f is not None:
+                self._write(sid, f, json.dumps(row, default=str) + "\n")
+        self._counter().inc()
+
+    def history(self, sid: str) -> Optional[list]:
+        with self._lock:
+            hist = self._history.get(sid)
+            return list(hist) if hist is not None else None
+
+    def park(self, sid: str) -> None:
+        """Release a live stream's host resources WITHOUT ending it — the
+        warm-tier demotion hook (serve/tiering.py): the fd closes (100k
+        parked sessions must not hold 100k file handles) and the
+        in-memory history drops (the demotion payload carries the rows),
+        but NO close marker is written — the stream is still a live
+        session's record, and crash restore must rebuild it. Wake resumes
+        the file through :meth:`import_history`'s append path."""
+        with self._lock:
+            self._history.pop(sid, None)
+            self._task_of.pop(sid, None)
+            f = self._files.pop(sid, None)
+        if f is not None:
+            try:
+                f.close()
+            except OSError:
+                pass
+
+    def seal(self, sid: str) -> None:
+        """End a PARKED session's stream: append the ``session_close``
+        marker to its file (hibernate/discard of a non-resident session —
+        from there the hibernate payload, or nothing, is the authority
+        and crash restore must skip the stream). A still-live stream is
+        closed normally instead."""
+        with self._lock:
+            live = sid in self._files or sid in self._history
+        if live:
+            self.close(sid)
+            return
+        if not self.out_dir:
+            return
+        path = os.path.join(self.out_dir, f"session_{sid}.jsonl")
+        if not os.path.exists(path):
+            return
+        try:
+            with open(path, "a") as f:
+                f.write(json.dumps(
+                    {"v": SESSION_SCHEMA_VERSION, "kind": "session_close",
+                     "session": sid}) + "\n")
+        except OSError:
+            pass
+
+    def close(self, sid: str) -> None:
+        with self._lock:
+            self._history.pop(sid, None)
+            self._task_of.pop(sid, None)
+            f = self._files.pop(sid, None)
+            if f is not None:
+                # the clean-shutdown marker crash restore keys on: a
+                # stream WITHOUT it was live when the process died
+                try:
+                    f.write(json.dumps(
+                        {"v": SESSION_SCHEMA_VERSION,
+                         "kind": "session_close", "session": sid}) + "\n")
+                    f.flush()
+                except OSError:
+                    pass
+        if f is not None:
+            try:
+                f.close()
+            except OSError:
+                pass
+
+    def close_all(self) -> None:
+        with self._lock:
+            files = list(self._files.items())
+            self._files.clear()
+            self._history.clear()
+            self._task_of.clear()
+        for sid, f in files:
+            try:
+                f.write(json.dumps(
+                    {"v": SESSION_SCHEMA_VERSION, "kind": "session_close",
+                     "session": sid}) + "\n")
+                f.close()
+            except OSError:
+                pass

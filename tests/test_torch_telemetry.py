@@ -123,8 +123,17 @@ def test_reference_render_and_lint():
     assert lint_prometheus(text) == [] == jlint(text)
     assert json.dumps(tr.snapshot()) == json.dumps(jr.snapshot())
     assert render_prometheus(tr, prefix="") == jrender(jr, prefix="")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        render_prometheus(tr, serve_metrics=object())
+    # the serve families (slice 8a): one serve snapshot, the same text
+    from coda_tpu.serve.metrics import ServeMetrics as JServeMetrics
+
+    m = JServeMetrics()
+    m.record_dispatch(3, 1, 0.01, step_seconds=0.005, warm=True)
+    m.record_request_latency(0.02, trace_id="ab" * 16)
+    snap = dict(m.snapshot(), uptime_s=1.0)
+    fixed = type("Fixed", (), {"snapshot": lambda self: dict(snap)})()
+    text = render_prometheus(tr, serve_metrics=fixed)
+    assert text == jrender(jr, serve_metrics=fixed)
+    assert lint_prometheus(text) == []
 
 
 BAD_TEXTS = [
