@@ -189,7 +189,47 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    ``step_raise:after=5`` fault healed from the recorder streams with the
    sessions finishing bitwise the unfaulted run; and ``cli serve`` on
    ``digits_h80`` in a subprocess, two sessions labelled, drained by
-   SIGTERM with exit 0.
+   SIGTERM with exit 0. (Phase 12 runs before it.)
+12. serve durability, tiers and quality (``serve/recovery.py``,
+   ``tiering.py``, ``spill.py``, ``priors.py``, ``telemetry/quality.py``):
+   one ``ServeApp`` of 16 incremental fp32 slots at the headline with its
+   defaults (the ``batched`` lowering, tiering on with a spill directory,
+   quality on, every closed session audited; no idle paging, the phase
+   pages itself), driven through the Python API, each slab run counted.
+   (4) 16 sessions x 3 rounds with quality on, off, off and on: the rows
+   bitwise equal but ``pred_label_prob``, the 16-slot dispatch ms with
+   and without the pre-dispatch hook. (1) 16 sessions (seeds 0-15) x 3
+   labels; 8 demoted with one ``demote_batch`` beside 8-slot dispatches
+   of the other half (their ms against without the wave), one of the 8
+   labeled while its snapshot copy is in flight (that demotion loses, the
+   other 7 demote, its rows and digest intact); 8
+   more admitted past capacity; one hibernated to the spill store (its
+   bytes and seconds); the 8 woken by labeling them (make_room paging the
+   least recently used out), each woken slot bitwise a device copy taken
+   before the demotion, through the snapshot path (wake ms from warm and
+   from cold); 3 more 16-slot rounds; all 24 streams verified from init
+   by ``verify_session_stream`` in a fresh slot, every label applied
+   once. (2) one session exported (raw, then base64 JSON), closed and
+   imported through the snapshot path, then through the replay path
+   without its carries, its slot bitwise every time (ms); then one
+   exported and imported over HTTP (``AsyncHTTPServer``) while 8 client
+   threads label over HTTP, the slot bitwise (seconds, the clients' label
+   ms alone and during each). (3) 4 closed sessions shadow-audited
+   alone in free slots (kernel 2), each ``ok``, and a ``stream_tamper``
+   audit ``diverged`` at the tampered round. (5) the
+   app abandoned without closing its streams and a second app restoring
+   every live session from the record directory through coalesced
+   dispatches, each ``/best`` bitwise (seconds, dispatches). Then ``cli
+   serve`` on ``digits_h80`` in subprocesses: an HTTP export/import round
+   trip; ``crash_after_tick`` exiting 17 and ``--restore`` answering
+   ``/best`` bitwise; ``cli replay-serve`` 0 on the streams and 2 on a
+   copy tampered by one ulp; ``cli quality --url`` 0; the crowd's
+   ``answer`` verb on a q = 4 bucket, out of order with an abstain and an
+   ``oracle_poison``, committing the rows of the in-order ``labels`` verb
+   with the same final labels; and the prior pool (``--eig-scorer
+   surrogate:32 --surrogate-prior pool``): a closed donor contributes, the
+   next session carries ``prior_fit`` and its import-replay reproduces
+   it.
 
 It prints one JSON line with every kernel flavour (its ``launches`` summed
 over the main-path runs), then the card's name and power
@@ -201,6 +241,7 @@ result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -3891,6 +3932,863 @@ def phase_serve(dev, task, total: dict, smi: str) -> dict:
     return out
 
 
+
+DURABLE_CAPACITY = 16                # the headline slab's slots
+DURABLE_LABELS = 3                   # labels a session before the wave
+DURABLE_AFTER = 3                    # full rounds after the wakes
+DURABLE_AUDITS = 4                   # closed sessions shadow-audited
+DURABLE_Q = 4                        # the answer verb's bucket width
+DURABLE_POOL = "surrogate:32"        # the prior pool's scorer
+DURABLE_CLI_EXTRA: list = []         # extra `cli` flags (rehearsals)
+
+
+def _round(app, sids, labels, cur: dict, what: str):
+    """One label for each of ``sids`` (for the item its last answer in
+    ``cur`` proposed), the tickets submitted while the batcher is paused so
+    they ride ONE dispatch (a parked session wakes at its submission, as a
+    client's label wakes it); updates ``cur`` and returns the wall ms from
+    the resume to the last answer."""
+    pairs = []
+    app.batcher.pause()
+    try:
+        for sid in sids:
+            pairs.append(app._label_begin(sid, int(labels[cur[sid]["idx"]]),
+                                          cur[sid]["idx"]))
+    finally:
+        t0 = time.perf_counter()
+        app.batcher.resume()
+    outs = [app._payload(s, t.wait(600)) for s, t in pairs]
+    ms = (time.perf_counter() - t0) * 1e3
+    for sid, o in zip(sids, outs):
+        if o["session"] != sid or o["n_labeled"] != \
+                cur[sid]["n_labeled"] + 1:
+            raise AssertionError(f"{what}: {o} after {cur[sid]}")
+        cur[sid] = o
+    return ms
+
+
+def _opens(app, seeds, task_name, cur: dict) -> list:
+    """Admit one session a seed; their starts ride ONE dispatch. Their
+    first answers land in ``cur``; returns the session ids."""
+    pairs = []
+    app.batcher.pause()
+    try:
+        for s in seeds:
+            pairs.append(app._open_begin(task_name, s))
+    finally:
+        app.batcher.resume()
+    for sess, t in pairs:
+        cur[sess.sid] = app._payload(sess, t.wait(600))
+    return [sess.sid for sess, _ in pairs]
+
+
+def _slot_copy(bucket, slot):
+    """A device copy of one slot's carries and its key (the exact
+    reference a wake or an import is held to)."""
+    with bucket.lock:
+        bucket._apply_staged()
+        return ([x.clone() for x in bucket._carries(slot)],
+                bucket.keys[slot].clone())
+
+
+def _slot_same(bucket, slot, copy) -> bool:
+    """Whether a slot's carries and key are bitwise ``copy``'s (compared
+    on the device as bytes)."""
+    import torch
+
+    leaves, key = copy
+    with bucket.lock:
+        bucket._apply_staged()
+        cur = bucket._carries(slot)
+        return (len(cur) == len(leaves) and torch.equal(
+            bucket.keys[slot], key) and all(
+                a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+                    a.reshape(-1).view(torch.uint8),
+                    b.reshape(-1).view(torch.uint8))
+                for a, b in zip(cur, leaves)))
+
+
+def _rows_of(app, sid) -> list:
+    from coda_tpu_torch.serve.recovery import data_rows
+
+    return data_rows(app.recorder.history(sid))
+
+
+def _strip(rows, drop=("pred_label_prob", "trace_id", "request_id")):
+    return [{k: v for k, v in r.items() if k not in drop} for r in rows]
+
+
+def _durable_http(app, bucket, sid, others, labels, cur: dict) -> dict:
+    """``sid`` exported (``close``) and imported back through
+    ``AsyncHTTPServer``, each while one client thread a session of
+    ``others`` labels over HTTP in a closed loop; the slot must come back
+    bitwise through the snapshot. Returns the export and import seconds,
+    the body's bytes, and the label ms alone (3 a client), during the
+    export and during the import."""
+    import http.client
+    import socket
+    import threading
+
+    from coda_tpu_torch.serve import make_server
+
+    srv = make_server(app, 0)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    srv._started.wait(30)
+    lat: dict = {"alone": [], "export": [], "import": []}
+    errors: list = []
+
+    def loaded(what, fn=None):
+        stop = threading.Event()
+
+        def client(s):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            try:
+                # headers and body leave in two sends: without this the
+                # body waits out the server's delayed ACK (about 40 ms)
+                conn.connect()
+                conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY,
+                                     1)
+                n, want = 0, 3 if fn is None else 1
+                while n < want or (fn is not None and not stop.is_set()):
+                    body = json.dumps(
+                        {"label": int(labels[cur[s]["idx"]])}).encode()
+                    t = time.perf_counter()
+                    conn.request("POST", f"/session/{s}/label", body)
+                    r = conn.getresponse()
+                    text = r.read()
+                    ms = (time.perf_counter() - t) * 1e3
+                    o = json.loads(text)
+                    if r.status != 200 or o["n_labeled"] != \
+                            cur[s]["n_labeled"] + 1:
+                        raise AssertionError(f"{what} label: {r.status} {o}")
+                    cur[s] = o
+                    lat[what].append(ms)
+                    n += 1
+            except BaseException as e:
+                errors.append(e)
+            finally:
+                conn.close()
+
+        ts = [threading.Thread(target=client, args=(s,)) for s in others]
+        for t in ts:
+            t.start()
+        try:
+            return fn() if fn is not None else None
+        finally:
+            stop.set()
+            for t in ts:
+                t.join()
+            if errors:
+                raise errors[0]
+
+    def call(method, path, body):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            t = time.perf_counter()
+            conn.request(method, path, body)
+            r = conn.getresponse()
+            text = r.read()
+            if r.status != 200:
+                raise AssertionError(f"{path}: {r.status} {text[:300]}")
+            return text, time.perf_counter() - t
+        finally:
+            conn.close()
+
+    copy = _slot_copy(bucket, app.store.get(sid).slot)
+    try:
+        loaded("alone")
+        body, export_s = loaded("export", lambda: call(
+            "POST", f"/session/{sid}/export", b'{"close": true}'))
+        text, import_s = loaded("import", lambda: call(
+            "POST", "/session/import", body))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(30)
+    info = json.loads(text)
+    if info["restored_via"] != "snapshot" or not _slot_same(
+            bucket, app.store.get(sid).slot, copy):
+        raise AssertionError(f"HTTP import {info}")
+    res = {"export_s": export_s, "import_s": import_s,
+           "body_bytes": len(body), "label_ms": lat}
+    log(f"durable HTTP export/import: a {len(body)}-byte body exported in "
+        f"{export_s:.3f} s and imported via the snapshot in "
+        f"{import_s:.3f} s, the slot bitwise; {len(others)} clients' label "
+        f"ms alone median {_ms(lat['alone'])} max "
+        f"{max(lat['alone']):.1f}, during the export median "
+        f"{_ms(lat['export'])} max {max(lat['export']):.1f} "
+        f"({len(lat['export'])} labels), during the import median "
+        f"{_ms(lat['import'])} max {max(lat['import']):.1f} "
+        f"({len(lat['import'])} labels)")
+    return res
+
+
+def _durable_headline(dev, task, total: dict, tmp: str, out: dict) -> None:
+    """Items 12.1-12.5 at the headline (see the module docstring)."""
+    import gc
+    import threading
+    import types
+
+    import torch
+
+    from coda_tpu_torch.serve import SelectorSpec, ServeApp
+    from coda_tpu_torch.serve.faults import FaultInjector
+    from coda_tpu_torch.serve.recovery import (data_rows,
+                                               iter_session_streams,
+                                               last_digest,
+                                               load_session_stream,
+                                               verify_session_stream)
+    from coda_tpu_torch.serve.state import SessionStore
+    from coda_tpu_torch.telemetry import SessionRecorder
+
+    import numpy as np
+
+    cuda = dev.type == "cuda"
+    cap, half = DURABLE_CAPACITY, DURABLE_CAPACITY // 2
+    labels = task.labels.cpu().numpy()
+    spec = SelectorSpec.create("coda", n_parallel=cap,
+                               eig_mode="incremental")
+    rec_dir = os.path.join(tmp, "rec")
+    cur: dict = {}
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    def want_batched(k):
+        return k["eig_refresh_score_batched"] > 0 \
+            and k["row_gather_batched"] > 0
+
+    def want_lone(k):   # a slot alone: kernels 2 and 3, no batch
+        return k["eig_refresh_score"] > 0 and k["row_gather"] > 0 \
+            and k["eig_refresh_score_batched"] == 0
+
+    def make_app():
+        # no idle demotion or hibernation: the phase pages sessions
+        # itself, so its checks see the tiers it set up
+        a = ServeApp(spec=spec, capacity=cap, device=dev,
+                     tier_spill_dir=os.path.join(tmp, "spill"),
+                     idle_warm_s=3600.0, idle_cold_s=3600.0,
+                     quality_audit_frac=1.0,
+                     recorder=SessionRecorder(out_dir=rec_dir))
+        a.add_task("headline", task.preds)
+        a.start(warm=True)
+        return a
+
+    t0 = time.perf_counter()
+    app = _counted("durable app + warm", lambda k: k["eig_score"] > 0,
+                   total, make_app)
+    out["app_s"] = time.perf_counter() - t0
+    bucket = app.store.buckets()[0]
+    if app.tiers is None or app.quality is None or bucket.impl != "batched":
+        raise AssertionError("the defaults: tiering and quality on, batched")
+
+    # 12.4 quality on against off: the same 16 sessions, the same rows
+    def q_run():
+        sids = _opens(app, list(range(100, 100 + cap)), "headline", cur)
+        times = [_round(app, sids, labels, cur, "quality")
+                 for _ in range(DURABLE_LABELS)]
+        rows = [data_rows(app.recorder.history(s)) for s in sids]
+        for s in sids:
+            app.close_session(s)
+        return rows, times
+
+    app.quality.audit_frac = 0.0      # these closes queue no audit
+    hook_ms = []
+    real_hook = app.quality.pre_dispatch
+
+    def timed_hook(*a, **kw):
+        t = time.perf_counter()
+        v = real_hook(*a, **kw)
+        hook_ms.append((time.perf_counter() - t) * 1e3)
+        return v
+
+    # on, off, off, on: an order effect (the app's first dispatches)
+    # weighs on both sides alike
+    runs = {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on"):
+        app.batcher.quality = (types.SimpleNamespace(pre_dispatch=timed_hook)
+                               if mode == "on" else None)
+        runs[mode].append(_counted(f"quality {mode}", want_batched, total,
+                                   q_run))
+    del real_hook, timed_hook
+    app.batcher.quality = app.quality
+    app.quality.audit_frac = 1.0
+    rows = {m: [sum(r, []) for r, _ in runs[m]] for m in runs}
+    if any(_strip(r) != _strip(rows["on"][0])
+           for m in rows for r in rows[m]):
+        raise AssertionError("quality on changed a decision row")
+    if not all("pred_label_prob" in r for rs in rows["on"] for r in rs
+               if r["do_update"]) or any(
+                   "pred_label_prob" in r for rs in rows["off"] for r in rs):
+        raise AssertionError("pred_label_prob: on every labeled row with "
+                             "quality on, on none with it off")
+    t_on = [t for _, ts in runs["on"] for t in ts]
+    t_off = [t for _, ts in runs["off"] for t in ts]
+    out["quality_ms"] = {"on": t_on, "off": t_off, "hook": hook_ms,
+                         "order": "on off off on"}
+    log(f"durable quality: {cap} sessions x {DURABLE_LABELS} rounds with "
+        f"quality on, off, off, on, rows bitwise equal but "
+        f"pred_label_prob; {cap}-slot dispatch ms with the pre-dispatch "
+        f"hook {[round(x, 3) for x in t_on]} (median {_ms(t_on)}), "
+        f"without {[round(x, 3) for x in t_off]} (median {_ms(t_off)}); "
+        f"the hook itself (one gather of {cap} P(best) rows, one copy) ms "
+        f"{[round(x, 3) for x in hook_ms]}")
+
+    # 12.1 demote, hibernate and wake; every woken slot is held to a
+    # device copy of it taken before the demotion, at its wake
+    wakes, copies, woke_same = [], {}, {}
+    real_record, real_wake = app.metrics.record_tier, app.tiers._wake
+
+    def record_tier(event, src=None, seconds=None, via=None):
+        if event == "wake":
+            wakes.append((src, seconds, via))
+        return real_record(event, src=src, seconds=seconds, via=via)
+
+    def checked_wake(sid):
+        real_wake(sid)
+        if sid in copies:
+            woke_same[sid] = _slot_same(bucket, app.store.get(sid).slot,
+                                        copies.pop(sid))
+
+    app.metrics.record_tier, app.tiers._wake = record_tier, checked_wake
+    res: dict = {}
+
+    def step1():
+        sids = _opens(app, list(range(cap)), "headline", cur)
+        res["full"] = [_round(app, sids, labels, cur, "full")
+                       for _ in range(DURABLE_LABELS)]
+        low, high = sids[:half], sids[half:]
+        # the wave beside 8-slot dispatches of the other half; the last of
+        # the 8 gets a label while its snapshot copy is in flight, so its
+        # demotion must lose, and the other 7 demote
+        victim = res["victim"] = low[-1]
+        v_slot, raced = app.store.get(victim).slot, []
+        for s in low[:-1]:
+            copies[s] = _slot_copy(bucket, app.store.get(s).slot)
+        # on the card the label goes in just as the slot's copy is queued
+        # on the side stream; on the CPU (copies under the lock) just
+        # before the wave's copies
+        hook = "_to_stage" if cuda else "snapshot_slots"
+        real_copy = getattr(bucket, hook)
+
+        def racing_copy(first, *a, **kw):
+            if not raced and (first == v_slot if cuda else v_slot in first):
+                raced.append(app._label_begin(
+                    victim, int(labels[cur[victim]["idx"]]),
+                    cur[victim]["idx"]))
+            return real_copy(first, *a, **kw)
+
+        res["alone"] = [_round(app, high, labels, cur, "alone")
+                        for _ in range(2)]
+        done = []
+        setattr(bucket, hook, racing_copy)
+        try:
+            th = threading.Thread(target=lambda: done.append(
+                (app.tiers.demote_batch(bucket, low),
+                 time.perf_counter())))
+            tw = time.perf_counter()
+            th.start()
+            during = []
+            while th.is_alive() or not during:
+                during.append(_round(app, high, labels, cur, "during"))
+            th.join()
+        finally:
+            delattr(bucket, hook)
+        n, t_end = done[0]
+        if n != half - 1 or len(raced) != 1:
+            raise AssertionError(
+                f"the wave demoted {n} of {half}, {len(raced)} raced "
+                f"({app.tiers.last_snapshot_error})")
+        o = app._payload(raced[0][0], raced[0][1].wait(600))
+        if o["n_labeled"] != cur[victim]["n_labeled"] + 1:
+            raise AssertionError(f"the raced label: {o}")
+        cur[victim] = o
+        rows = _rows_of(app, victim)
+        with bucket.lock:
+            bucket._apply_staged()
+            got = bucket.digest(app.store.get(victim).slot)
+        if [r["n_labeled"] for r in rows] != list(range(len(rows))) \
+                or np.float32(got).tobytes() != np.float32(
+                    last_digest(rows)).tobytes():
+            raise AssertionError("the raced session's rows or digest")
+        res["wave"] = {"alone_ms": res["alone"], "during_ms": during,
+                       "wave_s": t_end - tw,
+                       "per_session_ms": (t_end - tw) * 1e3 / half}
+        w = res["wave"]
+        log(f"durable demotion wave: {half} sessions in {w['wave_s']:.3f} s"
+            f" = {w['per_session_ms']:.1f} ms a session; {half}-slot "
+            f"dispatch ms during the wave {[round(x, 3) for x in during]} "
+            f"against {[round(x, 3) for x in res['alone']]} without it; a "
+            "label during one session's snapshot copy: that demotion lost, "
+            f"the other {n} demoted, its rows and digest intact")
+        res["new"] = _opens(app, list(range(cap, cap + half)), "headline",
+                            cur)
+        t1 = time.perf_counter()
+        if not app.tiers.hibernate(low[0]):
+            raise AssertionError("hibernate")
+        res["hibernate_s"] = time.perf_counter() - t1
+        res["hibernate_bytes"] = app.tiers._spill.stats()["live_bytes"]
+        log(f"durable hibernate: 1 session in {res['hibernate_s']:.3f} s, "
+            f"{res['hibernate_bytes']} bytes in the spill log")
+        n0 = len(wakes)
+        t1 = time.perf_counter()
+        _round(app, low, labels, cur, "wake")     # the 8 wake, then label
+        res["wake_round_s"] = time.perf_counter() - t1
+        res["wakes"] = wakes[n0:]
+        res.update(sids=sids, low=low, high=high)
+        hot = sorted(app.store._sessions)
+        res["after"] = [_round(app, hot, labels, cur, "after")
+                        for _ in range(DURABLE_AFTER)]
+
+    try:
+        _counted("durable tiers", want_batched, total, step1)
+    finally:
+        app.metrics.record_tier, app.tiers._wake = real_record, real_wake
+    low, high, new = res["low"], res["high"], res["new"]
+    m = app.metrics
+    if sorted(woke_same) != sorted(low[:-1]) or not all(woke_same.values()):
+        raise AssertionError(f"woken slots bitwise: {woke_same}")
+    if m.wakes_via_replay or [w[0] for w in res["wakes"]].count("cold") != 1:
+        raise AssertionError(f"wakes {res['wakes']}, {m.wakes_via_replay} "
+                             "via replay")
+    copies.clear()
+    free()
+    # every session's stream verifies from init through a fresh slot, and
+    # its labels are the ones it was sent: none lost, none applied twice
+    everyone = res["sids"] + new
+    vstore = SessionStore(capacity=1, device=dev)
+    vstore.register_task("headline", task.preds)
+    vstore._bucket_for("headline", spec).warm()   # admissions copy the init
+    t1 = time.perf_counter()
+
+    def verify():
+        n = 0
+        for sid, path in iter_session_streams(rec_dir):
+            if sid not in everyone:
+                continue
+            meta, rows, _ = load_session_stream(path)
+            rows = data_rows(rows)
+            t2 = time.perf_counter()
+            verify_session_stream(vstore, meta, rows, sid=sid)
+            per_stream.append((time.perf_counter() - t2) * 1e3)
+            if [r["n_labeled"] for r in rows] != list(range(len(rows))) \
+                    or len(rows) - 1 != cur[sid]["n_labeled"]:
+                raise AssertionError(f"{sid}: labels lost or doubled")
+            n += 1
+            n_rows[0] += len(rows)
+        return n
+
+    n_rows, per_stream = [0], []
+
+    n_ver = _counted("durable verify", want_lone, total, verify)
+    verify_s = time.perf_counter() - t1
+    if n_ver != len(everyone):
+        raise AssertionError(f"{n_ver} of {len(everyone)} streams verified")
+    del vstore
+    free()
+    w_warm = [w[1] * 1e3 for w in res["wakes"] if w[0] == "warm"]
+    w_cold = [w[1] * 1e3 for w in res["wakes"] if w[0] == "cold"]
+    out["tiers"] = {k: res[k] for k in ("full", "wave", "hibernate_s",
+                                        "hibernate_bytes", "wake_round_s",
+                                        "after")}
+    out["tiers"].update(wake_warm_ms=w_warm, wake_cold_ms=w_cold,
+                        verify_s=verify_s, verify_rounds=n_rows[0],
+                        demotions=m.demotions, wakes=m.wakes,
+                        peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                                 if cuda else 0.0))
+    log(f"durable tiers ({len(everyone)} sessions on {cap} slots): "
+        f"{cap}-slot dispatch ms {[round(x, 3) for x in res['full']]}; "
+        f"1 session hibernated in {res['hibernate_s']:.3f} s "
+        f"({res['hibernate_bytes']} bytes in the spill log); {half} woken "
+        f"by a label round in {res['wake_round_s']:.3f} s (wake ms from "
+        f"warm {[round(x, 1) for x in w_warm]}, from cold "
+        f"{[round(x, 1) for x in w_cold]}), each slot bitwise its "
+        f"pre-demotion copy, 0 via replay; {m.demotions} demotions; "
+        f"{DURABLE_AFTER} more {cap}-slot rounds "
+        f"{[round(x, 3) for x in res['after']]} ms; {n_ver} streams "
+        f"({n_rows[0]} rounds) verified bitwise from init in "
+        f"{verify_s:.2f} s (ms a stream: median {_ms(per_stream)}, max "
+        f"{max(per_stream):.1f}), every label applied once")
+
+    # after the wake round the 8 woken and the 8 admitted are hot, and the
+    # make_room demotions paged the other 8 out
+    if sorted(app.store._sessions) != sorted(low + new):
+        raise AssertionError("the hot set after the wakes")
+
+    # 12.2 export and import at the headline: the in-process payload (raw
+    # host arrays) and the JSON one (base64, what HTTP sends), each
+    # through the snapshot path, then the replay path without carries
+    # (these closes queue no audit: step 3 counts its own)
+    app.quality.audit_frac = 0.0
+    sid = low[1]
+    copy = _slot_copy(bucket, app.store.get(sid).slot)
+    ex = {}
+    for form in ("raw", "json"):
+        t1 = time.perf_counter()
+        payload = app.export_session(sid, close=True, raw=form == "raw")
+        ex[f"export_{form}_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        info = app.import_session(payload)
+        ex[f"import_{form}_s"] = time.perf_counter() - t1
+        if info["restored_via"] != "snapshot" or not _slot_same(
+                bucket, app.store.get(sid).slot, copy):
+            raise AssertionError(f"import ({form} snapshot) {info}")
+    app.close_session(sid)
+    t1 = time.perf_counter()
+    info = _counted("durable import replay", want_lone, total,
+                    lambda: app.import_session(
+                        dict(payload, carries=None, key=None)))
+    replay_s = time.perf_counter() - t1
+    if info["restored_via"] != "replay" or not _slot_same(
+            bucket, app.store.get(sid).slot, copy):
+        raise AssertionError(f"import (replay) {info}")
+    app.close_session(sid)    # a free slot for the audits' scratch
+    del copy, payload
+    app.quality.audit_frac = 1.0
+    free()
+    out["export"] = dict(ex, import_replay_s=replay_s,
+                         rounds=info["rounds"])
+    log(f"durable export/import: raw payload export "
+        f"{ex['export_raw_s'] * 1e3:.1f} ms, import via the snapshot "
+        f"{ex['import_raw_s'] * 1e3:.1f} ms; JSON (base64) payload export "
+        f"{ex['export_json_s'] * 1e3:.1f} ms, import "
+        f"{ex['import_json_s'] * 1e3:.1f} ms; import via replay "
+        f"({info['rounds']} rounds) {replay_s * 1e3:.1f} ms; the slot "
+        "bitwise every time")
+
+    # 12.2 over HTTP: one export and its import at the headline, each
+    # while 8 clients label over HTTP (these closes queue no audit)
+    app.quality.audit_frac = 0.0
+    out["http"] = _counted(
+        "durable http", lambda k: k["row_gather"] + k["row_gather_batched"]
+        > 0, total, lambda: _durable_http(
+            app, bucket, low[2], low[3:] + new[DURABLE_AUDITS + 1:],
+            labels, cur))
+    app.quality.audit_frac = 1.0
+    free()
+
+    # 12.3 shadow audits of sessions that ran in 16-slot batched
+    # dispatches: each alone in a free slot (kernel 2)
+    audit_ms = []
+    real_audit = app.quality.auditor.audit
+
+    def timed_audit(*a, **kw):
+        t = time.perf_counter()
+        v = real_audit(*a, **kw)
+        audit_ms.append((time.perf_counter() - t) * 1e3)
+        return v
+
+    app.quality.auditor.audit = timed_audit
+    audited, tampered = new[:DURABLE_AUDITS], new[DURABLE_AUDITS]
+
+    def audits():
+        for s in audited:
+            app.close_session(s)
+        if not app.quality.drain(300):
+            raise AssertionError("the audits did not finish")
+
+    _counted("durable audits", want_lone, total, audits)
+    a = app.quality.snapshot()["audit"]
+    if (a["audits_total"], a["divergences_total"], a["audits_skipped"]) \
+            != (DURABLE_AUDITS, 0, 0):
+        raise AssertionError(f"audits {a}")
+    app.quality.auditor.faults = FaultInjector("stream_tamper:after=0")
+    n_rows = len(data_rows(app.recorder.history(tampered)))
+    _counted("durable tampered audit", want_lone, total,
+             lambda: (app.close_session(tampered), app.quality.drain(300)))
+    app.quality.auditor.faults = None
+    a = app.quality.snapshot()["audit"]
+    div = (a["last_divergences"] or [{}])[-1]
+    if a["divergences_total"] != 1 or div.get("session") != tampered \
+            or div.get("round") != n_rows // 2:
+        raise AssertionError(f"tampered audit {a}")
+    out["audit_ms"] = audit_ms
+    log(f"durable audits: {DURABLE_AUDITS} closed sessions replayed alone "
+        f"(kernel 2), each ok, ms {[round(x, 1) for x in audit_ms]}; "
+        f"stream_tamper reported diverged at round {div['round']} of "
+        f"{n_rows}")
+
+    # 12.5 crash restore in process: the live sessions' answers before
+    # the "crash", and after a second app restored them
+    for s in list(app.tiers.parked_sids()):
+        app.close_session(s)         # the restore stays one wave
+    live = sorted(app.store._sessions)
+    before = {s: app.best(s) for s in live}
+    app.quiesce(hard=True)           # no close marker is written
+    # nothing may keep the first app's slab alive: its audit worker, and
+    # the wrappers this phase put around its methods
+    app.quality.stop()
+    worker = app.quality._worker
+    del app, bucket, m, real_record, real_wake, real_audit, record_tier
+    del checked_wake, timed_audit
+    if worker is not None:
+        worker.join(5)
+    del worker
+    free()
+    mem_freed = torch.cuda.memory_allocated() / 1e9 if cuda else 0.0
+    app = make_app()
+    b2 = app.store.buckets()[0]
+    h0 = b2.warm_hits
+    t1 = time.perf_counter()
+    report = _counted("durable restore", want_batched, total,
+                      app.restore_sessions)
+    restore_s = time.perf_counter() - t1
+    n_disp = b2.warm_hits - h0
+    try:
+        if sorted(report["restored"]) != live or report["failed"]:
+            raise AssertionError(f"restore {report}")
+        for s in live:
+            if app.best(s) != before[s]:
+                raise AssertionError(f"restored {s}: best not bitwise")
+    finally:
+        app.drain()
+    out["restore"] = {"sessions": len(live), "seconds": restore_s,
+                      "dispatches": n_disp, "gb_before_app": mem_freed}
+    log(f"durable crash restore: {len(live)} sessions restored in "
+        f"{restore_s:.3f} s through {n_disp} coalesced dispatches, each "
+        f"/best bitwise its pre-crash answer ({mem_freed:.2f} GB allocated "
+        "once the first app was freed)")
+    del app, b2
+    free()
+
+
+def _serve_proc(args, port):
+    cmd = [sys.executable, "-m", "coda_tpu_torch.cli", "serve", "--task",
+           "digits_h80", "--data-dir", os.path.join(HERE, "data"),
+           "--port", str(port), *args, *DURABLE_CLI_EXTRA]
+    return subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _ready(proc, port):
+    for _ in range(1200):
+        try:
+            if _http(port, "GET", "/healthz")[0] == 200:
+                return
+        except OSError:
+            pass
+        if proc.poll() is not None:
+            raise AssertionError(f"cli serve exited {proc.returncode}: "
+                                 f"{proc.stdout.read()}")
+        time.sleep(0.1)
+    raise AssertionError("cli serve never became ready")
+
+
+def _j(port, method, path, body=None, want=200):
+    code, text = _http(port, method, path, body)
+    if want is not None and code != want:
+        raise AssertionError(f"{method} {path}: {code} {text}")
+    return json.loads(text)
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.send_signal(__import__("signal").SIGTERM)
+        try:
+            proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+
+
+def _durable_cli(out: dict, tmp: str) -> None:
+    """Item 12.6: ``cli serve`` on ``digits_h80`` in subprocesses (three
+    servers started together), ``cli replay-serve`` and ``cli quality``."""
+    from coda_tpu_torch import cli
+    from coda_tpu_torch.data import Dataset
+    from coda_tpu_torch.selectors import surrogate as sg
+    from coda_tpu_torch.telemetry.quality import tamper_rows_ulp
+
+    h80 = Dataset.from_file(os.path.join(HERE, "data", "digits_h80.npz"),
+                            name="digits_h80", device="cpu")
+    labels = h80.labels.numpy()
+    C = int(h80.preds.shape[2])
+    rec = os.path.join(tmp, "cli_rec")
+    ports = [_free_port() for _ in range(3)]
+    t0 = time.perf_counter()
+    # the defaults (tiering and quality on): ticks 1-8 are two opens and
+    # six labels, the 9th (an open) commits and the process exits 17
+    procs = [_serve_proc(["--capacity", "8", "--record-dir", rec,
+                          "--fault-spec", "crash_after_tick:after=8"],
+                         ports[0]),
+             _serve_proc(["--capacity", "4", "--acq-batch", str(DURABLE_Q),
+                          "--fault-spec", "oracle_poison:after=6"],
+                         ports[1]),
+             _serve_proc(["--capacity", "4", "--eig-scorer", DURABLE_POOL,
+                          "--surrogate-prior", "pool"], ports[2])]
+    try:
+        for p, port in zip(procs, ports):
+            _ready(p, port)
+        ready_s = time.perf_counter() - t0
+        port = ports[0]
+
+        def drive(seed, n):
+            cur = _j(port, "POST", "/session", {"seed": seed})
+            for _ in range(n):
+                cur = _j(port, "POST", f"/session/{cur['session']}/label",
+                         {"label": int(labels[cur["idx"]])})
+            return cur
+
+        a = drive(0, 3)
+        exp = _j(port, "POST", f"/session/{a['session']}/export",
+                 {"close": True})
+        imp = _j(port, "POST", "/session/import", exp)
+        if imp["restored_via"] != "snapshot" or imp["idx"] != a["idx"]:
+            raise AssertionError(f"http import {imp}")
+        b = drive(1, 3)
+        before = {s: _j(port, "GET", f"/session/{s}/best")
+                  for s in (a["session"], b["session"])}
+        try:
+            _http(port, "POST", "/session", {"seed": 2})
+        except OSError:
+            pass           # the process may exit before it answers
+        procs[0].wait(timeout=120)
+        procs[0].communicate()
+        if procs[0].returncode != 17:
+            raise AssertionError(f"crash exit {procs[0].returncode}")
+        procs.append(_serve_proc(["--capacity", "8", "--record-dir", rec,
+                                  "--restore"], port))
+        _ready(procs[-1], port)
+        for s, want in before.items():
+            got = _j(port, "GET", f"/session/{s}/best")
+            if got != want:
+                raise AssertionError(f"restored {s}: {got} != {want}")
+        # replay-serve on the streams (0) and on a one-ulp tamper (2)
+        argv = ["replay-serve", rec, "--task", "digits_h80", "--data-dir",
+                os.path.join(HERE, "data"), *DURABLE_CLI_EXTRA]
+        if cli.main(argv) != 0:
+            raise AssertionError("replay-serve on the streams")
+        bad = os.path.join(tmp, "cli_tampered")
+        os.makedirs(bad)
+        name = f"session_{b['session']}.jsonl"
+        with open(os.path.join(rec, name)) as f:
+            rows = [json.loads(line) for line in f]
+        at = [i for i, r in enumerate(rows) if not r.get("kind")]
+        for i, r in zip(at, tamper_rows_ulp([rows[i] for i in at], 2)):
+            rows[i] = r
+        with open(os.path.join(bad, name), "w") as f:
+            f.write("".join(json.dumps(r) + "\n" for r in rows))
+        argv[1] = bad
+        if cli.main(argv) != 2:
+            raise AssertionError("replay-serve on a tampered copy")
+        if cli.main(["quality", "--url", f"http://127.0.0.1:{port}"]) != 0:
+            raise AssertionError("cli quality")
+        _stop(procs[-1])
+        if procs[-1].returncode != 0:
+            raise AssertionError(f"restored server exit "
+                                 f"{procs[-1].returncode}")
+
+        # the crowd's answer verb on a q = 4 bucket: out of order, an
+        # abstain, a redelivery and a poisoned answer (the 7th arrival);
+        # the labels verb with the same final labels commits the same rows
+        port = ports[1]
+        x = _j(port, "POST", "/session", {"seed": 3})
+        y = _j(port, "POST", "/session", {"seed": 3})
+        poisoned = 0
+        for r_i, order in enumerate(([2, 0, 3, 1], [1, 3, 0, 2])):
+            ans = [int(labels[i]) for i in x["idx"]]
+            if r_i == 0:
+                r = _j(port, "POST", f"/session/{x['session']}/answer",
+                       {"slot": 0, "abstain": True})
+                if r["verb"] != "abstain":
+                    raise AssertionError(f"abstain {r}")
+            for j in order:
+                r = _j(port, "POST", f"/session/{x['session']}/answer",
+                       {"slot": j, "label": ans[j],
+                        "request_id": f"x{r_i}-{j}"})
+            if r["verb"] != "dispatched":
+                raise AssertionError(f"answer round {r}")
+            poisoned += sum(g == (t + 1) % C and g != t
+                            for g, t in zip(r["applied"], ans))
+            x = r
+            y = _j(port, "POST", f"/session/{y['session']}/labels",
+                   {"labels": r["applied"]})
+        drop = ("request_id", "trace_id", "pred_label_prob")
+        tx, ty = ([r for r in _j(port, "GET", f"/session/{v['session']}"
+                                 "/trace")["rounds"] if not r.get("kind")]
+                  for v in (x, y))
+        if len(tx) != 3 or _strip(tx, drop) != _strip(ty, drop):
+            raise AssertionError("answer rows != labels rows")
+        oracle = _j(port, "GET", "/stats")["oracle"]
+        if poisoned != 1 or oracle["poisoned"] != 1 \
+                or oracle["abstentions"] != 1:
+            raise AssertionError(f"oracle counters {oracle}, {poisoned}")
+
+        # the prior pool: a donor contributes at close, the next session
+        # carries prior_fit and its import-replay reproduces its rows
+        port = ports[2]
+        donor = _j(port, "POST", "/session", {"seed": 0})
+        for _ in range(sg.SURROGATE_PRIOR_MIN_ROUNDS + 2):
+            donor = _j(port, "POST", f"/session/{donor['session']}/label",
+                       {"label": int(labels[donor["idx"]])})
+        _j(port, "DELETE", f"/session/{donor['session']}")
+        if _j(port, "GET", "/stats")["prior_pool"][
+                "sessions_contributed"] != 1:
+            raise AssertionError("the donor did not contribute")
+        s = _j(port, "POST", "/session", {"seed": 1})
+        for _ in range(3):
+            s = _j(port, "POST", f"/session/{s['session']}/label",
+                   {"label": int(labels[s["idx"]])})
+        best = _j(port, "GET", f"/session/{s['session']}/best")
+        exp = _j(port, "POST", f"/session/{s['session']}/export",
+                 {"close": True})
+        if not exp.get("prior_fit"):
+            raise AssertionError("the next session carries no prior_fit")
+        imp = _j(port, "POST", "/session/import",
+                 dict(exp, carries=None, key=None))
+        if imp["restored_via"] != "replay" or \
+                _j(port, "GET", f"/session/{s['session']}/best") != best:
+            raise AssertionError(f"prior import replay {imp}")
+    finally:
+        for p in procs:
+            _stop(p)
+    out["cli_ready_s"] = ready_s
+    log(f"durable cli (digits_h80): 3 servers ready in {ready_s:.1f} s; "
+        "HTTP export/import via the snapshot; crash_after_tick exit 17, "
+        "--restore /best bitwise; replay-serve 0 and 2 (one ulp); cli "
+        f"quality 0; q = {DURABLE_Q} answers out of order with an abstain "
+        "and an oracle_poison commit the labels verb's rows bitwise; the "
+        f"prior pool ({DURABLE_POOL}) seeds the next session, whose "
+        "import-replay reproduces it")
+
+
+def phase_durable(dev, task, total: dict, smi: str) -> dict:
+    """Serve durability, tiers and quality (see the module docstring, item
+    12). Returns the measured figures."""
+    import shutil
+    import tempfile
+
+    import gc
+
+    import torch
+
+    def allocated_gb() -> float:
+        gc.collect()
+        return (torch.cuda.memory_allocated() / 1e9 if dev.type == "cuda"
+                else 0.0)
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": smi}
+    tmp = tempfile.mkdtemp(prefix="durable_")
+    try:
+        log(f"durable on {smi}: headline {HEADLINE}, "
+            f"{DURABLE_CAPACITY} slots, tiering and quality on; "
+            f"{allocated_gb():.2f} GB allocated before it")
+        _durable_headline(dev, task, total, tmp, out)
+        _durable_cli(out, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"durable phase: {out['phase_s']:.1f} s; {allocated_gb():.2f} GB "
+        "allocated after it")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3954,8 +4852,18 @@ def main() -> int:
         phase_replay_checkpoint_suite(dev, task, launches)
         phase = "crowd and telemetry"
         phase_crowd_telemetry(dev, task, launches, smi, peaks)
+        # each of the two serve phases holds a 16-slot headline slab (32
+        # GB), and a ServeApp's objects form reference cycles that only
+        # the garbage collector frees: the durability phase collects
+        # before it builds its app (a dropped app's slab otherwise
+        # outlives it into the next phase), and runs first
+        phase = "serve durability, tiers and quality"
+        phase_durable(dev, task, launches, smi)
         phase = "serve"
         phase_serve(dev, task, launches, smi)
+        gc.collect()
+        log(f"after the serve phase: "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)

@@ -37,9 +37,11 @@ run takes Q x iters labels; the cumulative regret is label-weighted).
 reference's ``record.json`` + ``rounds.npz``) that ``python -m
 coda_tpu_torch.cli replay <dir>`` re-executes and the reference's
 ``replay`` reads too. ``python -m coda_tpu_torch.cli serve ...`` runs the
-labeling service (``serve/server.py``; ``--no-tiering --no-quality`` until
-slice 8b); ``replay-serve``, ``quality`` and ``trace`` raise naming their
-slice.
+labeling service (``serve/server.py``), ``replay-serve <dir>`` verifies its
+session streams bitwise (exit 2 on a divergence), ``quality --url U``
+reads a server's decision-quality scorecard (exit 1 on a diverged audit,
+a miscalibration or a firing drift detector); ``trace`` raises naming the
+fleet, slice 9.
 
 ``--oracle-noise SPEC`` labels with a noisy crowd (``crowd/``): each
 answer is a vote of ``votes`` annotators from a seeded pool, aggregated by
@@ -550,8 +552,121 @@ def run_all_seeds(args, factory, dataset, loss_fn, dev):
     return result, aux, None
 
 
+def _quality_report(card: dict) -> list:
+    """Human lines for one decision-quality scorecard (replica shape —
+    the per-replica half of a router card goes through this too)."""
+    lines = []
+    verdict = card.get("verdict") or {}
+    if verdict:
+        worst = verdict.get("worst_ece")
+        lines.append("verdict: calibration=%s%s  audit=%s  drift=%s" % (
+            verdict.get("calibration"),
+            f" (worst ECE {worst:.4f})" if worst is not None else "",
+            verdict.get("audit"), verdict.get("drift")))
+    for task, cal in sorted((card.get("calibration") or {}).items()):
+        ece, brier = cal.get("ece"), cal.get("brier")
+        lines.append(
+            f"  calibration[{task}]: n={cal.get('n')}"
+            + (f" ece={ece:.4f}" if ece is not None else " ece=-")
+            + (f" brier={brier:.4f}" if brier is not None else ""))
+    audit = card.get("audit") or {}
+    if audit:
+        lines.append(
+            "  audit: %d replayed (%d rounds), %d skipped, "
+            "%d divergence(s) (%d recent), %d tampered" % (
+                audit.get("audits_total", 0),
+                audit.get("rounds_verified", 0),
+                audit.get("audits_skipped", 0),
+                audit.get("divergences_total", 0),
+                audit.get("divergences_recent", 0),
+                audit.get("tampered_total", 0)))
+        gap = audit.get("prior_gap")
+        if gap is not None:
+            lines.append(f"  audit: seeded-vs-cold prior gap "
+                         f"{gap:.3f} over "
+                         f"{audit.get('prior_gap_sessions')} session(s)")
+        for d in audit.get("last_divergences") or ():
+            lines.append(f"    diverged: session {d.get('session')} "
+                         f"round {d.get('round')}: {d.get('detail')}")
+    for name, det in sorted((card.get("drift") or {}).items()):
+        lines.append(
+            "  drift[%s]: %s stat=%.4f fired=%d cleared=%d obs=%d" % (
+                name, "FIRING" if det.get("firing") else "ok",
+                det.get("statistic") or 0.0, det.get("fired_total", 0),
+                det.get("cleared_total", 0), det.get("observations", 0)))
+    return lines
+
+
+def quality_main(argv=None):
+    """``cli quality --url http://host:port``: the decision-quality
+    report. Hits ``GET /fleet/quality`` (router: per-replica scorecards
+    + fleet verdict; replica: its own plane), falls back to the
+    ``quality`` section of ``/stats``; exits 1 when any organ grades
+    diverged / miscalibrated / firing."""
+    import json as _json
+    import urllib.error
+    import urllib.request
+
+    p = argparse.ArgumentParser(
+        prog="coda_tpu_torch.cli quality",
+        description="decision-quality scorecard: live calibration, drift "
+                    "detectors, shadow-audit divergences")
+    p.add_argument("--url", default="http://127.0.0.1:8000",
+                   help="serve front door (router or replica) base URL")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw scorecard JSON instead of the "
+                        "report")
+    args = p.parse_args(argv)
+
+    base = args.url.rstrip("/")
+    try:
+        with urllib.request.urlopen(base + "/fleet/quality",
+                                    timeout=30.0) as resp:
+            card = _json.loads(resp.read().decode("utf-8"))
+    except urllib.error.HTTPError as e:
+        if e.code != 404:
+            raise
+        # --no-quality replica, or a server without the plane: try /stats
+        with urllib.request.urlopen(base + "/stats", timeout=30.0) as resp:
+            stats = _json.loads(resp.read().decode("utf-8"))
+        card = stats.get("quality")
+        if card is None:
+            print("quality plane disabled on this server (--no-quality)")
+            return 1
+    if args.json:
+        print(_json.dumps(card, indent=2, sort_keys=True))
+    lines = []
+    if card.get("role") == "router":
+        verdict = card.get("verdict") or {}
+        worst = verdict.get("worst_ece")
+        lines.append("fleet verdict: calibration=%s%s  audit=%s  "
+                     "drift=%s" % (
+                         verdict.get("calibration"),
+                         f" (worst ECE {worst:.4f})"
+                         if worst is not None else "",
+                         verdict.get("audit"), verdict.get("drift")))
+        for rid, rep in sorted((card.get("replicas") or {}).items()):
+            if rep.get("error"):
+                lines.append(f"replica {rid}: ERROR {rep['error']}")
+            elif rep.get("enabled") is False:
+                lines.append(f"replica {rid}: quality plane disabled")
+            else:
+                lines.append(f"replica {rid}:")
+                lines.extend(_quality_report(rep))
+        bad = verdict
+    else:
+        lines.extend(_quality_report(card))
+        bad = card.get("verdict") or {}
+    if not args.json:
+        print("\n".join(lines) if lines else "no quality evidence yet")
+    ok = (bad.get("audit") != "diverged"
+          and bad.get("calibration") != "miscalibrated"
+          and bad.get("drift") != "firing")
+    return 0 if ok else 1
+
+
 # the reference's subcommands a later slice of the port brings
-_LATER_SUBCOMMANDS = {"replay-serve": "8b", "quality": "8b", "trace": "9"}
+_LATER_SUBCOMMANDS = {"trace": "9"}
 
 
 def main(argv=None):
@@ -560,6 +675,13 @@ def main(argv=None):
         from coda_tpu_torch.serve.server import main as serve_main
 
         return serve_main(argv[1:])
+    if argv and argv[0] == "replay-serve":
+        # offline bitwise verification of serve session streams
+        from coda_tpu_torch.serve.recovery import replay_serve_main
+
+        return replay_serve_main(argv[1:])
+    if argv and argv[0] == "quality":
+        return quality_main(argv[1:])
     if argv and argv[0] in _LATER_SUBCOMMANDS:
         raise NotImplementedError(
             f"`cli {argv[0]}` comes with slice "

@@ -226,11 +226,12 @@ class Batcher:
 
     def __init__(self, store, metrics=None, max_batch: int = 256,
                  max_wait: float = 0.002, max_linger: Optional[float] = None,
-                 telemetry=None, recorder=None, faults=None):
+                 telemetry=None, recorder=None, faults=None, quality=None):
         self.store = store
         self.metrics = metrics
-        # optional FaultInjector (the tick-boundary crash sites come with
-        # crash restore, slice 8b of the port)
+        # optional FaultInjector: tick-boundary crash points (the batcher
+        # is where "the process died between ticks" is a meaningful,
+        # deterministic place to die)
         self.faults = faults
         # recovery hook: called as on_bucket_failure(bucket, error) when a
         # dispatch leaves a bucket quarantined — the ServeApp wires this
@@ -247,6 +248,12 @@ class Batcher:
         # decision row to its session's record stream (the flight
         # recorder's serving face — GET /session/{id}/trace)
         self.recorder = recorder
+        # optional QualityPlane (telemetry/quality.py): labeled tickets get
+        # a pre-dispatch consensus-posterior read (calibration evidence +
+        # the rows' additive-optional pred_label_prob field). Read-only —
+        # quality on/off takes bitwise-identical decision trajectories,
+        # same contract as tracing.
+        self.quality = quality
         self.max_batch = int(max_batch)
         self.max_wait = float(max_wait)
         self.max_linger = (4.0 * self.max_wait if max_linger is None
@@ -422,6 +429,8 @@ class Batcher:
         # queued are dropped HERE, not dispatched — their slot may already
         # belong to someone else (see Ticket.wait). Their slot entry is
         # never marked pending, so the next tick sees a clean slab.
+        if self.faults is not None:
+            self.faults.fire("tick_pre")    # crash_before_tick
         now = time.perf_counter()
         per_bucket: dict = {}
         requeue: list = []
@@ -497,6 +506,15 @@ class Batcher:
                 # bucket's admission writes only — other buckets' dispatches
                 # and admissions proceed (see SessionStore docstring)
                 with span, bucket.lock:
+                    pred_probs = {}
+                    if self.quality is not None:
+                        # pre-dispatch read of the exact posterior the
+                        # round's decision is about to be made under: the
+                        # consensus pi_hat's mass on each realized label
+                        pred_probs = self.quality.pre_dispatch(
+                            bucket, bucket.task,
+                            [(slot, t.idx, t.label)
+                             for slot, t in slots.items() if t.do_update])
                     results = bucket.dispatch(reqs)
             except BaseException as e:  # surface to every waiter, keep going
                 for t in slots.values():
@@ -571,6 +589,14 @@ class Batcher:
                         # untraced, so tracing-off streams stay bitwise
                         # identical to pre-tracing streams
                         row["trace_id"] = t.trace.trace_id
+                    if slot in pred_probs:
+                        # additive optional field (same contract as
+                        # trace_id): the probability the session's
+                        # consensus pi_hat assigned to the realized oracle
+                        # label, read pre-update. Absent with quality off,
+                        # so off-streams stay bitwise identical on the
+                        # existing keys.
+                        row["pred_label_prob"] = pred_probs[slot]
                     self.recorder.append(t.session.sid, row)
                 if self.metrics is not None:
                     tid = t.trace.trace_id if t.trace is not None else None
@@ -591,3 +617,5 @@ class Batcher:
                     warm=bucket.is_warm)
         for t in requeue:
             self.queue.put(t)
+        if self.faults is not None:
+            self.faults.fire("tick_post")   # crash_after_tick

@@ -2,11 +2,12 @@
 ``coda_tpu/serve/faults.py``: the whole spec grammar, so every reference
 spec parses).
 
-The port fires the sites whose modules it has: ``step_raise``,
-``step_nan``, ``record_eio`` and ``slow_step``. A spec naming another
-site is refused by :class:`FaultInjector` with ``NotImplementedError``
-naming the slice of the port that brings its module
-(:data:`PENDING_SITES`).
+The port fires every site of one server (the slab step, the recorder,
+the batcher's tick boundaries, the tiers, the crowd's answer verb and
+the shadow auditor). A spec naming a fleet site (the router's transport
+and migration) is refused by :class:`FaultInjector` with
+``NotImplementedError`` naming slice 9 of the port, which brings the
+fleet (:data:`PENDING_SITES`).
 
 Every recovery path in ``serve/recovery.py`` exists because some step of
 the serving pipeline can fail: the compiled slab step can raise after
@@ -142,12 +143,6 @@ FAULT_SITES = {
 
 #: fault name -> the slice of the port that brings the module it fires in
 PENDING_SITES = {
-    "crash_before_tick": "8b (crash restore)",
-    "crash_after_tick": "8b (crash restore)",
-    "demote_during_label": "8b (tiering)",
-    "oracle_poison": "8b (the crowd's answer verb)",
-    "oracle_abstain": "8b (the crowd's answer verb)",
-    "stream_tamper": "8b (the quality plane)",
     "net_drop": "9 (the fleet)",
     "partition": "9 (the fleet)",
     "net_delay": "9 (the fleet)",

@@ -18,32 +18,46 @@ step per tick, not N device round trips. Blocking host sections
                                       request_id?}     -> the q answers of a
                                                           round (acq_batch q)
     GET    /session/{id}/best                          -> best (+ pbest)
+    POST   /session/{id}/answer      {slot, label?,
+                                      abstain?,
+                                      request_id?}     -> one crowd answer,
+                                                          any order (parked
+                                                          until the round
+                                                          is complete)
     GET    /session/{id}/trace                         -> per-round decision
                                                           history (recorder)
+    POST   /session/{id}/export      {close?}          -> migration payload
+    POST   /session/import           <export payload>  -> restore, same id
     DELETE /session/{id}                               -> close, free slot
+    POST   /prior/sync               {pool?}           -> prior-pool delta
     GET    /stats                                      -> metrics snapshot
     GET    /metrics                                    -> Prometheus text
+    GET    /fleet/quality                              -> decision-quality
+                                                          scorecard
     GET    /healthz                                    -> readiness/liveness
                                                           (ok|degraded|
                                                           unready)
 
-Admission control: past slab capacity an open answers 503 (the
-backpressure signal), as on a draining server. ``ServeApp.drain()`` stops
-admitting, finishes the queued work and closes the streams.
+Admission control: with tiering (the default, ``serve/tiering.py``) a
+full slab demotes its coldest idle session to the warm tier and admits;
+a label/best/trace/answer for a demoted session wakes it. 503 remains
+the backpressure signal when nothing is demotable (every slot pinned by
+an in-flight request), with ``--no-tiering``, and on a draining server.
+``ServeApp.drain()`` stops admitting, finishes the queued work and closes
+the streams.
 
 Warm pool: ``ServeApp.start()`` warms every (task, spec) bucket — builds
 and loads the kernels, caches the init state (``Bucket.warm``) — and
 ``/healthz`` answers 503 until then.
 
-Refused until their slice of the port (``NotImplementedError`` in
-process, HTTP 501 over the wire): tiering, the quality plane,
-``export``/``import``/``restore_sessions``, the prior pool and the crowd's
-``answer`` verb (slice 8b); the fleet's ``begin_migration``/
-``end_migration``/``fence`` (slice 9). So ``cli serve`` takes
-``--no-tiering --no-quality`` until 8b lands.
+Refused until the fleet, slice 9 of the port (``NotImplementedError`` in
+process, HTTP 501 over the wire): ``begin_migration``/``end_migration``
+(``POST /session/{id}/fence``, ``export`` with ``hold``) and the tiers'
+``page_out`` hook.
 
 Run:  python -m coda_tpu_torch.cli serve [--task T | --synthetic H,N,C]
-          --no-tiering --no-quality [--port P] [--device cuda|cpu]
+          [--record-dir D [--restore]] [--tier-spill-dir S] [--port P]
+          [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -52,15 +66,18 @@ import argparse
 import asyncio
 import contextlib
 import json
+import os
 import re
 import socket
 import threading
 import time
 from typing import Optional
 
+import numpy as np
+
 from coda_tpu_torch.serve.batcher import Batcher, Ticket
 from coda_tpu_torch.serve.metrics import ServeMetrics
-from coda_tpu_torch.serve.recovery import _SID_RE
+from coda_tpu_torch.serve.recovery import _SID_RE, ImportRejected
 from coda_tpu_torch.serve.state import (
     BucketQuarantined,
     SelectorSpec,
@@ -74,10 +91,6 @@ from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
 # how long a front-door handler waits on its ticket before giving up (a
 # stuck device should surface as 504s, not piled-up waiters)
 REQUEST_TIMEOUT_S = 60.0
-
-
-def _slice_8b(what: str):
-    return NotImplementedError(f"{what} comes with slice 8b of the port")
 
 
 def _slice_9(what: str):
@@ -108,17 +121,10 @@ class ServeApp:
                  device: DeviceLike = None):
         from coda_tpu_torch.serve.faults import FaultInjector
         from coda_tpu_torch.serve.recovery import BucketHealer
+        from coda_tpu_torch.serve.tiering import TierManager
         from coda_tpu_torch.telemetry import SessionRecorder, Telemetry
 
         self.device = resolve_device(device)
-        if tiering:
-            raise _slice_8b("tiering (the warm and cold session tiers; "
-                            "pass tiering=False, --no-tiering)")
-        if quality:
-            raise _slice_8b("the decision-quality plane (pass "
-                            "quality=False, --no-quality)")
-        del tier_spill_dir, idle_warm_s, idle_cold_s, max_warm
-        del tier_free_fraction, quality_audit_frac
         self.faults = FaultInjector(fault_spec) if fault_spec else None
         # distributed tracing (telemetry/trace.py): read by spans, metrics
         # and recorder rows only, never by the step's math
@@ -137,22 +143,64 @@ class ServeApp:
         if self.faults is not None and \
                 getattr(self.recorder, "faults", None) is None:
             self.recorder.faults = self.faults   # record_eio
+        # decision-quality plane (telemetry/quality.py): live calibration
+        # of the served posterior, drift detectors, and the shadow auditor
+        # that replays a sample of closed sessions off the batcher thread.
+        # Never read by the step's math: quality on and off give bitwise
+        # the same decision rows (the only stream delta is the additive
+        # ``pred_label_prob`` field)
+        self.quality = None
+        if quality:
+            from coda_tpu_torch.telemetry.quality import QualityPlane
+
+            self.quality = QualityPlane(
+                preds_fn=self.store.task_preds, faults=self.faults,
+                registry=self.telemetry.registry,
+                audit_frac=quality_audit_frac)
+            self.metrics.quality_provider = self.quality.snapshot
         self.batcher = Batcher(self.store, self.metrics,
                                max_batch=max_batch, max_wait=max_wait,
                                max_linger=max_linger,
                                telemetry=self.telemetry,
                                recorder=self.recorder,
-                               faults=self.faults)
+                               faults=self.faults,
+                               quality=self.quality)
         self.metrics.surrogate_provider = self._surrogate_totals
         # bucket self-healing: a dispatch that quarantines a bucket
         # schedules a slab rebuild from the sessions' recorder streams
         self.healer = BucketHealer(self.store, self.recorder,
                                    metrics=self.metrics)
         self.batcher.on_bucket_failure = self.healer.schedule
+        # tiered posterior state (serve/tiering.py): hot sessions on the
+        # slab, warm ones as host export payloads, cold ones hibernated to
+        # tier_spill_dir; admission past capacity demotes the coldest
+        # instead of a 503, and a verb for a parked session wakes it
+        self.tiers = TierManager(
+            self, spill_dir=tier_spill_dir, idle_warm_s=idle_warm_s,
+            idle_cold_s=idle_cold_s, max_warm=max_warm,
+            free_fraction=tier_free_fraction) if tiering else None
         self.spec = spec or SelectorSpec.create("coda", n_parallel=capacity)
-        self.spec.factory(self.device)   # an 8b knob raises here
+        self.spec.factory(self.device)   # a bad knob raises here
+        # cross-session surrogate prior pool (serve/priors.py): live only
+        # under surrogate_prior='pool'; under 'off' there is no pool and
+        # admission seeds nothing
+        self.prior_pool = None
+        from coda_tpu_torch.selectors.surrogate import parse_prior
+
+        if parse_prior(str(dict(self.spec.kwargs).get("surrogate_prior",
+                                                      "off"))):
+            from coda_tpu_torch.serve.priors import (PriorPool,
+                                                     bucket_pool_key)
+
+            self.prior_pool = PriorPool()
+            self.metrics.prior_provider = self._prior_totals
+            # lazily built buckets resolve their seed prior at build time
+            self.store.prior_resolver = (
+                lambda b: self.prior_pool.get(bucket_pool_key(self, b)))
         self.default_task = default_task
         self.draining = False
+        # migration holds come with the fleet (slice 9): always empty here
+        self._holds: set = set()
         self.warm_error: Optional[str] = None  # last warm-up failure
         # readiness: set once the warm pool is ready (or warm-up was
         # skipped); /healthz answers 503 until then
@@ -227,6 +275,8 @@ class ServeApp:
               warm_async: bool = False) -> "ServeApp":
         self._warm_requested = warm
         self.batcher.start()
+        if self.tiers is not None:
+            self.tiers.start()
         if not warm:
             self.ready.set()
         elif warm_async:
@@ -241,6 +291,8 @@ class ServeApp:
         the executor alive. Default: finish queued work first; ``hard``
         fails queued tickets with a retryable error."""
         self.draining = True
+        if self.tiers is not None:
+            self.tiers.stop()  # no demotions mid-migration sweep
         self.batcher.stop(drain=not hard, timeout=timeout)
 
     def drain(self, timeout: float = 30.0) -> None:
@@ -248,6 +300,8 @@ class ServeApp:
         close the streams."""
         self.quiesce(timeout=timeout)
         self.recorder.close_all()
+        if self.quality is not None:
+            self.quality.stop()
         self._executor.shutdown(wait=False)
 
     def _auto_seed(self) -> int:
@@ -289,6 +343,16 @@ class ServeApp:
         /trace/id/{trace_id}`` payload; empty events when unknown)."""
         return self.telemetry.spans.trace_payload(str(trace_id))
 
+    # -- fencing (the holds come with the fleet, slice 9) ------------------
+    def held(self, sid: str) -> bool:
+        with self.store.lock:
+            return sid in self._holds
+
+    def _check_hold(self, sid: str) -> None:
+        if self.held(sid):
+            raise BucketQuarantined(
+                f"session {sid} is migrating; retry shortly")
+
     def _check_epoch(self, sess, epoch) -> None:
         """The fencing check of the fleet's routed verbs: a verb stamped
         with a NEWER ownership epoch than this copy's is refused."""
@@ -297,13 +361,72 @@ class ServeApp:
             raise StaleOwner(sess.sid, have=sess.epoch, want=int(epoch))
 
     def session_epoch(self, sid: str) -> dict:
-        return {"session": sid, "epoch": self.store.get(sid).epoch}
+        """The ownership epoch of this replica's copy, without waking it."""
+        try:
+            return {"session": sid, "epoch": self.store.get(sid).epoch}
+        except UnknownSession:
+            if self.tiers is not None:
+                p = self.tiers.parked_payload(sid, materialized=False)
+                if p is not None:
+                    return {"session": sid,
+                            "epoch": int(p.get("epoch") or 0)}
+            raise
 
     def begin_migration(self, sid: str) -> dict:
         raise _slice_9("the migration hold (begin_migration)")
 
     def end_migration(self, sid: str, drop: bool) -> dict:
         raise _slice_9("the migration fence (end_migration)")
+
+    # -- tiering glue: wake-through lookup + demote-then-admit -------------
+    def _resolve_pinned(self, sid: str, wake: bool = True):
+        """Session lookup that pages a non-resident session back in: a
+        label/best/trace for a warm or cold sid wakes it through the
+        import fast path instead of 404-ing. Returns the session PINNED
+        (undemotable) — every caller unpins on every exit path.
+        ``wake=False`` skips paging (the event-loop fast path, which
+        must never run a wake's disk/replay work inline)."""
+        misses = 0
+        for _ in range(8):
+            try:
+                return self.store.get_pinned(sid)
+            except UnknownSession:
+                if self.tiers is None or not wake:
+                    raise
+                if self.tiers.wake_if_parked(sid):
+                    continue
+                # in no tier map — either truly unknown, or inside a
+                # demotion's unpublish→publish window (store pop, slot
+                # release, stream park all precede the warm-map insert):
+                # wait that window out before answering 404
+                misses += 1
+                if misses > 3:
+                    raise
+                time.sleep(0.002)
+        return self.store.get_pinned(sid)
+
+    def _admit(self, task: str, seed: int, sid: Optional[str] = None,
+               restoring: bool = False):
+        """``store.open`` with tiering admission: past slab capacity the
+        coldest resident session is demoted and the open retried —
+        ``SlabFull`` (503) only when nothing is demotable (every slot
+        pinned by an in-flight verb), which is genuine backpressure."""
+        attempts = 16 if self.tiers is not None else 1
+        for i in range(attempts):
+            try:
+                return self.store.open(task, self.spec, seed=seed, sid=sid,
+                                       restoring=restoring)
+            except SlabFull:
+                if self.tiers is None or i == attempts - 1:
+                    raise
+                if not self.tiers.make_room_for(task, self.spec) \
+                        and not self.tiers.wait_for_demotions(
+                            REQUEST_TIMEOUT_S):
+                    # transient: every candidate is pinned by a concurrent
+                    # verb — wait a beat for the herd to clear instead of
+                    # bouncing a 503 the client would only retry anyway
+                    # (another demoter mid-sweep is waited out above)
+                    time.sleep(0.002)
 
     # -- the session verbs (*_begin/_abort split out so the asyncio path
     #    runs the blocking host half on an executor and awaits the ticket)
@@ -315,13 +438,18 @@ class ServeApp:
         task = task or self.default_task
         if task is None:
             raise KeyError("no task registered")
-        if sid is not None and not _SID_RE.match(str(sid)):
-            raise ValueError(f"invalid session id {sid!r}: expected "
-                             "lowercase hex")
+        if sid is not None:
+            if not _SID_RE.match(str(sid)):
+                raise ValueError(f"invalid session id {sid!r}: expected "
+                                 "lowercase hex")
+            if self.tiers is not None and self.tiers.parked(sid):
+                # the store collides only against LIVE sids: re-opening a
+                # parked id would put two states under one identity
+                raise ValueError(f"session id {sid!r} already exists "
+                                 "(parked in the warm/cold tier)")
         try:
-            sess = self.store.open(task, self.spec,
-                                   seed=(self._auto_seed() if seed is None
-                                         else int(seed)), sid=sid)
+            sess = self._admit(task, self._auto_seed() if seed is None
+                               else int(seed), sid=sid)
         except SlabFull:
             self.metrics.record_session("reject")
             raise
@@ -334,7 +462,11 @@ class ServeApp:
             "spec_kwargs": [list(kv) for kv in self.spec.kwargs],
             "acq_batch": self.spec.acq_batch,
             "seed": sess.seed, "shape": tm.get("shape"),
-            "digest": tm.get("digest")})
+            "digest": tm.get("digest"),
+            # the applied-prior record ONLY when this admission was seeded:
+            # cold sessions keep the exact pre-prior meta
+            **({"surrogate_prior": dict(sess.prior_fit)}
+               if sess.prior_fit is not None else {})})
         self.store.pin(sess)
         ticket = Ticket(session=sess, do_update=False, trace=trace)
         ticket.on_resolve = lambda: self.store.unpin(sess)
@@ -387,17 +519,29 @@ class ServeApp:
             return self._payload(sess, res)
 
     def _label_begin(self, sid: str, label, idx=None,
-                     request_id: Optional[str] = None,
+                     request_id: Optional[str] = None, wake: bool = True,
                      epoch: Optional[int] = None, trace=None):
-        # PINNED lookup: the pin is handed to the ticket below; every
-        # non-ticket exit unpins in `finally`
-        sess = self.store.get_pinned(sid)
+        if self.faults is not None and self.tiers is not None and \
+                "demote_during_label" in self.faults.fire("label_pre"):
+            # injected demotion at the exact moment a label arrives: it
+            # either wins (and the lookup below wakes the session) or
+            # loses cleanly to an in-flight pin — never both
+            self.tiers.try_demote(sid)
+        self._check_hold(sid)
+        # wake-through lookup, PINNED: the pin is handed to the ticket
+        # below; every non-ticket exit unpins in `finally`
+        sess = self._resolve_pinned(sid, wake=wake)
         handoff = False
         try:
             # the fence: a stale copy must refuse BEFORE the dedupe
             # lookup — its cache predates the migration, and answering
             # from it would commit a label the new owner also commits
             self._check_epoch(sess, epoch)
+            if sess.restoring:
+                # import/restore mid-replay: the posterior and the dedupe
+                # cache are not rebuilt yet — a retryable 503
+                raise BucketQuarantined(
+                    f"session {sid} is being restored; retry shortly")
             # idempotent retries: a request_id the session has already
             # applied (or has in flight) is answered from the committed
             # result / the live ticket — the oracle answer is applied to
@@ -511,9 +655,23 @@ class ServeApp:
                           trace_ctx=None) -> dict:
         my = self._trace_child(trace_ctx)
         with self._serve_span("label", my):
-            # host-dict work (lookup, bounds checks, queue.put): inline
-            sess, ticket = self._label_begin(sid, label, idx, request_id,
-                                             epoch=epoch, trace=my)
+            try:
+                # host-dict work (lookup, bounds checks, queue.put) inline,
+                # with waking DISABLED: a wake's disk read or replay must
+                # never run on the event loop
+                sess, ticket = self._label_begin(sid, label, idx,
+                                                 request_id, wake=False,
+                                                 epoch=epoch, trace=my)
+            except UnknownSession:
+                if self.tiers is None:
+                    raise
+                # non-resident (or mid-demotion): the wake-through path on
+                # the executor
+                loop = asyncio.get_running_loop()
+                sess, ticket = await loop.run_in_executor(
+                    self._executor,
+                    lambda: self._label_begin(sid, label, idx, request_id,
+                                              epoch=epoch, trace=my))
             return self._payload(
                 sess, await ticket.wait_async(REQUEST_TIMEOUT_S))
 
@@ -548,39 +706,260 @@ class ServeApp:
                request_id: Optional[str] = None,
                epoch: Optional[int] = None, abstain: bool = False,
                trace_ctx=None) -> dict:
-        raise _slice_8b("the crowd's asynchronous answer verb")
+        my = self._trace_child(trace_ctx)
+        with self._serve_span("answer", my):
+            return self._answer_impl(sid, slot, label=label,
+                                     request_id=request_id, epoch=epoch,
+                                     abstain=abstain, trace=my)
+
+    def _answer_impl(self, sid: str, slot, label=None,
+                     request_id: Optional[str] = None,
+                     epoch: Optional[int] = None, abstain: bool = False,
+                     trace=None) -> dict:
+        """The asynchronous oracle verb (``POST /session/{id}/answer``):
+        ONE per-slot crowd answer of the current round, in ANY order.
+
+        Where ``labels`` demands all q answers at once, a crowd delivers
+        them one by one — noisy, late, out of order, some abstaining.
+        Each arriving answer is PARKED per slot (a park row rides the
+        recorder stream, so a crash loses nothing); when all ``acq_batch``
+        slots are filled the park drains through ONE batch-label dispatch
+        in slot order under a deterministic synthetic request_id — so an
+        out-of-order delivery commits the exact bytes the in-order one
+        does, and the dedupe cache makes redelivery of any answer (or of
+        the fused round) idempotent. An ``abstain`` leaves its slot open.
+        Injectable at the ``oracle_answer`` fault site (``oracle_poison``
+        corrupts the label to the adversarial family, ``oracle_abstain``
+        converts the answer into an abstention)."""
+        self._check_hold(sid)
+        sess = self._resolve_pinned(sid)
+        to_dispatch = None
+        round_idx = 0
+        try:
+            self._check_epoch(sess, epoch)
+            if sess.restoring:
+                raise BucketQuarantined(
+                    f"session {sid} is being restored; retry shortly")
+            if not sess.last:
+                raise UnknownSession(sid)
+            q = sess.bucket.acq_batch
+            slot = int(slot)
+            if not 0 <= slot < q:
+                raise ValueError(
+                    f"slot {slot} out of range [0, {q}) for session {sid}")
+            fired = (self.faults.fire("oracle_answer", task=sess.task)
+                     if self.faults is not None else [])
+            if "oracle_abstain" in fired:
+                abstain = True
+            if not abstain:
+                if label is None:
+                    raise ValueError(
+                        "missing 'label' (or set 'abstain': true)")
+                label = int(label)
+                if "oracle_poison" in fired:
+                    label = (label + 1) % sess.bucket.n_classes
+                    self.metrics.record_oracle("poisoned")
+                if not 0 <= label < sess.bucket.n_classes:
+                    raise ValueError(f"label {label} out of range "
+                                     f"[0, {sess.bucket.n_classes})")
+            round_idx = sess.n_labeled // q
+            park_row = None
+            with self.store.lock:
+                if request_id is not None:
+                    done = sess.recent.get(request_id)
+                    if done is not None:
+                        # the round this answer was part of has already
+                        # committed — answer from the cached result, never
+                        # re-apply (redelivery of a deferred answer)
+                        out = self._payload(sess, dict(done))
+                        out.update({"verb": "committed", "slot": slot,
+                                    "duplicate": True})
+                        return out
+                missing = [j for j in range(q) if j not in sess.parked]
+                if abstain:
+                    self.metrics.record_oracle("abstain")
+                    return {"session": sid, "verb": "abstain",
+                            "slot": slot, "round": round_idx,
+                            "parked": q - len(missing), "missing": missing}
+                entry = sess.parked.get(slot)
+                if entry is not None:
+                    if request_id is not None and \
+                            entry.get("request_id") == request_id:
+                        return {"session": sid, "verb": "parked",
+                                "slot": slot, "round": round_idx,
+                                "duplicate": True,
+                                "parked": q - len(missing),
+                                "missing": missing}
+                    self.metrics.record_oracle("double_apply_reject")
+                    raise ValueError(
+                        f"session {sid} round {round_idx} slot {slot} "
+                        "already has a parked answer (duplicate delivery "
+                        "refused)")
+                # reorder depth: how many LATER slots arrived before this
+                # one — the loadgen's deferred-delivery evidence
+                depth = sum(1 for j in sess.parked if j > slot)
+                seq = sess.park_seq
+                sess.park_seq += 1
+                sess.parked[slot] = {"label": label,
+                                     "request_id": request_id, "seq": seq}
+                self.metrics.record_oracle("parked", depth=depth)
+                park_row = {"kind": "answer_park", "session": sid,
+                            "round": round_idx, "slot": slot,
+                            "label": label, "request_id": request_id,
+                            "seq": seq}
+                if len(sess.parked) == q:
+                    to_dispatch = dict(sess.parked)
+                    sess.parked = {}
+            # stream the park OUTSIDE the store lock (disk write): the
+            # row carries its slot + seq, so concurrent parks interleaving
+            # in the file restore identically regardless of write order
+            self.recorder.append(sid, park_row)
+            if to_dispatch is None:
+                with self.store.lock:
+                    missing = [j for j in range(q) if j not in sess.parked]
+                return {"session": sid, "verb": "parked", "slot": slot,
+                        "round": round_idx, "parked": q - len(missing),
+                        "missing": missing}
+        finally:
+            self.store.unpin(sess)
+        # all q slots filled: drain through ONE fused dispatch in SLOT
+        # order under a deterministic synthetic request_id — delivery
+        # order is now immaterial, and a crashed/retried drain dedupes
+        q = sess.bucket.acq_batch
+        ordered = [to_dispatch[j]["label"] for j in range(q)]
+        rid = f"answer:{sid}:{round_idx}"
+        try:
+            payload = self.label(sid, ordered if q > 1 else ordered[0],
+                                 request_id=rid, epoch=epoch,
+                                 trace_ctx=trace)
+        except BaseException:
+            # failed drain: re-park so the answers survive for a retry
+            # (the park rows are still in the stream; nothing is lost)
+            with self.store.lock:
+                for j, e in to_dispatch.items():
+                    sess.parked.setdefault(j, e)
+            raise
+        self.metrics.record_oracle("round_completed")
+        with self.store.lock:
+            done = sess.recent.get(rid)
+            if done is not None:
+                # every per-answer request_id now answers from the
+                # committed round — late redelivery reads, never re-applies
+                for e in to_dispatch.values():
+                    if e.get("request_id"):
+                        sess.recent[e["request_id"]] = done
+        payload = dict(payload)
+        payload.update({"verb": "dispatched", "slot": slot,
+                        "round": round_idx, "applied": ordered})
+        return payload
+
+    async def answer_async(self, sid: str, slot, label=None,
+                           request_id: Optional[str] = None,
+                           epoch: Optional[int] = None,
+                           abstain: bool = False, trace_ctx=None) -> dict:
+        # parking is host-dict work but the drain dispatch blocks on the
+        # batcher — always off the event loop (like the wake-through path)
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            self._executor,
+            lambda: self.answer(sid, slot, label=label,
+                                request_id=request_id, epoch=epoch,
+                                abstain=abstain, trace_ctx=trace_ctx))
 
     def best(self, sid: str, epoch: Optional[int] = None,
              trace_ctx=None) -> dict:
         my = self._trace_child(trace_ctx)
         with self._serve_span("best", my):
-            sess = self.store.get_pinned(sid)
-            try:
-                self._check_epoch(sess, epoch)
-                out = self._payload(sess, sess.last or None)
-                with sess.bucket.lock:
-                    pbest = sess.bucket.pbest(sess.slot)
-                if pbest is not None:
-                    out["pbest"] = pbest.tolist()
-                return out
-            finally:
-                self.store.unpin(sess)
+            return self._best_impl(sid, epoch=epoch)
+
+    def _best_impl(self, sid: str, epoch: Optional[int] = None) -> dict:
+        self._check_hold(sid)
+        sess = self._resolve_pinned(sid)  # wakes a parked session
+        try:
+            self._check_epoch(sess, epoch)
+            if sess.restoring:
+                # the slot holds a partially-replayed posterior and
+                # n_labeled is still 0 — answering now would serve a wrong
+                # best-model estimate with a 200; same retryable contract
+                # as label
+                raise BucketQuarantined(
+                    f"session {sid} is being restored; retry shortly")
+            out = self._payload(sess, sess.last or None)
+            with sess.bucket.lock:
+                pbest = sess.bucket.pbest(sess.slot)
+            if pbest is not None:
+                out["pbest"] = pbest.tolist()
+            return out
+        finally:
+            self.store.unpin(sess)
 
     def close_session(self, sid: str, epoch: Optional[int] = None) -> dict:
-        sess = self.store.get(sid)
-        self._check_epoch(sess, epoch)
+        # a close landing in the migration-hold window would discard the
+        # copy whose export is already in the router's hands — and the
+        # import would then resurrect the "closed" session on the
+        # destination. Retryable: the retry lands post-commit on the new
+        # owner (and closes it there) or post-abort back here.
+        self._check_hold(sid)
+        try:
+            sess = self.store.get(sid)
+            self._check_epoch(sess, epoch)
+            restoring = sess.restoring
+        except UnknownSession:
+            # a parked session closes without waking: drop the payload /
+            # hibernate file and seal the stream (close marker)
+            if self.tiers is not None and self.tiers.discard(sid):
+                self.recorder.seal(sid)
+                self.metrics.record_session("close")
+                return {"closed": sid}
+            raise
+        if restoring:
+            # freeing the slot mid-replay would let a new admission take
+            # it while the restore keeps dispatching recorded rounds into
+            # it — corrupting whichever session lands there
+            raise BucketQuarantined(
+                f"session {sid} is being restored; retry shortly")
+        if self.prior_pool is not None and not sess.parked:
+            # harvest the fit before the slot is freed (a parked session
+            # already contributed at demotion)
+            try:
+                self.contribute_prior(sess, sess.bucket.slot_fit(sess.slot))
+            except Exception:
+                pass  # a close must never fail on pool bookkeeping
+        if self.quality is not None and not sess.parked \
+                and self.quality.should_audit(sid):
+            # shadow audit: capture the stream and the session's seeding
+            # facts BEFORE close tears them down; the replay itself runs
+            # on the audit worker thread against a scratch slot
+            try:
+                rows = self.recorder.history(sid)
+                if rows:
+                    self.quality.maybe_enqueue_audit(
+                        sess.bucket, sid, sess.seed, rows,
+                        prior=sess.prior_fit, task=sess.task)
+            except Exception:
+                pass  # a close must never fail on audit bookkeeping
         self.store.close(sid)
         self.recorder.close(sid)
+        if self.tiers is not None:
+            self.tiers.discard(sid)  # clear any stale cold-index entry
         self.metrics.record_session("close")
         return {"closed": sid}
 
     def trace(self, sid: str, epoch: Optional[int] = None) -> dict:
         """The session's per-round decision history from its record stream
-        (every dispatch this session rode, with the proposed item, the
-        best-model answer and the label that was applied)."""
-        sess = self.store.get_pinned(sid)
+        (the flight recorder's interactive face: every dispatch this
+        session rode, with the proposed item, best-model answer, and the
+        label that was applied)."""
+        self._check_hold(sid)
+        sess = self._resolve_pinned(sid)  # wakes a parked session
         try:
             self._check_epoch(sess, epoch)
+            if sess.restoring:
+                # import_history lands only after the replay verifies; a
+                # trace served now would be empty/partial, not the
+                # session's history
+                raise BucketQuarantined(
+                    f"session {sid} is being restored; retry shortly")
             rounds = self.recorder.history(sid) or []
             return {"session": sid, "task": sess.task,
                     "n_labeled": sess.n_labeled, "rounds": rounds}
@@ -588,24 +967,126 @@ class ServeApp:
             self.store.unpin(sess)
 
     def export_session(self, sid: str, close: bool = False,
-                       hold: bool = False) -> dict:
+                       hold: bool = False, raw: bool = False) -> dict:
+        """The migration verb behind ``POST /session/{id}/export``: a
+        self-contained payload (recorder stream + fingerprint-guarded
+        carries snapshot) any same-task server can import. ``close`` frees
+        the slot once the payload is built — the drain handoff.
+        ``hold`` runs the fleet's PREPARE protocol instead (quiesce,
+        hold, export-without-close — see :meth:`begin_migration`); the
+        router commits or aborts through ``POST /session/{id}/fence``.
+
+        A PARKED session exports without waking — its warm/cold payload
+        IS the export (a demotion is an export minus the HTTP hop). The
+        export pin means a demotion either completed before this verb
+        (payload served from the tier) or cleanly aborts against it —
+        the client always gets a consistent snapshot.
+
+        ``raw`` keeps the payload's arrays as host arrays (the same keys,
+        no base64): the in-process form, which ``import_session`` takes
+        as it takes the JSON one; the HTTP route sends the JSON form."""
         if hold:
             return self.begin_migration(sid)
-        raise _slice_8b("session export")
+        if close:
+            # a closing export is a drain handoff: like close_session it
+            # must wait out a migration hold, not race it
+            self._check_hold(sid)
+        from coda_tpu_torch.serve import recovery
+        from coda_tpu_torch.serve.recovery import _counter
+
+        try:
+            sess = self.store.get_pinned(sid)
+        except UnknownSession:
+            payload = (self.tiers.parked_payload(sid, materialized=not raw)
+                       if self.tiers is not None else None)
+            if payload is None:
+                raise
+            if close:
+                self.tiers.discard(sid)
+                self.recorder.seal(sid)
+                self.metrics.record_session("close")
+            self.metrics.record_recovery("exported")
+            _counter("serve_sessions_exported_total",
+                     "Sessions serialized for checkpoint/migration").inc()
+            return payload
+        try:
+            payload = recovery.export_session(self, sid, raw=raw)
+        finally:
+            self.store.unpin(sess)
+        if close:
+            self.close_session(sid)
+        return payload
+
+    def import_body_cap(self) -> int:
+        """The largest body ``POST /session/import`` reads: the
+        reference's 1 MiB for the payload's rows and fields, plus the
+        base64 of one slot's carries in the largest of this server's
+        buckets (2.7 GB at the headline). Builds every registered task's
+        bucket, as an import into it would."""
+        most = max((self.store._bucket_for(t, self.spec).carry_nbytes()
+                    for t in self.store.tasks()), default=0)
+        return _MAX_BODY_BYTES + 4 * -(-most // 3)
 
     def import_session(self, payload: dict) -> dict:
-        raise _slice_8b("session import")
+        """The restore verb behind ``POST /session/import``: admit the
+        exported session under its ORIGINAL id (the client's handle
+        survives the migration), restore its posterior via the
+        digest-verified snapshot fast path or bitwise stream replay, and
+        answer like a normal session verb."""
+        from coda_tpu_torch.serve import recovery
+
+        if self.draining:
+            self.metrics.record_session("reject")
+            raise Draining()
+        try:
+            try:
+                info = recovery.import_session(self, payload)
+            except SlabFull:
+                # tiering admission: an import past slab capacity demotes
+                # the coldest resident session instead of 503
+                if self.tiers is None or not self.tiers.make_room_for(
+                        payload.get("task"), self.spec):
+                    raise
+                info = recovery.import_session(self, payload)
+        except BaseException:
+            # a restore replay dispatch that consumed donated carries
+            # quarantines its bucket WITHOUT passing through the batcher's
+            # failure hook (imports never ride a tick) — kick the heal
+            # here so retried imports find a rebuilt slab, not a 503 loop
+            self._heal_quarantined()
+            raise
+        sess = self.store.get(info["session"])
+        out = self._payload(sess, sess.last or None)
+        out.update(restored_via=info["restored_via"],
+                   rounds=info["rounds"])
+        return out
 
     def restore_sessions(self, record_dir: Optional[str] = None) -> dict:
-        raise _slice_8b("crash restore (restore_sessions)")
+        """Rebuild every un-closed session stream in ``record_dir`` (the
+        crash-restart path; ``--restore`` runs it at startup)."""
+        from coda_tpu_torch.serve import recovery
 
-    def sync_prior(self, pool_snap: Optional[dict] = None) -> dict:
-        raise _slice_8b("the cross-session prior pool")
+        report = recovery.restore_app_sessions(self, record_dir)
+        self._heal_quarantined()  # a failed restore replay must not leave
+        return report             # a bucket 503-refused with no heal queued
+
+    def _heal_quarantined(self) -> None:
+        for b in self.store.buckets():
+            if b.quarantined is not None:
+                self.healer.schedule(b)
 
     def list_sessions(self) -> dict:
-        """Every live session id (``GET /sessions``)."""
+        """Every addressable session id across all tiers (the fleet
+        router's rebalance worklist — ``GET /sessions``). Set-deduped:
+        this runs per replica per topology change at 100k+-session
+        scale."""
         with self.store.lock:
-            return {"sessions": list(self.store._sessions)}
+            sids = list(self.store._sessions)
+        if self.tiers is not None:
+            seen = set(sids)
+            sids += [s for s in self.tiers.parked_sids()
+                     if s not in seen]
+        return {"sessions": sids}
 
     def healthz(self) -> dict:
         """Three-state readiness: ``unready`` (warm pool not ready),
@@ -629,6 +1110,134 @@ class ServeApp:
         return {"ok": ready and not self.draining, "ready": ready,
                 "draining": self.draining, "status": status,
                 "problems": problems}
+
+    # -- cross-session surrogate prior (serve/priors.py) -------------------
+    def contribute_prior(self, sess, fit_stats) -> bool:
+        """Fold one session's fit statistics into the pool (at close or
+        demotion; exactly once per session). A SEEDED session's inherited
+        pool mass is subtracted first — the per-refold decay is linear,
+        so what is left of the seed after ``fits`` refolds is exactly
+        ``SURROGATE_FIT_DECAY ** fits`` of it; without the subtraction
+        every generation would re-contribute its ancestors' statistics
+        and the pool would amplify instead of track."""
+        if self.prior_pool is None or fit_stats is None \
+                or sess.prior_contributed:
+            return False
+        import numpy as np
+
+        from coda_tpu_torch.selectors.surrogate import (SURROGATE_FIT_DECAY,
+                                                  prior_from_dict)
+        from coda_tpu_torch.serve.priors import bucket_pool_key
+
+        if sess.prior_fit is not None:
+            g = SURROGATE_FIT_DECAY ** float(
+                np.asarray(fit_stats.get("fits", 0)))
+            seed = prior_from_dict(sess.prior_fit)
+            fit_stats = {
+                "A": np.asarray(fit_stats["A"], np.float64) - g * seed.A,
+                "b": np.asarray(fit_stats["b"], np.float64) - g * seed.b,
+                "n": max(0.0, float(fit_stats["n"]) - g * seed.n),
+                "rounds": fit_stats["rounds"],
+            }
+        ok = self.prior_pool.contribute(
+            bucket_pool_key(self, sess.bucket), fit_stats)
+        if ok:
+            sess.prior_contributed = True
+            self.refresh_bucket_priors()
+        return ok
+
+    def refresh_bucket_priors(self) -> int:
+        """Re-resolve each bucket's admission prior from the pool (after
+        a contribution, a router pool push, or a restart restore)."""
+        if self.prior_pool is None:
+            return 0
+        from coda_tpu_torch.serve.priors import bucket_pool_key
+
+        n = 0
+        for b in self.store.buckets():
+            stats = self.prior_pool.get(bucket_pool_key(self, b))
+            if b.set_prior(stats) is not None:
+                n += 1
+        return n
+
+    def _prior_totals(self) -> dict:
+        """ServeMetrics snapshot provider for the prior evidence triple
+        (+ pool gauges): contributions accepted into the pool, warmup
+        rounds the pool credited to live sessions (slab-read), and gate
+        rejections that fired inside a credited warmup window."""
+        if self.prior_pool is None:
+            return {}
+        per = getattr(self, "_surrogate_per", None)
+        if per is None:
+            per = {}
+            for b in self.store.buckets():
+                s = b.surrogate_stats()
+                if s is not None:
+                    per[id(b)] = s
+        pool = self.prior_pool.stats()
+        return {
+            "prior_sessions_contributed": pool["sessions_contributed"],
+            "prior_warmup_rounds_skipped": sum(
+                s.get("prior_rounds", 0) for s in per.values()),
+            "prior_gate_rejections": sum(
+                s.get("prior_rejects", 0) for s in per.values()),
+            "prior_pools": pool["pools"],
+            "prior_rounds_pooled": pool["rounds_pooled"],
+            # staleness: the age of the least recently refreshed
+            # pool (None until the first contribution lands) + per-pool
+            # contribution ages — /metrics renders both
+            "prior_pool_staleness_seconds": pool["staleness_seconds"],
+            "prior_pool_ages_seconds": pool["pool_ages_seconds"],
+        }
+
+    def sync_prior(self, pool_snap: Optional[dict] = None) -> dict:
+        """The router exchange verb (``POST /prior/sync``, piggybacked on
+        the health poll): drain this replica's since-last-poll delta for
+        the caller, adopt the router's merged pool when one is pushed,
+        then re-fold the just-drained delta locally so this replica's own
+        recent contributions stay live until the next push echoes them
+        back (uncounted — contribute() already counted them)."""
+        if self.prior_pool is None:
+            return {"delta": {}}
+        delta = self.prior_pool.drain_delta()
+        if pool_snap:
+            self.prior_pool.replace(pool_snap)
+            if delta:
+                self.prior_pool.merge_delta(delta, count=False)
+            self.refresh_bucket_priors()
+        return {"delta": delta}
+
+    def save_prior_pool(self, tracking_store) -> Optional[str]:
+        """Persist the pool into the tracking store (one stable named
+        run, ``prior_pool.json`` artifact) — the restart-survival half."""
+        if self.prior_pool is None:
+            return None
+        import json as _json
+
+        with tracking_store.run("serve", "surrogate-prior-pool") as run:
+            return run.log_artifact_bytes(
+                "prior_pool.json",
+                _json.dumps(self.prior_pool.snapshot()).encode())
+
+    def load_prior_pool(self, tracking_store) -> int:
+        """Adopt the persisted pool (restart path); returns pools loaded."""
+        if self.prior_pool is None:
+            return 0
+        import json as _json
+
+        found = tracking_store.find_run("serve", "surrogate-prior-pool")
+        if not found:
+            return 0
+        path = os.path.join(tracking_store.artifact_root, found[0],
+                            "prior_pool.json")
+        try:
+            with open(path) as f:
+                snap = _json.load(f)
+        except (OSError, ValueError):
+            return 0
+        n = self.prior_pool.replace(snap)
+        self.refresh_bucket_priors()
+        return n
 
     def _surrogate_totals(self) -> dict:
         """Surrogate counters over every surrogate-scorer bucket (the
@@ -655,10 +1264,19 @@ class ServeApp:
         }
 
     def stats(self) -> dict:
-        live = self.store.live_sessions()
-        self.metrics.set_tier_occupancy(hot=live, warm=0, cold=0)
+        # the tier occupancy FIRST, so the snapshot below carries current
+        # gauges between sweeper passes
+        if self.tiers is not None:
+            tiers = self.tiers.counts()
+            self.metrics.set_tier_occupancy(**tiers)
+        else:
+            tiers = {"hot": self.store.live_sessions(), "warm": 0,
+                     "cold": 0}
+            self.metrics.set_tier_occupancy(**tiers)
         snap = self.metrics.snapshot()
-        snap["open_sessions"] = live
+        # open sessions (every addressable one, all three tiers) against
+        # the live slab slots
+        snap["open_sessions"] = tiers["hot"] + tiers["warm"] + tiers["cold"]
         snap["slab_occupancy"] = self.store.slab_occupancy()
         snap["draining"] = self.draining
         snap["ready"] = self.ready.is_set()
@@ -679,6 +1297,14 @@ class ServeApp:
              "surrogate": getattr(self, "_surrogate_per", {}).get(id(b))}
             for b in self.store.buckets()
         ]
+        if self.prior_pool is not None:
+            snap["prior_pool"] = self.prior_pool.stats()
+        if self.quality is not None:
+            # fold THIS pass's live signals (surrogate gate pressure,
+            # prior staleness-regret) into the drift detectors, then
+            # re-read the plane so the snapshot reflects the fold
+            self.quality.feed_serve_stats(snap["buckets"], snap)
+            snap["quality"] = self.quality.snapshot()
         snap["warm_error"] = self.warm_error
         snap["recorder_degraded_streams"] = int(
             getattr(self.recorder, "degraded_streams", 0))
@@ -686,6 +1312,13 @@ class ServeApp:
         if self.faults is not None:
             snap["faults"] = self.faults.snapshot()
         return snap
+
+    def quality_scorecard(self) -> Optional[dict]:
+        """``GET /fleet/quality`` on one server: this plane's scorecard;
+        None with ``--no-quality`` (the route 404s)."""
+        if self.quality is None:
+            return None
+        return self.quality.scorecard()
 
     def _payload(self, sess, res: Optional[dict]) -> dict:
         out = {
@@ -730,8 +1363,25 @@ _PROM = "text/plain; version=0.0.4; charset=utf-8"
 # idle keep-alive connections are reaped after this many seconds
 _IDLE_TIMEOUT_S = 120.0
 
-# request bodies are small JSON (a label, a seed)
+# request bodies are small JSON (a label, a seed); an import's may add the
+# base64 of one slot's carries (ServeApp.import_body_cap)
 _MAX_BODY_BYTES = 1 << 20
+# a larger body is read this many bytes at a time into one array
+_READ_PIECE = 1 << 20
+
+
+async def _read_body(reader: asyncio.StreamReader, n: int):
+    """``n`` bytes of a request body; past ``_READ_PIECE``, read a piece at
+    a time into one array (a ``readexactly`` of the whole copies it twice,
+    and a ``bytearray`` fills it with zeros, each holding the GIL on the
+    event loop) and returned as a memoryview."""
+    if n <= _READ_PIECE:
+        return await reader.readexactly(n) if n > 0 else b""
+    body = np.empty(n, np.uint8)
+    for at in range(0, n, _READ_PIECE):
+        piece = await reader.readexactly(min(_READ_PIECE, n - at))
+        body[at:at + len(piece)] = np.frombuffer(piece, np.uint8)
+    return memoryview(body)
 
 
 class AsyncHTTPServer:
@@ -829,8 +1479,12 @@ class AsyncHTTPServer:
                     n = int(headers.get("content-length") or 0)
                 except ValueError:
                     n = -1
-                if 0 <= n <= _MAX_BODY_BYTES:
-                    body = await reader.readexactly(n) if n > 0 else b""
+                cap = _MAX_BODY_BYTES
+                if n > cap and target.partition("?")[0] == "/session/import":
+                    cap = await asyncio.get_running_loop().run_in_executor(
+                        self.app._executor, self.app.import_body_cap)
+                if 0 <= n <= cap:
+                    body = await _read_body(reader, n)
                     status, payload, ctype = await self._handle(
                         method, target, body, headers)
                 else:
@@ -841,7 +1495,8 @@ class AsyncHTTPServer:
                     status, payload, ctype = (
                         400, {"error": "bad request: invalid or oversized "
                                        "Content-Length"}, _JSON)
-                data = (payload.encode() if isinstance(payload, str)
+                data = (payload if isinstance(payload, memoryview)
+                        else payload.encode() if isinstance(payload, str)
                         else json.dumps(payload).encode())
                 keep = (version == "HTTP/1.1"
                         and headers.get("connection", "").lower() != "close")
@@ -850,7 +1505,11 @@ class AsyncHTTPServer:
                         f"Content-Length: {len(data)}\r\n"
                         "Connection: "
                         f"{'keep-alive' if keep else 'close'}\r\n\r\n")
-                writer.write(head.encode("latin1") + data)
+                if isinstance(data, memoryview):
+                    writer.write(head.encode("latin1"))  # no copy of a
+                    writer.write(data)                   # large body
+                else:
+                    writer.write(head.encode("latin1") + data)
                 await writer.drain()
                 if not keep:
                     break
@@ -927,6 +1586,8 @@ class AsyncHTTPServer:
             # re-resolve the fleet front door
             app.metrics.record_session("request_reject")
             return 409, {"error": f"stale owner: {e}"}, _JSON
+        except ImportRejected as e:
+            return 409, {"error": f"import rejected: {e}"}, _JSON
         except UnknownSession as e:
             app.metrics.record_session("request_reject")
             return 404, {"error": f"unknown session {e}"}, _JSON
@@ -962,7 +1623,13 @@ class AsyncHTTPServer:
             return None if v in (None, "") else int(v)
 
         if method == "POST" and path == "/session/import":
-            return app.import_session(json.loads(raw or b"{}"))
+            # restore an exported session (the parse, and the replay or
+            # snapshot verification, never on the event loop)
+            from coda_tpu_torch.serve.recovery import payload_from_json
+
+            return await loop.run_in_executor(
+                app._executor,
+                lambda: app.import_session(payload_from_json(raw)))
         if method == "POST" and path == "/session":
             req = json.loads(raw or b"{}")
             kw = {}
@@ -991,14 +1658,35 @@ class AsyncHTTPServer:
                                           epoch=_epoch(req),
                                           trace_ctx=trace_ctx)
         if m and method == "POST" and m.group(3) == "answer":
-            return app.answer(m.group(1), None)
-        if m and method == "POST" and m.group(3) == "export":
+            # one per-slot crowd answer, any order (see ServeApp.answer)
             req = json.loads(raw or b"{}")
-            return app.export_session(m.group(1),
-                                      close=bool(req.get("close")),
-                                      hold=bool(req.get("hold")))
+            if "slot" not in req:
+                raise ValueError("missing 'slot'")
+            if "label" not in req and not req.get("abstain"):
+                raise ValueError("missing 'label' (or 'abstain': true)")
+            return await app.answer_async(m.group(1), req["slot"],
+                                          label=req.get("label"),
+                                          request_id=req.get("request_id"),
+                                          epoch=_epoch(req),
+                                          abstain=bool(req.get("abstain")),
+                                          trace_ctx=trace_ctx)
+        if m and method == "POST" and m.group(3) == "export":
+            # the body encoded off the event loop and the GIL
+            from coda_tpu_torch.serve.recovery import payload_to_json
+
+            req = json.loads(raw or b"{}")
+            return await loop.run_in_executor(
+                app._executor,
+                lambda: payload_to_json(app.export_session(
+                    m.group(1), close=bool(req.get("close")),
+                    hold=bool(req.get("hold")), raw=True)))
         if m and method == "POST" and m.group(3) == "fence":
-            return app.end_migration(m.group(1), drop=True)
+            # the migration commit/abort half of the fleet's hold protocol
+            req = json.loads(raw or b"{}")
+            return await loop.run_in_executor(
+                app._executor,
+                lambda: app.end_migration(m.group(1),
+                                          drop=bool(req.get("drop"))))
         if m and method == "GET" and m.group(3) == "epoch":
             return await loop.run_in_executor(
                 app._executor, app.session_epoch, m.group(1))
@@ -1017,7 +1705,10 @@ class AsyncHTTPServer:
                 app._executor,
                 lambda: app.close_session(m.group(1), epoch=_epoch(req)))
         if method == "POST" and path == "/prior/sync":
-            return app.sync_prior()
+            # the pool-exchange half of a router's health poll
+            req = json.loads(raw or b"{}")
+            return await loop.run_in_executor(
+                app._executor, lambda: app.sync_prior(req.get("pool")))
         if method == "GET" and path == "/stats":
             return await loop.run_in_executor(app._executor, app.stats)
         if method == "GET" and path == "/sessions":
@@ -1027,6 +1718,11 @@ class AsyncHTTPServer:
         if tm and method == "GET":
             return await loop.run_in_executor(
                 app._executor, app.trace_by_id, tm.group(1))
+        if method == "GET" and path == "/fleet/quality":
+            # the decision-quality scorecard of this server's plane
+            scorecard = getattr(app, "quality_scorecard", None)
+            if scorecard is not None:
+                return await loop.run_in_executor(app._executor, scorecard)
         return None
 
 
@@ -1065,24 +1761,33 @@ def parse_args(argv=None):
                         "lowering)")
     p.add_argument("--surrogate-prior", default="off",
                    choices=["off", "pool"],
-                   help="coda + surrogate scorer only: 'pool' (the "
-                        "cross-session prior pool) comes with slice 8b of "
-                        "the port and is refused")
+                   help="coda + surrogate scorer only: warm-start every "
+                        "session's surrogate fit from the cross-session "
+                        "prior pool (serve/priors.py) — closed/demoted "
+                        "sessions contribute their fit statistics, new "
+                        "admissions seed from the merged pool; the "
+                        "per-round trust gate is unchanged. 'off' "
+                        "(default) seeds nothing. With --tracking-db the "
+                        "pool survives restarts")
     p.add_argument("--capacity", type=int, default=64,
-                   help="slab slots per bucket = max live sessions per "
-                        "(task, config); admission past it answers 503. "
-                        "Every slot is allocated at start: an incremental "
+                   help="slab slots per bucket = max HOT (resident) "
+                        "sessions per (task, config); admission past it "
+                        "demotes the coldest session to the warm tier "
+                        "(503 only with --no-tiering or when nothing is "
+                        "demotable). Every slot is allocated at start: an "
+                        "incremental "
                         "CODA slot holds a (C, N, H) cache (2.0 GB fp32 "
                         "at (1000, 50000, 10)), so size it from device "
                         "memory")
     p.add_argument("--no-tiering", action="store_true",
-                   help="disable hot/warm/cold session paging (required "
-                        "until tiering, slice 8b of the port, lands): "
-                        "sessions exist only while they hold a slab slot "
-                        "and admission past capacity answers 503")
+                   help="disable hot/warm/cold session paging: sessions "
+                        "exist only while they hold a slab slot and "
+                        "admission past capacity answers 503")
     p.add_argument("--tier-spill-dir", default=None,
-                   help="the cold tier's spill directory (tiering, "
-                        "slice 8b of the port)")
+                   help="enable the COLD tier: idle warm payloads "
+                        "hibernate to the spill store here (serve/spill.py; "
+                        "scanned at startup, so cold sessions survive "
+                        "restarts); without it paging is warm-only")
     p.add_argument("--idle-warm-s", type=float, default=30.0,
                    help="demote a hot session to the warm tier after this "
                         "many seconds without a request")
@@ -1153,8 +1858,10 @@ def parse_args(argv=None):
                         "GET /session/{id}/trace serves the same stream "
                         "live either way")
     p.add_argument("--restore", action="store_true",
-                   help="crash restore from --record-dir (slice 8b of the "
-                        "port; refused)")
+                   help="at startup, rebuild every un-closed session "
+                        "stream found in --record-dir by bitwise replay "
+                        "(the crash-restart path: a killed server "
+                        "restarted with --restore resumes its sessions)")
     p.add_argument("--no-trace", action="store_true",
                    help="disable distributed tracing (trace-context "
                         "propagation, serve/tick/step trace spans, "
@@ -1163,8 +1870,14 @@ def parse_args(argv=None):
                         "off produce bitwise-identical trajectories — "
                         "so this is purely an overhead lever")
     p.add_argument("--no-quality", action="store_true",
-                   help="disable the decision-quality plane (required "
-                        "until the plane, slice 8b of the port, lands)")
+                   help="disable the decision-quality plane "
+                        "(telemetry/quality.py): streaming calibration of "
+                        "the served posterior, drift detectors, and the "
+                        "shadow auditor that bitwise-replays a sample of "
+                        "closed sessions. The plane never perturbs "
+                        "session math — on and off produce "
+                        "bitwise-identical decision rows — so this is "
+                        "purely an overhead lever")
     p.add_argument("--quality-audit-frac", type=float, default=0.25,
                    help="fraction of closing sessions the shadow auditor "
                         "re-replays (deterministic per-sid hash sample; "
@@ -1178,8 +1891,11 @@ def parse_args(argv=None):
     p.add_argument("--fault-spec", default=None, metavar="SPEC",
                    help="deterministic fault injection (serve/faults.py): "
                         "'name:param=v,...[;name:...]' with names "
-                        "step_raise | step_nan | record_eio | slow_step "
-                        "(the others come with slices 8b and 9) and "
+                        "step_raise | step_nan | record_eio | slow_step | "
+                        "crash_before_tick | crash_after_tick | "
+                        "demote_during_label | oracle_poison | "
+                        "oracle_abstain | stream_tamper (the fleet's come "
+                        "with slice 9) and "
                         "triggers after=N / every=N / p=F,seed=S (e.g. "
                         "'step_raise:after=100') — exercises the recovery "
                         "paths under real traffic")
@@ -1190,8 +1906,6 @@ def build_app(args) -> ServeApp:
     """ServeApp from parsed args."""
     from coda_tpu_torch.cli import load_dataset
 
-    if getattr(args, "restore", False):
-        raise _slice_8b("crash restore (--restore)")
     if getattr(args, "compilation_cache_dir", None):
         from coda_tpu_torch.ops import build
 
@@ -1230,8 +1944,14 @@ def build_app(args) -> ServeApp:
         telemetry=telemetry, recorder=recorder,
         fault_spec=getattr(args, "fault_spec", None),
         tiering=not getattr(args, "no_tiering", False),
+        tier_spill_dir=getattr(args, "tier_spill_dir", None),
+        idle_warm_s=getattr(args, "idle_warm_s", 30.0),
+        idle_cold_s=getattr(args, "idle_cold_s", 120.0),
+        max_warm=getattr(args, "max_warm", 8192),
+        tier_free_fraction=getattr(args, "tier_free_frac", 0.0),
         tracing=not getattr(args, "no_trace", False),
         quality=not getattr(args, "no_quality", False),
+        quality_audit_frac=getattr(args, "quality_audit_frac", 0.25),
         device=args.device,
     )
     if args.task or args.synthetic:
@@ -1251,9 +1971,32 @@ def main(argv=None) -> int:
 
     args = parse_args(argv)
     app = build_app(args)
-    # warm in the background so the socket binds at once and /healthz
-    # gates traffic until the pool is ready
-    app.start(warm=not args.no_warm, warm_async=True)
+    if app.prior_pool is not None and args.tracking_db:
+        # adopt the persisted pool BEFORE any admission so the first
+        # session of this process already warm-starts
+        from coda_tpu_torch.tracking import TrackingStore
+
+        _ts = TrackingStore(args.tracking_db)
+        n = app.load_prior_pool(_ts)
+        _ts.close()
+        if n:
+            print(f"surrogate prior pool restored: {n} pool(s) from "
+                  f"{args.tracking_db}", flush=True)
+    if args.restore and args.record_dir:
+        # crash restore BEFORE taking traffic: rebuild every un-closed
+        # session stream (bitwise replay-verified), then open the doors
+        app.start(warm=not args.no_warm)
+        report = app.restore_sessions(args.record_dir)
+        print(f"restored {len(report['restored'])} session(s) from "
+              f"{args.record_dir} "
+              f"({report['skipped_closed']} closed, "
+              f"{len(report['failed'])} failed"
+              + (f": {report['failed']}" if report["failed"] else "") + ")",
+              flush=True)
+    else:
+        # warm in the background so the socket binds at once and /healthz
+        # gates traffic until the pool is ready
+        app.start(warm=not args.no_warm, warm_async=True)
     srv = make_server(app, args.port)
     # SIGTERM drains like ^C: stop the loop, finish queued work, close
     # the streams, exit 0
@@ -1281,6 +2024,13 @@ def main(argv=None) -> int:
             app.metrics.log_to_store(store, params={
                 "method": app.spec.method,
                 "capacity": app.store.capacity})
+            if app.quality is not None:
+                # the shutdown quality scorecard next to the metrics rows
+                # (experiment serve_quality)
+                app.quality.log_to_store(store, params={
+                    "method": app.spec.method})
+            if app.prior_pool is not None:
+                app.save_prior_pool(store)  # the restart-survival half
             store.close()
             print(f"metrics logged to {args.tracking_db}")
     print("drained", flush=True)

@@ -51,9 +51,29 @@ zero-padding the predictions and marking the padded items labeled through
 the states' shared ``unlabeled`` mask, so near-shaped tasks share one
 bucket. The default quantum of 1 keeps shapes exact.
 
-The reference's tiering, export/import, prior pool and quality plane
-(slice 8b of the port) and the fleet's migration fence (slice 9) have no
-hooks here yet.
+The restore hooks of export/import, crash restore and the session tiers
+(``serve/recovery.py``, ``serve/tiering.py``) are decided for a slot of
+2.0 GB (the headline's fp32 ``(C, N, H)`` cache):
+
+  * :meth:`Bucket.snapshot_slots` copies only the named slots (the
+    reference copies the whole slab to the host and slices it there). On
+    the card each slot goes through pinned staging buffers (one slot's
+    worth, pinned once) on a side stream, the dispatch lock held only to
+    order the copy after the work already queued, then into pageable
+    host memory: a demotion wave does not stall the dispatches behind a
+    gigabyte copy, nor pin host pages a session (which stalls every
+    launch of the process). A dispatch that writes a slot during its copy
+    makes the demotion lose (the tiers' pin and label-count re-check),
+    and a heal during the copy voids the whole snapshot.
+    :meth:`Bucket.snapshot_slot` (export) holds the lock until its copy
+    has landed: its snapshot must be consistent by itself.
+  * :meth:`Bucket.restore_slot` writes into the slot's existing tensors
+    (``copy_``, through the staging buffers on the card) and never
+    allocates a tensor for a slot, so a woken slot keeps the alignment a
+    fresh allocation gave it. The caller verifies the written slot's
+    P(best) digest against the stream (:meth:`Bucket.digest`).
+  * :meth:`Bucket.pbest_rows` reads many slots' P(best) with one stacked
+    gather and one device-to-host copy (the quality plane's per-tick read).
 """
 
 from __future__ import annotations
@@ -63,6 +83,7 @@ import inspect
 import secrets
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple, Optional
 
@@ -165,10 +186,6 @@ class SelectorSpec:
 
         kw = dict(self.kwargs)
         if self.method.startswith("coda"):
-            if kw.get("surrogate_prior", "off") != "off":
-                raise NotImplementedError(
-                    "the serve prior pool (surrogate_prior='pool') comes "
-                    "with slice 8b of the port")
             hp = CODAHyperparams(**kw)
             return lambda preds: make_coda(preds, hp, name=self.method,
                                            device=device)
@@ -236,6 +253,57 @@ def tree_rebuild(template, leaves):
         return next(it)
 
     return build(template)
+
+
+def tree_paths(x, prefix=()) -> list:
+    """The field-name path of every leaf of a state, in
+    :func:`tree_leaves` order."""
+    if _is_node(x):
+        return [p for name, v in zip(x._fields, x)
+                for p in tree_paths(v, prefix + (name,))]
+    return [prefix]
+
+
+def _tensor_positions(template) -> list:
+    """Leaf positions of a state that hold tensors: a snapshot's carries
+    in order (the None leaves of an unused tier are not carried)."""
+    return [i for i, leaf in enumerate(tree_leaves(template))
+            if isinstance(leaf, torch.Tensor)]
+
+
+def _host_tensor(arr) -> torch.Tensor:
+    """A CPU tensor over a host array without a copy (a read-only buffer,
+    such as a decompressed spill leaf, is only read)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(np.asarray(arr))
+
+
+# a carry at least this large is copied out of the staging buffers into a
+# pooled host array (see _Lease); smaller ones are plain copies
+_HOST_POOL_MIN_BYTES = 1 << 20
+
+
+class _Lease:
+    """A pooled host array lent out: the arrays made from it keep it, and
+    when the last of them is gone a finalizer gives the array back to its
+    pool (:func:`_give_back`), so a pooled array is never written while a
+    payload still reads it."""
+
+    __slots__ = ("arr", "__weakref__")
+
+    def __init__(self, arr: np.ndarray):
+        self.arr = arr
+
+    def __buffer__(self, flags):
+        return memoryview(self.arr)
+
+
+def _give_back(free: list, arr: np.ndarray, cap: int) -> None:
+    if len(free) < cap:
+        free.append(arr)
 
 
 def state_digest(state, key=None) -> str:
@@ -507,6 +575,16 @@ class Bucket:
                              is not None else "map")
         self._step = make_slab_step(self.selector, self.impl, self.device)
         self._get_pbest = self.selector.extras.get("get_pbest")
+        # cross-session surrogate prior (serve/priors.py): the applied-
+        # prior record {"digest", "credit", <prior_to_dict fields>} new
+        # admissions seed from, or None (set_prior); the restore paths
+        # re-apply each session's recorded record instead
+        self.prior: Optional[dict] = None
+        self._copy_stream = None     # the snapshot/restore side stream
+        self._staging = None         # pinned buffers for one slot's carries
+        self._staging_lock = threading.Lock()
+        # per large carry, the pageable host arrays payloads gave back
+        self._host_free: dict = {}
         self._faults = faults        # optional FaultInjector
         self._init_state = None      # the cached key-independent init
         self._warm = False
@@ -525,6 +603,8 @@ class Bucket:
         # overwrite their slot at admission)
         template = self.selector.init(trandom.PRNGKey(0))
         self._template = template
+        self._carry_at = _tensor_positions(template)
+        self._carry_paths = [tree_paths(template)[i] for i in self._carry_at]
         self._slab = _Slab(template, self.capacity)
         self.keys = [torch.zeros(2, dtype=torch.int64)
                      for _ in range(self.capacity)]
@@ -615,23 +695,53 @@ class Bucket:
                 f"(slab rebuild in progress, retry shortly): "
                 f"{self.quarantined}")
 
-    def _fresh_slot_state(self, seed: int):
+    def _fresh_slot_state(self, seed: int, prior: Optional[dict] = None):
         """Reference-choreography ``(state, key)`` for a new session:
         ``PRNGKey(seed)``, init consumes one split (always — even when the
         cached init state makes its value moot). The state may be the
-        shared cached init: writers copy it."""
+        shared cached init: writers copy it.
+
+        ``prior`` (an applied-prior record, :meth:`set_prior`) seeds the
+        state's surrogate fit from the cross-session pool; the caller owns
+        replay consistency (a restore passes the record the session was
+        admitted under)."""
         key, sub = trandom.split(trandom.PRNGKey(seed))
         if self._init_state is not None:
-            return self._init_state, key
-        state = self.selector.init(sub)
-        if self.n_valid < self.shape[1]:
-            state = _deactivate_padded(state, self.n_valid)
+            state = self._init_state
+        else:
+            state = self.selector.init(sub)
+            if self.n_valid < self.shape[1]:
+                state = _deactivate_padded(state, self.n_valid)
+        if prior is not None and getattr(state, "surrogate",
+                                         None) is not None:
+            from coda_tpu_torch.selectors.surrogate import (prior_from_dict,
+                                                            seed_fit)
+
+            state = state._replace(surrogate=seed_fit(
+                state.surrogate, prior_from_dict(prior)))
         return state, key
 
+    def set_prior(self, stats) -> Optional[dict]:
+        """Install (or clear, with None) the pool prior new admissions
+        seed from; returns the applied-prior record now in force."""
+        from coda_tpu_torch.selectors.surrogate import (prior_digest,
+                                                        prior_to_dict,
+                                                        prior_warmup_credit)
+
+        if stats is None or getattr(stats, "n", 0) <= 0:
+            self.prior = None
+        else:
+            rec = prior_to_dict(stats)
+            rec["digest"] = prior_digest(stats)
+            rec["credit"] = prior_warmup_credit(stats)
+            self.prior = rec
+        return self.prior
+
     # -- slot lifecycle (no bucket lock: slab writes are staged) ------------
-    def allocate(self, seed: int) -> int:
+    def allocate(self, seed: int, prior: Optional[dict] = None) -> int:
         """Take a free slot and stage its fresh state (no dispatch lock:
-        admission never waits out an in-flight slab step)."""
+        admission never waits out an in-flight slab step); ``prior`` as
+        in :meth:`_fresh_slot_state`."""
         self._check_available()
         with self._host_lock:
             if not self._free:
@@ -639,7 +749,7 @@ class Bucket:
                     f"bucket {self.task}/{self.spec.method}: all "
                     f"{self.capacity} slots live")
             slot = self._free.pop()
-        state, key = self._fresh_slot_state(seed)
+        state, key = self._fresh_slot_state(seed, prior=prior)
         with self._host_lock:
             self._staged.append((slot, state, key))
         return slot
@@ -760,8 +870,9 @@ class Bucket:
             def _host(name):
                 return np.asarray([float(getattr(f, name)) for f in fits])
 
-            rounds, fallbacks, refolds, margins = (
-                _host(n) for n in ("rounds", "fallbacks", "fits", "margin"))
+            rounds, fallbacks, refolds, margins, prounds, prejects = (
+                _host(n) for n in ("rounds", "fallbacks", "fits", "margin",
+                                   "prior_rounds", "prior_rejects"))
         if not live:
             return {"rounds": 0, "fallbacks": 0, "fit_refreshes": 0,
                     "contract_margin": None, "prior_rounds": 0,
@@ -773,7 +884,10 @@ class Bucket:
                 "fit_refreshes": int(refolds.sum()),
                 "contract_margin": (float(finite.min()) if finite.size
                                     else None),
-                "prior_rounds": 0, "prior_rejects": 0}
+                # the prior evidence pair: warmup rounds the pool credited
+                # to live sessions, gate rejections inside that credit
+                "prior_rounds": int(prounds.sum()),
+                "prior_rejects": int(prejects.sum())}
 
     def pbest(self, slot: int):
         """P(model is best) for one slot (the method's ``get_pbest``), as
@@ -784,6 +898,18 @@ class Bucket:
         self._check_available()
         return self._get_pbest(self.slot_state(slot)).detach().cpu().numpy()
 
+    def pbest_rows(self, slots) -> Optional[np.ndarray]:
+        """The ``(len(slots), H)`` P(best) of many slots with one stacked
+        gather and ONE device-to-host copy (the quality plane's per-tick
+        read; each row is the same fp32 words :meth:`pbest` reads), or
+        None when the method exposes no posterior. Caller holds ``lock``."""
+        if self._get_pbest is None:
+            return None
+        self._check_available()
+        self._apply_staged()
+        rows = [self._get_pbest(self._slab.slot(int(s))) for s in slots]
+        return torch.stack(rows).detach().cpu().numpy()
+
     def digest(self, slot: int):
         """(pbest_max, pbest_entropy) of one slot's CURRENT state, or None
         when the method exposes no posterior — the two float32 words the
@@ -793,17 +919,211 @@ class Bucket:
         pb = self._get_pbest(self.slot_state(slot)).to(torch.float32)
         return float(pb.max()), float(entropy2(pb))
 
-    def snapshot_slot(self, slot: int):
-        """Host copies of one slot's ``(state leaves, key)``, taken under
-        the dispatch lock (the next dispatch writes the slab in place)."""
+    def fit_from_leaves(self, leaves) -> Optional[dict]:
+        """The surrogate fit's pool-contribution statistics ``{"A", "b",
+        "n", "rounds", "fits"}`` from HOST snapshot leaves (the demotion
+        snapshot already holds them: no device read), or None when the
+        bucket's selector carries no fit."""
+        if getattr(self._template, "surrogate", None) is None:
+            return None
+        where = {p[-1]: i for i, p in enumerate(self._carry_paths)
+                 if p[0] == "surrogate"}
+        try:
+            return {k: np.asarray(leaves[where[k]])
+                    for k in ("A", "b", "n", "rounds", "fits")}
+        except (KeyError, IndexError):
+            return None
+
+    def slot_fit(self, slot: int) -> Optional[dict]:
+        """One LIVE slot's fit contribution statistics as host arrays (the
+        close-time pool contribution's read), or None."""
+        if getattr(self._template, "surrogate", None) is None:
+            return None
+        with self.lock:
+            fit = self.slot_state(slot).surrogate
+            return {k: getattr(fit, k).detach().cpu().numpy().copy()
+                    for k in ("A", "b", "n", "rounds", "fits")}
+
+    def _carries(self, slot: int) -> list:
+        """Slot ``slot``'s tensor leaves (views of the slab, or the slot's
+        own tensors), in carry order."""
+        leaves = tree_leaves(self._slab.slot(slot))
+        return [leaves[i] for i in self._carry_at]
+
+    def carry_nbytes(self) -> int:
+        """The bytes of one slot's carries (an export's snapshot)."""
+        tmpl = tree_leaves(self._template)
+        return sum(tmpl[i].numel() * tmpl[i].element_size()
+                   for i in self._carry_at)
+
+    def _side_stream(self):
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+        return self._copy_stream
+
+    def _stage(self) -> list:
+        """The pinned staging buffers, one per carry of one slot, pinned
+        at first use (caller holds ``_staging_lock``)."""
+        if self._staging is None:
+            tmpl = tree_leaves(self._template)
+            self._staging = [torch.empty(tmpl[i].shape, dtype=tmpl[i].dtype,
+                                         pin_memory=True)
+                             for i in self._carry_at]
+        return self._staging
+
+    def _to_stage(self, slot: int, hold: bool):
+        """Queue slot ``slot``'s carries into the staging buffers on the
+        side stream and wait for them; the key copied. The dispatch lock is
+        taken to order the copy after the work queued on the slab, and
+        held until the copy has landed only with ``hold`` (caller holds
+        ``_staging_lock``)."""
+        stream, stage = self._side_stream(), self._stage()
         with self.lock:
             self._check_available()
-            state = self.slot_state(slot)
-            leaves = [x.detach().cpu().numpy()
-                      if isinstance(x, torch.Tensor) else x
-                      for x in tree_leaves(state)]
-            key = self.keys[slot].numpy().copy()
-        return leaves, key
+            self._apply_staged()
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                for h, x in zip(stage, self._carries(slot)):
+                    h.copy_(x, non_blocking=True)
+                    # a dispatch may replace the slot's own small tensors
+                    # meanwhile: keep their memory until the copy read it
+                    x.record_stream(stream)
+            key = self.keys[slot].clone().numpy()
+            if hold:
+                stream.synchronize()
+        stream.synchronize()
+        return key
+
+    def snapshot_slot(self, slot: int):
+        """Host copies of one slot's ``(carries, key)``, consistent by
+        themselves (the export path's): the copy completes under the
+        dispatch lock (the next dispatch writes the slab in place). On the
+        card it lands in the pinned staging buffers (the device's copy
+        rate, not a pageable copy's) and is copied out after the lock is
+        released."""
+        if self.device.type != "cuda":
+            with self.lock:
+                self._check_available()
+                self._apply_staged()
+                return ([x.detach().clone().numpy()
+                         for x in self._carries(slot)],
+                        self.keys[slot].clone().numpy())
+        with self._staging_lock:
+            key = self._to_stage(slot, hold=True)
+            return self._from_stage(), key
+
+    def _from_stage(self) -> list:
+        """Pageable host copies of the staging buffers (caller holds
+        ``_staging_lock``). Fresh memory copies at the rate of its page
+        faults (about 2.5 GB/s on the card's host), so a large carry goes
+        into a host array a dead payload gave back (:class:`_Lease`; at
+        most ``capacity`` kept a carry) when there is one. Pre-faulting
+        fresh memory (``MAP_POPULATE``) instead held the process's
+        memory-map lock for the whole copy and stalled the dispatches
+        (PERF.md §6)."""
+        out = []
+        for i, h in enumerate(self._stage()):
+            src = h.numpy()
+            if src.nbytes < _HOST_POOL_MIN_BYTES:
+                out.append(src.copy())
+                continue
+            free = self._host_free.setdefault(i, [])
+            try:
+                arr = free.pop()
+            except IndexError:
+                arr = np.empty(src.shape, src.dtype)
+            np.copyto(arr, src)
+            lease = _Lease(arr)
+            weakref.finalize(lease, _give_back, free, arr, self.capacity)
+            out.append(np.frombuffer(lease, dtype=arr.dtype)
+                       .reshape(arr.shape))
+        return out
+
+    def snapshot_slots(self, slots) -> dict:
+        """Host copies of MANY slots' ``(carries, key)``, copying only the
+        named slots: ``{slot: (leaves, key)}`` (the tiers' demotion).
+
+        On the card the copies go slot by slot through the pinned
+        staging buffers on a side stream, the dispatch lock held only to
+        order each copy after the work queued, then into pageable host
+        memory, reused from dead payloads where it can be (no lock, no
+        GIL): dispatches of other slots run during the copies, and host
+        memory is pinned once (one slot's worth), never a session at a
+        time. On the CPU the copies run under the lock.
+
+        A slot written by a dispatch during its (unlocked) copy is torn:
+        the tiers' demotion discards it (that dispatch carried a label, so
+        the pin or label-count re-check fails), and a heal during the
+        copies (which rewrites every slot) voids the whole snapshot."""
+        slots = sorted({int(s) for s in slots})
+        if not slots:
+            return {}
+        if self.device.type != "cuda":
+            with self.lock:
+                self._check_available()
+                self._apply_staged()
+                return {s: ([x.detach().clone().numpy()
+                             for x in self._carries(s)],
+                            self.keys[s].clone().numpy()) for s in slots}
+        heals0 = self.heals
+        out = {}
+        with self._staging_lock:
+            for s in slots:
+                key = self._to_stage(s, hold=False)
+                out[s] = (self._from_stage(), key)
+        if self.heals != heals0 or self.quarantined is not None:
+            raise BucketQuarantined(
+                f"bucket {self.task}/{self.spec.method} was healed during "
+                "a snapshot; the snapshot is void")
+        return out
+
+    def restore_slot(self, slot: int, leaves, key) -> None:
+        """Write imported host ``(leaves, key)`` into an ALLOCATED slot's
+        existing tensors (``copy_``; no tensor is allocated for the slot).
+        The slot's staged fresh init is dropped; the dispatch lock is
+        taken only to order the copy after any slab write already queued
+        (no dispatch touches an unrequested slot, and a restoring session
+        is gated). On the card the upload runs on a side stream through
+        the pinned staging buffers; this returns once it has landed. Raises
+        ValueError when the leaves are not this bucket's state structure
+        (order, shapes, dtypes)."""
+        if len(leaves) != len(self._carry_at):
+            raise ValueError(
+                f"snapshot carries {len(leaves)} leaves; this bucket's "
+                f"state has {len(self._carry_at)}")
+        srcs = [_host_tensor(a) for a in leaves]
+        tmpl = tree_leaves(self._template)
+        for got, want in zip(srcs, (tmpl[i] for i in self._carry_at)):
+            if tuple(got.shape) != tuple(want.shape) \
+                    or got.dtype != want.dtype:
+                raise ValueError(
+                    f"snapshot leaf {got.dtype}{tuple(got.shape)} != bucket "
+                    f"state leaf {want.dtype}{tuple(want.shape)}")
+        with self._host_lock:
+            self._staged = [(s, st, k) for s, st, k in self._staged
+                            if s != slot]
+        cuda = self.device.type == "cuda"
+        with self.lock:
+            # a dispatch that applied this slot's staged init before the
+            # drop above has queued its copy by now
+            dsts = self._carries(slot)
+            if cuda:
+                stream = self._side_stream()
+                stream.wait_stream(torch.cuda.current_stream(self.device))
+        if not cuda:
+            for dst, src in zip(dsts, srcs):
+                dst.copy_(src)
+        else:
+            with self._staging_lock:
+                stage = self._stage()
+                for h, src in zip(stage, srcs):
+                    h.copy_(src)
+                with torch.cuda.stream(stream):
+                    for dst, h in zip(dsts, stage):
+                        dst.copy_(h, non_blocking=True)
+                stream.synchronize()
+        self.keys[slot] = torch.as_tensor(np.asarray(key).copy(),
+                                          dtype=torch.int64)
 
     def slot_digest(self, slot: int) -> str:
         """:func:`state_digest` of one slot's state and key."""
@@ -811,12 +1131,15 @@ class Bucket:
             self._apply_staged()
             return state_digest(self._slab.slot(slot), self.keys[slot])
 
-    # -- heal support (serve/recovery.py drives these) ---------------------
-    def stage_fresh(self, slot: int, seed: int) -> None:
+    # -- heal and restore support (serve/recovery.py drives these) ---------
+    def stage_fresh(self, slot: int, seed: int,
+                    prior: Optional[dict] = None) -> None:
         """Stage a fresh state for an ALLOCATED slot — the replay entry
         point: replay starts from the reference init (staged rows apply in
-        order, last write wins)."""
-        state, key = self._fresh_slot_state(seed)
+        order, last write wins). ``prior`` re-applies the applied-prior
+        record the session was ADMITTED under, so a prior-seeded
+        session's replay reproduces its init bitwise."""
+        state, key = self._fresh_slot_state(seed, prior=prior)
         with self._host_lock:
             self._staged.append((slot, state, key))
 
@@ -872,12 +1195,33 @@ class Session:
     # result row (bounded LRU), and -> the in-flight Ticket
     recent: dict = field(default_factory=dict)
     pending: dict = field(default_factory=dict)
-    # ownership epoch of the fleet's fence (slice 9); 0 on one server
+    # the crowd's answers of the CURRENT round (POST /session/{id}/
+    # answer): slot -> {label, request_id, seq}, and the arrival counter.
+    # When all acq_batch slots are filled the park drains through ONE
+    # batch-label dispatch in slot order under a synthetic request_id.
+    # Mutated under the store lock; park rows in the stream and the
+    # export payload's ``parked`` carry them across restore and migration
+    parked: dict = field(default_factory=dict)
+    park_seq: int = 0
+    # set while import/restore is mid-replay: the sid resolves, but label
+    # dispatches answer a retryable 503 until the posterior and the dedupe
+    # cache are rebuilt
+    restoring: bool = False
+    # ownership epoch of the fleet's fence (slice 9); 0 on one server,
+    # carried verbatim by export/import and the streams
     epoch: int = 0
-    # in-flight verbs holding the session, and its last use (the tiers'
-    # demotion race and LRU axis in slice 8b)
+    # in-flight verbs holding the session (a demotion needs exactly its
+    # own pin, so it loses every race against live traffic), and its last
+    # use (the tiers' LRU axis). Both mutate under the store lock.
     pins: int = 0
     last_used: float = field(default_factory=time.monotonic)
+    # the applied-prior record the session's fit was seeded from at
+    # admission (None = cold init); rides the stream meta and the export
+    # payload so every replay re-applies the same prior
+    prior_fit: Optional[dict] = None
+    # whether the session's fit was folded into the pool (exactly once:
+    # at close or at demotion)
+    prior_contributed: bool = False
 
 
 def _round_up(n: int, quantum: int) -> int:
@@ -908,6 +1252,9 @@ class SessionStore:
         self.step_impl = step_impl
         self.faults = faults
         self.device = resolve_device(device)
+        # bucket -> PriorStats or None: ServeApp installs the pool lookup
+        # so a bucket built after a pool was loaded seeds at once
+        self.prior_resolver = None
         self._tasks: dict[str, Any] = {}     # name -> (H, N, C) ndarray
         self._meta: dict[str, dict] = {}
         self._buckets: dict[tuple, Bucket] = {}
@@ -985,14 +1332,25 @@ class SessionStore:
             b = Bucket(preds, spec, self.capacity, n_valid=N, task=task,
                        step_impl=self.step_impl, faults=self.faults,
                        device=self.device)
+            if self.prior_resolver is not None:
+                try:
+                    b.set_prior(self.prior_resolver(b))
+                except Exception:
+                    pass  # the pool never blocks a bucket build
             with self.lock:
                 self._buckets[key] = b
             return b
 
     # -- sessions ----------------------------------------------------------
     def open(self, task: str, spec: SelectorSpec, seed: int = 0,
-             sid: Optional[str] = None) -> Session:
-        """Admit a session (``sid`` pins its id)."""
+             sid: Optional[str] = None, restoring: bool = False,
+             prior="pool") -> Session:
+        """Admit a session. ``sid`` pins its id (import and restore keep
+        the client's handle); ``restoring`` publishes it already gated.
+        ``prior``: ``"pool"`` seeds a new session's surrogate fit from the
+        bucket's pool prior (none until ``Bucket.set_prior``), an
+        applied-prior record re-applies exactly that one (the restore
+        paths), None forces a cold init."""
         with self.lock:
             if task not in self._tasks:
                 raise KeyError(f"unknown task {task!r}; registered: "
@@ -1000,9 +1358,12 @@ class SessionStore:
             if sid is not None and sid in self._sessions:
                 raise ValueError(f"session id {sid!r} already live here")
         bucket = self._bucket_for(task, spec)
-        slot = bucket.allocate(seed)  # raises SlabFull
+        # resolved ONCE: the seeding and the recorded prior_fit agree
+        applied = bucket.prior if prior == "pool" else prior
+        slot = bucket.allocate(seed, prior=applied)  # raises SlabFull
         sess = Session(sid=sid or secrets.token_hex(8), task=task,
-                       bucket=bucket, slot=slot, seed=seed)
+                       bucket=bucket, slot=slot, seed=seed,
+                       restoring=restoring, prior_fit=applied)
         with self.lock:
             if sess.sid in self._sessions:
                 bucket.release(slot)

@@ -15,13 +15,17 @@ book and the decision flight recorder.
   * :mod:`~coda_tpu_torch.telemetry.recorder`: the run records and the
     serving sessions' streams (:class:`SessionRecorder`);
   * :mod:`~coda_tpu_torch.telemetry.trace`: the serve layer's trace
-    context (stdlib; the reference's own module, kept as the port's copy).
+    context (stdlib; the reference's own module, kept as the port's copy);
+  * :mod:`~coda_tpu_torch.telemetry.quality`: the serve layer's
+    decision-quality plane (calibration, drift detectors, the shadow
+    auditor);
+  * :mod:`~coda_tpu_torch.telemetry.slo`: declarative objectives and
+    burn-rate alerts (stdlib).
 
 :class:`Telemetry` bundles the first four for the plumbing layers: the
 CLI's and the suite's ``--telemetry-dir`` write ``trace.json``,
 ``telemetry.json`` and ``metrics.prom`` there and can flush the scalars
-into the tracking store beside the regret curves. The reference's
-``quality`` and ``slo`` modules come with slice 8b of the port.
+into the tracking store beside the regret curves.
 """
 
 from __future__ import annotations

@@ -6,9 +6,10 @@ exposition format (version 0.0.4), written as ``metrics.prom`` beside
 ``telemetry.json``; :func:`lint` checks a text against that contract. No
 client library: the format is lines of ``name{labels} value`` under
 ``# HELP`` / ``# TYPE`` headers. ``render(serve_metrics=...)`` adds the
-serve families (``ServeMetrics``' snapshot, the reference's names); the
-quality families come with slice 8b and :func:`render_fleet` with the
-fleet, slice 9, of the port.
+serve families (``ServeMetrics``' snapshot, the reference's names) and
+the decision-quality families (``quality_*``, absent with
+``--no-quality``); :func:`render_fleet` comes with the fleet, slice 9 of
+the port.
 """
 
 from __future__ import annotations
@@ -212,6 +213,108 @@ _SERVE_SPILL = [
      "(0 = pure O(index) startup)"),
 ]
 
+# decision-quality plane (telemetry/quality.py, nested under
+# snapshot["quality"]): absent (not zero) with --no-quality. Each entry
+# is (suffix, kind, help, extract) where extract(quality_snapshot)
+# returns [(extra_labels, value)] — shared by the single-replica and
+# fleet render paths (the fleet path merges a replica label in).
+
+def _q_audit(key):
+    def extract(q):
+        v = (q.get("audit") or {}).get(key)
+        return [] if v is None else [({}, v)]
+    return extract
+
+
+def _q_scalar(key):
+    def extract(q):
+        v = q.get(key)
+        return [] if v is None else [({}, v)]
+    return extract
+
+
+def _q_calibration(key):
+    def extract(q):
+        return [({"task": task}, cal[key])
+                for task, cal in sorted((q.get("calibration") or {}).items())
+                if cal.get(key) is not None]
+    return extract
+
+
+def _q_drift(key):
+    def extract(q):
+        out = []
+        for name, det in sorted((q.get("drift") or {}).items()):
+            # absent, not zero: a detector whose signal never fed (e.g.
+            # surrogate gate pressure on an exact-scorer server) exports
+            # no series — families only exist where the signal runs
+            if not det.get("observations"):
+                continue
+            v = det.get(key)
+            if v is not None:
+                out.append(({"detector": name},
+                            float(v) if not isinstance(v, bool)
+                            else (1.0 if v else 0.0)))
+        return out
+    return extract
+
+
+_SERVE_QUALITY = [
+    ("quality_audits_total", "counter",
+     "Closed sessions the shadow auditor bitwise-re-replayed",
+     _q_audit("audits_total")),
+    ("quality_audits_skipped_total", "counter",
+     "Shadow audits skipped (scratch slab full / replay setup failure)",
+     _q_audit("audits_skipped")),
+    ("quality_audit_rounds_verified_total", "counter",
+     "Recorded decision rounds bitwise-verified by shadow replays",
+     _q_audit("rounds_verified")),
+    ("quality_audit_divergences_total", "counter",
+     "Shadow replays that bitwise-diverged from the recorded stream "
+     "(must stay 0 on a healthy fleet)",
+     _q_audit("divergences_total")),
+    ("quality_audit_divergences_recent", "gauge",
+     "Divergences inside the recent attribution window",
+     _q_audit("divergences_recent")),
+    ("quality_audit_tampered_total", "counter",
+     "Audits whose stream copy was deliberately ulp-tampered by fault "
+     "injection (each must show up as a divergence)",
+     _q_audit("tampered_total")),
+    ("quality_audit_prior_gap", "gauge",
+     "Seeded-vs-cold shadow-replay decision gap (EWMA fraction of "
+     "warmup rounds where the pool prior changed the pick; a healthy "
+     "prior keeps this HIGH — it is actually steering)",
+     _q_audit("prior_gap")),
+    ("quality_audit_queue_drops_total", "counter",
+     "Audit candidates dropped because the audit queue was full",
+     _q_scalar("audit_queue_drops")),
+    ("quality_pre_dispatch_errors_total", "counter",
+     "Calibration pre-dispatch reads that raised (decision math is "
+     "never affected; the round just goes unobserved)",
+     _q_scalar("pre_dispatch_errors")),
+    ("quality_calibration_rounds", "gauge",
+     "Labeled rounds folded into the task's calibration accumulators",
+     _q_calibration("n")),
+    ("quality_calibration_ece", "gauge",
+     "Streaming expected calibration error of the served posterior's "
+     "predicted-label confidence, per task",
+     _q_calibration("ece")),
+    ("quality_calibration_brier", "gauge",
+     "Streaming Brier score of the served posterior's predicted-label "
+     "confidence, per task",
+     _q_calibration("brier")),
+    ("quality_drift_statistic", "gauge",
+     "Current drift-detector statistic (CUSUM s / Page-Hinkley m-min)",
+     _q_drift("statistic")),
+    ("quality_drift_firing", "gauge",
+     "Whether the drift detector is currently firing (0/1)",
+     _q_drift("firing")),
+    ("quality_drift_fired_total", "counter",
+     "Drift-detector fire transitions since start",
+     _q_drift("fired_total")),
+]
+
+
 _SERVE_SUMMARIES = [
     ("dispatch_latency", "serve_dispatch_latency_seconds", "dispatches",
      "Slab-step dispatch seconds over the recent ring"),
@@ -403,6 +506,12 @@ def _render_serve(out: list, snap: dict, prefix: str) -> None:
         v = spill.get(key)
         if v is not None:
             _family(out, _name(prefix, suffix), kind, help, [({}, v)])
+    quality = snap.get("quality")
+    if isinstance(quality, dict):
+        for suffix, kind, help, extract in _SERVE_QUALITY:
+            samples = extract(quality)
+            if samples:
+                _family(out, _name(prefix, suffix), kind, help, samples)
     ages = (snap.get("prior_pool_ages_seconds")
             or (snap.get("prior_pool") or {}).get("pool_ages_seconds")
             or {})

@@ -411,9 +411,9 @@ def stream_dir(root: str, *parts: str) -> str:
 
 # the session stream's schema, the reference's: v2 added request_id, the
 # P(best) digest and the session_close marker; v3 q-wide batch-label rows
-# and the meta's acq_batch; v4 answer_park rows (the crowd's answer verb,
-# which the port serves from slice 8b). Rows may carry the additive
-# optional ``trace_id``; a reader tolerates extra keys.
+# and the meta's acq_batch; v4 answer_park rows (the crowd's answer
+# verb). Rows may carry the additive optional ``trace_id`` and
+# ``pred_label_prob``; a reader tolerates extra keys.
 SESSION_SCHEMA_VERSION = 4
 SUPPORTED_SESSION_VERSIONS = (2, 3, 4)
 

@@ -7,9 +7,10 @@ reference's JSON shapes and status codes; ``request_id`` dedupe;
 admission 503 and draining; the ``/healthz`` warm gate; ``/metrics``
 clean under the port's ``prometheus.lint``; ``parse_args([])``'s defaults
 equal to the reference's (``--platform`` is the port's ``--device``);
-every verb of slice 8b or 9 refused naming its slice (HTTP 501); and the
-answers over HTTP equal to the in-process slab's on the same seed,
-bitwise.
+the fleet's verbs (slice 9) refused naming their slice (HTTP 501);
+export/import over HTTP; the crowd's ``answer`` verb committing, in any
+order, the rows of the in-order ``labels`` verb bitwise; and the answers
+over HTTP equal to the in-process slab's on the same seed, bitwise.
 """
 
 from __future__ import annotations
@@ -48,10 +49,15 @@ def _spec():
 class _Server:
     """A ServeApp behind its own AsyncHTTPServer on an ephemeral port."""
 
-    def __init__(self, task, capacity=4, warm=True, **kw):
+    def __init__(self, task, capacity=4, warm=True, acq_batch=1, **kw):
         kw.setdefault("spec", _spec())
-        self.app = ServeApp(capacity=capacity, tiering=False, quality=False,
-                            device=DEV, **kw)
+        if acq_batch > 1:
+            sp = kw["spec"]
+            kw["spec"] = SelectorSpec.create(sp.method, acq_batch=acq_batch,
+                                             **dict(sp.kwargs))
+        kw.setdefault("tiering", False)
+        kw.setdefault("quality", False)
+        self.app = ServeApp(capacity=capacity, device=DEV, **kw)
         self.app.add_task("t", task.preds)
         self.srv = make_server(self.app, 0)
         self.port = self.srv.server_address[1]
@@ -205,48 +211,242 @@ def test_port_parse_args_defaults_are_the_reference():
 
 
 def test_port_refusals_name_their_slice(task):
-    """Everything of slice 8b or 9 raises NotImplementedError naming its
-    slice in process and answers 501 over HTTP."""
+    """Only the fleet (slice 9) and the N axis (slice 5) are refused: each
+    raises NotImplementedError naming its slice in process and answers
+    501 over HTTP. Tiering, the quality plane, export/import, restore, the
+    answer verb, the prior pool, ``replay-serve`` and ``quality`` run."""
     from coda_tpu_torch import cli
     from coda_tpu_torch.telemetry.prometheus import render_fleet
 
-    with pytest.raises(NotImplementedError, match="8b"):
-        ServeApp(device=DEV, quality=False)          # tiering on
-    with pytest.raises(NotImplementedError, match="8b"):
-        ServeApp(device=DEV, tiering=False)          # quality on
-    with pytest.raises(NotImplementedError, match="8b"):
-        ServeApp(device=DEV, tiering=False, quality=False,
-                 spec=SelectorSpec.create("coda", eig_scorer="surrogate:8",
-                                          surrogate_prior="pool"))
+    for kw in ({}, {"quality": False}, {"tiering": False}):
+        app = ServeApp(device=DEV, **kw)
+        assert (app.tiers is None) == ("tiering" in kw)
+        assert (app.quality is None) == ("quality" in kw)
+        app.drain()
+    ServeApp(device=DEV, spec=SelectorSpec.create(
+        "coda", eig_scorer="surrogate:8", surrogate_prior="pool")).drain()
     with pytest.raises(NotImplementedError, match="slice 9"):
         render_fleet({})
-    for sub, where in (("replay-serve", "8b"), ("quality", "8b"),
-                       ("trace", "9")):
-        with pytest.raises(NotImplementedError, match=where):
-            cli.main([sub, "x"])
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        cli.main(["trace", "x"])
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        cli.main(["--synthetic", "4,32,3", "--device", "cpu", "--method",
+                  "coda", "--iters", "2", "--no-mlflow", "--mesh",
+                  "data:1"])
+    with pytest.raises(SystemExit) as e:
+        cli.main(["replay-serve", "--help"])
+    assert e.value.code == 0
     s = _Server(task)
     try:
         app = s.app
         sid = s("POST", "/session", {"seed": 0})[1]["session"]
-        for fn, where in ((lambda: app.export_session(sid), "8b"),
-                          (lambda: app.import_session({}), "8b"),
-                          (lambda: app.restore_sessions(), "8b"),
-                          (lambda: app.answer(sid, 0, 1), "8b"),
-                          (lambda: app.sync_prior(), "8b"),
-                          (lambda: app.begin_migration(sid), "slice 9"),
-                          (lambda: app.end_migration(sid, True),
-                           "slice 9")):
-            with pytest.raises(NotImplementedError, match=where):
+        for fn in (lambda: app.begin_migration(sid),
+                   lambda: app.end_migration(sid, True),
+                   lambda: app.export_session(sid, hold=True)):
+            with pytest.raises(NotImplementedError, match="slice 9"):
                 fn()
-        for method, path in (("POST", f"/session/{sid}/export"),
-                             ("POST", "/session/import"),
-                             ("POST", f"/session/{sid}/answer"),
-                             ("POST", f"/session/{sid}/fence"),
-                             ("POST", "/prior/sync")):
-            code, err = s(method, path, {})
-            assert code == 501 and "slice" in err["error"], path
+        for body in ({"drop": True}, {}):
+            code, err = s("POST", f"/session/{sid}/fence", body)
+            assert code == 501 and "slice 9" in err["error"]
+        code, err = s("POST", f"/session/{sid}/export", {"hold": True})
+        assert code == 501 and "slice 9" in err["error"]
+        assert s("POST", "/prior/sync", {}) == (200, {"delta": {}})
     finally:
         s.close()
+
+
+def test_port_http_export_import_round_trip(task):
+    """``POST /session/{id}/export`` with ``close`` then ``POST
+    /session/import`` on a second server: the session keeps its id, its
+    answers and its next item; a wrong payload answers 409."""
+    a, b = _Server(task), _Server(task)
+    try:
+        out = a("POST", "/session", {"seed": 2})[1]
+        sid = out["session"]
+        labels = task.labels.numpy()
+        for _ in range(3):
+            out = a("POST", f"/session/{sid}/label",
+                    {"label": int(labels[out["idx"]])})[1]
+        code, payload = a("POST", f"/session/{sid}/export", {"close": True})
+        assert code == 200 and payload["kind"] == "session_export"
+        assert a("GET", f"/session/{sid}/best")[0] == 404
+        code, got = b("POST", "/session/import", payload)
+        assert code == 200 and got["restored_via"] == "snapshot"
+        assert {k: got[k] for k in ("session", "n_labeled", "idx", "best")} \
+            == {k: out[k] for k in ("session", "n_labeled", "idx", "best")}
+        code, err = b("POST", "/session/import", dict(payload, task="nope"))
+        assert code == 409 and "import rejected" in err["error"]
+    finally:
+        a.close()
+        b.close()
+
+
+def _small_pieces(monkeypatch):
+    """The HTTP edge's codec at a few bytes a piece, so a small payload
+    takes every path a headline one does."""
+    from coda_tpu_torch.serve import recovery
+
+    monkeypatch.setattr(recovery, "_BLOB_MIN", 64)
+    monkeypatch.setattr(recovery, "_PIECE", 3 * 7)
+    monkeypatch.setattr(recovery, "_SCAN", 50)
+    monkeypatch.setattr(tserver, "_READ_PIECE", 1000)
+
+
+@pytest.mark.parametrize("form", ["raw", "base64", "bytes"])
+def test_port_payload_json_codec_in_pieces(form, monkeypatch):
+    """``payload_to_json`` writes the bytes of ``json.dumps(materialize(
+    payload)).encode()`` exactly, and ``payload_from_json`` reads them back
+    to the same arrays and the same other fields (long strings with and
+    without escapes, unicode, nested rows), for a payload whose arrays are
+    host arrays, base64 text or raw bytes."""
+    from coda_tpu_torch.serve.recovery import (_pack, _unpack,
+                                               payload_from_json,
+                                               payload_to_json)
+    from coda_tpu_torch.serve.spill import materialize
+
+    _small_pieces(monkeypatch)
+    rng = np.random.default_rng(0)
+    arrays = [rng.standard_normal((3, 5, 7)).astype(np.float32),
+              rng.integers(0, 9, (40,)).astype(np.int64),
+              np.zeros((0,), np.float32),
+              rng.standard_normal((2,)).astype(np.float32)]
+
+    def packed(a):
+        d = _pack(a, raw=form != "base64")
+        if form == "bytes":
+            d["data"] = a.tobytes()
+        return d
+
+    payload = {"v": 1, "kind": "session_export",
+               "carries": [packed(a) for a in arrays[:3]],
+               "key": packed(arrays[3]),
+               "note": "x" * 200, "quoted": 'a"b\\c\u00e9' * 30,
+               "rows": [{"n_labeled": i, "name": "é✓" * 40,
+                         "tags": ["y" * 90, {"z": "w" * 70}]}
+                        for i in range(5)]}
+    body = bytes(payload_to_json(payload))
+    assert body == json.dumps(materialize(payload)).encode()
+    got = payload_from_json(body)
+    want = json.loads(body)
+    for k in ("carries", "key"):
+        for g, w in zip(got[k] if k == "carries" else [got[k]],
+                        want[k] if k == "carries" else [want[k]]):
+            assert {x: g[x] for x in ("dtype", "shape")} == \
+                {x: w[x] for x in ("dtype", "shape")}
+            assert _unpack(g).tobytes() == _unpack(w).tobytes()
+    assert {k: v for k, v in got.items() if k not in ("carries", "key")} \
+        == {k: v for k, v in want.items() if k not in ("carries", "key")}
+    # a non-canonical base64 text decodes as the reference's b64decode
+    for gap in (b" ", b"    "):
+        odd = body.replace(b'"data": "', b'"data": "' + gap, 1)
+        assert _unpack(payload_from_json(odd)["carries"][0]).tobytes() \
+            == arrays[0].tobytes()
+
+
+def test_port_http_export_import_in_pieces(task, monkeypatch):
+    """The export and import routes with the codec at a few bytes a piece
+    (the body read in pieces too): the session comes back through the
+    snapshot, and an import body past ``import_body_cap`` (1 MiB plus the
+    base64 of one slot's carries) is refused 400 before it is read."""
+    import http.client
+
+    _small_pieces(monkeypatch)
+    a, b = _Server(task), _Server(task)
+    try:
+        out = a("POST", "/session", {"seed": 3})[1]
+        sid = out["session"]
+        for _ in range(2):
+            out = a("POST", f"/session/{sid}/label",
+                    {"label": int(task.labels.numpy()[out["idx"]])})[1]
+        code, payload = a("POST", f"/session/{sid}/export", {"close": True})
+        assert code == 200
+        code, got = b("POST", "/session/import", payload)
+        assert code == 200 and got["restored_via"] == "snapshot"
+        assert (got["idx"], got["best"]) == (out["idx"], out["best"])
+        bucket = b.app.store.buckets()[0]
+        cap = b.app.import_body_cap()
+        assert cap == (1 << 20) + 4 * -(-bucket.carry_nbytes() // 3)
+        conn = http.client.HTTPConnection("127.0.0.1", b.port, timeout=60)
+        conn.putrequest("POST", "/session/import")
+        conn.putheader("Content-Length", str(cap + 1))
+        conn.endheaders()
+        resp = conn.getresponse()
+        assert resp.status == 400 and "oversized" in json.loads(
+            resp.read())["error"]
+        conn.close()
+    finally:
+        a.close()
+        b.close()
+
+
+def test_port_http_answer_verb_any_order(task):
+    """The crowd's ``answer`` verb on a q = 2 bucket: each answer parks
+    until the round is complete, then the round commits through one
+    batch-label dispatch. Answers out of order (an abstain and a
+    redelivery among them) commit rows bitwise those of the in-order
+    ``labels`` verb, and the counters show the abstain; ``oracle_poison``
+    applies ``(label + 1) % C`` and ``oracle_abstain`` turns an answer
+    into an abstention, each counted."""
+    spec = SelectorSpec.create("coda", n_parallel=4, eig_mode="incremental")
+    labels = task.labels.numpy()
+    servers = [_Server(task, spec=spec, acq_batch=2)]
+
+    def run(s, how):
+        out = s("POST", "/session", {"seed": 5})[1]
+        sid, rows = out["session"], []
+        for r in range(3):
+            ans = [int(labels[i]) for i in out["idx"]]
+            if how == "labels":
+                code, out = s("POST", f"/session/{sid}/labels",
+                              {"labels": ans})
+            else:
+                code, park = s("POST", f"/session/{sid}/answer",
+                               {"slot": 1, "abstain": True})
+                assert code == 200 and park["verb"] == "abstain"
+                code, park = s("POST", f"/session/{sid}/answer",
+                               {"slot": 1, "label": ans[1],
+                                "request_id": f"a{r}"})
+                assert park["verb"] == "parked" and park["missing"] == [0]
+                code, dup = s("POST", f"/session/{sid}/answer",
+                              {"slot": 1, "label": ans[1],
+                               "request_id": f"a{r}"})
+                assert dup["duplicate"] is True
+                code, out = s("POST", f"/session/{sid}/answer",
+                              {"slot": 0, "label": ans[0]})
+                assert out["verb"] == "dispatched"
+            assert code == 200 and out["n_labeled"] == 2 * (r + 1)
+            rows.append(dict(s.app.store.get(sid).last))
+        return rows
+
+    try:
+        servers.append(_Server(task, spec=spec, acq_batch=2))
+        a = run(servers[0], "labels")
+        b = run(servers[1], "answer")
+        assert a == b
+        oracle = servers[1].app.metrics.snapshot()["oracle"]
+        assert oracle["abstentions"] == 3
+        assert oracle["deferred_rounds_completed"] == 3
+        servers.append(_Server(task, spec=spec, acq_batch=2,
+                               fault_spec="oracle_poison:after=0"))
+        s = servers[-1]
+        out = s("POST", "/session", {"seed": 5})[1]
+        sid = out["session"]
+        s("POST", f"/session/{sid}/answer", {"slot": 0, "label": 1})
+        code, out = s("POST", f"/session/{sid}/answer",
+                      {"slot": 1, "label": 1})
+        assert code == 200 and out["applied"] == [2, 1]
+        assert s.app.metrics.snapshot()["oracle"]["poisoned"] == 1
+        servers.append(_Server(task, spec=spec, acq_batch=2,
+                               fault_spec="oracle_abstain:after=0"))
+        s = servers[-1]
+        sid = s("POST", "/session", {"seed": 5})[1]["session"]
+        code, out = s("POST", f"/session/{sid}/answer",
+                      {"slot": 0, "label": 1})
+        assert code == 200 and out["verb"] == "abstain"
+        assert s.app.metrics.snapshot()["oracle"]["abstentions"] == 1
+    finally:
+        for x in servers:
+            x.close()
 
 
 def test_port_serve_needs_a_card_unless_cpu():
