@@ -230,6 +230,42 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    surrogate:32 --surrogate-prior pool``): a closed donor contributes, the
    next session carries ``prior_fit`` and its import-replay reproduces
    it.
+13. serves a fleet (``serve/router.py``, ``transport.py``,
+   ``journal.py``, ``fleet.py``; after phase 11, its apps collected): 3
+   in-process headline replicas of 6 incremental slots each, built by
+   ``build_fleet`` from ``cli serve``'s arguments (tiering and quality
+   on, no idle paging, ``--eig-mode incremental``), every run of the
+   counters set to 0 just before it; every replica's ``/healthz`` is
+   ``ok`` after each build, restart and revival (``Fleet`` refuses a
+   replica whose warm-up failed). (1) The build, its memory a replica. (2) 12 sessions (seeds 0-11)
+   opened through the ``SessionRouter``, each on its rendezvous owner, 3
+   labels each. (3) One ``migrate_session`` through the snapshot path:
+   epoch 1, the source fenced, the destination's slot bitwise a device
+   copy taken before (ms). (4) ``rolling_restart`` while 8 client threads
+   label through the router (a 0.25 s pause a label, at most 25 labels a
+   session): nothing dropped, every answer exactly one more label; the
+   seconds a replica, label p50/p99 before and during it, and
+   ``max_memory_allocated`` during it within one replica of the peak of
+   the same traffic before it. (5) A peer page under watermark pressure:
+   a session demoted, its replica's warm watermark lowered to 0, and the
+   tier sweeper offers it through the ``page_out`` hook to the least
+   loaded peer, its slot there bitwise (ms from the watermark's drop).
+   (6) ``kill_replica`` of one replica while the others' sessions take
+   labels, ``revive_replica`` with crash restore, each of its sessions'
+   ``/best`` bitwise its value before the kill. Then every session's
+   stream replays from init bitwise in a fresh slot (every label once),
+   and each session's rows are bitwise the same seed's on one 12-slot app
+   with the same labels. (7) 12 closed-loop clients for 8 s against 1
+   replica x 12 slots and 3 x 4, each replica as many sessions as slots
+   (the default stream, a device busy share from one profiled second):
+   labels a second, p50/p99. (8) The six fleet
+   fault scenarios (``scripts/torch_fleet_chaos.py``) on ``digits_h80``,
+   0 violations. (9) Two ``cli serve`` replicas on ``digits_h80`` behind
+   ``HttpReplica`` handles and the router on ``make_server``: a traced
+   session migrated over HTTP (hold, export, import, fence), its rows
+   bitwise one app's; ``cli trace <id> --url`` with the router's and both
+   replicas' lanes; ``cli quality --url`` 0; the router's ``/metrics``
+   clean by ``lint``.
 
 It prints one JSON line with every kernel flavour (its ``launches`` summed
 over the main-path runs), then the card's name and power
@@ -248,8 +284,11 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
+import uuid
+from typing import Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HEADLINE = (10, 50_000, 1000)        # (C, N, H)
@@ -4789,6 +4828,695 @@ def phase_durable(dev, task, total: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13. the serve fleet
+# ---------------------------------------------------------------------------
+
+FLEET_REPLICAS = 3                   # in-process headline replicas
+FLEET_CAPACITY = 6                   # slots a replica
+FLEET_SESSIONS = 12                  # seeds 0-11
+FLEET_LABELS = 3                     # labels a session before the moves
+FLEET_CLIENTS = 8                    # client threads during the restart
+FLEET_THINK_S = 0.25                 # a client's pause between labels
+FLEET_CAP_LABELS = 25                # labels a session during the restart
+FLEET_BEFORE_S = 3.0                 # traffic before the restart, seconds
+FLEET_SCALE_S = 8.0                  # traffic a scaling configuration
+FLEET_HTTP_CAPACITY = 4              # slots of a `cli serve` replica
+FLEET_CLI_EXTRA: list = []           # extra `cli serve` flags (rehearsals)
+_ROW_BITS = ("next_idx", "next_prob", "best", "pbest_max", "pbest_entropy",
+             "label")
+
+
+def _fleet_args(cap: int, tmp: str):
+    """``cli serve``'s arguments for a headline fleet: the reference's
+    serve defaults (tiering and quality on), a record and a spill
+    directory, no idle paging (the phase moves sessions itself) and the
+    cached EIG tier (``--eig-mode incremental``: under ``auto`` the
+    budget sees every slot, and 6 headline slots resolve ``factored``,
+    which runs no kernel)."""
+    from coda_tpu_torch.serve.server import parse_args
+
+    C, N, H = HEADLINE
+    return parse_args(["--synthetic", f"{H},{N},{C}", "--capacity", str(cap),
+                       "--record-dir", os.path.join(tmp, "rec"),
+                       "--tier-spill-dir", os.path.join(tmp, "spill"),
+                       "--idle-warm-s", "3600", "--idle-cold-s", "3600",
+                       "--eig-mode", "incremental", *FLEET_CLI_EXTRA])
+
+
+class _Clients:
+    """Client threads labeling sessions through a router in a closed loop
+    (the true label of each proposed item, one request id a logical label,
+    retried through a migration's hold, a dead replica or a full slab),
+    each session at most ``cap`` labels; every answer must commit exactly
+    one more label. Latencies (ms, the router call) are kept."""
+
+    def __init__(self, router, sids, labels, cur: dict, threads: int,
+                 think_s: float = 0.0, cap: Optional[int] = None):
+        self.router, self.labels, self.cur = router, labels, cur
+        self.think_s, self.cap = think_s, cap
+        self.ms: list = []
+        self.errors: list = []
+        self.stop_ev = threading.Event()
+        self.done = dict.fromkeys(sids, 0)
+        self.threads = [threading.Thread(target=self._run,
+                                         args=(sids[i::threads],),
+                                         daemon=True)
+                        for i in range(min(threads, len(sids)))]
+
+    def _one(self, sid) -> None:
+        from coda_tpu_torch.serve.state import BucketQuarantined, SlabFull
+
+        prev = self.cur[sid]
+        lab = int(self.labels[prev["idx"]])
+        rid = uuid.uuid4().hex
+        t0 = time.perf_counter()
+        deadline = t0 + 300.0
+        while True:
+            try:
+                o = self.router.label(sid, lab, request_id=rid)
+                break
+            except (SlabFull, BucketQuarantined, ConnectionError,
+                    TimeoutError):
+                if time.perf_counter() > deadline:
+                    raise
+                time.sleep(0.02)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        if o["n_labeled"] != prev["n_labeled"] + 1:
+            raise AssertionError(f"label of {sid}: {o['n_labeled']} after "
+                                 f"{prev['n_labeled']}")
+        self.cur[sid] = o
+        self.done[sid] += 1
+
+    def _run(self, mine) -> None:
+        try:
+            while not self.stop_ev.is_set():
+                todo = [s for s in mine
+                        if self.cap is None or self.done[s] < self.cap]
+                if not todo:
+                    self.stop_ev.wait(0.05)
+                    continue
+                for sid in todo:
+                    if self.stop_ev.is_set():
+                        break
+                    self._one(sid)
+                    if self.think_s:
+                        self.stop_ev.wait(self.think_s)
+        except BaseException as e:
+            self.errors.append(e)
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        for t in self.threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop_ev.set()
+        for t in self.threads:
+            t.join()
+        self.router = None   # the fleet's memory is not the clients' to keep
+        self.wall_s = time.perf_counter() - self.t0
+        if self.errors and exc[0] is None:
+            raise self.errors[0]
+
+    def summary(self) -> str:
+        xs = sorted(self.ms)
+        if not xs:
+            return "no labels"
+        p99 = xs[min(len(xs) - 1, int(0.99 * len(xs)))]
+        return (f"{len(xs)} labels, p50 {statistics.median(xs):.1f} ms, "
+                f"p99 {p99:.1f} ms, max {xs[-1]:.1f} ms")
+
+    def p(self, q: float) -> float:
+        xs = sorted(self.ms)
+        return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else float("nan")
+
+
+def _label_all(router, sids, labels, cur: dict) -> None:
+    """One label for every session of ``sids``, all in flight at once."""
+    with _Clients(router, sids, labels, cur, len(sids), cap=1) as c:
+        while any(c.done[s] < 1 for s in sids) and not c.errors:
+            time.sleep(0.005)
+
+
+def _same_rows(a: list, b: list, what: str) -> None:
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} rows against {len(b)}")
+    for k, (x, y) in enumerate(zip(a, b)):
+        for q in _ROW_BITS:
+            u, v = x.get(q), y.get(q)
+            same = (_f32_bits(u) == _f32_bits(v) if isinstance(u, float)
+                    else u == v)
+            if not same:
+                raise AssertionError(f"{what} row {k}: {q} {u} != {v}")
+
+
+def _best_same(a: dict, b: dict) -> bool:
+    return (a["best"] == b["best"] and a["n_labeled"] == b["n_labeled"]
+            and a["idx"] == b["idx"]
+            and [_f32_bits(x) for x in a["pbest"]]
+            == [_f32_bits(x) for x in b["pbest"]])
+
+
+def _fleet_healthy(fleet, when: str) -> None:
+    """Every live replica answers ``/healthz`` ``ok``: warm, no failed,
+    quarantined or lazy bucket, no degraded stream. (``Fleet`` already
+    refuses a replica whose warm-up failed.)"""
+    for rid, app in fleet.apps.items():
+        h = app.healthz()
+        if h["status"] != "ok":
+            raise AssertionError(f"fleet {when}: replica {rid} {h}")
+
+
+def _fleet_headline(dev, task, labels, tmp: str, out: dict) -> dict:
+    """Items 13.1-13.6 (see the module docstring). Returns each session's
+    seed, rows and current replica."""
+    import torch
+
+    from coda_tpu_torch.serve import build_fleet, rendezvous_owner
+
+    cuda = dev.type == "cuda"
+
+    def alloc():
+        gc.collect()
+        if cuda:
+            torch.cuda.synchronize()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        if cuda:
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_allocated()
+        return 0
+
+    args = _fleet_args(FLEET_CAPACITY, tmp)
+    gb = 1e9
+    before = alloc()
+    peak_reset()
+    t0 = time.perf_counter()
+    fleet = build_fleet(args, FLEET_REPLICAS, dataset=task)
+    fleet.start(warm=True)
+    out["build_s"] = time.perf_counter() - t0
+    r = fleet.router
+    try:
+        steady = alloc()
+        replica_bytes = (steady - before) / FLEET_REPLICAS
+        log(f"fleet: {FLEET_REPLICAS} replicas x {FLEET_CAPACITY} headline "
+            f"slots built and warm in {out['build_s']:.1f} s (build_fleet, "
+            f"tiering and quality on); {steady / gb:.2f} GB allocated "
+            f"({replica_bytes / gb:.2f} GB a replica), peak "
+            f"{peak() / gb:.2f} GB")
+        if any(a.tiers is None or a.quality is None
+               for a in fleet.apps.values()):
+            raise AssertionError("fleet: the defaults (tiering, quality)")
+        _fleet_healthy(fleet, "build")
+
+        # 13.2 open and label through the router
+        cur: dict = {}
+        seeds: dict = {}
+        for s in range(FLEET_SESSIONS):
+            o = r.open_session(seed=s)
+            cur[o["session"]] = o
+            seeds[o["session"]] = s
+        sids = list(cur)
+        for sid in sids:
+            owner = rendezvous_owner(sid, fleet.replica_ids)
+            home = fleet.apps[owner]
+            if r._locate(sid) != owner or not (
+                    home.store.alive(sid) or home.tiers.parked(sid)):
+                raise AssertionError(f"fleet: {sid} not on its owner")
+        for _ in range(FLEET_LABELS):
+            _label_all(r, sids, labels, cur)
+        log(f"fleet: {len(sids)} sessions on their rendezvous owners "
+            f"({sorted(map(r._locate, sids))}), {FLEET_LABELS} labels each")
+
+        # 13.3 one explicit migration, the slot bitwise
+        sid = sids[0]
+        r.best(sid)      # resident (a full slab may have paged it out)
+        src = r._locate(sid)
+        dst = next(x for x in fleet.replica_ids if x != src)
+        sess = fleet.apps[src].store.get(sid)
+        copy = _slot_copy(sess.bucket, sess.slot)
+        t0 = time.perf_counter()
+        info = r.migrate_session(sid, src, dst)
+        out["migrate_ms"] = (time.perf_counter() - t0) * 1e3
+        sapp, dapp = fleet.apps[src], fleet.apps[dst]
+        if info.get("migrated") != sid or info["via"] != "snapshot" or \
+                info["epoch"] != 1 or sapp.store.alive(sid) or \
+                sapp.tiers.parked(sid) or sapp.held(sid):
+            raise AssertionError(f"fleet migration: {info}")
+        sess = dapp.store.get(sid)
+        if sess.epoch != 1 or not _slot_same(sess.bucket, sess.slot, copy):
+            raise AssertionError("fleet migration: the slot is not bitwise")
+        del copy, sess
+        log(f"fleet: {src} -> {dst} migration via the snapshot in "
+            f"{out['migrate_ms']:.1f} ms, epoch 1, the source fenced, the "
+            "slot bitwise")
+
+        # 13.4 rolling restart under traffic, against the same traffic
+        # before it (the steady state's peak)
+        peak_reset()
+        with _Clients(r, sids, labels, cur, FLEET_CLIENTS,
+                      think_s=FLEET_THINK_S) as calm:
+            time.sleep(FLEET_BEFORE_S)
+        steady = peak()
+        peak_reset()
+        with _Clients(r, sids, labels, cur, FLEET_CLIENTS,
+                      think_s=FLEET_THINK_S, cap=FLEET_CAP_LABELS) as busy:
+            t0 = time.perf_counter()
+            rep = fleet.rolling_restart()
+            out["rolling_s"] = time.perf_counter() - t0
+        out["rolling_peak_gb"] = peak() / gb
+        out["steady_gb"] = steady / gb
+        out["replica_gb"] = replica_bytes / gb
+        out["rolling_rounds"] = [x["seconds"] for x in rep["rounds"]]
+        out["label_before"] = (calm.p(0.5), calm.p(0.99))
+        out["label_during"] = (busy.p(0.5), busy.p(0.99))
+        if rep["sessions_dropped"] or rep["migration_failures"] or \
+                any(x["failed"] for x in rep["rounds"]):
+            raise AssertionError(f"rolling restart: {rep}")
+        _fleet_healthy(fleet, "rolling restart")   # every rebuilt replica
+        if peak() - steady > replica_bytes:
+            raise AssertionError(
+                f"rolling restart peak {peak() / gb:.2f} GB past the steady "
+                f"state's {steady / gb:.2f} GB plus one replica")
+        log(f"fleet rolling restart: {out['rolling_s']:.1f} s, "
+            f"{', '.join(f'{s:.1f}' for s in out['rolling_rounds'])} s a "
+            f"replica, {rep['migrations']} migrations "
+            f"({rep['migrations_via']}), 0 dropped; labels before "
+            f"({FLEET_CLIENTS} clients, {FLEET_THINK_S} s think): "
+            f"{calm.summary()}; during: {busy.summary()}; "
+            f"max_memory_allocated {out['rolling_peak_gb']:.2f} GB against "
+            f"{out['steady_gb']:.2f} GB under the traffic before it and "
+            f"{out['replica_gb']:.2f} GB a replica")
+
+        # 13.5 a peer page under watermark pressure: a session demoted
+        # to a replica's warm tier, then that replica's warm watermark
+        # lowered to 0, so its tier sweeper (its own thread) offers the
+        # payload to the least loaded peer through the page_out hook. The
+        # session is taken resident on a replica with nothing else warm,
+        # so the sweep pages it alone
+        sid = None
+        for s in sids[1:]:
+            r.best(s)    # resident (a full slab may have paged it out)
+            a = fleet.apps[r._locate(s)]
+            if a.store.alive(s) and not a.tiers.counts()["warm"]:
+                sid = s
+                break
+        if sid is None:
+            raise AssertionError("fleet peer page: every replica has a "
+                                 "warm session")
+        src = r._locate(sid)
+        app = fleet.apps[src]
+        sess = app.store.get(sid)
+        copy = _slot_copy(sess.bucket, sess.slot)
+        del sess
+        pages = r.counters["peer_pages"]
+        if not app.tiers.try_demote(sid):
+            raise AssertionError("fleet peer page: the demotion lost")
+        watermark = app.tiers.max_warm
+        t0 = time.perf_counter()
+        app.tiers.max_warm = 0
+        app.tiers._wakeup.set()
+        while r.counters["peer_pages"] == pages and \
+                time.perf_counter() - t0 < 60:
+            time.sleep(0.001)
+        out["page_ms"] = (time.perf_counter() - t0) * 1e3
+        app.tiers.max_warm = watermark
+        peer = r._placed.get(sid)
+        if r.counters["peer_pages"] != pages + 1 or \
+                peer in (None, src) or app.tiers.parked(sid):
+            with open(r.journal.path) as f:
+                tail = f.read().splitlines()[-3:]
+            raise AssertionError(f"fleet peer page: placed on {peer}, "
+                                 f"{r.counters['peer_pages'] - pages} "
+                                 "page(s), the journal's last records "
+                                 f"{tail}")
+        sess = fleet.apps[peer].store.get(sid)
+        if not _slot_same(sess.bucket, sess.slot, copy):
+            raise AssertionError("fleet peer page: the slot is not bitwise")
+        del copy, sess
+        _label_all(r, [sid], labels, cur)
+        log(f"fleet peer page: {src} -> {peer} in {out['page_ms']:.1f} ms "
+            "from the watermark's drop (the sweep, the hook's journaled "
+            "hand-off and the peer's import), the slot bitwise on the peer, "
+            "labeled there")
+
+        # 13.6 kill and revive under traffic
+        victim = r._locate(sids[2])
+        # the victim's own sessions, hot and parked (the router's map may
+        # lag a wake or a search)
+        mine = fleet.apps[victim].list_sessions()["sessions"]
+        rest = [s for s in sids if s not in mine]
+        best = {s: r.best(s) for s in mine}
+        with _Clients(r, rest, labels, cur, FLEET_CLIENTS,
+                      think_s=FLEET_THINK_S, cap=5) as during:
+            fleet.kill_replica(victim)
+            killed = alloc()
+            t0 = time.perf_counter()
+            restore = fleet.revive_replica(victim)
+            out["revive_s"] = time.perf_counter() - t0
+            for _ in range(600):
+                if victim in r.routable():
+                    break
+                time.sleep(0.05)
+        if victim not in r.routable() or \
+                set(mine) - set(restore.get("restored") or ()):
+            raise AssertionError(f"fleet revive: {restore}")
+        _fleet_healthy(fleet, "revival")
+        for s in mine:
+            if not _best_same(best[s], r.best(s)):
+                raise AssertionError(f"fleet revive: /best of {s} moved")
+        log(f"fleet kill/revive: {victim} killed under traffic "
+            f"({killed / gb:.2f} GB allocated after it), revived with "
+            f"crash restore of {len(restore['restored'])} session(s) in "
+            f"{out['revive_s']:.1f} s, each /best bitwise; the others' "
+            f"labels meanwhile: {during.summary()}")
+        c = r.counters
+        if c["sessions_dropped"] or c["peer_pages"] != 1:
+            raise AssertionError(f"fleet counters: {c}")
+        out["counters"] = {k: c[k] for k in ("migrations", "peer_pages",
+                                             "sessions_dropped",
+                                             "migration_failures",
+                                             "evictions", "rejoins")}
+        from coda_tpu_torch.serve.recovery import data_rows
+
+        runs = {s: {"seed": seeds[s], "where": r._locate(s),
+                    "rows": data_rows(r.trace(s)["rounds"])} for s in sids}
+        for s, run in runs.items():
+            if len(run["rows"]) != cur[s]["n_labeled"] + 1:
+                raise AssertionError(f"fleet: {s} rows")
+        return runs
+    finally:
+        fleet.close(timeout=60)
+        del fleet, r
+
+
+def _fleet_verify(dev, task, labels, tmp: str, runs: dict,
+                  out: dict) -> None:
+    """Every session's stream, on the replica that holds it last, replays
+    from init bitwise in a fresh slot, each label applied once."""
+    from coda_tpu_torch.serve.recovery import (data_rows,
+                                               load_session_stream,
+                                               verify_session_stream)
+    from coda_tpu_torch.serve.state import SessionStore
+
+    store = SessionStore(capacity=1, device=dev)
+    store.register_task(task.name, task.preds)
+    t0 = time.perf_counter()
+    n = 0
+    for sid, run in runs.items():
+        meta, rows, _ = load_session_stream(os.path.join(
+            tmp, "rec", run["where"], f"session_{sid}.jsonl"))
+        rows = data_rows(rows)
+        _same_rows(rows, run["rows"], f"stream of {sid}")
+        for a, b in zip(rows, rows[1:]):
+            if b["label"] != int(labels[a["next_idx"]]):
+                raise AssertionError(f"stream of {sid}: a label twice")
+        verify_session_stream(store, meta, rows, sid=sid)
+        n += len(rows)
+    out["verify_s"] = time.perf_counter() - t0
+    log(f"fleet: {len(runs)} streams ({n} rows) verified from init in "
+        f"{out['verify_s']:.1f} s, every label once")
+
+
+def _fleet_scaling(dev, task, labels, tmp: str, runs: dict,
+                   out: dict) -> None:
+    """Item 13.7: the same 12 slots as 1 replica x 12 and 3 x 4 (each
+    replica as many sessions as slots), 12 closed-loop clients through
+    the router; the 1 x 12 run first holds the headline fleet's sessions
+    bitwise (one app, the same labels). ``scripts/torch_fleet_scaling.py``
+    measures where the 3 x 4 dispatch time goes."""
+    import torch
+
+    from coda_tpu_torch.serve import build_fleet
+    from coda_tpu_torch.serve.recovery import data_rows
+
+    slots = FLEET_SESSIONS
+    for n_rep in (1, FLEET_REPLICAS):
+        cap = slots // n_rep
+        sub = os.path.join(tmp, f"scale{n_rep}")
+        fleet = build_fleet(_fleet_args(cap, sub), n_rep, dataset=task)
+        fleet.start(warm=True)
+        r = fleet.router
+        try:
+            _fleet_healthy(fleet, f"{n_rep} x {cap} build")
+            cur = {}
+            for run in runs.values() if n_rep == 1 else ():
+                o = r.open_session(seed=run["seed"])
+                for _ in range(len(run["rows"]) - 1):
+                    o = r.label(o["session"], int(labels[o["idx"]]))
+                _same_rows(data_rows(r.trace(o["session"])["rounds"]),
+                           run["rows"], f"one app, seed {run['seed']}")
+                r.close_session(o["session"])
+            if n_rep == 1:
+                log(f"fleet: each of the {len(runs)} sessions bitwise the "
+                    "same seed on one 12-slot app with the same labels")
+            # every replica holds as many sessions as it has slots: a
+            # session the hash puts on a full replica is closed again
+            # (12 hashed sessions seldom split 4/4/4, and a replica with
+            # more sessions than slots starves the parked ones of a
+            # closed loop)
+            held: dict = {}
+            seed = 100
+            while len(cur) < slots:
+                o = r.open_session(seed=seed)
+                seed += 1
+                rid = r._locate(o["session"])
+                if held.get(rid, 0) >= cap:
+                    r.close_session(o["session"])
+                    continue
+                held[rid] = held.get(rid, 0) + 1
+                cur[o["session"]] = o
+            sids = list(cur)
+            with _Clients(r, sids, labels, cur, slots) as c:
+                time.sleep(FLEET_SCALE_S)
+                # the timed window, then one profiled second
+                wall = time.perf_counter() - c.t0
+                timed = c.summary()
+                rps, p50, p99 = len(c.ms) / wall, c.p(0.5), c.p(0.99)
+                steps = [(a.stats()["step_latency"].get("p50_ms"),
+                          a.stats()["mean_occupancy"])
+                         for a in fleet.apps.values()]
+                prof = _dispatch_profile(lambda: time.sleep(1.0))
+            busy = prof["device_ms"] / 1e3
+            out[f"scale_{n_rep}x{cap}"] = {"rps": rps, "p50": p50,
+                                           "p99": p99, "busy": busy,
+                                           "steps": steps}
+            log(f"fleet scaling {n_rep} x {cap} slots, {slots} clients, "
+                f"default stream: {rps:.1f} labels a second over "
+                f"{wall:.1f} s, {timed}; a replica's dispatch step p50 ms "
+                f"and mean occupancy "
+                f"{[(round(s or 0, 1), round(o or 0, 2)) for s, o in steps]}; "
+                f"device busy {busy:.2f} of a profiled second "
+                f"({prof['events']} events)")
+        finally:
+            fleet.close(timeout=60)
+            del fleet, r
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+
+def _fleet_chaos(dev, out: dict) -> None:
+    """Item 13.8: the six fleet fault scenarios on ``digits_h80``."""
+    from coda_tpu_torch.data import Dataset, find_task_file
+    from scripts import torch_fleet_chaos as chaos
+
+    h80 = Dataset.from_file(find_task_file(os.path.join(HERE, "data"),
+                                           "digits_h80"),
+                            name="digits_h80", device=dev)
+    t0 = time.perf_counter()
+    res = chaos.run_matrix(h80, dev)
+    out["chaos_s"] = time.perf_counter() - t0
+    bad = [v for sc in res.values() for v in sc["violations"]]
+    for name, sc in res.items():
+        log(f"fleet chaos {name}: "
+            f"{len(sc['violations'])} violation(s); "
+            f"{ {k: v for k, v in sc.items() if k != 'violations'} }")
+    if bad or len(res) != 6:
+        raise AssertionError(f"fleet chaos: {bad}")
+    log(f"fleet chaos: 6 scenarios on digits_h80, 0 violations, "
+        f"{out['chaos_s']:.1f} s")
+
+
+def _fleet_http(dev, tmp: str, out: dict) -> None:
+    """Item 13.9: two ``cli serve`` replicas on ``digits_h80`` behind
+    ``HttpReplica`` handles and a router on ``make_server``."""
+    import threading as _th
+
+    from coda_tpu_torch import cli
+    from coda_tpu_torch.data import Dataset, find_task_file
+    from coda_tpu_torch.serve import (HttpReplica, SelectorSpec, ServeApp,
+                                      SessionRouter, make_server)
+    from coda_tpu_torch.serve.recovery import data_rows
+    from coda_tpu_torch.telemetry import lint_prometheus
+    from coda_tpu_torch.telemetry.trace import TRACE_HEADER, mint
+
+    t0 = time.perf_counter()
+    procs, urls = [], {}
+    router = srv = None
+    try:
+        # both replicas build the kernels into one empty directory at once
+        # (a per-process temporary file, then os.replace)
+        for rid in ("h0", "h1"):
+            port = _free_port()
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "coda_tpu_torch.cli", "serve",
+                 "--task", "digits_h80", "--data-dir",
+                 os.path.join(HERE, "data"), "--port", str(port),
+                 "--capacity", str(FLEET_HTTP_CAPACITY),
+                 "--record-dir", os.path.join(tmp, "http", rid),
+                 "--compilation-cache-dir", os.path.join(tmp, "build"),
+                 *FLEET_CLI_EXTRA],
+                cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+            urls[rid] = port
+        for p, (rid, port) in zip(procs, urls.items()):
+            _ready(p, port)
+            h = _j(port, "GET", "/healthz")
+            if h["status"] != "ok":
+                raise AssertionError(f"HTTP replica {rid}: {h}")
+        out["http_start_s"] = time.perf_counter() - t0
+        router = SessionRouter({rid: HttpReplica(
+            rid, f"http://127.0.0.1:{port}") for rid, port in urls.items()})
+        srv = make_server(router, 0)
+        _th.Thread(target=srv.serve_forever, daemon=True).start()
+        srv._started.wait(30)
+        rport = srv.server_address[1]
+        base = f"http://127.0.0.1:{rport}"
+        h80 = Dataset.from_file(find_task_file(os.path.join(HERE, "data"),
+                                               "digits_h80"),
+                                name="digits_h80", device="cpu")
+        labels = h80.labels.numpy()
+        ctx = mint()
+
+        def traced(method, path, body):
+            import urllib.request
+
+            rq = urllib.request.Request(
+                base + path, data=json.dumps(body).encode(), method=method,
+                headers={TRACE_HEADER: ctx.header()})
+            with urllib.request.urlopen(rq, timeout=300) as resp:
+                return json.loads(resp.read())
+
+        o = traced("POST", "/session", {"seed": 7})
+        sid = o["session"]
+        for _ in range(3):
+            o = traced("POST", f"/session/{sid}/label",
+                       {"label": int(labels[o["idx"]])})
+        src = router._locate(sid)
+        dst = next(x for x in urls if x != src)
+        t1 = time.perf_counter()
+        info = router.migrate_session(sid, src, dst)
+        out["http_migrate_ms"] = (time.perf_counter() - t1) * 1e3
+        if info.get("migrated") != sid or info["via"] != "snapshot" or \
+                router.replicas[src].has_session(sid):
+            raise AssertionError(f"HTTP migration: {info}")
+        for _ in range(3):
+            o = traced("POST", f"/session/{sid}/label",
+                       {"label": int(labels[o["idx"]])})
+        rows = data_rows(_j(rport, "GET", f"/session/{sid}/trace")["rounds"])
+        app = ServeApp(capacity=FLEET_HTTP_CAPACITY, device=dev,
+                       quality=False,
+                       spec=SelectorSpec.create(
+                           "coda", n_parallel=FLEET_HTTP_CAPACITY))
+        app.add_task("digits_h80", h80.preds.to(dev))
+        app.start(warm=False)
+        try:
+            c = app.open_session(seed=7)
+            for _ in range(6):
+                c = app.label(c["session"], int(labels[c["idx"]]))
+            _same_rows(rows, data_rows(app.recorder.history(c["session"])),
+                       "HTTP fleet against one app")
+        finally:
+            app.drain(timeout=30)
+        trace_out = os.path.join(tmp, "trace.json")
+        if cli.main(["trace", ctx.trace_id, "--url", base, "--out",
+                     trace_out]) != 0:
+            raise AssertionError("cli trace")
+        with open(trace_out) as f:
+            lanes = set(json.load(f)["processes"])
+        if not {"router", src, dst} <= lanes:
+            raise AssertionError(f"cli trace lanes: {lanes}")
+        if cli.main(["quality", "--url", base]) != 0:
+            raise AssertionError("cli quality")
+        code, text = _http(rport, "GET", "/metrics")
+        problems = lint_prometheus(text)
+        if code != 200 or problems or 'replica="h0"' not in text:
+            raise AssertionError(f"router /metrics: {code} {problems[:3]}")
+        _j(rport, "DELETE", f"/session/{sid}")
+        out["http_s"] = time.perf_counter() - t0
+        log(f"fleet HTTP: 2 `cli serve` replicas on digits_h80, racing "
+            f"to build the kernels into one empty directory, up in "
+            f"{out['http_start_s']:.1f} s; a migration over HTTP (hold, "
+            f"export, import, fence) in {out['http_migrate_ms']:.1f} ms, the "
+            f"rows bitwise one app's; cli trace with lanes {sorted(lanes)}; "
+            f"cli quality 0; /metrics lint-clean; {out['http_s']:.1f} s")
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        if router is not None:
+            router.drain()
+        for p in procs:
+            _stop(p)
+
+
+def phase_fleet(dev, task, total: dict, smi: str) -> dict:
+    """The serve fleet (see the module docstring, item 13). Returns the
+    measured figures."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    def want_serve(k):   # warm-up, runs of slots, lone slots
+        return all(k[n] > 0 for n in ("eig_score", "eig_refresh_score",
+                                      "row_gather",
+                                      "eig_refresh_score_batched",
+                                      "row_gather_batched"))
+
+    def free():
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": smi}
+    labels = task.labels.cpu().numpy()
+    tmp = tempfile.mkdtemp(prefix="fleet_")
+    try:
+        free()
+        runs = _counted("fleet headline", want_serve, total,
+                        lambda: _fleet_headline(dev, task, labels, tmp, out))
+        free()
+        _counted("fleet verify", lambda k: k["eig_refresh_score"] > 0,
+                 total, lambda: _fleet_verify(dev, task, labels, tmp, runs,
+                                              out))
+        free()
+        _counted("fleet scaling", want_serve, total,
+                 lambda: _fleet_scaling(dev, task, labels, tmp, runs, out))
+        free()
+        _counted("fleet chaos", want_serve, total,
+                 lambda: _fleet_chaos(dev, out))
+        free()
+        _fleet_http(dev, tmp, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"fleet phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4864,6 +5592,8 @@ def main() -> int:
         gc.collect()
         log(f"after the serve phase: "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        phase = "serve fleet"
+        phase_fleet(dev, task, launches, smi)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)

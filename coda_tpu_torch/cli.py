@@ -40,8 +40,10 @@ coda_tpu_torch.cli replay <dir>`` re-executes and the reference's
 labeling service (``serve/server.py``), ``replay-serve <dir>`` verifies its
 session streams bitwise (exit 2 on a divergence), ``quality --url U``
 reads a server's decision-quality scorecard (exit 1 on a diverged audit,
-a miscalibration or a firing drift detector); ``trace`` raises naming the
-fleet, slice 9.
+a miscalibration or a firing drift detector; pointed at a fleet router it
+reads each replica's scorecard and the fleet verdict), and ``trace <id>
+--url U --out F`` writes one distributed trace, stitched across a fleet's
+process lanes, as Chrome/Perfetto JSON.
 
 ``--oracle-noise SPEC`` labels with a noisy crowd (``crowd/``): each
 answer is a vote of ``votes`` annotators from a seeded pool, aggregated by
@@ -597,6 +599,52 @@ def _quality_report(card: dict) -> list:
     return lines
 
 
+def trace_main(argv=None):
+    """``cli trace <trace_id> --url http://host:port --out trace.json``.
+
+    Hits the serve front door's ``GET /trace/id/{trace_id}``. Against a
+    router that is the cross-process stitched Chrome file (one Perfetto
+    process lane per replica); against a single replica it is that
+    replica's own spans for the trace, wrapped for the same viewer."""
+    import json as _json
+    import urllib.request
+
+    p = argparse.ArgumentParser(
+        prog="coda_tpu_torch.cli trace",
+        description="fetch one distributed trace as Chrome/Perfetto JSON")
+    p.add_argument("trace_id", help="32-hex trace id (from an exemplar, a "
+                   "recorder row, or a traced client)")
+    p.add_argument("--url", default="http://127.0.0.1:8000",
+                   help="serve front door (router or replica) base URL")
+    p.add_argument("--out", default="trace.json",
+                   help="output path for the Chrome trace_event JSON")
+    args = p.parse_args(argv)
+
+    url = args.url.rstrip("/") + f"/trace/id/{args.trace_id}"
+    with urllib.request.urlopen(url, timeout=30.0) as resp:
+        payload = _json.loads(resp.read().decode("utf-8"))
+    if "traceEvents" not in payload:
+        # a bare replica returns its trace_payload wire form; wrap it so
+        # the output is always Perfetto-loadable
+        from coda_tpu_torch.telemetry.spans import stitch_traces
+
+        payload = stitch_traces(
+            [dict(payload, process=payload.get("process") or "replica")])
+    n = len([e for e in payload.get("traceEvents", ())
+             if e.get("ph") == "X"])
+    procs = payload.get("processes")
+    with open(args.out, "w") as f:
+        _json.dump(payload, f)
+    print(f"trace {args.trace_id}: {n} span(s)"
+          + (f" across {procs}" if procs else "")
+          + f" -> {args.out}")
+    if n == 0:
+        print("warning: no spans retained for this trace "
+              "(evicted, unsampled, or tracing disabled)")
+        return 1
+    return 0
+
+
 def quality_main(argv=None):
     """``cli quality --url http://host:port``: the decision-quality
     report. Hits ``GET /fleet/quality`` (router: per-replica scorecards
@@ -665,10 +713,6 @@ def quality_main(argv=None):
     return 0 if ok else 1
 
 
-# the reference's subcommands a later slice of the port brings
-_LATER_SUBCOMMANDS = {"trace": "9"}
-
-
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "serve":
@@ -682,10 +726,9 @@ def main(argv=None):
         return replay_serve_main(argv[1:])
     if argv and argv[0] == "quality":
         return quality_main(argv[1:])
-    if argv and argv[0] in _LATER_SUBCOMMANDS:
-        raise NotImplementedError(
-            f"`cli {argv[0]}` comes with slice "
-            f"{_LATER_SUBCOMMANDS[argv[0]]} of the port")
+    if argv and argv[0] == "trace":
+        # one distributed trace, stitched across a fleet's process lanes
+        return trace_main(argv[1:])
     if argv and argv[0] == "replay":
         from coda_tpu_torch.engine.replay import replay_main
 

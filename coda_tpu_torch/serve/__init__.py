@@ -1,5 +1,5 @@
 """Batched multi-session serving of interactive active model selection on
-the card (counterpart of ``coda_tpu/serve`` but the fleet).
+the card (counterpart of ``coda_tpu/serve``).
 
 Many concurrent human-in-the-loop selection sessions share one device: a
 fixed-capacity slab of selector states per (task, config) with a masked
@@ -15,14 +15,29 @@ bucket self-healing from the recorder streams
 (:mod:`~coda_tpu_torch.serve.spill`), the cross-session surrogate prior
 pool (:mod:`~coda_tpu_torch.serve.priors`) and the deterministic
 fault-injection harness that exercises them
-(:mod:`~coda_tpu_torch.serve.faults`). The fleet (router, replicas,
-migration) is slice 9 of the port.
+(:mod:`~coda_tpu_torch.serve.faults`). The fleet puts N replicas behind
+one session router (:mod:`~coda_tpu_torch.serve.router`: rendezvous
+placement, health-driven routing, the journaled migration of
+:mod:`~coda_tpu_torch.serve.journal`, every verb through the hardened
+transport of :mod:`~coda_tpu_torch.serve.transport`) and manages their
+lifecycle (:mod:`~coda_tpu_torch.serve.fleet`: rolling restart, peer
+paging, kill and revive).
 """
 
 from coda_tpu_torch.serve.batcher import Batcher, Ticket
 from coda_tpu_torch.serve.faults import FaultInjected, FaultInjector
+from coda_tpu_torch.serve.fleet import Fleet, build_fleet
+from coda_tpu_torch.serve.journal import MigrationJournal, payload_digest
 from coda_tpu_torch.serve.metrics import ServeMetrics
 from coda_tpu_torch.serve.priors import PriorPool
+from coda_tpu_torch.serve.router import (
+    DeadReplica,
+    HttpReplica,
+    InprocReplica,
+    SessionRouter,
+    rendezvous_owner,
+    rendezvous_rank,
+)
 from coda_tpu_torch.serve.recovery import (
     SESSION_EXPORT_VERSION,
     BucketHealer,
@@ -57,23 +72,41 @@ from coda_tpu_torch.serve.state import (
     make_slab_step,
 )
 from coda_tpu_torch.serve.tiering import TierManager
+from coda_tpu_torch.serve.transport import (
+    VERB_DEADLINES,
+    CircuitBreaker,
+    ReplicaTransport,
+    ReplicaUnavailable,
+    RetryBudget,
+)
 
 __all__ = [
     "SESSION_EXPORT_VERSION",
+    "VERB_DEADLINES",
     "AsyncHTTPServer",
     "Batcher",
     "Bucket",
     "BucketHealer",
     "BucketQuarantined",
+    "CircuitBreaker",
+    "DeadReplica",
     "FaultInjected",
     "FaultInjector",
+    "Fleet",
+    "HttpReplica",
     "ImportRejected",
+    "InprocReplica",
+    "MigrationJournal",
     "PriorPool",
     "ReplayMismatch",
+    "ReplicaTransport",
+    "ReplicaUnavailable",
+    "RetryBudget",
     "SelectorSpec",
     "ServeApp",
     "ServeMetrics",
     "Session",
+    "SessionRouter",
     "SessionStore",
     "SlabFull",
     "SlotRequest",
@@ -84,12 +117,16 @@ __all__ = [
     "Ticket",
     "UnknownSession",
     "build_app",
+    "build_fleet",
     "check_row",
     "export_all",
     "export_session",
     "heal_bucket",
     "import_session",
     "make_server",
+    "payload_digest",
+    "rendezvous_owner",
+    "rendezvous_rank",
     "restore_app_sessions",
     "verify_session_stream",
 ]

@@ -2,12 +2,11 @@
 ``coda_tpu/serve/faults.py``: the whole spec grammar, so every reference
 spec parses).
 
-The port fires every site of one server (the slab step, the recorder,
-the batcher's tick boundaries, the tiers, the crowd's answer verb and
-the shadow auditor). A spec naming a fleet site (the router's transport
-and migration) is refused by :class:`FaultInjector` with
-``NotImplementedError`` naming slice 9 of the port, which brings the
-fleet (:data:`PENDING_SITES`).
+The port fires every site: those of one server (the slab step, the
+recorder, the batcher's tick boundaries, the tiers, the crowd's answer
+verb and the shadow auditor) and the fleet's (the router's transport
+edges ``edge_call``/``edge_healthz`` and the ``migrate_mid`` point of
+``kill_replica``).
 
 Every recovery path in ``serve/recovery.py`` exists because some step of
 the serving pipeline can fail: the compiled slab step can raise after
@@ -141,16 +140,6 @@ FAULT_SITES = {
     "stream_tamper": "audit_pre",
 }
 
-#: fault name -> the slice of the port that brings the module it fires in
-PENDING_SITES = {
-    "net_drop": "9 (the fleet)",
-    "partition": "9 (the fleet)",
-    "net_delay": "9 (the fleet)",
-    "net_dup": "9 (the fleet)",
-    "flap_healthz": "9 (the fleet)",
-    "kill_replica": "9 (the fleet)",
-}
-
 _CRASH_EXIT_CODE = 17  # distinguishable from python tracebacks (1) in tests
 
 
@@ -238,11 +227,6 @@ class FaultInjector:
 
     def __init__(self, spec: Optional[str] = None):
         self.faults = parse_fault_spec(spec)
-        for f in self.faults:
-            if f.name in PENDING_SITES:
-                raise NotImplementedError(
-                    f"fault {f.name!r} fires in a module that comes with "
-                    f"slice {PENDING_SITES[f.name]} of the port")
         self.spec = spec or ""
         self._lock = threading.Lock()
 

@@ -27,7 +27,7 @@ This module is the serve-side pool of those statistics:
     carry, and the session falls back to exact scoring exactly as a
     cold session would;
   * replicas EXCHANGE deltas through the router, piggybacked on the
-    health poll (the fleet's router, slice 9 of the port): each poll drains the replica's
+    health poll (``serve/router.py``): each poll drains the replica's
     since-last-poll contributions, folds them into the router's global
     pool, and pushes the merged pool back — replicas REPLACE their pool
     with the router's so a contribution is never double-counted;

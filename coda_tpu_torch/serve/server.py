@@ -26,14 +26,21 @@ step per tick, not N device round trips. Blocking host sections
                                                           is complete)
     GET    /session/{id}/trace                         -> per-round decision
                                                           history (recorder)
-    POST   /session/{id}/export      {close?}          -> migration payload
+    POST   /session/{id}/export      {close?, hold?}   -> migration payload
+    POST   /session/{id}/fence       {drop}            -> commit/abort a
+                                                          held migration
+    GET    /session/{id}/epoch                         -> ownership epoch
     POST   /session/import           <export payload>  -> restore, same id
     DELETE /session/{id}                               -> close, free slot
+    GET    /sessions                                   -> addressable ids
+    GET    /trace/id/{trace_id}                        -> retained spans
     POST   /prior/sync               {pool?}           -> prior-pool delta
     GET    /stats                                      -> metrics snapshot
     GET    /metrics                                    -> Prometheus text
     GET    /fleet/quality                              -> decision-quality
                                                           scorecard
+    GET    /fleet/slo                                  -> SLO watchtower
+                                                          (a router only)
     GET    /healthz                                    -> readiness/liveness
                                                           (ok|degraded|
                                                           unready)
@@ -50,10 +57,13 @@ Warm pool: ``ServeApp.start()`` warms every (task, spec) bucket — builds
 and loads the kernels, caches the init state (``Bucket.warm``) — and
 ``/healthz`` answers 503 until then.
 
-Refused until the fleet, slice 9 of the port (``NotImplementedError`` in
-process, HTTP 501 over the wire): ``begin_migration``/``end_migration``
-(``POST /session/{id}/fence``, ``export`` with ``hold``) and the tiers'
-``page_out`` hook.
+The fleet's half of a migration (``serve/router.py``): ``export`` with
+``hold`` quiesces the session, holds it and exports it without closing
+(:meth:`ServeApp.begin_migration`); ``fence`` drops the held copy or lifts
+the hold (:meth:`ServeApp.end_migration`); every routed verb carries the
+router's ownership epoch, and a stale copy refuses it (``StaleOwner``,
+409). ``make_server`` serves a ``SessionRouter`` as it serves a
+``ServeApp``.
 
 Run:  python -m coda_tpu_torch.cli serve [--task T | --synthetic H,N,C]
           [--record-dir D [--restore]] [--tier-spill-dir S] [--port P]
@@ -91,11 +101,6 @@ from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
 # how long a front-door handler waits on its ticket before giving up (a
 # stuck device should surface as 504s, not piled-up waiters)
 REQUEST_TIMEOUT_S = 60.0
-
-
-def _slice_9(what: str):
-    return NotImplementedError(
-        f"{what} comes with the fleet, slice 9 of the port")
 
 
 class ServeApp:
@@ -199,7 +204,9 @@ class ServeApp:
                 lambda b: self.prior_pool.get(bucket_pool_key(self, b)))
         self.default_task = default_task
         self.draining = False
-        # migration holds come with the fleet (slice 9): always empty here
+        # migration holds (the fleet's PREPARE): sids whose copy is exported
+        # to a peer and must neither commit nor wake until the router
+        # fences (drop) or aborts (lift) the move
         self._holds: set = set()
         self.warm_error: Optional[str] = None  # last warm-up failure
         # readiness: set once the warm pool is ready (or warm-up was
@@ -343,7 +350,7 @@ class ServeApp:
         /trace/id/{trace_id}`` payload; empty events when unknown)."""
         return self.telemetry.spans.trace_payload(str(trace_id))
 
-    # -- fencing (the holds come with the fleet, slice 9) ------------------
+    # -- fencing + migration holds -----------------------------------------
     def held(self, sid: str) -> bool:
         with self.store.lock:
             return sid in self._holds
@@ -372,11 +379,71 @@ class ServeApp:
                             "epoch": int(p.get("epoch") or 0)}
             raise
 
-    def begin_migration(self, sid: str) -> dict:
-        raise _slice_9("the migration hold (begin_migration)")
+    def begin_migration(self, sid: str, raw: bool = False) -> dict:
+        """The migration PREPARE verb: quiesce (demote until parked — the
+        demotion loses cleanly to any in-flight label ticket, so the
+        payload always carries every committed label), place a hold (no
+        local commit, no wake can revive the copy), and export WITHOUT
+        closing — the source keeps a recoverable copy until the router's
+        fence commits the move. A lost response is therefore harmless:
+        nothing changed hands yet. ``raw`` keeps the payload's arrays as
+        host arrays (the in-process fleet's form)."""
+        if self.tiers is not None:
+            ev = self.tiers.waking(sid)
+            if ev is not None:
+                ev.wait(REQUEST_TIMEOUT_S)   # a wake in flight lands first
+            for _ in range(500):
+                if not self.store.alive(sid):
+                    break  # already parked (or closed) — export serves it
+                if self.tiers.try_demote(sid):
+                    break
+                time.sleep(0.002)
+        else:
+            # no tiering: the session stays hot — wait out in-flight
+            # tickets (pins) so the export snapshot trails every commit
+            try:
+                sess = self.store.get(sid)
+                for _ in range(500):
+                    if sess.pins == 0:
+                        break
+                    time.sleep(0.002)
+            except UnknownSession:
+                pass
+        with self.store.lock:
+            self._holds.add(sid)
+        try:
+            return self.export_session(sid, close=False, raw=raw)
+        except BaseException:
+            with self.store.lock:
+                self._holds.discard(sid)
+            raise
 
     def end_migration(self, sid: str, drop: bool) -> dict:
-        raise _slice_9("the migration fence (end_migration)")
+        """The migration COMMIT/ABORT verb. ``drop=True`` fences the
+        local copy (the peer owns the session now): discard the parked
+        payload / close the live copy and seal its stream. ``drop=False``
+        lifts the hold — the move failed and the session resumes here,
+        untouched."""
+        with self.store.lock:
+            held = sid in self._holds
+            self._holds.discard(sid)
+        if not drop:
+            return {"session": sid, "held": held, "dropped": False}
+        dropped = False
+        try:
+            if self.store.alive(sid):
+                self.store.close(sid)
+                self.recorder.close(sid)
+                dropped = True
+        except UnknownSession:
+            pass
+        if not dropped and self.tiers is not None and \
+                self.tiers.discard(sid):
+            self.recorder.seal(sid)
+            dropped = True
+        if dropped:
+            self.metrics.record_session("close")
+        return {"session": sid, "held": held, "dropped": dropped}
 
     # -- tiering glue: wake-through lookup + demote-then-admit -------------
     def _resolve_pinned(self, sid: str, wake: bool = True):
@@ -389,7 +456,7 @@ class ServeApp:
         misses = 0
         for _ in range(8):
             try:
-                return self.store.get_pinned(sid)
+                sess = self.store.get_pinned(sid)
             except UnknownSession:
                 if self.tiers is None or not wake:
                     raise
@@ -403,6 +470,15 @@ class ServeApp:
                 if misses > 3:
                     raise
                 time.sleep(0.002)
+                continue
+            ev = (self.tiers.waking(sid) if wake and sess.restoring
+                  and self.tiers is not None else None)
+            if ev is None:
+                return sess
+            # admitted by another verb's wake, its import not yet
+            # verified: ride that wake instead of answering 503
+            self.store.unpin(sess)
+            ev.wait(REQUEST_TIMEOUT_S)
         return self.store.get_pinned(sid)
 
     def _admit(self, task: str, seed: int, sid: Optional[str] = None,
@@ -986,7 +1062,7 @@ class ServeApp:
         no base64): the in-process form, which ``import_session`` takes
         as it takes the JSON one; the HTTP route sends the JSON form."""
         if hold:
-            return self.begin_migration(sid)
+            return self.begin_migration(sid, raw=raw)
         if close:
             # a closing export is a drain handoff: like close_session it
             # must wait out a migration hold, not race it
@@ -1560,9 +1636,16 @@ class AsyncHTTPServer:
             try:
                 from coda_tpu_torch.telemetry import render_prometheus
 
-                def render():
-                    return render_prometheus(app.telemetry.registry,
-                                             serve_metrics=app.metrics)
+                # a fleet router merges every replica's families with
+                # per-replica labels (render_metrics); a single replica
+                # renders its own registry + serve snapshot
+                if hasattr(app, "render_metrics"):
+                    render = app.render_metrics
+                else:
+                    def render():
+                        return render_prometheus(
+                            app.telemetry.registry,
+                            serve_metrics=app.metrics)
                 text = await asyncio.get_running_loop().run_in_executor(
                     None, render)
             except Exception as e:
@@ -1596,9 +1679,6 @@ class AsyncHTTPServer:
             return 409, {"error": str(e)}, _JSON
         except TimeoutError as e:
             return 504, {"error": str(e)}, _JSON
-        except NotImplementedError as e:
-            # a verb of a later slice of the port
-            return 501, {"error": f"not implemented: {e}"}, _JSON
         except (ValueError, TypeError, KeyError) as e:
             return 400, {"error": f"bad request: {e}"}, _JSON
         except Exception as e:  # cancelled tickets, dispatch failures: the
@@ -1716,8 +1796,21 @@ class AsyncHTTPServer:
                                               app.list_sessions)
         tm = _TRACE_ID_RE.match(path)
         if tm and method == "GET":
+            # one causal trace by id: a fleet router stitches every
+            # process's retained spans into one Chrome/Perfetto file
+            # (collect_trace); a single replica serves its own raw
+            # payload for such a collector to stitch
+            if hasattr(app, "collect_trace"):
+                return await loop.run_in_executor(
+                    app._executor, app.collect_trace, tm.group(1))
             return await loop.run_in_executor(
                 app._executor, app.trace_by_id, tm.group(1))
+        if method == "GET" and path == "/fleet/slo" and \
+                hasattr(app, "slo_snapshot"):
+            # the SLO watchtower (router only): objectives, burn rates,
+            # firing state, recent alerts
+            return await loop.run_in_executor(app._executor,
+                                              app.slo_snapshot)
         if method == "GET" and path == "/fleet/quality":
             # the decision-quality scorecard of this server's plane
             scorecard = getattr(app, "quality_scorecard", None)
@@ -1817,6 +1910,16 @@ def parse_args(argv=None):
                    help="hard cap on one tick's total formation window "
                         "regardless of arrival pattern "
                         "(default 4x --max-wait-ms)")
+    p.add_argument("--eig-mode", default="auto",
+                   choices=["auto", "incremental", "factored", "rowscan",
+                            "direct"],
+                   help="coda methods only: the EIG tier every session's "
+                        "bucket runs (the main CLI's --eig-mode; not a flag "
+                        "of the reference's serve). 'auto' takes the "
+                        "reference's rule over the whole slab, which "
+                        "trades the cached tier away for many wide slots; "
+                        "'incremental' keeps the cached tier and its "
+                        "kernels at any capacity")
     p.add_argument("--step-impl", default=None,
                    choices=["map", "batched", "vmap"],
                    help="slab-step lowering: 'map' runs the requested "
@@ -1894,16 +1997,19 @@ def parse_args(argv=None):
                         "step_raise | step_nan | record_eio | slow_step | "
                         "crash_before_tick | crash_after_tick | "
                         "demote_during_label | oracle_poison | "
-                        "oracle_abstain | stream_tamper (the fleet's come "
-                        "with slice 9) and "
+                        "oracle_abstain | stream_tamper (and the fleet's "
+                        "net_drop | net_delay | net_dup | partition | "
+                        "flap_healthz | kill_replica) and "
                         "triggers after=N / every=N / p=F,seed=S (e.g. "
                         "'step_raise:after=100') — exercises the recovery "
                         "paths under real traffic")
     return p.parse_args(argv)
 
 
-def build_app(args) -> ServeApp:
-    """ServeApp from parsed args."""
+def build_app(args, dataset=None) -> ServeApp:
+    """ServeApp from parsed args. ``dataset`` serves a task already
+    loaded (one for all of a fleet's replicas) instead of loading
+    ``--task``/``--synthetic`` again."""
     from coda_tpu_torch.cli import load_dataset
 
     if getattr(args, "compilation_cache_dir", None):
@@ -1921,6 +2027,8 @@ def build_app(args) -> ServeApp:
         prior_knob = getattr(args, "surrogate_prior", "off")
         if prior_knob and prior_knob != "off":
             spec_kwargs["surrogate_prior"] = prior_knob
+        if args.eig_mode != "auto":
+            spec_kwargs["eig_mode"] = args.eig_mode
     telemetry = None
     if getattr(args, "telemetry_dir", None):
         from coda_tpu_torch.telemetry import Telemetry
@@ -1954,8 +2062,8 @@ def build_app(args) -> ServeApp:
         quality_audit_frac=getattr(args, "quality_audit_frac", 0.25),
         device=args.device,
     )
-    if args.task or args.synthetic:
-        ds = load_dataset(args)
+    if dataset is not None or args.task or args.synthetic:
+        ds = dataset if dataset is not None else load_dataset(args)
         app.add_task(ds.name, ds.preds, class_names=ds.class_names)
     else:
         from coda_tpu_torch.data import make_synthetic_task

@@ -124,9 +124,9 @@ class BucketQuarantined(RuntimeError):
 
 
 class StaleOwner(RuntimeError):
-    """The fencing rejection of the fleet's migration protocol (slice 9 of
-    the port): a verb stamped with an ownership epoch newer than this
-    copy's. Kept so the front door's error envelope is the reference's."""
+    """The fencing rejection of the fleet's migration protocol: a verb
+    stamped with an ownership epoch newer than this copy's proves the
+    session migrated away (``serve/router.py`` re-locates on it)."""
 
     def __init__(self, sid: str, have: int, want: int):
         super().__init__(
@@ -614,6 +614,20 @@ class Bucket:
         # admission writes staged as (slot, state, key), applied under
         # ``lock`` at the next slab access
         self._staged: list = []
+
+    def free(self) -> None:
+        """Drop the bucket's device memory (the slab, the cached init and
+        template, the predictions and the selector that closes over
+        them) for a replica that is gone: whatever still references its
+        objects (a caller's traceback, say) then holds no device memory.
+        The bucket serves nothing after it."""
+        with self.lock:
+            self.failed = "freed"
+            self._slab = self._template = self._init_state = None
+            self.selector = self._step = self._get_pbest = None
+            self.preds = None
+            self._staged = []
+            self.keys = []
 
     # -- the warm pool -----------------------------------------------------
     @property
@@ -1207,8 +1221,9 @@ class Session:
     # dispatches answer a retryable 503 until the posterior and the dedupe
     # cache are rebuilt
     restoring: bool = False
-    # ownership epoch of the fleet's fence (slice 9); 0 on one server,
-    # carried verbatim by export/import and the streams
+    # ownership epoch of the fleet's fence: 0 until a migration or a
+    # peer page moves the session, carried verbatim by export/import,
+    # demote/wake and the streams
     epoch: int = 0
     # in-flight verbs holding the session (a demotion needs exactly its
     # own pin, so it loses every race against live traffic), and its last

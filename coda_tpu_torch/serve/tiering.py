@@ -8,8 +8,8 @@ copy; :meth:`TierManager.parked_payload` encodes base64 only for the
 export surfaces), the snapshot copies only the demoted slots on a side
 stream (``Bucket.snapshot_slots``), and hibernation deflates a large leaf
 in parallel pieces (``serve/spill.py``). The fleet's ``page_out`` hook
-(peer paging) is slice 9 of the port: :meth:`TierManager.page_to_peer` is
-here, and installing a hook raises ``NotImplementedError``.
+(``serve/fleet.py``) hands a warm payload's raw arrays to a peer's
+``import_session`` in process.
 
 Before this module a session existed only while it held a device slab
 slot, so the open-session ceiling was the slab capacity and admission past
@@ -125,15 +125,21 @@ class TierManager:
         self._demoted = threading.Condition(self._lock)
         self._warm: "OrderedDict[str, dict]" = OrderedDict()
         self._waking: dict[str, threading.Event] = {}
+        # demotions between unpublishing a session and publishing its
+        # payload: a verb (or a fleet router's search) arriving then finds
+        # the session parked and waits for the payload, instead of finding
+        # it nowhere (the reference's 3 x 2 ms retry loses that race to a
+        # busy host and answers 404 for a live session)
+        self._publishing: dict[str, threading.Event] = {}
         self.spill_errors = 0        # hibernate writes that failed (stayed warm)
         # demotion snapshots that raised (every candidate then lost), and
         # the last such error: a full slab that cannot page out says why
         self.snapshot_errors = 0
         self.last_snapshot_error: Optional[str] = None
-        # the fleet's hook (slice 9 of the port): page_out(sid, payload)
-        # -> bool offers a warm payload to a less-loaded peer replica
-        # before the disk; None on one server
-        self._page_out = None
+        # the fleet's hook (serve/fleet.py): page_out(sid, payload) -> bool
+        # offers a warm payload to a less-loaded peer replica before the
+        # disk; None on one server
+        self.page_out = None
         self._running = False
         self._wakeup = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -146,18 +152,6 @@ class TierManager:
             # the v3 store's segment/index/compaction gauges ride every
             # /stats and /metrics snapshot (read on demand, no sync)
             self.app.metrics.spill_provider = self._spill.stats
-
-    @property
-    def page_out(self):
-        return self._page_out
-
-    @page_out.setter
-    def page_out(self, hook) -> None:
-        if hook is not None:
-            raise NotImplementedError(
-                "the page_out hook (peer paging) comes with the fleet, "
-                "slice 9 of the port")
-        self._page_out = None
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "TierManager":
@@ -188,11 +182,19 @@ class TierManager:
                 "cold": cold}
 
     def parked(self, sid: str) -> bool:
-        """Whether the sid lives in a non-resident tier (or is mid-wake)."""
+        """Whether the sid lives in a non-resident tier (or is mid-wake, or
+        mid-demotion past its unpublishing)."""
         with self._lock:
-            if sid in self._warm or sid in self._waking:
+            if sid in self._warm or sid in self._waking or \
+                    sid in self._publishing:
                 return True
         return self._spill is not None and sid in self._spill
+
+    def waking(self, sid: str) -> Optional[threading.Event]:
+        """The event of a wake of ``sid`` in flight (set when it ends), or
+        None."""
+        with self._lock:
+            return self._waking.get(sid)
 
     def parked_sids(self) -> list[str]:
         """Every non-resident session id, warm first then cold — the one
@@ -201,6 +203,10 @@ class TierManager:
         single reader)."""
         with self._lock:
             sids = list(self._warm)
+            # mid-demotion and mid-wake: between the tiers for a moment,
+            # addressable all the same (a fleet's drain must not miss one)
+            sids += [s for s in (*self._publishing, *self._waking)
+                     if s not in self._warm]
         if self._spill is not None:
             seen = set(sids)
             sids += [s for s in self._spill.sids() if s not in seen]
@@ -329,6 +335,9 @@ class TierManager:
                         continue
                     sess.pins = 0
                     published = True
+                    # one dict store (atomic): no tier lock under the
+                    # store's
+                    self._publishing[sess.sid] = pub = threading.Event()
             except Exception:
                 continue  # only THIS candidate aborts — an escape here
                 #           would strand the remaining candidates pinned
@@ -337,26 +346,34 @@ class TierManager:
                     store.unpin(sess)
             if not published:
                 continue
-            # from here no verb can reach the session (get raises):
-            # release the slot, park the stream, publish the payload
-            sess.bucket.release(sess.slot)
-            if getattr(app, "prior_pool", None) is not None:
-                # the demotion snapshot is the last host view of the fit:
-                # contribute it now (close of a parked session never wakes)
-                try:
-                    if app.contribute_prior(sess,
-                                            bucket.fit_from_leaves(snap[0])):
-                        # the payload was built pre-contribution: mark it
-                        # so a wake (or a migration of the parked copy)
-                        # restores the once-flag and never re-contributes
-                        payload["prior_contributed"] = True
-                except Exception:
-                    pass
-            app.recorder.park(sess.sid)
-            with self._lock:
-                self._warm[sess.sid] = {"payload": payload,
-                                        "task": sess.task,
-                                        "last_used": time.monotonic()}
+            # from here no verb can reach the session (get raises; a
+            # wake waits for ``pub``): release the slot, park the stream,
+            # publish the payload
+            try:
+                sess.bucket.release(sess.slot)
+                if getattr(app, "prior_pool", None) is not None:
+                    # the demotion snapshot is the last host view of the
+                    # fit: contribute it now (close of a parked session
+                    # never wakes)
+                    try:
+                        if app.contribute_prior(
+                                sess, bucket.fit_from_leaves(snap[0])):
+                            # the payload was built pre-contribution: mark
+                            # it so a wake (or a migration of the parked
+                            # copy) restores the once-flag and never
+                            # re-contributes
+                            payload["prior_contributed"] = True
+                    except Exception:
+                        pass
+                app.recorder.park(sess.sid)
+                with self._lock:
+                    self._warm[sess.sid] = {"payload": payload,
+                                            "task": sess.task,
+                                            "last_used": time.monotonic()}
+            finally:
+                with self._lock:
+                    self._publishing.pop(sess.sid, None)
+                pub.set()
             app.metrics.record_tier("demote")
             n_demoted += 1
         if n_demoted:
@@ -462,6 +479,10 @@ class TierManager:
 
             raise BucketQuarantined(
                 f"session {sid} is migrating; retry shortly")
+        with self._lock:
+            pub = self._publishing.get(sid)
+        if pub is not None:
+            pub.wait(timeout)   # a demotion is publishing its payload
         with self._lock:
             ev = self._waking.get(sid)
             if ev is not None:

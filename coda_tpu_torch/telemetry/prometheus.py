@@ -8,8 +8,8 @@ client library: the format is lines of ``name{labels} value`` under
 ``# HELP`` / ``# TYPE`` headers. ``render(serve_metrics=...)`` adds the
 serve families (``ServeMetrics``' snapshot, the reference's names) and
 the decision-quality families (``quality_*``, absent with
-``--no-quality``); :func:`render_fleet` comes with the fleet, slice 9 of
-the port.
+``--no-quality``); :func:`render_fleet` is the fleet router's merged
+exposition, each serve family once with a ``replica`` label a sample.
 """
 
 from __future__ import annotations
@@ -92,13 +92,6 @@ def render(registry: Optional[Registry] = None, serve_metrics=None,
     if serve_metrics is not None:
         _render_serve(out, serve_metrics.snapshot(), prefix)
     return "\n".join(out) + "\n"
-
-
-def render_fleet(*args, **kwargs) -> str:
-    """The fleet router's merged exposition comes with the fleet, slice 9
-    of the port."""
-    raise NotImplementedError(
-        "render_fleet: the fleet router comes with slice 9 of the port")
 
 
 # (snapshot key, metric suffix, kind, help) — counters keep their
@@ -483,6 +476,169 @@ def lint(text: str) -> list[str]:
             except ValueError:
                 out.append(f"line {i}: bad value {val!r}")
     return out
+
+
+def render_fleet(replica_snaps: dict, registry: Optional[Registry] = None,
+                 router_stats: Optional[dict] = None,
+                 prefix: str = "coda") -> str:
+    """The fleet's merged exposition: each serve family rendered ONCE
+    with a ``replica`` label per sample (families stay contiguous, so
+    the output is :func:`lint`-clean), plus the router's own routing/
+    migration counters. This is what keeps fleet observability a single
+    scrape instead of a per-replica curl loop.
+
+    ``replica_snaps`` maps replica id -> its ``ServeMetrics.snapshot()``
+    dict (the ``/stats`` payload — handle-type agnostic, so HTTP and
+    in-process replicas merge identically)."""
+    out: list[str] = []
+    reg = registry if registry is not None else get_registry()
+    for m in reg.collect():
+        _family(out, _name(prefix, m.name), m.kind, m.help, m.samples())
+    if router_stats is not None:
+        rt = router_stats
+        counters = rt.get("counters") or {}
+        for key, help in (
+                ("requests_routed", "Requests the router forwarded"),
+                ("reroutes", "Requests re-routed after an off-owner find"),
+                ("migrations", "Sessions drain-and-migrated between "
+                               "replicas (each digest-verified)"),
+                ("migration_failures", "Migrations that failed and were "
+                                       "restored to their source"),
+                ("sessions_dropped", "Sessions lost in a failed migration "
+                                     "(must stay 0)"),
+                ("evictions", "Replicas evicted from routing by health"),
+                ("rejoins", "Replicas re-admitted to routing by health"),
+                ("rebalances", "Topology-change rebalance passes"),
+                ("fence_failures", "Migration commits whose source fence "
+                                   "did not land (stale copy defended by "
+                                   "the epoch stamp until re-fenced)"),
+        ):
+            if key in counters:
+                _family(out, _name(prefix, f"router_{key}_total"),
+                        "counter", help, [({}, counters[key])])
+        # the fleet-chaos families: fencing rejections the
+        # router absorbed, journal replays, per-replica transport retries
+        # and breaker state — named exactly as the runbooks grep for them
+        if "fencing_rejections" in counters:
+            _family(out, _name(prefix, "fencing_rejections_total"),
+                    "counter",
+                    "Stale-epoch verbs refused fleet-wide (each one a "
+                    "prevented split-brain double-apply)",
+                    [({}, counters["fencing_rejections"])])
+        if "journal_replays" in counters:
+            _family(out, _name(prefix, "migration_journal_replays_total"),
+                    "counter",
+                    "In-doubt migrations resolved from the journal after "
+                    "a restart (finalized or restored)",
+                    [({}, counters["journal_replays"])])
+        retries = rt.get("transport_retries") or {}
+        if retries:
+            _family(out, _name(prefix, "transport_retries_total"),
+                    "counter",
+                    "Replica-call transport retries (idempotent verbs "
+                    "only, per-replica budgeted)",
+                    [({"replica": rid}, n)
+                     for rid, n in sorted(retries.items())])
+        breakers = rt.get("breakers") or {}
+        if breakers:
+            order = {"closed": 0, "half_open": 1, "open": 2}
+            _family(out, _name(prefix, "replica_breaker_state"),
+                    "gauge",
+                    "Per-replica transport circuit breaker "
+                    "(0=closed, 1=half-open, 2=open)",
+                    [({"replica": rid},
+                      order.get(b.get("state"), 0))
+                     for rid, b in sorted(breakers.items())])
+        routed = rt.get("requests_to") or {}
+        if routed:
+            _family(out, _name(prefix, "router_requests_to_replica_total"),
+                    "counter", "Requests forwarded per replica",
+                    [({"replica": rid}, n)
+                     for rid, n in sorted(routed.items())])
+        routable = rt.get("routable")
+        if routable is not None:
+            _family(out, _name(prefix, "router_routable_replicas"),
+                    "gauge", "Replicas currently in the routing set",
+                    [({}, len(routable))])
+    snaps = {rid: s for rid, s in sorted(replica_snaps.items())
+             if isinstance(s, dict) and "error" not in s}
+    for key, suffix, kind, help in _SERVE_SCALARS:
+        samples = [({"replica": rid}, s[key])
+                   for rid, s in snaps.items() if s.get(key) is not None]
+        if samples:
+            _family(out, _name(prefix, suffix), kind, help, samples)
+    for key, suffix, kind, help in _SERVE_WARM:
+        samples = [({"replica": rid}, (s.get("warm_pool") or {}).get(key))
+                   for rid, s in snaps.items()
+                   if (s.get("warm_pool") or {}).get(key) is not None]
+        if samples:
+            _family(out, _name(prefix, suffix), kind, help, samples)
+    for tier in ("hot", "warm", "cold"):
+        samples = [({"replica": rid}, (s.get("tiers") or {}).get(tier))
+                   for rid, s in snaps.items()
+                   if (s.get("tiers") or {}).get(tier) is not None]
+        if samples:
+            _family(out, _name(prefix, f"serve_sessions_{tier}"), "gauge",
+                    f"Open sessions currently in the {tier} tier",
+                    samples)
+    for key, suffix, kind, help in _SERVE_SPILL:
+        samples = [({"replica": rid}, (s.get("spill") or {}).get(key))
+                   for rid, s in snaps.items()
+                   if (s.get("spill") or {}).get(key) is not None]
+        if samples:
+            _family(out, _name(prefix, suffix), kind, help, samples)
+    for suffix, kind, help, extract in _SERVE_QUALITY:
+        samples = []
+        for rid, s in snaps.items():
+            quality = s.get("quality")
+            if not isinstance(quality, dict):
+                continue
+            for extra, v in extract(quality):
+                labels = {"replica": rid}
+                labels.update(extra)
+                samples.append((labels, v))
+        if samples:
+            _family(out, _name(prefix, suffix), kind, help, samples)
+    samples = []
+    for rid, s in snaps.items():
+        ages = (s.get("prior_pool_ages_seconds")
+                or (s.get("prior_pool") or {}).get("pool_ages_seconds")
+                or {})
+        samples.extend(({"pool": k, "replica": rid}, v)
+                       for k, v in sorted(ages.items()))
+    if samples:
+        _family(out, _name(prefix, "serve_prior_pool_age_seconds"),
+                "gauge",
+                "Seconds since each prior pool's last statistic fold",
+                samples)
+    samples = [({"replica": rid, "ring": ring}, ex)
+               for rid, s in snaps.items()
+               for ring, ex in sorted((s.get("exemplars") or {}).items())
+               if ex and ex.get("trace_id")]
+    if samples:
+        _exemplar_family(
+            out, _name(prefix, "serve_latency_outlier_seconds"),
+            "Latest p99-bucket latency outlier per replica and ring; the "
+            "exemplar's trace_id joins it to its stitched distributed "
+            "trace", samples)
+    for key, suffix, count_key, help in _SERVE_SUMMARIES:
+        name = _name(prefix, suffix)
+        samples = []
+        counts = []
+        for rid, s in snaps.items():
+            q = s.get(key) or {}
+            for qk, quantile in (("p50_ms", "0.5"), ("p99_ms", "0.99")):
+                if q.get(qk) is not None:
+                    samples.append(({"quantile": quantile,
+                                     "replica": rid}, q[qk] / 1e3))
+            if q.get("p50_ms") is not None:
+                counts.append(({"replica": rid}, s.get(count_key, 0)))
+        if not samples:
+            continue
+        _family(out, name, "summary", help, samples)
+        for labels, n in counts:
+            out.append(_line(name + "_count", labels, n))
+    return "\n".join(out) + "\n"
 
 
 def _render_serve(out: list, snap: dict, prefix: str) -> None:

@@ -1,6 +1,6 @@
 """SLO watchtower: declarative objectives + multi-window burn-rate alerts
-(counterpart of ``coda_tpu/telemetry/slo.py``, stdlib only; the router
-that runs the sweeper comes with the fleet, slice 9 of the port).
+(counterpart of ``coda_tpu/telemetry/slo.py``, stdlib only; the fleet's
+``SessionRouter`` runs the sweeper on its health-poll thread).
 
 The serve stack commits to service objectives in its artifacts (label p99
 under a bound, wake p99 under one batcher tick, migrations digest-verified,

@@ -49,7 +49,7 @@ from coda_tpu_torch.serve import (
     heal_bucket,
 )
 from coda_tpu_torch.serve.batcher import Batcher
-from coda_tpu_torch.serve.faults import PENDING_SITES, parse_fault_spec
+from coda_tpu_torch.serve.faults import parse_fault_spec
 from coda_tpu_torch import random as trandom
 from coda_tpu_torch.serve.state import state_digest, tree_leaves
 from coda_tpu_torch.telemetry import SessionRecorder
@@ -647,8 +647,8 @@ def test_port_step_nan_caught_by_digest(task):
 
 
 def test_port_fault_grammar_is_the_reference(tmp_path):
-    """Every reference spec parses the same; only the sites of slice 8a
-    fire here, every other one is refused naming its slice."""
+    """Every reference spec parses the same, and every site's fault, the
+    fleet's included, arms an injector."""
     specs = ["step_raise:after=5;slow_step:every=3,ms=20",
              "step_nan:p=0.5,seed=3,task=t", "record_eio:times=2,after=1",
              "net_drop:edge=r1,times=3", "crash_before_tick:after=9",
@@ -660,9 +660,9 @@ def test_port_fault_grammar_is_the_reference(tmp_path):
 
             assert ours == [vars(f) for f in ref_parse(s)], s
     FaultInjector("step_raise:after=1;step_nan;record_eio;slow_step:ms=1")
-    for name, where in PENDING_SITES.items():
-        with pytest.raises(NotImplementedError, match=where.split()[0]):
-            FaultInjector(f"{name}:after=1")
+    for name in ("net_drop", "partition", "net_delay", "net_dup",
+                 "flap_healthz", "kill_replica"):
+        assert FaultInjector(f"{name}:after=1").faults[0].name == name
     with pytest.raises(ValueError, match="unknown fault"):
         parse_fault_spec("disk_fire")
 

@@ -7,7 +7,8 @@ reference's JSON shapes and status codes; ``request_id`` dedupe;
 admission 503 and draining; the ``/healthz`` warm gate; ``/metrics``
 clean under the port's ``prometheus.lint``; ``parse_args([])``'s defaults
 equal to the reference's (``--platform`` is the port's ``--device``);
-the fleet's verbs (slice 9) refused naming their slice (HTTP 501);
+the fleet's verbs of one server (the migration hold, the fence, the
+epoch probe) over HTTP, the N axis (slice 5) refused naming its slice;
 export/import over HTTP; the crowd's ``answer`` verb committing, in any
 order, the rows of the in-order ``labels`` verb bitwise; and the answers
 over HTTP equal to the in-process slab's on the same seed, bitwise.
@@ -197,9 +198,12 @@ def test_port_http_healthz_gate_and_metrics(task):
 
 def test_port_parse_args_defaults_are_the_reference():
     """Every flag of the reference's ``serve`` parses to its default here,
-    ``--platform`` (a JAX platform) becoming ``--device`` (cuda)."""
+    ``--platform`` (a JAX platform) becoming ``--device`` (cuda); the
+    port's one added flag, ``--eig-mode``, defaults to the reference's
+    rule (``auto``)."""
     ours = vars(tserver.parse_args([]))
     assert ours.pop("device") == "cuda"
+    assert ours.pop("eig_mode") == "auto"
     try:
         from coda_tpu.serve.server import parse_args as ref_parse
     except ImportError:
@@ -210,13 +214,32 @@ def test_port_parse_args_defaults_are_the_reference():
     assert tserver.parse_args(["--step-impl", "vmap"]).step_impl == "vmap"
 
 
+def test_port_cli_serve_eig_mode_flag():
+    """``--eig-mode`` pins the EIG tier of every session's bucket; ``auto``
+    leaves the spec to the reference's rule, and an unknown tier is
+    refused at parse time."""
+    def spec_kwargs(argv):
+        app = tserver.build_app(tserver.parse_args(
+            ["--synthetic", "4,32,3", "--capacity", "2", "--no-tiering",
+             "--no-quality", "--device", "cpu", *argv]))
+        return dict(app.spec.kwargs)
+
+    assert spec_kwargs(["--eig-mode", "incremental"])["eig_mode"] == \
+        "incremental"
+    assert "eig_mode" not in spec_kwargs([])
+    with pytest.raises(SystemExit):
+        tserver.parse_args(["--eig-mode", "cached"])
+
+
 def test_port_refusals_name_their_slice(task):
-    """Only the fleet (slice 9) and the N axis (slice 5) are refused: each
-    raises NotImplementedError naming its slice in process and answers
-    501 over HTTP. Tiering, the quality plane, export/import, restore, the
-    answer verb, the prior pool, ``replay-serve`` and ``quality`` run."""
+    """Only the N axis (slice 5) is refused, naming its slice. Tiering,
+    the quality plane, export/import, restore, the answer verb, the prior
+    pool, ``replay-serve``, ``quality``, ``trace``, ``render_fleet`` and
+    the server's half of a migration run: ``export`` with ``hold`` holds
+    the session (its verbs answer a retryable 503), ``fence`` without
+    ``drop`` lifts the hold, with ``drop`` closes the copy."""
     from coda_tpu_torch import cli
-    from coda_tpu_torch.telemetry.prometheus import render_fleet
+    from coda_tpu_torch.telemetry.prometheus import lint, render_fleet
 
     for kw in ({}, {"quality": False}, {"tiering": False}):
         app = ServeApp(device=DEV, **kw)
@@ -225,10 +248,10 @@ def test_port_refusals_name_their_slice(task):
         app.drain()
     ServeApp(device=DEV, spec=SelectorSpec.create(
         "coda", eig_scorer="surrogate:8", surrogate_prior="pool")).drain()
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        render_fleet({})
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        cli.main(["trace", "x"])
+    assert lint(render_fleet({})) == []
+    with pytest.raises(SystemExit) as e:
+        cli.main(["trace", "--help"])
+    assert e.value.code == 0
     with pytest.raises(NotImplementedError, match="slice 5"):
         cli.main(["--synthetic", "4,32,3", "--device", "cpu", "--method",
                   "coda", "--iters", "2", "--no-mlflow", "--mesh",
@@ -240,16 +263,20 @@ def test_port_refusals_name_their_slice(task):
     try:
         app = s.app
         sid = s("POST", "/session", {"seed": 0})[1]["session"]
-        for fn in (lambda: app.begin_migration(sid),
-                   lambda: app.end_migration(sid, True),
-                   lambda: app.export_session(sid, hold=True)):
-            with pytest.raises(NotImplementedError, match="slice 9"):
-                fn()
-        for body in ({"drop": True}, {}):
-            code, err = s("POST", f"/session/{sid}/fence", body)
-            assert code == 501 and "slice 9" in err["error"]
-        code, err = s("POST", f"/session/{sid}/export", {"hold": True})
-        assert code == 501 and "slice 9" in err["error"]
+        code, payload = s("POST", f"/session/{sid}/export", {"hold": True})
+        assert code == 200 and payload["session"] == sid and app.held(sid)
+        code, err = s("GET", f"/session/{sid}/best")
+        assert code == 503 and "migrating" in err["error"]
+        assert s("POST", f"/session/{sid}/fence", {}) == (
+            200, {"session": sid, "held": True, "dropped": False})
+        assert s("GET", f"/session/{sid}/epoch") == (
+            200, {"session": sid, "epoch": 0})
+        assert s("GET", f"/session/{sid}/best")[0] == 200
+        assert app.begin_migration(sid, raw=True)["session"] == sid
+        assert s("POST", f"/session/{sid}/fence", {"drop": True}) == (
+            200, {"session": sid, "held": True, "dropped": True})
+        assert s("GET", f"/session/{sid}/best")[0] == 404
+        assert s("GET", "/sessions") == (200, {"sessions": []})
         assert s("POST", "/prior/sync", {}) == (200, {"delta": {}})
     finally:
         s.close()

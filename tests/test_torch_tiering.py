@@ -281,13 +281,23 @@ def test_reference_demote_and_wake_matches_the_reference(task):
 
 
 def test_port_page_out_hook_names_slice_9(task):
-    """The fleet's peer paging hook is slice 9 of the port."""
+    """The fleet's peer paging hook: none on one server; an installed hook
+    gets the warm payload (its raw arrays) and the session leaves the
+    tiers with its stream sealed, or stays warm when the hook refuses."""
     app = _app(task)
     try:
         assert app.tiers.page_out is None
         assert not app.tiers.page_to_peer("ab")
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            app.tiers.page_out = lambda sid, payload: True
+        sid = app.open_session(seed=1)["session"]
+        assert app.tiers.try_demote(sid)
+        got = {}
+        app.tiers.page_out = lambda s, p: False
+        assert not app.tiers.page_to_peer(sid) and app.tiers.parked(sid)
+        app.tiers.page_out = lambda s, p: got.update({s: p}) is None
+        assert app.tiers.page_to_peer(sid)
+        assert not app.tiers.parked(sid) and sid in got
+        assert isinstance(got[sid]["carries"][0]["data"], np.ndarray)
+        assert app.metrics.peer_pages == 1
     finally:
         app.drain()
 
