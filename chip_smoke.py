@@ -125,7 +125,9 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    ``--force-rerun``. It prints the phase's wall time.
 9. the "replay, checkpoint and suite" phase, each in-process run with the
    counters set to 0 just before and read just after, its launches
-   checked and added to the JSON line's: three headline CODA records (1
+   checked and added to the JSON line's: three headline CODA records,
+   made with ``--task`` on the headline task written as ``.npy`` files so
+   that each replay loads them instead of rebuilding the task (1
    seed x 20 rounds with the default knobs; 5 seeds x 10 as one batch on
    the incremental tier, kernels 4, 5 and batched 3; ``--eig-refresh
    fused --eig-cache-dtype bfloat16``, 1 seed x 10, kernel 6), each
@@ -138,12 +140,12 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    ActiveTesting; 1 seed, every 10 rounds) cut after round 20 and resumed
    to 30, every trace bitwise the uninterrupted run, with a checkpoint's
    bytes and its save and restore seconds; the suite over ``data/`` (the
-   six methods, 5 seeds x 50 rounds, ``runs/real.sqlite``'s sweep cut
+   six methods, 5 seeds x 25 rounds, ``runs/real.sqlite``'s sweep cut
    from 100 rounds) into
    a fresh database, its rerun skipping every pair, a 3-task x 2-seed x
    30-round subset under ``--task-batch --suite-devices 1`` bitwise the
    serial run, two pairs' rows bitwise the single-task CLI's, and a
-   table of mean cumulative regret x100 at step 50 beside
+   table of mean cumulative regret x100 at step 25 beside
    ``runs/real.sqlite``'s (information, not a gate). It prints the
    sweep's and the phase's wall time.
 10. the "crowd and telemetry" phase, each in-process run with the
@@ -266,9 +268,34 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    bitwise one app's; ``cli trace <id> --url`` with the router's and both
    replicas' lanes; ``cli quality --url`` 0; the router's ``/metrics``
    clean by ``lint``.
+14. the N-axis mesh (``coda_tpu_torch/parallel``): the headline task
+   written as ``<name>.npy`` into a temporary directory, then
+   ``scripts/torch_mesh_run.py``'s jobs through ``cli --task <name>``,
+   first unsharded in this process (the yardstick), then under
+   ``python -m torch.distributed.run --standalone --nproc-per-node 2``
+   (``--mesh data=2``: two ranks over gloo on the one card, each holding
+   its half of N; a subprocess in its own session, killed at 420 s): CODA
+   with the CLI's defaults, 1 seed x 30 rounds (kernels 1, 2, 3 on each
+   rank's block); 5 seeds x 10 rounds as one batch on the incremental
+   tier (kernels 4, 5 and the batched 3); the paper's 5-seed command
+   (auto, the factored tier) x 5; the five baselines x 20; and ``cli
+   suite --mesh`` over ``pyfiles`` (sharded) and ``iris`` (unsharded,
+   the reference's warning), 2 seeds x 10. Each rank, seed by seed: the
+   unsharded run's chosen items and best models, regret within 1e-7,
+   each round's scores of its block within 2.34e-4 of the unsharded
+   scores' slice, up to a first pick that differs only as a
+   ``tie-break-flip`` (within 2.34e-4 of the round's best); the
+   replicated state's fingerprint equal on both ranks; on the card
+   kernels 1, 2, 3 (main) and 4, 5, batched 3 (batch) launched on both
+   ranks (their counts, on their own line, add to the JSON line's); the
+   suite's rows those of the unsharded suite. It prints ms a round, init
+   ms and each rank's peak memory beside the unsharded run's, with the
+   card's name and power limit: gloo on one shared card checks the
+   sharded program, it does not measure NCCL scaling.
 
 It prints one JSON line with every kernel flavour (its ``launches`` summed
-over the main-path runs), then the card's name and power
+over the main-path runs, the mesh's ranks' included), then the card's
+name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero; without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -2367,9 +2394,9 @@ REPLAY_PATHS = (
 )
 TAMPER_ROUND = 7
 CKPT_ROUNDS, CKPT_EVERY, CKPT_CUT = 30, 10, 25   # the cut run saves 10, 20
-# runs/real.sqlite's sweep (5 seeds x 100 rounds) cut to 50 rounds, its
-# table read at step 50
-SUITE_SEEDS, SUITE_ROUNDS = 5, 50
+# runs/real.sqlite's sweep (5 seeds x 100 rounds) cut to 25 rounds, its
+# table read at step 25: the whole smoke must end within its time limit
+SUITE_SEEDS, SUITE_ROUNDS = 5, 25
 SUBSET = ("digits", "iris", "wine")              # --task-batch subset
 SUBSET_SEEDS, SUBSET_ROUNDS = 2, 30
 CLI_PAIRS = (("digits", "coda"), ("digits", "model_picker"))
@@ -2411,6 +2438,20 @@ def _counted(what, want, total, fn):
     for k, v in by_flavour.items():
         total[k] = total.get(k, 0) + v
     return out
+
+
+def _task_files(task, tmp: str) -> list:
+    """``--task <name> --data-dir <tmp>`` for ``task`` written into
+    ``tmp`` as the ``.npy`` files a user points the CLI at: a record made
+    with these flags replays from the files (seconds) instead of
+    rebuilding the synthetic task with numpy (about 23 s at the
+    headline)."""
+    import numpy as np
+
+    np.save(os.path.join(tmp, f"{task.name}.npy"), task.preds.cpu().numpy())
+    np.save(os.path.join(tmp, f"{task.name}_labels.npy"),
+            task.labels.cpu().numpy())
+    return ["--task", task.name, "--data-dir", tmp]
 
 
 def _hold_replay(report: dict, record, what: str, tol: float) -> list:
@@ -2510,8 +2551,9 @@ def phase_replay_checkpoint_suite(dev, task, total: dict) -> dict:
     tmp = tempfile.mkdtemp(prefix="coda_smoke_")
     try:
         # 1. record three headline runs, re-execute each in a subprocess
+        files = _task_files(task, tmp)
         for label, flags, seeds, iters in REPLAY_PATHS:
-            argv = ["--synthetic", f"{H},{N},{C}", "--method", "coda",
+            argv = files + ["--method", "coda",
                     "--iters", str(iters), "--seeds", str(seeds),
                     "--record-dir", os.path.join(tmp, label.replace(" ", "_")),
                     "--no-mlflow", "--device", dev.type] + flags
@@ -3084,9 +3126,9 @@ def phase_crowd_telemetry(dev, task, total: dict, smi: str, peaks) -> dict:
             fused = ["--eig-refresh", "fused", "--eig-cache-dtype",
                      "bfloat16"]
             iters = 20
-            base = ["--synthetic", f"{H},{N},{C}", "--method", "coda",
-                    "--iters", str(iters), "--seeds", "1", "--no-mlflow",
-                    "--device", dev.type] + fused
+            base = _task_files(task, tmp) + [
+                "--method", "coda", "--iters", str(iters), "--seeds", "1",
+                "--no-mlflow", "--device", dev.type] + fused
             recs = {}
             for name, extra in (("noisy", ["--oracle-noise", CROWD_SPEC]),
                                 ("clean", [])):
@@ -5517,6 +5559,220 @@ def phase_fleet(dev, task, total: dict, smi: str) -> dict:
     return out
 
 
+MESH_D = 2                            # ranks of phase 14 (gloo, one card)
+MESH_ROUNDS = {"main": 30, "batch": 10, "paper": 5, "baselines": 20,
+               "suite": 10}
+MESH_SUITE_TASKS = "pyfiles,iris"     # N = 500 shards; N = 105 falls back
+MESH_TIMEOUT_S = 420
+MESH_REGRET_TOL = 1e-7
+
+
+def _mesh_driver():
+    """``scripts/torch_mesh_run.py`` as a module (the ranks' program; this
+    process runs its jobs unsharded as the yardstick)."""
+    import importlib.util
+
+    path = os.path.join(HERE, "scripts", "torch_mesh_run.py")
+    spec = importlib.util.spec_from_file_location("torch_mesh_run", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, path
+
+
+def _mesh_hold(job: str, rank: int, got: dict, arr, one_arr) -> tuple:
+    """A rank's run of ``job`` against the unsharded run, seed by seed:
+    the same chosen items and best models and regret within 1e-7, and
+    each round's scores of the rank's block within 2.34e-4 of the
+    unsharded scores' slice (the same items finite) — up to a seed's
+    first differing pick, which must be a ``tie-break-flip``: the mesh's
+    item within 2.34e-4 of the unsharded round's best score (the
+    trajectories part there, as the replay triage's rule has it).
+    Returns ``(largest score difference, [(seed, round, gap), ...])``."""
+    import numpy as np
+
+    what = f"mesh {job} rank {rank}"
+    if got["rc"] != 0:
+        raise AssertionError(f"{what}: exit {got['rc']}")
+    idx, idx1 = arr[f"{job}/chosen_idx"], one_arr["chosen_idx"]
+    s, s1 = arr[f"{job}/scores"], one_arr["scores"]
+    if s.ndim == 2:                      # one seed: (T, n) -> (T, 1, n)
+        s, s1 = s[:, None], s1[:, None]
+    n = s.shape[-1]
+    worst, flips = 0.0, []
+    for seed in range(idx.shape[0]):
+        diff = np.flatnonzero(idx[seed] != idx1[seed])
+        t_end = int(diff[0]) if diff.size else idx.shape[1]
+        if diff.size:
+            t = t_end
+            row = s1[t, seed]
+            gap = float(row[np.isfinite(row)].max() - row[idx[seed, t]])
+            if not gap <= CONTRACT:
+                raise AssertionError(
+                    f"{what}: seed {seed} picks {idx[seed, t]} at round {t}"
+                    f", the unsharded run {idx1[seed, t]}, {gap} below the "
+                    f"round's best (contract {CONTRACT})")
+            flips.append((seed, t, gap))
+        keep = slice(0, t_end)
+        for k in ("best_model", "regret"):
+            a, b = arr[f"{job}/{k}"][seed, keep], one_arr[k][seed, keep]
+            if k == "best_model" and not np.array_equal(a, b):
+                raise AssertionError(f"{what}: seed {seed} best models "
+                                     f"{a.tolist()} vs {b.tolist()}")
+            if k == "regret" and a.size and float(
+                    np.abs(a - b).max()) > MESH_REGRET_TOL:
+                raise AssertionError(f"{what}: seed {seed} regret differs "
+                                     f"by {float(np.abs(a - b).max())}")
+        got_s = s[:t_end + 1, seed]
+        ref = s1[:t_end + 1, seed, rank * n:(rank + 1) * n]
+        fin = np.isfinite(ref)
+        if not np.array_equal(fin, np.isfinite(got_s)):
+            raise AssertionError(f"{what}: the candidate sets differ")
+        if fin.any():
+            worst = max(worst, float(np.abs(got_s[fin] - ref[fin]).max()))
+    if worst > CONTRACT:
+        raise AssertionError(f"{what}: scores differ by {worst} > "
+                             f"{CONTRACT}")
+    return worst, flips
+
+
+def phase_mesh(dev, task, total: dict, smi: str) -> dict:
+    """The N-axis mesh (see the module docstring, item 14). Returns the
+    measured figures."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    drv, script = _mesh_driver()
+    jobs = ("main", "batch", "paper") + BASELINES + ("suite",)
+    tmp = tempfile.mkdtemp(prefix="mesh_")
+    out: dict = {"card": smi}
+    cuda = dev.type == "cuda"
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    try:
+        _task_files(task, tmp)
+        free()
+        t0 = time.perf_counter()
+        one = drv.run_jobs(jobs, tmp, task.name, MESH_ROUNDS, dev, None,
+                           os.path.join(HERE, "data"), MESH_SUITE_TASKS,
+                           os.path.join(tmp, "one.sqlite"), log=log)
+        out["unsharded_s"] = time.perf_counter() - t0
+        one_rows = drv.suite_rows(os.path.join(tmp, "one.sqlite"))
+        free()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(MESH_D), script, "--data-dir", tmp,
+               "--task", task.name,
+               "--out", os.path.join(tmp, "ranks"), "--device", dev.type,
+               "--rounds", ",".join(f"{k}={v}"
+                                    for k, v in MESH_ROUNDS.items()),
+               "--suite-tasks", MESH_SUITE_TASKS]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=MESH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            text, _ = proc.communicate()
+            log(text[-4000:])
+            raise AssertionError(f"mesh ranks did not finish in "
+                                 f"{MESH_TIMEOUT_S} s")
+        out["ranks_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            log(text[-6000:])
+            raise AssertionError(f"mesh ranks exited {proc.returncode}")
+        for line in text.splitlines():
+            if line.startswith(("mesh ", "  ", "[data]")):
+                log(f"  | {line}")
+        ranks, arrs = [], []
+        for r in range(MESH_D):
+            with open(os.path.join(tmp, "ranks", f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+            arrs.append(np.load(os.path.join(tmp, "ranks", f"rank{r}.npz")))
+        gaps, flips = {}, {}
+        for job in jobs[:-1]:
+            for r in range(MESH_D):
+                gaps[(job, r)], flips[(job, r)] = _mesh_hold(
+                    job, r, ranks[r]["jobs"][job], arrs[r],
+                    one[job]["arrays"])
+            if flips[(job, 0)]:
+                log(f"mesh {job}: tie-break-flips (seed, round, gap to the "
+                    f"round's best): {flips[(job, 0)]}")
+            prints = {ranks[r]["jobs"][job]["fingerprint"]
+                      for r in range(MESH_D)}
+            if len(prints) != 1:
+                raise AssertionError(f"mesh {job}: the replicated state "
+                                     f"differs across ranks: {prints}")
+        if cuda:
+            it = MESH_ROUNDS["main"], MESH_ROUNDS["batch"]
+            for r in range(MESH_D):
+                k = ranks[r]["jobs"]
+                want = ({"eig_score": 1, "eig_refresh_score": it[0],
+                         "row_gather": it[0]},
+                        {"eig_score_batched": 1,
+                         "eig_refresh_score_batched": it[1],
+                         "row_gather_batched": it[1]})
+                if (k["main"]["launches"], k["batch"]["launches"]) != want:
+                    raise AssertionError(
+                        f"mesh rank {r} launches: main "
+                        f"{k['main']['launches']}, batch "
+                        f"{k['batch']['launches']}")
+                for job in ("main", "batch"):
+                    for name, v in k[job]["launches"].items():
+                        total[name] = total.get(name, 0) + v
+            log("mesh launches by rank (main, batch): " + "; ".join(
+                f"rank {r} {ranks[r]['jobs']['main']['launches']} "
+                f"{ranks[r]['jobs']['batch']['launches']}"
+                for r in range(MESH_D)))
+        rows = ranks[0].get("suite_rows") or []
+        if [x[:3] for x in rows] != [list(x[:3]) for x in one_rows] or any(
+                abs(a[3] - b[3]) > MESH_REGRET_TOL
+                for a, b in zip(rows, one_rows)):
+            raise AssertionError("mesh suite: rank 0's rows differ from the "
+                                 "unsharded suite's")
+        if '"mesh": "data=2"' not in ranks[0]["jobs"]["suite"]["stdout"]:
+            raise AssertionError("mesh suite: no result line on rank 0")
+        for job in jobs[:-1]:
+            o = one[job]
+            log(f"mesh {job}: ms/round {o['ms_per_round']:.3f} unsharded, "
+                + ", ".join(f"{ranks[r]['jobs'][job]['ms_per_round']:.3f}"
+                            for r in range(MESH_D))
+                + f" ranks; init ms {o['init_ms']:.1f} unsharded, "
+                + ", ".join(f"{ranks[r]['jobs'][job]['init_ms']:.1f}"
+                            for r in range(MESH_D))
+                + f"; peak GB {o['peak_gb']:.3f} unsharded, "
+                + ", ".join(f"{ranks[r]['jobs'][job]['peak_gb']:.3f}"
+                            for r in range(MESH_D))
+                + "; max score gap "
+                + f"{max(gaps[(job, r)] for r in range(MESH_D)):.3e}")
+        out.update(
+            suite_rows=len(rows),
+            jobs={job: {"one": {k: one[job][k] for k in
+                                ("ms_per_round", "init_ms", "peak_gb")},
+                        "ranks": [{k: ranks[r]["jobs"][job][k] for k in
+                                   ("ms_per_round", "init_ms", "peak_gb")}
+                                  for r in range(MESH_D)]}
+                  for job in jobs[:-1]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {out['phase_s']:.1f} s (unsharded yardstick "
+        f"{out['unsharded_s']:.1f} s, {MESH_D} ranks {out['ranks_s']:.1f} "
+        f"s; gloo on one shared card ({smi}): a correctness check, not a "
+        "measure of NCCL scaling)")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5594,6 +5850,8 @@ def main() -> int:
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
         phase = "serve fleet"
         phase_fleet(dev, task, launches, smi)
+        phase = "mesh"
+        phase_mesh(dev, task, launches, smi)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)

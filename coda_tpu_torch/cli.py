@@ -28,9 +28,22 @@ The CODA flags are the reference's, with its choices: ``--eig-mode``,
 ``--eig-precision``, ``--eig-cache-dtype``, ``--eig-refresh``,
 ``--eig-entropy``, ``--posterior``, ``--eig-pbest``, ``--pi-update``,
 ``--prefilter-n``, ``--q``, ``--no-diag-prior``, ``--eig-scorer
-exact|surrogate:k`` and ``--surrogate-prior off|pool``. ``--mesh`` is
-parsed and raises ``NotImplementedError`` (the N-axis parallel part of
-slice 5 of the port).
+exact|surrogate:k`` and ``--surrogate-prior off|pool``.
+
+``--mesh data=K`` shards the ``(H, N, C)`` tensor over N, one process a
+shard (``coda_tpu_torch/parallel``): start it under ``torchrun``, which
+sets each rank's environment, e.g. ``python -m torch.distributed.run
+--nproc-per-node 2 -m coda_tpu_torch.cli --synthetic 1000,50000,10
+--method coda --mesh data=2`` (add ``--device cpu`` on the CPU). Every
+rank runs the same rounds on its block and reaches the same decisions;
+rank 0 alone prints and writes the tracking store. Ranks sharing one card
+talk over gloo, ranks with a card each over NCCL. A mesh without enough
+ranks raises the reference's "needs" error; ``model=K``, ``--acq-batch``
+above 1, ``--record-dir``, ``--checkpoint-dir``, a noisy
+``--oracle-noise``, ``--debug-viz``, ``--eig-scorer surrogate:k``,
+``--posterior sparse:K``, ``--eig-pbest amortized`` and ``--prefilter-n``
+raise ``NotImplementedError`` under a mesh (the next mesh slice), as the
+serve verbs do under ``torchrun``; ``--profile-dir`` traces rank 0.
 ``--acq-batch Q`` labels Q points a round (``--iters`` counts rounds, so a
 run takes Q x iters labels; the cumulative regret is label-weighted).
 ``--record-dir`` writes a flight-recorder record (schema v4, the
@@ -240,8 +253,11 @@ def parse_args(argv=None):
                         "passes none, so its run is the cold program under "
                         "the pool knob)")
     p.add_argument("--mesh", default=None, metavar="AXIS=K,...",
-                   help="shard the (H, N, C) tensor (the N-axis parallel "
-                        "part of slice 5 of the port)")
+                   help="shard the (H, N, C) tensor over N, e.g. "
+                        "'data=2': one process a shard, started by "
+                        "python -m torch.distributed.run --nproc-per-node "
+                        "K (the model axis comes with the next mesh "
+                        "slice)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="resumable run: save the selector state every "
                         "--checkpoint-every rounds under "
@@ -280,21 +296,24 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def load_dataset(args):
+def load_dataset(args, mesh=None):
+    """The task ``args`` name (``--synthetic`` or ``--task``), placed on
+    ``args.device``; under a ``mesh`` this rank's block of N."""
     from coda_tpu_torch.data import Dataset, find_task_file, make_synthetic_task
 
     if args.synthetic:
         H, N, C = (int(x) for x in args.synthetic.split(","))
         return make_synthetic_task(seed=0, H=H, N=N, C=C,
                                    name=args.task or f"synthetic_{H}x{N}x{C}",
-                                   device=args.device)
+                                   device=args.device, mesh=mesh)
     if args.task is None:
         raise SystemExit("--task or --synthetic is required")
     fp = find_task_file(args.data_dir, args.task)
     if fp is None:
         raise SystemExit(
             f"No data file for task '{args.task}' under {args.data_dir}/")
-    return Dataset.from_file(fp, name=args.task, device=args.device)
+    return Dataset.from_file(fp, name=args.task, device=args.device,
+                             mesh=mesh)
 
 
 def hyperparams(args):
@@ -334,11 +353,13 @@ def hyperparams(args):
 
 
 def build_selector_factory(args, task_name: str):
-    """``preds -> Selector`` for the configured method on ``args.device``
-    (the reference's ``build_selector_factory``: ActiveTesting and VMA get
-    a label buffer of ``--iters``; ModelPicker takes ``--epsilon``, else
-    the task's tuned value, else the default)."""
+    """``(preds, mesh=None) -> Selector`` for the configured method on
+    ``args.device`` (the reference's ``build_selector_factory``:
+    ActiveTesting and VMA get a label buffer of ``--iters``; ModelPicker
+    takes ``--epsilon``, else the task's tuned value, else the default).
+    ``mesh``: ``preds`` is this rank's block of a sharded task."""
     from coda_tpu_torch.losses import LOSS_FNS
+    from coda_tpu_torch.parallel.distributed import is_primary
     from coda_tpu_torch.selectors import (
         SELECTOR_FACTORIES,
         TASK_EPS,
@@ -350,21 +371,25 @@ def build_selector_factory(args, task_name: str):
     method, dev = args.method, args.device
     if method.startswith("coda"):
         hp = hyperparams(args)
-        return lambda preds: make_coda(preds, hp, name=method, device=dev)
+        return lambda preds, mesh=None: make_coda(preds, hp, name=method,
+                                                  device=dev, mesh=mesh)
     if method == "model_picker":
         eps = args.epsilon
         if eps is None:
             eps = TASK_EPS.get(task_name)
         if eps is None:
-            print(f"{task_name} not in TASK_EPS; using default")
-            return lambda preds: make_modelpicker(preds, device=dev)
-        return lambda preds: make_modelpicker(preds, epsilon=eps, device=dev)
+            if is_primary():
+                print(f"{task_name} not in TASK_EPS; using default")
+            return lambda preds, mesh=None: make_modelpicker(
+                preds, device=dev, mesh=mesh)
+        return lambda preds, mesh=None: make_modelpicker(
+            preds, epsilon=eps, device=dev, mesh=mesh)
     if method in ("activetesting", "vma"):
-        return lambda preds: SELECTOR_FACTORIES[method](
-            preds, loss_fn=loss_fn, budget=args.iters, device=dev)
+        return lambda preds, mesh=None: SELECTOR_FACTORIES[method](
+            preds, loss_fn=loss_fn, budget=args.iters, device=dev, mesh=mesh)
     if method in SELECTOR_FACTORIES:
-        return lambda preds: SELECTOR_FACTORIES[method](
-            preds, loss_fn=loss_fn, device=dev)
+        return lambda preds, mesh=None: SELECTOR_FACTORIES[method](
+            preds, loss_fn=loss_fn, device=dev, mesh=mesh)
     raise SystemExit(f"{method} is not a supported method.")
 
 
@@ -522,6 +547,7 @@ def run_all_seeds(args, factory, dataset, loss_fn, dev):
 
     q = args.acq_batch
     trace_k = args.record_topk if args.record_dir else 0
+    mesh = dataset.mesh
     cfg = crowd_config(args)
     if cfg is not None and not cfg.clean:
         if args.checkpoint_dir:
@@ -549,7 +575,7 @@ def run_all_seeds(args, factory, dataset, loss_fn, dev):
     out = run_seeds_compiled(factory, dataset.preds, dataset.labels,
                              iters=args.iters, seeds=args.seeds,
                              loss_fn=loss_fn, device=dev, trace_k=trace_k,
-                             acq_batch=q, cost_label=args.method)
+                             acq_batch=q, cost_label=args.method, mesh=mesh)
     result, aux = out if trace_k else (out, None)
     return result, aux, None
 
@@ -713,8 +739,43 @@ def quality_main(argv=None):
     return 0 if ok else 1
 
 
+def check_mesh_flags(args) -> None:
+    """The refusals of ``--mesh`` (the next mesh slice) for the paths that
+    bypass the mesh-aware engine: the checkpointed runner, the crowd's and
+    ``--debug-viz``'s replay of a seed on rank 0; the engine refuses
+    ``--acq-batch`` and the recorder itself
+    (``engine.loop.check_mesh_run``), ``make_coda`` CODA's knobs."""
+    if not args.mesh:
+        return
+    from coda_tpu_torch.parallel.mesh import MESH_NEXT
+
+    cfg = crowd_config(args)
+    for flag, value, on in (
+            ("--checkpoint-dir", args.checkpoint_dir,
+             bool(args.checkpoint_dir)),
+            ("--oracle-noise", args.oracle_noise,
+             cfg is not None and not cfg.clean),
+            ("--debug-viz", "", args.debug_viz)):
+        if on:
+            raise NotImplementedError(
+                f"{flag} {value}".strip()
+                + f" under --mesh comes with {MESH_NEXT}")
+
+
+def refuse_serve_on_mesh(verb: str) -> None:
+    """The serve verbs run one process; under ``torchrun`` (more than one
+    rank) they raise, naming the next mesh slice."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from coda_tpu_torch.parallel.mesh import MESH_NEXT
+
+        raise NotImplementedError(
+            f"cli {verb} on a mesh of ranks comes with {MESH_NEXT}")
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] in ("serve", "replay-serve"):
+        refuse_serve_on_mesh(argv[0])
     if argv and argv[0] == "serve":
         from coda_tpu_torch.serve.server import main as serve_main
 
@@ -738,6 +799,25 @@ def main(argv=None):
 
         return suite_main(argv[1:])
     args = parse_args(argv)
+    check_mesh_flags(args)
+    if not args.mesh:
+        return _main(args, None)
+    import torch.distributed as dist
+
+    from coda_tpu_torch.parallel.distributed import initialize, shutdown
+    from coda_tpu_torch.parallel.mesh import mesh_from_spec
+
+    joined = not dist.is_initialized()
+    initialize(device=args.device)
+    try:
+        return _main(args, mesh_from_spec(args.mesh, device=args.device))
+    finally:
+        if joined:
+            shutdown()
+
+
+def _main(args, mesh):
+    """The single-task run, on ``mesh`` (this rank's block) or alone."""
     import torch
 
     from coda_tpu_torch.losses import LOSS_FNS
@@ -746,7 +826,9 @@ def main(argv=None):
     from coda_tpu_torch.utils.platform import device_name, resolve_device
     from coda_tpu_torch.utils.profiling import trace as profiler_trace
 
-    dev = resolve_device(args.device)
+    primary = mesh is None or mesh.rank == 0
+    say = print if primary else (lambda *a, **k: None)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     if args.no_cost_capture:
         costs.set_enabled(False)
     if args.debug_viz:
@@ -767,17 +849,22 @@ def main(argv=None):
                                **attrs)
                 if telemetry is not None else contextlib.nullcontext())
 
-    print("device:", device_name(dev))
+    say("device:", device_name(dev))
     with tele_span("load_dataset"):
-        dataset = load_dataset(args)
+        # one argument unsharded: callers replace load_dataset with a
+        # function of the args alone (a task already built)
+        dataset = (load_dataset(args) if mesh is None
+                   else load_dataset(args, mesh))
     H, N, C = dataset.shape
-    print(f"Loaded preds of shape ({H}, {N}, {C})")
+    say(f"Loaded preds of shape ({H}, {N}, {C})"
+        + (f", {N // mesh.data} items a rank on {mesh.spec}" if mesh
+           else ""))
     if dataset.labels is None:
         raise SystemExit("Oracle needs labels!")
     loss_fn = LOSS_FNS[args.loss]
     best_loss = float(true_losses(dataset.preds, dataset.labels,
-                                  loss_fn).min())
-    print("Best possible loss is", best_loss)
+                                  loss_fn, mesh=mesh).min())
+    say("Best possible loss is", best_loss)
 
     factory = build_selector_factory(args, dataset.name)
     coda = args.method.startswith("coda")
@@ -786,10 +873,11 @@ def main(argv=None):
     if coda:
         from coda_tpu_torch.selectors.coda import resolve_eig_mode
 
-        print(f"EIG tier: {resolve_eig_mode(hyperparams(args), H, N, C)} "
-              f"(n_parallel={n_parallel})")
+        say(f"EIG tier: {resolve_eig_mode(hyperparams(args), H, N, C)} "
+            f"(n_parallel={n_parallel})")
     t0 = time.perf_counter()
-    with profiler_trace(args.profile_dir, dev):
+    # under a mesh rank 0 alone writes the profile (one trace file)
+    with profiler_trace(args.profile_dir if primary else None, dev):
         with tele_span("experiment", method=args.method, iters=args.iters,
                        seeds=args.seeds):
             result, aux, crowd = run_all_seeds(args, factory, dataset,
@@ -797,7 +885,7 @@ def main(argv=None):
             regrets = result.regret.cpu().numpy()    # (seeds, iters)
     wall = time.perf_counter() - t0
     if args.profile_dir:
-        print(f"Profiler trace written to {args.profile_dir}")
+        say(f"Profiler trace written to {args.profile_dir}")
     if telemetry is not None:
         telemetry.sample_devices([dev])
     if aux is not None:
@@ -809,14 +897,17 @@ def main(argv=None):
     how = ("seeds run as one batch" if coda and n_parallel > 1
            else "seeds run one after another")
     batch_note = f", {q} labels/round" if q > 1 else ""
-    print(f"{steps} selection steps in {wall:.2f}s "
-          f"({steps / wall:.2f} steps/s, {how}{batch_note})")
+    say(f"{steps} selection steps in {wall:.2f}s "
+        f"({steps / wall:.2f} steps/s, {how}{batch_note})")
     if dev.type == "cuda":
-        print(f"peak device memory "
-              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        say(f"peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB"
+            + (" (rank 0)" if mesh else ""))
     for s in range(args.seeds):
-        print(f"seed {s}: regret@{args.iters}={regrets[s, -1]:.4f} "
-              f"cumulative={cums[s, -1]:.4f} stochastic={bool(stoch[s])}")
+        say(f"seed {s}: regret@{args.iters}={regrets[s, -1]:.4f} "
+            f"cumulative={cums[s, -1]:.4f} stochastic={bool(stoch[s])}")
+    if not primary:
+        return 0
     if not args.no_mlflow:
         _log_to_store(args, dataset, result, regrets, cums, stoch, factory,
                       dev, telemetry)

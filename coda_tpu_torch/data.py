@@ -7,17 +7,28 @@ points x C classes — plus an optional ``(N,)`` int32 label vector.
 :func:`make_synthetic_task` builds its arrays with the same numpy calls,
 so both packages see bitwise-identical tasks. Tensors land on the card
 unless the caller passes ``device="cpu"``.
+
+With a ``mesh`` (``parallel/mesh.py``) a rank keeps only its block of N of
+``preds`` and ``labels`` (the counterpart of the reference's sharded
+placement): a ``.npy`` file is memory-mapped, so a rank reads only its
+block; the synthetic task is built whole by the same numpy calls and then
+sliced, so every block is bitwise the unsharded task's. With
+``unsharded_fallback`` a task whose N does not divide the data axis loads
+unsharded instead, with the reference's warning on stderr.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+import sys
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from coda_tpu_torch.parallel.mesh import Mesh, check_divisible, shard_preds
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 DATA_EXTS = (".npy", ".npz", ".pt")
@@ -43,10 +54,11 @@ def list_tasks(data_dir: str) -> list[str]:
     return sorted(tasks)
 
 
-def _load_array(filepath: str) -> np.ndarray:
-    """Load a dense array from .npy/.npz/.pt into host memory (numpy)."""
+def _load_array(filepath: str, mmap: bool = False) -> np.ndarray:
+    """Load a dense array from .npy/.npz/.pt into host memory (numpy);
+    ``mmap``: a ``.npy`` file memory-mapped read-only instead."""
     if filepath.endswith(".npy"):
-        return np.load(filepath)
+        return np.load(filepath, mmap_mode="r" if mmap else None)
     if filepath.endswith(".npz"):
         with np.load(filepath) as z:
             return z["preds"] if "preds" in z.files else z[z.files[0]]
@@ -66,11 +78,14 @@ class Dataset:
     """A model-selection dataset.
 
     Attributes:
-      preds: ``(H, N, C)`` float32 post-softmax scores.
-      labels: optional ``(N,)`` int32 ground-truth classes.
+      preds: ``(H, N, C)`` float32 post-softmax scores (under a ``mesh``
+        this rank's ``(H, N/d, C)`` block).
+      labels: optional ``(N,)`` int32 ground-truth classes (under a
+        ``mesh`` this rank's block).
       name: task name.
       filenames: optional ``(N,)`` source-item filenames.
       class_names: optional ``(C,)`` human-readable class names.
+      mesh: the mesh the task is sharded over, or None.
     """
 
     preds: torch.Tensor
@@ -78,20 +93,26 @@ class Dataset:
     name: str = "task"
     filenames: Optional[list] = None
     class_names: Optional[list] = None
+    mesh: Optional[Mesh] = None
 
     @property
     def shape(self) -> tuple[int, int, int]:
-        return tuple(self.preds.shape)  # (H, N, C)
+        """The task's ``(H, N, C)`` (N the global count under a mesh)."""
+        H, n, C = self.preds.shape
+        return (H, n * (self.mesh.data if self.mesh is not None else 1), C)
 
     @classmethod
     def from_file(cls, filepath: str, name: Optional[str] = None,
-                  device: DeviceLike = None) -> "Dataset":
-        """Load ``<task>.{npy,npz,pt}`` (+ optional ``<task>_labels.*``)."""
-        dev = resolve_device(device)
-        preds_np = _load_array(filepath).astype(np.float32)  # fp32 mandatory
+                  device: DeviceLike = None, mesh: Optional[Mesh] = None,
+                  unsharded_fallback: bool = False) -> "Dataset":
+        """Load ``<task>.{npy,npz,pt}`` (+ optional ``<task>_labels.*``);
+        under a ``mesh`` this rank's block of N, on the mesh's device."""
+        preds_np = _load_array(filepath, mmap=mesh is not None)
         if preds_np.ndim != 3:
             raise ValueError(f"preds must be (H, N, C); got {preds_np.shape}")
         task = name or os.path.splitext(os.path.basename(filepath))[0]
+        mesh = _placement(preds_np.shape[1], mesh, unsharded_fallback, task)
+        dev = mesh.device if mesh is not None else resolve_device(device)
 
         labels_np = None
         filenames = class_names = None
@@ -107,10 +128,40 @@ class Dataset:
             lp = _labels_path(filepath)
             if os.path.exists(lp):
                 labels_np = _load_array(lp).astype(np.int32)
+        if mesh is not None:
+            return cls(
+                preds=shard_preds(preds_np, mesh).local.float(),
+                labels=(None if labels_np is None
+                        else shard_preds(labels_np, mesh, dim=0).local),
+                name=task, filenames=filenames, class_names=class_names,
+                mesh=mesh)
+        preds_np = preds_np.astype(np.float32)    # fp32 mandatory
         labels = (None if labels_np is None
                   else torch.from_numpy(labels_np).to(dev))
         return cls(preds=torch.from_numpy(preds_np).to(dev), labels=labels,
                    name=task, filenames=filenames, class_names=class_names)
+
+
+def _placement(N: int, mesh: Optional[Mesh], unsharded_fallback: bool,
+               name: str, warn=None) -> Optional[Mesh]:
+    """The mesh a task of N items is sharded over: ``mesh``, or None when
+    N does not divide its data axis and ``unsharded_fallback`` lets the
+    task load unsharded (with the reference's warning on stderr, so a
+    heterogeneous sweep does not abort on one awkward N; printed by rank
+    0 alone)."""
+    if mesh is None:
+        return None
+    try:
+        check_divisible(N, mesh)
+    except ValueError as e:
+        if not unsharded_fallback:
+            raise
+        if mesh.rank == 0:
+            warn = warn or functools.partial(print, file=sys.stderr)
+            warn(f"[data] {name}: sharded placement failed ({e}); "
+                 "loading unsharded")
+        return None
+    return mesh
 
 
 def make_synthetic_arrays(seed: int, H: int = 8, N: int = 200, C: int = 4,
@@ -149,14 +200,23 @@ def make_synthetic_arrays(seed: int, H: int = 8, N: int = 200, C: int = 4,
 def make_synthetic_task(seed: int, H: int = 8, N: int = 200, C: int = 4,
                         acc_lo: float = 0.35, acc_hi: float = 0.9,
                         sharpness: float = 4.0, name: Optional[str] = None,
-                        device: DeviceLike = None) -> Dataset:
+                        device: DeviceLike = None,
+                        mesh: Optional[Mesh] = None,
+                        unsharded_fallback: bool = False) -> Dataset:
     """Seeded synthetic model-selection task (see
-    :func:`make_synthetic_arrays`), placed on ``device``."""
-    dev = resolve_device(device)
+    :func:`make_synthetic_arrays`), placed on ``device``; under a
+    ``mesh`` built whole and sliced to this rank's block of N."""
+    name = name or f"synthetic_h{H}_n{N}_c{C}_s{seed}"
+    mesh = _placement(N, mesh, unsharded_fallback, name)
     p, labels = make_synthetic_arrays(seed, H, N, C, acc_lo, acc_hi,
                                       sharpness)
+    if mesh is not None:
+        return Dataset(preds=shard_preds(p, mesh).local,
+                       labels=shard_preds(labels, mesh, dim=0).local,
+                       name=name, mesh=mesh)
+    dev = resolve_device(device)
     return Dataset(
         preds=torch.from_numpy(p).to(dev),
         labels=torch.from_numpy(labels).to(dev),
-        name=name or f"synthetic_h{H}_n{N}_c{C}_s{seed}",
+        name=name,
     )

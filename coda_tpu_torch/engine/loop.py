@@ -26,6 +26,14 @@ pass and applies the q answers as one update (``selectors/batch.py``):
 the decision fields carry a trailing ``(q,)`` axis and the cumulative
 regret counts each round's regret q times (label-weighted, so budgets
 line up with q = 1 runs). ``q = 1`` runs the one-label round unchanged.
+
+Under a mesh (``mesh=``, ``parallel/mesh.py``) every rank runs the same
+loop on its block of N: ``preds`` and ``labels`` are the rank's blocks,
+the selector picks global indices, the oracle's answer is read on the
+rank that holds the item and sent to all (``broadcast_from_owner``), and
+the true losses are rank-order sums over the blocks. Every result is the
+same on every rank. The recorder (``trace_k``) and ``acq_batch`` above 1
+raise ``NotImplementedError`` there (the next mesh slice).
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ from coda_tpu_torch import random as trandom
 from coda_tpu_torch.losses import accuracy_loss
 from coda_tpu_torch.ops.masked import entropy2
 from coda_tpu_torch.oracle import true_losses as compute_true_losses
+from coda_tpu_torch.parallel.collectives import broadcast_from_owner
+from coda_tpu_torch.parallel.mesh import MESH_NEXT, Mesh
 from coda_tpu_torch.selectors.batch import resolve_batch_fns
 from coda_tpu_torch.selectors.protocol import Selector
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -153,15 +163,39 @@ def make_round_trace(selector: Selector, res, state_after, k: torch.Tensor,
     return RoundTrace(k, *scored, pbest_max, pbest_entropy, fallback)
 
 
+def answer(labels: torch.Tensor, idx: torch.Tensor,
+           mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The oracle's labels of the items ``idx``; under a ``mesh`` read on
+    the rank that holds each item (``labels`` is this rank's block)."""
+    if mesh is None:
+        return labels.take(idx)
+    return broadcast_from_owner(labels, idx, mesh)
+
+
+def check_mesh_run(mesh: Optional[Mesh], trace_k: int = 0,
+                   acq_batch: int = 1) -> None:
+    """The engine's refusals under a mesh (the next mesh slice)."""
+    if mesh is None:
+        return
+    if acq_batch > 1:
+        raise NotImplementedError(
+            f"acq_batch={acq_batch} under a mesh comes with {MESH_NEXT}")
+    if trace_k:
+        raise NotImplementedError(
+            f"the flight recorder under a mesh comes with {MESH_NEXT}")
+
+
 def make_step_fn(selector: Selector, labels: torch.Tensor,
                  model_losses: torch.Tensor, trace_k: int = 0,
-                 acq_batch: int = 1):
+                 acq_batch: int = 1, mesh: Optional[Mesh] = None):
     """One labeling round: ``(state, cum, key) -> (state, cum, outs)`` with
     ``outs = (idx, true_class, best, regret, cum, prob, stochastic)``, all
     0-d device tensors (``idx``, ``true_class``, ``prob`` ``(q,)`` under
     ``acq_batch = q > 1``, whose ``cum`` adds ``q * regret``);
     ``trace_k > 0`` appends the round's :class:`RoundTrace` (its scores
-    read before ``update``, which may rewrite the state in place)."""
+    read before ``update``, which may rewrite the state in place).
+    ``mesh``: ``labels`` is this rank's block (:func:`answer`)."""
+    check_mesh_run(mesh, trace_k, acq_batch)
     best_loss = model_losses.min()
     select, update = selector.select, selector.update
     first = (lambda r: r)
@@ -173,7 +207,7 @@ def make_step_fn(selector: Selector, labels: torch.Tensor,
         k_sel, k_best = trandom.split(k)
         res = select(state, k_sel)
         scored = _score_digest(first(res), trace_k) if trace_k else None
-        tc = labels.take(res.idx)
+        tc = answer(labels, res.idx, mesh)
         state = update(state, res.idx, tc, res.prob)
         best, b_stoch = selector.best(state, k_best)
         regret = model_losses.take(best) - best_loss
@@ -190,13 +224,15 @@ def make_step_fn(selector: Selector, labels: torch.Tensor,
 
 
 def make_batched_step_fn(selector: Selector, labels: torch.Tensor,
-                         model_losses: torch.Tensor, trace_k: int = 0):
+                         model_losses: torch.Tensor, trace_k: int = 0,
+                         mesh: Optional[Mesh] = None):
     """One labeling round of all S replicas through ``selector.batched``:
     ``(state, cum (S,), keys (S, 2), round_keys=None) -> (state, cum,
     outs)``, ``keys`` the round's rows of ``select_keys`` on the device,
     ``outs`` as in :func:`make_step_fn` with each entry ``(S,)``;
     ``trace_k > 0`` appends the round's :class:`RoundTrace` with the
-    replicas' ``round_keys`` (S, 2)."""
+    replicas' ``round_keys`` (S, 2). ``mesh``: see :func:`make_step_fn`."""
+    check_mesh_run(mesh, trace_k)
     bsel = selector.batched
     if bsel is None:
         raise ValueError(f"selector {selector.name!r} has no seed-batched "
@@ -206,7 +242,7 @@ def make_batched_step_fn(selector: Selector, labels: torch.Tensor,
     def step(state, cum, keys, round_keys=None):
         res = bsel.select(state, keys)
         scored = _score_digest(res, trace_k) if trace_k else None
-        tc = labels.take(res.idx)
+        tc = answer(labels, res.idx, mesh)
         state = bsel.update(state, res.idx, tc, res.prob)
         best, b_stoch = bsel.best(state)
         regret = model_losses.take(best) - best_loss
@@ -271,7 +307,7 @@ def _stack_trace(traces: list, dim: int = 0) -> RoundTrace:
 def build_experiment_fn(selector: Selector, labels: torch.Tensor,
                         model_losses: torch.Tensor, iters: int = 100,
                         timings: Optional[list] = None, trace_k: int = 0,
-                        acq_batch: int = 1
+                        acq_batch: int = 1, mesh: Optional[Mesh] = None
                         ) -> Callable[[torch.Tensor], ExperimentResult]:
     """``key -> ExperimentResult`` for one seed; with ``trace_k > 0``,
     ``key -> (ExperimentResult, RunTraceAux)`` (the same decisions, the
@@ -280,12 +316,14 @@ def build_experiment_fn(selector: Selector, labels: torch.Tensor,
     ``timings``: when a list is given, each call appends ``{"init_ms",
     "rounds_ms"}`` measured on the host clock with the device synchronised
     at the phase boundaries (two synchronisations per seed). ``acq_batch``:
-    labels a round (:func:`make_step_fn`)."""
+    labels a round (:func:`make_step_fn`). ``mesh``: ``labels`` is this
+    rank's block."""
     best_loss = model_losses.min()
-    _validate_rounds(selector, labels.shape[0], iters, acq_batch)
-    trace_k = _trace_k(trace_k, labels.shape[0])
+    n_items = labels.shape[0] * (mesh.data if mesh is not None else 1)
+    _validate_rounds(selector, n_items, iters, acq_batch)
+    trace_k = _trace_k(trace_k, n_items)
     step = make_step_fn(selector, labels, model_losses, trace_k=trace_k,
-                        acq_batch=acq_batch)
+                        acq_batch=acq_batch, mesh=mesh)
     dev = labels.device
     _sync = _synchronizer(dev)
 
@@ -334,7 +372,7 @@ def build_experiment_fn(selector: Selector, labels: torch.Tensor,
 def build_batched_experiment_fn(selector: Selector, labels: torch.Tensor,
                                 model_losses: torch.Tensor, iters: int = 100,
                                 timings: Optional[list] = None,
-                                trace_k: int = 0
+                                trace_k: int = 0, mesh: Optional[Mesh] = None
                                 ) -> Callable[[torch.Tensor], ExperimentResult]:
     """``keys (S, 2) -> ExperimentResult`` with a leading ``(S,)`` axis:
     all S seeds in one round loop through ``selector.batched``; with
@@ -347,12 +385,13 @@ def build_batched_experiment_fn(selector: Selector, labels: torch.Tensor,
     device once. ``timings``: one ``{"init_ms", "rounds_ms"}`` entry for
     the whole batch (host clock, device synchronised at the phase
     boundaries)."""
-    trace_k = _trace_k(trace_k, labels.shape[0])
+    n_items = labels.shape[0] * (mesh.data if mesh is not None else 1)
+    trace_k = _trace_k(trace_k, n_items)
     step = make_batched_step_fn(selector, labels, model_losses,
-                                trace_k=trace_k)
+                                trace_k=trace_k, mesh=mesh)
     bsel = selector.batched
     best_loss = model_losses.min()
-    _validate_rounds(selector, labels.shape[0], iters)
+    _validate_rounds(selector, n_items, iters)
     dev = labels.device
     _sync = _synchronizer(dev)
 
@@ -404,7 +443,8 @@ def make_batched_experiment_fn(selector_factory: Callable[[torch.Tensor],
                                                           Selector],
                                iters: int, loss_fn: Callable = accuracy_loss,
                                timings: Optional[list] = None,
-                               trace_k: int = 0, acq_batch: int = 1):
+                               trace_k: int = 0, acq_batch: int = 1,
+                               mesh: Optional[Mesh] = None):
     """``(preds, labels, keys (S, 2)) -> ExperimentResult`` with a leading
     seed axis, under the reference's name; with ``trace_k > 0``,
     ``(ExperimentResult, RunTraceAux)``, both with the seed axis.
@@ -415,17 +455,24 @@ def make_batched_experiment_fn(selector_factory: Callable[[torch.Tensor],
     has a seed-batched form and ``acq_batch`` is 1, else one after
     another. ``timings``: see
     :func:`build_experiment_fn` (one entry per seed) and
-    :func:`build_batched_experiment_fn` (one for the batch)."""
+    :func:`build_batched_experiment_fn` (one for the batch).
+
+    ``mesh``: ``preds`` and ``labels`` are this rank's blocks of N, and
+    the factory is called as ``selector_factory(preds, mesh=mesh)``."""
+    check_mesh_run(mesh, trace_k, acq_batch)
+
     def fn(preds, labels, keys):
-        sel = selector_factory(preds)
-        losses = compute_true_losses(preds, labels, loss_fn)
+        sel = (selector_factory(preds) if mesh is None
+               else selector_factory(preds, mesh=mesh))
+        losses = compute_true_losses(preds, labels, loss_fn, mesh=mesh)
         if keys.shape[0] > 1 and seeds_batch(sel, acq_batch):
             return build_batched_experiment_fn(sel, labels, losses, iters,
                                                timings=timings,
-                                               trace_k=trace_k)(keys)
+                                               trace_k=trace_k,
+                                               mesh=mesh)(keys)
         exp = build_experiment_fn(sel, labels, losses, iters,
                                   timings=timings, trace_k=trace_k,
-                                  acq_batch=acq_batch)
+                                  acq_batch=acq_batch, mesh=mesh)
         runs = [exp(k) for k in keys]
         if not trace_k:
             return ExperimentResult(*(torch.stack(f) for f in zip(*runs)))
@@ -473,7 +520,8 @@ def run_seeds_compiled(selector_factory: Callable[[torch.Tensor], Selector],
                        device: DeviceLike = None,
                        timings: Optional[list] = None,
                        trace_k: int = 0, acq_batch: int = 1,
-                       cost_label: Optional[str] = None
+                       cost_label: Optional[str] = None,
+                       mesh: Optional[Mesh] = None
                        ) -> ExperimentResult:
     """All seeds of one method: the CLI's entry point.
 
@@ -488,14 +536,18 @@ def run_seeds_compiled(selector_factory: Callable[[torch.Tensor], Selector],
     counts rounds). ``cost_label`` (the CLI's method name): harvest the
     run's analytic kernel cost into the cost book
     (``telemetry/costs.aot_call``; host counters only).
+
+    ``mesh``: ``preds`` and ``labels`` are this rank's blocks of N
+    (``parallel.shard_preds``), placed on the mesh's device; every rank
+    calls this with the same arguments and gets the same result.
     """
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     preds = _as_tensor(preds).to(dev, torch.float32)
     labels = _as_tensor(labels).to(dev)
     keys = torch.stack([trandom.PRNGKey(s) for s in range(seeds)])
     fn = make_batched_experiment_fn(selector_factory, iters, loss_fn,
                                     timings=timings, trace_k=trace_k,
-                                    acq_batch=acq_batch)
+                                    acq_batch=acq_batch, mesh=mesh)
     if cost_label is None:
         return fn(preds, labels, keys)
     from coda_tpu_torch.telemetry.costs import aot_call

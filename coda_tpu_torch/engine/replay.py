@@ -44,8 +44,9 @@ contract, 2.34e-4::
 It exits 0 on PARITY and 2 on DIVERGED. A record of a noisy crowd oracle
 re-executes the crowd program (``crowd/loop.py``) from its knobs
 (``oracle_noise``, ``oracle_annotators``, ``oracle_reliability``); the
-reference's replay runs the clean engine there. A ``mesh`` knob raises
-naming the N-axis parallel part of slice 5.
+reference's replay runs the clean engine there. A record made under a
+``mesh`` raises ``NotImplementedError``: the recorder under a mesh comes
+with the next mesh slice.
 """
 
 from __future__ import annotations
@@ -739,6 +740,12 @@ def load_record_environment(record: RunRecord,
     from coda_tpu_torch.cli import build_selector_factory, load_dataset
 
     args = _args_from_record(record, data_dir, overrides)
+    if getattr(args, "mesh", None):
+        from coda_tpu_torch.parallel.mesh import MESH_NEXT
+
+        raise NotImplementedError(
+            f"replaying a record made under --mesh {args.mesh} comes with "
+            f"{MESH_NEXT} (the recorder under a mesh)")
     args.device = "cuda" if device is None else str(device)
     dataset = load_dataset(args)
     want = record.meta.get("fingerprint", {}).get("dataset", {}).get(

@@ -39,6 +39,12 @@ coda_tpu_torch.cli replay``. With a ``telemetry`` every dispatch is a
 span on its device's lane (``device:<index>``) and each experiment
 callable's first call per signature lands in the cost book
 (``cost_capture``).
+
+Under a mesh (``mesh=``, one process a rank) every rank runs ``run`` on
+the same tasks: a task sharded over the mesh (``Dataset.mesh``) runs
+through the mesh forms of the selectors, a task the mesh does not divide
+(loaded unsharded) runs whole on every rank; rank 0 decides which pairs
+a rerun skips (its store) and tells the others.
 """
 
 from __future__ import annotations
@@ -145,7 +151,7 @@ class SuiteRunner:
     def __init__(self, iters: int = 100, seeds: int = 5, loss: str = "acc",
                  dedup_seeds: bool = True, telemetry=None,
                  record_dir: Optional[str] = None, record_topk: int = 8,
-                 cost_capture: bool = True, device=None):
+                 cost_capture: bool = True, device=None, mesh=None):
         self.iters = iters
         self.seeds = seeds
         self.loss_fn = LOSS_FNS[loss]
@@ -154,6 +160,8 @@ class SuiteRunner:
         self.record_dir = record_dir
         self.record_topk = int(record_topk)
         self.dedup_seeds = dedup_seeds
+        # the world's mesh: its ranks agree on every skip (rank 0's store)
+        self.mesh = mesh
         # an optional telemetry.Telemetry: every dispatch becomes a span on
         # its device lane, first dispatches feed the cold counter, and the
         # device memory is sampled after each harvest
@@ -254,11 +262,12 @@ class SuiteRunner:
 
     def _fn_for(self, method: str, method_args: Optional[dict],
                 task_name: str, width: int = 1, record: bool = False,
-                device=None):
+                device=None, mesh=None):
         """The experiment callable ``(preds, labels, keys, *runtime) ->
         ExperimentResult`` (``(result, aux)`` with ``record``) of
         ``width`` seed replicas on ``device`` (default: the runner's).
-        ``width`` keys the cache and is the auto tier's replica count."""
+        ``width`` keys the cache and is the auto tier's replica count;
+        ``mesh``: the task's (its blocks of N), which keys it too."""
         from coda_tpu_torch.cli import build_selector_factory, parse_args
 
         dev = self.device if device is None else torch.device(device)
@@ -266,7 +275,8 @@ class SuiteRunner:
         static = self._static_resolved(
             self._resolved_args(method, method_args, task_name), method)
         trace_k = self.record_topk if record else 0
-        key = self._key(method, method_args, task_name, width, record, dev)
+        key = self._key(method, method_args, task_name, width, record, dev,
+                        mesh)
         if key not in self._jitted:
             args = parse_args([])
             args.method = method
@@ -275,6 +285,7 @@ class SuiteRunner:
             args.seeds = width
             args.n_parallel = max(1, width)
             args.device = str(dev)
+            args.mesh = mesh.spec if mesh is not None else None
             for k, v in static.items():
                 setattr(args, k, v)
             if method == "model_picker" and "epsilon" in runtime:
@@ -282,14 +293,14 @@ class SuiteRunner:
 
                 def fn(preds, labels, keys, eps):
                     return make_batched_experiment_fn(
-                        lambda p: make_modelpicker(p, epsilon=eps,
-                                                   device=dev),
+                        lambda p, mesh=None: make_modelpicker(
+                            p, epsilon=eps, device=dev, mesh=mesh),
                         self.iters, self.loss_fn,
-                        trace_k=trace_k)(preds, labels, keys)
+                        trace_k=trace_k, mesh=mesh)(preds, labels, keys)
             else:
                 fn = make_batched_experiment_fn(
                     build_selector_factory(args, task_name), self.iters,
-                    self.loss_fn, trace_k=trace_k)
+                    self.loss_fn, trace_k=trace_k, mesh=mesh)
             if self.cost_capture:
                 import hashlib
 
@@ -311,13 +322,15 @@ class SuiteRunner:
         return self._jitted[key]
 
     def _key(self, method, method_args, task_name, width, record,
-             dev) -> tuple:
+             dev, mesh=None) -> tuple:
         """The experiment callable's key: the method, its static resolved
-        hyperparams, the width, the recorder's top-k and the device."""
+        hyperparams, the width, the recorder's top-k, the device and the
+        task's mesh."""
         static = self._static_resolved(
             self._resolved_args(method, method_args, task_name), method)
         return (method, tuple(sorted(static.items())), width,
-                self.record_topk if record else 0, str(dev))
+                self.record_topk if record else 0, str(dev),
+                None if mesh is None else mesh.spec)
 
     def _cold(self, *key_args) -> bool:
         """Whether this is the first dispatch of the callable's key."""
@@ -337,11 +350,12 @@ class SuiteRunner:
         extra = self._extra_args(method, resolved)
         record = bool(self.record_dir)
         dev = self.device
+        mesh = getattr(dataset, "mesh", None)
         preds = dataset.preds.to(dev, torch.float32)
         labels = dataset.labels.to(dev)
         if self.dedup_seeds and self.seeds > 1:
             fn = self._fn_for(method, method_args, dataset.name, width=1,
-                              record=record)
+                              record=record, mesh=mesh)
             r0 = fn(preds, labels, self._keys[:1], *extra)
             if record:
                 r0, aux = r0
@@ -353,12 +367,12 @@ class SuiteRunner:
                 return type(r0)(*[np.repeat(x, self.seeds, axis=0)
                                   for x in r0])
             rest_fn = self._fn_for(method, method_args, dataset.name,
-                                   width=self.seeds - 1)
+                                   width=self.seeds - 1, mesh=mesh)
             rest = _to_host(rest_fn(preds, labels, self._keys[1:], *extra))
             return type(r0)(*[np.concatenate([a, b], axis=0)
                               for a, b in zip(r0, rest)])
         fn = self._fn_for(method, method_args, dataset.name,
-                          width=self.seeds, record=record)
+                          width=self.seeds, record=record, mesh=mesh)
         res = fn(preds, labels, self._keys, *extra)
         if record:
             res, aux = res
@@ -393,14 +407,16 @@ class SuiteRunner:
             ds = ds_or_loader() if lazy else ds_or_loader
             t_load += time.perf_counter() - t0
             for method in methods:
-                if store is not None and not force_rerun and _finished(
-                        store, ds.name, method, self.seeds):
+                if self._agreed(store is not None and not force_rerun
+                                and _finished(store, ds.name, method,
+                                              self.seeds)):
                     progress(f"skip {ds.name}/{method} (finished)")
                     continue
                 dedup = self.dedup_seeds and self.seeds > 1
                 cold = self._cold(method, method_args, ds.name,
                                   1 if dedup else self.seeds,
-                                  bool(self.record_dir), self.device)
+                                  bool(self.record_dir), self.device,
+                                  getattr(ds, "mesh", None))
                 self._tele_cold(cold)
                 t0 = time.perf_counter()
                 res = self.run_one(method, ds, method_args)
@@ -431,6 +447,17 @@ class SuiteRunner:
         progress(f"suite: {len(results)} task-method pairs in {total:.2f}s "
                  f"(compute {t_compute:.2f}s, data load {t_load:.2f}s)")
         return results
+
+    def _agreed(self, flag: bool) -> bool:
+        """``flag`` as rank 0 of the runner's mesh has it (every rank runs
+        the same pairs); the flag itself without a mesh."""
+        if self.mesh is None or self.mesh.size == 1:
+            return flag
+        from coda_tpu_torch.parallel.collectives import all_gather_stack
+
+        t = torch.tensor(int(flag), dtype=torch.int32,
+                         device=self.mesh.device)
+        return bool(all_gather_stack(t, self.mesh)[0])
 
     def run_batched(self, groups: Sequence[Sequence],
                     methods: Sequence[str], store=None,

@@ -9,8 +9,13 @@ and does not apply on the card (TF32 is off, see
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+
+from coda_tpu_torch.parallel.collectives import gather_sum
+from coda_tpu_torch.parallel.mesh import Mesh
 
 
 def ensemble_preds(preds: torch.Tensor) -> torch.Tensor:
@@ -20,11 +25,15 @@ def ensemble_preds(preds: torch.Tensor) -> torch.Tensor:
 
 def create_confusion_matrices(true_labels: torch.Tensor,
                               model_predictions: torch.Tensor,
-                              mode: str = "hard") -> torch.Tensor:
+                              mode: str = "hard",
+                              mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Row-normalised ``(H, C, C)`` confusion matrices vs (pseudo-)labels.
 
     ``mode='hard'`` uses one-hot argmax predictions; ``'soft'`` the scores.
-    Rows are normalised with a 1e-6 floor.
+    Rows are normalised with a 1e-6 floor. With a ``mesh`` the operands
+    are this rank's block of N and the counts over N are the blocks'
+    added in rank order (:func:`gather_sum`): the same matrices on every
+    rank.
     """
     H, N, C = model_predictions.shape
     true_one_hot = F.one_hot(true_labels.to(torch.int64), C).to(torch.float32)
@@ -35,6 +44,8 @@ def create_confusion_matrices(true_labels: torch.Tensor,
     else:
         raise ValueError(mode)
     conf = torch.einsum("nc,hnj->hcj", true_one_hot, p)
+    if mesh is not None:
+        conf = gather_sum(conf, mesh)
     return conf / torch.clamp_min(conf.sum(-1, keepdim=True), 1e-6)
 
 

@@ -451,6 +451,74 @@ def eig_scores_refresh_batched(pbest_rows: torch.Tensor,
     return out, pbest_hyp
 
 
+# -- the sharded entries (a mesh's data axis) ------------------------------
+
+def _check_block(pbest_hyp: torch.Tensor, pi_hat_xi: torch.Tensor, mesh,
+                 n_global: int) -> None:
+    """The operands must be this rank's block of N: ``(..., C, N/d, H)``
+    cache rows and ``(..., N/d, C)`` pi-hat rows of a task of
+    ``n_global`` items on a ``data=d`` mesh."""
+    n = pbest_hyp.shape[-2]
+    _require(n * mesh.data == n_global and pi_hat_xi.shape[-2] == n,
+             f"a sharded entry takes this rank's block of N: the cache "
+             f"holds {n} items and pi_hat_xi {pi_hat_xi.shape[-2]}, a "
+             f"{mesh.spec} block of N={n_global} is {n_global // mesh.data}")
+
+
+def eig_scores_cache_sharded(pbest_rows: torch.Tensor,
+                             pbest_hyp: torch.Tensor, pi_hat: torch.Tensor,
+                             pi_hat_xi: torch.Tensor, mesh, n_global: int,
+                             chunk: int = 256,
+                             approx: bool = False) -> torch.Tensor:
+    """Kernel 1 per data shard (the counterpart of the reference's
+    ``eig_scores_cache_pallas_sharded``): ``pbest_rows`` and ``pi_hat``
+    replicated, ``pbest_hyp`` this rank's ``(C, N/d, H)`` block and
+    ``pi_hat_xi`` its ``(N/d, C)`` rows -> this rank's ``(N/d,)`` scores.
+    The scoring pass reduces over nothing across items, so no collective:
+    the arg-max over the mesh happens outside. CPU tensors take the plain
+    version, as :func:`eig_scores_cache` does."""
+    _check_block(pbest_hyp, pi_hat_xi, mesh, n_global)
+    return eig_scores_cache(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi,
+                            chunk=chunk, approx=approx)
+
+
+def eig_scores_refresh_sharded(pbest_rows: torch.Tensor,
+                               pbest_hyp: torch.Tensor, hyp_t: torch.Tensor,
+                               true_class: torch.Tensor,
+                               pi_hat: torch.Tensor, pi_hat_xi: torch.Tensor,
+                               mesh, n_global: int, chunk: int = 256,
+                               approx: bool = False):
+    """Kernel 2 per data shard (``eig_scores_refresh_pallas_sharded``):
+    each rank writes its ``(N/d, H)`` slice ``hyp_t`` of class row
+    ``true_class`` into its block of the cache IN PLACE and scores its
+    items; ``(scores (N/d,), pbest_hyp)``."""
+    _check_block(pbest_hyp, pi_hat_xi, mesh, n_global)
+    return eig_scores_refresh(pbest_rows, pbest_hyp, hyp_t, true_class,
+                              pi_hat, pi_hat_xi, chunk=chunk, approx=approx)
+
+
+def eig_scores_cache_batched_sharded(pbest_rows, pbest_hyp, pi_hat,
+                                     pi_hat_xi, mesh, n_global: int,
+                                     chunk: int = 256, approx: bool = False):
+    """Kernel 4 per data shard: :func:`eig_scores_cache_sharded` for S
+    replicas, ``(S, C, N/d, H)`` -> ``(S, N/d)``."""
+    _check_block(pbest_hyp, pi_hat_xi, mesh, n_global)
+    return eig_scores_cache_batched(pbest_rows, pbest_hyp, pi_hat,
+                                    pi_hat_xi, chunk=chunk, approx=approx)
+
+
+def eig_scores_refresh_batched_sharded(pbest_rows, pbest_hyp, hyp_t,
+                                       true_class, pi_hat, pi_hat_xi, mesh,
+                                       n_global: int, chunk: int = 256,
+                                       approx: bool = False):
+    """Kernel 5 per data shard: :func:`eig_scores_refresh_sharded` for S
+    replicas, each writing its own class row of its block."""
+    _check_block(pbest_hyp, pi_hat_xi, mesh, n_global)
+    return eig_scores_refresh_batched(pbest_rows, pbest_hyp, hyp_t,
+                                      true_class, pi_hat, pi_hat_xi,
+                                      chunk=chunk, approx=approx)
+
+
 # the terms plogp_terms evaluates: the exact flavour's, the full-precision
 # logf(p) * log2(e) * p, and p * lg2.approx(p) for every p
 PLOGP_FORMS = ("exact", "logf", "lg2")

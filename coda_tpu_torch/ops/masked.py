@@ -7,13 +7,26 @@ Tie-break semantics are the reference's: a unique extremum gives its
 (first) index; among ties the choice is uniform, drawn from the same
 threefry bits as ``jax.random.uniform`` (``coda_tpu_torch/random.py``).
 Everything stays on the device — no host synchronisation.
+
+Mesh forms (``mesh=``, ``parallel/mesh.py``): the scores, mask and
+weights are this rank's block of N, and the result is the global index
+the unsharded function picks on the same values, the same on every rank.
+The global maximum, the tie count and the tie-break's draw (at the items'
+global positions, so each rank draws its slice of the unsharded draw)
+reach every rank as an ``all_gather`` of one small candidate row a rank;
+among equal candidates the lowest rank wins, which is the lowest index,
+as the unsharded ``argmax`` takes it.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from coda_tpu_torch import random as trandom
+from coda_tpu_torch.parallel.collectives import all_gather_stack, gather_sum
+from coda_tpu_torch.parallel.mesh import Mesh
 
 # Degree-6 fitted polynomial for log2(m) on the mantissa m in [1, 2),
 # evaluated in t = m - 1 (Horner, ascending coefficients) — the
@@ -53,9 +66,63 @@ def entropy2(p: torch.Tensor, dim: int = -1, floor: float = 1e-12,
     return -(pc * torch.log2(pc)).sum(dim)
 
 
+def _first_max(parts: torch.Tensor) -> torch.Tensor:
+    """The candidate row of the rank whose value (column 0) is largest,
+    the lowest such rank among equals: ``(d, ..., k) -> (..., k)``."""
+    vals = parts[..., 0]
+    rank = (vals == vals.amax(0)).to(torch.int32).argmax(0)
+    k = parts.shape[-1]
+    pick = rank.reshape((1,) + rank.shape + (1,)).expand(
+        (1,) + rank.shape + (k,))
+    return parts.gather(0, pick)[0]
+
+
+def _local_max(values: torch.Tensor, start: int, *extras) -> torch.Tensor:
+    """``(..., 2 + len(extras))`` float64 candidate row of a block: its
+    largest value (first among equals), that item's global index, and each
+    of ``extras`` at it."""
+    val, at = values.max(-1)
+    cols = [val.to(torch.float64), (at + start).to(torch.float64)]
+    cols += [e.gather(-1, at[..., None])[..., 0].to(torch.float64)
+             for e in extras]
+    return torch.stack(cols, -1)
+
+
+def mesh_masked_argmax_tiebreak(key: torch.Tensor, scores: torch.Tensor,
+                                mask: torch.Tensor, mesh: Mesh,
+                                rtol: float = 0.0, atol: float = 0.0):
+    """:func:`masked_argmax_tiebreak` over a mesh: ``scores`` and ``mask``
+    this rank's ``(..., N/d)`` block. Two ``all_gather`` calls of one row a
+    rank: the block maxima (with their global index and score), then each
+    block's tie count and its largest tie-break draw among the global
+    maximum's ties. Returns ``(idx, tie_count, score at idx)``, global and
+    the same on every rank."""
+    n = scores.shape[-1]
+    start, total = mesh.start(n), n * mesh.data
+    masked = torch.where(mask, scores, float("-inf"))
+    first = _first_max(all_gather_stack(_local_max(masked, start, scores),
+                                        mesh))
+    best = first[..., 0].to(scores.dtype)[..., None]
+    if rtol > 0 or atol > 0:
+        ties = torch.isclose(masked, best, rtol=rtol, atol=atol) & mask
+    else:
+        ties = (masked == best) & mask
+    u = trandom.uniform(key, (n,), device=scores.device, start=start,
+                        total=total)
+    cand = torch.cat([ties.sum(-1, keepdim=True).to(torch.float64),
+                      _local_max(torch.where(ties, u, -1.0), start, scores)],
+                     -1)
+    parts = all_gather_stack(cand, mesh)
+    n_ties = parts[..., 0].sum(0).to(torch.int64)
+    rand = _first_max(parts[..., 1:])
+    chosen = torch.where((n_ties > 1)[..., None], rand, first)
+    return chosen[..., 1].to(torch.int64), n_ties, \
+        chosen[..., 2].to(scores.dtype)
+
+
 def masked_argmax_tiebreak(key: torch.Tensor, scores: torch.Tensor,
                            mask: torch.Tensor, rtol: float = 0.0,
-                           atol: float = 0.0):
+                           atol: float = 0.0, mesh: Optional[Mesh] = None):
     """Argmax of ``scores`` over positions where ``mask``; uniform among
     ties (``isclose(score, max, rtol, atol)`` when a tolerance is given,
     else exact equality). ``key`` is a ``(2,)`` threefry key, usually on
@@ -66,8 +133,13 @@ def masked_argmax_tiebreak(key: torch.Tensor, scores: torch.Tensor,
     index per row, with the same semantics row by row.
 
     Returns ``(idx, tie_count)`` as device tensors (0-d, or ``(S,)``);
-    ``tie_count > 1`` means the choice was stochastic.
+    ``tie_count > 1`` means the choice was stochastic. With a ``mesh``
+    the operands are this rank's block and ``idx`` is global
+    (:func:`mesh_masked_argmax_tiebreak`).
     """
+    if mesh is not None:
+        return mesh_masked_argmax_tiebreak(key, scores, mask, mesh, rtol,
+                                           atol)[:2]
     masked = torch.where(mask, scores, float("-inf"))
     best = masked.amax(-1, keepdim=True)
     if rtol > 0 or atol > 0:
@@ -84,13 +156,29 @@ def masked_argmax_tiebreak(key: torch.Tensor, scores: torch.Tensor,
 
 def masked_argmin_tiebreak(key: torch.Tensor, scores: torch.Tensor,
                            mask: torch.Tensor, rtol: float = 0.0,
-                           atol: float = 0.0):
-    """Argmin counterpart of :func:`masked_argmax_tiebreak`."""
-    return masked_argmax_tiebreak(key, -scores, mask, rtol=rtol, atol=atol)
+                           atol: float = 0.0, mesh: Optional[Mesh] = None):
+    """Argmin counterpart of :func:`masked_argmax_tiebreak` (``mesh``
+    too)."""
+    return masked_argmax_tiebreak(key, -scores, mask, rtol=rtol, atol=atol,
+                                  mesh=mesh)
+
+
+def mesh_categorical(key: torch.Tensor, logits: torch.Tensor, mesh: Mesh,
+                     *extras) -> torch.Tensor:
+    """``jax.random.categorical`` over a mesh: ``logits`` this rank's
+    ``(..., N/d)`` block, its Gumbel noise drawn at the global positions.
+    Returns the ``(..., 2 + len(extras))`` float64 row of the winner: the
+    noisy logit, the global index, and each of ``extras`` (blocks like
+    ``logits``) at it; the same on every rank (one ``all_gather``)."""
+    n = logits.shape[-1]
+    z = trandom.categorical_scores(key, logits, start=mesh.start(n),
+                                   total=n * mesh.data)
+    return _first_max(all_gather_stack(
+        _local_max(z, mesh.start(n), *extras), mesh))
 
 
 def masked_categorical(key: torch.Tensor, weights: torch.Tensor,
-                       mask: torch.Tensor):
+                       mask: torch.Tensor, mesh: Optional[Mesh] = None):
     """Sample an index proportionally to ``weights`` restricted to
     ``mask`` (``jax.random.categorical`` over the log-probabilities, the
     same threefry Gumbel noise). Where the masked weights sum to at most
@@ -100,14 +188,21 @@ def masked_categorical(key: torch.Tensor, weights: torch.Tensor,
 
     Returns ``(idx, prob)`` as 0-d device tensors, ``prob`` the normalised
     probability of the sampled index (the selection probability the LURE
-    estimator needs).
+    estimator needs). With a ``mesh`` the operands are this rank's block;
+    the weights' total and the mask's count add the blocks' in rank order
+    (:func:`gather_sum`; the probabilities may differ from the unsharded
+    ones in the last bits) and ``idx`` is global.
     """
     w = torch.where(mask, torch.clamp_min(weights, 0.0), 0.0)
-    total = w.sum()
-    n_mask = torch.clamp_min(mask.sum(), 1)
+    total = w.sum() if mesh is None else gather_sum(w.sum(), mesh)
+    n_mask = torch.clamp_min(mask.sum() if mesh is None
+                             else gather_sum(mask.sum(), mesh), 1)
     probs = torch.where(total > 1e-12, w / torch.clamp_min(total, 1e-30),
                         mask.to(w.dtype) / n_mask)
     logits = torch.log(torch.clamp_min(probs, 1e-38))
     logits = torch.where(probs > 0, logits, float("-inf"))
+    if mesh is not None:
+        row = mesh_categorical(key, logits, mesh, probs)
+        return row[..., 1].to(torch.int64), row[..., 2].to(probs.dtype)
     idx = trandom.categorical(key, logits)
     return idx, probs.take(idx)

@@ -26,7 +26,7 @@ installed jax's defaults: ``categorical`` draws its Gumbel noise in the
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -54,11 +54,22 @@ def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
     return x[0], x[1]
 
 
-def _iota_2x32(shape: Sequence[int], device) -> tuple[torch.Tensor,
-                                                       torch.Tensor]:
-    """A row-major 64-bit iota over ``shape`` as (hi, lo) uint32 words."""
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+def _iota_2x32(shape: Sequence[int], device, start: int = 0,
+               total: Optional[int] = None) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """A row-major 64-bit iota over ``shape`` as (hi, lo) uint32 words;
+    with ``total``, the positions of ``shape`` as the slice ``[...,
+    start:start + shape[-1]]`` of the iota over ``shape[:-1] +
+    (total,)``."""
+    if total is None:
+        n = math.prod(shape)
+        idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    else:
+        lead = math.prod(shape[:-1])
+        rows = torch.arange(lead, dtype=torch.int64, device=device) * total
+        cols = torch.arange(start, start + shape[-1], dtype=torch.int64,
+                            device=device)
+        idx = (rows[:, None] + cols[None, :]).reshape(shape)
     return idx >> 32, idx & _MASK
 
 
@@ -81,15 +92,21 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int],
-                device=None) -> torch.Tensor:
+                device=None, start: int = 0,
+                total: Optional[int] = None) -> torch.Tensor:
     """32-bit random words of ``shape``: the xor of threefry's two output
     words at each position (partitionable mode). ``device`` defaults to
     the key's; a host key may fill a device tensor. A ``(..., 2)`` batch of
     keys gives ``(..., *shape)``; it is copied to ``device`` if it lies
-    elsewhere (the engine uploads a run's keys once instead)."""
+    elsewhere (the engine uploads a run's keys once instead).
+
+    ``start``/``total``: the words of a slice along the last axis, bitwise
+    ``random_bits(key, shape[:-1] + (total,))[..., start:start +
+    shape[-1]]`` — a word depends only on the key and its position, so a
+    shard of a mesh draws its own items of the unsharded draw."""
     device = key.device if device is None else torch.device(device)
     shape = tuple(shape)
-    hi, lo = _iota_2x32(shape, device)
+    hi, lo = _iota_2x32(shape, device, start, total)
     if key.dim() > 1:
         words = key.to(device).reshape(key.shape[:-1] + (1,) * len(shape)
                                        + (2,))
@@ -105,21 +122,25 @@ def random_bits(key: torch.Tensor, shape: Sequence[int],
 
 
 def _unit_floats(key: torch.Tensor, shape: Sequence[int],
-                 device=None) -> torch.Tensor:
+                 device=None, start: int = 0,
+                 total: Optional[int] = None) -> torch.Tensor:
     """The float32 values in [0, 1) that ``jax.random.uniform`` builds from
     the top 23 bits of each word (the mantissa of a float in [1, 2),
     minus 1)."""
-    bits = random_bits(key, shape, device)
+    bits = random_bits(key, shape, device, start, total)
     fbits = (bits >> 9) | 0x3F800000
     # every value is < 2**31, so the int32 view is the same bit pattern
     return fbits.to(torch.int32).view(torch.float32) - 1.0
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int],
-            device=None) -> torch.Tensor:
+            device=None, start: int = 0,
+            total: Optional[int] = None) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in float32 on [0, 1).
-    A ``(..., 2)`` batch of keys gives ``(..., *shape)``."""
-    return torch.clamp_min(_unit_floats(key, shape, device), 0.0)
+    A ``(..., 2)`` batch of keys gives ``(..., *shape)``; ``start``/
+    ``total`` draw a slice along the last axis (:func:`random_bits`)."""
+    return torch.clamp_min(_unit_floats(key, shape, device, start, total),
+                           0.0)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -137,17 +158,31 @@ _F32_TINY = float(torch.finfo(torch.float32).tiny)
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int],
-           device=None) -> torch.Tensor:
+           device=None, start: int = 0,
+           total: Optional[int] = None) -> torch.Tensor:
     """``jax.random.gumbel(key, shape)`` in float32, "low" mode:
     ``-log(-log(u))`` with ``u`` the uniform draw on ``[tiny, 1)`` — the
     same mantissa bits as :func:`uniform`, scaled by ``1 - tiny`` (1 in
     float32), shifted by ``tiny`` and clamped at ``tiny``, so a zero word
     gives ``tiny`` instead of 0. A ``(..., 2)`` batch of keys gives
-    ``(..., *shape)``."""
+    ``(..., *shape)``; ``start``/``total`` draw a slice along the last
+    axis (:func:`random_bits`)."""
     # ``floats * (1 - tiny) + tiny``: 1 - tiny rounds to 1 in float32
-    u = torch.clamp_min(_unit_floats(key, shape, device) + _F32_TINY,
-                        _F32_TINY)
+    u = torch.clamp_min(_unit_floats(key, shape, device, start, total)
+                        + _F32_TINY, _F32_TINY)
     return -torch.log(-torch.log(u))
+
+
+def categorical_scores(key: torch.Tensor, logits: torch.Tensor,
+                       start: int = 0,
+                       total: Optional[int] = None) -> torch.Tensor:
+    """The Gumbel noise plus ``logits`` that :func:`categorical` takes the
+    argmax of; ``start``/``total``: ``logits`` is the slice ``[...,
+    start:start + n]`` of the unsharded logits (a shard's block), and the
+    noise that slice of the unsharded noise."""
+    shape = logits.shape[key.dim() - 1:] if key.dim() > 1 else logits.shape
+    return gumbel(key, shape, device=logits.device, start=start,
+                  total=total) + logits
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
@@ -156,12 +191,7 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     maxima). A ``(2,)`` key samples one index per row of ``logits``; a
     ``(S, 2)`` batch of keys with ``(S, N)`` logits samples row s with key
     s, as ``jax.vmap`` gives. The noise is drawn on ``logits``' device."""
-    if key.dim() > 1:
-        noise = gumbel(key, logits.shape[key.dim() - 1:],
-                       device=logits.device)
-    else:
-        noise = gumbel(key, logits.shape, device=logits.device)
-    return torch.argmax(noise + logits, dim=-1)
+    return torch.argmax(categorical_scores(key, logits), dim=-1)
 
 
 def randint(key: torch.Tensor, shape: Sequence[int], minval: int,

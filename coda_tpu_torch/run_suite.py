@@ -15,9 +15,16 @@ dispatches same-size tasks a (group, method) at a time
 hands the dispatches to the task-parallel scheduler. ``--telemetry-dir``
 writes ``trace.json`` (a span a dispatch on its device's lane),
 ``telemetry.json`` and ``metrics.prom`` there and flushes the scalars into
-the store. ``--mesh`` raises ``NotImplementedError`` naming the N-axis
-parallel part of slice 5 of the port. The last line printed is a JSON
-object with the sweep's wall seconds.
+the store. The last line printed is a JSON object with the sweep's wall
+seconds.
+
+``--mesh data=K`` shards each task over N, one process a shard, under
+``torchrun`` (``python -m torch.distributed.run --nproc-per-node K -m
+coda_tpu_torch.cli suite ... --mesh data=K``): a task whose N the mesh
+does not divide loads unsharded on every rank, with the reference's
+warning. Rank 0 alone prints and writes the store. ``--task-batch`` with
+``--mesh`` is the reference's error; ``--record-dir`` raises
+``NotImplementedError`` under a mesh (the next mesh slice).
 """
 
 from __future__ import annotations
@@ -46,8 +53,10 @@ def parse_args(argv=None):
     p.add_argument("--no-db", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--mesh", default=None, metavar="AXIS=K,...",
-                   help="shard each task tensor over a device mesh (the "
-                        "N-axis parallel part of slice 5 of the port)")
+                   help="shard each task tensor over N, one process a "
+                        "shard (torchrun); tasks whose N does not divide "
+                        "the data axis load unsharded with a warning. "
+                        "Incompatible with --task-batch.")
     p.add_argument("--task-batch", action="store_true",
                    help="dispatch same-size tasks a (group, method) at a "
                         "time (SuiteRunner.run_batched); groups by file "
@@ -80,24 +89,45 @@ def parse_args(argv=None):
                         "replay)")
     p.add_argument("--record-topk", type=int, default=8,
                    help="top-k scores recorded a round (--record-dir)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.suite_devices is not None:
+        args.task_batch = True   # scheduling runs through run_batched
+    if args.task_batch and args.mesh:
+        p.error("--task-batch is per-device (the task axis would need its "
+                "own mesh dimension); drop one of the flags")
+    return args
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh comes with the N-axis parallel part of slice 5 of the "
-            "port")
-    if args.suite_devices is not None:
-        args.task_batch = True   # scheduling runs through run_batched
+    if not args.mesh:
+        return _main(args, None)
+    import torch.distributed as dist
 
+    from coda_tpu_torch.parallel.distributed import initialize, shutdown
+    from coda_tpu_torch.parallel.mesh import MESH_NEXT, mesh_from_spec
+
+    if args.record_dir:
+        raise NotImplementedError(
+            f"--record-dir under --mesh comes with {MESH_NEXT}")
+    joined = not dist.is_initialized()
+    initialize(device=args.device)
+    try:
+        return _main(args, mesh_from_spec(args.mesh, device=args.device))
+    finally:
+        if joined:
+            shutdown()
+
+
+def _main(args, mesh) -> int:
+    """The sweep, on ``mesh`` (each task's block of N) or alone."""
     from coda_tpu_torch.data import Dataset, find_task_file, list_tasks
     from coda_tpu_torch.engine.suite import SuiteRunner
     from coda_tpu_torch.tracking import TrackingStore
     from coda_tpu_torch.utils.platform import resolve_device
 
-    dev = resolve_device(args.device)
+    primary = mesh is None or mesh.rank == 0
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     tasks = (args.tasks.split(",") if args.tasks
              else list_tasks(args.pred_dir))
     if not tasks:
@@ -111,7 +141,8 @@ def main(argv=None) -> int:
         paths.append((os.path.getsize(fp), fp, t))
 
     def loader(fp, t):
-        return lambda: Dataset.from_file(fp, name=t, device=dev)
+        return lambda: Dataset.from_file(fp, name=t, device=dev, mesh=mesh,
+                                         unsharded_fallback=True)
 
     methods = args.methods.split(",")
     telemetry = None
@@ -119,10 +150,11 @@ def main(argv=None) -> int:
         from coda_tpu_torch.telemetry import Telemetry
 
         telemetry = Telemetry(out_dir=args.telemetry_dir)
-    store = None if args.no_db else TrackingStore(args.db)
+    store = None if args.no_db or not primary else TrackingStore(args.db)
     runner = SuiteRunner(iters=args.iters, seeds=args.seeds, loss=args.loss,
                          telemetry=telemetry, record_dir=args.record_dir,
-                         record_topk=args.record_topk, device=dev)
+                         record_topk=args.record_topk, device=dev, mesh=mesh)
+    progress = print if primary else (lambda *a, **k: None)
     t0 = time.perf_counter()
     if args.task_batch:
         groups: dict = {}
@@ -140,14 +172,18 @@ def main(argv=None) -> int:
     else:
         results = runner.run([loader(fp, t) for _, fp, t in sorted(paths)],
                              methods, store=store,
-                             force_rerun=args.force_rerun)
+                             force_rerun=args.force_rerun, progress=progress)
     wall = time.perf_counter() - t0
+    if not primary:
+        return 0
     stats = getattr(runner, "last_stats", {})
     line = {"metric": "suite-wall-clock", "tasks": len(paths),
             "methods": len(methods), "seeds": args.seeds,
             "iters": args.iters, "pairs_run": len(results),
             "value": round(wall, 2), "unit": "seconds",
             "device": str(dev)}
+    if mesh is not None:
+        line["mesh"] = mesh.spec
     if args.suite_devices is not None:
         line["n_devices"] = stats.get("n_devices")
         line["schedule"] = stats.get("schedule")

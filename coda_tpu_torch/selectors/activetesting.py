@@ -14,6 +14,10 @@ categorical sample. The per-round loss vectors and selection
 probabilities live in fixed ``(H, T)`` / ``(T,)`` ring buffers (T = the
 label budget), so the LURE readout is a masked reduction. ``update``
 writes the mask, the buffers and the label count IN PLACE.
+
+Under a mesh the weights are this rank's block's, the draw is
+``masked_categorical``'s mesh form (the weights' total a rank-order sum),
+and the LURE weights use the global N.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 from coda_tpu_torch import random as trandom
 from coda_tpu_torch.losses import accuracy_loss
 from coda_tpu_torch.ops.masked import masked_argmin_tiebreak, masked_categorical
+from coda_tpu_torch.parallel.collectives import clear_items
+from coda_tpu_torch.parallel.mesh import Mesh
 from coda_tpu_torch.selectors.iid import loss_at
 from coda_tpu_torch.selectors.protocol import Selector, SelectResult
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -79,14 +85,16 @@ def make_activetesting(preds: torch.Tensor,
                        loss_fn: Callable = accuracy_loss, budget: int = 128,
                        name: str = "activetesting",
                        acquisition_scores: Optional[torch.Tensor] = None,
-                       device: DeviceLike = None) -> Selector:
+                       device: DeviceLike = None,
+                       mesh: Optional[Mesh] = None) -> Selector:
     """The ActiveTesting selector over a ``(H, N, C)`` prediction tensor,
     on ``device`` (default: the card). ``budget`` is the label buffer's
     length: a run may take at most that many labels. VMA passes its own
-    ``acquisition_scores``."""
-    dev = resolve_device(device)
+    ``acquisition_scores``. ``mesh``: see ``make_iid``."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
-    H, N, C = preds.shape
+    H, n_local, C = preds.shape
+    N = n_local * (mesh.data if mesh is not None else 1)   # global N
     if acquisition_scores is None:
         acquisition_scores = surrogate_expected_losses(preds).sum(0)  # (N,)
     acquisition_scores = acquisition_scores.to(dev)
@@ -96,7 +104,7 @@ def make_activetesting(preds: torch.Tensor,
     def init(key=None) -> LUREState:
         del key
         return LUREState(
-            unlabeled=torch.ones(N, dtype=torch.bool, device=dev),
+            unlabeled=torch.ones(n_local, dtype=torch.bool, device=dev),
             losses=torch.zeros((H, budget), dtype=torch.float32, device=dev),
             qs=torch.zeros(budget, dtype=torch.float32, device=dev),
             n_labeled=torch.zeros((), dtype=torch.int32, device=dev),
@@ -104,7 +112,7 @@ def make_activetesting(preds: torch.Tensor,
 
     def select(state: LUREState, key) -> SelectResult:
         idx, prob = masked_categorical(key, acquisition_scores,
-                                       state.unlabeled)
+                                       state.unlabeled, mesh=mesh)
         # proportional sampling: the utility is the (unnormalised)
         # acquisition weight, whose order the recorder's top-k captures
         return SelectResult(idx=idx, prob=prob, stochastic=always,
@@ -115,9 +123,9 @@ def make_activetesting(preds: torch.Tensor,
     def update(state: LUREState, idx, true_class, prob) -> LUREState:
         m = state.n_labeled.reshape(1).to(torch.int64)
         state.losses.index_copy_(
-            1, m, loss_at(preds, loss_fn, idx, true_class)[:, None])
+            1, m, loss_at(preds, loss_fn, idx, true_class, mesh)[:, None])
         state.qs.index_copy_(0, m, prob.reshape(1).to(torch.float32))
-        state.unlabeled.index_fill_(0, idx.reshape(1).to(torch.int64), False)
+        clear_items(state.unlabeled, idx.reshape(1), mesh)
         state.n_labeled.add_(1)
         return state
 

@@ -68,12 +68,28 @@ State is updated IN PLACE where the reference returned new arrays: the
 Dirichlet (or sparse) row, the pi-hat column, the cache row and the
 unlabeled mask. Every product runs at fp32 with TF32 off, except the EIG
 table products under ``eig_precision`` ``high`` or ``default``, which
-switch TF32 on for those products alone. ``shard_spec`` raises
-``NotImplementedError`` naming the later slice that brings it.
+switch TF32 on for those products alone.
+
+Under a mesh (``shard_spec='data=d'``, ``parallel/mesh.py``) the selector
+holds this rank's ``(H, N/d, C)`` block, and every tier runs per shard on
+replicated Dirichlets and pi-hat: the incremental tier's ``(C, N/d, H)``
+cache through the sharded entries of kernels 1, 2, 4 and 5
+(:func:`~coda_tpu_torch.ops.eig_kernels.eig_scores_cache_sharded` and
+its kin, no collective) and kernel 3 on the local gather layout; the
+factored, rowscan and direct tiers on the local items. Three points cross
+N: init's pi-hat marginal and confusion prior (rank-order sums,
+``parallel/collectives.gather_sum``), select's arg-max (the mesh form of
+``masked_argmax_tiebreak``) and update's read of the labelled item's
+predictions (``broadcast_from_owner``). Indices are global; the
+replicated state is bitwise equal on every rank. The q-wide round, the
+surrogate scorer, the sparse posterior, the amortized P(best) and the
+prefilter raise ``NotImplementedError`` under a mesh (the next mesh
+slice); the fused refresh keeps the reference's refusal.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -90,15 +106,19 @@ from coda_tpu_torch.ops.confusion import (
 from coda_tpu_torch.ops.eig_kernels import (
     eig_scores_cache,
     eig_scores_cache_batched,
+    eig_scores_cache_batched_sharded,
+    eig_scores_cache_sharded,
     eig_scores_from_cache,
     eig_scores_from_cache_batched,
     eig_scores_rows,
     eig_scores_refresh,
     eig_scores_refresh_batched,
     eig_scores_refresh_batched_plain,
+    eig_scores_refresh_batched_sharded,
     eig_scores_refresh_compute,
     eig_scores_refresh_compute_plain,
     eig_scores_refresh_plain,
+    eig_scores_refresh_sharded,
 )
 from coda_tpu_torch.ops.gather_kernels import (
     gather_rows_sum,
@@ -107,7 +127,11 @@ from coda_tpu_torch.ops.gather_kernels import (
     gather_rows_sum_plain,
     prep_gather_layout,
 )
-from coda_tpu_torch.ops.masked import entropy2, masked_argmax_tiebreak
+from coda_tpu_torch.ops.masked import (
+    entropy2,
+    masked_argmax_tiebreak,
+    mesh_masked_argmax_tiebreak,
+)
 from coda_tpu_torch.ops.pbest import (
     _bump_tables,
     _pbest_hyp_from_tables,
@@ -130,6 +154,21 @@ from coda_tpu_torch.ops.sparse_rows import (
     sparsify,
 )
 from coda_tpu_torch.ops.sparse_rows import row_beta as sparse_row_beta
+from coda_tpu_torch.parallel.collectives import (
+    any_over,
+    broadcast_from_owner,
+    clear_items,
+    count_over,
+    gather_sum,
+)
+from coda_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MESH_NEXT,
+    Mesh,
+    mesh_from_spec,
+    parse_spec,
+    shard_preds,
+)
 from coda_tpu_torch.selectors import surrogate as sg
 from coda_tpu_torch.selectors.protocol import (
     BatchedSelector,
@@ -172,7 +211,6 @@ _DIRECT_TEMP_BYTES = 1 << 30
 # (:func:`_refresh_row_chunk`)
 _REFRESH_TEMP_BYTES = 1 << 30
 
-_SLICE_5 = "the N-axis parallel part of slice 5 of the port"
 
 # eig_backend values that run the plain PyTorch versions: the reference's
 # name for its non-kernel path, and the port's own
@@ -183,8 +221,8 @@ PRECISIONS = ("highest", "high", "default")
 
 
 class CODAHyperparams(NamedTuple):
-    """The reference's fields and defaults. ``shard_spec`` raises at
-    anything but its default (the N-axis parallel part of slice 5)."""
+    """The reference's fields and defaults. ``shard_spec`` takes
+    ``data=d`` (the mesh's model axis comes with the next mesh slice)."""
 
     prefilter_n: int = 0          # EIG on a random subset of this many
     #                               candidates a round (0: all)
@@ -217,7 +255,8 @@ class CODAHyperparams(NamedTuple):
     #                               (kernel 6; opt-in numerics, as in the
     #                               reference)
     eig_entropy: str = "exact"    # exact | approx: the scoring chain's log2
-    shard_spec: str = ""
+    shard_spec: str = ""          # "" | "data=d": the (H, N, C) tensor
+    #                               sharded over N, one rank a shard
     posterior: str = "dense"      # dense | sparse:K (incremental tier only)
     eig_pbest: str = "quad"       # quad | amortized (incremental tier,
     #                               precomputed refresh)
@@ -230,8 +269,13 @@ class CODAHyperparams(NamedTuple):
 
 def _unsupported(knob: str, value, where: str):
     raise NotImplementedError(
-        f"{knob}={value!r} comes with {where}; coda_tpu_torch runs every EIG "
-        "tier, numerics knob and scorer of the reference on one card")
+        f"{knob}={value!r} under a mesh comes with {where}; a mesh of the "
+        "port runs the one-label round of every EIG tier and baseline")
+
+
+# the knobs the mesh's next slice brings: (field, its off value)
+_MESH_REFUSED = (("eig_scorer", "exact"), ("posterior", "dense"),
+                 ("eig_pbest", "quad"), ("prefilter_n", 0))
 
 
 def resolve_pi_update(hp: CODAHyperparams, N: Optional[int] = None) -> str:
@@ -341,7 +385,26 @@ def check_supported(hp: CODAHyperparams, N: int) -> None:
             f"(got backend={hp.eig_backend!r}, shard_spec={hp.shard_spec!r}, "
             f"n_parallel={hp.n_parallel})")
     if hp.shard_spec:
-        _unsupported("shard_spec", hp.shard_spec, _SLICE_5)
+        for knob, off in _MESH_REFUSED:
+            if getattr(hp, knob) != off:
+                _unsupported(knob, getattr(hp, knob), MESH_NEXT)
+
+
+def shard_mesh_for(hp: CODAHyperparams, N: int, device=None):
+    """The mesh of ``hp.shard_spec`` (None without one) for a task of N
+    items. Raises on meshes the port cannot run: a model axis
+    (``NotImplementedError``), N not divisible by the data axis, or more
+    or fewer ranks than the mesh's shards (``ValueError``)."""
+    if not hp.shard_spec:
+        return None
+    mesh = mesh_from_spec(hp.shard_spec, device=device)
+    d = mesh.shape[DATA_AXIS]
+    if N % d != 0:
+        raise ValueError(
+            f"shard_spec {hp.shard_spec!r}: N={N} not divisible by the "
+            f"data axis ({d}); pad the task or use the jnp backend"
+        )
+    return mesh
 
 
 def check_tier(hp: CODAHyperparams, eig_mode: str) -> None:
@@ -430,26 +493,42 @@ def pi_unnorm(dirichlets: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     return torch.einsum("hcs,hns->nc", dirichlets, preds)
 
 
-def _normalize_pi(unnorm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _pi_parts(unnorm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(pi_hat_xi (N, C), its sum over the N items (C,))``."""
+    pi_xi = unnorm / torch.clamp_min(unnorm.sum(-1, keepdim=True), 1e-12)
+    return pi_xi, pi_xi.sum(-2)
+
+
+def _normalize_pi(unnorm: torch.Tensor, mesh: Optional[Mesh] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """(pi_hat_xi, pi_hat) from the unnormalised (..., N, C) class
     scores; with a replica axis one replica at a time (the reduction over
-    N may add in another order on a larger tensor)."""
+    N may add in another order on a larger tensor). With a ``mesh`` the
+    items are this rank's block and the sum over N is the blocks' sums
+    added in rank order (one gather for every replica)."""
     if unnorm.dim() == 3:
-        pi_xi, pi = zip(*(_normalize_pi(u) for u in unnorm))
-        return torch.stack(pi_xi), torch.stack(pi)
-    pi_xi = unnorm / torch.clamp_min(unnorm.sum(-1, keepdim=True), 1e-12)
-    pi = pi_xi.sum(-2)
+        # each replica's sum normalised as its own (C,) tensor, as the
+        # one-seed run's (a row view may be loaded another way)
+        pi_xi, part = zip(*map(_pi_parts, unnorm))
+        if mesh is not None:
+            part = gather_sum(torch.stack(part), mesh)
+        return torch.stack(pi_xi), torch.stack(
+            [p / p.sum(-1, keepdim=True) for p in part])
+    pi_xi, pi = _pi_parts(unnorm)
+    if mesh is not None:
+        pi = gather_sum(pi, mesh)
     return pi_xi, pi / pi.sum(-1, keepdim=True)
 
 
-def update_pi_hat(dirichlets: torch.Tensor, preds: torch.Tensor):
+def update_pi_hat(dirichlets: torch.Tensor, preds: torch.Tensor,
+                  mesh: Optional[Mesh] = None):
     """Dirichlet-adjusted class posterior per item + dataset marginal; a
     ``(S, H, C, C)`` posterior one replica at a time (bitwise each
-    replica's one-seed values)."""
+    replica's one-seed values). ``mesh``: see :func:`_normalize_pi`."""
     if dirichlets.dim() == 4:
-        pi_xi, pi = zip(*(update_pi_hat(d, preds) for d in dirichlets))
+        pi_xi, pi = zip(*(update_pi_hat(d, preds, mesh) for d in dirichlets))
         return torch.stack(pi_xi), torch.stack(pi)
-    return _normalize_pi(pi_unnorm(dirichlets, preds))
+    return _normalize_pi(pi_unnorm(dirichlets, preds), mesh)
 
 
 def update_pi_hat_column(dirichlets: torch.Tensor, true_class: torch.Tensor,
@@ -799,7 +878,8 @@ def _replicate(t, S: int):
 
 def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
               name: str = "coda", device: DeviceLike = None,
-              prior: Optional[sg.PriorStats] = None) -> Selector:
+              prior: Optional[sg.PriorStats] = None,
+              mesh: Optional[Mesh] = None) -> Selector:
     """Build the CODA selector over a ``(H, N, C)`` prediction tensor.
 
     Runs on ``device`` (default: the card; ``device="cpu"`` runs the plain
@@ -817,27 +897,47 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     ``prior``: a cross-session :class:`~coda_tpu_torch.selectors.surrogate.
     PriorStats` the surrogate's fit starts from (``surrogate_prior='pool'``
     only, as in the reference).
+
+    ``mesh``: ``preds`` is this rank's ``(H, N/d, C)`` block of a task
+    sharded over the mesh's data axis (``parallel.shard_preds``), and the
+    selector runs on the mesh's device; ``hp.shard_spec`` may name the
+    same mesh or be empty. Without ``mesh`` a ``shard_spec`` makes the
+    selector shard the whole ``preds`` it is given itself
+    (:func:`shard_mesh_for`; one process a shard, ``torchrun``). Indices
+    in and out (select's pick, update's item) are global.
     """
     hp = hp or CODAHyperparams()
-    dev = resolve_device(device)
+    if mesh is not None:
+        if hp.shard_spec and parse_spec(hp.shard_spec)[DATA_AXIS] \
+                != mesh.data:
+            raise ValueError(f"shard_spec {hp.shard_spec!r} names another "
+                             f"mesh than the one given ({mesh.spec})")
+        hp = hp._replace(shard_spec=mesh.spec)
+    check_supported(hp, preds.shape[1])
+    if mesh is None and hp.shard_spec:
+        mesh = shard_mesh_for(hp, preds.shape[1], device)
+        preds = shard_preds(torch.as_tensor(preds, dtype=torch.float32),
+                            mesh).local
+    dev = mesh.device if mesh is not None else resolve_device(device)
     pin_fp32_matmul()
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
-    H, N, C = preds.shape
-    check_supported(hp, N)
+    H, N, C = preds.shape                  # N: this rank's items
+    n_global = N * (mesh.data if mesh is not None else 1)
     if prior is not None and not sg.parse_prior(hp.surrogate_prior):
         raise ValueError(
             "a prior was passed but surrogate_prior='off' — seeding "
             "under the off knob would break the off-config bitwise pin; "
             "set surrogate_prior='pool'")
-    eig_mode = resolve_eig_mode(hp, H, N, C)
+    # the reference's resolution, at the global shape
+    eig_mode = resolve_eig_mode(hp, H, n_global, C)
     check_tier(hp, eig_mode)
     scorer_k = sg.parse_scorer(hp.eig_scorer)
     precision = resolve_precision(hp.eig_precision)
-    pi_update = resolve_pi_update(hp, N)
+    pi_update = resolve_pi_update(hp, n_global)
     sparse_k = parse_posterior(hp.posterior)
     incremental = eig_mode == "incremental"
     use_prefilter = bool(hp.q == "eig" and hp.prefilter_n
-                         and hp.prefilter_n < N)
+                         and hp.prefilter_n < n_global)
     prior_strength = 1.0 - hp.alpha
     update_strength = hp.learning_rate
     cache_dtype = getattr(torch, hp.eig_cache_dtype)
@@ -855,11 +955,22 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
                     else eig_scores_refresh_batched)
     gather_s_fn = (gather_rows_sum_batched_plain if plain
                    else gather_rows_sum_batched)
+    if mesh is not None and not plain:
+        # the reference's mesh branch: the kernels per data shard, each
+        # on this rank's (C, N/d, H) block (no collective)
+        on_mesh = dict(mesh=mesh, n_global=n_global)
+        score_fn = functools.partial(eig_scores_cache_sharded, **on_mesh)
+        refresh_fn = functools.partial(eig_scores_refresh_sharded, **on_mesh)
+        score_s_fn = functools.partial(eig_scores_cache_batched_sharded,
+                                       **on_mesh)
+        refresh_s_fn = functools.partial(eig_scores_refresh_batched_sharded,
+                                         **on_mesh)
 
     hard_preds = preds.argmax(-1).T.to(torch.int32).contiguous()   # (N, H)
     disagree = _disagreement_mask(hard_preds, C)                   # (N,)
     ens_hard = ensemble_preds(preds).argmax(-1)
-    soft_conf = create_confusion_matrices(ens_hard, preds, mode="soft")
+    soft_conf = create_confusion_matrices(ens_hard, preds, mode="soft",
+                                          mesh=mesh)
     # contiguous: the prior comes out of its contraction in a transposed
     # layout, and a reduction over another layout may sum in another order
     # (a replica of the seed-batched state is contiguous)
@@ -883,7 +994,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     def _initial_state() -> CODAState:
         """The deterministic initial state, before its score-ahead."""
         unnorm = pi_unnorm(dirichlets0, preds)
-        pi_xi, pi = _normalize_pi(unnorm)
+        pi_xi, pi = _normalize_pi(unnorm, mesh)
         rows = hyp = None
         if incremental:
             rows, hyp = build_eig_cache(dirichlets0, hard_preds,
@@ -934,12 +1045,19 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         else:
             scores = _tier_scores(state, state.pi_hat_xi, hard_preds,
                                   hp.eig_chunk)
+        idx, n_ties, prob = _argmax(k_tie, scores, cand)
+        return SelectResult(idx=idx, prob=prob, stochastic=n_ties > 1,
+                            scores=torch.where(cand, scores, float("-inf")))
+
+    def _argmax(k_tie, scores, cand):
+        """``(idx, tie count, score at idx)`` of the tie-broken arg-max
+        over the candidates; under a mesh over every rank's block."""
+        if mesh is not None:
+            return mesh_masked_argmax_tiebreak(
+                k_tie, scores, cand, mesh, rtol=_TIE_RTOL, atol=_TIE_ATOL)
         idx, n_ties = masked_argmax_tiebreak(k_tie, scores, cand,
                                              rtol=_TIE_RTOL, atol=_TIE_ATOL)
-        return SelectResult(idx=idx,
-                            prob=scores.gather(-1, idx[..., None])[..., 0],
-                            stochastic=n_ties > 1,
-                            scores=torch.where(cand, scores, float("-inf")))
+        return idx, n_ties, scores.gather(-1, idx[..., None])[..., 0]
 
     def _eig_select_prefiltered(state: CODAState, cand, k_sub, k_tie
                          ) -> SelectResult:
@@ -974,7 +1092,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         disagreement filter first; an empty set falls back to every
         unlabeled point, which is never subsampled."""
         cand0 = disagree & unlabeled
-        may_subsample = cand0.any(-1, keepdim=True)
+        may_subsample = any_over(cand0.any(-1, keepdim=True), mesh)
         cand = torch.where(may_subsample, cand0, unlabeled)
         return cand, may_subsample[..., 0]
 
@@ -1009,13 +1127,11 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
             subsampled = take
         if hp.q == "iid":
             scores = torch.ones(cand.shape, device=dev) / torch.clamp_min(
-                cand.sum(-1, keepdim=True), 1)
+                count_over(cand, mesh)[..., None], 1)
         else:
             scores = unc_scores.expand(cand.shape)
-        idx, n_ties = masked_argmax_tiebreak(k_tie, scores, cand,
-                                             rtol=_TIE_RTOL, atol=_TIE_ATOL)
-        return SelectResult(idx=idx,
-                            prob=scores.gather(-1, idx[..., None])[..., 0],
+        idx, n_ties, prob = _argmax(k_tie, scores, cand)
+        return SelectResult(idx=idx, prob=prob,
                             stochastic=(n_ties > 1) | subsampled,
                             scores=torch.where(cand, scores, float("-inf")))
 
@@ -1102,7 +1218,10 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     # -- update: one form for a state with or without a replica axis ------
 
     def _pred_rows(idx):
-        """Each model's hard prediction at ``idx``: (..., H)."""
+        """Each model's hard prediction at ``idx``: (..., H); under a mesh
+        read on the rank that holds the item and sent to all."""
+        if mesh is not None:
+            return broadcast_from_owner(hard_preds, idx, mesh)
         return hard_preds.index_select(0, idx.reshape(-1).to(torch.int64)) \
             .reshape(idx.shape + (H,))
 
@@ -1136,15 +1255,6 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         if state.sparse is not None:
             return sparse_row_beta(state.sparse, true_class)
         return row_beta(state.dirichlets, true_class)
-
-    def _mark_labeled(unlabeled, idx):
-        """``idx`` (one point, the round's (q,), or one a replica) leaves
-        the unlabeled set, IN PLACE."""
-        idx = idx.to(torch.int64)
-        if unlabeled.dim() == 1:
-            unlabeled.index_fill_(0, idx.reshape(-1), False)
-        else:
-            unlabeled[torch.arange(idx.shape[0], device=dev), idx] = False
 
     def _delta_col(state: CODAState, true_class, pred_at, w=None):
         """Add the label's exact pi-hat increment to column ``true_class``
@@ -1229,15 +1339,15 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         pred_at = _pred_rows(idx)
         beta_t = _post_add(state, true_class, pred_at, w)
         batched = true_class.dim() > 0
-        _mark_labeled(state.unlabeled, idx)
+        clear_items(state.unlabeled, idx, mesh)
         if not incremental:
-            pi_xi, pi = update_pi_hat(state.dirichlets, preds)
+            pi_xi, pi = update_pi_hat(state.dirichlets, preds, mesh)
             return state._replace(pi_hat_xi=pi_xi, pi_hat=pi)
         if pi_update == "delta":
             _delta_col(state, true_class, pred_at, w)
         else:
             _exact_col(state, true_class)
-        pi_xi, pi = _normalize_pi(state.pi_xi_unnorm)
+        pi_xi, pi = _normalize_pi(state.pi_xi_unnorm, mesh)
         c = true_class.to(torch.int64)
         fit = state.surrogate
         if fused:
@@ -1331,7 +1441,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         for j in range(q):
             _post_add(state, tcs[j], pred_q[j],
                       None if ws is None else ws[j])
-        _mark_labeled(state.unlabeled, idxs)
+        clear_items(state.unlabeled, idxs, mesh)
         if not incremental:
             pi_xi, pi = update_pi_hat(state.dirichlets, preds)
             return state._replace(pi_hat_xi=pi_xi, pi_hat=pi)

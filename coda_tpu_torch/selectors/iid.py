@@ -10,17 +10,28 @@ costs O(H) besides the ``(N,)`` draw.
 ``update`` modifies the state's tensors IN PLACE (the unlabeled mask, the
 loss total and the label count), as CODA's does; the reference returned
 new arrays.
+
+Under a mesh (``mesh=``, ``parallel/mesh.py``) ``preds`` is this rank's
+block of N: the draw is the mesh form of ``categorical`` over every
+rank's block, the labelled item's predictions come from the rank that
+holds it, and the risk is replicated.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from coda_tpu_torch import random as trandom
 from coda_tpu_torch.losses import accuracy_loss
-from coda_tpu_torch.ops.masked import masked_argmin_tiebreak
+from coda_tpu_torch.ops.masked import masked_argmin_tiebreak, mesh_categorical
+from coda_tpu_torch.parallel.collectives import (
+    broadcast_from_owner,
+    clear_items,
+    count_over,
+)
+from coda_tpu_torch.parallel.mesh import Mesh
 from coda_tpu_torch.selectors.protocol import Selector, SelectResult
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -34,18 +45,24 @@ class RiskState(NamedTuple):
 
 
 def loss_at(preds: torch.Tensor, loss_fn: Callable, idx: torch.Tensor,
-            true_class: torch.Tensor) -> torch.Tensor:
+            true_class: torch.Tensor, mesh: Optional[Mesh] = None
+            ) -> torch.Tensor:
     """(H,) float32: every model's loss on point ``idx`` labeled
-    ``true_class`` (0-d device tensors; no host synchronisation)."""
+    ``true_class`` (0-d device tensors; no host synchronisation). Under a
+    ``mesh`` the point's predictions come from the rank that holds it."""
     H = preds.shape[0]
-    at = preds.index_select(1, idx.reshape(1).to(torch.int64))[:, 0]
+    if mesh is not None:
+        at = broadcast_from_owner(preds, idx.reshape(1), mesh, dim=1)[0]
+    else:
+        at = preds.index_select(1, idx.reshape(1).to(torch.int64))[:, 0]
     return loss_fn(at, true_class.reshape(1).expand(H)).to(torch.float32)
 
 
-def make_risk_readout(preds: torch.Tensor, loss_fn: Callable):
+def make_risk_readout(preds: torch.Tensor, loss_fn: Callable,
+                      mesh: Optional[Mesh] = None):
     """``(init_state, risk, best, update)`` over :class:`RiskState`, on
     ``preds``' device. Shared by IID and Uncertainty (they differ only in
-    acquisition)."""
+    acquisition). ``mesh``: ``preds`` is this rank's block of N."""
     H, N, C = preds.shape
     dev = preds.device
     every_model = torch.ones(H, dtype=torch.bool, device=dev)
@@ -69,8 +86,9 @@ def make_risk_readout(preds: torch.Tensor, loss_fn: Callable):
 
     def update(state: RiskState, idx, true_class, prob=None) -> RiskState:
         del prob
-        state.loss_total.add_(loss_at(preds, loss_fn, idx, true_class))
-        state.unlabeled.index_fill_(0, idx.reshape(1).to(torch.int64), False)
+        state.loss_total.add_(loss_at(preds, loss_fn, idx, true_class,
+                                      mesh))
+        clear_items(state.unlabeled, idx.reshape(1), mesh)
         state.n_labeled.add_(1)
         return state
 
@@ -78,12 +96,14 @@ def make_risk_readout(preds: torch.Tensor, loss_fn: Callable):
 
 
 def make_iid(preds: torch.Tensor, loss_fn: Callable = accuracy_loss,
-             name: str = "iid", device: DeviceLike = None) -> Selector:
+             name: str = "iid", device: DeviceLike = None,
+             mesh: Optional[Mesh] = None) -> Selector:
     """The IID selector over a ``(H, N, C)`` prediction tensor, on
-    ``device`` (default: the card)."""
-    dev = resolve_device(device)
+    ``device`` (default: the card); with a ``mesh``, over this rank's
+    ``(H, N/d, C)`` block on the mesh's device (indices global)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
-    init_state, risk, best, update = make_risk_readout(preds, loss_fn)
+    init_state, risk, best, update = make_risk_readout(preds, loss_fn, mesh)
     always = torch.ones((), dtype=torch.bool, device=dev)
 
     def init(key=None) -> RiskState:
@@ -91,9 +111,12 @@ def make_iid(preds: torch.Tensor, loss_fn: Callable = accuracy_loss,
         return init_state()
 
     def select(state: RiskState, key) -> SelectResult:
-        inv = 1.0 / state.unlabeled.sum().to(torch.float32)
+        inv = 1.0 / count_over(state.unlabeled, mesh).to(torch.float32)
         logits = torch.where(state.unlabeled, 0.0, float("-inf"))
-        idx = trandom.categorical(key, logits)
+        if mesh is not None:
+            idx = mesh_categorical(key, logits, mesh)[..., 1].to(torch.int64)
+        else:
+            idx = trandom.categorical(key, logits)
         # uniform acquisition: each candidate's utility is its selection
         # probability (the flight recorder's top-k then reads all-equal
         # scores, which the triage treats as a maximal tie)

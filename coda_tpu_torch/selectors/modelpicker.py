@@ -11,17 +11,26 @@ models (counterpart of ``coda_tpu/selectors/modelpicker.py``).
     broken at random.
 
 ``update`` writes the mask, the counts and the label count IN PLACE and
-replaces the posterior.
+replaces the posterior. Under a mesh the expected entropies are per item,
+so each rank scores its block; the disagreement fallback and the pick
+cross ranks, and the labelled item's predictions come from its owner.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from coda_tpu_torch import random as trandom
 from coda_tpu_torch.ops.masked import masked_argmin_tiebreak
+from coda_tpu_torch.parallel.collectives import (
+    any_over,
+    broadcast_from_owner,
+    clear_items,
+    count_over,
+)
+from coda_tpu_torch.parallel.mesh import Mesh
 from coda_tpu_torch.selectors.protocol import Selector, SelectResult
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -135,10 +144,12 @@ def expected_entropies(hard_preds: torch.Tensor, posterior: torch.Tensor,
 
 def make_modelpicker(preds: torch.Tensor, epsilon: float = DEFAULT_EPS,
                      name: str = "model_picker",
-                     device: DeviceLike = None) -> Selector:
+                     device: DeviceLike = None,
+                     mesh: Optional[Mesh] = None) -> Selector:
     """The ModelPicker selector over a ``(H, N, C)`` prediction tensor, on
-    ``device`` (default: the card)."""
-    dev = resolve_device(device)
+    ``device`` (default: the card); ``mesh``: this rank's block of N on
+    the mesh's device (indices global)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
     H, N, C = preds.shape
     epsilon = float(epsilon)
@@ -164,10 +175,12 @@ def make_modelpicker(preds: torch.Tensor, epsilon: float = DEFAULT_EPS,
         ent = expected_entropies(hard_preds, state.posterior, gamma, C)
         # restrict to disagreement points while any remains unlabeled
         cand0 = disagree & state.unlabeled
-        cand = torch.where(cand0.any(), cand0, state.unlabeled)
-        idx, _ = masked_argmin_tiebreak(key, ent, cand)
+        cand = torch.where(any_over(cand0.any(), mesh), cand0,
+                           state.unlabeled)
+        idx, _ = masked_argmin_tiebreak(key, ent, cand, mesh=mesh)
         return SelectResult(
-            idx=idx, prob=1.0 / state.unlabeled.sum().to(torch.float32),
+            idx=idx,
+            prob=1.0 / count_over(state.unlabeled, mesh).to(torch.float32),
             stochastic=always,
             # argmin acquisition, negated for the recorder's
             # higher-is-better top-k
@@ -176,12 +189,16 @@ def make_modelpicker(preds: torch.Tensor, epsilon: float = DEFAULT_EPS,
     def update(state: ModelPickerState, idx, true_class, prob=None
                ) -> ModelPickerState:
         del prob
-        pred_i = hard_preds.index_select(
-            0, idx.reshape(1).to(torch.int64))[0]                  # (H,)
+        if mesh is not None:
+            pred_i = broadcast_from_owner(hard_preds, idx.reshape(1),
+                                          mesh)[0]                 # (H,)
+        else:
+            pred_i = hard_preds.index_select(
+                0, idx.reshape(1).to(torch.int64))[0]              # (H,)
         agree = pred_i == true_class.to(torch.int32)
         post = state.posterior * torch.pow(gamma32, agree.to(torch.float32))
         state.correct_counts.add_(agree.to(torch.int32))
-        state.unlabeled.index_fill_(0, idx.reshape(1).to(torch.int64), False)
+        clear_items(state.unlabeled, idx.reshape(1), mesh)
         state.n_labeled.add_(1)
         return state._replace(posterior=post / post.sum())
 

@@ -4,17 +4,22 @@
 Selects the unlabeled point with the highest entropy of the ensemble-mean
 prediction (natural log, 1e-8 epsilon); the best-model readout is IID's.
 The acquisition does not adapt, so the scores are computed once in the
-factory. ``update`` works in place (see ``selectors/iid.py``).
+factory. ``update`` works in place (see ``selectors/iid.py``). Under a
+mesh the scores are this rank's block's and the pick the mesh arg-max.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from coda_tpu_torch.losses import accuracy_loss
-from coda_tpu_torch.ops.masked import masked_argmax_tiebreak
+from coda_tpu_torch.ops.masked import (
+    masked_argmax_tiebreak,
+    mesh_masked_argmax_tiebreak,
+)
+from coda_tpu_torch.parallel.mesh import Mesh
 from coda_tpu_torch.selectors.iid import RiskState, make_risk_readout
 from coda_tpu_torch.selectors.protocol import Selector, SelectResult
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -29,21 +34,28 @@ def uncertainty_scores(preds: torch.Tensor,
 
 def make_uncertainty(preds: torch.Tensor, loss_fn: Callable = accuracy_loss,
                      name: str = "uncertainty",
-                     device: DeviceLike = None) -> Selector:
+                     device: DeviceLike = None,
+                     mesh: Optional[Mesh] = None) -> Selector:
     """The Uncertainty selector over a ``(H, N, C)`` prediction tensor, on
-    ``device`` (default: the card)."""
-    dev = resolve_device(device)
+    ``device`` (default: the card); ``mesh``: see ``make_iid``."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
     scores = uncertainty_scores(preds)
-    init_state, risk, best, update = make_risk_readout(preds, loss_fn)
+    init_state, risk, best, update = make_risk_readout(preds, loss_fn, mesh)
 
     def init(key=None) -> RiskState:
         del key
         return init_state()
 
     def select(state: RiskState, key) -> SelectResult:
-        idx, n_ties = masked_argmax_tiebreak(key, scores, state.unlabeled)
-        return SelectResult(idx=idx, prob=scores.take(idx),
+        if mesh is not None:
+            idx, n_ties, prob = mesh_masked_argmax_tiebreak(
+                key, scores, state.unlabeled, mesh)
+        else:
+            idx, n_ties = masked_argmax_tiebreak(key, scores,
+                                                 state.unlabeled)
+            prob = scores.take(idx)
+        return SelectResult(idx=idx, prob=prob,
                             stochastic=n_ties > 1,
                             scores=torch.where(state.unlabeled, scores,
                                                float("-inf")))

@@ -14,7 +14,7 @@ at H = 1000, N = 50,000). They are static, computed once in the factory.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -23,6 +23,7 @@ from coda_tpu_torch.selectors.activetesting import (
     make_activetesting,
     surrogate_expected_losses,
 )
+from coda_tpu_torch.parallel.mesh import Mesh
 from coda_tpu_torch.selectors.protocol import Selector
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -43,11 +44,13 @@ def vma_scores(preds: torch.Tensor) -> torch.Tensor:
 
 def make_vma(preds: torch.Tensor, loss_fn: Callable = accuracy_loss,
              budget: int = 128, name: str = "vma",
-             device: DeviceLike = None) -> Selector:
+             device: DeviceLike = None,
+             mesh: Optional[Mesh] = None) -> Selector:
     """The VMA selector over a ``(H, N, C)`` prediction tensor, on
-    ``device`` (default: the card)."""
-    dev = resolve_device(device)
+    ``device`` (default: the card); ``mesh``: see ``make_iid`` (the
+    scores are per item, so a block's are its own)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
     return make_activetesting(preds, loss_fn=loss_fn, budget=budget,
                               name=name, acquisition_scores=vma_scores(preds),
-                              device=dev)
+                              device=dev, mesh=mesh)

@@ -1,0 +1,317 @@
+"""Rank programs for the port's mesh tests (``test_torch_mesh.py``,
+``test_torch_distributed.py``).
+
+:func:`spawn` starts a world of ``world`` CPU processes through
+``torch.multiprocessing`` (spawn), each joining one gloo group through a
+``file://`` store under the test's temporary directory (no port, so
+parallel test workers cannot collide), running the named jobs and saving
+what they return to ``rank<r>.pt``. This module imports neither JAX nor
+the reference package: the ranks run only the port; the tests compare
+what they saved against the reference in the test process.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import os
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the reference's task of its sharding tests (tests/test_sharding.py)
+TASK = dict(seed=7, H=8, N=64, C=4)
+ITERS = 8
+TRACE_METHODS = ("coda", "coda_factored", "iid", "uncertainty",
+                 "activetesting", "vma")
+
+
+def spawn(world: int, tmp: str, jobs: tuple, env: bool = False) -> list:
+    """Run ``jobs`` on ``world`` ranks; returns each rank's results.
+    ``env``: the ranks find their rank and size in torchrun's
+    environment variables instead of arguments."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(_rank_main, args=(world, str(tmp), tuple(jobs), env),
+             nprocs=world, join=True)
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _rank_main(rank: int, world: int, tmp: str, jobs: tuple,
+               env: bool) -> None:
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    torch.set_num_threads(1)
+    from coda_tpu_torch.parallel.distributed import initialize, shutdown
+
+    store = f"file://{os.path.join(tmp, 'store')}"
+    if env:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          LOCAL_RANK=str(rank),
+                          LOCAL_WORLD_SIZE=str(world))
+        joined = initialize(init_method=store, device="cpu", timeout_s=120)
+    else:
+        joined = initialize(init_method=store, world_size=world, rank=rank,
+                            device="cpu", timeout_s=120)
+    out = {"joined": joined}
+    try:
+        for job in jobs:
+            out[job] = JOBS[job](rank, world, tmp)
+    finally:
+        shutdown()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def _mesh(world: int):
+    from coda_tpu_torch.parallel import make_mesh
+
+    return make_mesh(data=world, device="cpu")
+
+
+def factory(method: str):
+    """``(preds, mesh=None) -> Selector`` of a method of the traces."""
+    from coda_tpu_torch.selectors import (
+        SELECTOR_FACTORIES,
+        CODAHyperparams,
+        make_coda,
+    )
+
+    if method == "coda":
+        hp = CODAHyperparams(eig_mode="incremental")
+    elif method == "coda_factored":
+        hp = CODAHyperparams(eig_mode="factored")
+    else:
+        kw = {"budget": ITERS} if method in ("activetesting", "vma") else {}
+        return lambda p, mesh=None: SELECTOR_FACTORIES[method](
+            p, device="cpu", mesh=mesh, **kw)
+    return lambda p, mesh=None: make_coda(p, hp, device="cpu", mesh=mesh)
+
+
+def _result(res) -> dict:
+    return {k: getattr(res, k).numpy() for k in
+            ("chosen_idx", "best_model", "regret", "select_prob")}
+
+
+def job_traces(rank, world, tmp) -> dict:
+    """Every method of :data:`TRACE_METHODS` on the reference's task, one
+    seed x 8 rounds; CODA's incremental tier also as a 2-seed batch."""
+    from coda_tpu_torch.data import make_synthetic_task
+    from coda_tpu_torch.engine import run_seeds_compiled
+
+    mesh = _mesh(world)
+    task = make_synthetic_task(**TASK, mesh=mesh)
+    out = {}
+    for m in TRACE_METHODS:
+        out[m] = _result(run_seeds_compiled(
+            factory(m), task.preds, task.labels, iters=ITERS, seeds=1,
+            device="cpu", mesh=mesh))
+    out["coda_batch2"] = _result(run_seeds_compiled(
+        factory("coda"), task.preds, task.labels, iters=ITERS, seeds=2,
+        device="cpu", mesh=mesh))
+    return out
+
+
+def job_blocks(rank, world, tmp) -> dict:
+    """This rank's block of the per-item quantities: ModelPicker's
+    expected entropies, the direct-tier EIG scores of an initial CODA
+    state (the reference's ``test_sharded_eig_scores_match`` task), the
+    incremental cache's shape, and the sharded entries' plain versions on
+    the arrays the test wrote."""
+    from coda_tpu_torch.data import make_synthetic_task
+    from coda_tpu_torch.ops import eig_kernels as ek
+    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+    from coda_tpu_torch.selectors.modelpicker import expected_entropies
+
+    mesh = _mesh(world)
+    out = {}
+    task = make_synthetic_task(**TASK, mesh=mesh)
+    hard = task.preds.argmax(-1).T.to(torch.int32)
+    post = torch.full((8,), 1.0 / 8)
+    out["entropies"] = expected_entropies(hard, post, (1 - 0.46) / 0.46,
+                                          4).numpy()
+    t11 = make_synthetic_task(seed=11, H=4, N=64, C=4, mesh=mesh)
+    sel = make_coda(t11.preds, CODAHyperparams(eig_chunk=64, num_points=64),
+                    device="cpu", mesh=mesh)
+    st = sel.init(None)
+    hard11 = t11.preds.argmax(-1).T.to(torch.int32)
+    out["eig_scores"] = sel.extras["eig_scores"](
+        st.dirichlets, st.pi_hat, st.pi_hat_xi, hard11, num_points=64,
+        chunk=64).numpy()
+    t9 = make_synthetic_task(seed=9, H=8, N=64, C=4, mesh=mesh)
+    st9 = make_coda(t9.preds, CODAHyperparams(eig_mode="incremental",
+                                              eig_chunk=64),
+                    device="cpu", mesh=mesh).init(None)
+    out["cache_shape"] = tuple(st9.pbest_hyp.shape)
+    out["preds_block"] = t9.preds.numpy()
+    arrs = np.load(os.path.join(tmp, "entries.npz"))
+    n = arrs["hyp"].shape[1] // world
+    blk = slice(rank * n, (rank + 1) * n)
+    rows, pi = (torch.from_numpy(arrs[k]) for k in ("rows", "pi"))
+    hyp = torch.from_numpy(np.ascontiguousarray(arrs["hyp"][:, blk]))
+    pi_xi = torch.from_numpy(np.ascontiguousarray(arrs["pi_xi"][blk]))
+    N = arrs["hyp"].shape[1]
+    out["cache_scores"] = ek.eig_scores_cache_sharded(
+        rows, hyp, pi, pi_xi, mesh, N).numpy()
+    hyp_t = torch.from_numpy(np.ascontiguousarray(arrs["hyp_t"][blk]))
+    c = torch.tensor(int(arrs["c"]))
+    rows_new = torch.from_numpy(arrs["rows_new"])
+    scores, hyp_out = ek.eig_scores_refresh_sharded(
+        rows_new, hyp.clone(), hyp_t, c, pi, pi_xi, mesh, N)
+    out["refresh_scores"] = scores.numpy()
+    out["refresh_cache"] = hyp_out.numpy()
+    try:
+        ek.eig_scores_cache_sharded(rows, hyp, pi, pi_xi, mesh, N + world)
+        out["block_check"] = None
+    except ValueError as e:
+        out["block_check"] = str(e)
+    return out
+
+
+def job_large_c(rank, world, tmp) -> dict:
+    """The large-C factored and rowscan tiers (C = 1000) with the auto
+    budgets shrunk until the resolver picks each, as the reference's
+    ``test_large_c_sharded_execution_parity`` runs them."""
+    from coda_tpu_torch.data import make_synthetic_task
+    from coda_tpu_torch.engine import run_seeds_compiled
+    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+    from coda_tpu_torch.selectors import coda as coda_mod
+
+    mesh = _mesh(world)
+    H, N, C = 16, 512, 1000
+    hp = CODAHyperparams(eig_chunk=128, num_points=32)
+    task = make_synthetic_task(seed=13, H=H, N=N, C=C, sharpness=12.0,
+                               mesh=mesh)
+    out = {}
+    saved = (coda_mod._INCR_CACHE_MAX_BYTES, coda_mod._TABLES_MAX_BYTES)
+    for tier, tables in (("factored", saved[1]), ("rowscan", 1 << 20)):
+        coda_mod._INCR_CACHE_MAX_BYTES, coda_mod._TABLES_MAX_BYTES = (
+            1 << 20, tables)
+        try:
+            assert coda_mod.resolve_eig_mode(hp, H, N, C) == tier
+            out[tier] = _result(run_seeds_compiled(
+                lambda p, mesh=None: make_coda(p, hp, device="cpu",
+                                               mesh=mesh),
+                task.preds, task.labels, iters=4, seeds=1, device="cpu",
+                mesh=mesh))
+        finally:
+            coda_mod._INCR_CACHE_MAX_BYTES, coda_mod._TABLES_MAX_BYTES = \
+                saved
+    return out
+
+
+def job_collectives(rank, world, tmp) -> dict:
+    """The collectives and the mesh forms of the selection primitives on
+    the vectors the test wrote (``collectives.npz``): each rank takes its
+    block and returns what every rank should agree on."""
+    from coda_tpu_torch import random as trandom
+    from coda_tpu_torch.ops.masked import (
+        masked_argmax_tiebreak,
+        masked_argmin_tiebreak,
+        masked_categorical,
+        mesh_masked_argmax_tiebreak,
+    )
+    from coda_tpu_torch.parallel.collectives import (
+        broadcast_from_owner,
+        clear_items,
+        gather_sum,
+    )
+
+    mesh = _mesh(world)
+    z = np.load(os.path.join(tmp, "collectives.npz"))
+    N = z["scores"].shape[-1]
+    n = N // world
+    blk = slice(rank * n, (rank + 1) * n)
+
+    def block(name):
+        return torch.from_numpy(np.ascontiguousarray(z[name][..., blk]))
+
+    out = {"gather_sum": gather_sum(torch.from_numpy(z["parts"][rank]),
+                                    mesh).numpy()}
+    key = torch.from_numpy(z["key"])
+    keys = torch.from_numpy(z["keys"])
+    picks = []
+    for r in range(z["scores"].shape[0]):
+        s, m = block("scores")[r], block("mask")[r]
+        for tol in ((0.0, 0.0), (1e-3, 1e-3)):
+            idx, nt, val = mesh_masked_argmax_tiebreak(key, s, m, mesh, *tol)
+            picks.append((int(idx), int(nt), float(val)))
+            picks.append(tuple(int(v) for v in masked_argmin_tiebreak(
+                key, s, m, *tol, mesh=mesh)))
+        idx, p = masked_categorical(key, block("weights")[r], m, mesh=mesh)
+        picks.append((int(idx), float(p)))
+    out["picks"] = picks
+    idx, nt = masked_argmax_tiebreak(keys, block("scores"), block("mask"),
+                                     mesh=mesh)
+    out["batched"] = (idx.numpy(), nt.numpy())
+    out["uniform"] = trandom.uniform(key, (n,), start=rank * n,
+                                     total=N).numpy()
+    items = torch.from_numpy(z["items"])
+    out["owner_rows"] = broadcast_from_owner(
+        torch.from_numpy(np.ascontiguousarray(z["table"][blk])), items,
+        mesh).numpy()
+    out["owner_cols"] = broadcast_from_owner(
+        block("scores"), items, mesh, dim=1).numpy()
+    mask = torch.ones(n, dtype=torch.bool)
+    clear_items(mask, items[:1], mesh)
+    out["cleared"] = mask.numpy()
+    return out
+
+
+def _captured(fn, *args) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args)
+    return buf.getvalue()
+
+
+def job_cli(rank, world, tmp) -> dict:
+    """The command line under ``--mesh``: the single-task run of CODA and
+    the baselines (their printed lines, rank 0's tracking store), ``cli
+    suite`` on ``data/`` (``pyfiles``, N=500, shards; ``iris``, N=105,
+    falls back unsharded), and the refusal of a task whose N does not
+    divide the mesh."""
+    from coda_tpu_torch import cli
+    from coda_tpu_torch.parallel.distributed import is_primary
+
+    out = {"primary": is_primary(), "runs": {}}
+    base = ["--synthetic", "6,64,4", "--iters", "5", "--seeds", "2",
+            "--device", "cpu", "--mesh", f"data={world}"]
+    for m in ("coda", "iid", "uncertainty", "activetesting", "vma",
+              "model_picker"):
+        out["runs"][m] = _captured(cli.main, base + [
+            "--method", m, "--tracking-db", os.path.join(tmp, "t.sqlite")])
+    out["suite"] = _captured(cli.main, [
+        "suite", "--pred-dir", os.path.join(REPO, "data"), "--tasks",
+        "pyfiles,iris", "--methods", "coda,iid", "--seeds", "2", "--iters",
+        "6", "--device", "cpu", "--mesh", f"data={world}", "--db",
+        os.path.join(tmp, "s.sqlite")])
+    try:
+        cli.main(["--synthetic", "4,63,3", "--method", "coda", "--iters",
+                  "2", "--device", "cpu", "--no-mlflow", "--mesh",
+                  f"data={world}"])
+        out["odd_n"] = None
+    except ValueError as e:
+        out["odd_n"] = str(e)
+    return out
+
+
+def job_env(rank, world, tmp) -> dict:
+    """What a rank sees after joining through torchrun's variables."""
+    import torch.distributed as dist
+
+    from coda_tpu_torch.parallel.collectives import gather_sum
+    from coda_tpu_torch.parallel.distributed import is_primary
+
+    mesh = _mesh(world)
+    total = gather_sum(torch.tensor([float(rank + 1)]), mesh)
+    return {"rank": dist.get_rank(), "size": dist.get_world_size(),
+            "backend": dist.get_backend(), "primary": is_primary(),
+            "sum": float(total[0])}
+
+
+JOBS = {"traces": job_traces, "blocks": job_blocks, "large_c": job_large_c,
+        "collectives": job_collectives, "cli": job_cli, "env": job_env}

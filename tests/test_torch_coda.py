@@ -271,14 +271,15 @@ def test_disagreement_mask_matches_reference():
     ("eig_scorer", "surrogate:8"), ("surrogate_prior", "pool"),
     ("shard_spec", "data=2")])
 def test_later_slice_knobs_raise(knob, value):
-    """Knobs of later slices raise NotImplementedError naming the slice —
-    never a silent fallback. Slice 4's knobs build now: the surrogate
-    scorer, and the pool prior with it (alone it is the reference's
-    refusal)."""
+    """Knobs of later slices raise — never a silent fallback. Slice 4's
+    knobs build now: the surrogate scorer, and the pool prior with it
+    (alone it is the reference's refusal); slice 5's ``shard_spec`` runs
+    one process a shard, so a process alone is short of its ranks (the
+    reference's "needs" error)."""
     preds = torch.from_numpy(np.array(_jax_task("synthetic").preds))
     hp = tcoda.CODAHyperparams(**{knob: value})
     if knob == "shard_spec":
-        with pytest.raises(NotImplementedError, match="slice 5"):
+        with pytest.raises(ValueError, match="mesh 2x1 needs 2 ranks"):
             tcoda.make_coda(preds, hp, device="cpu")
         return
     if knob == "surrogate_prior":

@@ -152,9 +152,10 @@ def test_port_replay_seed_set_and_out(port_records, tmp_path, capsys):
 
 def test_port_replay_refuses_other_programs(port_records, tmp_path):
     """A crowd-oracle record re-executes the crowd program from its knobs
-    (a spec the crowd cannot parse raises its error); a mesh knob names
-    the N-axis parallel part of slice 5; on a machine without a card the
-    default device raises (no fallback to the CPU)."""
+    (a spec the crowd cannot parse raises its error); a record made
+    under a mesh raises naming the next mesh slice (slice 5 brought the
+    mesh, not its recorder); on a machine without a card the default
+    device raises (no fallback to the CPU)."""
     rec = trec.RunRecord.load(port_records["coda"])
     noisy = trec.RunRecord(json.loads(json.dumps(rec.meta)), rec.arrays)
     noisy.meta["fingerprint"]["knobs"]["oracle_noise"] = "flip:0.2"
@@ -169,10 +170,9 @@ def test_port_replay_refuses_other_programs(port_records, tmp_path):
     assert treplay.record_crowd_config(rec) is None
     meshed = trec.RunRecord(json.loads(json.dumps(rec.meta)), rec.arrays)
     meshed.meta["fingerprint"]["knobs"]["mesh"] = "data=2"
-    ds, factory, _ = treplay.load_record_environment(meshed, device="cpu")
     with pytest.raises(NotImplementedError,
-                       match="N-axis parallel part of slice 5"):
-        factory(ds.preds)
+                       match="next mesh slice of the port .slice 5"):
+        treplay.load_record_environment(meshed, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             _port_cli(["replay", port_records["coda"]])

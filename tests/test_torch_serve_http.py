@@ -232,7 +232,8 @@ def test_port_cli_serve_eig_mode_flag():
 
 
 def test_port_refusals_name_their_slice(task):
-    """Only the N axis (slice 5) is refused, naming its slice. Tiering,
+    """Only the mesh's model axis is refused, naming the next mesh slice
+    (slice 5 ported the N axis). Tiering,
     the quality plane, export/import, restore, the answer verb, the prior
     pool, ``replay-serve``, ``quality``, ``trace``, ``render_fleet`` and
     the server's half of a migration run: ``export`` with ``hold`` holds
@@ -255,7 +256,7 @@ def test_port_refusals_name_their_slice(task):
     with pytest.raises(NotImplementedError, match="slice 5"):
         cli.main(["--synthetic", "4,32,3", "--device", "cpu", "--method",
                   "coda", "--iters", "2", "--no-mlflow", "--mesh",
-                  "data:1"])
+                  "model=2"])
     with pytest.raises(SystemExit) as e:
         cli.main(["replay-serve", "--help"])
     assert e.value.code == 0

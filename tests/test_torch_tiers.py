@@ -592,9 +592,10 @@ def test_cli_runs_every_reference_knob(knob, capsys):
 @pytest.mark.parametrize("knob,where", [
     (["--eig-scorer", "surrogate:8"], "slice 4"),
     (["--surrogate-prior", "pool"], "slice 4"),
-    (["--mesh", "data=2"], "slice 5")])
+    (["--mesh", "model=2"], "slice 5")])
 def test_cli_later_slice_flags_raise(knob, where, tmp_path):
-    """``--mesh`` raises naming its slice (5). The slice 4 flags run now:
+    """``--mesh`` with a model axis raises naming the next mesh slice
+    (slice 5 ported the data axis alone). The slice 4 flags run now:
     ``--eig-scorer surrogate:8``, and ``--surrogate-prior pool`` with it;
     ``pool`` alone is the reference's refusal."""
     from coda_tpu_torch.cli import main
