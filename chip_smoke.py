@@ -140,12 +140,12 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    ActiveTesting; 1 seed, every 10 rounds) cut after round 20 and resumed
    to 30, every trace bitwise the uninterrupted run, with a checkpoint's
    bytes and its save and restore seconds; the suite over ``data/`` (the
-   six methods, 5 seeds x 25 rounds, ``runs/real.sqlite``'s sweep cut
+   six methods, 5 seeds x 15 rounds, ``runs/real.sqlite``'s sweep cut
    from 100 rounds) into
    a fresh database, its rerun skipping every pair, a 3-task x 2-seed x
    30-round subset under ``--task-batch --suite-devices 1`` bitwise the
    serial run, two pairs' rows bitwise the single-task CLI's, and a
-   table of mean cumulative regret x100 at step 25 beside
+   table of mean cumulative regret x100 at step 15 beside
    ``runs/real.sqlite``'s (information, not a gate). It prints the
    sweep's and the phase's wall time.
 10. the "crowd and telemetry" phase, each in-process run with the
@@ -257,7 +257,7 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    ``/best`` bitwise its value before the kill. Then every session's
    stream replays from init bitwise in a fresh slot (every label once),
    and each session's rows are bitwise the same seed's on one 12-slot app
-   with the same labels. (7) 12 closed-loop clients for 8 s against 1
+   with the same labels. (7) 12 closed-loop clients for 5 s against 1
    replica x 12 slots and 3 x 4, each replica as many sessions as slots
    (the default stream, a device busy share from one profiled second):
    labels a second, p50/p99. (8) The six fleet
@@ -275,10 +275,10 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    ``python -m torch.distributed.run --standalone --nproc-per-node 2``
    (``--mesh data=2``: two ranks over gloo on the one card, each holding
    its half of N; a subprocess in its own session, killed at 420 s): CODA
-   with the CLI's defaults, 1 seed x 30 rounds (kernels 1, 2, 3 on each
-   rank's block); 5 seeds x 10 rounds as one batch on the incremental
+   with the CLI's defaults, 1 seed x 20 rounds (kernels 1, 2, 3 on each
+   rank's block); 5 seeds x 5 rounds as one batch on the incremental
    tier (kernels 4, 5 and the batched 3); the paper's 5-seed command
-   (auto, the factored tier) x 5; the five baselines x 20; and ``cli
+   (auto, the factored tier) x 3; the five baselines x 10; and ``cli
    suite --mesh`` over ``pyfiles`` (sharded) and ``iris`` (unsharded,
    the reference's warning), 2 seeds x 10. Each rank, seed by seed: the
    unsharded run's chosen items and best models, regret within 1e-7,
@@ -292,6 +292,27 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    ms and each rank's peak memory beside the unsharded run's, with the
    card's name and power limit: gloo on one shared card checks the
    sharded program, it does not measure NCCL scaling.
+15. the mesh's model axis (H sharded): first kernels 1 and 2, fp32 and
+   bf16 caches, at the blocks the ranks below hand them — ``(C, N/a,
+   H/b)`` = (10, 50000, 500), (10, 50000, 250), (10, 25000, 500) — each
+   held to its plain version and timed (CUDA events), with the load path
+   it takes (16-byte vectors, or scalar where H/b is not a multiple of
+   the vector's width). Then phase 14's jobs on the same task files,
+   held to phase 14's unsharded yardstick (the same rounds), under
+   ``--mesh model=2`` (two ranks, each 500 of the 1000 models: CODA 1
+   seed x 20, 5 seeds x 5 on the incremental tier, the paper's command
+   x 3, the five baselines x 10) and ``--mesh data=2,model=2`` (four
+   ranks: CODA 1 seed x 10). Each rank: its data block's decisions, regret
+   and scores as phase 14's (a baseline's acquisition weights, sums over
+   the models that the model axis adds in another order, within 2.34e-4
+   of the job's largest weight); the fingerprint of the state its model
+   group holds alike (pi-hat and its item rows, the scores, the mask)
+   equal across the model group and of the state its data group holds
+   alike (its models' posterior and P(best) rows) across the data group;
+   on the card kernels 1, 2, 3 (main) and 4, 5, batched 3 (batch)
+   launched on every rank (added to the JSON line's counts). It prints ms
+   a round and each rank's peak memory beside the unsharded run's, and
+   the bytes a rank sends into its model group's collectives a round.
 
 It prints one JSON line with every kernel flavour (its ``launches`` summed
 over the main-path runs, the mesh's ranks' included), then the card's
@@ -2394,9 +2415,9 @@ REPLAY_PATHS = (
 )
 TAMPER_ROUND = 7
 CKPT_ROUNDS, CKPT_EVERY, CKPT_CUT = 30, 10, 25   # the cut run saves 10, 20
-# runs/real.sqlite's sweep (5 seeds x 100 rounds) cut to 25 rounds, its
-# table read at step 25: the whole smoke must end within its time limit
-SUITE_SEEDS, SUITE_ROUNDS = 5, 25
+# runs/real.sqlite's sweep (5 seeds x 100 rounds) cut to 15 rounds, its
+# table read at step 15: the whole smoke must end within its time limit
+SUITE_SEEDS, SUITE_ROUNDS = 5, 15
 SUBSET = ("digits", "iris", "wine")              # --task-batch subset
 SUBSET_SEEDS, SUBSET_ROUNDS = 2, 30
 CLI_PAIRS = (("digits", "coda"), ("digits", "model_picker"))
@@ -4882,7 +4903,7 @@ FLEET_CLIENTS = 8                    # client threads during the restart
 FLEET_THINK_S = 0.25                 # a client's pause between labels
 FLEET_CAP_LABELS = 25                # labels a session during the restart
 FLEET_BEFORE_S = 3.0                 # traffic before the restart, seconds
-FLEET_SCALE_S = 8.0                  # traffic a scaling configuration
+FLEET_SCALE_S = 5.0                  # traffic a scaling configuration
 FLEET_HTTP_CAPACITY = 4              # slots of a `cli serve` replica
 FLEET_CLI_EXTRA: list = []           # extra `cli serve` flags (rehearsals)
 _ROW_BITS = ("next_idx", "next_prob", "best", "pbest_max", "pbest_entropy",
@@ -5560,7 +5581,7 @@ def phase_fleet(dev, task, total: dict, smi: str) -> dict:
 
 
 MESH_D = 2                            # ranks of phase 14 (gloo, one card)
-MESH_ROUNDS = {"main": 30, "batch": 10, "paper": 5, "baselines": 20,
+MESH_ROUNDS = {"main": 20, "batch": 5, "paper": 3, "baselines": 10,
                "suite": 10}
 MESH_SUITE_TASKS = "pyfiles,iris"     # N = 500 shards; N = 105 falls back
 MESH_TIMEOUT_S = 420
@@ -5579,25 +5600,39 @@ def _mesh_driver():
     return mod, path
 
 
-def _mesh_hold(job: str, rank: int, got: dict, arr, one_arr) -> tuple:
+def _mesh_hold(job: str, rank: int, got: dict, arr, one_arr,
+               block: Optional[int] = None, scaled: bool = False) -> tuple:
     """A rank's run of ``job`` against the unsharded run, seed by seed:
     the same chosen items and best models and regret within 1e-7, and
-    each round's scores of the rank's block within 2.34e-4 of the
-    unsharded scores' slice (the same items finite) — up to a seed's
-    first differing pick, which must be a ``tie-break-flip``: the mesh's
-    item within 2.34e-4 of the unsharded round's best score (the
-    trajectories part there, as the replay triage's rule has it).
-    Returns ``(largest score difference, [(seed, round, gap), ...])``."""
+    each round's scores of the rank's block (its N block ``block``,
+    default its rank) within 2.34e-4 of the unsharded scores' slice (the
+    same items finite) — up to a seed's first differing pick, which must
+    be a ``tie-break-flip``: the mesh's item within 2.34e-4 of the
+    unsharded round's best score (the trajectories part there, as the
+    replay triage's rule has it). A rank's run of fewer rounds is held
+    to the unsharded run's first rounds. ``scaled``: the 2.34e-4 is
+    relative to the job's largest unsharded score where that exceeds 1
+    (a baseline's acquisition weights: sums over the models, which a
+    model axis adds in another order). Returns ``(largest score
+    difference, [(seed, round, gap), ...])``."""
     import numpy as np
 
     what = f"mesh {job} rank {rank}"
     if got["rc"] != 0:
         raise AssertionError(f"{what}: exit {got['rc']}")
+    block = rank if block is None else block
+    T = arr[f"{job}/chosen_idx"].shape[1]
+    one_arr = {k: one_arr[k][:T] if k == "scores" else one_arr[k][:, :T]
+               for k in ("chosen_idx", "best_model", "regret", "scores")}
     idx, idx1 = arr[f"{job}/chosen_idx"], one_arr["chosen_idx"]
     s, s1 = arr[f"{job}/scores"], one_arr["scores"]
     if s.ndim == 2:                      # one seed: (T, n) -> (T, 1, n)
         s, s1 = s[:, None], s1[:, None]
     n = s.shape[-1]
+    fin1 = np.isfinite(s1)
+    scale = max(1.0, float(np.abs(s1[fin1]).max())) \
+        if scaled and fin1.any() else 1.0
+    contract = CONTRACT * scale
     worst, flips = 0.0, []
     for seed in range(idx.shape[0]):
         diff = np.flatnonzero(idx[seed] != idx1[seed])
@@ -5606,11 +5641,11 @@ def _mesh_hold(job: str, rank: int, got: dict, arr, one_arr) -> tuple:
             t = t_end
             row = s1[t, seed]
             gap = float(row[np.isfinite(row)].max() - row[idx[seed, t]])
-            if not gap <= CONTRACT:
+            if not gap <= contract:
                 raise AssertionError(
                     f"{what}: seed {seed} picks {idx[seed, t]} at round {t}"
                     f", the unsharded run {idx1[seed, t]}, {gap} below the "
-                    f"round's best (contract {CONTRACT})")
+                    f"round's best (contract {contract})")
             flips.append((seed, t, gap))
         keep = slice(0, t_end)
         for k in ("best_model", "regret"):
@@ -5623,26 +5658,68 @@ def _mesh_hold(job: str, rank: int, got: dict, arr, one_arr) -> tuple:
                 raise AssertionError(f"{what}: seed {seed} regret differs "
                                      f"by {float(np.abs(a - b).max())}")
         got_s = s[:t_end + 1, seed]
-        ref = s1[:t_end + 1, seed, rank * n:(rank + 1) * n]
+        ref = s1[:t_end + 1, seed, block * n:(block + 1) * n]
         fin = np.isfinite(ref)
         if not np.array_equal(fin, np.isfinite(got_s)):
             raise AssertionError(f"{what}: the candidate sets differ")
         if fin.any():
             worst = max(worst, float(np.abs(got_s[fin] - ref[fin]).max()))
-    if worst > CONTRACT:
+    if worst > contract:
         raise AssertionError(f"{what}: scores differ by {worst} > "
-                             f"{CONTRACT}")
-    return worst, flips
+                             f"{contract}")
+    return worst / scale, flips
 
 
-def phase_mesh(dev, task, total: dict, smi: str) -> dict:
-    """The N-axis mesh (see the module docstring, item 14). Returns the
-    measured figures."""
-    import shutil
+def _mesh_ranks(script: str, tmp: str, task_name: str, dev, n: int,
+                extra: list, out_dir: str, timeout_s: float) -> tuple:
+    """``scripts/torch_mesh_run.py`` on ``n`` ranks under ``python -m
+    torch.distributed.run`` (a subprocess in its own session, killed at
+    ``timeout_s``): ``(each rank's JSON, each rank's arrays)``."""
     import signal
-    import tempfile
 
     import numpy as np
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), script, "--data-dir", tmp,
+           "--task", task_name, "--out", out_dir,
+           "--device", dev.type] + extra
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        log(text[-4000:])
+        raise AssertionError(f"mesh ranks did not finish in {timeout_s} s")
+    if proc.returncode != 0:
+        log(text[-6000:])
+        raise AssertionError(f"mesh ranks exited {proc.returncode}")
+    for line in text.splitlines():
+        if line.startswith(("mesh ", "  ", "[data]")):
+            log(f"  | {line}")
+    ranks, arrs = [], []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        arrs.append(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+    return ranks, arrs
+
+
+def _rounds_arg(rounds: dict) -> list:
+    return ["--rounds", ",".join(f"{k}={v}" for k, v in rounds.items())]
+
+
+def phase_mesh(dev, task, total: dict, smi: str,
+               keep: Optional[dict] = None) -> dict:
+    """The N-axis mesh (see the module docstring, item 14). Returns the
+    measured figures. ``keep``: a dict that takes the task files'
+    directory (``tmp``, left in place) and the unsharded yardstick
+    (``one``) for phase 15."""
+    import shutil
+    import tempfile
+
     import torch
 
     t_phase = time.perf_counter()
@@ -5668,37 +5745,12 @@ def phase_mesh(dev, task, total: dict, smi: str) -> dict:
         out["unsharded_s"] = time.perf_counter() - t0
         one_rows = drv.suite_rows(os.path.join(tmp, "one.sqlite"))
         free()
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(MESH_D), script, "--data-dir", tmp,
-               "--task", task.name,
-               "--out", os.path.join(tmp, "ranks"), "--device", dev.type,
-               "--rounds", ",".join(f"{k}={v}"
-                                    for k, v in MESH_ROUNDS.items()),
-               "--suite-tasks", MESH_SUITE_TASKS]
         t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True,
-                                start_new_session=True)
-        try:
-            text, _ = proc.communicate(timeout=MESH_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            text, _ = proc.communicate()
-            log(text[-4000:])
-            raise AssertionError(f"mesh ranks did not finish in "
-                                 f"{MESH_TIMEOUT_S} s")
+        ranks, arrs = _mesh_ranks(
+            script, tmp, task.name, dev, MESH_D,
+            _rounds_arg(MESH_ROUNDS) + ["--suite-tasks", MESH_SUITE_TASKS],
+            os.path.join(tmp, "ranks"), MESH_TIMEOUT_S)
         out["ranks_s"] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            log(text[-6000:])
-            raise AssertionError(f"mesh ranks exited {proc.returncode}")
-        for line in text.splitlines():
-            if line.startswith(("mesh ", "  ", "[data]")):
-                log(f"  | {line}")
-        ranks, arrs = [], []
-        for r in range(MESH_D):
-            with open(os.path.join(tmp, "ranks", f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-            arrs.append(np.load(os.path.join(tmp, "ranks", f"rank{r}.npz")))
         gaps, flips = {}, {}
         for job in jobs[:-1]:
             for r in range(MESH_D):
@@ -5763,13 +5815,186 @@ def phase_mesh(dev, task, total: dict, smi: str) -> dict:
                                    ("ms_per_round", "init_ms", "peak_gb")}
                                   for r in range(MESH_D)]}
                   for job in jobs[:-1]})
+        if keep is not None:
+            keep.update(tmp=tmp, one=one)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if keep is None or "tmp" not in keep:
+            shutil.rmtree(tmp, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"mesh phase: {out['phase_s']:.1f} s (unsharded yardstick "
         f"{out['unsharded_s']:.1f} s, {MESH_D} ranks {out['ranks_s']:.1f} "
         f"s; gloo on one shared card ({smi}): a correctness check, not a "
         "measure of NCCL scaling)")
+    return out
+
+
+# phase 15: the ranks' (C, N/a, H/b) blocks of the headline cache at
+# model=2, model=4 and data=2,model=2, where kernels 1 and 2 are timed
+MODEL_BLOCKS = ((50_000, 500), (50_000, 250), (25_000, 500))
+# (spec, ranks, jobs, rounds): phase 14's rounds, so its unsharded runs
+# are the yardstick (the 4-rank run holds the first 10 of its 20 rounds)
+MODEL_RUNS = (("model=2", 2, ("main", "batch", "paper") + BASELINES,
+               {k: v for k, v in MESH_ROUNDS.items() if k != "suite"}),
+              ("data=2,model=2", 4, ("main",), {"main": 10}))
+MODEL_TIMEOUT_S = 300
+
+
+def _block_paths(dev, peaks) -> list:
+    """Kernels 1 and 2 at each block of :data:`MODEL_BLOCKS`, fp32 and
+    bf16 caches: held to their plain versions, timed (CUDA events), and
+    the load path each takes (16-byte vectors or scalar)."""
+    import torch
+
+    from coda_tpu_torch.ops import eig_kernels as ek
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    C = HEADLINE[0]
+    out = []
+    for n, h in MODEL_BLOCKS:
+        rows, hyp32, pi, pi_xi, hyp_t = random_cache(gen, C, n, h, dev)
+        c = torch.tensor(3, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            hyp = hyp32.to(dtype)
+            want1 = ek.eig_scores_from_cache(rows, hyp, pi, pi_xi)
+            got1 = ek.eig_scores_cache(rows, hyp, pi, pi_xi)
+            want2, _ = ek.eig_scores_refresh_plain(rows, hyp.clone(), hyp_t,
+                                                   c, pi, pi_xi)
+            hyp2 = hyp.clone()
+            got2, _ = ek.eig_scores_refresh(rows, hyp2, hyp_t, c, pi, pi_xi)
+            err = max(float((got1 - want1).abs().max()),
+                      float((got2 - want2).abs().max()))
+            tol = SCORE_RTOL * float(want1.abs().max()) + score_atol(h)
+            what = f"block ({C}, {n}, {h}) {str(dtype)[6:]}"
+            if not err <= tol:
+                raise AssertionError(f"{what}: kernels 1/2 differ from the "
+                                     f"plain versions by {err} > {tol}")
+            width = ek._vec(h, hyp, rows)
+            rec = {"N": n, "H": h, "dtype": str(dtype)[6:],
+                   "path": f"{width}-wide" if width > 1 else "scalar",
+                   "k1_ms": time_ms(lambda: ek.eig_scores_cache(
+                       rows, hyp, pi, pi_xi)),
+                   "k2_ms": time_ms(lambda: ek.eig_scores_refresh(
+                       rows, hyp2, hyp_t, c, pi, pi_xi)),
+                   "max_abs_err": err}
+            for k, name in (("k1", "eig_score"),
+                            ("k2", "eig_refresh_score")):
+                nb, ops, tops = work(name, C, n, h, hyp.element_size())
+                rec[k + "_bound_ms"] = bound(nb, ops, peaks, tops)[0]
+            out.append(rec)
+            log(f"mesh model: {what}: {rec['path']} loads, kernel 1 "
+                f"{rec['k1_ms']:.4f} ms (bound {rec['k1_bound_ms']:.4f}), "
+                f"kernel 2 {rec['k2_ms']:.4f} ms (bound "
+                f"{rec['k2_bound_ms']:.4f}); max |kernel - plain| "
+                f"{err:.3e}")
+        del rows, hyp32, pi, pi_xi, hyp_t, hyp, hyp2
+    return out
+
+
+def phase_mesh_model(dev, task, total: dict, smi: str, peaks,
+                     kept: dict) -> dict:
+    """The mesh's model axis (see the module docstring, item 15), on
+    phase 14's task files and unsharded yardstick (``kept``). Returns the
+    measured figures."""
+    import shutil
+
+    import torch
+
+    from coda_tpu_torch.parallel.mesh import parse_spec
+
+    t_phase = time.perf_counter()
+    drv, script = _mesh_driver()
+    tmp, one = kept["tmp"], kept["one"]
+    out: dict = {"card": smi, "runs": {}}
+    cuda = dev.type == "cuda"
+    try:
+        if cuda:
+            out["blocks"] = _block_paths(dev, peaks)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        for spec, n, jobs, rounds in MODEL_RUNS:
+            b = parse_spec(spec)["model"]      # the ranks of a model group
+            t0 = time.perf_counter()
+            ranks, arrs = _mesh_ranks(
+                script, tmp, task.name, dev, n,
+                ["--mesh", spec, "--jobs", ",".join(jobs)]
+                + _rounds_arg(rounds),
+                os.path.join(tmp, spec.replace(",", "_").replace("=", "")),
+                MODEL_TIMEOUT_S)
+            run = {"ranks_s": time.perf_counter() - t0, "jobs": {}}
+            for job in jobs:
+                gaps = []
+                for r in range(n):
+                    gap, flips = _mesh_hold(job, r, ranks[r]["jobs"][job],
+                                            arrs[r], one[job]["arrays"],
+                                            block=r // b,
+                                            scaled=job in BASELINES)
+                    gaps.append(gap)
+                    if flips:
+                        log(f"mesh {spec} {job} rank {r}: tie-break-flips "
+                            f"(seed, round, gap): {flips}")
+                for key, group in (("fingerprint_model", lambda r: r // b),
+                                   ("fingerprint", lambda r: r % b)):
+                    prints: dict = {}
+                    for r in range(n):
+                        prints.setdefault(group(r), set()).add(
+                            ranks[r]["jobs"][job][key])
+                    if any(len(v) != 1 for v in prints.values()):
+                        raise AssertionError(
+                            f"mesh {spec} {job}: {key} differs within a "
+                            f"group: {prints}")
+                jr = [ranks[r]["jobs"][job] for r in range(n)]
+                o = one[job]
+                run["jobs"][job] = {
+                    "one": {k: o[k] for k in ("ms_per_round", "init_ms",
+                                              "peak_gb")},
+                    "ranks": [{k: x[k] for k in
+                               ("ms_per_round", "init_ms", "peak_gb",
+                                "bytes_per_round")} for x in jr],
+                    "max_score_gap": max(gaps)}
+                log(f"mesh {spec} {job}: ms/round {o['ms_per_round']:.3f} "
+                    "unsharded, " + ", ".join(
+                        f"{x['ms_per_round']:.3f}" for x in jr)
+                    + f" ranks; peak GB {o['peak_gb']:.3f} unsharded, "
+                    + ", ".join(f"{x['peak_gb']:.3f}" for x in jr)
+                    + "; bytes a rank sends into its model group a round "
+                    + ", ".join(f"{x['bytes_per_round'].get('model', 0):.0f}"
+                                for x in jr)
+                    + f"; max score gap {max(gaps):.3e}"
+                    + (" (relative)" if job in BASELINES else ""))
+            if cuda:
+                it = rounds["main"], rounds.get("batch", 0)
+                for r in range(n):
+                    k = ranks[r]["jobs"]
+                    if k["main"]["launches"] != {
+                            "eig_score": 1, "eig_refresh_score": it[0],
+                            "row_gather": it[0]} or ("batch" in k and k[
+                                "batch"]["launches"] != {
+                                "eig_score_batched": 1,
+                                "eig_refresh_score_batched": it[1],
+                                "row_gather_batched": it[1]}):
+                        raise AssertionError(
+                            f"mesh {spec} rank {r} launches: "
+                            + str({j: k[j]["launches"] for j in k}))
+                    for job in ("main", "batch"):
+                        for name, v in k.get(job, {}).get(
+                                "launches", {}).items():
+                            total[name] = total.get(name, 0) + v
+                log(f"mesh {spec} launches by rank (main, batch): "
+                    + "; ".join(
+                        f"rank {r} " + " ".join(
+                            str(ranks[r]["jobs"][j]["launches"])
+                            for j in ("main", "batch")
+                            if j in ranks[r]["jobs"])
+                        for r in range(n)))
+            out["runs"][spec] = run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh model phase: {out['phase_s']:.1f} s ("
+        + ", ".join(f"{spec} ranks {r['ranks_s']:.1f} s"
+                    for spec, r in out["runs"].items())
+        + f"; gloo on one shared card ({smi}))")
     return out
 
 
@@ -5851,7 +6076,10 @@ def main() -> int:
         phase = "serve fleet"
         phase_fleet(dev, task, launches, smi)
         phase = "mesh"
-        phase_mesh(dev, task, launches, smi)
+        kept: dict = {}
+        phase_mesh(dev, task, launches, smi, keep=kept)
+        phase = "mesh model axis"
+        phase_mesh_model(dev, task, launches, smi, peaks, kept)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)

@@ -30,16 +30,18 @@ The CODA flags are the reference's, with its choices: ``--eig-mode``,
 ``--prefilter-n``, ``--q``, ``--no-diag-prior``, ``--eig-scorer
 exact|surrogate:k`` and ``--surrogate-prior off|pool``.
 
-``--mesh data=K`` shards the ``(H, N, C)`` tensor over N, one process a
-shard (``coda_tpu_torch/parallel``): start it under ``torchrun``, which
+``--mesh data=K`` shards the ``(H, N, C)`` tensor over N, ``model=K``
+over H (the candidate models), ``data=a,model=b`` over both, one process
+a shard (``coda_tpu_torch/parallel``): start it under ``torchrun``, which
 sets each rank's environment, e.g. ``python -m torch.distributed.run
---nproc-per-node 2 -m coda_tpu_torch.cli --synthetic 1000,50000,10
---method coda --mesh data=2`` (add ``--device cpu`` on the CPU). Every
-rank runs the same rounds on its block and reaches the same decisions;
-rank 0 alone prints and writes the tracking store. Ranks sharing one card
-talk over gloo, ranks with a card each over NCCL. A mesh without enough
-ranks raises the reference's "needs" error; ``model=K``, ``--acq-batch``
-above 1, ``--record-dir``, ``--checkpoint-dir``, a noisy
+--nproc-per-node 4 -m coda_tpu_torch.cli --synthetic 1000,50000,10
+--method coda --mesh data=2,model=2`` (add ``--device cpu`` on the CPU).
+Every rank runs the same rounds on its block and reaches the same
+decisions; rank 0 alone prints and writes the tracking store. Ranks
+sharing one card talk over gloo, ranks with a card each over NCCL. A mesh
+without enough ranks raises the reference's "needs" error, a task whose
+H the model axis does not divide the reference's placement error;
+``--acq-batch`` above 1, ``--record-dir``, ``--checkpoint-dir``, a noisy
 ``--oracle-noise``, ``--debug-viz``, ``--eig-scorer surrogate:k``,
 ``--posterior sparse:K``, ``--eig-pbest amortized`` and ``--prefilter-n``
 raise ``NotImplementedError`` under a mesh (the next mesh slice), as the
@@ -253,11 +255,11 @@ def parse_args(argv=None):
                         "passes none, so its run is the cold program under "
                         "the pool knob)")
     p.add_argument("--mesh", default=None, metavar="AXIS=K,...",
-                   help="shard the (H, N, C) tensor over N, e.g. "
-                        "'data=2': one process a shard, started by "
-                        "python -m torch.distributed.run --nproc-per-node "
-                        "K (the model axis comes with the next mesh "
-                        "slice)")
+                   help="shard the (H, N, C) tensor over N (data) and H "
+                        "(model), e.g. 'data=2', 'model=2' or "
+                        "'data=2,model=2': one process a shard, started "
+                        "by python -m torch.distributed.run "
+                        "--nproc-per-node <data*model>")
     p.add_argument("--checkpoint-dir", default=None,
                    help="resumable run: save the selector state every "
                         "--checkpoint-every rounds under "
@@ -298,7 +300,7 @@ def parse_args(argv=None):
 
 def load_dataset(args, mesh=None):
     """The task ``args`` name (``--synthetic`` or ``--task``), placed on
-    ``args.device``; under a ``mesh`` this rank's block of N."""
+    ``args.device``; under a ``mesh`` this rank's block."""
     from coda_tpu_torch.data import Dataset, find_task_file, make_synthetic_task
 
     if args.synthetic:
@@ -821,6 +823,7 @@ def _main(args, mesh):
     import torch
 
     from coda_tpu_torch.losses import LOSS_FNS
+    from coda_tpu_torch.oracle import best_loss as lowest_loss
     from coda_tpu_torch.oracle import true_losses
     from coda_tpu_torch.telemetry import costs
     from coda_tpu_torch.utils.platform import device_name, resolve_device
@@ -856,14 +859,17 @@ def _main(args, mesh):
         dataset = (load_dataset(args) if mesh is None
                    else load_dataset(args, mesh))
     H, N, C = dataset.shape
-    say(f"Loaded preds of shape ({H}, {N}, {C})"
-        + (f", {N // mesh.data} items a rank on {mesh.spec}" if mesh
-           else ""))
+    where = ""
+    if mesh is not None:
+        models = (f" and {H // mesh.model} models" if mesh.model > 1
+                  else "")
+        where = f", {N // mesh.data} items{models} a rank on {mesh.spec}"
+    say(f"Loaded preds of shape ({H}, {N}, {C}){where}")
     if dataset.labels is None:
         raise SystemExit("Oracle needs labels!")
     loss_fn = LOSS_FNS[args.loss]
-    best_loss = float(true_losses(dataset.preds, dataset.labels,
-                                  loss_fn, mesh=mesh).min())
+    best_loss = float(lowest_loss(true_losses(
+        dataset.preds, dataset.labels, loss_fn, mesh=mesh), mesh))
     say("Best possible loss is", best_loss)
 
     factory = build_selector_factory(args, dataset.name)

@@ -8,13 +8,15 @@ points x C classes — plus an optional ``(N,)`` int32 label vector.
 so both packages see bitwise-identical tasks. Tensors land on the card
 unless the caller passes ``device="cpu"``.
 
-With a ``mesh`` (``parallel/mesh.py``) a rank keeps only its block of N of
-``preds`` and ``labels`` (the counterpart of the reference's sharded
-placement): a ``.npy`` file is memory-mapped, so a rank reads only its
-block; the synthetic task is built whole by the same numpy calls and then
-sliced, so every block is bitwise the unsharded task's. With
-``unsharded_fallback`` a task whose N does not divide the data axis loads
-unsharded instead, with the reference's warning on stderr.
+With a ``mesh`` (``parallel/mesh.py``) a rank keeps only its ``(H/b,
+N/a)`` block of ``preds`` and its N block of ``labels`` (the counterpart
+of the reference's sharded placement, ``P(model, data, None)``): a
+``.npy`` file is memory-mapped, so a rank reads only its block (H leads,
+so each of its models is one contiguous read); the synthetic task is
+built whole by the same numpy calls and then sliced, so every block is
+bitwise the unsharded task's. With ``unsharded_fallback`` a task whose N
+does not divide the data axis, or whose H does not divide the model axis,
+loads unsharded instead, with the reference's warning on stderr.
 """
 
 from __future__ import annotations
@@ -79,7 +81,7 @@ class Dataset:
 
     Attributes:
       preds: ``(H, N, C)`` float32 post-softmax scores (under a ``mesh``
-        this rank's ``(H, N/d, C)`` block).
+        this rank's ``(H/b, N/a, C)`` block).
       labels: optional ``(N,)`` int32 ground-truth classes (under a
         ``mesh`` this rank's block).
       name: task name.
@@ -97,21 +99,24 @@ class Dataset:
 
     @property
     def shape(self) -> tuple[int, int, int]:
-        """The task's ``(H, N, C)`` (N the global count under a mesh)."""
-        H, n, C = self.preds.shape
-        return (H, n * (self.mesh.data if self.mesh is not None else 1), C)
+        """The task's ``(H, N, C)`` (the global counts under a mesh)."""
+        h, n, C = self.preds.shape
+        if self.mesh is None:
+            return (h, n, C)
+        return (h * self.mesh.model, n * self.mesh.data, C)
 
     @classmethod
     def from_file(cls, filepath: str, name: Optional[str] = None,
                   device: DeviceLike = None, mesh: Optional[Mesh] = None,
                   unsharded_fallback: bool = False) -> "Dataset":
         """Load ``<task>.{npy,npz,pt}`` (+ optional ``<task>_labels.*``);
-        under a ``mesh`` this rank's block of N, on the mesh's device."""
+        under a ``mesh`` this rank's block, on the mesh's device."""
         preds_np = _load_array(filepath, mmap=mesh is not None)
         if preds_np.ndim != 3:
             raise ValueError(f"preds must be (H, N, C); got {preds_np.shape}")
         task = name or os.path.splitext(os.path.basename(filepath))[0]
-        mesh = _placement(preds_np.shape[1], mesh, unsharded_fallback, task)
+        mesh = _placement(preds_np.shape[1], mesh, unsharded_fallback, task,
+                          H=preds_np.shape[0])
         dev = mesh.device if mesh is not None else resolve_device(device)
 
         labels_np = None
@@ -143,16 +148,17 @@ class Dataset:
 
 
 def _placement(N: int, mesh: Optional[Mesh], unsharded_fallback: bool,
-               name: str, warn=None) -> Optional[Mesh]:
-    """The mesh a task of N items is sharded over: ``mesh``, or None when
-    N does not divide its data axis and ``unsharded_fallback`` lets the
-    task load unsharded (with the reference's warning on stderr, so a
-    heterogeneous sweep does not abort on one awkward N; printed by rank
-    0 alone)."""
+               name: str, warn=None, H: Optional[int] = None
+               ) -> Optional[Mesh]:
+    """The mesh a task of N items (and H models) is sharded over:
+    ``mesh``, or None when N does not divide its data axis (or H its
+    model axis) and ``unsharded_fallback`` lets the task load unsharded
+    (with the reference's warning on stderr, so a heterogeneous sweep
+    does not abort on one awkward shape; printed by rank 0 alone)."""
     if mesh is None:
         return None
     try:
-        check_divisible(N, mesh)
+        check_divisible(N, mesh, H)
     except ValueError as e:
         if not unsharded_fallback:
             raise
@@ -205,9 +211,9 @@ def make_synthetic_task(seed: int, H: int = 8, N: int = 200, C: int = 4,
                         unsharded_fallback: bool = False) -> Dataset:
     """Seeded synthetic model-selection task (see
     :func:`make_synthetic_arrays`), placed on ``device``; under a
-    ``mesh`` built whole and sliced to this rank's block of N."""
+    ``mesh`` built whole and sliced to this rank's ``(H/b, N/a)`` block."""
     name = name or f"synthetic_h{H}_n{N}_c{C}_s{seed}"
-    mesh = _placement(N, mesh, unsharded_fallback, name)
+    mesh = _placement(N, mesh, unsharded_fallback, name, H=H)
     p, labels = make_synthetic_arrays(seed, H, N, C, acc_lo, acc_hi,
                                       sharpness)
     if mesh is not None:

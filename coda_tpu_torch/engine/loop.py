@@ -28,11 +28,13 @@ regret counts each round's regret q times (label-weighted, so budgets
 line up with q = 1 runs). ``q = 1`` runs the one-label round unchanged.
 
 Under a mesh (``mesh=``, ``parallel/mesh.py``) every rank runs the same
-loop on its block of N: ``preds`` and ``labels`` are the rank's blocks,
-the selector picks global indices, the oracle's answer is read on the
-rank that holds the item and sent to all (``broadcast_from_owner``), and
-the true losses are rank-order sums over the blocks. Every result is the
-same on every rank. The recorder (``trace_k``) and ``acq_batch`` above 1
+loop on its ``(H/b, N/a)`` block: ``preds`` and ``labels`` are the rank's
+blocks, the selector picks global indices (items and models), the
+oracle's answer is read on the rank that holds the item and sent to all
+(``broadcast_from_owner``), and the true losses are this rank's models',
+rank-order sums over the data group's blocks; the regret takes the best
+loss over the model group and the chosen model's loss from its owner
+(``oracle.regret_fn``). Every result is the same on every rank. The recorder (``trace_k``) and ``acq_batch`` above 1
 raise ``NotImplementedError`` there (the next mesh slice).
 """
 
@@ -47,6 +49,7 @@ import torch
 from coda_tpu_torch import random as trandom
 from coda_tpu_torch.losses import accuracy_loss
 from coda_tpu_torch.ops.masked import entropy2
+from coda_tpu_torch.oracle import regret_fn
 from coda_tpu_torch.oracle import true_losses as compute_true_losses
 from coda_tpu_torch.parallel.collectives import broadcast_from_owner
 from coda_tpu_torch.parallel.mesh import MESH_NEXT, Mesh
@@ -196,7 +199,7 @@ def make_step_fn(selector: Selector, labels: torch.Tensor,
     read before ``update``, which may rewrite the state in place).
     ``mesh``: ``labels`` is this rank's block (:func:`answer`)."""
     check_mesh_run(mesh, trace_k, acq_batch)
-    best_loss = model_losses.min()
+    regret_of = regret_fn(model_losses, mesh)
     select, update = selector.select, selector.update
     first = (lambda r: r)
     if acq_batch > 1:
@@ -210,7 +213,7 @@ def make_step_fn(selector: Selector, labels: torch.Tensor,
         tc = answer(labels, res.idx, mesh)
         state = update(state, res.idx, tc, res.prob)
         best, b_stoch = selector.best(state, k_best)
-        regret = model_losses.take(best) - best_loss
+        regret = regret_of(best)
         # label-weighted: a round of q answers counts its regret q times
         cum = cum + (acq_batch * regret if acq_batch > 1 else regret)
         outs = (res.idx, tc, best, regret, cum, res.prob,
@@ -237,7 +240,7 @@ def make_batched_step_fn(selector: Selector, labels: torch.Tensor,
     if bsel is None:
         raise ValueError(f"selector {selector.name!r} has no seed-batched "
                          "form; run its seeds with build_experiment_fn")
-    best_loss = model_losses.min()
+    regret_of = regret_fn(model_losses, mesh)
 
     def step(state, cum, keys, round_keys=None):
         res = bsel.select(state, keys)
@@ -245,7 +248,7 @@ def make_batched_step_fn(selector: Selector, labels: torch.Tensor,
         tc = answer(labels, res.idx, mesh)
         state = bsel.update(state, res.idx, tc, res.prob)
         best, b_stoch = bsel.best(state)
-        regret = model_losses.take(best) - best_loss
+        regret = regret_of(best)
         cum = cum + regret
         outs = (res.idx, tc, best, regret, cum, res.prob,
                 res.stochastic | b_stoch)
@@ -318,7 +321,7 @@ def build_experiment_fn(selector: Selector, labels: torch.Tensor,
     at the phase boundaries (two synchronisations per seed). ``acq_batch``:
     labels a round (:func:`make_step_fn`). ``mesh``: ``labels`` is this
     rank's block."""
-    best_loss = model_losses.min()
+    regret_of = regret_fn(model_losses, mesh)
     n_items = labels.shape[0] * (mesh.data if mesh is not None else 1)
     _validate_rounds(selector, n_items, iters, acq_batch)
     trace_k = _trace_k(trace_k, n_items)
@@ -334,7 +337,7 @@ def build_experiment_fn(selector: Selector, labels: torch.Tensor,
             t0 = time.perf_counter()
         state = selector.init(k_init)
         best0, stoch0 = selector.best(state, k_prior)
-        regret0 = model_losses.take(best0) - best_loss
+        regret0 = regret_of(best0)
         if timings is not None:
             _sync()
             t1 = time.perf_counter()
@@ -390,7 +393,7 @@ def build_batched_experiment_fn(selector: Selector, labels: torch.Tensor,
     step = make_batched_step_fn(selector, labels, model_losses,
                                 trace_k=trace_k, mesh=mesh)
     bsel = selector.batched
-    best_loss = model_losses.min()
+    regret_of = regret_fn(model_losses, mesh)
     _validate_rounds(selector, n_items, iters)
     dev = labels.device
     _sync = _synchronizer(dev)
@@ -405,7 +408,7 @@ def build_batched_experiment_fn(selector: Selector, labels: torch.Tensor,
             t0 = time.perf_counter()
         state = bsel.init(S)
         best0, stoch0 = bsel.best(state)
-        regret0 = model_losses.take(best0) - best_loss
+        regret0 = regret_of(best0)
         if timings is not None:
             _sync()
             t1 = time.perf_counter()

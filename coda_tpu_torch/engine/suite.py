@@ -457,7 +457,7 @@ class SuiteRunner:
 
         t = torch.tensor(int(flag), dtype=torch.int32,
                          device=self.mesh.device)
-        return bool(all_gather_stack(t, self.mesh)[0])
+        return bool(all_gather_stack(t, self.mesh, axis=None)[0])
 
     def run_batched(self, groups: Sequence[Sequence],
                     methods: Sequence[str], store=None,

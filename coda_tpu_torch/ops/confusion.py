@@ -15,12 +15,18 @@ import torch
 import torch.nn.functional as F
 
 from coda_tpu_torch.parallel.collectives import gather_sum
-from coda_tpu_torch.parallel.mesh import Mesh
+from coda_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 
 
-def ensemble_preds(preds: torch.Tensor) -> torch.Tensor:
-    """Mean prediction over models: ``(H, N, C) -> (N, C)``."""
-    return preds.mean(0)
+def ensemble_preds(preds: torch.Tensor,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Mean prediction over models: ``(H, N, C) -> (N, C)``. Under a
+    ``mesh`` with a model axis ``preds`` holds this rank's models: the
+    model group's sums added in rank order, over the global H."""
+    if mesh is None or mesh.model == 1:
+        return preds.mean(0)
+    return gather_sum(preds.sum(0), mesh, MODEL_AXIS) / (preds.shape[0]
+                                                         * mesh.model)
 
 
 def create_confusion_matrices(true_labels: torch.Tensor,
@@ -31,9 +37,10 @@ def create_confusion_matrices(true_labels: torch.Tensor,
 
     ``mode='hard'`` uses one-hot argmax predictions; ``'soft'`` the scores.
     Rows are normalised with a 1e-6 floor. With a ``mesh`` the operands
-    are this rank's block of N and the counts over N are the blocks'
-    added in rank order (:func:`gather_sum`): the same matrices on every
-    rank.
+    are this rank's block (its models of ``model_predictions``, its items
+    of both) and the counts over N are the data group's blocks added in
+    rank order (:func:`gather_sum`): this rank's models' matrices, the
+    same on every rank of its data group.
     """
     H, N, C = model_predictions.shape
     true_one_hot = F.one_hot(true_labels.to(torch.int64), C).to(torch.float32)
@@ -45,7 +52,7 @@ def create_confusion_matrices(true_labels: torch.Tensor,
         raise ValueError(mode)
     conf = torch.einsum("nc,hnj->hcj", true_one_hot, p)
     if mesh is not None:
-        conf = gather_sum(conf, mesh)
+        conf = gather_sum(conf, mesh, DATA_AXIS)
     return conf / torch.clamp_min(conf.sum(-1, keepdim=True), 1e-6)
 
 

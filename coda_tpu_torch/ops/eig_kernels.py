@@ -44,12 +44,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from coda_tpu_torch.ops.build import load
 from coda_tpu_torch.ops.masked import entropy2, log2_approx
 from coda_tpu_torch.ops.pbest import _pbest_hyp_row, refresh_tables
+from coda_tpu_torch.parallel.collectives import gather_sum
+from coda_tpu_torch.parallel.mesh import MODEL_AXIS
 
 _ENTROPY_FLOOR = 1e-12
 _LOG2E = 1.4426950408889634
@@ -451,35 +454,60 @@ def eig_scores_refresh_batched(pbest_rows: torch.Tensor,
     return out, pbest_hyp
 
 
-# -- the sharded entries (a mesh's data axis) ------------------------------
+# -- the sharded entries (a mesh's (data, model) block) --------------------
+# Each launches its kernel on this rank's (C, N/a, H/b) block, with the
+# mixture and h_before computed from the rank's own H columns of the
+# P(best) rows (:func:`mixture_stats`). The kernel then returns this rank's
+# part of every score, ``h_before_j - Σ_c pi_xi[n, c] · H2_j[c, n]``: the
+# entropy H2 is a plain sum over models with no normalisation
+# (``csrc/eig_score.cu``), so the model group's rank-order sum of the
+# parts (``gather_sum`` over the model axis) is the score. On the data
+# axis alone the part is the score, and no collective runs.
 
 def _check_block(pbest_hyp: torch.Tensor, pi_hat_xi: torch.Tensor, mesh,
-                 n_global: int) -> None:
-    """The operands must be this rank's block of N: ``(..., C, N/d, H)``
-    cache rows and ``(..., N/d, C)`` pi-hat rows of a task of
-    ``n_global`` items on a ``data=d`` mesh."""
-    n = pbest_hyp.shape[-2]
+                 n_global: int, h_global: Optional[int] = None) -> None:
+    """The operands must be this rank's block: ``(..., C, N/a, H/b)``
+    cache rows and ``(..., N/a, C)`` pi-hat rows of a task of
+    ``n_global`` items (and ``h_global`` models, default ``H/b`` times
+    the model axis) on a ``data=a,model=b`` mesh."""
+    n, h = pbest_hyp.shape[-2], pbest_hyp.shape[-1]
     _require(n * mesh.data == n_global and pi_hat_xi.shape[-2] == n,
              f"a sharded entry takes this rank's block of N: the cache "
              f"holds {n} items and pi_hat_xi {pi_hat_xi.shape[-2]}, a "
              f"{mesh.spec} block of N={n_global} is {n_global // mesh.data}")
+    if h_global is not None:
+        _require(h * mesh.model == h_global,
+                 f"a sharded entry takes this rank's block of H: the cache "
+                 f"holds {h} models, a {mesh.spec} block of H={h_global} is "
+                 f"{h_global // mesh.model}")
+
+
+def _model_sum(part: torch.Tensor, mesh) -> torch.Tensor:
+    """The score from this rank's part: the model group's rank-order sum
+    (the part itself on a mesh without a model axis)."""
+    return gather_sum(part, mesh, MODEL_AXIS) if mesh.model > 1 else part
 
 
 def eig_scores_cache_sharded(pbest_rows: torch.Tensor,
                              pbest_hyp: torch.Tensor, pi_hat: torch.Tensor,
                              pi_hat_xi: torch.Tensor, mesh, n_global: int,
-                             chunk: int = 256,
-                             approx: bool = False) -> torch.Tensor:
-    """Kernel 1 per data shard (the counterpart of the reference's
-    ``eig_scores_cache_pallas_sharded``): ``pbest_rows`` and ``pi_hat``
-    replicated, ``pbest_hyp`` this rank's ``(C, N/d, H)`` block and
-    ``pi_hat_xi`` its ``(N/d, C)`` rows -> this rank's ``(N/d,)`` scores.
-    The scoring pass reduces over nothing across items, so no collective:
-    the arg-max over the mesh happens outside. CPU tensors take the plain
-    version, as :func:`eig_scores_cache` does."""
-    _check_block(pbest_hyp, pi_hat_xi, mesh, n_global)
-    return eig_scores_cache(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi,
-                            chunk=chunk, approx=approx)
+                             chunk: int = 256, approx: bool = False,
+                             h_global: Optional[int] = None,
+                             plain: bool = False) -> torch.Tensor:
+    """Kernel 1 per ``(data, model)`` block (the counterpart of the
+    reference's ``eig_scores_cache_pallas_sharded``): ``pi_hat``
+    replicated, ``pbest_rows`` this rank's ``(C, H/b)`` columns,
+    ``pbest_hyp`` its ``(C, N/a, H/b)`` block and ``pi_hat_xi`` its
+    ``(N/a, C)`` rows -> this rank's ``(N/a,)`` scores, the same on every
+    rank of its model group. The arg-max over the data axis happens
+    outside. CPU tensors take the plain version, as
+    :func:`eig_scores_cache` does; ``plain`` takes it on any device (the
+    ``eig_backend='jnp'`` yardstick, as in each entry below)."""
+    _check_block(pbest_hyp, pi_hat_xi, mesh, n_global, h_global)
+    fn = eig_scores_from_cache if plain else eig_scores_cache
+    return _model_sum(fn(pbest_rows, pbest_hyp, pi_hat,
+                                       pi_hat_xi, chunk=chunk,
+                                       approx=approx), mesh)
 
 
 def eig_scores_refresh_sharded(pbest_rows: torch.Tensor,
@@ -487,36 +515,51 @@ def eig_scores_refresh_sharded(pbest_rows: torch.Tensor,
                                true_class: torch.Tensor,
                                pi_hat: torch.Tensor, pi_hat_xi: torch.Tensor,
                                mesh, n_global: int, chunk: int = 256,
-                               approx: bool = False):
-    """Kernel 2 per data shard (``eig_scores_refresh_pallas_sharded``):
-    each rank writes its ``(N/d, H)`` slice ``hyp_t`` of class row
+                               approx: bool = False,
+                               h_global: Optional[int] = None,
+                               plain: bool = False):
+    """Kernel 2 per block (``eig_scores_refresh_pallas_sharded``): each
+    rank writes its ``(N/a, H/b)`` slice ``hyp_t`` of class row
     ``true_class`` into its block of the cache IN PLACE and scores its
-    items; ``(scores (N/d,), pbest_hyp)``."""
-    _check_block(pbest_hyp, pi_hat_xi, mesh, n_global)
-    return eig_scores_refresh(pbest_rows, pbest_hyp, hyp_t, true_class,
-                              pi_hat, pi_hat_xi, chunk=chunk, approx=approx)
+    items; ``(scores (N/a,), pbest_hyp)``."""
+    _check_block(pbest_hyp, pi_hat_xi, mesh, n_global, h_global)
+    fn = eig_scores_refresh_plain if plain else eig_scores_refresh
+    part, hyp = fn(pbest_rows, pbest_hyp, hyp_t, true_class,
+                                   pi_hat, pi_hat_xi, chunk=chunk,
+                                   approx=approx)
+    return _model_sum(part, mesh), hyp
 
 
 def eig_scores_cache_batched_sharded(pbest_rows, pbest_hyp, pi_hat,
                                      pi_hat_xi, mesh, n_global: int,
-                                     chunk: int = 256, approx: bool = False):
-    """Kernel 4 per data shard: :func:`eig_scores_cache_sharded` for S
-    replicas, ``(S, C, N/d, H)`` -> ``(S, N/d)``."""
-    _check_block(pbest_hyp, pi_hat_xi, mesh, n_global)
-    return eig_scores_cache_batched(pbest_rows, pbest_hyp, pi_hat,
-                                    pi_hat_xi, chunk=chunk, approx=approx)
+                                     chunk: int = 256, approx: bool = False,
+                                     h_global: Optional[int] = None,
+                                     plain: bool = False):
+    """Kernel 4 per block: :func:`eig_scores_cache_sharded` for S
+    replicas, ``(S, C, N/a, H/b)`` -> ``(S, N/a)``."""
+    _check_block(pbest_hyp, pi_hat_xi, mesh, n_global, h_global)
+    fn = (eig_scores_from_cache_batched if plain
+          else eig_scores_cache_batched)
+    return _model_sum(fn(
+        pbest_rows, pbest_hyp, pi_hat, pi_hat_xi, chunk=chunk,
+        approx=approx), mesh)
 
 
 def eig_scores_refresh_batched_sharded(pbest_rows, pbest_hyp, hyp_t,
                                        true_class, pi_hat, pi_hat_xi, mesh,
                                        n_global: int, chunk: int = 256,
-                                       approx: bool = False):
-    """Kernel 5 per data shard: :func:`eig_scores_refresh_sharded` for S
+                                       approx: bool = False,
+                                       h_global: Optional[int] = None,
+                                       plain: bool = False):
+    """Kernel 5 per block: :func:`eig_scores_refresh_sharded` for S
     replicas, each writing its own class row of its block."""
-    _check_block(pbest_hyp, pi_hat_xi, mesh, n_global)
-    return eig_scores_refresh_batched(pbest_rows, pbest_hyp, hyp_t,
-                                      true_class, pi_hat, pi_hat_xi,
-                                      chunk=chunk, approx=approx)
+    _check_block(pbest_hyp, pi_hat_xi, mesh, n_global, h_global)
+    fn = (eig_scores_refresh_batched_plain if plain
+          else eig_scores_refresh_batched)
+    part, hyp = fn(pbest_rows, pbest_hyp, hyp_t,
+                                           true_class, pi_hat, pi_hat_xi,
+                                           chunk=chunk, approx=approx)
+    return _model_sum(part, mesh), hyp
 
 
 # the terms plogp_terms evaluates: the exact flavour's, the full-precision

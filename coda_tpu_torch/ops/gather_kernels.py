@@ -11,7 +11,9 @@ Kernel 3, :func:`gather_rows_sum`, replaces the Pallas ``_gather_kernel``:
 A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
 plain version. :func:`gather_rows_sum_inorder` is the plain version that
 sums in the kernel's order (h from 0, fp32), for the tests that hold the
-kernel to it bitwise.
+kernel to it bitwise. :func:`gather_rows_sum_sharded` and its batched form
+run kernel 3 on a mesh rank's ``(C, H/b, N/a)`` block, the model group
+completing the column.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import ctypes
 import torch
 
 from coda_tpu_torch.ops.build import load
+from coda_tpu_torch.parallel.collectives import gather_sum
+from coda_tpu_torch.parallel.mesh import MODEL_AXIS
 
 # launches of the kernel, counted where the wrapper launches it
 launch_counts = {"row_gather": 0, "row_gather_batched": 0}
@@ -155,3 +159,26 @@ def gather_rows_sum_batched(preds_by_class: torch.Tensor,
         torch.cuda.current_stream().cuda_stream))
     launch_counts["row_gather_batched"] += 1
     return out
+
+
+def gather_rows_sum_sharded(preds_by_class: torch.Tensor,
+                            pred_classes: torch.Tensor, mesh,
+                            plain: bool = False) -> torch.Tensor:
+    """Kernel 3 on a mesh rank's block: ``preds_by_class`` its ``(C, H/b,
+    N/a)`` layout and ``pred_classes`` its models' ``(H/b,)`` classes ->
+    the ``(N/a,)`` column, the sum over this rank's models completed by the
+    model group's rank-order sum (no collective without a model axis).
+    ``plain``: the plain version on any device."""
+    fn = gather_rows_sum_plain if plain else gather_rows_sum
+    part = fn(preds_by_class, pred_classes)
+    return gather_sum(part, mesh, MODEL_AXIS) if mesh.model > 1 else part
+
+
+def gather_rows_sum_batched_sharded(preds_by_class: torch.Tensor,
+                                    pred_classes: torch.Tensor, mesh,
+                                    plain: bool = False) -> torch.Tensor:
+    """The batched kernel 3 on a mesh rank's block: ``(S, H/b)`` classes
+    -> ``(S, N/a)``, as :func:`gather_rows_sum_sharded`."""
+    fn = gather_rows_sum_batched_plain if plain else gather_rows_sum_batched
+    part = fn(preds_by_class, pred_classes)
+    return gather_sum(part, mesh, MODEL_AXIS) if mesh.model > 1 else part

@@ -9,8 +9,10 @@ threefry bits as ``jax.random.uniform`` (``coda_tpu_torch/random.py``).
 Everything stays on the device — no host synchronisation.
 
 Mesh forms (``mesh=``, ``parallel/mesh.py``): the scores, mask and
-weights are this rank's block of N, and the result is the global index
-the unsharded function picks on the same values, the same on every rank.
+weights are this rank's block along a mesh axis (``axis``: of N over
+``data``, the default; of H over ``model``, for a baseline's readout of
+the best model), and the result is the global index the unsharded
+function picks on the same values, the same on every rank of the axis.
 The global maximum, the tie count and the tie-break's draw (at the items'
 global positions, so each rank draws its slice of the unsharded draw)
 reach every rank as an ``all_gather`` of one small candidate row a rank;
@@ -26,7 +28,7 @@ import torch
 
 from coda_tpu_torch import random as trandom
 from coda_tpu_torch.parallel.collectives import all_gather_stack, gather_sum
-from coda_tpu_torch.parallel.mesh import Mesh
+from coda_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 
 # Degree-6 fitted polynomial for log2(m) on the mantissa m in [1, 2),
 # evaluated in t = m - 1 (Horner, ascending coefficients) — the
@@ -90,18 +92,20 @@ def _local_max(values: torch.Tensor, start: int, *extras) -> torch.Tensor:
 
 def mesh_masked_argmax_tiebreak(key: torch.Tensor, scores: torch.Tensor,
                                 mask: torch.Tensor, mesh: Mesh,
-                                rtol: float = 0.0, atol: float = 0.0):
+                                rtol: float = 0.0, atol: float = 0.0,
+                                axis: str = DATA_AXIS):
     """:func:`masked_argmax_tiebreak` over a mesh: ``scores`` and ``mask``
-    this rank's ``(..., N/d)`` block. Two ``all_gather`` calls of one row a
-    rank: the block maxima (with their global index and score), then each
-    block's tie count and its largest tie-break draw among the global
-    maximum's ties. Returns ``(idx, tie_count, score at idx)``, global and
-    the same on every rank."""
+    this rank's ``(..., n)`` block along ``axis``. Two ``all_gather``
+    calls of one row a rank: the block maxima (with their global index
+    and score), then each block's tie count and its largest tie-break
+    draw among the global maximum's ties. Returns ``(idx, tie_count,
+    score at idx)``, global and the same on every rank of the axis."""
     n = scores.shape[-1]
-    start, total = mesh.start(n), n * mesh.data
+    start = n * mesh.axis_index(axis)
+    total = n * mesh.axis_size(axis)
     masked = torch.where(mask, scores, float("-inf"))
     first = _first_max(all_gather_stack(_local_max(masked, start, scores),
-                                        mesh))
+                                        mesh, axis))
     best = first[..., 0].to(scores.dtype)[..., None]
     if rtol > 0 or atol > 0:
         ties = torch.isclose(masked, best, rtol=rtol, atol=atol) & mask
@@ -112,7 +116,7 @@ def mesh_masked_argmax_tiebreak(key: torch.Tensor, scores: torch.Tensor,
     cand = torch.cat([ties.sum(-1, keepdim=True).to(torch.float64),
                       _local_max(torch.where(ties, u, -1.0), start, scores)],
                      -1)
-    parts = all_gather_stack(cand, mesh)
+    parts = all_gather_stack(cand, mesh, axis)
     n_ties = parts[..., 0].sum(0).to(torch.int64)
     rand = _first_max(parts[..., 1:])
     chosen = torch.where((n_ties > 1)[..., None], rand, first)
@@ -122,7 +126,8 @@ def mesh_masked_argmax_tiebreak(key: torch.Tensor, scores: torch.Tensor,
 
 def masked_argmax_tiebreak(key: torch.Tensor, scores: torch.Tensor,
                            mask: torch.Tensor, rtol: float = 0.0,
-                           atol: float = 0.0, mesh: Optional[Mesh] = None):
+                           atol: float = 0.0, mesh: Optional[Mesh] = None,
+                           axis: str = DATA_AXIS):
     """Argmax of ``scores`` over positions where ``mask``; uniform among
     ties (``isclose(score, max, rtol, atol)`` when a tolerance is given,
     else exact equality). ``key`` is a ``(2,)`` threefry key, usually on
@@ -134,12 +139,12 @@ def masked_argmax_tiebreak(key: torch.Tensor, scores: torch.Tensor,
 
     Returns ``(idx, tie_count)`` as device tensors (0-d, or ``(S,)``);
     ``tie_count > 1`` means the choice was stochastic. With a ``mesh``
-    the operands are this rank's block and ``idx`` is global
-    (:func:`mesh_masked_argmax_tiebreak`).
+    the operands are this rank's block along ``axis`` and ``idx`` is
+    global (:func:`mesh_masked_argmax_tiebreak`).
     """
     if mesh is not None:
         return mesh_masked_argmax_tiebreak(key, scores, mask, mesh, rtol,
-                                           atol)[:2]
+                                           atol, axis)[:2]
     masked = torch.where(mask, scores, float("-inf"))
     best = masked.amax(-1, keepdim=True)
     if rtol > 0 or atol > 0:
@@ -156,11 +161,12 @@ def masked_argmax_tiebreak(key: torch.Tensor, scores: torch.Tensor,
 
 def masked_argmin_tiebreak(key: torch.Tensor, scores: torch.Tensor,
                            mask: torch.Tensor, rtol: float = 0.0,
-                           atol: float = 0.0, mesh: Optional[Mesh] = None):
-    """Argmin counterpart of :func:`masked_argmax_tiebreak` (``mesh``
-    too)."""
+                           atol: float = 0.0, mesh: Optional[Mesh] = None,
+                           axis: str = DATA_AXIS):
+    """Argmin counterpart of :func:`masked_argmax_tiebreak` (``mesh`` and
+    ``axis`` too)."""
     return masked_argmax_tiebreak(key, -scores, mask, rtol=rtol, atol=atol,
-                                  mesh=mesh)
+                                  mesh=mesh, axis=axis)
 
 
 def mesh_categorical(key: torch.Tensor, logits: torch.Tensor, mesh: Mesh,

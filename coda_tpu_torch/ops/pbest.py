@@ -6,6 +6,19 @@
 on a fixed 256-point grid, normalised — with the reference's numeric
 choreography: grid ends 1e-6, cdf floor 1e-30, ±80 clamp on the exclusive
 log-product, trapezoid quadrature. All math fp32.
+
+Under a mesh's model axis (``mesh=``, ``parallel/mesh.py``) the model
+axis H of every operand is this rank's block of models, and each sum over
+H adds the model group's parts in rank order
+(``parallel.collectives.gather_sum``): the exclusive log-CDF product and
+the normalisation of :func:`compute_pbest`, the row normalisation of the
+hypothetical rows. The hypothetical row's per-item exclusive product
+``S = S0 + eq @ dlogcdf`` contracts H for every item; rather than move an
+``(N/a, G)`` partial of it per class row, the ranks gather the class
+row's ``(H/b, G)`` tables (``logcdf_u``, ``dlogcdf``) and each computes
+``S``, its max-shift and ``wE`` whole from every model's hard prediction
+of its items, with the unsharded run's shapes; only the ``(N/a, H/b)``
+columns of ``t_base``/``t_diff`` are its own.
 """
 
 from __future__ import annotations
@@ -25,6 +38,8 @@ from coda_tpu_torch.ops.beta import (
     logit_normal_log_cdf,
     logit_normal_log_pdf,
 )
+from coda_tpu_torch.parallel.collectives import all_gather_cat, gather_sum
+from coda_tpu_torch.parallel.mesh import MODEL_AXIS
 from coda_tpu_torch.utils.checks import debug_check_finite
 
 NUM_POINTS = 256
@@ -59,11 +74,33 @@ def pbest_grid(num_points: int = NUM_POINTS,
                                              else device))
 
 
+def split_h(mesh) -> bool:
+    """Whether ``mesh`` shards the model axis H (more than one block)."""
+    return mesh is not None and mesh.model > 1
+
+
+def sum_h(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t``, a sum over this rank's models, completed over the model
+    group (rank-order parts; ``t`` itself without a model axis)."""
+    return gather_sum(t, mesh, MODEL_AXIS) if split_h(mesh) else t
+
+
+def model_cols(t: torch.Tensor, h: int, mesh) -> torch.Tensor:
+    """This rank's ``h`` model columns (the last axis) of a tensor over
+    every model (the tensor itself without a model axis)."""
+    if not split_h(mesh):
+        return t
+    h0 = mesh.h_start(h)
+    return t[..., h0:h0 + h]
+
+
 def compute_pbest(alpha: torch.Tensor, beta: torch.Tensor,
                   num_points: int = NUM_POINTS,
-                  eps: float = _EPS) -> torch.Tensor:
+                  eps: float = _EPS, mesh=None) -> torch.Tensor:
     """P(h best) over the last axis H of Beta parameters ``(..., H)``.
-    Returns ``(..., H)`` normalised probabilities."""
+    Returns ``(..., H)`` normalised probabilities. ``mesh``: H is this
+    rank's block of models; the exclusive product and the normalisation
+    add the model group's parts."""
     x = pbest_grid(num_points, alpha.device)  # (G,)
     dx = x[1] - x[0]
 
@@ -76,27 +113,32 @@ def compute_pbest(alpha: torch.Tensor, beta: torch.Tensor,
     # exclusive product over models, in log space, clamped like the
     # reference to avoid inf when many tiny cdfs multiply
     log_prod_excl = torch.clamp(
-        log_cdf.sum(-2, keepdim=True) - log_cdf, -_LOG_CLAMP, _LOG_CLAMP)
+        sum_h(log_cdf.sum(-2, keepdim=True), mesh) - log_cdf, -_LOG_CLAMP,
+        _LOG_CLAMP)
     integrand = pdf * torch.exp(log_prod_excl)
     debug_check_finite(integrand, "pbest.integrand")
 
     # jnp.trapezoid(integrand, x): 0.5 * Σ diff(x) * (y[1:] + y[:-1])
     prob = 0.5 * (torch.diff(x) * (integrand[..., 1:]
                                    + integrand[..., :-1])).sum(-1)
-    prob = prob / torch.clamp_min(prob.sum(-1, keepdim=True), eps)
+    prob = prob / torch.clamp_min(sum_h(prob.sum(-1, keepdim=True), mesh),
+                                  eps)
     debug_check_finite(prob, "pbest.normalized")
     return prob
 
 
 def pbest_row_mixture(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
-                      num_points: int = NUM_POINTS) -> torch.Tensor:
+                      num_points: int = NUM_POINTS,
+                      mesh=None) -> torch.Tensor:
     """Marginal P(h best) under the class prior: ``(..., H, C, C)``
     Dirichlets and ``(C,)`` pi-hat -> ``(..., H)``
-    ``Σ_c P(h best | class c) · pi_hat(c)``."""
+    ``Σ_c P(h best | class c) · pi_hat(c)`` (``mesh``: this rank's
+    models, :func:`compute_pbest`)."""
     alpha_cc, beta_cc = dirichlet_to_beta(dirichlets)   # (..., H, C)
     a = alpha_cc.transpose(-1, -2)
     b = beta_cc.transpose(-1, -2)
-    rows = compute_pbest(a, b, num_points=num_points)    # (..., C, H)
+    rows = compute_pbest(a, b, num_points=num_points,
+                         mesh=mesh)                      # (..., C, H)
     return (rows * pi_hat[..., :, None]).sum(-2)
 
 
@@ -112,13 +154,17 @@ def _trapz_weights(num_points: int, dx: torch.Tensor) -> torch.Tensor:
     return w
 
 
-def _bump_tables(a, b, x, dx, update_weight):
+def _bump_tables(a, b, x, dx, update_weight, mesh=None):
     """Per-model Beta grid tables for the two hypothetical-label variants
     of ``(..., H)`` Beta parameters: "bumped" ``(a+w, b)`` when the model
     predicted the hypothesised class, else "unbumped" ``(a, b+w)``.
 
     Returns ``(S0, dlogcdf, F_u, dF)`` with the grid axis last:
     ``S0 = Σ_H logcdf_unbumped`` and the ``d*`` tables bumped - unbumped.
+    ``mesh``: ``a``, ``b`` are this rank's models; ``logcdf_u`` and
+    ``dlogcdf`` are gathered over the model group, so ``S0`` sums every
+    model's table as the unsharded run does and ``dlogcdf`` holds every
+    model (``(..., H, G)``), while ``F_u`` and ``dF`` stay this rank's.
     """
     def tab(aa, bb):
         logpdf = beta_log_pdf(x, aa[..., None], bb[..., None])  # (..., H, G)
@@ -130,7 +176,11 @@ def _bump_tables(a, b, x, dx, update_weight):
 
     logcdf_u, F_u = tab(a, b + update_weight)     # model predicted != c
     logcdf_b, F_b = tab(a + update_weight, b)     # model predicted c
-    return logcdf_u.sum(-2), logcdf_b - logcdf_u, F_u, F_b - F_u
+    dlogcdf = logcdf_b - logcdf_u
+    if split_h(mesh):
+        logcdf_u = all_gather_cat(logcdf_u, mesh, MODEL_AXIS, -2)
+        dlogcdf = all_gather_cat(dlogcdf, mesh, MODEL_AXIS, -2)
+    return logcdf_u.sum(-2), dlogcdf, F_u, F_b - F_u
 
 
 @contextlib.contextmanager
@@ -166,7 +216,7 @@ def eig_matmul(a: torch.Tensor, b: torch.Tensor,
 
 
 def _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision: str = "highest",
-                           out=None):
+                           out=None, mesh=None):
     """The hypothetical-row integral for ONE class row over all items:
     per-item exclusive log-cdf sum, max-shift, weighted integrand,
     normalisation — the body the quadrature and the amortized tables
@@ -176,42 +226,55 @@ def _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision: str = "highest",
     them inside its scoring pass). With leading axes (tables ``(..., H,
     G)``, ``eq_t`` ``(..., N, H)``) the products are batched, one row per
     leading index. ``out``: the tensor the normalised rows are written
-    into (the same division), else a new one."""
+    into (the same division), else a new one.
+
+    ``mesh`` (a model axis): the tables are :func:`_bump_tables`' mesh
+    form and ``eq_t`` covers every model (``(..., N, H)``); ``S`` is
+    computed whole, the result is this rank's ``(..., N, H/b)`` columns,
+    and their normalisation adds the model group's row sums."""
     S0_t, dlogcdf_t, F_u_t, dF_t = tables
     eq = eq_t.to(w_trapz.dtype)
     S = S0_t.unsqueeze(-2) + eig_matmul(eq, dlogcdf_t, precision)  # (N, G)
     S = S - S.amax(-1, keepdim=True)
     wE = w_trapz * torch.exp(S)
+    eq = model_cols(eq, F_u_t.shape[-2], mesh)
     t_base = eig_matmul(wE, F_u_t.transpose(-1, -2), precision)    # (N, H)
     t_diff = eig_matmul(wE, dF_t.transpose(-1, -2), precision)
     unnorm = t_base + eq * t_diff
-    return torch.div(unnorm, torch.clamp_min(unnorm.sum(-1, keepdim=True),
-                                             _EPS), out=out)
+    den = sum_h(unnorm.sum(-1, keepdim=True), mesh)
+    return torch.div(unnorm, torch.clamp_min(den, _EPS), out=out)
 
 
 def refresh_tables(a_t: torch.Tensor, b_t: torch.Tensor,
-                   update_weight: float = 1.0, num_points: int = 256):
+                   update_weight: float = 1.0, num_points: int = 256,
+                   mesh=None):
     """One class row's O(H·G) tables from its Beta parameters ``a_t``,
     ``b_t`` (H,), as the reference's refresh and its kernel-6 wrapper build
     them: ``(S0 (G,), dlogcdf (H, G), F_u (H, G), dF (H, G), w_trapz
     (G,))``, all contiguous fp32. ``(S, H)`` parameters give each table a
-    leading replica axis (``w_trapz`` stays ``(G,)``)."""
+    leading replica axis (``w_trapz`` stays ``(G,)``). ``mesh``: see
+    :func:`_bump_tables`."""
     x = pbest_grid(num_points, a_t.device)
     dx = x[1] - x[0]
-    S0, dlogcdf, F_u, dF = _bump_tables(a_t, b_t, x, dx, update_weight)
+    S0, dlogcdf, F_u, dF = _bump_tables(a_t, b_t, x, dx, update_weight,
+                                        mesh)
     return (S0.contiguous(), dlogcdf.contiguous(), F_u, dF,
             _trapz_weights(num_points, dx))
 
 
 def _pbest_hyp_row(a_t, b_t, eq_t, update_weight: float, num_points: int,
-                   precision: str = "highest", out=None):
+                   precision: str = "highest", out=None, mesh=None):
     """Hypothetical P(best) for one class row: ``a_t``, ``b_t`` (H,) Beta
     parameters, ``eq_t`` (N, H) bool (did model h predict this class at
     item n) -> (N, H), written into ``out`` when given. Seed-batched:
     ``(S, H)`` parameters and ``(S, N, H)`` masks -> ``(S, N, H)``, each
-    replica its own class row."""
-    *tables, w_trapz = refresh_tables(a_t, b_t, update_weight, num_points)
-    return _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision, out)
+    replica its own class row. ``mesh`` (a model axis): ``a_t``, ``b_t``
+    this rank's models, ``eq_t`` every model's (:func:`_pbest_hyp_from_
+    tables`)."""
+    *tables, w_trapz = refresh_tables(a_t, b_t, update_weight, num_points,
+                                      mesh)
+    return _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision, out,
+                                  mesh)
 
 
 def _amortized_bump_tables(a, b, x, update_weight):
@@ -268,12 +331,12 @@ def _pbest_hyp_row_gated(a_t, b_t, eq_t, update_weight: float,
 
 def compute_pbest_rows(aT: torch.Tensor, bT: torch.Tensor,
                        num_points: int = NUM_POINTS,
-                       row_chunk: int = 1) -> torch.Tensor:
+                       row_chunk: int = 1, mesh=None) -> torch.Tensor:
     """:func:`compute_pbest` over ``row_chunk`` class rows at a time:
     ``(..., C, H)`` from ``(..., C, H)`` Beta parameters with
     O(row_chunk·H·G) temporaries instead of the one-shot (C, H, G)."""
     C = aT.shape[-2]
     r = max(1, min(row_chunk, C))
     return torch.cat([compute_pbest(aT[..., i:i + r, :], bT[..., i:i + r, :],
-                                    num_points=num_points)
+                                    num_points=num_points, mesh=mesh)
                       for i in range(0, C, r)], dim=-2)

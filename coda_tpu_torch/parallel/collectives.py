@@ -1,12 +1,19 @@
-"""The port's few collectives over a mesh's data axis.
+"""The port's few collectives over a mesh's axes.
 
-Replicated state (the Dirichlets, pi-hat, the P(best) rows, the true
-losses) must stay bitwise equal on every rank: if one rank's copy drifted
-by an ulp, two ranks could pick different points and the next collective
-would pair mismatched calls. So every sum over N is an ``all_gather`` of
-the ranks' partial sums, added in rank order on every rank
-(:func:`gather_sum`) — never a backend ``all_reduce``, whose order
-depends on the topology. The vectors are small ((C,), (S, C), (H, C, C)).
+Each collective runs along one axis (``axis``): ``data`` (the ranks of
+this rank's data group, which share its H block and split N: the sums
+over N, the arg-max over items, a labelled item's row), ``model`` (the
+ranks of its model group, which share its N block and split H: the sums
+over models, the arg-max over models, a model's loss) or None (every rank
+of the mesh). The default is ``data``.
+
+Replicated state must stay bitwise equal on the ranks that hold it: if
+one rank's copy drifted by an ulp, two ranks could pick different points
+and the next collective would pair mismatched calls. So every sum is an
+``all_gather`` of the ranks' partial sums, added in rank order on every
+rank (:func:`gather_sum`) — never a backend ``all_reduce``, whose order
+depends on the topology. The tensors are small ((C,), (S, C), (H, C, C),
+an (N/a,) score part, the (H/b, G) Beta tables of a class row).
 
 Only ``all_gather`` in list form is used: gloo (CPU and CUDA tensors) and
 NCCL both take it; ``reduce_scatter`` (gloo has none) and
@@ -15,7 +22,7 @@ the others as that same ``all_gather`` followed by a pick of the owner's
 part on the device (:func:`broadcast_from_owner`): a ``broadcast`` needs
 its source rank on the host, which would wait for the stream a round.
 
-A mesh of one rank needs no group: each function is then the local
+An axis of one rank needs no group: each function is then the local
 computation.
 """
 
@@ -25,30 +32,56 @@ from typing import Optional
 
 import torch
 
-from coda_tpu_torch.parallel.mesh import Mesh
+from coda_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+
+# bytes this rank has sent into the all_gathers along each axis ("world":
+# every rank of the mesh), for the measurement scripts; a rank receives
+# (k - 1) times what it sends along an axis of k ranks
+traffic = {DATA_AXIS: 0, MODEL_AXIS: 0, "world": 0}
 
 
-def all_gather_stack(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """``(d, *t.shape)``: every rank's ``t`` in rank order (the same
-    tensor on every rank). Booleans travel as bytes."""
-    if mesh.size == 1:
+def all_gather_stack(t: torch.Tensor, mesh: Mesh,
+                     axis: Optional[str] = DATA_AXIS) -> torch.Tensor:
+    """``(k, *t.shape)``: the ``t`` of every rank along ``axis`` in rank
+    order (the same tensor on each of them). Booleans and int16 (which
+    gloo does not take) travel as bytes."""
+    k = mesh.axis_size(axis)
+    if k == 1:
         return t[None]
     import torch.distributed as dist
 
-    is_bool = t.dtype == torch.bool
-    src = (t.to(torch.uint8) if is_bool else t).contiguous()
-    parts = [torch.empty_like(src) for _ in range(mesh.size)]
-    dist.all_gather(parts, src, group=mesh.group)
+    src = t.contiguous()
+    if t.dtype == torch.bool:
+        src = src.to(torch.uint8)
+    elif t.dtype == torch.int16:
+        src = src.view(torch.uint8)        # the last axis twice as long
+    parts = [torch.empty_like(src) for _ in range(k)]
+    dist.all_gather(parts, src, group=mesh.axis_group(axis))
+    traffic[axis or "world"] += src.numel() * src.element_size()
     out = torch.stack(parts)
-    return out.to(torch.bool) if is_bool else out
+    if t.dtype == torch.bool:
+        return out.to(torch.bool)
+    return out.view(t.dtype) if t.dtype == torch.int16 else out
 
 
-def gather_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum over ranks of ``t``, added in rank order (``((t_0 + t_1) +
-    t_2) + ...``), bitwise the same on every rank."""
-    if mesh.size == 1:
+def all_gather_cat(t: torch.Tensor, mesh: Mesh, axis: Optional[str],
+                   dim: int) -> torch.Tensor:
+    """The blocks of ``t`` of every rank along ``axis`` joined along
+    ``dim`` in rank order: the unsharded tensor of a block sharded there
+    (e.g. the ``(..., H, G)`` table of ``(..., H/b, G)`` blocks)."""
+    if mesh.axis_size(axis) == 1:
         return t
-    parts = all_gather_stack(t, mesh)
+    parts = all_gather_stack(t, mesh, axis)
+    return torch.cat(list(parts.unbind(0)), dim)
+
+
+def gather_sum(t: torch.Tensor, mesh: Mesh,
+               axis: Optional[str] = DATA_AXIS) -> torch.Tensor:
+    """The sum over the ranks along ``axis`` of ``t``, added in rank order
+    (``((t_0 + t_1) + t_2) + ...``), bitwise the same on each of them."""
+    if mesh.axis_size(axis) == 1:
+        return t
+    parts = all_gather_stack(t, mesh, axis)
     acc = parts[0]
     for p in parts[1:]:
         acc = acc + p
@@ -56,47 +89,61 @@ def gather_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 def broadcast_from_owner(local: torch.Tensor, idx: torch.Tensor,
-                         mesh: Mesh, dim: int = 0) -> torch.Tensor:
-    """Item ``idx`` (global indices, any shape, the same on every rank)
-    of a tensor sharded over N along ``dim``, read on the rank that holds
-    it and sent to all: ``local.index_select(dim, idx)`` of the unsharded
-    tensor, moved to the front (``(*idx.shape, *rest)``). No host
+                         mesh: Mesh, dim: int = 0,
+                         axis: str = DATA_AXIS) -> torch.Tensor:
+    """Entry ``idx`` (global indices, any shape, the same on every rank)
+    of a tensor sharded along ``dim`` over ``axis`` — items over ``data``,
+    models over ``model`` — read on the rank that holds it and sent to
+    the others: ``local.index_select(dim, idx)`` of the unsharded tensor,
+    moved to the front (``(*idx.shape, *rest)``). No host
     synchronisation: every rank sends its (clamped) rows, and each takes
     the owner's part on the device."""
     idx = idx.to(torch.int64)
     n = local.shape[dim]
-    loc = torch.clamp(idx - mesh.start(n), 0, n - 1)
+    loc = torch.clamp(idx - n * mesh.axis_index(axis), 0, n - 1)
     rows = torch.movedim(local.index_select(dim, loc.reshape(-1)), dim, 0)
     rest = rows.shape[1:]
     rows = rows.reshape(idx.shape + rest)
-    if mesh.size == 1:
+    if mesh.axis_size(axis) == 1:
         return rows
-    parts = all_gather_stack(rows, mesh)               # (d, *idx, *rest)
+    parts = all_gather_stack(rows, mesh, axis)          # (k, *idx, *rest)
     owner = torch.div(idx, n, rounding_mode="floor")   # the holding rank
     pick = owner.reshape((1,) + idx.shape + (1,) * len(rest))
     return parts.gather(0, pick.expand((1,) + idx.shape + rest))[0]
 
 
-def any_over(flag: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+def any_over(flag: torch.Tensor, mesh: Optional[Mesh],
+             axis: str = DATA_AXIS) -> torch.Tensor:
     """``flag`` (a bool of this rank's block, e.g. ``mask.any(-1)``) or'd
-    over the mesh's ranks."""
-    if mesh is None or mesh.size == 1:
+    over the ranks along ``axis``."""
+    if mesh is None or mesh.axis_size(axis) == 1:
         return flag
-    return gather_sum(flag.to(torch.int32), mesh) > 0
+    return gather_sum(flag.to(torch.int32), mesh, axis) > 0
 
 
-def count_over(mask: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """``mask.sum(-1)`` over every rank's block (exact: integers)."""
+def count_over(mask: torch.Tensor, mesh: Optional[Mesh],
+               axis: str = DATA_AXIS) -> torch.Tensor:
+    """``mask.sum(-1)`` over every block along ``axis`` (exact:
+    integers)."""
     n = mask.sum(-1)
-    return n if mesh is None else gather_sum(n, mesh)
+    return n if mesh is None else gather_sum(n, mesh, axis)
+
+
+def min_over(t: torch.Tensor, mesh: Optional[Mesh],
+             axis: str = DATA_AXIS) -> torch.Tensor:
+    """The smallest of ``t`` over the ranks along ``axis`` (exact)."""
+    if mesh is None or mesh.axis_size(axis) == 1:
+        return t
+    return all_gather_stack(t, mesh, axis).amin(0)
 
 
 def clear_items(mask: torch.Tensor, idx: torch.Tensor,
                 mesh: Optional[Mesh] = None) -> None:
     """``mask[idx] = False`` IN PLACE: an ``(N,)`` mask and indices of any
     shape, or an ``(S, N)`` mask and ``(S,)`` indices, one a row. Under a
-    mesh the indices are global and ``mask`` this rank's block: only the
-    rank that holds an item clears it (no host synchronisation)."""
+    mesh the indices are global and ``mask`` this rank's block of N: only
+    the ranks that hold an item clear it (no host synchronisation, no
+    collective)."""
     idx = idx.to(torch.int64)
     if mesh is None:
         if mask.dim() == 1:

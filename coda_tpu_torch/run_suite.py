@@ -18,11 +18,12 @@ writes ``trace.json`` (a span a dispatch on its device's lane),
 the store. The last line printed is a JSON object with the sweep's wall
 seconds.
 
-``--mesh data=K`` shards each task over N, one process a shard, under
-``torchrun`` (``python -m torch.distributed.run --nproc-per-node K -m
-coda_tpu_torch.cli suite ... --mesh data=K``): a task whose N the mesh
-does not divide loads unsharded on every rank, with the reference's
-warning. Rank 0 alone prints and writes the store. ``--task-batch`` with
+``--mesh data=a,model=b`` shards each task over N and H, one process a
+shard, under ``torchrun`` (``python -m torch.distributed.run
+--nproc-per-node <a*b> -m coda_tpu_torch.cli suite ... --mesh
+data=a,model=b``; either axis alone too): a task whose N the data axis,
+or whose H the model axis, does not divide loads unsharded on every rank,
+with the reference's warning. Rank 0 alone prints and writes the store. ``--task-batch`` with
 ``--mesh`` is the reference's error; ``--record-dir`` raises
 ``NotImplementedError`` under a mesh (the next mesh slice).
 """
@@ -53,10 +54,11 @@ def parse_args(argv=None):
     p.add_argument("--no-db", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--mesh", default=None, metavar="AXIS=K,...",
-                   help="shard each task tensor over N, one process a "
-                        "shard (torchrun); tasks whose N does not divide "
-                        "the data axis load unsharded with a warning. "
-                        "Incompatible with --task-batch.")
+                   help="shard each task tensor over N (data) and H "
+                        "(model), one process a shard (torchrun); tasks "
+                        "whose N or H does not divide its axis load "
+                        "unsharded with a warning. Incompatible with "
+                        "--task-batch.")
     p.add_argument("--task-batch", action="store_true",
                    help="dispatch same-size tasks a (group, method) at a "
                         "time (SuiteRunner.run_batched); groups by file "
@@ -120,7 +122,7 @@ def main(argv=None) -> int:
 
 
 def _main(args, mesh) -> int:
-    """The sweep, on ``mesh`` (each task's block of N) or alone."""
+    """The sweep, on ``mesh`` (each task's block) or alone."""
     from coda_tpu_torch.data import Dataset, find_task_file, list_tasks
     from coda_tpu_torch.engine.suite import SuiteRunner
     from coda_tpu_torch.tracking import TrackingStore

@@ -15,9 +15,11 @@ probabilities live in fixed ``(H, T)`` / ``(T,)`` ring buffers (T = the
 label budget), so the LURE readout is a masked reduction. ``update``
 writes the mask, the buffers and the label count IN PLACE.
 
-Under a mesh the weights are this rank's block's, the draw is
+Under a mesh the weights are this rank's block's (the ensemble mean and
+the sum over models rank-order sums over the model group), the draw is
 ``masked_categorical``'s mesh form (the weights' total a rank-order sum),
-and the LURE weights use the global N.
+the LURE weights use the global N, the loss buffers hold this rank's
+models, and the best model is the mesh arg-min over the model group.
 """
 
 from __future__ import annotations
@@ -28,9 +30,11 @@ import torch
 
 from coda_tpu_torch import random as trandom
 from coda_tpu_torch.losses import accuracy_loss
+from coda_tpu_torch.ops.confusion import ensemble_preds
 from coda_tpu_torch.ops.masked import masked_argmin_tiebreak, masked_categorical
+from coda_tpu_torch.ops.pbest import sum_h
 from coda_tpu_torch.parallel.collectives import clear_items
-from coda_tpu_torch.parallel.mesh import Mesh
+from coda_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh
 from coda_tpu_torch.selectors.iid import loss_at
 from coda_tpu_torch.selectors.protocol import Selector, SelectResult
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -43,10 +47,11 @@ class LUREState(NamedTuple):
     n_labeled: torch.Tensor   # 0-d int32 (M)
 
 
-def surrogate_expected_losses(preds: torch.Tensor) -> torch.Tensor:
+def surrogate_expected_losses(preds: torch.Tensor,
+                              mesh: Optional[Mesh] = None) -> torch.Tensor:
     """(H, N): the surrogate's probability that model h is wrong on
-    point n."""
-    pi_y = preds.mean(0)                              # (N, C) ensemble
+    point n (``mesh``: this rank's models, the ensemble over all)."""
+    pi_y = ensemble_preds(preds, mesh)                # (N, C) ensemble
     pred_cls = preds.argmax(2)                        # (H, N)
     y_star = pi_y.gather(1, pred_cls.T).T             # (H, N)
     return 1.0 - y_star
@@ -95,8 +100,10 @@ def make_activetesting(preds: torch.Tensor,
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
     H, n_local, C = preds.shape
     N = n_local * (mesh.data if mesh is not None else 1)   # global N
+    h_all = H * (mesh.model if mesh is not None else 1)    # global H
     if acquisition_scores is None:
-        acquisition_scores = surrogate_expected_losses(preds).sum(0)  # (N,)
+        acquisition_scores = sum_h(surrogate_expected_losses(
+            preds, mesh).sum(0), mesh)                         # (N,)
     acquisition_scores = acquisition_scores.to(dev)
     every_model = torch.ones(H, dtype=torch.bool, device=dev)
     always = torch.ones((), dtype=torch.bool, device=dev)
@@ -159,10 +166,11 @@ def make_activetesting(preds: torch.Tensor,
     def best(state: LUREState, key):
         risk = lure_risks(state.losses, state.qs, state.n_labeled, N)
         k_tie, k_rand = trandom.split(key)
-        idx, n_ties = masked_argmin_tiebreak(k_tie, risk, every_model)
+        idx, n_ties = masked_argmin_tiebreak(k_tie, risk, every_model,
+                                             mesh=mesh, axis=MODEL_AXIS)
         # no labels yet: a uniformly random model (the reference's rule),
         # drawn on the host from the host key
-        rand_idx = int(trandom.randint(k_rand, (), 0, H))
+        rand_idx = int(trandom.randint(k_rand, (), 0, h_all))
         labeled = state.n_labeled > 0
         return (torch.where(labeled, idx, rand_idx),
                 ~labeled | (n_ties > 1))

@@ -70,21 +70,32 @@ unlabeled mask. Every product runs at fp32 with TF32 off, except the EIG
 table products under ``eig_precision`` ``high`` or ``default``, which
 switch TF32 on for those products alone.
 
-Under a mesh (``shard_spec='data=d'``, ``parallel/mesh.py``) the selector
-holds this rank's ``(H, N/d, C)`` block, and every tier runs per shard on
-replicated Dirichlets and pi-hat: the incremental tier's ``(C, N/d, H)``
-cache through the sharded entries of kernels 1, 2, 4 and 5
+Under a mesh (``shard_spec='data=a,model=b'``, ``parallel/mesh.py``) the
+selector holds this rank's ``(H/b, N/a, C)`` block, and every tier runs
+per block: the incremental tier's ``(C, N/a, H/b)`` cache through the
+sharded entries of kernels 1, 2, 4 and 5
 (:func:`~coda_tpu_torch.ops.eig_kernels.eig_scores_cache_sharded` and
-its kin, no collective) and kernel 3 on the local gather layout; the
-factored, rowscan and direct tiers on the local items. Three points cross
-N: init's pi-hat marginal and confusion prior (rank-order sums,
-``parallel/collectives.gather_sum``), select's arg-max (the mesh form of
-``masked_argmax_tiebreak``) and update's read of the labelled item's
-predictions (``broadcast_from_owner``). Indices are global; the
-replicated state is bitwise equal on every rank. The q-wide round, the
-surrogate scorer, the sparse posterior, the amortized P(best) and the
-prefilter raise ``NotImplementedError`` under a mesh (the next mesh
-slice); the fused refresh keeps the reference's refusal.
+its kin) and kernel 3 on the local gather layout
+(:func:`~coda_tpu_torch.ops.gather_kernels.gather_rows_sum_sharded`); the
+factored, rowscan and direct tiers on the local items and models. The
+data axis is crossed by init's pi-hat marginal and confusion prior
+(rank-order sums, ``parallel/collectives.gather_sum``), select's arg-max
+(the mesh form of ``masked_argmax_tiebreak``) and update's read of the
+labelled item's predictions (``broadcast_from_owner``). The model axis is
+crossed by every sum over models: the ensemble mean, the pi-hat
+contraction, the P(best) exclusive product and normalisation
+(``ops/pbest.py``), the scores' parts (each rank's kernel or tier scores
+its models' entropy terms, and the model group adds the parts) and kernel
+3's column; the hard predictions of every model for the rank's items are
+gathered once at build time (int16), for the disagreement vote and the
+hypothetical rows' exclusive product; ``get_pbest`` gathers its ``(H,)``
+vector. State with an H axis (the Dirichlets, the P(best) rows, the
+cache) is the rank's block, bitwise equal across its data group; pi-hat,
+the scores and the picks are bitwise equal across its model group.
+Indices are global. The q-wide round, the surrogate scorer, the sparse
+posterior, the amortized P(best) and the prefilter raise
+``NotImplementedError`` under a mesh (the next mesh slice); the fused
+refresh keeps the reference's refusal.
 """
 
 from __future__ import annotations
@@ -124,7 +135,9 @@ from coda_tpu_torch.ops.gather_kernels import (
     gather_rows_sum,
     gather_rows_sum_batched,
     gather_rows_sum_batched_plain,
+    gather_rows_sum_batched_sharded,
     gather_rows_sum_plain,
+    gather_rows_sum_sharded,
     prep_gather_layout,
 )
 from coda_tpu_torch.ops.masked import (
@@ -140,8 +153,11 @@ from coda_tpu_torch.ops.pbest import (
     _trapz_weights,
     compute_pbest,
     compute_pbest_rows,
+    model_cols,
     pbest_grid,
     pbest_row_mixture,
+    split_h,
+    sum_h,
 )
 from coda_tpu_torch.ops.sparse_rows import (
     SparseRows,
@@ -155,6 +171,7 @@ from coda_tpu_torch.ops.sparse_rows import (
 )
 from coda_tpu_torch.ops.sparse_rows import row_beta as sparse_row_beta
 from coda_tpu_torch.parallel.collectives import (
+    all_gather_cat,
     any_over,
     broadcast_from_owner,
     clear_items,
@@ -164,7 +181,9 @@ from coda_tpu_torch.parallel.collectives import (
 from coda_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MESH_NEXT,
+    MODEL_AXIS,
     Mesh,
+    check_divisible,
     mesh_from_spec,
     parse_spec,
     shard_preds,
@@ -222,7 +241,7 @@ PRECISIONS = ("highest", "high", "default")
 
 class CODAHyperparams(NamedTuple):
     """The reference's fields and defaults. ``shard_spec`` takes
-    ``data=d`` (the mesh's model axis comes with the next mesh slice)."""
+    ``data=a``, ``model=b`` or ``data=a,model=b``."""
 
     prefilter_n: int = 0          # EIG on a random subset of this many
     #                               candidates a round (0: all)
@@ -255,8 +274,9 @@ class CODAHyperparams(NamedTuple):
     #                               (kernel 6; opt-in numerics, as in the
     #                               reference)
     eig_entropy: str = "exact"    # exact | approx: the scoring chain's log2
-    shard_spec: str = ""          # "" | "data=d": the (H, N, C) tensor
-    #                               sharded over N, one rank a shard
+    shard_spec: str = ""          # "" | "data=a,model=b": the (H, N, C)
+    #                               tensor sharded over N and H, one rank
+    #                               a shard
     posterior: str = "dense"      # dense | sparse:K (incremental tier only)
     eig_pbest: str = "quad"       # quad | amortized (incremental tier,
     #                               precomputed refresh)
@@ -390,11 +410,12 @@ def check_supported(hp: CODAHyperparams, N: int) -> None:
                 _unsupported(knob, getattr(hp, knob), MESH_NEXT)
 
 
-def shard_mesh_for(hp: CODAHyperparams, N: int, device=None):
+def shard_mesh_for(hp: CODAHyperparams, N: int, device=None,
+                   H: Optional[int] = None):
     """The mesh of ``hp.shard_spec`` (None without one) for a task of N
-    items. Raises on meshes the port cannot run: a model axis
-    (``NotImplementedError``), N not divisible by the data axis, or more
-    or fewer ranks than the mesh's shards (``ValueError``)."""
+    items (and H models). Raises ``ValueError`` on meshes the port cannot
+    run: N not divisible by the data axis, H by the model axis, or more
+    or fewer ranks than the mesh's shards."""
     if not hp.shard_spec:
         return None
     mesh = mesh_from_spec(hp.shard_spec, device=device)
@@ -404,6 +425,7 @@ def shard_mesh_for(hp: CODAHyperparams, N: int, device=None):
             f"shard_spec {hp.shard_spec!r}: N={N} not divisible by the "
             f"data axis ({d}); pad the task or use the jnp backend"
         )
+    check_divisible(N, mesh, H)
     return mesh
 
 
@@ -484,13 +506,15 @@ class CODAState(NamedTuple):
 
 # -- pi-hat ------------------------------------------------------------------
 
-def pi_unnorm(dirichlets: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
+def pi_unnorm(dirichlets: torch.Tensor, preds: torch.Tensor,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Unnormalised (N, C) class scores ``Σ_{h,s} d[h,c,s]·preds[h,n,s]``.
     A ``(S, H, C, C)`` posterior gives ``(S, N, C)``, one contraction per
-    replica (each replica's bits are then its one-seed run's)."""
+    replica (each replica's bits are then its one-seed run's). ``mesh``:
+    this rank's models, the model group's parts added in rank order."""
     if dirichlets.dim() == 4:
-        return torch.stack([pi_unnorm(d, preds) for d in dirichlets])
-    return torch.einsum("hcs,hns->nc", dirichlets, preds)
+        return torch.stack([pi_unnorm(d, preds, mesh) for d in dirichlets])
+    return sum_h(torch.einsum("hcs,hns->nc", dirichlets, preds), mesh)
 
 
 def _pi_parts(unnorm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -528,7 +552,7 @@ def update_pi_hat(dirichlets: torch.Tensor, preds: torch.Tensor,
     if dirichlets.dim() == 4:
         pi_xi, pi = zip(*(update_pi_hat(d, preds, mesh) for d in dirichlets))
         return torch.stack(pi_xi), torch.stack(pi)
-    return _normalize_pi(pi_unnorm(dirichlets, preds), mesh)
+    return _normalize_pi(pi_unnorm(dirichlets, preds, mesh), mesh)
 
 
 def update_pi_hat_column(dirichlets: torch.Tensor, true_class: torch.Tensor,
@@ -630,22 +654,29 @@ def _per_replica(fn, dirichlets, pi_hat, pi_hat_xi, hard_preds, **kw):
 def eig_scores(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
                pi_hat_xi: torch.Tensor, hard_preds: torch.Tensor,
                update_weight: float = 1.0, num_points: int = 256,
-               chunk: int = 256) -> torch.Tensor:
+               chunk: int = 256, mesh: Optional[Mesh] = None
+               ) -> torch.Tensor:
     """The direct tier: expected information gain of labeling each point,
     ``compute_pbest`` of every class row under every item's +1 label, as
     the reference's choreography. Returns (N,). With a leading replica
     axis (``(S, H, C, C)``, ``(S, C)``, ``(S, N, C)``; ``hard_preds``
     ``(N, H)`` shared or ``(S, N, H)``) returns ``(S, N)``. Items run in
     blocks of at most ``chunk`` whose ``(B, C, H, G)`` temporaries stay
-    within ``_DIRECT_TEMP_BYTES``."""
+    within ``_DIRECT_TEMP_BYTES``.
+
+    ``mesh`` (every tier's scoring pass): ``dirichlets`` are this rank's
+    models and ``hard_preds`` every model's predictions of its items
+    (``(N, H)``, the gathered copy); each rank scores its models' entropy
+    terms and the model group adds the parts."""
     if dirichlets.dim() == 4:
         return _per_replica(eig_scores, dirichlets, pi_hat, pi_hat_xi,
                             hard_preds, update_weight=update_weight,
-                            num_points=num_points, chunk=chunk)
+                            num_points=num_points, chunk=chunk, mesh=mesh)
     H, C = dirichlets.shape[-3], dirichlets.shape[-1]
     lead = dirichlets.shape[:-3]
     aT, bT = _beta_rows(dirichlets)
-    before = compute_pbest(aT, bT, num_points=num_points)      # (..., C, H)
+    before = compute_pbest(aT, bT, num_points=num_points,
+                           mesh=mesh)                          # (..., C, H)
     mixture0 = (pi_hat[..., :, None] * before).sum(-2)
     h_before = entropy2(mixture0)
     classes = torch.arange(C, dtype=hard_preds.dtype,
@@ -655,45 +686,50 @@ def eig_scores(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
     B = max(1, min(chunk, N, _DIRECT_TEMP_BYTES // per_item))
     out = []
     for start in range(0, N, B):
-        eq = _class_eq(hard_preds[..., start:start + B, :], classes)
+        eq = model_cols(_class_eq(hard_preds[..., start:start + B, :],
+                                  classes), H, mesh)
         eq = eq.transpose(-3, -2)                              # (..., B, C, H)
         a_hyp = aT.unsqueeze(-3) + update_weight * eq
         b_hyp = bT.unsqueeze(-3) + update_weight * (1.0 - eq)
-        hyp = compute_pbest(a_hyp, b_hyp, num_points=num_points)
+        hyp = compute_pbest(a_hyp, b_hyp, num_points=num_points, mesh=mesh)
         mix = mixture0[..., None, None, :] + pi_hat[..., None, :, None] * (
             hyp - before.unsqueeze(-3))
         h_after = entropy2(mix, -1)                            # (..., B, C)
         out.append(h_before[..., None]
                    - (pi_hat_xi[..., start:start + B, :] * h_after).sum(-1))
-    return torch.cat(out, -1)
+    return sum_h(torch.cat(out, -1), mesh)
 
 
 def eig_scores_factored(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
                         pi_hat_xi: torch.Tensor, hard_preds: torch.Tensor,
                         update_weight: float = 1.0, num_points: int = 256,
                         chunk: int = 256, precision: str = "highest",
-                        approx: bool = False) -> torch.Tensor:
+                        approx: bool = False,
+                        mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The factored tier: the same integral as :func:`eig_scores`, with
     the Beta grid tables of the two hypothetical variants of every class
     row built once (O(C·H·G) transcendentals, independent of N) and the
     per-item integral as three products over the model and grid axes a
     block of ``chunk`` items (``eig_precision`` sets their precision).
     Returns (N,), or ``(S, N)`` with a leading replica axis (see
-    :func:`eig_scores`), one replica at a time (:func:`_per_replica`)."""
+    :func:`eig_scores`), one replica at a time (:func:`_per_replica`).
+    ``mesh``: see :func:`eig_scores` (the hypothetical rows take the
+    gathered tables, ``ops.pbest._bump_tables``)."""
     if dirichlets.dim() == 4:
         return _per_replica(eig_scores_factored, dirichlets, pi_hat,
                             pi_hat_xi, hard_preds, update_weight=update_weight,
                             num_points=num_points, chunk=chunk,
-                            precision=precision, approx=approx)
+                            precision=precision, approx=approx, mesh=mesh)
     C = dirichlets.shape[-1]
     aT, bT = _beta_rows(dirichlets)
-    before = compute_pbest(aT, bT, num_points=num_points)      # (..., C, H)
+    before = compute_pbest(aT, bT, num_points=num_points,
+                           mesh=mesh)                          # (..., C, H)
     mixture0 = (pi_hat[..., :, None] * before).sum(-2)
     h_before = entropy2(mixture0, approx=approx)
     x = pbest_grid(num_points, aT.device)
     dx = x[1] - x[0]
     w_trapz = _trapz_weights(num_points, dx)
-    tables = _bump_tables(aT, bT, x, dx, update_weight)
+    tables = _bump_tables(aT, bT, x, dx, update_weight, mesh)
     classes = torch.arange(C, dtype=hard_preds.dtype,
                            device=hard_preds.device)
     N = hard_preds.shape[-2]
@@ -701,11 +737,12 @@ def eig_scores_factored(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
     out = []
     for start in range(0, N, B):
         eq = _class_eq(hard_preds[..., start:start + B, :], classes)
-        hyp = _pbest_hyp_from_tables(tables, eq, w_trapz, precision)
+        hyp = _pbest_hyp_from_tables(tables, eq, w_trapz, precision,
+                                     mesh=mesh)
         out.append(h_before[..., None] - _class_entropy_drop(
             hyp, mixture0, pi_hat, before,
             pi_hat_xi[..., start:start + B, :], approx))
-    return torch.cat(out, -1)
+    return sum_h(torch.cat(out, -1), mesh)
 
 
 def _rowscan_rows(lead: int, H: int, B: int, num_points: int) -> int:
@@ -731,7 +768,8 @@ def eig_scores_rowscan(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
                        pi_hat_xi: torch.Tensor, hard_preds: torch.Tensor,
                        update_weight: float = 1.0, num_points: int = 256,
                        chunk: int = 256, precision: str = "highest",
-                       approx: bool = False) -> torch.Tensor:
+                       approx: bool = False,
+                       mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The row-scanned tier: the factored integral visiting class rows in
     groups, each group's tables built, used over every block of ``chunk``
     items and dropped, its expected-entropy terms added into a running
@@ -740,19 +778,21 @@ def eig_scores_rowscan(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
     ``_ROWSCAN_TEMP_BYTES``, which cuts the launches C-fold where memory
     allows (at the ImageNet-scale pool, C = 1000 rows a round). Products
     as the factored tier's. Returns (N,), or ``(S, N)`` one replica at a
-    time (:func:`_per_replica`)."""
+    time (:func:`_per_replica`). ``mesh``: see
+    :func:`eig_scores_factored`."""
     if dirichlets.dim() == 4:
         return _per_replica(eig_scores_rowscan, dirichlets, pi_hat,
                             pi_hat_xi, hard_preds, update_weight=update_weight,
                             num_points=num_points, chunk=chunk,
-                            precision=precision, approx=approx)
+                            precision=precision, approx=approx, mesh=mesh)
     H, C = dirichlets.shape[-3], dirichlets.shape[-1]
     lead = max(1, dirichlets.shape[:-3].numel())
     aT, bT = _beta_rows(dirichlets)
     N = hard_preds.shape[-2]
     B = max(1, min(chunk, N))
     R = _rowscan_rows(lead, H, B, num_points)
-    before = compute_pbest_rows(aT, bT, num_points=num_points, row_chunk=R)
+    before = compute_pbest_rows(aT, bT, num_points=num_points, row_chunk=R,
+                                mesh=mesh)
     mixture0 = (pi_hat[..., :, None] * before).sum(-2)
     h_before = entropy2(mixture0, approx=approx)
     x = pbest_grid(num_points, aT.device)
@@ -765,15 +805,16 @@ def eig_scores_rowscan(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
     for c0 in range(0, C, R):
         rows = slice(c0, c0 + R)
         tables = _bump_tables(aT[..., rows, :], bT[..., rows, :], x, dx,
-                              update_weight)
+                              update_weight, mesh)
         for start in range(0, N, B):
             items = slice(start, start + B)
             eq = _class_eq(hard_preds[..., items, :], classes[rows])
-            hyp = _pbest_hyp_from_tables(tables, eq, w_trapz, precision)
+            hyp = _pbest_hyp_from_tables(tables, eq, w_trapz, precision,
+                                         mesh=mesh)
             acc[..., items] += _class_entropy_drop(
                 hyp, mixture0, pi_hat[..., rows], before[..., rows, :],
                 pi_hat_xi[..., items, rows], approx)
-    return h_before[..., None] - acc
+    return sum_h(h_before[..., None] - acc, mesh)
 
 
 # -- the P(best) cache ---------------------------------------------------------
@@ -781,29 +822,32 @@ def eig_scores_rowscan(dirichlets: torch.Tensor, pi_hat: torch.Tensor,
 def build_eig_cache(dirichlets: torch.Tensor, hard_preds: torch.Tensor,
                     update_weight: float = 1.0, num_points: int = 256,
                     chunk: int = 256, precision: str = "highest",
-                    cache_dtype: torch.dtype = torch.float32
+                    cache_dtype: torch.dtype = torch.float32,
+                    mesh: Optional[Mesh] = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """The full ``(pbest_rows (C, H), pbest_hyp (C, N, H))`` cache: the
     factored tier's tables and products over all N items and C class rows
     (at ``precision``), in ``chunk``-item blocks written straight into the
     ``(C, N, H)`` layout. The math is fp32; ``cache_dtype`` is the storage
     type of ``pbest_hyp`` (each block rounded to nearest even on the way
-    in)."""
+    in). ``mesh``: ``dirichlets`` this rank's models and ``hard_preds``
+    every model's predictions of its items; the cache is this rank's
+    ``(C, N/a, H/b)`` block (``ops.pbest._pbest_hyp_from_tables``)."""
     H, C, _ = dirichlets.shape
     N = hard_preds.shape[0]
     aT, bT = _beta_rows(dirichlets)
-    pbest_rows = compute_pbest(aT, bT, num_points=num_points)
+    pbest_rows = compute_pbest(aT, bT, num_points=num_points, mesh=mesh)
     x = pbest_grid(num_points, dirichlets.device)
     dx = x[1] - x[0]
     w_trapz = _trapz_weights(num_points, dx)
-    tables = _bump_tables(aT, bT, x, dx, update_weight)
+    tables = _bump_tables(aT, bT, x, dx, update_weight, mesh)
     classes = torch.arange(C, dtype=hard_preds.dtype, device=hard_preds.device)
     hyp = torch.empty((C, N, H), dtype=cache_dtype, device=dirichlets.device)
     B = max(1, min(chunk, N))
     for start in range(0, N, B):
         eq = _class_eq(hard_preds[start:start + B], classes)   # (C, B, H)
         hyp[:, start:start + B] = _pbest_hyp_from_tables(tables, eq, w_trapz,
-                                                         precision)
+                                                         precision, mesh=mesh)
     return pbest_rows, hyp
 
 
@@ -824,7 +868,8 @@ def update_eig_cache_parts(dirichlets: Optional[torch.Tensor],
                            true_class: torch.Tensor, hard_preds: torch.Tensor,
                            update_weight: float = 1.0, num_points: int = 256,
                            precision: str = "highest", beta_t=None,
-                           pbest: str = "quad", out=None):
+                           pbest: str = "quad", out=None,
+                           mesh: Optional[Mesh] = None):
     """The refreshed values of class row ``true_class`` without writing
     them: ``(row_t (H,), hyp_t (N, H))``. ``dirichlets`` already holds the
     new label; ``true_class`` is a 0-d device tensor. ``beta_t``: the
@@ -834,7 +879,9 @@ def update_eig_cache_parts(dirichlets: Optional[torch.Tensor],
     tables where its ``min(a_t + b_t) >= _AMORTIZED_MIN_CONC``, chosen on
     the device; ``row_t`` is always the quadrature's. Seed-batched:
     ``(S, ...)`` and ``(S,)`` give ``((S, H), (S, N, H))``. ``out``: the
-    ``hyp_t`` tensor to write into."""
+    ``hyp_t`` tensor to write into. ``mesh``: the rank's models' row from
+    every model's ``hard_preds`` (:func:`build_eig_cache`); ``hyp_t`` is
+    its ``(N/a, H/b)`` slice."""
     a_t, b_t = beta_t if beta_t is not None else row_beta(dirichlets,
                                                           true_class)
     # (N, H) bool, or (S, N, H) with each replica's own class; compared in
@@ -849,9 +896,21 @@ def update_eig_cache_parts(dirichlets: Optional[torch.Tensor],
             hyp_t = out.copy_(hyp_t)
     else:
         hyp_t = _pbest_hyp_row(a_t, b_t, eq_t, update_weight, num_points,
-                               precision, out)
-    row_t = compute_pbest(a_t, b_t, num_points=num_points)
+                               precision, out, mesh)
+    row_t = compute_pbest(a_t, b_t, num_points=num_points, mesh=mesh)
     return row_t, hyp_t
+
+
+def _every_model(hard_preds: torch.Tensor, C: int, mesh: Optional[Mesh]
+                 ) -> torch.Tensor:
+    """``(N/a, H)``: every model's hard prediction of this rank's items,
+    gathered once over the model group (int16 when the C classes fit:
+    half the bytes of int32); ``hard_preds`` itself without a model
+    axis."""
+    if not split_h(mesh):
+        return hard_preds
+    small = hard_preds.to(torch.int16) if C <= 2 ** 15 else hard_preds
+    return all_gather_cat(small, mesh, MODEL_AXIS, 1)
 
 
 def _disagreement_mask(hard_preds: torch.Tensor, C: int) -> torch.Tensor:
@@ -898,38 +957,38 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     PriorStats` the surrogate's fit starts from (``surrogate_prior='pool'``
     only, as in the reference).
 
-    ``mesh``: ``preds`` is this rank's ``(H, N/d, C)`` block of a task
-    sharded over the mesh's data axis (``parallel.shard_preds``), and the
-    selector runs on the mesh's device; ``hp.shard_spec`` may name the
-    same mesh or be empty. Without ``mesh`` a ``shard_spec`` makes the
-    selector shard the whole ``preds`` it is given itself
-    (:func:`shard_mesh_for`; one process a shard, ``torchrun``). Indices
-    in and out (select's pick, update's item) are global.
+    ``mesh``: ``preds`` is this rank's ``(H/b, N/a, C)`` block of a task
+    sharded over the mesh (``parallel.shard_preds``), and the selector
+    runs on the mesh's device; ``hp.shard_spec`` may name the same mesh or
+    be empty. Without ``mesh`` a ``shard_spec`` makes the selector shard
+    the whole ``preds`` it is given itself (:func:`shard_mesh_for`; one
+    process a shard, ``torchrun``). Indices in and out (select's pick,
+    update's item, best's model) are global.
     """
     hp = hp or CODAHyperparams()
     if mesh is not None:
-        if hp.shard_spec and parse_spec(hp.shard_spec)[DATA_AXIS] \
-                != mesh.data:
+        if hp.shard_spec and parse_spec(hp.shard_spec) != mesh.shape:
             raise ValueError(f"shard_spec {hp.shard_spec!r} names another "
                              f"mesh than the one given ({mesh.spec})")
         hp = hp._replace(shard_spec=mesh.spec)
     check_supported(hp, preds.shape[1])
     if mesh is None and hp.shard_spec:
-        mesh = shard_mesh_for(hp, preds.shape[1], device)
+        mesh = shard_mesh_for(hp, preds.shape[1], device, H=preds.shape[0])
         preds = shard_preds(torch.as_tensor(preds, dtype=torch.float32),
                             mesh).local
     dev = mesh.device if mesh is not None else resolve_device(device)
     pin_fp32_matmul()
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
-    H, N, C = preds.shape                  # N: this rank's items
+    H, N, C = preds.shape                  # this rank's models and items
     n_global = N * (mesh.data if mesh is not None else 1)
+    h_global = H * (mesh.model if mesh is not None else 1)
     if prior is not None and not sg.parse_prior(hp.surrogate_prior):
         raise ValueError(
             "a prior was passed but surrogate_prior='off' — seeding "
             "under the off knob would break the off-config bitwise pin; "
             "set surrogate_prior='pool'")
     # the reference's resolution, at the global shape
-    eig_mode = resolve_eig_mode(hp, H, n_global, C)
+    eig_mode = resolve_eig_mode(hp, h_global, n_global, C)
     check_tier(hp, eig_mode)
     scorer_k = sg.parse_scorer(hp.eig_scorer)
     precision = resolve_precision(hp.eig_precision)
@@ -955,20 +1014,28 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
                     else eig_scores_refresh_batched)
     gather_s_fn = (gather_rows_sum_batched_plain if plain
                    else gather_rows_sum_batched)
-    if mesh is not None and not plain:
-        # the reference's mesh branch: the kernels per data shard, each
-        # on this rank's (C, N/d, H) block (no collective)
-        on_mesh = dict(mesh=mesh, n_global=n_global)
+    if mesh is not None:
+        # the reference's mesh branch: the kernels per block, each on this
+        # rank's (C, N/a, H/b) block, the model group adding the parts
+        on_mesh = dict(mesh=mesh, n_global=n_global, h_global=h_global,
+                       plain=plain)
         score_fn = functools.partial(eig_scores_cache_sharded, **on_mesh)
         refresh_fn = functools.partial(eig_scores_refresh_sharded, **on_mesh)
         score_s_fn = functools.partial(eig_scores_cache_batched_sharded,
                                        **on_mesh)
         refresh_s_fn = functools.partial(eig_scores_refresh_batched_sharded,
                                          **on_mesh)
+        gather_fn = functools.partial(gather_rows_sum_sharded, mesh=mesh,
+                                      plain=plain)
+        gather_s_fn = functools.partial(gather_rows_sum_batched_sharded,
+                                        mesh=mesh, plain=plain)
 
     hard_preds = preds.argmax(-1).T.to(torch.int32).contiguous()   # (N, H)
-    disagree = _disagreement_mask(hard_preds, C)                   # (N,)
-    ens_hard = ensemble_preds(preds).argmax(-1)
+    # every model's predictions of this rank's items (hard_preds itself
+    # without a model axis): the vote and the hypothetical rows' products
+    hard_all = _every_model(hard_preds, C, mesh)
+    disagree = _disagreement_mask(hard_all, C)                     # (N,)
+    ens_hard = ensemble_preds(preds, mesh).argmax(-1)
     soft_conf = create_confusion_matrices(ens_hard, preds, mode="soft",
                                           mesh=mesh)
     # contiguous: the prior comes out of its contraction in a transposed
@@ -978,7 +1045,8 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         soft_conf, prior_strength, hp.disable_diag_prior)).contiguous()
     preds_by_class = (prep_gather_layout(preds)                    # (C, H, N)
                       if incremental and pi_update == "delta" else None)
-    unc_scores = uncertainty_scores(preds) if hp.q == "uncertainty" else None
+    unc_scores = (uncertainty_scores(preds, mesh=mesh)
+                  if hp.q == "uncertainty" else None)
 
     if eig_mode == "direct":
         eig_fn, eig_kwargs = eig_scores, {}
@@ -989,19 +1057,20 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
 
     def _tier_scores(state: CODAState, pi_xi, hard, chunk):
         return eig_fn(state.dirichlets, state.pi_hat, pi_xi, hard,
-                      num_points=hp.num_points, chunk=chunk, **eig_kwargs)
+                      num_points=hp.num_points, chunk=chunk, mesh=mesh,
+                      **eig_kwargs)
 
     def _initial_state() -> CODAState:
         """The deterministic initial state, before its score-ahead."""
-        unnorm = pi_unnorm(dirichlets0, preds)
+        unnorm = pi_unnorm(dirichlets0, preds, mesh)
         pi_xi, pi = _normalize_pi(unnorm, mesh)
         rows = hyp = None
         if incremental:
-            rows, hyp = build_eig_cache(dirichlets0, hard_preds,
+            rows, hyp = build_eig_cache(dirichlets0, hard_all,
                                         num_points=hp.num_points,
                                         chunk=hp.eig_chunk,
                                         precision=precision,
-                                        cache_dtype=cache_dtype)
+                                        cache_dtype=cache_dtype, mesh=mesh)
         sparse = (sparsify(dirichlets0, sparse_k) if sparse_k is not None
                   else None)
         fit = None
@@ -1043,7 +1112,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         if incremental:
             scores = state.eig_scores_cached
         else:
-            scores = _tier_scores(state, state.pi_hat_xi, hard_preds,
+            scores = _tier_scores(state, state.pi_hat_xi, hard_all,
                                   hp.eig_chunk)
         idx, n_ties, prob = _argmax(k_tie, scores, cand)
         return SelectResult(idx=idx, prob=prob, stochastic=n_ties > 1,
@@ -1201,7 +1270,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         score-ahead, else the tier's scoring pass."""
         if incremental:
             return state.eig_scores_cached
-        return _tier_scores(state, state.pi_hat_xi, hard_preds, hp.eig_chunk)
+        return _tier_scores(state, state.pi_hat_xi, hard_all, hp.eig_chunk)
 
     def select_q(state: CODAState, key, q: int) -> SelectResult:
         """q picks of the full-pool EIG from the round's one scoring pass
@@ -1277,7 +1346,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
                                for d in d_t])
         else:
             col = torch.einsum("hs,hns->n", d_t, preds)
-        _put_col(state.pi_xi_unnorm, true_class, col)
+        _put_col(state.pi_xi_unnorm, true_class, sum_h(col, mesh))
 
     def _surrogate_scores(state: CODAState, pi, pi_xi, true_classes, a_t,
                           b_t):
@@ -1318,16 +1387,16 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         on the card at every shape, and replica s must be bitwise its
         one-seed run."""
         kw = dict(num_points=hp.num_points, precision=precision,
-                  pbest=hp.eig_pbest)
+                  pbest=hp.eig_pbest, mesh=mesh)
         if true_class.dim() == 0:
             return update_eig_cache_parts(state.dirichlets, true_class,
-                                          hard_preds, beta_t=beta_t, **kw)
+                                          hard_all, beta_t=beta_t, **kw)
         S = true_class.shape[0]
         # each replica's rows written in place: no (S, N, H) stacking copy
         hyp_t = torch.empty((S, N, H), dtype=torch.float32, device=dev)
         rows = [update_eig_cache_parts(
             None if state.dirichlets is None else state.dirichlets[s],
-            true_class[s], hard_preds,
+            true_class[s], hard_all,
             beta_t=None if beta_t is None else (beta_t[0][s], beta_t[1][s]),
             out=hyp_t[s], **kw)[0] for s in range(S)]
         return torch.stack(rows), hyp_t
@@ -1479,17 +1548,16 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         """P(best) of one replica's posterior, off the incremental tier."""
         if eig_mode != "rowscan":
             return pbest_row_mixture(dirichlets, pi_hat,
-                                     num_points=hp.num_points)
+                                     num_points=hp.num_points, mesh=mesh)
         # large C: the (C, H, G) temporary in row groups
         aT, bT = _beta_rows(dirichlets)
         rows = compute_pbest_rows(
             aT, bT, num_points=hp.num_points,
-            row_chunk=_rowscan_rows(1, H, 1, hp.num_points))
+            row_chunk=_rowscan_rows(1, H, 1, hp.num_points), mesh=mesh)
         return (pi_hat[:, None] * rows).sum(0)
 
-    def get_pbest(state: CODAState) -> torch.Tensor:
-        """P(best) under the current posterior: ``(H,)``, or ``(S, H)``
-        for a batched state."""
+    def _local_pbest(state: CODAState) -> torch.Tensor:
+        """P(best) of this rank's models."""
         if incremental:
             # the cached per-row P(best) is compute_pbest of the current
             # posterior; only the pi-hat mixture is recomputed (one
@@ -1503,6 +1571,15 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
             return torch.stack([_pbest_recomputed(d, p) for d, p in
                                 zip(state.dirichlets, state.pi_hat)])
         return _pbest_recomputed(state.dirichlets, state.pi_hat)
+
+    def get_pbest(state: CODAState) -> torch.Tensor:
+        """P(best) under the current posterior: ``(H,)``, or ``(S, H)``
+        for a batched state; under a model axis every model's, gathered
+        over the model group (the same on each of its ranks)."""
+        pbest = _local_pbest(state)
+        if split_h(mesh):
+            pbest = all_gather_cat(pbest, mesh, MODEL_AXIS, -1)
+        return pbest
 
     def best(state: CODAState, key=None):
         del key  # plain argmax, as the reference

@@ -12,9 +12,11 @@ loss total and the label count), as CODA's does; the reference returned
 new arrays.
 
 Under a mesh (``mesh=``, ``parallel/mesh.py``) ``preds`` is this rank's
-block of N: the draw is the mesh form of ``categorical`` over every
-rank's block, the labelled item's predictions come from the rank that
-holds it, and the risk is replicated.
+``(H/b, N/a)`` block: the draw is the mesh form of ``categorical`` over
+every rank's block of N, the labelled item's predictions come from the
+rank that holds it, the risk is this rank's models' (bitwise equal across
+its data group), and the best model is the mesh arg-min over the model
+group, its tie-break drawn at the models' global positions.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from coda_tpu_torch.parallel.collectives import (
     clear_items,
     count_over,
 )
-from coda_tpu_torch.parallel.mesh import Mesh
+from coda_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh
 from coda_tpu_torch.selectors.protocol import Selector, SelectResult
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -62,7 +64,7 @@ def make_risk_readout(preds: torch.Tensor, loss_fn: Callable,
                       mesh: Optional[Mesh] = None):
     """``(init_state, risk, best, update)`` over :class:`RiskState`, on
     ``preds``' device. Shared by IID and Uncertainty (they differ only in
-    acquisition). ``mesh``: ``preds`` is this rank's block of N."""
+    acquisition). ``mesh``: ``preds`` is this rank's block."""
     H, N, C = preds.shape
     dev = preds.device
     every_model = torch.ones(H, dtype=torch.bool, device=dev)
@@ -79,7 +81,8 @@ def make_risk_readout(preds: torch.Tensor, loss_fn: Callable,
         return state.loss_total / n
 
     def best(state: RiskState, key):
-        idx, n_ties = masked_argmin_tiebreak(key, risk(state), every_model)
+        idx, n_ties = masked_argmin_tiebreak(key, risk(state), every_model,
+                                             mesh=mesh, axis=MODEL_AXIS)
         # risk ties (common early on with few labels) are broken randomly
         # and make the run stochastic
         return idx, n_ties > 1
@@ -100,7 +103,7 @@ def make_iid(preds: torch.Tensor, loss_fn: Callable = accuracy_loss,
              mesh: Optional[Mesh] = None) -> Selector:
     """The IID selector over a ``(H, N, C)`` prediction tensor, on
     ``device`` (default: the card); with a ``mesh``, over this rank's
-    ``(H, N/d, C)`` block on the mesh's device (indices global)."""
+    ``(H/b, N/a, C)`` block on the mesh's device (indices global)."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
     init_state, risk, best, update = make_risk_readout(preds, loss_fn, mesh)

@@ -14,6 +14,12 @@ models (counterpart of ``coda_tpu/selectors/modelpicker.py``).
 replaces the posterior. Under a mesh the expected entropies are per item,
 so each rank scores its block; the disagreement fallback and the pick
 cross ranks, and the labelled item's predictions come from its owner.
+Under the model axis the posterior and the counts are this rank's models'
+(bitwise equal across its data group): the float64 bucket sums and
+totals over H add the model group's parts before they are rounded to
+float32, the posterior's normalisation adds its sums, the disagreement
+test reads model 0's predictions from its owner, and the best model is
+the mesh arg-min over the model group.
 """
 
 from __future__ import annotations
@@ -24,13 +30,14 @@ import torch
 
 from coda_tpu_torch import random as trandom
 from coda_tpu_torch.ops.masked import masked_argmin_tiebreak
+from coda_tpu_torch.ops.pbest import sum_h
 from coda_tpu_torch.parallel.collectives import (
     any_over,
     broadcast_from_owner,
     clear_items,
     count_over,
 )
-from coda_tpu_torch.parallel.mesh import Mesh
+from coda_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh
 from coda_tpu_torch.selectors.protocol import Selector, SelectResult
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -75,9 +82,10 @@ DEFAULT_EPS = 0.46
 
 
 def _bucket_sums(hard_preds: torch.Tensor, w: torch.Tensor,
-                 wlw: torch.Tensor, C: int):
+                 wlw: torch.Tensor, C: int, mesh: Optional[Mesh] = None):
     """``t1[n, c] = Σ_{h: pred=c} w_h`` and ``t2`` (the same with
-    ``w·ln w``), two (N, C) float32 tensors.
+    ``w·ln w``), two (N, C) float32 tensors (``mesh``: this rank's
+    models, the float64 sums completed over the model group).
 
     A one-hot product a class at a time: the (N, H) indicator of class c
     times the (H, 2) weights, in float64, rounded once to float32. A
@@ -89,7 +97,8 @@ def _bucket_sums(hard_preds: torch.Tensor, w: torch.Tensor,
     them, and the card and the CPU agree."""
     ww = torch.stack([w, wlw], 1).to(torch.float64)               # (H, 2)
     t = torch.stack([(hard_preds == c).to(torch.float64) @ ww
-                     for c in range(C)], 1).to(torch.float32)    # (N, C, 2)
+                     for c in range(C)], 1)                       # (N, C, 2)
+    t = sum_h(t, mesh).to(torch.float32)
     return t[..., 0], t[..., 1]
 
 
@@ -117,7 +126,8 @@ class ModelPickerState(NamedTuple):
 
 
 def expected_entropies(hard_preds: torch.Tensor, posterior: torch.Tensor,
-                       gamma: float, C: int) -> torch.Tensor:
+                       gamma: float, C: int,
+                       mesh: Optional[Mesh] = None) -> torch.Tensor:
     """(N,) mean posterior entropy in bits over hypothetical class labels.
 
     A hypothetical label moves each model's logit by ``log γ`` where it
@@ -127,16 +137,19 @@ def expected_entropies(hard_preds: torch.Tensor, posterior: torch.Tensor,
         w_h·ln w_h,  W = Σ_h w_h,  L = Σ_h w_h·ln w_h,  Z = W + (γ-1)·T1
 
     the post-update entropy is ``ln Z − (L + (γ-1)·T2 + γ·ln γ·T1) / Z``
-    nats: O(N·H) work a round instead of a softmax per (point, class)."""
+    nats: O(N·H) work a round instead of a softmax per (point, class).
+    ``mesh``: ``hard_preds`` (N, H/b) and ``posterior`` (H/b,) are this
+    rank's models; every sum over H adds the model group's float64
+    parts."""
     # a fill on the device, not a copy from the host (which would wait for
     # the stream every round)
     g = torch.full((), gamma, dtype=torch.float32, device=posterior.device)
     log_gamma = torch.log(g)
     w = torch.clamp_min(posterior, 1e-38).to(torch.float32)
     wlw = w * torch.log(w)
-    W = w.sum(dtype=torch.float64).to(torch.float32)
-    L = wlw.sum(dtype=torch.float64).to(torch.float32)
-    t1, t2 = _bucket_sums(hard_preds, w, wlw, C)
+    W = sum_h(w.sum(dtype=torch.float64), mesh).to(torch.float32)
+    L = sum_h(wlw.sum(dtype=torch.float64), mesh).to(torch.float32)
+    t1, t2 = _bucket_sums(hard_preds, w, wlw, C, mesh)
     Z = W + (g - 1.0) * t1
     ent_nat = torch.log(Z) - (L + (g - 1.0) * t2 + g * log_gamma * t1) / Z
     return _mean_bits_in_order(ent_nat)
@@ -148,16 +161,25 @@ def make_modelpicker(preds: torch.Tensor, epsilon: float = DEFAULT_EPS,
                      mesh: Optional[Mesh] = None) -> Selector:
     """The ModelPicker selector over a ``(H, N, C)`` prediction tensor, on
     ``device`` (default: the card); ``mesh``: this rank's block of N on
-    the mesh's device (indices global)."""
+    the mesh's device (indices global; ``preds`` its ``(H/b, N/a, C)``
+    block)."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
     H, N, C = preds.shape
+    h_all = H * (mesh.model if mesh is not None else 1)    # global H
     epsilon = float(epsilon)
     gamma = (1.0 - epsilon) / epsilon
     gamma32 = torch.full((), gamma, dtype=torch.float32, device=dev)
     hard_preds = preds.argmax(-1).T.to(torch.int32).contiguous()   # (N, H)
     # points where any model disagrees with model 0
-    disagree = (hard_preds != hard_preds[:, :1]).any(1)
+    if mesh is not None and mesh.model > 1:
+        first = broadcast_from_owner(
+            hard_preds, torch.zeros(1, dtype=torch.int64, device=dev), mesh,
+            dim=1, axis=MODEL_AXIS)[0]                             # (N,)
+        disagree = any_over((hard_preds != first[:, None]).any(1), mesh,
+                            MODEL_AXIS)
+    else:
+        disagree = (hard_preds != hard_preds[:, :1]).any(1)
     every_model = torch.ones(H, dtype=torch.bool, device=dev)
     always = torch.ones((), dtype=torch.bool, device=dev)
 
@@ -165,14 +187,15 @@ def make_modelpicker(preds: torch.Tensor, epsilon: float = DEFAULT_EPS,
         del key
         return ModelPickerState(
             unlabeled=torch.ones(N, dtype=torch.bool, device=dev),
-            posterior=torch.full((H,), 1.0 / H, dtype=torch.float32,
+            posterior=torch.full((H,), 1.0 / h_all, dtype=torch.float32,
                                  device=dev),
             correct_counts=torch.zeros(H, dtype=torch.int32, device=dev),
             n_labeled=torch.zeros((), dtype=torch.int32, device=dev),
         )
 
     def select(state: ModelPickerState, key) -> SelectResult:
-        ent = expected_entropies(hard_preds, state.posterior, gamma, C)
+        ent = expected_entropies(hard_preds, state.posterior, gamma, C,
+                                 mesh)
         # restrict to disagreement points while any remains unlabeled
         cand0 = disagree & state.unlabeled
         cand = torch.where(any_over(cand0.any(), mesh), cand0,
@@ -200,7 +223,7 @@ def make_modelpicker(preds: torch.Tensor, epsilon: float = DEFAULT_EPS,
         state.correct_counts.add_(agree.to(torch.int32))
         clear_items(state.unlabeled, idx.reshape(1), mesh)
         state.n_labeled.add_(1)
-        return state._replace(posterior=post / post.sum())
+        return state._replace(posterior=post / sum_h(post.sum(), mesh))
 
     def select_q(state: ModelPickerState, key, q: int) -> SelectResult:
         """Argmin top-q: the q lowest expected entropies of one scoring
@@ -242,9 +265,10 @@ def make_modelpicker(preds: torch.Tensor, epsilon: float = DEFAULT_EPS,
     def best(state: ModelPickerState, key):
         k_tie, k_rand = trandom.split(key)
         idx, n_ties = masked_argmin_tiebreak(
-            k_tie, -state.correct_counts.to(torch.float32), every_model)
+            k_tie, -state.correct_counts.to(torch.float32), every_model,
+            mesh=mesh, axis=MODEL_AXIS)
         # drawn on the host from the host key
-        rand_idx = int(trandom.randint(k_rand, (), 0, H))
+        rand_idx = int(trandom.randint(k_rand, (), 0, h_all))
         labeled = state.n_labeled > 0
         return (torch.where(labeled, idx, rand_idx),
                 ~labeled | (n_ties > 1))

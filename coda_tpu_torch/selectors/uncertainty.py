@@ -5,7 +5,8 @@ Selects the unlabeled point with the highest entropy of the ensemble-mean
 prediction (natural log, 1e-8 epsilon); the best-model readout is IID's.
 The acquisition does not adapt, so the scores are computed once in the
 factory. ``update`` works in place (see ``selectors/iid.py``). Under a
-mesh the scores are this rank's block's and the pick the mesh arg-max.
+mesh the scores are this rank's block's (the ensemble mean a rank-order
+sum over the model group) and the pick the mesh arg-max.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Callable, Optional
 import torch
 
 from coda_tpu_torch.losses import accuracy_loss
+from coda_tpu_torch.ops.confusion import ensemble_preds
 from coda_tpu_torch.ops.masked import (
     masked_argmax_tiebreak,
     mesh_masked_argmax_tiebreak,
@@ -25,10 +27,12 @@ from coda_tpu_torch.selectors.protocol import Selector, SelectResult
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
-def uncertainty_scores(preds: torch.Tensor,
-                       epsilon: float = 1e-8) -> torch.Tensor:
-    """(N,) entropy in nats of the mean-over-models prediction."""
-    mean_p = preds.mean(0)
+def uncertainty_scores(preds: torch.Tensor, epsilon: float = 1e-8,
+                       mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """(N,) entropy in nats of the mean-over-models prediction (``mesh``:
+    ``preds`` this rank's models, :func:`~coda_tpu_torch.ops.confusion.
+    ensemble_preds`)."""
+    mean_p = ensemble_preds(preds, mesh)
     return -(mean_p * torch.log(mean_p + epsilon)).sum(-1)
 
 
@@ -40,7 +44,7 @@ def make_uncertainty(preds: torch.Tensor, loss_fn: Callable = accuracy_loss,
     ``device`` (default: the card); ``mesh``: see ``make_iid``."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
-    scores = uncertainty_scores(preds)
+    scores = uncertainty_scores(preds, mesh=mesh)
     init_state, risk, best, update = make_risk_readout(preds, loss_fn, mesh)
 
     def init(key=None) -> RiskState:

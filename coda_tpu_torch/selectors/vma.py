@@ -10,6 +10,9 @@ from the sorted-values identity
 
 — one sort over H per point, never an ``(H, H, N)`` tensor (2e11 elements
 at H = 1000, N = 50,000). They are static, computed once in the factory.
+Under a mesh's model axis the sort needs every model's value at an item:
+the model group gathers its ``(H/b, N/a)`` expected losses once, at
+build time, and each rank scores its items over all H.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from coda_tpu_torch.selectors.activetesting import (
     make_activetesting,
     surrogate_expected_losses,
 )
-from coda_tpu_torch.parallel.mesh import Mesh
+from coda_tpu_torch.parallel.collectives import all_gather_cat
+from coda_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh
 from coda_tpu_torch.selectors.protocol import Selector
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -37,9 +41,15 @@ def pairwise_absdiff_sum(values: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return (coeff * v_sorted).sum(-1)
 
 
-def vma_scores(preds: torch.Tensor) -> torch.Tensor:
-    """(N,) pairwise-disagreement acquisition scores."""
-    return pairwise_absdiff_sum(surrogate_expected_losses(preds), dim=0)
+def vma_scores(preds: torch.Tensor,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """(N,) pairwise-disagreement acquisition scores (``mesh``: ``preds``
+    this rank's block; the expected losses of every model of its items
+    gathered over the model group)."""
+    losses = surrogate_expected_losses(preds, mesh)
+    if mesh is not None and mesh.model > 1:
+        losses = all_gather_cat(losses, mesh, MODEL_AXIS, 0)
+    return pairwise_absdiff_sum(losses, dim=0)
 
 
 def make_vma(preds: torch.Tensor, loss_fn: Callable = accuracy_loss,
@@ -52,5 +62,5 @@ def make_vma(preds: torch.Tensor, loss_fn: Callable = accuracy_loss,
     dev = mesh.device if mesh is not None else resolve_device(device)
     preds = torch.as_tensor(preds, dtype=torch.float32).to(dev)
     return make_activetesting(preds, loss_fn=loss_fn, budget=budget,
-                              name=name, acquisition_scores=vma_scores(preds),
+                              name=name, acquisition_scores=vma_scores(preds, mesh),
                               device=dev, mesh=mesh)

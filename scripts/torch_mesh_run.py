@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Runs the port's command line on a ``data=d`` mesh and records what a
-check of it needs: each round's scores of this rank's block, the
-decisions, the replicated state's fingerprint, the kernels' launch counts
-and the device's peak memory. One process a rank::
+"""Runs the port's command line on a mesh (``data=d`` by default, or
+``--mesh model=b`` / ``data=a,model=b``) and records what a check of it
+needs: each round's scores of this rank's block, the decisions, the
+fingerprints of the state each group holds alike, the kernels' launch
+counts, the bytes each axis's collectives carried and the device's peak
+memory. One process a rank::
 
     python -m torch.distributed.run --standalone --nproc-per-node 2 \\
-        scripts/torch_mesh_run.py --data-dir D --task headline --out OUT
+        scripts/torch_mesh_run.py --data-dir D --task headline --out OUT \\
+        [--mesh model=2]
 
 ``D/<task>.npy`` (+ ``<task>_labels.npy``) is the task. Each job drives
-``coda_tpu_torch.cli`` as a user would (``--task ... --mesh data=d``),
+``coda_tpu_torch.cli`` as a user would (``--task ... --mesh SPEC``),
 with the selector factory wrapped to keep each round's score vector and
 the final state, and the experiment timed (``run_seeds_compiled``'s
 ``timings``); every launch counter is set to 0 just before the job and
@@ -71,11 +74,26 @@ def job_argv(job: str, rounds: dict) -> list:
 
 class Capture:
     """What a wrapped selector saw: each round's score vector (kept on
-    the device, copied once at the end) and the last state."""
+    the device, copied once at the end), the last state, and the bytes
+    the collectives sent inside the rounds' select, update and best
+    calls (``parallel.collectives.traffic``, by axis)."""
 
     def __init__(self):
         self.scores: list = []
         self.state = None
+        self.round_bytes: dict = {}
+
+    def _counted(self, fn):
+        from coda_tpu_torch.parallel import collectives
+
+        def call(*args):
+            before = dict(collectives.traffic)
+            out = fn(*args)
+            for k, v in collectives.traffic.items():
+                self.round_bytes[k] = (self.round_bytes.get(k, 0) + v
+                                       - before[k])
+            return out
+        return call
 
     def wrap(self, sel):
         def select(state, key):
@@ -99,16 +117,22 @@ class Capture:
                 self.state = inner.update(state, *args)
                 return self.state
 
-            batched = dataclasses.replace(inner, select=bselect,
-                                          update=bupdate)
-        return dataclasses.replace(sel, select=select, update=update,
+            batched = dataclasses.replace(
+                inner, select=self._counted(bselect),
+                update=self._counted(bupdate),
+                best=self._counted(inner.best))
+        return dataclasses.replace(sel, select=self._counted(select),
+                                   update=self._counted(update),
+                                   best=self._counted(sel.best),
                                    batched=batched)
 
 
 def fingerprint(state, n_local: int) -> str:
-    """sha256 of the replicated fields of a selector state: every tensor
-    field without an axis of this rank's ``n_local`` items (the unlabeled
-    mask, pi-hat per item and the cache are each rank's own)."""
+    """sha256 of the fields of a selector state without an axis of
+    length ``n_local``. With this rank's items, the fields its data group
+    holds alike (on a ``data=d`` mesh every rank: the posterior, pi-hat,
+    the P(best) rows); with its models, those its model group holds alike
+    (pi-hat and its item rows, the scores, the unlabeled mask)."""
     import torch
 
     h = hashlib.sha256()
@@ -155,6 +179,7 @@ def run_cli_job(argv: list, dev) -> dict:
 
     from coda_tpu_torch import cli
     from coda_tpu_torch.engine import run_seeds_compiled
+    from coda_tpu_torch.parallel import collectives
 
     cap = Capture()
     got: dict = {}
@@ -173,6 +198,7 @@ def run_cli_job(argv: list, dev) -> dict:
                                  timings=timings, cost_label=args.method,
                                  mesh=dataset.mesh)
         got.update(result=res, timings=timings,
+                   h_local=dataset.preds.shape[0],
                    n_local=dataset.preds.shape[1])
         return res, None, None
 
@@ -183,10 +209,12 @@ def run_cli_job(argv: list, dev) -> dict:
     try:
         _sync(dev)
         reset_counts()
+        sent = dict(collectives.traffic)
         with contextlib.redirect_stdout(out):
             rc = cli.main(argv)
         _sync(dev)
         launched = counts()
+        sent = {k: v - sent[k] for k, v in collectives.traffic.items()}
     finally:
         cli.build_selector_factory, cli.run_all_seeds = orig_factory, \
             orig_run
@@ -203,6 +231,10 @@ def run_cli_job(argv: list, dev) -> dict:
         "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                     if dev.type == "cuda" else 0.0),
         "fingerprint": fingerprint(cap.state, got["n_local"]),
+        "fingerprint_model": fingerprint(cap.state, got["h_local"]),
+        "bytes_sent": sent,
+        "bytes_per_round": {k: v / iters for k, v in
+                            cap.round_bytes.items()},
         "arrays": {
             "chosen_idx": res.chosen_idx.cpu().numpy(),
             "best_model": res.best_model.cpu().numpy(),
@@ -263,6 +295,8 @@ def main(argv=None) -> int:
     p.add_argument("--pred-dir", default=os.path.join(ROOT, "data"))
     p.add_argument("--suite-tasks", default="pyfiles,iris")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--mesh", default=None, metavar="AXIS=K,...",
+                   help="the mesh (default data=<ranks>)")
     p.add_argument("--unsharded", action="store_true",
                    help="run the jobs in this one process, unsharded")
     args = p.parse_args(argv)
@@ -278,7 +312,7 @@ def main(argv=None) -> int:
     spec = None
     if not args.unsharded:
         initialize(device=args.device)
-        spec = f"data={world()[1]}"
+        spec = args.mesh or f"data={world()[1]}"
     rank = world()[0]
     dev = shard_device(args.device)
     os.makedirs(args.out, exist_ok=True)

@@ -1,5 +1,5 @@
 """Rank programs for the port's mesh tests (``test_torch_mesh.py``,
-``test_torch_distributed.py``).
+``test_torch_distributed.py``, ``test_torch_mesh_model.py``).
 
 :func:`spawn` starts a world of ``world`` CPU processes through
 ``torch.multiprocessing`` (spawn), each joining one gloo group through a
@@ -16,6 +16,7 @@ import contextlib
 import io
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,6 +28,11 @@ TASK = dict(seed=7, H=8, N=64, C=4)
 ITERS = 8
 TRACE_METHODS = ("coda", "coda_factored", "iid", "uncertainty",
                  "activetesting", "vma")
+# the model axis: every CODA tier and the four deterministic baselines, on
+# each spec of a world (a 4-rank world runs both of its specs in one spawn)
+MODEL_METHODS = ("coda", "coda_factored", "coda_rowscan", "coda_direct",
+                 "iid", "uncertainty", "activetesting", "vma")
+MODEL_SPECS = {2: ("model=2",), 4: ("model=4", "data=2,model=2")}
 
 
 def spawn(world: int, tmp: str, jobs: tuple, env: bool = False) -> list:
@@ -80,10 +86,10 @@ def factory(method: str):
         make_coda,
     )
 
-    if method == "coda":
-        hp = CODAHyperparams(eig_mode="incremental")
-    elif method == "coda_factored":
-        hp = CODAHyperparams(eig_mode="factored")
+    if method.startswith("coda"):
+        tier = {"coda": "incremental"}.get(method,
+                                           method.removeprefix("coda_"))
+        hp = CODAHyperparams(eig_mode=tier)
     else:
         kw = {"budget": ITERS} if method in ("activetesting", "vma") else {}
         return lambda p, mesh=None: SELECTOR_FACTORIES[method](
@@ -171,16 +177,17 @@ def job_blocks(rank, world, tmp) -> dict:
     return out
 
 
-def job_large_c(rank, world, tmp) -> dict:
+def job_large_c(rank, world, tmp, spec: Optional[str] = None) -> dict:
     """The large-C factored and rowscan tiers (C = 1000) with the auto
     budgets shrunk until the resolver picks each, as the reference's
-    ``test_large_c_sharded_execution_parity`` runs them."""
+    ``test_large_c_sharded_execution_parity`` runs them; on ``data=world``
+    or on ``spec``."""
     from coda_tpu_torch.data import make_synthetic_task
     from coda_tpu_torch.engine import run_seeds_compiled
     from coda_tpu_torch.selectors import CODAHyperparams, make_coda
     from coda_tpu_torch.selectors import coda as coda_mod
 
-    mesh = _mesh(world)
+    mesh = _mesh(world) if spec is None else _spec_mesh(spec)
     H, N, C = 16, 512, 1000
     hp = CODAHyperparams(eig_chunk=128, num_points=32)
     task = make_synthetic_task(seed=13, H=H, N=N, C=C, sharpness=12.0,
@@ -313,5 +320,158 @@ def job_env(rank, world, tmp) -> dict:
             "sum": float(total[0])}
 
 
+# -- the model axis ----------------------------------------------------------
+
+def _spec_mesh(spec: str):
+    from coda_tpu_torch.parallel import mesh_from_spec
+
+    return mesh_from_spec(spec, device="cpu")
+
+
+def _blk(a: np.ndarray, mesh, n_dim: Optional[int], h_dim: Optional[int]):
+    """This rank's block of a host array: N block ``mesh.data_index``
+    along ``n_dim``, H block ``mesh.model_index`` along ``h_dim``."""
+    index = [slice(None)] * a.ndim
+    for dim, k, i in ((n_dim, mesh.data, mesh.data_index),
+                      (h_dim, mesh.model, mesh.model_index)):
+        if dim is not None:
+            n = a.shape[dim] // k
+            index[dim] = slice(i * n, (i + 1) * n)
+    return torch.from_numpy(np.ascontiguousarray(a[tuple(index)]))
+
+
+def job_model_traces(rank, world, tmp) -> dict:
+    """Every method of :data:`MODEL_METHODS` on the reference's task at
+    each spec of :data:`MODEL_SPECS`, one seed x 8 rounds; CODA's
+    incremental and factored tiers also as 2-seed batches."""
+    from coda_tpu_torch.data import make_synthetic_task
+    from coda_tpu_torch.engine import run_seeds_compiled
+
+    out = {}
+    for spec in MODEL_SPECS[world]:
+        mesh = _spec_mesh(spec)
+        task = make_synthetic_task(**TASK, mesh=mesh)
+        res = {}
+        for m in MODEL_METHODS:
+            res[m] = _result(run_seeds_compiled(
+                factory(m), task.preds, task.labels, iters=ITERS, seeds=1,
+                device="cpu", mesh=mesh))
+        for m in ("coda", "coda_factored"):
+            res[m + "_batch2"] = _result(run_seeds_compiled(
+                factory(m), task.preds, task.labels, iters=ITERS, seeds=2,
+                device="cpu", mesh=mesh))
+        out[spec] = res
+    return out
+
+
+def job_model_blocks(rank, world, tmp) -> dict:
+    """At each spec: this rank's block of ModelPicker's expected entropies
+    and of ``compute_pbest`` with H sharded; the block entries of kernels
+    1, 2, 4, 5 and 3 (their plain versions) on the arrays the test wrote
+    (``model_entries.npz``); and the state of a CODA run of 4 rounds
+    (incremental tier), for the test to hold its replicated parts equal
+    across each model group and its H-sharded parts across each data
+    group."""
+    from coda_tpu_torch import random as trandom
+    from coda_tpu_torch.data import make_synthetic_task
+    from coda_tpu_torch.engine.loop import answer
+    from coda_tpu_torch.ops import eig_kernels as ek
+    from coda_tpu_torch.ops import gather_kernels as gk
+    from coda_tpu_torch.ops.pbest import compute_pbest
+    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+    from coda_tpu_torch.selectors.modelpicker import expected_entropies
+
+    z = np.load(os.path.join(tmp, "model_entries.npz"))
+    out = {}
+    for spec in MODEL_SPECS[world]:
+        mesh = _spec_mesh(spec)
+        res = {"coords": (mesh.data_index, mesh.model_index)}
+        task = make_synthetic_task(**TASK, mesh=mesh)
+        res["preds_block"] = task.preds.numpy()
+        hard = task.preds.argmax(-1).T.to(torch.int32)
+        post = torch.full((hard.shape[1],), 1.0 / TASK["H"])
+        res["entropies"] = expected_entropies(
+            hard, post, (1 - 0.46) / 0.46, TASK["C"], mesh).numpy()
+        res["compute_pbest"] = compute_pbest(_blk(z["a"], mesh, None, 1),
+                                     _blk(z["b"], mesh, None, 1),
+                                     mesh=mesh).numpy()
+        N, H = z["hyp"].shape[1], z["hyp"].shape[2]
+        rows, rows_new = (_blk(z[k], mesh, None, 1)
+                          for k in ("rows", "rows_new"))
+        hyp = _blk(z["hyp"], mesh, 1, 2)
+        pi = torch.from_numpy(z["pi"])
+        pi_xi = _blk(z["pi_xi"], mesh, 0, None)
+        on = dict(mesh=mesh, n_global=N, h_global=H, plain=True)
+        res["cache_scores"] = ek.eig_scores_cache_sharded(
+            rows, hyp, pi, pi_xi, **on).numpy()
+        scores, hyp_out = ek.eig_scores_refresh_sharded(
+            rows_new, hyp.clone(), _blk(z["hyp_t"], mesh, 0, 1),
+            torch.tensor(int(z["c"])), pi, pi_xi, **on)
+        res["refresh_scores"] = scores.numpy()
+        res["refresh_cache"] = hyp_out.numpy()
+        rows_s = _blk(z["rows_s"], mesh, None, 2)
+        hyp_s = _blk(z["hyp_s"], mesh, 2, 3)
+        pi_s = torch.from_numpy(z["pi_s"])
+        pi_xi_s = _blk(z["pi_xi_s"], mesh, 1, None)
+        res["cache_scores_s"] = ek.eig_scores_cache_batched_sharded(
+            rows_s, hyp_s, pi_s, pi_xi_s, **on).numpy()
+        scores, _ = ek.eig_scores_refresh_batched_sharded(
+            rows_s, hyp_s.clone(), _blk(z["hyp_t_s"], mesh, 1, 2),
+            torch.from_numpy(z["c_s"]), pi_s, pi_xi_s, **on)
+        res["refresh_scores_s"] = scores.numpy()
+        pbc = _blk(z["pbc"], mesh, 2, 1)
+        res["column"] = gk.gather_rows_sum_sharded(
+            pbc, _blk(z["classes"], mesh, None, 0), mesh).numpy()
+        res["column_s"] = gk.gather_rows_sum_batched_sharded(
+            pbc, _blk(z["classes_s"], mesh, None, 1), mesh).numpy()
+        try:
+            ek.eig_scores_cache_sharded(rows, hyp, pi, pi_xi, mesh, N,
+                                        h_global=H + mesh.model)
+            res["block_check"] = None
+        except ValueError as e:
+            res["block_check"] = str(e)
+        sel = make_coda(task.preds, CODAHyperparams(eig_mode="incremental"),
+                        device="cpu", mesh=mesh)
+        st = sel.init(None)
+        res["cache_shape"] = tuple(st.pbest_hyp.shape)
+        for k in trandom.split(trandom.PRNGKey(3), 4):
+            pick = sel.select(st, k)
+            st = sel.update(st, pick.idx, answer(task.labels, pick.idx, mesh))
+        res["state"] = {f: getattr(st, f).numpy() for f in (
+            "pi_hat", "pi_hat_xi", "eig_scores_cached", "dirichlets",
+            "pbest_rows", "pbest_hyp", "unlabeled")}
+        res["get_pbest"] = sel.extras["get_pbest"](st).numpy()
+        out[spec] = res
+    return out
+
+
+def job_model_large_c(rank, world, tmp) -> dict:
+    """The large-C factored and rowscan tiers at ``data=2,model=2``
+    (:func:`job_large_c`'s runs on the other mesh)."""
+    return job_large_c(rank, world, tmp, spec="data=2,model=2")
+
+
+def job_model_cli(rank, world, tmp) -> dict:
+    """``cli --mesh model=2`` (CODA and the five baselines) and ``cli suite
+    --mesh model=2`` on ``pyfiles`` (H=14, sharded) and ``digits_clip``
+    (H=3: unsharded, the reference's warning)."""
+    from coda_tpu_torch import cli
+
+    out = {"runs": {}}
+    base = ["--synthetic", "6,64,4", "--iters", "5", "--seeds", "2",
+            "--device", "cpu", "--mesh", "model=2", "--no-mlflow"]
+    for m in ("coda", "iid", "uncertainty", "activetesting", "vma",
+              "model_picker"):
+        out["runs"][m] = _captured(cli.main, base + ["--method", m])
+    out["suite"] = _captured(cli.main, [
+        "suite", "--pred-dir", os.path.join(REPO, "data"), "--tasks",
+        "pyfiles,digits_clip", "--methods", "coda,iid", "--seeds", "2",
+        "--iters", "6", "--device", "cpu", "--mesh", "model=2", "--db",
+        os.path.join(tmp, "m.sqlite")])
+    return out
+
+
 JOBS = {"traces": job_traces, "blocks": job_blocks, "large_c": job_large_c,
-        "collectives": job_collectives, "cli": job_cli, "env": job_env}
+        "collectives": job_collectives, "cli": job_cli, "env": job_env,
+        "model_traces": job_model_traces, "model_blocks": job_model_blocks,
+        "model_large_c": job_model_large_c, "model_cli": job_model_cli}

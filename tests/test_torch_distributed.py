@@ -12,7 +12,8 @@ only rank 0 writes the tracking store; ``cli suite`` shards ``pyfiles``
 warning, its rows those of the unsharded suite; a task whose N does not
 divide the mesh is refused on every rank. Without a world: one process
 is a no-op, and each refusal of ``--mesh`` raises (the model axis, too
-few ranks, and every flag the next mesh slice brings).
+few ranks, and every flag the next mesh slice brings, on the data axis
+and on a one-rank model axis).
 """
 
 from __future__ import annotations
@@ -128,11 +129,12 @@ def test_port_cli_suite_mesh_matches_unsharded(world, tmp_path):
     ["--checkpoint-dir", "CK"], ["--oracle-noise", "annotators=4,votes=3"],
     ["--eig-scorer", "surrogate:8"], ["--posterior", "sparse:2"],
     ["--eig-pbest", "amortized"], ["--prefilter-n", "16"],
-    ["--debug-viz"], ["--mesh", "model=2"]])
+    ["--debug-viz"], ["--mesh", "model=1", "--acq-batch", "2"]])
 def test_port_cli_mesh_refusals(flags, tmp_path):
     """Every flag the next mesh slice brings raises
-    ``NotImplementedError`` under ``--mesh`` (here a one-rank mesh), as
-    does the model axis; none runs unsharded without a word."""
+    ``NotImplementedError`` under ``--mesh`` (here a one-rank mesh, of
+    the data axis or of the model axis); none runs unsharded without a
+    word."""
     argv = ["--synthetic", "6,64,4", "--method", "coda", "--iters", "2",
             "--seeds", "1", "--device", "cpu", "--no-mlflow"]
     flags = [f.replace("REC", str(tmp_path / "r")).replace(

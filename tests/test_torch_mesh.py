@@ -170,9 +170,9 @@ def _same_trace(got, want, what):
 
 def test_reference_mesh_spec_parsing_and_errors():
     """The reference's syntax and messages: an unknown axis, a mesh with
-    more shards than ranks ("devices" there); the model axis raises
-    ``NotImplementedError`` naming the next slice; a one-rank mesh needs
-    no group."""
+    more shards than ranks ("devices" there), the model axis's too (it
+    runs since slice 5 ported it: ``test_torch_mesh_model.py``); a
+    one-rank mesh needs no group."""
     from coda_tpu.parallel import make_mesh as ref_make_mesh
     from coda_tpu.parallel import mesh_from_spec as ref_mesh_from_spec
 
@@ -190,8 +190,11 @@ def test_reference_mesh_spec_parsing_and_errors():
     assert re.fullmatch(pattern, str(ref.value))
     assert re.fullmatch(pattern, str(got.value))
     assert "ranks, have 1" in str(got.value)
-    for spec in ("model=2", "data=2,model=2"):
-        with pytest.raises(NotImplementedError, match="next mesh slice"):
+    for spec, n in (("model=2", 2), ("data=2,model=2", 4)):
+        sizes = re.findall(r"=(\d+)", spec)
+        shape = "x".join(["1"] + sizes if len(sizes) == 1 else sizes)
+        with pytest.raises(ValueError, match=f"mesh {shape} needs {n} "
+                           "ranks, have 1"):
             mesh_from_spec(spec, device="cpu")
     one = mesh_from_spec("data=1", device="cpu")
     assert (one.shape, one.rank, one.size) == ({"data": 1, "model": 1}, 0, 1)

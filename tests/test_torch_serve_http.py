@@ -232,8 +232,9 @@ def test_port_cli_serve_eig_mode_flag():
 
 
 def test_port_refusals_name_their_slice(task):
-    """Only the mesh's model axis is refused, naming the next mesh slice
-    (slice 5 ported the N axis). Tiering,
+    """The mesh's model axis runs (slice 5 ported both axes): without its
+    ranks it raises the reference's "needs" error, and a knob the next
+    mesh slice brings raises naming it. Tiering,
     the quality plane, export/import, restore, the answer verb, the prior
     pool, ``replay-serve``, ``quality``, ``trace``, ``render_fleet`` and
     the server's half of a migration run: ``export`` with ``hold`` holds
@@ -253,10 +254,12 @@ def test_port_refusals_name_their_slice(task):
     with pytest.raises(SystemExit) as e:
         cli.main(["trace", "--help"])
     assert e.value.code == 0
+    argv = ["--synthetic", "4,32,3", "--device", "cpu", "--method", "coda",
+            "--iters", "2", "--no-mlflow", "--mesh"]
+    with pytest.raises(ValueError, match="mesh 1x2 needs 2 ranks"):
+        cli.main(argv + ["model=2"])
     with pytest.raises(NotImplementedError, match="slice 5"):
-        cli.main(["--synthetic", "4,32,3", "--device", "cpu", "--method",
-                  "coda", "--iters", "2", "--no-mlflow", "--mesh",
-                  "model=2"])
+        cli.main(argv + ["model=1", "--acq-batch", "2"])
     with pytest.raises(SystemExit) as e:
         cli.main(["replay-serve", "--help"])
     assert e.value.code == 0
