@@ -288,10 +288,18 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    replicated state's fingerprint equal on both ranks; on the card
    kernels 1, 2, 3 (main) and 4, 5, batched 3 (batch) launched on both
    ranks (their counts, on their own line, add to the JSON line's); the
-   suite's rows those of the unsharded suite. It prints ms a round, init
-   ms and each rank's peak memory beside the unsharded run's, with the
-   card's name and power limit: gloo on one shared card checks the
-   sharded program, it does not measure NCCL scaling.
+   suite's rows those of the unsharded suite. CODA 1 seed with
+   ``--checkpoint-dir`` (every 5 rounds) cut after 10 of the 20 rounds and
+   resumed: each rank's saves and restore at the expected rounds, its
+   kernels 1-3 launched (the resumed run without the init's kernel 1),
+   every result array bitwise the uninterrupted ``main`` run's; a rank's
+   checkpoint bytes and its save and restore seconds. The yardstick
+   records its CODA runs (``--record-dir``: phase 15's ``--against``
+   side) and runs ``--debug-viz`` on ``digits_h80`` cut to its first 898
+   items (N must split over data=2). It prints ms a round, init ms and
+   each rank's peak memory beside the unsharded run's, with the card's
+   name and power limit: gloo on one shared card checks the sharded
+   program, it does not measure NCCL scaling.
 15. the mesh's model axis (H sharded): first kernels 1 and 2, fp32 and
    bf16 caches, at the blocks the ranks below hand them — ``(C, N/a,
    H/b)`` = (10, 50000, 500), (10, 50000, 250), (10, 25000, 500) — each
@@ -300,17 +308,28 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    the vector's width). Then phase 14's jobs on the same task files,
    held to phase 14's unsharded yardstick (the same rounds), under
    ``--mesh model=2`` (two ranks, each 500 of the 1000 models: CODA 1
-   seed x 20, 5 seeds x 5 on the incremental tier, the paper's command
-   x 3, the five baselines x 10) and ``--mesh data=2,model=2`` (four
-   ranks: CODA 1 seed x 10). Each rank: its data block's decisions, regret
+   seed x 20 with the recorder off and on, 5 seeds x 5 on the
+   incremental tier recorded, the paper's command x 3, the five
+   baselines x 10) and ``--mesh data=2,model=2`` (four ranks: CODA 1
+   seed x 10, and ``--debug-viz`` on phase 14's ``digits_h80`` cut, rank
+   0's P(best) bars within 2.34e-4 of the unsharded run's; the figures'
+   data are kept in place of drawing them, as the card's machine has no
+   matplotlib). The two model=2 records: re-executed by ``cli replay``
+   on the same two ranks under ``torchrun`` (bitwise, exit 0 on every
+   rank) and held ``--against`` the yardstick's records (parity, or a
+   ``tie-break-flip`` within 2.34e-4); each record's bytes and a rank's
+   ms a round with the recorder off and on (1 seed and the 5-seed batch)
+   are printed.
+   Each rank: its data block's decisions, regret
    and scores as phase 14's (a baseline's acquisition weights, sums over
    the models that the model axis adds in another order, within 2.34e-4
    of the job's largest weight); the fingerprint of the state its model
    group holds alike (pi-hat and its item rows, the scores, the mask)
    equal across the model group and of the state its data group holds
    alike (its models' posterior and P(best) rows) across the data group;
-   on the card kernels 1, 2, 3 (main) and 4, 5, batched 3 (batch)
-   launched on every rank (added to the JSON line's counts). It prints ms
+   on the card kernels 1, 2, 3 (main, recorded or not) and 4, 5,
+   batched 3 (the recorded batch) launched on every rank (added to the
+   JSON line's counts). It prints ms
    a round and each rank's peak memory beside the unsharded run's, and
    the bytes a rank sends into its model group's collectives a round.
 
@@ -325,7 +344,9 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -5582,7 +5603,10 @@ def phase_fleet(dev, task, total: dict, smi: str) -> dict:
 
 MESH_D = 2                            # ranks of phase 14 (gloo, one card)
 MESH_ROUNDS = {"main": 20, "batch": 5, "paper": 3, "baselines": 10,
-               "suite": 10}
+               "suite": 10, "ckpt_cut": 10, "viz": 10}
+# digits_h80 (80, 899, 10) cut to its first 898 items: N must split over
+# data=2 for the --debug-viz run at data=2,model=2
+VIZ_TASK, VIZ_N = "digits_h80_n898", 898
 MESH_SUITE_TASKS = "pyfiles,iris"     # N = 500 shards; N = 105 falls back
 MESH_TIMEOUT_S = 420
 MESH_REGRET_TOL = 1e-7
@@ -5711,6 +5735,82 @@ def _rounds_arg(rounds: dict) -> list:
     return ["--rounds", ",".join(f"{k}={v}" for k, v in rounds.items())]
 
 
+def _yard(one: dict, job: str) -> dict:
+    """The unsharded yardstick's run of ``job`` (recorded or not: the
+    recorder changes no decision)."""
+    for name in (job, job + "_rec", job.removesuffix("_rec")):
+        if name in one:
+            return one[name]
+    raise KeyError(job)
+
+
+def _viz_task_file(tmp: str) -> None:
+    """:data:`VIZ_TASK` as ``.npy`` files under ``tmp``."""
+    import numpy as np
+
+    with np.load(os.path.join(HERE, "data", "digits_h80.npz")) as z:
+        np.save(os.path.join(tmp, f"{VIZ_TASK}.npy"),
+                np.ascontiguousarray(z["preds"][:, :VIZ_N]))
+        np.save(os.path.join(tmp, f"{VIZ_TASK}_labels.npy"),
+                np.ascontiguousarray(z["labels"][:VIZ_N]))
+
+
+MESH_CKPT_EVERY = 5          # scripts/torch_mesh_run.py's ckpt jobs
+
+
+def _ckpt_ops(rounds: dict) -> dict:
+    """Phase 14's checkpointed run: the cut run's saves (every 5 rounds,
+    the last chunk unsaved), the resumed run's restore of the newest and
+    its saves up to ``main``'s rounds (20 rounds cut after 10: save 5;
+    restore 5, save 10 and 15)."""
+    cut, full = rounds["ckpt_cut"], rounds["main"]
+    saves = list(range(MESH_CKPT_EVERY, cut, MESH_CKPT_EVERY))
+    return {"ckpt_cut": [("save", t) for t in saves],
+            "ckpt": [("restore", saves[-1])] + [
+                ("save", t) for t in range(saves[-1] + MESH_CKPT_EVERY,
+                                           full, MESH_CKPT_EVERY)]}
+_RESULT_FIELDS = ("chosen_idx", "true_class", "best_model", "regret",
+                  "cumulative_regret", "select_prob")
+
+
+def _hold_checkpoint(ranks, arrs, smi: str) -> dict:
+    """Phase 14's checkpointed run on each rank: the cut run's save, the
+    resumed run's restore and saves, and every result array of the
+    resumed run bitwise the uninterrupted ``main`` run's; returns each
+    rank's bytes and seconds."""
+    import numpy as np
+
+    out = []
+    for r, (k, a) in enumerate(zip(ranks, arrs)):
+        want = _ckpt_ops(MESH_ROUNDS)
+        ops = {job: [(x["op"], x["round"]) for x in
+                     k["jobs"][job]["checkpoint"]] for job in want}
+        if ops != want:
+            raise AssertionError(f"mesh checkpoint rank {r}: {ops}")
+        for f in _RESULT_FIELDS:
+            if not np.array_equal(a[f"ckpt/{f}"], a[f"main/{f}"]):
+                raise AssertionError(f"mesh checkpoint rank {r}: the "
+                                     f"resumed {f} is not the uninterrupted "
+                                     "run's")
+        ck = k["jobs"]["ckpt_cut"]["checkpoint"] + \
+            k["jobs"]["ckpt"]["checkpoint"]
+        rec = {"bytes": ck[0]["bytes"],
+               "save_s": [x["seconds"] for x in ck if x["op"] == "save"],
+               "restore_s": [x["seconds"] for x in ck
+                             if x["op"] == "restore"],
+               "peak_gb": k["jobs"]["ckpt"]["peak_gb"]}
+        out.append(rec)
+        log(f"mesh checkpoint rank {r}: cut after round "
+            f"{MESH_ROUNDS['ckpt_cut']} and resumed to "
+            f"{MESH_ROUNDS['main']}, every result bitwise the uninterrupted "
+            "run; a checkpoint "
+            f"{rec['bytes']} bytes, save "
+            + ", ".join(f"{x:.3f}" for x in rec["save_s"])
+            + f" s, restore {rec['restore_s'][0]:.3f} s; peak "
+            f"{rec['peak_gb']:.3f} GB ({smi})")
+    return out
+
+
 def phase_mesh(dev, task, total: dict, smi: str,
                keep: Optional[dict] = None) -> dict:
     """The N-axis mesh (see the module docstring, item 14). Returns the
@@ -5724,7 +5824,11 @@ def phase_mesh(dev, task, total: dict, smi: str,
 
     t_phase = time.perf_counter()
     drv, script = _mesh_driver()
-    jobs = ("main", "batch", "paper") + BASELINES + ("suite",)
+    held = ("main", "batch", "paper") + BASELINES
+    jobs = held + ("suite", "ckpt_cut", "ckpt")
+    # the yardstick's CODA runs recorded (phase 15's --against side), and
+    # --debug-viz's unsharded P(best)
+    yard = ("main_rec", "batch_rec", "paper") + BASELINES + ("suite", "viz")
     tmp = tempfile.mkdtemp(prefix="mesh_")
     out: dict = {"card": smi}
     cuda = dev.type == "cuda"
@@ -5737,26 +5841,29 @@ def phase_mesh(dev, task, total: dict, smi: str,
 
     try:
         _task_files(task, tmp)
+        _viz_task_file(tmp)
         free()
         t0 = time.perf_counter()
-        one = drv.run_jobs(jobs, tmp, task.name, MESH_ROUNDS, dev, None,
+        one = drv.run_jobs(yard, tmp, task.name, MESH_ROUNDS, dev, None,
                            os.path.join(HERE, "data"), MESH_SUITE_TASKS,
-                           os.path.join(tmp, "one.sqlite"), log=log)
+                           os.path.join(tmp, "one.sqlite"), log=log,
+                           root=os.path.join(tmp, "one"), viz_task=VIZ_TASK)
         out["unsharded_s"] = time.perf_counter() - t0
         one_rows = drv.suite_rows(os.path.join(tmp, "one.sqlite"))
         free()
         t0 = time.perf_counter()
         ranks, arrs = _mesh_ranks(
             script, tmp, task.name, dev, MESH_D,
-            _rounds_arg(MESH_ROUNDS) + ["--suite-tasks", MESH_SUITE_TASKS],
+            _rounds_arg(MESH_ROUNDS) + ["--suite-tasks", MESH_SUITE_TASKS,
+                                        "--jobs", ",".join(jobs)],
             os.path.join(tmp, "ranks"), MESH_TIMEOUT_S)
         out["ranks_s"] = time.perf_counter() - t0
         gaps, flips = {}, {}
-        for job in jobs[:-1]:
+        for job in held:
             for r in range(MESH_D):
                 gaps[(job, r)], flips[(job, r)] = _mesh_hold(
                     job, r, ranks[r]["jobs"][job], arrs[r],
-                    one[job]["arrays"])
+                    _yard(one, job)["arrays"])
             if flips[(job, 0)]:
                 log(f"mesh {job}: tie-break-flips (seed, round, gap to the "
                     f"round's best): {flips[(job, 0)]}")
@@ -5779,13 +5886,27 @@ def phase_mesh(dev, task, total: dict, smi: str,
                         f"mesh rank {r} launches: main "
                         f"{k['main']['launches']}, batch "
                         f"{k['batch']['launches']}")
-                for job in ("main", "batch"):
+                # the resumed run starts at the cut run's last save
+                it_ck = MESH_ROUNDS["ckpt_cut"]
+                start = _ckpt_ops(MESH_ROUNDS)["ckpt"][0][1]
+                ck_want = {"ckpt_cut": {"eig_score": 1,
+                                        "eig_refresh_score": it_ck,
+                                        "row_gather": it_ck},
+                           "ckpt": {"eig_refresh_score": it[0] - start,
+                                    "row_gather": it[0] - start}}
+                if {j: k[j]["launches"] for j in ck_want} != ck_want:
+                    raise AssertionError(
+                        f"mesh rank {r} checkpoint launches: "
+                        + str({j: k[j]["launches"] for j in ck_want}))
+                for job in ("main", "batch", "ckpt_cut", "ckpt"):
                     for name, v in k[job]["launches"].items():
                         total[name] = total.get(name, 0) + v
-            log("mesh launches by rank (main, batch): " + "; ".join(
-                f"rank {r} {ranks[r]['jobs']['main']['launches']} "
-                f"{ranks[r]['jobs']['batch']['launches']}"
-                for r in range(MESH_D)))
+            log("mesh launches by rank (main, batch, ckpt_cut, ckpt): "
+                + "; ".join(f"rank {r} " + " ".join(
+                    str(ranks[r]["jobs"][j]["launches"]) for j in
+                    ("main", "batch", "ckpt_cut", "ckpt"))
+                    for r in range(MESH_D)))
+        out["checkpoint"] = _hold_checkpoint(ranks, arrs, smi)
         rows = ranks[0].get("suite_rows") or []
         if [x[:3] for x in rows] != [list(x[:3]) for x in one_rows] or any(
                 abs(a[3] - b[3]) > MESH_REGRET_TOL
@@ -5794,8 +5915,8 @@ def phase_mesh(dev, task, total: dict, smi: str,
                                  "unsharded suite's")
         if '"mesh": "data=2"' not in ranks[0]["jobs"]["suite"]["stdout"]:
             raise AssertionError("mesh suite: no result line on rank 0")
-        for job in jobs[:-1]:
-            o = one[job]
+        for job in held:
+            o = _yard(one, job)
             log(f"mesh {job}: ms/round {o['ms_per_round']:.3f} unsharded, "
                 + ", ".join(f"{ranks[r]['jobs'][job]['ms_per_round']:.3f}"
                             for r in range(MESH_D))
@@ -5809,12 +5930,12 @@ def phase_mesh(dev, task, total: dict, smi: str,
                 + f"{max(gaps[(job, r)] for r in range(MESH_D)):.3e}")
         out.update(
             suite_rows=len(rows),
-            jobs={job: {"one": {k: one[job][k] for k in
+            jobs={job: {"one": {k: _yard(one, job)[k] for k in
                                 ("ms_per_round", "init_ms", "peak_gb")},
                         "ranks": [{k: ranks[r]["jobs"][job][k] for k in
                                    ("ms_per_round", "init_ms", "peak_gb")}
                                   for r in range(MESH_D)]}
-                  for job in jobs[:-1]})
+                  for job in held})
         if keep is not None:
             keep.update(tmp=tmp, one=one)
     finally:
@@ -5833,10 +5954,19 @@ def phase_mesh(dev, task, total: dict, smi: str,
 MODEL_BLOCKS = ((50_000, 500), (50_000, 250), (25_000, 500))
 # (spec, ranks, jobs, rounds): phase 14's rounds, so its unsharded runs
 # are the yardstick (the 4-rank run holds the first 10 of its 20 rounds)
-MODEL_RUNS = (("model=2", 2, ("main", "batch", "paper") + BASELINES,
+MODEL_RUNS = (("model=2", 2, ("main", "main_rec", "batch", "batch_rec",
+                             "replay", "paper") + BASELINES,
                {k: v for k, v in MESH_ROUNDS.items() if k != "suite"}),
-              ("data=2,model=2", 4, ("main",), {"main": 10}))
+              ("data=2,model=2", 4, ("main", "viz"),
+               {"main": 10, "viz": MESH_ROUNDS["viz"]}))
 MODEL_TIMEOUT_S = 300
+# kernels 1-3 a one-seed run, 4, 5 and batched 3 a batch, of `rounds`
+_MODEL_WANTS = {
+    "main": lambda it: {"eig_score": 1, "eig_refresh_score": it["main"],
+                        "row_gather": it["main"]},
+    "batch": lambda it: {"eig_score_batched": 1,
+                         "eig_refresh_score_batched": it["batch"],
+                         "row_gather_batched": it["batch"]}}
 
 
 def _block_paths(dev, peaks) -> list:
@@ -5890,6 +6020,90 @@ def _block_paths(dev, peaks) -> list:
     return out
 
 
+def _hold_mesh_records(spec: str, n: int, ranks, tmp: str, out_dir: str,
+                       smi: str) -> dict:
+    """Phase 15's records: the ranks' recorder cost (``main`` against
+    ``main_rec``, ``batch`` against ``batch_rec``, ms a round) and the
+    records' bytes; each record (rank 0's) re-executed by ``cli replay``
+    on the record's ``n`` ranks under ``torchrun`` (the ranks' ``replay``
+    job), bitwise: every rank's exit 0, rank 0's report at parity with
+    the bitwise contract; and each held ``--against`` the unsharded
+    yardstick's record of the same rounds: parity, or a
+    ``tie-break-flip`` within 2.34e-4 (the ``mesh`` knob differs, so the
+    contract is 2.34e-4)."""
+    from coda_tpu_torch.engine.replay import replay_main
+    from coda_tpu_torch.telemetry.recorder import RunRecord
+
+    out: dict = {}
+    for job in ("main", "batch"):
+        off = [r["jobs"][job]["ms_per_round"] for r in ranks]
+        on = [r["jobs"][job + "_rec"]["ms_per_round"] for r in ranks]
+        out[job] = {"off_ms": off, "on_ms": on}
+        log(f"mesh {spec} recorder, {job}: ms/round a rank with it off "
+            + ", ".join(f"{x:.3f}" for x in off) + ", on "
+            + ", ".join(f"{x:.3f}" for x in on) + f" ({smi})")
+    for job in ("main_rec", "batch_rec"):
+        rec = os.path.join(out_dir, "records", job)
+        size = ranks[0]["jobs"][job]["record_bytes"]
+        replays = [r["jobs"]["replay"]["records"][job] for r in ranks]
+        with open(os.path.join(out_dir, "records",
+                               f"replay_{job}.json")) as f:
+            rep = json.load(f)
+        if [x["rc"] for x in replays] != [0] * n or not rep["parity"] or \
+                rep["score_tol"] != 0.0 or rep["meta"].get("mesh") != spec:
+            log(replays[0]["stdout"][-4000:])
+            raise AssertionError(
+                f"mesh {spec} {job} replay: exits "
+                f"{[x['rc'] for x in replays]}, parity {rep['parity']}, "
+                f"tol {rep['score_tol']}")
+        wall = max(x["wall_s"] for x in replays)
+        ms = sum(t["rounds_ms"] for t in rep["meta"]["timings"])
+        against = os.path.join(out_dir, f"against_{job}.json")
+        yard = os.path.join(tmp, "one", job)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc2 = replay_main([rec, "--against", yard, "--out", against])
+        with open(against) as f:
+            rep2 = json.load(f)
+        if rep2["score_tol"] != CONTRACT or rc2 != (0 if rep2["parity"]
+                                                    else 2):
+            raise AssertionError(f"mesh {spec} {job} against: exit {rc2}, "
+                                 f"tol {rep2['score_tol']}")
+        lines = _hold_replay(rep2, RunRecord.load(rec),
+                             f"mesh {spec} {job} against unsharded",
+                             CONTRACT)
+        out[job] = {"record_bytes": size, "replay_wall_s": wall,
+                    "replay_ms_per_round": ms / rep["meta"]["run"]["iters"],
+                    "against": lines}
+        log(f"mesh {spec} {job}: record {size} bytes; cli replay on the "
+            f"{n} ranks bitwise (PARITY, exit 0 on every rank) in "
+            f"{wall:.1f} s, {out[job]['replay_ms_per_round']:.3f} ms a "
+            f"round on rank 0 ({smi})")
+    return out
+
+
+def _hold_viz(ranks, one: dict, spec: str, smi: str) -> dict:
+    """Phase 15's ``--debug-viz`` run: rank 0 alone logs the P(best)
+    bars, every model's, within 2.34e-4 of the unsharded run's."""
+    import numpy as np
+
+    drawn = [r["jobs"]["viz"]["pbest"] for r in ranks]
+    want = np.asarray(one["pbest"])
+    got = np.asarray(drawn[0])
+    if got.shape != want.shape or any(d for d in drawn[1:]):
+        raise AssertionError(f"mesh {spec} viz: bars {got.shape} on rank "
+                             f"0 against {want.shape}; others "
+                             f"{[len(d) for d in drawn[1:]]}")
+    err = float(np.abs(got - want).max())
+    if not err <= CONTRACT:
+        raise AssertionError(f"mesh {spec} viz: P(best) differs by {err}")
+    log(f"mesh {spec} --debug-viz on {VIZ_TASK}: rank 0 logged P(best) of "
+        f"{got.shape[-1]} models within {err:.3e} of the unsharded run's; "
+        f"ms/round a rank "
+        + ", ".join(f"{r['jobs']['viz']['ms_per_round']:.3f}" for r in ranks)
+        + f" ({smi})")
+    return {"max_err": err}
+
+
 def phase_mesh_model(dev, task, total: dict, smi: str, peaks,
                      kept: dict) -> dict:
     """The mesh's model axis (see the module docstring, item 15), on
@@ -5917,16 +6131,23 @@ def phase_mesh_model(dev, task, total: dict, smi: str, peaks,
             t0 = time.perf_counter()
             ranks, arrs = _mesh_ranks(
                 script, tmp, task.name, dev, n,
-                ["--mesh", spec, "--jobs", ",".join(jobs)]
-                + _rounds_arg(rounds),
+                ["--mesh", spec, "--jobs", ",".join(jobs),
+                 "--viz-task", VIZ_TASK] + _rounds_arg(rounds),
                 os.path.join(tmp, spec.replace(",", "_").replace("=", "")),
                 MODEL_TIMEOUT_S)
             run = {"ranks_s": time.perf_counter() - t0, "jobs": {}}
             for job in jobs:
+                if job == "replay":
+                    continue
+                if job == "viz":
+                    run["viz"] = _hold_viz(ranks, _yard(one, job), spec,
+                                           smi)
+                    continue
                 gaps = []
                 for r in range(n):
                     gap, flips = _mesh_hold(job, r, ranks[r]["jobs"][job],
-                                            arrs[r], one[job]["arrays"],
+                                            arrs[r],
+                                            _yard(one, job)["arrays"],
                                             block=r // b,
                                             scaled=job in BASELINES)
                     gaps.append(gap)
@@ -5944,7 +6165,7 @@ def phase_mesh_model(dev, task, total: dict, smi: str, peaks,
                             f"mesh {spec} {job}: {key} differs within a "
                             f"group: {prints}")
                 jr = [ranks[r]["jobs"][job] for r in range(n)]
-                o = one[job]
+                o = _yard(one, job)
                 run["jobs"][job] = {
                     "one": {k: o[k] for k in ("ms_per_round", "init_ms",
                                               "peak_gb")},
@@ -5962,31 +6183,31 @@ def phase_mesh_model(dev, task, total: dict, smi: str, peaks,
                                 for x in jr)
                     + f"; max score gap {max(gaps):.3e}"
                     + (" (relative)" if job in BASELINES else ""))
+            kjobs = [j for j in jobs
+                     if j.removesuffix("_rec") in _MODEL_WANTS]
             if cuda:
-                it = rounds["main"], rounds.get("batch", 0)
                 for r in range(n):
                     k = ranks[r]["jobs"]
-                    if k["main"]["launches"] != {
-                            "eig_score": 1, "eig_refresh_score": it[0],
-                            "row_gather": it[0]} or ("batch" in k and k[
-                                "batch"]["launches"] != {
-                                "eig_score_batched": 1,
-                                "eig_refresh_score_batched": it[1],
-                                "row_gather_batched": it[1]}):
+                    want = {j: _MODEL_WANTS[j.removesuffix("_rec")](rounds)
+                            for j in kjobs}
+                    if {j: k[j]["launches"] for j in kjobs} != want:
                         raise AssertionError(
                             f"mesh {spec} rank {r} launches: "
                             + str({j: k[j]["launches"] for j in k}))
-                    for job in ("main", "batch"):
-                        for name, v in k.get(job, {}).get(
-                                "launches", {}).items():
+                    for job in kjobs:
+                        for name, v in k[job]["launches"].items():
                             total[name] = total.get(name, 0) + v
-                log(f"mesh {spec} launches by rank (main, batch): "
+                log(f"mesh {spec} launches by rank ({', '.join(kjobs)}): "
                     + "; ".join(
                         f"rank {r} " + " ".join(
                             str(ranks[r]["jobs"][j]["launches"])
-                            for j in ("main", "batch")
-                            if j in ranks[r]["jobs"])
+                            for j in kjobs)
                         for r in range(n)))
+            if "main_rec" in jobs:
+                run["records"] = _hold_mesh_records(
+                    spec, n, ranks, tmp, os.path.join(
+                        tmp, spec.replace(",", "_").replace("=", "")),
+                    smi)
             out["runs"][spec] = run
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

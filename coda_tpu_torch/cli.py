@@ -40,9 +40,13 @@ Every rank runs the same rounds on its block and reaches the same
 decisions; rank 0 alone prints and writes the tracking store. Ranks
 sharing one card talk over gloo, ranks with a card each over NCCL. A mesh
 without enough ranks raises the reference's "needs" error, a task whose
-H the model axis does not divide the reference's placement error;
-``--acq-batch`` above 1, ``--record-dir``, ``--checkpoint-dir``, a noisy
-``--oracle-noise``, ``--debug-viz``, ``--eig-scorer surrogate:k``,
+H the model axis does not divide the reference's placement error.
+``--record-dir`` records a mesh run (rank 0 writes the record, the mesh
+among its knobs and the whole task's digest), which ``cli replay``
+re-executes under ``torchrun`` on as many ranks; ``--checkpoint-dir``
+saves each rank's blocks under ``D/seed_<s>/rank_<r>``; ``--debug-viz``
+replays the labels on every rank and logs from rank 0. ``--acq-batch``
+above 1, a noisy ``--oracle-noise``, ``--eig-scorer surrogate:k``,
 ``--posterior sparse:K``, ``--eig-pbest amortized`` and ``--prefilter-n``
 raise ``NotImplementedError`` under a mesh (the next mesh slice), as the
 serve verbs do under ``torchrun``; ``--profile-dir`` traces rank 0.
@@ -107,6 +111,7 @@ import contextlib
 import os
 import sys
 import time
+from typing import Optional
 
 
 def parse_args(argv=None):
@@ -415,14 +420,35 @@ def crowd_config(args):
     return cfg
 
 
-def _log_debug_viz(run, factory, dataset, result, seed: int, dev) -> None:
-    """The seed's regret curve and, for a method with a posterior, its
-    final P(best), as PNG artifacts of ``run``. The posterior is recovered
-    after the run by applying the recorded labels to a fresh selector
-    through ``update`` (the reference's ``_log_debug_viz``)."""
+def debug_pbest(factory, dataset, result, seed: int, dev):
+    """The seed's final P(best) as a host array, or None for a method
+    without a posterior: the recorded labels applied to a fresh selector
+    through ``update`` (the reference's ``_log_debug_viz``). Under a mesh
+    every rank calls this (``update`` runs collectives) on its block, and
+    each gets every model's P(best) (``get_pbest`` gathers the model
+    group's)."""
     import torch
 
     from coda_tpu_torch import random as trandom
+
+    preds = dataset.preds.to(dev, torch.float32)
+    selector = (factory(preds) if dataset.mesh is None
+                else factory(preds, mesh=dataset.mesh))
+    get_pbest = selector.extras.get("get_pbest")
+    if get_pbest is None:
+        return None
+    state = selector.init(trandom.PRNGKey(seed))
+    prob = torch.zeros((), device=dev)
+    for idx, tc in zip(result.chosen_idx[seed].reshape(-1).tolist(),
+                       result.true_class[seed].reshape(-1).tolist()):
+        state = selector.update(state, torch.tensor(idx, device=dev),
+                                torch.tensor(tc, device=dev), prob)
+    return get_pbest(state).cpu().numpy()
+
+
+def _log_debug_viz(run, result, seed: int, pbest) -> None:
+    """The seed's regret curve and, for a method with a posterior, its
+    final P(best) (:func:`debug_pbest`), as PNG artifacts of ``run``."""
     from coda_tpu_torch.utils.viz import plot_bar, plot_series
 
     regret = result.regret[seed].cpu().numpy()
@@ -430,30 +456,22 @@ def _log_debug_viz(run, factory, dataset, result, seed: int, dev) -> None:
     run.log_figure("regret_curve", plot_series(
         [regret, cum], title=f"seed {seed}", ylabel="regret",
         labels=["regret", "cumulative"]))
-    selector = factory(dataset.preds.to(dev, torch.float32))
-    get_pbest = selector.extras.get("get_pbest")
-    if get_pbest is None:
+    if pbest is None:
         return
-    state = selector.init(trandom.PRNGKey(seed))
-    prob = torch.zeros((), device=dev)
-    for idx, tc in zip(result.chosen_idx[seed].reshape(-1).tolist(),
-                       result.true_class[seed].reshape(-1).tolist()):
-        state = selector.update(state, torch.tensor(idx, device=dev),
-                                torch.tensor(tc, device=dev), prob)
-    pbest = get_pbest(state).cpu().numpy()
     n = result.chosen_idx[seed].numel()
     run.log_figure("pbest", plot_bar(
         pbest, title=f"P(best) after {n} labels (seed {seed})",
         highlight=int(pbest.argmax()), xlabel="model", ylabel="P(best)"))
 
 
-def _log_to_store(args, dataset, result, regrets, cums, stoch, factory,
-                  dev, telemetry=None) -> None:
+def _log_to_store(args, dataset, result, regrets, cums, stoch, pbests,
+                  telemetry=None) -> None:
     """The reference's tracking layout: parent run ``<experiment>-
     <method>`` with the run's flags as params, a child run a seed with
     the ``regret`` and ``cumulative regret`` series from step 1 (and,
-    under ``--debug-viz``, its figures); a seed whose run finished is
-    skipped unless ``--force-rerun``. Telemetry's scalars go to a run
+    under ``--debug-viz``, its figures, with ``pbests[s]`` the seed's
+    final P(best)); a seed whose run finished is skipped unless
+    ``--force-rerun``. Telemetry's scalars go to a run
     ``<experiment>-<method>-telemetry``."""
     from coda_tpu_torch.tracking import TrackingStore
 
@@ -474,7 +492,7 @@ def _log_to_store(args, dataset, result, regrets, cums, stoch, factory,
                 r.log_metric_series("cumulative regret", cums[s],
                                     start_step=1)
                 if args.debug_viz:
-                    _log_debug_viz(r, factory, dataset, result, s, dev)
+                    _log_debug_viz(r, result, s, pbests[s])
         if not stoch.any():
             print("Method is not stochastic for this task.")
     if telemetry is not None:
@@ -487,6 +505,9 @@ def _log_to_store(args, dataset, result, regrets, cums, stoch, factory,
 
 def _write_record(args, dataset, result, aux, n_parallel: int, dev,
                   crowd=None, registry=None) -> None:
+    """The run's flight-recorder record under ``--record-dir`` (the mesh
+    among its knobs, the whole task's digest; rank 0 alone calls this
+    under a mesh)."""
     from coda_tpu_torch.telemetry.recorder import (
         RunRecord,
         environment_fingerprint,
@@ -509,10 +530,13 @@ def _write_record(args, dataset, result, aux, n_parallel: int, dev,
           f"-m coda_tpu_torch.cli replay {args.record_dir})")
 
 
-def _run_resumable(args, factory, dataset, loss_fn, dev):
+def _run_resumable(args, factory, dataset, loss_fn, dev,
+                   timings: Optional[list] = None):
     """The ``--checkpoint-dir`` run: seeds one after another, each through
-    ``make_resumable_runner`` under ``<dir>/seed_<s>``; the result stacked
-    on a leading seed axis."""
+    ``make_resumable_runner`` under ``<dir>/seed_<s>`` (under a mesh each
+    rank saves its blocks under ``<dir>/seed_<s>/rank_<r>``); the result
+    stacked on a leading seed axis. ``timings``: the runner's save and
+    restore entries."""
     import torch
 
     from coda_tpu_torch.engine import ExperimentResult, make_resumable_runner
@@ -529,12 +553,14 @@ def _run_resumable(args, factory, dataset, loss_fn, dev):
             "--acq-batch > 1 does not compose with --checkpoint-dir: "
             "the chunked resumable runner drives the single-label "
             "step; drop one of the flags")
+    mesh = dataset.mesh
     preds = dataset.preds.to(dev, torch.float32)
     labels = dataset.labels.to(dev)
     runner = make_resumable_runner(
-        factory(preds), labels, true_losses(preds, labels, loss_fn),
+        factory(preds) if mesh is None else factory(preds, mesh=mesh),
+        labels, true_losses(preds, labels, loss_fn, mesh=mesh),
         iters=args.iters, every=args.checkpoint_every,
-        dataset_id=dataset.name)
+        dataset_id=dataset.name, timings=timings, mesh=mesh)
     per_seed = [runner(s, os.path.join(args.checkpoint_dir, f"seed_{s}"))
                 for s in range(args.seeds)]
     return ExperimentResult(*(torch.stack(f) for f in zip(*per_seed)))
@@ -742,26 +768,19 @@ def quality_main(argv=None):
 
 
 def check_mesh_flags(args) -> None:
-    """The refusals of ``--mesh`` (the next mesh slice) for the paths that
-    bypass the mesh-aware engine: the checkpointed runner, the crowd's and
-    ``--debug-viz``'s replay of a seed on rank 0; the engine refuses
-    ``--acq-batch`` and the recorder itself
-    (``engine.loop.check_mesh_run``), ``make_coda`` CODA's knobs."""
+    """The refusal of ``--mesh`` (the next mesh slice) for the path that
+    bypasses the mesh-aware engine: a noisy crowd oracle. The engine
+    refuses ``--acq-batch`` (``engine.loop.check_mesh_run``),
+    ``make_coda`` CODA's knobs."""
     if not args.mesh:
         return
-    from coda_tpu_torch.parallel.mesh import MESH_NEXT
-
     cfg = crowd_config(args)
-    for flag, value, on in (
-            ("--checkpoint-dir", args.checkpoint_dir,
-             bool(args.checkpoint_dir)),
-            ("--oracle-noise", args.oracle_noise,
-             cfg is not None and not cfg.clean),
-            ("--debug-viz", "", args.debug_viz)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} {value}".strip()
-                + f" under --mesh comes with {MESH_NEXT}")
+    if cfg is not None and not cfg.clean:
+        from coda_tpu_torch.parallel.mesh import MESH_NEXT
+
+        raise NotImplementedError(
+            f"--oracle-noise {args.oracle_noise} under --mesh comes with "
+            f"{MESH_NEXT}")
 
 
 def refuse_serve_on_mesh(verb: str) -> None:
@@ -894,9 +913,14 @@ def _main(args, mesh):
         say(f"Profiler trace written to {args.profile_dir}")
     if telemetry is not None:
         telemetry.sample_devices([dev])
-    if aux is not None:
+    if aux is not None and primary:
         _write_record(args, dataset, result, aux, n_parallel, dev, crowd,
                       telemetry.registry if telemetry is not None else None)
+    pbests = None
+    if args.debug_viz and not args.no_mlflow:
+        # every rank replays the labels (update runs collectives)
+        pbests = [debug_pbest(factory, dataset, result, s, dev)
+                  for s in range(args.seeds)]
     cums = result.cumulative_regret.cpu().numpy()
     stoch = result.stochastic.cpu().numpy()
     steps = args.iters * args.seeds
@@ -915,8 +939,8 @@ def _main(args, mesh):
     if not primary:
         return 0
     if not args.no_mlflow:
-        _log_to_store(args, dataset, result, regrets, cums, stoch, factory,
-                      dev, telemetry)
+        _log_to_store(args, dataset, result, regrets, cums, stoch, pbests,
+                      telemetry)
     if telemetry is not None:
         paths = telemetry.write(extra={
             "run": {"task": dataset.name, "method": args.method,

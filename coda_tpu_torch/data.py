@@ -24,8 +24,8 @@ from __future__ import annotations
 import functools
 import os
 import sys
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -88,6 +88,9 @@ class Dataset:
       filenames: optional ``(N,)`` source-item filenames.
       class_names: optional ``(C,)`` human-readable class names.
       mesh: the mesh the task is sharded over, or None.
+      whole_digest: under a ``mesh``, the flight recorder's digest of the
+        whole task, computed on demand from its source (a rank holds only
+        its block).
     """
 
     preds: torch.Tensor
@@ -96,6 +99,20 @@ class Dataset:
     filenames: Optional[list] = None
     class_names: Optional[list] = None
     mesh: Optional[Mesh] = None
+    whole_digest: Optional[Callable[[], str]] = field(default=None,
+                                                      repr=False)
+
+    def digest(self) -> str:
+        """The recorder's ``dataset_digest`` of the whole task's preds and
+        labels (the reference's bytes), under a mesh too."""
+        if self.mesh is None:
+            from coda_tpu_torch.telemetry.recorder import dataset_digest
+
+            return dataset_digest(self.preds, self.labels)
+        if self.whole_digest is None:
+            raise ValueError(f"task {self.name!r} is a rank's block with no "
+                             "source to digest the whole task from")
+        return self.whole_digest()
 
     @property
     def shape(self) -> tuple[int, int, int]:
@@ -139,12 +156,24 @@ class Dataset:
                 labels=(None if labels_np is None
                         else shard_preds(labels_np, mesh, dim=0).local),
                 name=task, filenames=filenames, class_names=class_names,
-                mesh=mesh)
+                mesh=mesh, whole_digest=functools.partial(
+                    _file_digest, filepath, labels_np))
         preds_np = preds_np.astype(np.float32)    # fp32 mandatory
         labels = (None if labels_np is None
                   else torch.from_numpy(labels_np).to(dev))
         return cls(preds=torch.from_numpy(preds_np).to(dev), labels=labels,
                    name=task, filenames=filenames, class_names=class_names)
+
+
+def _file_digest(filepath: str, labels_np: Optional[np.ndarray]) -> str:
+    """The recorder's digest of a task file's whole preds (fp32, a ``.npy``
+    read through a memory map) and labels."""
+    from coda_tpu_torch.telemetry.recorder import dataset_digest
+
+    preds = _load_array(filepath, mmap=True)
+    if preds.dtype != np.float32:
+        preds = preds.astype(np.float32)
+    return dataset_digest(preds, labels_np)
 
 
 def _placement(N: int, mesh: Optional[Mesh], unsharded_fallback: bool,
@@ -217,9 +246,13 @@ def make_synthetic_task(seed: int, H: int = 8, N: int = 200, C: int = 4,
     p, labels = make_synthetic_arrays(seed, H, N, C, acc_lo, acc_hi,
                                       sharpness)
     if mesh is not None:
+        from coda_tpu_torch.telemetry.recorder import dataset_digest
+
+        # the whole task exists only here: digest it before it is sliced
+        whole = dataset_digest(p, labels)
         return Dataset(preds=shard_preds(p, mesh).local,
                        labels=shard_preds(labels, mesh, dim=0).local,
-                       name=name, mesh=mesh)
+                       name=name, mesh=mesh, whole_digest=lambda: whole)
     dev = resolve_device(device)
     return Dataset(
         preds=torch.from_numpy(p).to(dev),

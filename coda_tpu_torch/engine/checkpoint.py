@@ -30,6 +30,16 @@ beside the steps (``fingerprint.json``) and checked on resume.
 What a checkpoint holds is the selector's whole state: at the headline
 (H=1000, N=50,000, C=10) CODA's incremental tier carries its (C, N, H)
 P(best) cache, 2.0 GB in fp32 (1.0 GB in bfloat16).
+
+Under a mesh (``mesh=``, ``parallel/mesh.py``) each rank saves its own
+blocks of the state (its ``(C, N/a, H/b)`` cache block; nothing is
+gathered to one rank) under ``<dir>/rank_<r>/``, with a fingerprint that
+names the mesh's spec and the rank, so a resume under another spec or
+world is refused. A save is complete only when every rank has written
+it: the ranks meet after their writes, before any prunes an older step,
+and a resume restores the newest step every rank holds
+(:func:`latest_step`). A resumed mesh run is bitwise the uninterrupted
+mesh run.
 """
 
 from __future__ import annotations
@@ -52,6 +62,9 @@ from coda_tpu_torch.engine.loop import (
     _validate_rounds,
     make_step_fn,
 )
+from coda_tpu_torch.oracle import regret_fn
+from coda_tpu_torch.parallel.collectives import host_ints, raise_together
+from coda_tpu_torch.parallel.mesh import Mesh
 from coda_tpu_torch.selectors.protocol import Selector
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -66,14 +79,29 @@ def _saved_steps(ckpt_dir: str) -> list[int]:
                   for m in map(_STEP_RE.match, os.listdir(ckpt_dir)) if m)
 
 
-def latest_step(ckpt_dir: str, at_most: Optional[int] = None
-                ) -> Optional[int]:
+def latest_step(ckpt_dir: str, at_most: Optional[int] = None,
+                mesh: Optional[Mesh] = None) -> Optional[int]:
     """The largest checkpointed round (optionally <= ``at_most``), or
-    None."""
-    steps = _saved_steps(ckpt_dir)
+    None. Under a ``mesh`` (every rank calls this) ``ckpt_dir`` is the
+    run's directory and the round is the largest that every rank's
+    ``rank_<r>`` directory holds: a step some rank did not finish is not
+    a checkpoint."""
+    if mesh is None:
+        steps = _saved_steps(ckpt_dir)
+    else:
+        mine = _saved_steps(rank_dir(ckpt_dir, mesh))
+        steps = sorted(set(mine).intersection(*host_ints(mine, mesh)))
     if at_most is not None:
         steps = [s for s in steps if s <= at_most]
     return max(steps) if steps else None
+
+
+def rank_dir(ckpt_dir: str, mesh: Optional[Mesh]) -> str:
+    """Where this rank's steps live: ``ckpt_dir`` unsharded, else
+    ``ckpt_dir/rank_<r>``."""
+    if mesh is None:
+        return ckpt_dir
+    return os.path.join(ckpt_dir, f"rank_{mesh.rank}")
 
 
 def _to_host(tree):
@@ -94,10 +122,15 @@ class ExperimentCheckpointer:
     steps are kept. ``restore`` loads onto ``device`` (``weights_only``:
     tensors, dicts, lists and Python scalars)."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 2, device=None):
+    def __init__(self, ckpt_dir: str, keep: int = 2, device=None,
+                 barrier: Optional[Callable[[], None]] = None):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
         self.keep = keep
         self.device = torch.device("cpu" if device is None else device)
+        # called between a save's rename and the pruning of older steps
+        # (a mesh's ranks meet there: no rank prunes the newest step that
+        # every rank holds before all have written the next)
+        self.barrier = barrier
 
     def save(self, round_: int, tree) -> None:
         path = os.path.join(self.ckpt_dir, f"step_{round_}")
@@ -108,6 +141,8 @@ class ExperimentCheckpointer:
         if os.path.exists(path):  # stale complete save from an older run
             shutil.rmtree(path)
         os.rename(tmp, path)
+        if self.barrier is not None:
+            self.barrier()
         self._gc()
 
     def restore(self, round_: int):
@@ -181,13 +216,16 @@ def unflatten_state(tree):
 # -- the configuration fingerprint ------------------------------------------
 
 def _fingerprint(selector: Selector, labels, seed: int,
-                 dataset_id: Optional[str] = None) -> dict:
+                 dataset_id: Optional[str] = None,
+                 mesh: Optional[Mesh] = None) -> dict:
     """The reference's fingerprint: selector name, hyperparams and their
     defaults (as ``repr``), the pool size, the labels' CRC32 (same-shape
-    tasks differ there), the dataset name and the seed."""
+    tasks differ there), the dataset name and the seed; under a ``mesh``
+    also its spec and the rank (``labels`` the rank's block)."""
     lab = labels.detach().cpu().numpy() if hasattr(labels, "detach") \
         else np.asarray(labels)
-    return {
+    where = {} if mesh is None else {"mesh": mesh.spec, "rank": mesh.rank}
+    return where | {
         "selector": selector.name,
         "hyperparams": {k: repr(v)
                         for k, v in sorted(selector.hyperparams.items())},
@@ -202,10 +240,31 @@ def _fingerprint(selector: Selector, labels, seed: int,
     }
 
 
-def _check_fingerprint(ckpt_dir: str, fp: dict) -> None:
+def _layout_error(ckpt_dir: str, mesh: Optional[Mesh]) -> Optional[str]:
+    """Why ``ckpt_dir`` (a run's directory) was written under another
+    layout: ``rank_<r>`` directories met unsharded, a run's own steps met
+    under a mesh; None when it was not."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    ranks = [d for d in os.listdir(ckpt_dir) if d.startswith("rank_")]
+    if mesh is None and ranks:
+        return (f"checkpoint dir {ckpt_dir!r} was written under a mesh "
+                f"({len(ranks)} rank directories); resume it with the "
+                "same --mesh (or use a fresh --checkpoint-dir)")
+    if mesh is not None and os.path.exists(
+            os.path.join(ckpt_dir, _FINGERPRINT)):
+        return (f"checkpoint dir {ckpt_dir!r} was written by an unsharded "
+                f"run; it does not resume under --mesh {mesh.spec} (use a "
+                "fresh --checkpoint-dir)")
+    return None
+
+
+def _fingerprint_error(ckpt_dir: str, fp: dict) -> Optional[str]:
     """Write ``fp`` into a fresh directory, else require the saved one to
-    match it. A hyperparam the checkpoint predates is tolerated while it
-    sits at its default; set to anything else it is a mismatch."""
+    match it: the refusal's message where it does not (None where it was
+    written or matches). A hyperparam the checkpoint predates is
+    tolerated while it sits at its default; set to anything else it is a
+    mismatch."""
     path = os.path.join(ckpt_dir, _FINGERPRINT)
     if os.path.exists(path):
         with open(path) as f:
@@ -220,14 +279,14 @@ def _check_fingerprint(ckpt_dir: str, fp: dict) -> None:
         cur_cmp = {k: v for k, v in cur.items()
                    if k != "_hyperparam_defaults"}
         if saved_cmp != cur_cmp:
-            raise ValueError(
-                f"checkpoint dir {ckpt_dir!r} was written by a different "
-                f"configuration:\n  saved:   {saved}\n  current: {fp}\n"
-                "Use a fresh --checkpoint-dir (or delete this one).")
+            return (f"checkpoint dir {ckpt_dir!r} was written by a different "
+                    f"configuration:\n  saved:   {saved}\n  current: {fp}\n"
+                    "Use a fresh --checkpoint-dir (or delete this one).")
     else:
         os.makedirs(ckpt_dir, exist_ok=True)
         with open(path, "w") as f:
             json.dump(fp, f, indent=2)
+    return None
 
 
 _TRACE_NAMES = ("chosen_idx", "true_class", "best_model", "regret",
@@ -238,7 +297,8 @@ def make_resumable_runner(selector: Selector, labels: torch.Tensor,
                           model_losses: torch.Tensor, iters: int,
                           every: int = 25,
                           dataset_id: Optional[str] = None,
-                          timings: Optional[list] = None
+                          timings: Optional[list] = None,
+                          mesh: Optional[Mesh] = None
                           ) -> Callable[[int, str], ExperimentResult]:
     """``run(seed, ckpt_dir) -> ExperimentResult``: seed ``seed``'s
     ``iters`` rounds on ``labels``' device, checkpointed every ``every``
@@ -248,13 +308,24 @@ def make_resumable_runner(selector: Selector, labels: torch.Tensor,
 
     ``timings``: when a list is given, each save and restore appends
     ``{"op": "save"|"restore", "round", "seconds", "bytes"}`` (host clock;
-    a save's copy to the host synchronises the device)."""
+    a save's copy to the host synchronises the device; under a mesh this
+    rank's bytes and seconds, the ranks' meeting included).
+
+    ``mesh``: ``selector``, ``labels`` and ``model_losses`` are this
+    rank's (``engine/loop.make_step_fn``); every rank calls ``run`` with
+    the same arguments, saves its blocks under ``ckpt_dir/rank_<r>`` and
+    gets the same result."""
     if every < 1:
         raise ValueError(f"every={every} must be >= 1")
-    _validate_rounds(selector, labels.shape[0], iters)
-    best_loss = model_losses.min()
-    step = make_step_fn(selector, labels, model_losses)
+    _validate_rounds(selector, labels.shape[0] * (
+        mesh.data if mesh is not None else 1), iters)
+    regret_of = regret_fn(model_losses, mesh)
+    step = make_step_fn(selector, labels, model_losses, mesh=mesh)
     dev = labels.device
+    barrier = None
+    if mesh is not None and mesh.size > 1:
+        def barrier():
+            host_ints([], mesh)
 
     def _size(path: str) -> int:
         return sum(os.path.getsize(os.path.join(d, f))
@@ -264,10 +335,12 @@ def make_resumable_runner(selector: Selector, labels: torch.Tensor,
         key = trandom.PRNGKey(seed)
         k_init, k_prior, k_scan = trandom.split(key, 3)
         round_keys = trandom.split(k_scan, iters)
-        _check_fingerprint(ckpt_dir, _fingerprint(selector, labels, seed,
-                                                  dataset_id))
-        ckptr = ExperimentCheckpointer(ckpt_dir, device=dev)
-        start = latest_step(ckpt_dir, at_most=iters)
+        mine = rank_dir(ckpt_dir, mesh)
+        error = _layout_error(ckpt_dir, mesh)
+        raise_together(error or _fingerprint_error(mine, _fingerprint(
+            selector, labels, seed, dataset_id, mesh)), mesh)
+        ckptr = ExperimentCheckpointer(mine, device=dev, barrier=barrier)
+        start = latest_step(ckpt_dir, at_most=iters, mesh=mesh)
         if start:
             t0 = time.perf_counter()
             restored = ckptr.restore(start)
@@ -275,7 +348,7 @@ def make_resumable_runner(selector: Selector, labels: torch.Tensor,
                 state = unflatten_state(restored["state"])
             except StaleLayoutError as e:
                 raise ValueError(
-                    f"checkpoint at {ckpt_dir!r} step {start} predates a "
+                    f"checkpoint at {mine!r} step {start} predates a "
                     f"selector-state layout change ({e}). Use a fresh "
                     "--checkpoint-dir (or delete this one).") from None
             cum = restored["cum"]
@@ -293,7 +366,7 @@ def make_resumable_runner(selector: Selector, labels: torch.Tensor,
             start = 0
             state = selector.init(k_init)
             best0, stoch = selector.best(state, k_prior)
-            regret0 = model_losses.take(best0) - best_loss
+            regret0 = regret_of(best0)
             cum = torch.zeros((), dtype=torch.float32, device=dev)
             traces = {n: [] for n in _TRACE_NAMES}
 
@@ -332,8 +405,9 @@ def make_resumable_runner(selector: Selector, labels: torch.Tensor,
 def run_experiment_resumable(selector: Selector, labels: torch.Tensor,
                              model_losses: torch.Tensor, iters: int,
                              seed: int, ckpt_dir: str, every: int = 25,
-                             dataset_id: Optional[str] = None
+                             dataset_id: Optional[str] = None,
+                             mesh: Optional[Mesh] = None
                              ) -> ExperimentResult:
     """One-shot convenience wrapper around :func:`make_resumable_runner`."""
     return make_resumable_runner(selector, labels, model_losses, iters,
-                                 every, dataset_id)(seed, ckpt_dir)
+                                 every, dataset_id, mesh=mesh)(seed, ckpt_dir)

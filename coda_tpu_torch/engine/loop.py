@@ -34,8 +34,12 @@ oracle's answer is read on the rank that holds the item and sent to all
 (``broadcast_from_owner``), and the true losses are this rank's models',
 rank-order sums over the data group's blocks; the regret takes the best
 loss over the model group and the chosen model's loss from its owner
-(``oracle.regret_fn``). Every result is the same on every rank. The recorder (``trace_k``) and ``acq_batch`` above 1
-raise ``NotImplementedError`` there (the next mesh slice).
+(``oracle.regret_fn``). Every result is the same on every rank, the
+recorder's :class:`RoundTrace` too (each rank's top k of its block at
+global indices, merged over the data group; the chosen score read on the
+rank that holds the pick; P(best) gathered over the model group).
+``acq_batch`` above 1 raises ``NotImplementedError`` there (the next mesh
+slice).
 """
 
 from __future__ import annotations
@@ -51,8 +55,11 @@ from coda_tpu_torch.losses import accuracy_loss
 from coda_tpu_torch.ops.masked import entropy2
 from coda_tpu_torch.oracle import regret_fn
 from coda_tpu_torch.oracle import true_losses as compute_true_losses
-from coda_tpu_torch.parallel.collectives import broadcast_from_owner
-from coda_tpu_torch.parallel.mesh import MESH_NEXT, Mesh
+from coda_tpu_torch.parallel.collectives import (
+    all_gather_cat,
+    broadcast_from_owner,
+)
+from coda_tpu_torch.parallel.mesh import DATA_AXIS, MESH_NEXT, Mesh
 from coda_tpu_torch.selectors.batch import resolve_batch_fns
 from coda_tpu_torch.selectors.protocol import Selector
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -99,11 +106,37 @@ class RunTraceAux(NamedTuple):
     prior_key: torch.Tensor   # (2,) consumed by the round-0 best()
 
 
-def _score_digest(res, trace_k: int) -> tuple:
+def _top(scores: torch.Tensor, k: int) -> tuple:
+    """``(values, positions)`` of the ``k`` largest of ``scores`` over the
+    last axis, the lower position first among equal values (the order of
+    ``lax.top_k``): a stable descending sort."""
+    values, order = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return values[..., :k], order[..., :k]
+
+
+def _mesh_top(scores: torch.Tensor, k: int, mesh: Mesh) -> tuple:
+    """:func:`_top` of the unsharded scores from this rank's block
+    ``(..., N/a)``: each rank's top ``min(k, N/a)`` at global indices,
+    joined over the data group in rank order (rank order is index order,
+    so a stable sort of the joined candidates breaks ties across a block
+    boundary as the unsharded sort does), then the top k of those."""
+    n = scores.shape[-1]
+    values, pos = _top(scores, min(k, n))
+    pos = pos + mesh.start(n)
+    values = all_gather_cat(values, mesh, DATA_AXIS, -1)
+    pos = all_gather_cat(pos, mesh, DATA_AXIS, -1)
+    top, order = _top(values, k)
+    return top, pos.gather(-1, order)
+
+
+def _score_digest(res, trace_k: int, mesh: Optional[Mesh] = None) -> tuple:
     """``(topk_idx, topk_score, chosen_score, runner_up_gap)`` of a
     round's select result, over the last axis (a leading replica axis is
     kept). A method without a score vector records its chosen index and
-    probability in slot 0 and -inf/-1 elsewhere, as the reference does."""
+    probability in slot 0 and -inf/-1 elsewhere, as the reference does.
+    ``mesh``: ``res.scores`` is this rank's block of N (``res.idx``
+    global); the top k and the chosen score are the unsharded ones, the
+    same on every rank."""
     idx = res.idx.to(torch.int64)
     if res.scores is None:
         prob = res.prob.to(torch.float32)
@@ -114,10 +147,18 @@ def _score_digest(res, trace_k: int) -> tuple:
                               device=idx.device)
         topk_idx[..., 0] = idx
         chosen = prob
+    elif mesh is None:
+        scores = res.scores.to(torch.float32)
+        topk_score, topk_idx = _top(scores, trace_k)
+        chosen = scores.gather(-1, idx[..., None])[..., 0]
     else:
         scores = res.scores.to(torch.float32)
-        topk_score, topk_idx = torch.topk(scores, trace_k, dim=-1)
-        chosen = scores.gather(-1, idx[..., None])[..., 0]
+        topk_score, topk_idx = _mesh_top(scores, trace_k, mesh)
+        # read on the rank that holds the pick: (S, S) for a replica
+        # axis (row i: every replica's score of replica i's pick)
+        chosen = broadcast_from_owner(scores.movedim(-1, 0), idx, mesh)
+        if idx.dim():
+            chosen = torch.diagonal(chosen)
     gap = (topk_score[..., 0] - topk_score[..., 1] if trace_k >= 2
            else torch.zeros_like(chosen))
     return topk_idx, topk_score, chosen, gap
@@ -147,16 +188,18 @@ def _first_pick(res):
 
 
 def make_round_trace(selector: Selector, res, state_after, k: torch.Tensor,
-                     trace_k: int, scored: Optional[tuple] = None
-                     ) -> RoundTrace:
+                     trace_k: int, scored: Optional[tuple] = None,
+                     mesh: Optional[Mesh] = None) -> RoundTrace:
     """One round's :class:`RoundTrace`. ``state_after`` is the post-update
     state (the posterior digest describes the round's outcome, aligned
     with its ``best_model``). ``scored`` is the score half
     (:func:`_score_digest`) when the caller took it before an in-place
-    ``update``; it is computed from ``res`` otherwise. The surrogate
-    scorer's fallback flag is ``extras["scorer_round_stats"]`` of the
-    post-update state (False for a method without it)."""
-    scored = _score_digest(res, trace_k) if scored is None else scored
+    ``update``; it is computed from ``res`` (on ``mesh``) otherwise. The
+    surrogate scorer's fallback flag is ``extras["scorer_round_stats"]``
+    of the post-update state (False for a method without it). Under a
+    mesh ``get_pbest`` returns every model's P(best) (gathered over the
+    model group), so the posterior digest reduces the unsharded vector."""
+    scored = _score_digest(res, trace_k, mesh) if scored is None else scored
     chosen = scored[2]
     pbest_max, pbest_entropy = _posterior_digest(selector, state_after,
                                                  chosen)
@@ -175,17 +218,11 @@ def answer(labels: torch.Tensor, idx: torch.Tensor,
     return broadcast_from_owner(labels, idx, mesh)
 
 
-def check_mesh_run(mesh: Optional[Mesh], trace_k: int = 0,
-                   acq_batch: int = 1) -> None:
-    """The engine's refusals under a mesh (the next mesh slice)."""
-    if mesh is None:
-        return
-    if acq_batch > 1:
+def check_mesh_run(mesh: Optional[Mesh], acq_batch: int = 1) -> None:
+    """The engine's refusal under a mesh (the next mesh slice)."""
+    if mesh is not None and acq_batch > 1:
         raise NotImplementedError(
             f"acq_batch={acq_batch} under a mesh comes with {MESH_NEXT}")
-    if trace_k:
-        raise NotImplementedError(
-            f"the flight recorder under a mesh comes with {MESH_NEXT}")
 
 
 def make_step_fn(selector: Selector, labels: torch.Tensor,
@@ -198,7 +235,7 @@ def make_step_fn(selector: Selector, labels: torch.Tensor,
     ``trace_k > 0`` appends the round's :class:`RoundTrace` (its scores
     read before ``update``, which may rewrite the state in place).
     ``mesh``: ``labels`` is this rank's block (:func:`answer`)."""
-    check_mesh_run(mesh, trace_k, acq_batch)
+    check_mesh_run(mesh, acq_batch)
     regret_of = regret_fn(model_losses, mesh)
     select, update = selector.select, selector.update
     first = (lambda r: r)
@@ -209,7 +246,8 @@ def make_step_fn(selector: Selector, labels: torch.Tensor,
     def step(state, cum, k):
         k_sel, k_best = trandom.split(k)
         res = select(state, k_sel)
-        scored = _score_digest(first(res), trace_k) if trace_k else None
+        scored = (_score_digest(first(res), trace_k, mesh) if trace_k
+                  else None)
         tc = answer(labels, res.idx, mesh)
         state = update(state, res.idx, tc, res.prob)
         best, b_stoch = selector.best(state, k_best)
@@ -220,7 +258,7 @@ def make_step_fn(selector: Selector, labels: torch.Tensor,
                 res.stochastic | b_stoch)
         if trace_k:
             outs += (make_round_trace(selector, first(res), state, k,
-                                      trace_k, scored),)
+                                      trace_k, scored, mesh),)
         return state, cum, outs
 
     return step
@@ -235,7 +273,6 @@ def make_batched_step_fn(selector: Selector, labels: torch.Tensor,
     ``outs`` as in :func:`make_step_fn` with each entry ``(S,)``;
     ``trace_k > 0`` appends the round's :class:`RoundTrace` with the
     replicas' ``round_keys`` (S, 2). ``mesh``: see :func:`make_step_fn`."""
-    check_mesh_run(mesh, trace_k)
     bsel = selector.batched
     if bsel is None:
         raise ValueError(f"selector {selector.name!r} has no seed-batched "
@@ -244,7 +281,7 @@ def make_batched_step_fn(selector: Selector, labels: torch.Tensor,
 
     def step(state, cum, keys, round_keys=None):
         res = bsel.select(state, keys)
-        scored = _score_digest(res, trace_k) if trace_k else None
+        scored = _score_digest(res, trace_k, mesh) if trace_k else None
         tc = answer(labels, res.idx, mesh)
         state = bsel.update(state, res.idx, tc, res.prob)
         best, b_stoch = bsel.best(state)
@@ -254,7 +291,7 @@ def make_batched_step_fn(selector: Selector, labels: torch.Tensor,
                 res.stochastic | b_stoch)
         if trace_k:
             outs += (make_round_trace(selector, res, state, round_keys,
-                                      trace_k, scored),)
+                                      trace_k, scored, mesh),)
         return state, cum, outs
 
     return step
@@ -462,7 +499,7 @@ def make_batched_experiment_fn(selector_factory: Callable[[torch.Tensor],
 
     ``mesh``: ``preds`` and ``labels`` are this rank's blocks of N, and
     the factory is called as ``selector_factory(preds, mesh=mesh)``."""
-    check_mesh_run(mesh, trace_k, acq_batch)
+    check_mesh_run(mesh, acq_batch)
 
     def fn(preds, labels, keys):
         sel = (selector_factory(preds) if mesh is None
@@ -565,11 +602,14 @@ def run_seeds_recorded(selector_factory: Callable[[torch.Tensor], Selector],
                        loss_fn: Callable = accuracy_loss, trace_k: int = 8,
                        device: DeviceLike = None,
                        timings: Optional[list] = None, acq_batch: int = 1,
-                       cost_label: Optional[str] = None):
+                       cost_label: Optional[str] = None,
+                       mesh: Optional[Mesh] = None):
     """:func:`run_seeds_compiled` with the flight recorder on: returns
     ``(ExperimentResult, RunTraceAux)``, both with a leading seed axis,
-    the decisions those of the unrecorded run."""
+    the decisions those of the unrecorded run (under a ``mesh`` the same
+    on every rank)."""
     return run_seeds_compiled(selector_factory, preds, labels, iters=iters,
                               seeds=seeds, loss_fn=loss_fn, device=device,
                               timings=timings, trace_k=max(1, int(trace_k)),
-                              acq_batch=acq_batch, cost_label=cost_label)
+                              acq_batch=acq_batch, cost_label=cost_label,
+                              mesh=mesh)

@@ -44,9 +44,18 @@ contract, 2.34e-4::
 It exits 0 on PARITY and 2 on DIVERGED. A record of a noisy crowd oracle
 re-executes the crowd program (``crowd/loop.py``) from its knobs
 (``oracle_noise``, ``oracle_annotators``, ``oracle_reliability``); the
-reference's replay runs the clean engine there. A record made under a
-``mesh`` raises ``NotImplementedError``: the recorder under a mesh comes
-with the next mesh slice.
+reference's replay runs the clean engine there.
+
+A record made under ``--mesh SPEC`` re-executes on that mesh: under
+``python -m torch.distributed.run --nproc-per-node <data*model> -m
+coda_tpu_torch.cli replay <dir>`` every rank rebuilds the mesh, loads its
+block and runs the rounds (their collectives need every rank); each rank
+triages the same replicated result, rank 0 prints it, and every rank
+exits with the verdict. In a world of any other size the replay is
+refused, naming the size it needs. ``--against`` compares two records
+without re-executing, in one process: a mesh record against an unsharded
+one differs on the ``mesh`` knob, so the auto tolerance is the 2.34e-4
+contract.
 """
 
 from __future__ import annotations
@@ -602,7 +611,7 @@ def _auto_tol(record: RunRecord, overrides: dict,
 
 def replay_record(record: RunRecord, selector_factory, preds, labels,
                   loss: str = "acc", device=None,
-                  timings: Optional[list] = None) -> dict:
+                  timings: Optional[list] = None, mesh=None) -> dict:
     """Re-execute a record's program and return the replayed arrays
     (the record's names and dtypes, a leading seed axis).
 
@@ -616,7 +625,8 @@ def replay_record(record: RunRecord, selector_factory, preds, labels,
     recorded replica width (:func:`load_record_environment`). Same backend
     and knobs: bitwise the recorded arrays. ``timings``: the experiment
     functions' ``{"init_ms", "rounds_ms"}`` entries (one for a seed batch,
-    one a seed otherwise)."""
+    one a seed otherwise). ``mesh``: ``preds`` and ``labels`` are this
+    rank's blocks of the record's mesh."""
     import torch
 
     from coda_tpu_torch.engine.loop import (
@@ -626,7 +636,7 @@ def replay_record(record: RunRecord, selector_factory, preds, labels,
     from coda_tpu_torch.losses import LOSS_FNS
     from coda_tpu_torch.utils.platform import resolve_device
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     run = record.meta.get("run", {})
     iters = int(run.get("iters", record.rounds))
     trace_k = int(record.meta.get("trace_k", 8))
@@ -638,7 +648,7 @@ def replay_record(record: RunRecord, selector_factory, preds, labels,
     if cfg is None:
         result, aux = make_batched_experiment_fn(
             selector_factory, iters, LOSS_FNS[loss], trace_k=trace_k,
-            acq_batch=record.acq_batch, timings=timings)(*args)
+            acq_batch=record.acq_batch, timings=timings, mesh=mesh)(*args)
         crowd = None
     else:
         from coda_tpu_torch.crowd.loop import (
@@ -676,18 +686,20 @@ def record_crowd_config(record: RunRecord):
 
 def verify_replay(record: RunRecord, selector_factory, preds, labels,
                   loss: str = "acc", score_tol: float = 0.0, seeds=None,
-                  device=None) -> ReplayReport:
+                  device=None, mesh=None) -> ReplayReport:
     """Re-execute ``record`` through its own program and triage each seed
     (all of them, or ``seeds``: the program always runs every recorded
     seed, as it was recorded). ``meta["timings"]`` holds the
     re-execution's init and round times (host clock, the device
-    synchronised at the phase boundaries)."""
+    synchronised at the phase boundaries). ``mesh``: every rank calls
+    this with its blocks and gets the same report."""
     timings: list = []
     report = ReplayReport(mode="replay", score_tol=score_tol,
                           meta={"run": record.meta.get("run", {}),
                                 "timings": timings})
     replayed = replay_record(record, selector_factory, preds, labels,
-                             loss=loss, device=device, timings=timings)
+                             loss=loss, device=device, timings=timings,
+                             mesh=mesh)
     for s in (range(record.seeds) if seeds is None else seeds):
         rec = record.seed_arrays(s)
         rep = {k: v[s] for k, v in replayed.items()}
@@ -729,35 +741,77 @@ def _args_from_record(record: RunRecord, data_dir: Optional[str] = None,
     return args
 
 
+def record_mesh(record: RunRecord) -> Optional[str]:
+    """The ``--mesh`` spec a record was made under, or None."""
+    return record.meta.get("fingerprint", {}).get("knobs", {}).get("mesh") \
+        or None
+
+
+def check_replay_world(record: RunRecord) -> Optional[str]:
+    """The ``--mesh`` spec of a mesh record (None for an unsharded one),
+    after checking that this world (the process group, else
+    ``torchrun``'s ``WORLD_SIZE``) holds exactly its ``data * model``
+    ranks; any other world is refused, naming the size it needs."""
+    spec = record_mesh(record)
+    if spec is None:
+        return None
+    import torch.distributed as dist
+
+    from coda_tpu_torch.parallel.mesh import parse_spec
+
+    sizes = parse_spec(spec)
+    need = sizes["data"] * sizes["model"]
+    have = (dist.get_world_size() if dist.is_initialized()
+            else int(os.environ.get("WORLD_SIZE", "1")))
+    if have != need:
+        raise SystemExit(
+            f"the record was made under --mesh {spec}: replay it on "
+            f"{need} ranks (python -m torch.distributed.run "
+            f"--nproc-per-node {need} -m coda_tpu_torch.cli replay "
+            f"<record-dir>); this world has {have}")
+    return spec
+
+
 def load_record_environment(record: RunRecord,
                             data_dir: Optional[str] = None,
                             overrides: Optional[dict] = None,
-                            check_digest: bool = True, device=None):
+                            check_digest: bool = True, device=None,
+                            mesh=None):
     """``(dataset, selector_factory, args)`` for a record on ``device`` —
     everything :func:`verify_replay` needs to re-execute the recorded
-    program. The dataset's digest must be the record's unless
-    ``check_digest`` is False."""
+    program. The dataset's digest (the whole task's) must be the
+    record's unless ``check_digest`` is False. ``mesh``: the record's
+    (:func:`check_replay_world`); every rank calls this and loads its
+    block, rank 0 checks the digest and the others take its verdict."""
     from coda_tpu_torch.cli import build_selector_factory, load_dataset
+    from coda_tpu_torch.parallel.collectives import raise_together
+    from coda_tpu_torch.parallel.mesh import parse_spec
 
+    spec = record_mesh(record)
+    if mesh is None and spec is not None:
+        check_replay_world(record)     # a world of another size: refused
+        raise ValueError(f"a record made under --mesh {spec} re-executes on "
+                         "that mesh (pass mesh=, as cli replay does)")
+    if mesh is not None and (spec is None
+                             or parse_spec(spec) != mesh.shape):
+        raise ValueError(f"the record was made under --mesh {spec}, not on "
+                         f"the mesh {mesh.spec}")
     args = _args_from_record(record, data_dir, overrides)
-    if getattr(args, "mesh", None):
-        from coda_tpu_torch.parallel.mesh import MESH_NEXT
-
-        raise NotImplementedError(
-            f"replaying a record made under --mesh {args.mesh} comes with "
-            f"{MESH_NEXT} (the recorder under a mesh)")
     args.device = "cuda" if device is None else str(device)
-    dataset = load_dataset(args)
+    dataset = (load_dataset(args) if mesh is None
+               else load_dataset(args, mesh))
     want = record.meta.get("fingerprint", {}).get("dataset", {}).get(
         "digest")
-    if check_digest and want:
-        got = dataset_digest(dataset.preds, dataset.labels)
+    error = None
+    if check_digest and want and (mesh is None or mesh.rank == 0):
+        got = dataset.digest()
         if got != want:
-            raise ValueError(
+            error = (
                 f"dataset digest mismatch: record was captured on "
                 f"{want}, loaded data hashes to {got} — replaying against "
                 "different data answers a different question "
                 "(pass --allow-digest-mismatch to proceed anyway)")
+    raise_together(error, mesh)
     factory = build_selector_factory(args, dataset.name)
     return dataset, factory, args
 
@@ -782,6 +836,26 @@ def _parse_overrides(pairs) -> dict:
             v = False
         out[k] = v
     return out
+
+
+def _reexecute(args, record: RunRecord, overrides: dict, tol: float,
+               mesh) -> ReplayReport:
+    """``replay_main``'s re-execution on ``args.device`` or this rank of
+    ``mesh``."""
+    from coda_tpu_torch.utils.platform import resolve_device
+
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    dataset, factory, rec_args = load_record_environment(
+        record, data_dir=args.data_dir, overrides=overrides,
+        check_digest=not args.allow_digest_mismatch, device=dev, mesh=mesh)
+    seeds = None if args.seed is None else [args.seed]
+    report = verify_replay(record, factory, dataset.preds, dataset.labels,
+                           loss=getattr(rec_args, "loss", "acc"),
+                           score_tol=tol, seeds=seeds, device=dev, mesh=mesh)
+    report.meta["device"] = str(dev)
+    if mesh is not None:
+        report.meta["mesh"] = mesh.spec
+    return report
 
 
 def replay_main(argv=None) -> int:
@@ -823,21 +897,34 @@ def replay_main(argv=None) -> int:
     tol = (_auto_tol(record, overrides, against=other, device=args.device)
            if args.score_tol == "auto" else float(args.score_tol))
 
+    primary = True
     if other is not None:
         report = compare_records(record, other, score_tol=tol)
     else:
-        from coda_tpu_torch.utils.platform import resolve_device
+        spec = check_replay_world(record)
+        if spec is None:
+            report = _reexecute(args, record, overrides, tol, None)
+        else:
+            import torch.distributed as dist
 
-        dev = resolve_device(args.device)
-        dataset, factory, rec_args = load_record_environment(
-            record, data_dir=args.data_dir, overrides=overrides,
-            check_digest=not args.allow_digest_mismatch, device=dev)
-        seeds = None if args.seed is None else [args.seed]
-        report = verify_replay(record, factory, dataset.preds,
-                               dataset.labels,
-                               loss=getattr(rec_args, "loss", "acc"),
-                               score_tol=tol, seeds=seeds, device=dev)
-        report.meta["device"] = str(dev)
+            from coda_tpu_torch.parallel.distributed import (
+                initialize,
+                shutdown,
+            )
+            from coda_tpu_torch.parallel.mesh import mesh_from_spec
+
+            joined = not dist.is_initialized()
+            if joined:
+                initialize(device=args.device)
+            try:
+                mesh = mesh_from_spec(spec, device=args.device)
+                primary = mesh.rank == 0
+                report = _reexecute(args, record, overrides, tol, mesh)
+            finally:
+                if joined:
+                    shutdown()
+    if not primary:
+        return 0 if report.parity else 2
     print(format_triage(report))
     if report.meta.get("timings"):
         rounds_ms = sum(t["rounds_ms"] for t in report.meta["timings"])

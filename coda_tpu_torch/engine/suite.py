@@ -198,30 +198,35 @@ class SuiteRunner:
                           t_start=t_start, t_end=t_end, attrs=attrs)
         tele.sample_devices([dev])
 
-    def _dataset_digest(self, name: str, preds=None, labels=None):
-        if name not in self._digests and preds is not None:
-            from coda_tpu_torch.telemetry.recorder import dataset_digest
-
-            self._digests[name] = dataset_digest(preds, labels)
+    def _dataset_digest(self, name: str, dataset=None):
+        """The task's recorder digest (the whole task's under a mesh),
+        computed once a task."""
+        if name not in self._digests and dataset is not None:
+            self._digests[name] = dataset.digest()
         return self._digests.get(name)
 
     def _write_record_stream(self, task: str, method: str, shape, result,
                              aux, resolved: Optional[dict],
-                             n_parallel: int, dataset=None) -> str:
+                             n_parallel: int, dataset=None) -> Optional[str]:
         """One probe record into the per-(family, method) stream
-        ``<record_dir>/<family>__<method>/<task>/``."""
+        ``<record_dir>/<family>__<method>/<task>/``, the task's mesh among
+        its knobs; under the runner's mesh rank 0 alone writes it (every
+        rank recorded the same rounds)."""
         from coda_tpu_torch.telemetry.recorder import (
             RunRecord,
             environment_fingerprint,
             stream_dir,
         )
 
-        digest = self._dataset_digest(
-            task, getattr(dataset, "preds", None),
-            getattr(dataset, "labels", None))
+        if self.mesh is not None and self.mesh.rank != 0:
+            return None
+        digest = self._dataset_digest(task, dataset)
         knobs = dict(resolved or {})
         knobs.update(method=method, loss=self._loss_name, iters=self.iters,
                      n_parallel=n_parallel)
+        mesh = getattr(dataset, "mesh", None)
+        if mesh is not None:
+            knobs["mesh"] = mesh.spec
         fp = environment_fingerprint(knobs=knobs, device=self.device)
         fp["dataset"] = {"name": task, "shape": list(shape),
                          "digest": digest}
@@ -580,8 +585,7 @@ class SuiteRunner:
         if record:
             # hash each task once while its tensors are at hand
             for i in todo:
-                self._dataset_digest(names[i], datasets[i].preds,
-                                     datasets[i].labels)
+                self._dataset_digest(names[i], datasets[i])
         t0 = time.perf_counter()
         probe_fn = self._fn_for(method, method_args, names_m[0], width=1,
                                 record=record, device=dev)

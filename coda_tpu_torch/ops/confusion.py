@@ -25,8 +25,11 @@ def ensemble_preds(preds: torch.Tensor,
     model group's sums added in rank order, over the global H."""
     if mesh is None or mesh.model == 1:
         return preds.mean(0)
-    return gather_sum(preds.sum(0), mesh, MODEL_AXIS) / (preds.shape[0]
-                                                         * mesh.model)
+    # a device-tensor divisor: one IEEE division on every device (CUDA
+    # multiplies by the reciprocal of a host scalar)
+    total = gather_sum(preds.sum(0), mesh, MODEL_AXIS)
+    return total / torch.full((), preds.shape[0] * mesh.model,
+                              dtype=total.dtype, device=total.device)
 
 
 def create_confusion_matrices(true_labels: torch.Tensor,

@@ -29,8 +29,11 @@ def true_losses(preds: torch.Tensor, labels: torch.Tensor,
     losses = loss_fn(preds, labels[None, :])
     if mesh is None:
         return losses.mean(dim=1)
-    return gather_sum(losses.sum(dim=1), mesh, DATA_AXIS) / (
-        losses.shape[1] * mesh.data)
+    # a device-tensor divisor: one IEEE division on every device (CUDA
+    # multiplies by the reciprocal of a host scalar)
+    total = gather_sum(losses.sum(dim=1), mesh, DATA_AXIS)
+    return total / torch.full((), losses.shape[1] * mesh.data,
+                              dtype=total.dtype, device=total.device)
 
 
 def best_loss(losses: torch.Tensor,

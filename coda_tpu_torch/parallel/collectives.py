@@ -137,6 +137,33 @@ def min_over(t: torch.Tensor, mesh: Optional[Mesh],
     return all_gather_stack(t, mesh, axis).amin(0)
 
 
+def host_ints(values: list, mesh: Mesh) -> list:
+    """Every rank's list of Python ints ``values`` (each rank passes its
+    own, of any length), in rank order over the whole mesh: two
+    ``all_gather``s, the lengths first. Every rank calls this; it also
+    serves as a barrier."""
+    n = all_gather_stack(torch.tensor([len(values)], device=mesh.device),
+                         mesh, axis=None).cpu()
+    mine = torch.full((max(1, int(n.max())),), -1, dtype=torch.int64)
+    mine[:len(values)] = torch.tensor(values, dtype=torch.int64)
+    rows = all_gather_stack(mine.to(mesh.device), mesh, axis=None).cpu()
+    return [row[:int(k)].tolist() for row, k in zip(rows, n[:, 0])]
+
+
+def raise_together(error: Optional[str], mesh: Optional[Mesh]) -> None:
+    """``ValueError(error)`` on every rank when any rank has an error
+    (each rank raises its own message, one without the lowest failing
+    rank's number), so no rank is left waiting in a collective for one
+    that gave up. Every rank calls this."""
+    if mesh is not None and mesh.size > 1:
+        failed = [r for r, (f,) in enumerate(host_ints([int(bool(error))],
+                                                        mesh)) if f]
+        if failed and not error:
+            error = f"rank {failed[0]} refused (see its error)"
+    if error:
+        raise ValueError(error)
+
+
 def clear_items(mask: torch.Tensor, idx: torch.Tensor,
                 mesh: Optional[Mesh] = None) -> None:
     """``mask[idx] = False`` IN PLACE: an ``(N,)`` mask and indices of any

@@ -23,9 +23,9 @@ shard, under ``torchrun`` (``python -m torch.distributed.run
 --nproc-per-node <a*b> -m coda_tpu_torch.cli suite ... --mesh
 data=a,model=b``; either axis alone too): a task whose N the data axis,
 or whose H the model axis, does not divide loads unsharded on every rank,
-with the reference's warning. Rank 0 alone prints and writes the store. ``--task-batch`` with
-``--mesh`` is the reference's error; ``--record-dir`` raises
-``NotImplementedError`` under a mesh (the next mesh slice).
+with the reference's warning. Rank 0 alone prints, writes the store and,
+under ``--record-dir``, writes each pair's record (the mesh among its
+knobs). ``--task-batch`` with ``--mesh`` is the reference's error.
 """
 
 from __future__ import annotations
@@ -107,11 +107,8 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     from coda_tpu_torch.parallel.distributed import initialize, shutdown
-    from coda_tpu_torch.parallel.mesh import MESH_NEXT, mesh_from_spec
+    from coda_tpu_torch.parallel.mesh import mesh_from_spec
 
-    if args.record_dir:
-        raise NotImplementedError(
-            f"--record-dir under --mesh comes with {MESH_NEXT}")
     joined = not dist.is_initialized()
     initialize(device=args.device)
     try:

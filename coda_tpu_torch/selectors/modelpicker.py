@@ -32,6 +32,7 @@ from coda_tpu_torch import random as trandom
 from coda_tpu_torch.ops.masked import masked_argmin_tiebreak
 from coda_tpu_torch.ops.pbest import sum_h
 from coda_tpu_torch.parallel.collectives import (
+    all_gather_cat,
     any_over,
     broadcast_from_owner,
     clear_items,
@@ -273,12 +274,18 @@ def make_modelpicker(preds: torch.Tensor, epsilon: float = DEFAULT_EPS,
         return (torch.where(labeled, idx, rand_idx),
                 ~labeled | (n_ties > 1))
 
+    def get_pbest(state: ModelPickerState) -> torch.Tensor:
+        if mesh is None or mesh.model == 1:
+            return state.posterior
+        return all_gather_cat(state.posterior, mesh, MODEL_AXIS, -1)
+
     return Selector(
         name=name, init=init, select=select, update=update, best=best,
         select_q=select_q, update_q=update_q,
         always_stochastic=True,
         hyperparams={"epsilon": epsilon},
         # the multiplicative-weights posterior is this method's P(best),
-        # under the key CODA uses, so the recorder digests both
-        extras={"get_pbest": lambda s: s.posterior},
+        # under the key CODA uses, so the recorder digests both; under a
+        # model axis every model's, gathered over the model group
+        extras={"get_pbest": get_pbest},
     )

@@ -185,7 +185,9 @@ def environment_fingerprint(dataset=None, knobs: Optional[dict] = None,
     if dataset is not None:
         ds = {"name": getattr(dataset, "name", None),
               "shape": list(getattr(dataset, "shape", ()) or ())}
-        if digest is None and getattr(dataset, "preds", None) is not None:
+        if digest is None and hasattr(dataset, "digest"):
+            digest = dataset.digest()      # the whole task's, under a mesh
+        elif digest is None and getattr(dataset, "preds", None) is not None:
             digest = dataset_digest(dataset.preds,
                                     getattr(dataset, "labels", None))
     if digest is not None:

@@ -29,7 +29,21 @@ The jobs (``--jobs``):
     factored tier at the headline, no kernel);
   * ``iid``, ``uncertainty``, ``activetesting``, ``vma``,
     ``model_picker``: the baselines, 1 seed;
-  * ``suite``: ``cli suite`` over ``--suite-tasks`` of ``--pred-dir``.
+  * ``suite``: ``cli suite`` over ``--suite-tasks`` of ``--pred-dir``;
+  * ``main_rec``, ``batch_rec``: ``main`` and ``batch`` with the flight
+    recorder on (``--record-dir OUT/records/<job>``, written by rank 0);
+  * ``ckpt_cut``, ``ckpt``: ``main`` with ``--checkpoint-dir
+    OUT/records/ckpt --checkpoint-every 5``, cut after the ``ckpt_cut``
+    rounds, then resumed to ``main``'s rounds (each rank saves its own
+    blocks; the saves' and the restore's bytes and seconds kept);
+  * ``viz``: CODA 1 seed with ``--debug-viz`` on ``--viz-task`` (a
+    tracking store under ``OUT/records``); the figures' data are kept in
+    place of drawing them (the P(best) bars rank 0 logs), so the job runs
+    without matplotlib;
+  * ``replay``: ``cli replay`` of each record the earlier jobs wrote
+    (after every rank has passed a barrier), on these ranks: each rank's
+    exit code and wall seconds, rank 0's report under
+    ``OUT/records/replay_<job>.json``.
 
 It imports nothing of JAX or of the reference package.
 """
@@ -55,9 +69,23 @@ if ROOT not in sys.path:
 BASELINES = ("iid", "uncertainty", "activetesting", "vma", "model_picker")
 
 
-def job_argv(job: str, rounds: dict) -> list:
+def job_argv(job: str, rounds: dict, root: str = ".") -> list:
     """The CLI flags of a job (the task and mesh flags added by the
-    caller); ``rounds`` maps a job to its rounds."""
+    caller); ``rounds`` maps a job to its rounds; ``root`` takes the
+    records, checkpoints and tracking stores of the jobs that write
+    them."""
+    if job.endswith("_rec"):
+        return job_argv(job.removesuffix("_rec"), rounds) + [
+            "--record-dir", os.path.join(root, job)]
+    if job in ("ckpt_cut", "ckpt"):
+        iters = rounds["ckpt_cut" if job == "ckpt_cut" else "main"]
+        return ["--method", "coda", "--seeds", "1", "--iters", str(iters),
+                "--checkpoint-dir", os.path.join(root, "ckpt"),
+                "--checkpoint-every", "5"]
+    if job == "viz":
+        return ["--method", "coda", "--seeds", "1",
+                "--iters", str(rounds["viz"]), "--debug-viz",
+                "--tracking-db", os.path.join(root, "viz.sqlite")]
     if job == "main":
         return ["--method", "coda", "--seeds", "1",
                 "--iters", str(rounds["main"])]
@@ -170,10 +198,45 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+class _Figures:
+    """``coda_tpu_torch.utils.viz`` with the drawing replaced: the P(best)
+    bars' values are kept (``pbest``) and every figure logs as an empty
+    artifact, so ``--debug-viz`` runs where matplotlib is not installed."""
+
+    def __init__(self):
+        self.pbest: list = []
+
+    def __enter__(self):
+        from coda_tpu_torch.utils import viz
+
+        self.saved = {k: getattr(viz, k) for k in
+                      ("_pyplot", "plot_bar", "plot_series", "fig_to_png")}
+        viz._pyplot = lambda: None
+        viz.plot_bar = lambda values, *a, **k: self.pbest.append(
+            [float(v) for v in values])
+        viz.plot_series = lambda *a, **k: None
+        viz.fig_to_png = lambda fig: b""
+        return self
+
+    def __exit__(self, *exc):
+        from coda_tpu_torch.utils import viz
+
+        for k, v in self.saved.items():
+            setattr(viz, k, v)
+
+
 def run_cli_job(argv: list, dev) -> dict:
     """One ``cli.main(argv)`` with the factory wrapped (:class:`Capture`)
     and the experiment timed; the counters set to 0 just before and read
-    just after, the device's peak memory reset and read."""
+    just after, the device's peak memory reset and read. A recorded job
+    keeps its record's bytes, a checkpointed one its saves' and
+    restore's bytes and seconds, a ``--debug-viz`` one its P(best)
+    bars."""
     import numpy as np
     import torch
 
@@ -190,27 +253,38 @@ def run_cli_job(argv: list, dev) -> dict:
         return lambda preds, mesh=None: cap.wrap(f(preds, mesh=mesh))
 
     def run(args, factory, dataset, loss_fn, dev_):
-        # the CLI's own call (no recorder, crowd or checkpoint), timed
-        timings: list = []
-        res = run_seeds_compiled(factory, dataset.preds, dataset.labels,
+        # the CLI's own calls (no crowd), timed
+        got.update(h_local=dataset.preds.shape[0],
+                   n_local=dataset.preds.shape[1], timings=[])
+        if args.checkpoint_dir:
+            ckpt: list = []
+            res = cli._run_resumable(args, factory, dataset, loss_fn, dev_,
+                                     timings=ckpt)
+            got.update(result=res, checkpoint=ckpt)
+            return res, None, None
+        trace_k = args.record_topk if args.record_dir else 0
+        out = run_seeds_compiled(factory, dataset.preds, dataset.labels,
                                  iters=args.iters, seeds=args.seeds,
                                  loss_fn=loss_fn, device=dev_,
-                                 timings=timings, cost_label=args.method,
+                                 timings=got["timings"],
+                                 cost_label=args.method, trace_k=trace_k,
                                  mesh=dataset.mesh)
-        got.update(result=res, timings=timings,
-                   h_local=dataset.preds.shape[0],
-                   n_local=dataset.preds.shape[1])
-        return res, None, None
+        res, aux = out if trace_k else (out, None)
+        got["result"] = res
+        return res, aux, None
 
     cli.build_selector_factory, cli.run_all_seeds = build, run
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     out = io.StringIO()
+    figures = _Figures()
     try:
         _sync(dev)
         reset_counts()
         sent = dict(collectives.traffic)
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), (
+                figures if "--debug-viz" in argv
+                else contextlib.nullcontext()):
             rc = cli.main(argv)
         _sync(dev)
         launched = counts()
@@ -222,8 +296,17 @@ def run_cli_job(argv: list, dev) -> dict:
     rounds = sum(t["rounds_ms"] for t in got["timings"])
     iters = res.chosen_idx.shape[1]
     # one timing a seed (seeds one after another), or the batch's one
-    per = len(got["timings"])
-    return {
+    per = max(1, len(got["timings"]))
+    extra = {}
+    if "--record-dir" in argv:
+        rec = argv[argv.index("--record-dir") + 1]
+        extra["record_bytes"] = _dir_bytes(rec) if os.path.isdir(rec) \
+            else 0
+    if "checkpoint" in got:
+        extra["checkpoint"] = got["checkpoint"]
+    if "--debug-viz" in argv:
+        extra["pbest"] = figures.pbest
+    return extra | {
         "rc": rc, "stdout": out.getvalue(), "launches": launched,
         "ms_per_round": rounds / (iters * per),
         "rounds_ms": rounds,
@@ -237,13 +320,41 @@ def run_cli_job(argv: list, dev) -> dict:
                             cap.round_bytes.items()},
         "arrays": {
             "chosen_idx": res.chosen_idx.cpu().numpy(),
+            "true_class": res.true_class.cpu().numpy(),
             "best_model": res.best_model.cpu().numpy(),
             "regret": res.regret.cpu().numpy(),
+            "cumulative_regret": res.cumulative_regret.cpu().numpy(),
             "select_prob": res.select_prob.cpu().numpy(),
             "scores": torch.stack(cap.scores).cpu().numpy()
             if cap.scores else np.zeros(0),
         },
     }
+
+
+def run_replays(root: str, data_dir: str, dev) -> dict:
+    """The ``replay`` job: ``cli replay`` of every record under ``root``
+    on this world's ranks (they join the record's mesh), after a barrier
+    (rank 0 wrote the records)."""
+    import torch.distributed as dist
+
+    from coda_tpu_torch import cli
+
+    if dist.is_initialized():
+        dist.barrier()        # rank 0 has written every record
+    out = {}
+    for job in sorted(os.listdir(root)):
+        rec = os.path.join(root, job)
+        if not os.path.isfile(os.path.join(rec, "record.json")):
+            continue
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["replay", rec, "--data-dir", data_dir,
+                           "--device", dev.type, "--out",
+                           os.path.join(root, f"replay_{job}.json")])
+        out[job] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                    "stdout": buf.getvalue()}
+    return out
 
 
 def suite_rows(db: str) -> list:
@@ -256,8 +367,10 @@ def suite_rows(db: str) -> list:
 
 def run_jobs(jobs, data_dir: str, task: str, rounds: dict, dev, mesh_spec,
              pred_dir: str, suite_tasks: str, suite_db: str,
-             log=print) -> dict:
-    """Every job in turn; ``mesh_spec`` None runs them unsharded."""
+             log=print, root: str = ".", viz_task: str = "digits_h80") -> dict:
+    """Every job in turn; ``mesh_spec`` None runs them unsharded. ``root``
+    takes the jobs' records, checkpoints and tracking stores; the ``viz``
+    job runs on ``viz_task`` of ``data_dir``."""
     mesh = [] if mesh_spec is None else ["--mesh", mesh_spec]
     device = [] if dev.type == "cuda" else ["--device", "cpu"]
     out = {}
@@ -274,10 +387,14 @@ def run_jobs(jobs, data_dir: str, task: str, rounds: dict, dev, mesh_spec,
                           "--iters", str(rounds["suite"]), "--db", suite_db,
                           "--force-rerun"] + device + mesh)
             out[job] = {"stdout": buf.getvalue(), "launches": counts()}
+        elif job == "replay":
+            out[job] = {"records": run_replays(root, data_dir, dev)}
         else:
+            argv = job_argv(job, rounds, root)
+            track = [] if job == "viz" else ["--no-mlflow"]
             out[job] = run_cli_job(
-                ["--task", task, "--data-dir", data_dir, "--no-mlflow"]
-                + job_argv(job, rounds) + device + mesh, dev)
+                ["--task", viz_task if job == "viz" else task, "--data-dir",
+                 data_dir] + track + argv + device + mesh, dev)
         out[job]["wall_s"] = time.perf_counter() - t0
         log(f"  {job}: {out[job]['wall_s']:.1f} s")
     return out
@@ -291,7 +408,9 @@ def main(argv=None) -> int:
     p.add_argument("--jobs", default="main,batch,paper," + ",".join(BASELINES)
                    + ",suite")
     p.add_argument("--rounds", default="main=30,batch=10,paper=5,"
-                   "baselines=20,suite=10")
+                   "baselines=20,suite=10,ckpt_cut=10,viz=10")
+    p.add_argument("--viz-task", default="digits_h80",
+                   help="the viz job's task under --data-dir")
     p.add_argument("--pred-dir", default=os.path.join(ROOT, "data"))
     p.add_argument("--suite-tasks", default="pyfiles,iris")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -321,7 +440,9 @@ def main(argv=None) -> int:
         res = run_jobs(args.jobs.split(","), args.data_dir, args.task,
                        rounds, dev, spec, args.pred_dir, args.suite_tasks,
                        os.path.join(args.out, f"suite{rank}.sqlite"),
-                       log=print if rank == 0 else (lambda *a: None))
+                       log=print if rank == 0 else (lambda *a: None),
+                       root=os.path.join(args.out, "records"),
+                       viz_task=args.viz_task)
     finally:
         if spec is not None:
             shutdown()

@@ -1,5 +1,6 @@
 """Rank programs for the port's mesh tests (``test_torch_mesh.py``,
-``test_torch_distributed.py``, ``test_torch_mesh_model.py``).
+``test_torch_distributed.py``, ``test_torch_mesh_model.py``,
+``test_torch_mesh_record.py``).
 
 :func:`spawn` starts a world of ``world`` CPU processes through
 ``torch.multiprocessing`` (spawn), each joining one gloo group through a
@@ -471,7 +472,236 @@ def job_model_cli(rank, world, tmp) -> dict:
     return out
 
 
+# -- records, replays, checkpoints, the suite and --debug-viz on a mesh --------
+
+RECORD_SPECS = {2: ("data=2", "model=2"), 4: ("data=2,model=2",)}
+# every CODA tier and the four deterministic-score baselines, and CODA's
+# incremental tier as a 2-seed batch
+RECORD_RUNS = MODEL_METHODS + ("coda_batch2",)
+REPLAYED = ("coda", "coda_batch2", "vma")      # replayed inside the world
+TASK_FILE = "t7"             # TASK as .npy files under the world's tmp
+
+
+def record_argv(name: str, data_dir: str) -> list:
+    """The CLI flags of a recorded run of :data:`RECORD_RUNS` on the task
+    files under ``data_dir`` (``--mesh`` and ``--record-dir`` added by the
+    caller)."""
+    argv = ["--task", TASK_FILE, "--data-dir", data_dir, "--iters",
+            str(ITERS), "--seeds", "2" if name == "coda_batch2" else "1",
+            "--device", "cpu", "--no-mlflow"]
+    if name.startswith("coda"):
+        tier = {"coda": "incremental", "coda_batch2": "incremental"}.get(
+            name, name.removeprefix("coda_"))
+        return argv + ["--method", "coda", "--eig-mode", tier]
+    return argv + ["--method", name]
+
+
+def spec_dir(spec: str) -> str:
+    return spec.replace(",", "_").replace("=", "")
+
+
+def _barrier(mesh) -> None:
+    from coda_tpu_torch.parallel.collectives import all_gather_stack
+
+    all_gather_stack(torch.zeros(1), mesh, axis=None)
+
+
+def _tie_scores() -> tuple:
+    """Scores of two replicas over the task's N = 64 items with exact
+    ties across the data block boundary (items 31 | 32) and among the
+    top k, and -inf non-candidates; the pick of each replica."""
+    s = np.linspace(0.1, 0.5, 64, dtype=np.float32)[None].repeat(2, 0)
+    s[:, [5, 31, 32, 40]] = 0.9             # the top, tied across blocks
+    s[:, [2, 30, 33, 63]] = 0.7             # a tie at the k-th place
+    s[0, 10:20] = -np.inf
+    s[1, 28:36] = -np.inf                   # replica 1: the tie elsewhere
+    s[1, [1, 60]] = 0.9
+    return s, np.array([32, 60])
+
+
+def job_tie_topk(rank, world, tmp) -> dict:
+    """The recorder's top k (k = 8 and 40, more than a data block holds)
+    of :func:`_tie_scores` from this rank's block at each spec, one
+    replica and both."""
+    from coda_tpu_torch.engine.loop import _score_digest
+    from coda_tpu_torch.selectors.protocol import SelectResult
+
+    scores, picks = _tie_scores()
+    out = {}
+    for spec in RECORD_SPECS[world]:
+        mesh = _spec_mesh(spec)
+        blk = _blk(scores, mesh, 1, None)
+        res = {}
+        for k in (8, 40):
+            one = SelectResult(idx=torch.tensor(picks[0]),
+                               prob=torch.tensor(0.0),
+                               stochastic=torch.tensor(False),
+                               scores=blk[0])
+            both = one._replace(idx=torch.from_numpy(picks),
+                                scores=blk)
+            res[k] = [tuple(t.numpy() for t in _score_digest(r, k, mesh))
+                      for r in (one, both)]
+        out[spec] = res
+    return out
+
+
+def job_records(rank, world, tmp) -> dict:
+    """At each spec: every run of :data:`RECORD_RUNS` through ``cli
+    --mesh SPEC --record-dir`` (rank 0 writes ``tmp/rec/<spec>/<run>``);
+    the runs of :data:`REPLAYED` replayed through ``cli replay`` inside
+    the world (each rank's exit code; rank 0's report under
+    ``tmp/rep/``); and a record whose mesh this world cannot hold,
+    refused."""
+    import json
+    import shutil
+
+    from coda_tpu_torch import cli
+
+    out = {}
+    for spec in RECORD_SPECS[world]:
+        mesh = _spec_mesh(spec)
+        res = {"printed": {}, "replay": {}}
+        root = os.path.join(tmp, "rec", spec_dir(spec))
+        for name in RECORD_RUNS:
+            res["printed"][name] = _captured(cli.main, record_argv(
+                name, tmp) + ["--mesh", spec, "--record-dir",
+                              os.path.join(root, name)])
+        _barrier(mesh)           # rank 0 has written every record
+        for name in REPLAYED:
+            report = os.path.join(tmp, "rep", f"{spec_dir(spec)}_{name}.json")
+            res["replay"][name] = cli.main([
+                "replay", os.path.join(root, name), "--device", "cpu",
+                "--out", report])
+        # a copy made under a mesh of another size: refused on every rank
+        other = os.path.join(tmp, f"other_{spec_dir(spec)}_{rank}")
+        shutil.copytree(os.path.join(root, "coda"), other)
+        with open(os.path.join(other, "record.json")) as f:
+            meta = json.load(f)
+        meta["fingerprint"]["knobs"]["mesh"] = "data=4,model=2"
+        with open(os.path.join(other, "record.json"), "w") as f:
+            json.dump(meta, f)
+        try:
+            cli.main(["replay", other, "--device", "cpu"])
+            res["refused"] = None
+        except SystemExit as e:
+            res["refused"] = str(e)
+        out[spec] = res
+    return out
+
+
+def _checkpoint_runs(spec: str, tmp: str) -> dict:
+    """CODA (incremental) on the task at ``spec``: the uninterrupted run
+    of :data:`ITERS` rounds; one cut after 5 rounds (saves at rounds 2
+    and 4) and resumed to 8; one whose newest step rank 1 lost, resumed
+    from the step every rank holds. Each resumed run against the
+    uninterrupted one, field by field (bitwise)."""
+    import shutil
+
+    from coda_tpu_torch import random as trandom
+    from coda_tpu_torch.data import make_synthetic_task
+    from coda_tpu_torch.engine import build_experiment_fn
+    from coda_tpu_torch.engine.checkpoint import make_resumable_runner
+    from coda_tpu_torch.oracle import true_losses
+
+    mesh = _spec_mesh(spec)
+    task = make_synthetic_task(**TASK, mesh=mesh)
+    sel = factory("coda")(task.preds, mesh=mesh)
+    losses = true_losses(task.preds, task.labels, mesh=mesh)
+    full = build_experiment_fn(sel, task.labels, losses, ITERS,
+                               mesh=mesh)(trandom.PRNGKey(0))
+    out = {}
+    for case in ("cut", "lost"):
+        ck = os.path.join(tmp, "ck", spec_dir(spec), case)
+        timings: list = []
+        make_resumable_runner(sel, task.labels, losses, 5, every=2,
+                              timings=timings, mesh=mesh)(0, ck)
+        if case == "lost":
+            _barrier(mesh)
+            if mesh.rank == 1:
+                shutil.rmtree(os.path.join(ck, "rank_1", "step_4"))
+            _barrier(mesh)
+        got = make_resumable_runner(sel, task.labels, losses, ITERS,
+                                    every=2, timings=timings,
+                                    mesh=mesh)(0, ck)
+        out[case] = {
+            "bitwise": {f: bool(torch.equal(getattr(full, f),
+                                            getattr(got, f)))
+                        for f in full._fields},
+            "ops": [(t["op"], t["round"]) for t in timings],
+            "bytes": [t["bytes"] for t in timings]}
+    return out
+
+
+def job_checkpoints(rank, world, tmp) -> dict:
+    """At each spec: :func:`_checkpoint_runs`; ``cli --checkpoint-dir``
+    under ``--mesh`` (cut, then resumed; its printed lines); and a resume
+    under another spec (the 2-rank world's model=2 on the data=2 run's
+    directory), refused on every rank."""
+    from coda_tpu_torch import cli
+
+    out = {}
+    for spec in RECORD_SPECS[world]:
+        res = _checkpoint_runs(spec, tmp)
+        ck = os.path.join(tmp, "ck_cli", spec_dir(spec))
+        argv = record_argv("coda", tmp) + ["--mesh", spec,
+                                           "--checkpoint-dir", ck,
+                                           "--checkpoint-every", "3"]
+        cut = [a if a != str(ITERS) else "4" for a in argv]
+        res["cli"] = (_captured(cli.main, cut), _captured(cli.main, argv))
+        out[spec] = res
+    if world == 2:
+        ck = os.path.join(tmp, "ck_cli", spec_dir("data=2"))
+        try:
+            out["other_spec"] = _captured(cli.main, record_argv(
+                "coda", tmp) + ["--mesh", "model=2", "--checkpoint-dir", ck,
+                                "--checkpoint-every", "3"])
+        except ValueError as e:
+            out["other_spec"] = str(e)
+    return out
+
+
+def job_suite_viz(rank, world, tmp) -> dict:
+    """At each spec: ``cli suite --mesh SPEC --record-dir`` over
+    ``pyfiles`` (N = 500, H = 14: sharded on every spec) with CODA and
+    IID, and ``cli --debug-viz`` of CODA (2 seeds) on the task with the
+    P(best) bars rank 0 draws captured."""
+    from coda_tpu_torch import cli
+    from coda_tpu_torch.utils import viz
+
+    out = {}
+    drawn: list = []
+    plot_bar = viz.plot_bar
+
+    def capture(values, *a, **k):
+        drawn.append(np.asarray(values))
+        return plot_bar(values, *a, **k)
+
+    viz.plot_bar = capture
+    try:
+        for spec in RECORD_SPECS[world]:
+            res = {}
+            res["suite"] = _captured(cli.main, [
+                "suite", "--pred-dir", os.path.join(REPO, "data"),
+                "--tasks", "pyfiles", "--methods", "coda,iid", "--seeds",
+                "2", "--iters", "6", "--device", "cpu", "--no-db",
+                "--mesh", spec, "--record-dir",
+                os.path.join(tmp, "suite", spec_dir(spec))])
+            drawn.clear()
+            argv = [a for a in record_argv("coda_batch2", tmp)
+                    if a != "--no-mlflow"]
+            res["viz"] = _captured(cli.main, argv + [
+                "--mesh", spec, "--debug-viz", "--tracking-db",
+                os.path.join(tmp, f"viz_{spec_dir(spec)}_{rank}.sqlite")])
+            res["pbest"] = list(drawn)
+            out[spec] = res
+    finally:
+        viz.plot_bar = plot_bar
+    return out
+
+
 JOBS = {"traces": job_traces, "blocks": job_blocks, "large_c": job_large_c,
         "collectives": job_collectives, "cli": job_cli, "env": job_env,
         "model_traces": job_model_traces, "model_blocks": job_model_blocks,
-        "model_large_c": job_model_large_c, "model_cli": job_model_cli}
+        "model_large_c": job_model_large_c, "model_cli": job_model_cli,
+        "tie_topk": job_tie_topk, "records": job_records,
+        "checkpoints": job_checkpoints, "suite_viz": job_suite_viz}

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import os
 import re
 import sqlite3
 
@@ -134,21 +135,43 @@ def test_port_cli_mesh_refusals(flags, tmp_path):
     """Every flag the next mesh slice brings raises
     ``NotImplementedError`` under ``--mesh`` (here a one-rank mesh, of
     the data axis or of the model axis); none runs unsharded without a
-    word."""
+    word. The flags slice 5d's first part brought run there instead:
+    ``--record-dir`` writes a record with the mesh among its knobs,
+    ``--checkpoint-dir`` saves under ``seed_<s>/rank_0`` and
+    ``--debug-viz`` logs its figures."""
     argv = ["--synthetic", "6,64,4", "--method", "coda", "--iters", "2",
             "--seeds", "1", "--device", "cpu", "--no-mlflow"]
-    flags = [f.replace("REC", str(tmp_path / "r")).replace(
-        "CK", str(tmp_path / "c")) for f in flags]
+    rec, ck = str(tmp_path / "r"), str(tmp_path / "c")
+    flags = [f.replace("REC", rec).replace("CK", ck) for f in flags]
     mesh = [] if "--mesh" in flags else ["--mesh", "data=1"]
-    with pytest.raises(NotImplementedError, match="next mesh slice"):
-        cli.main(argv + flags + mesh)
+    if flags[0] == "--record-dir":
+        assert "decision record written to" in _run(argv + flags + mesh)
+        from coda_tpu_torch.telemetry.recorder import RunRecord
+
+        knobs = RunRecord.load(rec).meta["fingerprint"]["knobs"]
+        assert knobs["mesh"] == "data=1"
+    elif flags[0] == "--checkpoint-dir":
+        assert "seed 0: regret@2=" in _run(argv + flags + mesh)
+        assert os.listdir(os.path.join(ck, "seed_0")) == ["rank_0"]
+    elif flags[0] == "--debug-viz":
+        pytest.importorskip("matplotlib")
+        db = str(tmp_path / "v.sqlite")
+        out = _run(argv[:-1] + ["--tracking-db", db] + flags + mesh)
+        assert f"Logged to {db}" in out
+        pngs = sorted(f for _, _, fs in os.walk(db + "_artifacts")
+                      for f in fs)
+        assert pngs == ["pbest.png", "regret_curve.png"]
+    else:
+        with pytest.raises(NotImplementedError, match="next mesh slice"):
+            cli.main(argv + flags + mesh)
 
 
 def test_port_cli_mesh_needs_its_ranks(monkeypatch, tmp_path):
     """A mesh of more shards than ranks raises the reference's "needs"
     error; ``--task-batch`` with ``--mesh`` is the reference's parse
-    error; the suite's ``--record-dir`` and the serve verbs under torchrun
-    raise naming the next slice; a one-rank mesh runs."""
+    error; the serve verbs under torchrun raise naming the next slice; a
+    one-rank mesh runs, the suite's ``--record-dir`` too (its record
+    carries the mesh)."""
     argv = ["--synthetic", "6,64,4", "--method", "coda", "--iters", "2",
             "--seeds", "1", "--device", "cpu", "--no-mlflow"]
     with pytest.raises(ValueError, match="mesh 2x1 needs 2 ranks, have 1"):
@@ -160,8 +183,12 @@ def test_port_cli_mesh_needs_its_ranks(monkeypatch, tmp_path):
     with pytest.raises(SystemExit) as e:
         cli.main(suite + ["--task-batch"])
     assert e.value.code == 2
-    with pytest.raises(NotImplementedError, match="next mesh slice"):
-        cli.main(suite + ["--record-dir", str(tmp_path / "r")])
+    assert '"record_dir"' in _run(suite + ["--record-dir",
+                                          str(tmp_path / "r")])
+    from coda_tpu_torch.telemetry.recorder import RunRecord
+
+    rec = RunRecord.load(str(tmp_path / "r" / "iris__iid" / "iris"))
+    assert rec.meta["fingerprint"]["knobs"]["mesh"] == "data=1"
     monkeypatch.setenv("WORLD_SIZE", "2")
     for verb in ("serve", "replay-serve"):
         with pytest.raises(NotImplementedError, match="next mesh slice"):

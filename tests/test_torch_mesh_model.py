@@ -224,8 +224,9 @@ def test_port_model_axis_refusals(tmp_path):
     the reference's warning under ``unsharded_fallback``; the fused
     refresh raises under a model-axis mesh as under any mesh; each knob
     left for the next slice raises ``NotImplementedError`` naming it,
-    also on a one-rank model axis (``--mesh model=1``); a model axis of
-    more ranks than the world raises the reference's "needs" error."""
+    also on a one-rank model axis (``--mesh model=1``), where
+    ``--checkpoint-dir`` runs; a model axis of more ranks than the world
+    raises the reference's "needs" error."""
     from coda_tpu_torch import cli
     from coda_tpu_torch import data as tdata
     from coda_tpu_torch.selectors import CODAHyperparams, make_coda
@@ -258,6 +259,13 @@ def test_port_model_axis_refusals(tmp_path):
             "model=1"]
     for flags in (["--acq-batch", "2"], ["--posterior", "sparse:2"],
                   ["--checkpoint-dir", str(tmp_path / "c")]):
+        if flags[0] == "--checkpoint-dir":     # runs since slice 5d
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert cli.main(argv + flags) == 0
+            assert "seed 0: regret@2=" in buf.getvalue()
+            assert (tmp_path / "c" / "seed_0" / "rank_0").is_dir()
+            continue
         with pytest.raises(NotImplementedError, match="next mesh slice"):
             cli.main(argv + flags)
     with pytest.raises(ValueError, match="mesh 1x2 needs 2 ranks, have 1"):

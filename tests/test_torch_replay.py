@@ -153,9 +153,10 @@ def test_port_replay_seed_set_and_out(port_records, tmp_path, capsys):
 def test_port_replay_refuses_other_programs(port_records, tmp_path):
     """A crowd-oracle record re-executes the crowd program from its knobs
     (a spec the crowd cannot parse raises its error); a record made
-    under a mesh raises naming the next mesh slice (slice 5 brought the
-    mesh, not its recorder); on a machine without a card the default
-    device raises (no fallback to the CPU)."""
+    under a mesh re-executes only in a world of its mesh's ranks: in one
+    process it is refused, naming the ranks it needs (never replayed
+    unsharded); on a machine without a card the default device raises
+    (no fallback to the CPU)."""
     rec = trec.RunRecord.load(port_records["coda"])
     noisy = trec.RunRecord(json.loads(json.dumps(rec.meta)), rec.arrays)
     noisy.meta["fingerprint"]["knobs"]["oracle_noise"] = "flip:0.2"
@@ -170,8 +171,8 @@ def test_port_replay_refuses_other_programs(port_records, tmp_path):
     assert treplay.record_crowd_config(rec) is None
     meshed = trec.RunRecord(json.loads(json.dumps(rec.meta)), rec.arrays)
     meshed.meta["fingerprint"]["knobs"]["mesh"] = "data=2"
-    with pytest.raises(NotImplementedError,
-                       match="next mesh slice of the port .slice 5"):
+    with pytest.raises(SystemExit, match="replay it on 2 ranks .* this "
+                       "world has 1"):
         treplay.load_record_environment(meshed, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
