@@ -140,12 +140,12 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    ActiveTesting; 1 seed, every 10 rounds) cut after round 20 and resumed
    to 30, every trace bitwise the uninterrupted run, with a checkpoint's
    bytes and its save and restore seconds; the suite over ``data/`` (the
-   six methods, 5 seeds x 15 rounds, ``runs/real.sqlite``'s sweep cut
+   six methods, 5 seeds x 10 rounds, ``runs/real.sqlite``'s sweep cut
    from 100 rounds) into
    a fresh database, its rerun skipping every pair, a 3-task x 2-seed x
    30-round subset under ``--task-batch --suite-devices 1`` bitwise the
    serial run, two pairs' rows bitwise the single-task CLI's, and a
-   table of mean cumulative regret x100 at step 15 beside
+   table of mean cumulative regret x100 at step 10 beside
    ``runs/real.sqlite``'s (information, not a gate). It prints the
    sweep's and the phase's wall time.
 10. the "crowd and telemetry" phase, each in-process run with the
@@ -296,10 +296,20 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    checkpoint bytes and its save and restore seconds. The yardstick
    records its CODA runs (``--record-dir``: phase 15's ``--against``
    side) and runs ``--debug-viz`` on ``digits_h80`` cut to its first 898
-   items (N must split over data=2). It prints ms a round, init ms and
-   each rank's peak memory beside the unsharded run's, with the card's
-   name and power limit: gloo on one shared card checks the sharded
-   program, it does not measure NCCL scaling.
+   items (N must split over data=2). CODA's knobs, each recorded
+   (``--record-dir``) by the yardstick and by the ranks: ``--posterior
+   sparse:32 --eig-chunk 64`` on the imagenet_sparse pool (``SPARSE_POOL``
+   written as ``.npy`` files, 1 seed x 20: kernel 1 once, kernels 2 and 3
+   a round on each rank), ``--prefilter-n 4096`` (1 seed x 10, the
+   factored tier, no kernel) and ``--acq-batch 4`` (1 seed x 10: kernel 1
+   at init and a round, kernel 3 an answer); each rank's decisions and
+   block scores as above (every rank the same picks at q = 4), the
+   fingerprints, the launches, and rank 0's record held ``--against`` the
+   yardstick's (parity, or a near-tie flip within 2.34e-4). It prints ms
+   a round (a label at q = 4), init ms and each rank's peak memory beside
+   the unsharded run's, with the card's name and power limit: gloo on one
+   shared card checks the sharded program, it does not measure NCCL
+   scaling.
 15. the mesh's model axis (H sharded): first kernels 1 and 2, fp32 and
    bf16 caches, at the blocks the ranks below hand them — ``(C, N/a,
    H/b)`` = (10, 50000, 500), (10, 50000, 250), (10, 25000, 500) — each
@@ -319,7 +329,13 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    rank) and held ``--against`` the yardstick's records (parity, or a
    ``tie-break-flip`` within 2.34e-4); each record's bytes and a rank's
    ms a round with the recorder off and on (1 seed and the 5-seed batch)
-   are printed.
+   are printed. CODA's knobs at model=2, recorded: ``sparse:32`` on the
+   pool (1 seed x 20; H/b = 250, kernels 1 and 2 on their scalar path),
+   ``--eig-pbest amortized --multiplier 20`` (1 seed x 10: the gate's
+   verdict each round on every rank the unsharded run's) and
+   ``--acq-batch 4`` (1 seed x 10), each record replayed bitwise on the
+   ranks and held ``--against`` phase 14's yardstick record, with the
+   launches and fingerprints as above.
    Each rank: its data block's decisions, regret
    and scores as phase 14's (a baseline's acquisition weights, sums over
    the models that the model axis adds in another order, within 2.34e-4
@@ -2436,9 +2452,9 @@ REPLAY_PATHS = (
 )
 TAMPER_ROUND = 7
 CKPT_ROUNDS, CKPT_EVERY, CKPT_CUT = 30, 10, 25   # the cut run saves 10, 20
-# runs/real.sqlite's sweep (5 seeds x 100 rounds) cut to 15 rounds, its
-# table read at step 15: the whole smoke must end within its time limit
-SUITE_SEEDS, SUITE_ROUNDS = 5, 15
+# runs/real.sqlite's sweep (5 seeds x 100 rounds) cut to 10 rounds, its
+# table read at step 10: the whole smoke must end within its time limit
+SUITE_SEEDS, SUITE_ROUNDS = 5, 10
 SUBSET = ("digits", "iris", "wine")              # --task-batch subset
 SUBSET_SEEDS, SUBSET_ROUNDS = 2, 30
 CLI_PAIRS = (("digits", "coda"), ("digits", "model_picker"))
@@ -5603,13 +5619,36 @@ def phase_fleet(dev, task, total: dict, smi: str) -> dict:
 
 MESH_D = 2                            # ranks of phase 14 (gloo, one card)
 MESH_ROUNDS = {"main": 20, "batch": 5, "paper": 3, "baselines": 10,
-               "suite": 10, "ckpt_cut": 10, "viz": 10}
+               "suite": 10, "ckpt_cut": 10, "viz": 10,
+               # CODA's knobs: sparse:32 on the imagenet_sparse pool, the
+               # amortized P(best), the prefilter and q = 4 at the headline
+               "sparse": 20, "amort": 10, "prefilter": 10, "q4": 10}
 # digits_h80 (80, 899, 10) cut to its first 898 items: N must split over
 # data=2 for the --debug-viz run at data=2,model=2
 VIZ_TASK, VIZ_N = "digits_h80_n898", 898
 MESH_SUITE_TASKS = "pyfiles,iris"     # N = 500 shards; N = 105 falls back
 MESH_TIMEOUT_S = 420
 MESH_REGRET_TOL = 1e-7
+MESH_PREFILTER_N = 4096     # the prefilter job's subset
+# the knobs' recorded jobs of each mesh phase (the pool's last: a run of
+# jobs on one task reads it once, scripts/torch_mesh_run.loaded_once)
+MESH_KNOBS = ("prefilter_rec", "q4_rec", "sparse_rec")       # data=2
+MODEL_KNOBS = ("amort_rec", "q4_rec", "sparse_rec")          # model=2
+# the model=2 records `cli replay` re-executes on the ranks
+MODEL_REPLAYS = ("main_rec", "batch_rec", "sparse_rec")
+# a knob job's launches on a rank (kernels 1-3 as the one-seed run; no
+# kernel on the prefilter's factored tier; kernel 1 once a round and
+# kernel 3 once an answer at q = 4)
+_KNOB_WANTS = {
+    "sparse_rec": lambda it: {"eig_score": 1,
+                              "eig_refresh_score": it["sparse"],
+                              "row_gather": it["sparse"]},
+    "amort_rec": lambda it: {"eig_score": 1,
+                             "eig_refresh_score": it["amort"],
+                             "row_gather": it["amort"]},
+    "prefilter_rec": lambda it: {},
+    "q4_rec": lambda it: {"eig_score": 1 + it["q4"],
+                          "row_gather": 4 * it["q4"]}}
 
 
 def _mesh_driver():
@@ -5811,6 +5850,114 @@ def _hold_checkpoint(ranks, arrs, smi: str) -> dict:
     return out
 
 
+def _hold_against(rec: str, yard: str, out: str, what: str) -> list:
+    """A mesh record held ``--against`` the unsharded yardstick's record
+    of the same rounds (``cli replay --against``, one process: the mesh
+    knob differs, so the contract is 2.34e-4): parity, or a first
+    divergence that is a near tie (:func:`_triage`'s rule, the q-wide
+    first-pick near tie included)."""
+    from coda_tpu_torch.engine.replay import replay_main
+    from coda_tpu_torch.telemetry.recorder import RunRecord
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = replay_main([rec, "--against", yard, "--out", out])
+    with open(out) as f:
+        rep = json.load(f)
+    if rep["score_tol"] != CONTRACT or rc != (0 if rep["parity"] else 2):
+        raise AssertionError(f"{what}: exit {rc}, tol {rep['score_tol']}")
+    return _triage(RunRecord.load(rec), RunRecord.load(yard), what,
+                   CONTRACT)
+
+
+def _hold_prints(what: str, b: int, jr: list) -> None:
+    """The fingerprints of a job's ranks (``b`` a model group): of the
+    state a model group holds alike, equal across each model group; of
+    the state a data group holds alike, across each data group."""
+    for key, group in (("fingerprint_model", lambda r: r // b),
+                       ("fingerprint", lambda r: r % b)):
+        prints: dict = {}
+        for r, x in enumerate(jr):
+            prints.setdefault(group(r), set()).add(x[key])
+        if any(len(v) != 1 for v in prints.values()):
+            raise AssertionError(f"{what}: {key} differs within a group: "
+                                 f"{prints}")
+
+
+def _hold_knobs(spec: str, b: int, jobs, ranks, arrs, one: dict, tmp: str,
+                out_dir: str, smi: str, total: dict, rounds: dict,
+                cuda: bool) -> dict:
+    """The knobs' recorded jobs on a mesh (``b`` ranks a model group):
+    each rank's decisions and its block's scores as :func:`_mesh_hold`
+    holds them (the one-label jobs), every rank of a q-wide run the same
+    picks; the fingerprints equal within each group; on the card each
+    rank's launches as :data:`_KNOB_WANTS` (added to ``total``); the
+    amortized gate's verdicts on every rank the unsharded run's; rank 0's
+    record held ``--against`` the yardstick's. Prints ms a round (a
+    label at q = 4) and peak memory a rank beside the unsharded run's."""
+    import numpy as np
+
+    n = len(ranks)
+    out = {}
+    for job in jobs:
+        what = f"mesh {spec} {job}"
+        jr = [r["jobs"][job] for r in ranks]
+        yard = _yard(one, job)
+        gaps = [0.0]
+        if job == "q4_rec":
+            for r in range(n):
+                if jr[r]["rc"] != 0 or not np.array_equal(
+                        arrs[r][f"{job}/chosen_idx"],
+                        arrs[0][f"{job}/chosen_idx"]):
+                    raise AssertionError(f"{what}: rank {r} picks differ")
+        else:
+            for r in range(n):
+                gap, flips = _mesh_hold(job, r, jr[r], arrs[r],
+                                        yard["arrays"], block=r // b)
+                gaps.append(gap)
+                if flips:
+                    log(f"{what} rank {r}: tie-break-flips (seed, round, "
+                        f"gap): {flips}")
+        _hold_prints(what, b, jr)
+        if "gates" in yard or any("gates" in x for x in jr):
+            if any(x.get("gates") != yard.get("gates") for x in jr):
+                raise AssertionError(
+                    f"{what}: gate verdicts {[x.get('gates') for x in jr]}"
+                    f" against the unsharded {yard.get('gates')}")
+        if cuda:
+            want = _KNOB_WANTS[job](rounds)
+            for r in range(n):
+                if jr[r]["launches"] != want:
+                    raise AssertionError(f"{what} rank {r} launches "
+                                         f"{jr[r]['launches']}, want {want}")
+                for name, v in jr[r]["launches"].items():
+                    total[name] = total.get(name, 0) + v
+        lines = _hold_against(os.path.join(out_dir, "records", job),
+                              os.path.join(tmp, "one", job),
+                              os.path.join(out_dir, f"against_{job}.json"),
+                              f"{what} against unsharded")
+        per = "ms_per_label" if job == "q4_rec" else "ms_per_round"
+        out[job] = {"one": {k: yard[k] for k in (per, "init_ms",
+                                                 "peak_gb")},
+                    "ranks": [{k: x[k] for k in (per, "init_ms", "peak_gb",
+                                                 "bytes_per_round")}
+                              for x in jr],
+                    "max_score_gap": max(gaps), "against": lines,
+                    "gates": yard.get("gates")}
+        engaged = (f"; gate engaged in {sum(yard['gates'])}/"
+                   f"{len(yard['gates'])} rounds on every rank as unsharded"
+                   if yard.get("gates") else "")
+        log(f"{what}: {per.replace('_per_', '/')} {yard[per]:.3f} "
+            "unsharded, " + ", ".join(f"{x[per]:.3f}" for x in jr)
+            + f" ranks; init ms {yard['init_ms']:.1f} unsharded, "
+            + ", ".join(f"{x['init_ms']:.1f}" for x in jr)
+            + f"; peak GB {yard['peak_gb']:.3f} unsharded, "
+            + ", ".join(f"{x['peak_gb']:.3f}" for x in jr)
+            + f"; launches a rank {jr[0]['launches']}; max score gap "
+            f"{max(gaps):.3e}{engaged}; against unsharded: "
+            + "; ".join(lines) + f" ({smi})")
+    return out
+
+
 def phase_mesh(dev, task, total: dict, smi: str,
                keep: Optional[dict] = None) -> dict:
     """The N-axis mesh (see the module docstring, item 14). Returns the
@@ -5822,13 +5969,17 @@ def phase_mesh(dev, task, total: dict, smi: str,
 
     import torch
 
+    from coda_tpu_torch.data import make_synthetic_task
+
     t_phase = time.perf_counter()
     drv, script = _mesh_driver()
     held = ("main", "batch", "paper") + BASELINES
-    jobs = held + ("suite", "ckpt_cut", "ckpt")
+    jobs = held + ("suite", "ckpt_cut", "ckpt") + MESH_KNOBS
     # the yardstick's CODA runs recorded (phase 15's --against side), and
-    # --debug-viz's unsharded P(best)
-    yard = ("main_rec", "batch_rec", "paper") + BASELINES + ("suite", "viz")
+    # --debug-viz's unsharded P(best); every knob's run recorded (the
+    # --against side of both phases)
+    yard = (("main_rec", "batch_rec", "paper") + BASELINES + ("suite",)
+            + ("prefilter_rec", "q4_rec", "amort_rec", "sparse_rec", "viz"))
     tmp = tempfile.mkdtemp(prefix="mesh_")
     out: dict = {"card": smi}
     cuda = dev.type == "cuda"
@@ -5842,12 +5993,18 @@ def phase_mesh(dev, task, total: dict, smi: str,
     try:
         _task_files(task, tmp)
         _viz_task_file(tmp)
+        Hs, Ns, Cs = SPARSE_POOL
+        pool = make_synthetic_task(seed=5, H=Hs, N=Ns, C=Cs, device=dev)
+        _task_files(pool, tmp)
+        pool_task = pool.name           # the sparse job's task files
+        del pool
         free()
         t0 = time.perf_counter()
         one = drv.run_jobs(yard, tmp, task.name, MESH_ROUNDS, dev, None,
                            os.path.join(HERE, "data"), MESH_SUITE_TASKS,
                            os.path.join(tmp, "one.sqlite"), log=log,
-                           root=os.path.join(tmp, "one"), viz_task=VIZ_TASK)
+                           root=os.path.join(tmp, "one"), viz_task=VIZ_TASK,
+                           pool_task=pool_task, prefilter_n=MESH_PREFILTER_N)
         out["unsharded_s"] = time.perf_counter() - t0
         one_rows = drv.suite_rows(os.path.join(tmp, "one.sqlite"))
         free()
@@ -5855,7 +6012,10 @@ def phase_mesh(dev, task, total: dict, smi: str,
         ranks, arrs = _mesh_ranks(
             script, tmp, task.name, dev, MESH_D,
             _rounds_arg(MESH_ROUNDS) + ["--suite-tasks", MESH_SUITE_TASKS,
-                                        "--jobs", ",".join(jobs)],
+                                        "--jobs", ",".join(jobs),
+                                        "--pool-task", pool_task,
+                                        "--prefilter-n",
+                                        str(MESH_PREFILTER_N)],
             os.path.join(tmp, "ranks"), MESH_TIMEOUT_S)
         out["ranks_s"] = time.perf_counter() - t0
         gaps, flips = {}, {}
@@ -5867,11 +6027,8 @@ def phase_mesh(dev, task, total: dict, smi: str,
             if flips[(job, 0)]:
                 log(f"mesh {job}: tie-break-flips (seed, round, gap to the "
                     f"round's best): {flips[(job, 0)]}")
-            prints = {ranks[r]["jobs"][job]["fingerprint"]
-                      for r in range(MESH_D)}
-            if len(prints) != 1:
-                raise AssertionError(f"mesh {job}: the replicated state "
-                                     f"differs across ranks: {prints}")
+            _hold_prints(f"mesh {job}", 1,
+                         [ranks[r]["jobs"][job] for r in range(MESH_D)])
         if cuda:
             it = MESH_ROUNDS["main"], MESH_ROUNDS["batch"]
             for r in range(MESH_D):
@@ -5907,6 +6064,9 @@ def phase_mesh(dev, task, total: dict, smi: str,
                     ("main", "batch", "ckpt_cut", "ckpt"))
                     for r in range(MESH_D)))
         out["checkpoint"] = _hold_checkpoint(ranks, arrs, smi)
+        out["knobs"] = _hold_knobs("data=2", 1, MESH_KNOBS, ranks, arrs,
+                                   one, tmp, os.path.join(tmp, "ranks"),
+                                   smi, total, MESH_ROUNDS, cuda)
         rows = ranks[0].get("suite_rows") or []
         if [x[:3] for x in rows] != [list(x[:3]) for x in one_rows] or any(
                 abs(a[3] - b[3]) > MESH_REGRET_TOL
@@ -5937,7 +6097,7 @@ def phase_mesh(dev, task, total: dict, smi: str,
                                   for r in range(MESH_D)]}
                   for job in held})
         if keep is not None:
-            keep.update(tmp=tmp, one=one)
+            keep.update(tmp=tmp, one=one, pool_task=pool_task)
     finally:
         if keep is None or "tmp" not in keep:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -5950,12 +6110,14 @@ def phase_mesh(dev, task, total: dict, smi: str,
 
 
 # phase 15: the ranks' (C, N/a, H/b) blocks of the headline cache at
-# model=2, model=4 and data=2,model=2, where kernels 1 and 2 are timed
-MODEL_BLOCKS = ((50_000, 500), (50_000, 250), (25_000, 500))
+# model=2, model=4 and data=2,model=2, and of the imagenet_sparse pool's
+# cache unsharded and at model=2, where kernels 1 and 2 are timed
+MODEL_BLOCKS = ((10, 50_000, 500), (10, 50_000, 250), (10, 25_000, 500),
+                (1000, 256, 500), (1000, 256, 250))
 # (spec, ranks, jobs, rounds): phase 14's rounds, so its unsharded runs
 # are the yardstick (the 4-rank run holds the first 10 of its 20 rounds)
-MODEL_RUNS = (("model=2", 2, ("main", "main_rec", "batch", "batch_rec",
-                             "replay", "paper") + BASELINES,
+MODEL_RUNS = (("model=2", 2, ("main", "main_rec", "batch", "batch_rec")
+               + MODEL_KNOBS + ("replay", "paper") + BASELINES,
                {k: v for k, v in MESH_ROUNDS.items() if k != "suite"}),
               ("data=2,model=2", 4, ("main", "viz"),
                {"main": 10, "viz": MESH_ROUNDS["viz"]}))
@@ -5978,9 +6140,8 @@ def _block_paths(dev, peaks) -> list:
     from coda_tpu_torch.ops import eig_kernels as ek
 
     gen = torch.Generator(device=dev).manual_seed(15)
-    C = HEADLINE[0]
     out = []
-    for n, h in MODEL_BLOCKS:
+    for C, n, h in MODEL_BLOCKS:
         rows, hyp32, pi, pi_xi, hyp_t = random_cache(gen, C, n, h, dev)
         c = torch.tensor(3, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
@@ -5999,7 +6160,7 @@ def _block_paths(dev, peaks) -> list:
                 raise AssertionError(f"{what}: kernels 1/2 differ from the "
                                      f"plain versions by {err} > {tol}")
             width = ek._vec(h, hyp, rows)
-            rec = {"N": n, "H": h, "dtype": str(dtype)[6:],
+            rec = {"C": C, "N": n, "H": h, "dtype": str(dtype)[6:],
                    "path": f"{width}-wide" if width > 1 else "scalar",
                    "k1_ms": time_ms(lambda: ek.eig_scores_cache(
                        rows, hyp, pi, pi_xi)),
@@ -6027,7 +6188,9 @@ def _hold_mesh_records(spec: str, n: int, ranks, tmp: str, out_dir: str,
     records' bytes; each record (rank 0's) re-executed by ``cli replay``
     on the record's ``n`` ranks under ``torchrun`` (the ranks' ``replay``
     job), bitwise: every rank's exit 0, rank 0's report at parity with
-    the bitwise contract; and each held ``--against`` the unsharded
+    the bitwise contract (the knobs' records of :data:`MODEL_REPLAYS`
+    too);
+    and ``main_rec`` and ``batch_rec`` held ``--against`` the unsharded
     yardstick's record of the same rounds: parity, or a
     ``tie-break-flip`` within 2.34e-4 (the ``mesh`` knob differs, so the
     contract is 2.34e-4)."""
@@ -6042,6 +6205,28 @@ def _hold_mesh_records(spec: str, n: int, ranks, tmp: str, out_dir: str,
         log(f"mesh {spec} recorder, {job}: ms/round a rank with it off "
             + ", ".join(f"{x:.3f}" for x in off) + ", on "
             + ", ".join(f"{x:.3f}" for x in on) + f" ({smi})")
+    for job in (j for j in MODEL_REPLAYS if j in MODEL_KNOBS):
+        # a knob's record re-executed bitwise on the ranks (held
+        # --against the yardstick by _hold_knobs)
+        replays = [r["jobs"]["replay"]["records"][job] for r in ranks]
+        with open(os.path.join(out_dir, "records",
+                               f"replay_{job}.json")) as f:
+            rep = json.load(f)
+        if [x["rc"] for x in replays] != [0] * n or not rep["parity"] or \
+                rep["score_tol"] != 0.0 or rep["meta"].get("mesh") != spec:
+            log(replays[0]["stdout"][-4000:])
+            raise AssertionError(
+                f"mesh {spec} {job} replay: exits "
+                f"{[x['rc'] for x in replays]}, parity {rep['parity']}")
+        ms = sum(t["rounds_ms"] for t in rep["meta"]["timings"])
+        out[job] = {"record_bytes": ranks[0]["jobs"][job]["record_bytes"],
+                    "replay_wall_s": max(x["wall_s"] for x in replays),
+                    "replay_ms_per_round": ms / rep["meta"]["run"]["iters"]}
+        log(f"mesh {spec} {job}: record {out[job]['record_bytes']} bytes; "
+            f"cli replay on the {n} ranks bitwise (PARITY, exit 0 on every "
+            f"rank) in {out[job]['replay_wall_s']:.1f} s, "
+            f"{out[job]['replay_ms_per_round']:.3f} ms a round on rank 0 "
+            f"({smi})")
     for job in ("main_rec", "batch_rec"):
         rec = os.path.join(out_dir, "records", job)
         size = ranks[0]["jobs"][job]["record_bytes"]
@@ -6132,12 +6317,15 @@ def phase_mesh_model(dev, task, total: dict, smi: str, peaks,
             ranks, arrs = _mesh_ranks(
                 script, tmp, task.name, dev, n,
                 ["--mesh", spec, "--jobs", ",".join(jobs),
-                 "--viz-task", VIZ_TASK] + _rounds_arg(rounds),
+                 "--viz-task", VIZ_TASK, "--pool-task", kept["pool_task"],
+                 "--prefilter-n", str(MESH_PREFILTER_N),
+                 "--replays", ",".join(MODEL_REPLAYS)]
+                + _rounds_arg(rounds),
                 os.path.join(tmp, spec.replace(",", "_").replace("=", "")),
                 MODEL_TIMEOUT_S)
             run = {"ranks_s": time.perf_counter() - t0, "jobs": {}}
             for job in jobs:
-                if job == "replay":
+                if job == "replay" or job in MODEL_KNOBS:
                     continue
                 if job == "viz":
                     run["viz"] = _hold_viz(ranks, _yard(one, job), spec,
@@ -6154,17 +6342,8 @@ def phase_mesh_model(dev, task, total: dict, smi: str, peaks,
                     if flips:
                         log(f"mesh {spec} {job} rank {r}: tie-break-flips "
                             f"(seed, round, gap): {flips}")
-                for key, group in (("fingerprint_model", lambda r: r // b),
-                                   ("fingerprint", lambda r: r % b)):
-                    prints: dict = {}
-                    for r in range(n):
-                        prints.setdefault(group(r), set()).add(
-                            ranks[r]["jobs"][job][key])
-                    if any(len(v) != 1 for v in prints.values()):
-                        raise AssertionError(
-                            f"mesh {spec} {job}: {key} differs within a "
-                            f"group: {prints}")
                 jr = [ranks[r]["jobs"][job] for r in range(n)]
+                _hold_prints(f"mesh {spec} {job}", b, jr)
                 o = _yard(one, job)
                 run["jobs"][job] = {
                     "one": {k: o[k] for k in ("ms_per_round", "init_ms",
@@ -6203,11 +6382,16 @@ def phase_mesh_model(dev, task, total: dict, smi: str, peaks,
                             str(ranks[r]["jobs"][j]["launches"])
                             for j in kjobs)
                         for r in range(n)))
+            out_dir = os.path.join(tmp, spec.replace(",", "_")
+                                   .replace("=", ""))
             if "main_rec" in jobs:
-                run["records"] = _hold_mesh_records(
-                    spec, n, ranks, tmp, os.path.join(
-                        tmp, spec.replace(",", "_").replace("=", "")),
-                    smi)
+                run["records"] = _hold_mesh_records(spec, n, ranks, tmp,
+                                                    out_dir, smi)
+            knobs = [j for j in jobs if j in MODEL_KNOBS]
+            if knobs:
+                run["knobs"] = _hold_knobs(spec, b, knobs, ranks, arrs, one,
+                                           tmp, out_dir, smi, total, rounds,
+                                           cuda)
             out["runs"][spec] = run
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -45,11 +45,13 @@ H the model axis does not divide the reference's placement error.
 among its knobs and the whole task's digest), which ``cli replay``
 re-executes under ``torchrun`` on as many ranks; ``--checkpoint-dir``
 saves each rank's blocks under ``D/seed_<s>/rank_<r>``; ``--debug-viz``
-replays the labels on every rank and logs from rank 0. ``--acq-batch``
-above 1, a noisy ``--oracle-noise``, ``--eig-scorer surrogate:k``,
-``--posterior sparse:K``, ``--eig-pbest amortized`` and ``--prefilter-n``
-raise ``NotImplementedError`` under a mesh (the next mesh slice), as the
-serve verbs do under ``torchrun``; ``--profile-dir`` traces rank 0.
+replays the labels on every rank and logs from rank 0. ``--posterior
+sparse:K``, ``--eig-pbest amortized``, ``--prefilter-n`` and
+``--acq-batch`` above 1 run on a mesh too (``--acq-batch`` with
+``--checkpoint-dir`` stays refused, as unsharded). A noisy
+``--oracle-noise`` and ``--eig-scorer surrogate:k`` raise
+``NotImplementedError`` under a mesh (the next mesh slice), as the serve
+verbs do under ``torchrun``; ``--profile-dir`` traces rank 0.
 ``--acq-batch Q`` labels Q points a round (``--iters`` counts rounds, so a
 run takes Q x iters labels; the cumulative regret is label-weighted).
 ``--record-dir`` writes a flight-recorder record (schema v4, the
@@ -769,9 +771,9 @@ def quality_main(argv=None):
 
 def check_mesh_flags(args) -> None:
     """The refusal of ``--mesh`` (the next mesh slice) for the path that
-    bypasses the mesh-aware engine: a noisy crowd oracle. The engine
-    refuses ``--acq-batch`` (``engine.loop.check_mesh_run``),
-    ``make_coda`` CODA's knobs."""
+    bypasses the mesh-aware engine: a noisy crowd oracle. ``make_coda``
+    refuses the surrogate scorer under a mesh (``--surrogate-prior pool``
+    needs it)."""
     if not args.mesh:
         return
     cfg = crowd_config(args)

@@ -37,9 +37,9 @@ loss over the model group and the chosen model's loss from its owner
 (``oracle.regret_fn``). Every result is the same on every rank, the
 recorder's :class:`RoundTrace` too (each rank's top k of its block at
 global indices, merged over the data group; the chosen score read on the
-rank that holds the pick; P(best) gathered over the model group).
-``acq_batch`` above 1 raises ``NotImplementedError`` there (the next mesh
-slice).
+rank that holds the pick; P(best) gathered over the model group). A
+q-wide round runs there too: its q answers are read from their owners,
+and the selector's q-wide pair is the mesh's (``selectors/batch.py``).
 """
 
 from __future__ import annotations
@@ -52,14 +52,11 @@ import torch
 
 from coda_tpu_torch import random as trandom
 from coda_tpu_torch.losses import accuracy_loss
-from coda_tpu_torch.ops.masked import entropy2
+from coda_tpu_torch.ops.masked import entropy2, top_k
 from coda_tpu_torch.oracle import regret_fn
 from coda_tpu_torch.oracle import true_losses as compute_true_losses
-from coda_tpu_torch.parallel.collectives import (
-    all_gather_cat,
-    broadcast_from_owner,
-)
-from coda_tpu_torch.parallel.mesh import DATA_AXIS, MESH_NEXT, Mesh
+from coda_tpu_torch.parallel.collectives import broadcast_from_owner
+from coda_tpu_torch.parallel.mesh import Mesh
 from coda_tpu_torch.selectors.batch import resolve_batch_fns
 from coda_tpu_torch.selectors.protocol import Selector
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -106,29 +103,6 @@ class RunTraceAux(NamedTuple):
     prior_key: torch.Tensor   # (2,) consumed by the round-0 best()
 
 
-def _top(scores: torch.Tensor, k: int) -> tuple:
-    """``(values, positions)`` of the ``k`` largest of ``scores`` over the
-    last axis, the lower position first among equal values (the order of
-    ``lax.top_k``): a stable descending sort."""
-    values, order = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return values[..., :k], order[..., :k]
-
-
-def _mesh_top(scores: torch.Tensor, k: int, mesh: Mesh) -> tuple:
-    """:func:`_top` of the unsharded scores from this rank's block
-    ``(..., N/a)``: each rank's top ``min(k, N/a)`` at global indices,
-    joined over the data group in rank order (rank order is index order,
-    so a stable sort of the joined candidates breaks ties across a block
-    boundary as the unsharded sort does), then the top k of those."""
-    n = scores.shape[-1]
-    values, pos = _top(scores, min(k, n))
-    pos = pos + mesh.start(n)
-    values = all_gather_cat(values, mesh, DATA_AXIS, -1)
-    pos = all_gather_cat(pos, mesh, DATA_AXIS, -1)
-    top, order = _top(values, k)
-    return top, pos.gather(-1, order)
-
-
 def _score_digest(res, trace_k: int, mesh: Optional[Mesh] = None) -> tuple:
     """``(topk_idx, topk_score, chosen_score, runner_up_gap)`` of a
     round's select result, over the last axis (a leading replica axis is
@@ -149,11 +123,11 @@ def _score_digest(res, trace_k: int, mesh: Optional[Mesh] = None) -> tuple:
         chosen = prob
     elif mesh is None:
         scores = res.scores.to(torch.float32)
-        topk_score, topk_idx = _top(scores, trace_k)
+        topk_score, topk_idx = top_k(scores, trace_k)
         chosen = scores.gather(-1, idx[..., None])[..., 0]
     else:
         scores = res.scores.to(torch.float32)
-        topk_score, topk_idx = _mesh_top(scores, trace_k, mesh)
+        topk_score, topk_idx = top_k(scores, trace_k, mesh)
         # read on the rank that holds the pick: (S, S) for a replica
         # axis (row i: every replica's score of replica i's pick)
         chosen = broadcast_from_owner(scores.movedim(-1, 0), idx, mesh)
@@ -218,13 +192,6 @@ def answer(labels: torch.Tensor, idx: torch.Tensor,
     return broadcast_from_owner(labels, idx, mesh)
 
 
-def check_mesh_run(mesh: Optional[Mesh], acq_batch: int = 1) -> None:
-    """The engine's refusal under a mesh (the next mesh slice)."""
-    if mesh is not None and acq_batch > 1:
-        raise NotImplementedError(
-            f"acq_batch={acq_batch} under a mesh comes with {MESH_NEXT}")
-
-
 def make_step_fn(selector: Selector, labels: torch.Tensor,
                  model_losses: torch.Tensor, trace_k: int = 0,
                  acq_batch: int = 1, mesh: Optional[Mesh] = None):
@@ -234,13 +201,14 @@ def make_step_fn(selector: Selector, labels: torch.Tensor,
     ``acq_batch = q > 1``, whose ``cum`` adds ``q * regret``);
     ``trace_k > 0`` appends the round's :class:`RoundTrace` (its scores
     read before ``update``, which may rewrite the state in place).
-    ``mesh``: ``labels`` is this rank's block (:func:`answer`)."""
-    check_mesh_run(mesh, acq_batch)
+    ``mesh``: ``labels`` is this rank's block (:func:`answer`); the
+    q-wide pair is the mesh's (:func:`~coda_tpu_torch.selectors.batch.
+    resolve_batch_fns`)."""
     regret_of = regret_fn(model_losses, mesh)
     select, update = selector.select, selector.update
     first = (lambda r: r)
     if acq_batch > 1:
-        select, update = resolve_batch_fns(selector, acq_batch)
+        select, update = resolve_batch_fns(selector, acq_batch, mesh)
         first = _first_pick
 
     def step(state, cum, k):
@@ -499,7 +467,6 @@ def make_batched_experiment_fn(selector_factory: Callable[[torch.Tensor],
 
     ``mesh``: ``preds`` and ``labels`` are this rank's blocks of N, and
     the factory is called as ``selector_factory(preds, mesh=mesh)``."""
-    check_mesh_run(mesh, acq_batch)
 
     def fn(preds, labels, keys):
         sel = (selector_factory(preds) if mesh is None

@@ -27,7 +27,11 @@ from typing import Optional
 import torch
 
 from coda_tpu_torch import random as trandom
-from coda_tpu_torch.parallel.collectives import all_gather_stack, gather_sum
+from coda_tpu_torch.parallel.collectives import (
+    all_gather_cat,
+    all_gather_stack,
+    gather_sum,
+)
 from coda_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 
 # Degree-6 fitted polynomial for log2(m) on the mantissa m in [1, 2),
@@ -66,6 +70,28 @@ def entropy2(p: torch.Tensor, dim: int = -1, floor: float = 1e-12,
     if approx:
         return -(pc * log2_approx(pc)).sum(dim)
     return -(pc * torch.log2(pc)).sum(dim)
+
+
+def top_k(scores: torch.Tensor, k: int, mesh: Optional[Mesh] = None
+          ) -> tuple:
+    """``(values, positions)`` of the ``k`` largest of ``scores`` over the
+    last axis, the lower position first among equal values (the order of
+    ``lax.top_k``): a stable descending sort. With a ``mesh`` the scores
+    are this rank's block of N and the positions global: each rank's top
+    ``min(k, N/a)`` at global indices, joined over the data group in rank
+    order (rank order is index order, so a stable sort of the joined
+    candidates breaks ties across a block boundary as the unsharded sort
+    does), then the top k of those — the same on every rank."""
+    n = scores.shape[-1]
+    values, order = torch.sort(scores, dim=-1, descending=True, stable=True)
+    values, pos = values[..., :min(k, n)], order[..., :min(k, n)]
+    if mesh is None:
+        return values, pos
+    pos = pos + mesh.start(n)
+    values = all_gather_cat(values, mesh, DATA_AXIS, -1)
+    pos = all_gather_cat(pos, mesh, DATA_AXIS, -1)
+    top, order = top_k(values, k)
+    return top, pos.gather(-1, order)
 
 
 def _first_max(parts: torch.Tensor) -> torch.Tensor:

@@ -38,7 +38,11 @@ from coda_tpu_torch.ops.beta import (
     logit_normal_log_cdf,
     logit_normal_log_pdf,
 )
-from coda_tpu_torch.parallel.collectives import all_gather_cat, gather_sum
+from coda_tpu_torch.parallel.collectives import (
+    all_gather_cat,
+    gather_sum,
+    min_over,
+)
 from coda_tpu_torch.parallel.mesh import MODEL_AXIS
 from coda_tpu_torch.utils.checks import debug_check_finite
 
@@ -176,11 +180,7 @@ def _bump_tables(a, b, x, dx, update_weight, mesh=None):
 
     logcdf_u, F_u = tab(a, b + update_weight)     # model predicted != c
     logcdf_b, F_b = tab(a + update_weight, b)     # model predicted c
-    dlogcdf = logcdf_b - logcdf_u
-    if split_h(mesh):
-        logcdf_u = all_gather_cat(logcdf_u, mesh, MODEL_AXIS, -2)
-        dlogcdf = all_gather_cat(dlogcdf, mesh, MODEL_AXIS, -2)
-    return logcdf_u.sum(-2), dlogcdf, F_u, F_b - F_u
+    return _gathered(logcdf_u, logcdf_b - logcdf_u, F_u, F_b - F_u, mesh)
 
 
 @contextlib.contextmanager
@@ -277,11 +277,21 @@ def _pbest_hyp_row(a_t, b_t, eq_t, update_weight: float, num_points: int,
                                   mesh)
 
 
-def _amortized_bump_tables(a, b, x, update_weight):
+def _gathered(logcdf_u, dlogcdf, F_u, dF, mesh):
+    """A table set's ``(S0, dlogcdf, F_u, dF)`` from its per-model tables:
+    under a model axis ``logcdf_u`` and ``dlogcdf`` gathered over the
+    model group first (:func:`_bump_tables`' mesh form)."""
+    if split_h(mesh):
+        logcdf_u = all_gather_cat(logcdf_u, mesh, MODEL_AXIS, -2)
+        dlogcdf = all_gather_cat(dlogcdf, mesh, MODEL_AXIS, -2)
+    return logcdf_u.sum(-2), dlogcdf, F_u, dF
+
+
+def _amortized_bump_tables(a, b, x, update_weight, mesh=None):
     """:func:`_bump_tables` on the logistic-normal closed forms
     (``ops.beta.logit_normal_log_pdf``/``log_cdf``) instead of lgamma grids
     and the cumulative trapezoid: the same eps floor and exponent clamp,
-    the same ``(S0, dlogcdf, F_u, dF)`` contract."""
+    the same ``(S0, dlogcdf, F_u, dF)`` contract, the same mesh form."""
     log_eps = torch.log(torch.tensor(_EPS, dtype=torch.float32,
                                      device=x.device))
 
@@ -294,7 +304,7 @@ def _amortized_bump_tables(a, b, x, update_weight):
 
     logcdf_u, F_u = tab(a, b + update_weight)
     logcdf_b, F_b = tab(a + update_weight, b)
-    return logcdf_u.sum(-2), logcdf_b - logcdf_u, F_u, F_b - F_u
+    return _gathered(logcdf_u, logcdf_b - logcdf_u, F_u, F_b - F_u, mesh)
 
 
 def _pbest_hyp_row_amortized(a_t, b_t, eq_t, update_weight: float,
@@ -307,26 +317,42 @@ def _pbest_hyp_row_amortized(a_t, b_t, eq_t, update_weight: float,
     return _pbest_hyp_from_tables(tables, eq_t, w_trapz, precision)
 
 
+def amortized_gate(a_t: torch.Tensor, b_t: torch.Tensor, min_conc: float,
+                   mesh=None) -> torch.Tensor:
+    """Whether the amortized tables serve a class row: ``min_h(a + b) >=
+    min_conc`` over its ``(..., H)`` Beta parameters, a bool ``(...)``.
+    ``mesh``: H is this rank's block; the minimum crosses the model group
+    (exact), so every rank of a group takes the same branch."""
+    conc = (a_t + b_t).amin(-1)
+    if split_h(mesh):
+        conc = min_over(conc, mesh, MODEL_AXIS)
+    return conc >= min_conc
+
+
 def _pbest_hyp_row_gated(a_t, b_t, eq_t, update_weight: float,
                          num_points: int, min_conc: float,
-                         precision: str = "highest"):
+                         precision: str = "highest", mesh=None):
     """The ``eig_pbest='amortized'`` row refresh: the amortized tables
     where the row's ``min_h(a + b) >= min_conc``, the quadrature's
     elsewhere — the reference's ``lax.cond`` taken on the device. Both
     table sets are O(H·G); the choice is made per element before the
     shared integral body runs once, so each replica's result is bitwise
-    the branch its gate names and nothing waits on the host."""
+    the branch its gate names and nothing waits on the host. ``mesh`` (a
+    model axis): ``a_t``, ``b_t`` this rank's models, ``eq_t`` every
+    model's; both table sets are gathered (:func:`_bump_tables`), the gate
+    is the model group's (:func:`amortized_gate`)."""
     x = pbest_grid(num_points, a_t.device)
     dx = x[1] - x[0]
-    quad = _bump_tables(a_t, b_t, x, dx, update_weight)
-    amort = _amortized_bump_tables(a_t, b_t, x, update_weight)
-    gate = (a_t + b_t).amin(-1) >= min_conc                     # (...)
+    quad = _bump_tables(a_t, b_t, x, dx, update_weight, mesh)
+    amort = _amortized_bump_tables(a_t, b_t, x, update_weight, mesh)
+    gate = amortized_gate(a_t, b_t, min_conc, mesh)             # (...)
     tables = tuple(
         torch.where(gate.reshape(gate.shape + (1,) * (q.dim() - gate.dim())),
                     am, q)
         for q, am in zip(quad, amort))
     return _pbest_hyp_from_tables(tables, eq_t,
-                                  _trapz_weights(num_points, dx), precision)
+                                  _trapz_weights(num_points, dx), precision,
+                                  mesh=mesh)
 
 
 def compute_pbest_rows(aT: torch.Tensor, bT: torch.Tensor,

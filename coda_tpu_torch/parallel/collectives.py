@@ -88,6 +88,31 @@ def gather_sum(t: torch.Tensor, mesh: Mesh,
     return acc
 
 
+def local_positions(idx: torch.Tensor, n: int, mesh: Mesh,
+                    axis: str = DATA_AXIS) -> torch.Tensor:
+    """Global indices ``idx`` as positions in this rank's block of ``n``
+    along ``axis``, clamped into it (an index another rank holds reads a
+    row this rank has, which :func:`from_owner` then discards)."""
+    return torch.clamp(idx.to(torch.int64) - n * mesh.axis_index(axis), 0,
+                       n - 1)
+
+
+def from_owner(rows: torch.Tensor, idx: torch.Tensor, n: int, mesh: Mesh,
+               axis: str = DATA_AXIS) -> torch.Tensor:
+    """The owner's ``rows``: ``rows`` (``(*idx.shape, *rest)``) is what
+    this rank read at :func:`local_positions` of ``idx`` over its block of
+    ``n``; each entry is replaced by the row the rank holding ``idx``
+    read, on the device (one ``all_gather`` along ``axis``)."""
+    if mesh.axis_size(axis) == 1:
+        return rows
+    idx = idx.to(torch.int64)
+    rest = rows.shape[idx.dim():]
+    parts = all_gather_stack(rows, mesh, axis)          # (k, *idx, *rest)
+    owner = torch.div(idx, n, rounding_mode="floor")   # the holding rank
+    pick = owner.reshape((1,) + idx.shape + (1,) * len(rest))
+    return parts.gather(0, pick.expand((1,) + idx.shape + rest))[0]
+
+
 def broadcast_from_owner(local: torch.Tensor, idx: torch.Tensor,
                          mesh: Mesh, dim: int = 0,
                          axis: str = DATA_AXIS) -> torch.Tensor:
@@ -98,18 +123,11 @@ def broadcast_from_owner(local: torch.Tensor, idx: torch.Tensor,
     moved to the front (``(*idx.shape, *rest)``). No host
     synchronisation: every rank sends its (clamped) rows, and each takes
     the owner's part on the device."""
-    idx = idx.to(torch.int64)
     n = local.shape[dim]
-    loc = torch.clamp(idx - n * mesh.axis_index(axis), 0, n - 1)
+    loc = local_positions(idx, n, mesh, axis)
     rows = torch.movedim(local.index_select(dim, loc.reshape(-1)), dim, 0)
-    rest = rows.shape[1:]
-    rows = rows.reshape(idx.shape + rest)
-    if mesh.axis_size(axis) == 1:
-        return rows
-    parts = all_gather_stack(rows, mesh, axis)          # (k, *idx, *rest)
-    owner = torch.div(idx, n, rounding_mode="floor")   # the holding rank
-    pick = owner.reshape((1,) + idx.shape + (1,) * len(rest))
-    return parts.gather(0, pick.expand((1,) + idx.shape + rest))[0]
+    rows = rows.reshape(idx.shape + rows.shape[1:])
+    return from_owner(rows, idx, n, mesh, axis)
 
 
 def any_over(flag: torch.Tensor, mesh: Optional[Mesh],

@@ -16,17 +16,28 @@ module resolves the q-wide pair the engine drives instead of
     applies ``update`` q times in order.
 
 ``q == 1`` never comes here: the engine runs the one-label round.
+
+Under a mesh (``mesh=``, ``parallel/mesh.py``) the generic re-rank runs on
+this rank's block of the score vector: each pick is the mesh arg-max over
+every block, its score read on the rank that holds it, and only that rank
+marks it picked; the picks are global and the same on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from coda_tpu_torch import random as trandom
 from coda_tpu_torch.ops.masked import masked_argmax_tiebreak
+from coda_tpu_torch.parallel.collectives import (
+    any_over,
+    broadcast_from_owner,
+    clear_items,
+)
+from coda_tpu_torch.parallel.mesh import Mesh
 from coda_tpu_torch.selectors.protocol import Selector, SelectResult
 
 # the tie tolerance of the generic re-rank's picks 2..q: CODA's argmax
@@ -39,14 +50,17 @@ _TIE_ATOL = 1e-8
 _FOLD = 0x6ba7c9
 
 
-def generic_select_q(selector: Selector, q: int) -> Callable:
+def generic_select_q(selector: Selector, q: int,
+                     mesh: Optional[Mesh] = None) -> Callable:
     """Greedy top-q over the selector's own score vector, one scoring
     pass: pick 1 is the method's ``select`` (its key, its tie-break or
     sampling); picks 2..q are masked argmaxes over the same scores with
     the picked points removed, each tie broken by its own key of
     ``split(fold_in(key, 0x6ba7c9), q - 1)``. When the finite-score
     candidates run out, later picks fall back to the unlabeled points
-    (scored -inf): the picks are always distinct."""
+    (scored -inf): the picks are always distinct. ``mesh``: the scores
+    and the unlabeled mask are this rank's block (see the module
+    docstring)."""
     if q < 2:
         raise ValueError("generic_select_q is the q >= 2 path")
 
@@ -59,22 +73,26 @@ def generic_select_q(selector: Selector, q: int) -> Callable:
                 "--acq-batch > 1 needs one (SelectResult.scores) for the "
                 "greedy top-q re-rank")
         N = scores.shape[-1]
-        picked = torch.zeros(N, dtype=torch.bool, device=scores.device)
-        picked.index_fill_(0, res.idx.reshape(1).to(torch.int64), True)
+        # every point unpicked, then the pick cleared (on its owner)
+        unpicked = torch.ones(N, dtype=torch.bool, device=scores.device)
+        clear_items(unpicked, res.idx.reshape(1), mesh)
         keys = trandom.split(trandom.fold_in(key, _FOLD), q - 1)
         finite = torch.isfinite(scores)
         any_tie = torch.zeros((), dtype=torch.bool, device=scores.device)
         idxs, probs = [res.idx.to(torch.int64)], [res.prob.to(torch.float32)]
         for t in range(q - 1):
-            avail = finite & ~picked
-            cand = torch.where(avail.any(), avail, state.unlabeled & ~picked)
+            avail = finite & unpicked
+            cand = torch.where(any_over(avail.any(), mesh), avail,
+                               state.unlabeled & unpicked)
             idx_t, n_ties = masked_argmax_tiebreak(
                 keys[t], torch.where(avail, scores, float("-inf")), cand,
-                rtol=_TIE_RTOL, atol=_TIE_ATOL)
-            picked.index_fill_(0, idx_t.reshape(1), True)
+                rtol=_TIE_RTOL, atol=_TIE_ATOL, mesh=mesh)
+            clear_items(unpicked, idx_t.reshape(1), mesh)
             any_tie = any_tie | (n_ties > 1)
             idxs.append(idx_t)
-            probs.append(scores.take(idx_t).to(torch.float32))
+            probs.append((scores.take(idx_t) if mesh is None
+                          else broadcast_from_owner(scores, idx_t, mesh))
+                         .to(torch.float32))
         return SelectResult(idx=torch.stack(idxs), prob=torch.stack(probs),
                             stochastic=res.stochastic | any_tie,
                             scores=scores)
@@ -115,10 +133,12 @@ def generic_update_qw(selector: Selector) -> Callable:
     return update_qw
 
 
-def resolve_batch_fns(selector: Selector, q: int):
+def resolve_batch_fns(selector: Selector, q: int,
+                      mesh: Optional[Mesh] = None):
     """``(select_q(state, key), update_q(state, idxs, tcs, probs))`` for a
     batch width ``q >= 2``: the selector's own where it has them, the
-    generic forms otherwise."""
+    generic forms otherwise (``mesh``: the selector's, for the generic
+    re-rank)."""
     if q < 2:
         raise ValueError(f"acq_batch={q}: the batched pair is the q >= 2 "
                          "path (q == 1 runs the one-label round)")
@@ -126,7 +146,7 @@ def resolve_batch_fns(selector: Selector, q: int):
         def sel_q(state, key, _f=selector.select_q):
             return _f(state, key, q)
     else:
-        sel_q = generic_select_q(selector, q)
+        sel_q = generic_select_q(selector, q, mesh)
     upd_q = (selector.update_q if selector.update_q is not None
              else generic_update_q(selector.update))
     return sel_q, upd_q

@@ -92,10 +92,18 @@ hypothetical rows' exclusive product; ``get_pbest`` gathers its ``(H,)``
 vector. State with an H axis (the Dirichlets, the P(best) rows, the
 cache) is the rank's block, bitwise equal across its data group; pi-hat,
 the scores and the picks are bitwise equal across its model group.
-Indices are global. The q-wide round, the surrogate scorer, the sparse
-posterior, the amortized P(best) and the prefilter raise
-``NotImplementedError`` under a mesh (the next mesh slice); the fused
-refresh keeps the reference's refusal.
+Indices are global. The knobs run per block too: the sparse posterior
+(each rank's rows of its models: no collective), the amortized P(best)
+(both table sets gathered over the model group, the gate's minimum
+crossing it, so a group takes one branch), the prefilter (the uniforms
+drawn at global positions, the subset the top K over every block, each
+subset item scored on the rank that holds it and the K scores gathered
+from their owners) and the q-wide round (the overlap re-rank's pool the
+top M over every block, each pool item's pi-hat row and cache rows from
+its owner, the |dP(best)| profile's norm and overlap summed over the
+model group). The surrogate scorer raises ``NotImplementedError`` under a
+mesh (the next mesh slice); the fused refresh keeps the reference's
+refusal.
 """
 
 from __future__ import annotations
@@ -144,6 +152,7 @@ from coda_tpu_torch.ops.masked import (
     entropy2,
     masked_argmax_tiebreak,
     mesh_masked_argmax_tiebreak,
+    top_k,
 )
 from coda_tpu_torch.ops.pbest import (
     _bump_tables,
@@ -176,7 +185,9 @@ from coda_tpu_torch.parallel.collectives import (
     broadcast_from_owner,
     clear_items,
     count_over,
+    from_owner,
     gather_sum,
+    local_positions,
 )
 from coda_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -294,8 +305,7 @@ def _unsupported(knob: str, value, where: str):
 
 
 # the knobs the mesh's next slice brings: (field, its off value)
-_MESH_REFUSED = (("eig_scorer", "exact"), ("posterior", "dense"),
-                 ("eig_pbest", "quad"), ("prefilter_n", 0))
+_MESH_REFUSED = (("eig_scorer", "exact"),)
 
 
 def resolve_pi_update(hp: CODAHyperparams, N: Optional[int] = None) -> str:
@@ -891,7 +901,7 @@ def update_eig_cache_parts(dirichlets: Optional[torch.Tensor],
     if pbest == "amortized":
         hyp_t = _pbest_hyp_row_gated(a_t, b_t, eq_t, update_weight,
                                      num_points, _AMORTIZED_MIN_CONC,
-                                     precision)
+                                     precision, mesh)
         if out is not None:
             hyp_t = out.copy_(hyp_t)
     else:
@@ -947,7 +957,8 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
     gather layout — are built once here. ``init``/``select``/``update``/
     ``best`` keep everything on the device, and read nothing back to the
     host but one flag a round under ``prefilter_n`` (the reference's
-    ``lax.cond`` between the prefiltered and the full pool). So does the
+    ``lax.cond`` between the prefiltered and the full pool; under a mesh
+    also the count of the subset's items a rank holds). So does the
     seed-batched form, ``Selector.batched`` (None for the fused refresh and
     the surrogate scorer). The surrogate scorer reads at most two flags a
     round (its warmup counter, then its gate's verdict).
@@ -1128,33 +1139,70 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
                                              rtol=_TIE_RTOL, atol=_TIE_ATOL)
         return idx, n_ties, scores.gather(-1, idx[..., None])[..., 0]
 
+    def _draw(cand, k_sub):
+        """The prefilter's masked uniforms (-1 off the candidates): the
+        reference's ``uniform(k_sub, (N,))``, under a mesh this rank's
+        slice of it (drawn at the items' global positions)."""
+        start = mesh.start(N) if mesh is not None else 0
+        u = trandom.uniform(k_sub, (N,), device=dev, start=start,
+                            total=n_global)
+        return torch.where(cand, u, -1.0)
+
+    def _subset_scores(state: CODAState, cand_idx):
+        """The tier's scores of the subset ``cand_idx`` (global, ``(...,
+        K)``). Under a mesh each rank scores the subset items it holds
+        (its pi-hat rows, every model's predictions, the model group's
+        sum; one host read of their count) and the K scores reach every
+        rank from their owners; a replica axis one replica at a time."""
+        K = cand_idx.shape[-1]
+        chunk = min(hp.eig_chunk, K)
+        if mesh is None:
+            pi_xi_sub = state.pi_hat_xi.gather(
+                -2, cand_idx[..., None].expand(*cand_idx.shape, C))
+            return _tier_scores(state, pi_xi_sub, hard_preds[cand_idx],
+                                chunk)
+        if cand_idx.dim() == 2:
+            return torch.stack([_subset_scores(
+                state._replace(dirichlets=state.dirichlets[s],
+                               pi_hat=state.pi_hat[s],
+                               pi_hat_xi=state.pi_hat_xi[s]), ci)
+                for s, ci in enumerate(cand_idx)])
+        start = mesh.start(N)
+        owned = (cand_idx >= start) & (cand_idx < start + N)
+        mine = cand_idx[owned] - start
+        part = torch.zeros(K, dtype=torch.float32, device=dev)
+        if mine.numel():
+            part.masked_scatter_(owned, _tier_scores(
+                state, state.pi_hat_xi[mine], hard_all[mine], chunk))
+        return from_owner(part, cand_idx, N, mesh)
+
     def _eig_select_prefiltered(state: CODAState, cand, k_sub, k_tie
                          ) -> SelectResult:
         """EIG on ``prefilter_n`` candidates drawn uniformly (the top of
         masked uniforms, lower index first among equal values as
-        ``lax.top_k``); with fewer candidates the masked slots are excluded
-        again at argmax time."""
+        ``lax.top_k``; under a mesh over every block); with fewer
+        candidates the masked slots are excluded again at argmax time."""
         K = hp.prefilter_n
-        u = torch.where(cand, trandom.uniform(k_sub, (N,), device=dev), -1.0)
-        cand_idx = torch.sort(u, dim=-1, descending=True,
-                              stable=True).indices[..., :K]      # (..., K)
-        valid = u.gather(-1, cand_idx) >= 0.0
-        pi_xi_sub = state.pi_hat_xi.gather(
-            -2, cand_idx[..., None].expand(*cand_idx.shape, C))
-        scores_sub = _tier_scores(state, pi_xi_sub, hard_preds[cand_idx],
-                                  min(hp.eig_chunk, K))
+        u_top, cand_idx = top_k(_draw(cand, k_sub), K, mesh)   # (..., K)
+        valid = u_top >= 0.0
+        scores_sub = _subset_scores(state, cand_idx)
         local, n_ties = masked_argmax_tiebreak(
             k_tie, scores_sub, valid, rtol=_TIE_RTOL, atol=_TIE_ATOL)
-        subsampled = cand.sum(-1) > K
-        # the subset's scores back at full N for the flight recorder
-        scores_full = torch.full(cand.shape, float("-inf"), device=dev)
-        scores_full.scatter_(-1, cand_idx, torch.where(valid, scores_sub,
-                                                       float("-inf")))
+        subsampled = count_over(cand, mesh) > K
+        # the subset's scores back at this rank's N for the flight
+        # recorder (another rank's items into a dropped last slot)
+        start = mesh.start(N) if mesh is not None else 0
+        owned = (cand_idx >= start) & (cand_idx < start + N)
+        pos = torch.where(owned, cand_idx - start, N)
+        scores_full = torch.full(cand.shape[:-1] + (N + 1,), float("-inf"),
+                                 device=dev)
+        scores_full.scatter_(-1, pos, torch.where(valid, scores_sub,
+                                                  float("-inf")))
         return SelectResult(
             idx=cand_idx.gather(-1, local[..., None])[..., 0],
             prob=scores_sub.gather(-1, local[..., None])[..., 0],
             stochastic=(n_ties > 1) | subsampled,
-            scores=scores_full)
+            scores=scores_full[..., :N])
 
     def _candidates(unlabeled):
         """``(candidate mask, may_subsample)``. Reference order: the
@@ -1185,12 +1233,12 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         # the ablation acquisitions subsample the mask before scoring, so
         # the iid probability is 1/|pool| of the subsampled pool
         subsampled = torch.zeros_like(may_subsample)
-        if hp.prefilter_n and hp.prefilter_n < N:
+        if hp.prefilter_n and hp.prefilter_n < n_global:
             K = hp.prefilter_n
-            u = torch.where(cand, trandom.uniform(k_sub, (N,), device=dev),
-                            -1.0)
-            kth = torch.sort(u, dim=-1).values[..., N - K]
-            take = may_subsample & (cand.sum(-1) > K)
+            u = _draw(cand, k_sub)
+            # the K-th largest draw over every block
+            kth = top_k(u, K, mesh)[0][..., K - 1]
+            take = may_subsample & (count_over(cand, mesh) > K)
             cand = torch.where(take[..., None], cand & (u >= kth[..., None]),
                                cand)
             subsampled = take
@@ -1218,32 +1266,51 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         labels read from the cache — and after each pick every remaining
         score is scaled by ``1 - (max cosine overlap with the picks)``.
         ``lax.top_k`` is a stable descending sort; the features are
-        normalised by device-tensor divisions."""
-        M = min(N, max(32, 8 * q))
+        normalised by device-tensor divisions.
+
+        Under a mesh the pool is the top M over every block
+        (:func:`~coda_tpu_torch.ops.masked.top_k`), each pool item's
+        pi-hat row, unlabeled flag and cache rows come from the rank that
+        holds it, and the profile (this rank's models) has its norm and
+        its half of each overlap summed over the model group; the re-rank
+        then runs alike on every rank."""
+        M = min(n_global, max(32, 8 * q))
         inf = float("-inf")
         # candidates by score; unlabeled non-candidates at a finite floor,
         # so a candidate set smaller than q falls back to unlabeled points
         pool_scores = torch.where(cand, scores,
                                   torch.where(unlabeled, -1e30, inf))
-        top_scores, pool = sg._top(pool_scores, M)
+        top_scores, pool = top_k(pool_scores, M, mesh)
         valid = top_scores > -1e29
-        pi_xi_p = pi_xi.index_select(0, pool)                       # (M, C)
+        pi_xi_p = _item_rows(pi_xi, pool)                           # (M, C)
         U = pi_xi_p / torch.clamp_min(
             torch.linalg.vector_norm(pi_xi_p, dim=1, keepdim=True), 1e-12)
         feats = [U]
+        split = incremental and split_h(mesh)
         if incremental:
             kc = min(8, C)
-            wv, ci = sg._top(pi_xi_p * pi[None, :], kc)             # (M, kc)
-            hyp_sel = hyp[ci, pool[:, None]].to(torch.float32)      # (M,kc,H)
-            E = (wv[:, :, None] * torch.abs(hyp_sel - rows[ci])).sum(1)
-            feats.append(E / torch.clamp_min(
-                torch.linalg.vector_norm(E, dim=1, keepdim=True), 1e-12))
+            wv, ci = top_k(pi_xi_p * pi[None, :], kc)               # (M, kc)
+            E = (wv[:, :, None] * torch.abs(
+                _cache_rows(hyp, ci, pool) - rows[ci])).sum(1)      # (M, H)
+            e_norm = (torch.sqrt(sum_h((E * E).sum(1, keepdim=True), mesh))
+                      if split else
+                      torch.linalg.vector_norm(E, dim=1, keepdim=True))
+            feats.append(E / torch.clamp_min(e_norm, 1e-12))
         # a device-tensor divisor: one IEEE division on every device
         Fm = _even_share(torch.cat(feats, 1), math.sqrt(len(feats)))
+
+        def overlap_with(loc):
+            if not split:
+                return Fm @ Fm[loc]
+            # the pi-hat half alike on every rank, the profile's over the
+            # model group
+            return Fm[:, :C] @ Fm[loc, :C] + sum_h(Fm[:, C:] @ Fm[loc, C:],
+                                                   mesh)
+
         keys = trandom.split(k_tie, q)
         pen = torch.zeros(M, dtype=torch.float32, device=dev)
         taken = torch.zeros(M, dtype=torch.bool, device=dev)
-        fb_base = unlabeled.index_select(0, pool)
+        fb_base = _item_rows(unlabeled, pool)
         locs, ties = [], []
         for t in range(q):
             eff = top_scores * (1.0 - pen)
@@ -1252,7 +1319,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
             loc, n_ties = masked_argmax_tiebreak(
                 keys[t], torch.where(avail, eff, inf), use,
                 rtol=_TIE_RTOL, atol=_TIE_ATOL)
-            overlap = torch.clamp(Fm @ Fm[loc], 0.0, 1.0)
+            overlap = torch.clamp(overlap_with(loc), 0.0, 1.0)
             pen = torch.maximum(pen, overlap)
             taken.index_fill_(0, loc.reshape(1), True)
             locs.append(loc)
@@ -1264,6 +1331,22 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
                              top_scores.index_select(0, locs), inf),
             stochastic=torch.stack(ties).any(),
             scores=torch.where(cand, scores, inf))
+
+    def _item_rows(t, idx):
+        """Rows ``idx`` (global) of an ``(N, ...)`` tensor over the items;
+        under a mesh read on the ranks that hold them."""
+        if mesh is not None:
+            return broadcast_from_owner(t, idx, mesh)
+        return t.index_select(0, idx)
+
+    def _cache_rows(hyp, ci, pool):
+        """``(M, kc, H)`` fp32 cache entries ``hyp[ci[m, k], pool[m]]`` of
+        this rank's models; under a mesh read on the rank holding each
+        pool item."""
+        if mesh is None:
+            return hyp[ci, pool[:, None]].to(torch.float32)
+        got = hyp[ci, local_positions(pool, N, mesh)[:, None]]
+        return from_owner(got.to(torch.float32), pool, N, mesh)
 
     def _round_scores(state: CODAState):
         """The round's full-pool scores: the incremental tier's cached
@@ -1487,10 +1570,10 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         for j0 in range(0, classes.shape[0], step):
             cs = classes[j0:j0 + step]
             rows_t, hyps_t = update_eig_cache_parts(
-                state.dirichlets, cs, hard_preds, num_points=hp.num_points,
+                state.dirichlets, cs, hard_all, num_points=hp.num_points,
                 precision=precision,
                 beta_t=(a_t[j0:j0 + step], b_t[j0:j0 + step]),
-                pbest=hp.eig_pbest)
+                pbest=hp.eig_pbest, mesh=mesh)
             for j in range(cs.shape[0]):
                 _write_row(state, cs[j], rows_t[j], hyps_t[j])
         return a_t, b_t
@@ -1512,7 +1595,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
                       None if ws is None else ws[j])
         clear_items(state.unlabeled, idxs, mesh)
         if not incremental:
-            pi_xi, pi = update_pi_hat(state.dirichlets, preds)
+            pi_xi, pi = update_pi_hat(state.dirichlets, preds, mesh)
             return state._replace(pi_hat_xi=pi_xi, pi_hat=pi)
         for j in range(q):
             if pi_update == "delta":
@@ -1520,7 +1603,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
                            None if ws is None else ws[j])
             else:
                 _exact_col(state, tcs[j])
-        pi_xi, pi = _normalize_pi(state.pi_xi_unnorm)
+        pi_xi, pi = _normalize_pi(state.pi_xi_unnorm, mesh)
         a_t, b_t = _refresh_rows(state, tcs)
         fit = state.surrogate
         if scorer_k is not None:

@@ -229,19 +229,23 @@ def make_modelpicker(preds: torch.Tensor, epsilon: float = DEFAULT_EPS,
     def select_q(state: ModelPickerState, key, q: int) -> SelectResult:
         """Argmin top-q: the q lowest expected entropies of one scoring
         pass, pick t breaking its ties with key t of ``split(key, q)``; a
-        candidate set smaller than q falls back to any unlabeled point."""
-        ent = expected_entropies(hard_preds, state.posterior, gamma, C)
+        candidate set smaller than q falls back to any unlabeled point.
+        ``mesh``: each pick the mesh arg-min, cleared on its owner."""
+        ent = expected_entropies(hard_preds, state.posterior, gamma, C,
+                                 mesh)
         cand0 = disagree & state.unlabeled
-        cand = torch.where(cand0.any(), cand0, state.unlabeled)
-        prob = 1.0 / state.unlabeled.sum().to(torch.float32)
+        cand = torch.where(any_over(cand0.any(), mesh), cand0,
+                           state.unlabeled)
+        prob = 1.0 / count_over(state.unlabeled, mesh).to(torch.float32)
         keys = trandom.split(key, q)
-        taken = torch.zeros(N, dtype=torch.bool, device=dev)
+        unpicked = torch.ones(N, dtype=torch.bool, device=dev)
         idxs = []
         for t in range(q):
-            avail = cand & ~taken
-            use = torch.where(avail.any(), avail, state.unlabeled & ~taken)
-            idx_t, _ = masked_argmin_tiebreak(keys[t], ent, use)
-            taken.index_fill_(0, idx_t.reshape(1), True)
+            avail = cand & unpicked
+            use = torch.where(any_over(avail.any(), mesh), avail,
+                              state.unlabeled & unpicked)
+            idx_t, _ = masked_argmin_tiebreak(keys[t], ent, use, mesh=mesh)
+            clear_items(unpicked, idx_t.reshape(1), mesh)
             idxs.append(idx_t)
         return SelectResult(
             idx=torch.stack(idxs), prob=prob.expand(q).clone(),
@@ -251,17 +255,22 @@ def make_modelpicker(preds: torch.Tensor, epsilon: float = DEFAULT_EPS,
     def update_q(state: ModelPickerState, idxs, true_classes, probs=None
                  ) -> ModelPickerState:
         """One multiplicative update for all q answers: the posterior
-        moves by ``gamma^(sum of agreements)`` and is normalised once."""
+        moves by ``gamma^(sum of agreements)`` and is normalised once
+        (``mesh``: the answers' predictions from their owners, the norm
+        over the model group)."""
         del probs
-        pred_q = hard_preds.index_select(0, idxs.to(torch.int64))  # (q, H)
+        if mesh is not None:
+            pred_q = broadcast_from_owner(hard_preds, idxs, mesh)  # (q, H)
+        else:
+            pred_q = hard_preds.index_select(0, idxs.to(torch.int64))
         agree = (pred_q == true_classes.to(torch.int32)[:, None]).to(
             torch.float32)
         a_sum = agree.sum(0)                                       # (H,)
         post = state.posterior * torch.pow(gamma32, a_sum)
         state.correct_counts.add_(a_sum.to(torch.int32))
-        state.unlabeled.index_fill_(0, idxs.to(torch.int64), False)
+        clear_items(state.unlabeled, idxs, mesh)
         state.n_labeled.add_(idxs.shape[0])
-        return state._replace(posterior=post / post.sum())
+        return state._replace(posterior=post / sum_h(post.sum(), mesh))
 
     def best(state: ModelPickerState, key):
         k_tie, k_rand = trandom.split(key)

@@ -46,7 +46,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from coda_tpu_torch.ops.masked import entropy2
+from coda_tpu_torch.ops.masked import entropy2, top_k
 from coda_tpu_torch.ops.sparse_rows import _even_share as _div
 
 #: feature width of the ridge regressor (see :func:`build_features`)
@@ -186,13 +186,6 @@ def refresh_class_feats(fit: SurrogateFit, true_classes: torch.Tensor,
     return fit
 
 
-def _top(x: torch.Tensor, k: int):
-    """``lax.top_k``: the k largest along the last axis, the lower index
-    first among equal values (a stable descending sort)."""
-    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
-    return v[..., :k], i[..., :k]
-
-
 def build_features(prev_scores: torch.Tensor,   # (N,) last round's
                    pi_hat_xi: torch.Tensor,     # (N, C)
                    pi_hat: torch.Tensor,        # (C,)
@@ -214,7 +207,7 @@ def build_features(prev_scores: torch.Tensor,   # (N,) last round's
     dev = pi_hat_xi.device
     prev = prev_scores.to(torch.float32)
     finite_prev = torch.where(torch.isfinite(prev), prev, 0.0)
-    top2 = _top(pi_hat_xi, min(2, C))[0]
+    top2 = top_k(pi_hat_xi, min(2, C))[0]
     p_max, p_2nd = top2[:, 0], top2[:, -1]
     p_ent = entropy2(pi_hat_xi, -1)
     p_coll = (pi_hat_xi * pi_hat_xi).sum(-1)
@@ -224,7 +217,7 @@ def build_features(prev_scores: torch.Tensor,   # (N,) last round's
     eq_t = _div(eq.to(torch.float32).sum((1, 2)), eq.shape[1] * eq.shape[2])
     conc = pi_hat_xi @ cls_feats                                  # (N, 3)
     kc = min(SURROGATE_FEATURE_KC, C)
-    wv, ci = _top(pi_hat_xi * pi_hat[None, :], kc)               # (N, kc)
+    wv, ci = top_k(pi_hat_xi * pi_hat[None, :], kc)               # (N, kc)
     mix = (pi_hat[:, None] * pbest_rows).sum(0)                  # (H,)
     mix = mix / torch.clamp_min(mix.sum(), 1e-12)
     cols = {k: torch.empty(N, dtype=torch.float32, device=dev)
@@ -330,7 +323,7 @@ def measure_gate(pred: torch.Tensor, exact_sel: torch.Tensor,
     audit_outrank = (audit_valid
                      & (audit_exact > floor + SURROGATE_SCORE_TOL)).any()
     r = min(SURROGATE_GATE_TOPR, k)
-    top_exact, top_loc = _top(torch.where(short_valid, short_exact, -inf), r)
+    top_exact, top_loc = top_k(torch.where(short_valid, short_exact, -inf), r)
     pred_at = pred[short_sel[top_loc]]
     delta = torch.where(torch.isfinite(top_exact),
                         torch.abs(pred_at - top_exact), 0.0).amax()
@@ -347,7 +340,7 @@ def propose_shortlist(fit: SurrogateFit, feats: torch.Tensor,
     N = feats.shape[0]
     k = max(1, min(k, N))
     pred = predict(fit, feats)
-    _, short = _top(torch.where(cand, pred, float("-inf")), k)
+    _, short = top_k(torch.where(cand, pred, float("-inf")), k)
     sel = torch.cat([short, audit_rows(fit, N)])
     exact_sel = exact_rows_fn(sel)
     refreshed = torch.zeros(N, dtype=torch.bool, device=feats.device)

@@ -15,7 +15,8 @@ memory. One process a rank::
 with the selector factory wrapped to keep each round's score vector and
 the final state, and the experiment timed (``run_seeds_compiled``'s
 ``timings``); every launch counter is set to 0 just before the job and
-read just after. Rank r writes ``OUT/rank<r>.json`` and
+read just after. Each task file is read once a run, by the first job
+that names it (:func:`loaded_once`). Rank r writes ``OUT/rank<r>.json`` and
 ``OUT/rank<r>.npz``. Without ``torchrun`` (one process, ``--unsharded``)
 the same jobs run unsharded, the yardstick the mesh is held to;
 ``chip_smoke.py`` calls :func:`run_jobs` in its own process for that.
@@ -40,10 +41,19 @@ The jobs (``--jobs``):
     tracking store under ``OUT/records``); the figures' data are kept in
     place of drawing them (the P(best) bars rank 0 logs), so the job runs
     without matplotlib;
+  * ``sparse_rec``: CODA 1 seed on ``--pool-task`` with ``--posterior
+    sparse:32 --eig-chunk 64`` (the incremental tier: kernels 1, 2, 3);
+  * ``amort_rec``: CODA 1 seed with ``--eig-pbest amortized --multiplier
+    20`` (kernels 1, 2, 3; the gate's verdict each round kept);
+  * ``prefilter_rec``: CODA 1 seed with ``--prefilter-n K`` (the
+    script's ``--prefilter-n``, default 4096: the factored tier on the
+    subset, no kernel);
+  * ``q4_rec``: CODA 1 seed with ``--acq-batch 4`` (kernel 1 at init and
+    once a round, kernel 3 once an answer) — these four recorded;
   * ``replay``: ``cli replay`` of each record the earlier jobs wrote
-    (after every rank has passed a barrier), on these ranks: each rank's
-    exit code and wall seconds, rank 0's report under
-    ``OUT/records/replay_<job>.json``.
+    (after every rank has passed a barrier; ``--replays`` names them,
+    default every one), on these ranks: each rank's exit code and wall
+    seconds, rank 0's report under ``OUT/records/replay_<job>.json``.
 
 It imports nothing of JAX or of the reference package.
 """
@@ -53,6 +63,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import io
 import json
@@ -67,15 +78,25 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 BASELINES = ("iid", "uncertainty", "activetesting", "vma", "model_picker")
+# the knobs' jobs: name -> (CLI flags, their rounds' key)
+KNOB_JOBS = {
+    "sparse": (["--eig-mode", "incremental", "--posterior", "sparse:32",
+                "--eig-chunk", "64"], "sparse"),
+    "amort": (["--eig-pbest", "amortized", "--multiplier", "20"], "amort"),
+    "prefilter": (["--prefilter-n"], "prefilter"),     # + the size
+    "q4": (["--acq-batch", "4"], "q4"),
+}
 
 
-def job_argv(job: str, rounds: dict, root: str = ".") -> list:
+def job_argv(job: str, rounds: dict, root: str = ".",
+             prefilter_n: int = 4096) -> list:
     """The CLI flags of a job (the task and mesh flags added by the
     caller); ``rounds`` maps a job to its rounds; ``root`` takes the
     records, checkpoints and tracking stores of the jobs that write
-    them."""
+    them; ``prefilter_n`` is the prefilter job's subset."""
     if job.endswith("_rec"):
-        return job_argv(job.removesuffix("_rec"), rounds) + [
+        return job_argv(job.removesuffix("_rec"), rounds,
+                        prefilter_n=prefilter_n) + [
             "--record-dir", os.path.join(root, job)]
     if job in ("ckpt_cut", "ckpt"):
         iters = rounds["ckpt_cut" if job == "ckpt_cut" else "main"]
@@ -89,6 +110,12 @@ def job_argv(job: str, rounds: dict, root: str = ".") -> list:
     if job == "main":
         return ["--method", "coda", "--seeds", "1",
                 "--iters", str(rounds["main"])]
+    if job in KNOB_JOBS:
+        flags, key = KNOB_JOBS[job]
+        if job == "prefilter":
+            flags = flags + [str(prefilter_n)]
+        return ["--method", "coda", "--seeds", "1",
+                "--iters", str(rounds[key])] + flags
     if job == "batch":
         return ["--method", "coda", "--eig-mode", "incremental",
                 "--seeds", "5", "--iters", str(rounds["batch"])]
@@ -104,7 +131,7 @@ class Capture:
     """What a wrapped selector saw: each round's score vector (kept on
     the device, copied once at the end), the last state, and the bytes
     the collectives sent inside the rounds' select, update and best
-    calls (``parallel.collectives.traffic``, by axis)."""
+    calls, q-wide or not (``parallel.collectives.traffic``, by axis)."""
 
     def __init__(self):
         self.scores: list = []
@@ -133,6 +160,20 @@ class Capture:
             self.state = sel.update(state, *args)
             return self.state
 
+        q_wide = {}
+        if sel.select_q is not None:
+            def select_q(state, key, q):
+                res = sel.select_q(state, key, q)
+                self.scores.append(res.scores.detach().clone())
+                return res
+
+            q_wide["select_q"] = self._counted(select_q)
+        if sel.update_q is not None:
+            def update_q(state, *args):
+                self.state = sel.update_q(state, *args)
+                return self.state
+
+            q_wide["update_q"] = self._counted(update_q)
         inner = sel.batched
         batched = None
         if inner is not None:
@@ -152,7 +193,7 @@ class Capture:
         return dataclasses.replace(sel, select=self._counted(select),
                                    update=self._counted(update),
                                    best=self._counted(sel.best),
-                                   batched=batched)
+                                   batched=batched, **q_wide)
 
 
 def fingerprint(state, n_local: int) -> str:
@@ -236,15 +277,23 @@ def run_cli_job(argv: list, dev) -> dict:
     just after, the device's peak memory reset and read. A recorded job
     keeps its record's bytes, a checkpointed one its saves' and
     restore's bytes and seconds, a ``--debug-viz`` one its P(best)
-    bars."""
+    bars, an amortized one its gate's verdicts (one a round)."""
     import numpy as np
     import torch
 
     from coda_tpu_torch import cli
     from coda_tpu_torch.engine import run_seeds_compiled
+    from coda_tpu_torch.ops import pbest
     from coda_tpu_torch.parallel import collectives
 
     cap = Capture()
+    gates: list = []
+    gate_fn = pbest.amortized_gate
+
+    def gate(*args, **kw):
+        out = gate_fn(*args, **kw)
+        gates.append(out.detach().clone())     # read after the run
+        return out
     got: dict = {}
     orig_factory, orig_run = cli.build_selector_factory, cli.run_all_seeds
 
@@ -268,12 +317,17 @@ def run_cli_job(argv: list, dev) -> dict:
                                  loss_fn=loss_fn, device=dev_,
                                  timings=got["timings"],
                                  cost_label=args.method, trace_k=trace_k,
+                                 acq_batch=args.acq_batch,
                                  mesh=dataset.mesh)
         res, aux = out if trace_k else (out, None)
         got["result"] = res
         return res, aux, None
 
     cli.build_selector_factory, cli.run_all_seeds = build, run
+    pbest.amortized_gate = gate
+    # an earlier job's selector (its closures form reference cycles) is
+    # collected first: the peak is this job's own
+    gc.collect()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     out = io.StringIO()
@@ -292,6 +346,7 @@ def run_cli_job(argv: list, dev) -> dict:
     finally:
         cli.build_selector_factory, cli.run_all_seeds = orig_factory, \
             orig_run
+        pbest.amortized_gate = gate_fn
     res = got["result"]
     rounds = sum(t["rounds_ms"] for t in got["timings"])
     iters = res.chosen_idx.shape[1]
@@ -306,9 +361,14 @@ def run_cli_job(argv: list, dev) -> dict:
         extra["checkpoint"] = got["checkpoint"]
     if "--debug-viz" in argv:
         extra["pbest"] = figures.pbest
+    if gates:
+        extra["gates"] = [bool(g) for g in gates]
+    q = int(argv[argv.index("--acq-batch") + 1]) \
+        if "--acq-batch" in argv else 1
     return extra | {
         "rc": rc, "stdout": out.getvalue(), "launches": launched,
         "ms_per_round": rounds / (iters * per),
+        "ms_per_label": rounds / (iters * per * q),
         "rounds_ms": rounds,
         "init_ms": sum(t["init_ms"] for t in got["timings"]),
         "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
@@ -331,10 +391,10 @@ def run_cli_job(argv: list, dev) -> dict:
     }
 
 
-def run_replays(root: str, data_dir: str, dev) -> dict:
+def run_replays(root: str, data_dir: str, dev, names=None) -> dict:
     """The ``replay`` job: ``cli replay`` of every record under ``root``
-    on this world's ranks (they join the record's mesh), after a barrier
-    (rank 0 wrote the records)."""
+    (``names``: of those jobs only) on this world's ranks (they join the
+    record's mesh), after a barrier (rank 0 wrote the records)."""
     import torch.distributed as dist
 
     from coda_tpu_torch import cli
@@ -343,6 +403,8 @@ def run_replays(root: str, data_dir: str, dev) -> dict:
         dist.barrier()        # rank 0 has written every record
     out = {}
     for job in sorted(os.listdir(root)):
+        if names is not None and job not in names:
+            continue
         rec = os.path.join(root, job)
         if not os.path.isfile(os.path.join(rec, "record.json")):
             continue
@@ -365,12 +427,55 @@ def suite_rows(db: str) -> list:
             "JOIN runs r ON r.run_uuid = m.run_uuid"))
 
 
+@contextlib.contextmanager
+def loaded_once():
+    """``cli.load_dataset`` read once for a run of jobs on the same task
+    (and mesh spec): the first loads its file (or its block of it), the
+    next take the same tensors on their own call's mesh, and a job on
+    another task drops them first (a job's peak memory holds its own task
+    alone). The jobs run the CLI as a user would but for the reading of a
+    file already read."""
+    from coda_tpu_torch import cli
+
+    load, cache = cli.load_dataset, {}
+
+    def cached(args, mesh=None):
+        key = (args.task, args.data_dir, args.synthetic, args.device,
+               None if mesh is None else mesh.spec)
+        if key not in cache:
+            cache.clear()
+            cache[key] = load(args) if mesh is None else load(args, mesh)
+        ds = cache[key]
+        return ds if mesh is None else dataclasses.replace(ds, mesh=mesh)
+
+    cli.load_dataset = cached
+    try:
+        yield
+    finally:
+        cli.load_dataset = load
+        cache.clear()
+
+
 def run_jobs(jobs, data_dir: str, task: str, rounds: dict, dev, mesh_spec,
              pred_dir: str, suite_tasks: str, suite_db: str,
-             log=print, root: str = ".", viz_task: str = "digits_h80") -> dict:
+             log=print, root: str = ".", viz_task: str = "digits_h80",
+             pool_task: str = "pool", replays=None,
+             prefilter_n: int = 4096) -> dict:
     """Every job in turn; ``mesh_spec`` None runs them unsharded. ``root``
     takes the jobs' records, checkpoints and tracking stores; the ``viz``
-    job runs on ``viz_task`` of ``data_dir``."""
+    job runs on ``viz_task`` of ``data_dir``, ``sparse_rec`` on
+    ``pool_task``; ``replays``: the records the ``replay`` job replays
+    (None: every one); ``prefilter_n``: the prefilter job's subset. Each
+    task is read once (:func:`loaded_once`)."""
+    with loaded_once():
+        return _run_jobs(jobs, data_dir, task, rounds, dev, mesh_spec,
+                         pred_dir, suite_tasks, suite_db, log, root,
+                         viz_task, pool_task, replays, prefilter_n)
+
+
+def _run_jobs(jobs, data_dir, task, rounds, dev, mesh_spec, pred_dir,
+              suite_tasks, suite_db, log, root, viz_task, pool_task,
+              replays, prefilter_n) -> dict:
     mesh = [] if mesh_spec is None else ["--mesh", mesh_spec]
     device = [] if dev.type == "cuda" else ["--device", "cpu"]
     out = {}
@@ -388,13 +493,14 @@ def run_jobs(jobs, data_dir: str, task: str, rounds: dict, dev, mesh_spec,
                           "--force-rerun"] + device + mesh)
             out[job] = {"stdout": buf.getvalue(), "launches": counts()}
         elif job == "replay":
-            out[job] = {"records": run_replays(root, data_dir, dev)}
+            out[job] = {"records": run_replays(root, data_dir, dev,
+                                               replays)}
         else:
-            argv = job_argv(job, rounds, root)
+            argv = job_argv(job, rounds, root, prefilter_n)
             track = [] if job == "viz" else ["--no-mlflow"]
-            out[job] = run_cli_job(
-                ["--task", viz_task if job == "viz" else task, "--data-dir",
-                 data_dir] + track + argv + device + mesh, dev)
+            on = {"viz": viz_task, "sparse_rec": pool_task}.get(job, task)
+            out[job] = run_cli_job(["--task", on, "--data-dir", data_dir]
+                                   + track + argv + device + mesh, dev)
         out[job]["wall_s"] = time.perf_counter() - t0
         log(f"  {job}: {out[job]['wall_s']:.1f} s")
     return out
@@ -408,9 +514,16 @@ def main(argv=None) -> int:
     p.add_argument("--jobs", default="main,batch,paper," + ",".join(BASELINES)
                    + ",suite")
     p.add_argument("--rounds", default="main=30,batch=10,paper=5,"
-                   "baselines=20,suite=10,ckpt_cut=10,viz=10")
+                   "baselines=20,suite=10,ckpt_cut=10,viz=10,sparse=20,"
+                   "amort=10,prefilter=10,q4=10")
     p.add_argument("--viz-task", default="digits_h80",
                    help="the viz job's task under --data-dir")
+    p.add_argument("--pool-task", default="pool",
+                   help="the sparse_rec job's task under --data-dir")
+    p.add_argument("--replays", default=None,
+                   help="the records the replay job replays (default all)")
+    p.add_argument("--prefilter-n", type=int, default=4096,
+                   help="the prefilter job's subset")
     p.add_argument("--pred-dir", default=os.path.join(ROOT, "data"))
     p.add_argument("--suite-tasks", default="pyfiles,iris")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -442,7 +555,9 @@ def main(argv=None) -> int:
                        os.path.join(args.out, f"suite{rank}.sqlite"),
                        log=print if rank == 0 else (lambda *a: None),
                        root=os.path.join(args.out, "records"),
-                       viz_task=args.viz_task)
+                       viz_task=args.viz_task, pool_task=args.pool_task,
+                       replays=(args.replays.split(",") if args.replays
+                                else None), prefilter_n=args.prefilter_n)
     finally:
         if spec is not None:
             shutdown()

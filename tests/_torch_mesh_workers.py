@@ -40,10 +40,24 @@ def spawn(world: int, tmp: str, jobs: tuple, env: bool = False) -> list:
     """Run ``jobs`` on ``world`` ranks; returns each rank's results.
     ``env``: the ranks find their rank and size in torchrun's
     environment variables instead of arguments."""
+    return finish(start(world, tmp, jobs, env), world, tmp)
+
+
+def start(world: int, tmp: str, jobs: tuple, env: bool = False):
+    """:func:`spawn` without waiting: the ranks' process context, for
+    :func:`finish` (the caller works meanwhile)."""
     import torch.multiprocessing as mp
 
-    mp.spawn(_rank_main, args=(world, str(tmp), tuple(jobs), env),
-             nprocs=world, join=True)
+    return mp.start_processes(
+        _rank_main, args=(world, str(tmp), tuple(jobs), env), nprocs=world,
+        join=False, start_method="spawn")
+
+
+def finish(context, world: int, tmp: str) -> list:
+    """Wait for the ranks :func:`start` began (raising if one failed);
+    returns each rank's results."""
+    while not context.join():
+        pass
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
 
@@ -589,12 +603,14 @@ def job_records(rank, world, tmp) -> dict:
     return out
 
 
-def _checkpoint_runs(spec: str, tmp: str) -> dict:
-    """CODA (incremental) on the task at ``spec``: the uninterrupted run
-    of :data:`ITERS` rounds; one cut after 5 rounds (saves at rounds 2
-    and 4) and resumed to 8; one whose newest step rank 1 lost, resumed
-    from the step every rank holds. Each resumed run against the
-    uninterrupted one, field by field (bitwise)."""
+def _checkpoint_runs(spec: str, tmp: str, make=None, name: str = "",
+                     cases=("cut", "lost")) -> dict:
+    """CODA (incremental; ``make``: another ``(preds, mesh)`` factory,
+    its directories under ``name``) on the task at ``spec``: the
+    uninterrupted run of :data:`ITERS` rounds; one cut after 5 rounds
+    (saves at rounds 2 and 4) and resumed to 8; one whose newest step
+    rank 1 lost, resumed from the step every rank holds. Each resumed run
+    against the uninterrupted one, field by field (bitwise)."""
     import shutil
 
     from coda_tpu_torch import random as trandom
@@ -605,13 +621,13 @@ def _checkpoint_runs(spec: str, tmp: str) -> dict:
 
     mesh = _spec_mesh(spec)
     task = make_synthetic_task(**TASK, mesh=mesh)
-    sel = factory("coda")(task.preds, mesh=mesh)
+    sel = (make or factory("coda"))(task.preds, mesh=mesh)
     losses = true_losses(task.preds, task.labels, mesh=mesh)
     full = build_experiment_fn(sel, task.labels, losses, ITERS,
                                mesh=mesh)(trandom.PRNGKey(0))
     out = {}
-    for case in ("cut", "lost"):
-        ck = os.path.join(tmp, "ck", spec_dir(spec), case)
+    for case in cases:
+        ck = os.path.join(tmp, "ck", spec_dir(spec), name + case)
         timings: list = []
         make_resumable_runner(sel, task.labels, losses, 5, every=2,
                               timings=timings, mesh=mesh)(0, ck)
@@ -699,9 +715,221 @@ def job_suite_viz(rank, world, tmp) -> dict:
     return out
 
 
+# -- CODA's knobs and the q-wide round on a mesh ------------------------------
+
+# eig_pbest=amortized at a prior whose class rows sit just under the gate
+# (min_h(a + b) = 31.99): a row's first label leaves it closed, its second
+# opens it, so the gate engages in some rounds and not others
+AMORT_MULTIPLIER = "15.2309"
+PREFILTER_N = 16
+_INCR = ["--method", "coda", "--eig-mode", "incremental"]
+# name -> (CLI flags, seeds)
+KNOB_RUNS = {
+    "dense": (_INCR, 1),
+    "dense_batch2": (_INCR, 2),
+    "sparse2": (_INCR + ["--posterior", "sparse:2"], 1),
+    "sparse2_batch2": (_INCR + ["--posterior", "sparse:2"], 2),
+    "sparse4": (_INCR + ["--posterior", "sparse:4"], 1),
+    "sparse4_batch2": (_INCR + ["--posterior", "sparse:4"], 2),
+    "amortized": (_INCR + ["--eig-pbest", "amortized", "--multiplier",
+                           AMORT_MULTIPLIER], 1),
+    "prefilter": (["--method", "coda", "--prefilter-n", str(PREFILTER_N)],
+                  1),
+    "prefilter_iid": (["--method", "coda", "--q", "iid", "--prefilter-n",
+                       str(PREFILTER_N)], 1),
+    "prefilter_unc": (["--method", "coda", "--q", "uncertainty",
+                       "--prefilter-n", str(PREFILTER_N)], 1),
+    "q2": (_INCR + ["--acq-batch", "2"], 1),
+    "q4": (_INCR + ["--acq-batch", "4"], 1),
+    "q2_factored": (["--method", "coda", "--eig-mode", "factored",
+                     "--acq-batch", "2"], 1),
+    "q4_factored": (["--method", "coda", "--eig-mode", "factored",
+                     "--acq-batch", "4"], 1),
+    "iid_q4": (["--method", "iid", "--acq-batch", "4"], 1),
+    "uncertainty_q2": (["--method", "uncertainty", "--acq-batch", "2"], 1),
+    "model_picker_q4": (["--method", "model_picker", "--acq-batch", "4"],
+                        1),
+}
+
+
+def knob_argv(name: str, data_dir: str) -> list:
+    """The CLI flags of a run of :data:`KNOB_RUNS` on the task files under
+    ``data_dir`` (``--mesh`` and ``--record-dir`` added by the caller)."""
+    flags, seeds = KNOB_RUNS[name]
+    return ["--task", TASK_FILE, "--data-dir", data_dir, "--iters",
+            str(ITERS), "--seeds", str(seeds), "--device", "cpu",
+            "--no-mlflow"] + flags
+
+
+@contextlib.contextmanager
+def gates_seen(seen: list):
+    """Every ``ops.pbest.amortized_gate`` verdict of the body, appended
+    to ``seen`` as lists of bools."""
+    from coda_tpu_torch.ops import pbest
+
+    gate = pbest.amortized_gate
+
+    def record(*args, **kw):
+        out = gate(*args, **kw)
+        seen.append(out.reshape(-1).tolist())
+        return out
+
+    pbest.amortized_gate = record
+    try:
+        yield seen
+    finally:
+        pbest.amortized_gate = gate
+
+
+def job_knobs(rank, world, tmp) -> dict:
+    """At each spec: every run of :data:`KNOB_RUNS` through ``cli --mesh
+    SPEC --record-dir`` (rank 0 writes ``tmp/knobs/<spec>/<run>``; the
+    amortized run's gate verdicts kept), then each replayed through ``cli
+    replay`` inside the world (each rank's exit code; rank 0's report
+    under ``tmp/knobrep/``)."""
+    from coda_tpu_torch import cli
+
+    out = {}
+    for spec in RECORD_SPECS[world]:
+        mesh = _spec_mesh(spec)
+        res = {"printed": {}, "replay": {}, "gates": []}
+        root = os.path.join(tmp, "knobs", spec_dir(spec))
+        for name in KNOB_RUNS:
+            argv = knob_argv(name, tmp) + [
+                "--mesh", spec, "--record-dir", os.path.join(root, name)]
+            with gates_seen(res["gates"] if name == "amortized" else []):
+                res["printed"][name] = _captured(cli.main, argv)
+        _barrier(mesh)           # rank 0 has written every record
+        for name in KNOB_RUNS:
+            res["replay"][name] = cli.main([
+                "replay", os.path.join(root, name), "--device", "cpu",
+                "--out", os.path.join(tmp, "knobrep",
+                                      f"{spec_dir(spec)}_{name}.json")])
+        out[spec] = res
+    return out
+
+
+def tie_draw() -> np.ndarray:
+    """The prefilter's uniforms over the task's 64 items with exact ties
+    across the data block boundary (31 | 32) and at the K-th place: 0.75
+    at four items, 0.5 at sixteen (28-35, 45-52), 0.25 elsewhere. Of the
+    candidates among them, the top 16 takes those at 0.75, then the 0.5
+    tie in index order, from both blocks."""
+    u = np.full(64, 0.25, np.float32)
+    u[[3, 40, 50, 60]] = 0.75
+    u[list(range(28, 36)) + list(range(45, 53))] = 0.5
+    return u
+
+
+@contextlib.contextmanager
+def drawn(u: np.ndarray, k_sub: torch.Tensor, subsets: list):
+    """The prefilter's draw (the one from ``k_sub``) replaced by ``u``
+    (each rank its slice, at the global positions), and every top k CODA
+    takes appended to ``subsets``."""
+    from coda_tpu_torch import random as trandom
+    from coda_tpu_torch.selectors import coda as coda_mod
+
+    uniform, top_k = trandom.uniform, coda_mod.top_k
+
+    def fixed(key, shape, device=None, start=0, total=None):
+        if torch.equal(key, k_sub):
+            return torch.from_numpy(u[start:start + shape[-1]].copy())
+        return uniform(key, shape, device=device, start=start, total=total)
+
+    def seen(*args, **kw):
+        got = top_k(*args, **kw)
+        subsets.append([t.numpy().tolist() for t in got])
+        return got
+
+    trandom.uniform, coda_mod.top_k = fixed, seen
+    try:
+        yield subsets
+    finally:
+        trandom.uniform, coda_mod.top_k = uniform, top_k
+
+
+def tie_select(make, preds, labels, mesh=None) -> dict:
+    """One select (and one ablation select) of a fresh CODA state under
+    :func:`tie_draw`: the subsets and thresholds taken, the pick, its
+    score and this block's recorded scores."""
+    from coda_tpu_torch import random as trandom
+
+    out = {}
+    for q in ("eig", "iid"):
+        sel = make(q)(preds) if mesh is None else make(q)(preds, mesh=mesh)
+        st = sel.init(None)
+        subsets: list = []
+        key = trandom.PRNGKey(5)
+        with drawn(tie_draw(), trandom.split(key)[0], subsets):
+            res = sel.select(st, key)
+        out[q] = {"subsets": subsets, "idx": int(res.idx),
+                  "prob": float(res.prob),
+                  "scores": res.scores.numpy()}
+    return out
+
+
+def tie_factory(q: str):
+    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+
+    hp = CODAHyperparams(q=q, prefilter_n=PREFILTER_N)
+    return lambda p, mesh=None: make_coda(p, hp, device="cpu", mesh=mesh)
+
+
+def gate_case() -> dict:
+    """Beta parameters of one class row over the task's 8 models, the
+    first four concentrated above the amortized gate (min 40) and the
+    last four not (min 20), and which models predicted the class at each
+    of 64 items (every model's)."""
+    rng = np.random.default_rng(17)
+    conc = np.array([40, 44, 52, 60, 20, 36, 48, 64], np.float32)
+    a = (rng.uniform(0.3, 0.7, 8) * conc).astype(np.float32)
+    return {"a": a, "b": (conc - a).astype(np.float32),
+            "eq": rng.uniform(size=(64, 8)) < 0.3}
+
+
+def job_knob_cases(rank, world, tmp) -> dict:
+    """At each spec: the prefilter's select under :func:`tie_draw`; where
+    the spec has a model axis, the amortized row refresh of
+    :func:`gate_case` (one H block's models above the gate, the other's
+    not, and the same with the second block raised above it too), its
+    gate verdicts and this rank's columns; and a ``sparse:2`` run cut
+    after 5 rounds and resumed (bitwise the uninterrupted run)."""
+    from coda_tpu_torch.data import make_synthetic_task
+    from coda_tpu_torch.ops.pbest import _pbest_hyp_row_gated
+    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+
+    out = {}
+    for spec in RECORD_SPECS[world]:
+        mesh = _spec_mesh(spec)
+        task = make_synthetic_task(**TASK, mesh=mesh)
+        res = {"tie": tie_select(tie_factory, task.preds, task.labels,
+                                 mesh)}
+        if mesh.model > 1:
+            z = gate_case()
+            res["gate"] = {}
+            for case, lift in (("split", 0.0), ("both", 20.0)):
+                b = z["b"] + np.where(np.arange(8) >= 4, lift, 0.0) \
+                    .astype(np.float32)
+                gates: list = []
+                with gates_seen(gates):
+                    row = _pbest_hyp_row_gated(
+                        _blk(z["a"], mesh, None, 0), _blk(b, mesh, None, 0),
+                        torch.from_numpy(z["eq"]), 1.0, 64, 32.0,
+                        mesh=mesh)
+                res["gate"][case] = {"gates": gates, "row": row.numpy()}
+        hp = CODAHyperparams(eig_mode="incremental", posterior="sparse:2")
+        res["sparse_ckpt"] = _checkpoint_runs(
+            spec, tmp, make=lambda p, mesh=None: make_coda(
+                p, hp, device="cpu", mesh=mesh),
+            name="sparse2_", cases=("cut",))
+        out[spec] = res
+    return out
+
+
 JOBS = {"traces": job_traces, "blocks": job_blocks, "large_c": job_large_c,
         "collectives": job_collectives, "cli": job_cli, "env": job_env,
         "model_traces": job_model_traces, "model_blocks": job_model_blocks,
         "model_large_c": job_model_large_c, "model_cli": job_model_cli,
         "tie_topk": job_tie_topk, "records": job_records,
-        "checkpoints": job_checkpoints, "suite_viz": job_suite_viz}
+        "checkpoints": job_checkpoints, "suite_viz": job_suite_viz,
+        "knobs": job_knobs, "knob_cases": job_knob_cases}

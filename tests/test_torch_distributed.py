@@ -13,7 +13,8 @@ warning, its rows those of the unsharded suite; a task whose N does not
 divide the mesh is refused on every rank. Without a world: one process
 is a no-op, and each refusal of ``--mesh`` raises (the model axis, too
 few ranks, and every flag the next mesh slice brings, on the data axis
-and on a one-rank model axis).
+and on a one-rank model axis), while the flags the mesh slices brought
+run there and print the unsharded run's result.
 """
 
 from __future__ import annotations
@@ -130,21 +131,39 @@ def test_port_cli_suite_mesh_matches_unsharded(world, tmp_path):
     ["--checkpoint-dir", "CK"], ["--oracle-noise", "annotators=4,votes=3"],
     ["--eig-scorer", "surrogate:8"], ["--posterior", "sparse:2"],
     ["--eig-pbest", "amortized"], ["--prefilter-n", "16"],
-    ["--debug-viz"], ["--mesh", "model=1", "--acq-batch", "2"]])
+    ["--debug-viz"], ["--mesh", "model=1", "--acq-batch", "2"],
+    ["--acq-batch", "2", "--checkpoint-dir", "CK"]])
 def test_port_cli_mesh_refusals(flags, tmp_path):
     """Every flag the next mesh slice brings raises
     ``NotImplementedError`` under ``--mesh`` (here a one-rank mesh, of
     the data axis or of the model axis); none runs unsharded without a
-    word. The flags slice 5d's first part brought run there instead:
-    ``--record-dir`` writes a record with the mesh among its knobs,
-    ``--checkpoint-dir`` saves under ``seed_<s>/rank_0`` and
-    ``--debug-viz`` logs its figures."""
+    word. The flags slice 5d brought run there instead: ``--record-dir``
+    writes a record with the mesh among its knobs, ``--checkpoint-dir``
+    saves under ``seed_<s>/rank_0``, ``--debug-viz`` logs its figures,
+    and ``--acq-batch 2``, ``--posterior sparse:2``, ``--eig-pbest
+    amortized`` and ``--prefilter-n 16`` print the unsharded run's
+    result line. ``--acq-batch`` with ``--checkpoint-dir`` stays the
+    reference's refusal, as unsharded."""
     argv = ["--synthetic", "6,64,4", "--method", "coda", "--iters", "2",
             "--seeds", "1", "--device", "cpu", "--no-mlflow"]
     rec, ck = str(tmp_path / "r"), str(tmp_path / "c")
     flags = [f.replace("REC", rec).replace("CK", ck) for f in flags]
     mesh = [] if "--mesh" in flags else ["--mesh", "data=1"]
-    if flags[0] == "--record-dir":
+    knobs = ("--acq-batch", "--posterior", "--eig-pbest", "--prefilter-n")
+    if "--checkpoint-dir" in flags and "--acq-batch" in flags:
+        with pytest.raises(SystemExit, match="--acq-batch > 1 does not "
+                           "compose with --checkpoint-dir"):
+            cli.main(argv + flags + mesh)
+    elif flags[0] in knobs or flags[2:3] == ["--acq-batch"]:
+        plain = [f for f in flags if not f.startswith(("--mesh", "model="))]
+
+        def seed_lines(out):
+            return [x for x in out.splitlines() if x.startswith("seed ")]
+
+        got = _run(argv + flags + mesh)
+        assert "seed 0: regret@2=" in got
+        assert seed_lines(got) == seed_lines(_run(argv + plain))
+    elif flags[0] == "--record-dir":
         assert "decision record written to" in _run(argv + flags + mesh)
         from coda_tpu_torch.telemetry.recorder import RunRecord
 
