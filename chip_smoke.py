@@ -143,7 +143,7 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    six methods, 5 seeds x 10 rounds, ``runs/real.sqlite``'s sweep cut
    from 100 rounds) into
    a fresh database, its rerun skipping every pair, a 3-task x 2-seed x
-   30-round subset under ``--task-batch --suite-devices 1`` bitwise the
+   15-round subset under ``--task-batch --suite-devices 1`` bitwise the
    serial run, two pairs' rows bitwise the single-task CLI's, and a
    table of mean cumulative regret x100 at step 10 beside
    ``runs/real.sqlite``'s (information, not a gate). It prints the
@@ -301,15 +301,23 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    sparse:32 --eig-chunk 64`` on the imagenet_sparse pool (``SPARSE_POOL``
    written as ``.npy`` files, 1 seed x 20: kernel 1 once, kernels 2 and 3
    a round on each rank), ``--prefilter-n 4096`` (1 seed x 10, the
-   factored tier, no kernel) and ``--acq-batch 4`` (1 seed x 10: kernel 1
-   at init and a round, kernel 3 an answer); each rank's decisions and
-   block scores as above (every rank the same picks at q = 4), the
-   fingerprints, the launches, and rank 0's record held ``--against`` the
-   yardstick's (parity, or a near-tie flip within 2.34e-4). It prints ms
-   a round (a label at q = 4), init ms and each rank's peak memory beside
-   the unsharded run's, with the card's name and power limit: gloo on one
-   shared card checks the sharded program, it does not measure NCCL
-   scaling.
+   factored tier, no kernel), ``--acq-batch 4`` (1 seed x 10: kernel 1
+   at init and a round, kernel 3 an answer), ``--eig-scorer surrogate:32``
+   (1 seed x 20: kernel 1 at init and on each warmup or fallback round,
+   kernel 3 a round; the hybrid rounds and the final fit the same on
+   every rank) and the noisy crowd ``--oracle-noise CROWD_SPEC`` (1 seed
+   x 10: kernels 1-3; the applied labels and weights bitwise the
+   unsharded run's), and the confusion prior's data-group sum a model at
+   a time bitwise the whole sum on each rank (the pool's ``sparse:32``
+   rank at or below the unsharded run's peak memory, which the whole
+   sum's gather exceeded); each rank's decisions and block scores as above
+   (every rank the same picks at q = 4), the fingerprints, the launches,
+   and rank 0's record held ``--against`` the yardstick's (parity, or a
+   near-tie flip within 2.34e-4). It prints ms a round (a label at q =
+   4), init ms and each rank's peak memory beside the unsharded run's
+   (the surrogate's hybrid-round share too), with the card's name and
+   power limit: gloo on one shared card checks the sharded program, it
+   does not measure NCCL scaling.
 15. the mesh's model axis (H sharded): first kernels 1 and 2, fp32 and
    bf16 caches, at the blocks the ranks below hand them — ``(C, N/a,
    H/b)`` = (10, 50000, 500), (10, 50000, 250), (10, 25000, 500) — each
@@ -332,10 +340,12 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    are printed. CODA's knobs at model=2, recorded: ``sparse:32`` on the
    pool (1 seed x 20; H/b = 250, kernels 1 and 2 on their scalar path),
    ``--eig-pbest amortized --multiplier 20`` (1 seed x 10: the gate's
-   verdict each round on every rank the unsharded run's) and
-   ``--acq-batch 4`` (1 seed x 10), each record replayed bitwise on the
-   ranks and held ``--against`` phase 14's yardstick record, with the
-   launches and fingerprints as above.
+   verdict each round on every rank the unsharded run's),
+   ``--acq-batch 4`` (1 seed x 10), ``surrogate:32`` (1 seed x 20), the
+   noisy crowd (1 seed x 10, and 5 seeds x 5 as one batch: kernels 4, 5
+   and the batched 3), each record held ``--against`` phase 14's
+   yardstick record (the ``sparse:32`` record also replayed bitwise on
+   the ranks), with the launches and fingerprints as above.
    Each rank: its data block's decisions, regret
    and scores as phase 14's (a baseline's acquisition weights, sums over
    the models that the model axis adds in another order, within 2.34e-4
@@ -2456,7 +2466,7 @@ CKPT_ROUNDS, CKPT_EVERY, CKPT_CUT = 30, 10, 25   # the cut run saves 10, 20
 # table read at step 10: the whole smoke must end within its time limit
 SUITE_SEEDS, SUITE_ROUNDS = 5, 10
 SUBSET = ("digits", "iris", "wine")              # --task-batch subset
-SUBSET_SEEDS, SUBSET_ROUNDS = 2, 30
+SUBSET_SEEDS, SUBSET_ROUNDS = 2, 15              # 30 until PR 18
 CLI_PAIRS = (("digits", "coda"), ("digits", "model_picker"))
 SUITE_METHODS = ("iid", "uncertainty", "coda", "activetesting", "vma",
                  "model_picker")
@@ -4940,7 +4950,8 @@ FLEET_CLIENTS = 8                    # client threads during the restart
 FLEET_THINK_S = 0.25                 # a client's pause between labels
 FLEET_CAP_LABELS = 25                # labels a session during the restart
 FLEET_BEFORE_S = 3.0                 # traffic before the restart, seconds
-FLEET_SCALE_S = 5.0                  # traffic a scaling configuration
+FLEET_SCALE_S = 3.0                  # traffic a scaling configuration
+#                                      (5 s until PR 18)
 FLEET_HTTP_CAPACITY = 4              # slots of a `cli serve` replica
 FLEET_CLI_EXTRA: list = []           # extra `cli serve` flags (rehearsals)
 _ROW_BITS = ("next_idx", "next_prob", "best", "pbest_max", "pbest_entropy",
@@ -5622,7 +5633,10 @@ MESH_ROUNDS = {"main": 20, "batch": 5, "paper": 3, "baselines": 10,
                "suite": 10, "ckpt_cut": 10, "viz": 10,
                # CODA's knobs: sparse:32 on the imagenet_sparse pool, the
                # amortized P(best), the prefilter and q = 4 at the headline
-               "sparse": 20, "amort": 10, "prefilter": 10, "q4": 10}
+               "sparse": 20, "amort": 10, "prefilter": 10, "q4": 10,
+               # the surrogate scorer (past its 10 warmup rounds) and the
+               # noisy crowd, one seed and a 5-seed batch
+               "surr": 20, "crowd": 10, "crowd_batch": 5}
 # digits_h80 (80, 899, 10) cut to its first 898 items: N must split over
 # data=2 for the --debug-viz run at data=2,model=2
 VIZ_TASK, VIZ_N = "digits_h80_n898", 898
@@ -5632,23 +5646,38 @@ MESH_REGRET_TOL = 1e-7
 MESH_PREFILTER_N = 4096     # the prefilter job's subset
 # the knobs' recorded jobs of each mesh phase (the pool's last: a run of
 # jobs on one task reads it once, scripts/torch_mesh_run.loaded_once)
-MESH_KNOBS = ("prefilter_rec", "q4_rec", "sparse_rec")       # data=2
-MODEL_KNOBS = ("amort_rec", "q4_rec", "sparse_rec")          # model=2
+MESH_KNOBS = ("prefilter_rec", "q4_rec", "surr_rec", "crowd_rec",
+              "sparse_rec")                                  # data=2
+MODEL_KNOBS = ("amort_rec", "q4_rec", "surr_rec", "crowd_rec",
+               "crowd_batch_rec", "sparse_rec")              # model=2
 # the model=2 records `cli replay` re-executes on the ranks
 MODEL_REPLAYS = ("main_rec", "batch_rec", "sparse_rec")
-# a knob job's launches on a rank (kernels 1-3 as the one-seed run; no
-# kernel on the prefilter's factored tier; kernel 1 once a round and
-# kernel 3 once an answer at q = 4)
+# a knob job's launches on a rank, from its rounds and its own result
+# (kernels 1-3 as the one-seed run; no kernel on the prefilter's factored
+# tier; kernel 1 once a round and kernel 3 once an answer at q = 4; under
+# the surrogate kernel 1 at init and on each round that did not take the
+# hybrid vector, no kernel 2; kernels 4, 5 and the batched 3 for the
+# crowd's seed batch)
 _KNOB_WANTS = {
-    "sparse_rec": lambda it: {"eig_score": 1,
-                              "eig_refresh_score": it["sparse"],
-                              "row_gather": it["sparse"]},
-    "amort_rec": lambda it: {"eig_score": 1,
-                             "eig_refresh_score": it["amort"],
-                             "row_gather": it["amort"]},
-    "prefilter_rec": lambda it: {},
-    "q4_rec": lambda it: {"eig_score": 1 + it["q4"],
-                          "row_gather": 4 * it["q4"]}}
+    "sparse_rec": lambda it, r: {"eig_score": 1,
+                                 "eig_refresh_score": it["sparse"],
+                                 "row_gather": it["sparse"]},
+    "amort_rec": lambda it, r: {"eig_score": 1,
+                                "eig_refresh_score": it["amort"],
+                                "row_gather": it["amort"]},
+    "prefilter_rec": lambda it, r: {},
+    "q4_rec": lambda it, r: {"eig_score": 1 + it["q4"],
+                             "row_gather": 4 * it["q4"]},
+    "surr_rec": lambda it, r: {"eig_score": 1 + it["surr"]
+                               - sum(r["hybrid"]),
+                               "row_gather": it["surr"]},
+    "crowd_rec": lambda it, r: {"eig_score": 1,
+                                "eig_refresh_score": it["crowd"],
+                                "row_gather": it["crowd"]},
+    "crowd_batch_rec": lambda it, r: {
+        "eig_score_batched": 1,
+        "eig_refresh_score_batched": it["crowd_batch"],
+        "row_gather_batched": it["crowd_batch"]}}
 
 
 def _mesh_driver():
@@ -5891,9 +5920,13 @@ def _hold_knobs(spec: str, b: int, jobs, ranks, arrs, one: dict, tmp: str,
     holds them (the one-label jobs), every rank of a q-wide run the same
     picks; the fingerprints equal within each group; on the card each
     rank's launches as :data:`_KNOB_WANTS` (added to ``total``); the
-    amortized gate's verdicts on every rank the unsharded run's; rank 0's
-    record held ``--against`` the yardstick's. Prints ms a round (a
-    label at q = 4) and peak memory a rank beside the unsharded run's."""
+    amortized gate's verdicts on every rank the unsharded run's; the
+    surrogate's hybrid rounds and final fit the same on every rank; the
+    crowd's applied labels and weights bitwise the unsharded run's up to a
+    seed's first differing pick; rank 0's record held ``--against`` the
+    yardstick's. Prints ms a round (a label at q = 4) and peak memory a
+    rank beside the unsharded run's, and the surrogate's hybrid-round
+    share a rank beside the unsharded run's."""
     import numpy as np
 
     n = len(ranks)
@@ -5917,15 +5950,34 @@ def _hold_knobs(spec: str, b: int, jobs, ranks, arrs, one: dict, tmp: str,
                 if flips:
                     log(f"{what} rank {r}: tie-break-flips (seed, round, "
                         f"gap): {flips}")
+                if job.startswith("crowd"):
+                    _hold_crowd(what, r, arrs[r], yard["arrays"], job,
+                                flips)
         _hold_prints(what, b, jr)
+        if job == "sparse_rec" and cuda and any(
+                x["peak_gb"] > yard["peak_gb"] for x in jr):
+            raise AssertionError(f"{what}: a rank's peak "
+                                 f"{[x['peak_gb'] for x in jr]} GB above the "
+                                 f"unsharded run's {yard['peak_gb']}")
+        hybrid = ""
+        if "hybrid" in yard:
+            if any(x["hybrid"] != jr[0]["hybrid"]
+                   or x["fit_digest"] != jr[0]["fit_digest"] for x in jr):
+                raise AssertionError(f"{what}: the hybrid rounds or the fit "
+                                     "differ between ranks")
+            hybrid = (f"; hybrid rounds {sum(yard['hybrid'])}/"
+                      f"{len(yard['hybrid'])} unsharded, "
+                      + ", ".join(f"{sum(x['hybrid'])}/{len(x['hybrid'])}"
+                                  for x in jr)
+                      + " ranks (the fit bitwise equal on every rank)")
         if "gates" in yard or any("gates" in x for x in jr):
             if any(x.get("gates") != yard.get("gates") for x in jr):
                 raise AssertionError(
                     f"{what}: gate verdicts {[x.get('gates') for x in jr]}"
                     f" against the unsharded {yard.get('gates')}")
         if cuda:
-            want = _KNOB_WANTS[job](rounds)
             for r in range(n):
+                want = _KNOB_WANTS[job](rounds, jr[r])
                 if jr[r]["launches"] != want:
                     raise AssertionError(f"{what} rank {r} launches "
                                          f"{jr[r]['launches']}, want {want}")
@@ -5942,7 +5994,9 @@ def _hold_knobs(spec: str, b: int, jobs, ranks, arrs, one: dict, tmp: str,
                                                  "bytes_per_round")}
                               for x in jr],
                     "max_score_gap": max(gaps), "against": lines,
-                    "gates": yard.get("gates")}
+                    "gates": yard.get("gates"),
+                    "hybrid": {"one": yard.get("hybrid"),
+                               "ranks": [x.get("hybrid") for x in jr]}}
         engaged = (f"; gate engaged in {sum(yard['gates'])}/"
                    f"{len(yard['gates'])} rounds on every rank as unsharded"
                    if yard.get("gates") else "")
@@ -5953,9 +6007,26 @@ def _hold_knobs(spec: str, b: int, jobs, ranks, arrs, one: dict, tmp: str,
             + f"; peak GB {yard['peak_gb']:.3f} unsharded, "
             + ", ".join(f"{x['peak_gb']:.3f}" for x in jr)
             + f"; launches a rank {jr[0]['launches']}; max score gap "
-            f"{max(gaps):.3e}{engaged}; against unsharded: "
+            f"{max(gaps):.3e}{engaged}{hybrid}; against unsharded: "
             + "; ".join(lines) + f" ({smi})")
     return out
+
+
+def _hold_crowd(what: str, rank: int, arr, one_arr, job: str,
+                flips: list) -> None:
+    """A crowd job's applied labels and weights on a rank: bitwise the
+    unsharded run's, each seed up to its first differing pick (the votes
+    depend on the picked item's label alone)."""
+    import numpy as np
+
+    first = {seed: t for seed, t, _ in flips}
+    for f in ("applied_label", "label_weight"):
+        a, b = arr[f"{job}/{f}"], one_arr[f]
+        for seed in range(a.shape[0]):
+            t = first.get(seed, a.shape[1])
+            if a[seed, :t].tobytes() != b[seed, :t].tobytes():
+                raise AssertionError(f"{what} rank {rank}: seed {seed}'s "
+                                     f"{f} is not the unsharded run's")
 
 
 def phase_mesh(dev, task, total: dict, smi: str,
@@ -5974,12 +6045,13 @@ def phase_mesh(dev, task, total: dict, smi: str,
     t_phase = time.perf_counter()
     drv, script = _mesh_driver()
     held = ("main", "batch", "paper") + BASELINES
-    jobs = held + ("suite", "ckpt_cut", "ckpt") + MESH_KNOBS
+    jobs = held + ("suite", "ckpt_cut", "ckpt", "prior_chunks") + MESH_KNOBS
     # the yardstick's CODA runs recorded (phase 15's --against side), and
     # --debug-viz's unsharded P(best); every knob's run recorded (the
     # --against side of both phases)
     yard = (("main_rec", "batch_rec", "paper") + BASELINES + ("suite",)
-            + ("prefilter_rec", "q4_rec", "amort_rec", "sparse_rec", "viz"))
+            + ("prefilter_rec", "q4_rec", "amort_rec", "surr_rec",
+               "crowd_rec", "crowd_batch_rec", "sparse_rec", "viz"))
     tmp = tempfile.mkdtemp(prefix="mesh_")
     out: dict = {"card": smi}
     cuda = dev.type == "cuda"
@@ -6004,7 +6076,8 @@ def phase_mesh(dev, task, total: dict, smi: str,
                            os.path.join(HERE, "data"), MESH_SUITE_TASKS,
                            os.path.join(tmp, "one.sqlite"), log=log,
                            root=os.path.join(tmp, "one"), viz_task=VIZ_TASK,
-                           pool_task=pool_task, prefilter_n=MESH_PREFILTER_N)
+                           pool_task=pool_task, prefilter_n=MESH_PREFILTER_N,
+                           crowd_spec=CROWD_SPEC)
         out["unsharded_s"] = time.perf_counter() - t0
         one_rows = drv.suite_rows(os.path.join(tmp, "one.sqlite"))
         free()
@@ -6015,7 +6088,8 @@ def phase_mesh(dev, task, total: dict, smi: str,
                                         "--jobs", ",".join(jobs),
                                         "--pool-task", pool_task,
                                         "--prefilter-n",
-                                        str(MESH_PREFILTER_N)],
+                                        str(MESH_PREFILTER_N),
+                                        "--crowd-spec", CROWD_SPEC],
             os.path.join(tmp, "ranks"), MESH_TIMEOUT_S)
         out["ranks_s"] = time.perf_counter() - t0
         gaps, flips = {}, {}
@@ -6064,6 +6138,13 @@ def phase_mesh(dev, task, total: dict, smi: str,
                     ("main", "batch", "ckpt_cut", "ckpt"))
                     for r in range(MESH_D)))
         out["checkpoint"] = _hold_checkpoint(ranks, arrs, smi)
+        if not all(ranks[r]["jobs"]["prior_chunks"]["bitwise"]
+                   for r in range(MESH_D)):
+            raise AssertionError("mesh: the confusion prior summed over the "
+                                 "data group a model at a time is not the "
+                                 "whole sum")
+        log("mesh prior_chunks: the confusion prior's data-group sum a "
+            "model at a time bitwise the whole sum on every rank")
         out["knobs"] = _hold_knobs("data=2", 1, MESH_KNOBS, ranks, arrs,
                                    one, tmp, os.path.join(tmp, "ranks"),
                                    smi, total, MESH_ROUNDS, cuda)
@@ -6319,6 +6400,7 @@ def phase_mesh_model(dev, task, total: dict, smi: str, peaks,
                 ["--mesh", spec, "--jobs", ",".join(jobs),
                  "--viz-task", VIZ_TASK, "--pool-task", kept["pool_task"],
                  "--prefilter-n", str(MESH_PREFILTER_N),
+                 "--crowd-spec", CROWD_SPEC,
                  "--replays", ",".join(MODEL_REPLAYS)]
                 + _rounds_arg(rounds),
                 os.path.join(tmp, spec.replace(",", "_").replace("=", "")),

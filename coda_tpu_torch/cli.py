@@ -45,13 +45,14 @@ H the model axis does not divide the reference's placement error.
 among its knobs and the whole task's digest), which ``cli replay``
 re-executes under ``torchrun`` on as many ranks; ``--checkpoint-dir``
 saves each rank's blocks under ``D/seed_<s>/rank_<r>``; ``--debug-viz``
-replays the labels on every rank and logs from rank 0. ``--posterior
-sparse:K``, ``--eig-pbest amortized``, ``--prefilter-n`` and
-``--acq-batch`` above 1 run on a mesh too (``--acq-batch`` with
-``--checkpoint-dir`` stays refused, as unsharded). A noisy
-``--oracle-noise`` and ``--eig-scorer surrogate:k`` raise
-``NotImplementedError`` under a mesh (the next mesh slice), as the serve
-verbs do under ``torchrun``; ``--profile-dir`` traces rank 0.
+replays the labels on every rank and logs from rank 0. Every other flag
+runs on a mesh too: ``--posterior sparse:K``, ``--eig-pbest amortized``,
+``--prefilter-n``, ``--acq-batch`` above 1, ``--eig-scorer surrogate:k``
+(with ``--surrogate-prior``) and a noisy ``--oracle-noise``
+(``--acq-batch`` or ``--oracle-noise`` with ``--checkpoint-dir`` stays
+refused, as unsharded); ``--profile-dir`` traces rank 0. The serve verbs
+run one process, as the reference's ``serve`` does, and refuse to start
+under ``torchrun``.
 ``--acq-batch Q`` labels Q points a round (``--iters`` counts rounds, so a
 run takes Q x iters labels; the cumulative regret is label-weighted).
 ``--record-dir`` writes a flight-recorder record (schema v4, the
@@ -591,7 +592,8 @@ def run_all_seeds(args, factory, dataset, loss_fn, dev):
         )
 
         common = dict(iters=args.iters, seeds=args.seeds, loss_fn=loss_fn,
-                      acq_batch=q, device=dev, cost_label=args.method)
+                      acq_batch=q, device=dev, cost_label=args.method,
+                      mesh=mesh)
         if trace_k:
             return run_seeds_crowd_recorded(
                 factory, dataset.preds, dataset.labels, cfg,
@@ -769,30 +771,14 @@ def quality_main(argv=None):
     return 0 if ok else 1
 
 
-def check_mesh_flags(args) -> None:
-    """The refusal of ``--mesh`` (the next mesh slice) for the path that
-    bypasses the mesh-aware engine: a noisy crowd oracle. ``make_coda``
-    refuses the surrogate scorer under a mesh (``--surrogate-prior pool``
-    needs it)."""
-    if not args.mesh:
-        return
-    cfg = crowd_config(args)
-    if cfg is not None and not cfg.clean:
-        from coda_tpu_torch.parallel.mesh import MESH_NEXT
-
-        raise NotImplementedError(
-            f"--oracle-noise {args.oracle_noise} under --mesh comes with "
-            f"{MESH_NEXT}")
-
-
 def refuse_serve_on_mesh(verb: str) -> None:
-    """The serve verbs run one process; under ``torchrun`` (more than one
-    rank) they raise, naming the next mesh slice."""
+    """The serve verbs run one process, as the reference's ``serve`` does
+    (it takes no ``--mesh``); under ``torchrun`` (more than one rank) they
+    refuse to start."""
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        from coda_tpu_torch.parallel.mesh import MESH_NEXT
-
-        raise NotImplementedError(
-            f"cli {verb} on a mesh of ranks comes with {MESH_NEXT}")
+        raise SystemExit(
+            f"cli {verb} runs one process, as the reference's serve does; "
+            "start it without torchrun")
 
 
 def main(argv=None):
@@ -822,7 +808,6 @@ def main(argv=None):
 
         return suite_main(argv[1:])
     args = parse_args(argv)
-    check_mesh_flags(args)
     if not args.mesh:
         return _main(args, None)
     import torch.distributed as dist

@@ -27,6 +27,17 @@ are aggregated on its own reliability state, so seed s of a batch is
 bitwise its one-seed run. **A clean config runs the engine's own
 program** (``build_experiment_fn``, ``make_batched_experiment_fn``), with
 ``CrowdAux = None``.
+
+Under a mesh (``mesh=``, ``parallel/mesh.py``) every rank runs the same
+rounds on its ``(H/b, N/a)`` block, as the engine does: the chosen item's
+true label is read on the rank that holds it and sent to every rank
+(``engine.loop.answer``), the regret reads the chosen model's loss from
+its owner (``oracle.regret_fn``), the recorder's trace is the mesh's, and
+the q-wide pair is the mesh's (``selectors/batch.resolve_batch_wfns``).
+The vote draws come from the round keys alone and the reliability state
+is small, so both stay replicated: every rank draws the same votes,
+aggregates them on the same ``ReliabilityState`` and applies the same
+weighted label.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ from coda_tpu_torch.engine.loop import (
     ExperimentResult,
     RunTraceAux,
     _as_tensor,
+    answer,
     _engine_cost_name,
     _first_pick,
     _score_digest,
@@ -70,7 +82,10 @@ from coda_tpu_torch.engine.loop import (
     seeds_batch,
 )
 from coda_tpu_torch.losses import accuracy_loss
+from coda_tpu_torch.oracle import regret_fn
 from coda_tpu_torch.oracle import true_losses as compute_true_losses
+from coda_tpu_torch.parallel.collectives import max_over
+from coda_tpu_torch.parallel.mesh import Mesh
 from coda_tpu_torch.selectors.batch import resolve_batch_wfns
 from coda_tpu_torch.selectors.protocol import Selector
 from coda_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -95,10 +110,19 @@ def _require_weighted(selector: Selector) -> None:
             "clean oracle instead")
 
 
-def n_classes_of(labels) -> int:
+def n_classes_of(labels, mesh: Optional[Mesh] = None) -> int:
     """The pool's class count, ``labels.max() + 1``, read on the host once
-    before the rounds (the reference sizes its confusions the same way)."""
-    return int(labels.max()) + 1
+    before the rounds (the reference sizes its confusions the same way);
+    under a ``mesh`` ``labels`` is this rank's block and the max crosses
+    the data group."""
+    top = labels.max()
+    if mesh is not None:
+        top = max_over(top, mesh)
+    return int(top) + 1
+
+
+def _n_items(labels, mesh: Optional[Mesh]) -> int:
+    return labels.shape[0] * (mesh.data if mesh is not None else 1)
 
 
 def run_draws(round_keys: torch.Tensor, cfg: CrowdConfig, n_classes: int,
@@ -123,7 +147,7 @@ def _round(draws: VoteDraws, t: int) -> VoteDraws:
 def make_crowd_step_fn(selector: Selector, labels: torch.Tensor,
                        model_losses: torch.Tensor, cfg: CrowdConfig,
                        confusions: torch.Tensor, trace_k: int = 0,
-                       acq_batch: int = 1):
+                       acq_batch: int = 1, mesh: Optional[Mesh] = None):
     """One crowd round: ``(state, rel, cum, key, draws) -> (state, rel,
     cum, outs)`` with ``draws`` the round's :class:`VoteDraws` on the
     device and ``outs`` the engine's (``true_class`` the applied label),
@@ -131,10 +155,12 @@ def make_crowd_step_fn(selector: Selector, labels: torch.Tensor,
     true class, applied label, weight and the reliability counts (the
     run turns a round's counts into its :class:`CrowdAux` accuracies after
     the last round, :func:`_crowd_aux`). At ``acq_batch`` q > 1 the
-    reliability posterior chains through the q answers in order."""
+    reliability posterior chains through the q answers in order.
+    ``mesh``: ``labels`` and ``model_losses`` are this rank's blocks (the
+    module docstring)."""
     assert not cfg.clean, "clean configs run the engine step"
     _require_weighted(selector)
-    best_loss = model_losses.min()
+    regret_of = regret_fn(model_losses, mesh)
     log_conf = log_confusions(confusions)
 
     def crowd_answer(rel, draws: VoteDraws, true_class):
@@ -143,14 +169,15 @@ def make_crowd_step_fn(selector: Selector, labels: torch.Tensor,
                                draws.answered, cfg)
 
     if acq_batch > 1:
-        sel_q, upd_qw = resolve_batch_wfns(selector, acq_batch)
+        sel_q, upd_qw = resolve_batch_wfns(selector, acq_batch, mesh)
 
         def step_q(state, rel, cum, k, draws):
             k_sel, k_best = trandom.split(k)
             res = sel_q(state, k_sel)
             first = _first_pick(res)
-            scored = _score_digest(first, trace_k) if trace_k else None
-            tcs = labels.take(res.idx)                 # (q,) ground truth
+            scored = (_score_digest(first, trace_k, mesh) if trace_k
+                      else None)
+            tcs = answer(labels, res.idx, mesh)        # (q,) ground truth
             zs, ws = [], []
             for j in range(acq_batch):
                 z_j, w_j, rel = crowd_answer(rel, _round(draws, j), tcs[j])
@@ -159,13 +186,13 @@ def make_crowd_step_fn(selector: Selector, labels: torch.Tensor,
             applied, weights = torch.stack(zs), torch.stack(ws)
             state = upd_qw(state, res.idx, applied, res.prob, weights)
             best, b_stoch = selector.best(state, k_best)
-            regret = model_losses.take(best) - best_loss
+            regret = regret_of(best)
             cum = cum + acq_batch * regret             # label-weighted
             outs = (res.idx, applied, best, regret, cum, res.prob,
                     res.stochastic | b_stoch)
             if trace_k:
                 outs += (make_round_trace(selector, first, state, k,
-                                          trace_k, scored),)
+                                          trace_k, scored, mesh),)
             aux = (tcs, applied, weights, rel.counts)
             return state, rel, cum, outs + (aux,)
 
@@ -174,18 +201,18 @@ def make_crowd_step_fn(selector: Selector, labels: torch.Tensor,
     def step(state, rel, cum, k, draws):
         k_sel, k_best = trandom.split(k)
         res = selector.select(state, k_sel)
-        scored = _score_digest(res, trace_k) if trace_k else None
-        tc = labels.take(res.idx)                      # ground truth
+        scored = _score_digest(res, trace_k, mesh) if trace_k else None
+        tc = answer(labels, res.idx, mesh)             # ground truth
         applied, weight, rel = crowd_answer(rel, draws, tc)
         state = selector.update_w(state, res.idx, applied, res.prob, weight)
         best, b_stoch = selector.best(state, k_best)
-        regret = model_losses.take(best) - best_loss
+        regret = regret_of(best)
         cum = cum + regret
         outs = (res.idx, applied, best, regret, cum, res.prob,
                 res.stochastic | b_stoch)
         if trace_k:
             outs += (make_round_trace(selector, res, state, k, trace_k,
-                                      scored),)
+                                      scored, mesh),)
         aux = (tc, applied, weight, rel.counts)
         return state, rel, cum, outs + (aux,)
 
@@ -194,24 +221,26 @@ def make_crowd_step_fn(selector: Selector, labels: torch.Tensor,
 
 def make_batched_crowd_step_fn(selector: Selector, labels: torch.Tensor,
                                model_losses: torch.Tensor, cfg: CrowdConfig,
-                               confusions: torch.Tensor, trace_k: int = 0):
+                               confusions: torch.Tensor, trace_k: int = 0,
+                               mesh: Optional[Mesh] = None):
     """One crowd round of all S replicas through ``selector.batched``:
     ``(state, rels, cum (S,), keys (S, 2, 2), draws, round_keys=None) ->
     (state, rels, cum, outs)``, ``rels`` the S replicas' reliability
     states (a list), ``draws`` the round's ``(S, ...)`` draws. Responses
     are drawn for all replicas at once; each replica's votes aggregate on
-    its own state; one weighted update applies the S answers."""
+    its own state; one weighted update applies the S answers. ``mesh``:
+    see :func:`make_crowd_step_fn`."""
     bsel = selector.batched
     if bsel is None or bsel.update_w is None:
         raise ValueError(f"selector {selector.name!r} has no seed-batched "
                          "weighted update; run its seeds one after another")
-    best_loss = model_losses.min()
+    regret_of = regret_fn(model_losses, mesh)
     log_conf = log_confusions(confusions)
 
     def step(state, rels, cum, keys, draws, round_keys=None):
         res = bsel.select(state, keys)
-        scored = _score_digest(res, trace_k) if trace_k else None
-        tc = labels.take(res.idx)                      # (S,)
+        scored = _score_digest(res, trace_k, mesh) if trace_k else None
+        tc = answer(labels, res.idx, mesh)             # (S,)
         responses = votes_from_draws(draws, log_conf, tc)   # (S, V)
         answers = [aggregate_votes(rel, draws.ann_ids[s], responses[s],
                                    draws.answered[s], cfg)
@@ -221,13 +250,13 @@ def make_batched_crowd_step_fn(selector: Selector, labels: torch.Tensor,
         rels = [a[2] for a in answers]
         state = bsel.update_w(state, res.idx, applied, res.prob, weights)
         best, b_stoch = bsel.best(state)
-        regret = model_losses.take(best) - best_loss
+        regret = regret_of(best)
         cum = cum + regret
         outs = (res.idx, applied, best, regret, cum, res.prob,
                 res.stochastic | b_stoch)
         if trace_k:
             outs += (make_round_trace(selector, res, state, round_keys,
-                                      trace_k, scored),)
+                                      trace_k, scored, mesh),)
         aux = (tc, applied, weights, torch.stack([r.counts for r in rels]))
         return state, rels, cum, outs + (aux,)
 
@@ -263,17 +292,17 @@ def _result(cols, regret0, stoch0, selector) -> ExperimentResult:
 def _crowd_experiment(selector: Selector, labels: torch.Tensor,
                       model_losses: torch.Tensor, cfg: CrowdConfig,
                       iters: int, trace_k: int, acq_batch: int,
-                      timings: Optional[list]):
+                      timings: Optional[list], mesh: Optional[Mesh] = None):
     """The single-replica driver behind both build_* variants: ``key ->
     (result, crowd)`` or, with ``trace_k``, ``(result, run_aux, crowd)``."""
-    best_loss = model_losses.min()
-    _validate_rounds(selector, labels.shape[0], iters, acq_batch)
-    n_classes = n_classes_of(labels)
+    regret_of = regret_fn(model_losses, mesh)
+    _validate_rounds(selector, _n_items(labels, mesh), iters, acq_batch)
+    n_classes = n_classes_of(labels, mesh)
     dev = labels.device
     confusions = make_annotators(cfg, n_classes, dev)
     step = make_crowd_step_fn(selector, labels, model_losses, cfg,
                               confusions, trace_k=trace_k,
-                              acq_batch=acq_batch)
+                              acq_batch=acq_batch, mesh=mesh)
     _sync = _synchronizer(dev)
 
     def experiment(key: torch.Tensor):
@@ -285,7 +314,7 @@ def _crowd_experiment(selector: Selector, labels: torch.Tensor,
             t0 = time.perf_counter()
         state = selector.init(k_init)
         best0, stoch0 = selector.best(state, k_prior)
-        regret0 = model_losses.take(best0) - best_loss
+        regret0 = regret_of(best0)
         rel = init_reliability(cfg, n_classes, dev)
         if timings is not None:
             _sync()
@@ -315,30 +344,36 @@ def _crowd_experiment(selector: Selector, labels: torch.Tensor,
 def build_crowd_experiment_fn(selector: Selector, labels: torch.Tensor,
                               model_losses: torch.Tensor, cfg: CrowdConfig,
                               iters: int = 100, acq_batch: int = 1,
-                              timings: Optional[list] = None) -> Callable:
+                              timings: Optional[list] = None,
+                              mesh: Optional[Mesh] = None) -> Callable:
     """``key -> (ExperimentResult, CrowdAux)`` for one seed. A clean config
-    returns ``(engine result, None)``: the engine's own program."""
+    returns ``(engine result, None)``: the engine's own program. ``mesh``:
+    ``labels`` and ``model_losses`` are this rank's blocks."""
     if cfg.clean:
         base = build_experiment_fn(selector, labels, model_losses, iters,
-                                   timings=timings, acq_batch=acq_batch)
+                                   timings=timings, acq_batch=acq_batch,
+                                   mesh=mesh)
         return lambda key: (base(key), None)
     return _crowd_experiment(selector, labels, model_losses, cfg, iters,
-                             trace_k=0, acq_batch=acq_batch, timings=timings)
+                             trace_k=0, acq_batch=acq_batch, timings=timings,
+                             mesh=mesh)
 
 
 def build_recording_crowd_experiment_fn(
         selector: Selector, labels: torch.Tensor,
         model_losses: torch.Tensor, cfg: CrowdConfig, iters: int = 100,
         trace_k: int = 8, acq_batch: int = 1,
-        timings: Optional[list] = None) -> Callable:
+        timings: Optional[list] = None,
+        mesh: Optional[Mesh] = None) -> Callable:
     """``key -> (ExperimentResult, RunTraceAux, CrowdAux)``, the flight
     recorder's variant; a clean config runs the engine's recording
-    program with ``CrowdAux = None``."""
-    trace_k = _trace_k(max(1, int(trace_k)), labels.shape[0])
+    program with ``CrowdAux = None``. ``mesh``: see
+    :func:`build_crowd_experiment_fn`."""
+    trace_k = _trace_k(max(1, int(trace_k)), _n_items(labels, mesh))
     if cfg.clean:
         base = build_experiment_fn(selector, labels, model_losses, iters,
                                    timings=timings, trace_k=trace_k,
-                                   acq_batch=acq_batch)
+                                   acq_batch=acq_batch, mesh=mesh)
 
         def clean(key):
             result, aux = base(key)
@@ -347,7 +382,7 @@ def build_recording_crowd_experiment_fn(
         return clean
     return _crowd_experiment(selector, labels, model_losses, cfg, iters,
                              trace_k=trace_k, acq_batch=acq_batch,
-                             timings=timings)
+                             timings=timings, mesh=mesh)
 
 
 def build_batched_crowd_experiment_fn(selector: Selector,
@@ -355,21 +390,24 @@ def build_batched_crowd_experiment_fn(selector: Selector,
                                       model_losses: torch.Tensor,
                                       cfg: CrowdConfig, iters: int = 100,
                                       timings: Optional[list] = None,
-                                      trace_k: int = 0) -> Callable:
+                                      trace_k: int = 0,
+                                      mesh: Optional[Mesh] = None
+                                      ) -> Callable:
     """``keys (S, 2) -> (ExperimentResult[, RunTraceAux], CrowdAux)``, all
     with a leading ``(S,)`` axis: the S seeds in one round loop through
     ``selector.batched`` (its weighted update). Each seed's key schedule
     and vote draws are its one-seed run's. ``timings``: one ``{"init_ms",
-    "rounds_ms"}`` entry for the batch."""
-    trace_k = _trace_k(trace_k, labels.shape[0])
-    _validate_rounds(selector, labels.shape[0], iters)
-    n_classes = n_classes_of(labels)
+    "rounds_ms"}`` entry for the batch. ``mesh``: see
+    :func:`build_crowd_experiment_fn`."""
+    trace_k = _trace_k(trace_k, _n_items(labels, mesh))
+    _validate_rounds(selector, _n_items(labels, mesh), iters)
+    n_classes = n_classes_of(labels, mesh)
     dev = labels.device
     confusions = make_annotators(cfg, n_classes, dev)
     step = make_batched_crowd_step_fn(selector, labels, model_losses, cfg,
-                                      confusions, trace_k=trace_k)
+                                      confusions, trace_k=trace_k, mesh=mesh)
     bsel = selector.batched
-    best_loss = model_losses.min()
+    regret_of = regret_fn(model_losses, mesh)
     _sync = _synchronizer(dev)
 
     def experiment(keys: torch.Tensor):
@@ -383,7 +421,7 @@ def build_batched_crowd_experiment_fn(selector: Selector,
             t0 = time.perf_counter()
         state = bsel.init(S)
         best0, stoch0 = bsel.best(state)
-        regret0 = model_losses.take(best0) - best_loss
+        regret0 = regret_of(best0)
         rels = [init_reliability(cfg, n_classes, dev) for _ in range(S)]
         if timings is not None:
             _sync()
@@ -422,16 +460,18 @@ def make_batched_crowd_experiment_fn(
         selector_factory: Callable[[torch.Tensor], Selector],
         cfg: CrowdConfig, iters: int, loss_fn: Callable = accuracy_loss,
         timings: Optional[list] = None, trace_k: int = 0,
-        acq_batch: int = 1):
+        acq_batch: int = 1, mesh: Optional[Mesh] = None):
     """``(preds, labels, keys (S, 2)) -> (ExperimentResult, CrowdAux |
     None)`` with a leading seed axis (``(ExperimentResult, RunTraceAux,
     CrowdAux | None)`` with ``trace_k > 0``): the crowd counterpart of
     :func:`engine.loop.make_batched_experiment_fn`, whose program a clean
-    config runs."""
+    config runs. ``mesh``: ``preds`` and ``labels`` are this rank's
+    blocks, and the factory is called as ``selector_factory(preds,
+    mesh=mesh)``."""
     if cfg.clean:
         base = make_batched_experiment_fn(selector_factory, iters, loss_fn,
                                           timings=timings, trace_k=trace_k,
-                                          acq_batch=acq_batch)
+                                          acq_batch=acq_batch, mesh=mesh)
 
         def clean(preds, labels, keys):
             out = base(preds, labels, keys)
@@ -440,20 +480,21 @@ def make_batched_crowd_experiment_fn(
         return clean
 
     def fn(preds, labels, keys):
-        sel = selector_factory(preds)
+        sel = (selector_factory(preds) if mesh is None
+               else selector_factory(preds, mesh=mesh))
         _require_weighted(sel)
-        losses = compute_true_losses(preds, labels, loss_fn)
+        losses = compute_true_losses(preds, labels, loss_fn, mesh=mesh)
         if keys.shape[0] > 1 and crowd_seeds_batch(sel, acq_batch):
             return build_batched_crowd_experiment_fn(
                 sel, labels, losses, cfg, iters, timings=timings,
-                trace_k=trace_k)(keys)
+                trace_k=trace_k, mesh=mesh)(keys)
         exp = (build_recording_crowd_experiment_fn(
                    sel, labels, losses, cfg, iters, trace_k=trace_k,
-                   acq_batch=acq_batch, timings=timings)
+                   acq_batch=acq_batch, timings=timings, mesh=mesh)
                if trace_k else
                build_crowd_experiment_fn(sel, labels, losses, cfg, iters,
                                          acq_batch=acq_batch,
-                                         timings=timings))
+                                         timings=timings, mesh=mesh))
         runs = [exp(k) for k in keys]
         result = ExperimentResult(*(torch.stack(f) for f in
                                     zip(*(r[0] for r in runs))))
@@ -471,15 +512,15 @@ def make_batched_crowd_experiment_fn(
 
 
 def _run_crowd(selector_factory, preds, labels, cfg, iters, seeds, loss_fn,
-               trace_k, acq_batch, device, timings, cost_label):
-    dev = resolve_device(device)
+               trace_k, acq_batch, device, timings, cost_label, mesh):
+    dev = mesh.device if mesh is not None else resolve_device(device)
     preds = _as_tensor(preds).to(dev, torch.float32)
     labels = _as_tensor(labels).to(dev)
     keys = torch.stack([trandom.PRNGKey(s) for s in range(seeds)])
     fn = make_batched_crowd_experiment_fn(selector_factory, cfg, iters,
                                           loss_fn, timings=timings,
                                           trace_k=trace_k,
-                                          acq_batch=acq_batch)
+                                          acq_batch=acq_batch, mesh=mesh)
     if cost_label is None:
         return fn(preds, labels, keys)
     from coda_tpu_torch.telemetry.costs import aot_call
@@ -495,13 +536,17 @@ def run_seeds_crowd(selector_factory: Callable[[torch.Tensor], Selector],
                     seeds: int = 5, loss_fn: Callable = accuracy_loss,
                     acq_batch: int = 1, device: DeviceLike = None,
                     timings: Optional[list] = None,
-                    cost_label: Optional[str] = None):
+                    cost_label: Optional[str] = None,
+                    mesh: Optional[Mesh] = None):
     """All seeds of the crowd experiment on ``device`` (default: the
     card): ``(ExperimentResult, CrowdAux | None)``, seed axis leading.
     ``cost_label``: harvest the run's kernel cost, as
-    ``engine.run_seeds_compiled`` does."""
+    ``engine.run_seeds_compiled`` does. ``mesh``: ``preds`` and
+    ``labels`` are this rank's blocks, placed on the mesh's device; every
+    rank calls this with the same arguments and gets the same result."""
     return _run_crowd(selector_factory, preds, labels, cfg, iters, seeds,
-                      loss_fn, 0, acq_batch, device, timings, cost_label)
+                      loss_fn, 0, acq_batch, device, timings, cost_label,
+                      mesh)
 
 
 def run_seeds_crowd_recorded(selector_factory: Callable[[torch.Tensor],
@@ -512,9 +557,10 @@ def run_seeds_crowd_recorded(selector_factory: Callable[[torch.Tensor],
                              trace_k: int = 8, acq_batch: int = 1,
                              device: DeviceLike = None,
                              timings: Optional[list] = None,
-                             cost_label: Optional[str] = None):
+                             cost_label: Optional[str] = None,
+                             mesh: Optional[Mesh] = None):
     """:func:`run_seeds_crowd` with the flight recorder on:
     ``(ExperimentResult, RunTraceAux, CrowdAux | None)``."""
     return _run_crowd(selector_factory, preds, labels, cfg, iters, seeds,
                       loss_fn, max(1, int(trace_k)), acq_batch, device,
-                      timings, cost_label)
+                      timings, cost_label, mesh)

@@ -49,9 +49,10 @@ reference's replay runs the clean engine there.
 A record made under ``--mesh SPEC`` re-executes on that mesh: under
 ``python -m torch.distributed.run --nproc-per-node <data*model> -m
 coda_tpu_torch.cli replay <dir>`` every rank rebuilds the mesh, loads its
-block and runs the rounds (their collectives need every rank); each rank
-triages the same replicated result, rank 0 prints it, and every rank
-exits with the verdict. In a world of any other size the replay is
+block and runs the rounds (their collectives need every rank; a noisy
+crowd record re-executes its crowd there, a surrogate record its
+scorer); each rank triages the same replicated result, rank 0 prints it,
+and every rank exits with the verdict. In a world of any other size the replay is
 refused, naming the size it needs. ``--against`` compares two records
 without re-executing, in one process: a mesh record against an unsharded
 one differs on the ``mesh`` knob, so the auto tolerance is the 2.34e-4
@@ -657,7 +658,7 @@ def replay_record(record: RunRecord, selector_factory, preds, labels,
 
         result, aux, crowd = make_batched_crowd_experiment_fn(
             selector_factory, cfg, iters, LOSS_FNS[loss], trace_k=trace_k,
-            acq_batch=record.acq_batch, timings=timings)(*args)
+            acq_batch=record.acq_batch, timings=timings, mesh=mesh)(*args)
     arrays = RunRecord.from_result(result, aux, {}, {}, crowd=crowd).arrays
     return {k: arrays[k] for k in (
         "chosen_idx", "true_class", "best_model", "regret",

@@ -18,6 +18,17 @@ from coda_tpu_torch.parallel.collectives import gather_sum
 from coda_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 
 
+# bytes of one rank's part the confusion prior's data-group sum gathers at
+# a time
+_PRIOR_CHUNK_BYTES = 64 << 20
+
+
+def _prior_chunk(C: int) -> int:
+    """Models of the ``(H, C, C)`` prior a chunk of its data-group sum
+    holds (:data:`_PRIOR_CHUNK_BYTES` a rank's part)."""
+    return max(1, _PRIOR_CHUNK_BYTES // (4 * C * C))
+
+
 def ensemble_preds(preds: torch.Tensor,
                    mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Mean prediction over models: ``(H, N, C) -> (N, C)``. Under a
@@ -42,8 +53,8 @@ def create_confusion_matrices(true_labels: torch.Tensor,
     Rows are normalised with a 1e-6 floor. With a ``mesh`` the operands
     are this rank's block (its models of ``model_predictions``, its items
     of both) and the counts over N are the data group's blocks added in
-    rank order (:func:`gather_sum`): this rank's models' matrices, the
-    same on every rank of its data group.
+    rank order (:func:`gather_sum`, a chunk of models at a time): this
+    rank's models' matrices, the same on every rank of its data group.
     """
     H, N, C = model_predictions.shape
     true_one_hot = F.one_hot(true_labels.to(torch.int64), C).to(torch.float32)
@@ -55,7 +66,11 @@ def create_confusion_matrices(true_labels: torch.Tensor,
         raise ValueError(mode)
     conf = torch.einsum("nc,hnj->hcj", true_one_hot, p)
     if mesh is not None:
-        conf = gather_sum(conf, mesh, DATA_AXIS)
+        # summed in place a chunk of models at a time (bitwise the whole
+        # sum, whose parts come out contiguous too): a rank never holds
+        # every rank's whole (H, C, C) part
+        conf = gather_sum(conf.contiguous(), mesh, DATA_AXIS,
+                          chunk=_prior_chunk(C))
     return conf / torch.clamp_min(conf.sum(-1, keepdim=True), 1e-6)
 
 

@@ -37,9 +37,6 @@ import torch
 MODEL_AXIS = "model"  # shards H (the candidate-model pool)
 DATA_AXIS = "data"    # shards N (the unlabeled data points)
 
-MESH_NEXT = ("the next mesh slice of the port (slice 5d: its part 2b "
-             "brings the surrogate scorer, its part 3 the noisy crowd)")
-
 
 @dataclass(frozen=True)
 class Mesh:

@@ -20,7 +20,9 @@ module resolves the q-wide pair the engine drives instead of
 Under a mesh (``mesh=``, ``parallel/mesh.py``) the generic re-rank runs on
 this rank's block of the score vector: each pick is the mesh arg-max over
 every block, its score read on the rank that holds it, and only that rank
-marks it picked; the picks are global and the same on every rank.
+marks it picked; the picks are global and the same on every rank. The
+weighted pair of the crowd's rounds (:func:`resolve_batch_wfns`) takes
+the same mesh.
 """
 
 from __future__ import annotations
@@ -117,7 +119,8 @@ def generic_update_q(update: Callable) -> Callable:
 
 def generic_update_qw(selector: Selector) -> Callable:
     """The sequential fallback of the weighted q-wide update: ``update_w``
-    once per answer, in order."""
+    once per answer, in order. On a mesh it is the mesh selector's
+    ``update_w`` (global indices, every rank calling) once per answer."""
     if selector.update_w is None:
         raise ValueError(
             f"selector {selector.name!r} has no weighted update "
@@ -152,11 +155,13 @@ def resolve_batch_fns(selector: Selector, q: int,
     return sel_q, upd_q
 
 
-def resolve_batch_wfns(selector: Selector, q: int):
+def resolve_batch_wfns(selector: Selector, q: int,
+                       mesh: Optional[Mesh] = None):
     """The weighted analogue of :func:`resolve_batch_fns`: ``(select_q,
     update_qw)``, the selector's fused ``update_qw`` where it has one, the
-    sequential ``update_w`` otherwise."""
-    sel_q, _ = resolve_batch_fns(selector, q)
+    sequential ``update_w`` otherwise (``mesh``: the selector's, for the
+    generic re-rank)."""
+    sel_q, _ = resolve_batch_fns(selector, q, mesh)
     upd_qw = (selector.update_qw if selector.update_qw is not None
               else generic_update_qw(selector))
     return sel_q, upd_qw

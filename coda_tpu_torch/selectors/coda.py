@@ -101,9 +101,13 @@ subset item scored on the rank that holds it and the K scores gathered
 from their owners) and the q-wide round (the overlap re-rank's pool the
 top M over every block, each pool item's pi-hat row and cache rows from
 its owner, the |dP(best)| profile's norm and overlap summed over the
-model group). The surrogate scorer raises ``NotImplementedError`` under a
-mesh (the next mesh slice); the fused refresh keeps the reference's
-refusal.
+model group) and the surrogate scorer (the features of each rank's items
+on its block, the model group adding the sums over models; the shortlist
+the top k over every block, each re-scored row computed on its owner and
+sent to every rank; the gate and the normal equations read only gathered
+vectors and rank-order sums, so every rank takes the round's branch
+alike; a warmup or fallback round the sharded kernel-1 pass). The fused
+refresh keeps the reference's refusal.
 """
 
 from __future__ import annotations
@@ -191,7 +195,6 @@ from coda_tpu_torch.parallel.collectives import (
 )
 from coda_tpu_torch.parallel.mesh import (
     DATA_AXIS,
-    MESH_NEXT,
     MODEL_AXIS,
     Mesh,
     check_divisible,
@@ -298,16 +301,6 @@ class CODAHyperparams(NamedTuple):
     pi_update: str = "auto"       # auto (= delta) | delta | exact
 
 
-def _unsupported(knob: str, value, where: str):
-    raise NotImplementedError(
-        f"{knob}={value!r} under a mesh comes with {where}; a mesh of the "
-        "port runs the one-label round of every EIG tier and baseline")
-
-
-# the knobs the mesh's next slice brings: (field, its off value)
-_MESH_REFUSED = (("eig_scorer", "exact"),)
-
-
 def resolve_pi_update(hp: CODAHyperparams, N: Optional[int] = None) -> str:
     """The pi-hat refresh the incremental tier runs: ``exact`` (the column
     recomputed from the posterior row) when asked, else ``delta`` (the
@@ -374,10 +367,9 @@ def batches_seeds(hp: CODAHyperparams) -> bool:
 
 
 def check_supported(hp: CODAHyperparams, N: int) -> None:
-    """Raise on every knob value the port does not run: ``ValueError``
-    with the reference's text where the reference refuses the value too,
-    ``NotImplementedError`` where a later slice brings it. The refusals
-    that depend on the resolved tier are :func:`check_tier`'s."""
+    """Raise ``ValueError`` with the reference's text on every knob value
+    the reference refuses too. The refusals that depend on the resolved
+    tier are :func:`check_tier`'s."""
     del N
     if hp.q not in ("eig", "iid", "uncertainty"):
         raise ValueError(f"unknown q {hp.q!r} "
@@ -414,10 +406,6 @@ def check_supported(hp: CODAHyperparams, N: int) -> None:
             "backend and supports neither shard_spec nor vmapped batches "
             f"(got backend={hp.eig_backend!r}, shard_spec={hp.shard_spec!r}, "
             f"n_parallel={hp.n_parallel})")
-    if hp.shard_spec:
-        for knob, off in _MESH_REFUSED:
-            if getattr(hp, knob) != off:
-                _unsupported(knob, getattr(hp, knob), MESH_NEXT)
 
 
 def shard_mesh_for(hp: CODAHyperparams, N: int, device=None,
@@ -1090,7 +1078,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
             # with the prior posterior's class summaries, then takes the
             # pool's normal equations and warmup credit if given one
             aT, bT = _beta_rows(dirichlets0)
-            fit = sg.init_fit(aT, bT)
+            fit = sg.init_fit(aT, bT, mesh)
             if prior is not None:
                 fit = sg.seed_fit(fit, prior)
         return CODAState(
@@ -1431,25 +1419,51 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
             col = torch.einsum("hs,hns->n", d_t, preds)
         _put_col(state.pi_xi_unnorm, true_class, sum_h(col, mesh))
 
+    def _exact_rows(rows, hyp, pi, pi_xi, sel):
+        """The exact scores of the items ``sel`` (global), the surrogate's
+        re-score: under a mesh each computed on the rank that holds it
+        (its models' part, summed over the model group) and sent to every
+        rank."""
+        if mesh is None:
+            return eig_scores_rows(rows, hyp, pi, pi_xi, sel, approx=approx)
+        part = eig_scores_rows(rows, hyp, pi, pi_xi,
+                               local_positions(sel, N, mesh), approx=approx)
+        return from_owner(sum_h(part, mesh), sel, N, mesh)
+
+    def _surrogate_pass(state: CODAState, fit, pi, pi_xi, true_classes,
+                        full: bool):
+        """The surrogate's round on ``state``'s refreshed cache with
+        ``fit``: ``(scores, fit)`` of the contract-gated round (``full``)
+        or of the hybrid pass alone."""
+        rows, hyp = state.pbest_rows, state.pbest_hyp
+        feats = sg.build_features(state.eig_scores_cached, pi_xi, pi,
+                                  fit.cls_feats, rows, hyp, hard_preds,
+                                  true_classes, mesh=mesh)
+        cand, _ = _candidates(state.unlabeled)
+
+        def exact_rows(sel):
+            return _exact_rows(rows, hyp, pi, pi_xi, sel)
+
+        if not full:
+            return sg.hybrid_score_pass(fit, feats, cand, scorer_k,
+                                        exact_rows, mesh)[:2]
+        return sg.surrogate_score_round(
+            fit, feats, cand, scorer_k, exact_rows,
+            lambda: score_fn(rows, hyp, pi, pi_xi, chunk=hp.eig_chunk,
+                             approx=approx), mesh)
+
     def _surrogate_scores(state: CODAState, pi, pi_xi, true_classes, a_t,
                           b_t):
         """The contract-gated scoring pass (one replica) on the refreshed
         cache: ``(scores, fit)``. ``true_classes`` (q,) and their (q, H)
-        Betas are the round's labelled rows; ``state.eig_scores_cached`` is
-        the previous round's vector and ``state.unlabeled`` already the
-        next select's."""
-        fit = sg.refresh_class_feats(state.surrogate, true_classes, a_t, b_t)
-        rows, hyp = state.pbest_rows, state.pbest_hyp
-        feats = sg.build_features(state.eig_scores_cached, pi_xi, pi,
-                                  fit.cls_feats, rows, hyp, hard_preds,
-                                  true_classes)
-        cand, _ = _candidates(state.unlabeled)
-        return sg.surrogate_score_round(
-            fit, feats, cand, scorer_k,
-            lambda sel: eig_scores_rows(rows, hyp, pi, pi_xi, sel,
-                                        approx=approx),
-            lambda: score_fn(rows, hyp, pi, pi_xi, chunk=hp.eig_chunk,
-                             approx=approx))
+        Betas (this rank's models') are the round's labelled rows;
+        ``state.eig_scores_cached`` is the previous round's vector and
+        ``state.unlabeled`` already the next select's. A warmup or
+        fallback round is the full pass (kernel 1, on a mesh its sharded
+        entry)."""
+        fit = sg.refresh_class_feats(state.surrogate, true_classes, a_t, b_t,
+                                     mesh)
+        return _surrogate_pass(state, fit, pi, pi_xi, true_classes, True)
 
     def _write_row(state: CODAState, c, row_t, hyp_t) -> None:
         """Class row ``c`` (per replica) of the P(best) cache IN PLACE,
@@ -1520,9 +1534,9 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
             beta_t = beta_t if beta_t is not None else _row_beta(
                 state, true_class)
             row_t, hyp_t = update_eig_cache_parts(
-                state.dirichlets, true_class, hard_preds,
+                state.dirichlets, true_class, hard_all,
                 num_points=hp.num_points, precision=precision,
-                beta_t=beta_t, pbest=hp.eig_pbest)
+                beta_t=beta_t, pbest=hp.eig_pbest, mesh=mesh)
             _write_row(state, c, row_t, hyp_t)
             hyp = state.pbest_hyp
             scores, fit = _surrogate_scores(state, pi, pi_xi, c.reshape(1),
@@ -1743,18 +1757,10 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         def score_surrogate(st: CODAState, tcs):
             """A surviving round's surrogate pass on a carried state
             (features, predictions, the shortlist's exact re-score, the
-            gate, the hybrid vector and refold): ``(scores, fit)``."""
-            fit = st.surrogate
-            feats = sg.build_features(
-                st.eig_scores_cached, st.pi_hat_xi, st.pi_hat,
-                fit.cls_feats, st.pbest_rows, st.pbest_hyp, hard_preds, tcs)
-            cand, _ = _candidates(st.unlabeled)
-            scores, fit, _ = sg.hybrid_score_pass(
-                fit, feats, cand, scorer_k,
-                lambda sel: eig_scores_rows(
-                    st.pbest_rows, st.pbest_hyp, st.pi_hat, st.pi_hat_xi,
-                    sel, approx=approx))
-            return scores, fit
+            gate, the hybrid vector and refold): ``(scores, fit)``; under
+            a mesh this rank's block of the scores, every rank calling."""
+            return _surrogate_pass(st, st.surrogate, st.pi_hat,
+                                   st.pi_hat_xi, tcs, False)
 
         extras["score_surrogate"] = score_surrogate
 

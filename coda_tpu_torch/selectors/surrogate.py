@@ -37,6 +37,20 @@ is the fit's normal equations as float64 numpy, summed across sessions
 (:func:`merge_fits`), decayed and capped (:func:`fold_prior`), and a new
 session's fit starts from it with warmup credit (:func:`seed_fit`).
 :func:`prior_digest` is the reference's digest of a pool's values.
+
+Under a mesh (``mesh=``, ``parallel/mesh.py``) each rank holds its
+``(C, N/a, H/b)`` block of the cache and builds the features of its items:
+every sum over models (the class summaries' means, the labelled classes'
+vote share, the |dP(best)| profile's sum, squares and mixture alignment,
+the mixture's normaliser) is the model group's rank-order sum, its max the
+group's max, and a mean divides by the global H as a device tensor. The
+shortlist is the top k over every data block (``ops/masked.top_k``), the
+audit rows are drawn over the global N, each re-scored row is computed on
+its owner's block and sent to every rank (``collectives.from_owner``), and
+the gate reads the predictions and masks gathered over the data group. The
+normal equations add the data group's parts in rank order. So the fit and
+the gate's verdict — and with them the host branch — are bitwise the same
+on every rank.
 """
 
 from __future__ import annotations
@@ -47,7 +61,17 @@ import numpy as np
 import torch
 
 from coda_tpu_torch.ops.masked import entropy2, top_k
+from coda_tpu_torch.ops.pbest import sum_h
 from coda_tpu_torch.ops.sparse_rows import _even_share as _div
+from coda_tpu_torch.parallel.collectives import (
+    all_gather_cat,
+    clear_items,
+    gather_sum,
+    local_positions,
+    max_over,
+    min_over,
+)
+from coda_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 
 #: feature width of the ridge regressor (see :func:`build_features`)
 N_FEATURES = 16
@@ -138,23 +162,33 @@ class SurrogateFit(NamedTuple):
     prior_rejects: torch.Tensor  # 0-d i32, fallbacks inside that credit
 
 
-def class_feats_from_beta(a_row: torch.Tensor, b_row: torch.Tensor
-                          ) -> torch.Tensor:
+def _h_global(H: int, mesh: Optional[Mesh]) -> int:
+    return H * (mesh.model if mesh is not None else 1)
+
+
+def class_feats_from_beta(a_row: torch.Tensor, b_row: torch.Tensor,
+                          mesh: Optional[Mesh] = None) -> torch.Tensor:
     """``(..., 3)`` summaries of class rows' per-model Betas ``(..., H)``:
-    log1p of the mean and of the min concentration, the mean accuracy."""
+    log1p of the mean and of the min concentration, the mean accuracy.
+    ``mesh``: the Betas of this rank's models; the sums and the minimum
+    cross the model group."""
     conc = a_row + b_row
-    H = conc.shape[-1]
+    H = _h_global(conc.shape[-1], mesh)
     acc = a_row / torch.clamp_min(conc, 1e-12)
+    sums = sum_h(torch.stack([conc.sum(-1), acc.sum(-1)]), mesh)
+    low = min_over(conc.amin(-1), mesh, MODEL_AXIS)
     # the means divide by a device tensor: one IEEE division on every
     # device (the reference's quotient), never the CUDA reciprocal product
-    return torch.stack([torch.log1p(_div(conc.sum(-1), H)),
-                        torch.log1p(conc.amin(-1)),
-                        _div(acc.sum(-1), H)], -1).to(torch.float32)
+    return torch.stack([torch.log1p(_div(sums[0], H)),
+                        torch.log1p(low),
+                        _div(sums[1], H)], -1).to(torch.float32)
 
 
-def init_fit(a_cc_T: torch.Tensor, b_cc_T: torch.Tensor) -> SurrogateFit:
+def init_fit(a_cc_T: torch.Tensor, b_cc_T: torch.Tensor,
+             mesh: Optional[Mesh] = None) -> SurrogateFit:
     """A zeroed fit with the initial posterior's class summaries, from
-    every class row's ``(C, H)`` Beta parameters."""
+    every class row's ``(C, H)`` Beta parameters (``mesh``: this rank's
+    models')."""
     dev = a_cc_T.device
     F = N_FEATURES
 
@@ -166,7 +200,7 @@ def init_fit(a_cc_T: torch.Tensor, b_cc_T: torch.Tensor) -> SurrogateFit:
         b=torch.zeros(F, dtype=torch.float32, device=dev),
         w=torch.zeros(F, dtype=torch.float32, device=dev),
         n=torch.zeros((), dtype=torch.float32, device=dev),
-        cls_feats=class_feats_from_beta(a_cc_T, b_cc_T),
+        cls_feats=class_feats_from_beta(a_cc_T, b_cc_T, mesh),
         rounds=i32(), fallbacks=i32(), fits=i32(),
         last_fallback=torch.zeros((), dtype=torch.bool, device=dev),
         margin=torch.full((), float("nan"), dtype=torch.float32, device=dev),
@@ -174,12 +208,13 @@ def init_fit(a_cc_T: torch.Tensor, b_cc_T: torch.Tensor) -> SurrogateFit:
 
 
 def refresh_class_feats(fit: SurrogateFit, true_classes: torch.Tensor,
-                        a_t: torch.Tensor, b_t: torch.Tensor
-                        ) -> SurrogateFit:
+                        a_t: torch.Tensor, b_t: torch.Tensor,
+                        mesh: Optional[Mesh] = None) -> SurrogateFit:
     """The labelled class rows' summaries, ``true_classes`` (q,) and their
-    ``(q, H)`` Betas, written in order (a repeated class keeps the last);
-    the fit's ``cls_feats`` is updated IN PLACE."""
-    rows = class_feats_from_beta(a_t, b_t)                      # (q, 3)
+    ``(q, H)`` Betas (``mesh``: this rank's models'), written in order (a
+    repeated class keeps the last); the fit's ``cls_feats`` is updated IN
+    PLACE."""
+    rows = class_feats_from_beta(a_t, b_t, mesh)                # (q, 3)
     tcs = true_classes.reshape(-1).to(torch.int64)
     for j in range(tcs.shape[0]):
         fit.cls_feats.index_copy_(0, tcs[j:j + 1], rows[j:j + 1])
@@ -194,7 +229,8 @@ def build_features(prev_scores: torch.Tensor,   # (N,) last round's
                    pbest_hyp: torch.Tensor,     # (C, N, H), storage dtype
                    hard_preds: torch.Tensor,    # (N, H) int32
                    true_classes: torch.Tensor,  # (q,) the labelled rows
-                   block: int = _FEATURE_BLOCK) -> torch.Tensor:
+                   block: int = _FEATURE_BLOCK,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The ``(N, N_FEATURES)`` design matrix, in the reference's column
     order: 1, the previous score, pi-hat's max, runner-up, entropy and
     collision mass, the candidate's weight on the labelled classes and the
@@ -202,7 +238,14 @@ def build_features(prev_scores: torch.Tensor,   # (N,) last round's
     summaries, the sum/max/L2/mixture-alignment of the expected
     |dP(best)| profile at the top-kc labels, and previous score x weight.
     The profile gathers ``(block, kc, H)`` of the cache at a time, so no
-    ``(N, kc, H)`` temporary is ever built."""
+    ``(N, kc, H)`` temporary is ever built.
+
+    ``mesh``: every operand is this rank's block (its items, and its
+    models of ``pbest_rows``, ``pbest_hyp`` and ``hard_preds``) and the
+    rows are its items' features, the same on every rank of its model
+    group: the sums over models are the group's rank-order sums (the L2
+    norm's ``sqrt`` taken after the sum), the profile's max the group's
+    max, and the vote share divides by the global H."""
     N, C = pi_hat_xi.shape
     dev = pi_hat_xi.device
     prev = prev_scores.to(torch.float32)
@@ -214,12 +257,14 @@ def build_features(prev_scores: torch.Tensor,   # (N,) last round's
     tcs = true_classes.reshape(-1).to(torch.int64)
     w_t = pi_hat_xi.index_select(1, tcs).sum(-1)                 # (N,)
     eq = hard_preds[:, None, :] == tcs.to(hard_preds.dtype)[None, :, None]
-    eq_t = _div(eq.to(torch.float32).sum((1, 2)), eq.shape[1] * eq.shape[2])
+    # the count is exact, so the model group's sum is the unsharded count
+    eq_t = _div(sum_h(eq.to(torch.float32).sum((1, 2)), mesh),
+                eq.shape[1] * _h_global(eq.shape[2], mesh))
     conc = pi_hat_xi @ cls_feats                                  # (N, 3)
     kc = min(SURROGATE_FEATURE_KC, C)
     wv, ci = top_k(pi_hat_xi * pi_hat[None, :], kc)               # (N, kc)
     mix = (pi_hat[:, None] * pbest_rows).sum(0)                  # (H,)
-    mix = mix / torch.clamp_min(mix.sum(), 1e-12)
+    mix = mix / torch.clamp_min(sum_h(mix.sum(), mesh), 1e-12)
     cols = {k: torch.empty(N, dtype=torch.float32, device=dev)
             for k in ("sum", "max", "l2", "mix")}
     B = max(1, min(block, N))
@@ -231,8 +276,12 @@ def build_features(prev_scores: torch.Tensor,   # (N,) last round's
              * torch.abs(hyp_sel - pbest_rows[ci_b])).sum(1)    # (B, H)
         cols["sum"][s:s + B] = E.sum(-1)
         cols["max"][s:s + B] = E.amax(-1)
-        cols["l2"][s:s + B] = torch.sqrt((E * E).sum(-1))
+        cols["l2"][s:s + B] = (E * E).sum(-1)
         cols["mix"][s:s + B] = E @ mix
+    # this rank's models' parts, summed (and maxed) over the model group
+    parts = sum_h(torch.stack([cols["sum"], cols["l2"], cols["mix"]]), mesh)
+    cols.update(sum=parts[0], l2=torch.sqrt(parts[1]), mix=parts[2],
+                max=max_over(cols["max"], mesh, MODEL_AXIS))
     feats = torch.stack([
         torch.ones(N, dtype=torch.float32, device=dev), finite_prev,
         p_max, p_2nd, p_ent, p_coll, w_t, eq_t,
@@ -265,16 +314,27 @@ def _solve(A: torch.Tensor, b: torch.Tensor, n: torch.Tensor
 
 
 def fold_pairs(fit: SurrogateFit, feats: torch.Tensor,
-               targets: torch.Tensor, mask: torch.Tensor) -> SurrogateFit:
+               targets: torch.Tensor, mask: torch.Tensor,
+               mesh: Optional[Mesh] = None) -> SurrogateFit:
     """Refold the normal equations with the rows of ``mask`` (their exact
-    scores as residuals against the previous score) and re-solve."""
+    scores as residuals against the previous score) and re-solve.
+    ``mesh``: the rows are this rank's items, and the products over them
+    are the data group's rank-order sums (bitwise the same fit on every
+    rank)."""
     m = mask.to(torch.float32)
     fm = feats * m[:, None]
     resid = targets - _prev_anchor(feats)
     tm = torch.where(mask & torch.isfinite(resid), resid, 0.0)
-    A = SURROGATE_FIT_DECAY * fit.A + fm.T @ fm
-    b = SURROGATE_FIT_DECAY * fit.b + fm.T @ tm
-    n = SURROGATE_FIT_DECAY * fit.n + m.sum()
+    FtF, Fty, count = fm.T @ fm, fm.T @ tm, m.sum()
+    if mesh is not None and mesh.data > 1:
+        F = N_FEATURES
+        flat = gather_sum(torch.cat([FtF.reshape(-1), Fty, count[None]]),
+                          mesh, DATA_AXIS)
+        FtF, Fty, count = flat[:F * F].reshape(F, F), flat[F * F:-1], \
+            flat[-1]
+    A = SURROGATE_FIT_DECAY * fit.A + FtF
+    b = SURROGATE_FIT_DECAY * fit.b + Fty
+    n = SURROGATE_FIT_DECAY * fit.n + count
     return fit._replace(A=A, b=b, w=_solve(A, b, n), n=n,
                         fits=fit.fits + 1)
 
@@ -333,48 +393,79 @@ def measure_gate(pred: torch.Tensor, exact_sel: torch.Tensor,
                        margin=(peak - max_unref).to(torch.float32))
 
 
+def _owned(sel: torch.Tensor, N: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's positions of the global rows ``sel`` it holds, and
+    ``N`` (one past its block) for the others."""
+    hit = torch.div(sel, N, rounding_mode="floor") == mesh.data_index
+    return torch.where(hit, local_positions(sel, N, mesh), N)
+
+
 def propose_shortlist(fit: SurrogateFit, feats: torch.Tensor,
-                      cand: torch.Tensor, k: int, exact_rows_fn) -> tuple:
+                      cand: torch.Tensor, k: int, exact_rows_fn,
+                      mesh: Optional[Mesh] = None) -> tuple:
     """Predict, shortlist, re-score exactly, measure: ``(pred, sel,
-    exact_sel, refreshed, verdict)``."""
+    exact_sel, refreshed, verdict)``. ``mesh``: ``feats`` and ``cand``
+    are this rank's items, ``pred`` and ``refreshed`` its block, ``sel``
+    global rows over every block (the audit rows over the global N) and
+    ``exact_rows_fn(sel)`` their exact scores, the same on every rank;
+    the gate reads the data group's gathered vectors."""
     N = feats.shape[0]
-    k = max(1, min(k, N))
+    n_all = N * (mesh.data if mesh is not None else 1)
+    k = max(1, min(k, n_all))
     pred = predict(fit, feats)
-    _, short = top_k(torch.where(cand, pred, float("-inf")), k)
-    sel = torch.cat([short, audit_rows(fit, N)])
+    _, short = top_k(torch.where(cand, pred, float("-inf")), k, mesh)
+    sel = torch.cat([short, audit_rows(fit, n_all)])
     exact_sel = exact_rows_fn(sel)
-    refreshed = torch.zeros(N, dtype=torch.bool, device=feats.device)
-    refreshed[sel] = True
-    verdict = measure_gate(pred, exact_sel, sel, k, cand, refreshed)
+    unref = torch.ones(N, dtype=torch.bool, device=feats.device)
+    clear_items(unref, sel, mesh)
+    refreshed = ~unref
+    vecs = (pred, cand, refreshed)
+    if mesh is not None:
+        # the gate on every block's vectors, the same on every rank
+        vecs = [all_gather_cat(t, mesh, DATA_AXIS, 0) for t in vecs]
+    verdict = measure_gate(vecs[0], exact_sel, sel, k, *vecs[1:])
     return pred, sel, exact_sel, refreshed, verdict
 
 
-def _hybrid(pred, sel, exact_sel):
-    """The predictions with the exactly re-scored rows in place."""
-    scores = pred.clone()
-    scores[sel] = exact_sel
-    return scores
+def _hybrid(pred, sel, exact_sel, mesh: Optional[Mesh] = None):
+    """The predictions with the exactly re-scored rows in place (``mesh``:
+    the rows this rank holds, in its block)."""
+    if mesh is None:
+        scores = pred.clone()
+        scores[sel] = exact_sel
+        return scores
+    # the rows of other ranks land in a spare slot past the block
+    N = pred.shape[0]
+    scores = torch.cat([pred, pred.new_zeros(1)])
+    scores[_owned(sel, N, mesh)] = exact_sel
+    return scores[:N]
 
 
 def hybrid_score_pass(fit: SurrogateFit, feats: torch.Tensor,
-                      cand: torch.Tensor, k: int, exact_rows_fn) -> tuple:
+                      cand: torch.Tensor, k: int, exact_rows_fn,
+                      mesh: Optional[Mesh] = None) -> tuple:
     """A surviving round's scoring alone (no warmup or fallback branch):
-    ``(hybrid scores, refolded fit, verdict)``."""
+    ``(hybrid scores, refolded fit, verdict)`` (``mesh``: see
+    :func:`propose_shortlist`)."""
     pred, sel, exact_sel, refreshed, verdict = propose_shortlist(
-        fit, feats, cand, k, exact_rows_fn)
-    scores = _hybrid(pred, sel, exact_sel)
-    return scores, fold_pairs(fit, feats, scores, refreshed & cand), verdict
+        fit, feats, cand, k, exact_rows_fn, mesh)
+    scores = _hybrid(pred, sel, exact_sel, mesh)
+    return scores, fold_pairs(fit, feats, scores, refreshed & cand,
+                              mesh), verdict
 
 
 def surrogate_score_round(fit: SurrogateFit, feats: torch.Tensor,
                           cand: torch.Tensor, k: int, exact_rows_fn,
-                          exact_full_fn) -> tuple:
+                          exact_full_fn, mesh: Optional[Mesh] = None
+                          ) -> tuple:
     """One round under the contract: ``(scores, fit')``. A warmup round
     (``rounds + prior_rounds < SURROGATE_WARMUP_ROUNDS``) or a round whose
     gate is violated runs ``exact_full_fn`` and refolds from every
     candidate; any other round returns the hybrid vector and refolds from
     the re-scored rows. The branch is taken on the host (module
-    docstring)."""
+    docstring); under a ``mesh`` (see :func:`propose_shortlist`) the
+    warmup counter and the verdict are the same on every rank, so every
+    rank takes the same branch."""
     dev = feats.device
     false = torch.zeros((), dtype=torch.bool, device=dev)
     warm_t = (fit.rounds + fit.prior_rounds) < SURROGATE_WARMUP_ROUNDS
@@ -388,14 +479,14 @@ def surrogate_score_round(fit: SurrogateFit, feats: torch.Tensor,
         need_full = True
     else:
         pred, sel, exact_sel, refreshed, verdict = propose_shortlist(
-            fit, feats, cand, k, exact_rows_fn)
+            fit, feats, cand, k, exact_rows_fn, mesh)
         need_full = bool(verdict.violated)
     if need_full:
         scores, pair_mask = exact_full_fn(), cand
     else:
-        scores = _hybrid(pred, sel, exact_sel)
+        scores = _hybrid(pred, sel, exact_sel, mesh)
         pair_mask = refreshed & cand
-    fit = fold_pairs(fit, feats, scores, pair_mask)
+    fit = fold_pairs(fit, feats, scores, pair_mask, mesh)
     fell_back = verdict.violated & ~warm_t
     prior_reject = fell_back & (fit.rounds < SURROGATE_WARMUP_ROUNDS)
     fit = fit._replace(

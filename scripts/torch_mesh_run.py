@@ -49,7 +49,18 @@ The jobs (``--jobs``):
     script's ``--prefilter-n``, default 4096: the factored tier on the
     subset, no kernel);
   * ``q4_rec``: CODA 1 seed with ``--acq-batch 4`` (kernel 1 at init and
-    once a round, kernel 3 once an answer) — these four recorded;
+    once a round, kernel 3 once an answer);
+  * ``surr_rec``: CODA 1 seed with ``--eig-scorer surrogate:32`` (kernel
+    1 at init and on each warmup or fallback round, kernel 3 once a
+    round; the rounds that took the hybrid vector and the final fit's
+    digest kept);
+  * ``crowd_rec``, ``crowd_batch_rec``: CODA 1 seed, and 5 seeds as one
+    batch, labelled by the noisy crowd ``--oracle-noise`` (the script's
+    ``--crowd-spec``; kernels 1-3, and 4, 5 and the batched 3; the applied
+    labels and weights kept) — these seven recorded;
+  * ``prior_chunks``: the confusion prior of a seeded random ``(64, 256,
+    100)`` task (this rank's block) with its data-group sum a model at a
+    time against the sum whole: bitwise or not;
   * ``replay``: ``cli replay`` of each record the earlier jobs wrote
     (after every rank has passed a barrier; ``--replays`` names them,
     default every one), on these ranks: each rank's exit code and wall
@@ -85,18 +96,27 @@ KNOB_JOBS = {
     "amort": (["--eig-pbest", "amortized", "--multiplier", "20"], "amort"),
     "prefilter": (["--prefilter-n"], "prefilter"),     # + the size
     "q4": (["--acq-batch", "4"], "q4"),
+    "surr": (["--eig-mode", "incremental", "--eig-scorer", "surrogate:32"],
+             "surr"),
+    "crowd": (["--eig-mode", "incremental", "--oracle-noise"], "crowd"),
+    "crowd_batch": (["--eig-mode", "incremental", "--oracle-noise"],
+                    "crowd_batch"),                    # + the spec
 }
+# the crowd jobs' default spec (chip_smoke.py's CROWD_SPEC)
+CROWD_SPEC = ("annotators=8,votes=3,acc=0.6:0.95,abstain=0.1,"
+              "adversarial=1,trust=16,seed=0")
 
 
 def job_argv(job: str, rounds: dict, root: str = ".",
-             prefilter_n: int = 4096) -> list:
+             prefilter_n: int = 4096, crowd_spec: str = CROWD_SPEC) -> list:
     """The CLI flags of a job (the task and mesh flags added by the
     caller); ``rounds`` maps a job to its rounds; ``root`` takes the
     records, checkpoints and tracking stores of the jobs that write
-    them; ``prefilter_n`` is the prefilter job's subset."""
+    them; ``prefilter_n`` is the prefilter job's subset, ``crowd_spec``
+    the crowd jobs' ``--oracle-noise``."""
     if job.endswith("_rec"):
         return job_argv(job.removesuffix("_rec"), rounds,
-                        prefilter_n=prefilter_n) + [
+                        prefilter_n=prefilter_n, crowd_spec=crowd_spec) + [
             "--record-dir", os.path.join(root, job)]
     if job in ("ckpt_cut", "ckpt"):
         iters = rounds["ckpt_cut" if job == "ckpt_cut" else "main"]
@@ -114,7 +134,10 @@ def job_argv(job: str, rounds: dict, root: str = ".",
         flags, key = KNOB_JOBS[job]
         if job == "prefilter":
             flags = flags + [str(prefilter_n)]
-        return ["--method", "coda", "--seeds", "1",
+        elif job.startswith("crowd"):
+            flags = flags + [crowd_spec]
+        seeds = "5" if job == "crowd_batch" else "1"
+        return ["--method", "coda", "--seeds", seeds,
                 "--iters", str(rounds[key])] + flags
     if job == "batch":
         return ["--method", "coda", "--eig-mode", "incremental",
@@ -129,14 +152,32 @@ def job_argv(job: str, rounds: dict, root: str = ".",
 
 class Capture:
     """What a wrapped selector saw: each round's score vector (kept on
-    the device, copied once at the end), the last state, and the bytes
-    the collectives sent inside the rounds' select, update and best
-    calls, q-wide or not (``parallel.collectives.traffic``, by axis)."""
+    the device, copied once at the end), the last state, under the
+    surrogate scorer whether each round took the hybrid vector, and the
+    bytes the collectives sent inside the rounds' select, update and best
+    calls, q-wide, weighted or not (``parallel.collectives.traffic``, by
+    axis)."""
 
     def __init__(self):
         self.scores: list = []
         self.state = None
+        self.hybrid: list = []
         self.round_bytes: dict = {}
+
+    def _keep(self, state):
+        """The state after an update; a surrogate round's hybrid flag
+        (past warmup, no fallback), on the device."""
+        from coda_tpu_torch.selectors.surrogate import (
+            SURROGATE_WARMUP_ROUNDS,
+        )
+
+        self.state = state
+        fit = getattr(state, "surrogate", None)
+        if fit is not None:
+            warm = fit.rounds - 1 + fit.prior_rounds \
+                < SURROGATE_WARMUP_ROUNDS
+            self.hybrid.append(~warm & ~fit.last_fallback)
+        return state
 
     def _counted(self, fn):
         from coda_tpu_torch.parallel import collectives
@@ -157,10 +198,19 @@ class Capture:
             return res
 
         def update(state, *args):
-            self.state = sel.update(state, *args)
-            return self.state
+            return self._keep(sel.update(state, *args))
 
         q_wide = {}
+        if sel.update_w is not None:
+            def update_w(state, *args):
+                return self._keep(sel.update_w(state, *args))
+
+            q_wide["update_w"] = self._counted(update_w)
+        if sel.update_qw is not None:
+            def update_qw(state, *args):
+                return self._keep(sel.update_qw(state, *args))
+
+            q_wide["update_qw"] = self._counted(update_qw)
         if sel.select_q is not None:
             def select_q(state, key, q):
                 res = sel.select_q(state, key, q)
@@ -170,8 +220,7 @@ class Capture:
             q_wide["select_q"] = self._counted(select_q)
         if sel.update_q is not None:
             def update_q(state, *args):
-                self.state = sel.update_q(state, *args)
-                return self.state
+                return self._keep(sel.update_q(state, *args))
 
             q_wide["update_q"] = self._counted(update_q)
         inner = sel.batched
@@ -183,13 +232,18 @@ class Capture:
                 return res
 
             def bupdate(state, *args):
-                self.state = inner.update(state, *args)
-                return self.state
+                return self._keep(inner.update(state, *args))
 
+            weighted = {}
+            if inner.update_w is not None:
+                def bupdate_w(state, *args):
+                    return self._keep(inner.update_w(state, *args))
+
+                weighted["update_w"] = self._counted(bupdate_w)
             batched = dataclasses.replace(
                 inner, select=self._counted(bselect),
                 update=self._counted(bupdate),
-                best=self._counted(inner.best))
+                best=self._counted(inner.best), **weighted)
         return dataclasses.replace(sel, select=self._counted(select),
                                    update=self._counted(update),
                                    best=self._counted(sel.best),
@@ -211,6 +265,22 @@ def fingerprint(state, n_local: int) -> str:
             h.update(name.encode())
             h.update(t.detach().cpu().contiguous().view(-1).view(
                 torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def fit_digest(state) -> str:
+    """sha256 of the surrogate's carried fit (its normal equations, the
+    ridge solution, the pair count, the class summaries and counters);
+    empty without one."""
+    import torch
+
+    fit = getattr(state, "surrogate", None)
+    if fit is None:
+        return ""
+    h = hashlib.sha256()
+    for t in fit:
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(
+            torch.uint8).numpy().tobytes())
     return h.hexdigest()
 
 
@@ -302,16 +372,37 @@ def run_cli_job(argv: list, dev) -> dict:
         return lambda preds, mesh=None: cap.wrap(f(preds, mesh=mesh))
 
     def run(args, factory, dataset, loss_fn, dev_):
-        # the CLI's own calls (no crowd), timed
+        # the CLI's own calls, timed
         got.update(h_local=dataset.preds.shape[0],
                    n_local=dataset.preds.shape[1], timings=[])
+        cfg = cli.crowd_config(args)
+        trace_k = args.record_topk if args.record_dir else 0
+        if cfg is not None and not cfg.clean:
+            from coda_tpu_torch.crowd import (
+                run_seeds_crowd,
+                run_seeds_crowd_recorded,
+            )
+
+            common = dict(iters=args.iters, seeds=args.seeds,
+                          loss_fn=loss_fn, acq_batch=args.acq_batch,
+                          device=dev_, timings=got["timings"],
+                          cost_label=args.method, mesh=dataset.mesh)
+            if trace_k:
+                res, aux, crowd = run_seeds_crowd_recorded(
+                    factory, dataset.preds, dataset.labels, cfg,
+                    trace_k=trace_k, **common)
+            else:
+                (res, crowd), aux = run_seeds_crowd(
+                    factory, dataset.preds, dataset.labels, cfg,
+                    **common), None
+            got.update(result=res, crowd=crowd)
+            return res, aux, crowd
         if args.checkpoint_dir:
             ckpt: list = []
             res = cli._run_resumable(args, factory, dataset, loss_fn, dev_,
                                      timings=ckpt)
             got.update(result=res, checkpoint=ckpt)
             return res, None, None
-        trace_k = args.record_topk if args.record_dir else 0
         out = run_seeds_compiled(factory, dataset.preds, dataset.labels,
                                  iters=args.iters, seeds=args.seeds,
                                  loss_fn=loss_fn, device=dev_,
@@ -363,6 +454,14 @@ def run_cli_job(argv: list, dev) -> dict:
         extra["pbest"] = figures.pbest
     if gates:
         extra["gates"] = [bool(g) for g in gates]
+    if cap.hybrid:
+        extra["hybrid"] = [bool(h) for h in
+                           torch.stack(cap.hybrid).reshape(-1).cpu()]
+        extra["fit_digest"] = fit_digest(cap.state)
+    crowd = {}
+    if got.get("crowd") is not None:
+        crowd = {"applied_label": got["crowd"].applied_label.cpu().numpy(),
+                 "label_weight": got["crowd"].label_weight.cpu().numpy()}
     q = int(argv[argv.index("--acq-batch") + 1]) \
         if "--acq-batch" in argv else 1
     return extra | {
@@ -387,7 +486,7 @@ def run_cli_job(argv: list, dev) -> dict:
             "select_prob": res.select_prob.cpu().numpy(),
             "scores": torch.stack(cap.scores).cpu().numpy()
             if cap.scores else np.zeros(0),
-        },
+        } | crowd,
     }
 
 
@@ -417,6 +516,40 @@ def run_replays(root: str, data_dir: str, dev, names=None) -> dict:
         out[job] = {"rc": rc, "wall_s": time.perf_counter() - t0,
                     "stdout": buf.getvalue()}
     return out
+
+
+def prior_chunks(dev, mesh_spec) -> dict:
+    """The ``prior_chunks`` job: the soft confusion prior of a seeded
+    random task's block (``mesh_spec``'s, or the whole task unsharded),
+    its data-group sum in chunks of one model against the sum whole."""
+    import torch
+
+    from coda_tpu_torch.ops import confusion
+    from coda_tpu_torch.parallel.mesh import mesh_from_spec
+
+    H, N, C = 64, 256, 100
+    gen = torch.Generator().manual_seed(11)
+    preds = torch.softmax(4 * torch.randn((H, N, C), generator=gen), -1)
+    mesh = None if mesh_spec is None else mesh_from_spec(mesh_spec,
+                                                         device=dev.type)
+    if mesh is not None:
+        n, h = N // mesh.data, H // mesh.model
+        preds = preds[mesh.model_index * h:(mesh.model_index + 1) * h,
+                      mesh.data_index * n:(mesh.data_index + 1) * n]
+    preds = preds.contiguous().to(dev)
+    labels = confusion.ensemble_preds(preds, mesh).argmax(-1)
+    got = {}
+    saved = confusion._PRIOR_CHUNK_BYTES
+    for case, nbytes in (("whole", saved), ("per_model", 1)):
+        confusion._PRIOR_CHUNK_BYTES = nbytes
+        try:
+            got[case] = confusion.create_confusion_matrices(
+                labels, preds, mode="soft", mesh=mesh).cpu()
+        finally:
+            confusion._PRIOR_CHUNK_BYTES = saved
+    return {"rc": 0, "bitwise": bool(torch.equal(got["whole"],
+                                                  got["per_model"])),
+            "launches": {}}
 
 
 def suite_rows(db: str) -> list:
@@ -460,22 +593,24 @@ def run_jobs(jobs, data_dir: str, task: str, rounds: dict, dev, mesh_spec,
              pred_dir: str, suite_tasks: str, suite_db: str,
              log=print, root: str = ".", viz_task: str = "digits_h80",
              pool_task: str = "pool", replays=None,
-             prefilter_n: int = 4096) -> dict:
+             prefilter_n: int = 4096, crowd_spec: str = CROWD_SPEC) -> dict:
     """Every job in turn; ``mesh_spec`` None runs them unsharded. ``root``
     takes the jobs' records, checkpoints and tracking stores; the ``viz``
     job runs on ``viz_task`` of ``data_dir``, ``sparse_rec`` on
     ``pool_task``; ``replays``: the records the ``replay`` job replays
-    (None: every one); ``prefilter_n``: the prefilter job's subset. Each
+    (None: every one); ``prefilter_n``: the prefilter job's subset;
+    ``crowd_spec``: the crowd jobs' ``--oracle-noise``. Each
     task is read once (:func:`loaded_once`)."""
     with loaded_once():
         return _run_jobs(jobs, data_dir, task, rounds, dev, mesh_spec,
                          pred_dir, suite_tasks, suite_db, log, root,
-                         viz_task, pool_task, replays, prefilter_n)
+                         viz_task, pool_task, replays, prefilter_n,
+                         crowd_spec)
 
 
 def _run_jobs(jobs, data_dir, task, rounds, dev, mesh_spec, pred_dir,
               suite_tasks, suite_db, log, root, viz_task, pool_task,
-              replays, prefilter_n) -> dict:
+              replays, prefilter_n, crowd_spec) -> dict:
     mesh = [] if mesh_spec is None else ["--mesh", mesh_spec]
     device = [] if dev.type == "cuda" else ["--device", "cpu"]
     out = {}
@@ -495,8 +630,10 @@ def _run_jobs(jobs, data_dir, task, rounds, dev, mesh_spec, pred_dir,
         elif job == "replay":
             out[job] = {"records": run_replays(root, data_dir, dev,
                                                replays)}
+        elif job == "prior_chunks":
+            out[job] = prior_chunks(dev, mesh_spec)
         else:
-            argv = job_argv(job, rounds, root, prefilter_n)
+            argv = job_argv(job, rounds, root, prefilter_n, crowd_spec)
             track = [] if job == "viz" else ["--no-mlflow"]
             on = {"viz": viz_task, "sparse_rec": pool_task}.get(job, task)
             out[job] = run_cli_job(["--task", on, "--data-dir", data_dir]
@@ -515,7 +652,8 @@ def main(argv=None) -> int:
                    + ",suite")
     p.add_argument("--rounds", default="main=30,batch=10,paper=5,"
                    "baselines=20,suite=10,ckpt_cut=10,viz=10,sparse=20,"
-                   "amort=10,prefilter=10,q4=10")
+                   "amort=10,prefilter=10,q4=10,surr=20,crowd=10,"
+                   "crowd_batch=5")
     p.add_argument("--viz-task", default="digits_h80",
                    help="the viz job's task under --data-dir")
     p.add_argument("--pool-task", default="pool",
@@ -524,6 +662,8 @@ def main(argv=None) -> int:
                    help="the records the replay job replays (default all)")
     p.add_argument("--prefilter-n", type=int, default=4096,
                    help="the prefilter job's subset")
+    p.add_argument("--crowd-spec", default=CROWD_SPEC,
+                   help="the crowd jobs' --oracle-noise")
     p.add_argument("--pred-dir", default=os.path.join(ROOT, "data"))
     p.add_argument("--suite-tasks", default="pyfiles,iris")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -557,7 +697,8 @@ def main(argv=None) -> int:
                        root=os.path.join(args.out, "records"),
                        viz_task=args.viz_task, pool_task=args.pool_task,
                        replays=(args.replays.split(",") if args.replays
-                                else None), prefilter_n=args.prefilter_n)
+                                else None), prefilter_n=args.prefilter_n,
+                       crowd_spec=args.crowd_spec)
     finally:
         if spec is not None:
             shutdown()

@@ -1,6 +1,7 @@
 """Rank programs for the port's mesh tests (``test_torch_mesh.py``,
 ``test_torch_distributed.py``, ``test_torch_mesh_model.py``,
-``test_torch_mesh_record.py``).
+``test_torch_mesh_record.py``, ``test_torch_mesh_knobs.py``,
+``test_torch_mesh_surrogate_crowd.py``).
 
 :func:`spawn` starts a world of ``world`` CPU processes through
 ``torch.multiprocessing`` (spawn), each joining one gloo group through a
@@ -926,10 +927,220 @@ def job_knob_cases(rank, world, tmp) -> dict:
     return out
 
 
+# -- the surrogate scorer and the noisy crowd ---------------------------------
+
+# past the surrogate's 10 warmup rounds, so hybrid rounds run
+SURROGATE_ITERS = 16
+SURROGATE_K = 8
+# the reference's noisy crowd (its robustness spec)
+CROWD_SPEC = ("annotators=8,votes=3,acc=0.55:0.95,abstain=0.1,adversarial=1,"
+              "trust=32,defer=0.2:4,reliability=learned,seed=0")
+_SURR = _INCR + ["--eig-scorer", f"surrogate:{SURROGATE_K}"]
+_CROWD = _INCR + ["--oracle-noise", CROWD_SPEC]
+# name -> (CLI flags, seeds, rounds)
+SC_RUNS = {
+    "surrogate": (_SURR, 1, SURROGATE_ITERS),
+    # the CLI passes no pool: the cold program under the pool knob
+    "surrogate_pool": (_SURR + ["--surrogate-prior", "pool"], 1,
+                       SURROGATE_ITERS),
+    "crowd": (_CROWD, 1, ITERS),
+    "crowd_batch2": (_CROWD, 2, ITERS),
+    "crowd_q2": (_CROWD + ["--acq-batch", "2"], 1, ITERS),
+}
+PRIOR_FILE = "prior.json"     # the seeded surrogate's pool, written by the test
+
+
+def sc_argv(name: str, data_dir: str) -> list:
+    """The CLI flags of a run of :data:`SC_RUNS` on the task files under
+    ``data_dir`` (``--mesh`` and ``--record-dir`` added by the caller)."""
+    flags, seeds, iters = SC_RUNS[name]
+    return ["--task", TASK_FILE, "--data-dir", data_dir, "--iters",
+            str(iters), "--seeds", str(seeds), "--device", "cpu",
+            "--no-mlflow"] + flags
+
+
+# the crowd's refusals that stay on a mesh: a baseline (no weighted
+# update) and the resumable runner
+SC_REFUSED = {"baseline": ["--method", "iid", "--oracle-noise", CROWD_SPEC],
+              "checkpoint": _CROWD + ["--checkpoint-dir", "CK"]}
+
+
+def sc_refused_argv(case: str, data_dir: str, ck: str) -> list:
+    return ["--task", TASK_FILE, "--data-dir", data_dir, "--iters",
+            str(ITERS), "--device", "cpu", "--no-mlflow"] + [
+        ck if f == "CK" else f for f in SC_REFUSED[case]]
+
+
+@contextlib.contextmanager
+def crowd_seen(seen: dict):
+    """Every vote the crowd draws (``votes_from_draws``' responses) and
+    every reliability state's counts after an aggregation, appended to
+    ``seen["votes"]`` and ``seen["counts"]`` as arrays."""
+    from coda_tpu_torch.crowd import loop
+
+    votes, agg = loop.votes_from_draws, loop.aggregate_votes
+
+    def drawn_votes(*args, **kw):
+        out = votes(*args, **kw)
+        seen.setdefault("votes", []).append(out.numpy().copy())
+        return out
+
+    def aggregated(*args, **kw):
+        out = agg(*args, **kw)
+        seen.setdefault("counts", []).append(out[2].counts.numpy().copy())
+        return out
+
+    loop.votes_from_draws, loop.aggregate_votes = drawn_votes, aggregated
+    try:
+        yield seen
+    finally:
+        loop.votes_from_draws, loop.aggregate_votes = votes, agg
+
+
+def surrogate_factory(prior=None):
+    """CODA's incremental tier with ``surrogate:8`` (the pool knob and
+    ``prior``, a ``PriorStats``, when given)."""
+    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+
+    hp = CODAHyperparams(eig_mode="incremental",
+                         eig_scorer=f"surrogate:{SURROGATE_K}",
+                         surrogate_prior="off" if prior is None else "pool")
+    return lambda p, mesh=None: make_coda(p, hp, device="cpu", prior=prior,
+                                          mesh=mesh)
+
+
+def surrogate_internals(make, preds, labels, mesh=None) -> dict:
+    """A recorded ``surrogate:8`` run of one seed x
+    :data:`SURROGATE_ITERS` through ``make`` (a factory), its fit after
+    every round (``A``, ``b``, ``w``, ``n``, ``cls_feats``) and which
+    rounds took the hybrid vector (past warmup, no fallback); the
+    record."""
+    import dataclasses
+
+    from coda_tpu_torch.engine import run_seeds_recorded
+    from coda_tpu_torch.selectors.surrogate import SURROGATE_WARMUP_ROUNDS
+    from coda_tpu_torch.telemetry.recorder import RunRecord
+
+    fits: list = []
+
+    def capturing(p, mesh=None):
+        sel = make(p) if mesh is None else make(p, mesh=mesh)
+
+        def update(state, *args):
+            st = sel.update(state, *args)
+            f = st.surrogate
+            warm = int(f.rounds) - 1 + int(f.prior_rounds) \
+                < SURROGATE_WARMUP_ROUNDS
+            fits.append({"hybrid": not warm and not bool(f.last_fallback),
+                         **{k: getattr(f, k).numpy().copy() for k in
+                            ("A", "b", "w", "n", "cls_feats")}})
+            return st
+
+        return dataclasses.replace(sel, update=update)
+
+    out = run_seeds_recorded(capturing, preds, labels,
+                             iters=SURROGATE_ITERS, seeds=1, device="cpu",
+                             mesh=mesh)
+    return {"fits": fits, "hybrid": [f.pop("hybrid") for f in fits],
+            "record": RunRecord.from_result(*out, {}, {})}
+
+
+def load_prior(tmp: str):
+    from coda_tpu_torch.selectors import surrogate as sg
+
+    with open(os.path.join(tmp, PRIOR_FILE)) as f:
+        import json
+
+        return sg.prior_from_dict(json.load(f))
+
+
+def job_surrogate_crowd(rank, world, tmp) -> dict:
+    """At each spec: every run of :data:`SC_RUNS` through ``cli --mesh
+    SPEC --record-dir`` (rank 0 writes ``tmp/sc/<spec>/<run>``; the crowd
+    runs' votes and reliability counts kept), each replayed through ``cli
+    replay`` inside the world (exit codes; rank 0's report under
+    ``tmp/screp/``); the surrogate's internals (:func:`surrogate_internals`)
+    cold and seeded from the test's pool, the seeded run re-executed
+    through ``engine.replay.verify_replay`` on the mesh; a crowd baseline
+    and a noisy crowd with ``--checkpoint-dir`` refused."""
+    from coda_tpu_torch import cli
+    from coda_tpu_torch.data import make_synthetic_task
+    from coda_tpu_torch.engine.replay import verify_replay
+
+    prior = load_prior(tmp)
+    out = {}
+    for spec in RECORD_SPECS[world]:
+        mesh = _spec_mesh(spec)
+        res = {"printed": {}, "replay": {}, "crowd": {}, "refused": {}}
+        root = os.path.join(tmp, "sc", spec_dir(spec))
+        for name in SC_RUNS:
+            seen: dict = {}
+            with crowd_seen(seen):
+                res["printed"][name] = _captured(cli.main, sc_argv(
+                    name, tmp) + ["--mesh", spec, "--record-dir",
+                                  os.path.join(root, name)])
+            res["crowd"][name] = seen
+        _barrier(mesh)           # rank 0 has written every record
+        for name in SC_RUNS:
+            res["replay"][name] = cli.main([
+                "replay", os.path.join(root, name), "--device", "cpu",
+                "--out", os.path.join(tmp, "screp",
+                                      f"{spec_dir(spec)}_{name}.json")])
+        task = make_synthetic_task(**TASK, mesh=mesh)
+        for case, pool in (("cold", None), ("seeded", prior)):
+            res[case] = surrogate_internals(surrogate_factory(pool),
+                                            task.preds, task.labels, mesh)
+        res["seeded_replay"] = verify_replay(
+            res["seeded"]["record"], surrogate_factory(prior), task.preds,
+            task.labels, device="cpu", mesh=mesh).to_dict()
+        for case in SC_REFUSED:
+            argv = sc_refused_argv(case, tmp, os.path.join(
+                tmp, "sc_ck", f"{spec_dir(spec)}_{rank}"))
+            try:
+                _captured(cli.main, argv + ["--mesh", spec])
+                res["refused"][case] = None
+            except (ValueError, SystemExit) as e:
+                res["refused"][case] = f"{type(e).__name__}: {e}"
+        out[spec] = res
+    return out
+
+
+def job_prior_chunks(rank, world, tmp) -> dict:
+    """``gather_sum`` over the data group of a ``(37, 5, 5)`` part a rank
+    (seeded by the rank) whole and in chunks of 4 and 1 models, and the
+    confusion prior of the task's block whole and a model at a time."""
+    from coda_tpu_torch.data import make_synthetic_task
+    from coda_tpu_torch.ops import confusion
+    from coda_tpu_torch.parallel.collectives import gather_sum
+
+    mesh = _mesh(world)
+    gen = torch.Generator().manual_seed(100 + rank)
+    part = torch.rand((37, 5, 5), generator=gen) * 10 ** torch.randint(
+        -3, 4, (37, 5, 5), generator=gen).to(torch.float32)
+    out = {"whole": gather_sum(part.clone(), mesh).numpy(),
+           "chunks": {c: gather_sum(part.clone(), mesh, chunk=c).numpy()
+                      for c in (4, 1)}}
+    task = make_synthetic_task(**TASK, mesh=mesh)
+    ens = confusion.ensemble_preds(task.preds, mesh).argmax(-1)
+    prior = {}
+    saved = confusion._PRIOR_CHUNK_BYTES
+    for case, nbytes in (("whole", saved), ("per_model", 1)):
+        confusion._PRIOR_CHUNK_BYTES = nbytes
+        try:
+            prior[case] = confusion.create_confusion_matrices(
+                ens, task.preds, mode="soft", mesh=mesh).numpy()
+        finally:
+            confusion._PRIOR_CHUNK_BYTES = saved
+    out["prior"] = prior
+    return out
+
+
 JOBS = {"traces": job_traces, "blocks": job_blocks, "large_c": job_large_c,
         "collectives": job_collectives, "cli": job_cli, "env": job_env,
         "model_traces": job_model_traces, "model_blocks": job_model_blocks,
         "model_large_c": job_model_large_c, "model_cli": job_model_cli,
         "tie_topk": job_tie_topk, "records": job_records,
         "checkpoints": job_checkpoints, "suite_viz": job_suite_viz,
-        "knobs": job_knobs, "knob_cases": job_knob_cases}
+        "knobs": job_knobs, "knob_cases": job_knob_cases,
+        "surrogate_crowd": job_surrogate_crowd,
+        "prior_chunks": job_prior_chunks}

@@ -11,10 +11,10 @@ only rank 0 writes the tracking store; ``cli suite`` shards ``pyfiles``
 (N=500) and loads ``iris`` (N=105) unsharded with the reference's
 warning, its rows those of the unsharded suite; a task whose N does not
 divide the mesh is refused on every rank. Without a world: one process
-is a no-op, and each refusal of ``--mesh`` raises (the model axis, too
-few ranks, and every flag the next mesh slice brings, on the data axis
-and on a one-rank model axis), while the flags the mesh slices brought
-run there and print the unsharded run's result.
+is a no-op, and each refusal of ``--mesh`` raises (too few ranks, the
+serve verbs under torchrun), while every flag runs on a one-rank mesh of
+the data axis or of the model axis and prints the unsharded run's
+result.
 """
 
 from __future__ import annotations
@@ -134,22 +134,22 @@ def test_port_cli_suite_mesh_matches_unsharded(world, tmp_path):
     ["--debug-viz"], ["--mesh", "model=1", "--acq-batch", "2"],
     ["--acq-batch", "2", "--checkpoint-dir", "CK"]])
 def test_port_cli_mesh_refusals(flags, tmp_path):
-    """Every flag the next mesh slice brings raises
-    ``NotImplementedError`` under ``--mesh`` (here a one-rank mesh, of
-    the data axis or of the model axis); none runs unsharded without a
-    word. The flags slice 5d brought run there instead: ``--record-dir``
-    writes a record with the mesh among its knobs, ``--checkpoint-dir``
-    saves under ``seed_<s>/rank_0``, ``--debug-viz`` logs its figures,
-    and ``--acq-batch 2``, ``--posterior sparse:2``, ``--eig-pbest
-    amortized`` and ``--prefilter-n 16`` print the unsharded run's
-    result line. ``--acq-batch`` with ``--checkpoint-dir`` stays the
-    reference's refusal, as unsharded."""
+    """Every flag runs under ``--mesh`` (here a one-rank mesh, of the data
+    axis or of the model axis) since slice 5d: ``--record-dir`` writes a
+    record with the mesh among its knobs, ``--checkpoint-dir`` saves
+    under ``seed_<s>/rank_0``, ``--debug-viz`` logs its figures, and
+    ``--acq-batch 2``, ``--posterior sparse:2``, ``--eig-pbest
+    amortized``, ``--prefilter-n 16``, ``--eig-scorer surrogate:8`` and a
+    noisy ``--oracle-noise`` print the unsharded run's result line.
+    ``--acq-batch`` with ``--checkpoint-dir`` stays the reference's
+    refusal, as unsharded."""
     argv = ["--synthetic", "6,64,4", "--method", "coda", "--iters", "2",
             "--seeds", "1", "--device", "cpu", "--no-mlflow"]
     rec, ck = str(tmp_path / "r"), str(tmp_path / "c")
     flags = [f.replace("REC", rec).replace("CK", ck) for f in flags]
     mesh = [] if "--mesh" in flags else ["--mesh", "data=1"]
-    knobs = ("--acq-batch", "--posterior", "--eig-pbest", "--prefilter-n")
+    knobs = ("--acq-batch", "--posterior", "--eig-pbest", "--prefilter-n",
+             "--eig-scorer", "--oracle-noise")
     if "--checkpoint-dir" in flags and "--acq-batch" in flags:
         with pytest.raises(SystemExit, match="--acq-batch > 1 does not "
                            "compose with --checkpoint-dir"):
@@ -181,16 +181,15 @@ def test_port_cli_mesh_refusals(flags, tmp_path):
                       for f in fs)
         assert pngs == ["pbest.png", "regret_curve.png"]
     else:
-        with pytest.raises(NotImplementedError, match="next mesh slice"):
-            cli.main(argv + flags + mesh)
+        raise AssertionError(f"no case for {flags}")
 
 
 def test_port_cli_mesh_needs_its_ranks(monkeypatch, tmp_path):
     """A mesh of more shards than ranks raises the reference's "needs"
     error; ``--task-batch`` with ``--mesh`` is the reference's parse
-    error; the serve verbs under torchrun raise naming the next slice; a
-    one-rank mesh runs, the suite's ``--record-dir`` too (its record
-    carries the mesh)."""
+    error; the serve verbs under torchrun refuse to start (they run one
+    process, as the reference's serve does); a one-rank mesh runs, the
+    suite's ``--record-dir`` too (its record carries the mesh)."""
     argv = ["--synthetic", "6,64,4", "--method", "coda", "--iters", "2",
             "--seeds", "1", "--device", "cpu", "--no-mlflow"]
     with pytest.raises(ValueError, match="mesh 2x1 needs 2 ranks, have 1"):
@@ -210,5 +209,6 @@ def test_port_cli_mesh_needs_its_ranks(monkeypatch, tmp_path):
     assert rec.meta["fingerprint"]["knobs"]["mesh"] == "data=1"
     monkeypatch.setenv("WORLD_SIZE", "2")
     for verb in ("serve", "replay-serve"):
-        with pytest.raises(NotImplementedError, match="next mesh slice"):
+        with pytest.raises(SystemExit, match="runs one process, as the "
+                           "reference's serve does"):
             cli.main([verb, "--help"])

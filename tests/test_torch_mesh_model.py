@@ -222,14 +222,13 @@ def test_port_model_mesh_layout(tmp_path):
 def test_port_model_axis_refusals(tmp_path):
     """H not divisible by the model axis raises, or loads unsharded with
     the reference's warning under ``unsharded_fallback``; the fused
-    refresh raises under a model-axis mesh as under any mesh; the knob
-    left for the next slice (the surrogate scorer) raises
-    ``NotImplementedError`` naming it, also on a one-rank model axis
-    (``--mesh model=1``), where ``--checkpoint-dir``, ``--acq-batch 2``
-    and ``--posterior sparse:2`` run, and the sparse posterior, the
-    amortized P(best) and the prefilter pass the mesh's knob check; a
-    model axis of more ranks than the world raises the reference's
-    "needs" error."""
+    refresh raises under a model-axis mesh as under any mesh; every other
+    knob passes the mesh's knob check (the sparse posterior, the
+    amortized P(best), the prefilter and the surrogate scorer), and on a
+    one-rank model axis (``--mesh model=1``) ``--checkpoint-dir``,
+    ``--acq-batch 2``, ``--posterior sparse:2`` and ``--eig-scorer
+    surrogate:8`` run; a model axis of more ranks than the world raises
+    the reference's "needs" error."""
     from coda_tpu_torch import cli
     from coda_tpu_torch import data as tdata
     from coda_tpu_torch.selectors import CODAHyperparams, make_coda
@@ -255,19 +254,14 @@ def test_port_model_axis_refusals(tmp_path):
 
     for knob in (dict(posterior="sparse:2"), dict(eig_pbest="amortized"),
                  dict(prefilter_n=16), dict(eig_scorer="surrogate:8")):
-        hp = CODAHyperparams(**knob, shard_spec="model=2")
-        if "eig_scorer" not in knob:        # runs since slice 5d, part 2
-            check_supported(hp, 64)
-            continue
-        with pytest.raises(NotImplementedError,
-                           match="next mesh slice of the port .slice 5"):
-            make_coda(blk.preds, CODAHyperparams(**knob), device="cpu",
-                      mesh=Mesh(data=1, model=2))
+        # each runs since slice 5d
+        check_supported(CODAHyperparams(**knob, shard_spec="model=2"), 64)
     argv = ["--synthetic", "6,64,4", "--method", "coda", "--iters", "2",
             "--seeds", "1", "--device", "cpu", "--no-mlflow", "--mesh",
             "model=1"]
     for flags in (["--acq-batch", "2"], ["--posterior", "sparse:2"],
-                  ["--checkpoint-dir", str(tmp_path / "c")]):
+                  ["--checkpoint-dir", str(tmp_path / "c")],
+                  ["--eig-scorer", "surrogate:8"]):
         # each runs since slice 5d
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -275,8 +269,6 @@ def test_port_model_axis_refusals(tmp_path):
         assert "seed 0: regret@2=" in buf.getvalue()
         if flags[0] == "--checkpoint-dir":
             assert (tmp_path / "c" / "seed_0" / "rank_0").is_dir()
-    with pytest.raises(NotImplementedError, match="next mesh slice"):
-        cli.main(argv + ["--eig-scorer", "surrogate:8"])
     with pytest.raises(ValueError, match="mesh 1x2 needs 2 ranks, have 1"):
         cli.main(argv[:-1] + ["model=2"])
     buf = io.StringIO()

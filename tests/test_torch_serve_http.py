@@ -235,9 +235,9 @@ def test_port_cli_serve_eig_mode_flag():
 
 def test_port_refusals_name_their_slice(task):
     """The mesh's model axis runs (slice 5 ported both axes): without its
-    ranks it raises the reference's "needs" error, a knob the next mesh
-    slice brings raises naming it, and ``--acq-batch 2`` runs on a
-    one-rank model axis (slice 5d). Tiering,
+    ranks it raises the reference's "needs" error, and ``--acq-batch 2``
+    and ``--eig-scorer surrogate:8`` run on a one-rank model axis (slice
+    5d). Tiering,
     the quality plane, export/import, restore, the answer verb, the prior
     pool, ``replay-serve``, ``quality``, ``trace``, ``render_fleet`` and
     the server's half of a migration run: ``export`` with ``hold`` holds
@@ -261,9 +261,9 @@ def test_port_refusals_name_their_slice(task):
             "--iters", "2", "--no-mlflow", "--mesh"]
     with pytest.raises(ValueError, match="mesh 1x2 needs 2 ranks"):
         cli.main(argv + ["model=2"])
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        cli.main(argv + ["model=1", "--eig-scorer", "surrogate:8"])
-    with contextlib.redirect_stdout(io.StringIO()):    # runs since 5d
+    with contextlib.redirect_stdout(io.StringIO()):    # run since 5d
+        assert cli.main(argv + ["model=1", "--eig-scorer",
+                                "surrogate:8"]) == 0
         assert cli.main(argv + ["model=1", "--acq-batch", "2"]) == 0
     with pytest.raises(SystemExit) as e:
         cli.main(["replay-serve", "--help"])

@@ -595,11 +595,11 @@ def test_cli_runs_every_reference_knob(knob, capsys):
     (["--mesh", "model=2"], "slice 5")])
 def test_cli_later_slice_flags_raise(knob, where, tmp_path):
     """``--mesh`` with a model axis runs since slice 5 ported both axes:
-    without its ranks it raises the reference's "needs" error, and a
-    knob still left for the next mesh slice raises naming it on a
-    one-rank model axis. The slice 4 flags run now: ``--eig-scorer
-    surrogate:8``, and ``--surrogate-prior pool`` with it; ``pool`` alone
-    is the reference's refusal."""
+    without its ranks it raises the reference's "needs" error, and on a
+    one-rank model axis the surrogate scorer runs too (since slice 5d).
+    The slice 4 flags run now: ``--eig-scorer surrogate:8``, and
+    ``--surrogate-prior pool`` with it; ``pool`` alone is the reference's
+    refusal."""
     from coda_tpu_torch.cli import main
 
     argv = ["--synthetic", "6,64,4", "--method", "coda", "--iters", "2",
@@ -607,8 +607,8 @@ def test_cli_later_slice_flags_raise(knob, where, tmp_path):
     if where == "slice 5":
         with pytest.raises(ValueError, match="mesh 1x2 needs 2 ranks"):
             main(argv)
-        with pytest.raises(NotImplementedError, match=where):
-            main(argv[:-1] + ["model=1", "--eig-scorer", "surrogate:8"])
+        assert main(argv[:-1] + ["model=1", "--eig-scorer",
+                                 "surrogate:8"]) == 0
         return
     if knob[0] == "--surrogate-prior":
         with pytest.raises(ValueError, match="eig_scorer='exact' carries"):
