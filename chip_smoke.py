@@ -318,12 +318,18 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    (the surrogate's hybrid-round share too), with the card's name and
    power limit: gloo on one shared card checks the sharded program, it
    does not measure NCCL scaling.
-15. the mesh's model axis (H sharded): first kernels 1 and 2, fp32 and
-   bf16 caches, at the blocks the ranks below hand them — ``(C, N/a,
-   H/b)`` = (10, 50000, 500), (10, 50000, 250), (10, 25000, 500) — each
-   held to its plain version and timed (CUDA events), with the load path
-   it takes (16-byte vectors, or scalar where H/b is not a multiple of
-   the vector's width). Then phase 14's jobs on the same task files,
+15. the mesh's model axis (H sharded): first kernels 1 and 2, in the four
+   flavours, at the blocks the ranks below hand them — ``(C, N/a, H/b)``
+   = (10, 50000, 500), (10, 50000, 250), (10, 25000, 500), the
+   imagenet_sparse pool's (1000, 256, 500) and (1000, 256, 250) — and at
+   (126, 2048, 500) and (10, 8192, 1000), on both decompositions: the
+   single launch (``class_chunks=1``) and the class-chunk split (the
+   rule's chunk count, or 3 where the rule keeps one launch), whose
+   scores and refreshed cache must be ``torch.equal`` to the single
+   launch's; each held to its plain version and timed (CUDA events)
+   beside its bound, with the chunks chosen and the load path it takes
+   (16-byte vectors, or scalar where H/b is not a multiple of the
+   vector's width). Then phase 14's jobs on the same task files,
    held to phase 14's unsharded yardstick (the same rounds), under
    ``--mesh model=2`` (two ranks, each 500 of the 1000 models: CODA 1
    seed x 20 with the recorder off and on, 5 seeds x 5 on the
@@ -360,9 +366,9 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    the bytes a rank sends into its model group's collectives a round.
 
 It prints one JSON line with every kernel flavour (its ``launches`` summed
-over the main-path runs, the mesh's ranks' included), then the card's
-name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``. Any failed
+over the main-path runs, the mesh's ranks' included; kernels 1 and 2 also
+split them by decomposition, ``launches_by_path``), then the card's name
+and power limit, and as its last line ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero; without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -984,9 +990,26 @@ def reset_counts():
     from coda_tpu_torch.ops import eig_kernels as ek
     from coda_tpu_torch.ops import gather_kernels as gk
 
-    for d in (ek.launch_counts, gk.launch_counts):
+    for d in (ek.launch_counts, gk.launch_counts, ek.split_counts):
         for k in d:
             d[k] = 0
+
+
+SPLIT = "/split"   # a flavour's key in a launch total: its split launches
+
+
+def _tally(total: dict, by_flavour: dict, split: Optional[dict] = None):
+    """Add a counted run's launches by flavour to ``total``, and its
+    launches of kernels 1 and 2 that took the split decomposition (this
+    process's since the last :func:`reset_counts`, or a rank's ``split``)
+    under ``<flavour>/split``."""
+    from coda_tpu_torch.ops import eig_kernels as ek
+
+    for k, v in by_flavour.items():
+        total[k] = total.get(k, 0) + v
+    for k, v in (ek.split_counts if split is None else split).items():
+        if v:
+            total[k + SPLIT] = total.get(k + SPLIT, 0) + v
 
 
 def read_counts() -> tuple[dict, dict]:
@@ -1081,8 +1104,7 @@ def phase_main_path(dev, task) -> dict:
         if by_flavour != want:
             raise AssertionError(f"{config}: launch counts {by_flavour}, "
                                  f"expected {want}")
-        for k, v in by_flavour.items():
-            total[k] = total.get(k, 0) + v
+        _tally(total, by_flavour)
         _check_run(res, config, iters, N)
         regret = res.regret.cpu()
         init_ms = timings[0]["init_ms"]
@@ -1119,8 +1141,7 @@ def phase_main_path(dev, task) -> dict:
         if by_flavour != want or len(timings) != 1:
             raise AssertionError(f"{config}: launch counts {by_flavour}, "
                                  f"expected {want}; timings {timings}")
-        for k, v in by_flavour.items():
-            total[k] = total.get(k, 0) + v
+        _tally(total, by_flavour)
         _check_run(res, config, iters, N)
         regret = res.regret.cpu()
         round_ms = timings[0]["rounds_ms"] / iters
@@ -1455,8 +1476,7 @@ def phase_recorded(dev, task, total: dict) -> None:
         if by_flavour != want:
             raise AssertionError(f"{what}: launches {by_flavour}, expected "
                                  f"{want}")
-        for k, v in by_flavour.items():
-            total[k] = total.get(k, 0) + v
+        _tally(total, by_flavour)
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1547,8 +1567,7 @@ def _tier_run(dev, task, iters, seeds, what, total=None, want=None,
         if by_flavour != want:
             raise AssertionError(f"{what}: launches {by_flavour}, expected "
                                  f"{want}")
-        for k, v in by_flavour.items():
-            total[k] = total.get(k, 0) + v
+        _tally(total, by_flavour)
     _check_run(res, what, iters, task.preds.shape[1])
     rec = RunRecord.from_result(res, aux, {}, {})
     return rec, timings, peak_gb, sels[0].extras["eig_mode"]
@@ -2053,8 +2072,7 @@ def _q_run(dev, preds, labels, iters, seeds, q, what, total, want,
     if by_flavour != want:
         raise AssertionError(f"{what}: launches {by_flavour}, expected "
                              f"{want}")
-    for k, v in by_flavour.items():
-        total[k] = total.get(k, 0) + v
+    _tally(total, by_flavour)
     idx = res.chosen_idx.cpu().reshape(seeds, -1)
     regret = res.regret.cpu()
     N = preds.shape[1]
@@ -2302,8 +2320,7 @@ def phase_batchq_surrogate(dev, task, total: dict) -> dict:
             key, k = trandom.split(key)
             r = donor_sel.select(st, k)
             st = donor_sel.update(st, r.idx, ds.labels.take(r.idx), r.prob)
-        for kk, v in read_counts()[1].items():
-            total[kk] = total.get(kk, 0) + v
+        _tally(total, read_counts()[1])
         fit = st.surrogate
         donor = sg.clip_prior(sg.prior_from_fit(fit.A, fit.b, fit.n,
                                                 fit.rounds))
@@ -2420,8 +2437,7 @@ def phase_batchq_surrogate(dev, task, total: dict) -> dict:
             if by_flavour != want:
                 raise AssertionError(f"tracking CLI run: launches "
                                      f"{by_flavour}")
-            for kk, v in by_flavour.items():
-                total[kk] = total.get(kk, 0) + v
+            _tally(total, by_flavour)
             outs.append(buf.getvalue())
             with sqlite3.connect(db) as conn:
                 rows = conn.execute(_PAPER_SQL + "  AND m.step = ?",
@@ -2503,8 +2519,7 @@ def _counted(what, want, total, fn):
     ok = want(by_kernel) if callable(want) else by_flavour == want
     if not ok:
         raise AssertionError(f"{what}: launches {by_flavour}")
-    for k, v in by_flavour.items():
-        total[k] = total.get(k, 0) + v
+    _tally(total, by_flavour)
     return out
 
 
@@ -3950,8 +3965,7 @@ def phase_serve(dev, task, total: dict, smi: str) -> dict:
         if not (by_kernel["eig_refresh_score"]
                 or by_kernel["eig_refresh_score_batched"]):
             raise AssertionError(f"http: launches {by_flavour}")
-        for k, v in by_flavour.items():
-            total[k] = total.get(k, 0) + v
+        _tally(total, by_flavour)
         code, text = _http(port, "GET", "/metrics")
         problems = lint_prometheus(text)
         if code != 200 or problems:
@@ -5981,8 +5995,8 @@ def _hold_knobs(spec: str, b: int, jobs, ranks, arrs, one: dict, tmp: str,
                 if jr[r]["launches"] != want:
                     raise AssertionError(f"{what} rank {r} launches "
                                          f"{jr[r]['launches']}, want {want}")
-                for name, v in jr[r]["launches"].items():
-                    total[name] = total.get(name, 0) + v
+                _tally(total, jr[r]["launches"],
+                       jr[r].get("split_launches", {}))
         lines = _hold_against(os.path.join(out_dir, "records", job),
                               os.path.join(tmp, "one", job),
                               os.path.join(out_dir, f"against_{job}.json"),
@@ -6130,8 +6144,8 @@ def phase_mesh(dev, task, total: dict, smi: str,
                         f"mesh rank {r} checkpoint launches: "
                         + str({j: k[j]["launches"] for j in ck_want}))
                 for job in ("main", "batch", "ckpt_cut", "ckpt"):
-                    for name, v in k[job]["launches"].items():
-                        total[name] = total.get(name, 0) + v
+                    _tally(total, k[job]["launches"],
+                           k[job].get("split_launches", {}))
             log("mesh launches by rank (main, batch, ckpt_cut, ckpt): "
                 + "; ".join(f"rank {r} " + " ".join(
                     str(ranks[r]["jobs"][j]["launches"]) for j in
@@ -6191,10 +6205,16 @@ def phase_mesh(dev, task, total: dict, smi: str,
 
 
 # phase 15: the ranks' (C, N/a, H/b) blocks of the headline cache at
-# model=2, model=4 and data=2,model=2, and of the imagenet_sparse pool's
-# cache unsharded and at model=2, where kernels 1 and 2 are timed
+# model=2, model=4 and data=2,model=2, of the imagenet_sparse pool's cache
+# unsharded and at model=2, DomainNet126's 126 classes at a small domain's
+# 2048 items, and the headline's widths at 8192 items, where kernels 1 and
+# 2 are timed on both of their decompositions
 MODEL_BLOCKS = ((10, 50_000, 500), (10, 50_000, 250), (10, 25_000, 500),
-                (1000, 256, 500), (1000, 256, 250))
+                (1000, 256, 500), (1000, 256, 250), (126, 2048, 500),
+                (10, 8192, 1000))
+# the class chunks a block runs where the rule keeps the single launch, so
+# the split is held bitwise there too (a last chunk shorter than the rest)
+FORCED_CHUNKS = 3
 # (spec, ranks, jobs, rounds): phase 14's rounds, so its unsharded runs
 # are the yardstick (the 4-rank run holds the first 10 of its 20 rounds)
 MODEL_RUNS = (("model=2", 2, ("main", "main_rec", "batch", "batch_rec")
@@ -6213,52 +6233,82 @@ _MODEL_WANTS = {
 
 
 def _block_paths(dev, peaks) -> list:
-    """Kernels 1 and 2 at each block of :data:`MODEL_BLOCKS`, fp32 and
-    bf16 caches: held to their plain versions, timed (CUDA events), and
-    the load path each takes (16-byte vectors or scalar)."""
+    """Kernels 1 and 2 at each block of :data:`MODEL_BLOCKS` in the four
+    flavours, on the single launch (``class_chunks=1``) and split over
+    class chunks (the rule's count, or :data:`FORCED_CHUNKS` where the rule
+    keeps one launch): the two paths' scores and kernel 2's refreshed
+    caches ``torch.equal``, each path held to the plain versions, each
+    timed (CUDA events) beside its bound, with the load path each takes
+    (16-byte vectors or scalar)."""
     import torch
 
     from coda_tpu_torch.ops import eig_kernels as ek
 
     gen = torch.Generator(device=dev).manual_seed(15)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = []
     for C, n, h in MODEL_BLOCKS:
         rows, hyp32, pi, pi_xi, hyp_t = random_cache(gen, C, n, h, dev)
         c = torch.tensor(3, device=dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            hyp = hyp32.to(dtype)
-            want1 = ek.eig_scores_from_cache(rows, hyp, pi, pi_xi)
-            got1 = ek.eig_scores_cache(rows, hyp, pi, pi_xi)
+        for dtype, approx in FLAVOURS:
+            tdt = getattr(torch, dtype)
+            hyp = hyp32.to(tdt)
+            rule = ek.choose_class_chunks(C, n, h, approx, sms)
+            split = rule if rule > 1 else FORCED_CHUNKS
+            want1 = ek.eig_scores_from_cache(rows, hyp, pi, pi_xi,
+                                             approx=approx)
             want2, _ = ek.eig_scores_refresh_plain(rows, hyp.clone(), hyp_t,
-                                                   c, pi, pi_xi)
-            hyp2 = hyp.clone()
-            got2, _ = ek.eig_scores_refresh(rows, hyp2, hyp_t, c, pi, pi_xi)
-            err = max(float((got1 - want1).abs().max()),
-                      float((got2 - want2).abs().max()))
+                                                   c, pi, pi_xi,
+                                                   approx=approx)
             tol = SCORE_RTOL * float(want1.abs().max()) + score_atol(h)
-            what = f"block ({C}, {n}, {h}) {str(dtype)[6:]}"
+            what = (f"block ({C}, {n}, {h}) {dtype}"
+                    + (",approx" if approx else ""))
+            got, caches = {}, {}
+            for k in (1, split):
+                caches[k] = hyp.clone()
+                got[k] = (ek.eig_scores_cache(rows, hyp, pi, pi_xi,
+                                              approx=approx, class_chunks=k),
+                          ek.eig_scores_refresh(rows, caches[k], hyp_t, c,
+                                                pi, pi_xi, approx=approx,
+                                                class_chunks=k)[0])
+            torch.cuda.synchronize()
+            if not (torch.equal(got[1][0], got[split][0])
+                    and torch.equal(got[1][1], got[split][1])
+                    and torch.equal(caches[1], caches[split])):
+                raise AssertionError(f"{what}: {split} class chunks are not "
+                                     "bitwise the single launch")
+            err = max(float((got[1][0] - want1).abs().max()),
+                      float((got[1][1] - want2).abs().max()))
             if not err <= tol:
                 raise AssertionError(f"{what}: kernels 1/2 differ from the "
                                      f"plain versions by {err} > {tol}")
             width = ek._vec(h, hyp, rows)
-            rec = {"C": C, "N": n, "H": h, "dtype": str(dtype)[6:],
+            rec = {"C": C, "N": n, "H": h, "dtype": dtype, "approx": approx,
                    "path": f"{width}-wide" if width > 1 else "scalar",
-                   "k1_ms": time_ms(lambda: ek.eig_scores_cache(
-                       rows, hyp, pi, pi_xi)),
-                   "k2_ms": time_ms(lambda: ek.eig_scores_refresh(
-                       rows, hyp2, hyp_t, c, pi, pi_xi)),
+                   "rule_chunks": rule, "split_chunks": split,
                    "max_abs_err": err}
+            for k, tag in ((1, "one"), (split, "split")):
+                rec[f"k1_{tag}_ms"] = time_ms(lambda: ek.eig_scores_cache(
+                    rows, hyp, pi, pi_xi, approx=approx, class_chunks=k))
+                rec[f"k2_{tag}_ms"] = time_ms(lambda: ek.eig_scores_refresh(
+                    rows, caches[k], hyp_t, c, pi, pi_xi, approx=approx,
+                    class_chunks=k))
             for k, name in (("k1", "eig_score"),
                             ("k2", "eig_refresh_score")):
                 nb, ops, tops = work(name, C, n, h, hyp.element_size())
                 rec[k + "_bound_ms"] = bound(nb, ops, peaks, tops)[0]
             out.append(rec)
-            log(f"mesh model: {what}: {rec['path']} loads, kernel 1 "
-                f"{rec['k1_ms']:.4f} ms (bound {rec['k1_bound_ms']:.4f}), "
-                f"kernel 2 {rec['k2_ms']:.4f} ms (bound "
+            log(f"mesh model: {what}: {rec['path']} loads, rule "
+                f"{rule} class chunk(s), split path {split} bitwise the "
+                f"single launch; kernel 1 {rec['k1_one_ms']:.4f} ms on one "
+                f"launch, {rec['k1_split_ms']:.4f} split (bound "
+                f"{rec['k1_bound_ms']:.4f}), kernel 2 {rec['k2_one_ms']:.4f} "
+                f"/ {rec['k2_split_ms']:.4f} (bound "
                 f"{rec['k2_bound_ms']:.4f}); max |kernel - plain| "
-                f"{err:.3e}")
-        del rows, hyp32, pi, pi_xi, hyp_t, hyp, hyp2
+                f"{err:.3e} (tol {tol:.3e})")
+            del hyp, caches, got
+        del rows, hyp32, pi, pi_xi, hyp_t
+        torch.cuda.empty_cache()
     return out
 
 
@@ -6456,8 +6506,8 @@ def phase_mesh_model(dev, task, total: dict, smi: str, peaks,
                             f"mesh {spec} rank {r} launches: "
                             + str({j: k[j]["launches"] for j in k}))
                     for job in kjobs:
-                        for name, v in k[job]["launches"].items():
-                            total[name] = total.get(name, 0) + v
+                        _tally(total, k[job]["launches"],
+                               k[job].get("split_launches", {}))
                 log(f"mesh {spec} launches by rank ({', '.join(kjobs)}): "
                     + "; ".join(
                         f"rank {r} " + " ".join(
@@ -6573,13 +6623,18 @@ def main() -> int:
         return 1
     kernels = []
     for kname, r in recs.items():
+        n = launches.get(kname, 0)
         kernels.append({"name": kname, "route": "cuda", "source": r["source"],
-                        "replaces": r["replaces"],
-                        "launches": launches.get(kname, 0),
+                        "replaces": r["replaces"], "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+        if kname.split("[")[0] in ("eig_score", "eig_refresh_score"):
+            # kernels 1 and 2: the launches on each decomposition
+            split = launches.get(kname + SPLIT, 0)
+            kernels[-1]["launches_by_path"] = {"single": n - split,
+                                               "split": split}
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

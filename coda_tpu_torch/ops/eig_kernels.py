@@ -8,6 +8,9 @@ Kernel 2, :func:`eig_scores_refresh`, replaces ``_refresh_score_kernel``:
 it writes the refreshed class row ``c`` into the cache IN PLACE while it
 scores with it — the cache tensor passed in is modified (JAX returned a
 new, donated buffer instead).
+Where the item axis is too short to fill the card, kernels 1 and 2 split
+their class loop over a second grid axis and sum each item's classes in a
+second launch (:func:`choose_class_chunks`), bitwise the single launch.
 Kernel 6, :func:`eig_scores_refresh_compute`, replaces
 ``_refresh_compute_score_kernel`` (``eig_refresh='fused'``): it computes
 that row on the card from the labelled class's O(H·G) Beta grid tables
@@ -62,6 +65,9 @@ _LOG2E = 1.4426950408889634
 launch_counts = {"eig_score": 0, "eig_refresh_score": 0,
                  "eig_refresh_compute_score": 0, "eig_score_batched": 0,
                  "eig_refresh_score_batched": 0, "eig_plogp_sweep": 0}
+# of those, the launches of kernels 1 and 2 that took the split
+# decomposition (class_chunks > 1), by flavour
+split_counts: dict = {}
 
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_SMEM = 48 << 10  # default dynamic shared memory a block may use
@@ -78,9 +84,12 @@ def flavour(kernel: str, dtype: torch.dtype, approx: bool) -> str:
     return f"{kernel}[{','.join(tags)}]" if tags else kernel
 
 
-def _count(kernel: str, dtype: torch.dtype, approx: bool) -> None:
+def _count(kernel: str, dtype: torch.dtype, approx: bool,
+           split: bool = False) -> None:
     name = flavour(kernel, dtype, approx)
     launch_counts[name] = launch_counts.get(name, 0) + 1
+    if split:
+        split_counts[name] = split_counts.get(name, 0) + 1
 
 
 def mixture_stats(pbest_rows: torch.Tensor, pi_hat: torch.Tensor,
@@ -219,6 +228,11 @@ def _lib():
         lib.eig_score_launch.restype = _I
         lib.eig_refresh_score_launch.argtypes = [_P] * 9 + [_I] * 6 + [_P]
         lib.eig_refresh_score_launch.restype = _I
+        lib.eig_score_split_launch.argtypes = [_P] * 8 + [_I] * 7 + [_P]
+        lib.eig_score_split_launch.restype = _I
+        lib.eig_refresh_score_split_launch.argtypes = \
+            [_P] * 10 + [_I] * 7 + [_P]
+        lib.eig_refresh_score_split_launch.restype = _I
         lib.eig_score_batched_launch.argtypes = [_P] * 7 + [_I] * 7 + [_P]
         lib.eig_score_batched_launch.restype = _I
         lib.eig_refresh_score_batched_launch.argtypes = \
@@ -326,6 +340,72 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+# -- the class-chunk split of kernels 1 and 2 -------------------------------
+# Where the item grid cannot fill the card, kernels 1 and 2 split their
+# class loop over a second grid axis (``csrc/eig_score.cu``); scores and
+# the refreshed row are bitwise the single launch's at every chunk count.
+
+EXACT_ROWS = 4        # eig::kExactRows: rows an exact warp scores at once
+# The single launch keeps the rows of about N items in flight (a warp walks
+# its items' rows class by class), so a short item axis leaves the card
+# idle. The split is taken where N is under SPLIT_ITEMS_PER_SM items an SM
+# and the classes' rows hold at least SPLIT_MIN_CLASS_VALUES values (a
+# warp's walk over them outlasts the second launch); each warp then scores
+# four rows, one class (exact) or four (approx) a chunk. From
+# scripts/torch_split_sweep.py on the H100: no chunk count beat the single
+# launch at N = 8192; every swept shape at N <= 4096 with C * H >= 8064
+# gained (16 times at the pool, C = 1000, N = 256); at C * H = 800 the
+# approx flavour lost; four rows a warp came within a few per cent of the
+# best chunk count at every swept shape, with no partial last wave.
+SPLIT_ITEMS_PER_SM = 32
+SPLIT_MIN_CLASS_VALUES = 4096
+_MAX_CHUNKS = 65535   # gridDim.y
+
+
+def choose_class_chunks(C: int, N: int, H: int, approx: bool,
+                        sms: int) -> int:
+    """The class chunks kernels 1 and 2 take at a ``(C, N, H)`` cache in
+    the ``approx`` or exact flavour on a card of ``sms`` SMs (the storage
+    type does not enter): 1, the single launch, where ``N`` is at least
+    ``SPLIT_ITEMS_PER_SM * sms`` or ``C * H`` under
+    ``SPLIT_MIN_CLASS_VALUES``; else one class a chunk (exact) or
+    ``EXACT_ROWS`` (approx), as many as the grid's y axis holds, counted
+    as the kernel cuts them (:func:`chunk_bounds`)."""
+    if N >= SPLIT_ITEMS_PER_SM * sms or C * H < SPLIT_MIN_CLASS_VALUES:
+        return 1
+    per = EXACT_ROWS if approx else 1
+    return len(chunk_bounds(C, min(_MAX_CHUNKS, -(-C // per))))
+
+
+def chunk_bounds(C: int, chunks: int) -> list:
+    """The ``[c0, c1)`` class ranges of ``chunks`` chunks as the split
+    kernel cuts them: ``ceil(C / chunks)`` classes each, the last the
+    rest, empty chunks dropped."""
+    per = -(-C // chunks)
+    return [(c0, min(C, c0 + per)) for c0 in range(0, C, per)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _class_chunks(class_chunks: Optional[int], C: int, N: int, H: int,
+                  cache: torch.Tensor, approx: bool) -> int:
+    """``class_chunks`` checked, or the rule's choice where it is None."""
+    if class_chunks is None:
+        index = cache.device.index
+        return choose_class_chunks(
+            C, N, H, approx,
+            _sm_count(torch.cuda.current_device() if index is None
+                      else index))
+    _require(isinstance(class_chunks, int)
+             and 1 <= class_chunks <= min(C, _MAX_CHUNKS),
+             f"class_chunks must be an int in [1, {min(C, _MAX_CHUNKS)}] "
+             f"(got {class_chunks!r})")
+    return class_chunks
+
+
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
@@ -333,39 +413,52 @@ def _raise_on(rc: int, what: str) -> None:
 
 def eig_scores_cache(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
                      pi_hat: torch.Tensor, pi_hat_xi: torch.Tensor,
-                     chunk: int = 256, approx: bool = False) -> torch.Tensor:
+                     chunk: int = 256, approx: bool = False,
+                     class_chunks: Optional[int] = None) -> torch.Tensor:
     """Kernel 1 (``csrc/eig_score.cu``): ``(N,)`` EIG scores from the
     ``(C, N, H)`` cache (float32 or bfloat16). CPU tensors take
     :func:`eig_scores_from_cache` (``chunk`` is its memory valve); CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel, over ``class_chunks`` class chunks (None:
+    :func:`choose_class_chunks`; 1: the single launch), bitwise the same
+    scores at every count."""
     if pbest_hyp.device.type == "cpu":
         return eig_scores_from_cache(pbest_rows, pbest_hyp, pi_hat,
                                      pi_hat_xi, chunk, approx)
     C, N, H = _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi)
+    k = _class_chunks(class_chunks, C, N, H, pbest_hyp, approx)
     mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
     out = torch.empty(N, dtype=torch.float32, device=pbest_hyp.device)
-    rc = _lib().eig_score_launch(
-        pbest_rows.data_ptr(), pbest_hyp.data_ptr(), pi_hat.data_ptr(),
-        pi_hat_xi.data_ptr(), mixture0.data_ptr(), h_before.data_ptr(),
-        out.data_ptr(), C, N, H, _vec(H, pbest_hyp, pbest_rows, mixture0),
-        int(pbest_hyp.dtype == torch.bfloat16), int(approx), _stream())
+    args = (pbest_rows.data_ptr(), pbest_hyp.data_ptr(), pi_hat.data_ptr(),
+            pi_hat_xi.data_ptr(), mixture0.data_ptr(), h_before.data_ptr(),
+            out.data_ptr())
+    flags = (C, N, H, _vec(H, pbest_hyp, pbest_rows, mixture0),
+             int(pbest_hyp.dtype == torch.bfloat16), int(approx))
+    if k == 1:
+        rc = _lib().eig_score_launch(*args, *flags, _stream())
+    else:
+        ent = torch.empty((N, C), dtype=torch.float32,
+                          device=pbest_hyp.device)
+        rc = _lib().eig_score_split_launch(*args, ent.data_ptr(), *flags, k,
+                                           _stream())
     _raise_on(rc, "eig_score")
-    _count("eig_score", pbest_hyp.dtype, approx)
+    _count("eig_score", pbest_hyp.dtype, approx, split=k > 1)
     return out
 
 
 def eig_scores_refresh(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
                        hyp_t: torch.Tensor, true_class: torch.Tensor,
                        pi_hat: torch.Tensor, pi_hat_xi: torch.Tensor,
-                       chunk: int = 256, approx: bool = False):
+                       chunk: int = 256, approx: bool = False,
+                       class_chunks: Optional[int] = None):
     """Kernel 2 (``csrc/eig_score.cu``): write ``hyp_t`` (N, H) fp32 into
     class row ``true_class`` of ``pbest_hyp`` IN PLACE, rounded to the
     cache's storage type, and score every item with the stored row, in one
     pass over the cache. ``pbest_rows`` must already hold the refreshed
     row; ``pbest_hyp`` holds the old one. ``true_class`` is a 0-d or
     1-element integer tensor on the cache's device, read by the kernel (no
-    host synchronisation); out of range gives NaN scores.
-    Returns ``(scores (N,), pbest_hyp)``."""
+    host synchronisation); out of range gives NaN scores. ``class_chunks``
+    as for :func:`eig_scores_cache`: scores and cache bitwise the same at
+    every count. Returns ``(scores (N,), pbest_hyp)``."""
     if pbest_hyp.device.type == "cpu":
         return eig_scores_refresh_plain(pbest_rows, pbest_hyp, hyp_t,
                                         true_class, pi_hat, pi_hat_xi, chunk,
@@ -376,16 +469,23 @@ def eig_scores_refresh(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
              f"hyp_t must be a contiguous float32 ({N}, {H}) tensor on "
              f"{pbest_hyp.device}")
     c = _check_class(true_class, pbest_hyp.device)
+    k = _class_chunks(class_chunks, C, N, H, pbest_hyp, approx)
     mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
     out = torch.empty(N, dtype=torch.float32, device=pbest_hyp.device)
-    rc = _lib().eig_refresh_score_launch(
-        pbest_rows.data_ptr(), pbest_hyp.data_ptr(), hyp_t.data_ptr(),
-        c.data_ptr(), pi_hat.data_ptr(), pi_hat_xi.data_ptr(),
-        mixture0.data_ptr(), h_before.data_ptr(), out.data_ptr(), C, N, H,
-        _vec(H, pbest_hyp, pbest_rows, hyp_t, mixture0),
-        int(pbest_hyp.dtype == torch.bfloat16), int(approx), _stream())
+    args = (pbest_rows.data_ptr(), pbest_hyp.data_ptr(), hyp_t.data_ptr(),
+            c.data_ptr(), pi_hat.data_ptr(), pi_hat_xi.data_ptr(),
+            mixture0.data_ptr(), h_before.data_ptr(), out.data_ptr())
+    flags = (C, N, H, _vec(H, pbest_hyp, pbest_rows, hyp_t, mixture0),
+             int(pbest_hyp.dtype == torch.bfloat16), int(approx))
+    if k == 1:
+        rc = _lib().eig_refresh_score_launch(*args, *flags, _stream())
+    else:
+        ent = torch.empty((N, C), dtype=torch.float32,
+                          device=pbest_hyp.device)
+        rc = _lib().eig_refresh_score_split_launch(*args, ent.data_ptr(),
+                                                   *flags, k, _stream())
     _raise_on(rc, "eig_refresh_score")
-    _count("eig_refresh_score", pbest_hyp.dtype, approx)
+    _count("eig_refresh_score", pbest_hyp.dtype, approx, split=k > 1)
     return out, pbest_hyp
 
 

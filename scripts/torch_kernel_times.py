@@ -14,8 +14,11 @@ kernels 1 and 2 (``eig_scores_cache``, ``eig_scores_refresh``), kernel 6
 (``eig_scores_refresh_compute``, G = 256 grid points) and, where the
 checkout has them, kernels 4 and 5 (``eig_scores_cache_batched``,
 ``eig_scores_refresh_batched``) and the batched kernel 3 at 5 replicas (the
-CLI's default seeds); beside them the registers ``ptxas`` reports for each
-library and the card's name and power limit.
+CLI's default seeds); then kernels 1 and 2 in the four flavours at the
+imagenet_sparse pool's (C, N, H) = (1000, 256, 500) (keys ending
+``@1000,256,500``), on the decomposition the checkout's wrappers take
+there; beside them the registers ``ptxas`` reports for each library and
+the card's name and power limit.
 Two checkouts are compared in one call, in turns (parent, change, change,
 parent), each in its own process. Needs a CUDA device.
 """
@@ -32,6 +35,7 @@ import sys
 
 REPS = 50
 SEEDS = 5
+POOL = (1000, 256, 500)   # (C, N, H): scripts/imagenet_sparse.py's pool
 
 
 def _median_ms(fn) -> float:
@@ -155,6 +159,27 @@ def main(argv=None) -> int:
                     rows, hyp, hyp_t, cls, pi, pi_xi, approx=approx))
         del hyp, one, r1, h1, p1, px1, ht1, r6
         torch.cuda.empty_cache()
+    del rows, hyp32, pi_xi, hyp_t, pi, hard
+    torch.cuda.empty_cache()
+    # kernels 1 and 2 at the imagenet_sparse pool's short item axis, on
+    # whichever decomposition the checkout's wrappers take there
+    Cp, Np, Hp = POOL
+    rows, hyp32, pi_xi, hyp_t = (simplex(Cp, Hp), simplex(Cp, Np, Hp),
+                                 simplex(Np, Cp), simplex(Np, Hp))
+    pi = pi_xi.mean(0)
+    pi = pi / pi.sum()
+    cp = torch.tensor(3, dtype=torch.int32, device=dev)
+    tag = "@" + ",".join(map(str, POOL))
+    for dtype in (torch.float32, torch.bfloat16):
+        hyp = hyp32.to(dtype)
+        for approx in (False, True):
+            out["ms"][ek.flavour("eig_score", dtype, approx) + tag] = \
+                _median_ms(lambda: ek.eig_scores_cache(rows, hyp, pi, pi_xi,
+                                                       approx=approx))
+            out["ms"][ek.flavour("eig_refresh_score", dtype, approx)
+                      + tag] = _median_ms(lambda: ek.eig_scores_refresh(
+                          rows, hyp, hyp_t, cp, pi, pi_xi, approx=approx))
+        del hyp
     print(json.dumps(out))
     return 0
 

@@ -293,11 +293,19 @@ def counts() -> dict:
     return out
 
 
+def split_counts() -> dict:
+    """Of :func:`counts`, kernels 1 and 2's launches that took the split
+    decomposition, by flavour."""
+    from coda_tpu_torch.ops import eig_kernels as ek
+
+    return {k: v for k, v in ek.split_counts.items() if v}
+
+
 def reset_counts() -> None:
     from coda_tpu_torch.ops import eig_kernels as ek
     from coda_tpu_torch.ops import gather_kernels as gk
 
-    for d in (ek.launch_counts, gk.launch_counts):
+    for d in (ek.launch_counts, gk.launch_counts, ek.split_counts):
         for k in d:
             d[k] = 0
 
@@ -432,7 +440,7 @@ def run_cli_job(argv: list, dev) -> dict:
                 else contextlib.nullcontext()):
             rc = cli.main(argv)
         _sync(dev)
-        launched = counts()
+        launched, split = counts(), split_counts()
         sent = {k: v - sent[k] for k, v in collectives.traffic.items()}
     finally:
         cli.build_selector_factory, cli.run_all_seeds = orig_factory, \
@@ -466,6 +474,7 @@ def run_cli_job(argv: list, dev) -> dict:
         if "--acq-batch" in argv else 1
     return extra | {
         "rc": rc, "stdout": out.getvalue(), "launches": launched,
+        "split_launches": split,
         "ms_per_round": rounds / (iters * per),
         "ms_per_label": rounds / (iters * per * q),
         "rounds_ms": rounds,
@@ -626,7 +635,8 @@ def _run_jobs(jobs, data_dir, task, rounds, dev, mesh_spec, pred_dir,
                           suite_tasks, "--methods", "coda", "--seeds", "2",
                           "--iters", str(rounds["suite"]), "--db", suite_db,
                           "--force-rerun"] + device + mesh)
-            out[job] = {"stdout": buf.getvalue(), "launches": counts()}
+            out[job] = {"stdout": buf.getvalue(), "launches": counts(),
+                        "split_launches": split_counts()}
         elif job == "replay":
             out[job] = {"records": run_replays(root, data_dir, dev,
                                                replays)}

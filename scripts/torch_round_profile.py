@@ -61,7 +61,8 @@ def _group(name: str) -> str:
     n = name.lower()
     if "refresh_compute" in n:     # kernel 6's row and scoring launches
         return "kernel: eig_refresh_compute (csrc/eig_refresh_compute.cu)"
-    if "score_kernel" in n:
+    if "score_kernel" in n or "class_chunk_kernel" in n \
+            or "class_mix_kernel" in n:   # kernels 1 and 2 split
         return "kernel: eig_score/refresh (csrc/eig_score.cu)"
     if "gather_kernel" in n:      # kernel 3's ring and 4-byte paths
         return "kernel: row_gather (csrc/row_gather.cu)"

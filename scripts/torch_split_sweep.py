@@ -1,0 +1,230 @@
+#!/usr/bin/env python3
+"""Sweep the class-chunk count of kernels 1 and 2 (``eig_scores_cache``,
+``eig_scores_refresh``) over cache blocks, to set the split rule's
+crossover (``ops/eig_kernels.choose_class_chunks``).
+
+    python scripts/torch_split_sweep.py [--blocks C,N,H;C,N,H...]
+        [--flavours float32,bfloat16,float32:approx,bfloat16:approx]
+        [--reps 20] [--chunks K,K...] [--out sweep.json]
+
+For each ``(C, N, H)`` block (default: the ranks' blocks that
+``chip_smoke.py`` phase 15 times, the imagenet_sparse pool's data=2 rank
+``(1000, 128, 500)`` and ``digits_h80``'s ``(10, 899, 80)``) and each
+flavour (cache dtype, exact or approx entropy) it builds a random
+normalised cache on the card, launches kernels 1 and 2 at one chunk and
+at a ladder of chunk counts (powers of two up to C, and the rule's),
+holds every split launch's scores, and kernel 2's refreshed cache,
+bitwise (``torch.equal``) to the single launch's, and times each beside
+its bound (bytes at the card's memory rate, ``telemetry/costs``): the
+wrapper call (median of ``--reps`` calls, CUDA events around each, after
+warm-up; ``k1_ms``, ``k2_ms``) and the launch alone (``--reps`` launches
+of the library's entry on operands prepared once, back to back between
+two CUDA events; ``k1_launch_ms``, ``k2_launch_ms``). Prints
+one JSON line a block and flavour (the item grid, the load path, the
+rule's chunks, the time at each count) and, last, the card's name and
+power limit. Exits 1 if any split launch differs from the single one.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+BLOCKS = ((10, 50_000, 500), (10, 50_000, 250), (10, 25_000, 500),
+          (1000, 256, 500), (1000, 256, 250), (126, 2048, 500),
+          (10, 8192, 1000), (1000, 128, 500), (10, 899, 80))
+FLAVOURS = ("float32", "bfloat16", "float32:approx", "bfloat16:approx")
+
+
+def _median_ms(fn, reps: int) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _kernel_ms(ek, rows, hyp, pi, pi_xi, hyp_t, c, approx, k,
+               refresh: bool, reps: int) -> float:
+    """The launch alone (the wrapper's ctypes call on operands prepared
+    once): ``reps`` launches back to back between two CUDA events, over
+    ``reps``."""
+    import torch
+
+    C, N, H = hyp.shape
+    mixture0, h_before = ek.mixture_stats(rows, pi, approx)
+    out = torch.empty(N, dtype=torch.float32, device=hyp.device)
+    ent = torch.empty((N, C), dtype=torch.float32, device=hyp.device)
+    c32 = c.reshape(-1).to(torch.int32)
+    lib = ek._lib()
+    flags = (C, N, H, ek._vec(H, hyp, rows, hyp_t, mixture0),
+             int(hyp.dtype == torch.bfloat16), int(approx))
+    if refresh:
+        args = (rows.data_ptr(), hyp.data_ptr(), hyp_t.data_ptr(),
+                c32.data_ptr(), pi.data_ptr(), pi_xi.data_ptr(),
+                mixture0.data_ptr(), h_before.data_ptr(), out.data_ptr())
+        fn = (lambda: lib.eig_refresh_score_launch(*args, *flags, stream)) \
+            if k == 1 else (lambda: lib.eig_refresh_score_split_launch(
+                *args, ent.data_ptr(), *flags, k, stream))
+    else:
+        args = (rows.data_ptr(), hyp.data_ptr(), pi.data_ptr(),
+                pi_xi.data_ptr(), mixture0.data_ptr(), h_before.data_ptr(),
+                out.data_ptr())
+        fn = (lambda: lib.eig_score_launch(*args, *flags, stream)) \
+            if k == 1 else (lambda: lib.eig_score_split_launch(
+                *args, ent.data_ptr(), *flags, k, stream))
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(3):
+        assert fn() == 0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _ladder(C: int, rule: int) -> list:
+    ks = {1, rule, C}
+    k = 2
+    while k < C:
+        ks.add(k)
+        k *= 2
+    return sorted(ks)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--blocks", default=";".join(
+        ",".join(map(str, b)) for b in BLOCKS))
+    p.add_argument("--flavours", default=",".join(FLAVOURS))
+    p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--chunks", default=None,
+                   help="comma-separated chunk counts (default: 1, the "
+                        "rule's, C and the powers of two below C)")
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    from coda_tpu_torch.ops import eig_kernels as ek
+    from coda_tpu_torch.telemetry import costs
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    peaks = costs.card_peaks(name) or costs.card_peaks("H100")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(19)
+    blocks = [tuple(int(x) for x in b.split(","))
+              for b in args.blocks.split(";")]
+    rows_out, bad = [], []
+    for C, N, H in blocks:
+        def simplex(*shape):
+            x = torch.rand(shape, generator=gen, device=dev) + 0.1
+            return x / x.sum(-1, keepdim=True)
+
+        rows, hyp32, pi_xi, hyp_t = (simplex(C, H), simplex(C, N, H),
+                                     simplex(N, C), simplex(N, H))
+        pi = pi_xi.mean(0)
+        pi = pi / pi.sum()
+        c = torch.tensor(C // 2, dtype=torch.int32, device=dev)
+        for fl in args.flavours.split(","):
+            dname, _, tag = fl.partition(":")
+            dtype, approx = getattr(torch, dname), tag == "approx"
+            hyp = hyp32.to(dtype)
+            rule = ek.choose_class_chunks(C, N, H, approx, sms)
+            one1 = ek.eig_scores_cache(rows, hyp, pi, pi_xi, approx=approx,
+                                       class_chunks=1)
+            ref2 = hyp.clone()
+            one2, _ = ek.eig_scores_refresh(rows, ref2, hyp_t, c, pi, pi_xi,
+                                            approx=approx, class_chunks=1)
+            work = hyp.clone()
+            rec = {"C": C, "N": N, "H": H, "flavour": fl,
+                   "item_blocks": -(-N // (8 if approx else 32)),
+                   "path": ("vector" if ek._vec(H, hyp, rows) > 1
+                            else "scalar"),
+                   "rule_chunks": rule, "k1_ms": {}, "k2_ms": {},
+                   "k1_launch_ms": {}, "k2_launch_ms": {}}
+            for k, kernel in (("k1", "eig_score"),
+                              ("k2", "eig_refresh_score")):
+                nb, ops, _ = costs.kernel_work(kernel, C, N, H,
+                                               hyp.element_size())
+                rec[k + "_bound_ms"] = costs.bound_ms(nb, ops, peaks)[0]
+            ladder = _ladder(C, rule) if args.chunks is None else sorted(
+                {1, rule} | {min(C, int(x)) for x in args.chunks.split(",")})
+            for k in ladder:
+                got1 = ek.eig_scores_cache(rows, hyp, pi, pi_xi,
+                                           approx=approx, class_chunks=k)
+                hyp2 = hyp.clone()
+                got2, _ = ek.eig_scores_refresh(rows, hyp2, hyp_t, c, pi,
+                                                pi_xi, approx=approx,
+                                                class_chunks=k)
+                torch.cuda.synchronize()
+                if not (torch.equal(got1, one1) and torch.equal(got2, one2)
+                        and torch.equal(hyp2, ref2)):
+                    bad.append((C, N, H, fl, k))
+                del hyp2
+                rec["k1_ms"][k] = _median_ms(
+                    lambda: ek.eig_scores_cache(rows, hyp, pi, pi_xi,
+                                                approx=approx,
+                                                class_chunks=k), args.reps)
+                rec["k2_ms"][k] = _median_ms(
+                    lambda: ek.eig_scores_refresh(rows, work, hyp_t, c, pi,
+                                                  pi_xi, approx=approx,
+                                                  class_chunks=k), args.reps)
+                rec["k1_launch_ms"][k] = _kernel_ms(
+                    ek, rows, hyp, pi, pi_xi, hyp_t, c, approx, k, False,
+                    args.reps)
+                rec["k2_launch_ms"][k] = _kernel_ms(
+                    ek, rows, work, pi, pi_xi, hyp_t, c, approx, k, True,
+                    args.reps)
+            for k in ("k1", "k2"):
+                best = min(rec[k + "_ms"], key=rec[k + "_ms"].get)
+                rec[k + "_best_chunks"] = best
+                launch = rec[k + "_launch_ms"]
+                rec[k + "_launch_best_chunks"] = min(launch, key=launch.get)
+            rows_out.append(rec)
+            print(json.dumps(rec), flush=True)
+            del hyp, ref2, work
+        del rows, hyp32, pi_xi, hyp_t
+        torch.cuda.empty_cache()
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": smi, "sms": sms, "rows": rows_out}, f,
+                      indent=1)
+    if bad:
+        print(f"split launches differ from the single launch: {bad}",
+              file=sys.stderr)
+    print(smi)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
