@@ -28,7 +28,8 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    seed-batched kernels 4 and 5 and kernel 3 with a replica axis run at
    S = 5 replicas (the CLI's default seeds) of the same shapes, held to
    their plain versions and, bitwise, to kernels 1, 2 and 3 launched on
-   each replica; kernel 3 and its batched form are also held bitwise to
+   each replica (kernels 4 and 5 timed at the headline only); kernel 3
+   and its batched form are also held bitwise to
    the in-order fp32 sum over models (``gather_rows_sum_inorder``, the
    Pallas kernel's accumulator);
 3. drives the main path — ``make_synthetic_task(0, H=1000, N=50000, C=10)``
@@ -92,7 +93,11 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    mirror of its scatters; seeded labels that reach untracked columns
    drive the eviction and residual branches against the host mirror),
    ``sparse:1000`` bitwise dense and
-   ``sparse:32`` fused on kernel 6 once a round; and at the headline, 1
+   ``sparse:32`` fused on kernel 6 once a round; the pool's 5 seeds as
+   one batch with ``sparse:32`` and ``pi_update=exact`` (auto must name
+   the incremental tier; 3 rounds after an untimed one: kernel 4 once,
+   kernel 5 once a round, every launch on the class-chunk split); and at
+   the headline, 1
    seed x 10 rounds, the amortized P(best) at multiplier 20 (kernel 2 once
    a round; the gate's engaged rounds; scores within 2.34e-4 of quad),
    ``pi_update=exact`` (kernel 3 never) triaged against delta,
@@ -329,7 +334,10 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    launch's; each held to its plain version and timed (CUDA events)
    beside its bound, with the chunks chosen and the load path it takes
    (16-byte vectors, or scalar where H/b is not a multiple of the
-   vector's width). Then phase 14's jobs on the same task files,
+   vector's width); then kernels 4 and 5 at S = 5 replicas of the pool's
+   (1000, 256, 500) and of (126, 2048, 500) the same way, both
+   decompositions ``torch.equal`` to each other and to kernels 1 and 2
+   launched per replica. Then phase 14's jobs on the same task files,
    held to phase 14's unsharded yardstick (the same rounds), under
    ``--mesh model=2`` (two ranks, each 500 of the 1000 models: CODA 1
    seed x 20 with the recorder off and on, 5 seeds x 5 on the
@@ -366,8 +374,9 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    the bytes a rank sends into its model group's collectives a round.
 
 It prints one JSON line with every kernel flavour (its ``launches`` summed
-over the main-path runs, the mesh's ranks' included; kernels 1 and 2 also
-split them by decomposition, ``launches_by_path``), then the card's name
+over the main-path runs, the mesh's ranks' included; kernels 1, 2, 4 and
+5 also split them by decomposition, ``launches_by_path``), then the card's
+name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero; without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -752,7 +761,8 @@ def _k6_wide(dev, gen):
 def _k45(dev, peaks, recs, N, gen):
     """Kernels 4 and 5 (the seed-batched kernels 1 and 2) in all four
     flavours at S = SEEDS replicas: against their plain versions, and
-    bitwise against kernels 1 and 2 launched on each replica."""
+    bitwise against kernels 1 and 2 launched on each replica; timed, with
+    their plain versions, at the headline's N only."""
     import torch
 
     from coda_tpu_torch.ops import eig_kernels as ek
@@ -787,18 +797,23 @@ def _k45(dev, peaks, recs, N, gen):
             source="coda_tpu_torch/csrc/eig_score.cu",
             replaces="coda_tpu/ops/pallas_eig.py:556", max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        nbytes, nops, _ = work("eig_score_batched", C, N, H, size, S)
-        ms = time_ms(lambda: ek.eig_scores_cache_batched(rows, hyp, pi, pi_xi,
-                                                         approx=approx))
-        plain = time_ms(lambda: ek.eig_scores_from_cache_batched(
-            rows, hyp, pi, pi_xi, chunk=1024, approx=approx), reps=5)
-        b, by = bound(nbytes, nops, peaks)
-        log(f"kernel {name} {tag}: max_abs_err={err:.3e} (tol atol="
-            f"{atol:.2e} rtol={SCORE_RTOL}) == kernel 1 per replica bitwise "
-            f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f} ({by})")
+        note = (f"kernel {name} {tag}: max_abs_err={err:.3e} (tol atol="
+                f"{atol:.2e} rtol={SCORE_RTOL}) == kernel 1 per replica "
+                "bitwise")
+        # timed at the headline only: the plain versions' 5-replica calls
+        # are the slow part of this phase
         if headline:
+            nbytes, nops, _ = work("eig_score_batched", C, N, H, size, S)
+            ms = time_ms(lambda: ek.eig_scores_cache_batched(
+                rows, hyp, pi, pi_xi, approx=approx))
+            plain = time_ms(lambda: ek.eig_scores_from_cache_batched(
+                rows, hyp, pi, pi_xi, chunk=1024, approx=approx), reps=5)
+            b, by = bound(nbytes, nops, peaks)
+            note += (f" ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f} "
+                     f"({by})")
             r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                      library_ms=None)
+        log(note)
 
         # kernel 5: replica s refreshes row cls[s] in place, then scores
         name = ek.flavour("eig_refresh_score_batched", tdt, approx)
@@ -828,21 +843,23 @@ def _k45(dev, peaks, recs, N, gen):
             source="coda_tpu_torch/csrc/eig_score.cu",
             replaces="coda_tpu/ops/pallas_eig.py:825", max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        nbytes, nops, _ = work("eig_refresh_score_batched", C, N, H, size,
-                               S)
-        ms = time_ms(lambda: ek.eig_scores_refresh_batched(
-            rows, hyp_k, hyp_t, cls, pi, pi_xi, approx=approx))
-        plain = time_ms(lambda: ek.eig_scores_refresh_batched_plain(
-            rows, hyp_k, hyp_t, cls, pi, pi_xi, chunk=1024, approx=approx),
-            reps=5)
-        b, by = bound(nbytes, nops, peaks)
-        log(f"kernel {name} {tag}: max_abs_err={err:.3e} (tol atol="
-            f"{atol:.2e} rtol={SCORE_RTOL}) cache == plain cache, == kernel 2 "
-            f"per replica bitwise, other rows untouched ms={ms:.4f} "
-            f"plain_ms={plain:.4f} bound_ms={b:.4f} ({by})")
+        note = (f"kernel {name} {tag}: max_abs_err={err:.3e} (tol atol="
+                f"{atol:.2e} rtol={SCORE_RTOL}) cache == plain cache, == "
+                "kernel 2 per replica bitwise, other rows untouched")
         if headline:
+            nbytes, nops, _ = work("eig_refresh_score_batched", C, N, H,
+                                   size, S)
+            ms = time_ms(lambda: ek.eig_scores_refresh_batched(
+                rows, hyp_k, hyp_t, cls, pi, pi_xi, approx=approx))
+            plain = time_ms(lambda: ek.eig_scores_refresh_batched_plain(
+                rows, hyp_k, hyp_t, cls, pi, pi_xi, chunk=1024,
+                approx=approx), reps=5)
+            b, by = bound(nbytes, nops, peaks)
+            note += (f" ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f} "
+                     f"({by})")
             r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                      library_ms=None)
+        log(note)
         del hyp, hyp_k
         torch.cuda.empty_cache()
     del rows, hyp32, pi, pi_xi, hyp_t
@@ -1520,6 +1537,7 @@ def phase_recorded(dev, task, total: dict) -> None:
 TIER_ROUNDS = 5                    # the headline's 5-seed factored batch
 SPARSE_POOL = (500, 256, 1000)     # (H, N, C): scripts/imagenet_sparse.py
 SPARSE_ROUNDS, SPARSE_CHUNK = 51, 64
+POOL_BATCH_ROUNDS = 3              # the pool's 5-seed batch on kernels 4, 5
 REST_ROUNDS = 10
 CONTRACT = 2.34e-4                 # the cross-backend score contract
 
@@ -1935,6 +1953,30 @@ def phase_tiers(dev, task, total: dict) -> dict:
               posterior="sparse:32", eig_refresh="fused", **sp_knobs)
     log(f"tiers: pool sparse:32 eig_refresh=fused: kernel 6 launched once a "
         f"round ({SPARSE_ROUNDS})")
+    # the pool's 5 seeds in one batch: auto keeps the incremental tier
+    # (pi_update=exact drops the delta layout), and kernels 4 and 5 take
+    # the class-chunk split at its 5 x 256 items
+    from coda_tpu_torch.ops import eig_kernels as ek
+
+    R5 = POOL_BATCH_ROUNDS
+    k45 = (flavour("eig_score_batched", f32, False),
+           flavour("eig_refresh_score_batched", f32, False))
+    _, tb, pb, mode = _tier_run(
+        dev, pool, R5, SEEDS, "pool sparse:32 5 seeds exact", total,
+        {k45[0]: 1, k45[1]: R5}, warmup=True, posterior="sparse:32",
+        pi_update="exact")
+    split = {k: ek.split_counts.get(k, 0) for k in k45}
+    if mode != "incremental" or split != {k45[0]: 1, k45[1]: R5}:
+        raise AssertionError(f"pool sparse:32 {SEEDS} seeds pi_update=exact: "
+                             f"eig_mode auto -> {mode}, split launches "
+                             f"{split}")
+    out["pool_batch"] = (tb[0]["init_ms"], _round_ms(tb, R5), pb)
+    log(f"tiers: pool sparse:32 pi_update=exact {SEEDS} seeds in one batch "
+        f"x {R5} rounds after an untimed one: eig_mode auto -> incremental; "
+        f"kernels 4 / 5 launched {split[k45[0]]} / {split[k45[1]]} times, "
+        f"all on the class-chunk split; init_ms={tb[0]['init_ms']:.1f} "
+        f"ms_per_round={out['pool_batch'][1]:.3f} ms_per_seed_round="
+        f"{out['pool_batch'][1] / SEEDS:.3f} peak_mem_gb={pb:.2f}")
     del pool
 
     # 5. the rest at the headline, 1 seed x REST_ROUNDS
@@ -6215,6 +6257,9 @@ MODEL_BLOCKS = ((10, 50_000, 500), (10, 50_000, 250), (10, 25_000, 500),
 # the class chunks a block runs where the rule keeps the single launch, so
 # the split is held bitwise there too (a last chunk shorter than the rest)
 FORCED_CHUNKS = 3
+# kernels 4 and 5 at SEEDS replicas of a block: the pool's (the rule
+# splits) and DomainNet126's at N = 2048 (it keeps one launch)
+BATCHED_BLOCKS = ((1000, 256, 500), (126, 2048, 500))
 # (spec, ranks, jobs, rounds): phase 14's rounds, so its unsharded runs
 # are the yardstick (the 4-rank run holds the first 10 of its 20 rounds)
 MODEL_RUNS = (("model=2", 2, ("main", "main_rec", "batch", "batch_rec")
@@ -6308,6 +6353,102 @@ def _block_paths(dev, peaks) -> list:
                 f"{err:.3e} (tol {tol:.3e})")
             del hyp, caches, got
         del rows, hyp32, pi, pi_xi, hyp_t
+        torch.cuda.empty_cache()
+    return out + _batched_block_paths(dev, peaks, gen, sms)
+
+
+def _batched_block_paths(dev, peaks, gen, sms: int) -> list:
+    """Kernels 4 and 5 at ``SEEDS`` replicas of each block of
+    :data:`BATCHED_BLOCKS` in the four flavours, as :func:`_block_paths`
+    holds kernels 1 and 2: the single batched launch and the split (the
+    rule's count at S replicas, or :data:`FORCED_CHUNKS`) ``torch.equal``
+    to each other and to kernels 1 and 2 launched per replica (scores,
+    kernel 5's cache; each replica refreshing its own class), held to the
+    plain versions, each path timed beside its bound."""
+    import torch
+
+    from coda_tpu_torch.ops import eig_kernels as ek
+
+    S, out = SEEDS, []
+    for C, n, h in BATCHED_BLOCKS:
+        rows, hyp32, pi, pi_xi, hyp_t = random_cache(gen, C, n, h, dev,
+                                                     lead=(S,))
+        cls = torch.tensor([(3 * s + 1) % C for s in range(S)],
+                           dtype=torch.int32, device=dev)
+        for dtype, approx in FLAVOURS:
+            tdt = getattr(torch, dtype)
+            hyp = hyp32.to(tdt)
+            rule = ek.choose_class_chunks(C, n, h, approx, sms, S)
+            split = rule if rule > 1 else FORCED_CHUNKS
+            what = (f"{S} x block ({C}, {n}, {h}) {dtype}"
+                    + (",approx" if approx else ""))
+            got, caches = {}, {}
+            for k in (1, split):
+                caches[k] = hyp.clone()
+                got[k] = (ek.eig_scores_cache_batched(
+                              rows, hyp, pi, pi_xi, approx=approx,
+                              class_chunks=k),
+                          ek.eig_scores_refresh_batched(
+                              rows, caches[k], hyp_t, cls, pi, pi_xi,
+                              approx=approx, class_chunks=k)[0])
+            per_cache = hyp.clone()
+            per = (torch.stack([ek.eig_scores_cache(
+                       rows[s], hyp[s], pi[s], pi_xi[s], approx=approx)
+                       for s in range(S)]),
+                   torch.stack([ek.eig_scores_refresh(
+                       rows[s], per_cache[s], hyp_t[s], cls[s], pi[s],
+                       pi_xi[s], approx=approx)[0] for s in range(S)]))
+            torch.cuda.synchronize()
+            for k, ref, ref_cache, against in (
+                    (split, got[1], caches[1], "the single batched launch"),
+                    (1, per, per_cache, "kernels 1 and 2 per replica")):
+                if not (torch.equal(got[k][0], ref[0])
+                        and torch.equal(got[k][1], ref[1])
+                        and torch.equal(caches[k], ref_cache)):
+                    raise AssertionError(f"{what}: {k} class chunk(s) not "
+                                         f"bitwise {against}")
+            del per, per_cache
+            want1 = ek.eig_scores_from_cache_batched(rows, hyp, pi, pi_xi,
+                                                     approx=approx)
+            want2, _ = ek.eig_scores_refresh_batched_plain(
+                rows, hyp.clone(), hyp_t, cls, pi, pi_xi, approx=approx)
+            tol = SCORE_RTOL * float(want1.abs().max()) + score_atol(h)
+            err = max(float((got[1][0] - want1).abs().max()),
+                      float((got[1][1] - want2).abs().max()))
+            del want1, want2
+            if not err <= tol:
+                raise AssertionError(f"{what}: kernels 4/5 differ from the "
+                                     f"plain versions by {err} > {tol}")
+            width = ek._vec(h, hyp, rows)
+            rec = {"S": S, "C": C, "N": n, "H": h, "dtype": dtype,
+                   "approx": approx,
+                   "path": f"{width}-wide" if width > 1 else "scalar",
+                   "rule_chunks": rule, "split_chunks": split,
+                   "max_abs_err": err}
+            for k, tag in ((1, "one"), (split, "split")):
+                rec[f"k4_{tag}_ms"] = time_ms(
+                    lambda: ek.eig_scores_cache_batched(
+                        rows, hyp, pi, pi_xi, approx=approx, class_chunks=k))
+                rec[f"k5_{tag}_ms"] = time_ms(
+                    lambda: ek.eig_scores_refresh_batched(
+                        rows, caches[k], hyp_t, cls, pi, pi_xi,
+                        approx=approx, class_chunks=k))
+            for k, name in (("k4", "eig_score_batched"),
+                            ("k5", "eig_refresh_score_batched")):
+                nb, ops, tops = work(name, C, n, h, hyp.element_size(), S)
+                rec[k + "_bound_ms"] = bound(nb, ops, peaks, tops)[0]
+            out.append(rec)
+            log(f"mesh model: {what}: {rec['path']} loads, rule "
+                f"{rule} class chunk(s), split path {split} bitwise the "
+                f"single batched launch and kernels 1/2 per replica; kernel "
+                f"4 {rec['k4_one_ms']:.4f} ms on one launch, "
+                f"{rec['k4_split_ms']:.4f} split (bound "
+                f"{rec['k4_bound_ms']:.4f}), kernel 5 {rec['k5_one_ms']:.4f} "
+                f"/ {rec['k5_split_ms']:.4f} (bound "
+                f"{rec['k5_bound_ms']:.4f}); max |kernel - plain| "
+                f"{err:.3e} (tol {tol:.3e})")
+            del hyp, caches, got
+        del rows, hyp32, pi, pi_xi, hyp_t, cls
         torch.cuda.empty_cache()
     return out
 
@@ -6630,8 +6771,10 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
-        if kname.split("[")[0] in ("eig_score", "eig_refresh_score"):
-            # kernels 1 and 2: the launches on each decomposition
+        if kname.split("[")[0] in ("eig_score", "eig_refresh_score",
+                                   "eig_score_batched",
+                                   "eig_refresh_score_batched"):
+            # kernels 1, 2, 4 and 5: the launches on each decomposition
             split = launches.get(kname + SPLIT, 0)
             kernels[-1]["launches_by_path"] = {"single": n - split,
                                                "split": split}

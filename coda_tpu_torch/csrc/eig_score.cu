@@ -59,28 +59,33 @@
 // registers a thread and a few per cent of speed). The bound is S times
 // the single replica's, and so is the work: one launch replaces S.
 //
-// Kernels 1 and 2 have a second decomposition, for item grids too short to
-// fill the card (a short item axis at a wide C x H: 256 items give the
-// exact pass 8 blocks for 132 SMs, each warp walking 1000 classes in
-// turn). The launch becomes grid(item blocks, class chunks): block (b, k)
-// scores item block b's items over the classes of chunk k only, a
-// contiguous range, and each warp writes each (c, n) row's term of the
-// class mixture, -H2(p[c, n, :]), to an fp32 scratch ent (N, C), laid out
-// as pi_xi (8*C*N bytes of traffic: 2 MB beside the 512 MB cache at
-// C=1000, N=256, H=500). A row's term is computed by the single launch's
-// own code (eig::rows_plogp for the exact flavour, eig::row_plogp_approx
-// for the approx one: the same lane striding, kExactRows grouping and
-// shuffle butterfly), so it is bitwise the value the single launch adds. A
-// second small launch (class_mix_kernel, a warp an item, both rows read
+// Kernels 1, 2, 4 and 5 have a second decomposition, for item grids too
+// short to fill the card (a short item axis at a wide C x H: 256 items give
+// the exact pass 8 blocks for 132 SMs, each warp walking 1000 classes in
+// turn, and 5 replicas of them 40). The launch becomes grid(item blocks,
+// class chunks), and grid(item blocks, class chunks, S) for kernels 4 and
+// 5: block (b, k, s) scores item block b's items of replica s over the
+// classes of chunk k only, a contiguous range, and each warp writes each
+// (c, n) row's term of the class mixture, -H2(p[c, n, :]), to an fp32
+// scratch ent (S, N, C), laid out as pi_xi (8*S*C*N bytes of traffic: 2 MB
+// a replica beside its 512 MB cache at C=1000, N=256, H=500). A row's term
+// is computed by the single launch's own code (eig::rows_plogp for the
+// exact flavour, eig::row_plogp_approx for the approx one: the same lane
+// striding, kExactRows grouping and shuffle butterfly), so it is bitwise
+// the value the single launch adds. A second small launch
+// (class_mix_kernel over grid(N/8, S), a warp an item, both rows read
 // coalesced) then sums each item's mixture from 0 in c order:
-//   out[n] = h_before - sum_c pi_xi[n, c] * ent[n, c],
+//   out[s, n] = h_before[s] - sum_c pi_xi[s, n, c] * ent[s, n, c],
 // the single launch's arithmetic step for step (built with -fmad=false,
-// each product and sum rounds as there). Scores and the refreshed row are
-// therefore bitwise the single launch's at every chunk count. In kernel 2
-// the chunk holding c_ref writes the refreshed row, one warp a row; a class
-// out of [0, C) writes nothing and the mixture launch writes NaN scores.
-// The wrapper picks the chunk count (ops/eig_kernels.choose_class_chunks);
-// one chunk is the single launch, unchanged. Kernels 4-6 keep one launch.
+// each product and sum rounds as there). Scores and the refreshed rows are
+// therefore bitwise the single launch's at every chunk count, and each
+// replica's bitwise kernel 1's or 2's. In kernels 2 and 5 the chunk holding
+// a replica's c_ref writes its refreshed row, one warp a row; a replica
+// whose class is out of [0, C) writes nothing and gets NaN scores from the
+// mixture launch, the other replicas running on. The wrapper picks the
+// chunk count (ops/eig_kernels.choose_class_chunks): the split where the
+// single launch holds too few rows in flight, S * N under 32 items an SM;
+// one chunk is the single launch, unchanged. Kernel 6 keeps one launch.
 //
 // eig_plogp_sweep_launch evaluates the exact flavour's term on given p,
 // for the log-term sweep that holds it to its error contract on the card.
@@ -119,7 +124,10 @@ score_kernel(const float* __restrict__ rows, const T* hyp, T* hyp_w,
 // [blockIdx.y * per, (blockIdx.y + 1) * per) below C, and writes each
 // row's mixture term -H2 to ent[n, c] (N, C). An exact warp scores
 // kExactRows items together, an approx warp one item, as in score_kernel.
-template <typename T, int VEC, bool REFRESH, bool APPROX>
+// BATCHED (kernels 4 and 5): blockIdx.z is the replica s, whose slices
+// start at score_warp's offsets and whose scratch is ent[s] (S, N, C); a
+// replica whose class is out of [0, C) writes nothing, the others run on.
+template <typename T, int VEC, bool REFRESH, bool APPROX, bool BATCHED>
 __global__ void __launch_bounds__(eig::kScoreWarps * 32)
 class_chunk_kernel(const float* __restrict__ rows, const T* hyp, T* hyp_w,
                    const float* __restrict__ hyp_t,
@@ -128,9 +136,19 @@ class_chunk_kernel(const float* __restrict__ rows, const T* hyp, T* hyp_w,
                    const float* __restrict__ mixture0,
                    float* __restrict__ ent, int C, int N, int H, int per) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c_ref = REFRESH ? *c_ptr : -1;
+  // the replica: blockIdx.z for kernels 4 and 5, the constant 0 otherwise
+  const size_t rep = BATCHED ? blockIdx.z : 0;
+  const int c_ref = REFRESH ? c_ptr[rep] : -1;
   // a class out of [0, C) refreshes no row: class_mix_kernel writes NaN
   if (REFRESH && (unsigned)c_ref >= (unsigned)C) return;
+  // replica rep's slices, size_t from the first multiplication
+  rows += rep * C * H;
+  hyp += rep * C * N * H;
+  hyp_w += rep * C * N * H;
+  if (REFRESH) hyp_t += rep * N * H;
+  pi += rep * C;
+  mixture0 += rep * H;
+  ent += rep * N * C;
   const int c0 = blockIdx.y * per, c1 = min(C, c0 + per);
   if constexpr (APPROX) {
     const int n = blockIdx.x * eig::kScoreWarps + warp;
@@ -189,8 +207,10 @@ constexpr int kMixWarps = 8;  // items a mixture block sums, one a warp
 // loaded while the last 32 are added), and every lane adds them from 0 in
 // c order, each product taken by a shuffle from its lane: the single
 // launch's order, and the same sum in every lane. NaN for every item when
-// kernel 2's class is out of [0, C).
-template <bool REFRESH>
+// kernel 2's class is out of [0, C). BATCHED: blockIdx.y is the replica
+// s (pi_xi, ent and out (S, N, ...), h_before and the class (S,)), and
+// only a replica whose own class is out of range gets NaN.
+template <bool REFRESH, bool BATCHED>
 __global__ void __launch_bounds__(kMixWarps * 32)
 class_mix_kernel(const float* __restrict__ ent,
                  const float* __restrict__ pi_xi,
@@ -200,12 +220,14 @@ class_mix_kernel(const float* __restrict__ ent,
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * kMixWarps + (threadIdx.x >> 5);
   if (n >= N) return;
-  if (REFRESH && (unsigned)*c_ptr >= (unsigned)C) {
-    if (lane == 0) out[n] = NAN;
+  const size_t rep = BATCHED ? blockIdx.y : 0;
+  const size_t item = rep * N + n;  // the replica's item
+  if (REFRESH && (unsigned)c_ptr[rep] >= (unsigned)C) {
+    if (lane == 0) out[item] = NAN;
     return;
   }
-  const float* w = pi_xi + (size_t)n * C;
-  const float* e = ent + (size_t)n * C;
+  const float* w = pi_xi + item * C;
+  const float* e = ent + item * C;
   float p = lane < C ? w[lane] * e[lane] : 0.f;
   float s = 0.f;
   for (int c0 = 0; c0 < C; c0 += 32) {
@@ -220,7 +242,7 @@ class_mix_kernel(const float* __restrict__ ent,
     }
     p = wn * en;
   }
-  if (lane == 0) out[n] = *h_before - s;
+  if (lane == 0) out[item] = h_before[rep] - s;
 }
 
 // p*log2(p) for each p: the exact flavour's term as the scoring loop
@@ -281,45 +303,48 @@ int launch(const float* rows, const void* hyp, const float* hyp_t,
 #undef EIG_LAUNCH
 }
 
-// kernels 1 and 2 split over `chunks` class chunks of ceil(C / chunks)
-// classes each (the last may hold fewer), through the scratch ent (N, C)
-template <typename T, bool REFRESH, bool APPROX>
+// kernels 1 and 2 (S = 1, BATCHED off) or 4 and 5 (S replicas) split over
+// `chunks` class chunks of ceil(C / chunks) classes each (the last may
+// hold fewer), through the scratch ent (S, N, C)
+template <typename T, bool REFRESH, bool APPROX, bool BATCHED>
 int launch_split_t(const float* rows, const void* hyp, const float* hyp_t,
                    const int* c, const float* pi, const float* pi_xi,
                    const float* mixture0, const float* h_before, float* out,
-                   float* ent, int C, int N, int H, int vec, int chunks,
-                   cudaStream_t stream) {
+                   float* ent, int S, int C, int N, int H, int vec,
+                   int chunks, cudaStream_t stream) {
   constexpr int kVec = sizeof(T) == 2 ? 8 : 4;
   constexpr int kItems = eig::score_items<APPROX>();
   const int per = (C + chunks - 1) / chunks;
-  dim3 grid((N + kItems - 1) / kItems, (C + per - 1) / per),
+  dim3 grid((N + kItems - 1) / kItems, (C + per - 1) / per, S),
       block(eig::kScoreWarps * 32);
   const T* h = static_cast<const T*>(hyp);
   T* hw = const_cast<T*>(h);
   if (vec > 1)
-    class_chunk_kernel<T, kVec, REFRESH, APPROX><<<grid, block, 0, stream>>>(
-        rows, h, hw, hyp_t, c, pi, mixture0, ent, C, N, H, per);
+    class_chunk_kernel<T, kVec, REFRESH, APPROX, BATCHED>
+        <<<grid, block, 0, stream>>>(rows, h, hw, hyp_t, c, pi, mixture0,
+                                     ent, C, N, H, per);
   else
-    class_chunk_kernel<T, 1, REFRESH, APPROX><<<grid, block, 0, stream>>>(
-        rows, h, hw, hyp_t, c, pi, mixture0, ent, C, N, H, per);
+    class_chunk_kernel<T, 1, REFRESH, APPROX, BATCHED>
+        <<<grid, block, 0, stream>>>(rows, h, hw, hyp_t, c, pi, mixture0,
+                                     ent, C, N, H, per);
   const cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess) return (int)rc;
-  class_mix_kernel<REFRESH>
-      <<<(N + kMixWarps - 1) / kMixWarps, kMixWarps * 32, 0, stream>>>(
-          ent, pi_xi, h_before, c, out, C, N);
+  class_mix_kernel<REFRESH, BATCHED>
+      <<<dim3((N + kMixWarps - 1) / kMixWarps, S), kMixWarps * 32, 0,
+         stream>>>(ent, pi_xi, h_before, c, out, C, N);
   return (int)cudaGetLastError();
 }
 
-template <bool REFRESH>
+template <bool REFRESH, bool BATCHED>
 int launch_split(const float* rows, const void* hyp, const float* hyp_t,
                  const int* c, const float* pi, const float* pi_xi,
                  const float* mixture0, const float* h_before, float* out,
-                 float* ent, int C, int N, int H, int vec, int bf16,
+                 float* ent, int S, int C, int N, int H, int vec, int bf16,
                  int approx, int chunks, cudaStream_t stream) {
-#define EIG_LAUNCH(T, A)                                                  \
-  return launch_split_t<T, REFRESH, A>(rows, hyp, hyp_t, c, pi, pi_xi,    \
-                                       mixture0, h_before, out, ent, C, N, \
-                                       H, vec, chunks, stream)
+#define EIG_LAUNCH(T, A)                                                   \
+  return launch_split_t<T, REFRESH, A, BATCHED>(                           \
+      rows, hyp, hyp_t, c, pi, pi_xi, mixture0, h_before, out, ent, S, C, \
+      N, H, vec, chunks, stream)
   if (bf16) {
     if (approx) EIG_LAUNCH(__nv_bfloat16, true);
     EIG_LAUNCH(__nv_bfloat16, false);
@@ -363,9 +388,10 @@ int eig_score_split_launch(const float* rows, const void* hyp,
                            float* out, float* ent, int C, int N, int H,
                            int vec, int bf16, int approx, int chunks,
                            void* stream) {
-  return launch_split<false>(rows, hyp, nullptr, nullptr, pi, pi_xi,
-                             mixture0, h_before, out, ent, C, N, H, vec,
-                             bf16, approx, chunks, (cudaStream_t)stream);
+  return launch_split<false, false>(rows, hyp, nullptr, nullptr, pi, pi_xi,
+                                    mixture0, h_before, out, ent, 1, C, N, H,
+                                    vec, bf16, approx, chunks,
+                                    (cudaStream_t)stream);
 }
 
 int eig_refresh_score_split_launch(const float* rows, void* hyp,
@@ -376,9 +402,9 @@ int eig_refresh_score_split_launch(const float* rows, void* hyp,
                                    float* ent, int C, int N, int H, int vec,
                                    int bf16, int approx, int chunks,
                                    void* stream) {
-  return launch_split<true>(rows, hyp, hyp_t, c, pi, pi_xi, mixture0,
-                            h_before, out, ent, C, N, H, vec, bf16, approx,
-                            chunks, (cudaStream_t)stream);
+  return launch_split<true, false>(rows, hyp, hyp_t, c, pi, pi_xi, mixture0,
+                                   h_before, out, ent, 1, C, N, H, vec, bf16,
+                                   approx, chunks, (cudaStream_t)stream);
 }
 
 // Kernels 4 and 5: the same operands with a leading replica axis of S
@@ -405,6 +431,32 @@ int eig_refresh_score_batched_launch(const float* rows, void* hyp,
   return launch<true, true>(rows, hyp, hyp_t, c, pi, pi_xi, mixture0,
                             h_before, out, S, C, N, H, vec, bf16, approx,
                             (cudaStream_t)stream);
+}
+
+// Kernels 4 and 5 split over 2 <= chunks <= min(C, 65535) class chunks,
+// per replica: the batched operands above, and ent an (S, N, C) fp32
+// scratch the launch overwrites
+int eig_score_batched_split_launch(const float* rows, const void* hyp,
+                                   const float* pi, const float* pi_xi,
+                                   const float* mixture0,
+                                   const float* h_before, float* out,
+                                   float* ent, int S, int C, int N, int H,
+                                   int vec, int bf16, int approx, int chunks,
+                                   void* stream) {
+  return launch_split<false, true>(rows, hyp, nullptr, nullptr, pi, pi_xi,
+                                   mixture0, h_before, out, ent, S, C, N, H,
+                                   vec, bf16, approx, chunks,
+                                   (cudaStream_t)stream);
+}
+
+int eig_refresh_score_batched_split_launch(
+    const float* rows, void* hyp, const float* hyp_t, const int* c,
+    const float* pi, const float* pi_xi, const float* mixture0,
+    const float* h_before, float* out, float* ent, int S, int C, int N,
+    int H, int vec, int bf16, int approx, int chunks, void* stream) {
+  return launch_split<true, true>(rows, hyp, hyp_t, c, pi, pi_xi, mixture0,
+                                  h_before, out, ent, S, C, N, H, vec, bf16,
+                                  approx, chunks, (cudaStream_t)stream);
 }
 
 // the log-term sweep: out[i] = the term of p[i] (mode: see

@@ -8,9 +8,10 @@ Kernel 2, :func:`eig_scores_refresh`, replaces ``_refresh_score_kernel``:
 it writes the refreshed class row ``c`` into the cache IN PLACE while it
 scores with it — the cache tensor passed in is modified (JAX returned a
 new, donated buffer instead).
-Where the item axis is too short to fill the card, kernels 1 and 2 split
-their class loop over a second grid axis and sum each item's classes in a
-second launch (:func:`choose_class_chunks`), bitwise the single launch.
+Where the item axis is too short to fill the card, kernels 1, 2, 4 and 5
+split their class loop over another grid axis and sum each item's classes
+in a second launch (:func:`choose_class_chunks`), bitwise the single
+launch.
 Kernel 6, :func:`eig_scores_refresh_compute`, replaces
 ``_refresh_compute_score_kernel`` (``eig_refresh='fused'``): it computes
 that row on the card from the labelled class's O(H·G) Beta grid tables
@@ -23,7 +24,7 @@ Kernels 4 and 5, :func:`eig_scores_cache_batched` and
 ``_batched_refresh_kernel``: kernels 1 and 2 for S replicas in one launch
 (the seed-batched engine), every operand with a leading replica axis and
 each replica refreshing its own class row; per replica bitwise kernels 1
-and 2. On the card they take any S up to the grid's 65,535 whose state
+and 2, on either decomposition. On the card they take any S up to the grid's 65,535 whose state
 fits in device memory: the reference's ``batched_pallas_viable`` (a budget
 for the TPU's lane padding) and ``choose_block`` (a VMEM budget) have no
 counterpart, since the card pads nothing and a block's tile is fixed.
@@ -65,7 +66,7 @@ _LOG2E = 1.4426950408889634
 launch_counts = {"eig_score": 0, "eig_refresh_score": 0,
                  "eig_refresh_compute_score": 0, "eig_score_batched": 0,
                  "eig_refresh_score_batched": 0, "eig_plogp_sweep": 0}
-# of those, the launches of kernels 1 and 2 that took the split
+# of those, the launches of kernels 1, 2, 4 and 5 that took the split
 # decomposition (class_chunks > 1), by flavour
 split_counts: dict = {}
 
@@ -238,6 +239,12 @@ def _lib():
         lib.eig_refresh_score_batched_launch.argtypes = \
             [_P] * 9 + [_I] * 7 + [_P]
         lib.eig_refresh_score_batched_launch.restype = _I
+        lib.eig_score_batched_split_launch.argtypes = \
+            [_P] * 8 + [_I] * 8 + [_P]
+        lib.eig_score_batched_split_launch.restype = _I
+        lib.eig_refresh_score_batched_split_launch.argtypes = \
+            [_P] * 10 + [_I] * 8 + [_P]
+        lib.eig_refresh_score_batched_split_launch.restype = _I
         lib.eig_plogp_sweep_launch.argtypes = [_P, _P, ctypes.c_longlong, _I,
                                                _P]
         lib.eig_plogp_sweep_launch.restype = _I
@@ -340,38 +347,42 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-# -- the class-chunk split of kernels 1 and 2 -------------------------------
+# -- the class-chunk split of kernels 1, 2, 4 and 5 -------------------------
 # Where the item grid cannot fill the card, kernels 1 and 2 split their
-# class loop over a second grid axis (``csrc/eig_score.cu``); scores and
-# the refreshed row are bitwise the single launch's at every chunk count.
+# class loop over a second grid axis, kernels 4 and 5 each replica's over a
+# second axis beside the replica's (``csrc/eig_score.cu``); scores and the
+# refreshed rows are bitwise the single launch's at every chunk count.
 
 EXACT_ROWS = 4        # eig::kExactRows: rows an exact warp scores at once
-# The single launch keeps the rows of about N items in flight (a warp walks
-# its items' rows class by class), so a short item axis leaves the card
-# idle. The split is taken where N is under SPLIT_ITEMS_PER_SM items an SM
-# and the classes' rows hold at least SPLIT_MIN_CLASS_VALUES values (a
-# warp's walk over them outlasts the second launch); each warp then scores
-# four rows, one class (exact) or four (approx) a chunk. From
-# scripts/torch_split_sweep.py on the H100: no chunk count beat the single
-# launch at N = 8192; every swept shape at N <= 4096 with C * H >= 8064
-# gained (16 times at the pool, C = 1000, N = 256); at C * H = 800 the
-# approx flavour lost; four rows a warp came within a few per cent of the
-# best chunk count at every swept shape, with no partial last wave.
+# The single launch keeps the rows of about S * N items in flight (a warp
+# walks its items' rows class by class; S replicas side by side in kernels
+# 4 and 5), so a short item axis leaves the card idle. The split is taken
+# where S * N is under SPLIT_ITEMS_PER_SM items an SM and the classes' rows
+# hold at least SPLIT_MIN_CLASS_VALUES values (a warp's walk over them
+# outlasts the second launch); each warp then scores four rows, one class
+# (exact) or four (approx) a chunk. From scripts/torch_split_sweep.py on
+# the H100: no chunk count beat the single launch at N = 8192; every swept
+# shape at N <= 4096 with C * H >= 8064 gained (16 times at the pool,
+# C = 1000, N = 256); at C * H = 800 the approx flavour lost; four rows a
+# warp came within a few per cent of the best chunk count at every swept
+# shape, with no partial last wave.
 SPLIT_ITEMS_PER_SM = 32
 SPLIT_MIN_CLASS_VALUES = 4096
 _MAX_CHUNKS = 65535   # gridDim.y
 
 
 def choose_class_chunks(C: int, N: int, H: int, approx: bool,
-                        sms: int) -> int:
-    """The class chunks kernels 1 and 2 take at a ``(C, N, H)`` cache in
-    the ``approx`` or exact flavour on a card of ``sms`` SMs (the storage
-    type does not enter): 1, the single launch, where ``N`` is at least
-    ``SPLIT_ITEMS_PER_SM * sms`` or ``C * H`` under
+                        sms: int, S: int = 1) -> int:
+    """The class chunks kernels 1 and 2 (``S = 1``) or 4 and 5 (``S``
+    replicas) take at a ``(C, N, H)`` cache a replica in the ``approx`` or
+    exact flavour on a card of ``sms`` SMs (the storage type does not
+    enter): 1, the single launch, where the rows it holds in flight,
+    ``S * N``, reach ``SPLIT_ITEMS_PER_SM * sms`` or ``C * H`` is under
     ``SPLIT_MIN_CLASS_VALUES``; else one class a chunk (exact) or
     ``EXACT_ROWS`` (approx), as many as the grid's y axis holds, counted
     as the kernel cuts them (:func:`chunk_bounds`)."""
-    if N >= SPLIT_ITEMS_PER_SM * sms or C * H < SPLIT_MIN_CLASS_VALUES:
+    if (S * N >= SPLIT_ITEMS_PER_SM * sms
+            or C * H < SPLIT_MIN_CLASS_VALUES):
         return 1
     per = EXACT_ROWS if approx else 1
     return len(chunk_bounds(C, min(_MAX_CHUNKS, -(-C // per))))
@@ -390,25 +401,47 @@ def _sm_count(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _check_chunks(class_chunks: Optional[int], C: int) -> None:
+    """A forced ``class_chunks`` must be an int in ``[1, min(C, 65535)]``,
+    on any device (the CPU reads it no further)."""
+    _require(class_chunks is None or (
+        isinstance(class_chunks, int)
+        and 1 <= class_chunks <= min(C, _MAX_CHUNKS)),
+        f"class_chunks must be an int in [1, {min(C, _MAX_CHUNKS)}] "
+        f"(got {class_chunks!r})")
+
+
 def _class_chunks(class_chunks: Optional[int], C: int, N: int, H: int,
-                  cache: torch.Tensor, approx: bool) -> int:
-    """``class_chunks`` checked, or the rule's choice where it is None."""
-    if class_chunks is None:
-        index = cache.device.index
-        return choose_class_chunks(
-            C, N, H, approx,
-            _sm_count(torch.cuda.current_device() if index is None
-                      else index))
-    _require(isinstance(class_chunks, int)
-             and 1 <= class_chunks <= min(C, _MAX_CHUNKS),
-             f"class_chunks must be an int in [1, {min(C, _MAX_CHUNKS)}] "
-             f"(got {class_chunks!r})")
-    return class_chunks
+                  cache: torch.Tensor, approx: bool, S: int = 1) -> int:
+    """``class_chunks`` (checked by :func:`_check_chunks`), or the rule's
+    choice where it is None."""
+    if class_chunks is not None:
+        return class_chunks
+    index = cache.device.index
+    return choose_class_chunks(
+        C, N, H, approx,
+        _sm_count(torch.cuda.current_device() if index is None else index),
+        S)
 
 
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
+def _launch(kernel: str, args: tuple, flags: tuple, k: int,
+            ent_shape: tuple, dev: torch.device) -> None:
+    """Launch ``kernel`` (1, 2, 4 or 5 by its C name's stem) on its single
+    decomposition where ``k == 1``, else split over ``k`` class chunks
+    through a fresh fp32 scratch ``ent`` of ``ent_shape``."""
+    lib = _lib()
+    if k == 1:
+        rc = getattr(lib, kernel + "_launch")(*args, *flags, _stream())
+    else:
+        ent = torch.empty(ent_shape, dtype=torch.float32, device=dev)
+        rc = getattr(lib, kernel + "_split_launch")(
+            *args, ent.data_ptr(), *flags, k, _stream())
+    _raise_on(rc, kernel)
 
 
 def eig_scores_cache(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
@@ -421,6 +454,7 @@ def eig_scores_cache(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
     tensors launch the kernel, over ``class_chunks`` class chunks (None:
     :func:`choose_class_chunks`; 1: the single launch), bitwise the same
     scores at every count."""
+    _check_chunks(class_chunks, pbest_hyp.shape[-3])
     if pbest_hyp.device.type == "cpu":
         return eig_scores_from_cache(pbest_rows, pbest_hyp, pi_hat,
                                      pi_hat_xi, chunk, approx)
@@ -433,14 +467,7 @@ def eig_scores_cache(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
             out.data_ptr())
     flags = (C, N, H, _vec(H, pbest_hyp, pbest_rows, mixture0),
              int(pbest_hyp.dtype == torch.bfloat16), int(approx))
-    if k == 1:
-        rc = _lib().eig_score_launch(*args, *flags, _stream())
-    else:
-        ent = torch.empty((N, C), dtype=torch.float32,
-                          device=pbest_hyp.device)
-        rc = _lib().eig_score_split_launch(*args, ent.data_ptr(), *flags, k,
-                                           _stream())
-    _raise_on(rc, "eig_score")
+    _launch("eig_score", args, flags, k, (N, C), pbest_hyp.device)
     _count("eig_score", pbest_hyp.dtype, approx, split=k > 1)
     return out
 
@@ -459,6 +486,7 @@ def eig_scores_refresh(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
     host synchronisation); out of range gives NaN scores. ``class_chunks``
     as for :func:`eig_scores_cache`: scores and cache bitwise the same at
     every count. Returns ``(scores (N,), pbest_hyp)``."""
+    _check_chunks(class_chunks, pbest_hyp.shape[-3])
     if pbest_hyp.device.type == "cpu":
         return eig_scores_refresh_plain(pbest_rows, pbest_hyp, hyp_t,
                                         true_class, pi_hat, pi_hat_xi, chunk,
@@ -477,14 +505,7 @@ def eig_scores_refresh(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
             mixture0.data_ptr(), h_before.data_ptr(), out.data_ptr())
     flags = (C, N, H, _vec(H, pbest_hyp, pbest_rows, hyp_t, mixture0),
              int(pbest_hyp.dtype == torch.bfloat16), int(approx))
-    if k == 1:
-        rc = _lib().eig_refresh_score_launch(*args, *flags, _stream())
-    else:
-        ent = torch.empty((N, C), dtype=torch.float32,
-                          device=pbest_hyp.device)
-        rc = _lib().eig_refresh_score_split_launch(*args, ent.data_ptr(),
-                                                   *flags, k, _stream())
-    _raise_on(rc, "eig_refresh_score")
+    _launch("eig_refresh_score", args, flags, k, (N, C), pbest_hyp.device)
     _count("eig_refresh_score", pbest_hyp.dtype, approx, split=k > 1)
     return out, pbest_hyp
 
@@ -492,27 +513,38 @@ def eig_scores_refresh(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
 def eig_scores_cache_batched(pbest_rows: torch.Tensor,
                              pbest_hyp: torch.Tensor, pi_hat: torch.Tensor,
                              pi_hat_xi: torch.Tensor, chunk: int = 256,
-                             approx: bool = False) -> torch.Tensor:
+                             approx: bool = False,
+                             class_chunks: Optional[int] = None
+                             ) -> torch.Tensor:
     """Kernel 4 (``csrc/eig_score.cu``): kernel 1 for S replicas in one
     launch. ``pbest_rows`` (S, C, H), ``pbest_hyp`` (S, C, N, H) float32 or
     bfloat16, ``pi_hat`` (S, C), ``pi_hat_xi`` (S, N, C) -> ``(S, N)``
     scores, row s bitwise kernel 1's on replica s. CPU tensors take
-    :func:`eig_scores_from_cache_batched`."""
+    :func:`eig_scores_from_cache_batched`. On the card the launch takes
+    one of two decompositions, with the same bits: grid ``(N/32, S)``, each
+    warp walking its items' classes in turn, where ``S * N`` items keep
+    the card busy; else, at a short item axis, each replica's class loop
+    split over ``class_chunks`` chunks on another grid axis, then a
+    mixture launch (None: :func:`choose_class_chunks` with S; 1: the
+    single launch)."""
+    _check_chunks(class_chunks, pbest_hyp.shape[-3])
     if pbest_hyp.device.type == "cpu":
         return eig_scores_from_cache_batched(pbest_rows, pbest_hyp, pi_hat,
                                              pi_hat_xi, chunk, approx)
     C, N, H = _check_operands(pbest_rows, pbest_hyp, pi_hat, pi_hat_xi,
                               batched=True)
     S = pbest_hyp.shape[0]
+    k = _class_chunks(class_chunks, C, N, H, pbest_hyp, approx, S)
     mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
     out = torch.empty((S, N), dtype=torch.float32, device=pbest_hyp.device)
-    rc = _lib().eig_score_batched_launch(
-        pbest_rows.data_ptr(), pbest_hyp.data_ptr(), pi_hat.data_ptr(),
-        pi_hat_xi.data_ptr(), mixture0.data_ptr(), h_before.data_ptr(),
-        out.data_ptr(), S, C, N, H, _vec(H, pbest_hyp, pbest_rows, mixture0),
-        int(pbest_hyp.dtype == torch.bfloat16), int(approx), _stream())
-    _raise_on(rc, "eig_score_batched")
-    _count("eig_score_batched", pbest_hyp.dtype, approx)
+    args = (pbest_rows.data_ptr(), pbest_hyp.data_ptr(), pi_hat.data_ptr(),
+            pi_hat_xi.data_ptr(), mixture0.data_ptr(), h_before.data_ptr(),
+            out.data_ptr())
+    flags = (S, C, N, H, _vec(H, pbest_hyp, pbest_rows, mixture0),
+             int(pbest_hyp.dtype == torch.bfloat16), int(approx))
+    _launch("eig_score_batched", args, flags, k, (S, N, C),
+            pbest_hyp.device)
+    _count("eig_score_batched", pbest_hyp.dtype, approx, split=k > 1)
     return out
 
 
@@ -520,7 +552,8 @@ def eig_scores_refresh_batched(pbest_rows: torch.Tensor,
                                pbest_hyp: torch.Tensor, hyp_t: torch.Tensor,
                                true_class: torch.Tensor, pi_hat: torch.Tensor,
                                pi_hat_xi: torch.Tensor, chunk: int = 256,
-                               approx: bool = False):
+                               approx: bool = False,
+                               class_chunks: Optional[int] = None):
     """Kernel 5 (``csrc/eig_score.cu``): kernel 2 for S replicas in one
     launch. Replica s writes ``hyp_t[s]`` (N, H) fp32 into its class row
     ``true_class[s]`` of ``pbest_hyp`` (S, C, N, H) IN PLACE, rounded to
@@ -528,7 +561,12 @@ def eig_scores_refresh_batched(pbest_rows: torch.Tensor,
     the scores and replica s of the cache are bitwise kernel 2's on
     replica s. ``true_class`` is an integer (S,) tensor on the cache's
     device, read by the kernel; an out-of-range class gives NaN scores for
-    its replica only. Returns ``(scores (S, N), pbest_hyp)``."""
+    its replica only, and leaves its cache untouched. ``class_chunks``
+    picks the decomposition as for :func:`eig_scores_cache_batched`
+    (the chunk holding a replica's class writes its row): scores and cache
+    bitwise the same at every count. Returns ``(scores (S, N),
+    pbest_hyp)``."""
+    _check_chunks(class_chunks, pbest_hyp.shape[-3])
     if pbest_hyp.device.type == "cpu":
         return eig_scores_refresh_batched_plain(
             pbest_rows, pbest_hyp, hyp_t, true_class, pi_hat, pi_hat_xi,
@@ -541,16 +579,18 @@ def eig_scores_refresh_batched(pbest_rows: torch.Tensor,
              f"hyp_t must be a contiguous float32 ({S}, {N}, {H}) tensor on "
              f"{pbest_hyp.device}")
     c = _check_class(true_class, pbest_hyp.device, S)
+    k = _class_chunks(class_chunks, C, N, H, pbest_hyp, approx, S)
     mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
     out = torch.empty((S, N), dtype=torch.float32, device=pbest_hyp.device)
-    rc = _lib().eig_refresh_score_batched_launch(
-        pbest_rows.data_ptr(), pbest_hyp.data_ptr(), hyp_t.data_ptr(),
-        c.data_ptr(), pi_hat.data_ptr(), pi_hat_xi.data_ptr(),
-        mixture0.data_ptr(), h_before.data_ptr(), out.data_ptr(), S, C, N, H,
-        _vec(H, pbest_hyp, pbest_rows, hyp_t, mixture0),
-        int(pbest_hyp.dtype == torch.bfloat16), int(approx), _stream())
-    _raise_on(rc, "eig_refresh_score_batched")
-    _count("eig_refresh_score_batched", pbest_hyp.dtype, approx)
+    args = (pbest_rows.data_ptr(), pbest_hyp.data_ptr(), hyp_t.data_ptr(),
+            c.data_ptr(), pi_hat.data_ptr(), pi_hat_xi.data_ptr(),
+            mixture0.data_ptr(), h_before.data_ptr(), out.data_ptr())
+    flags = (S, C, N, H, _vec(H, pbest_hyp, pbest_rows, hyp_t, mixture0),
+             int(pbest_hyp.dtype == torch.bfloat16), int(approx))
+    _launch("eig_refresh_score_batched", args, flags, k, (S, N, C),
+            pbest_hyp.device)
+    _count("eig_refresh_score_batched", pbest_hyp.dtype, approx,
+           split=k > 1)
     return out, pbest_hyp
 
 

@@ -16,7 +16,8 @@ checkout has them, kernels 4 and 5 (``eig_scores_cache_batched``,
 ``eig_scores_refresh_batched``) and the batched kernel 3 at 5 replicas (the
 CLI's default seeds); then kernels 1 and 2 in the four flavours at the
 imagenet_sparse pool's (C, N, H) = (1000, 256, 500) (keys ending
-``@1000,256,500``), on the decomposition the checkout's wrappers take
+``@1000,256,500``), and kernels 4 and 5 at 5 replicas of it (keys ending
+``@5x1000,256,500``), on the decomposition the checkout's wrappers take
 there; beside them the registers ``ptxas`` reports for each library and
 the card's name and power limit.
 Two checkouts are compared in one call, in turns (parent, change, change,
@@ -179,6 +180,27 @@ def main(argv=None) -> int:
             out["ms"][ek.flavour("eig_refresh_score", dtype, approx)
                       + tag] = _median_ms(lambda: ek.eig_scores_refresh(
                           rows, hyp, hyp_t, cp, pi, pi_xi, approx=approx))
+        del hyp
+    del rows, hyp32, pi_xi, hyp_t, pi
+    torch.cuda.empty_cache()
+    # kernels 4 and 5 at SEEDS replicas of the pool, likewise
+    rows, hyp32, pi_xi, hyp_t = (simplex(S, Cp, Hp), simplex(S, Cp, Np, Hp),
+                                 simplex(S, Np, Cp), simplex(S, Np, Hp))
+    pi = pi_xi.mean(-2)
+    pi = pi / pi.sum(-1, keepdim=True)
+    cls = torch.tensor([(3 * r + 1) % Cp for r in range(S)],
+                       dtype=torch.int32, device=dev)
+    tag = f"@{S}x" + ",".join(map(str, POOL))
+    for dtype in (torch.float32, torch.bfloat16):
+        hyp = hyp32.to(dtype)
+        for approx in (False, True):
+            out["ms"][ek.flavour("eig_score_batched", dtype, approx)
+                      + tag] = _median_ms(lambda: ek.eig_scores_cache_batched(
+                          rows, hyp, pi, pi_xi, approx=approx))
+            out["ms"][ek.flavour("eig_refresh_score_batched", dtype, approx)
+                      + tag] = _median_ms(
+                lambda: ek.eig_scores_refresh_batched(
+                    rows, hyp, hyp_t, cls, pi, pi_xi, approx=approx))
         del hyp
     print(json.dumps(out))
     return 0

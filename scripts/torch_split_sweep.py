@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Sweep the class-chunk count of kernels 1 and 2 (``eig_scores_cache``,
-``eig_scores_refresh``) over cache blocks, to set the split rule's
-crossover (``ops/eig_kernels.choose_class_chunks``).
+``eig_scores_refresh``), or with ``--seeds S`` of kernels 4 and 5 at S
+replicas (``eig_scores_cache_batched``, ``eig_scores_refresh_batched``),
+over cache blocks, to set the split rule's crossover
+(``ops/eig_kernels.choose_class_chunks``).
 
     python scripts/torch_split_sweep.py [--blocks C,N,H;C,N,H...]
         [--flavours float32,bfloat16,float32:approx,bfloat16:approx]
-        [--reps 20] [--chunks K,K...] [--out sweep.json]
+        [--seeds S] [--reps 20] [--chunks K,K...] [--out sweep.json]
 
 For each ``(C, N, H)`` block (default: the ranks' blocks that
 ``chip_smoke.py`` phase 15 times, the imagenet_sparse pool's data=2 rank
@@ -23,7 +25,12 @@ two CUDA events; ``k1_launch_ms``, ``k2_launch_ms``). Prints
 one JSON line a block and flavour (the item grid, the load path, the
 rule's chunks, the time at each count) and, last, the card's name and
 power limit. Exits 1 if any split launch differs from the single one.
-Needs a CUDA device.
+With ``--seeds S`` (S > 1) every operand has a leading axis of S
+replicas (a block is one replica's ``(C, N, H)``), each replica refreshes
+its own class row, the launches are kernels 4 and 5 (the ``k1``/``k2``
+keys then name them), the bound is S times a replica's, and the single
+batched launch is also held bitwise to kernels 1 and 2 launched per
+replica. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -66,31 +73,31 @@ def _kernel_ms(ek, rows, hyp, pi, pi_xi, hyp_t, c, approx, k,
                refresh: bool, reps: int) -> float:
     """The launch alone (the wrapper's ctypes call on operands prepared
     once): ``reps`` launches back to back between two CUDA events, over
-    ``reps``."""
+    ``reps``. A leading replica axis on ``hyp`` launches kernel 4 or 5."""
     import torch
 
-    C, N, H = hyp.shape
+    *lead, C, N, H = hyp.shape
     mixture0, h_before = ek.mixture_stats(rows, pi, approx)
-    out = torch.empty(N, dtype=torch.float32, device=hyp.device)
-    ent = torch.empty((N, C), dtype=torch.float32, device=hyp.device)
+    out = torch.empty((*lead, N), dtype=torch.float32, device=hyp.device)
+    ent = torch.empty((*lead, N, C), dtype=torch.float32, device=hyp.device)
     c32 = c.reshape(-1).to(torch.int32)
     lib = ek._lib()
-    flags = (C, N, H, ek._vec(H, hyp, rows, hyp_t, mixture0),
+    flags = (*lead, C, N, H, ek._vec(H, hyp, rows, hyp_t, mixture0),
              int(hyp.dtype == torch.bfloat16), int(approx))
+    kern = ("eig_refresh_score" if refresh else "eig_score") + (
+        "_batched" if lead else "")
+    one = getattr(lib, kern + "_launch")
+    split = getattr(lib, kern + "_split_launch")
     if refresh:
         args = (rows.data_ptr(), hyp.data_ptr(), hyp_t.data_ptr(),
                 c32.data_ptr(), pi.data_ptr(), pi_xi.data_ptr(),
                 mixture0.data_ptr(), h_before.data_ptr(), out.data_ptr())
-        fn = (lambda: lib.eig_refresh_score_launch(*args, *flags, stream)) \
-            if k == 1 else (lambda: lib.eig_refresh_score_split_launch(
-                *args, ent.data_ptr(), *flags, k, stream))
     else:
         args = (rows.data_ptr(), hyp.data_ptr(), pi.data_ptr(),
                 pi_xi.data_ptr(), mixture0.data_ptr(), h_before.data_ptr(),
                 out.data_ptr())
-        fn = (lambda: lib.eig_score_launch(*args, *flags, stream)) \
-            if k == 1 else (lambda: lib.eig_score_split_launch(
-                *args, ent.data_ptr(), *flags, k, stream))
+    fn = (lambda: one(*args, *flags, stream)) if k == 1 else (
+        lambda: split(*args, ent.data_ptr(), *flags, k, stream))
     stream = torch.cuda.current_stream().cuda_stream
     for _ in range(3):
         assert fn() == 0
@@ -119,6 +126,8 @@ def main(argv=None) -> int:
     p.add_argument("--blocks", default=";".join(
         ",".join(map(str, b)) for b in BLOCKS))
     p.add_argument("--flavours", default=",".join(FLAVOURS))
+    p.add_argument("--seeds", type=int, default=1,
+                   help="replicas: S > 1 sweeps kernels 4 and 5")
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--chunks", default=None,
                    help="comma-separated chunk counts (default: 1, the "
@@ -144,61 +153,84 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(19)
     blocks = [tuple(int(x) for x in b.split(","))
               for b in args.blocks.split(";")]
+    S = args.seeds
+    lead = (S,) if S > 1 else ()
+    if S > 1:
+        score, refresh = (ek.eig_scores_cache_batched,
+                          ek.eig_scores_refresh_batched)
+        kernels = ("eig_score_batched", "eig_refresh_score_batched")
+    else:
+        score, refresh = ek.eig_scores_cache, ek.eig_scores_refresh
+        kernels = ("eig_score", "eig_refresh_score")
     rows_out, bad = [], []
     for C, N, H in blocks:
         def simplex(*shape):
-            x = torch.rand(shape, generator=gen, device=dev) + 0.1
+            x = torch.rand((*lead, *shape), generator=gen, device=dev) + 0.1
             return x / x.sum(-1, keepdim=True)
 
         rows, hyp32, pi_xi, hyp_t = (simplex(C, H), simplex(C, N, H),
                                      simplex(N, C), simplex(N, H))
-        pi = pi_xi.mean(0)
-        pi = pi / pi.sum()
-        c = torch.tensor(C // 2, dtype=torch.int32, device=dev)
+        pi = pi_xi.mean(-2)
+        pi = pi / pi.sum(-1, keepdim=True)
+        # each replica refreshes its own class row
+        c = (torch.tensor([(C // 2 + 7 * s) % C for s in range(S)],
+                          dtype=torch.int32, device=dev) if S > 1
+             else torch.tensor(C // 2, dtype=torch.int32, device=dev))
         for fl in args.flavours.split(","):
             dname, _, tag = fl.partition(":")
             dtype, approx = getattr(torch, dname), tag == "approx"
             hyp = hyp32.to(dtype)
-            rule = ek.choose_class_chunks(C, N, H, approx, sms)
-            one1 = ek.eig_scores_cache(rows, hyp, pi, pi_xi, approx=approx,
-                                       class_chunks=1)
+            rule = ek.choose_class_chunks(C, N, H, approx, sms, S)
+            one1 = score(rows, hyp, pi, pi_xi, approx=approx, class_chunks=1)
             ref2 = hyp.clone()
-            one2, _ = ek.eig_scores_refresh(rows, ref2, hyp_t, c, pi, pi_xi,
-                                            approx=approx, class_chunks=1)
+            one2, _ = refresh(rows, ref2, hyp_t, c, pi, pi_xi, approx=approx,
+                              class_chunks=1)
+            if S > 1:
+                # the single batched launch against kernels 1 and 2 per
+                # replica
+                hyp_q = hyp.clone()
+                per1 = torch.stack([ek.eig_scores_cache(
+                    rows[s], hyp[s], pi[s], pi_xi[s], approx=approx,
+                    class_chunks=1) for s in range(S)])
+                per2 = torch.stack([ek.eig_scores_refresh(
+                    rows[s], hyp_q[s], hyp_t[s], c[s], pi[s], pi_xi[s],
+                    approx=approx, class_chunks=1)[0] for s in range(S)])
+                torch.cuda.synchronize()
+                if not (torch.equal(per1, one1) and torch.equal(per2, one2)
+                        and torch.equal(hyp_q, ref2)):
+                    bad.append((C, N, H, fl, "per replica"))
+                del hyp_q
             work = hyp.clone()
-            rec = {"C": C, "N": N, "H": H, "flavour": fl,
+            rec = {"C": C, "N": N, "H": H, "S": S, "flavour": fl,
                    "item_blocks": -(-N // (8 if approx else 32)),
                    "path": ("vector" if ek._vec(H, hyp, rows) > 1
                             else "scalar"),
                    "rule_chunks": rule, "k1_ms": {}, "k2_ms": {},
                    "k1_launch_ms": {}, "k2_launch_ms": {}}
-            for k, kernel in (("k1", "eig_score"),
-                              ("k2", "eig_refresh_score")):
+            for k, kernel in zip(("k1", "k2"), kernels):
                 nb, ops, _ = costs.kernel_work(kernel, C, N, H,
-                                               hyp.element_size())
+                                               hyp.element_size(), S)
                 rec[k + "_bound_ms"] = costs.bound_ms(nb, ops, peaks)[0]
             ladder = _ladder(C, rule) if args.chunks is None else sorted(
                 {1, rule} | {min(C, int(x)) for x in args.chunks.split(",")})
             for k in ladder:
-                got1 = ek.eig_scores_cache(rows, hyp, pi, pi_xi,
-                                           approx=approx, class_chunks=k)
+                got1 = score(rows, hyp, pi, pi_xi, approx=approx,
+                             class_chunks=k)
                 hyp2 = hyp.clone()
-                got2, _ = ek.eig_scores_refresh(rows, hyp2, hyp_t, c, pi,
-                                                pi_xi, approx=approx,
-                                                class_chunks=k)
+                got2, _ = refresh(rows, hyp2, hyp_t, c, pi, pi_xi,
+                                  approx=approx, class_chunks=k)
                 torch.cuda.synchronize()
                 if not (torch.equal(got1, one1) and torch.equal(got2, one2)
                         and torch.equal(hyp2, ref2)):
                     bad.append((C, N, H, fl, k))
                 del hyp2
                 rec["k1_ms"][k] = _median_ms(
-                    lambda: ek.eig_scores_cache(rows, hyp, pi, pi_xi,
-                                                approx=approx,
-                                                class_chunks=k), args.reps)
+                    lambda: score(rows, hyp, pi, pi_xi, approx=approx,
+                                  class_chunks=k), args.reps)
                 rec["k2_ms"][k] = _median_ms(
-                    lambda: ek.eig_scores_refresh(rows, work, hyp_t, c, pi,
-                                                  pi_xi, approx=approx,
-                                                  class_chunks=k), args.reps)
+                    lambda: refresh(rows, work, hyp_t, c, pi, pi_xi,
+                                    approx=approx, class_chunks=k),
+                    args.reps)
                 rec["k1_launch_ms"][k] = _kernel_ms(
                     ek, rows, hyp, pi, pi_xi, hyp_t, c, approx, k, False,
                     args.reps)
@@ -217,7 +249,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": smi, "sms": sms, "rows": rows_out}, f,
+            json.dump({"card": smi, "sms": sms, "seeds": S,
+                       "rows": rows_out}, f,
                       indent=1)
     if bad:
         print(f"split launches differ from the single launch: {bad}",
