@@ -16,8 +16,9 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
 2. holds each kernel, in each flavour (fp32 or bf16 cache; exact or approx
    entropy), to its plain PyTorch version on the card at the headline
    shape (C, N, H) = (10, 50000, 1000) and at a ragged N = 50001, printing
-   the largest error against the stated tolerance, the median time of 20
-   launches (CUDA events, after warm-up), the plain version's time, the
+   the largest error against the stated tolerance and, at the headline,
+   the median time of 20 launches (CUDA events, after warm-up), the plain
+   version's time, the
    least time the card could take (bytes or operations over the card's
    peak rates) and, for the gather, the time of the PyTorch indexing
    expression that computes the same sum. Kernel 6 (the fused
@@ -93,7 +94,8 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    mirror of its scatters; seeded labels that reach untracked columns
    drive the eviction and residual branches against the host mirror),
    ``sparse:1000`` bitwise dense and
-   ``sparse:32`` fused on kernel 6 once a round; the pool's 5 seeds as
+   ``sparse:32`` fused on kernel 6 once a round (every launch on its
+   short-axis split, both of its launches); the pool's 5 seeds as
    one batch with ``sparse:32`` and ``pi_update=exact`` (auto must name
    the incremental tier; 3 rounds after an untimed one: kernel 4 once,
    kernel 5 once a round, every launch on the class-chunk split); and at
@@ -337,7 +339,14 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    vector's width); then kernels 4 and 5 at S = 5 replicas of the pool's
    (1000, 256, 500) and of (126, 2048, 500) the same way, both
    decompositions ``torch.equal`` to each other and to kernels 1 and 2
-   launched per replica. Then phase 14's jobs on the same task files,
+   launched per replica; then kernel 6 at the pool's (1000, 256, 500) and
+   at (126, 2048, 500) in the four flavours: its single path held to its
+   plain version, and its scoring launch's class-chunk split (the rule's
+   count, 3 and 64) and its row launch's model-chunk split, on and off,
+   ``torch.equal`` to the single path (scores, row c, the other rows), an
+   out-of-range class NaN with no row written on every path, the single
+   and the rules' path timed beside the bound. Then phase 14's jobs on
+   the same task files,
    held to phase 14's unsharded yardstick (the same rounds), under
    ``--mesh model=2`` (two ranks, each 500 of the 1000 models: CODA 1
    seed x 20 with the recorder off and on, 5 seeds x 5 on the
@@ -374,8 +383,8 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    the bytes a rank sends into its model group's collectives a round.
 
 It prints one JSON line with every kernel flavour (its ``launches`` summed
-over the main-path runs, the mesh's ranks' included; kernels 1, 2, 4 and
-5 also split them by decomposition, ``launches_by_path``), then the card's
+over the main-path runs, the mesh's ranks' included; kernels 1, 2, 4, 5
+and 6 also split them by decomposition, ``launches_by_path``), then the card's
 name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``. Any failed
 check raises and the script exits non-zero; without a CUDA device, or
@@ -543,17 +552,18 @@ def _k12(dev, peaks, recs, N, dtype, approx, rows, hyp32, pi, pi_xi, hyp_t):
         replaces="coda_tpu/ops/pallas_eig.py:163", max_abs_err=0.0))
     r["max_abs_err"] = max(r["max_abs_err"], err)
     nbytes, nops, _ = work("eig_score", C, N, H, size)
-    ms = time_ms(lambda: ek.eig_scores_cache(rows, hyp, pi, pi_xi,
-                                             approx=approx))
-    plain = time_ms(lambda: ek.eig_scores_from_cache(
-        rows, hyp, pi, pi_xi, chunk=1024, approx=approx), reps=5)
     b, by = bound(nbytes, nops, peaks)
-    log(f"kernel {name} N={N} ({tag}): max_abs_err={err:.3e} (tol atol="
-        f"{atol:.2e} rtol={SCORE_RTOL}) ms={ms:.4f} plain_ms={plain:.4f} "
-        f"bound_ms={b:.4f} ({by})")
-    if headline:
+    times = ""
+    if headline:   # the kernels line keeps the headline's times only
+        ms = time_ms(lambda: ek.eig_scores_cache(rows, hyp, pi, pi_xi,
+                                                 approx=approx))
+        plain = time_ms(lambda: ek.eig_scores_from_cache(
+            rows, hyp, pi, pi_xi, chunk=1024, approx=approx), reps=5)
         r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                  library_ms=None)
+        times = f" ms={ms:.4f} plain_ms={plain:.4f}"
+    log(f"kernel {name} N={N} ({tag}): max_abs_err={err:.3e} (tol atol="
+        f"{atol:.2e} rtol={SCORE_RTOL}){times} bound_ms={b:.4f} ({by})")
 
     # kernel 2: refresh row c in place (rounded to the storage type), score
     name = ek.flavour("eig_refresh_score", tdt, approx)
@@ -579,18 +589,20 @@ def _k12(dev, peaks, recs, N, dtype, approx, rows, hyp32, pi, pi_xi, hyp_t):
         replaces="coda_tpu/ops/pallas_eig.py:646", max_abs_err=0.0))
     r["max_abs_err"] = max(r["max_abs_err"], err)
     nbytes, nops, _ = work("eig_refresh_score", C, N, H, size)
-    ms = time_ms(lambda: ek.eig_scores_refresh(rows, hyp_k, hyp_t, c, pi,
-                                               pi_xi, approx=approx))
-    plain = time_ms(lambda: ek.eig_scores_refresh_plain(
-        rows, hyp_k, hyp_t, c, pi, pi_xi, chunk=1024, approx=approx), reps=5)
     b, by = bound(nbytes, nops, peaks)
-    log(f"kernel {name} N={N} ({tag}): max_abs_err={err:.3e} (tol atol="
-        f"{atol:.2e} rtol={SCORE_RTOL}) cache == plain cache, other rows "
-        f"bitwise untouched ms={ms:.4f} plain_ms={plain:.4f} "
-        f"bound_ms={b:.4f} ({by})")
+    times = ""
     if headline:
+        ms = time_ms(lambda: ek.eig_scores_refresh(rows, hyp_k, hyp_t, c, pi,
+                                                   pi_xi, approx=approx))
+        plain = time_ms(lambda: ek.eig_scores_refresh_plain(
+            rows, hyp_k, hyp_t, c, pi, pi_xi, chunk=1024, approx=approx),
+            reps=5)
         r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                  library_ms=None)
+        times = f" ms={ms:.4f} plain_ms={plain:.4f}"
+    log(f"kernel {name} N={N} ({tag}): max_abs_err={err:.3e} (tol atol="
+        f"{atol:.2e} rtol={SCORE_RTOL}) cache == plain cache, other rows "
+        f"bitwise untouched{times} bound_ms={b:.4f} ({by})")
     del hyp, hyp_k
 
 
@@ -686,18 +698,20 @@ def _k6(dev, peaks, recs, N, gen, rows0, hyp32, pi, pi_xi):
         r["max_abs_err"] = max(r["max_abs_err"], err)
         nbytes, nops, tensor_ops = work("eig_refresh_compute_score", C, N,
                                         H, size, G=G, nnz=nnz)
-        ms = time_ms(lambda: ek.eig_scores_refresh_compute(
-            rows, hyp_k, *args, approx=approx))
-        plain = time_ms(lambda: ek.eig_scores_refresh_compute_plain(
-            rows, hyp_k, *args, approx=approx, chunk=1024), reps=5)
         b_ms, by = bound(nbytes, nops, peaks, tensor_ops)
-        log(f"kernel {name} N={N}: max_abs_err={err:.3e} (tol atol="
-            f"{atol:.2e} rtol={K6_RTOL}) {row_note}; other rows bitwise "
-            f"untouched ms={ms:.4f} plain_ms={plain:.4f} bound_ms="
-            f"{b_ms:.4f} ({by}; eq nonzeros {nnz} of {N * H})")
-        if headline:
+        times = ""
+        if headline:   # the kernels line keeps the headline's times only
+            ms = time_ms(lambda: ek.eig_scores_refresh_compute(
+                rows, hyp_k, *args, approx=approx))
+            plain = time_ms(lambda: ek.eig_scores_refresh_compute_plain(
+                rows, hyp_k, *args, approx=approx, chunk=1024), reps=5)
             r.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
                      library_ms=None)
+            times = f" ms={ms:.4f} plain_ms={plain:.4f}"
+        log(f"kernel {name} N={N}: max_abs_err={err:.3e} (tol atol="
+            f"{atol:.2e} rtol={K6_RTOL}) {row_note}; other rows bitwise "
+            f"untouched{times} bound_ms={b_ms:.4f} ({by}; eq nonzeros "
+            f"{nnz} of {N * H})")
         del hyp, hyp_k
     del hard
 
@@ -1946,18 +1960,22 @@ def phase_tiers(dev, task, total: dict) -> dict:
                  f"sparse:{Cs} vs dense on the card")
     log(f"tiers: sparse:{Cs} == dense on the card (every recorded array "
         "bitwise)")
+    from coda_tpu_torch.ops import eig_kernels as ek
+
+    k6 = flavour("eig_refresh_compute_score", f32, False)
     _tier_run(dev, pool, SPARSE_ROUNDS, 1, "pool sparse:32 fused", total,
-              {flavour("eig_score", f32, False): 1,
-               flavour("eig_refresh_compute_score", f32, False):
-                   SPARSE_ROUNDS, "row_gather": SPARSE_ROUNDS},
+              {flavour("eig_score", f32, False): 1, k6: SPARSE_ROUNDS,
+               "row_gather": SPARSE_ROUNDS},
               posterior="sparse:32", eig_refresh="fused", **sp_knobs)
+    if ek.split_counts.get(k6, 0) != SPARSE_ROUNDS:
+        raise AssertionError(f"pool sparse:32 fused: kernel 6's split "
+                             f"launches {ek.split_counts.get(k6, 0)}, "
+                             f"expected {SPARSE_ROUNDS}")
     log(f"tiers: pool sparse:32 eig_refresh=fused: kernel 6 launched once a "
-        f"round ({SPARSE_ROUNDS})")
+        f"round ({SPARSE_ROUNDS}), every launch on its short-axis split")
     # the pool's 5 seeds in one batch: auto keeps the incremental tier
     # (pi_update=exact drops the delta layout), and kernels 4 and 5 take
     # the class-chunk split at its 5 x 256 items
-    from coda_tpu_torch.ops import eig_kernels as ek
-
     R5 = POOL_BATCH_ROUNDS
     k45 = (flavour("eig_score_batched", f32, False),
            flavour("eig_refresh_score_batched", f32, False))
@@ -6260,6 +6278,11 @@ FORCED_CHUNKS = 3
 # kernels 4 and 5 at SEEDS replicas of a block: the pool's (the rule
 # splits) and DomainNet126's at N = 2048 (it keeps one launch)
 BATCHED_BLOCKS = ((1000, 256, 500), (126, 2048, 500))
+# kernel 6 at a short item axis: the pool's block (the rules split both of
+# its launches) and DomainNet126's classes at N = 2048; beside the rules'
+# class chunks, two forced counts (a short last chunk; 64 classes a chunk)
+K6_BLOCKS = ((1000, 256, 500), (126, 2048, 500))
+K6_FORCED_CHUNKS = (FORCED_CHUNKS, 64)
 # (spec, ranks, jobs, rounds): phase 14's rounds, so its unsharded runs
 # are the yardstick (the 4-rank run holds the first 10 of its 20 rounds)
 MODEL_RUNS = (("model=2", 2, ("main", "main_rec", "batch", "batch_rec")
@@ -6354,7 +6377,118 @@ def _block_paths(dev, peaks) -> list:
             del hyp, caches, got
         del rows, hyp32, pi, pi_xi, hyp_t
         torch.cuda.empty_cache()
-    return out + _batched_block_paths(dev, peaks, gen, sms)
+    return (out + _batched_block_paths(dev, peaks, gen, sms)
+            + _k6_block_paths(dev, peaks, gen, sms))
+
+
+def _k6_block_paths(dev, peaks, gen, sms: int) -> list:
+    """Kernel 6 at each block of :data:`K6_BLOCKS` in the four flavours:
+    the single path (``class_chunks=1, row_split=False``) held to the plain
+    version at the ``K6_*`` tolerances, and every other path (the rules'
+    class chunks and :data:`K6_FORCED_CHUNKS`, and one chunk, each with the
+    row split on and off) ``torch.equal`` to it: the scores, the stored
+    row c and the other rows untouched; an out-of-range class gives NaN
+    scores and writes nothing on every path. The single path and the rules'
+    are timed (CUDA events, the wrapper call) beside the bound."""
+    import torch
+
+    from coda_tpu_torch.ops import eig_kernels as ek
+    from coda_tpu_torch.ops.pbest import compute_pbest
+
+    out, c_idx = [], 3
+    for C, n, h in K6_BLOCKS:
+        rows, hyp32, pi, pi_xi, _ = random_cache(gen, C, n, h, dev)
+        # the labelled class's Beta marginals, of random 10-entry
+        # Dirichlet rows as at the headline
+        d = torch.rand((h, 10), generator=gen, device=dev) * 3 + 0.5
+        a_t = d[:, 0].contiguous()
+        b_t = (d.sum(-1) - a_t).contiguous()
+        rows[c_idx] = compute_pbest(a_t, b_t)
+        hard = torch.randint(0, C, (n, h), generator=gen, device=dev,
+                             dtype=torch.int32)
+        c = torch.tensor(c_idx, dtype=torch.int32, device=dev)
+        bad = torch.tensor(C, dtype=torch.int32, device=dev)
+        nnz = int((hard == c_idx).sum())
+        row_rule = ek.choose_row_split(
+            n, h, sms, ek.refresh_compute_layout(C, h)["blocks_per_sm"])
+        rows32 = {}
+        for dtype, approx in FLAVOURS:
+            tdt = getattr(torch, dtype)
+            hyp = hyp32.to(tdt)
+            rule = ek.choose_class_chunks(C, n, h, approx, sms)
+            what = (f"kernel 6 block ({C}, {n}, {h}) {dtype}"
+                    + (",approx" if approx else ""))
+
+            def call(k, rs, cache, cls=c):
+                return ek.eig_scores_refresh_compute(
+                    rows, cache, a_t, b_t, hard, cls, pi, pi_xi,
+                    approx=approx, class_chunks=k, row_split=rs)[0]
+
+            hyp_one = hyp.clone()
+            one = call(1, False, hyp_one)
+            want, hyp_p = ek.eig_scores_refresh_compute_plain(
+                rows, hyp.clone(), a_t, b_t, hard, c, pi, pi_xi,
+                approx=approx)
+            torch.cuda.synchronize()
+            atol = K6_ATOL + score_atol(h)
+            err = float((one - want).abs().max())
+            torch.testing.assert_close(one, want, rtol=K6_RTOL, atol=atol)
+            _check_refresh_rows(hyp_one, hyp_p, hyp, c_idx, C)
+            row_k, row_p = hyp_one[c_idx], hyp_p[c_idx]
+            if dtype == "float32":
+                rows32[approx] = (row_k.clone(), row_p.clone())
+                torch.testing.assert_close(row_k, row_p, rtol=K6_ROW_RTOL,
+                                           atol=K6_ROW_RTOL / h)
+            else:
+                _bf16_boundary_count(row_k, row_p, *rows32[approx])
+            del want, hyp_p, row_k, row_p
+            counts = (1, rule, *(min(C, k) for k in K6_FORCED_CHUNKS))
+            paths = sorted({(k, rs) for k in counts for rs in (False, True)}
+                           - {(1, False)})
+            for k, rs in [(1, False)] + paths:
+                if (k, rs) != (1, False):
+                    hyp_k = hyp.clone()
+                    got = call(k, rs, hyp_k)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got, one)
+                            and torch.equal(hyp_k, hyp_one)):
+                        raise AssertionError(
+                            f"{what}: {k} class chunk(s), row split {rs}: "
+                            "not bitwise the single path")
+                    del hyp_k
+                hyp_b = hyp.clone()
+                got = call(k, rs, hyp_b, bad)
+                torch.cuda.synchronize()
+                if not (bool(got.isnan().all()) and torch.equal(hyp_b, hyp)):
+                    raise AssertionError(
+                        f"{what}: {k} class chunk(s), row split {rs}: an "
+                        "out-of-range class gave scores or wrote a row")
+                del hyp_b
+            rec = {"kernel": 6, "C": C, "N": n, "H": h, "dtype": dtype,
+                   "approx": approx, "rule_chunks": rule,
+                   "rule_row_split": row_rule, "max_abs_err": err,
+                   "paths": [[1, False]] + [list(p) for p in paths]}
+            for k, rs, tag in ((1, False, "one"), (rule, row_rule, "rule")):
+                rec[f"k6_{tag}_ms"] = time_ms(
+                    lambda: call(k, rs, hyp_one))
+            nb, ops, tops = work("eig_refresh_compute_score", C, n, h,
+                                 hyp.element_size(), G=256, nnz=nnz)
+            rec["k6_bound_ms"], rec["k6_bound_by"] = bound(nb, ops, peaks,
+                                                           tops)
+            out.append(rec)
+            log(f"mesh model: {what}: rule {rule} class chunk(s), row split "
+                f"{'on' if row_rule else 'off'}; {len(paths)} other paths "
+                f"(class chunks, row split) {paths} bitwise the single "
+                "path, an out-of-range class NaN with no row written on "
+                f"each; kernel 6 {rec['k6_one_ms']:.4f} ms on the single "
+                f"path, {rec['k6_rule_ms']:.4f} on the rules' (bound "
+                f"{rec['k6_bound_ms']:.4f}, {rec['k6_bound_by']}); max "
+                f"|kernel - plain| {err:.3e} (tol atol={atol:.2e} "
+                f"rtol={K6_RTOL}), the row at the K6 row tolerances")
+            del hyp, hyp_one, one
+        del rows, hyp32, pi, pi_xi, hard
+        torch.cuda.empty_cache()
+    return out
 
 
 def _batched_block_paths(dev, peaks, gen, sms: int) -> list:
@@ -6773,8 +6907,9 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
         if kname.split("[")[0] in ("eig_score", "eig_refresh_score",
                                    "eig_score_batched",
-                                   "eig_refresh_score_batched"):
-            # kernels 1, 2, 4 and 5: the launches on each decomposition
+                                   "eig_refresh_score_batched",
+                                   "eig_refresh_compute_score"):
+            # kernels 1, 2, 4, 5 and 6: the launches on each decomposition
             split = launches.get(kname + SPLIT, 0)
             kernels[-1]["launches_by_path"] = {"single": n - split,
                                                "split": split}

@@ -394,4 +394,199 @@ __device__ __forceinline__ void score_block_approx(
   }
 }
 
+// -- the class-chunk split (kernels 1, 2, 4, 5 and kernel 6's scoring) ------
+// Where the item grid is too short to fill the card, a scoring launch
+// becomes two: class_chunk_kernel over grid(item blocks, class chunks[, S])
+// writes each (c, n) row's mixture term -H2 to an fp32 scratch ent (S, N,
+// C), by score_warp's or score_block_approx's own row code, and
+// class_mix_kernel adds each item's terms in c order. Scores and refreshed
+// rows are bitwise the single launch's (csrc/eig_score.cu's header).
+
+// The split's first launch: block (blockIdx.x, blockIdx.y) takes the items
+// of a scoring block blockIdx.x and the classes [blockIdx.y * per,
+// (blockIdx.y + 1) * per) below C, and writes each row's mixture term -H2
+// to ent[n, c] (N, C). An exact warp scores kExactRows items together, an
+// approx warp one item, as the single launch does. FRESH as in score_warp:
+// with FRESH, the chunk that holds c_ref reads that row from `fresh` (and
+// with FRESH = 2 divides it by den[n]), stores it rounded to T and scores
+// it as rounded: that chunk is the row's only writer. BATCHED (kernels 4
+// and 5): blockIdx.z is the replica s, whose slices start at score_warp's
+// offsets and whose scratch is ent[s] (S, N, C); a replica whose class is
+// out of [0, C) writes nothing, the others run on.
+template <typename T, int VEC, int FRESH, bool APPROX, bool BATCHED>
+__global__ void __launch_bounds__(kScoreWarps * 32)
+class_chunk_kernel(const float* __restrict__ rows, const T* hyp, T* hyp_w,
+                   const float* __restrict__ fresh,
+                   const float* __restrict__ den,
+                   const int* __restrict__ c_ptr,
+                   const float* __restrict__ pi,
+                   const float* __restrict__ mixture0,
+                   float* __restrict__ ent, int C, int N, int H, int per) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the replica: blockIdx.z for kernels 4 and 5, the constant 0 otherwise
+  const size_t rep = BATCHED ? blockIdx.z : 0;
+  const int c_ref = FRESH ? c_ptr[rep] : -1;
+  // a class out of [0, C) refreshes no row: class_mix_kernel writes NaN
+  if (FRESH && (unsigned)c_ref >= (unsigned)C) return;
+  // replica rep's slices, size_t from the first multiplication
+  rows += rep * C * H;
+  hyp += rep * C * N * H;
+  hyp_w += rep * C * N * H;
+  if (FRESH) fresh += rep * N * H;
+  if (FRESH == 2) den += rep * N;
+  pi += rep * C;
+  mixture0 += rep * H;
+  ent += rep * N * C;
+  const int c0 = blockIdx.y * per, c1 = min(C, c0 + per);
+  if constexpr (APPROX) {
+    const int n = blockIdx.x * kScoreWarps + warp;
+    if (n >= N) return;
+    for (int c = c0; c < c1; ++c) {
+      const size_t off = ((size_t)c * N + n) * H;
+      const float* base = rows + (size_t)c * H;
+      float acc;
+      if (FRESH && c == c_ref)
+        acc = row_plogp_approx<VEC, FRESH == 2>(
+            fresh + (size_t)n * H, FRESH == 2 ? den[n] : 1.f, base,
+            mixture0, pi[c], H, lane, hyp_w + off);
+      else
+        acc = row_plogp_approx<VEC, false>(hyp + off, 1.f, base, mixture0,
+                                           pi[c], H, lane, (T*)nullptr);
+      if (lane == 0) ent[(size_t)n * C + c] = -acc;
+    }
+  } else {
+    constexpr int K = kExactRows;
+    const int n0 = (blockIdx.x * kScoreWarps + warp) * K;
+    if (n0 >= N) return;
+    const int nk = min(K, N - n0);
+    // kernel 6's row divisors, read by the chunk that holds c_ref only
+    const bool div = FRESH == 2 && c_ref >= c0 && c_ref < c1;
+    float d[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) d[j] = div ? den[n0 + min(j, nk - 1)] : 1.f;
+    for (int c = c0; c < c1; ++c) {
+      const size_t off = ((size_t)c * N + n0) * H;
+      const float* base = rows + (size_t)c * H;
+      float acc[K];
+      if (FRESH && c == c_ref)
+        rows_plogp<VEC, K, FRESH == 2>(fresh + (size_t)n0 * H, base,
+                                       mixture0, pi[c], H, nk, lane, d,
+                                       hyp_w + off, acc);
+      else
+        rows_plogp<VEC, K, false>(hyp + off, base, mixture0, pi[c], H, nk,
+                                  lane, d, (T*)nullptr, acc);
+      // every lane holds each row's sum after the butterfly; lane j
+      // writes row j's term
+      float v = 0.f;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const float e = -warp_sum(acc[j]);
+        if (lane == j) v = e;
+      }
+      if (lane < nk) ent[(size_t)(n0 + lane) * C + c] = v;
+    }
+  }
+}
+
+constexpr int kMixWarps = 8;  // items a mixture block sums, one a warp
+
+// The split's second launch: out[n] = h_before - sum_c pi_xi[n, c] *
+// ent[n, c], a warp an item. Lane l forms the products of classes l, l +
+// 32, ... (coalesced loads of both rows, the next 32 loaded while the last
+// 32 are added), and every lane adds them from 0 in c order, each product
+// taken by a shuffle from its lane: the single launch's order, and the same
+// sum in every lane. REFRESH: NaN for every item when the class is out of
+// [0, C). BATCHED: blockIdx.y is the replica s (pi_xi, ent and out (S, N,
+// ...), h_before and the class (S,)), and only a replica whose own class is
+// out of range gets NaN.
+template <bool REFRESH, bool BATCHED>
+__global__ void __launch_bounds__(kMixWarps * 32)
+class_mix_kernel(const float* __restrict__ ent,
+                 const float* __restrict__ pi_xi,
+                 const float* __restrict__ h_before,
+                 const int* __restrict__ c_ptr, float* __restrict__ out,
+                 int C, int N) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kMixWarps + (threadIdx.x >> 5);
+  if (n >= N) return;
+  const size_t rep = BATCHED ? blockIdx.y : 0;
+  const size_t item = rep * N + n;  // the replica's item
+  if (REFRESH && (unsigned)c_ptr[rep] >= (unsigned)C) {
+    if (lane == 0) out[item] = NAN;
+    return;
+  }
+  const float* w = pi_xi + item * C;
+  const float* e = ent + item * C;
+  float p = lane < C ? w[lane] * e[lane] : 0.f;
+  float s = 0.f;
+  for (int c0 = 0; c0 < C; c0 += 32) {
+    const int c = c0 + 32 + lane;
+    const float wn = c < C ? w[c] : 0.f, en = c < C ? e[c] : 0.f;
+    const int m = min(32, C - c0);
+    if (m == 32) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s += __shfl_sync(0xffffffffu, p, j);
+    } else {
+      for (int j = 0; j < m; ++j) s += __shfl_sync(0xffffffffu, p, j);
+    }
+    p = wn * en;
+  }
+  if (lane == 0) out[item] = h_before[rep] - s;
+}
+
+// A scoring launch (S replicas, or one) split over `chunks` class chunks of
+// ceil(C / chunks) classes each (the last may hold fewer), through the
+// scratch ent (S, N, C); FRESH, fresh and den as in class_chunk_kernel
+template <typename T, int FRESH, bool APPROX, bool BATCHED>
+int launch_split_t(const float* rows, const void* hyp, const float* fresh,
+                   const float* den, const int* c, const float* pi,
+                   const float* pi_xi, const float* mixture0,
+                   const float* h_before, float* out, float* ent, int S,
+                   int C, int N, int H, int vec, int chunks,
+                   cudaStream_t stream) {
+  constexpr int kVec = sizeof(T) == 2 ? 8 : 4;
+  constexpr int kItems = score_items<APPROX>();
+  const int per = (C + chunks - 1) / chunks;
+  dim3 grid((N + kItems - 1) / kItems, (C + per - 1) / per, S),
+      block(kScoreWarps * 32);
+  const T* h = static_cast<const T*>(hyp);
+  T* hw = const_cast<T*>(h);
+  if (vec > 1)
+    class_chunk_kernel<T, kVec, FRESH, APPROX, BATCHED>
+        <<<grid, block, 0, stream>>>(rows, h, hw, fresh, den, c, pi,
+                                     mixture0, ent, C, N, H, per);
+  else
+    class_chunk_kernel<T, 1, FRESH, APPROX, BATCHED>
+        <<<grid, block, 0, stream>>>(rows, h, hw, fresh, den, c, pi,
+                                     mixture0, ent, C, N, H, per);
+  const cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return (int)rc;
+  class_mix_kernel<FRESH != 0, BATCHED>
+      <<<dim3((N + kMixWarps - 1) / kMixWarps, S), kMixWarps * 32, 0,
+         stream>>>(ent, pi_xi, h_before, c, out, C, N);
+  return (int)cudaGetLastError();
+}
+
+// launch_split_t at the storage type (bf16 != 0: bfloat16) and entropy
+// flavour (approx != 0) given at run time
+template <int FRESH, bool BATCHED>
+int launch_split(const float* rows, const void* hyp, const float* fresh,
+                 const float* den, const int* c, const float* pi,
+                 const float* pi_xi, const float* mixture0,
+                 const float* h_before, float* out, float* ent, int S, int C,
+                 int N, int H, int vec, int bf16, int approx, int chunks,
+                 cudaStream_t stream) {
+#define EIG_LAUNCH(T, A)                                                   \
+  return launch_split_t<T, FRESH, A, BATCHED>(                             \
+      rows, hyp, fresh, den, c, pi, pi_xi, mixture0, h_before, out, ent, S, \
+      C, N, H, vec, chunks, stream)
+  if (bf16) {
+    if (approx) EIG_LAUNCH(__nv_bfloat16, true);
+    EIG_LAUNCH(__nv_bfloat16, false);
+  }
+  if (approx) EIG_LAUNCH(float, true);
+  EIG_LAUNCH(float, false);
+#undef EIG_LAUNCH
+}
+
 }  // namespace eig

@@ -74,6 +74,22 @@
 // block that computes or stores row c of item n is that row's only
 // writer, so no two blocks race. c is read on the device (no host
 // synchronisation); out of range gives NaN scores and writes nothing.
+//
+// Short item axes. At a few hundred items (the imagenet_sparse pool, C =
+// 1000, N = 256, H = 500) launch 1 has N/64 = 4 blocks, each walking its
+// model chunks in turn, and launch 2 N/32 = 8, each warp walking C classes
+// in turn, on 132 SMs. Each launch then takes a second decomposition with
+// the same bits (the wrapper, ops/eig_kernels.py, picks both):
+// 1'. the row split: grid(item tiles, ceil(H / kHc)), where those blocks
+//     fit one wave (ops/eig_kernels.choose_row_split). Each block repeats
+//     stages 0-2 for its tile (the same code on the same inputs, so w is
+//     bitwise the same), runs stages 3-4 for its one chunk, and writes its
+//     items' chunk sums to an fp32 scratch part (chunks, N);
+//     row_den_kernel adds them in ascending chunk order from 0 and clamps,
+//     the single launch's rowsum order, so den is bitwise the same;
+// 2'. the class split of kernels 1 and 2 (csrc/eig_common.cuh,
+//     class_chunk_kernel with FRESH = 2, then class_mix_kernel): the chunk
+//     holding c divides, rounds, stores and scores row c as launch 2 does.
 // Built with -DK6_STAGES, thread 0 of each block of launch 1 adds the
 // clock64() cycles of each stage, and apart those spent waiting for the
 // ring's copies (scripts/torch_k6_stages.py prints them).
@@ -238,6 +254,11 @@ __device__ __forceinline__ void pipeline(float* ring, int n, Load load,
   __syncthreads();
 }
 
+// SPLIT (the row split): block (blockIdx.x, blockIdx.y) runs stages 0-2 for
+// its item tile as the single launch does, then stages 3-4 for the one
+// model chunk blockIdx.y, and writes its items' sums over that chunk to
+// part (chunks, N) instead of den (row_den_kernel adds them)
+template <bool SPLIT>
 __global__ void __launch_bounds__(kThreads, 2)
 refresh_compute_rows_kernel(const int* __restrict__ hard_preds,
                             const int* __restrict__ c_ptr,
@@ -247,7 +268,8 @@ refresh_compute_rows_kernel(const int* __restrict__ hard_preds,
                             const float* __restrict__ df_t,
                             const float* __restrict__ w_trapz,
                             float* __restrict__ u, float* __restrict__ den,
-                            int C, int N, int H, int G, int vecG, int vecH) {
+                            float* __restrict__ part, int C, int N, int H,
+                            int G, int vecG, int vecH) {
   extern __shared__ __align__(16) float smem[];
   const int Gp = padded_points(G), Gs = w_stride(G), Hw = (H + 31) / 32;
   float* w = smem;                                        // [kB][Gs]
@@ -351,7 +373,9 @@ refresh_compute_rows_kernel(const int* __restrict__ hard_preds,
   // tiles); gid and tig are the lane's group and place in it
   const int wm = warp & 1, wn = warp >> 1, gid = lane >> 2, tig = lane & 3;
   float* psum = rowsum + kB;  // [4][kB]: a chunk's row sums by wn
-  for (int h0 = 0; h0 < H; h0 += kHc) {
+  const int h_first = SPLIT ? blockIdx.y * kHc : 0;
+  const int h_last = SPLIT ? min(H, h_first + kHc) : H;
+  for (int h0 = h_first; h0 < h_last; h0 += kHc) {
     // 3. base[b][h] = sum_g w[b][g] * F_u^T[g][h] and diff[b][h] = sum_g
     //    w[b][g] * dF^T[g][h] in 3xTF32 on the tensor cores, fp32 sums; a
     //    stage holds 8 grid points of both tables
@@ -450,12 +474,30 @@ refresh_compute_rows_kernel(const int* __restrict__ hard_preds,
     K6_MARK(4);
   }
   __syncthreads();
-  if (tid < nb) den[n0 + tid] = fmaxf(rowsum[tid], 1e-30f);
+  if (tid < nb) {
+    if (SPLIT)
+      part[(size_t)blockIdx.y * N + n0 + tid] = rowsum[tid];
+    else
+      den[n0 + tid] = fmaxf(rowsum[tid], 1e-30f);
+  }
 #ifdef K6_STAGES
-  if (tid == 0 && blockIdx.x < kStampBlocks)
+  const int stamp = blockIdx.y * gridDim.x + blockIdx.x;
+  if (tid == 0 && stamp < kStampBlocks)
     for (int k = 0; k < kStages; ++k)
-      k6_cycles[blockIdx.x * kStages + k] = k6_acc[k];
+      k6_cycles[stamp * kStages + k] = k6_acc[k];
 #endif
+}
+
+// The row split's sums: den[n] = max(sum of part[k, n] over the chunks k in
+// ascending order from 0, 1e-30), the single launch's rowsum order, so den
+// is bitwise the single launch's
+__global__ void row_den_kernel(const float* __restrict__ part,
+                               float* __restrict__ den, int chunks, int N) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  float s = 0.f;
+  for (int k = 0; k < chunks; ++k) s += part[(size_t)k * N + n];
+  den[n] = fmaxf(s, 1e-30f);
 }
 
 // Launch 2: kernel 2's scoring pass (eig::score_warp, or
@@ -489,9 +531,14 @@ refresh_compute_score_kernel(const float* __restrict__ rows, T* hyp,
 }
 
 int rows_attribute(size_t smem) {
-  return (int)cudaFuncSetAttribute(refresh_compute_rows_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      refresh_compute_rows_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(refresh_compute_rows_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  return (int)err;
 }
 
 template <typename T, bool APPROX>
@@ -546,7 +593,7 @@ int eig_refresh_compute_layout(int C, int H, int G, long long* out) {
     err = (cudaError_t)rows_attribute(smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, refresh_compute_rows_kernel, kThreads, smem);
+          &blocks, refresh_compute_rows_kernel<false>, kThreads, smem);
     if (err != cudaSuccess) return (int)err;
     out[4] = blocks;
   }
@@ -565,14 +612,20 @@ int eig_refresh_compute_stamps(long long* host, int n) {
 // hard_preds (N, H) int32; s0 (G,), dlog (H, G), fu_t and df_t (G, H),
 // w_trapz (G,) fp32; u (N, H) and den (N,) fp32 scratch the caller
 // allocates. vec > 1 takes 16-byte loads in the scoring pass.
+// row_split != 0 launches the row kernel over grid(item tiles,
+// ceil(H / kHc)), one model chunk a block, through part, an (ceil(H / kHc),
+// N) fp32 scratch; chunks (1 <= chunks <= min(C, 65535)) > 1 splits the
+// scoring launch over that many class chunks through ent, an (N, C) fp32
+// scratch. part and ent may be null where they are not used. Every path
+// gives the same bits.
 int eig_refresh_compute_launch(
     const float* rows, void* hyp, const int* hard_preds, const int* c,
     const float* s0, const float* dlog, const float* fu_t, const float* df_t,
     const float* w_trapz, const float* pi, const float* pi_xi,
     const float* mixture0, const float* h_before, float* u, float* den,
-    float* out, int C, int N, int H, int G, int vec, int bf16, int approx,
-    void* stream) {
-  if (G < 2) return (int)cudaErrorInvalidValue;
+    float* part, float* ent, float* out, int C, int N, int H, int G, int vec,
+    int bf16, int approx, int chunks, int row_split, void* stream) {
+  if (G < 2 || chunks < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = smem_bytes(H, G);
   int err = rows_attribute(smem);
@@ -580,11 +633,28 @@ int eig_refresh_compute_launch(
   auto aligned = [](const void* p) { return (size_t)p % 16 == 0; };
   const int vecG = G % 4 == 0 && aligned(dlog);
   const int vecH = H % 4 == 0 && aligned(fu_t) && aligned(df_t);
-  refresh_compute_rows_kernel<<<(N + kB - 1) / kB, kThreads, smem, st>>>(
-      hard_preds, c, s0, dlog, fu_t, df_t, w_trapz, u, den, C, N, H, G, vecG,
-      vecH);
+  const int tiles = (N + kB - 1) / kB;
+  if (row_split) {
+    const int hc = (H + kHc - 1) / kHc;
+    refresh_compute_rows_kernel<true>
+        <<<dim3(tiles, hc), kThreads, smem, st>>>(
+        hard_preds, c, s0, dlog, fu_t, df_t, w_trapz, u, den, part, C, N, H,
+        G, vecG, vecH);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    row_den_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+        part, den, hc, N);
+  } else {
+    refresh_compute_rows_kernel<false><<<tiles, kThreads, smem, st>>>(
+        hard_preds, c, s0, dlog, fu_t, df_t, w_trapz, u, den, part, C, N, H,
+        G, vecG, vecH);
+  }
   err = (int)cudaGetLastError();
   if (err != 0) return err;
+  if (chunks > 1)
+    return eig::launch_split<2, false>(rows, hyp, u, den, c, pi, pi_xi,
+                                       mixture0, h_before, out, ent, 1, C, N,
+                                       H, vec, bf16, approx, chunks, st);
 #define EIG_SCORE(T, A)                                                       \
   return score_t<T, A>(rows, hyp, u, den, c, pi, pi_xi, mixture0, h_before, \
                        out, C, N, H, vec, st)

@@ -85,7 +85,8 @@
 // mixture launch, the other replicas running on. The wrapper picks the
 // chunk count (ops/eig_kernels.choose_class_chunks): the split where the
 // single launch holds too few rows in flight, S * N under 32 items an SM;
-// one chunk is the single launch, unchanged. Kernel 6 keeps one launch.
+// one chunk is the single launch, unchanged. The two split kernels live in
+// csrc/eig_common.cuh, where kernel 6's scoring launch takes them too.
 //
 // eig_plogp_sweep_launch evaluates the exact flavour's term on given p,
 // for the log-term sweep that holds it to its error contract on the card.
@@ -117,132 +118,6 @@ score_kernel(const float* __restrict__ rows, const T* hyp, T* hyp_w,
         rows, hyp, hyp_w, hyp_t, nullptr, c_ref, pi, pi_xi, mixture0,
         h_before[rep], out, C, N, H, rep, n0, lane);
   }
-}
-
-// The split decomposition's first launch: block (blockIdx.x, blockIdx.y)
-// takes the items of score_kernel's block blockIdx.x and the classes
-// [blockIdx.y * per, (blockIdx.y + 1) * per) below C, and writes each
-// row's mixture term -H2 to ent[n, c] (N, C). An exact warp scores
-// kExactRows items together, an approx warp one item, as in score_kernel.
-// BATCHED (kernels 4 and 5): blockIdx.z is the replica s, whose slices
-// start at score_warp's offsets and whose scratch is ent[s] (S, N, C); a
-// replica whose class is out of [0, C) writes nothing, the others run on.
-template <typename T, int VEC, bool REFRESH, bool APPROX, bool BATCHED>
-__global__ void __launch_bounds__(eig::kScoreWarps * 32)
-class_chunk_kernel(const float* __restrict__ rows, const T* hyp, T* hyp_w,
-                   const float* __restrict__ hyp_t,
-                   const int* __restrict__ c_ptr,
-                   const float* __restrict__ pi,
-                   const float* __restrict__ mixture0,
-                   float* __restrict__ ent, int C, int N, int H, int per) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // the replica: blockIdx.z for kernels 4 and 5, the constant 0 otherwise
-  const size_t rep = BATCHED ? blockIdx.z : 0;
-  const int c_ref = REFRESH ? c_ptr[rep] : -1;
-  // a class out of [0, C) refreshes no row: class_mix_kernel writes NaN
-  if (REFRESH && (unsigned)c_ref >= (unsigned)C) return;
-  // replica rep's slices, size_t from the first multiplication
-  rows += rep * C * H;
-  hyp += rep * C * N * H;
-  hyp_w += rep * C * N * H;
-  if (REFRESH) hyp_t += rep * N * H;
-  pi += rep * C;
-  mixture0 += rep * H;
-  ent += rep * N * C;
-  const int c0 = blockIdx.y * per, c1 = min(C, c0 + per);
-  if constexpr (APPROX) {
-    const int n = blockIdx.x * eig::kScoreWarps + warp;
-    if (n >= N) return;
-    for (int c = c0; c < c1; ++c) {
-      const size_t off = ((size_t)c * N + n) * H;
-      const float* base = rows + (size_t)c * H;
-      float acc;
-      if (REFRESH && c == c_ref)
-        acc = eig::row_plogp_approx<VEC, false>(hyp_t + (size_t)n * H, 1.f,
-                                                base, mixture0, pi[c], H,
-                                                lane, hyp_w + off);
-      else
-        acc = eig::row_plogp_approx<VEC, false>(hyp + off, 1.f, base,
-                                                mixture0, pi[c], H, lane,
-                                                (T*)nullptr);
-      if (lane == 0) ent[(size_t)n * C + c] = -acc;
-    }
-  } else {
-    constexpr int K = eig::kExactRows;
-    const int n0 = (blockIdx.x * eig::kScoreWarps + warp) * K;
-    if (n0 >= N) return;
-    const int nk = min(K, N - n0);
-    float d[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) d[j] = 1.f;
-    for (int c = c0; c < c1; ++c) {
-      const size_t off = ((size_t)c * N + n0) * H;
-      const float* base = rows + (size_t)c * H;
-      float acc[K];
-      if (REFRESH && c == c_ref)
-        eig::rows_plogp<VEC, K, false>(hyp_t + (size_t)n0 * H, base,
-                                       mixture0, pi[c], H, nk, lane, d,
-                                       hyp_w + off, acc);
-      else
-        eig::rows_plogp<VEC, K, false>(hyp + off, base, mixture0, pi[c], H,
-                                       nk, lane, d, (T*)nullptr, acc);
-      // every lane holds each row's sum after the butterfly; lane j
-      // writes row j's term
-      float v = 0.f;
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const float e = -eig::warp_sum(acc[j]);
-        if (lane == j) v = e;
-      }
-      if (lane < nk) ent[(size_t)(n0 + lane) * C + c] = v;
-    }
-  }
-}
-
-constexpr int kMixWarps = 8;  // items a mixture block sums, one a warp
-
-// The split decomposition's second launch: out[n] = h_before - sum_c
-// pi_xi[n, c] * ent[n, c], a warp an item. Lane l forms the products of
-// classes l, l + 32, ... (coalesced loads of both rows, the next 32
-// loaded while the last 32 are added), and every lane adds them from 0 in
-// c order, each product taken by a shuffle from its lane: the single
-// launch's order, and the same sum in every lane. NaN for every item when
-// kernel 2's class is out of [0, C). BATCHED: blockIdx.y is the replica
-// s (pi_xi, ent and out (S, N, ...), h_before and the class (S,)), and
-// only a replica whose own class is out of range gets NaN.
-template <bool REFRESH, bool BATCHED>
-__global__ void __launch_bounds__(kMixWarps * 32)
-class_mix_kernel(const float* __restrict__ ent,
-                 const float* __restrict__ pi_xi,
-                 const float* __restrict__ h_before,
-                 const int* __restrict__ c_ptr, float* __restrict__ out,
-                 int C, int N) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kMixWarps + (threadIdx.x >> 5);
-  if (n >= N) return;
-  const size_t rep = BATCHED ? blockIdx.y : 0;
-  const size_t item = rep * N + n;  // the replica's item
-  if (REFRESH && (unsigned)c_ptr[rep] >= (unsigned)C) {
-    if (lane == 0) out[item] = NAN;
-    return;
-  }
-  const float* w = pi_xi + item * C;
-  const float* e = ent + item * C;
-  float p = lane < C ? w[lane] * e[lane] : 0.f;
-  float s = 0.f;
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    const int c = c0 + 32 + lane;
-    const float wn = c < C ? w[c] : 0.f, en = c < C ? e[c] : 0.f;
-    const int m = min(32, C - c0);
-    if (m == 32) {
-#pragma unroll
-      for (int j = 0; j < 32; ++j) s += __shfl_sync(0xffffffffu, p, j);
-    } else {
-      for (int j = 0; j < m; ++j) s += __shfl_sync(0xffffffffu, p, j);
-    }
-    p = wn * en;
-  }
-  if (lane == 0) out[item] = h_before[rep] - s;
 }
 
 // p*log2(p) for each p: the exact flavour's term as the scoring loop
@@ -303,57 +178,6 @@ int launch(const float* rows, const void* hyp, const float* hyp_t,
 #undef EIG_LAUNCH
 }
 
-// kernels 1 and 2 (S = 1, BATCHED off) or 4 and 5 (S replicas) split over
-// `chunks` class chunks of ceil(C / chunks) classes each (the last may
-// hold fewer), through the scratch ent (S, N, C)
-template <typename T, bool REFRESH, bool APPROX, bool BATCHED>
-int launch_split_t(const float* rows, const void* hyp, const float* hyp_t,
-                   const int* c, const float* pi, const float* pi_xi,
-                   const float* mixture0, const float* h_before, float* out,
-                   float* ent, int S, int C, int N, int H, int vec,
-                   int chunks, cudaStream_t stream) {
-  constexpr int kVec = sizeof(T) == 2 ? 8 : 4;
-  constexpr int kItems = eig::score_items<APPROX>();
-  const int per = (C + chunks - 1) / chunks;
-  dim3 grid((N + kItems - 1) / kItems, (C + per - 1) / per, S),
-      block(eig::kScoreWarps * 32);
-  const T* h = static_cast<const T*>(hyp);
-  T* hw = const_cast<T*>(h);
-  if (vec > 1)
-    class_chunk_kernel<T, kVec, REFRESH, APPROX, BATCHED>
-        <<<grid, block, 0, stream>>>(rows, h, hw, hyp_t, c, pi, mixture0,
-                                     ent, C, N, H, per);
-  else
-    class_chunk_kernel<T, 1, REFRESH, APPROX, BATCHED>
-        <<<grid, block, 0, stream>>>(rows, h, hw, hyp_t, c, pi, mixture0,
-                                     ent, C, N, H, per);
-  const cudaError_t rc = cudaGetLastError();
-  if (rc != cudaSuccess) return (int)rc;
-  class_mix_kernel<REFRESH, BATCHED>
-      <<<dim3((N + kMixWarps - 1) / kMixWarps, S), kMixWarps * 32, 0,
-         stream>>>(ent, pi_xi, h_before, c, out, C, N);
-  return (int)cudaGetLastError();
-}
-
-template <bool REFRESH, bool BATCHED>
-int launch_split(const float* rows, const void* hyp, const float* hyp_t,
-                 const int* c, const float* pi, const float* pi_xi,
-                 const float* mixture0, const float* h_before, float* out,
-                 float* ent, int S, int C, int N, int H, int vec, int bf16,
-                 int approx, int chunks, cudaStream_t stream) {
-#define EIG_LAUNCH(T, A)                                                   \
-  return launch_split_t<T, REFRESH, A, BATCHED>(                           \
-      rows, hyp, hyp_t, c, pi, pi_xi, mixture0, h_before, out, ent, S, C, \
-      N, H, vec, chunks, stream)
-  if (bf16) {
-    if (approx) EIG_LAUNCH(__nv_bfloat16, true);
-    EIG_LAUNCH(__nv_bfloat16, false);
-  }
-  if (approx) EIG_LAUNCH(float, true);
-  EIG_LAUNCH(float, false);
-#undef EIG_LAUNCH
-}
-
 }  // namespace
 
 extern "C" {
@@ -388,10 +212,10 @@ int eig_score_split_launch(const float* rows, const void* hyp,
                            float* out, float* ent, int C, int N, int H,
                            int vec, int bf16, int approx, int chunks,
                            void* stream) {
-  return launch_split<false, false>(rows, hyp, nullptr, nullptr, pi, pi_xi,
-                                    mixture0, h_before, out, ent, 1, C, N, H,
-                                    vec, bf16, approx, chunks,
-                                    (cudaStream_t)stream);
+  return eig::launch_split<0, false>(rows, hyp, nullptr, nullptr, nullptr,
+                                     pi, pi_xi, mixture0, h_before, out, ent,
+                                     1, C, N, H, vec, bf16, approx, chunks,
+                                     (cudaStream_t)stream);
 }
 
 int eig_refresh_score_split_launch(const float* rows, void* hyp,
@@ -402,9 +226,10 @@ int eig_refresh_score_split_launch(const float* rows, void* hyp,
                                    float* ent, int C, int N, int H, int vec,
                                    int bf16, int approx, int chunks,
                                    void* stream) {
-  return launch_split<true, false>(rows, hyp, hyp_t, c, pi, pi_xi, mixture0,
-                                   h_before, out, ent, 1, C, N, H, vec, bf16,
-                                   approx, chunks, (cudaStream_t)stream);
+  return eig::launch_split<1, false>(rows, hyp, hyp_t, nullptr, c, pi, pi_xi,
+                                     mixture0, h_before, out, ent, 1, C, N, H,
+                                     vec, bf16, approx, chunks,
+                                     (cudaStream_t)stream);
 }
 
 // Kernels 4 and 5: the same operands with a leading replica axis of S
@@ -443,10 +268,10 @@ int eig_score_batched_split_launch(const float* rows, const void* hyp,
                                    float* ent, int S, int C, int N, int H,
                                    int vec, int bf16, int approx, int chunks,
                                    void* stream) {
-  return launch_split<false, true>(rows, hyp, nullptr, nullptr, pi, pi_xi,
-                                   mixture0, h_before, out, ent, S, C, N, H,
-                                   vec, bf16, approx, chunks,
-                                   (cudaStream_t)stream);
+  return eig::launch_split<0, true>(rows, hyp, nullptr, nullptr, nullptr,
+                                    pi, pi_xi, mixture0, h_before, out, ent,
+                                    S, C, N, H, vec, bf16, approx, chunks,
+                                    (cudaStream_t)stream);
 }
 
 int eig_refresh_score_batched_split_launch(
@@ -454,9 +279,10 @@ int eig_refresh_score_batched_split_launch(
     const float* pi, const float* pi_xi, const float* mixture0,
     const float* h_before, float* out, float* ent, int S, int C, int N,
     int H, int vec, int bf16, int approx, int chunks, void* stream) {
-  return launch_split<true, true>(rows, hyp, hyp_t, c, pi, pi_xi, mixture0,
-                                  h_before, out, ent, S, C, N, H, vec, bf16,
-                                  approx, chunks, (cudaStream_t)stream);
+  return eig::launch_split<1, true>(rows, hyp, hyp_t, nullptr, c, pi, pi_xi,
+                                    mixture0, h_before, out, ent, S, C, N, H,
+                                    vec, bf16, approx, chunks,
+                                    (cudaStream_t)stream);
 }
 
 // the log-term sweep: out[i] = the term of p[i] (mode: see

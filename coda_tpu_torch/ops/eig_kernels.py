@@ -11,7 +11,8 @@ new, donated buffer instead).
 Where the item axis is too short to fill the card, kernels 1, 2, 4 and 5
 split their class loop over another grid axis and sum each item's classes
 in a second launch (:func:`choose_class_chunks`), bitwise the single
-launch.
+launch; so does kernel 6's scoring launch, and its row launch splits its
+model chunks over another grid axis (:func:`choose_row_split`).
 Kernel 6, :func:`eig_scores_refresh_compute`, replaces
 ``_refresh_compute_score_kernel`` (``eig_refresh='fused'``): it computes
 that row on the card from the labelled class's O(H·G) Beta grid tables
@@ -67,7 +68,8 @@ launch_counts = {"eig_score": 0, "eig_refresh_score": 0,
                  "eig_refresh_compute_score": 0, "eig_score_batched": 0,
                  "eig_refresh_score_batched": 0, "eig_plogp_sweep": 0}
 # of those, the launches of kernels 1, 2, 4 and 5 that took the split
-# decomposition (class_chunks > 1), by flavour
+# decomposition (class_chunks > 1), and of kernel 6 that split either of
+# its launches (class_chunks > 1 or the row split), by flavour
 split_counts: dict = {}
 
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
@@ -257,7 +259,7 @@ def _lib6(defines: tuple[str, ...] = ()):
     if not getattr(lib, "_typed", False):
         lib.eig_refresh_compute_layout.argtypes = [_I] * 3 + [_P]
         lib.eig_refresh_compute_layout.restype = _I
-        lib.eig_refresh_compute_launch.argtypes = [_P] * 16 + [_I] * 7 + [_P]
+        lib.eig_refresh_compute_launch.argtypes = [_P] * 18 + [_I] * 9 + [_P]
         lib.eig_refresh_compute_launch.restype = _I
         lib._typed = True
     return lib
@@ -396,6 +398,33 @@ def chunk_bounds(C: int, chunks: int) -> list:
     return [(c0, min(C, c0 + per)) for c0 in range(0, C, per)]
 
 
+# Kernel 6's row launch (csrc/eig_refresh_compute.cu): a block owns
+# ROW_ITEMS items (kB) and walks the models in chunks of ROW_MODELS (kHc);
+# two blocks fit an SM (__launch_bounds__(kThreads, 2)). The row split gives
+# each (item tile, model chunk) pair a block, each block repeating its
+# tile's stages before the products (about 0.3 of a block's cycles), so it
+# pays only while its blocks fit the card at once. From
+# scripts/torch_split_sweep.py --k6 on the H100 (the row launch alone): 8,
+# 16, 128 and 256 split blocks ran 1.9-2.2 times faster than the single
+# launch, 384 (N = 3072, H = 1000) 1.05 times; 512, 1024 and 2000 (N =
+# 4096, 8192, 16000) ran 1.04, 2.1 and 3.2 times slower.
+ROW_ITEMS = 64
+ROW_MODELS = 128
+ROW_BLOCKS_PER_SM = 2
+
+
+def choose_row_split(N: int, H: int, sms: int,
+                     blocks_per_sm: int = ROW_BLOCKS_PER_SM) -> bool:
+    """Whether kernel 6's row launch takes the row split at N items and H
+    models on a card of ``sms`` SMs that each hold ``blocks_per_sm`` row
+    blocks: where the models span more than one chunk and the split's
+    blocks, ``ceil(N / ROW_ITEMS) * ceil(H / ROW_MODELS)``, fit in one wave
+    of ``blocks_per_sm * sms`` (then the single launch's item tiles are
+    fewer still)."""
+    blocks = -(-N // ROW_ITEMS) * -(-H // ROW_MODELS)
+    return H > ROW_MODELS and blocks <= blocks_per_sm * sms
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -411,17 +440,18 @@ def _check_chunks(class_chunks: Optional[int], C: int) -> None:
         f"(got {class_chunks!r})")
 
 
+def _sms(cache: torch.Tensor) -> int:
+    index = cache.device.index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
 def _class_chunks(class_chunks: Optional[int], C: int, N: int, H: int,
                   cache: torch.Tensor, approx: bool, S: int = 1) -> int:
     """``class_chunks`` (checked by :func:`_check_chunks`), or the rule's
     choice where it is None."""
     if class_chunks is not None:
         return class_chunks
-    index = cache.device.index
-    return choose_class_chunks(
-        C, N, H, approx,
-        _sm_count(torch.cuda.current_device() if index is None else index),
-        S)
+    return choose_class_chunks(C, N, H, approx, _sms(cache), S)
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -750,7 +780,9 @@ def eig_scores_refresh_compute(pbest_rows: torch.Tensor,
                                pi_hat_xi: torch.Tensor,
                                update_weight: float = 1.0,
                                num_points: int = 256, approx: bool = False,
-                               chunk: int = 256):
+                               chunk: int = 256,
+                               class_chunks: Optional[int] = None,
+                               row_split: Optional[bool] = None):
     """Kernel 6 (``csrc/eig_refresh_compute.cu``): compute class row
     ``true_class`` of the cache from the Beta parameters ``a_t``, ``b_t``
     (H,) of the labelled class and ``hard_preds`` (N, H) int32, write it
@@ -763,8 +795,17 @@ def eig_scores_refresh_compute(pbest_rows: torch.Tensor,
     tile: 16,224 models at ``num_points=256``; see
     :func:`refresh_compute_layout`). CPU tensors take
     :func:`eig_scores_refresh_compute_plain` (``chunk`` is its scoring
-    valve). Returns ``(scores (N,), pbest_hyp)``.
+    valve). On the card each launch takes one of two decompositions, with
+    the same scores, row and cache bits: the scoring launch over
+    ``class_chunks`` class chunks (None: :func:`choose_class_chunks`; 1:
+    the single launch), the row launch with its model chunks split over
+    the grid where ``row_split`` (None: :func:`choose_row_split`). A forced
+    ``class_chunks`` is checked on every device, the CPU included. Returns
+    ``(scores (N,), pbest_hyp)``.
     """
+    _check_chunks(class_chunks, pbest_hyp.shape[-3])
+    _require(row_split is None or isinstance(row_split, bool),
+             f"row_split must be None or a bool (got {row_split!r})")
     if pbest_hyp.device.type == "cpu":
         return eig_scores_refresh_compute_plain(
             pbest_rows, pbest_hyp, a_t, b_t, hard_preds, true_class, pi_hat,
@@ -794,18 +835,31 @@ def eig_scores_refresh_compute(pbest_rows: torch.Tensor,
                                                    num_points)
     fu_t, df_t = F_u.T.contiguous(), dF.T.contiguous()     # (G, H) once
     mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
-    # the unnormalised rows and their clamped sums between the two launches
+    k = _class_chunks(class_chunks, C, N, H, pbest_hyp, approx)
+    if row_split is None:
+        row_split = choose_row_split(N, H, _sms(pbest_hyp),
+                                     layout["blocks_per_sm"])
+    # the unnormalised rows and their clamped sums between the two launches;
+    # the row split's per-chunk sums; the class split's row terms
     scratch = torch.empty((N, H), dtype=torch.float32, device=dev)
     den = torch.empty(N, dtype=torch.float32, device=dev)
+    part = (torch.empty((-(-H // ROW_MODELS), N), dtype=torch.float32,
+                        device=dev) if row_split else None)
+    ent = torch.empty((N, C), dtype=torch.float32, device=dev) \
+        if k > 1 else None
     out = torch.empty(N, dtype=torch.float32, device=dev)
     rc = lib.eig_refresh_compute_launch(
         pbest_rows.data_ptr(), pbest_hyp.data_ptr(), hard_preds.data_ptr(),
         c.data_ptr(), S0.data_ptr(), dlogcdf.data_ptr(), fu_t.data_ptr(),
         df_t.data_ptr(), w_trapz.data_ptr(), pi_hat.data_ptr(),
         pi_hat_xi.data_ptr(), mixture0.data_ptr(), h_before.data_ptr(),
-        scratch.data_ptr(), den.data_ptr(), out.data_ptr(), C, N, H,
+        scratch.data_ptr(), den.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if ent is None else ent.data_ptr(), out.data_ptr(), C, N, H,
         num_points, _vec(H, pbest_hyp, pbest_rows, mixture0, scratch),
-        int(pbest_hyp.dtype == torch.bfloat16), int(approx), _stream())
+        int(pbest_hyp.dtype == torch.bfloat16), int(approx), k,
+        int(row_split), _stream())
     _raise_on(rc, "eig_refresh_compute_score")
-    _count("eig_refresh_compute_score", pbest_hyp.dtype, approx)
+    _count("eig_refresh_compute_score", pbest_hyp.dtype, approx,
+           split=k > 1 or row_split)
     return out, pbest_hyp

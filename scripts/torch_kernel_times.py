@@ -14,12 +14,13 @@ kernels 1 and 2 (``eig_scores_cache``, ``eig_scores_refresh``), kernel 6
 (``eig_scores_refresh_compute``, G = 256 grid points) and, where the
 checkout has them, kernels 4 and 5 (``eig_scores_cache_batched``,
 ``eig_scores_refresh_batched``) and the batched kernel 3 at 5 replicas (the
-CLI's default seeds); then kernels 1 and 2 in the four flavours at the
+CLI's default seeds); then kernels 1, 2 and 6 in the four flavours at the
 imagenet_sparse pool's (C, N, H) = (1000, 256, 500) (keys ending
-``@1000,256,500``), and kernels 4 and 5 at 5 replicas of it (keys ending
-``@5x1000,256,500``), on the decomposition the checkout's wrappers take
-there; beside them the registers ``ptxas`` reports for each library and
-the card's name and power limit.
+``@1000,256,500``; kernel 6's class row refreshed from the Beta marginals
+of random 10-entry Dirichlet rows), and kernels 4 and 5 at 5 replicas of
+it (keys ending ``@5x1000,256,500``), on the decompositions the
+checkout's wrappers take there; beside them the registers ``ptxas``
+reports for each library and the card's name and power limit.
 Two checkouts are compared in one call, in turns (parent, change, change,
 parent), each in its own process. Needs a CUDA device.
 """
@@ -170,6 +171,13 @@ def main(argv=None) -> int:
     pi = pi_xi.mean(0)
     pi = pi / pi.sum()
     cp = torch.tensor(3, dtype=torch.int32, device=dev)
+    d = torch.rand((Hp, 10), generator=gen, device=dev) * 3 + 0.5
+    a_p = d[:, 0].contiguous()
+    b_p = (d.sum(-1) - a_p).contiguous()
+    rows6 = rows.clone()
+    rows6[3] = compute_pbest(a_p, b_p)
+    hard = torch.randint(0, Cp, (Np, Hp), generator=gen, device=dev,
+                         dtype=torch.int32)
     tag = "@" + ",".join(map(str, POOL))
     for dtype in (torch.float32, torch.bfloat16):
         hyp = hyp32.to(dtype)
@@ -180,8 +188,13 @@ def main(argv=None) -> int:
             out["ms"][ek.flavour("eig_refresh_score", dtype, approx)
                       + tag] = _median_ms(lambda: ek.eig_scores_refresh(
                           rows, hyp, hyp_t, cp, pi, pi_xi, approx=approx))
+            out["ms"][ek.flavour("eig_refresh_compute_score", dtype, approx)
+                      + tag] = _median_ms(
+                lambda: ek.eig_scores_refresh_compute(
+                    rows6, hyp, a_p, b_p, hard, cp, pi, pi_xi,
+                    approx=approx))
         del hyp
-    del rows, hyp32, pi_xi, hyp_t, pi
+    del rows, rows6, hyp32, pi_xi, hyp_t, pi, hard
     torch.cuda.empty_cache()
     # kernels 4 and 5 at SEEDS replicas of the pool, likewise
     rows, hyp32, pi_xi, hyp_t = (simplex(S, Cp, Hp), simplex(S, Cp, Np, Hp),

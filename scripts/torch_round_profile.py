@@ -49,6 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -59,7 +60,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def _group(name: str) -> str:
     n = name.lower()
-    if "refresh_compute" in n:     # kernel 6's row and scoring launches
+    # kernel 6's row and scoring launches, the row split's sum and the
+    # class split's chunk launch with FRESH = 2 (its third template
+    # argument; the mixture launch is counted with kernels 1 and 2's)
+    if "refresh_compute" in n or "row_den_kernel" in n or re.search(
+            r"class_chunk_kernel<[^,]+,\s*\d+,\s*2\b", n):
         return "kernel: eig_refresh_compute (csrc/eig_refresh_compute.cu)"
     if "score_kernel" in n or "class_chunk_kernel" in n \
             or "class_mix_kernel" in n:   # kernels 1 and 2 split

@@ -7,7 +7,7 @@ over cache blocks, to set the split rule's crossover
 
     python scripts/torch_split_sweep.py [--blocks C,N,H;C,N,H...]
         [--flavours float32,bfloat16,float32:approx,bfloat16:approx]
-        [--seeds S] [--reps 20] [--chunks K,K...] [--out sweep.json]
+        [--seeds S | --k6] [--reps 20] [--chunks K,K...] [--out sweep.json]
 
 For each ``(C, N, H)`` block (default: the ranks' blocks that
 ``chip_smoke.py`` phase 15 times, the imagenet_sparse pool's data=2 rank
@@ -30,7 +30,18 @@ replicas (a block is one replica's ``(C, N, H)``), each replica refreshes
 its own class row, the launches are kernels 4 and 5 (the ``k1``/``k2``
 keys then name them), the bound is S times a replica's, and the single
 batched launch is also held bitwise to kernels 1 and 2 launched per
-replica. Needs a CUDA device.
+replica. With ``--k6`` the kernel is kernel 6 (``eig_scores_refresh_compute``,
+G = 256, its class row refreshed from random Beta tables and hard
+predictions): at each chunk count of the ladder, with its row launch's
+model-chunk split off and on (``row_split``), the scores and the whole
+refreshed cache are held bitwise to the single path's (one chunk, no row
+split), the wrapper call is timed with CUDA events (``k6_ms``, keyed
+``"<chunks>/<row split 0 or 1>"``) and each launch alone from
+``torch.profiler`` (``k6_rows_ms``: the row launch and the row split's sum
+launch; ``k6_score_ms``: the scoring launch or the split's two; the mean
+of ``--reps`` calls in one window), beside the bound of the whole function
+(``costs.kernel_work``), the rules' choices and the wrapper's other device
+work (``k6_other_ms``). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -112,6 +123,123 @@ def _kernel_ms(ek, rows, hyp, pi, pi_xi, hyp_t, c, approx, k,
     return start.elapsed_time(end) / reps
 
 
+# kernel 6's launches by a pattern of their demangled names: the row launch
+# (and the row split's sum), the scoring launch (single, or the split's two)
+K6_PARTS = (("rows", ("refresh_compute_rows_kernel", "row_den_kernel")),
+            ("score", ("refresh_compute_score_kernel", "class_chunk_kernel",
+                       "class_mix_kernel")))
+
+
+def _k6_parts_ms(fn, reps: int) -> dict:
+    """Device ms a call of kernel 6's row and scoring launches and of the
+    wrapper's other device work: the means over ``reps`` calls in one
+    torch.profiler window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {"rows": 0.0, "score": 0.0, "other": 0.0}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        kind = next((k for k, pats in K6_PARTS
+                     if any(p in ev.name for p in pats)), "other")
+        per[kind] += ev.device_time_total / 1e3
+    return {k: v / reps for k, v in per.items()}
+
+
+def _sweep_k6(args, blocks, gen, peaks, sms, bad) -> list:
+    """Kernel 6 at each block and flavour over the chunk ladder, the row
+    split off and on; see the module docstring."""
+    import torch
+
+    from coda_tpu_torch.ops import eig_kernels as ek
+    from coda_tpu_torch.ops.pbest import compute_pbest
+    from coda_tpu_torch.telemetry import costs
+
+    dev, G, out = torch.device("cuda"), 256, []
+    for C, N, H in blocks:
+        def simplex(*shape):
+            x = torch.rand(shape, generator=gen, device=dev) + 0.1
+            return x / x.sum(-1, keepdim=True)
+
+        # the labelled class's Beta marginals, of random 10-entry Dirichlet
+        # rows as at the headline (their spread, not C, shapes the tables)
+        ci = C // 2
+        d = torch.rand((H, 10), generator=gen, device=dev) * 3 + 0.5
+        a_t = d[:, 0].contiguous()
+        b_t = (d.sum(-1) - a_t).contiguous()
+        rows = simplex(C, H)
+        rows[ci] = compute_pbest(a_t, b_t)
+        hyp32, pi_xi = simplex(C, N, H), simplex(N, C)
+        pi = pi_xi.mean(0)
+        pi = pi / pi.sum()
+        hard = torch.randint(0, C, (N, H), generator=gen, device=dev,
+                             dtype=torch.int32)
+        c = torch.tensor(ci, dtype=torch.int32, device=dev)
+        nnz = int((hard == ci).sum())
+        blocks_per_sm = ek.refresh_compute_layout(C, H, G)["blocks_per_sm"]
+        for fl in args.flavours.split(","):
+            dname, _, tag = fl.partition(":")
+            dtype, approx = getattr(torch, dname), tag == "approx"
+            hyp = hyp32.to(dtype)
+            rule = ek.choose_class_chunks(C, N, H, approx, sms)
+
+            def call(k, rs, cache):
+                return ek.eig_scores_refresh_compute(
+                    rows, cache, a_t, b_t, hard, c, pi, pi_xi, num_points=G,
+                    approx=approx, class_chunks=k, row_split=rs)
+
+            ref = hyp.clone()
+            one = call(1, False, ref)[0]
+            nb, ops, tops = costs.kernel_work(
+                "eig_refresh_compute_score", C, N, H, hyp.element_size(),
+                G=G, nnz=nnz)
+            rec = {"kernel": 6, "C": C, "N": N, "H": H, "flavour": fl,
+                   "path": ("vector" if ek._vec(H, hyp, rows) > 1
+                            else "scalar"),
+                   "rule_chunks": rule,
+                   "rule_row_split": ek.choose_row_split(N, H, sms,
+                                                         blocks_per_sm),
+                   "k6_bound_ms": costs.bound_ms(nb, ops, peaks, tops)[0],
+                   "k6_ms": {}, "k6_rows_ms": {}, "k6_score_ms": {},
+                   "k6_other_ms": {}}
+            ladder = _ladder(C, rule) if args.chunks is None else sorted(
+                {1, rule} | {min(C, int(x)) for x in args.chunks.split(",")})
+            work = hyp.clone()
+            for k in ladder:
+                for rs in (False, True):
+                    got_hyp = hyp.clone()
+                    got = call(k, rs, got_hyp)[0]
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got, one)
+                            and torch.equal(got_hyp, ref)):
+                        bad.append((C, N, H, fl, k, rs))
+                    del got_hyp
+                    key = f"{k}/{int(rs)}"
+                    rec["k6_ms"][key] = _median_ms(
+                        lambda: call(k, rs, work), args.reps)
+                    parts = _k6_parts_ms(lambda: call(k, rs, work),
+                                         args.reps)
+                    rec["k6_rows_ms"][key] = parts["rows"]
+                    rec["k6_score_ms"][key] = parts["score"]
+                    rec["k6_other_ms"][key] = parts["other"]
+            rec["k6_best"] = min(rec["k6_ms"], key=rec["k6_ms"].get)
+            out.append(rec)
+            print(json.dumps(rec), flush=True)
+            del hyp, ref, work
+        del rows, hyp32, pi_xi, hard
+        torch.cuda.empty_cache()
+    return out
+
+
 def _ladder(C: int, rule: int) -> list:
     ks = {1, rule, C}
     k = 2
@@ -128,6 +256,8 @@ def main(argv=None) -> int:
     p.add_argument("--flavours", default=",".join(FLAVOURS))
     p.add_argument("--seeds", type=int, default=1,
                    help="replicas: S > 1 sweeps kernels 4 and 5")
+    p.add_argument("--k6", action="store_true",
+                   help="sweep kernel 6 (one replica)")
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--chunks", default=None,
                    help="comma-separated chunk counts (default: 1, the "
@@ -154,6 +284,18 @@ def main(argv=None) -> int:
     blocks = [tuple(int(x) for x in b.split(","))
               for b in args.blocks.split(";")]
     S = args.seeds
+    if args.k6:
+        bad: list = []
+        rows_out = _sweep_k6(args, blocks, gen, peaks, sms, bad)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": smi, "sms": sms, "kernel": 6,
+                           "rows": rows_out}, f, indent=1)
+        if bad:
+            print(f"kernel 6's split paths differ from the single path: "
+                  f"{bad}", file=sys.stderr)
+        print(smi)
+        return 1 if bad else 0
     lead = (S,) if S > 1 else ()
     if S > 1:
         score, refresh = (ek.eig_scores_cache_batched,
