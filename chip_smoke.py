@@ -400,6 +400,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -650,13 +651,16 @@ def _k6(dev, peaks, recs, N, gen, rows0, hyp32, pi, pi_xi):
     # only where eq is 1 and the scoring of C*N*H elements on the fp32
     # CUDA cores
     nnz = int((hard == c_idx).sum())
-    lay = ek.refresh_compute_layout(C, H, G)
-    log(f"kernel 6 layout at (C, H, G) = ({C}, {H}, {G}): "
-        f"{lay['items_per_block']} items a block, products in chunks of "
+    lay, split = ek.row_plan(
+        C, N, H, G, torch.cuda.get_device_properties(dev).multi_processor_count)
+    log(f"kernel 6 layout at (C, N, H, G) = ({C}, {N}, {H}, {G}): "
+        f"{lay['items_per_block']} items a block ({lay['warpgroups']} "
+        f"consumer warpgroup(s)), products in chunks of "
         f"{lay['models_per_chunk']} models x {lay['points_per_stage']} grid "
-        f"points a stage, {lay['smem_bytes']} bytes of shared memory a "
+        f"points a stage, {lay['ring_stages']} ring stages, "
+        f"{lay['smem_bytes']} bytes of shared memory a "
         f"block, {lay['blocks_per_sm']} blocks an SM, H up to "
-        f"{lay['max_models']}")
+        f"{lay['max_models']}, row split {'on' if split else 'off'}")
     rows32 = {}
     for dtype, approx in FLAVOURS:
         tdt = getattr(torch, dtype)
@@ -713,7 +717,58 @@ def _k6(dev, peaks, recs, N, gen, rows0, hyp32, pi, pi_xi):
             f"untouched{times} bound_ms={b_ms:.4f} ({by}; eq nonzeros "
             f"{nnz} of {N * H})")
         del hyp, hyp_k
+    if headline:
+        _k6_parts(rows, hyp32, args)
     del hard
+
+
+def _launch_parts(fn, reps: int = 5) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel it launches: the
+    mean over ``reps`` calls (``torch.profiler``), by the kernel's short
+    name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per: dict = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        name = re.sub(r"^void |\(anonymous namespace\)::|eig::", "",
+                      ev.name).split("(")[0].split("<")[0]
+        per[name] = per.get(name, 0.0) + ev.device_time_total / 1e3 / reps
+    return per
+
+
+def _k6_parts(rows, hyp32, args):
+    """Kernel 6 at the headline (fp32 and bf16 cache): the device ms of
+    each of its launches (the tables' split, S, the row launch, the
+    scoring) on the path the rules pick."""
+    import torch
+
+    from coda_tpu_torch.ops import eig_kernels as ek
+
+    for tdt in (torch.float32, torch.bfloat16):
+        name = ek.flavour("eig_refresh_compute_score", tdt, False)
+        hyp = hyp32.to(tdt, copy=True)
+        parts = _launch_parts(lambda: ek.eig_scores_refresh_compute(
+            rows, hyp, *args))
+        ms = {"split": parts.get("split_tables_kernel", 0.0),
+              "S": parts.get("refresh_s_kernel", 0.0),
+              "rows": parts.get("refresh_compute_rows_kernel", 0.0),
+              "scoring": sum(parts.get(k, 0.0) for k in (
+                  "refresh_compute_score_kernel", "class_chunk_kernel",
+                  "class_mix_kernel"))}
+        log(f"kernel {name} launches: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+            + " device ms (torch.profiler, 5 calls)")
+        del hyp
 
 
 WIDE_H = 4000   # past the first kernel 6's shared-memory limit (~3,300)
@@ -6409,8 +6464,7 @@ def _k6_block_paths(dev, peaks, gen, sms: int) -> list:
         c = torch.tensor(c_idx, dtype=torch.int32, device=dev)
         bad = torch.tensor(C, dtype=torch.int32, device=dev)
         nnz = int((hard == c_idx).sum())
-        row_rule = ek.choose_row_split(
-            n, h, sms, ek.refresh_compute_layout(C, h)["blocks_per_sm"])
+        row_rule = ek.row_plan(C, n, h, 256, sms)[1]
         rows32 = {}
         for dtype, approx in FLAVOURS:
             tdt = getattr(torch, dtype)

@@ -17,9 +17,11 @@ Kernel 6, :func:`eig_scores_refresh_compute`, replaces
 ``_refresh_compute_score_kernel`` (``eig_refresh='fused'``): it computes
 that row on the card from the labelled class's O(H·G) Beta grid tables
 (no three-product refresh before it) and scores with it; it too writes
-row ``c`` in place. It runs as two launches: a row kernel that writes the
-unnormalised row to an fp32 ``(N, H)`` scratch, and a scoring pass that
-normalises, stores and scores it.
+row ``c`` in place. It splits the tables into TF32 planes (one small
+launch), computes each item's quadrature weights w (a second launch), runs
+a row kernel (TMA and ``wgmma``) that writes the unnormalised row to an
+fp32 ``(N, H)`` scratch, and a scoring pass that normalises, stores and
+scores it.
 Kernels 4 and 5, :func:`eig_scores_cache_batched` and
 :func:`eig_scores_refresh_batched`, replace ``_batched_score_kernel`` and
 ``_batched_refresh_kernel``: kernels 1 and 2 for S replicas in one launch
@@ -257,34 +259,150 @@ def _lib():
 def _lib6(defines: tuple[str, ...] = ()):
     lib = load("eig_refresh_compute", defines)
     if not getattr(lib, "_typed", False):
-        lib.eig_refresh_compute_layout.argtypes = [_I] * 3 + [_P]
+        lib.eig_refresh_compute_layout.argtypes = [_I] * 4 + [_P]
         lib.eig_refresh_compute_layout.restype = _I
-        lib.eig_refresh_compute_launch.argtypes = [_P] * 18 + [_I] * 9 + [_P]
+        lib.eig_refresh_compute_launch.argtypes = \
+            [_P] * 21 + [_I] * 11 + [_P]
         lib.eig_refresh_compute_launch.restype = _I
+        lib.eig_split_tables_launch.argtypes = [_P] * 3 + [_I] * 2 + [_P]
+        lib.eig_split_tables_launch.restype = _I
         lib._typed = True
     return lib
 
 
 _LAYOUT_KEYS = ("items_per_block", "models_per_chunk", "points_per_stage",
-                "smem_bytes", "blocks_per_sm", "max_models")
+                "smem_bytes", "blocks_per_sm", "max_models", "ring_stages",
+                "warpgroups")
 
 
 @functools.lru_cache(maxsize=None)
-def _layout(C: int, H: int, num_points: int, device: int) -> tuple:
+def _layout(C: int, H: int, num_points: int, nwg: int, device: int) -> tuple:
     out = (ctypes.c_longlong * len(_LAYOUT_KEYS))()
-    _raise_on(_lib6().eig_refresh_compute_layout(C, H, num_points, out),
+    _raise_on(_lib6().eig_refresh_compute_layout(C, H, num_points, nwg, out),
               "eig_refresh_compute_layout")
     return tuple(out)
 
 
-def refresh_compute_layout(C: int, H: int, num_points: int = 256) -> dict:
-    """Kernel 6's tiling at ``(C, H, num_points)`` on the current card:
-    items per block, models per chunk of the products, grid points per
-    stage of the products, dynamic shared memory per block of the row
-    kernel (bytes), its resident blocks per SM (0 if it does not fit), and
-    the largest H that fits at this ``num_points``."""
-    return dict(zip(_LAYOUT_KEYS, _layout(C, H, num_points,
+def refresh_compute_layout(C: int, H: int, num_points: int = 256,
+                           warpgroups: int = 2) -> dict:
+    """Kernel 6's tiling at ``(C, H, num_points)`` on the current card with
+    ``warpgroups`` consumer warpgroups wanted: items per block, models per
+    chunk of the products, grid points per stage of the products, dynamic
+    shared memory per block of the row kernel (bytes), its resident blocks
+    per SM (0 if it does not fit), the largest H that fits at this
+    ``num_points``, the ring stages taken (the source's four, cut to what
+    fits) and the consumer warpgroups taken (one where two do not fit).
+    The same numbers as :func:`row_layout` but for the blocks an SM, which
+    only the card can say."""
+    return dict(zip(_LAYOUT_KEYS, _layout(C, H, num_points, warpgroups,
                                           torch.cuda.current_device())))
+
+
+# Kernel 6's row launch (csrc/eig_refresh_compute.cu): a block is one or
+# two consumer warpgroups (choose_row_warpgroups; one where two do not fit)
+# and a producer warp; each warpgroup owns ROW_ITEMS items at a time, and
+# the block walks the models in chunks of ROW_MODELS, ROW_POINTS grid
+# points a ring stage of ROW_STAGE_BYTES (the TF32 hi and lo planes of both
+# tables), which its warpgroups share. Shared memory: 1 KB of alignment,
+# the ring (the source's ROW_STAGES stages, fewer where H leaves no room,
+# ROW_MIN_STAGES at least), w (items x (Gp + 4) fp32), the eq bitmask
+# (items x mask_words(H) words) and two mbarriers a stage.
+ROW_ITEMS = 64
+ROW_MODELS = 128
+ROW_POINTS = 8
+ROW_STAGE_BYTES = 16 << 10
+ROW_MIN_STAGES, ROW_STAGES = 2, 4
+
+
+def row_smem_bytes(H: int, num_points: int, stages: int,
+                   warpgroups: int = 1) -> int:
+    """Dynamic shared memory of a row block (the source's
+    ``smem_bytes``)."""
+    gp = -(-num_points // ROW_POINTS) * ROW_POINTS
+    return (1024 + stages * ROW_STAGE_BYTES
+            + 4 * warpgroups * ROW_ITEMS * ((gp + 4) + mask_words(H))
+            + 16 * stages)
+
+
+def mask_words(H: int) -> int:
+    """The eq mask's row stride in 32-bit words: ceil(H / 32) rounded up
+    to 16 bytes (the source's ``mask_stride``)."""
+    return -(-(-(-H // 32)) // 4) * 4
+
+
+def row_layout(H: int, num_points: int = 256,
+               optin: Optional[int] = None) -> dict:
+    """The two-warpgroup row block's shape on a card whose blocks may opt
+    in to ``optin`` bytes of shared memory (default: Hopper's): the
+    consumer warpgroups taken (one where two do not fit with the fewest
+    stages), the ring stages taken (as many as fit, up to
+    :data:`ROW_STAGES`), the bytes at those, and the largest H whose block
+    fits (one warpgroup, the fewest stages). The source's ``row_shape``."""
+    optin = _MAX_SMEM_OPTIN if optin is None else optin
+    nwg = 2 if row_smem_bytes(H, num_points, ROW_MIN_STAGES, 2) <= optin \
+        else 1
+    stages = ROW_STAGES
+    while (stages > ROW_MIN_STAGES
+           and row_smem_bytes(H, num_points, stages, nwg) > optin):
+        stages -= 1
+    fixed = row_smem_bytes(0, num_points, ROW_MIN_STAGES)
+    return {"warpgroups": nwg, "ring_stages": stages,
+            "smem_bytes": row_smem_bytes(H, num_points, stages, nwg),
+            "max_models": max(0, (optin - fixed) // (4 * ROW_ITEMS) // 4
+                              * 128)}
+
+
+def check_row_layout(C: int, H: int, num_points: int = 256) -> dict:
+    """:func:`row_layout` at ``(H, num_points)``, or a ValueError naming
+    the shared-memory limit and the largest H where the row block does not
+    fit a Hopper block."""
+    lay = row_layout(H, num_points)
+    smem = lay["smem_bytes"]
+    _require(smem <= _MAX_SMEM_OPTIN,
+             f"kernel 6 needs {smem} bytes of shared memory per block at "
+             f"C={C}, H={H}, num_points={num_points}; a Hopper block may opt "
+             f"in to at most {_MAX_SMEM_OPTIN} (H up to "
+             f"{lay['max_models']} at this num_points)")
+    return lay
+
+
+_TF32_MASK = -8192   # 0xffffe000 as an int32: sign, exponent, 10 bits
+
+
+def split_tf32(x: torch.Tensor):
+    """``(hi, lo)`` of fp32 ``x`` as kernel 6 cuts its product operands:
+    ``hi`` keeps the sign, the exponent and TF32's 10 mantissa bits,
+    ``lo`` is ``x - hi`` (exact in fp32) cut likewise, so ``hi + lo``
+    carries x to about 2^-21 relative."""
+    x = x.to(torch.float32).contiguous()
+    hi = (x.view(torch.int32) & _TF32_MASK).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & _TF32_MASK).view(torch.float32)
+    return hi, lo
+
+
+def split_tables(F_u: torch.Tensor, dF: torch.Tensor) -> torch.Tensor:
+    """Kernel 6's product operands: ``(4, H, Gp)`` fp32 planes hi(F_u),
+    hi(dF), lo(F_u), lo(dF) of the ``(H, G)`` tables (:func:`split_tf32`),
+    ``Gp`` = G rounded up to the kernel's 8-point k step, zero past G. A
+    CUDA tensor takes ``split_tables_kernel`` (one launch, the one kernel
+    6's wrapper makes each call, here alone for the tests: it counts no
+    launch of kernel 6); a CPU tensor its plain version here."""
+    H, G = F_u.shape
+    _require(tuple(dF.shape) == (H, G) and F_u.dtype == dF.dtype
+             == torch.float32 and F_u.device == dF.device,
+             "F_u and dF must be float32 tensors of one (H, G) shape")
+    gp = -(-G // ROW_POINTS) * ROW_POINTS
+    if F_u.device.type == "cpu":
+        planes = torch.zeros((4, H, gp), dtype=torch.float32)
+        planes[0, :, :G], planes[2, :, :G] = split_tf32(F_u)
+        planes[1, :, :G], planes[3, :, :G] = split_tf32(dF)
+        return planes
+    F_u, dF = F_u.contiguous(), dF.contiguous()
+    planes = torch.empty((4, H, gp), dtype=torch.float32, device=F_u.device)
+    _raise_on(_lib6().eig_split_tables_launch(
+        F_u.data_ptr(), dF.data_ptr(), planes.data_ptr(), H, G, _stream()),
+        "eig_split_tables")
+    return planes
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -398,31 +516,77 @@ def chunk_bounds(C: int, chunks: int) -> list:
     return [(c0, min(C, c0 + per)) for c0 in range(0, C, per)]
 
 
-# Kernel 6's row launch (csrc/eig_refresh_compute.cu): a block owns
-# ROW_ITEMS items (kB) and walks the models in chunks of ROW_MODELS (kHc);
-# two blocks fit an SM (__launch_bounds__(kThreads, 2)). The row split gives
-# each (item tile, model chunk) pair a block, each block repeating its
-# tile's stages before the products (about 0.3 of a block's cycles), so it
-# pays only while its blocks fit the card at once. From
-# scripts/torch_split_sweep.py --k6 on the H100 (the row launch alone): 8,
-# 16, 128 and 256 split blocks ran 1.9-2.2 times faster than the single
-# launch, 384 (N = 3072, H = 1000) 1.05 times; 512, 1024 and 2000 (N =
-# 4096, 8192, 16000) ran 1.04, 2.1 and 3.2 times slower.
-ROW_ITEMS = 64
-ROW_MODELS = 128
-ROW_BLOCKS_PER_SM = 2
+# Kernel 6's row launch is persistent: its blocks (one an SM at G = 256)
+# walk the work items, item tiles of one or two warpgroups' items or, under
+# the row split, (tile, model chunk) pairs, each of which loads its tile's
+# w and eq mask before its products. The rules below are set from
+# scripts/torch_split_sweep.py --k6 --warpgroups 1,2 on the H100 (C = 10,
+# H = 1000, N from 1024 to 50,000; the pool; digits_h80), the device ms
+# of the tables' split, S and the row launch: the split pays where its work
+# items take fewer rounds of the grid than the single path's whole tiles,
+# a split round costing about 1.2 single ones (each work item loads its
+# tile: at N = 16,000 and 50,000, in equal rounds, it ran 1.12-1.15 times
+# slower; at N = 2048-12,000 and 24,000 1.03-1.95 times faster), and
+# one-warpgroup tiles pay where they fit one round (the pool, digits_h80,
+# N = 1024: 1.04-1.11 times faster; past one round up to 1.41 times
+# slower).
+ROW_BLOCKS_PER_SM = 1
+
+
+def row_blocks(N: int, H: int, row_split: bool, sms: int,
+               blocks_per_sm: int, items_per_block: int = ROW_ITEMS) -> int:
+    """Kernel 6's persistent row grid: its work items (item tiles of
+    ``items_per_block``, or (tile, model chunk) pairs under the row split),
+    at most the blocks a card of ``sms`` SMs holds at once."""
+    items = (-(-N // items_per_block)
+             * (-(-H // ROW_MODELS) if row_split else 1))
+    return max(1, min(items, sms * max(1, blocks_per_sm)))
 
 
 def choose_row_split(N: int, H: int, sms: int,
-                     blocks_per_sm: int = ROW_BLOCKS_PER_SM) -> bool:
+                     blocks_per_sm: int = ROW_BLOCKS_PER_SM,
+                     items_per_block: int = 2 * ROW_ITEMS) -> bool:
     """Whether kernel 6's row launch takes the row split at N items and H
     models on a card of ``sms`` SMs that each hold ``blocks_per_sm`` row
-    blocks: where the models span more than one chunk and the split's
-    blocks, ``ceil(N / ROW_ITEMS) * ceil(H / ROW_MODELS)``, fit in one wave
-    of ``blocks_per_sm * sms`` (then the single launch's item tiles are
-    fewer still)."""
-    blocks = -(-N // ROW_ITEMS) * -(-H // ROW_MODELS)
-    return H > ROW_MODELS and blocks <= blocks_per_sm * sms
+    blocks of ``items_per_block`` items: where the models span K > 1
+    chunks and the grid of P = ``blocks_per_sm * sms`` blocks finishes the
+    split's T * K work items (T item tiles), at 1.2 times a round, sooner
+    than the single path's K chunks of ceil(T / P) tiles a block:
+    ``6 * ceil(T * K / P) < 5 * K * ceil(T / P)``."""
+    T, K = -(-N // items_per_block), -(-H // ROW_MODELS)
+    P = sms * max(1, blocks_per_sm)
+    return K > 1 and 6 * -(-T * K // P) < 5 * K * -(-T // P)
+
+
+def choose_row_warpgroups(N: int, H: int, row_split: bool, sms: int,
+                          blocks_per_sm: int = ROW_BLOCKS_PER_SM) -> int:
+    """Kernel 6's consumer warpgroups a row block: one (tiles of
+    ROW_ITEMS items, more blocks busy) where the launch's work items at
+    that tile, ``ceil(N / ROW_ITEMS)`` times the model chunks under the
+    row split, fit one round of ``sms`` SMs of ``blocks_per_sm``
+    one-warpgroup blocks; else two (tiles of ``2 * ROW_ITEMS``, each stage
+    of the planes shared, half their L2 traffic)."""
+    items = -(-N // ROW_ITEMS) * (-(-H // ROW_MODELS) if row_split else 1)
+    return 1 if items <= sms * max(1, blocks_per_sm) else 2
+
+
+def row_plan(C: int, N: int, H: int, num_points: int, sms: int,
+             warpgroups: Optional[int] = None,
+             row_split: Optional[bool] = None) -> tuple:
+    """``(layout, row_split)`` of kernel 6's row launch on the current
+    card as its wrapper picks them: the row split (None:
+    :func:`choose_row_split` at the two-warpgroup block), then
+    :func:`refresh_compute_layout` at ``warpgroups`` consumer warpgroups
+    (None: :func:`choose_row_warpgroups`)."""
+    if row_split is None:
+        two = refresh_compute_layout(C, H, num_points, 2)
+        row_split = choose_row_split(N, H, sms, two["blocks_per_sm"],
+                                     two["items_per_block"])
+    if warpgroups is None:
+        warpgroups = choose_row_warpgroups(
+            N, H, row_split, sms,
+            refresh_compute_layout(C, H, num_points, 1)["blocks_per_sm"])
+    return refresh_compute_layout(C, H, num_points, warpgroups), row_split
 
 
 @functools.lru_cache(maxsize=None)
@@ -782,7 +946,8 @@ def eig_scores_refresh_compute(pbest_rows: torch.Tensor,
                                num_points: int = 256, approx: bool = False,
                                chunk: int = 256,
                                class_chunks: Optional[int] = None,
-                               row_split: Optional[bool] = None):
+                               row_split: Optional[bool] = None,
+                               warpgroups: Optional[int] = None):
     """Kernel 6 (``csrc/eig_refresh_compute.cu``): compute class row
     ``true_class`` of the cache from the Beta parameters ``a_t``, ``b_t``
     (H,) of the labelled class and ``hard_preds`` (N, H) int32, write it
@@ -790,22 +955,29 @@ def eig_scores_refresh_compute(pbest_rows: torch.Tensor,
     with the stored row. ``pbest_rows`` must already hold the refreshed
     P(best) row; ``pbest_hyp`` holds the old class row. The O(H·G) tables
     are built here with PyTorch, as the reference's wrapper builds them,
-    and so is the fp32 ``(N, H)`` scratch the two launches share. H is
-    bounded by the row kernel's shared memory (the eq bitmask of its item
-    tile: 16,224 models at ``num_points=256``; see
-    :func:`refresh_compute_layout`). CPU tensors take
+    and so is the fp32 ``(N, H)`` scratch of the unnormalised rows; the
+    kernel splits the tables into TF32 planes itself (one launch,
+    :func:`split_tables`). H is bounded by the row kernel's shared memory
+    (the eq bitmask of its item tile: 16,384 models at ``num_points=256``;
+    see :func:`row_layout`). CPU tensors take
     :func:`eig_scores_refresh_compute_plain` (``chunk`` is its scoring
-    valve). On the card each launch takes one of two decompositions, with
-    the same scores, row and cache bits: the scoring launch over
-    ``class_chunks`` class chunks (None: :func:`choose_class_chunks`; 1:
-    the single launch), the row launch with its model chunks split over
-    the grid where ``row_split`` (None: :func:`choose_row_split`). A forced
-    ``class_chunks`` is checked on every device, the CPU included. Returns
-    ``(scores (N,), pbest_hyp)``.
+    valve). On the card the work takes one of several decompositions, with
+    the same scores, row and cache bits: the scoring over ``class_chunks``
+    class chunks (None: :func:`choose_class_chunks`; 1: the single
+    launch), the row launch with its model chunks split over the grid
+    where ``row_split`` (None: :func:`choose_row_split`), with 1 or 2
+    consumer warpgroups a row block (``warpgroups``; None:
+    :func:`choose_row_warpgroups`; two are cut to one where they do not
+    fit). Forced ``class_chunks``, ``row_split`` and ``warpgroups`` are
+    checked on every device, the CPU included. Returns ``(scores (N,),
+    pbest_hyp)``.
     """
     _check_chunks(class_chunks, pbest_hyp.shape[-3])
     _require(row_split is None or isinstance(row_split, bool),
              f"row_split must be None or a bool (got {row_split!r})")
+    _require(warpgroups is None or (type(warpgroups) is int
+                                    and warpgroups in (1, 2)),
+             f"warpgroups must be None, 1 or 2 (got {warpgroups!r})")
     if pbest_hyp.device.type == "cpu":
         return eig_scores_refresh_compute_plain(
             pbest_rows, pbest_hyp, a_t, b_t, hard_preds, true_class, pi_hat,
@@ -824,41 +996,45 @@ def eig_scores_refresh_compute(pbest_rows: torch.Tensor,
     _require(num_points >= 2, f"num_points={num_points} must be >= 2")
     c = _check_class(true_class, dev)
     lib = _lib6()
-    layout = refresh_compute_layout(C, H, num_points)
-    smem = layout["smem_bytes"]
-    _require(smem <= _MAX_SMEM_OPTIN,
-             f"kernel 6 needs {smem} bytes of shared memory per block at "
-             f"C={C}, H={H}, num_points={num_points}; a Hopper block may opt "
-             f"in to at most {_MAX_SMEM_OPTIN} (H up to "
-             f"{layout['max_models']} at this num_points)")
+    check_row_layout(C, H, num_points)
+    sms = _sms(pbest_hyp)
+    layout, row_split = row_plan(C, N, H, num_points, sms, warpgroups,
+                                 row_split)
     S0, dlogcdf, F_u, dF, w_trapz = refresh_tables(a_t, b_t, update_weight,
                                                    num_points)
-    fu_t, df_t = F_u.T.contiguous(), dF.T.contiguous()     # (G, H) once
+    F_u, dF = F_u.contiguous(), dF.contiguous()   # (H, G): K-major already
     mixture0, h_before = mixture_stats(pbest_rows, pi_hat, approx)
     k = _class_chunks(class_chunks, C, N, H, pbest_hyp, approx)
-    if row_split is None:
-        row_split = choose_row_split(N, H, _sms(pbest_hyp),
-                                     layout["blocks_per_sm"])
-    # the unnormalised rows and their clamped sums between the two launches;
-    # the row split's per-chunk sums; the class split's row terms
+    chunks = -(-H // ROW_MODELS)
+    blocks = row_blocks(N, H, row_split, sms, layout["blocks_per_sm"],
+                        layout["items_per_block"])
+    gp = -(-num_points // ROW_POINTS) * ROW_POINTS
+    # the tables' TF32 planes; w and the eq mask between the S and row
+    # launches; the unnormalised rows and their clamped sums between the
+    # row and scoring launches; the row split's per-chunk sums; the class
+    # split's class terms
+    planes = torch.empty((4, H, gp), dtype=torch.float32, device=dev)
+    wbuf = torch.empty((N, gp), dtype=torch.float32, device=dev)
+    mbuf = torch.empty((N, mask_words(H)), dtype=torch.int32, device=dev)
     scratch = torch.empty((N, H), dtype=torch.float32, device=dev)
     den = torch.empty(N, dtype=torch.float32, device=dev)
-    part = (torch.empty((-(-H // ROW_MODELS), N), dtype=torch.float32,
-                        device=dev) if row_split else None)
+    part = (torch.empty((chunks, N), dtype=torch.float32, device=dev)
+            if row_split else None)
     ent = torch.empty((N, C), dtype=torch.float32, device=dev) \
         if k > 1 else None
     out = torch.empty(N, dtype=torch.float32, device=dev)
     rc = lib.eig_refresh_compute_launch(
         pbest_rows.data_ptr(), pbest_hyp.data_ptr(), hard_preds.data_ptr(),
-        c.data_ptr(), S0.data_ptr(), dlogcdf.data_ptr(), fu_t.data_ptr(),
-        df_t.data_ptr(), w_trapz.data_ptr(), pi_hat.data_ptr(),
+        c.data_ptr(), S0.data_ptr(), dlogcdf.data_ptr(), F_u.data_ptr(),
+        dF.data_ptr(), w_trapz.data_ptr(), pi_hat.data_ptr(),
         pi_hat_xi.data_ptr(), mixture0.data_ptr(), h_before.data_ptr(),
+        planes.data_ptr(), wbuf.data_ptr(), mbuf.data_ptr(),
         scratch.data_ptr(), den.data_ptr(),
         None if part is None else part.data_ptr(),
         None if ent is None else ent.data_ptr(), out.data_ptr(), C, N, H,
         num_points, _vec(H, pbest_hyp, pbest_rows, mixture0, scratch),
         int(pbest_hyp.dtype == torch.bfloat16), int(approx), k,
-        int(row_split), _stream())
+        int(row_split), blocks, layout["warpgroups"], _stream())
     _raise_on(rc, "eig_refresh_compute_score")
     _count("eig_refresh_compute_score", pbest_hyp.dtype, approx,
            split=k > 1 or row_split)

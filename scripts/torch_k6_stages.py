@@ -1,34 +1,36 @@
 #!/usr/bin/env python3
-"""Where kernel 6's time goes, stage by stage, on the GPU.
+"""Where kernel 6's time goes, stage by stage and launch by launch, on the GPU.
 
     python scripts/torch_k6_stages.py [--shape H,N,C] [--num-points 256]
-        [--paths single,rule]
+        [--paths single,rule] [--warpgroups 2,1]
 
 Builds ``coda_tpu_torch/csrc/eig_refresh_compute.cu`` (the fused
 refresh-compute-score kernel) a second time with ``-DK6_STAGES`` into the
-git-ignored ``coda_tpu_torch/_build/``: thread 0 of every block of its row
-launch then adds up the ``clock64()`` cycles of each of that launch's five
-stages (eq mask, S, exp, the base and diff products, epilogue; the last two
-summed over the model chunks) and, apart, the cycles of S and the products
-spent waiting for the shared-memory ring's copies. That build is launched
-through the port's own wrapper on random inputs of ``--shape`` (default
-the headline 1000,50000,10), fp32 and bf16 cache, on each of ``--paths``:
-``single`` (both launches on their single decomposition: ``class_chunks=1,
-row_split=False``) and ``rule`` (the decompositions the wrapper's rules
-pick; at a short item axis the row split, one block a tile and model
-chunk, and the class-chunk scoring split). For each the script prints the
-mean SM cycles per row block in each stage and their shares (under the row
-split a block's stages 3-4 cover its one chunk), and the device time of
-each of kernel 6's launches (``rows``; the row split's ``den`` sum;
-``score``, or the split's ``chunk`` and ``mix``) and of the wrapper's
-PyTorch work (``other``: the Beta tables, the mixture, the scratch) from
-``torch.profiler`` (the uninstrumented build, median over 5 calls), and
-the wrapper call's span between CUDA events beside the host time it takes
-to enqueue one call (20 calls back to back, no synchronisation). Needs
-a CUDA device and ``nvcc``; prints the card's name, power limit and SM
-clock beside the numbers. The instrumented build's outputs are checked
-bitwise against the uninstrumented kernel's, and each path's against the
-single path's.
+git-ignored ``coda_tpu_torch/_build/``: thread 0 of every block of its
+persistent row launch then adds up the ``clock64()`` cycles of each of the
+block's three stages (loading the tile's w and eq mask, the MMA
+warpgroups' base and diff products, the epilogue; the last two summed over
+the model chunks) over all its work items, and, apart, the cycles the
+consumers spent waiting for full product stages and those the producer
+warp spent waiting for free slots. That build is launched through the
+port's own wrapper on random inputs of ``--shape`` (default the headline
+1000,50000,10), fp32 and bf16 cache, at each consumer warpgroup count of
+``--warpgroups`` (default: the rule's; two are cut to one where they do
+not fit), on each of ``--paths``: ``single`` (one scoring launch after the
+row launch: ``class_chunks=1, row_split=False``) and ``rule`` (the
+decompositions the wrapper's rules pick). For each the script prints the mean
+SM cycles per work item in each stage and their shares, the waits, and the
+device time of each of kernel 6's launches (``split``, the tables' TF32
+planes; ``S``, eq, S and w; ``rows``; the row split's ``den`` sum;
+``score``, or the class split's ``chunk`` and ``mix``) and of the
+wrapper's PyTorch work
+(``other``) from ``torch.profiler`` (the uninstrumented build, median over
+5 calls), and the wrapper
+call's span between CUDA events beside the host time it takes to enqueue
+one call (20 calls back to back, no synchronisation). Needs a CUDA device
+and ``nvcc``; prints the card's name, power limit and SM clock beside the
+numbers. The instrumented build's outputs are checked bitwise against the
+uninstrumented kernel's, and each path's against the first path's.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -43,15 +46,18 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-# as in the source: K6_MARK(0..4) and the wait counter (5) of the row
-# launch, kStampBlocks, kB
-STAGES = ("eq mask", "S", "exp", "products", "epilogue")
-STAMPS = len(STAGES) + 1
+# as in the source: K6_MARK(0..2), the consumers' and the producer's waits
+# (3, 4) and the work items (5) of the row launch, kStampBlocks
+STAGES = ("tile loads", "products", "epilogue")
+STAMPS = len(STAGES) + 3
 MAX_BLOCKS = 1 << 14
 # a device event's part of a call, by a pattern of its demangled name
-PARTS = (("rows", "refresh_compute_rows_kernel"), ("den", "row_den_kernel"),
-         ("score", "refresh_compute_score_kernel"),
-         ("chunk", "class_chunk_kernel"), ("mix", "class_mix_kernel"))
+PARTS = (("split", r"split_tables_kernel"), ("S", r"refresh_s_kernel"),
+         ("rows", r"refresh_compute_rows_kernel"),
+         ("den", r"row_den_kernel"),
+         ("score", r"refresh_compute_score_kernel"),
+         ("chunk", r"class_chunk_kernel"),
+         ("mix", r"class_mix_kernel"))
 
 
 def _launch_ms(call, reps: int = 5) -> dict:
@@ -75,7 +81,8 @@ def _launch_ms(call, reps: int = 5) -> dict:
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
-        kind = next((k for k, pat in PARTS if pat in ev.name), None)
+        kind = next((k for k, pat in PARTS if re.search(pat, ev.name)),
+                    None)
         if kind is None:
             other += ev.device_time_total / 1e3
         else:
@@ -122,6 +129,9 @@ def main(argv=None) -> int:
     p.add_argument("--shape", default="1000,50000,10")
     p.add_argument("--num-points", type=int, default=256)
     p.add_argument("--paths", default="single,rule")
+    p.add_argument("--warpgroups", default=None,
+                   help="comma-separated consumer warpgroup counts of the "
+                   "row block (1, 2; default: the rule's)")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -142,10 +152,6 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip()
     H, N, C = (int(x) for x in args.shape.split(","))
     G = args.num_points
-    tiles = -(-N // ek.ROW_ITEMS)
-    if tiles * -(-H // ek.ROW_MODELS) > MAX_BLOCKS:
-        print(f"N={N}, H={H} exceed the stamp buffers", file=sys.stderr)
-        return 2
     staged = ek._lib6(("K6_STAGES",))
     staged.eig_refresh_compute_stamps.argtypes = [ctypes.c_void_p,
                                                   ctypes.c_int]
@@ -172,68 +178,81 @@ def main(argv=None) -> int:
                          dtype=torch.int32)
     c = torch.tensor(ci, dtype=torch.int32, device=dev)
     plain_lib = ek._lib6
-    layout = ek.refresh_compute_layout(C, H, G)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"card: {smi}")
-    print(f"layout: {layout}")
-    paths = {"single": (1, False), "rule": (None, None)}
+    wgs = ([None] if args.warpgroups is None
+           else [int(x) for x in args.warpgroups.split(",")])
     for dtype in (torch.float32, torch.bfloat16):
         hyp = hyp32.to(dtype)
         first = None
-        for path in args.paths.split(","):
-            k, split = paths[path]
-            if k is None:
-                k = ek.choose_class_chunks(C, N, H, False, sms)
-                split = ek.choose_row_split(N, H, sms,
-                                            layout["blocks_per_sm"])
+        for nwg in wgs:
+            for path in args.paths.split(","):
+                rule = path == "rule"
+                k = ek.choose_class_chunks(C, N, H, False, sms) if rule else 1
+                layout, split = ek.row_plan(C, N, H, G, sms, nwg,
+                                            None if rule else False)
+                wg = layout["warpgroups"]
 
-            def call(cache):
-                return ek.eig_scores_refresh_compute(
-                    rows, cache, a_t, b_t, hard, c, pi, pi_xi,
-                    num_points=G, class_chunks=k, row_split=split)
+                def call(cache):
+                    return ek.eig_scores_refresh_compute(
+                        rows, cache, a_t, b_t, hard, c, pi, pi_xi,
+                        num_points=G, class_chunks=k, row_split=split,
+                        warpgroups=wg)
 
-            outs = []
-            try:
-                for use in (plain_lib, lambda *_: staged):
-                    ek._lib6 = use
-                    outs.append(call(hyp.clone()))
-            finally:
-                ek._lib6 = plain_lib
-            torch.cuda.synchronize()
-            first = first or outs[0]
-            same = all(torch.equal(o[0], first[0])
-                       and torch.equal(o[1], first[1]) for o in outs)
-            n_blocks = tiles * (-(-H // ek.ROW_MODELS) if split else 1)
-            st = np.zeros(n_blocks * STAMPS, np.int64)
-            rc = staged.eig_refresh_compute_stamps(
-                st.ctypes.data_as(ctypes.c_void_p), st.size)
-            if rc != 0 or not same:
-                print(f"instrumented kernel failed (rc {rc}, bitwise the "
-                      f"uninstrumented single path {same})", file=sys.stderr)
-                return 1
-            del outs
-            mean = st.reshape(n_blocks, STAMPS).mean(0)
-            waited, mean = mean[-1], mean[:-1]
-            work = hyp.clone()
-            ms = _launch_ms(lambda: call(work))
-            host, span = _wrapper_ms(lambda: call(work))
-            del work
-            name = str(dtype).removeprefix("torch.")
-            print(f"{name} cache, (H, N, C) = ({H}, {N}, {C}), G={G}, path "
-                  f"{path} ({k} class chunk(s), row split "
-                  f"{'on' if split else 'off'}): row launch mean SM cycles "
-                  f"per block of {ek.ROW_ITEMS} items by stage "
-                  + ", ".join(
-                      f"{i} {s}: {m:.0f} ({m / mean.sum():.3f})"
-                      for i, (s, m) in enumerate(zip(STAGES, mean)))
-                  + f"; {n_blocks} blocks; of S and the products "
-                  f"{waited:.0f} ({waited / mean[[1, 3]].sum():.3f}) "
-                  "waiting for the ring's copies; device ms "
-                  "(torch.profiler) "
-                  + (", ".join(f"{n} {v:.4f}" for n, v in ms.items())
-                     or "not measured")
-                  + f"; the wrapper call {span:.4f} ms between CUDA events, "
-                  f"{host:.4f} ms of host time to enqueue it", flush=True)
+                n_blocks = ek.row_blocks(N, H, split, sms,
+                                         layout["blocks_per_sm"],
+                                         layout["items_per_block"])
+                if n_blocks > MAX_BLOCKS:
+                    print(f"{n_blocks} blocks exceed the stamp buffers",
+                          file=sys.stderr)
+                    return 2
+                outs = []
+                try:
+                    for use in (plain_lib, lambda *_: staged):
+                        ek._lib6 = use
+                        outs.append(call(hyp.clone()))
+                finally:
+                    ek._lib6 = plain_lib
+                torch.cuda.synchronize()
+                first = first or outs[0]
+                same = all(torch.equal(o[0], first[0])
+                           and torch.equal(o[1], first[1]) for o in outs)
+                st = np.zeros(n_blocks * STAMPS, np.int64)
+                rc = staged.eig_refresh_compute_stamps(
+                    st.ctypes.data_as(ctypes.c_void_p), st.size)
+                if rc != 0 or not same:
+                    print(f"instrumented kernel failed (rc {rc}, bitwise "
+                          f"the uninstrumented first path {same})",
+                          file=sys.stderr)
+                    return 1
+                del outs
+                st = st.reshape(n_blocks, STAMPS)
+                per_item = st[:, :-1].sum(0) / max(1, st[:, -1].sum())
+                stage, waits = per_item[:len(STAGES)], per_item[len(STAGES):]
+                work = hyp.clone()
+                ms = _launch_ms(lambda: call(work))
+                host, span = _wrapper_ms(lambda: call(work))
+                del work
+                name = str(dtype).removeprefix("torch.")
+                print(f"{name} cache, (H, N, C) = ({H}, {N}, {C}), G={G}, "
+                      f"path {path} ({k} class chunk(s), row split "
+                      f"{'on' if split else 'off'}), {layout['ring_stages']}"
+                      f" ring stages, {layout['warpgroups']} consumer "
+                      f"warpgroup(s), {n_blocks} persistent row blocks "
+                      f"({layout['blocks_per_sm']} an SM): mean SM cycles "
+                      f"per work item of {layout['items_per_block']} items by "
+                      "stage "
+                      + ", ".join(
+                          f"{i} {s}: {m:.0f} ({m / stage.sum():.3f})"
+                          for i, (s, m) in enumerate(zip(STAGES, stage)))
+                      + f"; consumers waiting for full stages "
+                      f"{waits[0]:.0f}, producer waiting for free slots "
+                      f"{waits[1]:.0f}; device ms (torch.profiler) "
+                      + (", ".join(f"{n} {v:.4f}" for n, v in ms.items())
+                         or "not measured")
+                      + f"; the wrapper call {span:.4f} ms between CUDA "
+                      f"events, {host:.4f} ms of host time to enqueue it",
+                      flush=True)
         del hyp, first
     return 0
 

@@ -19,8 +19,19 @@ imagenet_sparse pool's (C, N, H) = (1000, 256, 500) (keys ending
 ``@1000,256,500``; kernel 6's class row refreshed from the Beta marginals
 of random 10-entry Dirichlet rows), and kernels 4 and 5 at 5 replicas of
 it (keys ending ``@5x1000,256,500``), on the decompositions the
-checkout's wrappers take there; beside them the registers ``ptxas``
-reports for each library and the card's name and power limit.
+checkout's wrappers take there; then kernel 6 in fp32 and bf16 (exact
+entropy) at the item axes between the pool and the headline, ``MID``
+(C = 10, H = 1000, N from 2048 to 24000, and digits_h80's (10, 1797,
+80)), with ``k6_parts`` and ``dev_ms`` as at the pool; beside them the registers ``ptxas``
+reports for each library and the card's name and power limit. For kernel
+6 in every flavour at both shapes, ``k6_parts`` holds each of its launches'
+device ms (``torch.profiler``, 10 calls, each kernel's median launch
+times its launches a call, by the kernel's name; launches that run
+concurrently each count their own time). At the
+pool's short item axis a call's span between CUDA events is bound by the
+host's enqueue and varies from run to run, so ``dev_ms`` holds, for every
+entry at the pool, the device ms of its kernels' launches a call (the
+same profile, PyTorch's own kernels left out).
 Two checkouts are compared in one call, in turns (parent, change, change,
 parent), each in its own process. Needs a CUDA device.
 """
@@ -38,6 +49,9 @@ import sys
 REPS = 50
 SEEDS = 5
 POOL = (1000, 256, 500)   # (C, N, H): scripts/imagenet_sparse.py's pool
+MID = ((10, 2048, 1000), (10, 4096, 1000), (10, 8192, 1000),
+       (10, 12000, 1000), (10, 16000, 1000), (10, 24000, 1000),
+       (10, 1797, 80))
 
 
 def _median_ms(fn) -> float:
@@ -56,6 +70,38 @@ def _median_ms(fn) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _kernel_name(name: str) -> str:
+    """A device kernel's short name: its function and, for the class
+    split's first launch, its template arguments (the scoring part)."""
+    base = re.sub(r"^void |\(anonymous namespace\)::|eig::", "", name)
+    base = base.split("(")[0]
+    return base if base.startswith("class_chunk") else base.split("<")[0]
+
+
+def _parts_ms(fn, reps: int = 10) -> dict:
+    """Device ms of each kernel a call of ``fn`` launches: the median of
+    its launches' device times over ``reps`` calls, times its launches a
+    call (one slow launch does not move it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per: dict = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            per.setdefault(_kernel_name(ev.name), []).append(
+                ev.device_time_total / 1e3)
+    return {k: statistics.median(v) * len(v) / reps
+            for k, v in sorted(per.items())}
 
 
 def main(argv=None) -> int:
@@ -93,7 +139,11 @@ def main(argv=None) -> int:
         return x / x.sum(-1, keepdim=True)
 
     out = {"root": os.path.abspath(args.root), "card": smi,
-           "registers": regs, "ms": {}}
+           "registers": regs, "ms": {}, "k6_parts": {}, "dev_ms": {}}
+
+    def own(parts: dict) -> float:
+        return sum(v for k, v in parts.items() if not k.startswith(
+            ("at::", "Memcpy", "lgamma", "void at::")))
     # the gather first, on a fresh allocator in both checkouts
     pbc = torch.rand((C, H, N), generator=gen, device=dev)
     s = torch.randint(0, C, (S, H), generator=gen, device=dev,
@@ -141,10 +191,14 @@ def main(argv=None) -> int:
         r6 = r1.clone()
         r6[0] = compute_pbest(a_t, b_t)
         for approx in (False, True):
-            out["ms"][ek.flavour("eig_refresh_compute_score", dtype,
-                                 approx)] = _median_ms(
-                lambda: ek.eig_scores_refresh_compute(
-                    r6, h1, a_t, b_t, hard, c1, p1, px1, approx=approx))
+            name6 = ek.flavour("eig_refresh_compute_score", dtype, approx)
+
+            def k6():
+                return ek.eig_scores_refresh_compute(
+                    r6, h1, a_t, b_t, hard, c1, p1, px1, approx=approx)
+
+            out["ms"][name6] = _median_ms(k6)
+            out["k6_parts"][name6] = _parts_ms(k6)
             out["ms"][ek.flavour("eig_score", dtype, approx)] = _median_ms(
                 lambda: ek.eig_scores_cache(r1, h1, p1, px1, approx=approx))
             out["ms"][ek.flavour("eig_refresh_score", dtype, approx)] = \
@@ -182,17 +236,32 @@ def main(argv=None) -> int:
     for dtype in (torch.float32, torch.bfloat16):
         hyp = hyp32.to(dtype)
         for approx in (False, True):
-            out["ms"][ek.flavour("eig_score", dtype, approx) + tag] = \
-                _median_ms(lambda: ek.eig_scores_cache(rows, hyp, pi, pi_xi,
-                                                       approx=approx))
-            out["ms"][ek.flavour("eig_refresh_score", dtype, approx)
-                      + tag] = _median_ms(lambda: ek.eig_scores_refresh(
-                          rows, hyp, hyp_t, cp, pi, pi_xi, approx=approx))
-            out["ms"][ek.flavour("eig_refresh_compute_score", dtype, approx)
-                      + tag] = _median_ms(
-                lambda: ek.eig_scores_refresh_compute(
+            k1 = ek.flavour("eig_score", dtype, approx) + tag
+            k2 = ek.flavour("eig_refresh_score", dtype, approx) + tag
+
+            def f1():
+                return ek.eig_scores_cache(rows, hyp, pi, pi_xi,
+                                           approx=approx)
+
+            def f2():
+                return ek.eig_scores_refresh(rows, hyp, hyp_t, cp, pi, pi_xi,
+                                             approx=approx)
+
+            out["ms"][k1] = _median_ms(f1)
+            out["dev_ms"][k1] = own(_parts_ms(f1))
+            out["ms"][k2] = _median_ms(f2)
+            out["dev_ms"][k2] = own(_parts_ms(f2))
+            name6 = ek.flavour("eig_refresh_compute_score", dtype,
+                               approx) + tag
+
+            def k6():
+                return ek.eig_scores_refresh_compute(
                     rows6, hyp, a_p, b_p, hard, cp, pi, pi_xi,
-                    approx=approx))
+                    approx=approx)
+
+            out["ms"][name6] = _median_ms(k6)
+            out["k6_parts"][name6] = _parts_ms(k6)
+            out["dev_ms"][name6] = own(out["k6_parts"][name6])
         del hyp
     del rows, rows6, hyp32, pi_xi, hyp_t, pi, hard
     torch.cuda.empty_cache()
@@ -207,14 +276,52 @@ def main(argv=None) -> int:
     for dtype in (torch.float32, torch.bfloat16):
         hyp = hyp32.to(dtype)
         for approx in (False, True):
-            out["ms"][ek.flavour("eig_score_batched", dtype, approx)
-                      + tag] = _median_ms(lambda: ek.eig_scores_cache_batched(
-                          rows, hyp, pi, pi_xi, approx=approx))
-            out["ms"][ek.flavour("eig_refresh_score_batched", dtype, approx)
-                      + tag] = _median_ms(
-                lambda: ek.eig_scores_refresh_batched(
-                    rows, hyp, hyp_t, cls, pi, pi_xi, approx=approx))
+            k4 = ek.flavour("eig_score_batched", dtype, approx) + tag
+            k5 = ek.flavour("eig_refresh_score_batched", dtype, approx) + tag
+
+            def f4():
+                return ek.eig_scores_cache_batched(rows, hyp, pi, pi_xi,
+                                                   approx=approx)
+
+            def f5():
+                return ek.eig_scores_refresh_batched(rows, hyp, hyp_t, cls,
+                                                     pi, pi_xi, approx=approx)
+
+            out["ms"][k4] = _median_ms(f4)
+            out["dev_ms"][k4] = own(_parts_ms(f4))
+            out["ms"][k5] = _median_ms(f5)
+            out["dev_ms"][k5] = own(_parts_ms(f5))
         del hyp
+    del rows, hyp32, pi_xi, hyp_t, pi
+    torch.cuda.empty_cache()
+    for Cm, Nm, Hm in MID:
+        rows, hyp32, pi_xi = simplex(Cm, Hm), simplex(Cm, Nm, Hm), \
+            simplex(Nm, Cm)
+        pi = pi_xi.mean(0)
+        pi = pi / pi.sum()
+        cm = torch.tensor(Cm // 2, dtype=torch.int32, device=dev)
+        d = torch.rand((Hm, 10), generator=gen, device=dev) * 3 + 0.5
+        a_m = d[:, 0].contiguous()
+        b_m = (d.sum(-1) - a_m).contiguous()
+        rows[Cm // 2] = compute_pbest(a_m, b_m)
+        hard = torch.randint(0, Cm, (Nm, Hm), generator=gen, device=dev,
+                             dtype=torch.int32)
+        tag = "@" + ",".join(map(str, (Cm, Nm, Hm)))
+        for dtype in (torch.float32, torch.bfloat16):
+            hyp = hyp32.to(dtype)
+            name6 = ek.flavour("eig_refresh_compute_score", dtype,
+                               False) + tag
+
+            def k6():
+                return ek.eig_scores_refresh_compute(
+                    rows, hyp, a_m, b_m, hard, cm, pi, pi_xi)
+
+            out["ms"][name6] = _median_ms(k6)
+            out["k6_parts"][name6] = _parts_ms(k6)
+            out["dev_ms"][name6] = own(out["k6_parts"][name6])
+            del hyp
+        del rows, hyp32, pi_xi, pi, hard
+        torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
 

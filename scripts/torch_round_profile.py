@@ -60,11 +60,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def _group(name: str) -> str:
     n = name.lower()
-    # kernel 6's row and scoring launches, the row split's sum and the
-    # class split's chunk launch with FRESH = 2 (its third template
-    # argument; the mixture launch is counted with kernels 1 and 2's)
-    if "refresh_compute" in n or "row_den_kernel" in n or re.search(
-            r"class_chunk_kernel<[^,]+,\s*\d+,\s*2\b", n):
+    # kernel 6's table split, S, row and scoring launches, the row split's
+    # sum and the class split's chunk launch with FRESH = 2 (its third
+    # template argument; the mixture launch is counted with kernels 1 and
+    # 2's)
+    if ("refresh_compute" in n or "row_den_kernel" in n
+            or "refresh_s_kernel" in n or "split_tables_kernel" in n
+            or re.search(r"class_chunk_kernel<[^,]+,\s*\d+,\s*2\b", n)):
         return "kernel: eig_refresh_compute (csrc/eig_refresh_compute.cu)"
     if "score_kernel" in n or "class_chunk_kernel" in n \
             or "class_mix_kernel" in n:   # kernels 1 and 2 split

@@ -26,12 +26,28 @@ the checkout's exact-entropy rows a warp (``eig::kExactRows`` in
 ``csrc/eig_common.cuh``; 1 where the header has none: one row a warp).
 Needs the CUDA toolkit (``nvcc``, ``cuobjdump``); the card only for its
 clock (``--clock-mhz`` otherwise).
+
+    python scripts/torch_sass_count.py --k6 [--root DIR ...]
+
+instead builds ``csrc/eig_refresh_compute.cu`` (kernel 6) and prints, for
+each instantiation of its row kernel (``refresh_compute_rows_kernel``),
+the counts of the tensor-core and copy opcodes in its SASS: HGMMA
+(``wgmma``), HMMA (``mma.sync``), UTMALDG (a TMA tile load), LDGSTS
+(``cp.async``) and SYNCS (``mbarrier``), beside its instruction count.
+
+    python scripts/torch_sass_count.py --same eig_score --root A --root B
+
+builds ``csrc/eig_score.cu`` in both checkouts and says whether their
+kernels' SASS is the same: each function's instructions (predicates,
+opcodes and operands, symbol names left out) hashed, the two sets of
+hashes compared; functions found in one only are listed.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import os
 import re
@@ -176,6 +192,74 @@ def count(root: str, clock_mhz: float | None, sass_dir: str | None) -> dict:
     return res
 
 
+K6_OPCODES = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "SYNCS")
+
+
+def count_k6(root: str, sass_dir: str | None) -> dict:
+    """Kernel 6's row kernels: opcode counts (see the module docstring)."""
+    root = os.path.abspath(root)
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from coda_tpu_torch.ops import build; "
+            "build.build_all(('eig_refresh_compute',)); "
+            "print(build.library_path('eig_refresh_compute'))")
+    lib = subprocess.run([sys.executable, "-c", code, root], check=True,
+                         capture_output=True, text=True).stdout.split()[-1]
+    sass = subprocess.run([cuobjdump_path(), "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    if sass_dir:
+        os.makedirs(sass_dir, exist_ok=True)
+        tag = os.path.basename(root.rstrip("/")) or "root"
+        with open(os.path.join(sass_dir, f"eig_refresh_compute-{tag}.sass"),
+                  "w") as f:
+            f.write(sass)
+    res = {"root": root, "row_kernels": {}}
+    for name, insns in functions(sass).items():
+        if "refresh_compute_rows_kernel" not in name:
+            continue
+        ops = collections.Counter(i[2].split(".")[0] for i in insns
+                                  if not i[2].startswith("NOP"))
+        res["row_kernels"][name] = {
+            "instructions": sum(ops.values()),
+            **{op: ops.get(op, 0) for op in K6_OPCODES}}
+    if not res["row_kernels"]:
+        raise RuntimeError("no refresh_compute_rows_kernel in the library")
+    return res
+
+
+def _library(root: str, name: str) -> str:
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from coda_tpu_torch.ops import build; "
+            f"build.build_all(({name!r},)); "
+            f"print(build.library_path({name!r}))")
+    return subprocess.run([sys.executable, "-c", code, root], check=True,
+                          capture_output=True, text=True).stdout.split()[-1]
+
+
+def same_sass(roots: list, name: str) -> dict:
+    """Whether ``csrc/<name>.cu`` compiles to the same kernels in each
+    checkout (see the module docstring)."""
+    bodies = []
+    for root in roots:
+        sass = subprocess.run(
+            [cuobjdump_path(), "-sass", _library(os.path.abspath(root), name)],
+            check=True, capture_output=True, text=True).stdout
+        per = {}
+        for fn, insns in functions(sass).items():
+            text = "\n".join(
+                f"{pred} {op} {re.sub(r'_Z[\w.$]+', '#', ops)}"
+                for _, pred, op, ops in insns if not op.startswith("NOP"))
+            per[fn] = hashlib.sha1(text.encode()).hexdigest()
+        bodies.append(per)
+    a, b = bodies[0], bodies[1]
+    only_a = sorted(set(a.values()) - set(b.values()))
+    only_b = sorted(set(b.values()) - set(a.values()))
+    return {"library": name, "roots": [os.path.abspath(r) for r in roots],
+            "functions": [len(a), len(b)],
+            "same": not only_a and not only_b,
+            "only_in_first": [f for f, h in a.items() if h in only_a],
+            "only_in_second": [f for f, h in b.items() if h in only_b]}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", action="append",
@@ -185,9 +269,23 @@ def main(argv=None) -> int:
                         "card's largest, from nvidia-smi)")
     p.add_argument("--sass-dir", default=None,
                    help="also write each checkout's disassembly here")
+    p.add_argument("--k6", action="store_true",
+                   help="count kernel 6's row-kernel opcodes instead")
+    p.add_argument("--same", default=None, metavar="LIBRARY",
+                   help="say whether two checkouts' csrc/LIBRARY.cu compile "
+                        "to the same kernels")
     args = p.parse_args(argv)
     roots = args.root or [os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))]
+    if args.same:
+        if len(roots) != 2:
+            p.error("--same takes two --root checkouts")
+        print(json.dumps(same_sass(roots, args.same)))
+        return 0
+    if args.k6:
+        for root in roots:
+            print(json.dumps(count_k6(root, args.sass_dir)))
+        return 0
     clock = args.clock_mhz or card_clock_mhz()
     for root in roots:
         print(json.dumps(count(root, clock, args.sass_dir)))

@@ -7,7 +7,8 @@ over cache blocks, to set the split rule's crossover
 
     python scripts/torch_split_sweep.py [--blocks C,N,H;C,N,H...]
         [--flavours float32,bfloat16,float32:approx,bfloat16:approx]
-        [--seeds S | --k6] [--reps 20] [--chunks K,K...] [--out sweep.json]
+        [--seeds S | --k6 [--warpgroups 1,2]] [--reps 20] [--chunks K,K...]
+        [--out sweep.json]
 
 For each ``(C, N, H)`` block (default: the ranks' blocks that
 ``chip_smoke.py`` phase 15 times, the imagenet_sparse pool's data=2 rank
@@ -33,13 +34,16 @@ batched launch is also held bitwise to kernels 1 and 2 launched per
 replica. With ``--k6`` the kernel is kernel 6 (``eig_scores_refresh_compute``,
 G = 256, its class row refreshed from random Beta tables and hard
 predictions): at each chunk count of the ladder, with its row launch's
-model-chunk split off and on (``row_split``), the scores and the whole
-refreshed cache are held bitwise to the single path's (one chunk, no row
-split), the wrapper call is timed with CUDA events (``k6_ms``, keyed
-``"<chunks>/<row split 0 or 1>"``) and each launch alone from
-``torch.profiler`` (``k6_rows_ms``: the row launch and the row split's sum
-launch; ``k6_score_ms``: the scoring launch or the split's two; the mean
-of ``--reps`` calls in one window), beside the bound of the whole function
+model-chunk split off and on (``row_split``) and at each consumer
+warpgroup count of ``--warpgroups`` (``warpgroups``; default: the rule's),
+the scores and the whole refreshed cache are held bitwise to the single
+path's (one chunk, no row split, the first warpgroup count), the wrapper
+call is timed with CUDA events (``k6_ms``, keyed ``"<chunks>/<row split 0
+or 1>"``, then ``"/<warpgroups>"`` where ``--warpgroups`` is given) and
+each launch alone from ``torch.profiler`` (``k6_rows_ms``: the tables'
+split, the S launch, the row launch and the row split's sum launch;
+``k6_score_ms``: the scoring launch or the split's two; the mean of
+``--reps`` calls in one window), beside the bound of the whole function
 (``costs.kernel_work``), the rules' choices and the wrapper's other device
 work (``k6_other_ms``). Needs a CUDA device.
 """
@@ -125,7 +129,8 @@ def _kernel_ms(ek, rows, hyp, pi, pi_xi, hyp_t, c, approx, k,
 
 # kernel 6's launches by a pattern of their demangled names: the row launch
 # (and the row split's sum), the scoring launch (single, or the split's two)
-K6_PARTS = (("rows", ("refresh_compute_rows_kernel", "row_den_kernel")),
+K6_PARTS = (("rows", ("split_tables_kernel", "refresh_s_kernel",
+                      "refresh_compute_rows_kernel", "row_den_kernel")),
             ("score", ("refresh_compute_score_kernel", "class_chunk_kernel",
                        "class_mix_kernel")))
 
@@ -185,20 +190,23 @@ def _sweep_k6(args, blocks, gen, peaks, sms, bad) -> list:
                              dtype=torch.int32)
         c = torch.tensor(ci, dtype=torch.int32, device=dev)
         nnz = int((hard == ci).sum())
-        blocks_per_sm = ek.refresh_compute_layout(C, H, G)["blocks_per_sm"]
+        layout, row_rule = ek.row_plan(C, N, H, G, sms)
+        wgs = ([None] if args.warpgroups is None
+               else [int(x) for x in args.warpgroups.split(",")])
         for fl in args.flavours.split(","):
             dname, _, tag = fl.partition(":")
             dtype, approx = getattr(torch, dname), tag == "approx"
             hyp = hyp32.to(dtype)
             rule = ek.choose_class_chunks(C, N, H, approx, sms)
 
-            def call(k, rs, cache):
+            def call(k, rs, cache, wg=None):
                 return ek.eig_scores_refresh_compute(
                     rows, cache, a_t, b_t, hard, c, pi, pi_xi, num_points=G,
-                    approx=approx, class_chunks=k, row_split=rs)
+                    approx=approx, class_chunks=k, row_split=rs,
+                    warpgroups=wg)
 
             ref = hyp.clone()
-            one = call(1, False, ref)[0]
+            one = call(1, False, ref, wgs[0])[0]
             nb, ops, tops = costs.kernel_work(
                 "eig_refresh_compute_score", C, N, H, hyp.element_size(),
                 G=G, nnz=nnz)
@@ -206,31 +214,31 @@ def _sweep_k6(args, blocks, gen, peaks, sms, bad) -> list:
                    "path": ("vector" if ek._vec(H, hyp, rows) > 1
                             else "scalar"),
                    "rule_chunks": rule,
-                   "rule_row_split": ek.choose_row_split(N, H, sms,
-                                                         blocks_per_sm),
+                   "rule_row_split": row_rule,
+                   "rule_warpgroups": layout["warpgroups"],
                    "k6_bound_ms": costs.bound_ms(nb, ops, peaks, tops)[0],
                    "k6_ms": {}, "k6_rows_ms": {}, "k6_score_ms": {},
                    "k6_other_ms": {}}
             ladder = _ladder(C, rule) if args.chunks is None else sorted(
                 {1, rule} | {min(C, int(x)) for x in args.chunks.split(",")})
             work = hyp.clone()
-            for k in ladder:
-                for rs in (False, True):
-                    got_hyp = hyp.clone()
-                    got = call(k, rs, got_hyp)[0]
-                    torch.cuda.synchronize()
-                    if not (torch.equal(got, one)
-                            and torch.equal(got_hyp, ref)):
-                        bad.append((C, N, H, fl, k, rs))
-                    del got_hyp
-                    key = f"{k}/{int(rs)}"
-                    rec["k6_ms"][key] = _median_ms(
-                        lambda: call(k, rs, work), args.reps)
-                    parts = _k6_parts_ms(lambda: call(k, rs, work),
-                                         args.reps)
-                    rec["k6_rows_ms"][key] = parts["rows"]
-                    rec["k6_score_ms"][key] = parts["score"]
-                    rec["k6_other_ms"][key] = parts["other"]
+            for k, rs, wg in ((k, rs, wg) for k in ladder
+                              for rs in (False, True) for wg in wgs):
+                got_hyp = hyp.clone()
+                got = call(k, rs, got_hyp, wg)[0]
+                torch.cuda.synchronize()
+                if not (torch.equal(got, one)
+                        and torch.equal(got_hyp, ref)):
+                    bad.append((C, N, H, fl, k, rs, wg))
+                del got_hyp
+                key = f"{k}/{int(rs)}" + ("" if wg is None else f"/{wg}")
+                rec["k6_ms"][key] = _median_ms(
+                    lambda: call(k, rs, work, wg), args.reps)
+                parts = _k6_parts_ms(lambda: call(k, rs, work, wg),
+                                     args.reps)
+                rec["k6_rows_ms"][key] = parts["rows"]
+                rec["k6_score_ms"][key] = parts["score"]
+                rec["k6_other_ms"][key] = parts["other"]
             rec["k6_best"] = min(rec["k6_ms"], key=rec["k6_ms"].get)
             out.append(rec)
             print(json.dumps(rec), flush=True)
@@ -258,6 +266,10 @@ def main(argv=None) -> int:
                    help="replicas: S > 1 sweeps kernels 4 and 5")
     p.add_argument("--k6", action="store_true",
                    help="sweep kernel 6 (one replica)")
+    p.add_argument("--warpgroups", default=None,
+                   help="with --k6: comma-separated consumer warpgroup "
+                        "counts (1, 2) of the row launch (default: the "
+                        "rule's)")
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--chunks", default=None,
                    help="comma-separated chunk counts (default: 1, the "

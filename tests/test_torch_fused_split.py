@@ -170,16 +170,19 @@ def test_cpu_takes_the_plain_version_at_any_count(k, rs):
     (1000, 128, 500, False, 1000, True),
     # DomainNet126's classes at a small domain's N = 2048 (32 x 4 blocks)
     (126, 2048, 500, False, 126, True),
-    # the headline and a data=2 rank's block: both launches as they are
+    # the headline: both launches as they are (391 tiles x 8 chunks take
+    # 24 rounds of 132 blocks, as 8 chunks of 3 tiles a block do); a
+    # data=2 rank's block: the row launch splits (196 x 8 in 12 rounds
+    # against 16)
     (10, 50_000, 1000, False, 1, False),
     (10, 50_000, 1000, True, 1, False),
-    (10, 25_000, 1000, False, 1, False),
+    (10, 25_000, 1000, False, 1, True),
     # the headline's widths at short item axes: the scoring launch splits
-    # below 32 items an SM, the row launch only while its 8 model chunks
-    # a tile fit one wave (32 x 8 = 256 blocks of 264; 64 x 8 do not)
+    # below 32 items an SM, the row launch wherever its 8 model chunks
+    # take fewer rounds split (16, 32, 64 tiles: 1, 2, 4 rounds against 8)
     (10, 2048, 1000, False, 10, True),
-    (10, 4096, 1000, False, 10, False),
-    (10, 8192, 1000, False, 1, False),
+    (10, 4096, 1000, False, 10, True),
+    (10, 8192, 1000, False, 1, True),
     # one model chunk: nothing to split over the grid
     (1000, 256, 128, False, 1000, False),
     # digits_h80: a warp's walk over its 10 classes is short
@@ -188,22 +191,29 @@ def test_cpu_takes_the_plain_version_at_any_count(k, rs):
 def test_rules_pick_the_decompositions(C_, N_, H_, approx, chunks, rows):
     """Kernel 6's scoring launch takes kernels 1 and 2's class-chunk rule
     unchanged; its row launch splits where H spans more than one model
-    chunk and the split's blocks fit one wave of two blocks an SM."""
+    chunk and its (128-item tile, chunk) work items, at 1.2 times a round,
+    take fewer rounds of one block an SM than the single path's tiles."""
     assert ek.choose_class_chunks(C_, N_, H_, approx, H100_SMS) == chunks
     assert ek.choose_row_split(N_, H_, H100_SMS) is rows
 
 
 def test_row_rule_is_one_wave_of_the_split_blocks():
-    wave = ek.ROW_BLOCKS_PER_SM * H100_SMS       # 264 blocks at once
-    # 66 item tiles x 4 model chunks (H = 500) fill the wave exactly
-    full = wave // 4 * ek.ROW_ITEMS
+    """The persistent row grid (132 blocks, one an SM): 99 tiles of 128
+    items x 4 model chunks (H = 500) take 3 rounds split, 3 x 1.2 < 4
+    single; a 100th tile takes a 4th round, no faster than the single
+    path's 4 chunks of one tile a block."""
+    full = 99 * 2 * ek.ROW_ITEMS
+    assert ek.ROW_BLOCKS_PER_SM == 1
     assert ek.choose_row_split(full, 500, H100_SMS)
-    assert not ek.choose_row_split(full + 1, 500, H100_SMS)  # a 67th tile
+    assert not ek.choose_row_split(full + 1, 500, H100_SMS)  # a 100th tile
     assert not ek.choose_row_split(64, ek.ROW_MODELS, H100_SMS)
     assert ek.choose_row_split(64, ek.ROW_MODELS + 1, H100_SMS)
-    # a card that holds one block an SM fills at half the blocks
-    assert not ek.choose_row_split(full, 500, H100_SMS, 1)
-    assert ek.choose_row_split(full // 2, 500, H100_SMS, 1)
+    # a card that holds two blocks an SM takes twice the tiles a round
+    assert ek.choose_row_split(2 * full, 500, H100_SMS, 2)
+    assert not ek.choose_row_split(2 * full + 1, 500, H100_SMS, 2)
+    # tiles of one warpgroup's 64 items count twice the work items
+    assert not ek.choose_row_split(full + 1, 500, H100_SMS, 2,
+                                   ek.ROW_ITEMS)
 
 
 # -- on the card --------------------------------------------------------------
