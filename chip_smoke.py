@@ -18,12 +18,13 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    shape (C, N, H) = (10, 50000, 1000) and at a ragged N = 50001, printing
    the largest error against the stated tolerance and, at the headline,
    the median time of 20 launches (CUDA events, after warm-up), the plain
-   version's time, the
+   version's time (the median of 3 calls after one), the
    least time the card could take (bytes or operations over the card's
    peak rates) and, for the gather, the time of the PyTorch indexing
    expression that computes the same sum. Kernel 6 (the fused
    refresh-compute-score) also shows its row against the plain one, logs
-   its tiling and shared memory, and runs once more at H = 4000 models
+   its tiling and shared memory (each of its launches' device ms is
+   ``scripts/torch_kernel_times.py``'s ``k6_parts``), and runs once more at H = 4000 models
    (past its first design's shared-memory limit); its bound counts its
    products at the tensor cores' TF32 rate, as it runs them. The
    seed-batched kernels 4 and 5 and kernel 3 with a replica axis run at
@@ -48,6 +49,21 @@ CUDA toolkit. It imports nothing of JAX or of the ``coda_tpu`` package and:
    rounds and the other three flavours for 5, each of which must have
    launched kernel 4 once and kernel 5 and the batched kernel 3 once a
    round, and nothing else;
+   Then the "demo" phase (``coda_tpu_torch/demo/app.py``, the
+   human-in-the-loop app, over real HTTP on an ephemeral port): the
+   default factory (the committed ``data/digits_clip.npz`` with
+   ``demo/digit_images``) for a start, 8 honest answers, a skip and an
+   image fetch (the committed PNG's bytes), then one session at the
+   headline for a start, 10 answers and a skip. Each run has the counters
+   set to 0 just before and read just after: kernel 1 once, kernels 2 and
+   3 once an answer, nothing else (added to the JSON line's). Each is held
+   bitwise (item, selection probability, P(best)) against the same moves
+   through an ``InteractiveSelector`` on the card, and against a session
+   on the plain versions on the card (``eig_backend='plain'``): the same
+   item at every step, or first a ``tie-break-flip`` whose runner-up gap
+   is at most 2.34e-4, P(best) within 2.34e-4 until then. It prints a
+   click's host ms (the HTTP round trip) at the headline, p50 and max,
+   beside the card's name and power limit;
 4. runs ``data/digits_h80.npz`` for 30 rounds on the kernel path and on the
    plain path, precomputed and fused, and requires identical trajectories;
    runs it for 100 rounds fused and precomputed on the kernels and requires
@@ -416,6 +432,10 @@ RAGGED_N = 50_001
 SEEDS = 5                            # replicas of the batched kernels and
 #                                      engine: the CLI's default --seeds
 REPS = 20
+# the plain versions' timing (their plain_ms in the JSON line): 3 calls
+# after 1 warm-up; each is a chain of PyTorch calls of 14-235 ms, so the
+# median of 3 settles it (5 after 3 before; the kernels keep REPS)
+PLAIN = {"reps": 3, "warmup": 1}
 SCORE_RTOL = 1e-4
 
 
@@ -559,7 +579,7 @@ def _k12(dev, peaks, recs, N, dtype, approx, rows, hyp32, pi, pi_xi, hyp_t):
         ms = time_ms(lambda: ek.eig_scores_cache(rows, hyp, pi, pi_xi,
                                                  approx=approx))
         plain = time_ms(lambda: ek.eig_scores_from_cache(
-            rows, hyp, pi, pi_xi, chunk=1024, approx=approx), reps=5)
+            rows, hyp, pi, pi_xi, chunk=1024, approx=approx), **PLAIN)
         r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                  library_ms=None)
         times = f" ms={ms:.4f} plain_ms={plain:.4f}"
@@ -597,7 +617,7 @@ def _k12(dev, peaks, recs, N, dtype, approx, rows, hyp32, pi, pi_xi, hyp_t):
                                                    pi_xi, approx=approx))
         plain = time_ms(lambda: ek.eig_scores_refresh_plain(
             rows, hyp_k, hyp_t, c, pi, pi_xi, chunk=1024, approx=approx),
-            reps=5)
+            **PLAIN)
         r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                  library_ms=None)
         times = f" ms={ms:.4f} plain_ms={plain:.4f}"
@@ -708,7 +728,7 @@ def _k6(dev, peaks, recs, N, gen, rows0, hyp32, pi, pi_xi):
             ms = time_ms(lambda: ek.eig_scores_refresh_compute(
                 rows, hyp_k, *args, approx=approx))
             plain = time_ms(lambda: ek.eig_scores_refresh_compute_plain(
-                rows, hyp_k, *args, approx=approx, chunk=1024), reps=5)
+                rows, hyp_k, *args, approx=approx, chunk=1024), **PLAIN)
             r.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
                      library_ms=None)
             times = f" ms={ms:.4f} plain_ms={plain:.4f}"
@@ -717,58 +737,7 @@ def _k6(dev, peaks, recs, N, gen, rows0, hyp32, pi, pi_xi):
             f"untouched{times} bound_ms={b_ms:.4f} ({by}; eq nonzeros "
             f"{nnz} of {N * H})")
         del hyp, hyp_k
-    if headline:
-        _k6_parts(rows, hyp32, args)
     del hard
-
-
-def _launch_parts(fn, reps: int = 5) -> dict:
-    """Device ms a call of ``fn`` spends in each kernel it launches: the
-    mean over ``reps`` calls (``torch.profiler``), by the kernel's short
-    name."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per: dict = {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        name = re.sub(r"^void |\(anonymous namespace\)::|eig::", "",
-                      ev.name).split("(")[0].split("<")[0]
-        per[name] = per.get(name, 0.0) + ev.device_time_total / 1e3 / reps
-    return per
-
-
-def _k6_parts(rows, hyp32, args):
-    """Kernel 6 at the headline (fp32 and bf16 cache): the device ms of
-    each of its launches (the tables' split, S, the row launch, the
-    scoring) on the path the rules pick."""
-    import torch
-
-    from coda_tpu_torch.ops import eig_kernels as ek
-
-    for tdt in (torch.float32, torch.bfloat16):
-        name = ek.flavour("eig_refresh_compute_score", tdt, False)
-        hyp = hyp32.to(tdt, copy=True)
-        parts = _launch_parts(lambda: ek.eig_scores_refresh_compute(
-            rows, hyp, *args))
-        ms = {"split": parts.get("split_tables_kernel", 0.0),
-              "S": parts.get("refresh_s_kernel", 0.0),
-              "rows": parts.get("refresh_compute_rows_kernel", 0.0),
-              "scoring": sum(parts.get(k, 0.0) for k in (
-                  "refresh_compute_score_kernel", "class_chunk_kernel",
-                  "class_mix_kernel"))}
-        log(f"kernel {name} launches: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
-            + " device ms (torch.profiler, 5 calls)")
-        del hyp
 
 
 WIDE_H = 4000   # past the first kernel 6's shared-memory limit (~3,300)
@@ -876,7 +845,7 @@ def _k45(dev, peaks, recs, N, gen):
             ms = time_ms(lambda: ek.eig_scores_cache_batched(
                 rows, hyp, pi, pi_xi, approx=approx))
             plain = time_ms(lambda: ek.eig_scores_from_cache_batched(
-                rows, hyp, pi, pi_xi, chunk=1024, approx=approx), reps=5)
+                rows, hyp, pi, pi_xi, chunk=1024, approx=approx), **PLAIN)
             b, by = bound(nbytes, nops, peaks)
             note += (f" ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f} "
                      f"({by})")
@@ -922,7 +891,7 @@ def _k45(dev, peaks, recs, N, gen):
                 rows, hyp_k, hyp_t, cls, pi, pi_xi, approx=approx))
             plain = time_ms(lambda: ek.eig_scores_refresh_batched_plain(
                 rows, hyp_k, hyp_t, cls, pi, pi_xi, chunk=1024,
-                approx=approx), reps=5)
+                approx=approx), **PLAIN)
             b, by = bound(nbytes, nops, peaks)
             note += (f" ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f} "
                      f"({by})")
@@ -1240,6 +1209,214 @@ def phase_main_path(dev, task) -> dict:
             f"peak_mem_gb={peak_gb:.2f} launches={json.dumps(counts)}")
         del res
     return total
+
+
+DEMO_DIGITS_ANSWERS = 8                # honest answers, digits_clip
+DEMO_HEADLINE_ANSWERS = 10             # honest answers at the headline
+
+
+def _demo_moves(answers: int) -> list:
+    """The demo's clicks after its start: ``answers`` honest answers with
+    a skip after the first half."""
+    half = answers // 2
+    return ["label"] * half + ["skip"] + ["label"] * (answers - half)
+
+
+def _demo_http(port: int, moves: list, image_dir=None) -> dict:
+    """Drive one demo session over HTTP: ``/api/start``, then each move
+    (an honest answer, the item's true label, or ``"skip"``), reading the
+    server's session for the selection probability after each. With
+    ``image_dir`` also fetch the last proposed item's image and hold it to
+    the committed file. Returns ``{"idx", "prob", "pbest", "ms"}`` lists
+    (``ms``: each click's HTTP round trip, host clock)."""
+    import numpy as np
+
+    from coda_tpu_torch.demo import app
+
+    steps = {"idx": [], "prob": [], "pbest": [], "ms": []}
+
+    def post(path, body):
+        t0 = time.perf_counter()
+        status, text = _http(port, "POST", path, body)
+        steps["ms"].append(1e3 * (time.perf_counter() - t0))
+        if status != 200:
+            raise AssertionError(f"demo {path}: HTTP {status}: {text}")
+        return json.loads(text)
+
+    out = post("/api/start", {})
+    token, state = out["token"], out["state"]
+    sess = app._SESSIONS[token]
+
+    def keep(state):
+        steps["idx"].append(state["idx"])
+        steps["prob"].append(sess.current_prob)
+        steps["pbest"].append(np.asarray(state["pbest"], np.float32))
+
+    keep(state)
+    for move in moves:
+        label = "skip" if move == "skip" else state["true_label"]
+        state = post("/api/answer", {"token": token, "label": label})
+        keep(state)
+    n_skip = moves.count("skip")
+    if (state["n_labeled"], state["n_skipped"]) != (len(moves) - n_skip,
+                                                    n_skip):
+        raise AssertionError(f"demo counts {state['n_labeled']}, "
+                             f"{state['n_skipped']}")
+    if state != post("/api/state", {"token": token}):
+        raise AssertionError("demo /api/state differs from the last answer")
+    steps["ms"].pop()
+    if image_dir is not None:
+        import urllib.request
+
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/api/image?token={token}"
+                f"&idx={state['idx']}", timeout=60) as resp:
+            status, got = resp.status, resp.read()
+        path = os.path.join(image_dir, f"digit_{state['idx']:04d}.png")
+        with open(path, "rb") as f:
+            if status != 200 or got != f.read():
+                raise AssertionError(f"demo image: not {path}")
+    return steps
+
+
+def _demo_twin(selector, labels, moves: list, gaps: bool = False) -> dict:
+    """The demo's moves through an ``InteractiveSelector`` driven directly
+    (a skip clears the item from the pool, as the demo does): each step's
+    ``idx``, ``prob``, ``pbest`` and, with ``gaps``, the runner-up gap of
+    the scores the pick was made from (the select is run once more on the
+    same key first; it reads the state only)."""
+    import torch
+
+    from coda_tpu_torch import random as trandom
+
+    get_pbest = selector.selector.extras["get_pbest"]
+    steps = {"idx": [], "prob": [], "pbest": [], "gap": []}
+
+    def pick():
+        if gaps:
+            _, sub = trandom.split(selector._key)
+            scores = selector.selector.select(selector.state, sub).scores
+            top = torch.topk(scores.float(), 2).values
+            steps["gap"].append(float(top[0] - top[1]))
+        idx, prob = selector.get_next_item_to_label()
+        steps["idx"].append(idx)
+        steps["prob"].append(prob)
+        steps["pbest"].append(get_pbest(selector.state).float().cpu()
+                              .numpy())
+        return idx, prob
+
+    idx, prob = pick()
+    for move in moves:
+        if move == "skip":
+            selector.state.unlabeled[idx] = False
+        else:
+            selector.add_label(idx, int(labels[idx]), prob)
+        idx, prob = pick()
+    return steps
+
+
+def _hold_demo(what: str, http: dict, twin: dict, plain: dict) -> str:
+    """The HTTP run bitwise its ``InteractiveSelector`` twin; against the
+    plain versions the same item at every step, or first a tie-break flip
+    whose gap (the plain run's) is at most the contract, P(best) within
+    the contract until then. Returns the verdict."""
+    import numpy as np
+
+    for t in range(len(http["idx"])):
+        if (http["idx"][t], http["prob"][t]) != (twin["idx"][t],
+                                                 twin["prob"][t]) or \
+                not np.array_equal(http["pbest"][t], twin["pbest"][t]):
+            raise AssertionError(f"demo {what}: step {t} not bitwise the "
+                                 "InteractiveSelector on the card")
+    verdict = f"PARITY ({len(http['idx'])} steps)"
+    for t in range(len(http["idx"])):
+        if http["idx"][t] != plain["idx"][t]:
+            gap = plain["gap"][t]
+            if abs(gap) > CONTRACT:
+                raise AssertionError(
+                    f"demo {what}: step {t} picks {http['idx'][t]}, the "
+                    f"plain versions {plain['idx'][t]} at a runner-up gap "
+                    f"{gap:.3e}")
+            verdict = (f"first divergence at step {t} [tie-break-flip], "
+                       f"runner-up gap {gap:.3e}")
+            break
+        err = float(np.abs(http["pbest"][t] - plain["pbest"][t]).max())
+        if err > CONTRACT:
+            raise AssertionError(f"demo {what}: step {t} P(best) {err:.3e} "
+                                 "from the plain versions'")
+    return verdict
+
+
+def phase_demo(dev, task, total: dict, smi: str) -> dict:
+    """The human-in-the-loop demo over HTTP on the card: the out-of-the-box
+    pool (digits_clip with its images) and one headline session, each with
+    the launch counters set to 0 just before and read just after, held
+    bitwise against an ``InteractiveSelector`` and by the triage's rule
+    against the plain versions. Returns the headline clicks' host ms."""
+    import argparse
+
+    import torch
+
+    from coda_tpu_torch.data import Dataset
+    from coda_tpu_torch.demo import app
+    from coda_tpu_torch.selectors import CODAHyperparams, make_coda
+    from coda_tpu_torch.selectors.protocol import InteractiveSelector
+
+    t_phase = time.perf_counter()
+    args = argparse.Namespace(task=None, synthetic=None, data_dir="data",
+                              images_dir=None, device=dev.type)
+    clip = Dataset.from_file(app.REAL_POOL, device=dev)
+    labels_clip = clip.labels.cpu().numpy()
+    C, N, H = HEADLINE
+    labels_head = task.labels.cpu().numpy()
+    runs = (("digits_clip", app.default_factory(args), clip.preds,
+             labels_clip, DEMO_DIGITS_ANSWERS, app.REAL_IMAGES),
+            (f"headline ({H}, {N}, {C})",
+             lambda: app.DemoSession(task.preds, task.labels, seed=0,
+                                     device=dev),
+             task.preds, labels_head, DEMO_HEADLINE_ANSWERS, None))
+    out = {}
+    for what, factory, preds, labels, answers, images in runs:
+        moves = _demo_moves(answers)
+        srv = app.make_server(factory, 0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            http = _demo_http(srv.server_address[1], moves, images)
+            torch.cuda.synchronize()
+            counts, by_flavour = read_counts()
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            app._SESSIONS.clear()
+        n = moves.count("label")
+        want = {"eig_score": 1, "eig_refresh_score": n, "row_gather": n}
+        if by_flavour != want:
+            raise AssertionError(f"demo {what}: launches {by_flavour}, "
+                                 f"expected {want}")
+        _tally(total, by_flavour)
+        twin = _demo_twin(InteractiveSelector(
+            make_coda(preds, CODAHyperparams(), device=dev), seed=0),
+            labels, moves)
+        plain = _demo_twin(InteractiveSelector(
+            make_coda(preds, CODAHyperparams(eig_backend="plain"),
+                      device=dev), seed=0), labels, moves, gaps=True)
+        verdict = _hold_demo(what, http, twin, plain)
+        clicks = http["ms"][1:]
+        log(f"demo {what}: start + {n} answers + 1 skip over HTTP, "
+            f"launches={json.dumps(counts)}; bitwise the "
+            f"InteractiveSelector on the card; against the plain versions "
+            f"{verdict}; start {http['ms'][0]:.1f} ms, a click p50 "
+            f"{statistics.median(clicks):.3f} max {max(clicks):.3f} ms "
+            f"(host, HTTP round trip; {smi})")
+        out[what] = {"start_ms": http["ms"][0], "click_ms": clicks}
+        del twin, plain, http
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"demo phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def _same_run(a, b, fields, what):
@@ -6891,6 +7068,12 @@ def main() -> int:
         f"peaks used for bounds: {peaks[0] / 1e12:.2f} TB/s, "
         f"{peaks[1] / 1e12:.0f} TFLOP/s fp32, {peaks[2] / 1e12:.0f} TFLOP/s "
         "TF32 tensor)")
+    stamps = [("build", time.perf_counter())]
+
+    def enter(name: str) -> str:
+        stamps.append((name, time.perf_counter()))
+        return name
+
     phase = "build"
     try:
         info = build.build_all()
@@ -6900,9 +7083,9 @@ def main() -> int:
             for line in text.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {lib}: {line.strip()}")
-        phase = "log sweep"
+        phase = enter("log sweep")
         phase_log_sweep(dev)
-        phase = "kernels"
+        phase = enter("kernels")
         recs = phase_kernels(dev, peaks)
         from coda_tpu_torch.data import make_synthetic_task
 
@@ -6911,45 +7094,50 @@ def main() -> int:
         task = make_synthetic_task(0, H=H, N=N, C=C, device=dev)
         log(f"main path: synthetic task ({H}, {N}, {C}) built in "
             f"{time.perf_counter() - t0:.1f} s")
-        phase = "main path"
+        phase = enter("main path")
         launches = phase_main_path(dev, task)
-        phase = "parity"
+        phase = enter("demo")
+        phase_demo(dev, task, launches, smi)
+        phase = enter("parity")
         phase_parity(dev)
-        phase = "baselines"
+        phase = enter("baselines")
         phase_baselines(dev, task)
-        phase = "recorded"
+        phase = enter("recorded")
         phase_recorded(dev, task, launches)
-        phase = "tiers"
+        phase = enter("tiers")
         phase_tiers(dev, task, launches)
-        phase = "batchq and surrogate"
+        phase = enter("batchq and surrogate")
         phase_batchq_surrogate(dev, task, launches)
-        phase = "replay, checkpoint and suite"
+        phase = enter("replay, checkpoint and suite")
         phase_replay_checkpoint_suite(dev, task, launches)
-        phase = "crowd and telemetry"
+        phase = enter("crowd and telemetry")
         phase_crowd_telemetry(dev, task, launches, smi, peaks)
         # each of the two serve phases holds a 16-slot headline slab (32
         # GB), and a ServeApp's objects form reference cycles that only
         # the garbage collector frees: the durability phase collects
         # before it builds its app (a dropped app's slab otherwise
         # outlives it into the next phase), and runs first
-        phase = "serve durability, tiers and quality"
+        phase = enter("serve durability, tiers and quality")
         phase_durable(dev, task, launches, smi)
-        phase = "serve"
+        phase = enter("serve")
         phase_serve(dev, task, launches, smi)
         gc.collect()
         log(f"after the serve phase: "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-        phase = "serve fleet"
+        phase = enter("serve fleet")
         phase_fleet(dev, task, launches, smi)
-        phase = "mesh"
+        phase = enter("mesh")
         kept: dict = {}
         phase_mesh(dev, task, launches, smi, keep=kept)
-        phase = "mesh model axis"
+        phase = enter("mesh model axis")
         phase_mesh_model(dev, task, launches, smi, peaks, kept)
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' FAILED", file=sys.stderr)
         return 1
+    ends = stamps[1:] + [("end", time.perf_counter())]
+    log("phase seconds: " + json.dumps(
+        {a: round(t1 - t0, 1) for (a, t0), (_, t1) in zip(stamps, ends)}))
     kernels = []
     for kname, r in recs.items():
         n = launches.get(kname, 0)

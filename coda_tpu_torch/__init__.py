@@ -11,13 +11,14 @@ passes ``device="cpu"``, where every kernel's plain PyTorch version runs.
 
 from coda_tpu_torch.data import Dataset, make_synthetic_task
 from coda_tpu_torch.losses import LOSS_FNS, accuracy_loss
-from coda_tpu_torch.oracle import true_losses
+from coda_tpu_torch.oracle import Oracle, true_losses
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Dataset",
     "make_synthetic_task",
+    "Oracle",
     "true_losses",
     "LOSS_FNS",
     "accuracy_loss",

@@ -154,6 +154,11 @@ def parse_args(argv=None):
                         "the Q answers as one update (--iters counts "
                         "rounds: Q*iters labels)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--compilation-cache-dir", default=None,
+                   help="the directory the CUDA kernels are built into "
+                        "and loaded from (ops/build.py; default "
+                        "coda_tpu_torch/_build): a later run loads the "
+                        "libraries an earlier one built, with no nvcc")
     p.add_argument("--record-dir", default=None,
                    help="decision flight recorder: write a per-round "
                         "provenance record (record.json + rounds.npz) "
@@ -401,6 +406,15 @@ def build_selector_factory(args, task_name: str):
         return lambda preds, mesh=None: SELECTOR_FACTORIES[method](
             preds, loss_fn=loss_fn, device=dev, mesh=mesh)
     raise SystemExit(f"{method} is not a supported method.")
+
+
+def build_selector(args, dataset):
+    """The configured method's selector over ``dataset``'s predictions
+    (under a mesh, its rank's block)."""
+    factory = build_selector_factory(args, dataset.name)
+    mesh = getattr(dataset, "mesh", None)
+    return (factory(dataset.preds) if mesh is None
+            else factory(dataset.preds, mesh=mesh))
 
 
 def crowd_config(args):
@@ -840,6 +854,10 @@ def _main(args, mesh):
     dev = mesh.device if mesh is not None else resolve_device(args.device)
     if args.no_cost_capture:
         costs.set_enabled(False)
+    if getattr(args, "compilation_cache_dir", None):
+        from coda_tpu_torch.ops import build
+
+        build.set_build_dir(args.compilation_cache_dir)
     if args.debug_viz:
         # before the run: a missing matplotlib fails here, not after it
         from coda_tpu_torch.utils.viz import _pyplot

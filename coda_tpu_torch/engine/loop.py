@@ -377,6 +377,19 @@ def build_experiment_fn(selector: Selector, labels: torch.Tensor,
     return experiment
 
 
+def build_recording_experiment_fn(selector: Selector, labels: torch.Tensor,
+                                  model_losses: torch.Tensor,
+                                  iters: int = 100, trace_k: int = 8,
+                                  acq_batch: int = 1):
+    """``key -> (ExperimentResult, RunTraceAux)``: the flight-recorder
+    form of :func:`build_experiment_fn` under the reference's name — the
+    same decisions, with every round's :class:`RoundTrace` (at least one
+    candidate a round, as the reference clamps ``trace_k``)."""
+    return build_experiment_fn(selector, labels, model_losses, iters,
+                               trace_k=max(1, int(trace_k)),
+                               acq_batch=acq_batch)
+
+
 def build_batched_experiment_fn(selector: Selector, labels: torch.Tensor,
                                 model_losses: torch.Tensor, iters: int = 100,
                                 timings: Optional[list] = None,
@@ -472,25 +485,34 @@ def make_batched_experiment_fn(selector_factory: Callable[[torch.Tensor],
         sel = (selector_factory(preds) if mesh is None
                else selector_factory(preds, mesh=mesh))
         losses = compute_true_losses(preds, labels, loss_fn, mesh=mesh)
-        if keys.shape[0] > 1 and seeds_batch(sel, acq_batch):
-            return build_batched_experiment_fn(sel, labels, losses, iters,
-                                               timings=timings,
-                                               trace_k=trace_k,
-                                               mesh=mesh)(keys)
-        exp = build_experiment_fn(sel, labels, losses, iters,
-                                  timings=timings, trace_k=trace_k,
-                                  acq_batch=acq_batch, mesh=mesh)
-        runs = [exp(k) for k in keys]
-        if not trace_k:
-            return ExperimentResult(*(torch.stack(f) for f in zip(*runs)))
-        results, auxes = zip(*runs)
-        aux = RunTraceAux(
-            _stack_trace([a.trace for a in auxes]),
-            *(torch.stack(f) for f in list(zip(*auxes))[1:]))
-        return (ExperimentResult(*(torch.stack(f) for f in zip(*results))),
-                aux)
+        return _run_keys(sel, labels, losses, keys, iters, timings=timings,
+                         trace_k=trace_k, acq_batch=acq_batch, mesh=mesh)
 
     return fn
+
+
+def _run_keys(sel: Selector, labels: torch.Tensor, losses: torch.Tensor,
+              keys: torch.Tensor, iters: int, timings: Optional[list] = None,
+              trace_k: int = 0, acq_batch: int = 1,
+              mesh: Optional[Mesh] = None):
+    """Every seed of ``keys (S, 2)`` through ``sel``: one batch where
+    :func:`seeds_batch` allows and S > 1, else one after another; the
+    result (and with ``trace_k > 0`` its :class:`RunTraceAux`) with a
+    leading seed axis."""
+    if keys.shape[0] > 1 and seeds_batch(sel, acq_batch):
+        return build_batched_experiment_fn(sel, labels, losses, iters,
+                                           timings=timings, trace_k=trace_k,
+                                           mesh=mesh)(keys)
+    exp = build_experiment_fn(sel, labels, losses, iters, timings=timings,
+                              trace_k=trace_k, acq_batch=acq_batch, mesh=mesh)
+    runs = [exp(k) for k in keys]
+    if not trace_k:
+        return ExperimentResult(*(torch.stack(f) for f in zip(*runs)))
+    results, auxes = zip(*runs)
+    aux = RunTraceAux(
+        _stack_trace([a.trace for a in auxes]),
+        *(torch.stack(f) for f in list(zip(*auxes))[1:]))
+    return (ExperimentResult(*(torch.stack(f) for f in zip(*results))), aux)
 
 
 def seeds_batch(selector: Selector, acq_batch: int = 1) -> bool:
@@ -507,6 +529,49 @@ def _as_tensor(x) -> torch.Tensor:
         return x
     # a read-only array (e.g. a view of a JAX array) is copied first
     return torch.from_numpy(np.require(x, requirements="W"))
+
+
+def key_bits(k) -> torch.Tensor:
+    """A key's raw words. The port's keys are raw ``(..., 2)`` words
+    already (``random.PRNGKey``), so this is the identity; the reference
+    unwraps JAX's typed keys here."""
+    return torch.as_tensor(k, dtype=torch.int64)
+
+
+def _dataset_tensors(dataset, loss_fn: Callable, model_losses):
+    """``(labels, model_losses)`` of ``dataset`` on the device of its
+    ``preds`` tensor: the true losses computed from the whole task unless
+    the caller passes them."""
+    dev = dataset.preds.device
+    labels = _as_tensor(dataset.labels).to(dev)
+    if model_losses is None:
+        model_losses = compute_true_losses(dataset.preds, labels, loss_fn)
+    return labels, _as_tensor(model_losses).to(dev)
+
+
+def run_experiment(selector: Selector, dataset, iters: int = 100,
+                   seed: int = 0, loss_fn: Callable = accuracy_loss,
+                   model_losses=None) -> ExperimentResult:
+    """One seed of the labeling experiment through an already built
+    ``selector`` (the reference's entry point): the result of
+    :func:`build_experiment_fn` at ``PRNGKey(seed)``. ``dataset`` has a
+    ``preds`` tensor on the selector's device, and ``labels``."""
+    labels, losses = _dataset_tensors(dataset, loss_fn, model_losses)
+    return build_experiment_fn(selector, labels, losses, iters)(
+        trandom.PRNGKey(seed))
+
+
+def run_seeds(selector: Selector, dataset, iters: int = 100, seeds: int = 5,
+              loss_fn: Callable = accuracy_loss, model_losses=None
+              ) -> ExperimentResult:
+    """Seeds ``0..seeds-1`` through an already built ``selector``, with a
+    leading ``(seeds,)`` axis: one batch with a replica axis where the
+    selector has a seed-batched form (:func:`seeds_batch`), as
+    :func:`make_batched_experiment_fn` runs them, else one after another.
+    Replica s is bitwise :func:`run_experiment` at ``seed=s``."""
+    labels, losses = _dataset_tensors(dataset, loss_fn, model_losses)
+    keys = torch.stack([trandom.PRNGKey(s) for s in range(seeds)])
+    return _run_keys(selector, labels, losses, keys, iters)
 
 
 def _engine_cost_name(preds, seeds: int, iters: int, factory, label,

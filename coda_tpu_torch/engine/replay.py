@@ -497,6 +497,20 @@ def compare_records(a: RunRecord, b: RunRecord,
     return report
 
 
+def record_calibration(record: RunRecord) -> dict:
+    """P(best)-vs-realized-best calibration of one ground-truth record:
+    per round, ``pbest_max`` is the posterior mass on the current argmax
+    model and the argmax was (one of) the realized best exactly when
+    ``regret`` is 0 (``telemetry/quality.pbest_calibration``'s binning).
+    Per-seed curves and the pooled one."""
+    from coda_tpu_torch.telemetry.quality import pbest_calibration
+
+    pbest_max, regret = record.arrays["pbest_max"], record.arrays["regret"]
+    return {"seeds": [pbest_calibration(pbest_max[s], regret[s])
+                      for s in range(record.seeds)],
+            "pooled": pbest_calibration(pbest_max, regret)}
+
+
 def format_triage(report: ReplayReport) -> str:
     """Human-readable verdict block (the CLI's stdout)."""
     lines = []

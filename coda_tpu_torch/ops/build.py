@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -36,6 +37,10 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[tuple, ctypes.CDLL] = {}
+# one build or load at a time in a process: two threads' first calls (the
+# demo's HTTP server serves each request on its own thread) would
+# otherwise both run nvcc into the same temporary file
+_load_lock = threading.Lock()
 
 # callables ``fn(event, seconds)`` told of every library this process
 # builds (``"build"``, the nvcc wall seconds) and loads (``"load"``: 0 s;
@@ -138,10 +143,14 @@ def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built with ``defines``),
     built on first use."""
     lib = _loaded.get((name, defines))
-    if lib is None:
-        built = library_path(name, defines).exists()
-        build_all((name,), defines)
-        lib = ctypes.CDLL(str(library_path(name, defines)))
-        _loaded[(name, defines)] = lib
-        _notify("load_built" if built else "load")
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _loaded.get((name, defines))
+        if lib is None:
+            built = library_path(name, defines).exists()
+            build_all((name,), defines)
+            lib = ctypes.CDLL(str(library_path(name, defines)))
+            _loaded[(name, defines)] = lib
+            _notify("load_built" if built else "load")
     return lib

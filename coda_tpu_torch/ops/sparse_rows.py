@@ -265,6 +265,24 @@ def scatter_row(s: SparseRows, true_class: torch.Tensor,
     return s
 
 
+def scatter_rows(s: SparseRows, true_classes: torch.Tensor,
+                 pred_classes: torch.Tensor, lr: float,
+                 weights=None) -> SparseRows:
+    """The q answers of a round, IN PLACE: ``true_classes`` (q,) and
+    ``pred_classes`` (q, H) (each answer's per-model hard predictions),
+    answer j's increment scaled by ``weights[j]`` when given. Within-batch
+    collisions are sequenced: an answer on a class row an earlier answer
+    touched starts from that answer's result, so the whole is bitwise
+    :func:`scatter_row` q times in order (the reference fuses the q
+    answers into one gather of the touched rows; here each row update is
+    a handful of small launches on the device either way). Returns
+    ``s``."""
+    for j in range(true_classes.shape[0]):
+        scatter_row(s, true_classes[j], pred_classes[j], lr,
+                    weight=None if weights is None else weights[j])
+    return s
+
+
 def densify_row(s: SparseRows, c: torch.Tensor) -> torch.Tensor:
     """Dense ``(H, C)`` (or ``(S, H, C)``) rebuild of class row ``c``:
     tracked entries exact, untracked columns at the even residual share

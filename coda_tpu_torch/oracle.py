@@ -1,11 +1,14 @@
-"""Ground truth: per-model true mean losses (counterpart of
-``coda_tpu/oracle.py``). The engine reads labels straight from the
-device-resident label vector, so only ``true_losses`` is needed here."""
+"""Ground truth: per-model true mean losses and the label server
+(counterpart of ``coda_tpu/oracle.py``). The engine reads labels straight
+from the device-resident label vector; :class:`Oracle` answers a caller
+that drives a selector from the host (a hand-driven
+``InteractiveSelector``)."""
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from coda_tpu_torch.losses import accuracy_loss
@@ -53,3 +56,32 @@ def regret_fn(losses: torch.Tensor, mesh: Optional[Mesh] = None):
         return lambda best: losses.take(best) - lowest
     return lambda best: broadcast_from_owner(
         losses, best, mesh, axis=MODEL_AXIS) - lowest
+
+
+class Oracle:
+    """Label server over a dataset with known ground truth (the
+    reference's ``Oracle``)."""
+
+    def __init__(self, dataset, loss_fn: Callable = accuracy_loss):
+        if dataset.labels is None:
+            raise ValueError("Oracle needs labels!")
+        self.dataset = dataset
+        self.labels = dataset.labels
+        self.loss_fn = loss_fn
+
+    def true_losses(self, preds: torch.Tensor) -> torch.Tensor:
+        labels = torch.as_tensor(self.labels)
+        return true_losses(preds, labels.to(preds.device), self.loss_fn)
+
+    def __call__(self, idx) -> int:
+        return int(self.labels[int(idx)])
+
+    def answer_batch(self, idxs) -> list[int]:
+        """The labels of ``idxs`` with ONE host read: one gather on the
+        labels' device, then one copy of the q answers (equal to
+        ``[self(i) for i in idxs]``)."""
+        labels = torch.as_tensor(self.labels)
+        idx = (idxs.reshape(-1) if isinstance(idxs, torch.Tensor)
+               else torch.from_numpy(np.asarray(idxs, dtype=np.int64)))
+        idx = idx.to(labels.device, torch.int64)
+        return [int(v) for v in labels.index_select(0, idx).cpu().tolist()]

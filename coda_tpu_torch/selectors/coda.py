@@ -899,6 +899,39 @@ def update_eig_cache_parts(dirichlets: Optional[torch.Tensor],
     return row_t, hyp_t
 
 
+def _write_cache_row(pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
+                     c: torch.Tensor, row_t: torch.Tensor,
+                     hyp_t: torch.Tensor) -> None:
+    """Class row ``c`` (per replica) of the P(best) cache IN PLACE,
+    ``hyp_t`` rounded to the cache's storage type."""
+    c = c.to(torch.int64)
+    if c.dim() == 0:
+        pbest_rows.index_copy_(0, c.reshape(1), row_t[None])
+        pbest_hyp.index_copy_(0, c.reshape(1),
+                              hyp_t.to(pbest_hyp.dtype)[None])
+    else:
+        rep = torch.arange(c.shape[0], device=pbest_rows.device)
+        pbest_rows[rep, c] = row_t
+        pbest_hyp[rep, c] = hyp_t.to(pbest_hyp.dtype)
+
+
+def update_eig_cache(dirichlets: Optional[torch.Tensor],
+                     true_class: torch.Tensor, hard_preds: torch.Tensor,
+                     pbest_rows: torch.Tensor, pbest_hyp: torch.Tensor,
+                     update_weight: float = 1.0, num_points: int = 256,
+                     precision: str = "highest", beta_t=None,
+                     pbest: str = "quad", mesh: Optional[Mesh] = None):
+    """Refresh class row ``true_class`` of the incremental-EIG cache IN
+    PLACE: :func:`update_eig_cache_parts`' row written into ``pbest_rows``
+    ``(C, H)`` and ``pbest_hyp`` ``(C, N, H)`` (at the cache's storage
+    type); every other row is left as it was. Returns the two tensors."""
+    row_t, hyp_t = update_eig_cache_parts(
+        dirichlets, true_class, hard_preds, update_weight, num_points,
+        precision, beta_t=beta_t, pbest=pbest, mesh=mesh)
+    _write_cache_row(pbest_rows, pbest_hyp, true_class, row_t, hyp_t)
+    return pbest_rows, pbest_hyp
+
+
 def _every_model(hard_preds: torch.Tensor, C: int, mesh: Optional[Mesh]
                  ) -> torch.Tensor:
     """``(N/a, H)``: every model's hard prediction of this rank's items,
@@ -1466,16 +1499,7 @@ def make_coda(preds: torch.Tensor, hp: Optional[CODAHyperparams] = None,
         return _surrogate_pass(state, fit, pi, pi_xi, true_classes, True)
 
     def _write_row(state: CODAState, c, row_t, hyp_t) -> None:
-        """Class row ``c`` (per replica) of the P(best) cache IN PLACE,
-        ``hyp_t`` rounded to the cache's storage type."""
-        if c.dim() == 0:
-            state.pbest_rows.index_copy_(0, c.reshape(1), row_t[None])
-            state.pbest_hyp.index_copy_(
-                0, c.reshape(1), hyp_t.to(state.pbest_hyp.dtype)[None])
-        else:
-            rep = torch.arange(c.shape[0], device=dev)
-            state.pbest_rows[rep, c] = row_t
-            state.pbest_hyp[rep, c] = hyp_t.to(state.pbest_hyp.dtype)
+        _write_cache_row(state.pbest_rows, state.pbest_hyp, c, row_t, hyp_t)
 
     def _refresh_parts(state: CODAState, true_class, beta_t):
         """:func:`update_eig_cache_parts` of the labelled class row; a seed

@@ -46,6 +46,17 @@ from coda_tpu_torch.telemetry.costs import (
 )
 from coda_tpu_torch.telemetry.prometheus import lint as lint_prometheus
 from coda_tpu_torch.telemetry.prometheus import render as render_prometheus
+from coda_tpu_torch.telemetry.quality import (
+    CalibrationMonitor,
+    CusumDetector,
+    DriftBank,
+    PageHinkley,
+    QualityPlane,
+    ShadowAuditor,
+    pbest_calibration,
+    quality_slos,
+    reliability_curve,
+)
 from coda_tpu_torch.telemetry.recorder import (
     CROSS_BACKEND_SCORE_TOL,
     KNOB_FIELDS,
@@ -74,14 +85,38 @@ from coda_tpu_torch.telemetry.registry import (
     sample_device_memory,
     sample_kernel_launches,
 )
+from coda_tpu_torch.telemetry.slo import (
+    SLObjective,
+    SloSweeper,
+    default_fleet_slos,
+)
 from coda_tpu_torch.telemetry.spans import (
     SpanRecorder,
     annotation,
     stitch_traces,
 )
+from coda_tpu_torch.telemetry.trace import TRACE_HEADER, TraceContext
+from coda_tpu_torch.telemetry.trace import mint as mint_trace
+from coda_tpu_torch.telemetry.trace import parse as parse_trace
 
 __all__ = [
     "BUILD_SOURCE",
+    "CalibrationMonitor",
+    "CusumDetector",
+    "DriftBank",
+    "PageHinkley",
+    "QualityPlane",
+    "SLObjective",
+    "ShadowAuditor",
+    "SloSweeper",
+    "TRACE_HEADER",
+    "TraceContext",
+    "default_fleet_slos",
+    "mint_trace",
+    "parse_trace",
+    "pbest_calibration",
+    "quality_slos",
+    "reliability_curve",
     "COSTS",
     "CROSS_BACKEND_SCORE_TOL",
     "CostBook",
